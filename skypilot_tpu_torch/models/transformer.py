@@ -1,20 +1,24 @@
-"""Llama-3-style decoder in PyTorch, serving path (paged KV, dense MLP).
+"""Llama-3-style decoder in PyTorch (dense MLP): the serving path (paged
+KV) and the training path (full sequence).
 
-Port of skypilot_tpu/models/transformer.py for the path the serving engine
-runs: the engine always decodes (`cfg.decode=True`), so every attention
-call — a prefill chunk, a decode step — writes its K/V into the shared
-paged pool through the block tables and attends through
-ops/paged_attention (the hand-written CUDA kernel on the card, its plain
-version on the CPU).
+Port of skypilot_tpu/models/transformer.py. Like the reference, the model
+branches on `cfg.decode`:
+- decode=True (the serving engine): every attention call — a prefill
+  chunk, a decode step — writes its K/V into the shared paged pool through
+  the block tables and attends through ops/paged_attention.
+- decode=False (training): `forward(tokens)` runs the whole sequence and
+  attends through ops/flash_attention (`impl=cfg.attention_impl`).
+Both reach hand-written CUDA kernels on the card and their plain versions
+on the CPU.
 
 Layout choices:
-- Weights keep the reference's (in, out) orientation and live in
-  `cfg.dtype` on the device. That is numerically what Flax's
-  DenseGeneral(dtype=bf16, param_dtype=fp32) does, since it casts the
-  kernel to bf16 before the dot. q/k/v share one fused (d, (H + 2 KV) D)
-  projection and gate/up one (d, 2 F) projection: one matmul each
-  instead of three and two (models/convert.py concatenates the
-  reference's kernels).
+- Weights keep the reference's (in, out) orientation. Serving keeps them
+  in `cfg.dtype` with no grad (an 8B model gains no fp32 copy). Training
+  keeps them in `cfg.param_dtype` with requires_grad and casts each to
+  `cfg.dtype` at its product: Flax's DenseGeneral(dtype, param_dtype)
+  semantics. q/k/v share one fused (d, (H + 2 KV) D) projection and
+  gate/up one (d, 2 F) projection: one matmul each instead of three and
+  two (models/convert.py concatenates the reference's kernels).
 - The KV pool is one (num_layers, num_blocks, block_size, KV, D) tensor
   each for K and V — the reference's scanned layout — and is updated IN
   PLACE, where the JAX code returns a new pool: a pool is a persistent
@@ -22,6 +26,10 @@ Layout choices:
 - Norm statistics, rope angles and attention scores are fp32, as in the
   reference. The reference's `_attend_window` math (float branch) is
   ops/paged_attention.attend_window, the kernel's plain version.
+- `cfg.remat` is per-layer `torch.utils.checkpoint` (non-reentrant):
+  remat_policy 'dots' saves the matmul outputs (the reference's
+  dots_with_no_batch_dims_saveable) through a selective-checkpoint
+  policy, 'full' saves nothing. Values do not depend on the policy.
 
 Family knobs beyond Llama-3 (biases, softcaps, parallel block, MoE,
 quantization, LoRA, learned positions, LayerNorm, tied embeddings, padded
@@ -29,18 +37,37 @@ vocab) are refused at construction; ROADMAP.md queues them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.ops.flash_attention import flash_attention
 from skypilot_tpu_torch.ops.paged_attention import paged_decode_attention
+
+# lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
+_TRUNC_STD = 0.87962566103423978
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The compute (activation) dtype."""
     return getattr(torch, cfg.dtype)
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Where the weights live: cfg.dtype when serving (decode), else
+    cfg.param_dtype (training)."""
+    return getattr(torch, cfg.dtype if cfg.decode else cfg.param_dtype)
+
+
+def _new_param(cfg: ModelConfig, shape, device) -> nn.Parameter:
+    return nn.Parameter(
+        torch.empty(shape, device=device, dtype=param_dtype(cfg)),
+        requires_grad=not cfg.decode)
 
 
 def _unsupported_knobs(cfg: ModelConfig) -> list:
@@ -84,9 +111,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = cfg.norm_eps
         self.dtype = torch_dtype(cfg)
-        self.weight = nn.Parameter(
-            torch.empty(cfg.d_model, device=device, dtype=self.dtype),
-            requires_grad=False)
+        self.weight = _new_param(cfg, cfg.d_model, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -187,32 +212,38 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
         self.cfg = cfg
-        dtype = torch_dtype(cfg)
+        self.dtype = torch_dtype(cfg)
         qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-        self.qkv_proj = nn.Parameter(
-            torch.empty(cfg.d_model, qkv_out, device=device, dtype=dtype),
-            requires_grad=False)
-        self.o_proj = nn.Parameter(
-            torch.empty(cfg.num_heads * cfg.head_dim, cfg.d_model,
-                        device=device, dtype=dtype),
-            requires_grad=False)
+        self.qkv_proj = _new_param(cfg, (cfg.d_model, qkv_out), device)
+        self.o_proj = _new_param(
+            cfg, (cfg.num_heads * cfg.head_dim, cfg.d_model), device)
 
-    def forward(self, x: torch.Tensor, step: PagedStep,
-                k_pool: torch.Tensor, v_pool: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
+                k_pool: Optional[torch.Tensor] = None,
+                v_pool: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         batch, cur_len, _ = x.shape
         heads, kv_heads, head_dim = (cfg.num_heads, cfg.num_kv_heads,
                                      cfg.head_dim)
-        q, k, v = torch.split(x @ self.qkv_proj,
+        q, k, v = torch.split(x @ self.qkv_proj.to(self.dtype),
                               [heads * head_dim, kv_heads * head_dim,
                                kv_heads * head_dim], dim=-1)
         q = _rotate(q.reshape(batch, cur_len, heads, head_dim), step.cos,
                     step.sin)
         k = _rotate(k.reshape(batch, cur_len, kv_heads, head_dim), step.cos,
                     step.sin)
+        # v stays a strided view of the projection output: the flash
+        # kernels read it through its strides.
         v = v.reshape(batch, cur_len, kv_heads, head_dim)
-        out = self._paged_decode_attention(q, k, v, step, k_pool, v_pool)
-        return out.reshape(batch, cur_len, heads * head_dim) @ self.o_proj
+        if cfg.decode:
+            out = self._paged_decode_attention(q, k, v, step, k_pool, v_pool)
+        else:
+            out = flash_attention(q, k, v, causal=True,
+                                  impl=cfg.attention_impl,
+                                  logit_softcap=cfg.attn_logit_softcap,
+                                  window=cfg.sliding_window)
+        return (out.reshape(batch, cur_len, heads * head_dim) @
+                self.o_proj.to(self.dtype))
 
     def _paged_decode_attention(self, q, k, v, step: PagedStep, k_pool,
                                 v_pool) -> torch.Tensor:
@@ -235,19 +266,17 @@ class SwiGLU(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
-        dtype = torch_dtype(cfg)
+        self.dtype = torch_dtype(cfg)
         self.d_mlp = cfg.d_mlp
-        self.gate_up_proj = nn.Parameter(
-            torch.empty(cfg.d_model, 2 * cfg.d_mlp, device=device,
-                        dtype=dtype),
-            requires_grad=False)
-        self.down_proj = nn.Parameter(
-            torch.empty(cfg.d_mlp, cfg.d_model, device=device, dtype=dtype),
-            requires_grad=False)
+        self.gate_up_proj = _new_param(cfg, (cfg.d_model, 2 * cfg.d_mlp),
+                                       device)
+        self.down_proj = _new_param(cfg, (cfg.d_mlp, cfg.d_model), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = torch.split(x @ self.gate_up_proj, self.d_mlp, dim=-1)
-        return (nn.functional.silu(gate) * up) @ self.down_proj
+        gate, up = torch.split(x @ self.gate_up_proj.to(self.dtype),
+                               self.d_mlp, dim=-1)
+        return ((nn.functional.silu(gate) * up) @
+                self.down_proj.to(self.dtype))
 
 
 class DecoderLayer(nn.Module):
@@ -260,41 +289,66 @@ class DecoderLayer(nn.Module):
         self.mlp_norm = RMSNorm(cfg, device)
         self.mlp = SwiGLU(cfg, device)
 
-    def forward(self, x: torch.Tensor, step: PagedStep,
-                k_pool: torch.Tensor, v_pool: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
+                k_pool: Optional[torch.Tensor] = None,
+                v_pool: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.attn_norm(x), step, k_pool, v_pool)
         return x + self.mlp(self.mlp_norm(x))
+
+
+class FullStep(NamedTuple):
+    """Per-forward inputs every layer shares on the training path: the
+    rope cos/sin of positions 0..S-1 (or the caller's positions)."""
+    cos: torch.Tensor           # (B, S, 1, D / 2) fp32
+    sin: torch.Tensor
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """remat_policy='dots': keep the outputs of the plain (unbatched)
+    matmuls — the projections — and recompute everything else, as the
+    reference's dots_with_no_batch_dims_saveable does."""
+    del ctx, args, kwargs
+    return (checkpoint_lib.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    if policy == 'dots':
+        return functools.partial(
+            checkpoint_lib.create_selective_checkpoint_contexts,
+            _save_matmuls)
+    if policy == 'full':
+        return checkpoint_lib.noop_context_fn
+    raise ValueError(f"remat_policy must be 'dots' or 'full', got "
+                     f"{policy!r}")
 
 
 class Transformer(nn.Module):
     """Embedding, `num_layers` decoder layers, final norm, untied lm_head.
 
-    Parameters are created EMPTY on `device` in `cfg.dtype`; fill them
-    with `init_random_` (seeded, one tensor at a time — an 8B model is
-    never built in fp32 on the host) or `load_state_dict` (e.g. from
+    Parameters are created EMPTY on `device` in `param_dtype(cfg)`; fill
+    them with `init_random_` (seeded, one tensor at a time — an 8B model
+    is never built in fp32 on the host) or `load_state_dict` (e.g. from
     models/convert.params_from_jax)."""
 
     def __init__(self, cfg: ModelConfig, device='cpu') -> None:
         super().__init__()
         check_supported(cfg)
-        if not cfg.paged_block_size:
+        if cfg.decode and not cfg.paged_block_size:
             raise NotImplementedError(
                 'the PyTorch port serves the paged KV layout only '
                 '(paged_block_size > 0); the contiguous layout is not '
                 'ported yet')
         self.cfg = cfg
-        dtype = torch_dtype(cfg)
-        self.embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, device=device,
-                        dtype=dtype),
-            requires_grad=False)
+        self.dtype = torch_dtype(cfg)
+        self.embed = _new_param(cfg, (cfg.vocab_size, cfg.d_model), device)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg, device)
-        self.lm_head = nn.Parameter(
-            torch.empty(cfg.d_model, cfg.vocab_size, device=device,
-                        dtype=dtype),
-            requires_grad=False)
+        self.lm_head = _new_param(cfg, (cfg.d_model, cfg.vocab_size), device)
         self.register_buffer(
             'rope_freqs', rope_freqs(cfg.head_dim, cfg.rope_theta,
                                      cfg.rope_scaling, device=device),
@@ -302,9 +356,13 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def init_random_(self, seed: int) -> 'Transformer':
-        """Seeded random weights in place: embedding N(0, 1) (the
-        reference's untied init), projections N(0, 1/fan_in), norm
-        scales 1. Draws on the parameters' own device."""
+        """Seeded random weights in place, from the reference's
+        distributions: the untied embedding N(0, 1); every projection
+        Flax's lecun_normal, a normal cut at +-2 sigma with sigma =
+        sqrt(1 / fan_in) / 0.8796 (fan_in = the input axes, the first
+        dimension of each (in, out) matrix); norm scales 1. Draws on the
+        parameters' own device (torch.Generator: other numbers than
+        jax.random from the same seed)."""
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         for name, param in self.named_parameters():
             if name.endswith('norm.weight'):
@@ -312,7 +370,8 @@ class Transformer(nn.Module):
             elif name == 'embed':
                 param.normal_(0.0, 1.0, generator=gen)
             else:
-                param.normal_(0.0, param.shape[0] ** -0.5, generator=gen)
+                _truncated_normal_(param, param.shape[0] ** -0.5 /
+                                   _TRUNC_STD, gen)
         return self
 
     def new_kv_pool(self, num_blocks: int
@@ -325,18 +384,55 @@ class Transformer(nn.Module):
         kwargs = dict(device=self.embed.device, dtype=self.embed.dtype)
         return torch.zeros(shape, **kwargs), torch.zeros(shape, **kwargs)
 
-    def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
-                block_tables: torch.Tensor, k_pool: torch.Tensor,
-                v_pool: torch.Tensor,
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                k_pool: Optional[torch.Tensor] = None,
+                v_pool: Optional[torch.Tensor] = None,
                 logits_at: Optional[int] = None) -> torch.Tensor:
-        """tokens/positions: (B, T) int; block_tables: (B, bps + 1) int32;
-        k_pool/v_pool: the (L, NB, bs, KV, D) pools, written in place.
-        Returns (B, T, vocab) logits in cfg.dtype, or (B, vocab) for the
-        single chunk position `logits_at`."""
-        x = nn.functional.embedding(tokens.long(), self.embed)
-        step = paged_step(self.cfg, positions, block_tables, self.rope_freqs)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, step, k_pool[i], v_pool[i])
+        """tokens/positions: (B, T) int. Serving (cfg.decode):
+        block_tables (B, bps + 1) int32 and the (L, NB, bs, KV, D) pools
+        k_pool/v_pool, written in place. Training: positions default to
+        0..T-1 and the pools are not used. Returns (B, T, vocab) logits
+        in cfg.dtype, or (B, vocab) for the single position `logits_at`."""
+        cfg = self.cfg
+        x = nn.functional.embedding(tokens.long(), self.embed).to(self.dtype)
+        if cfg.decode:
+            step = paged_step(cfg, positions, block_tables, self.rope_freqs)
+            for i, layer in enumerate(self.layers):
+                x = layer(x, step, k_pool[i], v_pool[i])
+        else:
+            if positions is None:
+                positions = torch.arange(
+                    tokens.shape[1], dtype=torch.int32,
+                    device=tokens.device).expand(tokens.shape)
+            step = FullStep(*rope_cos_sin(positions, self.rope_freqs))
+            remat = cfg.remat and torch.is_grad_enabled()
+            context_fn = _remat_context(cfg.remat_policy) if remat else None
+            for layer in self.layers:
+                if remat:
+                    x = checkpoint_lib.checkpoint(
+                        layer, x, step, use_reentrant=False,
+                        context_fn=context_fn)
+                else:
+                    x = layer(x, step)
         if logits_at is not None:
             x = x[:, logits_at]
-        return self.final_norm(x) @ self.lm_head
+        return self.final_norm(x) @ self.lm_head.to(self.dtype)
+
+
+def _truncated_normal_(param: torch.Tensor, std: float,
+                       gen: torch.Generator, chunk: int = 1 << 24) -> None:
+    """param <- std * N(0, 1) truncated to [-2, 2], by the inverse CDF of
+    a uniform draw (how jax.random.truncated_normal draws), in fp32 row
+    chunks of at most `chunk` elements, so that a large matrix never
+    needs a full fp32 copy."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    flat = param.view(param.shape[0], -1)
+    rows = max(1, chunk // flat.shape[1])
+    for start in range(0, flat.shape[0], rows):
+        block = flat[start:start + rows]
+        u = torch.rand(block.shape, generator=gen, device=param.device,
+                       dtype=torch.float32)
+        x = torch.erfinv(lo + (hi - lo) * u) * math.sqrt(2)
+        block.copy_(x.clamp_(-2.0, 2.0).mul_(std))

@@ -1,0 +1,1170 @@
+// Full-sequence (training) attention for Hopper (sm_90a), float and bf16:
+// the forward, the dQ backward and the dK/dV backward.
+//
+// Replaces the three TPU kernels of skypilot_tpu/ops/flash_attention.py,
+// reached from the `jax.custom_vjp` `_flash` on the training path (every
+// layer's attention when cfg.decode is False):
+//   flash_fwd_kernel  <- `_fwd_kernel`     (:74,  pl.pallas_call at :151)
+//   flash_dq_kernel   <- `_bwd_dq_kernel`  (:171, pl.pallas_call at :289)
+//   flash_dkv_kernel  <- `_bwd_dkv_kernel` (:220, pl.pallas_call at :305)
+//
+// What they compute (the TPU kernels' contract). Scores s = q.k^T are
+// accumulated in fp32 from operands in the input dtype, scaled by
+// sm_scale, and masked to -1e30 (not -inf) unless k <= q (causal) and
+// q - k < window. Forward: an online softmax (m, l, acc in fp32) across
+// key tiles; p is rounded to the input dtype before the P.V product while
+// l sums it unrounded; out = acc / max(l, 1e-30); lse = m + log(max(l,
+// 1e-30)) per row. A fully masked leading tile (m = -1e30) washes out as
+// soon as a visible tile follows: alpha = exp(-1e30 - m_real) is exactly
+// 0 in fp32. Backward: p = exp(s - lse), dp = dO.V^T, ds = p (dp - delta)
+// with delta = rowsum(dO * O) formed by the caller; dq = ds.K * sm_scale,
+// dv = p^T.dO, dk = ds^T.Q * sm_scale, with p and ds rounded to the input
+// dtype before each product.
+//
+// Translation to Hopper.
+// - Layout. The TPU path folds (B, S, H, D) to (B*H, S, D) and repeats K/V
+//   n_rep times before its kernels. Here every kernel reads the (B, S, H,
+//   D) tensors in place through their strides (the fused qkv projection's
+//   column slices need no copy) and indexes KV head h / n_rep itself, so
+//   no folded or repeated copy ever exists in device memory. The dK/dV
+//   kernel for KV head j walks the n_rep query heads of its group and
+//   keeps the sum in registers (the reference's GQA sum after the kernel),
+//   so no atomics are used and two runs give identical bits.
+// - Grid. A TPU grid runs in order; CUDA blocks run in no order, so the
+//   sequential axis becomes a loop inside the block. Forward and dQ: one
+//   CUDA block per (b, h, q tile), looping over k tiles from the first the
+//   window lets in to the last the causal mask lets in; tiles outside are
+//   skipped, not masked. The q-tile axis is walked from the last (longest
+//   causal walk) down, so the heavy tiles start first. dK/dV: one CUDA
+//   block per (b, kv head, k tile), looping over q tiles from the first
+//   that can see it. At B 8, H 16, S 1024 a 64-row tile gives 2048
+//   forward/dQ blocks and 1024 dK/dV blocks for 132 SMs.
+// - Ragged S. The TPU path needs S to tile by its blocks; here the last
+//   tile is masked: absent keys get p = 0 exactly and absent query rows
+//   are neither written nor summed into dK/dV, so any S works.
+// - Two routes. bf16 at head_dim 64 and 128 (the training path) runs the
+//   tensor-core kernels further down (mma.sync, 4 warps, 16 rows each).
+//   fp32, and bf16 at head_dim 256, run the CUDA-core kernels right below:
+//   BQ = BK = 64 rows (32 at head_dim 256), 256 threads in a 16 x 16
+//   layout; a thread owns rows ty + 16 i and key columns tx + 16 j of each
+//   score tile (the 16 lanes that share a row reduce it with shuffles)
+//   and column pairs 2 tx + 32 j of each D-wide accumulator. Tiles sit in
+//   shared memory in the input dtype with rows padded by two elements,
+//   which makes the pair loads of the score loop free of bank conflicts;
+//   global loads are 16 bytes wide.
+//
+// What bounds them on the H100. At the training shape (causal S 1024,
+// D 128, bf16, two query heads per KV head) the forward does 4 D FLOPs per
+// visible (query, key) pair, ~350 FLOPs per byte of Q, K, V and O: above
+// the card's ~295 FLOP/byte bf16 ridge, so the bound is operations over
+// the tensor cores' 989 TFLOP/s; the backward needs five products (10 D
+// per pair: s, dp and dq counted to dQ, dk and dv to dK/dV) and is further
+// above it (the two kernels do 14 D, since dK/dV rebuilds s and dp). The
+// mma.sync route reaches the tensor cores but not their full rate (that
+// takes wgmma, TMA and warp specialisation, a later step); the CUDA-core
+// route (67 TFLOP/s fp32 peak, four FMAs per pair of words loaded from
+// shared memory) is the right-and-simple version and the fp32 path.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kMaskValue = -1e30f;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;     // (B, H, S)
+  const float* delta;   // (B, H, S)
+  void* out;            // forward O or dQ: (B, S, H, D) contiguous
+  float* lse_out;       // forward lse: (B, H, S)
+  void* dk;             // (B, S, KV, D) contiguous
+  void* dv;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;   // o: dO in the backward
+  int batch, seq, heads, kv_heads, n_rep, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+template <typename T>
+struct Elt;
+
+template <>
+struct Elt<float> {
+  __device__ static __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  __device__ static __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  __device__ static __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Elt<__nv_bfloat16> {
+  __device__ static __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ static __forceinline__ void store2(__nv_bfloat16* p, float a,
+                                                float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  __device__ static __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+// Rows [r0, r0 + ROWS) of one (b, head) slab into a [ROWS][D + 2] tile,
+// 16 bytes per global load, zeros past S.
+template <typename T, int ROWS, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          long long row_stride, int r0,
+                                          int seq) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  constexpr int kLd = D + 2;
+  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < seq) {
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
+    }
+    uint32_t* w = reinterpret_cast<uint32_t*>(dst + r * kLd + c);
+    w[0] = val.x;
+    w[1] = val.y;
+    w[2] = val.z;
+    w[3] = val.w;
+  }
+}
+
+// Per-row (lse, delta) of rows [r0, r0 + ROWS) into shared memory.
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int seq) {
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
+    dst[r] = r0 + r < seq ? src[r0 + r] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  }
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// The reference's mask on one scaled score: absent keys (c >= S) -inf,
+// causal / window misses -1e30.
+__device__ __forceinline__ float masked(float s, int r, int c, const Args& a) {
+  if (c >= a.seq) return neg_inf();
+  if (a.causal && c > r) return kMaskValue;
+  if (a.window > 0 && r - c >= a.window) return kMaskValue;
+  return s;
+}
+
+// acc[MI][NJ] += A[ty + 16 i][:] . B[tx + 16 j][:] over D, both tiles in
+// shared memory with rows of D + 2 elements.
+template <typename T, int MI, int NJ, int D>
+__device__ __forceinline__ void tile_dots(float (&acc)[MI][NJ], const T* A,
+                                          const T* B, int ty, int tx) {
+  constexpr int kLd = D + 2;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 2) {
+    float2 a[MI], b[NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) a[i] = Elt<T>::load2(A + (ty + 16 * i) * kLd + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) b[j] = Elt<T>::load2(B + (tx + 16 * j) * kLd + d);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T, int D, int BQ, int BK>
+constexpr size_t fwd_smem() {
+  return (BQ + 2 * BK) * (D + 2) * sizeof(T) + BQ * (BK + 1) * sizeof(float);
+}
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const Args a) {
+  constexpr int kLd = D + 2, kPs = BK + 1;
+  constexpr int MI = BQ / 16, NJ = BK / 16, DJ = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + BQ * kLd;
+  T* vs = ks + BK * kLd;
+  float* ps = reinterpret_cast<float*>(vs + BK * kLd);
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int kvh = h / a.n_rep;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  load_tile<T, BQ, D>(qs, q, a.q_ss, q0, a.seq);
+  const int k_hi = a.causal ? min(a.seq, q0 + BQ) : a.seq;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+
+  float m[MI], l[MI], acc[MI][DJ][2];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    m[i] = neg_inf();
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
+  }
+
+  for (int kt = k_lo / BK; kt * BK < k_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();                        // last tile's ps / vs reads done
+    load_tile<T, BK, D>(ks, k, a.k_ss, k0, a.seq);
+    load_tile<T, BK, D>(vs, v, a.v_ss, k0, a.seq);
+    __syncthreads();
+    float s[MI][NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+    tile_dots<T, MI, NJ, D>(s, qs, ks, ty, tx);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int r = q0 + ty + 16 * i;
+      float mx = neg_inf();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[i][j] = masked(s[i][j] * a.scale, r, k0 + tx + 16 * j, a);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        ps[(ty + 16 * i) * kPs + tx + 16 * j] = Elt<T>::round(p);
+      }
+      l[i] = l[i] * alpha + row_sum16(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        acc[i][j][0] *= alpha;
+        acc[i][j][1] *= alpha;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float2 vv[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = Elt<T>::load2(vs + c * kLd + 2 * tx + 32 * j);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const float p = ps[(ty + 16 * i) * kPs + c];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          acc[i][j][0] = fmaf(p, vv[j].x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(p, vv[j].y, acc[i][j][1]);
+        }
+      }
+    }
+  }
+
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= a.seq) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    T* row = out + ((static_cast<long long>(b) * a.seq + r) * a.heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      Elt<T>::store2(row + 2 * tx + 32 * j, acc[i][j][0] / l_safe,
+                     acc[i][j][1] / l_safe);
+    }
+    if (tx == 0) {
+      a.lse_out[(static_cast<long long>(b) * a.heads + h) * a.seq + r] =
+          m[i] + logf(l_safe);
+    }
+  }
+}
+
+// p and ds of one score tile for rows ty + 16 i, columns tx + 16 j; rows
+// or columns past S give exactly 0.
+template <int MI, int NJ>
+__device__ __forceinline__ void probs_and_dscores(
+    float (&s)[MI][NJ], float (&dp)[MI][NJ], const float* lse_s,
+    const float* delta_s, int q0, int k0, int ty, int tx, const Args& a) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int rl = ty + 16 * i;
+    const int r = q0 + rl;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = k0 + tx + 16 * j;
+      float p = 0.f;
+      if (r < a.seq && c < a.seq) {
+        p = expf(masked(s[i][j] * a.scale, r, c, a) - lse_s[rl]);
+      }
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - delta_s[rl]);
+    }
+  }
+}
+
+template <typename T, int D, int BQ, int BK>
+constexpr size_t dq_smem() {
+  return (2 * BQ + 2 * BK) * (D + 2) * sizeof(T) +
+         (BQ * (BK + 1) + 2 * BQ) * sizeof(float);
+}
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_kernel(const Args a) {
+  constexpr int kLd = D + 2, kPs = BK + 1;
+  constexpr int MI = BQ / 16, NJ = BK / 16, DJ = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + BQ * kLd;
+  T* ks = dos + BQ * kLd;
+  T* vs = ks + BK * kLd;
+  float* dss = reinterpret_cast<float*>(vs + BK * kLd);
+  float* lse_s = dss + BQ * kPs;
+  float* delta_s = lse_s + BQ;
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int kvh = h / a.n_rep;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.seq;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  load_tile<T, BQ, D>(qs, q, a.q_ss, q0, a.seq);
+  load_tile<T, BQ, D>(dos, dout, a.o_ss, q0, a.seq);
+  load_rows<BQ>(lse_s, a.lse + row_base, q0, a.seq);
+  load_rows<BQ>(delta_s, a.delta + row_base, q0, a.seq);
+  const int k_hi = a.causal ? min(a.seq, q0 + BQ) : a.seq;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+
+  float dq[MI][DJ][2];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dq[i][j][0] = dq[i][j][1] = 0.f;
+
+  for (int kt = k_lo / BK; kt * BK < k_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_tile<T, BK, D>(ks, k, a.k_ss, k0, a.seq);
+    load_tile<T, BK, D>(vs, v, a.v_ss, k0, a.seq);
+    __syncthreads();
+    float s[MI][NJ], dp[MI][NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_dots<T, MI, NJ, D>(s, qs, ks, ty, tx);
+    tile_dots<T, MI, NJ, D>(dp, dos, vs, ty, tx);
+    probs_and_dscores<MI, NJ>(s, dp, lse_s, delta_s, q0, k0, ty, tx, a);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        dss[(ty + 16 * i) * kPs + tx + 16 * j] = Elt<T>::round(dp[i][j]);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float2 kk[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kk[j] = Elt<T>::load2(ks + c * kLd + 2 * tx + 32 * j);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const float ds = dss[(ty + 16 * i) * kPs + c];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          dq[i][j][0] = fmaf(ds, kk[j].x, dq[i][j][0]);
+          dq[i][j][1] = fmaf(ds, kk[j].y, dq[i][j][1]);
+        }
+      }
+    }
+  }
+
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= a.seq) continue;
+    T* row = out + ((static_cast<long long>(b) * a.seq + r) * a.heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      Elt<T>::store2(row + 2 * tx + 32 * j, dq[i][j][0] * a.scale,
+                     dq[i][j][1] * a.scale);
+    }
+  }
+}
+
+template <typename T, int D, int BQ, int BK>
+constexpr size_t dkv_smem() {
+  return (2 * BQ + 2 * BK) * (D + 2) * sizeof(T) +
+         (2 * BQ * (BK + 1) + 2 * BQ) * sizeof(float);
+}
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_kernel(const Args a) {
+  constexpr int kLd = D + 2, kPs = BK + 1;
+  constexpr int MI = BQ / 16, NJ = BK / 16, MK = BK / 16, DJ = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + BK * kLd;
+  T* qs = vs + BK * kLd;
+  T* dos = qs + BQ * kLd;
+  float* ps = reinterpret_cast<float*>(dos + BQ * kLd);
+  float* dss = ps + BQ * kPs;
+  float* lse_s = dss + BQ * kPs;
+  float* delta_s = lse_s + BQ;
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int b = blockIdx.x / a.kv_heads, kvh = blockIdx.x % a.kv_heads;
+  const int k0 = blockIdx.y * BK;             // causal: heaviest tiles first
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  load_tile<T, BK, D>(ks, k, a.k_ss, k0, a.seq);
+  load_tile<T, BK, D>(vs, v, a.v_ss, k0, a.seq);
+
+  // Queries that can see a key of this tile: r >= k0 (causal) and
+  // r < k0 + BK - 1 + window (window).
+  const int r_lo = a.causal ? k0 : 0;
+  const int r_hi = a.window > 0 ? min(a.seq, k0 + BK - 1 + a.window) : a.seq;
+
+  float dk[MK][DJ][2], dv[MK][DJ][2];
+#pragma unroll
+  for (int i = 0; i < MK; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      dk[i][j][0] = dk[i][j][1] = dv[i][j][0] = dv[i][j][1] = 0.f;
+
+  for (int rep = 0; rep < a.n_rep; ++rep) {
+    const int h = kvh * a.n_rep + rep;
+    const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.seq;
+    const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const T* dout = static_cast<const T*>(a.dout) + b * a.o_sb + h * a.o_sh;
+    for (int qt = r_lo / BQ; qt * BQ < r_hi; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();                      // last tile's reads done
+      load_tile<T, BQ, D>(qs, q, a.q_ss, q0, a.seq);
+      load_tile<T, BQ, D>(dos, dout, a.o_ss, q0, a.seq);
+      load_rows<BQ>(lse_s, a.lse + row_base, q0, a.seq);
+      load_rows<BQ>(delta_s, a.delta + row_base, q0, a.seq);
+      __syncthreads();
+      float s[MI][NJ], dp[MI][NJ];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
+      tile_dots<T, MI, NJ, D>(s, qs, ks, ty, tx);
+      tile_dots<T, MI, NJ, D>(dp, dos, vs, ty, tx);
+      probs_and_dscores<MI, NJ>(s, dp, lse_s, delta_s, q0, k0, ty, tx, a);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          ps[(ty + 16 * i) * kPs + tx + 16 * j] = Elt<T>::round(s[i][j]);
+          dss[(ty + 16 * i) * kPs + tx + 16 * j] = Elt<T>::round(dp[i][j]);
+        }
+      }
+      __syncthreads();
+      // dv[c] += sum_r p[r][c] dO[r];  dk[c] += sum_r ds[r][c] Q[r]
+#pragma unroll 2
+      for (int r = 0; r < BQ; ++r) {
+        float2 dov[DJ], qv[DJ];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          dov[j] = Elt<T>::load2(dos + r * kLd + 2 * tx + 32 * j);
+          qv[j] = Elt<T>::load2(qs + r * kLd + 2 * tx + 32 * j);
+        }
+#pragma unroll
+        for (int i = 0; i < MK; ++i) {
+          const float p = ps[r * kPs + ty + 16 * i];
+          const float ds = dss[r * kPs + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            dv[i][j][0] = fmaf(p, dov[j].x, dv[i][j][0]);
+            dv[i][j][1] = fmaf(p, dov[j].y, dv[i][j][1]);
+            dk[i][j][0] = fmaf(ds, qv[j].x, dk[i][j][0]);
+            dk[i][j][1] = fmaf(ds, qv[j].y, dk[i][j][1]);
+          }
+        }
+      }
+    }
+  }
+
+  T* dk_out = static_cast<T*>(a.dk);
+  T* dv_out = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < MK; ++i) {
+    const int c = k0 + ty + 16 * i;
+    if (c >= a.seq) continue;
+    const long long off =
+        ((static_cast<long long>(b) * a.seq + c) * a.kv_heads + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      Elt<T>::store2(dk_out + off + 2 * tx + 32 * j, dk[i][j][0] * a.scale,
+                     dk[i][j][1] * a.scale);
+      Elt<T>::store2(dv_out + off + 2 * tx + 32 * j, dv[i][j][0],
+                     dv[i][j][1]);
+    }
+  }
+}
+
+// ------------------------------------------------ bf16 tensor-core kernels
+//
+// For bf16 at head_dim 64 and 128 (the training path) the products run on
+// the tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
+// accumulation): the same contract, masks and rounding points as the
+// kernels above, with 4 warps per CUDA block and each warp owning 16 rows
+// of the tile. Tiles sit row-major in shared memory (rows padded by 8
+// elements, so the 8 rows an ldmatrix phase reads fall in distinct
+// banks); fragments come in through ldmatrix, and an operand whose
+// fragment runs along the key or query axis (V for P.V, K for dS.K, Q and
+// dO for the dK/dV products) through ldmatrix.trans. The score
+// accumulators turn into the next product's A fragments in registers,
+// without a trip through shared memory.
+
+constexpr int kMmaThreads = 128;
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [r0, r0 + ROWS) of a (b, head) slab into [ROWS][D + 8], zeros past S.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows_mma(bf16* dst, const bf16* src,
+                                              long long row_stride, int r0,
+                                              int seq) {
+  constexpr int kPerRow = D / 8, kLd = D + 8;
+  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kMmaThreads) {
+    const int r = idx / kPerRow, c = (idx % kPerRow) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < seq) {
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
+  }
+}
+
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int r0, int rows, int seq) {
+  for (int r = threadIdx.x; r < rows; r += kMmaThreads) {
+    dst[r] = r0 + r < seq ? src[r0 + r] : 0.f;
+  }
+}
+
+// Fragments through ldmatrix: lane l gives the address of row l % 8 of
+// 8 x 8 matrix l / 8. Tiles are row-major with leading dimension ld.
+// A fragment of rows [row, row + 16), columns [col, col + 16).
+__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile,
+                                       int ld, int row, int col, int lane) {
+  const int m = lane / 8, r = lane % 8;
+  ldsm_x4(f, tile + (row + r + (m % 2) * 8) * ld + col + (m / 2) * 8);
+}
+
+// B fragments (k 16 x n 8) of two n-tiles, n rows [n0, n0 + 16), k
+// columns [k0, k0 + 16), from a tile stored [n][k]: f[0], f[1] for the
+// first n-tile, f[2], f[3] for the second.
+__device__ __forceinline__ void load_b_nk(uint32_t (&f)[4], const bf16* tile,
+                                          int ld, int n0, int k0, int lane) {
+  const int m = lane / 8, r = lane % 8;
+  ldsm_x4(f, tile + (n0 + (m / 2) * 8 + r) * ld + k0 + (m % 2) * 8);
+}
+
+// The same from a tile stored [k][n] (k rows [k0, k0 + 16), n columns
+// [n0, n0 + 16)), transposed on the way by ldmatrix.trans.
+__device__ __forceinline__ void load_b_kn(uint32_t (&f)[4], const bf16* tile,
+                                          int ld, int k0, int n0, int lane) {
+  const int m = lane / 8, r = lane % 8;
+  ldsm_x4_t(f, tile + (k0 + (m % 2) * 8 + r) * ld + n0 + (m / 2) * 8);
+}
+
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return 3 * 64 * (D + 8) * sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const Args a) {
+  constexpr int BQ = 64, BK = 64, kLd = D + 8;
+  constexpr int KS = D / 16, NT = BK / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + BQ * kLd;
+  bf16* vs = ks + BK * kLd;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int kvh = h / a.n_rep;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.seq);
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) load_a(qf[kk], qs, kLd, warp * 16, kk * 16, lane);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int k_hi = a.causal ? min(a.seq, q0 + BQ) : a.seq;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+
+  float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f;
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int kt = k_lo / BK; kt * BK < k_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.seq);
+    load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.seq);
+    __syncthreads();
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t kb[4];
+        load_b_nk(kb, ks, kLd, j * 8, kk * 16, lane);
+        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+    float mx0 = neg_inf(), mx1 = neg_inf();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = k0 + j * 8 + 2 * t;
+      s[j][0] = masked(s[j][0] * a.scale, r0, c, a);
+      s[j][1] = masked(s[j][1] * a.scale, r0, c + 1, a);
+      s[j][2] = masked(s[j][2] * a.scale, r1, c, a);
+      s[j][3] = masked(s[j][3] * a.scale, r1, c + 1, a);
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
+    const float alpha0 = expf(m0 - n0), alpha1 = expf(m1 - n1);
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float p0 = expf(s[j][0] - n0), p1 = expf(s[j][1] - n0);
+      const float p2 = expf(s[j][2] - n1), p3 = expf(s[j][3] - n1);
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * alpha0 + quad_sum(sum0);
+    l1 = l1 * alpha1 + quad_sum(sum1);
+    m0 = n0;
+    m1 = n1;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      o[j][0] *= alpha0;
+      o[j][1] *= alpha0;
+      o[j][2] *= alpha1;
+      o[j][3] *= alpha1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t vb[4];
+        load_b_kn(vb, vs, kLd, kk * 16, j * 8, lane);
+        mma_bf16(o[j], pf[kk], vb[0], vb[1]);
+        mma_bf16(o[j + 1], pf[kk], vb[2], vb[3]);
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
+  const long long head_row = static_cast<long long>(a.heads) * D;
+  bf16* row0 = out + (static_cast<long long>(b) * a.seq + r0) * head_row + h * D;
+  bf16* row1 = row0 + 8 * head_row;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    if (r0 < a.seq) {
+      *reinterpret_cast<uint32_t*>(row0 + j * 8 + 2 * t) =
+          pack_bf16(o[j][0] / ls0, o[j][1] / ls0);
+    }
+    if (r1 < a.seq) {
+      *reinterpret_cast<uint32_t*>(row1 + j * 8 + 2 * t) =
+          pack_bf16(o[j][2] / ls1, o[j][3] / ls1);
+    }
+  }
+  if (t == 0) {
+    float* lse = a.lse_out + (static_cast<long long>(b) * a.heads + h) * a.seq;
+    if (r0 < a.seq) lse[r0] = m0 + logf(ls0);
+    if (r1 < a.seq) lse[r1] = m1 + logf(ls1);
+  }
+}
+
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return 4 * 64 * (D + 8) * sizeof(bf16) + 2 * 64 * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dq_mma_kernel(const Args a) {
+  constexpr int BQ = 64, BK = 64, kLd = D + 8;
+  constexpr int KS = D / 16, NT = BK / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + BQ * kLd;
+  bf16* ks = dos + BQ * kLd;
+  bf16* vs = ks + BK * kLd;
+  float* lse_s = reinterpret_cast<float*>(vs + BK * kLd);
+  float* delta_s = lse_s + BQ;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int kvh = h / a.n_rep;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.seq;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.seq);
+  load_rows_mma<BQ, D>(dos, dout, a.o_ss, q0, a.seq);
+  load_rows_f32(lse_s, a.lse + row_base, q0, BQ, a.seq);
+  load_rows_f32(delta_s, a.delta + row_base, q0, BQ, a.seq);
+  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;      // rows in the tile
+  const int r0 = q0 + lr0, r1 = q0 + lr1;
+  const int k_hi = a.causal ? min(a.seq, q0 + BQ) : a.seq;
+  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+
+  float dq[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int kt = k_lo / BK; kt * BK < k_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.seq);
+    load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.seq);
+    __syncthreads();
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], da[4];
+      load_a(qa, qs, kLd, warp * 16, kk * 16, lane);
+      load_a(da, dos, kLd, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t kb[4], vb[4];
+        load_b_nk(kb, ks, kLd, j * 8, kk * 16, lane);
+        load_b_nk(vb, vs, kLd, j * 8, kk * 16, lane);
+        mma_bf16(s[j], qa, kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[j], da, vb[0], vb[1]);
+        mma_bf16(dp[j + 1], da, vb[2], vb[3]);
+      }
+    }
+    uint32_t dsf[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = k0 + j * 8 + 2 * t;
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? r0 : r1, lr = e < 2 ? lr0 : lr1;
+        const int cc = c + (e & 1);
+        float p = 0.f;
+        if (r < a.seq && cc < a.seq) {
+          p = expf(masked(s[j][e] * a.scale, r, cc, a) - lse_s[lr]);
+        }
+        ds[e] = p * (dp[j][e] - delta_s[lr]);
+      }
+      dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t kb[4];
+        load_b_kn(kb, ks, kLd, kk * 16, j * 8, lane);
+        mma_bf16(dq[j], dsf[kk], kb[0], kb[1]);
+        mma_bf16(dq[j + 1], dsf[kk], kb[2], kb[3]);
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(a.out);
+  const long long head_row = static_cast<long long>(a.heads) * D;
+  bf16* row0 = out + (static_cast<long long>(b) * a.seq + r0) * head_row + h * D;
+  bf16* row1 = row0 + 8 * head_row;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    if (r0 < a.seq) {
+      *reinterpret_cast<uint32_t*>(row0 + j * 8 + 2 * t) =
+          pack_bf16(dq[j][0] * a.scale, dq[j][1] * a.scale);
+    }
+    if (r1 < a.seq) {
+      *reinterpret_cast<uint32_t*>(row1 + j * 8 + 2 * t) =
+          pack_bf16(dq[j][2] * a.scale, dq[j][3] * a.scale);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkv_mma_smem() {
+  return (2 * 64 + 2 * 32) * (D + 8) * sizeof(bf16) + 2 * 32 * sizeof(float);
+}
+
+// dK/dV with keys as the rows: the block computes S^T = K Q^T and
+// dP^T = V dO^T, so p^T and ds^T come out as A fragments for
+// dV += P^T dO and dK += dS^T Q. Query tiles of 32 rows keep the
+// accumulators in registers.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_dkv_mma_kernel(const Args a) {
+  constexpr int BK = 64, BQ = 32, kLd = D + 8;
+  constexpr int KS = D / 16, NT = BQ / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + BK * kLd;
+  bf16* qs = vs + BK * kLd;
+  bf16* dos = qs + BQ * kLd;
+  float* lse_s = reinterpret_cast<float*>(dos + BQ * kLd);
+  float* delta_s = lse_s + BQ;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int b = blockIdx.x / a.kv_heads, kvh = blockIdx.x % a.kv_heads;
+  const int k0 = blockIdx.y * BK;             // causal: heaviest tiles first
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.seq);
+  load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.seq);
+  const int c0 = k0 + warp * 16 + g, c1 = c0 + 8;   // this thread's keys
+  const int r_lo = a.causal ? k0 : 0;
+  const int r_hi = a.window > 0 ? min(a.seq, k0 + BK - 1 + a.window) : a.seq;
+
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int rep = 0; rep < a.n_rep; ++rep) {
+    const int h = kvh * a.n_rep + rep;
+    const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.seq;
+    const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh;
+    for (int qt = r_lo / BQ; qt * BQ < r_hi; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();
+      load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.seq);
+      load_rows_mma<BQ, D>(dos, dout, a.o_ss, q0, a.seq);
+      load_rows_f32(lse_s, a.lse + row_base, q0, BQ, a.seq);
+      load_rows_f32(delta_s, a.delta + row_base, q0, BQ, a.seq);
+      __syncthreads();
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a(ka, ks, kLd, warp * 16, kk * 16, lane);
+        load_a(va, vs, kLd, warp * 16, kk * 16, lane);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t qb[4], db[4];
+          load_b_nk(qb, qs, kLd, j * 8, kk * 16, lane);
+          load_b_nk(db, dos, kLd, j * 8, kk * 16, lane);
+          mma_bf16(st[j], ka, qb[0], qb[1]);
+          mma_bf16(st[j + 1], ka, qb[2], qb[3]);
+          mma_bf16(dpt[j], va, db[0], db[1]);
+          mma_bf16(dpt[j + 1], va, db[2], db[3]);
+        }
+      }
+      uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int lq = j * 8 + 2 * t;             // query column in the tile
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? c0 : c1;
+          const int lr = lq + (e & 1), r = q0 + lr;
+          float pe = 0.f;
+          if (r < a.seq && key < a.seq) {
+            pe = expf(masked(st[j][e] * a.scale, r, key, a) - lse_s[lr]);
+          }
+          p[e] = pe;
+          ds[e] = pe * (dpt[j][e] - delta_s[lr]);
+        }
+        pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t db[4], qb[4];
+          load_b_kn(db, dos, kLd, kk * 16, j * 8, lane);
+          load_b_kn(qb, qs, kLd, kk * 16, j * 8, lane);
+          mma_bf16(dv[j], pf[kk], db[0], db[1]);
+          mma_bf16(dv[j + 1], pf[kk], db[2], db[3]);
+          mma_bf16(dk[j], dsf[kk], qb[0], qb[1]);
+          mma_bf16(dk[j + 1], dsf[kk], qb[2], qb[3]);
+        }
+      }
+    }
+  }
+
+  const long long key_row = static_cast<long long>(a.kv_heads) * D;
+  const long long off0 = (static_cast<long long>(b) * a.seq + c0) * key_row +
+                         kvh * D;
+  const long long off1 = off0 + 8 * key_row;
+  bf16* dk_out = static_cast<bf16*>(a.dk);
+  bf16* dv_out = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (c0 < a.seq) {
+      *reinterpret_cast<uint32_t*>(dk_out + off0 + d) =
+          pack_bf16(dk[j][0] * a.scale, dk[j][1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dv_out + off0 + d) =
+          pack_bf16(dv[j][0], dv[j][1]);
+    }
+    if (c1 < a.seq) {
+      *reinterpret_cast<uint32_t*>(dk_out + off1 + d) =
+          pack_bf16(dk[j][2] * a.scale, dk[j][3] * a.scale);
+      *reinterpret_cast<uint32_t*>(dv_out + off1 + d) =
+          pack_bf16(dv[j][2], dv[j][3]);
+    }
+  }
+}
+
+enum Which { kForward, kDq, kDkv };
+
+// bf16 at head_dim 64 and 128 takes the tensor-core kernels.
+template <typename T, int D>
+constexpr bool kUseMma = std::is_same<T, __nv_bfloat16>::value && D <= 128;
+
+template <typename T, int D>
+cudaError_t launch_typed(Which which, const Args& a, cudaStream_t stream) {
+  constexpr int kTile = D > 128 ? 32 : 64;
+  const int q_tiles = (a.seq + kTile - 1) / kTile;
+  void (*kernel)(Args);
+  size_t smem;
+  dim3 grid;
+  int threads = kThreads;
+  if constexpr (kUseMma<T, D>) {
+    threads = kMmaThreads;
+    const int tiles64 = (a.seq + 63) / 64;
+    if (which == kForward) {
+      kernel = flash_fwd_mma_kernel<D>;
+      smem = fwd_mma_smem<D>();
+      grid = dim3(a.batch * a.heads, tiles64);
+    } else if (which == kDq) {
+      kernel = flash_dq_mma_kernel<D>;
+      smem = dq_mma_smem<D>();
+      grid = dim3(a.batch * a.heads, tiles64);
+    } else {
+      kernel = flash_dkv_mma_kernel<D>;
+      smem = dkv_mma_smem<D>();
+      grid = dim3(a.batch * a.kv_heads, tiles64);
+    }
+  } else if (which == kForward) {
+    kernel = flash_fwd_kernel<T, D, kTile, kTile>;
+    smem = fwd_smem<T, D, kTile, kTile>();
+    grid = dim3(a.batch * a.heads, q_tiles);
+  } else if (which == kDq) {
+    kernel = flash_dq_kernel<T, D, kTile, kTile>;
+    smem = dq_smem<T, D, kTile, kTile>();
+    grid = dim3(a.batch * a.heads, q_tiles);
+  } else {
+    kernel = flash_dkv_kernel<T, D, kTile, kTile>;
+    smem = dkv_smem<T, D, kTile, kTile>();
+    grid = dim3(a.batch * a.kv_heads, q_tiles);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dim(Which which, int head_dim, const Args& a,
+                       cudaStream_t stream) {
+  switch (head_dim) {
+    case 64: return launch_typed<T, 64>(which, a, stream);
+    case 128: return launch_typed<T, 128>(which, a, stream);
+    case 256: return launch_typed<T, 256>(which, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int launch(Which which, Args& a, const long long* strides, int batch,
+           int seq, int heads, int kv_heads, int head_dim, float scale,
+           int causal, int window, int dtype, void* stream) {
+  if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads % kv_heads) {
+    return cudaErrorInvalidValue;
+  }
+  a.q_sb = strides[0]; a.q_ss = strides[1]; a.q_sh = strides[2];
+  a.k_sb = strides[3]; a.k_ss = strides[4]; a.k_sh = strides[5];
+  a.v_sb = strides[6]; a.v_ss = strides[7]; a.v_sh = strides[8];
+  if (which != kForward) {
+    a.o_sb = strides[9]; a.o_ss = strides[10]; a.o_sh = strides[11];
+  }
+  a.batch = batch;
+  a.seq = seq;
+  a.heads = heads;
+  a.kv_heads = kv_heads;
+  a.n_rep = heads / kv_heads;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dim<float>(which, head_dim, a, s);
+  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, head_dim, a, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// O (B, S, H, D) and lse (B, H, S) from q (B, S, H, D), k/v (B, S, KV, D).
+// strides: q, k, v (batch, seq, head), in elements. dtype 0 fp32, 1 bf16.
+int flash_attention_forward(const void* q, const void* k, const void* v,
+                            void* out, float* lse, const long long* strides,
+                            int batch, int seq, int heads, int kv_heads,
+                            int head_dim, float scale, int causal, int window,
+                            int dtype, void* stream) {
+  Args a = {};
+  a.q = q; a.k = k; a.v = v; a.out = out; a.lse_out = lse;
+  return launch(kForward, a, strides, batch, seq, heads, kv_heads, head_dim,
+                scale, causal, window, dtype, stream);
+}
+
+// dQ (B, S, H, D). strides: q, k, v, dO.
+int flash_attention_dq(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dq, const long long* strides, int batch, int seq,
+                       int heads, int kv_heads, int head_dim, float scale,
+                       int causal, int window, int dtype, void* stream) {
+  Args a = {};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.out = dq;
+  return launch(kDq, a, strides, batch, seq, heads, kv_heads, head_dim,
+                scale, causal, window, dtype, stream);
+}
+
+// dK, dV (B, S, KV, D), each summed over its KV head's n_rep query heads.
+int flash_attention_dkv(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* delta,
+                        void* dk, void* dv, const long long* strides,
+                        int batch, int seq, int heads, int kv_heads,
+                        int head_dim, float scale, int causal, int window,
+                        int dtype, void* stream) {
+  Args a = {};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.dk = dk; a.dv = dv;
+  return launch(kDkv, a, strides, batch, seq, heads, kv_heads, head_dim,
+                scale, causal, window, dtype, stream);
+}
+
+}  // extern "C"

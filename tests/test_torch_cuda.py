@@ -92,3 +92,97 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(TypeError, match='dtype'):
         pa.paged_decode_attention(q, kp.bfloat16(), vp.bfloat16(), tables,
                                   pos)
+
+
+# ------------------------------------------------- flash attention kernels
+# Tolerances: fp32 2e-5 on O and lse and 1e-4 on the gradients (the
+# kernels and the plain versions sum in other orders; dK/dV sum over up
+# to S x n_rep rows); bf16 2e-2 absolute and relative (both round p and
+# ds to bf16 and round every output to bf16, whose step is 2^-8).
+
+from skypilot_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+_FA_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _flash_case(batch, seq, heads, kv_heads, head_dim, dtype, seed):
+    """q, k, v as the model makes them: q contiguous (B, S, H, D), k and v
+    strided column slices of one fused projection output."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(batch, seq, heads, head_dim)
+    kv = rng.randn(batch, seq, 2 * kv_heads, head_dim)
+    g = rng.randn(batch, seq, heads, head_dim)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to('cuda', dtype)
+
+    kv = dev(kv)
+    return dev(q), kv[:, :, :kv_heads], kv[:, :, kv_heads:], dev(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('seq,heads,kv_heads,head_dim,causal,window', [
+    (256, 4, 2, 128, True, 0),     # GQA, tiles divide S
+    (200, 4, 2, 128, True, 0),     # ragged last tile
+    (200, 2, 2, 64, False, 0),     # non-causal, MHA
+    (256, 4, 1, 128, True, 48),    # sliding window, n_rep 4
+    (100, 2, 1, 256, True, 0),     # wide heads, 32-row tiles
+])
+def test_flash_kernels_match_plain(dtype, seq, heads, kv_heads, head_dim,
+                                   causal, window):
+    _need_gpu()
+    q, k, v, g = _flash_case(2, seq, heads, kv_heads, head_dim, dtype, seq)
+    opts = dict(causal=causal, sm_scale=head_dim ** -0.5, window=window)
+    launches = (fa.flash_forward.launches, fa.flash_dq.launches,
+                fa.flash_dkv.launches)
+    out, lse = fa.flash_forward(q, k, v, **opts)
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, **opts)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_dq(q, k, v, g, lse, delta, **opts)
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, **opts)
+    ref_dq = fa.flash_dq_plain(q, k, v, g, lse, delta, **opts)
+    ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, g, lse, delta, **opts)
+    torch.cuda.synchronize()
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in launches)
+    fwd_tol, bwd_tol = _FA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=fwd_tol,
+                               rtol=fwd_tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    for name, got, ref in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
+                           ('dv', dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        torch.testing.assert_close(got.float(), ref.float(), atol=bwd_tol,
+                                   rtol=bwd_tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic_and_autograd_runs_kernels():
+    _need_gpu()
+    q, k, v, g = _flash_case(2, 192, 4, 2, 128, torch.bfloat16, 7)
+    grads = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, impl='auto')
+        before = fa.flash_dq.launches, fa.flash_dkv.launches
+        out.backward(g)
+        assert (fa.flash_dq.launches, fa.flash_dkv.launches) == (
+            before[0] + 1, before[1] + 1)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take():
+    _need_gpu()
+    q, k, v, _ = _flash_case(1, 64, 2, 1, 128, torch.float32, 0)
+    opts = dict(causal=True, sm_scale=0.1)
+    with pytest.raises(ValueError, match='head_dim'):
+        fa.flash_forward(q[..., :96], k[..., :96], v[..., :96], **opts)
+    with pytest.raises(TypeError, match='dtype'):
+        fa.flash_forward(q, k.bfloat16(), v.bfloat16(), **opts)
+    with pytest.raises(TypeError, match='float32 or'):
+        fa.flash_forward(q.half(), k.half(), v.half(), **opts)

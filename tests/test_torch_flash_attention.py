@@ -1,0 +1,165 @@
+"""The port's flash attention (plain versions, autograd Function, public
+entry) against the JAX package's flash attention.
+
+The same numpy inputs go through both. The JAX side runs its Pallas
+kernels in interpret mode (impl='pallas_interpret', or `_pallas_forward(
+..., interpret=True)` for O and lse), as tests/test_compute_stack.py
+does; the port runs its plain versions, which is what its wrappers run
+on a CPU tensor. Tolerances (fp32): O, lse and gradients within 1e-5
+absolute and relative — only the order of the fp32 sums differs (the
+Pallas kernels stream key blocks with an online softmax, the plain
+versions take one softmax over the whole row); measured <= 3e-6.
+"""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skypilot_tpu_torch.ops import flash_attention as fa
+
+jfa = importlib.import_module('skypilot_tpu.ops.flash_attention')
+
+_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _inputs(batch, seq, heads, kv_heads, head_dim, seed):
+    rng = np.random.RandomState(seed)
+    shapes = ((batch, seq, heads, head_dim), (batch, seq, kv_heads, head_dim),
+              (batch, seq, kv_heads, head_dim), (batch, seq, heads, head_dim))
+    return [rng.randn(*s).astype(np.float32) for s in shapes]
+
+
+def _jax_grads(q, k, v, g, **kw):
+    def f(q_, k_, v_):
+        return jfa.flash_attention(q_, k_, v_, **kw)
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(x) for x in (out, *vjp(jnp.asarray(g)))]
+
+
+def _port_grads(q, k, v, g, **kw):
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, **kw)
+    out.backward(torch.tensor(g))
+    return [out.detach().numpy()] + [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize('causal,window,heads,kv_heads', [
+    (True, 0, 4, 2), (False, 0, 4, 2), (True, 40, 4, 2), (True, 0, 2, 2)],
+    ids=['causal-gqa', 'full-gqa', 'window-gqa', 'causal-mha'])
+def test_forward_and_lse_match_pallas_forward(causal, window, heads,
+                                              kv_heads):
+    q, k, v, _ = _inputs(2, 128, heads, kv_heads, 32, seed=heads + window)
+    scale = 32 ** -0.5
+    n_rep = heads // kv_heads
+    ref_out, ref_lse = jfa._pallas_forward(  # pylint: disable=protected-access
+        jfa._fold(jnp.asarray(q)),  # pylint: disable=protected-access
+        jfa._fold(jfa._repeat_kv(jnp.asarray(k), n_rep)),  # pylint: disable=protected-access
+        jfa._fold(jfa._repeat_kv(jnp.asarray(v), n_rep)),  # pylint: disable=protected-access
+        causal, window, scale, 64, 32, True)
+    out, lse = fa.flash_forward_plain(torch.tensor(q), torch.tensor(k),
+                                      torch.tensor(v), causal=causal,
+                                      sm_scale=scale, window=window)
+    np.testing.assert_allclose(
+        out.numpy().transpose(0, 2, 1, 3).reshape(2 * heads, 128, 32),
+        np.asarray(ref_out), **_TOL)
+    np.testing.assert_allclose(lse.numpy().reshape(2 * heads, 1, 128),
+                               np.asarray(ref_lse), **_TOL)
+
+
+@pytest.mark.parametrize('causal,window,heads,kv_heads,block_q,block_k', [
+    (True, 0, 4, 2, 64, 64),
+    (True, 0, 4, 2, 32, 64),
+    (False, 0, 4, 2, 64, 32),
+    (True, 48, 4, 2, 32, 32),
+    (True, 0, 2, 2, 64, 32),
+    (False, 0, 4, 1, 32, 64),
+], ids=['causal-gqa', 'causal-bq<bk', 'full-bq>bk', 'window', 'mha',
+        'full-mqa'])
+def test_grads_match_pallas_interpret(causal, window, heads, kv_heads,
+                                      block_q, block_k):
+    q, k, v, g = _inputs(2, 128, heads, kv_heads, 32, seed=block_q + window)
+    ref = _jax_grads(q, k, v, g, causal=causal, window=window,
+                     impl='pallas_interpret', block_q=block_q,
+                     block_k=block_k)
+    got = _port_grads(q, k, v, g, causal=causal, window=window,
+                      impl='pallas_interpret')
+    for name, a, b in zip(('out', 'dq', 'dk', 'dv'), got, ref):
+        np.testing.assert_allclose(a, b, err_msg=name, **_TOL)
+
+
+@pytest.mark.parametrize('impl', ['auto', 'pallas'])
+@pytest.mark.parametrize('window', [0, 30])
+def test_ragged_seq_matches_reference_xla_path(impl, window):
+    """S = 100 tiles by no kernel block; the port's kernel route (plain
+    pair on the CPU) against the JAX XLA path's VJP."""
+    q, k, v, g = _inputs(1, 100, 4, 2, 32, seed=5 + window)
+    ref = _jax_grads(q, k, v, g, causal=True, window=window, impl='xla')
+    got = _port_grads(q, k, v, g, causal=True, window=window, impl=impl)
+    for name, a, b in zip(('out', 'dq', 'dk', 'dv'), got, ref):
+        np.testing.assert_allclose(a, b, err_msg=name, **_TOL)
+
+
+def test_xla_path_matches_reference_with_softcap():
+    q, k, v, g = _inputs(1, 64, 4, 2, 32, seed=9)
+    ref = _jax_grads(q, k, v, g, impl='xla', logit_softcap=20.0)
+    got = _port_grads(q, k, v, g, impl='auto', logit_softcap=20.0)
+    for name, a, b in zip(('out', 'dq', 'dk', 'dv'), got, ref):
+        np.testing.assert_allclose(a, b, err_msg=name, **_TOL)
+
+
+def test_backward_numerical_gradcheck():
+    """Directional derivative against central finite differences (as
+    test_flash_backward_numerical_gradcheck does for the JAX kernels):
+    catches a wrong-but-consistent pair of plain versions."""
+    q, k, v, _ = (torch.tensor(x) for x in _inputs(1, 64, 2, 1, 32, seed=3))
+    tangent = torch.tensor(np.random.RandomState(4).randn(*q.shape),
+                           dtype=torch.float32)
+
+    def loss(q_):
+        return torch.sin(fa.flash_attention(q_, k, v, impl='pallas')).sum()
+
+    leaf = q.clone().requires_grad_()
+    loss(leaf).backward()
+    eps = 1e-3
+    with torch.no_grad():
+        fd = (loss(q + eps * tangent) - loss(q - eps * tangent)) / (2 * eps)
+    analytic = float((leaf.grad * tangent).sum())
+    np.testing.assert_allclose(analytic, float(fd), rtol=2e-2)
+
+
+def test_refusals():
+    q, k, v, _ = (torch.tensor(x) for x in _inputs(1, 16, 2, 1, 32, seed=0))
+    for impl in ('pallas', 'pallas_interpret'):
+        with pytest.raises(ValueError, match='softcap'):
+            fa.flash_attention(q, k, v, impl=impl, logit_softcap=30.0)
+    with pytest.raises(ValueError, match='window requires causal'):
+        fa.flash_attention(q, k, v, causal=False, window=8)
+    with pytest.raises(NotImplementedError, match='ring_attention'):
+        fa.flash_attention(q, k, v, impl='ring')
+    with pytest.raises(ValueError, match='Unknown impl'):
+        fa.flash_attention(q, k, v, impl='cudnn')
+    with pytest.raises(ValueError, match='not divisible'):
+        fa.flash_attention(q[:, :, :1].expand(1, 16, 3, 32), k.expand(
+            1, 16, 2, 32), v.expand(1, 16, 2, 32))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors the wrappers run their plain versions and count no
+    kernel launch; other devices are refused."""
+    q, k, v, g = (torch.tensor(x) for x in _inputs(1, 32, 2, 1, 64, seed=1))
+    before = (fa.flash_forward.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, impl='auto').backward(g)
+    assert (fa.flash_forward.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == before
+    out, lse = fa.flash_forward(q, k, v, causal=True, sm_scale=0.125)
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal=True,
+                                              sm_scale=0.125)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    with pytest.raises(ValueError, match='not meta'):
+        fa.flash_forward(q.to('meta'), k.to('meta'), v.to('meta'),
+                         causal=True, sm_scale=0.125)
