@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: serving
-(llama3-8b over HTTP, paged attention kernel) and training (llama3-1b,
+(llama3-8b over HTTP, paged attention kernel), multi-tenant serving
+(llama3-8b with int8 KV and resident LoRA adapters: the int8 route of the
+paged kernel and the fused multi-LoRA kernel) and training (llama3-1b,
 flash-attention forward, dQ and dK/dV kernels).
 
     python3 chip_smoke.py                    # every phase; needs one card
@@ -16,6 +18,16 @@ and passed over):
             D 128, block 16, max_seq_len 8192; decode B 8 T 1, prefill
             B 1 T 256), fp32 and bf16, window 0 and > 0; time kernel,
             plain version and the library yardstick with CUDA events.
+  kernels_int8: the same for the paged kernel's int8 route (pools
+            quantized with the model's int8_quantize, fp32 scale rows),
+            plus stale payload and scale rows in the scratch block and
+            in every row's masked tail, which must leave live rows
+            bit-identical; time it beside its byte bound.
+  lora:     hold the fused multi-LoRA kernel against its plain version
+            at every llama3-8b projection shape (d->H*D, d->KV*D,
+            H*D->d, d->F, F->d), rank 16, decode B 8 T 1 with mixed
+            slots including 0 and prefill B 1 T 256, fp32 and bf16;
+            slot-0 rows exactly zero, reruns bit-identical; time it.
   flash:    hold the three flash kernels against their plain versions at
             the train path's shape (llama3-1b: B 8, S 1024, H 16, KV 8,
             D 128, causal), fp32 and bf16, plus window 256, non-causal,
@@ -25,6 +37,10 @@ and passed over):
   parity:   a small fp32 model (head_dim 128) through the serving engine
             on the card (kernel) and on the CPU (plain version): greedy
             tokens equal, prefill logits within tolerance.
+  tenant_parity: the same small model with int8 KV and 3 adapters on
+            all seven targets, a mixed batch on the card and on the CPU:
+            greedy tokens equal, an adapter's prefill logits within
+            tolerance.
   train_parity: one small fp32 model (head_dim 128), two train steps on
             the card (kernels) and on the CPU (plain versions): loss,
             grad_norm and updated params within tolerance.
@@ -44,6 +60,16 @@ and passed over):
             every answer and that the kernel launched exactly
             32 x (prefill chunks + decode ticks) times; then a decode /
             prefill step breakdown (torch.profiler).
+  serve_tenant: the same server and traffic with int8 KV and 4 random
+            adapters (rank 16, alpha 32, targets q,k,v,o,gate,up,down)
+            written as npz and loaded through POST /adapters/load, the 8
+            requests spread over the base model and the 4 adapters.
+            Checks every answer; int8 launches exactly 32 x (chunks +
+            ticks), fused LoRA 32 x 7 x (chunks + ticks), float paged 0;
+            each request's tokens equal to the same request served
+            alone; an adapter changes some output; DELETE of a pinned
+            adapter is 409. TTFT p50, decode tokens/s, peak memory, the
+            pool's bytes beside bf16's, and a step breakdown.
 Then: the {"kernels": [...]} line, the nvidia-smi line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -53,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -61,6 +88,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
@@ -95,6 +123,24 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time per fn() call: the CUDA kernels a torch.profiler
+    trace attributes to `iters` calls. For launches of a few microseconds,
+    where CUDA events around a loop time the host's launch overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
 def smi_line() -> str:
@@ -134,13 +180,13 @@ def _pool_case(torch, dtype, batch, cur_len, positions, seed, num_blocks,
     return (q, k_pool, v_pool, tables.cuda(), pos.cuda(), bps)
 
 
-def _bound(case, dtype_name) -> tuple:
+def _bound(q, kv_heads, pos, bps, dtype_name, token_bytes) -> tuple:
     """(bound_ms, bound_by): bytes each input read once and the output
-    written once, counting only the K/V tokens each row can see, vs the
-    operations those visible keys need, over the card's peaks."""
-    q, k_pool, _, tables, pos, bps = case
+    written once, counting only the K/V tokens each row can see
+    (`token_bytes` per token and kv head: K and V rows, plus their scale
+    rows under int8), vs the operations those visible keys need, over the
+    card's peaks."""
     batch, cur_len, heads, head_dim = q.shape
-    kv_heads = k_pool.shape[2]
     item = q.element_size()
     visible_tokens = 0                    # distinct K/V tokens read
     key_query_pairs = 0                   # (query, visible key) pairs
@@ -149,7 +195,7 @@ def _bound(case, dtype_name) -> tuple:
         visible_tokens += max(p) + 1
         key_query_pairs += sum(x + 1 for x in p)
     nbytes = (2 * q.numel() * item                         # q in, out
-              + 2 * visible_tokens * kv_heads * head_dim * item  # K, V
+              + visible_tokens * kv_heads * token_bytes    # K, V (scales)
               + pos.numel() * 4 + batch * bps * 4)         # pos, tables
     ops = 4 * key_query_pairs * heads * head_dim           # QK^T and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -182,18 +228,20 @@ def _library_ms(torch, case):
         qt, k_win, v_win, attn_mask=mask, enable_gqa=True))
 
 
+NUM_BLOCKS = 8 * 512 + 1              # the serve phases' pool
+SERVE_CALLS = (   # (name, B, T, per-row positions) of the serve path
+    ('decode', 8, 1, [[0], [7], [8190], [300], [4000], [650], [1023], [0]]),
+    ('prefill', 1, 256, [list(range(512, 512 + 256))]))
+
+
 def phase_kernels(torch) -> dict:
     from skypilot_tpu_torch.ops import paged_attention as pa
-    num_blocks = 8 * 512 + 1          # the serve phase's pool
-    decode_pos = [[0], [7], [8190], [300], [4000], [650], [1023], [0]]
-    prefill_pos = [list(range(512, 512 + 256))]
+    num_blocks = NUM_BLOCKS
     results = {}
     worst = 0.0
     for dtype_name in ('float32', 'bfloat16'):
         dtype = getattr(torch, dtype_name)
-        for shape_name, batch, cur_len, pos in (
-                ('decode', 8, 1, decode_pos),
-                ('prefill', 1, 256, prefill_pos)):
+        for shape_name, batch, cur_len, pos in SERVE_CALLS:
             case = _pool_case(torch, dtype, batch, cur_len, pos, seed=1,
                               num_blocks=num_blocks)
             q, k_pool, v_pool, tables, positions, bps = case
@@ -229,7 +277,9 @@ def phase_kernels(torch) -> dict:
                 torch, lambda: pa.paged_decode_attention_plain(*args),
                 iters=5)
             library_ms = _library_ms(torch, case)
-            bound_ms, bound_by = _bound(case, dtype_name)
+            bound_ms, bound_by = _bound(q, k_pool.shape[2], positions, bps,
+                                        dtype_name,
+                                        2 * q.shape[-1] * q.element_size())
             results[shape_name] = {
                 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                 'bound_by': bound_by, 'library_ms': library_ms}
@@ -241,6 +291,199 @@ def phase_kernels(torch) -> dict:
             torch.cuda.empty_cache()
     return {'max_abs_err': worst, **results['decode'],
             'prefill': results['prefill']}
+
+
+def phase_kernels_int8(torch) -> dict:
+    """The int8 route of the paged kernel against its plain version at
+    the serve path's shapes: pools of seeded normal K/V quantized with
+    the model's int8_quantize (int8 payload, fp32 scale rows), fp32 and
+    bf16 queries, window 0 and 100; then stale rows: garbage payload and
+    scales (127, 1e3) in scratch block 0 and in every live row's masked
+    tail must leave each live row's output bit-identical."""
+    from skypilot_tpu_torch.models.transformer import int8_quantize
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    results = {}
+    worst = 0.0
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        for shape_name, batch, cur_len, pos in SERVE_CALLS:
+            q, k_pool, v_pool, tables, positions, bps = _pool_case(
+                torch, torch.float32, batch, cur_len, pos, seed=2,
+                num_blocks=NUM_BLOCKS)
+            q = q.to(dtype)
+            k8, ks = int8_quantize(k_pool)
+            v8, vs = int8_quantize(v_pool)
+            del k_pool, v_pool
+            ks, vs = ks[..., None].contiguous(), vs[..., None].contiguous()
+            args = (q, k8, v8, tables[:, :bps], positions)
+            scales = dict(k_scale=ks, v_scale=vs)
+            what = f'int8 kernel {shape_name} {dtype_name}'
+            for window in (0, 100):
+                out = pa.paged_decode_attention(*args, window=window,
+                                                **scales)
+                ref = pa.paged_decode_attention_plain(*args, window=window,
+                                                      **scales)
+                torch.cuda.synchronize()
+                err = _check_close(torch, f'{what} window={window}', out,
+                                   ref, TOL[dtype_name])
+                log(f'{what} window={window}: max_abs_err={err:.3e} '
+                    f'(atol, rtol {TOL[dtype_name]})')
+                if dtype_name == 'bfloat16':
+                    worst = max(worst, err)
+            # Stale rows. The decode case's last row is inert (position
+            # 0, all-scratch table): it reads block 0 and is never read.
+            live = batch - 1 if cur_len == 1 and batch > 1 else batch
+            clean = pa.paged_decode_attention(*args, **scales)[:live]
+            stale = [(0, 0, 16)]
+            for b in range(live):
+                last = int(positions[b].max())
+                stale.append((int(tables[b, last // 16]), last % 16 + 1, 16))
+            for blk, lo, hi in stale:
+                k8[blk, lo:hi], v8[blk, lo:hi] = 127, -127
+                ks[blk, lo:hi], vs[blk, lo:hi] = 1e3, 1e3
+            dirty = pa.paged_decode_attention(*args, **scales)[:live]
+            ref = pa.paged_decode_attention_plain(*args, **scales)[:live]
+            torch.cuda.synchronize()
+            if not torch.equal(clean, dirty):
+                fail(f'{what}: stale payload or scale rows reached a live '
+                     f'row')
+            _check_close(torch, f'{what} stale', dirty, ref, TOL[dtype_name])
+            log(f'{what}: stale scratch block and masked tails inert '
+                f'(bit-identical output)')
+            if dtype_name != 'bfloat16':
+                continue
+            ms = cuda_ms(torch, lambda: pa.paged_decode_attention(
+                *args, **scales))
+            plain_ms = cuda_ms(torch, lambda: pa.paged_decode_attention_plain(
+                *args, **scales), iters=5)
+            # Per visible token and kv head: int8 K and V rows plus their
+            # two fp32 scale rows.
+            bound_ms, bound_by = _bound(q, k8.shape[2], positions, bps,
+                                        dtype_name, 2 * q.shape[-1] + 8)
+            results[shape_name] = {
+                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                'bound_by': bound_by, 'library_ms': None}
+            log(f'int8 kernel {shape_name} bf16 B={batch} T={cur_len}: '
+                f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                f'bound_ms={bound_ms:.4f} ({bound_by}); no single PyTorch '
+                f'call computes int8 paged attention')
+            del q, k8, v8, ks, vs, args, scales, clean, dirty, ref
+            torch.cuda.empty_cache()
+    return {'max_abs_err': worst, **results['decode'],
+            'prefill': results['prefill']}
+
+
+# ------------------------------------------------------------------ lora
+
+# Fused LoRA kernel vs its plain version, (atol, rtol). fp32: only the
+# order of the fp32 sums differs (up to 14336 terms in the shrink). bf16:
+# both round z to bf16 between the products (an fp32 sum in another
+# order can flip that rounding by one bf16 step, 2^-8 relative) and round
+# the output to bf16.
+LORA_TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (2e-2, 2e-2)}
+LORA_SOURCE = 'skypilot_tpu_torch/ops/csrc/fused_lora.cu'
+# llama3-8b projection shapes (IN, OUT) and how many of each a layer runs
+# with all seven targets: q; k and v; o; gate and up; down.
+LORA_SHAPES = {'d_to_hd': (4096, 4096, 1), 'd_to_kvd': (4096, 1024, 2),
+               'hd_to_d': (4096, 4096, 1), 'd_to_f': (4096, 14336, 2),
+               'f_to_d': (14336, 4096, 1)}
+LORA_CALLS = (('decode', 8, 1, [0, 1, 2, 3, 4, 1, 0, 2]),
+              ('prefill', 1, 256, [3]))
+
+
+def _lora_bound(x, d_out, rank, ids) -> tuple:
+    """(bytes time, operations time) in ms: x read and z written once,
+    and the A and B slices of each distinct slot the rows name; two
+    products of 2 r MACs per (row, IN) and (row, OUT) element pair."""
+    batch, seq, d_in = x.shape
+    item = x.element_size()
+    nbytes = ((batch * seq * (d_in + d_out) +
+               len(set(ids)) * rank * (d_in + d_out)) * item + 4 * batch)
+    ops = 2 * batch * seq * rank * (d_in + d_out)
+    name = 'bfloat16' if item == 2 else 'float32'
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_OPS_PER_S[name] * 1e3)
+
+
+def phase_lora(torch) -> dict:
+    """The fused LoRA kernel against its plain version at every llama3-8b
+    projection shape, decode (B 8, T 1, mixed slots with 0) and prefill
+    (B 1, T 256), rank 16, 5 slots (4 adapters + the identity), fp32 and
+    bf16: within tolerance, slot-0 rows exactly zero, two runs
+    bit-identical. Times (bf16) add up per layer the way a decode tick
+    and a prefill chunk call the kernel with all seven targets. A call
+    takes a few microseconds of device time, less than the host's launch
+    overhead, so `ms` and `plain_ms` are profiler device times and
+    `wall_ms` the CUDA-event time of a loop of calls (host-bound)."""
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    rank, slots = 16, 5
+    totals = {call: {'ms': 0.0, 'plain_ms': 0.0, 'wall_ms': 0.0,
+                     't_bytes': 0.0, 't_ops': 0.0} for call, *_ in LORA_CALLS}
+    per_shape = {}
+    worst = 0.0
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        for shape, (d_in, d_out, per_layer) in LORA_SHAPES.items():
+            gen = torch.Generator(device='cuda').manual_seed(d_in + d_out)
+            a = torch.randn((slots, d_in, rank), generator=gen,
+                            device='cuda') * d_in ** -0.5
+            b = torch.randn((slots, rank, d_out), generator=gen,
+                            device='cuda') * 0.25
+            a[0], b[0] = 0.0, 0.0
+            a, b = a.to(dtype), b.to(dtype)
+            for call, batch, seq, ids in LORA_CALLS:
+                x = torch.randn((batch, seq, d_in), generator=gen,
+                                device='cuda').to(dtype)
+                aids = torch.tensor(ids, dtype=torch.int32, device='cuda')
+                what = f'lora {shape} {call} {dtype_name}'
+                out = fl.fused_multi_lora(x, a, b, aids)
+                again = fl.fused_multi_lora(x, a, b, aids)
+                ref = fl.fused_multi_lora_plain(x, a, b, aids)
+                torch.cuda.synchronize()
+                err = _check_close(torch, what, out, ref,
+                                   LORA_TOL[dtype_name])
+                if not torch.equal(out, again):
+                    fail(f'{what}: two runs differ')
+                zero = [i for i, slot in enumerate(ids) if slot == 0]
+                if zero and bool(out[zero].any()):
+                    fail(f'{what}: slot-0 rows are not exactly zero')
+                if dtype_name != 'bfloat16':
+                    continue
+                worst = max(worst, err)
+                args = (x, a, b, aids)
+                ms = device_ms(torch, lambda: fl.fused_multi_lora(*args))
+                plain_ms = device_ms(
+                    torch, lambda: fl.fused_multi_lora_plain(*args))
+                wall_ms = cuda_ms(torch, lambda: fl.fused_multi_lora(*args))
+                t_bytes, t_ops = _lora_bound(x, d_out, rank, ids)
+                per_shape[f'{shape}_{call}'] = {
+                    'ms': ms, 'plain_ms': plain_ms, 'wall_ms': wall_ms,
+                    'bound_ms': max(t_bytes, t_ops)}
+                total = totals[call]
+                for key, value in (('ms', ms), ('plain_ms', plain_ms),
+                                   ('wall_ms', wall_ms),
+                                   ('t_bytes', t_bytes), ('t_ops', t_ops)):
+                    total[key] += per_layer * value
+                log(f'{what} IN {d_in} OUT {d_out} B={batch} T={seq}: '
+                    f'max_abs_err={err:.3e}; kernel device_ms={ms:.4f} '
+                    f'(wall {wall_ms:.4f}) plain device_ms={plain_ms:.4f} '
+                    f'bound_ms={max(t_bytes, t_ops):.5f}')
+            del a, b
+        torch.cuda.empty_cache()
+    records = {}
+    for call, total in totals.items():
+        t_bytes, t_ops = total.pop('t_bytes'), total.pop('t_ops')
+        records[call] = {**total, 'bound_ms': max(t_bytes, t_ops),
+                         'bound_by': 'bytes' if t_bytes >= t_ops
+                         else 'operations', 'library_ms': None}
+        log(f'lora per layer, {call} (7 targeted projections): kernel '
+            f'{records[call]["ms"]:.4f} ms device ({total["wall_ms"]:.4f} '
+            f'ms wall), plain {total["plain_ms"]:.4f} ms device, bound '
+            f'{records[call]["bound_ms"]:.5f} ms '
+            f'({records[call]["bound_by"]}); no single PyTorch call '
+            f'computes the per-row gathered delta')
+    return {'max_abs_err': worst, **records['decode'],
+            'prefill': records['prefill'], 'per_call': per_shape}
 
 
 # ------------------------------------------------------------------- parity
@@ -302,10 +545,11 @@ def _post(url: str, body: dict) -> dict:
 def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
     """Time the engine's two device steps at the served shapes, on the
     drained engine: an all-slots decode step with every row at `context`
-    tokens, and one 256-token prefill chunk at position 512. Host wall
-    per step (each ends in the engine's own device→host sync) beside the
-    device time a torch.profiler trace attributes to CUDA kernels; the
-    difference is the device's idle share of the step."""
+    tokens, and one 256-token prefill chunk at position 512 (a multi-LoRA
+    engine: decode rows on slots 0-4 mixed, the chunk on slot 3). Host
+    wall per step (each ends in the engine's own device→host sync) beside
+    the device time a torch.profiler trace attributes to CUDA kernels;
+    the difference is the device's idle share of the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg = engine.cfg
@@ -326,11 +570,17 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
     temps = torch.zeros(rows, device='cuda')
     chunk = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                           dtype=torch.int32).cuda()
+    aids = chunk_aids = None
+    if engine.max_adapters:
+        aids = torch.tensor([i % (engine.max_adapters + 1)
+                             for i in range(rows)], dtype=torch.int32,
+                            device='cuda')
+        chunk_aids = aids[3:4]
     steps = {
         'decode': lambda: engine._decode_impl(  # pylint: disable=protected-access
-            tokens, positions, temps, tables, False).cpu(),
+            tokens, positions, temps, tables, False, aids).cpu(),
         'prefill_chunk': lambda: engine._prefill_chunk_impl(  # pylint: disable=protected-access
-            chunk, tables[:1], 512, 256).float().cpu(),
+            chunk, tables[:1], 512, 256, chunk_aids).float().cpu(),
     }
     with torch.inference_mode():
         for name, fn in steps.items():
@@ -350,17 +600,33 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)
             what = (f'{rows} rows at {context} tokens' if name == 'decode'
                     else '1 row, 256 tokens at position 512')
+            if engine.max_adapters or cfg.kv_cache_quant:
+                what += (f'; int8 KV, {engine.max_adapters} adapters on '
+                         f'{cfg.lora_targets}')
             log(f'breakdown {name} ({what}): host wall {wall_ms:.2f} '
                 f'ms/step, CUDA kernels {device_ms:.2f} ms/step, device '
                 f'idle share {max(0.0, 1 - device_ms / wall_ms):.3f} [{smi}]')
             for e in top[:6]:
                 log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
                     f'x{e.count // 5:<4d} {e.key[:90]}')
+            # Where the host's time goes: the operators with the most
+            # self CPU time per step (under the profiler, which adds to
+            # each).
+            host = sorted((e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CPU),
+                          key=lambda e: -e.self_cpu_time_total)
+            log(f'  host: {sum(e.count for e in host) // 5} CPU operator '
+                f'calls per step; most self CPU time:')
+            for e in host[:6]:
+                log(f'  {e.self_cpu_time_total / 5e3:8.3f} ms '
+                    f'x{e.count // 5:<4d} {e.key[:90]}')
     for row in blocks:
         pool.release(row)
 
 
-def phase_serve(torch, smi: str) -> int:
+def phase_serve(torch, smi: str) -> tuple:
+    """llama3-8b at full width and depth over localhost HTTP; returns the
+    paged kernel's launches and the bf16 pool's bytes."""
     from skypilot_tpu_torch.ops import paged_attention as pa
     from skypilot_tpu_torch.serve.server import (BackgroundServer,
                                                  InferenceServer)
@@ -370,6 +636,8 @@ def phase_serve(torch, smi: str) -> int:
     engine = server.engine
     cfg = engine.cfg
     n_params = sum(p.numel() for p in engine.model.parameters())
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        engine._k_pool, engine._v_pool))  # pylint: disable=protected-access
     log(f'serve: llama3-8b built on the card in '
         f'{time.monotonic() - t0:.1f}s: {n_params} params '
         f'({cfg.num_layers} layers, d_model {cfg.d_model}), pool '
@@ -454,6 +722,283 @@ def phase_serve(torch, smi: str) -> int:
     if tuple(logits.shape) != (1, 16, cfg.vocab_size) or \
             not bool(torch.isfinite(logits.float()).all()):
         fail(f'llama3-8b logits not finite or misshapen: {logits.shape}')
+    step_breakdown(torch, engine, smi)
+    return launches, pool_bytes
+
+
+# ------------------------------------------------------------ multi-tenant
+
+TENANT_KW = dict(kv_quant='int8', adapter_rank=16, adapter_alpha=32.0,
+                 adapter_targets='q,k,v,o,gate,up,down')
+
+
+def random_adapter(cfg, seed: int) -> dict:
+    """A seeded random adapter in the reference's scanned models/lora
+    layout for cfg's targets and rank: A ~ N(0, 1 / fan_in), B ~
+    N(0, 0.02^2), float32 (what POST /adapters/load reads from npz)."""
+    import numpy as np
+    from skypilot_tpu_torch.models.convert import adapter_layout
+    rng = np.random.default_rng(seed)
+
+    def draw(name, shape):
+        if name == 'lora_a':
+            fan_in = 1
+            for n in shape[1:-1]:
+                fan_in *= n
+            std = fan_in ** -0.5
+        else:
+            std = 0.02
+        return (rng.standard_normal(shape, dtype=np.float32) *
+                np.float32(std))
+
+    def walk(node):
+        return {k: (walk(v) if isinstance(v, dict) else draw(k, v))
+                for k, v in sorted(node.items())}
+    return walk(adapter_layout(cfg))
+
+
+def phase_tenant_parity(torch) -> None:
+    """A small fp32 model (head_dim 128) with int8 KV and 3 adapters on
+    all seven targets, through the engine on the card (kernels) and on
+    the CPU (plain versions): a mixed batch (base + 3 adapters) gives
+    equal greedy tokens, and an adapter's prefill logits agree within
+    5e-3 (fp32 GEMMs on two devices sum in other orders; a K or V value
+    that lands on a rounding boundary of int8_quantize on one device
+    moves by one int8 step, ~1/127 of its row's amax, on the other)."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.models.transformer import Transformer
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        get_config('llama3-8b'), name='tenant-parity-small',
+        vocab_size=1024, d_model=512, num_layers=2, num_heads=4,
+        num_kv_heads=2, d_mlp=1024, max_seq_len=512, dtype='float32',
+        paged_block_size=16)
+    state = Transformer(cfg, device='cpu').init_random_(3).state_dict()
+    prompts = [[(7 * i + 3 * n) % 1024 for i in range(n)]
+               for n in (5, 37, 100, 260)]
+    names = [None, 'ad0', 'ad1', 'ad2']
+    outs, adapters = {}, None
+    launches0 = (pa.paged_decode_attention.int8_launches,
+                 fl.fused_multi_lora.launches)
+    for device in ('cpu', 'cuda'):
+        engine = ContinuousBatchingEngine(
+            cfg, params={k: v.to(device) for k, v in state.items()},
+            num_slots=4, paged_block_size=16, prefill_chunk=64,
+            max_adapters=3, device=device, **TENANT_KW)
+        if adapters is None:
+            adapters = {f'ad{i}': random_adapter(engine.cfg, 20 + i)
+                        for i in range(3)}
+        for name, tree in adapters.items():
+            engine.load_adapter(name, tree)
+        futures = [engine.submit(p, max_new_tokens=8, adapter=a)
+                   for p, a in zip(prompts, names)]
+        outs[device] = [f.result(timeout=120)[0] for f in futures]
+        if not engine.drain(timeout=60):
+            fail('tenant parity engine did not drain')
+        engine._pool.check()  # pylint: disable=protected-access
+        with torch.inference_mode():
+            tokens = torch.tensor([prompts[2][:64]], device=device)
+            positions = torch.arange(64, device=device,
+                                     dtype=torch.int32)[None]
+            tables = torch.zeros((1, cfg.max_seq_len // 16 + 1),
+                                 dtype=torch.int32, device=device)
+            tables[0, :4] = torch.arange(1, 5, dtype=torch.int32)
+            outs[device + '_logits'] = engine._forward(  # pylint: disable=protected-access
+                tokens, positions, tables,
+                torch.tensor([2], dtype=torch.int32, device=device)
+            ).float().cpu()
+    launched = (pa.paged_decode_attention.int8_launches - launches0[0],
+                fl.fused_multi_lora.launches - launches0[1])
+    err = float((outs['cpu_logits'] - outs['cuda_logits']).abs().max())
+    log(f'tenant parity: int8 KV + 3 adapters, fp32 logits cpu vs cuda '
+        f'max_abs_err={err:.3e}; greedy '
+        f'{"equal" if outs["cpu"] == outs["cuda"] else "DIFFER"}; card '
+        f'launches int8 {launched[0]}, lora {launched[1]}')
+    if not all(launched):
+        fail('tenant parity: the card run launched no int8 or LoRA kernel')
+    if outs['cpu'] != outs['cuda']:
+        fail(f'tenant greedy tokens differ: cpu {outs["cpu"]} cuda '
+             f'{outs["cuda"]}')
+    if len({tuple(o) for o in outs['cpu']}) < 2:
+        fail('tenant parity: the adapters changed no output')
+    if not err < 5e-3:
+        fail(f'tenant fp32 logits differ by {err:.3e} between cpu and cuda')
+
+
+def _request(url: str, method: str, body=None) -> tuple:
+    """(status, JSON body) of one HTTP call; error statuses return too."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b'{}')
+
+
+def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
+    """llama3-8b at full width and depth with int8 KV and 4 resident
+    adapters on all seven targets, over localhost HTTP."""
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.serve import tenancy
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    t0 = time.monotonic()
+    server = InferenceServer('llama3-8b', num_slots=8, paged_block_size=16,
+                             prefill_chunk=256, rng_seed=0, max_adapters=4,
+                             device='cuda', **TENANT_KW)
+    engine = server.engine
+    cfg = engine.cfg
+    pools = (engine._k_pool, engine._v_pool, engine._k_scale,  # pylint: disable=protected-access
+             engine._v_scale)  # pylint: disable=protected-access
+    pool_bytes = sum(t.numel() * t.element_size() for t in pools)
+    if bf16_pool_bytes is None:          # the serve phase did not run
+        bf16_pool_bytes = 2 * pools[0].numel() * 2
+    log(f'serve_tenant: llama3-8b with int8 KV and {engine.max_adapters} '
+        f'adapter slots built in {time.monotonic() - t0:.1f}s; pool '
+        f'{pool_bytes} bytes (int8 payload + fp32 scales) vs '
+        f'{bf16_pool_bytes} in bf16 ({pool_bytes / bf16_pool_bytes:.4f}x)')
+    server.warmup()
+    http = BackgroundServer(server)
+    names = [f'ad{i}' for i in range(4)]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, name in enumerate(names):
+                path = os.path.join(tmp, f'{name}.npz')
+                tenancy.save_adapter_npz(random_adapter(cfg, 40 + i), path)
+                status, body = _request(http.url + '/adapters/load', 'POST',
+                                        {'name': name, 'path': path})
+                if status != 200 or body.get('slot') != i + 1:
+                    fail(f'POST /adapters/load {name}: {status} {body}')
+        status, body = _request(http.url + '/adapters', 'GET')
+        if status != 200 or body['resident'] != 4:
+            fail(f'GET /adapters: {status} {body}')
+        status, body = _request(http.url + '/health', 'GET')
+        if body != {'status': 'ok', 'adapters': {'capacity': 4,
+                                                  'resident': 4}}:
+            fail(f'/health: {status} {body}')
+        lengths = [20, 117, 214, 311, 408, 505, 602, 700]
+        adapter_of = [None, 'ad0', 'ad1', 'ad2', 'ad3', None, 'ad0', 'ad1']
+        gen = torch.Generator().manual_seed(1)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=gen).tolist() for n in lengths]
+
+        def body_of(i, adapter):
+            out = {'prompt_ids': [prompts[i]], 'max_new_tokens': 32,
+                   'temperature': 0.0}
+            if adapter is not None:
+                out['adapter'] = adapter
+            return out
+
+        results = [None] * len(prompts)
+        errors = []
+
+        def send(i):
+            try:
+                results[i] = _post(http.url + '/generate',
+                                   body_of(i, adapter_of[i]))
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(f'request {i}: {e!r}')
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunks0 = engine.paged_stats['prefill_chunks']
+        ticks0 = engine.tick_stats['dispatches']
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention.int8_launches = 0
+        fl.fused_multi_lora.launches = 0
+        t_start = time.monotonic()
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        # While ad3's request is in flight its adapter is pinned: DELETE
+        # must refuse with 409 (between ticks: no kernel launch).
+        deadline = time.monotonic() + 60
+        while engine._adapter_pool.refcount('ad3') == 0:  # pylint: disable=protected-access
+            if time.monotonic() > deadline:
+                fail('ad3 was never pinned')
+            time.sleep(0.005)
+        status, body = _request(http.url + '/adapters/ad3', 'DELETE')
+        pinned_delete = status
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.monotonic() - t_start
+        launches = {'paged_decode_attention':
+                    pa.paged_decode_attention.launches,
+                    'paged_decode_attention_int8':
+                    pa.paged_decode_attention.int8_launches,
+                    'fused_multi_lora': fl.fused_multi_lora.launches}
+        chunks = engine.paged_stats['prefill_chunks'] - chunks0
+        ticks = engine.tick_stats['dispatches'] - ticks0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if errors or any(t.is_alive() for t in threads):
+            fail(f'requests failed: {errors}')
+        log(f'serve_tenant: DELETE /adapters/ad3 while pinned -> '
+            f'{pinned_delete} {body}')
+        if pinned_delete != 409:
+            fail(f'DELETE of a pinned adapter gave {pinned_delete}, not 409')
+        stats, mixed = [], []
+        for i, res in enumerate(results):
+            ids = res['token_ids'][0]
+            if len(ids) != 32 or not all(
+                    isinstance(t, int) and 0 <= t < cfg.vocab_size
+                    for t in ids):
+                fail(f'request {i}: bad token ids {ids}')
+            mixed.append(ids)
+            stats.append(res['stats'][0])
+        layers = cfg.num_layers
+        expected = {'paged_decode_attention': 0,
+                    'paged_decode_attention_int8': layers * (chunks + ticks),
+                    'fused_multi_lora': layers * 7 * (chunks + ticks)}
+        log(f'serve_tenant: 8 requests (base x2, ad0 x2, ad1 x2, ad2, ad3) '
+            f'ok in {wall:.2f}s; prefill chunks {chunks}, decode ticks '
+            f'{ticks}; launches {launches}, expected {expected} ({layers} '
+            f'layers x (chunks + ticks), x 7 targets for LoRA)')
+        if launches != expected:
+            fail(f'serve_tenant launches {launches} != {expected}')
+        ttft = statistics.median(s['ttft_s'] for s in stats)
+        decode_tokens = sum(s['new_tokens'] - 1 for s in stats)
+        span = max(s['total_s'] for s in stats) - min(s['ttft_s']
+                                                      for s in stats)
+        log(f'serve_tenant: TTFT p50 {ttft * 1e3:.1f} ms, decode '
+            f'{decode_tokens / span:.1f} tokens/s over 8 slots, peak '
+            f'memory {peak_gib:.2f} GiB; pool {pool_bytes / 2**30:.3f} GiB '
+            f'int8 vs {bf16_pool_bytes / 2**30:.3f} GiB bf16 [{smi}]')
+        # Each request alone through the same engine: same tokens (every
+        # decode step runs all 8 slots either way, inert rows on slot 0).
+        differ = 0
+        for i, adapter in enumerate(adapter_of):
+            alone = _post(http.url + '/generate',
+                          body_of(i, adapter))['token_ids'][0]
+            if alone != mixed[i]:
+                fail(f'request {i} ({adapter}): mixed batch {mixed[i]} != '
+                     f'served alone {alone}')
+            if adapter is not None:
+                base = _post(http.url + '/generate',
+                             body_of(i, None))['token_ids'][0]
+                differ += base != alone
+        log(f'serve_tenant: every request equals itself served alone; '
+            f'{differ} of 6 adapter requests differ from the base model '
+            f'on the same prompt')
+        if not differ:
+            fail('no adapter request differs from the base model')
+    finally:
+        http.close()
+        server.draining = True
+    if not engine.drain(timeout=120):
+        fail('tenant engine did not drain')
+    engine._pool.check()  # pylint: disable=protected-access
+    if engine._pool.used != 1:  # pylint: disable=protected-access
+        fail('pool did not return to scratch-only after drain')
+    if any(a['refs'] for a in engine.adapters_info()['adapters']):
+        fail(f'adapter pins leaked: {engine.adapters_info()}')
     step_breakdown(torch, engine, smi)
     return launches
 
@@ -854,7 +1399,9 @@ def phase_train(torch, smi: str) -> dict:
     return launches
 
 
-PHASES = ('kernels', 'flash', 'parity', 'train_parity', 'train', 'serve')
+PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'parity',
+          'tenant_parity', 'train_parity', 'train', 'serve', 'serve_tenant')
+PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
 def main(argv=None) -> int:
@@ -882,13 +1429,19 @@ def main(argv=None) -> int:
                 log(f'build {name}: {line.strip()}')
 
     kernels = []
-    paged = flash = None
+    paged = paged8 = lora = flash = None
     if 'kernels' in phases:
         paged = phase_kernels(torch)
+    if 'kernels_int8' in phases:
+        paged8 = phase_kernels_int8(torch)
+    if 'lora' in phases:
+        lora = phase_lora(torch)
     if 'flash' in phases:
         flash = phase_flash(torch)
     if 'parity' in phases:
         phase_parity(torch)
+    if 'tenant_parity' in phases:
+        phase_tenant_parity(torch)
     if 'train_parity' in phases:
         phase_train_parity(torch)
     if 'train' in phases:
@@ -899,14 +1452,32 @@ def main(argv=None) -> int:
                     'name': name, 'route': 'cuda', 'source': FLASH_SOURCE,
                     'replaces': replaces, 'launches': launches[attr],
                     **flash[attr]})
+    bf16_pool_bytes = None
     if 'serve' in phases:
-        launches = phase_serve(torch, smi)
+        launches, bf16_pool_bytes = phase_serve(torch, smi)
         if paged is not None:
             kernels.append({
                 'name': 'paged_decode_attention', 'route': 'cuda',
-                'source': 'skypilot_tpu_torch/ops/csrc/paged_attention.cu',
+                'source': PAGED_SOURCE,
                 'replaces': 'skypilot_tpu/ops/paged_attention.py:71',
                 'launches': launches, **paged})
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 'serve_tenant' in phases:
+        launches = phase_serve_tenant(torch, smi, bf16_pool_bytes)
+        if paged8 is not None:
+            kernels.append({
+                'name': 'paged_decode_attention_int8', 'route': 'cuda',
+                'source': PAGED_SOURCE,
+                'replaces': 'skypilot_tpu/ops/paged_attention.py:126',
+                'launches': launches['paged_decode_attention_int8'],
+                **paged8})
+        if lora is not None:
+            kernels.append({
+                'name': 'fused_multi_lora', 'route': 'cuda',
+                'source': LORA_SOURCE,
+                'replaces': 'skypilot_tpu/ops/fused_lora.py:38',
+                'launches': launches['fused_multi_lora'], **lora})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

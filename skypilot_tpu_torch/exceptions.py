@@ -24,3 +24,21 @@ class EngineDrainingError(EngineOverloadedError):
 
 class RequestDeadlineExceededError(SkyTpuError, TimeoutError):
     """A per-request deadline expired before the request finished."""
+
+
+# ---------------- multi-tenant serving (serve/tenancy) ----------------
+
+
+class AdapterPoolExhaustedError(EngineOverloadedError):
+    """Every device-side adapter slot is pinned by in-flight requests;
+    the load/request is shed retryably (503 + Retry-After)."""
+
+
+class UnknownAdapterError(SkyTpuError):
+    """A request named an adapter that is not registered on this
+    engine; the server maps this to a terminal 400/404."""
+
+
+class AdapterInUseError(SkyTpuError):
+    """DELETE /adapters/{name} while in-flight requests still pin the
+    adapter; the server maps this to 409."""

@@ -10,17 +10,23 @@ leading layer axis, the default `scan_layers=True`) and unscanned
 q/k/v and gate/up concatenated along the output axis into the fused
 projections. `params_to_jax(state, cfg)` is the inverse, into the scanned
 layout. A gradient tree has the param tree's structure, so both
-directions carry gradients too. Nothing here imports JAX.
+directions carry gradients too. `adapter_from_jax(tree, cfg)` takes ONE
+LoRA adapter in the reference's models/lora layout (what
+serve/tenancy.adapter_tree_from_lora_params yields; scanned or unscanned)
+and returns the port's per-layer, per-target (A, B) matrices. Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from skypilot_tpu_torch.models.configs import ModelConfig
-from skypilot_tpu_torch.models.transformer import check_supported, torch_dtype
+from skypilot_tpu_torch.models.transformer import (check_supported,
+                                                   lora_target_names,
+                                                   torch_dtype)
 
 
 def _layer_tree(tree: Mapping[str, Any], index: int) -> Dict[str, Any]:
@@ -145,3 +151,98 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
         'final_norm': {'scale': arr('final_norm.weight')},
         'lm_head': {'kernel': arr('lm_head')},
     }
+
+
+_LORA_MODULE = {'q_proj': 'attn', 'k_proj': 'attn', 'v_proj': 'attn',
+                'o_proj': 'attn', 'gate_proj': 'mlp', 'up_proj': 'mlp',
+                'down_proj': 'mlp'}
+
+
+def _lora_shapes(cfg: ModelConfig) -> Dict[str, Tuple[tuple, tuple]]:
+    """One layer's (lora_a, lora_b) shapes per projection, in the
+    reference's LoRADenseGeneral layout: the input axes then r, and r
+    then the output axes (q/k/v keep (heads, head_dim), o_proj takes
+    (heads, head_dim) in)."""
+    d, heads, kv_heads = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, f, r = cfg.head_dim, cfg.d_mlp, cfg.lora_rank
+    return {'q_proj': ((d, r), (r, heads, hd)),
+            'k_proj': ((d, r), (r, kv_heads, hd)),
+            'v_proj': ((d, r), (r, kv_heads, hd)),
+            'o_proj': ((heads, hd, r), (r, d)),
+            'gate_proj': ((d, r), (r, f)), 'up_proj': ((d, r), (r, f)),
+            'down_proj': ((f, r), (r, d))}
+
+
+def adapter_layout(cfg: ModelConfig, scanned: bool = True) -> Dict[str, Any]:
+    """The reference's adapter tree structure for `cfg`'s targets, with
+    each leaf's expected shape (a leading num_layers axis when scanned)."""
+    lead = (cfg.num_layers,) if scanned else ()
+    layer: Dict[str, Any] = {}
+    shapes = _lora_shapes(cfg)
+    for name in lora_target_names(cfg):
+        a, b = shapes[name]
+        layer.setdefault(_LORA_MODULE[name], {})[name] = {
+            'lora_a': lead + a, 'lora_b': lead + b}
+    if scanned:
+        return {'layers': {'layer': layer}}
+    return {f'layer_{i}': layer for i in range(cfg.num_layers)}
+
+
+def _match(layout: Mapping[str, Any], tree: Any, path: str) -> Dict:
+    """`tree`'s leaves as float32 arrays where its structure and shapes
+    equal `layout`'s; raises a KeyError naming the first structural
+    difference, or ValueError on a shape."""
+    if not isinstance(tree, Mapping):
+        raise KeyError(f'{path or "tree"} is a leaf, expected keys '
+                       f'{sorted(layout)}')
+    if set(tree) != set(layout):
+        raise KeyError(f'{path or "tree"} has keys {sorted(tree)}, '
+                       f'expected {sorted(layout)}')
+    out = {}
+    for key, want in layout.items():
+        where = f'{path}/{key}' if path else key
+        if isinstance(want, Mapping):
+            out[key] = _match(want, tree[key], where)
+            continue
+        arr = np.asarray(tree[key])
+        if tuple(arr.shape) != tuple(want):
+            raise ValueError(f'adapter leaf shape {tuple(arr.shape)} != '
+                             f'expected {tuple(want)}')
+        out[key] = arr.astype(np.float32)
+    return out
+
+
+def adapter_from_jax(tree: Mapping[str, Any], cfg: ModelConfig
+                     ) -> List[Dict[str, Tuple[np.ndarray, np.ndarray]]]:
+    """One adapter tree in the reference's models/lora layout → per layer,
+    {projection name: (A (in, r), B (r, out))} float32 arrays, the input
+    and output axes flattened as the reference's fused path flattens them
+    (q's B (r, H, D) → (r, H·D), o_proj's A (H, D, r) → (H·D, r)).
+
+    The tree holds exactly cfg's targets (`lora_targets`, rank
+    `lora_rank`), scanned (`layers/layer/...`, leading num_layers axis)
+    or unscanned (`layer_{i}/...`). Raises ValueError with the
+    reference's messages: a leaf of another shape, or another structure.
+    """
+    scanned = isinstance(tree, Mapping) and 'layers' in tree
+    try:
+        leaves = _match(adapter_layout(cfg, scanned), tree, '')
+    except KeyError as e:
+        raise ValueError(
+            f'adapter tree does not match the model\'s adapter layout '
+            f'(targets {cfg.lora_targets!r}, rank {cfg.lora_rank}): '
+            f'{e.args[0]}') from e
+    layers = []
+    for i in range(cfg.num_layers):
+        layer = (leaves['layers']['layer'] if scanned
+                 else leaves[f'layer_{i}'])
+        out = {}
+        for module in layer.values():
+            for name, ab in module.items():
+                a, b = ab['lora_a'], ab['lora_b']
+                if scanned:
+                    a, b = a[i], b[i]
+                rank = cfg.lora_rank
+                out[name] = (a.reshape(-1, rank), b.reshape(rank, -1))
+        layers.append(out)
+    return layers

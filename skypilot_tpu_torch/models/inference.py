@@ -2,12 +2,21 @@
 
 Port of skypilot_tpu/models/inference.py for the serving main path: the
 SYNCHRONOUS, paged `ContinuousBatchingEngine` (the reference's
-async_depth=0, decode_chunk=1, speculative=0, prefix_cache=0, no
-adapters, tp=1), plus the sampling helpers. A scheduler thread admits
-queued prompts into free slots between ticks; each tick advances every
-mid-prefill slot by one fixed-size chunk, then decodes all slots in one
-batched step. Every attention call runs through the paged kernel
-(ops/paged_attention), one launch per layer.
+async_depth=0, decode_chunk=1, speculative=0, prefix_cache=0, tp=1), plus
+the sampling helpers. A scheduler thread admits queued prompts into free
+slots between ticks; each tick advances every mid-prefill slot by one
+fixed-size chunk, then decodes all slots in one batched step. Every
+attention call runs through the paged kernel (ops/paged_attention), one
+launch per layer.
+
+Multi-tenant serving, as in the reference: `kv_quant='int8'` keeps the
+pool in int8 with fp32 scale rows (the int8 route of the paged kernel),
+and `max_adapters=N` keeps up to N LoRA adapters resident in per-target
+stacks (serve/tenancy.AdapterPool owns slots, LRU and pins; the engine
+thread does the device writes between ticks, `_run_in_tick`). Requests
+for different adapters and the base model decode in ONE batched step: a
+per-slot adapter-index vector drives ops/fused_lora inside every
+targeted projection. SLO tiers and slot preemption are not ported.
 
 Where the reference jits pure functions over a donated cache, the port
 runs eagerly and updates its K/V pools in place. Sampling takes an
@@ -20,6 +29,7 @@ device='cpu' (as the tests do).
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import logging
@@ -34,7 +44,9 @@ import torch
 from skypilot_tpu_torch import exceptions
 from skypilot_tpu_torch.models import kv_cache as kv_cache_lib
 from skypilot_tpu_torch.models.configs import ModelConfig, get_config
+from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.serve import tenancy
 
 logger = logging.getLogger(__name__)
 
@@ -147,10 +159,12 @@ class _Request:
     __slots__ = ('ids', 'max_new_tokens', 'temperature', 'eos_id',
                  'future', 'submit_time', 'first_token_time', 'tokens',
                  'next_pos', 'on_token', 'deadline', 'blocks',
-                 'prefilling', 'prefill_pos')
+                 'prefilling', 'prefill_pos', 'adapter', 'adapter_slot',
+                 'adapter_pool')
 
     def __init__(self, ids, max_new_tokens, temperature, eos_id, future,
-                 on_token=None, deadline=None):
+                 on_token=None, deadline=None, adapter=None,
+                 adapter_slot=0, adapter_pool=None):
         self.ids = list(ids)
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
@@ -172,6 +186,12 @@ class _Request:
         self.blocks: list = []
         self.prefilling = False
         self.prefill_pos = 0
+        # Multi-LoRA: the adapter's name, its stack slot (0 = base
+        # model) and the AdapterPool its pin was taken against (None
+        # once released, so the pin drops exactly once).
+        self.adapter = adapter
+        self.adapter_slot = adapter_slot
+        self.adapter_pool = adapter_pool
 
 
 class ContinuousBatchingEngine:
@@ -183,6 +203,13 @@ class ContinuousBatchingEngine:
     finish. Prompts prefill in fixed `prefill_chunk`-token chunks
     interleaved with decode ticks; rows sit at different depths through
     per-row positions and block tables.
+
+    kv_quant='int8' stores the pool as int8 with fp32 scale rows.
+    max_adapters=N (with adapter_rank r, adapter_alpha and the
+    adapter_targets tokens, e.g. 'q,v') holds up to N LoRA adapters
+    resident; `load_adapter` registers one, `submit(adapter=name)` serves
+    a request through it, batched with other adapters' and base-model
+    requests.
     """
 
     def __init__(self, cfg: 'ModelConfig | str',
@@ -197,13 +224,34 @@ class ContinuousBatchingEngine:
                  paged_num_blocks: Optional[int] = None,
                  prefill_chunk: int = 0,
                  decode_kernel: str = 'pallas',
+                 kv_quant: Optional[str] = None,
+                 max_adapters: int = 0,
+                 adapter_rank: int = 0,
+                 adapter_alpha: float = 16.0,
+                 adapter_targets: str = '',
                  device='cuda') -> None:
-        self.device = resolve_device(device)
+        if kv_quant not in (None, '', 'int8'):
+            raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
+                             f"supported: 'int8'")
         if isinstance(cfg, str):
             cfg = get_config(cfg)
+        # -------- multi-LoRA serving --------
+        self.max_adapters = max(0, max_adapters)
+        if self.max_adapters:
+            rank = adapter_rank or cfg.lora_rank
+            if rank <= 0:
+                raise ValueError(
+                    'max_adapters > 0 requires adapter_rank > 0 (the '
+                    'uniform rank every resident adapter must share)')
+            cfg = dataclasses.replace(
+                cfg, serve_adapters=self.max_adapters, lora_rank=rank,
+                lora_alpha=adapter_alpha,
+                lora_targets=adapter_targets or cfg.lora_targets)
+        self.device = resolve_device(device)
         if max_seq_len is not None:
             cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
-        cfg = dataclasses.replace(cfg, decode=True, remat=False)
+        cfg = dataclasses.replace(cfg, decode=True, remat=False,
+                                  kv_cache_quant=kv_quant or '')
         self.num_slots = num_slots
         self.top_k, self.top_p = top_k, top_p
         # -------- paged KV cache --------
@@ -236,7 +284,10 @@ class ContinuousBatchingEngine:
             self.model.init_random_(rng_seed)
         else:
             self.model.load_state_dict(params, strict=True, assign=True)
-        self._k_pool, self._v_pool = self.model.new_kv_pool(nb)
+        # (K, V) pools, plus (K scale, V scale) pools under int8 KV.
+        pools = self.model.new_kv_pool(nb)
+        self._k_pool, self._v_pool = pools[:2]
+        self._k_scale, self._v_scale = pools[2:] or (None, None)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         # Decode-tick block-table cache: rebuilt only when the per-slot
         # block ids change (admission, finish, block growth).
@@ -253,35 +304,57 @@ class ContinuousBatchingEngine:
         # beyond it submit() raises EngineOverloadedError.
         self.max_queue_depth = max(0, max_queue_depth)
         self._draining = False
+        # Device-facing work from other threads (adapter writes) runs in
+        # the engine thread between ticks: see _run_in_tick.
+        self._engine_work: 'collections.deque' = collections.deque()
+        # -------- adapter pool state (multi-LoRA serving) --------
+        self._adapter_pool: Optional[tenancy.AdapterPool] = (
+            tenancy.AdapterPool(self.max_adapters) if self.max_adapters
+            else None)
+        self._lora_stacks = list(self.model.lora_stacks())
+        self._aids_sig: Optional[tuple] = None
+        self._aids_cache: Optional[torch.Tensor] = None
+        self.tenancy_stats = {'adapter_sheds': 0}
 
     # ---------------- device steps ----------------
 
     def _upload(self, values, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(values, dtype=dtype, device=self.device)
 
+    def _forward(self, tokens, positions, tables, aids,
+                 logits_at=None) -> torch.Tensor:
+        return self.model(tokens, positions, tables, self._k_pool,
+                          self._v_pool, logits_at=logits_at,
+                          k_scale=self._k_scale, v_scale=self._v_scale,
+                          adapter_ids=aids)
+
     def _prefill_chunk_impl(self, tokens: torch.Tensor,
                             tables: torch.Tensor, start: int,
-                            true_n: int) -> torch.Tensor:
+                            true_n: int,
+                            aids: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
         """One chunked-prefill step: process the (1, prefill_chunk)
         right-padded chunk at positions [start, start + chunk) through
-        the slot's block table; returns the logits at chunk token
-        true_n - 1 (only meaningful on the final chunk). Pad-token
-        writes land in the row's own blocks that later real writes
-        overwrite, or clip into the table's scratch column."""
+        the slot's block table (and, multi-LoRA, its (1,) adapter slot
+        `aids`); returns the logits at chunk token true_n - 1 (only
+        meaningful on the final chunk). Pad-token writes land in the
+        row's own blocks that later real writes overwrite, or clip into
+        the table's scratch column."""
         positions = start + torch.arange(tokens.shape[1], dtype=torch.int32,
                                          device=self.device)[None, :]
-        logits = self.model(tokens, positions, tables, self._k_pool,
-                            self._v_pool, logits_at=true_n - 1)
+        logits = self._forward(tokens, positions, tables, aids,
+                               logits_at=true_n - 1)
         return logits[0]
 
     def _decode_impl(self, tokens: torch.Tensor, positions: torch.Tensor,
                      temps: torch.Tensor, tables: torch.Tensor,
-                     any_sampling: bool) -> torch.Tensor:
+                     any_sampling: bool,
+                     aids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One all-slots decode step with batched sampling. tokens/
         positions: (num_slots, 1); temps: (num_slots,) — <=0 means
-        greedy. Returns (num_slots,) int32 next tokens."""
-        logits = self.model(tokens, positions, tables, self._k_pool,
-                            self._v_pool)
+        greedy; aids: (num_slots,) adapter slots (multi-LoRA). Returns
+        (num_slots,) int32 next tokens."""
+        logits = self._forward(tokens, positions, tables, aids)
         last = logits[:, -1, :].float()
         greedy = torch.argmax(last, dim=-1).to(torch.int32)
         if not any_sampling:
@@ -340,6 +413,26 @@ class ContinuousBatchingEngine:
             self._table_sig = sig
         return self._table_cache
 
+    def _aids_for(self, slots, active_set) -> Optional[torch.Tensor]:
+        """Per-slot adapter-slot vector for an all-slots decode step
+        (multi-LoRA engines only), cached under its value signature.
+        Inert rows read slot 0, the identity; their outputs are never
+        read."""
+        if not self.max_adapters:
+            return None
+        sig = tuple(slots[i].adapter_slot if i in active_set else 0
+                    for i in range(self.num_slots))
+        if sig != self._aids_sig:
+            self._aids_cache = self._upload(list(sig))
+            self._aids_sig = sig
+        return self._aids_cache
+
+    def _aids_single(self, req: _Request) -> Optional[torch.Tensor]:
+        """(1,) adapter-slot vector for a prefill chunk."""
+        if not self.max_adapters:
+            return None
+        return self._upload([req.adapter_slot])
+
     # ---------------- scheduling ----------------
 
     def _admit(self, slot: int, req: _Request) -> None:
@@ -375,7 +468,8 @@ class ContinuousBatchingEngine:
                 [0] * (self.prefill_chunk - n)
             logits = self._prefill_chunk_impl(self._upload([chunk]),
                                               self._table_array([req]),
-                                              start, n)
+                                              start, n,
+                                              self._aids_single(req))
             req.prefill_pos = start + n
             self.paged_stats['prefill_chunks'] += 1
             if req.prefill_pos >= total:
@@ -410,7 +504,8 @@ class ContinuousBatchingEngine:
                                    else 0] for i in range(self.num_slots)])
         out = self._decode_impl(tokens, positions,
                                 self._upload(temps_host, torch.float32),
-                                tables, any(t > 0 for t in temps_host))
+                                tables, any(t > 0 for t in temps_host),
+                                self._aids_for(slots, active_set))
         out_cols = out.cpu().numpy()[:, None]
         self.tick_stats['dispatches'] += 1
         self._emit(slots, active, out_cols)
@@ -418,6 +513,10 @@ class ContinuousBatchingEngine:
     def _tick(self) -> None:
         slots = self._slots
         queue = self._queue
+        # Engine-thread work (adapter writes) runs FIRST, while no step
+        # is in flight.
+        if self._engine_work:
+            self._drain_engine_work()
         now = time_lib.time()        # wall: deadlines are absolute epoch
         mono_now = time_lib.monotonic()
         # Per-request deadlines and cancellation: an expired (or
@@ -429,6 +528,7 @@ class ContinuousBatchingEngine:
             if req.future.cancelled():
                 slots[slot] = None
                 self._release_blocks(req)
+                self._release_adapter(req)
                 self._notify(req, None)
             elif req.deadline is not None and now > req.deadline:
                 slots[slot] = None
@@ -452,6 +552,7 @@ class ContinuousBatchingEngine:
                     queue.queue.extend(kept)
             for req in dead:
                 if req.future.cancelled():
+                    self._release_adapter(req)
                     self._notify(req, None)
                 else:
                     self._fail_request(
@@ -467,6 +568,7 @@ class ContinuousBatchingEngine:
                 except queue_lib.Empty:
                     break
                 if req.future.cancelled():
+                    self._release_adapter(req)
                     self._notify(req, None)
                     continue
                 if req.deadline is not None and now > req.deadline:
@@ -505,7 +607,18 @@ class ContinuousBatchingEngine:
             logger.exception('on_token callback failed')
             req.on_token = None
 
+    @staticmethod
+    def _release_adapter(req: _Request) -> None:
+        """Drop the request's adapter pin, exactly once, into the pool
+        object the pin was taken against (a failed tick swaps the
+        engine's pool; stale releases land in the old one harmlessly)."""
+        pool = req.adapter_pool
+        if pool is not None:
+            req.adapter_pool = None
+            pool.release(req.adapter)
+
     def _fail_request(self, req: _Request, exc: BaseException) -> None:
+        self._release_adapter(req)
         if not req.future.done():
             req.future.set_exception(exc)
         self._notify(req, None)
@@ -514,6 +627,7 @@ class ContinuousBatchingEngine:
         req = slots[slot]
         slots[slot] = None
         self._release_blocks(req)
+        self._release_adapter(req)
         now = time_lib.monotonic()
         stats = {
             'ttft_s': req.first_token_time - req.submit_time,
@@ -569,6 +683,15 @@ class ContinuousBatchingEngine:
                         self._pool = kv_cache_lib.BlockPool(
                             self.cfg.paged_num_blocks, self.paged_block_size)
                         self._table_sig = None
+                        self._aids_sig = None
+                        if self.max_adapters:
+                            # The failed tick's residency bookkeeping is
+                            # untrusted: fresh residency (the registry
+                            # survives) over zeroed stacks.
+                            self._adapter_pool = self._adapter_pool.fresh()
+                            for _, _, stack in self._lora_stacks:
+                                stack.a[1:].zero_()
+                                stack.b[1:].zero_()
                     for req in failed:
                         self._fail_request(req, e)
 
@@ -581,9 +704,110 @@ class ContinuousBatchingEngine:
                                                 name='cbatch-engine')
                 self._thread.start()
 
+    def _run_in_tick(self, fn, timeout: float = 120.0):
+        """Run `fn()` in the engine thread between ticks and return its
+        result (or raise its error). The adapter stacks are read by every
+        step, so every write to them funnels through here and never
+        races a step in flight."""
+        future: 'concurrent.futures.Future' = concurrent.futures.Future()
+        with self._thread_lock:
+            self._engine_work.append((fn, future))
+        self._ensure_thread()
+        self._wake.set()
+        return future.result(timeout=timeout)
+
+    def _drain_engine_work(self) -> None:
+        """Run the queued engine-thread work items; a failing item
+        resolves its own future and never fails the tick."""
+        while self._engine_work:
+            fn, future = self._engine_work.popleft()
+            try:
+                result = fn()
+            except Exception as e:  # pylint: disable=broad-except
+                future.set_exception(e)
+            else:
+                future.set_result(result)
+
     def _busy(self) -> bool:
         return any(r is not None for r in self._slots) or \
             not self._queue.empty()
+
+    # ------------- multi-LoRA adapter pool (serve/tenancy) -------------
+
+    def _require_adapter_pool(self) -> tenancy.AdapterPool:
+        if self._adapter_pool is None:
+            raise exceptions.UnknownAdapterError(
+                'this engine has no adapter pool (serve with '
+                '--max-adapters N)')
+        return self._adapter_pool
+
+    def _write_adapter(self, slot: int, host) -> None:
+        """Copy one adapter's per-layer (A, B) matrices into stack slot
+        `slot` of every targeted projection (engine thread only)."""
+        for layer, name, stack in self._lora_stacks:
+            a, b = host[layer][name]
+            stack.a[slot].copy_(torch.from_numpy(a))
+            stack.b[slot].copy_(torch.from_numpy(b))
+
+    def _ensure_resident(self, name: str, pin: bool) -> int:
+        """Make `name` resident (the device write runs in the engine
+        thread, _run_in_tick), with `pin` taking a refcount for a request
+        about to queue. An already-resident adapter pins under the pool
+        lock alone."""
+        pool = self._require_adapter_pool()
+        if pin:
+            slot = pool.pin_if_resident(name)
+            if slot is not None:
+                return slot
+
+        def load():
+            slot, host, _evicted = pool.acquire_for_load(name, pin=pin)
+            if host is not None:
+                try:
+                    self._write_adapter(slot, host)
+                except BaseException:
+                    # The residency map must never claim weights that
+                    # did not land, and a failed load must not leak its
+                    # pin.
+                    pool.abort_load(name, pinned=pin)
+                    raise
+            return slot
+
+        return self._run_in_tick(load)
+
+    def load_adapter(self, name: str, adapter_tree) -> int:
+        """Register one adapter's weight tree (lora_a/lora_b leaves in
+        the reference's models/lora layout, scanned or unscanned; see
+        models/convert.adapter_from_jax) and make it resident. Returns
+        its stack slot. Raises AdapterPoolExhaustedError when every slot
+        is pinned (the server sheds retryably)."""
+        pool = self._require_adapter_pool()
+        tenancy.validate_adapter_name(name)
+        pool.register(name, adapter_from_jax(adapter_tree, self.cfg))
+        try:
+            return self._ensure_resident(name, pin=False)
+        except exceptions.AdapterPoolExhaustedError:
+            self.tenancy_stats['adapter_sheds'] += 1
+            raise
+
+    def unload_adapter(self, name: str) -> None:
+        """Unregister an adapter. Refuses (AdapterInUseError → HTTP 409)
+        while in-flight requests pin it. The vacated slot is not zeroed:
+        nothing reads it until a later load overwrites it."""
+        pool = self._require_adapter_pool()
+        self._run_in_tick(lambda: pool.unregister(name))
+
+    def adapters_info(self) -> dict:
+        """Registry/residency snapshot for GET /adapters and /health."""
+        if self._adapter_pool is None:
+            return {'capacity': 0, 'resident': 0, 'adapters': []}
+        info = self._adapter_pool.info()
+        return {
+            'capacity': self.max_adapters,
+            'resident': sum(1 for a in info if a['resident']),
+            'adapters': info,
+            'stats': dict(self._adapter_pool.stats),
+        }
 
     # ---------------- public api ----------------
 
@@ -591,14 +815,20 @@ class ContinuousBatchingEngine:
                temperature: float = 0.0,
                eos_id: Optional[int] = None,
                on_token=None,
-               deadline: Optional[float] = None
+               deadline: Optional[float] = None,
+               adapter: Optional[str] = None
                ) -> 'concurrent.futures.Future':
         """Enqueue one request; returns a Future resolving to
         (token_ids, stats). `deadline` (absolute time.time() seconds)
         fails the request with RequestDeadlineExceededError once passed,
-        whether it is still queued or mid-decode. While draining, or
-        with max_queue_depth exceeded, raises EngineDrainingError /
-        EngineOverloadedError instead of queueing."""
+        whether it is still queued or mid-decode. `adapter` names a
+        registered LoRA adapter: the request decodes through its slot in
+        the same steps as other adapters' and base-model requests, and
+        pins it (never evicted) until the request resolves. While
+        draining, or with max_queue_depth exceeded, raises
+        EngineDrainingError / EngineOverloadedError instead of queueing;
+        an unknown adapter raises UnknownAdapterError, every adapter slot
+        pinned AdapterPoolExhaustedError."""
         if self._draining:
             raise exceptions.EngineDrainingError(
                 'engine is draining for shutdown; not accepting new '
@@ -620,13 +850,24 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f'{len(ids)}+{max_new_tokens} exceeds max_seq_len '
                 f'{self.cfg.max_seq_len}')
+        adapter_slot, pinned_pool = 0, None
+        if adapter is not None:
+            try:
+                adapter_slot = self._ensure_resident(adapter, pin=True)
+            except exceptions.AdapterPoolExhaustedError:
+                self.tenancy_stats['adapter_sheds'] += 1
+                raise
+            pinned_pool = self._adapter_pool
         future: 'concurrent.futures.Future' = concurrent.futures.Future()
         req = _Request(ids, max_new_tokens, temperature, eos_id, future,
-                       on_token=on_token, deadline=deadline)
+                       on_token=on_token, deadline=deadline,
+                       adapter=adapter, adapter_slot=adapter_slot,
+                       adapter_pool=pinned_pool)
         # Re-check draining under the lock drain() flips it under:
         # either this request is visible to drain's wait, or refused.
         with self._thread_lock:
             if self._draining:
+                self._release_adapter(req)
                 raise exceptions.EngineDrainingError(
                     'engine is draining for shutdown; not accepting '
                     'new requests')
@@ -638,10 +879,11 @@ class ContinuousBatchingEngine:
     def generate(self, prompt_ids, max_new_tokens: int = 32,
                  temperature: float = 0.0,
                  eos_id: Optional[int] = None,
-                 timeout: Optional[float] = 300.0):
+                 timeout: Optional[float] = 300.0,
+                 adapter: Optional[str] = None):
         """Blocking convenience wrapper around submit()."""
         return self.submit(prompt_ids, max_new_tokens, temperature,
-                           eos_id).result(timeout=timeout)
+                           eos_id, adapter=adapter).result(timeout=timeout)
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Graceful shutdown: stop admitting (submit raises

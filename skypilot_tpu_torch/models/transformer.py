@@ -24,16 +24,31 @@ Layout choices:
   PLACE, where the JAX code returns a new pool: a pool is a persistent
   buffer the engine owns, and copying 8 GB per step would be absurd.
 - Norm statistics, rope angles and attention scores are fp32, as in the
-  reference. The reference's `_attend_window` math (float branch) is
+  reference. The reference's `_attend_window` math (float and int8) is
   ops/paged_attention.attend_window, the kernel's plain version.
+- int8 KV (cfg.kv_cache_quant == 'int8'): the pools hold int8 payloads
+  plus fp32 per-token-per-kv-head scale pools (L, NB, bs, KV, 1), the
+  reference's layout; every write quantizes with `int8_quantize` (the
+  reference's `_int8_quantize`, op for op) and scatters payload and scale
+  rows through the step's write index.
+- Multi-LoRA serving (cfg.serve_adapters = N > 0): each targeted
+  projection of each layer holds a `LoRAStack`, (N + 1, in, r) A and
+  (N + 1, r, out) B buffers (slot 0 the all-zero identity; not in the
+  state dict, like the reference's separate 'adapters' collection). The
+  per-row slot vector `adapter_ids` picks each row's adapter; the delta
+  z * (alpha / r) comes from ops/fused_lora and is added in the compute
+  dtype to the matching column slice of the fused q/k/v or gate/up
+  output, before the split, rope and SiLU (the reference adds it to each
+  target's own projection: the same numbers).
 - `cfg.remat` is per-layer `torch.utils.checkpoint` (non-reentrant):
   remat_policy 'dots' saves the matmul outputs (the reference's
   dots_with_no_batch_dims_saveable) through a selective-checkpoint
   policy, 'full' saves nothing. Values do not depend on the policy.
 
 Family knobs beyond Llama-3 (biases, softcaps, parallel block, MoE,
-quantization, LoRA, learned positions, LayerNorm, tied embeddings, padded
-vocab) are refused at construction; ROADMAP.md queues them.
+int8 weights, LoRA training, learned positions, LayerNorm, tied
+embeddings, padded vocab) are refused at construction; ROADMAP.md queues
+them.
 """
 from __future__ import annotations
 
@@ -47,6 +62,7 @@ from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
+from skypilot_tpu_torch.ops.fused_lora import fused_multi_lora
 from skypilot_tpu_torch.ops.paged_attention import paged_decode_attention
 
 # lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
@@ -80,8 +96,9 @@ def _unsupported_knobs(cfg: ModelConfig) -> list:
         'parallel_block': cfg.parallel_block,
         'num_experts': cfg.num_experts,
         'weight_quant': cfg.weight_quant != 'none',
-        'kv_cache_quant': cfg.kv_cache_quant,
-        'serve_adapters': cfg.serve_adapters, 'lora_rank': cfg.lora_rank,
+        'kv_cache_quant': cfg.kv_cache_quant not in ('', 'int8'),
+        # LoRA training (lora_rank without serve adapters) is not ported.
+        'lora_rank': cfg.lora_rank and not cfg.serve_adapters,
         'pos_embedding': cfg.pos_embedding != 'rope',
         'norm_style': cfg.norm_style != 'rms',
         'mlp_style': cfg.mlp_style != 'glu',
@@ -102,6 +119,45 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f'{cfg.name}: the PyTorch port serves the Llama-3 dense path '
             f'only; not ported yet: {", ".join(bad)}')
+    if cfg.serve_adapters:
+        if not cfg.decode:
+            raise NotImplementedError(
+                'serve_adapters is a serving (decode) knob; LoRA training '
+                'is not ported yet')
+        if cfg.lora_rank <= 0:
+            raise ValueError('serve_adapters > 0 requires lora_rank > 0')
+        lora_target_names(cfg)
+
+
+_LORA_TOKENS = ('q', 'k', 'v', 'o', 'gate', 'up', 'down')
+
+
+def lora_target_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """'q,v' → ('q_proj', 'v_proj'); validates the token set (the
+    reference's transformer.lora_target_names)."""
+    names = []
+    for tok in cfg.lora_targets.split(','):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if tok not in _LORA_TOKENS:
+            raise ValueError(f'lora_targets token {tok!r} not in '
+                             f'{_LORA_TOKENS}')
+        names.append(f'{tok}_proj')
+    if cfg.lora_rank > 0 and not names:
+        raise ValueError('lora_rank > 0 but lora_targets is empty')
+    return tuple(names)
+
+
+def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-per-kv-head absmax int8 quantization for KV writes, the
+    reference's `_int8_quantize` op for op: amax floored at 1e-6, divided
+    by 127, then round(x / scale) (half to even in both frameworks).
+    x: (B, T, KV, D) → (int8 payload, fp32 scales (B, T, KV))."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    return torch.round(x32 / scale[..., None]).to(torch.int8), scale
 
 
 class RMSNorm(nn.Module):
@@ -170,6 +226,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, *rope_cos_sin(positions, freqs))
 
 
+class LoRAStack(nn.Module):
+    """The resident adapters of one targeted projection: (slots, in, r)
+    A and (slots, r, out) B buffers in the compute dtype, zero-filled
+    (slot 0 stays the identity; the engine writes slots 1..N between
+    ticks). `forward` is the delta z * (alpha / r) in x's dtype."""
+
+    def __init__(self, cfg: ModelConfig, d_in: int, d_out: int,
+                 device=None) -> None:
+        super().__init__()
+        slots, rank = cfg.serve_adapters + 1, cfg.lora_rank
+        self.scale = cfg.lora_alpha / rank
+        kwargs = dict(device=device, dtype=torch_dtype(cfg))
+        self.register_buffer('a', torch.zeros((slots, d_in, rank), **kwargs),
+                             persistent=False)
+        self.register_buffer('b', torch.zeros((slots, rank, d_out), **kwargs),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor,
+                adapter_ids: torch.Tensor) -> torch.Tensor:
+        return fused_multi_lora(x, self.a, self.b, adapter_ids) * self.scale
+
+
+def _lora_stacks(cfg: ModelConfig, shapes, device) -> nn.ModuleDict:
+    """A LoRAStack for each targeted projection among `shapes` (name →
+    (in, out)); empty without serve adapters."""
+    if not cfg.serve_adapters:
+        return nn.ModuleDict()
+    targets = lora_target_names(cfg)
+    return nn.ModuleDict({
+        name: LoRAStack(cfg, d_in, d_out, device)
+        for name, (d_in, d_out) in shapes.items() if name in targets})
+
+
+def _add_deltas(y: torch.Tensor, x: torch.Tensor, stacks: nn.ModuleDict,
+                names, widths, adapter_ids) -> torch.Tensor:
+    """y (B, T, sum(widths)) is a fused projection of x whose column
+    slices are the projections `names`: add each targeted one's delta to
+    its slice, in place, in y's dtype."""
+    start = 0
+    for name, width in zip(names, widths):
+        if name in stacks:
+            y[..., start:start + width] += stacks[name](x, adapter_ids)
+        start += width
+    return y
+
+
 class PagedStep(NamedTuple):
     """Per-forward inputs every layer shares: positions, the rope cos/sin,
     the tables the kernel reads through, and the pool scatter index."""
@@ -213,21 +315,32 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
-        qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-        self.qkv_proj = _new_param(cfg, (cfg.d_model, qkv_out), device)
-        self.o_proj = _new_param(
-            cfg, (cfg.num_heads * cfg.head_dim, cfg.d_model), device)
+        q_out = cfg.num_heads * cfg.head_dim
+        kv_out = cfg.num_kv_heads * cfg.head_dim
+        self.qkv_widths = (q_out, kv_out, kv_out)
+        self.qkv_proj = _new_param(cfg, (cfg.d_model, q_out + 2 * kv_out),
+                                   device)
+        self.o_proj = _new_param(cfg, (q_out, cfg.d_model), device)
+        self.lora = _lora_stacks(cfg, {
+            'q_proj': (cfg.d_model, q_out), 'k_proj': (cfg.d_model, kv_out),
+            'v_proj': (cfg.d_model, kv_out),
+            'o_proj': (q_out, cfg.d_model)}, device)
 
     def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
-                v_pool: Optional[torch.Tensor] = None) -> torch.Tensor:
+                v_pool: Optional[torch.Tensor] = None,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         batch, cur_len, _ = x.shape
         heads, kv_heads, head_dim = (cfg.num_heads, cfg.num_kv_heads,
                                      cfg.head_dim)
-        q, k, v = torch.split(x @ self.qkv_proj.to(self.dtype),
-                              [heads * head_dim, kv_heads * head_dim,
-                               kv_heads * head_dim], dim=-1)
+        qkv = x @ self.qkv_proj.to(self.dtype)
+        if adapter_ids is not None:
+            _add_deltas(qkv, x, self.lora, ('q_proj', 'k_proj', 'v_proj'),
+                        self.qkv_widths, adapter_ids)
+        q, k, v = torch.split(qkv, list(self.qkv_widths), dim=-1)
         q = _rotate(q.reshape(batch, cur_len, heads, head_dim), step.cos,
                     step.sin)
         k = _rotate(k.reshape(batch, cur_len, kv_heads, head_dim), step.cos,
@@ -236,28 +349,43 @@ class Attention(nn.Module):
         # kernels read it through its strides.
         v = v.reshape(batch, cur_len, kv_heads, head_dim)
         if cfg.decode:
-            out = self._paged_decode_attention(q, k, v, step, k_pool, v_pool)
+            out = self._paged_decode_attention(q, k, v, step, k_pool, v_pool,
+                                               k_scale, v_scale)
         else:
             out = flash_attention(q, k, v, causal=True,
                                   impl=cfg.attention_impl,
                                   logit_softcap=cfg.attn_logit_softcap,
                                   window=cfg.sliding_window)
-        return (out.reshape(batch, cur_len, heads * head_dim) @
-                self.o_proj.to(self.dtype))
+        out = out.reshape(batch, cur_len, heads * head_dim)
+        y = out @ self.o_proj.to(self.dtype)
+        if adapter_ids is not None:
+            _add_deltas(y, out, self.lora, ('o_proj',), (cfg.d_model,),
+                        adapter_ids)
+        return y
 
     def _paged_decode_attention(self, q, k, v, step: PagedStep, k_pool,
-                                v_pool) -> torch.Tensor:
+                                v_pool, k_scale, v_scale) -> torch.Tensor:
         """Write the chunk's K/V into this layer's pool at the step's
-        scatter index, then attend through the paged kernel. k_pool/v_pool:
-        this layer's (num_blocks, bs, KV, D) slices, written in place."""
+        scatter index (quantized, with their scale rows, when the pools
+        are int8), then attend through the paged kernel. k_pool/v_pool
+        (and k_scale/v_scale): this layer's (num_blocks, bs, KV, D) (and
+        (num_blocks, bs, KV, 1)) slices, written in place."""
         cfg = self.cfg
         kv_heads, head_dim = k.shape[2], k.shape[3]
+        if k_scale is not None:
+            k, k_s = int8_quantize(k)
+            v, v_s = int8_quantize(v)
+            k_scale.view(-1, kv_heads, 1)[step.write_idx] = \
+                k_s.reshape(-1, kv_heads, 1)
+            v_scale.view(-1, kv_heads, 1)[step.write_idx] = \
+                v_s.reshape(-1, kv_heads, 1)
         k_pool.view(-1, kv_heads, head_dim)[step.write_idx] = \
             k.reshape(-1, kv_heads, head_dim)
         v_pool.view(-1, kv_heads, head_dim)[step.write_idx] = \
             v.reshape(-1, kv_heads, head_dim)
         return paged_decode_attention(q, k_pool, v_pool, step.read_tables,
-                                      step.positions,
+                                      step.positions, k_scale=k_scale,
+                                      v_scale=v_scale,
                                       window=cfg.sliding_window,
                                       logit_softcap=cfg.attn_logit_softcap)
 
@@ -271,12 +399,24 @@ class SwiGLU(nn.Module):
         self.gate_up_proj = _new_param(cfg, (cfg.d_model, 2 * cfg.d_mlp),
                                        device)
         self.down_proj = _new_param(cfg, (cfg.d_mlp, cfg.d_model), device)
+        self.lora = _lora_stacks(cfg, {
+            'gate_proj': (cfg.d_model, cfg.d_mlp),
+            'up_proj': (cfg.d_model, cfg.d_mlp),
+            'down_proj': (cfg.d_mlp, cfg.d_model)}, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = torch.split(x @ self.gate_up_proj.to(self.dtype),
-                               self.d_mlp, dim=-1)
-        return ((nn.functional.silu(gate) * up) @
-                self.down_proj.to(self.dtype))
+    def forward(self, x: torch.Tensor,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        gate_up = x @ self.gate_up_proj.to(self.dtype)
+        if adapter_ids is not None:
+            _add_deltas(gate_up, x, self.lora, ('gate_proj', 'up_proj'),
+                        (self.d_mlp, self.d_mlp), adapter_ids)
+        gate, up = torch.split(gate_up, self.d_mlp, dim=-1)
+        h = nn.functional.silu(gate) * up
+        y = h @ self.down_proj.to(self.dtype)
+        if adapter_ids is not None:
+            _add_deltas(y, h, self.lora, ('down_proj',), (y.shape[-1],),
+                        adapter_ids)
+        return y
 
 
 class DecoderLayer(nn.Module):
@@ -291,9 +431,13 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
-                v_pool: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), step, k_pool, v_pool)
-        return x + self.mlp(self.mlp_norm(x))
+                v_pool: Optional[torch.Tensor] = None,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), step, k_pool, v_pool, k_scale,
+                          v_scale, adapter_ids)
+        return x + self.mlp(self.mlp_norm(x), adapter_ids)
 
 
 class FullStep(NamedTuple):
@@ -374,33 +518,62 @@ class Transformer(nn.Module):
                                    _TRUNC_STD, gen)
         return self
 
-    def new_kv_pool(self, num_blocks: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def new_kv_pool(self, num_blocks: int) -> Tuple[torch.Tensor, ...]:
         """Zeroed (num_layers, num_blocks, block_size, KV, D) K and V
-        pools on the model's device, in the model's dtype."""
+        pools on the model's device, in the model's dtype; under int8 KV
+        int8 pools followed by fp32 (num_layers, num_blocks, block_size,
+        KV, 1) K and V scale pools filled with ones (the reference's
+        initial scale rows)."""
         cfg = self.cfg
         shape = (cfg.num_layers, num_blocks, cfg.paged_block_size,
                  cfg.num_kv_heads, cfg.head_dim)
-        kwargs = dict(device=self.embed.device, dtype=self.embed.dtype)
-        return torch.zeros(shape, **kwargs), torch.zeros(shape, **kwargs)
+        device = self.embed.device
+        if cfg.kv_cache_quant != 'int8':
+            kwargs = dict(device=device, dtype=self.embed.dtype)
+            return torch.zeros(shape, **kwargs), torch.zeros(shape, **kwargs)
+        scale_shape = shape[:-1] + (1,)
+        return (torch.zeros(shape, device=device, dtype=torch.int8),
+                torch.zeros(shape, device=device, dtype=torch.int8),
+                torch.ones(scale_shape, device=device, dtype=torch.float32),
+                torch.ones(scale_shape, device=device, dtype=torch.float32))
+
+    def lora_stacks(self):
+        """(layer index, projection name, LoRAStack) of every targeted
+        projection, in layer order."""
+        for i, layer in enumerate(self.layers):
+            for module in (layer.attn, layer.mlp):
+                for name, stack in module.lora.items():
+                    yield i, name, stack
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 k_pool: Optional[torch.Tensor] = None,
                 v_pool: Optional[torch.Tensor] = None,
-                logits_at: Optional[int] = None) -> torch.Tensor:
+                logits_at: Optional[int] = None,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens/positions: (B, T) int. Serving (cfg.decode):
         block_tables (B, bps + 1) int32 and the (L, NB, bs, KV, D) pools
-        k_pool/v_pool, written in place. Training: positions default to
-        0..T-1 and the pools are not used. Returns (B, T, vocab) logits
-        in cfg.dtype, or (B, vocab) for the single position `logits_at`."""
+        k_pool/v_pool, written in place (int8 under int8 KV, with the
+        (L, NB, bs, KV, 1) scale pools k_scale/v_scale); adapter_ids
+        (B,) int32 adapter slots of a multi-LoRA model (None: no deltas).
+        Training: positions default to 0..T-1 and the pools are not used.
+        Returns (B, T, vocab) logits in cfg.dtype, or (B, vocab) for the
+        single position `logits_at`."""
         cfg = self.cfg
         x = nn.functional.embedding(tokens.long(), self.embed).to(self.dtype)
         if cfg.decode:
+            if (k_scale is not None) != (cfg.kv_cache_quant == 'int8'):
+                raise ValueError('int8 KV takes k_scale/v_scale pools, and '
+                                 'only int8 KV does')
             step = paged_step(cfg, positions, block_tables, self.rope_freqs)
             for i, layer in enumerate(self.layers):
-                x = layer(x, step, k_pool[i], v_pool[i])
+                scales = ((k_scale[i], v_scale[i]) if k_scale is not None
+                          else (None, None))
+                x = layer(x, step, k_pool[i], v_pool[i], *scales,
+                          adapter_ids)
         else:
             if positions is None:
                 positions = torch.arange(

@@ -1,9 +1,13 @@
-// Paged-KV attention for Hopper (sm_90a), float and bf16.
+// Paged-KV attention for Hopper (sm_90a), float and bf16, over float or
+// int8 pools.
 //
-// Replaces the TPU kernel skypilot_tpu/ops/paged_attention.py
-// `_decode_kernel` (entry `paged_decode_attention`, pl.pallas_call at
-// :268): every prefill chunk and decode step of the serving path attends
-// through it, one launch per layer.
+// Replaces the TPU kernels skypilot_tpu/ops/paged_attention.py
+// `_decode_kernel` (float pools) and `_decode_kernel_int8` (int8 pools
+// with fp32 per-token scale rows), entry `paged_decode_attention`,
+// pl.pallas_call at :268: every prefill chunk and decode step of the
+// serving path attends through one of them, one launch per layer. The
+// two are routes of one template here (payload type P = T or int8_t):
+// same grid, table walk, staging and split-key combine.
 //
 // What it computes (the TPU kernel's contract): for each batch row b and
 // kv head h, the row's T * n_rep grouped query rows (row j = t * n_rep + r
@@ -19,6 +23,16 @@
 // P.V product while l sums them unrounded; a fully masked leading block
 // (m = -1e30) washes out of the recurrence as soon as a visible block
 // follows, because alpha = exp(-1e30 - m_real) is exactly 0 in fp32.
+//
+// int8 route (the TPU int8 kernel's op order): payloads convert int8 ->
+// fp32 exactly on staging (as int8 -> compute dtype is exact); the key's
+// scale multiplies its fp32 score BEFORE sm_scale; l sums the unscaled
+// p; the value's scale then multiplies p, which rounds to q's dtype for
+// the P.V product. Each step also stages its 64 keys' K and V scale rows
+// (fp32, one per token and kv head). Masked keys get p = 0 exactly, so
+// the scale rows of a stale block (scratch rows start at 1) add 0. An
+// int8 row of D 128 is 128 bytes: the same 16-byte vector loads carry 16
+// int8 values each instead of 8 bf16.
 //
 // Translation to Hopper. The TPU walks blocks on a sequential grid axis
 // and carries (m, l, acc) in VMEM scratch between grid steps; CUDA blocks
@@ -44,10 +58,14 @@
 // writes a partial (m, l, acc); a second kernel merges the splits. At
 // prefill (T = 256) each staged tile is reused by up to 16 query rows and
 // the grid is large; the bound is FLOPs, and this kernel's fp32 CUDA-core
-// arithmetic (no wgmma/TMA yet) stays far from it.
+// arithmetic (no wgmma/TMA yet) stays far from it. Under int8 the bytes
+// per live token fall from 4 D to 2 D + 8 (payload plus two scale rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -62,6 +80,8 @@ struct Params {
   const void* q;
   const void* k_pool;
   const void* v_pool;
+  const float* k_scale;  // (NB, bs, KV) fp32, int8 route only
+  const float* v_scale;
   const int* tables;
   const int* positions;
   void* out;
@@ -78,6 +98,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
@@ -112,6 +133,7 @@ size_t smem_bytes(int head_dim, int rows) {
                         + (size_t)kStepKeys * (head_dim + 1)  // K (padded)
                         + (size_t)kStepKeys * head_dim        // V
                         + (size_t)rows * kStepKeys            // scores / p
+                        + 2 * (size_t)kStepKeys               // K, V scales
                         + 3 * (size_t)rows;                   // m, l, alpha
   return floats * sizeof(float) + (size_t)(rows + kStepKeys) * sizeof(int);
 }
@@ -149,16 +171,18 @@ __device__ __forceinline__ void stage(const T* __restrict__ pool,
   }
 }
 
-template <typename T, int D, int ROWS>
+// T: q / out (compute) dtype; P: pool payload, T or int8_t (scaled).
+template <typename T, typename P, int D, int ROWS>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   constexpr int kPer = ROWS * D / kThreads;  // acc elements per thread
   constexpr int kHalfRows = ROWS / 2;        // rows per thread in QK^T
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   static_assert(ROWS * D % kThreads == 0, "tile must divide the threads");
   static_assert(2 * kStepKeys == kThreads, "QK^T maps 2 threads per key");
 
   const T* q = static_cast<const T*>(p.q);
-  const T* k_pool = static_cast<const T*>(p.k_pool);
-  const T* v_pool = static_cast<const T*>(p.v_pool);
+  const P* k_pool = static_cast<const P*>(p.k_pool);
+  const P* v_pool = static_cast<const P*>(p.v_pool);
   const int b = blockIdx.x, h = blockIdx.y;
   const int tile = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
   const int row0 = tile * ROWS;
@@ -169,7 +193,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   float* ks = qs + ROWS * (D + 1);               // kStepKeys x (D + 1)
   float* vs = ks + kStepKeys * (D + 1);          // kStepKeys x D
   float* ss = vs + kStepKeys * D;                // ROWS x kStepKeys
-  float* m_s = ss + ROWS * kStepKeys;            // ROWS
+  float* ksc = ss + ROWS * kStepKeys;            // kStepKeys K scales
+  float* vsc = ksc + kStepKeys;                  // kStepKeys V scales
+  float* m_s = vsc + kStepKeys;                  // ROWS
   float* l_s = m_s + ROWS;                       // ROWS
   float* alpha_s = l_s + ROWS;                   // ROWS
   int* qpos_s = reinterpret_cast<int*>(alpha_s + ROWS);  // ROWS
@@ -220,8 +246,17 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
                         ? p.tables[(size_t)b * p.table_stride + lb] : -1;
     }
     __syncthreads();
-    stage<T, D>(k_pool, phys_s, p.block_size, p.kv_heads, h, ks, D + 1);
-    stage<T, D>(v_pool, phys_s, p.block_size, p.kv_heads, h, vs, D);
+    stage<P, D>(k_pool, phys_s, p.block_size, p.kv_heads, h, ks, D + 1);
+    stage<P, D>(v_pool, phys_s, p.block_size, p.kv_heads, h, vs, D);
+    if constexpr (kQuant) {
+      if (tid < kStepKeys) {
+        const int blk = phys_s[tid / p.block_size];
+        const size_t row =
+            ((size_t)blk * p.block_size + tid % p.block_size) * p.kv_heads + h;
+        ksc[tid] = blk >= 0 ? p.k_scale[row] : 1.f;
+        vsc[tid] = blk >= 0 ? p.v_scale[row] : 1.f;
+      }
+    }
     __syncthreads();
 
     // Scores: thread (key, half) dots one key against half the rows.
@@ -240,6 +275,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       }
       const int k_pos = k0 + key;
       const bool present = k_pos < live_keys;
+      if constexpr (kQuant) {
+        // The K scale factors out of the head_dim sum: scores * scale,
+        // then * sm_scale below, as the TPU int8 kernel orders them.
+#pragma unroll
+        for (int r = 0; r < kHalfRows; ++r) dots[r] *= ksc[key];
+      }
 #pragma unroll
       for (int r = 0; r < kHalfRows; ++r) {
         const int q_pos = qpos_s[r0 + r];
@@ -261,8 +302,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float sum = warp_sum(p0 + p1);
-      sr[lane] = round_to(p0, v_pool);
-      sr[lane + 32] = round_to(p1, v_pool);
+      if constexpr (kQuant) {
+        // l sums p unscaled; p * V scale rounds to the compute dtype.
+        sr[lane] = round_to(p0 * vsc[lane], q);
+        sr[lane + 32] = round_to(p1 * vsc[lane + 32], q);
+      } else {
+        sr[lane] = round_to(p0, v_pool);
+        sr[lane + 32] = round_to(p1, v_pool);
+      }
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         l_s[r] = l_s[r] * alpha + sum;
@@ -332,10 +379,10 @@ __global__ void __launch_bounds__(D) combine_kernel(Params p) {
             (((size_t)b * p.cur_len + t) * p.num_heads + head) * D + c);
 }
 
-template <typename T, int D, int ROWS>
+template <typename T, typename P, int D, int ROWS>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, ROWS);
-  auto kernel = paged_attention_kernel<T, D, ROWS>;
+  auto kernel = paged_attention_kernel<T, P, D, ROWS>;
   static bool smem_configured = false;  // once per instantiation
   if (smem > 48 * 1024 && !smem_configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -353,19 +400,20 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 int dispatch_rows(const Params& p, int batch, cudaStream_t stream) {
-  return rows_per_tile(p.total_rows) == 4 ? launch<T, D, 4>(p, batch, stream)
-                                          : launch<T, D, 16>(p, batch, stream);
+  return rows_per_tile(p.total_rows) == 4
+             ? launch<T, P, D, 4>(p, batch, stream)
+             : launch<T, P, D, 16>(p, batch, stream);
 }
 
-template <typename T>
+template <typename T, typename P>
 int dispatch_dim(int head_dim, const Params& p, int batch,
                  cudaStream_t stream) {
   switch (head_dim) {
-    case 64: return dispatch_rows<T, 64>(p, batch, stream);
-    case 128: return dispatch_rows<T, 128>(p, batch, stream);
-    case 256: return dispatch_rows<T, 256>(p, batch, stream);
+    case 64: return dispatch_rows<T, P, 64>(p, batch, stream);
+    case 128: return dispatch_rows<T, P, 128>(p, batch, stream);
+    case 256: return dispatch_rows<T, P, 256>(p, batch, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -385,27 +433,29 @@ extern "C" long long paged_attention_workspace_floats(int batch, int cur_len,
   return (long long)batch * kv_heads * splits * total_rows * (head_dim + 2);
 }
 
-// C entry. Pointers are device pointers of contiguous tensors:
-// q/out (B, T, H, D); k_pool/v_pool (NB, bs, KV, D); tables (B, >= bps)
-// int32 with row stride `table_stride`; positions (B, T) int32;
-// workspace: paged_attention_workspace_floats(...) fp32 (may be null when
-// that is 0). block_size must divide 64. dtype: 0 = float32,
-// 1 = bfloat16. Returns a cudaError_t (0 = launched).
-extern "C" int paged_attention_forward(
-    const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* positions, void* out, void* workspace, int batch, int cur_len,
-    int num_heads, int kv_heads, int head_dim, int block_size,
-    int blocks_per_seq, int table_stride, float sm_scale, int window,
-    int dtype, void* stream) {
+namespace {
+
+// Shared validation and setup of the two C entries; returns a
+// cudaError_t (0 = launched).
+int forward(const void* q, const void* k_pool, const void* v_pool,
+            const void* k_scale, const void* v_scale, bool quant,
+            const void* tables, const void* positions, void* out,
+            void* workspace, int batch, int cur_len, int num_heads,
+            int kv_heads, int head_dim, int block_size, int blocks_per_seq,
+            int table_stride, float sm_scale, int window, int dtype,
+            void* stream) {
   if (batch <= 0 || cur_len <= 0 || kv_heads <= 0 ||
       num_heads % kv_heads != 0 || block_size <= 0 ||
       kStepKeys % block_size != 0 || blocks_per_seq <= 0 ||
-      table_stride < blocks_per_seq)
+      table_stride < blocks_per_seq ||
+      (quant && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k_pool = k_pool;
   p.v_pool = v_pool;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.tables = static_cast<const int*>(tables);
   p.positions = static_cast<const int*>(positions);
   p.out = out;
@@ -429,7 +479,47 @@ extern "C" int paged_attention_forward(
   // Clear a stale error so the return value speaks of this launch only.
   cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dim<float>(head_dim, p, batch, s);
-  if (dtype == 1) return dispatch_dim<__nv_bfloat16>(head_dim, p, batch, s);
+  if (dtype == 0)
+    return quant ? dispatch_dim<float, int8_t>(head_dim, p, batch, s)
+                 : dispatch_dim<float, float>(head_dim, p, batch, s);
+  if (dtype == 1)
+    return quant
+               ? dispatch_dim<__nv_bfloat16, int8_t>(head_dim, p, batch, s)
+               : dispatch_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, p,
+                                                            batch, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C entries. Pointers are device pointers of contiguous tensors:
+// q/out (B, T, H, D); k_pool/v_pool (NB, bs, KV, D) in q's dtype, or
+// int8 for the _int8 entry with k_scale/v_scale (NB, bs, KV, 1) fp32;
+// tables (B, >= bps) int32 with row stride `table_stride`; positions
+// (B, T) int32; workspace: paged_attention_workspace_floats(...) fp32
+// (may be null when that is 0). block_size must divide 64. dtype (of q):
+// 0 = float32, 1 = bfloat16. Return a cudaError_t (0 = launched).
+extern "C" int paged_attention_forward(
+    const void* q, const void* k_pool, const void* v_pool, const void* tables,
+    const void* positions, void* out, void* workspace, int batch, int cur_len,
+    int num_heads, int kv_heads, int head_dim, int block_size,
+    int blocks_per_seq, int table_stride, float sm_scale, int window,
+    int dtype, void* stream) {
+  return forward(q, k_pool, v_pool, nullptr, nullptr, false, tables,
+                 positions, out, workspace, batch, cur_len, num_heads,
+                 kv_heads, head_dim, block_size, blocks_per_seq,
+                 table_stride, sm_scale, window, dtype, stream);
+}
+
+extern "C" int paged_attention_forward_int8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* positions, void* out, void* workspace, int batch, int cur_len,
+    int num_heads, int kv_heads, int head_dim, int block_size,
+    int blocks_per_seq, int table_stride, float sm_scale, int window,
+    int dtype, void* stream) {
+  return forward(q, k_pool, v_pool, k_scale, v_scale, true, tables,
+                 positions, out, workspace, batch, cur_len, num_heads,
+                 kv_heads, head_dim, block_size, blocks_per_seq,
+                 table_stride, sm_scale, window, dtype, stream);
 }

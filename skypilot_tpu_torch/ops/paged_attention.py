@@ -1,18 +1,22 @@
 """Paged-KV attention: the hand-written CUDA kernel and its plain twin.
 
-Replaces the TPU kernel skypilot_tpu/ops/paged_attention.py
-`_decode_kernel` (entry `paged_decode_attention`). The kernel lives in
+Replaces the TPU kernels skypilot_tpu/ops/paged_attention.py
+`_decode_kernel` (float pools) and `_decode_kernel_int8` (int8 pools with
+fp32 per-token scale rows), entry `paged_decode_attention`. Both live in
 ops/csrc/paged_attention.cu (sm_90a, built at first use by ops/_build.py
-and called through ctypes); its source comment says what bounds it on the
-H100 and what its design does about that.
+and called through ctypes) as two routes of one kernel; its source
+comment says what bounds it on the H100 and what its design does about
+that.
 
 `paged_decode_attention` is the wrapper the model calls. On a CUDA tensor
 it launches the kernel or raises: a build or launch failure is an error,
 never a quiet switch to the plain version. Only a tensor that lies on the
 CPU takes `paged_decode_attention_plain` (gather each row's logical
-window through its block table, then `attend_window`, the one definition
-of the attention math). `paged_decode_attention.launches` counts kernel
-launches, so a run can show that its main path went through the kernel.
+window, and its scale rows, through its block table, then
+`attend_window`, the one definition of the attention math).
+`paged_decode_attention.launches` counts float-pool kernel launches and
+`paged_decode_attention.int8_launches` int8-pool ones, so a run can show
+that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -31,22 +35,33 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def attend_window(q: torch.Tensor, k_win: torch.Tensor,
                   v_win: torch.Tensor, positions: torch.Tensor,
-                  sm_scale: float, window: int = 0) -> torch.Tensor:
-    """Score/softmax/weighted-sum over one gathered KV window: the float
-    branch of the reference's `transformer._attend_window`, op for op.
+                  sm_scale: float, window: int = 0,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Score/softmax/weighted-sum over one gathered KV window: the
+    reference's `transformer._attend_window`, op for op, float and int8.
 
-    q: (B, T, H, D); k_win/v_win: (B, S, KV, D); positions: (B, T).
-    Grouped-query attention against the unrepeated window; scores in
-    fp32 (the reference's preferred_element_type), masked to -1e30
-    unless k_pos <= q_pos (and q_pos - k_pos < window); probabilities
-    cast to the value dtype before the weighted sum. Returns (B, T, H, D).
+    q: (B, T, H, D); k_win/v_win: (B, S, KV, D) (int8 when scales are
+    given); k_scale/v_scale: (B, S, KV) fp32 or None (together);
+    positions: (B, T). Grouped-query attention against the unrepeated
+    window; scores in fp32 (the reference's preferred_element_type),
+    masked to -1e30 unless k_pos <= q_pos (and q_pos - k_pos < window).
+    Float: probabilities cast to the value dtype before the weighted sum.
+    int8: K converts int8 → q's dtype for the score product and its
+    per-token scale multiplies the fp32 scores before sm_scale; the V
+    scale multiplies the probabilities, which then round to q's dtype
+    for the product with V (int8 → q's dtype). Returns (B, T, H, D).
     """
     batch, cur_len, num_heads, head_dim = q.shape
     seq_len, kv_heads = k_win.shape[1], k_win.shape[2]
     n_rep = num_heads // kv_heads
+    kv_quant = k_scale is not None
     q_grouped = q.reshape(batch, cur_len, kv_heads, n_rep, head_dim)
+    key_in = k_win.to(q.dtype) if kv_quant else k_win
     scores = torch.einsum('bqkrd,bskd->bkrqs', q_grouped.float(),
-                          k_win.float())
+                          key_in.float())
+    if kv_quant:
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
     scores = scores * sm_scale
     q_pos = positions[:, :, None]                            # (b, q, 1)
     k_pos = torch.arange(seq_len, device=q.device)[None, None, :]
@@ -56,8 +71,14 @@ def attend_window(q: torch.Tensor, k_win: torch.Tensor,
     scores = torch.where(mask[:, None, None, :, :], scores,
                          torch.tensor(_NEG_INF, dtype=scores.dtype,
                                       device=scores.device))
-    probs = torch.softmax(scores, dim=-1).to(v_win.dtype)
-    out = torch.einsum('bkrqs,bskd->bqkrd', probs, v_win)
+    probs = torch.softmax(scores, dim=-1)
+    if kv_quant:
+        probs = probs * v_scale.transpose(1, 2)[:, :, None, None, :]
+        out = torch.einsum('bkrqs,bskd->bqkrd', probs.to(q.dtype),
+                           v_win.to(q.dtype))
+    else:
+        out = torch.einsum('bkrqs,bskd->bqkrd', probs.to(v_win.dtype),
+                           v_win)
     return out.reshape(batch, cur_len, num_heads, head_dim)
 
 
@@ -65,12 +86,14 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  positions: torch.Tensor, *,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None,
                                  sm_scale: Optional[float] = None,
                                  window: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather every row's whole
-    logical window (B, bps * bs, KV, D) through its table, then
-    `attend_window`. Used on the CPU and as the kernel's yardstick of
-    correctness on the card."""
+    logical window (B, bps * bs, KV, D), and under int8 its scale rows
+    (B, bps * bs, KV), through its table, then `attend_window`. Used on
+    the CPU and as the kernel's yardstick of correctness on the card."""
     batch = q.shape[0]
     num_blocks, block_size, kv_heads, head_dim = k_pool.shape
     blocks_per_seq = block_tables.shape[1]
@@ -83,17 +106,24 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                            head_dim)[gidx]
     v_win = v_pool.reshape(num_blocks * block_size, kv_heads,
                            head_dim)[gidx]
-    return attend_window(q, k_win, v_win, positions, sm_scale, window)
+    if k_scale is not None:
+        k_scale = k_scale.reshape(num_blocks * block_size, kv_heads)[gidx]
+        v_scale = v_scale.reshape(num_blocks * block_size, kv_heads)[gidx]
+    return attend_window(q, k_win, v_win, positions, sm_scale, window,
+                         k_scale, v_scale)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load('paged_attention')
     if not getattr(lib, '_signatures_set', False):
+        tail = ([ctypes.c_int] * 8 +
+                [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fwd = lib.paged_attention_forward
-        fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 +
-                        [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p])
+        fwd.argtypes = [ctypes.c_void_p] * 7 + tail
         fwd.restype = ctypes.c_int
+        fwd8 = lib.paged_attention_forward_int8
+        fwd8.argtypes = [ctypes.c_void_p] * 9 + tail
+        fwd8.restype = ctypes.c_int
         ws = lib.paged_attention_workspace_floats
         ws.argtypes = [ctypes.c_int] * 5
         ws.restype = ctypes.c_longlong
@@ -102,14 +132,17 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
-            window) -> torch.Tensor:
+            window, k_scale=None, v_scale=None) -> torch.Tensor:
     batch, cur_len, num_heads, head_dim = q.shape
     _, block_size, kv_heads, _ = k_pool.shape
+    kv_quant = k_scale is not None
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f'paged attention kernel takes float32 or '
                         f'bfloat16, got {q.dtype}')
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError('q, k_pool and v_pool must share one dtype')
+    pool_dtype = torch.int8 if kv_quant else q.dtype
+    if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
+        raise TypeError('k_pool and v_pool must be int8 with scales, else '
+                        'share q\'s dtype')
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f'paged attention kernel takes head_dim in '
                          f'{_HEAD_DIMS}, got {head_dim}')
@@ -120,8 +153,18 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
     if tuple(positions.shape) != (batch, cur_len) or \
             block_tables.shape[0] != batch:
         raise ValueError('positions must be (B, T) and block_tables (B, bps)')
-    tensors = (q, k_pool, v_pool, block_tables, positions)
-    if any(t.device != q.device for t in tensors):
+    tensors = [q, k_pool, v_pool, block_tables, positions]
+    scales = []
+    if kv_quant:
+        scales = [k_scale, v_scale]
+        want = tuple(k_pool.shape[:3]) + (1,)
+        if any(tuple(s.shape) != want for s in scales):
+            raise ValueError(f'k_scale and v_scale must be {want}')
+        if any(s.dtype != torch.float32 or not s.is_contiguous()
+               for s in scales):
+            raise TypeError('k_scale and v_scale must be contiguous '
+                            'float32')
+    if any(t.device != q.device for t in tensors + scales):
         raise ValueError('all paged attention inputs must be on one device')
     if not (q.is_contiguous() and k_pool.is_contiguous() and
             v_pool.is_contiguous() and positions.is_contiguous()):
@@ -140,11 +183,16 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
         lib.paged_attention_workspace_floats(batch, cur_len, num_heads,
                                              kv_heads, head_dim),
         dtype=torch.float32, device=q.device)
+    pools = [k_pool.data_ptr(), v_pool.data_ptr()]
+    if kv_quant:
+        pools += [k_scale.data_ptr(), v_scale.data_ptr()]
+    forward = (lib.paged_attention_forward_int8 if kv_quant
+               else lib.paged_attention_forward)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_attention_forward(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        err = forward(
+            q.data_ptr(), *pools, block_tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(),
             workspace.data_ptr() if workspace.numel() else None,
             batch, cur_len, num_heads, kv_heads, head_dim, block_size,
             block_tables.shape[1], block_tables.stride(0), float(sm_scale),
@@ -152,7 +200,10 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
     if err != 0:
         raise RuntimeError(f'paged attention kernel launch failed: CUDA '
                            f'error {err}')
-    paged_decode_attention.launches += 1
+    if kv_quant:
+        paged_decode_attention.int8_launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
@@ -177,7 +228,8 @@ def paged_decode_attention(q: torch.Tensor,
         the table WITHOUT the engine's extra clip column (callers pass
         `tables[:, :max_seq_len // block_size]`).
       positions: (B, T) int32 per-row query positions.
-      k_scale / v_scale: int8 pools; refused until that kernel is ported.
+      k_scale / v_scale: (num_blocks, block_size, KV, 1) fp32
+        per-token-per-kv-head scale rows of int8 pools (both or neither).
       window: sliding window in keys (0 = full causal).
       logit_softcap: refused, as by the reference kernel.
 
@@ -196,21 +248,18 @@ def paged_decode_attention(q: torch.Tensor,
         raise ValueError(
             f'num_heads {num_heads} not divisible by kv_heads '
             f'{kv_heads}')
-    if k_scale is not None:
-        raise NotImplementedError(
-            'int8 KV pools (k_scale/v_scale) are not ported to the CUDA '
-            'kernel yet')
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == 'cpu':
-        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
-                                            positions, sm_scale=sm_scale,
-                                            window=window)
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, block_tables, positions, k_scale=k_scale,
+            v_scale=v_scale, sm_scale=sm_scale, window=window)
     if q.device.type != 'cuda':
         raise ValueError(f'paged attention runs on cuda (kernel) or cpu '
                          f'(plain version), not {q.device.type}')
     return _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
-                   window)
+                   window, k_scale, v_scale)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

@@ -3,20 +3,33 @@
 A small port of skypilot_tpu/serve/server.py's serving surface, same
 request and response JSON:
 
-  GET  /health    → 200 {"status": "ok"} once the engine is warm
+  GET  /health    → 200 {"status": "ok"} once the engine is warm (plus
+                    "adapters": {"capacity", "resident"} with
+                    --max-adapters)
   POST /generate  → {"prompt_ids": [[...]] | "prompt": "text" | [...],
                      "max_new_tokens": N, "temperature": T,
-                     "timeout_s": S (optional)}
+                     "timeout_s": S (optional), "adapter": name
+                     (optional)}
                     ⇒ {"token_ids": [[...]], "text": [...],
                        "stats": [...]}
+  POST /adapters/load     {"name": n, "path": p}: register the npz
+                    adapter archive at p (tenancy.save_adapter_npz
+                    format) and make it resident ⇒ {"ok", "name", "slot"}
+  DELETE /adapters/{name} → unregister; 409 while in-flight requests pin
+                    it, 404 when unknown
+  GET  /adapters  → registry / residency / refcount snapshot
 
 Text goes through the built-in byte-level tokenizer (ids 0-255 = bytes).
 Every prompt of a request goes straight into the continuous-batching
-engine's queue, so concurrent requests share decode ticks. Overload and
-drain shed with 503 + Retry-After; an expired deadline is 504.
+engine's queue, so concurrent requests share decode ticks, whatever
+adapter each names. Overload, drain and a full adapter pool shed with
+503 + Retry-After; an expired deadline is 504; an unknown adapter is 400.
+SLO tiers are not ported: a `priority` other than "standard" is a 400.
 
 Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
-        --paged-block-size 16 --prefill-chunk 256 --num-slots 8
+        --paged-block-size 16 --prefill-chunk 256 --num-slots 8 \\
+        [--kv-quant int8] [--max-adapters 4 --adapter-rank 16 \\
+         --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down]
 The engine runs on CUDA unless --device cpu is given.
 """
 from __future__ import annotations
@@ -24,6 +37,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import socket
 import sys
 import threading
@@ -33,6 +47,7 @@ from typing import List, Optional
 from aiohttp import web
 
 from skypilot_tpu_torch import exceptions
+from skypilot_tpu_torch.serve import tenancy
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +72,11 @@ class InferenceServer:
                  prefill_chunk: int = 0,
                  params=None,
                  rng_seed: int = 0,
+                 kv_quant: Optional[str] = None,
+                 max_adapters: int = 0,
+                 adapter_rank: int = 0,
+                 adapter_alpha: float = 16.0,
+                 adapter_targets: str = '',
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
@@ -65,7 +85,9 @@ class InferenceServer:
             max_seq_len=max_seq_len, rng_seed=rng_seed,
             max_queue_depth=max_queue_depth,
             paged_block_size=paged_block_size, prefill_chunk=prefill_chunk,
-            device=device)
+            kv_quant=kv_quant, max_adapters=max_adapters,
+            adapter_rank=adapter_rank, adapter_alpha=adapter_alpha,
+            adapter_targets=adapter_targets, device=device)
         self.ready = False
         self.draining = False
 
@@ -78,20 +100,40 @@ class InferenceServer:
                                      headers={'Retry-After': '5'})
         if not self.ready:
             return web.json_response({'status': 'warming'}, status=503)
-        return web.json_response({'status': 'ok'})
+        payload = {'status': 'ok'}
+        if self.engine.max_adapters:
+            info = self.engine.adapters_info()
+            payload['adapters'] = {'capacity': info['capacity'],
+                                   'resident': info['resident']}
+        return web.json_response(payload)
 
     @staticmethod
     def _unavailable(message: str, retry_after: int = 1) -> web.Response:
         return web.json_response({'error': message}, status=503,
                                  headers={'Retry-After': str(retry_after)})
 
+    @staticmethod
+    def _tenant_fields(data: dict) -> Optional[str]:
+        """The request's adapter name (or None). Raises ValueError (→ 400)
+        on a malformed adapter and on a priority tier: SLO tiers are not
+        ported, every request is 'standard'."""
+        adapter = data.get('adapter')
+        if adapter is not None and not isinstance(adapter, str):
+            raise ValueError('adapter must be a string name')
+        priority = data.get('priority') or 'standard'
+        if priority != 'standard':
+            raise ValueError(f'priority {priority!r}: SLO tiers are not '
+                             f"ported; every request is 'standard'")
+        return adapter
+
     def _submit_one(self, ids: List[int], max_new: int, temperature: float,
-                    deadline: Optional[float]):
+                    deadline: Optional[float], adapter: Optional[str]):
         max_seq = self.engine.cfg.max_seq_len
         if len(ids) + max_new > max_seq:
             ids = ids[-(max_seq - max_new):]
         return self.engine.submit(ids, max_new_tokens=max_new,
-                                  temperature=temperature, deadline=deadline)
+                                  temperature=temperature, deadline=deadline,
+                                  adapter=adapter)
 
     async def handle_generate(self, request: web.Request) -> web.Response:
         if self.draining:
@@ -132,10 +174,12 @@ class InferenceServer:
                 if float(timeout) <= 0:
                     raise ValueError('timeout_s must be > 0')
                 deadline = time.time() + float(timeout)
+            adapter = self._tenant_fields(data)
             for ids in prompts:
                 futures.append(self._submit_one(list(ids), max_new,
-                                                temperature, deadline))
-        except (TypeError, ValueError) as e:
+                                                temperature, deadline,
+                                                adapter))
+        except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
             for future in futures:
                 future.cancel()
             return web.json_response({'error': str(e)}, status=400)
@@ -159,6 +203,55 @@ class InferenceServer:
             'stats': [st for _, st in gathered],
         })
 
+    # -- multi-tenant adapter registry --
+
+    async def handle_adapter_load(self,
+                                  request: web.Request) -> web.Response:
+        if self.draining:
+            return self._unavailable('server is draining for shutdown',
+                                     retry_after=5)
+        try:
+            data = await request.json()
+        except Exception:  # pylint: disable=broad-except
+            return web.json_response({'error': 'body must be JSON'},
+                                     status=400)
+        name = data.get('name') if isinstance(data, dict) else None
+        path = data.get('path') if isinstance(data, dict) else None
+        if not isinstance(name, str) or not isinstance(path, str):
+            return web.json_response(
+                {'error': 'need name and path (npz adapter archive, '
+                          'tenancy.save_adapter_npz format)'},
+                status=400)
+
+        def load():
+            tree = tenancy.load_adapter_npz(os.path.expanduser(path))
+            return self.engine.load_adapter(name, tree)
+
+        try:
+            slot = await asyncio.get_running_loop().run_in_executor(
+                None, load)
+        except exceptions.AdapterPoolExhaustedError as e:
+            return self._unavailable(str(e), retry_after=2)
+        except (exceptions.UnknownAdapterError, ValueError, OSError) as e:
+            return web.json_response({'error': str(e)}, status=400)
+        return web.json_response({'ok': True, 'name': name, 'slot': slot})
+
+    async def handle_adapter_delete(self,
+                                    request: web.Request) -> web.Response:
+        name = request.match_info['name']
+        try:
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.engine.unload_adapter, name)
+        except exceptions.AdapterInUseError as e:
+            return web.json_response({'error': str(e)}, status=409)
+        except exceptions.UnknownAdapterError as e:
+            return web.json_response({'error': str(e)}, status=404)
+        return web.json_response({'ok': True, 'name': name})
+
+    async def handle_adapters(self, request: web.Request) -> web.Response:
+        del request
+        return web.json_response(self.engine.adapters_info())
+
     def warmup(self) -> None:
         t0 = time.monotonic()
         self.engine.generate([1, 2, 3], max_new_tokens=4, timeout=600.0)
@@ -169,6 +262,9 @@ class InferenceServer:
         app = web.Application()
         app.router.add_get('/health', self.handle_health)
         app.router.add_post('/generate', self.handle_generate)
+        app.router.add_post('/adapters/load', self.handle_adapter_load)
+        app.router.add_delete('/adapters/{name}', self.handle_adapter_delete)
+        app.router.add_get('/adapters', self.handle_adapters)
         return app
 
 
@@ -231,6 +327,21 @@ def main(argv=None) -> int:
     parser.add_argument('--max-queue-depth', type=int, default=64,
                         help='queued-request cap; beyond it requests are '
                              'shed with 503 + Retry-After (0 = unbounded)')
+    parser.add_argument('--kv-quant', default=None, choices=['int8'],
+                        help='store the paged KV pool as int8 with fp32 '
+                             'per-token scale rows')
+    parser.add_argument('--max-adapters', type=int, default=0,
+                        help='LoRA adapters held resident for multi-tenant '
+                             'serving (0 = none); POST /adapters/load '
+                             'registers them')
+    parser.add_argument('--adapter-rank', type=int, default=0,
+                        help='the rank every resident adapter shares '
+                             '(required with --max-adapters)')
+    parser.add_argument('--adapter-alpha', type=float, default=16.0,
+                        help='LoRA alpha: deltas scale by alpha / rank')
+    parser.add_argument('--adapter-targets', default='',
+                        help="projections adapters touch, comma tokens of "
+                             "q,k,v,o,gate,up,down (default 'q,v')")
     parser.add_argument('--device', default='cuda',
                         help="torch device; 'cuda' (default) raises when "
                              'no GPU is present')
@@ -241,6 +352,11 @@ def main(argv=None) -> int:
                              max_queue_depth=args.max_queue_depth,
                              paged_block_size=args.paged_block_size,
                              prefill_chunk=args.prefill_chunk,
+                             kv_quant=args.kv_quant,
+                             max_adapters=args.max_adapters,
+                             adapter_rank=args.adapter_rank,
+                             adapter_alpha=args.adapter_alpha,
+                             adapter_targets=args.adapter_targets,
                              device=args.device)
     server.warmup()
     try:

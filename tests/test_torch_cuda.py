@@ -1,7 +1,9 @@
-"""The CUDA paged-attention kernel against its plain PyTorch version on
-the card. Needs an NVIDIA GPU and nvcc: every test is marked `cuda` and
-skips inside the test when torch.cuda is unavailable. The file imports
-no JAX, so on a GPU machine without JAX it runs as
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card: paged attention over float and int8 pools, the flash-attention
+forward and backward, and the fused multi-LoRA delta. Needs an NVIDIA
+GPU and nvcc: every test is marked `cuda` and skips inside the test when
+torch.cuda is unavailable. The file imports no JAX, so on a GPU machine
+without JAX it runs as
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -186,3 +188,141 @@ def test_flash_kernels_refuse_what_they_do_not_take():
         fa.flash_forward(q, k.bfloat16(), v.bfloat16(), **opts)
     with pytest.raises(TypeError, match='float32 or'):
         fa.flash_forward(q.half(), k.half(), v.half(), **opts)
+
+
+# -------------------------------------------- int8 paged attention kernel
+# Same tolerances as the float pools: the int8 route dequantizes exactly
+# (int8 -> fp32) and differs from the plain version only in where p
+# rounds to the compute dtype and in the order of the sums.
+
+from skypilot_tpu_torch.models.transformer import int8_quantize  # noqa: E402
+
+
+def _int8_case(dtype, **kw):
+    """_case's pools (garbage scratch block included) quantized with the
+    model's int8_quantize; q in `dtype`."""
+    q, kp, vp, tables, pos = _case(dtype=torch.float32, **kw)
+    k8, ks = int8_quantize(kp)
+    v8, vs = int8_quantize(vp)
+    return (q.to(dtype), k8, v8, tables, pos,
+            dict(k_scale=ks[..., None].contiguous(),
+                 v_scale=vs[..., None].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('batch,cur_len,n_rep,head_dim,block_size,window', [
+    (8, 1, 4, 128, 16, 0),      # serve decode: split key axis
+    (3, 1, 1, 64, 8, 0),        # MHA decode, smaller blocks
+    (1, 256, 4, 128, 16, 0),    # serve prefill chunk
+    (2, 37, 4, 128, 16, 40),    # ragged row tiles, sliding window
+    (2, 5, 2, 256, 32, 0),      # wide heads
+])
+def test_int8_kernel_matches_plain_version(dtype, batch, cur_len, n_rep,
+                                           head_dim, block_size, window):
+    _need_gpu()
+    q, k8, v8, tables, pos, scales = _int8_case(
+        dtype, batch=batch, cur_len=cur_len, kv_heads=2, n_rep=n_rep,
+        head_dim=head_dim, block_size=block_size, blocks_per_seq=24,
+        seed=cur_len + head_dim)
+    before = (pa.paged_decode_attention.launches,
+              pa.paged_decode_attention.int8_launches)
+    out = pa.paged_decode_attention(q, k8, v8, tables, pos, window=window,
+                                    **scales)
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention.int8_launches) == (before[0],
+                                                         before[1] + 1)
+    ref = pa.paged_decode_attention_plain(q, k8, v8, tables, pos,
+                                          window=window, **scales)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_refuses_what_it_does_not_take():
+    _need_gpu()
+    q, k8, v8, tables, pos, scales = _int8_case(
+        torch.bfloat16, batch=1, cur_len=1, kv_heads=2, n_rep=4,
+        head_dim=128, block_size=16, blocks_per_seq=4, seed=0)
+    with pytest.raises(TypeError, match='float32'):
+        pa.paged_decode_attention(
+            q, k8, v8, tables, pos, k_scale=scales['k_scale'].double(),
+            v_scale=scales['v_scale'].double())
+    with pytest.raises(ValueError, match='k_scale and v_scale must be'):
+        pa.paged_decode_attention(
+            q, k8, v8, tables, pos, k_scale=scales['k_scale'][:, :8],
+            v_scale=scales['v_scale'][:, :8])
+    with pytest.raises(TypeError, match='int8'):
+        pa.paged_decode_attention(q, k8.bfloat16(), v8.bfloat16(), tables,
+                                  pos, **scales)
+
+
+# ----------------------------------------------------- fused LoRA kernel
+# fp32 1e-4: the shrink sums up to IN terms in another order than the
+# plain bmm. bf16 2e-2: both round z to bf16 between the products (one
+# bf16 step, 2^-8 relative, where the sum orders disagree) and round the
+# output to bf16.
+
+from skypilot_tpu_torch.ops import fused_lora as fl  # noqa: E402
+
+_LORA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _lora_case(batch, seq, d_in, d_out, rank, slots, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, seq, d_in)
+    a = rng.randn(slots, d_in, rank) / np.sqrt(d_in)
+    b = rng.randn(slots, rank, d_out) * 0.25
+    a[0] = b[0] = 0.0
+    ids = rng.randint(0, slots, batch)
+    ids[0] = 0
+
+    def dev(arr, dt):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to('cuda', dt)
+
+    return (dev(x, dtype), dev(a, dtype), dev(b, dtype),
+            dev(ids, torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('batch,seq,d_in,d_out,rank', [
+    (8, 1, 4096, 1024, 16),     # serve decode, k/v projection
+    (1, 256, 1024, 4096, 16),   # serve prefill chunk, 4-row tiles
+    (3, 37, 300, 203, 8),       # ragged IN, OUT and row tiles
+    (2, 5, 640, 96, 64),        # wide rank, 1-row tiles
+    (4, 3, 512, 512, 32),
+])
+def test_fused_lora_kernel_matches_plain(dtype, batch, seq, d_in, d_out,
+                                         rank):
+    _need_gpu()
+    x, a, b, ids = _lora_case(batch, seq, d_in, d_out, rank, 5, dtype,
+                              seed=d_in + rank)
+    before = fl.fused_multi_lora.launches
+    out = fl.fused_multi_lora(x, a, b, ids)
+    assert fl.fused_multi_lora.launches == before + 1
+    again = fl.fused_multi_lora(x, a, b, ids)
+    ref = fl.fused_multi_lora_plain(x, a, b, ids)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert torch.equal(out, again)
+    assert not bool(out[ids == 0].any())     # slot 0: exactly zero
+    tol = _LORA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_lora_kernel_refuses_what_it_does_not_take():
+    _need_gpu()
+    x, a, b, ids = _lora_case(2, 1, 256, 128, 16, 3, torch.float32, 0)
+    with pytest.raises(ValueError, match='rank'):
+        fl.fused_multi_lora(x, a[..., :12].contiguous(),
+                            b[:, :12].contiguous(), ids)
+    with pytest.raises(TypeError, match='int32'):
+        fl.fused_multi_lora(x, a, b, ids.long())
+    with pytest.raises(TypeError, match='dtype'):
+        fl.fused_multi_lora(x, a.bfloat16(), b.bfloat16(), ids)

@@ -59,7 +59,11 @@ print('ISOLATED', len(sys.argv) - 2)
 
 def test_port_imports_without_jax_or_the_jax_package():
     mods = _module_names()
-    assert 'skypilot_tpu_torch.ops.paged_attention' in mods
+    for mod in ('skypilot_tpu_torch.ops.paged_attention',
+                'skypilot_tpu_torch.ops.fused_lora',
+                'skypilot_tpu_torch.serve.tenancy',
+                'skypilot_tpu_torch.serve.tenancy.adapter_pool'):
+        assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
         [sys.executable, '-c', _BLOCKER,
