@@ -2,8 +2,10 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU: serving
 (llama3-8b over HTTP, paged attention kernel), multi-tenant serving
 (llama3-8b with int8 KV and resident LoRA adapters: the int8 route of the
-paged kernel and the fused multi-LoRA kernel) and training (llama3-1b,
-flash-attention forward, dQ and dK/dV kernels).
+paged kernel and the fused multi-LoRA kernel), training (llama3-1b,
+flash-attention forward, dQ and dK/dV kernels) and sequence-parallel
+training (llama3-1b with --sp 4: the ring chunk-update kernel forward,
+the flash dQ and dK/dV kernels backward).
 
     python3 chip_smoke.py                    # every phase; needs one card
     python3 chip_smoke.py --phases flash     # a subset, comma-separated
@@ -34,6 +36,14 @@ and passed over):
             S 1000 (ragged) and head_dim 64: O, lse, dq, dk, dv; two
             backward runs must be bit-identical; time each kernel beside
             its plain version, its bound and SDPA.
+  ring_kernels: hold the ring chunk-update kernel against its plain
+            version at the slice's shape (B 4, Sq = Sk = 512, H 16, KV 8,
+            D 128; k and v strided KV-head views), fp32 and bf16: mask
+            modes 0 and 1, equal and unequal offsets, fresh and carried
+            state, rows that see no key (l must be Sk: p = 1 at m =
+            -1e30) and rows whose first tiles are masked; reruns
+            bit-identical; time the full and the diagonal hop beside the
+            plain version and the bound.
   parity:   a small fp32 model (head_dim 128) through the serving engine
             on the card (kernel) and on the CPU (plain version): greedy
             tokens equal, prefill logits within tolerance.
@@ -44,6 +54,16 @@ and passed over):
   train_parity: one small fp32 model (head_dim 128), two train steps on
             the card (kernels) and on the CPU (plain versions): loss,
             grad_norm and updated params within tolerance.
+  ring_parity: the one-process ring (sp 4) against the flash path at
+            llama3-1b heads (B 4, S 2048, bf16), forward and dQ/dK/dV,
+            elementwise and norm-relative per sequence chunk, with its
+            launches (10 chunk updates, 10 dQ and dK/dV, no flash
+            forward); the flash dQ and dK/dV kernels at each of the 10
+            hop shapes (512 x 512, causal and full, the ring's lse and
+            delta) against their plain twins; the least a dropped hop
+            would move the chunk check, which must exceed its limit;
+            then two train steps of the train_parity model with sp 2 on
+            the card and on the CPU.
   train:    the port's entry point train.run.main in-process: llama3-1b
             at full width and depth (16 layers, seeded random bf16
             params, remat 'dots'), batch 8 x 1024, on ONE repeated batch
@@ -52,6 +72,13 @@ and passed over):
             steps x 16 x (1 + remat) forward, steps x 16 dQ and dK/dV;
             step ms, tokens/s, MFU and peak memory; then a train-step
             breakdown (torch.profiler).
+  train_sp: train.run.main with --sp 4 (one process runs the 4 ring
+            positions): llama3-1b at full width and depth, B 4 x S 2048,
+            8 steps on one repeated batch: loss falling, launches exactly
+            steps x 16 x 10 hops x (1 + remat) chunk updates, steps x 16 x
+            10 dQ and dK/dV, no flash forward; step ms, tokens/s, MFU,
+            peak memory; the flash path's run at the same shape; a
+            breakdown of each step.
   serve:    the port's HTTP server in-process on localhost with
             llama3-8b at full width and depth (seeded random bf16
             weights made on the card), 8 slots, paged blocks of 16,
@@ -1211,38 +1238,45 @@ def _train_parity_cfg():
         max_seq_len=512, dtype='float32', param_dtype='float32')
 
 
-def phase_train_parity(torch) -> None:
+def phase_train_parity(torch, sp=None) -> None:
     """Two train steps (lr 0, then lr > 0, clipping active) of one small
     fp32 model from identical seeded weights: on the card through the
-    flash kernels, on the CPU through their plain versions. Tolerances:
-    loss and grad_norm 1e-4 relative (fp32 sums in other orders on the
-    two devices); params 5e-5 absolute (AdamW's m / sqrt(v) turns the
-    gradients' low-bit noise into noise of a few thousandths of an
-    lr-1e-3 step)."""
+    kernels, on the CPU through their plain versions; `sp` runs the
+    one-process sequence-parallel step (attention_impl 'ring': the chunk
+    kernel and no flash forward). Tolerances: loss and grad_norm 1e-4
+    relative (fp32 sums in other orders on the two devices); params 5e-5
+    absolute (AdamW's m / sqrt(v) turns the gradients' low-bit noise into
+    noise of a few thousandths of an lr-1e-3 step)."""
     from skypilot_tpu_torch.train import trainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    what = f'ring train parity (sp {sp})' if sp else 'train parity'
     cfg = _train_parity_cfg()
+    if sp:
+        cfg = dataclasses.replace(cfg, attention_impl='ring')
     tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
                              total_steps=10, grad_clip_norm=0.1)
     gen = torch.Generator().manual_seed(4)
     batches = [trainer.synthetic_batch(gen, 2, 200, cfg.vocab_size)
                for _ in range(2)]       # S 200: a ragged last kernel tile
     results = {}
-    launches0 = _flash_launches()
+    _reset_launches()
     for device in ('cpu', 'cuda'):
         state = trainer.create_train_state(cfg, tc, device='cpu', seed=5)
         state.model.to(device)
         state = trainer.TrainState(state.model, tc)
-        step = trainer.make_train_step()
+        step = trainer.make_train_step(sp=sp)
         metrics = [step(state, {k: v.to(device) for k, v in b.items()})
                    for b in batches]
         results[device] = (
             [(float(m['loss']), float(m['grad_norm'])) for m in metrics],
             {n: p.detach().float().cpu()
              for n, p in state.model.named_parameters()})
-    if _flash_launches() == launches0:
-        fail('train parity: the card run launched no flash kernel')
+    launched = _launch_counts()
+    if (launched['chunk_update'] > 0) != bool(sp) or \
+            (launched['flash_forward'] > 0) == bool(sp) or \
+            not launched['flash_dq']:
+        fail(f'{what}: the card run launched {launched}')
     (cpu_metrics, cpu_params), (gpu_metrics, gpu_params) = (
         results['cpu'], results['cuda'])
     for i, ((l_c, n_c), (l_g, n_g)) in enumerate(zip(cpu_metrics,
@@ -1250,41 +1284,50 @@ def phase_train_parity(torch) -> None:
         if not (n_c > tc.grad_clip_norm and
                 abs(l_c - l_g) <= 1e-4 * abs(l_c) and
                 abs(n_c - n_g) <= 1e-4 * abs(n_c)):
-            fail(f'train parity step {i}: loss {l_g} vs {l_c}, grad_norm '
+            fail(f'{what} step {i}: loss {l_g} vs {l_c}, grad_norm '
                  f'{n_g} vs {n_c} (clip {tc.grad_clip_norm})')
     err = max(float((cpu_params[n] - gpu_params[n]).abs().max())
               for n in cpu_params)
-    log(f'train parity: fp32 loss {gpu_metrics} (card) vs {cpu_metrics} '
-        f'(cpu); params after 2 steps max_abs_err={err:.3e}')
+    log(f'{what}: fp32 loss {gpu_metrics} (card) vs {cpu_metrics} '
+        f'(cpu); params after 2 steps max_abs_err={err:.3e}; card launches '
+        f'{launched}')
     if not err <= 5e-5:
-        fail(f'train parity: params differ by {err:.3e} between cpu and '
-             f'cuda')
+        fail(f'{what}: params differ by {err:.3e} between cpu and cuda')
 
 
-def _flash_launches() -> tuple:
+def _launch_counts() -> dict:
+    """The launch counters of the training path's kernels."""
     from skypilot_tpu_torch.ops import flash_attention as fa
-    return tuple(getattr(fa, attr).launches for _, attr, _ in FLASH_KERNELS)
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    out = {'chunk_update': ra.chunk_update.launches}
+    out.update((attr, getattr(fa, attr).launches)
+               for _, attr, _ in FLASH_KERNELS)
+    return out
 
 
-def _reset_flash_launches() -> None:
+def _reset_launches() -> None:
     from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    ra.chunk_update.launches = 0
     for _, attr, _ in FLASH_KERNELS:
         getattr(fa, attr).launches = 0
 
 
 # -------------------------------------------------------------------- train
 
-def train_breakdown(torch, cfg, smi: str, batch: dict) -> None:
+def train_breakdown(torch, cfg, smi: str, batch: dict,
+                    label: str = 'B 8 x S 1024', sp=None) -> None:
     """One steady train step of llama3-1b under torch.profiler: host wall
     (ends in a sync) beside the device time of its CUDA kernels, the
     device's idle share, the six largest kernels and the device time under
-    the step's named ranges (optimizer, cross-entropy forward)."""
+    the step's named ranges (optimizer, cross-entropy forward). `sp`: the
+    one-process sequence-parallel step (ring attention)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from skypilot_tpu_torch.train import trainer
     state = trainer.create_train_state(cfg, trainer.TrainConfig(),
                                        device='cuda', seed=1)
-    step = trainer.make_train_step()
+    step = trainer.make_train_step(sp=sp)
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
@@ -1297,12 +1340,13 @@ def train_breakdown(torch, cfg, smi: str, batch: dict) -> None:
         step(state, batch)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    ranges = ('optimizer', 'cross_entropy')
+    ranges = ('optimizer', 'cross_entropy', 'ring_forward', 'ring_backward')
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and
                e.key not in ranges]       # not the ranges' device spans
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f'breakdown train step (llama3-1b, B 8 x S 1024, remat '
-        f'{cfg.remat_policy}): host wall {wall_ms:.2f} ms/step, CUDA '
+    remat = cfg.remat_policy if cfg.remat else 'off'
+    log(f'breakdown train step (llama3-1b, {label}, remat {remat}): host '
+        f'wall {wall_ms:.2f} ms/step, CUDA '
         f'kernels {device_ms:.2f} ms/step, device idle share '
         f'{max(0.0, 1 - device_ms / wall_ms):.3f} [{smi}]')
 
@@ -1316,29 +1360,43 @@ def train_breakdown(torch, cfg, smi: str, batch: dict) -> None:
             ('flash forward', group(lambda k: 'flash_fwd_' in k)),
             ('flash dQ', group(lambda k: 'flash_dq_' in k)),
             ('flash dK/dV', group(lambda k: 'flash_dkv_' in k)),
+            ('ring chunk update', group(lambda k: 'ring_chunk_' in k)),
             ('GEMMs', gemm)):
         log(f'  {ms:8.3f} ms x{count:<5d} {label}')
     for name in ranges:
-        cpu = sum(e.device_time_total for e in events
-                  if e.key == name and e.device_type == DeviceType.CPU)
+        cpu = [e for e in events
+               if e.key == name and e.device_type == DeviceType.CPU]
+        if not cpu:
+            continue
         span = sum(e.self_device_time_total for e in events
                    if e.key == name and e.device_type == DeviceType.CUDA)
-        log(f'  {cpu / 1e3:8.3f} ms        {name} range: device time of its '
-            f'kernels (device span {span / 1e3:.3f} ms)'
+        log(f'  {sum(e.device_time_total for e in cpu) / 1e3:8.3f} ms '
+            f'       {name} range: device time of its kernels (device span '
+            f'{span / 1e3:.3f} ms; host {sum(e.cpu_time_total for e in cpu) / 1e3:.3f}'
+            f' ms over {sum(e.count for e in cpu)} entries)'
             f'{"; forward only" if name == "cross_entropy" else ""}')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         log(f'  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} '
             f'{e.key[:90]}')
+    # Where the host's time goes: the operators with the most self CPU
+    # time in the step (under the profiler, which adds to each).
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU
+                   and e.key not in ranges),
+                  key=lambda e: -e.self_cpu_time_total)
+    log(f'  host: {sum(e.count for e in host)} CPU operator calls; most '
+        f'self CPU time:')
+    for e in host[:5]:
+        log(f'  {e.self_cpu_time_total / 1e3:8.3f} ms x{e.count:<5d} '
+            f'{e.key[:90]}')
     del state
 
 
-def phase_train(torch, smi: str) -> dict:
-    """llama3-1b through the port's entry point, on one repeated batch."""
+def _train_run(torch, cfg, batch, seq, steps, extra) -> tuple:
+    """train.run.main in-process on one repeated batch (a token shard of
+    exactly one batch), launch counters zeroed just before: (history,
+    wall s, peak GiB above the base, base GiB, launches)."""
     import numpy as np
-    from skypilot_tpu_torch.models.configs import get_config
     from skypilot_tpu_torch.train import data, run
-    cfg = get_config('llama3-1b', param_dtype='bfloat16')
-    steps, batch, seq = 8, 8, 1024
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.RandomState(0)
         data.write_token_shard(os.path.join(tmp, 'one_batch.bin'),
@@ -1348,59 +1406,418 @@ def phase_train(torch, smi: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gib = torch.cuda.memory_allocated() / 2**30
-        _reset_flash_launches()
+        _reset_launches()
         t0 = time.monotonic()
         run.main(['--model', 'llama3-1b', '--batch', str(batch), '--seq',
                   str(seq), '--steps', str(steps), '--data-dir', tmp,
                   '--warmup-steps', '1', '--learning-rate', '1e-3',
-                  '--log-every', '1'], history=history)
+                  '--log-every', '1', *extra], history=history)
         wall = time.monotonic() - t0
-        launches = dict(zip((attr for _, attr, _ in FLASH_KERNELS),
-                            _flash_launches()))
+        launches = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30 - base_gib
     if len(history) != steps:
         fail(f'train: {len(history)} steps recorded, expected {steps}')
     for h in history:
         if not (np.isfinite(h['loss']) and np.isfinite(h['grad_norm'])):
             fail(f'train: non-finite loss or grad_norm at step {h}')
+    return history, wall, peak_gib, base_gib, launches
+
+
+def _step_metrics(cfg, history, batch, seq) -> tuple:
+    """(step s: median of the steps after the first two, tokens/s, MFU)."""
+    from skypilot_tpu_torch.train import metrics as metrics_lib
+    step_s = statistics.median(h['step_s'] for h in history[2:])
+    return (step_s, metrics_lib.tokens_per_sec(batch, seq, step_s),
+            metrics_lib.mfu(cfg, batch, seq, step_s, 1,
+                            PEAK_OPS_PER_S['bfloat16'] / 1e12))
+
+
+def phase_train(torch, smi: str) -> dict:
+    """llama3-1b through the port's entry point, on one repeated batch."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import trainer
+    cfg = get_config('llama3-1b', param_dtype='bfloat16')
+    steps, batch, seq = 8, 8, 1024
+    history, wall, peak_gib, base_gib, launches = _train_run(
+        torch, cfg, batch, seq, steps, [])
     losses = [h['loss'] for h in history]
     log(f'train: llama3-1b losses on one repeated batch {losses}')
     # One update at lr 0, then lr 1e-3: the batch is memorised.
     if not losses[-1] < losses[0] - 0.1:
         fail(f'train: loss did not fall on a repeated batch: {losses}')
     # Per step: every layer's forward once, again when remat recomputes
-    # the layer in the backward; one dQ and one dK/dV per layer.
+    # the layer in the backward; one dQ and one dK/dV per layer; the
+    # ring's kernel never.
     recompute = 1 if cfg.remat else 0
-    expected = {'flash_forward': steps * cfg.num_layers * (1 + recompute),
+    expected = {'chunk_update': 0,
+                'flash_forward': steps * cfg.num_layers * (1 + recompute),
                 'flash_dq': steps * cfg.num_layers,
                 'flash_dkv': steps * cfg.num_layers}
-    log(f'train: flash launches {launches}, expected {expected} (steps '
+    log(f'train: launches {launches}, expected {expected} (steps '
         f'{steps} x layers {cfg.num_layers} x (1 + remat {recompute}) '
         f'forward, steps x layers dQ and dK/dV)')
     if launches != expected:
-        fail(f'train: flash launches {launches} != {expected}')
-    from skypilot_tpu_torch.train import metrics as metrics_lib
-    step_s = statistics.median(h['step_s'] for h in history[2:])
-    tps = metrics_lib.tokens_per_sec(batch, seq, step_s)
-    mfu = metrics_lib.mfu(cfg, batch, seq, step_s, 1,
-                          PEAK_OPS_PER_S['bfloat16'] / 1e12)
+        fail(f'train: launches {launches} != {expected}')
+    step_s, tps, mfu = _step_metrics(cfg, history, batch, seq)
     log(f'train: {steps} steps in {wall:.1f}s (model build included); step '
         f'{step_s * 1e3:.1f} ms (median of steps 2..{steps - 1}), '
         f'{tps:.0f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s, peak memory '
         f'{peak_gib:.2f} GiB above the {base_gib:.2f} GiB held before '
         f'[{smi}]')
     gen = torch.Generator().manual_seed(0)
-    from skypilot_tpu_torch.train import trainer
     one = {k: v.cuda() for k, v in trainer.synthetic_batch(
         gen, batch, seq, cfg.vocab_size).items()}
-    _reset_flash_launches()
+    _reset_launches()
     train_breakdown(torch, cfg, smi, one)
     torch.cuda.empty_cache()
     return launches
 
 
-PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'parity',
-          'tenant_parity', 'train_parity', 'train', 'serve', 'serve_tenant')
+# ------------------------------------------------------------------- ring
+
+RING_SOURCE = 'skypilot_tpu_torch/ops/csrc/ring_attention.cu'
+RING_REPLACES = 'skypilot_tpu/ops/ring_attention.py:71'
+# Kernel 6 vs its plain version on identical inputs. m and l: 1e-5
+# absolute and relative (both sum the unrounded p in fp32, in other
+# orders). o is held as o / l, the attention output the ring finishes
+# with, at the flash tolerances (atol, rtol): fp32 order of sums only;
+# bf16 the kernel rounds p against its running max, the plain version
+# against the chunk's max, and both round P.V to bf16 once.
+RING_TOL = {'float32': (1e-5, 1e-5), 'bfloat16': (2e-2, 2e-2)}
+RING_SHAPE = dict(batch=4, chunk=512, heads=16, kv_heads=8, head_dim=128)
+RING_CASES = (   # (label, mask_mode, q_offset, k_offset, carried state)
+    ('full_hop', 0, 512, 0, False),
+    ('diagonal_hop', 1, 512, 512, False),
+    ('diagonal_hop_carried', 1, 1536, 1536, True),
+    ('past_hop_carried', 0, 1536, 512, True),
+    ('q_after_k_causal', 1, 768, 512, True),
+    ('fully_masked_rows', 1, 0, 512, False),
+    ('masked_then_seen', 1, 256, 512, False),
+)
+
+
+def _ring_state(torch, q, k, v, carried, sm_scale):
+    """Fresh (m = -1e30) state, or the state after a plain full hop of q
+    over the same K/V chunk in reverse order (a previous hop)."""
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    batch, chunk, heads, head_dim = q.shape
+    o = torch.zeros((batch, chunk, heads, head_dim), device='cuda')
+    m = torch.full((batch, heads, chunk), -1e30, device='cuda')
+    l = torch.zeros((batch, heads, chunk), device='cuda')
+    if carried:
+        o, m, l = ra.chunk_update_plain(q, k.flip(1), v.flip(1), o, m, l,
+                                        sm_scale=sm_scale, mask_mode=0,
+                                        q_offset=0, k_offset=0)
+    return o, m, l
+
+
+def _ring_check(torch, what, got, ref, tol) -> float:
+    """Hold (o, m, l) against the plain version's; returns the max abs
+    error of o / l."""
+    (o, m, l), (ro, rm, rl) = got, ref
+    _check_close(torch, what + ' m', m, rm, (1e-5, 1e-5))
+    _check_close(torch, what + ' l', l, rl, (1e-5, 1e-5))
+    return _check_close(torch, what + ' o / l',
+                        o / l.transpose(1, 2)[..., None],
+                        ro / rl.transpose(1, 2)[..., None], tol)
+
+
+def _ring_bound(torch, q, k, mode, q_offset, k_offset) -> tuple:
+    """(bound_ms, bound_by) of one hop: q, k, v read once, o, m, l read
+    and written once, against QK^T and PV (4 D per visible pair) of the
+    pairs the mask lets through in this hop."""
+    batch, s_q, heads, head_dim = q.shape
+    s_k = k.shape[1]
+    nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+              + 2 * batch * s_q * heads * head_dim * 4     # o in, out
+              + 4 * batch * heads * s_q * 4)               # m, l in, out
+    if mode == 1:
+        pairs = sum(min(s_k, max(0, q_offset + r - k_offset + 1))
+                    for r in range(s_q))
+    else:
+        pairs = s_q * s_k
+    ops = 4 * head_dim * batch * heads * pairs
+    name = 'bfloat16' if q.dtype == torch.bfloat16 else 'float32'
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[name] * 1e3
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def phase_ring_kernels(torch) -> dict:
+    """Kernel 6 against chunk_update_plain at the slice's shape (B 4, Sq =
+    Sk = 512, H 16, KV 8, D 128), fp32 and bf16, over RING_CASES; reruns
+    bit-identical; the full and diagonal hops timed (CUDA events, 20
+    launches) beside the plain version and the bound."""
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = RING_SHAPE
+    records = {}
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        tol = RING_TOL[dtype_name]
+        case = _flash_case(torch, sh['batch'], sh['chunk'], sh['heads'],
+                           sh['kv_heads'], sh['head_dim'], dtype, seed=6)
+        q, k, v, _ = case                  # k, v: strided KV-head views
+        scale = sh['head_dim'] ** -0.5
+        for label, mode, q_off, k_off, carried in RING_CASES:
+            state = _ring_state(torch, q, k, v, carried, scale)
+            opts = dict(sm_scale=scale, mask_mode=mode, q_offset=q_off,
+                        k_offset=k_off)
+            got = ra.chunk_update(q, k, v, *state, **opts)
+            again = ra.chunk_update(q, k, v, *state, **opts)
+            ref = ra.chunk_update_plain(q, k, v, *state, **opts)
+            torch.cuda.synchronize()
+            what = f'ring {label} {dtype_name}'
+            err = _ring_check(torch, what, got, ref, tol)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f'{what}: two runs differ')
+            if label == 'fully_masked_rows' and \
+                    not bool((got[2] == sh['chunk']).all()):
+                fail(f'{what}: l != Sk on rows that see no key (p = 1 each '
+                     f'at m = -1e30, as the reference)')
+            log(f'{what}: max_abs_err o/l {err:.3e} (tolerance {tol}); '
+                f'reruns bit-identical')
+            if dtype_name != 'bfloat16' or label not in ('full_hop',
+                                                          'diagonal_hop'):
+                continue
+            ms = cuda_ms(torch, lambda: ra.chunk_update(q, k, v, *state,
+                                                        **opts))
+            dev = device_ms(torch, lambda: ra.chunk_update(q, k, v, *state,
+                                                           **opts))
+            plain_ms = cuda_ms(torch, lambda: ra.chunk_update_plain(
+                q, k, v, *state, **opts), iters=3, warmup=1)
+            bound_ms, bound_by = _ring_bound(torch, q, k, mode, q_off, k_off)
+            records[label] = {'max_abs_err': err, 'ms': ms,
+                              'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                              'bound_by': bound_by, 'library_ms': None}
+            log(f'ring {label} bf16 B={sh["batch"]} Sq=Sk={sh["chunk"]} '
+                f'H={sh["heads"]} KV={sh["kv_heads"]} D={sh["head_dim"]}: '
+                f'kernel_ms={ms:.4f} (profiler device {dev:.4f}) '
+                f'plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} '
+                f'({bound_by}); library: none (no single PyTorch call '
+                f'updates an online-softmax state)')
+        del case, q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def _visited_hops(sp: int) -> int:
+    """Hops a causal ring attends: rank r visits chunks 0..r."""
+    return sp * (sp + 1) // 2
+
+
+# Norm-relative limits, ||got - ref|| / ||ref|| over one sequence chunk:
+# the ring against the flash path (both round the output and each
+# gradient to bf16 once; the ring also rounds each hop's share, up to 4 a
+# chunk, before its fp32 sum: a few 2^-9 relative), and a hop's flash dQ
+# or dK/dV kernel against its plain twin (fp32 sums in other orders, the
+# output's bf16 rounding).
+RING_PATH_LIMIT = 1e-2
+RING_HOP_LIMIT = 2e-3
+
+
+def _rel(torch, a, b) -> float:
+    """||a - b|| / ||b||, in fp32."""
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) /
+                 torch.linalg.vector_norm(b))
+
+
+def _ring_hop_grads(torch, q, k, v, g, ring_grads, flash_grads, sp) -> tuple:
+    """The ring backward's kernels at its hop shapes: for every visited
+    (Q chunk, K/V chunk) pair, flash dQ and dK/dV (causal on the diagonal
+    hop, full on a past one) fed the ring's global lse and delta slices,
+    held against their plain twins elementwise at the flash phase's bf16
+    tolerances and norm-relative within RING_HOP_LIMIT. Then what a
+    dropped hop would read: each chunk's ring gradient less that hop's
+    share, against the flash path, as the chunk check reads it (the
+    largest of dq, dk, dv). Returns (the largest kernel-vs-plain error,
+    the smallest dropped-hop reading and its hop)."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    batch, seq, heads, head_dim = q.shape
+    chunk, scale = seq // sp, head_dim ** -0.5
+    with torch.no_grad():
+        out, lse = ra._sharded_forward(q, k, v, sp, True, scale)
+    delta = (g.float() * out.float()).sum(-1).reshape(
+        batch, sp, chunk, heads).permute(1, 0, 3, 2).contiguous()
+    worst, dropped = 0.0, (float('inf'), None)
+    for rank in range(sp):
+        rows = slice(rank * chunk, (rank + 1) * chunk)
+        for src in range(rank + 1):
+            cols = slice(src * chunk, (src + 1) * chunk)
+            args = (q[:, rows], k[:, cols], v[:, cols], g[:, rows],
+                    lse[rank], delta[rank])
+            opts = dict(causal=src == rank, sm_scale=scale)
+            got = (fa.flash_dq(*args, **opts), *fa.flash_dkv(*args, **opts))
+            ref = (fa.flash_dq_plain(*args, **opts),
+                   *fa.flash_dkv_plain(*args, **opts))
+            what = (f'ring hop (q chunk {rank}, kv chunk {src}, '
+                    f'{"causal" if src == rank else "full"})')
+            for name, a, b in zip(('dq', 'dk', 'dv'), got, ref):
+                _check_close(torch, f'{what} {name}', a, b,
+                             FLASH_TOL['bfloat16']['grad'])
+                err = _rel(torch, a, b)
+                if not err <= RING_HOP_LIMIT:
+                    fail(f'{what} {name}: norm-relative error {err:.3e} '
+                         f'> {RING_HOP_LIMIT}')
+                worst = max(worst, err)
+            reading = max(
+                _rel(torch, ring_grads[i][:, span].float() - got[i].float(),
+                     flash_grads[i][:, span])
+                for i, span in ((0, rows), (1, cols), (2, cols)))
+            if reading < dropped[0]:
+                dropped = (reading, (rank, src))
+    return worst, dropped
+
+
+def phase_ring_parity(torch) -> None:
+    """(1) The one-process ring (sp 4) against the flash path at llama3-1b
+    heads (B 4, S 2048, H 16, KV 8, D 128, bf16), forward and dQ/dK/dV:
+    elementwise, forward 2e-2 (both round the output to bf16) and
+    gradients 5e-2 (the ring rounds each hop's share to bf16 before its
+    fp32 sum, up to 4 shares a chunk); and per sequence chunk
+    norm-relative within RING_PATH_LIMIT, which every dropped hop must
+    exceed. (2) The backward's flash dQ and dK/dV kernels at every hop's
+    shape against their plain twins. (3) train_parity's two steps with
+    sp 2."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp = 4
+    q, k, v, g = _flash_case(torch, 4, 2048, 16, 8, 128, torch.bfloat16,
+                             seed=8)
+    _reset_launches()
+    ring = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ra.ring_attention_sharded(*ring, sp=sp)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launched = _launch_counts()
+    hops = _visited_hops(sp)
+    expected = {'chunk_update': hops, 'flash_forward': 0, 'flash_dq': hops,
+                'flash_dkv': hops}
+    if launched != expected:
+        fail(f'ring parity: launches {launched} != {expected}')
+    flash = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = fa.flash_attention(*flash, impl='pallas')
+    ref.backward(g)
+    torch.cuda.synchronize()
+    errs = {'out': _check_close(torch, 'ring vs flash O', out.detach(),
+                                ref.detach(), (2e-2, 2e-2))}
+    for name, a, b in zip(('dq', 'dk', 'dv'), ring, flash):
+        errs[name] = _check_close(torch, f'ring vs flash {name}', a.grad,
+                                  b.grad, (5e-2, 5e-2))
+    chunk = q.shape[1] // sp
+    rels = {}
+    for name, a, b in (('out', out.detach(), ref.detach()),
+                       *zip(('dq', 'dk', 'dv'), (t.grad for t in ring),
+                            (t.grad for t in flash))):
+        rels[name] = max(_rel(torch, a[:, c * chunk:(c + 1) * chunk],
+                              b[:, c * chunk:(c + 1) * chunk])
+                         for c in range(sp))
+        if not rels[name] <= RING_PATH_LIMIT:
+            fail(f'ring vs flash {name}: norm-relative error of a chunk '
+                 f'{rels[name]:.3e} > {RING_PATH_LIMIT}')
+    log(f'ring parity: sp {sp} ring vs flash path (B 4, S 2048, bf16) '
+        f'max_abs_err ' + ', '.join(f'{n} {e:.3e}' for n, e in errs.items())
+        + '; largest norm-relative error of a chunk ' + ', '.join(
+            f'{n} {e:.3e}' for n, e in rels.items()) +
+        f' (limit {RING_PATH_LIMIT}); launches {launched}')
+    hop_err, (dropped, hop) = _ring_hop_grads(
+        torch, q, k, v, g, [t.grad for t in ring], [t.grad for t in flash],
+        sp)
+    log(f'ring parity: flash dQ, dK/dV at the {_visited_hops(sp)} hop '
+        f'shapes (B 4, 512 x 512, ring lse/delta) vs plain: largest '
+        f'norm-relative error {hop_err:.3e} (limit {RING_HOP_LIMIT}; '
+        f'elementwise {FLASH_TOL["bfloat16"]["grad"]}); a dropped hop would '
+        f'read at least {dropped:.3e} (hop q chunk {hop[0]}, kv chunk '
+        f'{hop[1]}) against the chunk limit {RING_PATH_LIMIT}')
+    if not dropped > RING_PATH_LIMIT:
+        fail(f'ring parity: dropping hop {hop} reads {dropped:.3e}, within '
+             f'the chunk limit {RING_PATH_LIMIT}: the check cannot see it')
+    del q, k, v, g, ring, flash, out, ref
+    torch.cuda.empty_cache()
+
+    phase_train_parity(torch, sp=2)
+
+
+def phase_train_sp(torch, smi: str) -> int:
+    """llama3-1b at full width and depth through train.run.main with --sp
+    4 (one process, the ring's 4 positions in turn), B 4 x S 2048, on one
+    repeated batch; launch counts against the design's formula; then the
+    flash path's step at the same shape, in the same call."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import trainer
+    sp, steps, batch, seq = 4, 8, 4, 2048
+    cfg = get_config('llama3-1b', param_dtype='bfloat16',
+                     attention_impl='ring')
+    history, wall, peak, base, launches = _train_run(
+        torch, cfg, batch, seq, steps, ['--sp', str(sp)])
+    losses = [h['loss'] for h in history]
+    log(f'train_sp: llama3-1b --sp {sp} losses on one repeated batch '
+        f'{losses}')
+    if not losses[-1] < losses[0] - 0.1:
+        fail(f'train_sp: loss did not fall on a repeated batch: {losses}')
+    # Per step and layer: the causal ring visits sp (sp + 1) / 2 hops, one
+    # chunk-kernel launch each, again when remat recomputes the layer; the
+    # backward runs one flash dQ and one dK/dV per visited hop; the flash
+    # forward never runs.
+    hops = _visited_hops(sp)
+    recompute = 1 if cfg.remat else 0
+    expected = {'chunk_update': steps * cfg.num_layers * hops *
+                (1 + recompute),
+                'flash_forward': 0,
+                'flash_dq': steps * cfg.num_layers * hops,
+                'flash_dkv': steps * cfg.num_layers * hops}
+    log(f'train_sp: launches {launches}, expected {expected} (steps {steps} '
+        f'x layers {cfg.num_layers} x hops {hops} x (1 + remat '
+        f'{recompute}) chunk updates, steps x layers x hops dQ and dK/dV, '
+        f'no flash forward)')
+    if launches != expected:
+        fail(f'train_sp: launches {launches} != {expected}')
+    step_s, tps, mfu = _step_metrics(cfg, history, batch, seq)
+    log(f'train_sp: {steps} steps in {wall:.1f}s (model build included); '
+        f'step {step_s * 1e3:.1f} ms (median of steps 2..{steps - 1}), '
+        f'{tps:.0f} tokens/s, MFU {mfu:.4f} of 989 TFLOP/s, peak memory '
+        f'{peak:.2f} GiB above the {base:.2f} GiB held before [{smi}]')
+    ring_launches = launches['chunk_update']
+
+    flash_cfg = get_config('llama3-1b', param_dtype='bfloat16')
+    history, wall, peak, base, launches = _train_run(
+        torch, flash_cfg, batch, seq, steps, [])
+    expected = {'chunk_update': 0,
+                'flash_forward': steps * cfg.num_layers * (1 + recompute),
+                'flash_dq': steps * cfg.num_layers,
+                'flash_dkv': steps * cfg.num_layers}
+    if launches != expected:
+        fail(f'train_sp flash comparison: launches {launches} != '
+             f'{expected}')
+    f_step_s, f_tps, f_mfu = _step_metrics(flash_cfg, history, batch, seq)
+    log(f'train_sp comparison, flash path (no --sp), same call and shape: '
+        f'step {f_step_s * 1e3:.1f} ms, {f_tps:.0f} tokens/s, MFU '
+        f'{f_mfu:.4f}, peak memory {peak:.2f} GiB; ring step / flash step '
+        f'{step_s / f_step_s:.3f} [{smi}]')
+    gen = torch.Generator().manual_seed(0)
+    one = {k: v.cuda() for k, v in trainer.synthetic_batch(
+        gen, batch, seq, cfg.vocab_size).items()}
+    train_breakdown(torch, cfg, smi, one, label=f'B 4 x S 2048, --sp {sp}',
+                    sp=sp)
+    train_breakdown(torch, flash_cfg, smi, one, label='B 4 x S 2048, flash')
+    # The same two steps without remat: how much of the host time is the
+    # selective-checkpoint recompute's.
+    train_breakdown(torch, dataclasses.replace(cfg, remat=False), smi, one,
+                    label=f'B 4 x S 2048, --sp {sp}', sp=sp)
+    train_breakdown(torch, dataclasses.replace(flash_cfg, remat=False), smi,
+                    one, label='B 4 x S 2048, flash')
+    _reset_launches()
+    torch.cuda.empty_cache()
+    return ring_launches
+
+
+PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
+          'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
+          'train_sp', 'serve', 'serve_tenant')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -1429,7 +1846,7 @@ def main(argv=None) -> int:
                 log(f'build {name}: {line.strip()}')
 
     kernels = []
-    paged = paged8 = lora = flash = None
+    paged = paged8 = lora = flash = ring = None
     if 'kernels' in phases:
         paged = phase_kernels(torch)
     if 'kernels_int8' in phases:
@@ -1438,12 +1855,16 @@ def main(argv=None) -> int:
         lora = phase_lora(torch)
     if 'flash' in phases:
         flash = phase_flash(torch)
+    if 'ring_kernels' in phases:
+        ring = phase_ring_kernels(torch)
     if 'parity' in phases:
         phase_parity(torch)
     if 'tenant_parity' in phases:
         phase_tenant_parity(torch)
     if 'train_parity' in phases:
         phase_train_parity(torch)
+    if 'ring_parity' in phases:
+        phase_ring_parity(torch)
     if 'train' in phases:
         launches = phase_train(torch, smi)
         if flash is not None:
@@ -1452,6 +1873,15 @@ def main(argv=None) -> int:
                     'name': name, 'route': 'cuda', 'source': FLASH_SOURCE,
                     'replaces': replaces, 'launches': launches[attr],
                     **flash[attr]})
+    if 'train_sp' in phases:
+        launches = phase_train_sp(torch, smi)
+        if ring is not None:
+            kernels.append({
+                'name': 'ring_chunk_update', 'route': 'cuda',
+                'source': RING_SOURCE, 'replaces': RING_REPLACES,
+                'launches': launches, **ring['full_hop']})
+        gc.collect()
+        torch.cuda.empty_cache()
     bf16_pool_bytes = None
     if 'serve' in phases:
         launches, bf16_pool_bytes = phase_serve(torch, smi)

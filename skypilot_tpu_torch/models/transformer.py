@@ -7,7 +7,12 @@ branches on `cfg.decode`:
   chunk, a decode step — writes its K/V into the shared paged pool through
   the block tables and attends through ops/paged_attention.
 - decode=False (training): `forward(tokens)` runs the whole sequence and
-  attends through ops/flash_attention (`impl=cfg.attention_impl`).
+  attends through ops/flash_attention (`impl=cfg.attention_impl`). With
+  attention_impl='ring' under parallel/sharding.use_sequence_parallel,
+  attention runs as a ring over sp chunks: in one process the model sees
+  the whole sequence and only attention is split; per rank (group=g) the
+  model gets the rank's token chunk and its positions start at
+  rank x chunk.
 Both reach hand-written CUDA kernels on the card and their plain versions
 on the CPU.
 
@@ -64,6 +69,7 @@ from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
 from skypilot_tpu_torch.ops.fused_lora import fused_multi_lora
 from skypilot_tpu_torch.ops.paged_attention import paged_decode_attention
+from skypilot_tpu_torch.parallel import sharding
 
 # lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
 _TRUNC_STD = 0.87962566103423978
@@ -473,14 +479,22 @@ def _remat_context(policy: str):
 class Transformer(nn.Module):
     """Embedding, `num_layers` decoder layers, final norm, untied lm_head.
 
-    Parameters are created EMPTY on `device` in `param_dtype(cfg)`; fill
+    Parameters are created EMPTY on `device` (the card unless the caller
+    asks for another; without CUDA the default raises) in
+    `param_dtype(cfg)`; fill
     them with `init_random_` (seeded, one tensor at a time — an 8B model
     is never built in fp32 on the host) or `load_state_dict` (e.g. from
     models/convert.params_from_jax)."""
 
-    def __init__(self, cfg: ModelConfig, device='cpu') -> None:
+    def __init__(self, cfg: ModelConfig, device='cuda') -> None:
         super().__init__()
         check_supported(cfg)
+        if torch.device(device).type == 'cuda' and \
+                not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; the model is built on the GPU by "
+                "default — pass device='cpu' explicitly to build it on the "
+                "CPU")
         if cfg.decode and not cfg.paged_block_size:
             raise NotImplementedError(
                 'the PyTorch port serves the paged KV layout only '
@@ -576,9 +590,7 @@ class Transformer(nn.Module):
                           adapter_ids)
         else:
             if positions is None:
-                positions = torch.arange(
-                    tokens.shape[1], dtype=torch.int32,
-                    device=tokens.device).expand(tokens.shape)
+                positions = _default_positions(tokens)
             step = FullStep(*rope_cos_sin(positions, self.rope_freqs))
             remat = cfg.remat and torch.is_grad_enabled()
             context_fn = _remat_context(cfg.remat_policy) if remat else None
@@ -592,6 +604,16 @@ class Transformer(nn.Module):
         if logits_at is not None:
             x = x[:, logits_at]
         return self.final_norm(x) @ self.lm_head.to(self.dtype)
+
+
+def _default_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """0..T-1 per row; under a per-rank sequence-parallel context
+    (parallel/sharding.py) the rank holds tokens [rank T, (rank + 1) T) of
+    the sequence, so its positions start at rank T."""
+    ctx = sharding.current_sequence_parallel()
+    start = ctx.rank * tokens.shape[1] if ctx is not None else 0
+    return torch.arange(start, start + tokens.shape[1], dtype=torch.int32,
+                        device=tokens.device).expand(tokens.shape)
 
 
 def _truncated_normal_(param: torch.Tensor, std: float,

@@ -370,7 +370,9 @@ def flash_attention(q: torch.Tensor,
       impl: 'xla' is the reference's plain path (`reference_attention`);
         'auto' and 'pallas' run the CUDA kernels on a CUDA tensor and
         their plain versions on a CPU tensor; 'pallas_interpret' always
-        runs the plain pair; 'ring' (sequence parallelism) is not ported.
+        runs the plain pair; 'ring' is sequence-parallel ring attention
+        (ops/ring_attention.py) over the ambient context of
+        parallel/sharding.use_sequence_parallel, and raises without one.
       logit_softcap: tanh cap on the logits, on the 'xla' path only.
       window: sliding window in keys (query r sees keys (r - window, r]);
         requires causal.
@@ -401,9 +403,16 @@ def flash_attention(q: torch.Tensor,
             f'logit_softcap is only supported on the XLA attention path '
             f'(got impl={impl!r}); use attention_impl="xla" or "auto".')
     if impl == 'ring':
-        raise NotImplementedError(
-            "impl='ring' (sequence-parallel ring attention, TPU kernel "
-            "skypilot_tpu/ops/ring_attention.py `_chunk_update_kernel`) is "
-            'not ported yet')
+        # Sequence parallelism: the sequence cut into sp chunks, K/V
+        # rotating around the ring (ops/ring_attention.py), in the form
+        # the ambient context names (parallel/sharding.py).
+        if window:
+            raise ValueError('window is not supported on the ring path; '
+                             'a sliding window makes ring rotation '
+                             'unnecessary — shard the sequence instead.')
+        from skypilot_tpu_torch.ops.ring_attention import \
+            ring_attention_ambient
+        return ring_attention_ambient(q, k, v, causal=causal,
+                                      sm_scale=sm_scale)
     return _Flash.apply(q, k, v, causal, float(sm_scale), int(window),
                         impl != 'pallas_interpret')

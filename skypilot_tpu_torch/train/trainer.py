@@ -1,9 +1,23 @@
-"""Single-device training: state, optimizer and the train step.
+"""Training: state, optimizer and the train step, on one card or with
+the sequence split over an `sp` ring.
 
-Port of skypilot_tpu/train/trainer.py for one card (no mesh, pipeline or
-LoRA). A step is: forward over the whole sequence (attention through the
-flash kernels) → masked cross-entropy → backward → optax's
-clip_by_global_norm → optax's adamw with the warmup-cosine schedule.
+Port of skypilot_tpu/train/trainer.py without the mesh's other axes,
+pipeline or LoRA. A step is: forward over the whole sequence (attention
+through the flash kernels, or the ring under sequence parallelism) →
+masked cross-entropy → backward → optax's clip_by_global_norm → optax's
+adamw with the warmup-cosine schedule.
+
+Sequence parallelism (`make_train_step(sp=N)` or `(group=g)`) comes in
+the two forms of ops/ring_attention.py. In one process the model sees
+the whole sequence and only attention is split (the reference's sp mesh
+on one host): the step is the plain step inside the sp context. Per rank
+(one process per ring position of the group) each process takes columns
+[r S/sp, (r + 1) S/sp) of inputs, targets and mask; the loss is the
+global masked mean (Σ loss·mask and Σ mask all-reduced over the group);
+each rank's gradients are its share of that mean, and they are summed
+over the group in fp32 before the update, so clipping sees the global
+norm and every rank applies the same update (the reference's
+replicated-over-sp parameters under jit).
 
 The optimizer must compute what the reference's optax chain computes.
 torch.optim.AdamW (fused) does the adamw part once it is driven as optax
@@ -29,14 +43,17 @@ sqrt(v / bc2)): within the CPU tests' 2e-5 of the JAX train step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.parallel import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +174,46 @@ def _loss(model: Transformer, batch: Dict[str, torch.Tensor]
                                   batch.get('mask'))
 
 
-def make_train_step(grad_accum: int = 1
+def _rank_loss(model: Transformer, batch: Dict[str, torch.Tensor],
+               ctx: sharding.SequenceParallel) -> torch.Tensor:
+    """This rank's share of the global masked-mean loss: its columns'
+    Σ loss·mask over the group's Σ mask (the denominator all-reduced and
+    held constant, as the mask is)."""
+    seq = batch['inputs'].shape[1]
+    if seq % ctx.sp:
+        raise ValueError(f'sequence {seq} is not divisible by sp={ctx.sp}')
+    chunk = seq // ctx.sp
+    cols = slice(ctx.rank * chunk, (ctx.rank + 1) * chunk)
+    logits = model(batch['inputs'][:, cols])
+    with torch.profiler.record_function('cross_entropy'):
+        logits = logits.float()
+        targets = batch['targets'][:, cols]
+        losses = (torch.logsumexp(logits, dim=-1) -
+                  logits.gather(-1, targets.long()[..., None])[..., 0])
+        mask = batch.get('mask')
+        mask = (torch.ones_like(losses) if mask is None
+                else mask[:, cols].float())
+        count = mask.sum().detach()
+        dist.all_reduce(count, group=ctx.group)
+        return torch.sum(losses * mask) / torch.clamp(count, min=1.0)
+
+
+def _sum_over_ranks(loss: torch.Tensor, grads: List[torch.Tensor],
+                    group) -> tuple:
+    """The global loss and gradients from each rank's share: one fp32
+    all-reduce (sum) of the loss and every gradient, flattened."""
+    flat = torch.cat([loss.detach().float().reshape(1)] +
+                     [g.float().reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    out, start = [], 1
+    for g in grads:
+        out.append(flat[start:start + g.numel()].view(g.shape))
+        start += g.numel()
+    return flat[0], out
+
+
+def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
+                    group=None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """The train step: loss → grads → clip → adamw, updating `state` in
@@ -167,32 +223,53 @@ def make_train_step(grad_accum: int = 1
     `grad_accum` A > 1 splits the batch's leading dim into A sequential
     microbatches: grads sum in fp32 and ONE optimizer update applies with
     the mean loss and mean grads (the reference's lax.scan accumulation:
-    per-microbatch means weighted equally)."""
+    per-microbatch means weighted equally).
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    `sp` N runs the step inside use_sequence_parallel(sp=N) (one process,
+    the model's attention_impl 'ring'); `group` g runs it per rank of g
+    (module docstring). Either way the caller passes the global batch."""
+    if sp is not None or group is not None:
+        sharding.sequence_parallel(sp, group=group)       # validate now
+    per_rank = group is not None
+
+    def loss_and_grads(state: TrainState, batch):
+        if per_rank:
+            loss = _rank_loss(state.model, batch,
+                              sharding.current_sequence_parallel())
+        else:
+            loss = _loss(state.model, batch)
+        return loss, torch.autograd.grad(loss, state.params)
+
+    def grads_of(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
         if grad_accum <= 1:
-            loss = _loss(state.model, batch)
-            grads = list(torch.autograd.grad(loss, params))
-        else:
-            rows = batch['inputs'].shape[0]
-            if rows % grad_accum:
-                raise ValueError(f'batch {rows} not divisible by '
-                                 f'grad_accum={grad_accum}')
-            micro = rows // grad_accum
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=batch['inputs'].device)
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-            for i in range(grad_accum):
-                mb = {k: v[i * micro:(i + 1) * micro]
-                      for k, v in batch.items()}
-                loss_i = _loss(state.model, mb)
-                for a, g in zip(acc, torch.autograd.grad(loss_i, params)):
-                    a.add_(g.float())
-                loss = loss + loss_i.detach()
-            loss = loss / grad_accum
-            grads = [(a / grad_accum).to(p.dtype)
-                     for a, p in zip(acc, params)]
+            loss, grads = loss_and_grads(state, batch)
+            return loss, list(grads)
+        rows = batch['inputs'].shape[0]
+        if rows % grad_accum:
+            raise ValueError(f'batch {rows} not divisible by '
+                             f'grad_accum={grad_accum}')
+        micro = rows // grad_accum
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch['inputs'].device)
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        for i in range(grad_accum):
+            mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+            loss_i, grads_i = loss_and_grads(state, mb)
+            for a, g in zip(acc, grads_i):
+                a.add_(g.float())
+            loss = loss + loss_i.detach()
+        return loss / grad_accum, [a / grad_accum for a in acc]
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        scope = (sharding.use_sequence_parallel(sp, group=group)
+                 if sp is not None or group is not None
+                 else contextlib.nullcontext())
+        with scope:
+            loss, grads = grads_of(state, batch)
+            if per_rank:
+                loss, grads = _sum_over_ranks(loss, grads, group)
+        grads = [g.to(p.dtype) for g, p in zip(grads, state.params)]
         with torch.profiler.record_function('optimizer'):
             grad_norm = state.apply_gradients(grads)
         return {'loss': loss.detach(), 'grad_norm': grad_norm,

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: paged attention over float and int8 pools, the flash-attention
-forward and backward, and the fused multi-LoRA delta. Needs an NVIDIA
+forward and backward, the fused multi-LoRA delta and the ring-attention
+chunk update. Needs an NVIDIA
 GPU and nvcc: every test is marked `cuda` and skips inside the test when
 torch.cuda is unavailable. The file imports no JAX, so on a GPU machine
 without JAX it runs as
@@ -326,3 +327,114 @@ def test_fused_lora_kernel_refuses_what_it_does_not_take():
         fl.fused_multi_lora(x, a, b, ids.long())
     with pytest.raises(TypeError, match='dtype'):
         fl.fused_multi_lora(x, a.bfloat16(), b.bfloat16(), ids)
+
+
+# ------------------------------------------------- ring chunk-update kernel
+# Tolerances on (o, m, l): m and l 1e-5 absolute and relative (both sum
+# the unrounded p in fp32, in other orders); o compared as o / l, the
+# attention output the ring finishes with, at the flash tolerances: fp32
+# 1e-5, bf16 2e-2 (the kernel rounds p against its running max, the plain
+# version against the chunk's max; both round P·V to bf16 once).
+
+from skypilot_tpu_torch.ops import ring_attention as ra  # noqa: E402
+
+_RING_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _ring_state(q, k, v, carried, sm_scale):
+    """Fresh (m = -1e30) state, or the state after one plain full hop of
+    the same q over another K/V chunk."""
+    batch, s_q, heads, head_dim = q.shape
+    o = torch.zeros((batch, s_q, heads, head_dim), device='cuda')
+    m = torch.full((batch, heads, s_q), -1e30, device='cuda')
+    l = torch.zeros((batch, heads, s_q), device='cuda')
+    if carried:
+        o, m, l = ra.chunk_update_plain(q, k.flip(1), v.flip(1), o, m, l,
+                                        sm_scale=sm_scale, mask_mode=0,
+                                        q_offset=0, k_offset=0)
+    return o, m, l
+
+
+def _ring_close(got, ref, dtype):
+    (o, m, l), (ro, rm, rl) = got, ref
+    torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+    tol = _RING_TOL[dtype]
+    torch.testing.assert_close(
+        o / l.transpose(1, 2)[..., None], ro / rl.transpose(1, 2)[..., None],
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('s_q,s_k,head_dim,mode,q_off,k_off,carried', [
+    (128, 128, 128, 0, 128, 0, False),    # past chunk, full
+    (128, 128, 128, 1, 128, 128, False),  # own chunk, causal, tiles skipped
+    (128, 128, 128, 1, 128, 128, True),   # the same with carried state
+    (100, 72, 128, 1, 150, 100, True),    # ragged, q after k, no skip
+    (128, 128, 128, 1, 0, 128, False),    # every row fully masked, fresh
+    (128, 128, 128, 1, 64, 128, False),   # first tiles masked, then seen
+    (96, 96, 64, 0, 96, 0, True),         # head_dim 64
+    (64, 96, 256, 1, 96, 96, False),      # head_dim 256, 32-row tiles
+])
+def test_ring_chunk_kernel_matches_plain(dtype, s_q, s_k, head_dim, mode,
+                                         q_off, k_off, carried):
+    _need_gpu()
+    q, k, v, _ = _flash_case(2, max(s_q, s_k), 4, 2, head_dim, dtype, s_q)
+    q, k, v = q[:, :s_q], k[:, :s_k], v[:, :s_k]      # strided views
+    scale = head_dim ** -0.5
+    state = _ring_state(q, k, v, carried, scale)
+    opts = dict(sm_scale=scale, mask_mode=mode, q_offset=q_off,
+                k_offset=k_off)
+    before = ra.chunk_update.launches
+    got = ra.chunk_update(q, k, v, *state, **opts)
+    assert ra.chunk_update.launches == before + 1
+    again = ra.chunk_update(q, k, v, *state, **opts)
+    ref = ra.chunk_update_plain(q, k, v, *state, **opts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _ring_close(got, ref, dtype)
+    if q_off + s_q <= k_off and not carried:
+        # Fully masked rows: p = 1 for every key, l = Sk, as the reference.
+        assert bool((got[2] == s_k).all())
+
+
+@pytest.mark.cuda
+def test_ring_backward_and_forward_run_kernels():
+    """The one-process ring on the card: the chunk kernel forward, the
+    flash dQ and dK/dV kernels backward. Its gradients are within 5e-2 of
+    the flash path's: bf16 rounds each hop's share before the fp32 sum
+    (up to 4 shares a chunk here), the flash kernels round once."""
+    _need_gpu()
+    q, k, v, g = _flash_case(2, 256, 4, 2, 128, torch.bfloat16, 3)
+    launches = (ra.chunk_update.launches, fa.flash_forward.launches,
+                fa.flash_dq.launches, fa.flash_dkv.launches)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ra.ring_attention_sharded(*leaves, sp=4).backward(g)
+    after = (ra.chunk_update.launches, fa.flash_forward.launches,
+             fa.flash_dq.launches, fa.flash_dkv.launches)
+    # 10 visited hops of 4 ranks; no flash forward; one dQ, dK/dV a hop.
+    assert tuple(a - b for a, b in zip(after, launches)) == (10, 0, 10, 10)
+    flash = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = fa.flash_attention(*flash, impl='pallas')
+    ref.backward(g)
+    for a, b in zip(leaves, flash):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                   atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+def test_ring_chunk_kernel_refuses_what_it_does_not_take():
+    _need_gpu()
+    q, k, v, _ = _flash_case(1, 64, 2, 1, 128, torch.float32, 0)
+    state = _ring_state(q, k, v, False, 0.1)
+    opts = dict(sm_scale=0.1, mask_mode=1, q_offset=0, k_offset=0)
+    with pytest.raises(ValueError, match='head_dim'):
+        ra.chunk_update(q[..., :96], k[..., :96], v[..., :96],
+                        state[0][..., :96].contiguous(), *state[1:], **opts)
+    with pytest.raises(TypeError, match='dtype'):
+        ra.chunk_update(q, k.bfloat16(), v.bfloat16(), *state, **opts)
+    with pytest.raises(ValueError, match='contiguous float32'):
+        ra.chunk_update(q, k, v, state[0].transpose(1, 2).contiguous()
+                        .transpose(1, 2), *state[1:], **opts)

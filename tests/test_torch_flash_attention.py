@@ -137,8 +137,12 @@ def test_refusals():
             fa.flash_attention(q, k, v, impl=impl, logit_softcap=30.0)
     with pytest.raises(ValueError, match='window requires causal'):
         fa.flash_attention(q, k, v, causal=False, window=8)
-    with pytest.raises(NotImplementedError, match='ring_attention'):
+    # The ring needs the ambient sequence-parallel context, and refuses a
+    # window (the reference's refusals).
+    with pytest.raises(ValueError, match='sequence-parallel context'):
         fa.flash_attention(q, k, v, impl='ring')
+    with pytest.raises(ValueError, match='window is not supported'):
+        fa.flash_attention(q, k, v, impl='ring', window=8)
     with pytest.raises(ValueError, match='Unknown impl'):
         fa.flash_attention(q, k, v, impl='cudnn')
     with pytest.raises(ValueError, match='not divisible'):

@@ -66,7 +66,7 @@ def test_paged_logits_match_reference(scan_layers):
     cache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
                          nn.unbox(shapes))
 
-    model = Transformer(tcfg)
+    model = Transformer(tcfg, device='cpu')
     model.load_state_dict(params_from_jax(jax.device_get(params), tcfg),
                           assign=True)
     k_pool, v_pool = model.new_kv_pool(_NB)
@@ -104,7 +104,7 @@ def test_paged_logits_match_reference(scan_layers):
 
 def test_logits_at_selects_one_position():
     _, tcfg = _cfgs()
-    model = Transformer(tcfg).init_random_(0)
+    model = Transformer(tcfg, device='cpu').init_random_(0)
     k_pool, v_pool = model.new_kv_pool(_NB)
     tokens = torch.arange(8, dtype=torch.int32)[None]
     positions = torch.arange(8, dtype=torch.int32)[None]
@@ -165,6 +165,15 @@ def test_contiguous_layout_refused():
         Transformer(dataclasses.replace(get_config('test-tiny'), decode=True),
                     device='meta')
     Transformer(get_config('test-tiny'), device='meta')
+
+
+def test_model_builds_on_the_card_by_default(monkeypatch):
+    """Like the engine and the trainer, the model class defaults to the
+    card and refuses to fall back to the CPU without CUDA."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer(get_config('test-tiny'))
+    Transformer(get_config('test-tiny'), device='cpu')
 
 
 def test_params_from_jax_checks_shapes():

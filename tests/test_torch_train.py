@@ -71,7 +71,7 @@ def _jax_run(batches, grad_accum=1):
 
 
 def _port_state(params0, cfg):
-    model = Transformer(cfg)
+    model = Transformer(cfg, device='cpu')
     model.load_state_dict(params_from_jax(params0, cfg, dtype='float32'))
     return trainer.TrainState(model, trainer.TrainConfig(**_TC))
 
@@ -205,7 +205,7 @@ def test_init_random_draws_the_reference_distributions():
     (within 2%: ~10^5 draws per matrix) and against the JAX init's."""
     cfg = get_config('test-tiny', param_dtype='float32', d_model=256,
                      d_mlp=512, vocab_size=1024)
-    model = Transformer(cfg).init_random_(0)
+    model = Transformer(cfg, device='cpu').init_random_(0)
     jcfg = dataclasses.replace(jax_get_config('test-tiny'), d_model=256,
                                d_mlp=512, vocab_size=1024,
                                param_dtype='float32')

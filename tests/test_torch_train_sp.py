@@ -1,0 +1,309 @@
+"""Sequence-parallel training in the port against the JAX package's.
+
+- The test-tiny model with attention_impl='ring' under
+  use_sequence_parallel(sp=4) against the reference Transformer under
+  use_mesh(MeshConfig(sp=4)) on the conftest's fake CPU devices (as
+  tests/test_ring_attention.py builds it), and against the port's own
+  flash path, on the same converted weights (models/convert.py needs
+  nothing new: the parameter trees are the same with or without sp).
+- Three train steps with sp 4 in one process against the reference train
+  step on an sp=4 mesh with attention_impl='ring' (its
+  `make_train_step` takes that mesh; the state is created with
+  attention_impl='xla', whose parameter tree is the same, since the
+  reference's init traces the model outside `use_mesh`), clipping
+  active and grad_accum 2.
+- `train.run.main(['--sp', '2', '--device', 'cpu', ...])` in two gloo
+  processes against the same run in one process.
+- The sp refusals of train.run and parallel/mesh.py, and the torchrun
+  topology.
+
+Tolerances: model logits 2e-5 (the port's usual; fp32 sums in other
+orders, the reference's own ring-vs-dense test allows 2e-4); train steps
+as tests/test_torch_train.py: loss and grad_norm 2e-5 relative, params
+2e-5 absolute. Two processes against one: the run trains in bf16 (the
+entry point's params), and each rank's projections multiply its own
+16-token chunk where one process multiplies all 32 tokens at once, so
+sums of other shapes round differently in bf16: losses within 1e-2
+relative and params within 2e-2 absolute, a few bf16 steps at |w| < 1
+(measured: params 2.0e-3, one bf16 step at |w| near 0.5); and each
+run's parameter change from the seeded start within 10% of the
+one-process change's norm (measured 3.5%: bf16 rounding flips).
+"""
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from skypilot_tpu.models.configs import get_config as jax_get_config
+from skypilot_tpu.models.transformer import Transformer as JaxTransformer
+from skypilot_tpu.parallel import MeshConfig, build_mesh
+from skypilot_tpu.parallel import sharding as jax_sharding
+from skypilot_tpu.train import trainer as jtrainer
+from skypilot_tpu_torch.models.configs import get_config
+from skypilot_tpu_torch.models.convert import params_from_jax, params_to_jax
+from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.parallel import distributed, mesh, sharding
+from skypilot_tpu_torch.train import run, trainer
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_KW = dict(dtype='float32', param_dtype='float32', remat=False)
+_TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+           grad_clip_norm=0.05)
+_B, _S, _SP = 4, 32, 4
+
+
+def _jax_cfg(impl):
+    return dataclasses.replace(jax_get_config('test-tiny'), **_KW,
+                               attention_impl=impl)
+
+
+def _tokens(seed=1, batch=2, seq=_S):
+    return np.random.RandomState(seed).randint(0, 512, (batch, seq)).astype(
+        np.int32)
+
+
+def test_ring_model_matches_reference_on_an_sp_mesh():
+    tokens = _tokens()
+    params = nn.unbox(JaxTransformer(_jax_cfg('xla')).init(
+        jax.random.PRNGKey(0), jnp.asarray(tokens)))
+    jmesh = build_mesh(MeshConfig(sp=_SP), jax.devices()[:_SP])
+    with jax_sharding.use_mesh(jmesh):
+        ref = jax.jit(lambda p, t: JaxTransformer(_jax_cfg('ring')).apply(
+            p, t))(params, jnp.asarray(tokens))
+    tree = jax.device_get(params['params'])
+    outs = {}
+    for impl in ('ring', 'pallas'):
+        cfg = get_config('test-tiny', **_KW, attention_impl=impl)
+        state = params_from_jax(tree, cfg, dtype='float32')
+        model = Transformer(cfg, device='cpu')
+        model.load_state_dict(state)
+        with torch.no_grad(), sharding.use_sequence_parallel(sp=_SP):
+            outs[impl] = model(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(outs['ring'], np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(outs['ring'], outs['pallas'], atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_converted_weights_are_the_same_with_and_without_sp():
+    tree = jax.device_get(nn.unbox(JaxTransformer(_jax_cfg('xla')).init(
+        jax.random.PRNGKey(3), jnp.ones((1, 8), jnp.int32)))['params'])
+    plain = params_from_jax(tree, get_config('test-tiny', **_KW),
+                            dtype='float32')
+    ring_cfg = get_config('test-tiny', **_KW, attention_impl='ring')
+    ring = params_from_jax(tree, ring_cfg, dtype='float32')
+    assert plain.keys() == ring.keys()
+    assert all(torch.equal(plain[n], ring[n]) for n in plain)
+    back = params_to_jax(ring, ring_cfg)
+    np.testing.assert_array_equal(back['lm_head']['kernel'],
+                                  tree['lm_head']['kernel'])
+
+
+def _batches(n, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        tokens = rng.randint(0, 512, (_B, _S + 1)).astype(np.int32)
+        mask = np.ones((_B, _S), np.int32)
+        mask[:, :rng.randint(5, 20)] = 0
+        out.append({'inputs': tokens[:, :-1], 'targets': tokens[:, 1:],
+                    'mask': mask})
+    return out
+
+
+def test_sp_train_steps_match_reference_sp_train_step():
+    batches = _batches(3)
+    jmesh = build_mesh(MeshConfig(sp=_SP), jax.devices()[:_SP])
+    jstate, shardings = jtrainer.create_sharded_state(
+        _jax_cfg('xla'), jmesh, jax.random.PRNGKey(0),
+        jtrainer.TrainConfig(**_TC))
+    params0 = jax.device_get(jstate.params)
+    jstep = jtrainer.make_train_step(_jax_cfg('ring'), jmesh, shardings,
+                                     grad_accum=2)
+    ref_metrics = []
+    with jax_sharding.use_mesh(jmesh):
+        for batch in batches:
+            jstate, m = jstep(jstate, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+            ref_metrics.append((float(m['loss']), float(m['grad_norm'])))
+    ref_params = jax.device_get(jstate.params)
+
+    cfg = get_config('test-tiny', **_KW, attention_impl='ring')
+    model = Transformer(cfg, device='cpu')
+    model.load_state_dict(params_from_jax(params0, cfg, dtype='float32'))
+    state = trainer.TrainState(model, trainer.TrainConfig(**_TC))
+    step = trainer.make_train_step(grad_accum=2, sp=_SP)
+    for i, (batch, (ref_loss, ref_norm)) in enumerate(zip(batches,
+                                                          ref_metrics)):
+        m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert float(m['grad_norm']) > _TC['grad_clip_norm']  # clipping
+        np.testing.assert_allclose(float(m['loss']), ref_loss, rtol=2e-5,
+                                   err_msg=f'loss, step {i}')
+        np.testing.assert_allclose(float(m['grad_norm']), ref_norm,
+                                   rtol=2e-5, err_msg=f'grad_norm, step {i}')
+    got = params_to_jax(state.model.state_dict(), cfg)
+    for path, ref in jax.tree_util.tree_leaves_with_path(ref_params):
+        leaf = got
+        for key in path:
+            leaf = leaf[key.key]
+        np.testing.assert_allclose(leaf, np.asarray(ref), atol=2e-5, rtol=0,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+# ---------------------------------------------------------- train.run
+
+_RUN_WORKER = r'''
+import json, sys
+from skypilot_tpu_torch.train import run
+history = []
+assert run.main(json.loads(sys.argv[1]), history=history) == 0
+with open(sys.argv[2], 'w') as f:
+    json.dump(history, f)
+'''
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _run_args(tmp_path, name):
+    return ['--model', 'test-tiny', '--batch', '4', '--seq', '32',
+            '--steps', '3', '--sp', '2', '--device', 'cpu',
+            '--warmup-steps', '1', '--learning-rate', '1e-3',
+            '--grad-accum', '2', '--checkpoint-dir', str(tmp_path / name),
+            '--checkpoint-every', '100']
+
+
+def _final_params(tmp_path, name):
+    return torch.load(tmp_path / name / '3' / 'state.pt',
+                      weights_only=True)['model']
+
+
+def test_two_gloo_processes_equal_one_process(tmp_path):
+    port = _free_port()
+    args = json.dumps(_run_args(tmp_path, 'ranks'))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=_REPO, RANK=str(rank),
+                   LOCAL_RANK=str(rank), WORLD_SIZE='2',
+                   MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c', _RUN_WORKER, args,
+             str(tmp_path / f'history{rank}.json')], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        pytest.fail('a gloo rank of train.run did not finish within 120s')
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    histories = [json.load(open(tmp_path / f'history{r}.json'))
+                 for r in range(2)]
+    one = []
+    assert run.main(_run_args(tmp_path, 'one'), history=one) == 0
+    # Both ranks report the same global loss and norm.
+    assert [(h['loss'], h['grad_norm']) for h in histories[0]] == \
+        [(h['loss'], h['grad_norm']) for h in histories[1]]
+    for got, ref in zip(histories[0], one):
+        np.testing.assert_allclose(got['loss'], ref['loss'], rtol=1e-2)
+        np.testing.assert_allclose(got['grad_norm'], ref['grad_norm'],
+                                   rtol=1e-2)
+    ranks, single = (_final_params(tmp_path, n) for n in ('ranks', 'one'))
+    for name, ref in single.items():
+        np.testing.assert_allclose(ranks[name].float().numpy(),
+                                   ref.float().numpy(), atol=2e-2,
+                                   err_msg=name)
+    # The update itself: each run's change from the seeded start. The two
+    # differ by bf16 steps where a param's rounding flips (measured: 3.5%
+    # of the change's norm); 10% holds them, where a run that skips or
+    # misdirects its update reads about 100%.
+    start = trainer.create_train_state(
+        get_config('test-tiny', param_dtype='bfloat16',
+                   attention_impl='ring'),
+        device='cpu', seed=0).model.state_dict()
+    moved = {n: (ranks[n].float() - start[n].float(),
+                 single[n].float() - start[n].float()) for n in single}
+    total = torch.sqrt(sum(ref.square().sum() for _, ref in moved.values()))
+    gap = torch.sqrt(sum((got - ref).square().sum()
+                         for got, ref in moved.values()))
+    assert total > 1e-2 and gap <= 0.1 * total, (float(gap), float(total))
+
+
+def test_run_refuses_bad_sp(monkeypatch):
+    base = ['--model', 'test-tiny', '--batch', '2', '--steps', '1',
+            '--device', 'cpu']
+    with pytest.raises(SystemExit, match='divisible by --sp 4'):
+        run.main(base + ['--seq', '30', '--sp', '4'])
+    monkeypatch.setenv('WORLD_SIZE', '3')
+    with pytest.raises(SystemExit, match='3 processes need --sp 3'):
+        run.main(base + ['--seq', '32', '--sp', '2'])
+    with pytest.raises(SystemExit, match='3 processes need --sp 3'):
+        run.main(base + ['--seq', '32'])
+
+
+def test_mesh_and_topology():
+    assert mesh.infer_mesh_config(4, sp=4) == mesh.MeshConfig(sp=4)
+    assert mesh.infer_mesh_config(1) == mesh.MeshConfig()
+    with pytest.raises(ValueError, match="axes {'sp': 3} do not divide 4"):
+        mesh.infer_mesh_config(4, sp=3)
+    with pytest.raises(ValueError, match='axis product 2 != device count 4'):
+        mesh.infer_mesh_config(4, sp=2)
+    topo = distributed.topology_from_env(
+        {'RANK': '1', 'WORLD_SIZE': '2', 'LOCAL_RANK': '1',
+         'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': '29500'})
+    assert (topo.rank, topo.world_size, topo.local_rank, topo.master_port,
+            topo.multiprocess, topo.is_coordinator) == (1, 2, 1, 29500,
+                                                        True, False)
+    single = distributed.topology_from_env({})
+    assert not single.multiprocess and single.is_coordinator
+    assert distributed.initialize(single, device='cpu') is single
+
+
+@pytest.mark.parametrize('remat,recompute', [(False, 0), (True, 1)])
+def test_ring_calls_per_layer_follow_remat(monkeypatch, remat, recompute):
+    """Per step and layer under sp 4: the causal ring visits 4 x 5 / 2 = 10
+    hops, one chunk update each (again when remat recomputes the layer),
+    one flash dQ and one dK/dV per hop, and never the flash forward — the
+    launch counts the card run checks (chip_smoke.py train_sp)."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    counts = {'chunk': 0, 'fwd': 0, 'dq': 0, 'dkv': 0}
+
+    def counting(name, module, attr):
+        fn = getattr(module, attr)
+
+        def wrapped(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, attr, wrapped)
+
+    counting('chunk', ra, 'chunk_update_plain')
+    counting('fwd', fa, 'flash_forward_plain')
+    counting('dq', fa, 'flash_dq_plain')
+    counting('dkv', fa, 'flash_dkv_plain')
+    cfg = get_config('test-tiny', **{**_KW, 'remat': remat},
+                     attention_impl='ring')
+    state = trainer.create_train_state(cfg, trainer.TrainConfig(),
+                                       device='cpu')
+    batch = trainer.synthetic_batch(torch.Generator().manual_seed(0), 2, 32,
+                                    cfg.vocab_size)
+    trainer.make_train_step(sp=4)(state, batch)
+    layers, hops = cfg.num_layers, 10
+    assert counts == {'chunk': layers * hops * (1 + recompute), 'fwd': 0,
+                      'dq': layers * hops, 'dkv': layers * hops}
