@@ -18,8 +18,13 @@ and passed over):
   kernels:  hold the paged kernel against its plain PyTorch version on
             the card at the serve path's shapes (llama3-8b: H 32, KV 8,
             D 128, block 16, max_seq_len 8192; decode B 8 T 1, prefill
-            B 1 T 256), fp32 and bf16, window 0 and > 0; time kernel,
-            plain version and the library yardstick with CUDA events.
+            B 1 T 256 at 512 and at 4096), fp32 and bf16, window 0 and
+            > 0, reruns bit-identical; the bf16 routes at their
+            boundaries (grouped rows under, at and over the prefill
+            route's 64, block sizes 8-64, n_rep 1-8, head_dim 64-256,
+            rows split by key span) and the workspace rule against the
+            library's; time kernel, plain version and the library
+            yardstick with CUDA events.
   kernels_int8: the same for the paged kernel's int8 route (pools
             quantized with the model's int8_quantize, fp32 scale rows),
             plus stale payload and scale rows in the scratch block and
@@ -34,8 +39,10 @@ and passed over):
             the train path's shape (llama3-1b: B 8, S 1024, H 16, KV 8,
             D 128, causal), fp32 and bf16, plus window 256, non-causal,
             S 1000 (ragged) and head_dim 64: O, lse, dq, dk, dv; two
-            backward runs must be bit-identical; time each kernel beside
-            its plain version, its bound and SDPA.
+            forward and two backward runs must be bit-identical; the bf16
+            forward's grouped tiles at n_rep 1, 2, 4 and 8 and head_dim
+            256 from one fused qkv tensor; time each kernel beside its
+            plain version, its bound and SDPA.
   ring_kernels: hold the ring chunk-update kernel against its plain
             version at the slice's shape (B 4, Sq = Sk = 512, H 16, KV 8,
             D 128; k and v strided KV-head views), fp32 and bf16: mask
@@ -182,11 +189,11 @@ def smi_line() -> str:
 
 def _pool_case(torch, dtype, batch, cur_len, positions, seed, num_blocks,
                block_size=16, kv_heads=8, n_rep=4, head_dim=128,
-               max_seq_len=8192):
+               max_seq_len=8192, inert=True):
     """Random pool + per-row tables over shuffled physical blocks. Table
     entries past each row's last position point at scratch block 0; a
     row whose positions are all 0 with an all-zero table is the inert
-    row of a decode tick."""
+    row of a decode tick (the last row of a decode call, if `inert`)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     bps = max_seq_len // block_size
     shape = (num_blocks, block_size, kv_heads, head_dim)
@@ -199,7 +206,7 @@ def _pool_case(torch, dtype, batch, cur_len, positions, seed, num_blocks,
     tables = torch.zeros((batch, bps + 1), dtype=torch.int32)
     pos = torch.tensor(positions, dtype=torch.int32)
     for b in range(batch):
-        if b == batch - 1 and cur_len == 1 and batch > 1:
+        if inert and b == batch - 1 and cur_len == 1 and batch > 1:
             continue                      # inert row: all scratch
         need = min(bps, int(pos[b].max()) // block_size + 1)
         tables[b, :need] = torch.tensor(perm[:need], dtype=torch.int32)
@@ -233,7 +240,8 @@ def _bound(q, kv_heads, pos, bps, dtype_name, token_bytes) -> tuple:
 
 def _library_ms(torch, case):
     """One PyTorch call computing the same attention: SDPA with GQA over
-    the window gathered beforehand (the gather is not timed)."""
+    the window gathered beforehand (the gather is not timed), profiler
+    device time of its kernels, as the paged kernel is timed."""
     import torch.nn.functional as F
     q, k_pool, v_pool, tables, pos, bps = case
     batch, cur_len, heads, head_dim = q.shape
@@ -251,14 +259,68 @@ def _library_ms(torch, case):
     except TypeError as e:   # torch without enable_gqa
         log(f'library yardstick unavailable: {e}')
         return None
-    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+    return device_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, k_win, v_win, attn_mask=mask, enable_gqa=True))
 
 
 NUM_BLOCKS = 8 * 512 + 1              # the serve phases' pool
 SERVE_CALLS = (   # (name, B, T, per-row positions) of the serve path
     ('decode', 8, 1, [[0], [7], [8190], [300], [4000], [650], [1023], [0]]),
-    ('prefill', 1, 256, [list(range(512, 512 + 256))]))
+    ('prefill', 1, 256, [list(range(512, 512 + 256))]),
+    ('prefill_4096', 1, 256, [list(range(4096, 4096 + 256))]))
+# The bf16 routes at their boundaries (ops/paged_attention.py
+# `kernel_route`): (B, T, n_rep, head_dim, block_size, window, bps) with
+# grouped rows just under, at and over PREFILL_ROWS, T not a multiple of
+# a row tile, block sizes 8-64, n_rep 1-8, head_dim 64/128/256 and rows
+# long enough to split by SPLIT_KEYS; rows from position 0 to the end.
+ROUTE_CASES = (
+    (8, 1, 4, 128, 16, 0, 128), (3, 1, 8, 64, 8, 37, 80),
+    (4, 1, 1, 128, 64, 0, 40), (2, 15, 4, 128, 16, 0, 48),
+    (2, 16, 4, 128, 16, 0, 48), (2, 17, 4, 128, 32, 0, 24),
+    (2, 37, 4, 128, 16, 96, 48), (2, 64, 1, 64, 8, 0, 48),
+    (2, 33, 2, 64, 64, 0, 12), (2, 40, 2, 256, 32, 0, 24),
+    (2, 3, 4, 256, 16, 0, 48))
+
+
+def _route_cases(torch, pa) -> None:
+    """Each bf16 route case against the plain version (TOL), reruns
+    bit-identical; and the workspace rule equal in Python and in the
+    library over decode, prefill, fp32 and int8 shapes."""
+    for i, (batch, cur_len, n_rep, dim, bs, window, bps) in enumerate(
+            ROUTE_CASES):
+        starts = [round(x * (bps * bs - cur_len) / max(1, batch - 1))
+                  for x in range(batch)]
+        case = _pool_case(torch, torch.bfloat16, batch, cur_len,
+                          [list(range(s, s + cur_len)) for s in starts],
+                          seed=10 + i, num_blocks=batch * bps + 1,
+                          block_size=bs, kv_heads=2, n_rep=n_rep,
+                          head_dim=dim, max_seq_len=bps * bs, inert=False)
+        q, k_pool, v_pool, tables, positions, _ = case
+        args = (q, k_pool, v_pool, tables[:, :bps], positions)
+        out = pa.paged_decode_attention(*args, window=window)
+        again = pa.paged_decode_attention(*args, window=window)
+        ref = pa.paged_decode_attention_plain(*args, window=window)
+        torch.cuda.synchronize()
+        route = pa.kernel_route(q.dtype, False, dim, cur_len * n_rep)
+        what = (f'kernel route {route} B={batch} T={cur_len} n_rep={n_rep} '
+                f'D={dim} bs={bs} window={window} keys={bps * bs}')
+        err = _check_close(torch, what, out, ref, TOL['bfloat16'])
+        if not torch.equal(out, again):
+            fail(f'{what}: two runs differ')
+        log(f'{what}: max_abs_err={err:.3e}; rerun bit-identical')
+    lib = pa._lib()  # pylint: disable=protected-access
+    for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True), (torch.float32, True)):
+        for shape in ((8, 1, 32, 8, 128, 512, 16), (1, 256, 32, 8, 128, 512, 16),
+                      (3, 15, 8, 2, 64, 48, 8), (2, 16, 8, 2, 256, 48, 16)):
+            want = pa.workspace_floats(*shape, dtype, quant)
+            got = lib.paged_attention_workspace_floats(
+                *shape, pa._DTYPE_CODE[dtype], int(quant))  # pylint: disable=protected-access
+            if got != want:
+                fail(f'workspace rule {shape} {dtype} int8={quant}: library '
+                     f'{got} vs ops/paged_attention.py {want}')
+    log('kernel workspace rule: library = ops/paged_attention.py on 16 '
+        'shapes')
 
 
 def phase_kernels(torch) -> dict:
@@ -294,12 +356,20 @@ def phase_kernels(torch) -> dict:
                     fail(f'kernel {shape_name}/{dtype_name}/w{window} '
                          f'disagrees with its plain version: max abs '
                          f'err {err:.3e}')
+                if not torch.equal(out, pa.paged_decode_attention(
+                        *args, window=window)):
+                    fail(f'kernel {shape_name}/{dtype_name}/w{window}: two '
+                         f'runs differ')
                 if dtype_name == 'bfloat16':
                     worst = max(worst, err)
             if dtype_name != 'bfloat16':
                 continue
             args = (q, k_pool, v_pool, tables[:, :bps], positions)
-            ms = cuda_ms(torch, lambda: pa.paged_decode_attention(*args))
+            # Device time (profiler): a decode call's few tens of
+            # microseconds are less than the host's launch overhead, which
+            # CUDA events around a loop would time instead.
+            event_ms = cuda_ms(torch, lambda: pa.paged_decode_attention(*args))
+            ms = device_ms(torch, lambda: pa.paged_decode_attention(*args))
             plain_ms = cuda_ms(
                 torch, lambda: pa.paged_decode_attention_plain(*args),
                 iters=5)
@@ -311,13 +381,15 @@ def phase_kernels(torch) -> dict:
                 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                 'bound_by': bound_by, 'library_ms': library_ms}
             log(f'kernel {shape_name} bf16 B={batch} T={cur_len}: '
-                f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
-                f'library_ms={library_ms} bound_ms={bound_ms:.4f} '
-                f'({bound_by})')
+                f'kernel_ms={ms:.4f} (device; CUDA events {event_ms:.4f}) '
+                f'plain_ms={plain_ms:.4f} library_ms={library_ms} (device) '
+                f'bound_ms={bound_ms:.4f} ({bound_by})')
             del case, q, k_pool, v_pool, args
             torch.cuda.empty_cache()
+    _route_cases(torch, pa)
     return {'max_abs_err': worst, **results['decode'],
-            'prefill': results['prefill']}
+            'prefill': results['prefill'],
+            'prefill_4096': results['prefill_4096']}
 
 
 def phase_kernels_int8(torch) -> dict:
@@ -397,7 +469,8 @@ def phase_kernels_int8(torch) -> dict:
             del q, k8, v8, ks, vs, args, scales, clean, dirty, ref
             torch.cuda.empty_cache()
     return {'max_abs_err': worst, **results['decode'],
-            'prefill': results['prefill']}
+            'prefill': results['prefill'],
+            'prefill_4096': results['prefill_4096']}
 
 
 # ------------------------------------------------------------------ lora
@@ -1186,9 +1259,13 @@ def phase_flash(torch) -> dict:
             if not (torch.equal(dq, again_dq) and torch.equal(dk, again_dk)
                     and torch.equal(dv, again_dv)):
                 fail(f'{what}: two backward runs differ')
+            again_out, again_lse = fa.flash_forward(q, k, v, **opts)
+            if not (torch.equal(out, again_out) and
+                    torch.equal(lse, again_lse)):
+                fail(f'{what}: two forward runs differ')
             log(f'{what}: max_abs_err ' + ', '.join(
                 f'{n} {e:.3e}' for n, e in errs.items()) +
-                f'; backward bit-identical (tolerances {tol})')
+                f'; forward and backward bit-identical (tolerances {tol})')
             if label != 'path' or dtype_name != 'bfloat16':
                 continue
             bounds = _flash_bounds(torch, case, causal, window)
@@ -1225,7 +1302,42 @@ def phase_flash(torch) -> dict:
                 f'yardstick computes dq, dk and dv in one call')
             del fns
         torch.cuda.empty_cache()
+    _flash_grouped_cases(torch, fa)
     return records
+
+
+# The bf16 forward's grouped tiles (n_rep query heads x 128 / n_rep
+# positions): n_rep 1-8, both wgmma head_dims and 256 (the CUDA-core
+# route), ragged S, window, non-causal; q, k and v column slices of one
+# fused (B, S, H + 2 KV, D) tensor.
+FLASH_GROUPED = (   # (label, B, S, H, KV, D, causal, window)
+    ('n_rep1', 2, 1000, 8, 8, 128, True, 0),
+    ('n_rep2_window', 2, 1000, 16, 8, 128, True, 256),
+    ('n_rep4_noncausal', 2, 300, 16, 4, 64, False, 0),
+    ('n_rep8', 2, 333, 16, 2, 128, True, 0),
+    ('head_dim256', 2, 257, 4, 2, 256, True, 0),
+)
+
+
+def _flash_grouped_cases(torch, fa) -> None:
+    tol = FLASH_TOL['bfloat16']
+    for label, b, s, h, kvh, d, causal, window in FLASH_GROUPED:
+        gen = torch.Generator(device='cuda').manual_seed(s + h)
+        qkv = torch.randn((b, s, h + 2 * kvh, d), generator=gen,
+                          device='cuda').bfloat16()
+        q, k, v = qkv.split([h, kvh, kvh], dim=2)
+        opts = dict(causal=causal, sm_scale=d ** -0.5, window=window)
+        out, lse = fa.flash_forward(q, k, v, **opts)
+        again_out, again_lse = fa.flash_forward(q, k, v, **opts)
+        ref_out, ref_lse = fa.flash_forward_plain(q, k, v, **opts)
+        torch.cuda.synchronize()
+        what = f'flash forward {label} bf16 fused qkv'
+        err = _check_close(torch, what + ' O', out, ref_out, tol['out'])
+        lse_err = _check_close(torch, what + ' lse', lse, ref_lse, tol['lse'])
+        if not (torch.equal(out, again_out) and torch.equal(lse, again_lse)):
+            fail(f'{what}: two runs differ')
+        log(f'{what}: max_abs_err O {err:.3e}, lse {lse_err:.3e}; rerun '
+            f'bit-identical')
 
 
 # ------------------------------------------------------------ train parity

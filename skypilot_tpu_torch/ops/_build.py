@@ -3,8 +3,8 @@
 Every kernel source under ops/csrc/ has a plain C interface (no PyTorch
 headers), so `nvcc` builds each one into its own shared library in
 seconds. Libraries go to ops/build/ (listed in .gitignore) under a name
-that carries a hash of the source and flags: an edited source never
-loads a stale build. Nothing here runs at import; `load(name)` builds on
+that carries a hash of the source, every shared header (csrc/*.cuh) and
+the flags: an edited source or header never loads a stale build. Nothing here runs at import; `load(name)` builds on
 first call and `build_all()` starts one nvcc per source at once.
 """
 from __future__ import annotations
@@ -49,8 +49,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC_DIR, f'{name}.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        digest.update(os.path.basename(path).encode())
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     lib = os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:12]}.so')
     return src, lib
 

@@ -4,7 +4,8 @@
 // Replaces the three TPU kernels of skypilot_tpu/ops/flash_attention.py,
 // reached from the `jax.custom_vjp` `_flash` on the training path (every
 // layer's attention when cfg.decode is False):
-//   flash_fwd_kernel  <- `_fwd_kernel`     (:74,  pl.pallas_call at :151)
+//   flash_fwd_kernel, flash_fwd_wgmma_kernel (bf16)
+//                     <- `_fwd_kernel`     (:74,  pl.pallas_call at :151)
 //   flash_dq_kernel   <- `_bwd_dq_kernel`  (:171, pl.pallas_call at :289)
 //   flash_dkv_kernel  <- `_bwd_dkv_kernel` (:220, pl.pallas_call at :305)
 //
@@ -38,20 +39,24 @@
 //   causal walk) down, so the heavy tiles start first. dK/dV: one CUDA
 //   block per (b, kv head, k tile), looping over q tiles from the first
 //   that can see it. At B 8, H 16, S 1024 a 64-row tile gives 2048
-//   forward/dQ blocks and 1024 dK/dV blocks for 132 SMs.
+//   dQ blocks and 1024 dK/dV blocks for 132 SMs. (The bf16 forward
+//   groups heads into its tiles and runs persistent blocks: its own note
+//   is further down.)
 // - Ragged S. The TPU path needs S to tile by its blocks; here the last
 //   tile is masked: absent keys get p = 0 exactly and absent query rows
 //   are neither written nor summed into dK/dV, so any S works.
 // - Two routes. bf16 at head_dim 64 and 128 (the training path) runs the
-//   tensor-core kernels further down (mma.sync, 4 warps, 16 rows each).
-//   fp32, and bf16 at head_dim 256, run the CUDA-core kernels right below:
-//   BQ = BK = 64 rows (32 at head_dim 256), 256 threads in a 16 x 16
-//   layout; a thread owns rows ty + 16 i and key columns tx + 16 j of each
-//   score tile (the 16 lanes that share a row reduce it with shuffles)
-//   and column pairs 2 tx + 32 j of each D-wide accumulator. Tiles sit in
-//   shared memory in the input dtype with rows padded by two elements,
-//   which makes the pair loads of the score loop free of bank conflicts;
-//   global loads are 16 bytes wide.
+//   tensor-core kernels further down: the forward on wgmma fed by TMA
+//   (flash_fwd_wgmma_kernel, with n_rep query heads grouped per tile),
+//   dQ and dK/dV on mma.sync (4 warps, 16 rows each). fp32, and bf16 at
+//   head_dim 256, run the CUDA-core kernels right below: BQ = BK = 64
+//   rows (32 at head_dim 256), 256 threads in a 16 x 16 layout; a thread
+//   owns rows ty + 16 i and key columns tx + 16 j of each score tile (the
+//   16 lanes that share a row reduce it with shuffles) and column pairs
+//   2 tx + 32 j of each D-wide accumulator. Tiles sit in shared memory in
+//   the input dtype with rows padded by two elements, which makes the
+//   pair loads of the score loop free of bank conflicts; global loads
+//   are 16 bytes wide.
 //
 // What bounds them on the H100. At the training shape (causal S 1024,
 // D 128, bf16, two query heads per KV head) the forward does 4 D FLOPs per
@@ -59,17 +64,23 @@
 // the card's ~295 FLOP/byte bf16 ridge, so the bound is operations over
 // the tensor cores' 989 TFLOP/s; the backward needs five products (10 D
 // per pair: s, dp and dq counted to dQ, dk and dv to dK/dV) and is further
-// above it (the two kernels do 14 D, since dK/dV rebuilds s and dp). The
-// mma.sync route reaches the tensor cores but not their full rate (that
-// takes wgmma, TMA and warp specialisation, a later step); the CUDA-core
-// route (67 TFLOP/s fp32 peak, four FMAs per pair of words loaded from
-// shared memory) is the right-and-simple version and the fp32 path.
+// above it (the two kernels do 14 D, since dK/dV rebuilds s and dp). Only
+// wgmma reaches that rate, which is why the forward runs on it; the
+// softmax between its two products (an exponential per pair, on the
+// SFU's 16 a clock per SM) is what the forward's pipeline hides behind
+// them. The backward's mma.sync kernels reach the tensor cores but not
+// their full rate; the CUDA-core route (67 TFLOP/s fp32 peak, four FMAs
+// per pair of words loaded from shared memory) is the fp32 path.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -591,20 +602,9 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using sm90::pack_bf16;
+using sm90::quad_max;
+using sm90::quad_sum;
 
 // Rows [r0, r0 + ROWS) of a (b, head) slab into [ROWS][D + 8], zeros past S.
 template <int ROWS, int D>
@@ -653,134 +653,6 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&f)[4], const bf16* tile,
                                           int ld, int k0, int n0, int lane) {
   const int m = lane / 8, r = lane % 8;
   ldsm_x4_t(f, tile + (k0 + (m % 2) * 8 + r) * ld + n0 + (m / 2) * 8);
-}
-
-template <int D>
-constexpr size_t fwd_mma_smem() {
-  return 3 * 64 * (D + 8) * sizeof(bf16);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const Args a) {
-  constexpr int BQ = 64, BK = 64, kLd = D + 8;
-  constexpr int KS = D / 16, NT = BK / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * kLd;
-  bf16* vs = ks + BK * kLd;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int kvh = h / a.n_rep;
-  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.seq);
-  __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a(qf[kk], qs, kLd, warp * 16, kk * 16, lane);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const int k_hi = a.causal ? min(a.seq, q0 + BQ) : a.seq;
-  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-
-  float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f;
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  for (int kt = k_lo / BK; kt * BK < k_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.seq);
-    load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.seq);
-    __syncthreads();
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4];
-        load_b_nk(kb, ks, kLd, j * 8, kk * 16, lane);
-        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
-      }
-    }
-    float mx0 = neg_inf(), mx1 = neg_inf();
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = k0 + j * 8 + 2 * t;
-      s[j][0] = masked(s[j][0] * a.scale, r0, c, a);
-      s[j][1] = masked(s[j][1] * a.scale, r0, c + 1, a);
-      s[j][2] = masked(s[j][2] * a.scale, r1, c, a);
-      s[j][3] = masked(s[j][3] * a.scale, r1, c + 1, a);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = expf(m0 - n0), alpha1 = expf(m1 - n1);
-    float sum0 = 0.f, sum1 = 0.f;
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float p0 = expf(s[j][0] - n0), p1 = expf(s[j][1] - n0);
-      const float p2 = expf(s[j][2] - n1), p3 = expf(s[j][3] - n1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * alpha0 + quad_sum(sum0);
-    l1 = l1 * alpha1 + quad_sum(sum1);
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha0;
-      o[j][1] *= alpha0;
-      o[j][2] *= alpha1;
-      o[j][3] *= alpha1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t vb[4];
-        load_b_kn(vb, vs, kLd, kk * 16, j * 8, lane);
-        mma_bf16(o[j], pf[kk], vb[0], vb[1]);
-        mma_bf16(o[j + 1], pf[kk], vb[2], vb[3]);
-      }
-    }
-  }
-
-  bf16* out = static_cast<bf16*>(a.out);
-  const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
-  const long long head_row = static_cast<long long>(a.heads) * D;
-  bf16* row0 = out + (static_cast<long long>(b) * a.seq + r0) * head_row + h * D;
-  bf16* row1 = row0 + 8 * head_row;
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    if (r0 < a.seq) {
-      *reinterpret_cast<uint32_t*>(row0 + j * 8 + 2 * t) =
-          pack_bf16(o[j][0] / ls0, o[j][1] / ls0);
-    }
-    if (r1 < a.seq) {
-      *reinterpret_cast<uint32_t*>(row1 + j * 8 + 2 * t) =
-          pack_bf16(o[j][2] / ls1, o[j][3] / ls1);
-    }
-  }
-  if (t == 0) {
-    float* lse = a.lse_out + (static_cast<long long>(b) * a.heads + h) * a.seq;
-    if (r0 < a.seq) lse[r0] = m0 + logf(ls0);
-    if (r1 < a.seq) lse[r1] = m1 + logf(ls1);
-  }
 }
 
 template <int D>
@@ -1035,6 +907,452 @@ flash_dkv_mma_kernel(const Args a) {
   }
 }
 
+// ------------------------------------- bf16 forward: wgmma, TMA, mbarrier
+//
+// The training path's forward (bf16, head_dim 64 and 128), redesigned for
+// Hopper: the same contract, masks and rounding points as the kernels
+// above, with
+// - grouped query heads: a work tile is (b, KV head, q tile), and takes
+//   the n_rep query heads of the group as extra rows, so each K/V tile is
+//   fetched once for all of them. Its 128 rows are P = 128 / n_rep
+//   positions x n_rep heads, row = position * n_rep + head (64 positions
+//   at n_rep 2); causal and window bounds are taken per row;
+// - products on wgmma: two consumer warpgroups of 64 rows; S = Q.K^T as
+//   m64n64k16 with Q and K both from shared memory (K-major), then P.V as
+//   m64nDk16 with P from registers (the S accumulator rounded to bf16
+//   pairs in place) and V from shared memory through the transpose bit.
+//   The scores of key tile i + 1 are issued with tile i's P.V, and their
+//   softmax runs while P.V is on the tensor cores;
+// - copies on TMA: one producer warp loads each work tile's Q and keeps a
+//   ring of kStages K/V tiles in flight, with full (K, V) and empty
+//   mbarriers per stage and a full/empty pair for Q. The tensor maps
+//   (encoded by the launcher) span the strided (B, S, heads, D) views
+//   with S as its own dimension, so a ragged last tile reads zeros, never
+//   the next batch's rows; absent keys are still masked to p = 0 by
+//   column < S. Tiles land in 128-byte-swizzled shared memory, the layout
+//   the wgmma descriptors name (sm90.cuh). O leaves through its own
+//   staging tile and one TMA store;
+// - work order: the q tiles of one (b, KV head) group run one after
+//   another (the longest causal walks first), so the CUDA blocks in
+//   flight read few groups' K/V and find them in L2.
+
+namespace fwd90 {
+
+constexpr int kRows = 128;          // grouped query rows per work tile
+constexpr int kKeys = 64, kStages = 4;    // keys per K/V tile, tiles in flight
+constexpr int kConsumerWarps = 8;   // two warpgroups of 64 rows
+constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+// One CUDA block per SM walking the work tiles, or one per work tile.
+constexpr bool kPersistent = true;
+
+struct Params {
+  float* lse;         // (B, H, S)
+  int batch, seq, heads, kv_heads, n_rep, positions, q_tiles, causal, window;
+  float scale;
+};
+
+template <int D>
+struct Smem {
+  static constexpr int kChunks = D / 64;
+  alignas(1024) bf16 q[kChunks][kRows * 64];
+  alignas(1024) bf16 o[kChunks][kRows * 64];
+  alignas(1024) bf16 k[kStages][kChunks][kKeys * 64];
+  alignas(1024) bf16 v[kStages][kChunks][kKeys * 64];
+  uint64_t q_full, q_empty, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+__device__ __forceinline__ float mask(float s, int pos, int c,
+                                      const Params& p) {
+  if (c >= p.seq) return neg_inf();
+  if (p.causal && c > pos) return kMaskValue;
+  if (p.window > 0 && pos - c >= p.window) return kMaskValue;
+  return s;
+}
+
+// Work tile w: heaviest q tiles first (the longest causal walks), then
+// (b, KV head).
+struct Work {
+  int b, kvh, q0, q_last, t_lo, t_hi;
+  __device__ Work(int w, const Params& p) {
+    const int groups = p.batch * p.kv_heads;
+    const int qt = p.causal ? p.q_tiles - 1 - w / groups : w / groups;
+    b = (w % groups) / p.kv_heads;
+    kvh = w % p.kv_heads;
+    q0 = qt * p.positions;
+    q_last = min(p.seq, q0 + p.positions) - 1;
+    const int k_hi = p.causal ? q_last + 1 : p.seq;
+    const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+    t_lo = k_lo / kKeys;
+    t_hi = (k_hi + kKeys - 1) / kKeys;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to,
+                       const Params p) {
+  constexpr int kChunks = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_work = p.batch * p.kv_heads * p.q_tiles;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_init(&sm.q_empty, kConsumerWarps);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {                 // the producer warp
+    if (lane == 0) {
+      constexpr uint32_t kTileBytes = kChunks * kKeys * 128;
+      int it = 0;                               // K/V tiles issued
+      for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+        const Work wk(w, p);
+        if (n > 0) sm90::mbar_wait(&sm.q_empty, (n - 1) & 1);
+        sm90::mbar_expect_tx(&sm.q_full,
+                             kChunks * p.positions * p.n_rep * 128);
+        for (int c = 0; c < kChunks; ++c) {
+          sm90::tma_load_4d(sm.q[c], &tq, &sm.q_full, 64 * c,
+                            wk.kvh * p.n_rep, wk.q0, wk.b);
+        }
+        for (int t = wk.t_lo; t < wk.t_hi; ++t, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) {
+            sm90::mbar_wait(&sm.empty[s], (it / kStages - 1) & 1);
+          }
+          sm90::mbar_expect_tx(&sm.k_full[s], kTileBytes);
+          for (int c = 0; c < kChunks; ++c) {
+            sm90::tma_load_4d(sm.k[s][c], &tk, &sm.k_full[s], 64 * c,
+                              wk.kvh, t * kKeys, wk.b);
+          }
+          sm90::mbar_expect_tx(&sm.v_full[s], kTileBytes);
+          for (int c = 0; c < kChunks; ++c) {
+            sm90::tma_load_4d(sm.v[s][c], &tv, &sm.v_full[s], 64 * c,
+                              wk.kvh, t * kKeys, wk.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile;
+  // this thread owns rows lr0 and lr0 + 8 of them.
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int lr0 = wg * 64 + (warp % 4) * 16 + g, lr1 = lr0 + 8;
+  const unsigned char* q_rows =
+      reinterpret_cast<const unsigned char*>(sm.q[0]) + wg * 64 * 128;
+  float o[D / 2], sacc[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) sacc[i] = 0.f;
+  uint32_t pf[kKeys / 16][4];
+  int it = 0;                                   // K/V tiles consumed
+
+  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+    const Work wk(w, p);
+    const int pos0 = wk.q0 + lr0 / p.n_rep, pos1 = wk.q0 + lr1 / p.n_rep;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f;
+
+    // S = Q.K^T of the tile in stage s, into sacc (not waited for).
+    auto issue_scores = [&](int s) {
+      const unsigned char* k_rows =
+          reinterpret_cast<const unsigned char*>(sm.k[s][0]);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int qoff = (kk / 4) * (int)sizeof(sm.q[0]) + (kk % 4) * 32;
+        const int koff = (kk / 4) * (int)sizeof(sm.k[0][0]) + (kk % 4) * 32;
+        const uint64_t da = sm90::desc_sw128(q_rows + qoff, 16, 1024);
+        const uint64_t db = sm90::desc_sw128(k_rows + koff, 16, 1024);
+        sm90::wgmma_m64n64_ss(sacc, da, db, kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // P.V of the tile in stage s, from pf, into o (not waited for).
+    auto issue_pv = [&](int s) {
+      const unsigned char* v_rows =
+          reinterpret_cast<const unsigned char*>(sm.v[s][0]);
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        const uint64_t dv = sm90::desc_sw128(v_rows + kk * 2048,
+                                             sizeof(sm.v[0][0]), 1024);
+        if constexpr (D == 64) {
+          sm90::wgmma_m64n64_rs(o, pf[kk], dv);
+        } else {
+          sm90::wgmma_m64n128_rs(o, pf[kk], dv);
+        }
+      }
+      sm90::wgmma_commit();
+    };
+    // The online softmax of key tile t on sacc: scale, mask, new maxima,
+    // p = exp(s - m) left in sacc (fp32), l updated; returns the alphas.
+    // A tile that no mask touches takes the short form (for a positive
+    // scale): the maxima of the raw scores times the scale (the same
+    // numbers: rounding is monotonic) and exp2(s * scale * log2 e -
+    // m * log2 e) as one FFMA.
+    auto softmax = [&](int t, float& alpha0, float& alpha1) {
+      const int k0 = t * kKeys;
+      const bool edge = k0 + kKeys > p.seq ||
+                        (p.causal && k0 + kKeys - 1 > wk.q0) ||
+                        (p.window > 0 && wk.q_last - k0 >= p.window);
+      float mx0 = neg_inf(), mx1 = neg_inf(), n0, n1;
+      if (edge || !(p.scale > 0.f)) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sacc[4 * j + e] = mask(sacc[4 * j + e] * p.scale, e < 2 ? pos0 : pos1,
+                                   k0 + 8 * j + 2 * t4 + (e & 1), p);
+          }
+          mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
+        n0 = fmaxf(m0, quad_max(mx0));
+        n1 = fmaxf(m1, quad_max(mx1));
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          sacc[4 * j] = sm90::exp2_approx((sacc[4 * j] - n0) * kLog2e);
+          sacc[4 * j + 1] = sm90::exp2_approx((sacc[4 * j + 1] - n0) * kLog2e);
+          sacc[4 * j + 2] = sm90::exp2_approx((sacc[4 * j + 2] - n1) * kLog2e);
+          sacc[4 * j + 3] = sm90::exp2_approx((sacc[4 * j + 3] - n1) * kLog2e);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
+        n0 = fmaxf(m0, quad_max(mx0) * p.scale);
+        n1 = fmaxf(m1, quad_max(mx1) * p.scale);
+        const float c = p.scale * kLog2e, b0 = n0 * kLog2e, b1 = n1 * kLog2e;
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          sacc[4 * j] = sm90::exp2_approx(fmaf(sacc[4 * j], c, -b0));
+          sacc[4 * j + 1] = sm90::exp2_approx(fmaf(sacc[4 * j + 1], c, -b0));
+          sacc[4 * j + 2] = sm90::exp2_approx(fmaf(sacc[4 * j + 2], c, -b1));
+          sacc[4 * j + 3] = sm90::exp2_approx(fmaf(sacc[4 * j + 3], c, -b1));
+        }
+      }
+      alpha0 = sm90::exp2_approx((m0 - n0) * kLog2e);
+      alpha1 = sm90::exp2_approx((m1 - n1) * kLog2e);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        sum0 += sacc[4 * j] + sacc[4 * j + 1];
+        sum1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + quad_sum(sum0);
+      l1 = l1 * alpha1 + quad_sum(sum1);
+      m0 = n0;
+      m1 = n1;
+    };
+    // o *= alpha, and p rounded to bf16 pairs: P.V's register-A fragments.
+    auto rescale_and_pack = [&](float alpha0, float alpha1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha0;
+        o[4 * j + 1] *= alpha0;
+        o[4 * j + 2] *= alpha1;
+        o[4 * j + 3] *= alpha1;
+      }
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        pf[j / 2][(j % 2) * 2] = sm90::pack_bf16(sacc[4 * j], sacc[4 * j + 1]);
+        pf[j / 2][(j % 2) * 2 + 1] =
+            sm90::pack_bf16(sacc[4 * j + 2], sacc[4 * j + 3]);
+      }
+    };
+    // Q's last reader is the work tile's last score product.
+    auto release_q = [&]() {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&sm.q_empty);
+    };
+    auto release_stage = [&](int s) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
+    };
+
+    // Software pipeline over the key tiles; the last tile's P.V is
+    // peeled off, so every wgmma wait retires a known group.
+    const int n_tiles = wk.t_hi - wk.t_lo;
+    float alpha0, alpha1;
+    sm90::mbar_wait(&sm.q_full, n & 1);
+    sm90::mbar_wait(&sm.k_full[it % kStages], (it / kStages) & 1);
+    sm90::wgmma_fence();
+    issue_scores(it % kStages);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sacc);
+    if (n_tiles == 1) release_q();
+    softmax(wk.t_lo, alpha0, alpha1);
+    rescale_and_pack(alpha0, alpha1);
+    for (int i = 0; i + 1 < n_tiles; ++i, ++it) {
+      const int s = it % kStages, s1 = (it + 1) % kStages;
+      sm90::mbar_wait(&sm.k_full[s1], ((it + 1) / kStages) & 1);
+      sm90::mbar_wait(&sm.v_full[s], (it / kStages) & 1);
+      sm90::wgmma_fence();
+      issue_scores(s1);
+      issue_pv(s);
+      sm90::wgmma_wait<1>();                    // scores of tile i + 1
+      sm90::fence_regs(sacc);
+      if (i + 2 == n_tiles) release_q();
+      softmax(wk.t_lo + i + 1, alpha0, alpha1);
+      sm90::wgmma_wait<0>();                    // P.V of tile i
+      sm90::fence_regs(o);
+      release_stage(s);
+      rescale_and_pack(alpha0, alpha1);
+    }
+    {
+      const int s = it % kStages;
+      sm90::mbar_wait(&sm.v_full[s], (it / kStages) & 1);
+      sm90::wgmma_fence();
+      issue_pv(s);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      release_stage(s);
+      ++it;
+    }
+
+    // Epilogue: O / l in bf16 into the staging tile (once the last
+    // tile's store has read it), then one TMA store of the whole tile
+    // through the output's map; positions past S are clipped by it.
+    const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
+    sm90::named_barrier_sync(1, 32 * kConsumerWarps);
+    unsigned char* o_tile = reinterpret_cast<unsigned char*>(sm.o[0]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      unsigned char* chunk = o_tile + (j / 8) * sizeof(sm.o[0]) + 4 * t4;
+      *reinterpret_cast<uint32_t*>(chunk + sm90::swizzled(lr0, j % 8)) =
+          sm90::pack_bf16(o[4 * j] / ls0, o[4 * j + 1] / ls0);
+      *reinterpret_cast<uint32_t*>(chunk + sm90::swizzled(lr1, j % 8)) =
+          sm90::pack_bf16(o[4 * j + 2] / ls1, o[4 * j + 3] / ls1);
+    }
+    const int live_rows = p.positions * p.n_rep;
+    const int rows[2] = {lr0, lr1}, pos[2] = {pos0, pos1};
+    const float lse[2] = {m0 + logf(ls0), m1 + logf(ls1)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (t4 == 0 && rows[h] < live_rows && pos[h] < p.seq) {
+        const int head = wk.kvh * p.n_rep + rows[h] % p.n_rep;
+        p.lse[(static_cast<long long>(wk.b) * p.heads + head) * p.seq +
+              pos[h]] = lse[h];
+      }
+    }
+    sm90::fence_async_shared();
+    sm90::named_barrier_sync(2, 32 * kConsumerWarps);
+    if (threadIdx.x == 0) {
+      for (int c = 0; c < kChunks; ++c) {
+        sm90::tma_store_4d(&to, sm.o[c], 64 * c, wk.kvh * p.n_rep, wk.q0,
+                           wk.b);
+      }
+      sm90::tma_store_commit_and_wait();
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A bf16 (B, S, heads, D) view with element strides sb, ss, sh as a 4-D
+// map {D, heads, S, B}; boxes of 64 x box_h x box_s x 1, 128-byte
+// swizzle, zeros out of bounds. A dimension of extent 1 takes a
+// stride that cannot fail the encoder's checks.
+bool encode_bshd(CUtensorMap* map, const void* base, int d, int heads,
+                 int seq, int batch, long long sh, long long ss,
+                 long long sb, int box_h, int box_s) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  if (heads == 1) sh = d;
+  if (batch == 1) sb = ss * seq;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(seq),
+                        static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                           static_cast<cuuint64_t>(ss) * 2,
+                           static_cast<cuuint64_t>(sb) * 2};
+  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_h),
+                       static_cast<cuuint32_t>(box_s), 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.n_rep > kRows) return cudaErrorInvalidValue;
+  Params p;
+  p.lse = a.lse_out;
+  p.batch = a.batch;
+  p.seq = a.seq;
+  p.heads = a.heads;
+  p.kv_heads = a.kv_heads;
+  p.n_rep = a.n_rep;
+  p.positions = kRows / a.n_rep;
+  p.q_tiles = (a.seq + p.positions - 1) / p.positions;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.scale = a.scale;
+  CUtensorMap tq, tk, tv, to;
+  const long long o_ss = static_cast<long long>(a.heads) * D;
+  if (!encode_bshd(&tq, a.q, D, a.heads, a.seq, a.batch, a.q_sh, a.q_ss,
+                   a.q_sb, a.n_rep, p.positions) ||
+      !encode_bshd(&to, a.out, D, a.heads, a.seq, a.batch, D, o_ss,
+                   o_ss * a.seq, a.n_rep, p.positions) ||
+      !encode_bshd(&tk, a.k, D, a.kv_heads, a.seq, a.batch, a.k_sh, a.k_ss,
+                   a.k_sb, 1, kKeys) ||
+      !encode_bshd(&tv, a.v, D, a.kv_heads, a.seq, a.batch, a.v_sh, a.v_ss,
+                   a.v_sb, 1, kKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(Smem<D>) + 1024;   // + alignment slack
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_work = a.batch * a.kv_heads * p.q_tiles;
+  const int grid = kPersistent && sms < n_work ? sms : n_work;
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, to, p);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd90
+
 enum Which { kForward, kDq, kDkv };
 
 // bf16 at head_dim 64 and 128 takes the tensor-core kernels.
@@ -1053,9 +1371,7 @@ cudaError_t launch_typed(Which which, const Args& a, cudaStream_t stream) {
     threads = kMmaThreads;
     const int tiles64 = (a.seq + 63) / 64;
     if (which == kForward) {
-      kernel = flash_fwd_mma_kernel<D>;
-      smem = fwd_mma_smem<D>();
-      grid = dim3(a.batch * a.heads, tiles64);
+      return fwd90::launch<D>(a, stream);
     } else if (which == kDq) {
       kernel = flash_dq_mma_kernel<D>;
       smem = dq_mma_smem<D>();

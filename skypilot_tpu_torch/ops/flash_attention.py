@@ -180,7 +180,8 @@ def _lib() -> ctypes.CDLL:
 def _check(q, k, v, extra=()) -> None:
     """What every kernel takes: one CUDA device, one dtype (fp32 or
     bf16), (B, S, H|KV, D) with D in {64, 128, 256}, unit stride on D,
-    every stride and pointer aligned for 16-byte loads."""
+    every stride and pointer aligned for 16-byte loads (and for the bf16
+    forward's TMA tensor maps, which need 16-byte strides)."""
     tensors = (q, k, v, *extra)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f'flash attention kernels take float32 or '
@@ -378,8 +379,10 @@ def flash_attention(q: torch.Tensor,
         requires causal.
 
     The reference's block_q/block_k knobs are TPU tile sizes; the CUDA
-    kernels pick their own tiles from head_dim (64 rows up to head_dim
-    128, 32 at 256) and mask a ragged last tile, so any S works.
+    kernels pick their own tiles (the bf16 forward at head_dim 64/128:
+    128 rows of n_rep grouped query heads against 64-key tiles; the
+    others 64 rows up to head_dim 128, 32 at 256) and mask a ragged last
+    tile, so any S works.
     """
     heads, head_dim = q.shape[2], q.shape[3]
     if sm_scale is None:

@@ -4,9 +4,13 @@ Replaces the TPU kernels skypilot_tpu/ops/paged_attention.py
 `_decode_kernel` (float pools) and `_decode_kernel_int8` (int8 pools with
 fp32 per-token scale rows), entry `paged_decode_attention`. Both live in
 ops/csrc/paged_attention.cu (sm_90a, built at first use by ops/_build.py
-and called through ctypes) as two routes of one kernel; its source
-comment says what bounds it on the H100 and what its design does about
-that.
+and called through ctypes); its source comment says what bounds it on
+the H100 and what its design does about that. bf16 pools take one of
+two redesigned kernels by `kernel_route` (tensor-core prefill at
+PREFILL_ROWS grouped rows or more, else the key-span-split decode
+route); fp32 and int8 pools take the first design. `workspace_floats`
+sizes the split-key partials the kernel writes, by the same rule as the
+library's `paged_attention_workspace_floats`.
 
 `paged_decode_attention` is the wrapper the model calls. On a CUDA tensor
 it launches the kernel or raises: a build or launch failure is an error,
@@ -31,6 +35,78 @@ _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128, 256)
 _STEP_KEYS = 64             # keys the kernel stages per loop step
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's routes (ops/csrc/paged_attention.cu). bf16 pools take the
+# tensor-core prefill route at PREFILL_ROWS grouped rows or more (head_dim
+# <= 128), else the decode route, whose key axis splits by SPLIT_KEYS
+# keys; fp32 and int8 pools take the first design, whose key axis splits
+# by grid size (up to _MAX_SPLITS, aiming at _TARGET_CTAS CUDA blocks).
+PREFILL_ROWS = 64
+SPLIT_KEYS = 256
+_TARGET_CTAS = 528
+_MAX_SPLITS = 16
+
+
+def kernel_route(dtype: torch.dtype, kv_quant: bool, head_dim: int,
+                 total_rows: int) -> str:
+    """'prefill', 'decode' or 'first': the route the kernel takes for
+    `total_rows` = T * n_rep grouped rows per (row, kv head)."""
+    if dtype != torch.bfloat16 or kv_quant:
+        return 'first'
+    if head_dim <= 128 and total_rows >= PREFILL_ROWS:
+        return 'prefill'
+    return 'decode'
+
+
+def rows_per_tile(total_rows: int) -> int:
+    """Grouped rows per CUDA block on the decode and first routes."""
+    return 4 if total_rows <= 4 else 16
+
+
+def num_splits(route: str, batch: int, kv_heads: int, total_rows: int,
+               blocks_per_seq: int, block_size: int) -> int:
+    """The grid's split extent of the key axis (host-known: it reads no
+    positions)."""
+    if route == 'first':
+        rows = rows_per_tile(total_rows)
+        ctas = batch * kv_heads * -(-total_rows // rows)
+        return max(1, min(_MAX_SPLITS, -(-_TARGET_CTAS // ctas)))
+    if route == 'prefill' or total_rows >= PREFILL_ROWS:
+        return 1
+    return -(-blocks_per_seq * block_size // SPLIT_KEYS)
+
+
+def workspace_floats(batch: int, cur_len: int, num_heads: int,
+                     kv_heads: int, head_dim: int, blocks_per_seq: int,
+                     block_size: int, dtype: torch.dtype,
+                     kv_quant: bool = False) -> int:
+    """fp32 words of split-key partials one call writes: (m, l, acc) per
+    split and grouped row, 0 when the key axis is whole. The C library's
+    `paged_attention_workspace_floats` is the same rule."""
+    total_rows = cur_len * (num_heads // kv_heads)
+    route = kernel_route(dtype, kv_quant, head_dim, total_rows)
+    splits = num_splits(route, batch, kv_heads, total_rows, blocks_per_seq,
+                        block_size)
+    if splits == 1:
+        return 0
+    return batch * kv_heads * splits * total_rows * (head_dim + 2)
+
+
+def tile_live_keys(tile_positions, blocks_per_seq: int,
+                   block_size: int) -> int:
+    """Keys a row tile walks: whole blocks up to its largest position
+    (blocks past it are skipped)."""
+    max_pos = max([0] + [int(p) for p in tile_positions])
+    return min(blocks_per_seq, max_pos // block_size + 1) * block_size
+
+
+def split_ranges(tile_positions, blocks_per_seq: int, block_size: int,
+                 splits: int) -> list:
+    """[lo, hi) key range of each split of the decode route that does
+    work for a row tile, in merge order; splits past the tile's live keys
+    exit at once and are not listed."""
+    live = tile_live_keys(tile_positions, blocks_per_seq, block_size)
+    span = SPLIT_KEYS if splits > 1 else live
+    return [(lo, min(live, lo + span)) for lo in range(0, live, span)]
 
 
 def attend_window(q: torch.Tensor, k_win: torch.Tensor,
@@ -125,7 +201,7 @@ def _lib() -> ctypes.CDLL:
         fwd8.argtypes = [ctypes.c_void_p] * 9 + tail
         fwd8.restype = ctypes.c_int
         ws = lib.paged_attention_workspace_floats
-        ws.argtypes = [ctypes.c_int] * 5
+        ws.argtypes = [ctypes.c_int] * 9
         ws.restype = ctypes.c_longlong
         lib._signatures_set = True
     return lib
@@ -178,10 +254,11 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
                          f'divides {_STEP_KEYS}, got {block_size}')
     lib = _lib()
     out = torch.empty_like(q)
-    # Split-key partials (m, l, acc), when the grid is small (decode).
+    # Split-key partials (m, l, acc) when the key axis splits (decode).
     workspace = torch.empty(
-        lib.paged_attention_workspace_floats(batch, cur_len, num_heads,
-                                             kv_heads, head_dim),
+        workspace_floats(batch, cur_len, num_heads, kv_heads, head_dim,
+                         block_tables.shape[1], block_size, q.dtype,
+                         kv_quant),
         dtype=torch.float32, device=q.device)
     pools = [k_pool.data_ptr(), v_pool.data_ptr()]
     if kv_quant:

@@ -97,6 +97,63 @@ def test_kernel_refuses_what_it_does_not_take():
                                   pos)
 
 
+# The bf16 routes at their boundaries (ops/paged_attention.py
+# `kernel_route`): grouped rows T * n_rep just under, at and over the
+# prefill route's PREFILL_ROWS; T not a multiple of a 64-row tile; block
+# sizes 8-64; n_rep 1-8; head_dim 64, 128 and 256 (which keeps the decode
+# route); windows of 37 keys (96 keys, below); and long rows, whose key
+# axis splits by SPLIT_KEYS. Same tolerances as above; reruns equal.
+_BOUNDARY_CASES = [  # (batch, cur_len, n_rep, head_dim, block_size, window, bps)
+    (8, 1, 4, 128, 16, 0, 128),     # serve decode: 8 key-span splits
+    (3, 1, 8, 64, 8, 37, 80),       # decode, 3 splits, window
+    (4, 1, 1, 128, 64, 0, 40),      # MHA decode, 64-token blocks, 10 splits
+    (2, 15, 4, 128, 16, 0, 48),     # 60 rows: decode route, split
+    (2, 16, 4, 128, 16, 0, 48),     # 64 rows: prefill route
+    (2, 17, 4, 128, 32, 0, 24),     # 68 rows: a ragged second tile
+    (2, 37, 4, 128, 16, 96, 48),    # 148 rows, window
+    (2, 64, 1, 64, 8, 0, 48),       # head_dim 64, n_rep 1
+    (2, 33, 2, 64, 64, 0, 12),      # head_dim 64, n_rep 2
+    (2, 40, 2, 256, 32, 0, 24),     # head_dim 256: decode route, whole
+    (2, 3, 4, 256, 16, 0, 48),      # head_dim 256: decode route, split
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    'batch,cur_len,n_rep,head_dim,block_size,window,bps', _BOUNDARY_CASES)
+def test_bf16_routes_at_their_boundaries(batch, cur_len, n_rep, head_dim,
+                                         block_size, window, bps):
+    _need_gpu()
+    args = _case(batch, cur_len, kv_heads=2, n_rep=n_rep, head_dim=head_dim,
+                 block_size=block_size, blocks_per_seq=bps,
+                 dtype=torch.bfloat16, seed=cur_len * 7 + bps)
+    before = pa.paged_decode_attention.launches
+    out = pa.paged_decode_attention(*args, window=window)
+    again = pa.paged_decode_attention(*args, window=window)
+    assert pa.paged_decode_attention.launches == before + 2
+    ref = pa.paged_decode_attention_plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_workspace_rule_matches_the_library():
+    _need_gpu()
+    lib = pa._lib()  # pylint: disable=protected-access
+    for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True), (torch.float32, True)):
+        for batch, cur_len, heads, kv, dim, bps, bs in (
+                (8, 1, 32, 8, 128, 512, 16), (1, 256, 32, 8, 128, 512, 16),
+                (3, 15, 8, 2, 64, 48, 8), (2, 16, 8, 2, 256, 48, 16),
+                (5, 1, 4, 4, 128, 8, 64), (1, 1, 8, 1, 128, 2048, 32)):
+            assert lib.paged_attention_workspace_floats(
+                batch, cur_len, heads, kv, dim, bps, bs,
+                pa._DTYPE_CODE[dtype], int(quant)) == pa.workspace_floats(  # pylint: disable=protected-access
+                    batch, cur_len, heads, kv, dim, bps, bs, dtype, quant)
+
+
 # ------------------------------------------------- flash attention kernels
 # Tolerances: fp32 2e-5 on O and lse and 1e-4 on the gradients (the
 # kernels and the plain versions sum in other orders; dK/dV sum over up
@@ -159,6 +216,38 @@ def test_flash_kernels_match_plain(dtype, seq, heads, kv_heads, head_dim,
         assert got.dtype == dtype and got.shape == ref.shape, name
         torch.testing.assert_close(got.float(), ref.float(), atol=bwd_tol,
                                    rtol=bwd_tol, msg=name)
+
+
+# The bf16 forward groups the n_rep query heads of a KV head into one
+# 128-row tile (128 / n_rep positions each): n_rep 1, 2, 4 and 8, both
+# head_dims of the wgmma route and 256 through the CUDA-core route;
+# ragged S, window, non-causal; q, k and v strided column slices of one
+# fused qkv tensor; reruns equal.
+@pytest.mark.cuda
+@pytest.mark.parametrize('seq,heads,kv_heads,head_dim,causal,window', [
+    (1000, 8, 8, 128, True, 0),     # n_rep 1: 128 positions a tile
+    (1000, 16, 8, 128, True, 256),  # n_rep 2, window
+    (300, 16, 4, 64, False, 0),     # n_rep 4, non-causal
+    (333, 16, 2, 128, True, 0),     # n_rep 8: 16 positions a tile
+    (257, 4, 2, 256, True, 0),      # head_dim 256: CUDA-core forward
+])
+def test_flash_forward_grouped_tiles_from_fused_qkv(seq, heads, kv_heads,
+                                                   head_dim, causal, window):
+    _need_gpu()
+    rng = np.random.RandomState(seq + heads)
+    qkv = torch.from_numpy(rng.randn(2, seq, heads + 2 * kv_heads,
+                                     head_dim)).to('cuda', torch.bfloat16)
+    q, k, v = qkv.split([heads, kv_heads, kv_heads], dim=2)
+    opts = dict(causal=causal, sm_scale=head_dim ** -0.5, window=window)
+    out, lse = fa.flash_forward(q, k, v, **opts)
+    again, again_lse = fa.flash_forward(q, k, v, **opts)
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    tol = _FA_TOL[torch.bfloat16][0]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.cuda

@@ -167,3 +167,87 @@ def test_cpu_tensors_take_the_plain_versions():
     with pytest.raises(ValueError, match='not meta'):
         fa.flash_forward(q.to('meta'), k.to('meta'), v.to('meta'),
                          causal=True, sm_scale=0.125)
+
+
+def _grouped_walk(q, k, v, *, causal, sm_scale, window=0, rows=128,
+                  keys=64):
+    """The bf16 forward's tile order in plain fp32 torch: a tile is the
+    n_rep query heads of one KV head at rows // n_rep positions (row =
+    position * n_rep + head), walking the key tiles its causal and window
+    bounds reach with an online softmax. Returns O (B, S, H, D) and lse
+    (B, H, S)."""
+    batch, seq, heads, dim = q.shape
+    kv_heads = k.shape[2]
+    n_rep = heads // kv_heads
+    positions = rows // n_rep
+    out = torch.zeros_like(q)
+    lse = torch.zeros(batch, heads, seq)
+    for b in range(batch):
+        for g in range(kv_heads):
+            for q0 in range(0, seq, positions):
+                pos = torch.arange(q0, min(seq, q0 + positions))
+                qt = q[b, pos, g * n_rep:(g + 1) * n_rep].reshape(-1, dim)
+                row_pos = pos.repeat_interleave(n_rep)
+                k_hi = int(pos[-1]) + 1 if causal else seq
+                k_lo = max(0, q0 - window + 1) if window else 0
+                m = torch.full((len(row_pos),), float('-inf'))
+                l = torch.zeros(len(row_pos))
+                acc = torch.zeros(len(row_pos), dim)
+                for k0 in range(k_lo // keys * keys, k_hi, keys):
+                    cols = torch.arange(k0, k0 + keys)
+                    present = cols < seq
+                    kt = k[b, cols.clamp(max=seq - 1), g]
+                    vt = torch.where(present[:, None],
+                                     v[b, cols.clamp(max=seq - 1), g], 0.)
+                    s = (qt @ kt.T) * sm_scale
+                    keep = torch.ones_like(s, dtype=torch.bool)
+                    if causal:
+                        keep &= cols[None, :] <= row_pos[:, None]
+                    if window:
+                        keep &= row_pos[:, None] - cols[None, :] < window
+                    s = torch.where(keep, s, torch.tensor(-1e30))
+                    s = torch.where(present[None, :], s,
+                                    torch.tensor(float('-inf')))
+                    m_new = torch.maximum(m, s.max(dim=1).values)
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(s - m_new[:, None])
+                    l = l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None] + p @ vt
+                    m = m_new
+                l_safe = l.clamp(min=1e-30)
+                out[b, pos, g * n_rep:(g + 1) * n_rep] = (
+                    acc / l_safe[:, None]).reshape(len(pos), n_rep, dim)
+                lse[b, g * n_rep:(g + 1) * n_rep, pos] = (
+                    m + torch.log(l_safe)).reshape(len(pos), n_rep).T
+    return out, lse
+
+
+@pytest.mark.parametrize('causal,window,heads,kv_heads,seq', [
+    (True, 0, 2, 2, 200),      # n_rep 1: 128 positions a tile, ragged S
+    (True, 0, 4, 2, 128),      # n_rep 2: 64 positions a tile
+    (False, 0, 8, 2, 192),     # n_rep 4, non-causal
+    (True, 40, 8, 1, 192),     # n_rep 8, window: leading tiles skipped
+])
+def test_grouped_head_walk_matches_plain_and_pallas(causal, window, heads,
+                                                    kv_heads, seq):
+    q, k, v, _ = _inputs(2, seq, heads, kv_heads, 32, seed=seq + heads)
+    scale = 32 ** -0.5
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    out, lse = _grouped_walk(tq, tk, tv, causal=causal, sm_scale=scale,
+                             window=window)
+    plain_out, plain_lse = fa.flash_forward_plain(
+        tq, tk, tv, causal=causal, sm_scale=scale, window=window)
+    np.testing.assert_allclose(out.numpy(), plain_out.numpy(), **_TOL)
+    np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), **_TOL)
+    if seq % 64 == 0:          # the Pallas forward tiles S by its blocks
+        n_rep = heads // kv_heads
+        ref_out, ref_lse = jfa._pallas_forward(  # pylint: disable=protected-access
+            jfa._fold(jnp.asarray(q)),  # pylint: disable=protected-access
+            jfa._fold(jfa._repeat_kv(jnp.asarray(k), n_rep)),  # pylint: disable=protected-access
+            jfa._fold(jfa._repeat_kv(jnp.asarray(v), n_rep)),  # pylint: disable=protected-access
+            causal, window, scale, 64, 64, True)
+        np.testing.assert_allclose(
+            out.numpy().transpose(0, 2, 1, 3).reshape(2 * heads, seq, 32),
+            np.asarray(ref_out), **_TOL)
+        np.testing.assert_allclose(lse.numpy().reshape(2 * heads, 1, seq),
+                                   np.asarray(ref_lse), **_TOL)
