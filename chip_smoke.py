@@ -41,8 +41,13 @@ and passed over):
             S 1000 (ragged) and head_dim 64: O, lse, dq, dk, dv; two
             forward and two backward runs must be bit-identical; the bf16
             forward's grouped tiles at n_rep 1, 2, 4 and 8 and head_dim
-            256 from one fused qkv tensor; time each kernel beside its
-            plain version, its bound and SDPA.
+            256 from one fused qkv tensor, and the bf16 backward pair's
+            (dQ's grouped tiles, dK/dV's 128-key tiles) at n_rep 1, 2, 3,
+            4 and 8, window, non-causal, ragged S and head_dim 64, reruns
+            bit-identical; time each kernel beside its plain version, its
+            bound and SDPA, the backward pair (and with _Flash.backward's
+            delta preparation) beside SDPA's backward, and the pair at
+            the ring's two hop shapes.
   ring_kernels: hold the ring chunk-update kernel against its plain
             version at the slice's shape (B 4, Sq = Sk = 512, H 16, KV 8,
             D 128; k and v strided KV-head views), fp32 and bf16: mask
@@ -1115,14 +1120,17 @@ FLASH_TOL = {'float32': {'out': (2e-5, 2e-5), 'lse': (2e-5, 2e-5),
              'bfloat16': {'out': (2e-2, 2e-2), 'lse': (2e-5, 2e-5),
                           'grad': (2e-2, 2e-2)}}
 FLASH_SOURCE = 'skypilot_tpu_torch/ops/csrc/flash_attention.cu'
-FLASH_KERNELS = (   # (name, wrapper attribute, TPU kernel it replaces)
-    ('flash_attention_forward', 'flash_forward',
+FLASH_KERNELS = (   # (bf16 kernel, wrapper attribute, TPU kernel it replaces)
+    ('flash_fwd_wgmma_kernel', 'flash_forward',
      'skypilot_tpu/ops/flash_attention.py:74'),
-    ('flash_attention_dq', 'flash_dq',
+    ('flash_dq_wgmma_kernel', 'flash_dq',
      'skypilot_tpu/ops/flash_attention.py:171'),
-    ('flash_attention_dkv', 'flash_dkv',
+    ('flash_dkv_wgmma_kernel', 'flash_dkv',
      'skypilot_tpu/ops/flash_attention.py:220'),
 )
+# FLOPs each bf16 kernel issues per visible (query, key) pair and head
+# dim: forward S and P.V; dQ S, dP and dQ; dK/dV S, dP (rebuilt), dV, dK.
+FLASH_ISSUED = {'flash_forward': 4, 'flash_dq': 6, 'flash_dkv': 8}
 
 
 def _flash_case(torch, batch, seq, heads, kv_heads, head_dim, dtype, seed):
@@ -1189,29 +1197,48 @@ def _check_close(torch, what, got, ref, tol) -> float:
     return float(diff.max())
 
 
-def _sdpa_ms(torch, case):
-    """SDPA (causal, GQA) forward, and forward + backward through
-    autograd, on the same inputs: the library yardstick, never called by
-    the port. Returns (fwd_ms, bwd_ms = fwd+bwd - fwd)."""
+def _sdpa_ms(torch, case, causal=True):
+    """SDPA (GQA) forward, and forward + backward through autograd, on
+    the same inputs: the library yardstick, never called by the port.
+    Returns (fwd_ms, bwd_ms = fwd+bwd - fwd); the backward includes its
+    own delta pass."""
     import torch.nn.functional as F
     q, k, v, g = case
     qt, kt, vt = (t.transpose(1, 2).detach() for t in (q, k, v))
     gt = g.transpose(1, 2)
     try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                        enable_gqa=True)
     except TypeError as e:   # torch without enable_gqa
         log(f'library yardstick unavailable: {e}')
         return None, None
     fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
 
     def fwd_bwd():
-        F.scaled_dot_product_attention(*leaves, is_causal=True,
+        F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                        enable_gqa=True).backward(gt)
     both = cuda_ms(torch, fwd_bwd, iters=10)
     return fwd, both - fwd
+
+
+def _sdpa_bwd_device_ms(torch, case, causal=True) -> float:
+    """SDPA's backward (its delta pass included) in profiler device time:
+    the CUDA kernels of forward + backward less those of the forward, so
+    the host's autograd work, which event timing can catch, is left
+    out."""
+    import torch.nn.functional as F
+    q, k, v, g = case
+    leaves = [t.transpose(1, 2).detach().clone().requires_grad_()
+              for t in (q, k, v)]
+    gt = g.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=True)
+    return (device_ms(torch, lambda: fwd().backward(gt), iters=10) -
+            device_ms(torch, fwd, iters=10))
 
 
 def phase_flash(torch) -> dict:
@@ -1270,6 +1297,10 @@ def phase_flash(torch) -> dict:
                 continue
             bounds = _flash_bounds(torch, case, causal, window)
             sdpa_fwd, sdpa_bwd = _sdpa_ms(torch, case)
+            # The backward's yardstick in device time: event timing of
+            # SDPA's autograd backward can read the host's work.
+            sdpa_bwd_dev = (None if sdpa_bwd is None else
+                            _sdpa_bwd_device_ms(torch, case))
             fns = {
                 'flash_forward': (
                     lambda: fa.flash_forward(q, k, v, **opts),
@@ -1279,13 +1310,14 @@ def phase_flash(torch) -> dict:
                     lambda: fa.flash_dq(q, k, v, g, lse, delta, **opts),
                     lambda: fa.flash_dq_plain(q, k, v, g, lse, delta,
                                               **opts),
-                    sdpa_bwd, errs['dq']),
+                    sdpa_bwd_dev, errs['dq']),
                 'flash_dkv': (
                     lambda: fa.flash_dkv(q, k, v, g, lse, delta, **opts),
                     lambda: fa.flash_dkv_plain(q, k, v, g, lse, delta,
                                                **opts),
-                    sdpa_bwd, max(errs['dk'], errs['dv'])),
+                    sdpa_bwd_dev, max(errs['dk'], errs['dv'])),
             }
+            pairs = b * h * _visible_pairs(s, causal, window)
             for key, (kernel, plain, library, err) in fns.items():
                 ms = cuda_ms(torch, kernel)
                 plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
@@ -1293,16 +1325,41 @@ def phase_flash(torch) -> dict:
                 records[key] = {'max_abs_err': err, 'ms': ms,
                                 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                                 'bound_by': bound_by, 'library_ms': library}
+                tflops = FLASH_ISSUED[key] * d * pairs / ms / 1e9
                 log(f'flash {key} bf16 B={b} S={s} H={h} KV={kvh} D={d} '
                     f'causal: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
                     f'library_ms={library} bound_ms={bound_ms:.4f} '
-                    f'({bound_by})')
+                    f'({bound_by}); {tflops:.1f} TFLOP/s of the '
+                    f'{FLASH_ISSUED[key]} D FLOPs a visible pair it issues')
             log(f'flash library (SDPA causal GQA) forward {sdpa_fwd} ms, '
-                f'backward (fwd+bwd - fwd) {sdpa_bwd} ms; the backward '
-                f'yardstick computes dq, dk and dv in one call')
+                f'backward (fwd+bwd - fwd) {sdpa_bwd} ms by events, '
+                f'{sdpa_bwd_dev} ms device; the backward yardstick '
+                f'computes dq, dk and dv (and its delta) in one call')
+            pair = cuda_ms(torch, lambda: (fns['flash_dq'][0](),
+                                           fns['flash_dkv'][0]()))
+            delta_ms = cuda_ms(torch, lambda: fa.backward_delta(out, g))
+
+            def with_delta_fn():
+                dl = fa.backward_delta(out, g)
+                return (fa.flash_dq(q, k, v, g, lse, dl, **opts),
+                        fa.flash_dkv(q, k, v, g, lse, dl, **opts))
+            with_delta = cuda_ms(torch, with_delta_fn)
+            pair_dev = device_ms(torch, lambda: (fns['flash_dq'][0](),
+                                                 fns['flash_dkv'][0]()))
+            with_delta_dev = device_ms(torch, with_delta_fn)
+            log(f'flash backward pair (dQ + dK/dV) {pair:.4f} ms, with '
+                f'_Flash.backward\'s delta preparation {with_delta:.4f} ms '
+                f'(delta alone {delta_ms:.4f} ms) by events; device '
+                f'{pair_dev:.4f} ms, with delta {with_delta_dev:.4f} ms')
+            if sdpa_bwd_dev is not None:
+                log(f'flash backward / SDPA backward, device time: pair '
+                    f'{pair_dev / sdpa_bwd_dev:.3f}, with delta '
+                    f'{with_delta_dev / sdpa_bwd_dev:.3f}')
             del fns
         torch.cuda.empty_cache()
     _flash_grouped_cases(torch, fa)
+    _flash_grouped_backward_cases(torch, fa)
+    _flash_hop_times(torch, fa)
     return records
 
 
@@ -1338,6 +1395,86 @@ def _flash_grouped_cases(torch, fa) -> None:
             fail(f'{what}: two runs differ')
         log(f'{what}: max_abs_err O {err:.3e}, lse {lse_err:.3e}; rerun '
             f'bit-identical')
+
+
+# The bf16 backward pair's tiles: dQ groups n_rep query heads into the
+# forward's 128-row tiles, dK/dV walks each KV head's query heads over
+# 128-key tiles. n_rep 1-8 (3: a dQ tile of 126 live rows), ragged S,
+# window, non-causal, head_dim 64; q, k and v column slices of one fused
+# (B, S, H + 2 KV, D) tensor, dO a column slice of another.
+FLASH_GROUPED_BACKWARD = (   # (label, B, S, H, KV, D, causal, window)
+    ('n_rep1', 2, 1000, 8, 8, 128, True, 0),
+    ('n_rep2_window', 2, 1000, 16, 8, 128, True, 256),
+    ('n_rep3_window', 2, 129, 6, 2, 64, True, 40),
+    ('n_rep4_noncausal', 2, 300, 16, 4, 64, False, 0),
+    ('n_rep8', 2, 333, 16, 2, 128, True, 0),
+)
+
+
+def _flash_grouped_backward_cases(torch, fa) -> None:
+    tol = FLASH_TOL['bfloat16']['grad']
+    for label, b, s, h, kvh, d, causal, window in FLASH_GROUPED_BACKWARD:
+        gen = torch.Generator(device='cuda').manual_seed(s + h + d)
+        qkv = torch.randn((b, s, h + 2 * kvh, d), generator=gen,
+                          device='cuda').bfloat16()
+        q, k, v = qkv.split([h, kvh, kvh], dim=2)
+        g = torch.randn((b, s, 2 * h, d), generator=gen,
+                        device='cuda').bfloat16()[:, :, h:]
+        opts = dict(causal=causal, sm_scale=d ** -0.5, window=window)
+        out, lse = fa.flash_forward(q, k, v, **opts)
+        delta = fa.backward_delta(out, g)
+        got = (fa.flash_dq(q, k, v, g, lse, delta, **opts),
+               *fa.flash_dkv(q, k, v, g, lse, delta, **opts))
+        again = (fa.flash_dq(q, k, v, g, lse, delta, **opts),
+                 *fa.flash_dkv(q, k, v, g, lse, delta, **opts))
+        ref = (fa.flash_dq_plain(q, k, v, g, lse, delta, **opts),
+               *fa.flash_dkv_plain(q, k, v, g, lse, delta, **opts))
+        torch.cuda.synchronize()
+        what = f'flash backward {label} bf16 fused qkv'
+        errs = [_check_close(torch, f'{what} {name}', a, r, tol)
+                for name, a, r in zip(('dq', 'dk', 'dv'), got, ref)]
+        if not all(torch.equal(a, r) for a, r in zip(got, again)):
+            fail(f'{what}: two runs differ')
+        log(f'{what}: max_abs_err dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv '
+            f'{errs[2]:.3e} (tolerance {tol}); rerun bit-identical')
+
+
+def _flash_hop_times(torch, fa) -> None:
+    """The backward pair at the ring's two hop shapes (B 4, 512 queries x
+    512 keys, llama3-1b heads; full: a past hop, diagonal: causal), fed
+    the lse and delta of the 1024-long sequence's softmax: kernel time
+    (events, and profiler device time), bound and SDPA's backward."""
+    q, k, v, g = _flash_case(torch, 4, 1024, 16, 8, 128, torch.bfloat16,
+                             seed=13)
+    out, lse = fa.flash_forward(q, k, v, causal=True, sm_scale=128 ** -0.5)
+    delta = fa.backward_delta(out, g)
+    rows = slice(512, 1024)
+    for label, src in (('full', 0), ('diagonal', 1)):
+        cols = slice(512 * src, 512 * (src + 1))
+        case = (q[:, rows], k[:, cols], v[:, cols], g[:, rows])
+        args = (*case, lse[:, :, rows].contiguous(),
+                delta[:, :, rows].contiguous())
+        causal = src == 1
+        opts = dict(causal=causal, sm_scale=128 ** -0.5)
+        bounds = _flash_bounds(torch, case, causal, 0)
+        _, sdpa_bwd = _sdpa_ms(torch, case, causal=causal)
+        pairs = 4 * 16 * _visible_pairs(512, causal, 0)
+        parts = []
+        for key, fn in (('flash_dq', lambda: fa.flash_dq(*args, **opts)),
+                        ('flash_dkv', lambda: fa.flash_dkv(*args, **opts))):
+            ms, dev = cuda_ms(torch, fn), device_ms(torch, fn)
+            parts.append(dev)
+            parts_log = (f'{key} {ms:.4f} ms (device {dev:.4f}), '
+                         f'{FLASH_ISSUED[key] * 128 * pairs / dev / 1e9:.1f}'
+                         f' TFLOP/s, bound {bounds[key][0]:.4f} '
+                         f'({bounds[key][1]})')
+            log(f'flash ring hop ({label}, B 4, 512 x 512, H 16, KV 8, D '
+                f'128): {parts_log}')
+        log(f'flash ring hop ({label}): pair {sum(parts):.4f} ms device; '
+            f'SDPA backward {sdpa_bwd} ms events')
+        if sdpa_bwd is not None:
+            log(f'flash ring hop ({label}): SDPA backward '
+                f'{_sdpa_bwd_device_ms(torch, case, causal):.4f} ms device')
 
 
 # ------------------------------------------------------------ train parity

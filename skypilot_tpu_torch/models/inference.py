@@ -46,6 +46,7 @@ from skypilot_tpu_torch.models import kv_cache as kv_cache_lib
 from skypilot_tpu_torch.models.configs import ModelConfig, get_config
 from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.serve import tenancy
 
 logger = logging.getLogger(__name__)
@@ -265,6 +266,9 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f'max_seq_len {cfg.max_seq_len} not divisible '
                 f'by paged_block_size {self.paged_block_size}')
+        if self.device.type == 'cuda':
+            # Every paged step goes through the kernel on the card.
+            limits.check_kernel_shapes(cfg.head_dim, self.paged_block_size)
         self._blocks_per_seq = cfg.max_seq_len // self.paged_block_size
         # Default pool: every slot can reach max_seq_len, plus the
         # scratch block.

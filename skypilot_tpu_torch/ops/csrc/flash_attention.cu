@@ -39,24 +39,23 @@
 //   causal walk) down, so the heavy tiles start first. dK/dV: one CUDA
 //   block per (b, kv head, k tile), looping over q tiles from the first
 //   that can see it. At B 8, H 16, S 1024 a 64-row tile gives 2048
-//   dQ blocks and 1024 dK/dV blocks for 132 SMs. (The bf16 forward
-//   groups heads into its tiles and runs persistent blocks: its own note
-//   is further down.)
+//   dQ blocks and 1024 dK/dV blocks for 132 SMs. (The bf16 kernels
+//   group heads or keys into larger work tiles: their own note is
+//   further down.)
 // - Ragged S. The TPU path needs S to tile by its blocks; here the last
 //   tile is masked: absent keys get p = 0 exactly and absent query rows
 //   are neither written nor summed into dK/dV, so any S works.
 // - Two routes. bf16 at head_dim 64 and 128 (the training path) runs the
-//   tensor-core kernels further down: the forward on wgmma fed by TMA
-//   (flash_fwd_wgmma_kernel, with n_rep query heads grouped per tile),
-//   dQ and dK/dV on mma.sync (4 warps, 16 rows each). fp32, and bf16 at
-//   head_dim 256, run the CUDA-core kernels right below: BQ = BK = 64
-//   rows (32 at head_dim 256), 256 threads in a 16 x 16 layout; a thread
-//   owns rows ty + 16 i and key columns tx + 16 j of each score tile (the
-//   16 lanes that share a row reduce it with shuffles) and column pairs
-//   2 tx + 32 j of each D-wide accumulator. Tiles sit in shared memory in
-//   the input dtype with rows padded by two elements, which makes the
-//   pair loads of the score loop free of bank conflicts; global loads
-//   are 16 bytes wide.
+//   wgmma / TMA kernels further down (flash_fwd_wgmma_kernel,
+//   flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel; their own note is
+//   there). fp32, and bf16 at head_dim 256, run the CUDA-core kernels
+//   right below: BQ = BK = 64 rows (32 at head_dim 256), 256 threads in a
+//   16 x 16 layout; a thread owns rows ty + 16 i and key columns tx + 16 j
+//   of each score tile (the 16 lanes that share a row reduce it with
+//   shuffles) and column pairs 2 tx + 32 j of each D-wide accumulator.
+//   Tiles sit in shared memory in the input dtype with rows padded by two
+//   elements, which makes the pair loads of the score loop free of bank
+//   conflicts; global loads are 16 bytes wide.
 //
 // What bounds them on the H100. At the training shape (causal S 1024,
 // D 128, bf16, two query heads per KV head) the forward does 4 D FLOPs per
@@ -64,13 +63,12 @@
 // the card's ~295 FLOP/byte bf16 ridge, so the bound is operations over
 // the tensor cores' 989 TFLOP/s; the backward needs five products (10 D
 // per pair: s, dp and dq counted to dQ, dk and dv to dK/dV) and is further
-// above it (the two kernels do 14 D, since dK/dV rebuilds s and dp). Only
-// wgmma reaches that rate, which is why the forward runs on it; the
-// softmax between its two products (an exponential per pair, on the
-// SFU's 16 a clock per SM) is what the forward's pipeline hides behind
-// them. The backward's mma.sync kernels reach the tensor cores but not
-// their full rate; the CUDA-core route (67 TFLOP/s fp32 peak, four FMAs
-// per pair of words loaded from shared memory) is the fp32 path.
+// above it (the two kernels issue 14 D, since dK/dV rebuilds s and dp).
+// Only wgmma reaches that rate, which is why the bf16 kernels run on it;
+// the exponentials between their products (one per pair, on the SFU's 16
+// a clock per SM) are what their pipelines hide behind the products. The
+// CUDA-core route (67 TFLOP/s fp32 peak, four FMAs per pair of words
+// loaded from shared memory) is the fp32 path.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -561,405 +559,140 @@ flash_dkv_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------------ bf16 tensor-core kernels
-//
-// For bf16 at head_dim 64 and 128 (the training path) the products run on
-// the tensor cores through mma.sync m16n8k16 (bf16 operands, fp32
-// accumulation): the same contract, masks and rounding points as the
-// kernels above, with 4 warps per CUDA block and each warp owning 16 rows
-// of the tile. Tiles sit row-major in shared memory (rows padded by 8
-// elements, so the 8 rows an ldmatrix phase reads fall in distinct
-// banks); fragments come in through ldmatrix, and an operand whose
-// fragment runs along the key or query axis (V for P.V, K for dS.K, Q and
-// dO for the dK/dV products) through ldmatrix.trans. The score
-// accumulators turn into the next product's A fragments in registers,
-// without a trip through shared memory.
-
-constexpr int kMmaThreads = 128;
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+enum Which { kForward, kDq, kDkv };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+// ---------------------------- bf16 kernels: wgmma, TMA, mbarrier (Hopper)
+//
+// The training path (bf16, head_dim 64 and 128) runs three kernels built
+// from one set of parts: the same contract, masks and rounding points as
+// the CUDA-core kernels above.
+// - Copies on TMA. One producer warp issues every copy; tiles land in
+//   128-byte-swizzled shared memory, the layout the wgmma descriptors
+//   name (sm90.cuh), through tensor maps (encoded by the launcher) over
+//   the strided (B, S, heads, D) views with S as its own dimension, so
+//   a ragged last tile reads zeros, never the next batch's rows. Rings of
+//   stages with full/empty mbarriers keep copies in flight during the
+//   products. Outputs leave through a staging tile and TMA stores.
+// - Products on wgmma. Consumer warpgroups of 64 rows; a product whose
+//   reduction runs along the head dim reads both operands from shared
+//   memory (K-major); one whose reduction runs along keys or queries takes
+//   its A from registers (an fp32 accumulator rounded to bf16 pairs in
+//   place) and its B from shared memory through the transpose bit.
+// - Work order. Work tiles go heaviest (longest causal walk) first; the
+//   forward and dQ run one persistent CUDA block per SM over them, dK/dV
+//   one block per work tile (kPersistent, kDkvPersistent).
+//
+// flash_fwd_wgmma_kernel (TPU `_fwd_kernel`) and flash_dq_wgmma_kernel
+// (TPU `_bwd_dq_kernel`) share the work tile and the producer: a work tile
+// is (b, KV head, q tile) and takes the n_rep query heads of the group as
+// extra rows, so each K/V tile is fetched once for all of them. Its 128
+// rows are P = 128 / n_rep positions x n_rep heads, row = position *
+// n_rep + head (64 positions at n_rep 2); causal and window bounds are
+// taken per row. The producer loads the tile's Q (and dO) once and streams
+// 64-key K/V tiles through the ring.
+// - Forward: S = Q.K^T (m64n64k16), online softmax, O += P.V (m64nDk16).
+//   Bound by operations (4 D FLOPs per visible pair). The scores of key
+//   tile i + 1 are issued with tile i's P.V, so the softmax runs while P.V
+//   is on the tensor cores.
+// - dQ: S = Q.K^T and dP = dO.V^T (m64n64k16, both from shared memory),
+//   p = exp(s scale - lse) and ds = p (dp - delta) in registers, dQ +=
+//   dS.K (m64nDk16, K through the transpose bit). It issues 6 D FLOPs per
+//   visible pair, ~2 KB of K/V per 128 rows and key tile: bound by
+//   operations. S and dP of tile i + 1 are issued with tile i's dQ
+//   product, and their ds runs while it is on the tensor cores. That
+//   pipeline holds dQ, S, dP and the packed dS at once: with one producer
+//   warp ptxas capped the consumers at 168 registers and spilled, so the
+//   producer is a warpgroup that hands its registers to them (setmaxnreg).
+//
+// flash_dkv_wgmma_kernel (TPU `_bwd_dkv_kernel`) takes keys as rows: a
+// work tile is (b, KV head, 128-key tile), two consumer warpgroups of 64
+// keys, with the tile's K and V resident in shared memory. The producer
+// streams (Q, dO, lse, delta) tiles of 64 positions through a ring: the
+// n_rep query heads of the group one after another, and within each the q
+// tiles from the first that can see the key tile (causal) to the last the
+// window lets in. Each warpgroup computes S^T = K.Q^T and dP^T = V.dO^T
+// (m64n64k16 from shared memory), p^T and ds^T in registers, then dV +=
+// P^T.dO and dK += dS^T.Q (m64nDk16, register A, dO and Q through the
+// transpose bit), skipping a q tile none of its keys can see. dK and dV
+// are summed over the n_rep heads in fp32 registers and rounded once: no
+// atomics, so two runs give identical bits. It issues 8 D FLOPs per
+// visible pair (it rebuilds s and dp) against the table's 4 D: at the
+// train shape its bound by the table's count is bytes, by its own issue
+// operations; the design keeps the tensor cores fed (K/V read once per
+// work tile, Q/dO once per key tile and head). Its two D-wide fp32
+// accumulators take 128 registers a thread, so the producer warpgroup
+// hands its registers to the consumers (setmaxnreg). K and V's shared
+// memory is the dK/dV staging tile once the tile's last product is done.
+//
+// Rounding and masks: p and ds are rounded to bf16 before each product;
+// masked pairs (-1e30 in the plain versions, exp of it is 0) and absent
+// keys get p = 0 exactly, by a select on the tiles a mask touches;
+// absent query positions carry lse = +inf, so their p is exactly 0, and
+// are neither written nor summed. exp runs as one FFMA and one MUFU ex2
+// on log2-scaled lse (lse is finite for every present row: each row sees
+// its own key).
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+namespace hopper {
 
-using sm90::pack_bf16;
 using sm90::quad_max;
 using sm90::quad_sum;
 
-// Rows [r0, r0 + ROWS) of a (b, head) slab into [ROWS][D + 8], zeros past S.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows_mma(bf16* dst, const bf16* src,
-                                              long long row_stride, int r0,
-                                              int seq) {
-  constexpr int kPerRow = D / 8, kLd = D + 8;
-  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kMmaThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < seq) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-  }
-}
-
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              int r0, int rows, int seq) {
-  for (int r = threadIdx.x; r < rows; r += kMmaThreads) {
-    dst[r] = r0 + r < seq ? src[r0 + r] : 0.f;
-  }
-}
-
-// Fragments through ldmatrix: lane l gives the address of row l % 8 of
-// 8 x 8 matrix l / 8. Tiles are row-major with leading dimension ld.
-// A fragment of rows [row, row + 16), columns [col, col + 16).
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile,
-                                       int ld, int row, int col, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldsm_x4(f, tile + (row + r + (m % 2) * 8) * ld + col + (m / 2) * 8);
-}
-
-// B fragments (k 16 x n 8) of two n-tiles, n rows [n0, n0 + 16), k
-// columns [k0, k0 + 16), from a tile stored [n][k]: f[0], f[1] for the
-// first n-tile, f[2], f[3] for the second.
-__device__ __forceinline__ void load_b_nk(uint32_t (&f)[4], const bf16* tile,
-                                          int ld, int n0, int k0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldsm_x4(f, tile + (n0 + (m / 2) * 8 + r) * ld + k0 + (m % 2) * 8);
-}
-
-// The same from a tile stored [k][n] (k rows [k0, k0 + 16), n columns
-// [n0, n0 + 16)), transposed on the way by ldmatrix.trans.
-__device__ __forceinline__ void load_b_kn(uint32_t (&f)[4], const bf16* tile,
-                                          int ld, int k0, int n0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldsm_x4_t(f, tile + (k0 + (m % 2) * 8 + r) * ld + n0 + (m / 2) * 8);
-}
-
-template <int D>
-constexpr size_t dq_mma_smem() {
-  return 4 * 64 * (D + 8) * sizeof(bf16) + 2 * 64 * sizeof(float);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dq_mma_kernel(const Args a) {
-  constexpr int BQ = 64, BK = 64, kLd = D + 8;
-  constexpr int KS = D / 16, NT = BK / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + BQ * kLd;
-  bf16* ks = dos + BQ * kLd;
-  bf16* vs = ks + BK * kLd;
-  float* lse_s = reinterpret_cast<float*>(vs + BK * kLd);
-  float* delta_s = lse_s + BQ;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int kvh = h / a.n_rep;
-  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
-  const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.seq;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.seq);
-  load_rows_mma<BQ, D>(dos, dout, a.o_ss, q0, a.seq);
-  load_rows_f32(lse_s, a.lse + row_base, q0, BQ, a.seq);
-  load_rows_f32(delta_s, a.delta + row_base, q0, BQ, a.seq);
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;      // rows in the tile
-  const int r0 = q0 + lr0, r1 = q0 + lr1;
-  const int k_hi = a.causal ? min(a.seq, q0 + BQ) : a.seq;
-  const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-
-  float dq[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  for (int kt = k_lo / BK; kt * BK < k_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.seq);
-    load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.seq);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, qs, kLd, warp * 16, kk * 16, lane);
-      load_a(da, dos, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4], vb[4];
-        load_b_nk(kb, ks, kLd, j * 8, kk * 16, lane);
-        load_b_nk(vb, vs, kLd, j * 8, kk * 16, lane);
-        mma_bf16(s[j], qa, kb[0], kb[1]);
-        mma_bf16(s[j + 1], qa, kb[2], kb[3]);
-        mma_bf16(dp[j], da, vb[0], vb[1]);
-        mma_bf16(dp[j + 1], da, vb[2], vb[3]);
-      }
-    }
-    uint32_t dsf[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = k0 + j * 8 + 2 * t;
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e < 2 ? r0 : r1, lr = e < 2 ? lr0 : lr1;
-        const int cc = c + (e & 1);
-        float p = 0.f;
-        if (r < a.seq && cc < a.seq) {
-          p = expf(masked(s[j][e] * a.scale, r, cc, a) - lse_s[lr]);
-        }
-        ds[e] = p * (dp[j][e] - delta_s[lr]);
-      }
-      dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t kb[4];
-        load_b_kn(kb, ks, kLd, kk * 16, j * 8, lane);
-        mma_bf16(dq[j], dsf[kk], kb[0], kb[1]);
-        mma_bf16(dq[j + 1], dsf[kk], kb[2], kb[3]);
-      }
-    }
-  }
-
-  bf16* out = static_cast<bf16*>(a.out);
-  const long long head_row = static_cast<long long>(a.heads) * D;
-  bf16* row0 = out + (static_cast<long long>(b) * a.seq + r0) * head_row + h * D;
-  bf16* row1 = row0 + 8 * head_row;
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    if (r0 < a.seq) {
-      *reinterpret_cast<uint32_t*>(row0 + j * 8 + 2 * t) =
-          pack_bf16(dq[j][0] * a.scale, dq[j][1] * a.scale);
-    }
-    if (r1 < a.seq) {
-      *reinterpret_cast<uint32_t*>(row1 + j * 8 + 2 * t) =
-          pack_bf16(dq[j][2] * a.scale, dq[j][3] * a.scale);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dkv_mma_smem() {
-  return (2 * 64 + 2 * 32) * (D + 8) * sizeof(bf16) + 2 * 32 * sizeof(float);
-}
-
-// dK/dV with keys as the rows: the block computes S^T = K Q^T and
-// dP^T = V dO^T, so p^T and ds^T come out as A fragments for
-// dV += P^T dO and dK += dS^T Q. Query tiles of 32 rows keep the
-// accumulators in registers.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_dkv_mma_kernel(const Args a) {
-  constexpr int BK = 64, BQ = 32, kLd = D + 8;
-  constexpr int KS = D / 16, NT = BQ / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + BK * kLd;
-  bf16* qs = vs + BK * kLd;
-  bf16* dos = qs + BQ * kLd;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * kLd);
-  float* delta_s = lse_s + BQ;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / a.kv_heads, kvh = blockIdx.x % a.kv_heads;
-  const int k0 = blockIdx.y * BK;             // causal: heaviest tiles first
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.seq);
-  load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.seq);
-  const int c0 = k0 + warp * 16 + g, c1 = c0 + 8;   // this thread's keys
-  const int r_lo = a.causal ? k0 : 0;
-  const int r_hi = a.window > 0 ? min(a.seq, k0 + BK - 1 + a.window) : a.seq;
-
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  for (int rep = 0; rep < a.n_rep; ++rep) {
-    const int h = kvh * a.n_rep + rep;
-    const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.seq;
-    const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* dout = static_cast<const bf16*>(a.dout) + b * a.o_sb + h * a.o_sh;
-    for (int qt = r_lo / BQ; qt * BQ < r_hi; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.seq);
-      load_rows_mma<BQ, D>(dos, dout, a.o_ss, q0, a.seq);
-      load_rows_f32(lse_s, a.lse + row_base, q0, BQ, a.seq);
-      load_rows_f32(delta_s, a.delta + row_base, q0, BQ, a.seq);
-      __syncthreads();
-      float st[NT][4], dpt[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, ks, kLd, warp * 16, kk * 16, lane);
-        load_a(va, vs, kLd, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t qb[4], db[4];
-          load_b_nk(qb, qs, kLd, j * 8, kk * 16, lane);
-          load_b_nk(db, dos, kLd, j * 8, kk * 16, lane);
-          mma_bf16(st[j], ka, qb[0], qb[1]);
-          mma_bf16(st[j + 1], ka, qb[2], qb[3]);
-          mma_bf16(dpt[j], va, db[0], db[1]);
-          mma_bf16(dpt[j + 1], va, db[2], db[3]);
-        }
-      }
-      uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int lq = j * 8 + 2 * t;             // query column in the tile
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = e < 2 ? c0 : c1;
-          const int lr = lq + (e & 1), r = q0 + lr;
-          float pe = 0.f;
-          if (r < a.seq && key < a.seq) {
-            pe = expf(masked(st[j][e] * a.scale, r, key, a) - lse_s[lr]);
-          }
-          p[e] = pe;
-          ds[e] = pe * (dpt[j][e] - delta_s[lr]);
-        }
-        pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-        dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-        dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-#pragma unroll
-        for (int j = 0; j < DT; j += 2) {
-          uint32_t db[4], qb[4];
-          load_b_kn(db, dos, kLd, kk * 16, j * 8, lane);
-          load_b_kn(qb, qs, kLd, kk * 16, j * 8, lane);
-          mma_bf16(dv[j], pf[kk], db[0], db[1]);
-          mma_bf16(dv[j + 1], pf[kk], db[2], db[3]);
-          mma_bf16(dk[j], dsf[kk], qb[0], qb[1]);
-          mma_bf16(dk[j + 1], dsf[kk], qb[2], qb[3]);
-        }
-      }
-    }
-  }
-
-  const long long key_row = static_cast<long long>(a.kv_heads) * D;
-  const long long off0 = (static_cast<long long>(b) * a.seq + c0) * key_row +
-                         kvh * D;
-  const long long off1 = off0 + 8 * key_row;
-  bf16* dk_out = static_cast<bf16*>(a.dk);
-  bf16* dv_out = static_cast<bf16*>(a.dv);
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (c0 < a.seq) {
-      *reinterpret_cast<uint32_t*>(dk_out + off0 + d) =
-          pack_bf16(dk[j][0] * a.scale, dk[j][1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv_out + off0 + d) =
-          pack_bf16(dv[j][0], dv[j][1]);
-    }
-    if (c1 < a.seq) {
-      *reinterpret_cast<uint32_t*>(dk_out + off1 + d) =
-          pack_bf16(dk[j][2] * a.scale, dk[j][3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dv_out + off1 + d) =
-          pack_bf16(dv[j][2], dv[j][3]);
-    }
-  }
-}
-
-// ------------------------------------- bf16 forward: wgmma, TMA, mbarrier
-//
-// The training path's forward (bf16, head_dim 64 and 128), redesigned for
-// Hopper: the same contract, masks and rounding points as the kernels
-// above, with
-// - grouped query heads: a work tile is (b, KV head, q tile), and takes
-//   the n_rep query heads of the group as extra rows, so each K/V tile is
-//   fetched once for all of them. Its 128 rows are P = 128 / n_rep
-//   positions x n_rep heads, row = position * n_rep + head (64 positions
-//   at n_rep 2); causal and window bounds are taken per row;
-// - products on wgmma: two consumer warpgroups of 64 rows; S = Q.K^T as
-//   m64n64k16 with Q and K both from shared memory (K-major), then P.V as
-//   m64nDk16 with P from registers (the S accumulator rounded to bf16
-//   pairs in place) and V from shared memory through the transpose bit.
-//   The scores of key tile i + 1 are issued with tile i's P.V, and their
-//   softmax runs while P.V is on the tensor cores;
-// - copies on TMA: one producer warp loads each work tile's Q and keeps a
-//   ring of kStages K/V tiles in flight, with full (K, V) and empty
-//   mbarriers per stage and a full/empty pair for Q. The tensor maps
-//   (encoded by the launcher) span the strided (B, S, heads, D) views
-//   with S as its own dimension, so a ragged last tile reads zeros, never
-//   the next batch's rows; absent keys are still masked to p = 0 by
-//   column < S. Tiles land in 128-byte-swizzled shared memory, the layout
-//   the wgmma descriptors name (sm90.cuh). O leaves through its own
-//   staging tile and one TMA store;
-// - work order: the q tiles of one (b, KV head) group run one after
-//   another (the longest causal walks first), so the CUDA blocks in
-//   flight read few groups' K/V and find them in L2.
-
-namespace fwd90 {
-
-constexpr int kRows = 128;          // grouped query rows per work tile
-constexpr int kKeys = 64, kStages = 4;    // keys per K/V tile, tiles in flight
-constexpr int kConsumerWarps = 8;   // two warpgroups of 64 rows
+constexpr int kRows = 128;          // grouped query rows per fwd / dQ tile
+constexpr int kKeys = 64;           // keys per streamed K/V tile
+constexpr int kFwdStages = 4;       // K/V tiles in flight: forward
+constexpr int kDqStages = 3;        // K/V tiles in flight: dQ
+constexpr int kDkvKeys = 128;       // keys per dK/dV work tile
+constexpr int kDkvStages = 4;       // (Q, dO) tiles in flight: dK/dV
+constexpr int kQTile = 64;          // positions per streamed (Q, dO) tile
+constexpr int kConsumerWarps = 8;   // fwd / dQ: two warpgroups of 64 rows
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+constexpr int kDqThreads = 32 * kConsumerWarps + 128;   // + producer group
+constexpr int kDkvGroups = kDkvKeys / 64;            // consumer warpgroups
+constexpr int kDkvThreads = 128 * (kDkvGroups + 1);  // + producer group
 constexpr float kLog2e = 1.4426950408889634f;
-// One CUDA block per SM walking the work tiles, or one per work tile.
+// One CUDA block per SM walking the work tiles, or one per work tile:
+// the forward and dQ walk (kernel_ab flash-persistent, flash-dq-
+// persistent); dK/dV's work tiles differ more in weight, and the block
+// scheduler balances them better than a fixed stride (flash-dkv-
+// persistent).
 constexpr bool kPersistent = true;
+constexpr bool kDkvPersistent = false;
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
 struct Params {
-  float* lse;         // (B, H, S)
-  int batch, seq, heads, kv_heads, n_rep, positions, q_tiles, causal, window;
+  float* lse;             // forward: out; backward: in. (B, H, S)
+  const float* delta;     // backward: (B, H, S)
+  int batch, seq, heads, kv_heads, n_rep, positions, tiles, causal, window;
   float scale;
 };
 
-template <int D>
-struct Smem {
+// Forward and dQ: kQBufs grouped 128-row tiles (Q; Q and dO), one staging
+// tile (O or dQ), kStages K/V tiles.
+template <int D, int kStages, int kQBufs>
+struct QSmem {
   static constexpr int kChunks = D / 64;
-  alignas(1024) bf16 q[kChunks][kRows * 64];
+  alignas(1024) bf16 q[kQBufs][kChunks][kRows * 64];
   alignas(1024) bf16 o[kChunks][kRows * 64];
   alignas(1024) bf16 k[kStages][kChunks][kKeys * 64];
   alignas(1024) bf16 v[kStages][kChunks][kKeys * 64];
   uint64_t q_full, q_empty, k_full[kStages], v_full[kStages], empty[kStages];
+};
+
+// dK/dV: the work tile's K and V (then the dK and dV staging), and
+// kDkvStages (Q, dO, lse, delta) tiles.
+template <int D>
+struct KvSmem {
+  static constexpr int kChunks = D / 64;
+  alignas(1024) bf16 k[kChunks][kDkvKeys * 64];
+  alignas(1024) bf16 v[kChunks][kDkvKeys * 64];
+  alignas(1024) bf16 q[kDkvStages][kChunks][kQTile * 64];
+  alignas(1024) bf16 dout[kDkvStages][kChunks][kQTile * 64];
+  float lse[kDkvStages][kQTile];      // times log2 e; +inf past S
+  float delta[kDkvStages][kQTile];
+  uint64_t kv_full, kv_empty, full[kDkvStages], empty[kDkvStages];
 };
 
 __device__ __forceinline__ float mask(float s, int pos, int c,
@@ -970,13 +703,19 @@ __device__ __forceinline__ float mask(float s, int pos, int c,
   return s;
 }
 
-// Work tile w: heaviest q tiles first (the longest causal walks), then
-// (b, KV head).
-struct Work {
+// Whether a (position, key) pair is masked out or absent.
+__device__ __forceinline__ bool hidden(int pos, int c, const Params& p) {
+  return c >= p.seq || (p.causal && c > pos) ||
+         (p.window > 0 && pos - c >= p.window);
+}
+
+// Forward / dQ work tile w: heaviest q tiles first (the longest causal
+// walks), then (b, KV head); key tiles [t_lo, t_hi) of kKeys.
+struct QWork {
   int b, kvh, q0, q_last, t_lo, t_hi;
-  __device__ Work(int w, const Params& p) {
+  __device__ QWork(int w, const Params& p) {
     const int groups = p.batch * p.kv_heads;
-    const int qt = p.causal ? p.q_tiles - 1 - w / groups : w / groups;
+    const int qt = p.causal ? p.tiles - 1 - w / groups : w / groups;
     b = (w % groups) / p.kv_heads;
     kvh = w % p.kv_heads;
     q0 = qt * p.positions;
@@ -988,20 +727,65 @@ struct Work {
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap to,
-                       const Params p) {
-  constexpr int kChunks = D / 64;
-  extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_work = p.batch * p.kv_heads * p.q_tiles;
+// dK/dV work tile w: (b, KV head, key tile), the lowest key tiles (which
+// the most queries see under a causal mask) first; q tiles [qt_lo, qt_hi)
+// of kQTile positions for each of the group's heads.
+struct KvWork {
+  int b, kvh, k0, qt_lo, qt_hi;
+  __device__ KvWork(int w, const Params& p) {
+    const int groups = p.batch * p.kv_heads;
+    b = (w % groups) / p.kv_heads;
+    kvh = w % p.kv_heads;
+    k0 = (w / groups) * kDkvKeys;
+    const int q_lo = p.causal ? k0 : 0;
+    const int q_hi = p.window > 0 ? min(p.seq, k0 + kDkvKeys - 1 + p.window)
+                                  : p.seq;
+    qt_lo = q_lo / kQTile;
+    qt_hi = (q_hi + kQTile - 1) / kQTile;
+  }
+};
 
+// The forward's and dQ's producer (one thread): per work tile its grouped
+// Q (and dO) once, then its K/V tiles through the ring.
+template <int D, int kStages, int kQBufs>
+__device__ void produce_q_work(QSmem<D, kStages, kQBufs>& sm,
+                               const CUtensorMap* tq, const CUtensorMap* tdo,
+                               const CUtensorMap* tk, const CUtensorMap* tv,
+                               const Params& p) {
+  constexpr int kChunks = D / 64;
+  constexpr uint32_t kTileBytes = kChunks * kKeys * 128;
+  const int n_work = p.batch * p.kv_heads * p.tiles;
+  int it = 0;                               // K/V tiles issued
+  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+    const QWork wk(w, p);
+    if (n > 0) sm90::mbar_wait(&sm.q_empty, (n - 1) & 1);
+    sm90::mbar_expect_tx(&sm.q_full,
+                         kQBufs * kChunks * p.positions * p.n_rep * 128);
+    for (int i = 0; i < kQBufs; ++i) {
+      for (int c = 0; c < kChunks; ++c) {
+        sm90::tma_load_4d(sm.q[i][c], i == 0 ? tq : tdo, &sm.q_full, 64 * c,
+                          wk.kvh * p.n_rep, wk.q0, wk.b);
+      }
+    }
+    for (int t = wk.t_lo; t < wk.t_hi; ++t, ++it) {
+      const int s = it % kStages;
+      if (it >= kStages) sm90::mbar_wait(&sm.empty[s], (it / kStages - 1) & 1);
+      sm90::mbar_expect_tx(&sm.k_full[s], kTileBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        sm90::tma_load_4d(sm.k[s][c], tk, &sm.k_full[s], 64 * c, wk.kvh,
+                          t * kKeys, wk.b);
+      }
+      sm90::mbar_expect_tx(&sm.v_full[s], kTileBytes);
+      for (int c = 0; c < kChunks; ++c) {
+        sm90::tma_load_4d(sm.v[s][c], tv, &sm.v_full[s], 64 * c, wk.kvh,
+                          t * kKeys, wk.b);
+      }
+    }
+  }
+}
+
+template <int D, int kStages, int kQBufs>
+__device__ __forceinline__ void init_q_barriers(QSmem<D, kStages, kQBufs>& sm) {
   if (threadIdx.x == 0) {
     sm90::mbar_init(&sm.q_full, 1);
     sm90::mbar_init(&sm.q_empty, kConsumerWarps);
@@ -1013,38 +797,100 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::mbar_fence_init();
   }
   __syncthreads();
+}
+
+template <typename S>
+__device__ __forceinline__ S& smem_at_1024() {
+  extern __shared__ unsigned char smem_raw[];
+  return *reinterpret_cast<S*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
+// acc[64 x 64] = A.B^T over D, A's 64 rows at `a_rows` and B's at `b_rows`
+// (chunk strides a_chunk, b_chunk bytes), both K-major in shared memory.
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[32],
+                                         const unsigned char* a_rows,
+                                         int a_chunk,
+                                         const unsigned char* b_rows,
+                                         int b_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = sm90::desc_sw128(
+        a_rows + (kk / 4) * a_chunk + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = sm90::desc_sw128(
+        b_rows + (kk / 4) * b_chunk + (kk % 4) * 32, 16, 1024);
+    sm90::wgmma_m64n64_ss(acc, da, db, kk > 0);
+  }
+}
+
+// acc[64 x D] += A.B, A a 64 x 64 register fragment (bf16 pairs), B 64
+// rows x D in shared memory, MN-major (chunk stride b_chunk bytes).
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4][4],
+                                         const unsigned char* b_rows,
+                                         int b_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sm90::desc_sw128(b_rows + kk * 2048, b_chunk, 1024);
+    if constexpr (D == 64) {
+      sm90::wgmma_m64n64_rs(acc, a[kk], db);
+    } else {
+      sm90::wgmma_m64n128_rs(acc, a[kk], db);
+    }
+  }
+}
+
+// A 64 x 64 fp32 accumulator rounded to bf16 pairs: the register-A
+// fragments of the next product.
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4],
+                                       const float (&acc)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j / 2][(j % 2) * 2] = sm90::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    f[j / 2][(j % 2) * 2 + 1] = sm90::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// A 64 x D accumulator (rows lr0, lr0 + 8 of this thread) times `scale`,
+// rounded to bf16, into a swizzled staging tile of chunk stride `chunk`.
+template <int D>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, int chunk,
+                                           const float (&acc)[D / 2], int lr0,
+                                           float scale0, float scale1) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    unsigned char* at = tile + (j / 8) * chunk + 4 * t4;
+    *reinterpret_cast<uint32_t*>(at + sm90::swizzled(lr0, j % 8)) =
+        sm90::pack_bf16(acc[4 * j] * scale0, acc[4 * j + 1] * scale0);
+    *reinterpret_cast<uint32_t*>(at + sm90::swizzled(lr0 + 8, j % 8)) =
+        sm90::pack_bf16(acc[4 * j + 2] * scale1, acc[4 * j + 3] * scale1);
+  }
+}
+
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(bar);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to,
+                       const Params p) {
+  constexpr int kChunks = D / 64, kStages = kFwdStages;
+  using Smem = QSmem<D, kStages, 1>;
+  Smem& sm = smem_at_1024<Smem>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_work = p.batch * p.kv_heads * p.tiles;
+  init_q_barriers(sm);
 
   if (warp == kConsumerWarps) {                 // the producer warp
-    if (lane == 0) {
-      constexpr uint32_t kTileBytes = kChunks * kKeys * 128;
-      int it = 0;                               // K/V tiles issued
-      for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-        const Work wk(w, p);
-        if (n > 0) sm90::mbar_wait(&sm.q_empty, (n - 1) & 1);
-        sm90::mbar_expect_tx(&sm.q_full,
-                             kChunks * p.positions * p.n_rep * 128);
-        for (int c = 0; c < kChunks; ++c) {
-          sm90::tma_load_4d(sm.q[c], &tq, &sm.q_full, 64 * c,
-                            wk.kvh * p.n_rep, wk.q0, wk.b);
-        }
-        for (int t = wk.t_lo; t < wk.t_hi; ++t, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) {
-            sm90::mbar_wait(&sm.empty[s], (it / kStages - 1) & 1);
-          }
-          sm90::mbar_expect_tx(&sm.k_full[s], kTileBytes);
-          for (int c = 0; c < kChunks; ++c) {
-            sm90::tma_load_4d(sm.k[s][c], &tk, &sm.k_full[s], 64 * c,
-                              wk.kvh, t * kKeys, wk.b);
-          }
-          sm90::mbar_expect_tx(&sm.v_full[s], kTileBytes);
-          for (int c = 0; c < kChunks; ++c) {
-            sm90::tma_load_4d(sm.v[s][c], &tv, &sm.v_full[s], 64 * c,
-                              wk.kvh, t * kKeys, wk.b);
-          }
-        }
-      }
-    }
+    if (lane == 0) produce_q_work(sm, &tq, &tq, &tk, &tv, p);
     return;
   }
 
@@ -1053,7 +899,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
   const int lr0 = wg * 64 + (warp % 4) * 16 + g, lr1 = lr0 + 8;
   const unsigned char* q_rows =
-      reinterpret_cast<const unsigned char*>(sm.q[0]) + wg * 64 * 128;
+      reinterpret_cast<const unsigned char*>(sm.q[0][0]) + wg * 64 * 128;
   float o[D / 2], sacc[kKeys / 2];
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) sacc[i] = 0.f;
@@ -1061,7 +907,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int it = 0;                                   // K/V tiles consumed
 
   for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-    const Work wk(w, p);
+    const QWork wk(w, p);
     const int pos0 = wk.q0 + lr0 / p.n_rep, pos1 = wk.q0 + lr1 / p.n_rep;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -1069,32 +915,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // S = Q.K^T of the tile in stage s, into sacc (not waited for).
     auto issue_scores = [&](int s) {
-      const unsigned char* k_rows =
-          reinterpret_cast<const unsigned char*>(sm.k[s][0]);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int qoff = (kk / 4) * (int)sizeof(sm.q[0]) + (kk % 4) * 32;
-        const int koff = (kk / 4) * (int)sizeof(sm.k[0][0]) + (kk % 4) * 32;
-        const uint64_t da = sm90::desc_sw128(q_rows + qoff, 16, 1024);
-        const uint64_t db = sm90::desc_sw128(k_rows + koff, 16, 1024);
-        sm90::wgmma_m64n64_ss(sacc, da, db, kk > 0);
-      }
+      issue_ss<D>(sacc, q_rows, sizeof(sm.q[0][0]),
+                  reinterpret_cast<const unsigned char*>(sm.k[s][0]),
+                  sizeof(sm.k[0][0]));
       sm90::wgmma_commit();
     };
     // P.V of the tile in stage s, from pf, into o (not waited for).
     auto issue_pv = [&](int s) {
-      const unsigned char* v_rows =
-          reinterpret_cast<const unsigned char*>(sm.v[s][0]);
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        const uint64_t dv = sm90::desc_sw128(v_rows + kk * 2048,
-                                             sizeof(sm.v[0][0]), 1024);
-        if constexpr (D == 64) {
-          sm90::wgmma_m64n64_rs(o, pf[kk], dv);
-        } else {
-          sm90::wgmma_m64n128_rs(o, pf[kk], dv);
-        }
-      }
+      issue_rs<D>(o, pf, reinterpret_cast<const unsigned char*>(sm.v[s][0]),
+                  sizeof(sm.v[0][0]));
       sm90::wgmma_commit();
     };
     // The online softmax of key tile t on sacc: scale, mask, new maxima,
@@ -1168,25 +997,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         o[4 * j + 2] *= alpha1;
         o[4 * j + 3] *= alpha1;
       }
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
-        pf[j / 2][(j % 2) * 2] = sm90::pack_bf16(sacc[4 * j], sacc[4 * j + 1]);
-        pf[j / 2][(j % 2) * 2 + 1] =
-            sm90::pack_bf16(sacc[4 * j + 2], sacc[4 * j + 3]);
-      }
-    };
-    // Q's last reader is the work tile's last score product.
-    auto release_q = [&]() {
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&sm.q_empty);
-    };
-    auto release_stage = [&](int s) {
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&sm.empty[s]);
+      pack_a(pf, sacc);
     };
 
     // Software pipeline over the key tiles; the last tile's P.V is
-    // peeled off, so every wgmma wait retires a known group.
+    // peeled off, so every wgmma wait retires a known group. Q's last
+    // reader is the work tile's last score product.
     const int n_tiles = wk.t_hi - wk.t_lo;
     float alpha0, alpha1;
     sm90::mbar_wait(&sm.q_full, n & 1);
@@ -1195,7 +1011,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     issue_scores(it % kStages);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sacc);
-    if (n_tiles == 1) release_q();
+    if (n_tiles == 1) warp_arrive(&sm.q_empty);
     softmax(wk.t_lo, alpha0, alpha1);
     rescale_and_pack(alpha0, alpha1);
     for (int i = 0; i + 1 < n_tiles; ++i, ++it) {
@@ -1207,11 +1023,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       issue_pv(s);
       sm90::wgmma_wait<1>();                    // scores of tile i + 1
       sm90::fence_regs(sacc);
-      if (i + 2 == n_tiles) release_q();
+      if (i + 2 == n_tiles) warp_arrive(&sm.q_empty);
       softmax(wk.t_lo + i + 1, alpha0, alpha1);
       sm90::wgmma_wait<0>();                    // P.V of tile i
       sm90::fence_regs(o);
-      release_stage(s);
+      warp_arrive(&sm.empty[s]);
       rescale_and_pack(alpha0, alpha1);
     }
     {
@@ -1221,7 +1037,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       issue_pv(s);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
-      release_stage(s);
+      warp_arrive(&sm.empty[s]);
       ++it;
     }
 
@@ -1258,6 +1074,344 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            wk.b);
       }
       sm90::tma_store_commit_and_wait();
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdq,
+                      const Params p) {
+  constexpr int kChunks = D / 64, kStages = kDqStages;
+  using Smem = QSmem<D, kStages, 2>;
+  Smem& sm = smem_at_1024<Smem>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_work = p.batch * p.kv_heads * p.tiles;
+  init_q_barriers(sm);
+
+  if (warp >= kConsumerWarps) {                 // the producer warpgroup
+    sm90::setmaxnreg_dec<40>();
+    if (warp == kConsumerWarps && lane == 0) {
+      produce_q_work(sm, &tq, &tdo, &tk, &tv, p);
+    }
+    return;
+  }
+  sm90::setmaxnreg_inc<232>();
+
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int lr0 = wg * 64 + (warp % 4) * 16 + g, lr1 = lr0 + 8;
+  const unsigned char* q_rows =
+      reinterpret_cast<const unsigned char*>(sm.q[0][0]) + wg * 64 * 128;
+  const unsigned char* do_rows =
+      reinterpret_cast<const unsigned char*>(sm.q[1][0]) + wg * 64 * 128;
+  const int live_rows = p.positions * p.n_rep;
+  const float c = p.scale * kLog2e;
+  float dq[D / 2], sacc[32], dpacc[32];
+  uint32_t dsf[4][4];
+  int it = 0;                                   // K/V tiles consumed
+
+  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+    const QWork wk(w, p);
+    // This thread's two rows: position, lse (log2 units) and delta, read
+    // once a work tile; a row past S or past the tile's live rows takes
+    // lse = +inf, so its p is 0.
+    int pos[2];
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? lr1 : lr0;
+      pos[h] = wk.q0 + row / p.n_rep;
+      lse2[h] = pos_inf();
+      dlt[h] = 0.f;
+      if (row < live_rows && pos[h] < p.seq) {
+        const long long at =
+            (static_cast<long long>(wk.b) * p.heads + wk.kvh * p.n_rep +
+             row % p.n_rep) * p.seq + pos[h];
+        lse2[h] = p.lse[at] * kLog2e;
+        dlt[h] = p.delta[at];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    // S = Q.K^T and dP = dO.V^T of the tile in stage s (not waited for).
+    auto issue_sdp = [&](int s) {
+      issue_ss<D>(sacc, q_rows, sizeof(sm.q[0][0]),
+                  reinterpret_cast<const unsigned char*>(sm.k[s][0]),
+                  sizeof(sm.k[0][0]));
+      issue_ss<D>(dpacc, do_rows, sizeof(sm.q[0][0]),
+                  reinterpret_cast<const unsigned char*>(sm.v[s][0]),
+                  sizeof(sm.v[0][0]));
+      sm90::wgmma_commit();
+    };
+    // dQ += dS.K of the tile in stage s, from dsf (not waited for).
+    auto issue_dq = [&](int s) {
+      issue_rs<D>(dq, dsf, reinterpret_cast<const unsigned char*>(sm.k[s][0]),
+                  sizeof(sm.k[0][0]));
+      sm90::wgmma_commit();
+    };
+    // ds = p (dp - delta) of key tile t, in place in sacc, p = exp2(s c -
+    // lse2) and 0 where a mask hides the pair (only tiles a mask touches
+    // check).
+    auto dscores = [&](int t) {
+      const int k0 = t * kKeys;
+      const bool edge = k0 + kKeys > p.seq ||
+                        (p.causal && k0 + kKeys - 1 > wk.q0) ||
+                        (p.window > 0 && wk.q_last - k0 >= p.window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, i = 4 * j + e;
+          float pe = sm90::exp2_approx(fmaf(sacc[i], c, -lse2[h]));
+          if (edge && hidden(pos[h], k0 + 8 * j + 2 * t4 + (e & 1), p)) {
+            pe = 0.f;
+          }
+          sacc[i] = pe * (dpacc[i] - dlt[h]);
+        }
+      }
+    };
+
+    // The forward's pipeline: S and dP of tile i + 1 issued with tile
+    // i's dQ product, the last dQ product peeled off.
+    const int n_tiles = wk.t_hi - wk.t_lo;
+    auto wait_kv = [&](int at) {
+      sm90::mbar_wait(&sm.k_full[at % kStages], (at / kStages) & 1);
+      sm90::mbar_wait(&sm.v_full[at % kStages], (at / kStages) & 1);
+    };
+    sm90::mbar_wait(&sm.q_full, n & 1);
+    wait_kv(it);
+    sm90::wgmma_fence();
+    issue_sdp(it % kStages);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dpacc);
+    if (n_tiles == 1) warp_arrive(&sm.q_empty);
+    dscores(wk.t_lo);
+    pack_a(dsf, sacc);
+    for (int i = 0; i + 1 < n_tiles; ++i, ++it) {
+      const int s = it % kStages;
+      wait_kv(it + 1);
+      sm90::wgmma_fence();
+      issue_sdp((it + 1) % kStages);
+      issue_dq(s);
+      sm90::wgmma_wait<1>();                    // S and dP of tile i + 1
+      sm90::fence_regs(sacc);
+      sm90::fence_regs(dpacc);
+      if (i + 2 == n_tiles) warp_arrive(&sm.q_empty);
+      dscores(wk.t_lo + i + 1);
+      sm90::wgmma_wait<0>();                    // dQ product of tile i
+      sm90::fence_regs(dq);
+      warp_arrive(&sm.empty[s]);
+      pack_a(dsf, sacc);
+    }
+    {
+      const int s = it % kStages;
+      sm90::wgmma_fence();
+      issue_dq(s);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      warp_arrive(&sm.empty[s]);
+      ++it;
+    }
+
+    // Epilogue: dQ * scale through the staging tile and one TMA store of
+    // the live rows; positions past S are clipped by the map.
+    sm90::named_barrier_sync(1, 32 * kConsumerWarps);
+    stage_rows<D>(reinterpret_cast<unsigned char*>(sm.o[0]), sizeof(sm.o[0]),
+                  dq, lr0, p.scale, p.scale);
+    sm90::fence_async_shared();
+    sm90::named_barrier_sync(2, 32 * kConsumerWarps);
+    if (threadIdx.x == 0) {
+      for (int cc = 0; cc < kChunks; ++cc) {
+        sm90::tma_store_4d(&tdq, sm.o[cc], 64 * cc, wk.kvh * p.n_rep, wk.q0,
+                           wk.b);
+      }
+      sm90::tma_store_commit_and_wait();
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdk,
+                       const __grid_constant__ CUtensorMap tdv,
+                       const Params p) {
+  constexpr int kChunks = D / 64, kStages = kDkvStages;
+  constexpr int kWarps = 4 * kDkvGroups;        // consumer warps
+  using Smem = KvSmem<D>;
+  Smem& sm = smem_at_1024<Smem>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_work = p.batch * p.kv_heads * p.tiles;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.kv_full, 1);
+    sm90::mbar_init(&sm.kv_empty, kDkvGroups);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1 + 32);     // the copies + lse/delta
+      sm90::mbar_init(&sm.empty[s], kWarps);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kWarps) {                         // the producer warpgroup
+    sm90::setmaxnreg_dec<40>();
+    if (warp != kWarps) return;
+    int it = 0;                                 // (Q, dO) tiles issued
+    for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+      const KvWork wk(w, p);
+      if (lane == 0) {
+        if (n > 0) sm90::mbar_wait(&sm.kv_empty, (n - 1) & 1);
+        sm90::mbar_expect_tx(&sm.kv_full, 2 * kChunks * kDkvKeys * 128);
+        for (int c = 0; c < kChunks; ++c) {
+          sm90::tma_load_4d(sm.k[c], &tk, &sm.kv_full, 64 * c, wk.kvh, wk.k0,
+                            wk.b);
+          sm90::tma_load_4d(sm.v[c], &tv, &sm.kv_full, 64 * c, wk.kvh, wk.k0,
+                            wk.b);
+        }
+      }
+      for (int rep = 0; rep < p.n_rep; ++rep) {
+        const int h = wk.kvh * p.n_rep + rep;
+        const long long row0 =
+            (static_cast<long long>(wk.b) * p.heads + h) * p.seq;
+        for (int qt = wk.qt_lo; qt < wk.qt_hi; ++qt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) {
+            sm90::mbar_wait(&sm.empty[s], (it / kStages - 1) & 1);
+          }
+          if (lane == 0) {
+            sm90::mbar_expect_tx(&sm.full[s], 2 * kChunks * kQTile * 128);
+            for (int c = 0; c < kChunks; ++c) {
+              sm90::tma_load_4d(sm.q[s][c], &tq, &sm.full[s], 64 * c, h,
+                                qt * kQTile, wk.b);
+              sm90::tma_load_4d(sm.dout[s][c], &tdo, &sm.full[s], 64 * c, h,
+                                qt * kQTile, wk.b);
+            }
+          }
+          for (int i = lane; i < kQTile; i += 32) {
+            const int pos = qt * kQTile + i;
+            const bool in = pos < p.seq;
+            sm.lse[s][i] = in ? p.lse[row0 + pos] * kLog2e : pos_inf();
+            sm.delta[s][i] = in ? p.delta[row0 + pos] : 0.f;
+          }
+          sm90::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+    return;
+  }
+  sm90::setmaxnreg_inc<232>();
+
+  // Consumers: warpgroup wg owns keys [64 wg, 64 wg + 64) of the tile;
+  // this thread owns keys (rows) kr0 and kr0 + 8 of them.
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int kr0 = wg * 64 + (warp % 4) * 16 + g;
+  unsigned char* k_rows = reinterpret_cast<unsigned char*>(sm.k[0]) + wg * 64 * 128;
+  unsigned char* v_rows = reinterpret_cast<unsigned char*>(sm.v[0]) + wg * 64 * 128;
+  const float c = p.scale * kLog2e;
+  float dk[D / 2], dv[D / 2], sacc[32], dpacc[32];
+  uint32_t pf[4][4], dsf[4][4];
+  int it = 0;                                   // (Q, dO) tiles consumed
+
+  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+    const KvWork wk(w, p);
+    const int kw0 = wk.k0 + 64 * wg;            // this warpgroup's keys
+    const int key[2] = {wk.k0 + kr0, wk.k0 + kr0 + 8};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    sm90::mbar_wait(&sm.kv_full, n & 1);
+
+    // S^T = K.Q^T and dP^T = V.dO^T of the (Q, dO) tile in stage s.
+    auto issue_sdp = [&](int s) {
+      issue_ss<D>(sacc, k_rows, sizeof(sm.k[0]),
+                  reinterpret_cast<const unsigned char*>(sm.q[s][0]),
+                  sizeof(sm.q[0][0]));
+      issue_ss<D>(dpacc, v_rows, sizeof(sm.v[0]),
+                  reinterpret_cast<const unsigned char*>(sm.dout[s][0]),
+                  sizeof(sm.dout[0][0]));
+      sm90::wgmma_commit();
+    };
+    // dV += P^T.dO and dK += dS^T.Q of the tile in stage s, from pf, dsf.
+    auto issue_dkv = [&](int s) {
+      issue_rs<D>(dv, pf, reinterpret_cast<const unsigned char*>(sm.dout[s][0]),
+                  sizeof(sm.dout[0][0]));
+      issue_rs<D>(dk, dsf, reinterpret_cast<const unsigned char*>(sm.q[s][0]),
+                  sizeof(sm.q[0][0]));
+      sm90::wgmma_commit();
+    };
+    // p^T into sacc and ds^T into dpacc, in place: rows are keys, columns
+    // positions q0 + col.
+    auto probs = [&](int s, int q0) {
+      const bool edge = (p.causal && kw0 + 63 > q0) ||
+                        (p.window > 0 && q0 + kQTile - 1 - kw0 >= p.window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = 8 * j + 2 * t4 + (e & 1);
+          float pe = sm90::exp2_approx(fmaf(sacc[i], c, -sm.lse[s][col]));
+          if (edge && hidden(q0 + col, key[e / 2], p)) pe = 0.f;
+          dpacc[i] = pe * (dpacc[i] - sm.delta[s][col]);
+          sacc[i] = pe;
+        }
+      }
+    };
+    // Tile t of the walk: the group's heads one after another, each over
+    // q tiles [qt_lo, qt_hi). A q tile none of this warpgroup's keys can
+    // see adds nothing and is only released.
+    const int per_head = wk.qt_hi - wk.qt_lo, n_tiles = p.n_rep * per_head;
+    auto q0_of = [&](int t) { return (wk.qt_lo + t % per_head) * kQTile; };
+    auto seen = [&](int q0) {
+      return (!p.causal || q0 + kQTile - 1 >= kw0) &&
+             (p.window == 0 || q0 - (kw0 + 63) < p.window);
+    };
+    for (int t = 0; t < n_tiles; ++t, ++it) {
+      const int s = it % kStages, q0 = q0_of(t);
+      sm90::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      if (seen(q0)) {
+        sm90::wgmma_fence();
+        issue_sdp(s);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sacc);
+        sm90::fence_regs(dpacc);
+        probs(s, q0);
+        pack_a(pf, sacc);
+        pack_a(dsf, dpacc);
+        sm90::wgmma_fence();
+        issue_dkv(s);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dk);
+        sm90::fence_regs(dv);
+      }
+      warp_arrive(&sm.empty[s]);
+    }
+
+    // Epilogue: this warpgroup's keys of dK * scale and dV, rounded once,
+    // into its rows of K's and V's tiles (its last product has read
+    // them), then TMA stores clipped at S; the producer reloads K and V
+    // once every warpgroup's stores have read them.
+    const int lr0 = (warp % 4) * 16 + g;
+    stage_rows<D>(k_rows, sizeof(sm.k[0]), dk, lr0, p.scale, p.scale);
+    stage_rows<D>(v_rows, sizeof(sm.v[0]), dv, lr0, 1.f, 1.f);
+    sm90::fence_async_shared();
+    sm90::named_barrier_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      for (int cc = 0; cc < kChunks; ++cc) {
+        sm90::tma_store_4d(&tdk, k_rows + cc * sizeof(sm.k[0]), 64 * cc,
+                           wk.kvh, kw0, wk.b);
+        sm90::tma_store_4d(&tdv, v_rows + cc * sizeof(sm.v[0]), 64 * cc,
+                           wk.kvh, kw0, wk.b);
+      }
+      sm90::tma_store_commit_and_wait();
+      sm90::mbar_arrive(&sm.kv_empty);
     }
   }
 }
@@ -1306,82 +1460,128 @@ bool encode_bshd(CUtensorMap* map, const void* base, int d, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if (a.n_rep > kRows) return cudaErrorInvalidValue;
-  Params p;
-  p.lse = a.lse_out;
-  p.batch = a.batch;
-  p.seq = a.seq;
-  p.heads = a.heads;
-  p.kv_heads = a.kv_heads;
-  p.n_rep = a.n_rep;
-  p.positions = kRows / a.n_rep;
-  p.q_tiles = (a.seq + p.positions - 1) / p.positions;
-  p.causal = a.causal;
-  p.window = a.window;
-  p.scale = a.scale;
-  CUtensorMap tq, tk, tv, to;
-  const long long o_ss = static_cast<long long>(a.heads) * D;
-  if (!encode_bshd(&tq, a.q, D, a.heads, a.seq, a.batch, a.q_sh, a.q_ss,
-                   a.q_sb, a.n_rep, p.positions) ||
-      !encode_bshd(&to, a.out, D, a.heads, a.seq, a.batch, D, o_ss,
-                   o_ss * a.seq, a.n_rep, p.positions) ||
-      !encode_bshd(&tk, a.k, D, a.kv_heads, a.seq, a.batch, a.k_sh, a.k_ss,
-                   a.k_sb, 1, kKeys) ||
-      !encode_bshd(&tv, a.v, D, a.kv_heads, a.seq, a.batch, a.v_sh, a.v_ss,
-                   a.v_sb, 1, kKeys)) {
-    return cudaErrorInvalidValue;
+// The maps of one launch. Rows of q, dO and their outputs come grouped
+// (box n_rep heads x 128 / n_rep positions) or one head at a time (box 1
+// x rows); K and V one KV head x `kv_rows` keys.
+struct Maps {
+  CUtensorMap q, k, v, dout, out, dk, dv;
+};
+
+bool encode_maps(Which which, const Args& a, int d, int q_box_h,
+                 int q_box_s, int kv_rows, Maps* m) {
+  const long long o_ss = static_cast<long long>(a.heads) * d;
+  const long long kv_ss = static_cast<long long>(a.kv_heads) * d;
+  bool ok = encode_bshd(&m->q, a.q, d, a.heads, a.seq, a.batch, a.q_sh,
+                        a.q_ss, a.q_sb, q_box_h, q_box_s) &&
+            encode_bshd(&m->k, a.k, d, a.kv_heads, a.seq, a.batch, a.k_sh,
+                        a.k_ss, a.k_sb, 1, kv_rows) &&
+            encode_bshd(&m->v, a.v, d, a.kv_heads, a.seq, a.batch, a.v_sh,
+                        a.v_ss, a.v_sb, 1, kv_rows);
+  if (which == kForward || which == kDq) {
+    ok = ok && encode_bshd(&m->out, a.out, d, a.heads, a.seq, a.batch, d,
+                           o_ss, o_ss * a.seq, q_box_h, q_box_s);
+  } else {
+    ok = ok && encode_bshd(&m->dk, a.dk, d, a.kv_heads, a.seq, a.batch, d,
+                           kv_ss, kv_ss * a.seq, 1, 64) &&
+         encode_bshd(&m->dv, a.dv, d, a.kv_heads, a.seq, a.batch, d, kv_ss,
+                     kv_ss * a.seq, 1, 64);
   }
+  if (which != kForward) {
+    ok = ok && encode_bshd(&m->dout, a.dout, d, a.heads, a.seq, a.batch,
+                           a.o_sh, a.o_ss, a.o_sb, q_box_h, q_box_s);
+  }
+  return ok;
+}
+
+// Grid of a kernel that walks work tiles: one block per SM (persistent),
+// or one per work tile.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, int n_work, bool persistent,
+                    int* grid) {
   int device, sms;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(Smem<D>) + 1024;   // + alignment slack
-  auto kernel = flash_fwd_wgmma_kernel<D>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int n_work = a.batch * a.kv_heads * p.q_tiles;
-  const int grid = kPersistent && sms < n_work ? sms : n_work;
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, to, p);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  *grid = persistent && sms < n_work ? sms : n_work;
+  return err;
+}
+
+template <int D>
+cudaError_t launch(Which which, const Args& a, cudaStream_t stream) {
+  if (a.n_rep > kRows) return cudaErrorInvalidValue;
+  Params p;
+  p.lse = which == kForward ? a.lse_out : const_cast<float*>(a.lse);
+  p.delta = a.delta;
+  p.batch = a.batch;
+  p.seq = a.seq;
+  p.heads = a.heads;
+  p.kv_heads = a.kv_heads;
+  p.n_rep = a.n_rep;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.scale = a.scale;
+  Maps m;
+  cudaError_t err;
+  int grid;
+  if (which == kDkv) {
+    p.positions = kQTile;
+    p.tiles = (a.seq + kDkvKeys - 1) / kDkvKeys;
+    if (!encode_maps(which, a, D, 1, kQTile, kDkvKeys, &m)) {
+      return cudaErrorInvalidValue;
+    }
+    const size_t smem = sizeof(KvSmem<D>) + 1024;   // + alignment slack
+    auto kernel = flash_dkv_wgmma_kernel<D>;
+    err = prepare(kernel, smem, a.batch * a.kv_heads * p.tiles,
+                  kDkvPersistent, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kDkvThreads, smem, stream>>>(m.q, m.dout, m.k, m.v, m.dk,
+                                                m.dv, p);
+    return cudaGetLastError();
+  }
+  p.positions = kRows / a.n_rep;
+  p.tiles = (a.seq + p.positions - 1) / p.positions;
+  if (!encode_maps(which, a, D, a.n_rep, p.positions, kKeys, &m)) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_work = a.batch * a.kv_heads * p.tiles;
+  if (which == kForward) {
+    const size_t smem = sizeof(QSmem<D, kFwdStages, 1>) + 1024;
+    auto kernel = flash_fwd_wgmma_kernel<D>;
+    err = prepare(kernel, smem, n_work, kPersistent, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(m.q, m.k, m.v, m.out, p);
+  } else {
+    const size_t smem = sizeof(QSmem<D, kDqStages, 2>) + 1024;
+    auto kernel = flash_dq_wgmma_kernel<D>;
+    err = prepare(kernel, smem, n_work, kPersistent, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kDqThreads, smem, stream>>>(m.q, m.dout, m.k, m.v, m.out,
+                                               p);
+  }
   return cudaGetLastError();
 }
 
-}  // namespace fwd90
+}  // namespace hopper
 
-enum Which { kForward, kDq, kDkv };
-
-// bf16 at head_dim 64 and 128 takes the tensor-core kernels.
+// bf16 at head_dim 64 and 128 takes the wgmma / TMA kernels.
 template <typename T, int D>
-constexpr bool kUseMma = std::is_same<T, __nv_bfloat16>::value && D <= 128;
+constexpr bool kUseWgmma = std::is_same<T, __nv_bfloat16>::value && D <= 128;
 
 template <typename T, int D>
-cudaError_t launch_typed(Which which, const Args& a, cudaStream_t stream) {
+cudaError_t launch_cuda_cores(Which which, const Args& a,
+                              cudaStream_t stream) {
   constexpr int kTile = D > 128 ? 32 : 64;
   const int q_tiles = (a.seq + kTile - 1) / kTile;
   void (*kernel)(Args);
   size_t smem;
   dim3 grid;
-  int threads = kThreads;
-  if constexpr (kUseMma<T, D>) {
-    threads = kMmaThreads;
-    const int tiles64 = (a.seq + 63) / 64;
-    if (which == kForward) {
-      return fwd90::launch<D>(a, stream);
-    } else if (which == kDq) {
-      kernel = flash_dq_mma_kernel<D>;
-      smem = dq_mma_smem<D>();
-      grid = dim3(a.batch * a.heads, tiles64);
-    } else {
-      kernel = flash_dkv_mma_kernel<D>;
-      smem = dkv_mma_smem<D>();
-      grid = dim3(a.batch * a.kv_heads, tiles64);
-    }
-  } else if (which == kForward) {
+  if (which == kForward) {
     kernel = flash_fwd_kernel<T, D, kTile, kTile>;
     smem = fwd_smem<T, D, kTile, kTile>();
     grid = dim3(a.batch * a.heads, q_tiles);
@@ -1398,8 +1598,17 @@ cudaError_t launch_typed(Which which, const Args& a, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_typed(Which which, const Args& a, cudaStream_t stream) {
+  if constexpr (kUseWgmma<T, D>) {
+    return hopper::launch<D>(which, a, stream);
+  } else {
+    return launch_cuda_cores<T, D>(which, a, stream);
+  }
 }
 
 template <typename T>

@@ -100,6 +100,19 @@ __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// Hand registers between warpgroups (every warp of a warpgroup runs the
+// same one): a producer gives up what its copies do not need, the
+// consumers take it for their accumulators.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
 // ------------------------------------------------------------- cp.async
 
 // 16 bytes global -> shared, bypassing L1; zeros when `valid` is false

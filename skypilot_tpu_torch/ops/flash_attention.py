@@ -30,10 +30,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import _build, limits
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = limits.HEAD_DIMS
+_GROUPED_ROWS = 128     # rows of the bf16 forward's and dQ's work tiles
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _IMPLS = ('auto', 'pallas', 'pallas_interpret', 'xla', 'ring')
 
@@ -181,7 +182,8 @@ def _check(q, k, v, extra=()) -> None:
     """What every kernel takes: one CUDA device, one dtype (fp32 or
     bf16), (B, S, H|KV, D) with D in {64, 128, 256}, unit stride on D,
     every stride and pointer aligned for 16-byte loads (and for the bf16
-    forward's TMA tensor maps, which need 16-byte strides)."""
+    kernels' TMA tensor maps, which need 16-byte strides); bf16 at D <= 128
+    at most 128 query heads per KV head (one grouped tile)."""
     tensors = (q, k, v, *extra)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f'flash attention kernels take float32 or '
@@ -198,6 +200,12 @@ def _check(q, k, v, extra=()) -> None:
             k.shape[3] != head_dim or heads % k.shape[2]:
         raise ValueError(f'k/v {tuple(k.shape)} do not fit q '
                          f'{tuple(q.shape)}')
+    if q.dtype == torch.bfloat16 and head_dim <= 128 and \
+            heads // k.shape[2] > _GROUPED_ROWS:
+        raise ValueError(f'the bf16 flash kernels group the n_rep query '
+                         f'heads of a KV head into {_GROUPED_ROWS}-row '
+                         f'tiles: n_rep {heads // k.shape[2]} > '
+                         f'{_GROUPED_ROWS}')
     vec = 16 // q.element_size()
     for t in tensors:
         if t.stride(3) != 1:
@@ -320,6 +328,14 @@ flash_dkv.launches = 0
 
 # ----------------------------------------------------------------- autograd
 
+def backward_delta(out: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32 as (B, H, S), from the ROUNDED
+    output (the reference forms it outside any kernel too). O is widened
+    inside the product (exact), so only dO takes an fp32 copy."""
+    delta = (grad_out.float() * out).sum(dim=-1)
+    return delta.transpose(1, 2).contiguous()
+
+
 class _Flash(torch.autograd.Function):
     """The reference's `jax.custom_vjp` `_flash`: saves (q, k, v, out,
     lse); the backward forms delta = rowsum(dO ∘ O) in fp32 from the
@@ -340,8 +356,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, out, lse = ctx.saved_tensors
-        delta = (grad_out.float() * out.float()).sum(dim=-1)
-        delta = delta.transpose(1, 2).contiguous()          # (B, H, S)
+        delta = backward_delta(out, grad_out)
         if ctx.kernels:
             dq = flash_dq(q, k, v, grad_out, lse, delta, **ctx.opts)
             dk, dv = flash_dkv(q, k, v, grad_out, lse, delta, **ctx.opts)
@@ -379,8 +394,9 @@ def flash_attention(q: torch.Tensor,
         requires causal.
 
     The reference's block_q/block_k knobs are TPU tile sizes; the CUDA
-    kernels pick their own tiles (the bf16 forward at head_dim 64/128:
-    128 rows of n_rep grouped query heads against 64-key tiles; the
+    kernels pick their own tiles (bf16 at head_dim 64/128: the forward
+    and dQ take 128 rows of n_rep grouped query heads against 64-key
+    tiles, dK/dV 128-key tiles against 64-position (Q, dO) tiles; the
     others 64 rows up to head_dim 128, 32 at 256) and mask a ragged last
     tile, so any S works.
     """

@@ -3,10 +3,12 @@ one card, in turns (base, variant, variant, base), so that a design
 choice rests on a measurement taken within one call:
 
     python -m skypilot_tpu_torch.ops.kernel_ab flash-order paged-span
+    python -m skypilot_tpu_torch.ops.kernel_ab flash-dkv-keys flash-dq-stages
 
 Each experiment names a source under ops/csrc, the substitution that
 makes the variant, and the call it times at the main path's shape
-(profiler device time, mean of 20 calls after 3 of warm-up). The variant is built
+(profiler device time, mean of 20 calls after 3 of warm-up; CUDA events
+beside it). The variant is built
 from a copy of csrc/ into its own directory; the package's sources and
 builds are left as they are. Prints one JSON object per experiment.
 """
@@ -16,6 +18,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import tempfile
 
@@ -26,16 +29,33 @@ from skypilot_tpu_torch.ops import flash_attention as fa
 from skypilot_tpu_torch.ops import paged_attention as pa
 
 
-def _flash_call():
-    """The train path's forward: B 8, S 1024, H 16 / KV 8, D 128, causal,
-    bf16, k and v column slices of one fused tensor."""
+def _flash_inputs():
+    """q, k, v and dO at the train path's shape: B 8, S 1024, H 16 / KV
+    8, D 128, bf16, k and v column slices of one fused tensor."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    q = torch.randn((8, 1024, 16, 128), generator=gen, device='cuda').bfloat16()
-    kv = torch.randn((8, 1024, 16, 128), generator=gen,
-                     device='cuda').bfloat16()
-    k, v = kv[:, :, :8], kv[:, :, 8:]
+    q, kv, g = (torch.randn((8, 1024, 16, 128), generator=gen,
+                            device='cuda').bfloat16() for _ in range(3))
+    return q, kv[:, :, :8], kv[:, :, 8:], g
+
+
+def _flash_call():
+    """The train path's forward."""
+    q, k, v, _ = _flash_inputs()
     return lambda: fa.flash_forward(q, k, v, causal=True,
                                     sm_scale=128 ** -0.5)[0]
+
+
+def _flash_backward_call(which: str):
+    """The train path's dQ ('dq') or dK/dV ('dkv'), causal, with lse and
+    delta from the plain forward."""
+    q, k, v, g = _flash_inputs()
+    opts = dict(causal=True, sm_scale=128 ** -0.5)
+    out, lse = fa.flash_forward_plain(q, k, v, **opts)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, lse, delta)
+    calls = {'dq': lambda: (fa.flash_dq(*args, **opts),),
+             'dkv': lambda: fa.flash_dkv(*args, **opts)}
+    return calls[which]
 
 
 def _paged_decode_call(positions=(0, 7, 8190, 300, 4000, 650, 1023, 0)):
@@ -60,14 +80,39 @@ def _paged_decode_call(positions=(0, 7, 8190, 300, 4000, 650, 1023, 0)):
 EXPERIMENTS = {
     'flash-order': (
         'flash_attention',
-        'const int qt = p.causal ? p.q_tiles - 1 - w / groups : w / groups;',
+        'const int qt = p.causal ? p.tiles - 1 - w / groups : w / groups;',
         'const int qt = w / groups;', _flash_call, {}),
     'flash-persistent': (
         'flash_attention', 'constexpr bool kPersistent = true;',
         'constexpr bool kPersistent = false;', _flash_call, {}),
     'flash-stages': (
-        'flash_attention', 'constexpr int kKeys = 64, kStages = 4;',
-        'constexpr int kKeys = 64, kStages = 2;', _flash_call, {}),
+        'flash_attention', 'constexpr int kFwdStages = 4;',
+        'constexpr int kFwdStages = 2;', _flash_call, {}),
+    # The backward pair (dQ, dK/dV).
+    'flash-dq-persistent': (
+        'flash_attention', 'constexpr bool kPersistent = true;',
+        'constexpr bool kPersistent = false;',
+        lambda: _flash_backward_call('dq'), {}),
+    'flash-dkv-persistent': (
+        'flash_attention', 'constexpr bool kDkvPersistent = false;',
+        'constexpr bool kDkvPersistent = true;',
+        lambda: _flash_backward_call('dkv'), {}),
+    'flash-dq-stages-4': (
+        'flash_attention', 'constexpr int kDqStages = 3;',
+        'constexpr int kDqStages = 4;', lambda: _flash_backward_call('dq'),
+        {}),
+    'flash-dq-stages': (
+        'flash_attention', 'constexpr int kDqStages = 3;',
+        'constexpr int kDqStages = 2;', lambda: _flash_backward_call('dq'),
+        {}),
+    'flash-dkv-stages': (
+        'flash_attention', 'constexpr int kDkvStages = 4;',
+        'constexpr int kDkvStages = 2;', lambda: _flash_backward_call('dkv'),
+        {}),
+    'flash-dkv-keys': (
+        'flash_attention', 'constexpr int kDkvKeys = 128;',
+        'constexpr int kDkvKeys = 64;', lambda: _flash_backward_call('dkv'),
+        {}),
     'paged-span': (
         'paged_attention', 'constexpr int kSplitKeys = 256;',
         'constexpr int kSplitKeys = 512;', _paged_decode_call,
@@ -108,6 +153,22 @@ def _sources(csrc_dir: str, build_dir: str, constants: dict):
             setattr(pa, key, value)
 
 
+def _events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time per call by CUDA events around `iters` calls: for calls
+    of a tenth of a millisecond and more, where the host's launches hide
+    behind the device."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time per call: the CUDA kernels a torch.profiler trace
     attributes to `iters` calls (a call of tens of microseconds, timed by
@@ -124,6 +185,26 @@ def _ms(fn, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
+def _ptxas(log: str) -> list:
+    """Registers and spills of each bf16 flash kernel in an nvcc
+    -Xptxas=-v log."""
+    out, name = [], None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            found = re.search(r'flash_(?:fwd|dq|dkv)_wgmma_kernelILi\d+',
+                              line)
+            name = found and found.group(0)
+        elif name and ('spill' in line or 'registers' in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
 
 
 def run(name: str, workdir: str) -> dict:
@@ -143,17 +224,20 @@ def run(name: str, workdir: str) -> dict:
     base_out = call()
     with variant():
         variant_out = call()
+    variant_ptxas = _ptxas(_build.build_logs.get(source, ''))
     times = {'base': [], 'variant': []}
+    events = {'base': [], 'variant': []}
     for which in ('base', 'variant', 'variant', 'base'):
-        if which == 'base':
+        with variant() if which == 'variant' else contextlib.nullcontext():
             times[which].append(_ms(call))
-        else:
-            with variant():
-                times[which].append(_ms(call))
+            events[which].append(_events_ms(call))
     return {'experiment': name, 'source': f'ops/csrc/{source}.cu',
             'variant': new, 'base_ms': times['base'],
             'variant_ms': times['variant'],
-            'same_output': bool(torch.equal(base_out, variant_out)),
+            'base_events_ms': events['base'],
+            'variant_events_ms': events['variant'],
+            'same_output': _same(base_out, variant_out),
+            'variant_ptxas': variant_ptxas,
             'device': torch.cuda.get_device_name(0)}
 
 

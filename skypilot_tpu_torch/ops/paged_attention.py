@@ -29,11 +29,11 @@ from typing import Optional
 
 import torch
 
-from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import _build, limits
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128, 256)
-_STEP_KEYS = 64             # keys the kernel stages per loop step
+_HEAD_DIMS = limits.HEAD_DIMS
+_STEP_KEYS = limits.PAGED_STEP_KEYS   # keys the kernel stages per loop step
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel's routes (ops/csrc/paged_attention.cu). bf16 pools take the
 # tensor-core prefill route at PREFILL_ROWS grouped rows or more (head_dim

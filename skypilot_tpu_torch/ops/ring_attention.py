@@ -52,11 +52,11 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import _build, limits
 from skypilot_tpu_torch.ops import flash_attention as fa
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = limits.HEAD_DIMS
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -147,6 +147,11 @@ class InferenceServer:
         if not isinstance(data, dict):
             return web.json_response({'error': 'body must be a JSON object'},
                                      status=400)
+        if data.get('stream'):
+            return web.json_response(
+                {'error': 'stream=true: server-sent-event streaming is not '
+                          'ported; send stream=false (or leave it out) for '
+                          'one JSON body'}, status=400)
         if 'prompt_ids' in data:
             prompts = data['prompt_ids']
             if not isinstance(prompts, (list, tuple)):

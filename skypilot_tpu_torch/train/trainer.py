@@ -53,6 +53,7 @@ import torch.distributed as dist
 
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.parallel import sharding
 
 
@@ -140,10 +141,18 @@ class TrainState:
 def create_train_state(cfg: ModelConfig, train_config: Optional[TrainConfig]
                        = None, device='cuda', seed: int = 0) -> TrainState:
     """A TrainState with seeded random weights (models/transformer
-    init_random_, the reference's distributions) on `device`."""
+    init_random_, the reference's distributions) on `device`. On CUDA a
+    model whose attention the kernels cannot take is refused here
+    (ops/limits.py), before any step."""
     if cfg.decode:
         raise ValueError('training runs the full-sequence path; '
                          'cfg.decode must be False')
+    impl = cfg.attention_impl
+    if torch.device(device).type == 'cuda' and impl in (
+            'auto', 'pallas', 'ring') and not (
+                impl == 'auto' and cfg.attn_logit_softcap):
+        # Attention goes through the flash (and ring) kernels on the card.
+        limits.check_kernel_shapes(cfg.head_dim)
     model = Transformer(cfg, device=device).init_random_(seed)
     return TrainState(model, train_config or TrainConfig())
 

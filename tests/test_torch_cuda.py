@@ -250,6 +250,73 @@ def test_flash_forward_grouped_tiles_from_fused_qkv(seq, heads, kv_heads,
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
 
 
+# The bf16 backward pair: dQ groups the n_rep query heads of a KV head
+# into 128-row tiles as the forward does, dK/dV walks each KV head's query
+# heads over 128-key tiles. n_rep 1, 2, 4 and 8, ragged S, window,
+# non-causal, head_dim 64; q, k, v and dO strided column slices of fused
+# tensors; two runs bit-identical (no atomics).
+@pytest.mark.cuda
+@pytest.mark.parametrize('seq,heads,kv_heads,head_dim,causal,window', [
+    (1000, 8, 8, 128, True, 0),     # n_rep 1, ragged S
+    (1000, 16, 8, 128, True, 256),  # n_rep 2, window
+    (300, 16, 4, 64, False, 0),     # n_rep 4, non-causal, head_dim 64
+    (333, 16, 2, 128, True, 0),     # n_rep 8: 16 positions a dQ tile
+    (129, 6, 2, 64, True, 40),      # n_rep 3: 126 live rows a dQ tile
+    (5, 4, 2, 128, True, 0),        # S shorter than any tile
+])
+def test_flash_backward_grouped_tiles_from_fused_qkv(seq, heads, kv_heads,
+                                                     head_dim, causal,
+                                                     window):
+    _need_gpu()
+    rng = np.random.RandomState(seq + heads + head_dim)
+    qkv = torch.from_numpy(rng.randn(2, seq, heads + 2 * kv_heads,
+                                     head_dim)).to('cuda', torch.bfloat16)
+    q, k, v = qkv.split([heads, kv_heads, kv_heads], dim=2)
+    g = torch.from_numpy(rng.randn(2, seq, 2 * heads, head_dim)).to(
+        'cuda', torch.bfloat16)[:, :, heads:]
+    opts = dict(causal=causal, sm_scale=head_dim ** -0.5, window=window)
+    out, lse = fa.flash_forward_plain(q, k, v, **opts)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    _hold_backward_pair(q, k, v, g, lse, delta, opts)
+
+
+def _hold_backward_pair(q, k, v, g, lse, delta, opts):
+    launches = fa.flash_dq.launches, fa.flash_dkv.launches
+    got = [fa.flash_dq(q, k, v, g, lse, delta, **opts),
+           *fa.flash_dkv(q, k, v, g, lse, delta, **opts)]
+    again = [fa.flash_dq(q, k, v, g, lse, delta, **opts),
+             *fa.flash_dkv(q, k, v, g, lse, delta, **opts)]
+    ref = [fa.flash_dq_plain(q, k, v, g, lse, delta, **opts),
+           *fa.flash_dkv_plain(q, k, v, g, lse, delta, **opts)]
+    torch.cuda.synchronize()
+    assert (fa.flash_dq.launches, fa.flash_dkv.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    tol = _FA_TOL[torch.bfloat16][1]
+    for name, a, b, c in zip(('dq', 'dk', 'dv'), got, again, ref):
+        assert torch.equal(a, b), name
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        torch.testing.assert_close(a.float(), c.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+# The ring backward's hop shapes (B 4, 512 queries x 512 keys, llama3-1b
+# heads): the diagonal hop (causal) and a past hop (full), fed the lse and
+# delta of the whole 1024-long sequence's softmax, as the ring feeds them.
+@pytest.mark.cuda
+@pytest.mark.parametrize('src', [0, 1], ids=['full-hop', 'diagonal-hop'])
+def test_flash_backward_at_the_ring_hop_shapes(src):
+    _need_gpu()
+    q, k, v, g = _flash_case(4, 1024, 16, 8, 128, torch.bfloat16, 11)
+    out, lse = fa.flash_forward_plain(q, k, v, causal=True,
+                                      sm_scale=128 ** -0.5)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    rows, cols = slice(512, 1024), slice(512 * src, 512 * (src + 1))
+    _hold_backward_pair(q[:, rows], k[:, cols], v[:, cols], g[:, rows],
+                        lse[:, :, rows].contiguous(),
+                        delta[:, :, rows].contiguous(),
+                        dict(causal=src == 1, sm_scale=128 ** -0.5))
+
+
 @pytest.mark.cuda
 def test_flash_backward_is_deterministic_and_autograd_runs_kernels():
     _need_gpu()
@@ -278,6 +345,12 @@ def test_flash_kernels_refuse_what_they_do_not_take():
         fa.flash_forward(q, k.bfloat16(), v.bfloat16(), **opts)
     with pytest.raises(TypeError, match='float32 or'):
         fa.flash_forward(q.half(), k.half(), v.half(), **opts)
+    # The bf16 kernels group a KV head's query heads into one 128-row tile.
+    qb = torch.zeros((1, 8, 129, 64), device='cuda', dtype=torch.bfloat16)
+    kb = torch.zeros((1, 8, 1, 64), device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='n_rep 129'):
+        fa.flash_dkv(qb, kb, kb, qb, torch.zeros((1, 129, 8), device='cuda'),
+                     torch.zeros((1, 129, 8), device='cuda'), **opts)
 
 
 # -------------------------------------------- int8 paged attention kernel
@@ -527,3 +600,22 @@ def test_ring_chunk_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match='contiguous float32'):
         ra.chunk_update(q, k, v, state[0].transpose(1, 2).contiguous()
                         .transpose(1, 2), *state[1:], **opts)
+
+
+# ------------------------------------------- kernel limits at construction
+
+@pytest.mark.cuda
+def test_engine_and_trainer_refuse_kernel_shapes_at_construction():
+    """On the card a model the kernels cannot run fails at construction
+    (ops/limits.py), not at its first tick or step."""
+    _need_gpu()
+    import dataclasses
+
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.train import trainer
+    with pytest.raises(ValueError, match='divides 64'):
+        ContinuousBatchingEngine('llama3-1b', paged_block_size=128)
+    tiny = dataclasses.replace(get_config('test-tiny'), attention_impl='auto')
+    with pytest.raises(ValueError, match='head_dim'):
+        trainer.create_train_state(tiny, device='cuda')

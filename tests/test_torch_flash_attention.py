@@ -251,3 +251,150 @@ def test_grouped_head_walk_matches_plain_and_pallas(causal, window, heads,
             np.asarray(ref_out), **_TOL)
         np.testing.assert_allclose(lse.numpy().reshape(2 * heads, 1, seq),
                                    np.asarray(ref_lse), **_TOL)
+
+
+def _hidden(row_pos, cols, seq, causal, window):
+    """(rows, cols) pairs a mask hides or whose key is absent."""
+    hide = cols[None, :] >= seq
+    if causal:
+        hide = hide | (cols[None, :] > row_pos[:, None])
+    if window:
+        hide = hide | (row_pos[:, None] - cols[None, :] >= window)
+    return hide
+
+
+def _grouped_dq_walk(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
+                     rows=128, keys=64):
+    """The bf16 dQ kernel's walk in plain fp32 torch: a work tile is the
+    n_rep query heads of one KV head at rows // n_rep positions (row =
+    position * n_rep + head), walking the key tiles its causal and window
+    bounds reach; p = exp(s scale - lse) with hidden pairs at 0, ds = p
+    (dp - delta), dQ += ds.K, times scale at the end. Returns dQ
+    (B, S, H, D)."""
+    batch, seq, heads, dim = q.shape
+    kv_heads = k.shape[2]
+    n_rep = heads // kv_heads
+    positions = rows // n_rep
+    dq = torch.zeros_like(q)
+    for b in range(batch):
+        for g in range(kv_heads):
+            hs = slice(g * n_rep, (g + 1) * n_rep)
+            for q0 in range(0, seq, positions):
+                pos = torch.arange(q0, min(seq, q0 + positions))
+                row_pos = pos.repeat_interleave(n_rep)
+                qt = q[b, pos, hs].reshape(-1, dim)
+                dot = do[b, pos, hs].reshape(-1, dim)
+                lse_r = lse[b, hs][:, pos].T.reshape(-1)
+                delta_r = delta[b, hs][:, pos].T.reshape(-1)
+                k_hi = int(pos[-1]) + 1 if causal else seq
+                k_lo = max(0, q0 - window + 1) if window else 0
+                acc = torch.zeros(len(row_pos), dim)
+                for k0 in range(k_lo // keys * keys, k_hi, keys):
+                    cols = torch.arange(k0, k0 + keys)
+                    present = (cols < seq)[:, None]
+                    kt = torch.where(present, k[b, cols.clamp(max=seq - 1), g],
+                                     0.)
+                    vt = torch.where(present, v[b, cols.clamp(max=seq - 1), g],
+                                     0.)
+                    p = torch.exp((qt @ kt.T) * sm_scale - lse_r[:, None])
+                    p = torch.where(_hidden(row_pos, cols, seq, causal,
+                                            window), 0., p)
+                    ds = p * ((dot @ vt.T) - delta_r[:, None])
+                    acc = acc + ds @ kt
+                dq[b, pos, hs] = (acc * sm_scale).reshape(len(pos), n_rep,
+                                                          dim)
+    return dq
+
+
+def _dkv_walk(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
+              keys=128, group_keys=64, q_tile=64):
+    """The bf16 dK/dV kernel's walk in plain fp32 torch: a work tile is
+    (b, KV head, `keys`-key tile), split into warpgroups of `group_keys`
+    keys; it walks the group's query heads one after another and, within
+    each, the q tiles from the first the causal mask lets see the key tile
+    to the last the window lets in, skipping a q tile none of a
+    warpgroup's keys can see; dV += p^T.dO and dK += ds^T.Q summed in
+    that order, dK times scale at the end. Returns dK, dV (B, S, KV, D)."""
+    batch, seq, heads, dim = q.shape
+    kv_heads = k.shape[2]
+    n_rep = heads // kv_heads
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(batch):
+        for g in range(kv_heads):
+            for k0 in range(0, seq, keys):
+                q_lo = k0 if causal else 0
+                q_hi = min(seq, k0 + keys - 1 + window) if window else seq
+                for kw0 in range(k0, min(seq, k0 + keys), group_keys):
+                    cols = torch.arange(kw0, min(seq, kw0 + group_keys))
+                    acc_k = torch.zeros(len(cols), dim)
+                    acc_v = torch.zeros(len(cols), dim)
+                    for h in range(g * n_rep, (g + 1) * n_rep):
+                        for q0 in range(q_lo // q_tile * q_tile, q_hi,
+                                        q_tile):
+                            if causal and q0 + q_tile - 1 < kw0:
+                                continue
+                            if window and q0 - (kw0 + group_keys - 1) >= \
+                                    window:
+                                continue
+                            pos = torch.arange(q0, min(seq, q0 + q_tile))
+                            p = torch.exp(k[b, cols, g] @ q[b, pos, h].T *
+                                          sm_scale - lse[b, h, pos][None, :])
+                            p = torch.where(_hidden(pos, cols, seq, causal,
+                                                    window).T, 0., p)
+                            ds = p * (v[b, cols, g] @ do[b, pos, h].T -
+                                      delta[b, h, pos][None, :])
+                            acc_v = acc_v + p @ do[b, pos, h]
+                            acc_k = acc_k + ds @ q[b, pos, h]
+                    dk[b, cols, g] = acc_k * sm_scale
+                    dv[b, cols, g] = acc_v
+    return dk, dv
+
+
+@pytest.mark.parametrize('causal,window,heads,kv_heads,seq', [
+    (True, 0, 2, 2, 200),      # n_rep 1, ragged S: a ragged last key tile
+    (True, 0, 4, 2, 256),      # n_rep 2: 64 positions a dQ tile
+    (True, 40, 4, 2, 192),     # n_rep 2, window: leading tiles skipped
+    (False, 0, 8, 2, 192),     # n_rep 4, non-causal
+    (True, 0, 8, 1, 130),      # n_rep 8, ragged S
+    (True, 24, 6, 2, 100),     # n_rep 3: 126 live rows, window, ragged
+])
+def test_backward_walks_match_plain_and_pallas(causal, window, heads,
+                                               kv_heads, seq):
+    """The bf16 dQ and dK/dV kernels' tile walks (`_grouped_dq_walk`,
+    `_dkv_walk`) in fp32 against the plain pair and, where S tiles by 64,
+    the JAX Pallas backward in interpret mode: 1e-5 (the order of fp32
+    sums only)."""
+    q, k, v, g = _inputs(2, seq, heads, kv_heads, 32, seed=seq + heads + 1)
+    scale = 32 ** -0.5
+    tq, tk, tv, tg = (torch.tensor(x) for x in (q, k, v, g))
+    opts = dict(causal=causal, sm_scale=scale, window=window)
+    out, lse = fa.flash_forward_plain(tq, tk, tv, **opts)
+    delta = (tg * out).sum(-1).transpose(1, 2).contiguous()
+    dq = _grouped_dq_walk(tq, tk, tv, tg, lse, delta, **opts)
+    dk, dv = _dkv_walk(tq, tk, tv, tg, lse, delta, **opts)
+    ref_dq = fa.flash_dq_plain(tq, tk, tv, tg, lse, delta, **opts)
+    ref_dk, ref_dv = fa.flash_dkv_plain(tq, tk, tv, tg, lse, delta, **opts)
+    for name, a, b in (('dq', dq, ref_dq), ('dk', dk, ref_dk),
+                       ('dv', dv, ref_dv)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name,
+                                   **_TOL)
+    if seq % 64 == 0:          # the Pallas backward tiles S by its blocks
+        n_rep = heads // kv_heads
+        fold = jfa._fold  # pylint: disable=protected-access
+        rep = jfa._repeat_kv  # pylint: disable=protected-access
+        jdq, jdk, jdv = jfa._pallas_backward(  # pylint: disable=protected-access
+            fold(jnp.asarray(q)), fold(rep(jnp.asarray(k), n_rep)),
+            fold(rep(jnp.asarray(v), n_rep)), fold(jnp.asarray(g)),
+            jnp.asarray(lse.numpy().reshape(2 * heads, 1, seq)),
+            jnp.asarray(delta.numpy().reshape(2 * heads, 1, seq)),
+            causal, window, scale, 64, 64, True)
+
+        def unfold(x):
+            return np.asarray(x).reshape(2, heads, seq, 32).transpose(
+                0, 2, 1, 3)
+        np.testing.assert_allclose(dq.numpy(), unfold(jdq), err_msg='dq',
+                                   **_TOL)
+        # The reference sums dK/dV over the n_rep heads after its kernel.
+        for name, a, j in (('dk', dk, jdk), ('dv', dv, jdv)):
+            ref = unfold(j).reshape(2, seq, kv_heads, n_rep, 32).sum(3)
+            np.testing.assert_allclose(a.numpy(), ref, err_msg=name, **_TOL)

@@ -100,6 +100,24 @@ def test_bad_requests_are_400(live, body):
     assert err.value.code == 400
 
 
+@pytest.mark.parametrize('stream', [True, False])
+def test_stream_is_refused_until_ported(live, stream):
+    """The reference streams SSE on stream=true; the port has no stream
+    yet, so it answers 400 naming it rather than one silent JSON body.
+    stream=false is the plain answer."""
+    body = {'prompt_ids': [[1, 2, 3]], 'max_new_tokens': 3, 'stream': stream}
+    if not stream:
+        status, out = _post(live['url'] + '/generate', body)
+        tokens, _ = live['server'].engine.generate([1, 2, 3],
+                                                   max_new_tokens=3)
+        assert status == 200 and out['token_ids'] == [tokens]
+        return
+    with pytest.raises(urllib.error.HTTPError) as err:
+        _post(live['url'] + '/generate', body)
+    assert err.value.code == 400
+    assert 'stream' in json.loads(err.value.read())['error']
+
+
 def test_server_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip('a GPU is present: the default device is usable')
