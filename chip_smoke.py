@@ -25,11 +25,14 @@ and passed over):
             rows split by key span) and the workspace rule against the
             library's; time kernel, plain version and the library
             yardstick with CUDA events.
-  kernels_int8: the same for the paged kernel's int8 route (pools
-            quantized with the model's int8_quantize, fp32 scale rows),
-            plus stale payload and scale rows in the scratch block and
-            in every row's masked tail, which must leave live rows
-            bit-identical; time it beside its byte bound.
+  kernels_int8: the same for int8 pools (quantized with the model's
+            int8_quantize, fp32 scale rows; bf16 queries take the bf16
+            routes, fp32 queries the first design), plus stale payload
+            and scale rows in the scratch block and in every row's
+            masked tail, which must leave live rows bit-identical; the
+            bf16 route cases over int8 pools (route logged); time it
+            (profiler device time) beside its byte bound and the bf16
+            route on the same K/V.
   lora:     hold the fused multi-LoRA kernel against its plain version
             at every llama3-8b projection shape (d->H*D, d->KV*D,
             H*D->d, d->F, F->d), rank 16, decode B 8 T 1 with mixed
@@ -54,8 +57,9 @@ and passed over):
             modes 0 and 1, equal and unequal offsets, fresh and carried
             state, rows that see no key (l must be Sk: p = 1 at m =
             -1e30) and rows whose first tiles are masked; reruns
-            bit-identical; time the full and the diagonal hop beside the
-            plain version and the bound.
+            bit-identical; time the full and the diagonal hop (profiler
+            device time) beside the plain version, the bound and kernel
+            3's forward at the same shape.
   parity:   a small fp32 model (head_dim 128) through the serving engine
             on the card (kernel) and on the CPU (plain version): greedy
             tokens equal, prefill logits within tolerance.
@@ -121,6 +125,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -277,7 +282,8 @@ SERVE_CALLS = (   # (name, B, T, per-row positions) of the serve path
 # `kernel_route`): (B, T, n_rep, head_dim, block_size, window, bps) with
 # grouped rows just under, at and over PREFILL_ROWS, T not a multiple of
 # a row tile, block sizes 8-64, n_rep 1-8, head_dim 64/128/256 and rows
-# long enough to split by SPLIT_KEYS; rows from position 0 to the end.
+# long enough to split by SPLIT_KEYS (INT8_SPLIT_KEYS over int8 pools);
+# rows from position 0 to the end.
 ROUTE_CASES = (
     (8, 1, 4, 128, 16, 0, 128), (3, 1, 8, 64, 8, 37, 80),
     (4, 1, 1, 128, 64, 0, 40), (2, 15, 4, 128, 16, 0, 48),
@@ -287,32 +293,47 @@ ROUTE_CASES = (
     (2, 3, 4, 256, 16, 0, 48))
 
 
-def _route_cases(torch, pa) -> None:
-    """Each bf16 route case against the plain version (TOL), reruns
-    bit-identical; and the workspace rule equal in Python and in the
-    library over decode, prefill, fp32 and int8 shapes."""
+def _route_cases(torch, pa, kv_quant=False) -> None:
+    """Each bf16-query route case, over bf16 pools or (kv_quant) the same
+    pools quantized to int8 with fp32 scale rows, against the plain
+    version (TOL), reruns bit-identical; and the workspace rule equal in
+    Python and in the library over decode, prefill, fp32 and int8
+    shapes."""
+    from skypilot_tpu_torch.models.transformer import int8_quantize
+    pool = 'int8' if kv_quant else 'bf16'
     for i, (batch, cur_len, n_rep, dim, bs, window, bps) in enumerate(
             ROUTE_CASES):
         starts = [round(x * (bps * bs - cur_len) / max(1, batch - 1))
                   for x in range(batch)]
-        case = _pool_case(torch, torch.bfloat16, batch, cur_len,
+        case = _pool_case(torch, torch.float32 if kv_quant else
+                          torch.bfloat16, batch, cur_len,
                           [list(range(s, s + cur_len)) for s in starts],
                           seed=10 + i, num_blocks=batch * bps + 1,
                           block_size=bs, kv_heads=2, n_rep=n_rep,
                           head_dim=dim, max_seq_len=bps * bs, inert=False)
         q, k_pool, v_pool, tables, positions, _ = case
+        q, scales = q.bfloat16(), {}
+        if kv_quant:
+            (k_pool, ks), (v_pool, vs) = (int8_quantize(k_pool),
+                                          int8_quantize(v_pool))
+            scales = dict(k_scale=ks[..., None].contiguous(),
+                          v_scale=vs[..., None].contiguous())
         args = (q, k_pool, v_pool, tables[:, :bps], positions)
-        out = pa.paged_decode_attention(*args, window=window)
-        again = pa.paged_decode_attention(*args, window=window)
-        ref = pa.paged_decode_attention_plain(*args, window=window)
+        out = pa.paged_decode_attention(*args, window=window, **scales)
+        again = pa.paged_decode_attention(*args, window=window, **scales)
+        ref = pa.paged_decode_attention_plain(*args, window=window,
+                                              **scales)
         torch.cuda.synchronize()
-        route = pa.kernel_route(q.dtype, False, dim, cur_len * n_rep)
-        what = (f'kernel route {route} B={batch} T={cur_len} n_rep={n_rep} '
-                f'D={dim} bs={bs} window={window} keys={bps * bs}')
+        route = pa.kernel_route(q.dtype, dim, cur_len * n_rep)
+        what = (f'kernel route {route} ({pool} pool) B={batch} T={cur_len} '
+                f'n_rep={n_rep} D={dim} bs={bs} window={window} '
+                f'keys={bps * bs}')
         err = _check_close(torch, what, out, ref, TOL['bfloat16'])
         if not torch.equal(out, again):
             fail(f'{what}: two runs differ')
         log(f'{what}: max_abs_err={err:.3e}; rerun bit-identical')
+    if kv_quant:
+        return
     lib = pa._lib()  # pylint: disable=protected-access
     for dtype, quant in ((torch.bfloat16, False), (torch.float32, False),
                          (torch.bfloat16, True), (torch.float32, True)):
@@ -456,10 +477,20 @@ def phase_kernels_int8(torch) -> dict:
                 f'(bit-identical output)')
             if dtype_name != 'bfloat16':
                 continue
-            ms = cuda_ms(torch, lambda: pa.paged_decode_attention(
-                *args, **scales))
+            # Device time (profiler), as kernel 1 is timed; beside it the
+            # bf16 route on the same K/V dequantized into bf16 pools, the
+            # yardstick of the same walk over twice the bytes.
+            route = pa.kernel_route(q.dtype, q.shape[-1],
+                                    cur_len * q.shape[2] // k8.shape[2])
+            fn = lambda: pa.paged_decode_attention(*args, **scales)
+            event_ms, ms = cuda_ms(torch, fn), device_ms(torch, fn)
             plain_ms = cuda_ms(torch, lambda: pa.paged_decode_attention_plain(
                 *args, **scales), iters=5)
+            k_bf = (k8.float() * ks).bfloat16()
+            v_bf = (v8.float() * vs).bfloat16()
+            bf16_ms = device_ms(torch, lambda: pa.paged_decode_attention(
+                q, k_bf, v_bf, tables[:, :bps], positions))
+            del k_bf, v_bf
             # Per visible token and kv head: int8 K and V rows plus their
             # two fp32 scale rows.
             bound_ms, bound_by = _bound(q, k8.shape[2], positions, bps,
@@ -467,12 +498,15 @@ def phase_kernels_int8(torch) -> dict:
             results[shape_name] = {
                 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                 'bound_by': bound_by, 'library_ms': None}
-            log(f'int8 kernel {shape_name} bf16 B={batch} T={cur_len}: '
-                f'kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} '
-                f'bound_ms={bound_ms:.4f} ({bound_by}); no single PyTorch '
+            log(f'int8 kernel {shape_name} bf16 B={batch} T={cur_len} '
+                f'(route {route}): kernel_ms={ms:.4f} (device; CUDA events '
+                f'{event_ms:.4f}) plain_ms={plain_ms:.4f} '
+                f'bound_ms={bound_ms:.4f} ({bound_by}); bf16 pools, same '
+                f'K/V and route: {bf16_ms:.4f} (device); no single PyTorch '
                 f'call computes int8 paged attention')
             del q, k8, v8, ks, vs, args, scales, clean, dirty, ref
             torch.cuda.empty_cache()
+    _route_cases(torch, pa, kv_quant=True)
     return {'max_abs_err': worst, **results['decode'],
             'prefill': results['prefill'],
             'prefill_4096': results['prefill_4096']}
@@ -1795,8 +1829,11 @@ def _ring_bound(torch, q, k, mode, q_offset, k_offset) -> tuple:
 def phase_ring_kernels(torch) -> dict:
     """Kernel 6 against chunk_update_plain at the slice's shape (B 4, Sq =
     Sk = 512, H 16, KV 8, D 128), fp32 and bf16, over RING_CASES; reruns
-    bit-identical; the full and diagonal hops timed (CUDA events, 20
-    launches) beside the plain version and the bound."""
+    bit-identical; the full and diagonal hops timed (profiler device time,
+    CUDA events beside it) beside the plain version, the bound and the
+    yardstick: kernel 3's forward at the same 512 x 512 shape (full: not
+    causal; diagonal: causal), the same mainloop without the state."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import ring_attention as ra
     torch.backends.cuda.matmul.allow_tf32 = False
     sh = RING_SHAPE
@@ -1829,22 +1866,27 @@ def phase_ring_kernels(torch) -> dict:
             if dtype_name != 'bfloat16' or label not in ('full_hop',
                                                           'diagonal_hop'):
                 continue
-            ms = cuda_ms(torch, lambda: ra.chunk_update(q, k, v, *state,
-                                                        **opts))
-            dev = device_ms(torch, lambda: ra.chunk_update(q, k, v, *state,
-                                                           **opts))
+            fn = lambda: ra.chunk_update(q, k, v, *state, **opts)
+            events, ms = cuda_ms(torch, fn), device_ms(torch, fn)
             plain_ms = cuda_ms(torch, lambda: ra.chunk_update_plain(
                 q, k, v, *state, **opts), iters=3, warmup=1)
             bound_ms, bound_by = _ring_bound(torch, q, k, mode, q_off, k_off)
+            flash_ms = device_ms(torch, lambda: fa.flash_forward(
+                q, k, v, causal=mode == 1, sm_scale=scale))
+            state_ms = (2 * q.numel() * 4 + 4 * q.numel() // q.shape[-1] * 4
+                        ) / HBM_BYTES_PER_S * 1e3
             records[label] = {'max_abs_err': err, 'ms': ms,
                               'plain_ms': plain_ms, 'bound_ms': bound_ms,
                               'bound_by': bound_by, 'library_ms': None}
             log(f'ring {label} bf16 B={sh["batch"]} Sq=Sk={sh["chunk"]} '
                 f'H={sh["heads"]} KV={sh["kv_heads"]} D={sh["head_dim"]}: '
-                f'kernel_ms={ms:.4f} (profiler device {dev:.4f}) '
+                f'kernel_ms={ms:.4f} (device; CUDA events {events:.4f}) '
                 f'plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} '
-                f'({bound_by}); library: none (no single PyTorch call '
-                f'updates an online-softmax state)')
+                f'({bound_by}); kernel 3 forward at this shape '
+                f'{flash_ms:.4f} (device), + the state\'s bytes at 3.35 TB/s '
+                f'{state_ms:.4f}: ratio {ms / (flash_ms + state_ms):.3f}; '
+                f'library: none (no single PyTorch call updates an '
+                f'online-softmax state)')
         del case, q, k, v
         torch.cuda.empty_cache()
     return records
@@ -2090,9 +2132,13 @@ def main(argv=None) -> int:
     _build.build_all()
     log(f'build: {_build.sources()} in {time.monotonic() - t0:.1f}s')
     for name, text in _build.build_logs.items():
+        entry = ''
         for line in text.splitlines():
-            if 'registers' in line or 'spill' in line or 'smem' in line:
-                log(f'build {name}: {line.strip()}')
+            if 'Compiling entry function' in line:
+                found = re.search(r'([a-z][a-z_]*_kernel)(I\w*?E)?E*v', line)
+                entry = ''.join(found.groups('')) if found else ''
+            elif 'registers' in line or 'spill' in line or 'smem' in line:
+                log(f'build {name} {entry}: {line.strip()}')
 
     kernels = []
     paged = paged8 = lora = flash = ring = None
@@ -2126,7 +2172,7 @@ def main(argv=None) -> int:
         launches = phase_train_sp(torch, smi)
         if ring is not None:
             kernels.append({
-                'name': 'ring_chunk_update', 'route': 'cuda',
+                'name': 'ring_chunk_wgmma_kernel', 'route': 'cuda',
                 'source': RING_SOURCE, 'replaces': RING_REPLACES,
                 'launches': launches, **ring['full_hop']})
         gc.collect()
@@ -2146,7 +2192,8 @@ def main(argv=None) -> int:
         launches = phase_serve_tenant(torch, smi, bf16_pool_bytes)
         if paged8 is not None:
             kernels.append({
-                'name': 'paged_decode_attention_int8', 'route': 'cuda',
+                'name': 'paged_prefill_kernel<int8_t> + '
+                        'paged_decode_kernel<int8_t>', 'route': 'cuda',
                 'source': PAGED_SOURCE,
                 'replaces': 'skypilot_tpu/ops/paged_attention.py:126',
                 'launches': launches['paged_decode_attention_int8'],

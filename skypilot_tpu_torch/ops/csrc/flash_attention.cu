@@ -79,6 +79,7 @@
 #include <type_traits>
 
 #include "sm90.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -638,20 +639,32 @@ namespace hopper {
 
 using sm90::quad_max;
 using sm90::quad_sum;
+// The grouped-head mainloop parts (wgmma_attention.cuh), shared with the
+// ring chunk update.
+using sm90::encode_bshd;
+using sm90::init_q_barriers;
+using sm90::issue_rs;
+using sm90::issue_ss;
+using sm90::kConsumerWarps;
+using sm90::kKeys;
+using sm90::kLog2e;
+using sm90::kRows;
+using sm90::pack_a;
+using sm90::prepare;
+using sm90::produce_q_work;
+using sm90::QSmem;
+using sm90::smem_at_1024;
+using sm90::warp_arrive;
 
-constexpr int kRows = 128;          // grouped query rows per fwd / dQ tile
-constexpr int kKeys = 64;           // keys per streamed K/V tile
 constexpr int kFwdStages = 4;       // K/V tiles in flight: forward
 constexpr int kDqStages = 3;        // K/V tiles in flight: dQ
 constexpr int kDkvKeys = 128;       // keys per dK/dV work tile
 constexpr int kDkvStages = 4;       // (Q, dO) tiles in flight: dK/dV
 constexpr int kQTile = 64;          // positions per streamed (Q, dO) tile
-constexpr int kConsumerWarps = 8;   // fwd / dQ: two warpgroups of 64 rows
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
 constexpr int kDqThreads = 32 * kConsumerWarps + 128;   // + producer group
 constexpr int kDkvGroups = kDkvKeys / 64;            // consumer warpgroups
 constexpr int kDkvThreads = 128 * (kDkvGroups + 1);  // + producer group
-constexpr float kLog2e = 1.4426950408889634f;
 // One CUDA block per SM walking the work tiles, or one per work tile:
 // the forward and dQ walk (kernel_ab flash-persistent, flash-dq-
 // persistent); dK/dV's work tiles differ more in weight, and the block
@@ -667,18 +680,6 @@ struct Params {
   const float* delta;     // backward: (B, H, S)
   int batch, seq, heads, kv_heads, n_rep, positions, tiles, causal, window;
   float scale;
-};
-
-// Forward and dQ: kQBufs grouped 128-row tiles (Q; Q and dO), one staging
-// tile (O or dQ), kStages K/V tiles.
-template <int D, int kStages, int kQBufs>
-struct QSmem {
-  static constexpr int kChunks = D / 64;
-  alignas(1024) bf16 q[kQBufs][kChunks][kRows * 64];
-  alignas(1024) bf16 o[kChunks][kRows * 64];
-  alignas(1024) bf16 k[kStages][kChunks][kKeys * 64];
-  alignas(1024) bf16 v[kStages][kChunks][kKeys * 64];
-  uint64_t q_full, q_empty, k_full[kStages], v_full[kStages], empty[kStages];
 };
 
 // dK/dV: the work tile's K and V (then the dK and dV staging), and
@@ -745,114 +746,6 @@ struct KvWork {
   }
 };
 
-// The forward's and dQ's producer (one thread): per work tile its grouped
-// Q (and dO) once, then its K/V tiles through the ring.
-template <int D, int kStages, int kQBufs>
-__device__ void produce_q_work(QSmem<D, kStages, kQBufs>& sm,
-                               const CUtensorMap* tq, const CUtensorMap* tdo,
-                               const CUtensorMap* tk, const CUtensorMap* tv,
-                               const Params& p) {
-  constexpr int kChunks = D / 64;
-  constexpr uint32_t kTileBytes = kChunks * kKeys * 128;
-  const int n_work = p.batch * p.kv_heads * p.tiles;
-  int it = 0;                               // K/V tiles issued
-  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
-    const QWork wk(w, p);
-    if (n > 0) sm90::mbar_wait(&sm.q_empty, (n - 1) & 1);
-    sm90::mbar_expect_tx(&sm.q_full,
-                         kQBufs * kChunks * p.positions * p.n_rep * 128);
-    for (int i = 0; i < kQBufs; ++i) {
-      for (int c = 0; c < kChunks; ++c) {
-        sm90::tma_load_4d(sm.q[i][c], i == 0 ? tq : tdo, &sm.q_full, 64 * c,
-                          wk.kvh * p.n_rep, wk.q0, wk.b);
-      }
-    }
-    for (int t = wk.t_lo; t < wk.t_hi; ++t, ++it) {
-      const int s = it % kStages;
-      if (it >= kStages) sm90::mbar_wait(&sm.empty[s], (it / kStages - 1) & 1);
-      sm90::mbar_expect_tx(&sm.k_full[s], kTileBytes);
-      for (int c = 0; c < kChunks; ++c) {
-        sm90::tma_load_4d(sm.k[s][c], tk, &sm.k_full[s], 64 * c, wk.kvh,
-                          t * kKeys, wk.b);
-      }
-      sm90::mbar_expect_tx(&sm.v_full[s], kTileBytes);
-      for (int c = 0; c < kChunks; ++c) {
-        sm90::tma_load_4d(sm.v[s][c], tv, &sm.v_full[s], 64 * c, wk.kvh,
-                          t * kKeys, wk.b);
-      }
-    }
-  }
-}
-
-template <int D, int kStages, int kQBufs>
-__device__ __forceinline__ void init_q_barriers(QSmem<D, kStages, kQBufs>& sm) {
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(&sm.q_full, 1);
-    sm90::mbar_init(&sm.q_empty, kConsumerWarps);
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&sm.k_full[s], 1);
-      sm90::mbar_init(&sm.v_full[s], 1);
-      sm90::mbar_init(&sm.empty[s], kConsumerWarps);
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-}
-
-template <typename S>
-__device__ __forceinline__ S& smem_at_1024() {
-  extern __shared__ unsigned char smem_raw[];
-  return *reinterpret_cast<S*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-}
-
-// acc[64 x 64] = A.B^T over D, A's 64 rows at `a_rows` and B's at `b_rows`
-// (chunk strides a_chunk, b_chunk bytes), both K-major in shared memory.
-template <int D>
-__device__ __forceinline__ void issue_ss(float (&acc)[32],
-                                         const unsigned char* a_rows,
-                                         int a_chunk,
-                                         const unsigned char* b_rows,
-                                         int b_chunk) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t da = sm90::desc_sw128(
-        a_rows + (kk / 4) * a_chunk + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = sm90::desc_sw128(
-        b_rows + (kk / 4) * b_chunk + (kk % 4) * 32, 16, 1024);
-    sm90::wgmma_m64n64_ss(acc, da, db, kk > 0);
-  }
-}
-
-// acc[64 x D] += A.B, A a 64 x 64 register fragment (bf16 pairs), B 64
-// rows x D in shared memory, MN-major (chunk stride b_chunk bytes).
-template <int D>
-__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
-                                         const uint32_t (&a)[4][4],
-                                         const unsigned char* b_rows,
-                                         int b_chunk) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = sm90::desc_sw128(b_rows + kk * 2048, b_chunk, 1024);
-    if constexpr (D == 64) {
-      sm90::wgmma_m64n64_rs(acc, a[kk], db);
-    } else {
-      sm90::wgmma_m64n128_rs(acc, a[kk], db);
-    }
-  }
-}
-
-// A 64 x 64 fp32 accumulator rounded to bf16 pairs: the register-A
-// fragments of the next product.
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4],
-                                       const float (&acc)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    f[j / 2][(j % 2) * 2] = sm90::pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    f[j / 2][(j % 2) * 2 + 1] = sm90::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
 // A 64 x D accumulator (rows lr0, lr0 + 8 of this thread) times `scale`,
 // rounded to bf16, into a swizzled staging tile of chunk stride `chunk`.
 template <int D>
@@ -870,11 +763,6 @@ __device__ __forceinline__ void stage_rows(unsigned char* tile, int chunk,
   }
 }
 
-__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(bar);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -890,7 +778,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   init_q_barriers(sm);
 
   if (warp == kConsumerWarps) {                 // the producer warp
-    if (lane == 0) produce_q_work(sm, &tq, &tq, &tk, &tv, p);
+    if (lane == 0) produce_q_work<QWork>(sm, &tq, &tq, &tk, &tv, p, n_work);
     return;
   }
 
@@ -1096,7 +984,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp >= kConsumerWarps) {                 // the producer warpgroup
     sm90::setmaxnreg_dec<40>();
     if (warp == kConsumerWarps && lane == 0) {
-      produce_q_work(sm, &tq, &tdo, &tk, &tv, p);
+      produce_q_work<QWork>(sm, &tq, &tdo, &tk, &tv, p, n_work);
     }
     return;
   }
@@ -1416,50 +1304,6 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A bf16 (B, S, heads, D) view with element strides sb, ss, sh as a 4-D
-// map {D, heads, S, B}; boxes of 64 x box_h x box_s x 1, 128-byte
-// swizzle, zeros out of bounds. A dimension of extent 1 takes a
-// stride that cannot fail the encoder's checks.
-bool encode_bshd(CUtensorMap* map, const void* base, int d, int heads,
-                 int seq, int batch, long long sh, long long ss,
-                 long long sb, int box_h, int box_s) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  if (heads == 1) sh = d;
-  if (batch == 1) sb = ss * seq;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                        static_cast<cuuint64_t>(heads),
-                        static_cast<cuuint64_t>(seq),
-                        static_cast<cuuint64_t>(batch)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                           static_cast<cuuint64_t>(ss) * 2,
-                           static_cast<cuuint64_t>(sb) * 2};
-  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_h),
-                       static_cast<cuuint32_t>(box_s), 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The maps of one launch. Rows of q, dO and their outputs come grouped
 // (box n_rep heads x 128 / n_rep positions) or one head at a time (box 1
 // x rows); K and V one KV head x `kv_rows` keys.
@@ -1491,25 +1335,6 @@ bool encode_maps(Which which, const Args& a, int d, int q_box_h,
                            a.o_sh, a.o_ss, a.o_sb, q_box_h, q_box_s);
   }
   return ok;
-}
-
-// Grid of a kernel that walks work tiles: one block per SM (persistent),
-// or one per work tile.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem, int n_work, bool persistent,
-                    int* grid) {
-  int device, sms;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  }
-  *grid = persistent && sms < n_work ? sms : n_work;
-  return err;
 }
 
 template <int D>

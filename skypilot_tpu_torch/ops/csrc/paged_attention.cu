@@ -5,9 +5,10 @@
 // `_decode_kernel` (float pools) and `_decode_kernel_int8` (int8 pools
 // with fp32 per-token scale rows), entry `paged_decode_attention`,
 // pl.pallas_call at :268: every prefill chunk and decode step of the
-// serving path attends through one of them, one launch per layer. The
-// fp32 and int8 routes share one template (payload type P = T or
-// int8_t); bf16 pools take the two redesigned kernels further down.
+// serving path attends through one of them, one launch per layer. bf16
+// queries take the two redesigned kernels further down over bf16 and
+// int8 pools alike (payload type P = bf16 or int8_t); fp32 queries take
+// the first design (paged_attention_kernel, P = float or int8_t).
 //
 // What it computes (the TPU kernel's contract): for each batch row b and
 // kv head h, the row's T * n_rep grouped query rows (row j = t * n_rep + r
@@ -24,15 +25,14 @@
 // (m = -1e30) washes out of the recurrence as soon as a visible block
 // follows, because alpha = exp(-1e30 - m_real) is exactly 0 in fp32.
 //
-// int8 route (the TPU int8 kernel's op order): payloads convert int8 ->
-// fp32 exactly on staging (as int8 -> compute dtype is exact); the key's
-// scale multiplies its fp32 score BEFORE sm_scale; l sums the unscaled
-// p; the value's scale then multiplies p, which rounds to q's dtype for
-// the P.V product. Each step also stages its 64 keys' K and V scale rows
-// (fp32, one per token and kv head). Masked keys get p = 0 exactly, so
-// the scale rows of a stale block (scratch rows start at 1) add 0. An
-// int8 row of D 128 is 128 bytes: the same 16-byte vector loads carry 16
-// int8 values each instead of 8 bf16.
+// int8 pools (the TPU int8 kernel's op order): payloads convert int8 ->
+// the compute dtype exactly; the key's scale multiplies its fp32 score
+// BEFORE sm_scale; l sums the unscaled p; the value's scale then
+// multiplies p, which rounds to q's dtype for the P.V product. Each step
+// also stages its 64 keys' K and V scale rows (fp32, one per token and
+// kv head). Masked keys get p = 0 exactly, so the payload and scale rows
+// of a stale block add 0. An int8 row of D 128 is 128 bytes: the same
+// 16-byte copies carry 16 int8 values each instead of 8 bf16.
 //
 // Translation to Hopper. The TPU walks blocks on a sequential grid axis
 // and carries (m, l, acc) in VMEM scratch between grid steps; CUDA blocks
@@ -41,17 +41,19 @@
 // The grid is (B, KV, row tiles x splits). Each row tile skips blocks by
 // ITS OWN largest position, so it never skips a block one of its queries
 // can see. There is no scalar prefetch: each CUDA block reads its own
-// table entries and positions. Three routes, chosen by dtype, head_dim
-// and the grouped-row count T * n_rep alone:
+// table entries and positions. Three routes, chosen by the query dtype,
+// head_dim and the grouped-row count T * n_rep alone:
 // - bf16 prefill (>= 64 grouped rows, head_dim 64 or 128): 64-row tiles
-//   on wgmma tensor-core products, K/V gathered in bf16 by cp.async into
-//   a 3-stage ring of 128-byte-swizzled tiles (paged_prefill_kernel);
-// - bf16 decode (fewer rows, or head_dim 256): CUDA-core products over
-//   the same 3-stage bf16 ring, the key axis split by a fixed span of
-//   256 keys (paged_decode_bf16_kernel, span_combine_kernel);
-// - fp32 and int8 pools: the first design (paged_attention_kernel): K/V
-//   staged synchronously as fp32, 4- or 16-row tiles, the key axis split
-//   by grid size when the grid is small, fp32 CUDA-core math.
+//   on wgmma tensor-core products, K/V gathered by cp.async into a ring
+//   of stages (bf16: 128-byte-swizzled tiles the products read; int8:
+//   the payload, converted to such tiles ahead of the products)
+//   (paged_prefill_kernel);
+// - bf16 decode (fewer rows, or head_dim 256): CUDA-core products over a
+//   3-stage ring of the payload, the key axis split by a fixed span of
+//   256 keys (paged_decode_kernel, span_combine_kernel);
+// - fp32 queries: the first design (paged_attention_kernel): K/V staged
+//   synchronously as fp32, 4- or 16-row tiles, the key axis split by grid
+//   size when the grid is small, fp32 CUDA-core math.
 //
 // What bounds it on the H100. At decode (T = 1) the work is ~2 FLOPs per
 // byte of K/V, far under the card's ~295 FLOP/byte ridge: the bound is
@@ -387,22 +389,24 @@ __global__ void __launch_bounds__(D) combine_kernel(Params p) {
             (((size_t)b * p.cur_len + t) * p.num_heads + head) * D + c);
 }
 
-// ------------------------------------------- bf16 routes, redesigned
+// ------------------------------------ bf16 queries: the redesigned routes
 //
 // Grouped rows, T * n_rep of them per (b, kv head), pick the route:
 // at or above kPrefillRows (64: one full wgmma tile; the serve path's
 // prefill chunk sends 1024) and head_dim <= 128, the tensor-core prefill
 // kernel; below it (a decode step is T 1: n_rep rows), and at head_dim
-// 256, the CUDA-core decode kernel. Both gather K/V in bf16 through the
+// 256, the CUDA-core decode kernel. The rule is the same for bf16 and
+// int8 pools (payload P = bf16 or int8_t). Both gather K/V through the
 // table with cp.async 16-byte copies (each token's row for one kv head is
-// D * 2 contiguous bytes) into a ring of stages (3 at decode, 4 at
-// prefill), so the next tiles' pages are in flight while this tile
-// computes; table entries below 0 and blocks past the tile's live keys
-// read zeros (never a byte).
+// D * sizeof(P) contiguous bytes; under int8 its two fp32 scale rows come
+// with it by 4-byte copies) into a ring of stages, so the next tiles'
+// pages are in flight while this tile computes; table entries below 0 and
+// blocks past the tile's live keys read zeros (never a byte).
 
 constexpr int kPrefillRows = 64;   // grouped rows that take the prefill route
-constexpr int kSplitKeys = 256;    // key span of one decode split
-constexpr int kRing = 3;           // cp.async stages
+constexpr int kSplitKeys = 256;    // key span of one decode split: bf16
+constexpr int kInt8SplitKeys = 128;  // ... and over int8 pools
+constexpr int kRing = 3;           // cp.async stages: decode
 constexpr int kNoSplit = 1 << 30;  // split_keys when the key axis is whole
 constexpr float kLog2e = 1.4426950408889634f;
 using bf16 = __nv_bfloat16;
@@ -424,18 +428,41 @@ __device__ __forceinline__ int tile_live_keys(const Params& p, int b,
 using sm90::quad_max;
 using sm90::quad_sum;
 
-// Pool offset of 16-byte chunk `ch` of key k_pos's row (kv head h), or
-// -1 past the live keys or for a table entry below 0 (read as zeros).
-// `blocks` holds the row's table entries from logical block lb0 on.
-__device__ __forceinline__ long long kv_chunk(const Params& p,
-                                              const int* blocks, int lb0,
-                                              int h, int k_pos,
-                                              int live_keys, int ch,
-                                              int head_dim) {
+// Token row of key k_pos (kv head h) in the pool, ((block * bs + slot) *
+// KV + h): its payload starts at row * D, its scales at row. -1 past the
+// live keys or for a table entry below 0 (read as zeros). `blocks` holds
+// the row's table entries from logical block lb0 on.
+__device__ __forceinline__ long long kv_row(const Params& p,
+                                            const int* blocks, int lb0,
+                                            int h, int k_pos,
+                                            int live_keys) {
   const int blk = k_pos < live_keys ? blocks[k_pos / p.block_size - lb0] : -1;
   if (blk < 0) return -1;
-  return (((long long)blk * p.block_size + k_pos % p.block_size) *
-              p.kv_heads + h) * head_dim + ch * 8;
+  return ((long long)blk * p.block_size + k_pos % p.block_size) * p.kv_heads +
+         h;
+}
+
+// int8 -> fp32, exact: the byte, biased to unsigned, becomes the low byte
+// of the float 2^23 + (x + 128), and 2^23 + 128 is subtracted (integer
+// and FP32 pipes, where a conversion instruction would take the SM's
+// 16-a-clock conversion unit). `biased` is the word XOR 0x80808080.
+template <int E>
+__device__ __forceinline__ float int8_lane(uint32_t biased) {
+  return __fsub_rn(__uint_as_float(__byte_perm(biased, 0x4B000000u,
+                                               0x7540 + E)),
+                   8388736.f);
+}
+
+// Four int8 (one word, byte 0 first) as two bf16 pairs: an integer of at
+// most 8 significant bits is exact in bf16, which is the float's upper
+// half.
+__device__ __forceinline__ void int8x4_to_bf16x4(uint32_t w, uint32_t& lo,
+                                                 uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  lo = __byte_perm(__float_as_uint(int8_lane<0>(u)),
+                   __float_as_uint(int8_lane<1>(u)), 0x7632);
+  hi = __byte_perm(__float_as_uint(int8_lane<2>(u)),
+                   __float_as_uint(int8_lane<3>(u)), 0x7632);
 }
 
 // ---- prefill route: one warpgroup, 64 grouped rows, wgmma products.
@@ -448,39 +475,79 @@ __device__ __forceinline__ long long kv_chunk(const Params& p,
 // keys: a skipped tile adds exactly 0 once a visible key has been seen.
 // The row's table entries for the walk are staged in shared memory once,
 // so a copy's address never waits on a global load; the ring runs
-// kPrefillRing - 1 tiles ahead, and the scores of tile i + 1 are issued
-// with tile i's P.V, so their softmax overlaps P.V on the tensor cores.
+// stages - 1 tiles ahead, and the scores of tile i + 1 are issued with
+// tile i's P.V, so their softmax overlaps P.V on the tensor cores.
+//
+// int8 pools. The ring carries the int8 payload (a 64-key tile at D 128
+// is 8 KB, half of bf16's) and the tile's 64 K and V scale rows. Each
+// tile is converted int8 -> bf16 (exact) by all 128 threads into a
+// swizzled bf16 tile that wgmma reads; a fence.proxy.async orders those
+// generic-proxy stores before the async-proxy reads of the products.
+// Tile i + 2 is converted while the products of tile i run (three
+// converted buffers). The K scale multiplies each fp32 score column in
+// registers, then sm_scale: two rounded multiplies, the reference's
+// order; l sums the unscaled p; the V scale multiplies each p column in
+// registers before it is packed to bf16 as P.V's A operand. Masked keys
+// take p = 0 exactly before the V scale multiplies, so stale payload and
+// scales in a block's masked tail add exactly 0.
 
-constexpr int kPrefillRing = 4;
+constexpr int kPrefillRing = 4;     // cp.async stages: bf16 prefill
+constexpr int kInt8Ring = 4;        // cp.async stages: int8 prefill
+
+template <typename P, int D>
+struct PrefillSmem;
 
 template <int D>
-struct PrefillSmem {
-  static constexpr int kChunks = D / 64;
+struct PrefillSmem<bf16, D> {
+  static constexpr int kChunks = D / 64, kStages = kPrefillRing;
+  static constexpr int kBufs = kStages;    // the products read the ring
   alignas(1024) bf16 q[kChunks][kPrefillRows * 64];
-  alignas(1024) bf16 k[kPrefillRing][kChunks][kStepKeys * 64];
-  alignas(1024) bf16 v[kPrefillRing][kChunks][kStepKeys * 64];
+  alignas(1024) bf16 k[kStages][kChunks][kStepKeys * 64];
+  alignas(1024) bf16 v[kStages][kChunks][kStepKeys * 64];
+  int qpos[kPrefillRows];
+};
+
+template <int D>
+struct PrefillSmem<int8_t, D> {
+  static constexpr int kChunks = D / 64, kStages = kInt8Ring;
+  // Converted tiles: i and i + 1 (read by the products), i + 2.
+  static constexpr int kBufs = 3;
+  static_assert(kStages >= kBufs + 1, "the ring must run ahead");
+  alignas(1024) bf16 q[kChunks][kPrefillRows * 64];
+  alignas(1024) bf16 k[kBufs][kChunks][kStepKeys * 64];    // converted
+  alignas(1024) bf16 v[kBufs][kChunks][kStepKeys * 64];
+  alignas(16) int8_t k8[kStages][kStepKeys * D];           // the ring
+  alignas(16) int8_t v8[kStages][kStepKeys * D];
+  float k_scale[kStages][kStepKeys];
+  float v_scale[kStages][kStepKeys];
   int qpos[kPrefillRows];
 };
 
 // Shared memory of one prefill block: the tiles, then one table entry
 // per logical block of the row.
-template <int D>
+template <typename P, int D>
 size_t prefill_smem(int blocks_per_seq) {
-  return sizeof(PrefillSmem<D>) + 1024 + (size_t)blocks_per_seq * sizeof(int);
+  return sizeof(PrefillSmem<P, D>) + 1024 +
+         (size_t)blocks_per_seq * sizeof(int);
 }
 
-template <int D>
+template <typename P, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(Params p) {
-  constexpr int kRowChunks = D / 8;
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  using Smem = PrefillSmem<P, D>;
+  constexpr int kStages = Smem::kStages;
+  constexpr int kBufs = Smem::kBufs;
+  constexpr int kVec = 16 / sizeof(P);           // elements a copy moves
+  constexpr int kRowChunks = D / kVec;
   constexpr int kCopies = kStepKeys * kRowChunks / kThreads;
   extern __shared__ unsigned char smem_raw[];
-  PrefillSmem<D>& sm = *reinterpret_cast<PrefillSmem<D>*>(
+  Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   int* blocks = reinterpret_cast<int*>(&sm + 1);
   const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k_pool = static_cast<const bf16*>(p.k_pool);
-  const bf16* v_pool = static_cast<const bf16*>(p.v_pool);
+  const P* k_pool = static_cast<const P*>(p.k_pool);
+  const P* v_pool = static_cast<const P*>(p.v_pool);
   const int b = blockIdx.x, h = blockIdx.y, row0 = blockIdx.z * kPrefillRows;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -511,8 +578,8 @@ paged_prefill_kernel(Params p) {
 
   // The query tile, regrouped kv-head-major on the way: row j is token
   // j / n_rep of head h * n_rep + j % n_rep.
-  for (int c = tid; c < kPrefillRows * kRowChunks; c += kThreads) {
-    const int r = c / kRowChunks, ch = c % kRowChunks, j = row0 + r;
+  for (int c = tid; c < kPrefillRows * (D / 8); c += kThreads) {
+    const int r = c / (D / 8), ch = c % (D / 8), j = row0 + r;
     const bool ok = j < p.total_rows;
     const size_t off =
         ok ? (((size_t)b * p.cur_len + j / p.n_rep) * p.num_heads +
@@ -522,27 +589,78 @@ paged_prefill_kernel(Params p) {
                          sm90::swizzled(r, ch % 8),
                      q + off, ok);
   }
+  // Tile i's K and V rows (and under int8 their scale rows) into stage
+  // i % kStages.
   auto issue = [&](int i) {
     if (i < n_tiles) {
-      const int k0 = first + i * kStepKeys, st = i % kPrefillRing;
+      const int k0 = first + i * kStepKeys, st = i % kStages;
 #pragma unroll
       for (int u = 0; u < kCopies; ++u) {
         const int c = tid + u * kThreads;
         const int key = c / kRowChunks, ch = c % kRowChunks;
-        const long long off =
-            kv_chunk(p, blocks, lb0, h, k0 + key, live_keys, ch, D);
-        const uint32_t at = sm90::swizzled(key, ch % 8);
-        sm90::cp_async16(
-            reinterpret_cast<unsigned char*>(sm.k[st][ch / 8]) + at,
-            k_pool + (off < 0 ? 0 : off), off >= 0);
-        sm90::cp_async16(
-            reinterpret_cast<unsigned char*>(sm.v[st][ch / 8]) + at,
-            v_pool + (off < 0 ? 0 : off), off >= 0);
+        const long long row = kv_row(p, blocks, lb0, h, k0 + key, live_keys);
+        const long long off = row < 0 ? 0 : row * D + ch * kVec;
+        if constexpr (kQuant) {
+          sm90::cp_async16(sm.k8[st] + key * D + ch * kVec, k_pool + off,
+                           row >= 0);
+          sm90::cp_async16(sm.v8[st] + key * D + ch * kVec, v_pool + off,
+                           row >= 0);
+        } else {
+          const uint32_t at = sm90::swizzled(key, ch % 8);
+          sm90::cp_async16(
+              reinterpret_cast<unsigned char*>(sm.k[st][ch / 8]) + at,
+              k_pool + off, row >= 0);
+          sm90::cp_async16(
+              reinterpret_cast<unsigned char*>(sm.v[st][ch / 8]) + at,
+              v_pool + off, row >= 0);
+        }
+      }
+      if constexpr (kQuant) {
+        // Threads 0-63 copy the K scale of key tid, 64-127 the V scale.
+        const int key = tid % kStepKeys;
+        const long long row = kv_row(p, blocks, lb0, h, k0 + key, live_keys);
+        const float* src = tid < kStepKeys ? p.k_scale : p.v_scale;
+        float* dst = tid < kStepKeys ? sm.k_scale[st] : sm.v_scale[st];
+        sm90::cp_async4(dst + key, src + (row < 0 ? 0 : row), row >= 0);
       }
     }
     sm90::cp_async_commit();
   };
-  for (int i = 0; i < kPrefillRing - 1; ++i) issue(i);   // Q rides with 0
+  // int8: tile t of the ring into bf16 buffer t % kBufs. A thread turns a
+  // 16-byte int8 chunk of a row into two 16-byte bf16 chunks; a thread
+  // whose chunk lies in an odd 64-column tile stores its two chunks in
+  // the other order, so the 8 threads of a store phase hit distinct banks.
+  auto convert = [&](int t) {
+    if constexpr (kQuant) {
+      if (t >= n_tiles) return;
+      const int st = t % kStages, cb = t % kBufs;
+#pragma unroll
+      for (int u = 0; u < kCopies; ++u) {
+        const int c = tid + u * kThreads;
+        const int key = c / kRowChunks, ch = c % kRowChunks;
+        const bool swap = (ch / 4) % 2 == 1;
+        const int c0 = 2 * (ch % 4);
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              (kv ? sm.v8[st] : sm.k8[st]) + key * D + ch * 16);
+          uint4 lo, hi;
+          int8x4_to_bf16x4(raw.x, lo.x, lo.y);
+          int8x4_to_bf16x4(raw.y, lo.z, lo.w);
+          int8x4_to_bf16x4(raw.z, hi.x, hi.y);
+          int8x4_to_bf16x4(raw.w, hi.z, hi.w);
+          unsigned char* tile = reinterpret_cast<unsigned char*>(
+              kv ? sm.v[cb][ch / 4] : sm.k[cb][ch / 4]);
+          *reinterpret_cast<uint4*>(tile + sm90::swizzled(key, c0 + swap)) =
+              swap ? hi : lo;
+          *reinterpret_cast<uint4*>(tile + sm90::swizzled(key, c0 + !swap)) =
+              swap ? lo : hi;
+        }
+      }
+      sm90::fence_async_shared();    // before wgmma reads the tile
+    }
+  };
+  for (int i = 0; i < kStages - 1; ++i) issue(i);   // Q rides with 0
 
   const int g = lane / 4, t4 = lane % 4;
   const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
@@ -556,9 +674,9 @@ paged_prefill_kernel(Params p) {
   uint32_t pf[4][4];
   const unsigned char* q_rows = reinterpret_cast<const unsigned char*>(sm.q[0]);
 
-  auto issue_scores = [&](int st) {
+  auto issue_scores = [&](int i) {
     const unsigned char* k_rows =
-        reinterpret_cast<const unsigned char*>(sm.k[st][0]);
+        reinterpret_cast<const unsigned char*>(sm.k[i % kBufs][0]);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int qoff = (kk / 4) * (int)sizeof(sm.q[0]) + (kk % 4) * 32;
@@ -569,9 +687,9 @@ paged_prefill_kernel(Params p) {
     }
     sm90::wgmma_commit();
   };
-  auto issue_pv = [&](int st) {
+  auto issue_pv = [&](int i) {
     const unsigned char* v_rows =
-        reinterpret_cast<const unsigned char*>(sm.v[st][0]);
+        reinterpret_cast<const unsigned char*>(sm.v[i % kBufs][0]);
 #pragma unroll
     for (int kk = 0; kk < kStepKeys / 16; ++kk) {
       const uint64_t dv = sm90::desc_sw128(v_rows + kk * 2048,
@@ -584,11 +702,23 @@ paged_prefill_kernel(Params p) {
     }
     sm90::wgmma_commit();
   };
-  // Scale, mask (absent keys -inf, masked -1e30), online softmax; p left
-  // in sacc. A tile no mask touches takes the short form: maxima of the
-  // raw scores times the (positive) scale, exp2 of one FFMA.
+  // (int8: K scale,) scale, mask (absent keys -inf, masked -1e30), online
+  // softmax; p left in sacc. A tile no mask touches takes the short form:
+  // maxima of the raw scores times the (positive) scale, exp2 of one FFMA.
   auto softmax = [&](int i, float& alpha0, float& alpha1) {
     const int k0 = first + i * kStepKeys;
+    if constexpr (kQuant) {
+      const float* ks = sm.k_scale[i % kStages];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 sc =
+            *reinterpret_cast<const float2*>(ks + 8 * j + 2 * t4);
+        sacc[4 * j] *= sc.x;
+        sacc[4 * j + 1] *= sc.y;
+        sacc[4 * j + 2] *= sc.x;
+        sacc[4 * j + 3] *= sc.y;
+      }
+    }
     const bool edge = k0 + kStepKeys > live_keys ||
                       k0 + kStepKeys - 1 > min_pos ||
                       (p.window > 0 && max_pos - k0 >= p.window) ||
@@ -650,13 +780,26 @@ paged_prefill_kernel(Params p) {
     m0 = n0;
     m1 = n1;
   };
-  auto rescale_and_pack = [&](float alpha0, float alpha1) {
+  // o *= alpha; p (int8: times the V scale) packed to bf16 pairs.
+  auto rescale_and_pack = [&](int i, float alpha0, float alpha1) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       o[4 * j] *= alpha0;
       o[4 * j + 1] *= alpha0;
       o[4 * j + 2] *= alpha1;
       o[4 * j + 3] *= alpha1;
+    }
+    if constexpr (kQuant) {
+      const float* vs = sm.v_scale[i % kStages];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 sc =
+            *reinterpret_cast<const float2*>(vs + 8 * j + 2 * t4);
+        sacc[4 * j] *= sc.x;
+        sacc[4 * j + 1] *= sc.y;
+        sacc[4 * j + 2] *= sc.x;
+        sacc[4 * j + 3] *= sc.y;
+      }
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -665,37 +808,58 @@ paged_prefill_kernel(Params p) {
           sm90::pack_bf16(sacc[4 * j + 2], sacc[4 * j + 3]);
     }
   };
-  // Tiles up to `i` landed and visible to every thread's wgmma.
-  auto landed = [&]() {
-    sm90::fence_async_shared();
-    __syncthreads();
-  };
 
+  // Copies are committed one group per tile; `issue` runs kStages - 1
+  // tiles ahead of the products, and under int8 `convert` two.
   float alpha0, alpha1;
-  sm90::cp_async_wait<kPrefillRing - 2>();      // Q and tile 0
-  landed();
+  if constexpr (kQuant) {
+    sm90::cp_async_wait<kStages - 2>();         // Q and tile 0
+    __syncthreads();
+    convert(0);
+    sm90::cp_async_wait<kStages - 3>();         // tile 1
+    __syncthreads();
+    convert(1);
+  } else {
+    sm90::cp_async_wait<kStages - 2>();         // Q and tile 0
+    sm90::fence_async_shared();
+  }
+  __syncthreads();
   sm90::wgmma_fence();
   issue_scores(0);
   sm90::wgmma_wait<0>();
   sm90::fence_regs(sacc);
   softmax(0, alpha0, alpha1);
-  rescale_and_pack(alpha0, alpha1);
+  rescale_and_pack(0, alpha0, alpha1);
   for (int i = 0; i + 1 < n_tiles; ++i) {
-    sm90::cp_async_wait<kPrefillRing - 3>();    // tile i + 1
-    landed();                                   // ... and tile i - 1 read
-    issue(i + kPrefillRing - 1);
+    if constexpr (!kQuant) {
+      sm90::cp_async_wait<kStages - 3>();       // tile i + 1
+      sm90::fence_async_shared();
+      __syncthreads();                          // ... and tile i - 1 read
+      issue(i + kStages - 1);
+    }
     sm90::wgmma_fence();
-    issue_scores((i + 1) % kPrefillRing);
-    issue_pv(i % kPrefillRing);
+    issue_scores(i + 1);
+    issue_pv(i);
+    if constexpr (kQuant) {
+      // Tile i + 2 converts while the products run: its buffer last fed
+      // tile i - 1's P.V, which every thread waited for last iteration.
+      issue(i + kStages - 1);
+      sm90::cp_async_wait<kStages - 3>();       // tile i + 2
+      __syncthreads();
+      convert(i + 2);
+    }
     sm90::wgmma_wait<1>();
     sm90::fence_regs(sacc);
     softmax(i + 1, alpha0, alpha1);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o);
-    rescale_and_pack(alpha0, alpha1);
+    rescale_and_pack(i + 1, alpha0, alpha1);
+    if constexpr (kQuant) {
+      __syncthreads();                          // tile i + 2 converted
+    }
   }
   sm90::wgmma_fence();
-  issue_pv((n_tiles - 1) % kPrefillRing);
+  issue_pv(n_tiles - 1);
   sm90::wgmma_wait<0>();
   sm90::fence_regs(o);
   sm90::cp_async_wait<0>();             // no copy outlives the block
@@ -719,29 +883,42 @@ paged_prefill_kernel(Params p) {
 
 // ---- decode route: CUDA cores, key-span splits, a cp.async ring.
 //
-// The key axis splits by a fixed span of kSplitKeys keys (the grid's
-// split extent is blocks_per_seq * block_size / kSplitKeys, known on the
-// host), so the longest row gets the most CUDA blocks and a block past
-// its tile's live keys exits at once. A tile whose live keys fit one
-// span writes its output directly; otherwise each split writes (m, l,
-// acc) and span_combine_kernel merges the live splits in order (no
-// atomics: reruns are bit-identical). Staged rows are bf16 padded by 16
-// bytes, so the score loop's 16-byte reads of 8 neighbouring keys fall
-// in distinct banks.
+// The key axis splits by a fixed span of kSplitKeys keys, kInt8SplitKeys
+// over int8 pools (the grid's split extent is blocks_per_seq *
+// block_size / span, known on the host), so the longest row gets the
+// most CUDA blocks and a block past its tile's live keys exits at once.
+// A tile whose live keys fit one span writes its output directly;
+// otherwise each split writes (m, l, acc) and span_combine_kernel merges
+// the live splits in order (no atomics: reruns are bit-identical).
+// Staged rows are padded by 16 bytes, so the score loop's 16-byte reads
+// of 8 neighbouring keys fall in distinct banks. int8 pools stage their
+// payload (half of bf16's bytes) and scale rows and convert at use: the
+// K scale multiplies each score before sm_scale, the V scale each p
+// before it rounds to bf16.
 
-template <int D, int ROWS>
-size_t decode_smem(int blocks_per_seq) {
-  return (size_t)ROWS * D * sizeof(float)                    // q
-         + 2 * (size_t)kRing * kStepKeys * (D + 8) * 2       // K, V ring
-         + (size_t)ROWS * kStepKeys * sizeof(float)          // scores / p
-         + 4 * (size_t)ROWS * sizeof(float)                  // m, l, alpha, pos
-         + (size_t)blocks_per_seq * sizeof(int);             // table entries
+template <typename P, int D>
+__host__ __device__ constexpr int decode_ld() {   // elements
+  return D + 16 / (int)sizeof(P);
 }
 
-template <int D, int ROWS>
+template <typename P, int D, int ROWS>
+size_t decode_smem(int blocks_per_seq) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  return (size_t)ROWS * D * sizeof(float)                          // q
+         + 2 * (size_t)kRing * kStepKeys * decode_ld<P, D>() * sizeof(P)
+         + (kQuant ? 2 * (size_t)kRing * kStepKeys * sizeof(float) : 0)
+         + (size_t)ROWS * kStepKeys * sizeof(float)                // p
+         + 4 * (size_t)ROWS * sizeof(float)              // m, l, alpha, pos
+         + (size_t)blocks_per_seq * sizeof(int);         // table entries
+}
+
+template <typename P, int D, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_bf16_kernel(Params p) {
-  constexpr int kLd = D + 8, kRowChunks = D / 8;
+paged_decode_kernel(Params p) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  constexpr int kLd = decode_ld<P, D>();
+  constexpr int kVec = 16 / sizeof(P);          // elements a copy moves
+  constexpr int kRowChunks = D / kVec;
   constexpr int kCopies = kStepKeys * kRowChunks / kThreads;
   constexpr int kHalf = ROWS / 2;              // rows per thread in QK^T
   constexpr int kGroups = 2 * kThreads / D;    // row groups in P.V
@@ -749,17 +926,19 @@ paged_decode_bf16_kernel(Params p) {
   static_assert(ROWS % kGroups == 0, "P.V rows must divide the groups");
   extern __shared__ __align__(16) unsigned char stage_smem[];
   float* qs = reinterpret_cast<float*>(stage_smem);          // ROWS x D
-  bf16* ks = reinterpret_cast<bf16*>(qs + ROWS * D);         // ring x 64 x kLd
-  bf16* vs = ks + kRing * kStepKeys * kLd;
-  float* ss = reinterpret_cast<float*>(vs + kRing * kStepKeys * kLd);
+  P* ks = reinterpret_cast<P*>(qs + ROWS * D);               // ring x 64 x kLd
+  P* vs = ks + kRing * kStepKeys * kLd;
+  float* ksc = reinterpret_cast<float*>(vs + kRing * kStepKeys * kLd);
+  float* vsc = ksc + (kQuant ? kRing * kStepKeys : 0);       // ring x 64
+  float* ss = vsc + (kQuant ? kRing * kStepKeys : 0);
   float* m_s = ss + ROWS * kStepKeys;
   float* l_s = m_s + ROWS;
   float* alpha_s = l_s + ROWS;
   int* qpos_s = reinterpret_cast<int*>(alpha_s + ROWS);
 
   const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* k_pool = static_cast<const bf16*>(p.k_pool);
-  const bf16* v_pool = static_cast<const bf16*>(p.v_pool);
+  const P* k_pool = static_cast<const P*>(p.k_pool);
+  const P* v_pool = static_cast<const P*>(p.v_pool);
   const int b = blockIdx.x, h = blockIdx.y;
   const int tile = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
   const int row0 = tile * ROWS;
@@ -779,7 +958,8 @@ paged_decode_bf16_kernel(Params p) {
   }
   __syncthreads();
 
-  // 16-byte chunks of the tile's K and V rows (kv_chunk).
+  // 16-byte chunks of the tile's K and V rows (kv_row), and under int8
+  // their scale rows.
   auto issue = [&](int i) {
     if (i < n_tiles) {
       const int k0 = key_lo + i * kStepKeys, st = i % kRing;
@@ -787,11 +967,18 @@ paged_decode_bf16_kernel(Params p) {
       for (int u = 0; u < kCopies; ++u) {
         const int c = tid + u * kThreads;
         const int key = c / kRowChunks, ch = c % kRowChunks;
-        const long long off =
-            kv_chunk(p, blocks, lb0, h, k0 + key, live_keys, ch, D);
-        const int at = (st * kStepKeys + key) * kLd + ch * 8;
-        sm90::cp_async16(ks + at, k_pool + (off < 0 ? 0 : off), off >= 0);
-        sm90::cp_async16(vs + at, v_pool + (off < 0 ? 0 : off), off >= 0);
+        const long long row = kv_row(p, blocks, lb0, h, k0 + key, live_keys);
+        const long long off = row < 0 ? 0 : row * D + ch * kVec;
+        const int at = (st * kStepKeys + key) * kLd + ch * kVec;
+        sm90::cp_async16(ks + at, k_pool + off, row >= 0);
+        sm90::cp_async16(vs + at, v_pool + off, row >= 0);
+      }
+      if constexpr (kQuant) {
+        const int key = tid % kStepKeys;
+        const long long row = kv_row(p, blocks, lb0, h, k0 + key, live_keys);
+        const float* src = tid < kStepKeys ? p.k_scale : p.v_scale;
+        float* dst = (tid < kStepKeys ? ksc : vsc) + st * kStepKeys;
+        sm90::cp_async4(dst + key, src + (row < 0 ? 0 : row), row >= 0);
       }
     }
     sm90::cp_async_commit();
@@ -826,42 +1013,65 @@ paged_decode_bf16_kernel(Params p) {
     __syncthreads();                 // tile i landed; tile i - 1 consumed
     issue(i + kRing - 1);
     const int k0 = key_lo + i * kStepKeys;
-    const bf16* kt = ks + (i % kRing) * kStepKeys * kLd;
-    const bf16* vt = vs + (i % kRing) * kStepKeys * kLd;
+    const P* kt = ks + (i % kRing) * kStepKeys * kLd;
+    const P* vt = vs + (i % kRing) * kStepKeys * kLd;
 
     // Scores: thread (key, half) dots one key against half the rows.
     {
       const int key = tid % kStepKeys, r0 = (tid / kStepKeys) * kHalf;
-      const bf16* kr = kt + key * kLd;
+      const P* kr = kt + key * kLd;
       float dots[kHalf];
 #pragma unroll
       for (int r = 0; r < kHalf; ++r) dots[r] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < D; d += 8) {
+      for (int d = 0; d < D; d += kVec) {
         const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float kf[8];
+        float kf[kVec];
+        if constexpr (kQuant) {
+          const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                                 raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 f = __bfloat1622float2(k2[u]);
-          kf[2 * u] = f.x;
-          kf[2 * u + 1] = f.y;
+          for (int u = 0; u < 4; ++u) {
+            kf[4 * u] = int8_lane<0>(w[u]);
+            kf[4 * u + 1] = int8_lane<1>(w[u]);
+            kf[4 * u + 2] = int8_lane<2>(w[u]);
+            kf[4 * u + 3] = int8_lane<3>(w[u]);
+          }
+        } else {
+          const __nv_bfloat162* k2 =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 f = __bfloat1622float2(k2[u]);
+            kf[2 * u] = f.x;
+            kf[2 * u + 1] = f.y;
+          }
         }
 #pragma unroll
         for (int r = 0; r < kHalf; ++r) {
-          const float4 qa = *reinterpret_cast<const float4*>(qs + (r0 + r) * D + d);
-          const float4 qb = *reinterpret_cast<const float4*>(qs + (r0 + r) * D + d + 4);
+          float4 qv[kVec / 4];
+#pragma unroll
+          for (int u = 0; u < kVec / 4; ++u) {
+            qv[u] = *reinterpret_cast<const float4*>(qs + (r0 + r) * D + d +
+                                                     4 * u);
+          }
           float s = dots[r];
-          s = fmaf(qa.x, kf[0], s);
-          s = fmaf(qa.y, kf[1], s);
-          s = fmaf(qa.z, kf[2], s);
-          s = fmaf(qa.w, kf[3], s);
-          s = fmaf(qb.x, kf[4], s);
-          s = fmaf(qb.y, kf[5], s);
-          s = fmaf(qb.z, kf[6], s);
-          s = fmaf(qb.w, kf[7], s);
+#pragma unroll
+          for (int u = 0; u < kVec / 4; ++u) {
+            s = fmaf(qv[u].x, kf[4 * u], s);
+            s = fmaf(qv[u].y, kf[4 * u + 1], s);
+            s = fmaf(qv[u].z, kf[4 * u + 2], s);
+            s = fmaf(qv[u].w, kf[4 * u + 3], s);
+          }
           dots[r] = s;
         }
+      }
+      if constexpr (kQuant) {
+        // The K scale factors out of the head_dim sum: scores * scale,
+        // then * sm_scale below, as the TPU int8 kernel orders them.
+        const float sc = ksc[(i % kRing) * kStepKeys + key];
+#pragma unroll
+        for (int r = 0; r < kHalf; ++r) dots[r] *= sc;
       }
       const int k_pos = k0 + key;
       const bool present = k_pos < live_keys;
@@ -877,16 +1087,22 @@ paged_decode_bf16_kernel(Params p) {
     __syncthreads();
 
     // Online softmax update: one warp per query row, two keys per lane.
+    // l sums p unscaled; under int8 p * V scale rounds to bf16.
     for (int r = warp; r < ROWS; r += kWarps) {
       float* sr = ss + r * kStepKeys;
       const float s0 = sr[lane], s1 = sr[lane + 32];
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = exp2f((s0 - m_new) * kLog2e);
-      const float p1 = exp2f((s1 - m_new) * kLog2e);
+      float p0 = exp2f((s0 - m_new) * kLog2e);
+      float p1 = exp2f((s1 - m_new) * kLog2e);
       const float sum = warp_sum(p0 + p1);
-      sr[lane] = round_to(p0, v_pool);
-      sr[lane + 32] = round_to(p1, v_pool);
+      if constexpr (kQuant) {
+        const float* vsr = vsc + (i % kRing) * kStepKeys;
+        p0 *= vsr[lane];
+        p1 *= vsr[lane + 32];
+      }
+      sr[lane] = round_to(p0, q);
+      sr[lane + 32] = round_to(p1, q);
       if (lane == 0) {
         const float alpha = exp2f((m_prev - m_new) * kLog2e);
         l_s[r] = l_s[r] * alpha + sum;
@@ -904,8 +1120,16 @@ paged_decode_bf16_kernel(Params p) {
       float pv0 = 0.f, pv1 = 0.f;
 #pragma unroll 8
       for (int key = 0; key < kStepKeys; ++key) {
-        const float2 v2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vt + key * kLd + 2 * cp));
+        float2 v2;
+        if constexpr (kQuant) {
+          const uint32_t w =
+              *reinterpret_cast<const uint16_t*>(vt + key * kLd + 2 * cp) ^
+              0x8080u;
+          v2 = make_float2(int8_lane<0>(w), int8_lane<1>(w));
+        } else {
+          v2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(vt + key * kLd + 2 * cp));
+        }
         pv0 = fmaf(pr[key], v2.x, pv0);
         pv1 = fmaf(pr[key], v2.y, pv1);
       }
@@ -968,17 +1192,24 @@ __global__ void __launch_bounds__(D) span_combine_kernel(Params p) {
 
 enum Route { kFirst, kPrefill, kDecode };
 
-// The route depends only on dtype, head_dim and the grouped-row count.
-Route route_of(int dtype, bool quant, int head_dim, int total_rows) {
-  if (dtype != 1 || quant) return kFirst;   // fp32 and int8: first design
+// The route depends only on dtype, head_dim and the grouped-row count,
+// the same for bf16 and int8 pools.
+Route route_of(int dtype, int head_dim, int total_rows) {
+  if (dtype != 1) return kFirst;            // fp32 queries: first design
   return head_dim <= 128 && total_rows >= kPrefillRows ? kPrefill : kDecode;
 }
 
-int splits_of(Route route, int batch, int kv_heads, int total_rows,
-              int blocks_per_seq, int block_size) {
+// The decode route's key span: 128 keys over int8 pools, whose keys move
+// half the bytes; at a decode tick's rows of a few hundred keys the
+// extra splits keep more SMs busy (ops/kernel_ab.py paged-int8-span-*).
+int split_keys_of(bool quant) { return quant ? kInt8SplitKeys : kSplitKeys; }
+
+int splits_of(Route route, bool quant, int batch, int kv_heads,
+              int total_rows, int blocks_per_seq, int block_size) {
   if (route == kFirst) return num_splits(batch, kv_heads, total_rows);
   if (route == kPrefill || total_rows >= kPrefillRows) return 1;
-  return (blocks_per_seq * block_size + kSplitKeys - 1) / kSplitKeys;
+  const int span = split_keys_of(quant);
+  return (blocks_per_seq * block_size + span - 1) / span;
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -1003,10 +1234,10 @@ int launch_first(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename P, int D>
 int launch_prefill(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = prefill_smem<D>(p.blocks_per_seq);
-  auto kernel = paged_prefill_kernel<D>;
+  const size_t smem = prefill_smem<P, D>(p.blocks_per_seq);
+  auto kernel = paged_prefill_kernel<P, D>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (p.total_rows + kPrefillRows - 1) / kPrefillRows;
@@ -1014,10 +1245,10 @@ int launch_prefill(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, int ROWS>
+template <typename P, int D, int ROWS>
 int launch_decode(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = decode_smem<D, ROWS>(p.blocks_per_seq);
-  auto kernel = paged_decode_bf16_kernel<D, ROWS>;
+  const size_t smem = decode_smem<P, D, ROWS>(p.blocks_per_seq);
+  auto kernel = paged_decode_kernel<P, D, ROWS>;
   cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (p.total_rows + ROWS - 1) / ROWS;
@@ -1030,17 +1261,19 @@ int launch_decode(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 queries (bf16 or int8 pools) take the prefill or decode route,
+// fp32 queries the first design.
 template <typename T, typename P, int D>
 int dispatch_rows(Route route, const Params& p, int batch,
                   cudaStream_t stream) {
   const bool small = rows_per_tile(p.total_rows) == 4;
-  if constexpr (std::is_same<T, bf16>::value && std::is_same<P, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value) {
     if (route == kPrefill) {
-      if constexpr (D <= 128) return launch_prefill<D>(p, batch, stream);
+      if constexpr (D <= 128) return launch_prefill<P, D>(p, batch, stream);
       return (int)cudaErrorInvalidValue;
     }
-    return small ? launch_decode<D, 4>(p, batch, stream)
-                 : launch_decode<D, 16>(p, batch, stream);
+    return small ? launch_decode<P, D, 4>(p, batch, stream)
+                 : launch_decode<P, D, 16>(p, batch, stream);
   } else {
     return small ? launch_first<T, P, D, 4>(p, batch, stream)
                  : launch_first<T, P, D, 16>(p, batch, stream);
@@ -1068,9 +1301,9 @@ extern "C" long long paged_attention_workspace_floats(
     int blocks_per_seq, int block_size, int dtype, int quant) {
   if (kv_heads <= 0 || num_heads % kv_heads) return 0;
   const int total_rows = cur_len * (num_heads / kv_heads);
-  const Route route = route_of(dtype, quant != 0, head_dim, total_rows);
-  const int splits = splits_of(route, batch, kv_heads, total_rows,
-                               blocks_per_seq, block_size);
+  const Route route = route_of(dtype, head_dim, total_rows);
+  const int splits = splits_of(route, quant != 0, batch, kv_heads,
+                               total_rows, blocks_per_seq, block_size);
   if (splits == 1) return 0;
   return (long long)batch * kv_heads * splits * total_rows * (head_dim + 2);
 }
@@ -1109,10 +1342,10 @@ int forward(const void* q, const void* k_pool, const void* v_pool,
   p.block_size = block_size;
   p.blocks_per_seq = blocks_per_seq;
   p.table_stride = table_stride;
-  const Route route = route_of(dtype, quant, head_dim, p.total_rows);
-  p.splits = splits_of(route, batch, kv_heads, p.total_rows, blocks_per_seq,
-                       block_size);
-  p.split_keys = p.splits > 1 ? kSplitKeys : kNoSplit;
+  const Route route = route_of(dtype, head_dim, p.total_rows);
+  p.splits = splits_of(route, quant, batch, kv_heads, p.total_rows,
+                       blocks_per_seq, block_size);
+  p.split_keys = p.splits > 1 ? split_keys_of(quant) : kNoSplit;
   p.window = window;
   p.sm_scale = sm_scale;
   float* ws = static_cast<float*>(workspace);

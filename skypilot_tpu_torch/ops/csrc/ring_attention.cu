@@ -5,7 +5,7 @@
 // Replaces the TPU kernel of skypilot_tpu/ops/ring_attention.py,
 // reached from every hop of `ring_attention` (:150) when the hop runs as a
 // kernel:
-//   ring_chunk_kernel / ring_chunk_mma_kernel <- `_chunk_update_kernel`
+//   ring_chunk_kernel / ring_chunk_wgmma_kernel <- `_chunk_update_kernel`
 //   (:71, via `_chunk_update_pallas` :111, pl.pallas_call at :135)
 //
 // What it computes (the TPU kernel's contract, `_chunk_update` :47 op for
@@ -17,17 +17,16 @@
 // the P.V product and the product itself rounded to the input dtype, then
 // widened to fp32. o is (B, Sq, H, D) fp32, m and l (B, H, Sq) fp32; they
 // are read once and written once.
-//
-// Translation to Hopper.
+/// Translation to Hopper.
 // - Grid. The TPU kernel holds a whole (Sq, D) x (Sk, D) chunk pair in
-//   VMEM per (batch, head) grid cell. Here one CUDA block owns one (b, h,
-//   64-row q tile) and loops over 64-key k tiles of the chunk, carrying a
+//   VMEM per (batch, head) grid cell. Here a CUDA block owns a tile of
+//   query rows and loops over 64-key k tiles of the chunk, carrying a
 //   running max that STARTS at the incoming m: p is taken against the
 //   running max and rescaled by exp(m_old - m_new) as the max grows, which
 //   is the chunk-wide max the reference uses once the last tile is in. The
 //   P.V sum is kept apart from the incoming o, rounded to the input dtype
 //   once at the end and then added to o exp(m_in - m_new) in fp32: the
-//   reference's o alpha + P.V. At B 4, H 16, Sq 512 that is 512 blocks.
+//   reference's o alpha + P.V.
 // - -1e30. A row whose keys are all masked so far, with m = -1e30 coming
 //   in, gets p = exp(-1e30 + 1e30) = 1 for every masked key, as the
 //   reference does; as soon as a visible key raises the max, those p are
@@ -44,29 +43,38 @@
 //   strides (a chunk of the fused qkv projection needs no copy), and query
 //   head h reads KV head h / n_rep: K/V are never repeated in memory.
 // - Two routes, as in flash_attention.cu: bf16 at head_dim 64 and 128 runs
-//   the tensor-core kernel (mma.sync m16n8k16, ldmatrix, 4 warps of 16
-//   rows); fp32, and bf16 at head_dim 256, the CUDA-core kernel (256
-//   threads in a 16 x 16 layout, 64-row tiles, 32 at head_dim 256).
+//   the wgmma / TMA kernel (ring_chunk_wgmma_kernel, grouped heads; its
+//   own note is further down); fp32, and bf16 at head_dim 256, the
+//   CUDA-core kernel (256 threads in a 16 x 16 layout, one (b, head) and
+//   64-row tile per block, 32 rows at head_dim 256).
 //
 // What bounds it on the H100. At the training shape (B 4, Sq = Sk = 512,
 // H 16, KV 8, D 128, bf16) one full hop reads q (8.4 MB), k and v (4.2 MB
 // each at KV heads), o (16.8 MB fp32), m and l, and writes o, m and l:
 // ~50.9 MB, 15.2 us at 3.35 TB/s, against 8.6 GFLOP of products (4 D per
 // pair), 8.7 us at 989 TFLOP/s: bytes bound it, the fp32 state above all.
-// The simple design reads each of them once per block and keeps K/V tiles
-// in shared memory; pipelined tile loads and wgmma are later work.
+// The bf16 kernel reads K/V once per work tile for all n_rep heads of the
+// group, overlaps their loads with the products, and reads and writes the
+// fp32 state once, in whole 32-byte sectors.
 
+
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "wgmma_attention.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMmaThreads = 128;
 constexpr float kMaskValue = -1e30f;
+
+using bf16 = __nv_bfloat16;
 
 struct Args {
   const void* q;
@@ -317,266 +325,389 @@ ring_chunk_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------------- bf16 tensor-core kernel
+// ------------------------------------------- bf16 kernel: wgmma and TMA
 //
-// The products run on the tensor cores through mma.sync m16n8k16 (bf16
-// operands, fp32 accumulation), with the fragment plumbing of
-// flash_fwd_mma_kernel (flash_attention.cu): 4 warps per block, each owning
-// 16 rows of the 64-row q tile; tiles row-major in shared memory with rows
-// padded by 8 elements; Q and K fragments through ldmatrix, V through
-// ldmatrix.trans; the score accumulators turn into P's A fragments in
-// registers.
+// The flash forward's grouped-head mainloop (wgmma_attention.cuh, shared
+// with flash_attention.cu): a work tile is (b, KV head, 128 / n_rep
+// positions) and takes the n_rep query heads of the group as its 128
+// rows (row = position * n_rep + head), so each K/V tile is fetched once
+// for all of them; a producer warp loads the tile's Q once by TMA over
+// the strided (B, Sq, H, D) view and streams 64-key K/V tiles over the
+// strided (B, Sk, KV, D) views through a ring of kStages; two consumer
+// warpgroups of 64 rows run S = Q.K^T (m64n64k16) and P.V (m64nDk16, P
+// from registers), S of tile i + 1 issued with tile i's P.V; one block
+// per work tile, heaviest first when tiles are skipped.
+// Where it differs from the flash forward:
+// - The state. m starts at the incoming m; the P.V sum is kept apart
+//   from the incoming o, rounded to bf16 once, then added in fp32 to
+//   o exp(m_in - m_new); l = l_in alpha + sum p. m, l and o go out once.
+// - The incoming o, 2/3 of the hop's bytes, is read in the accumulator
+//   layout (a quad's four 8-byte loads fill one 32-byte sector). Its
+//   prefetch to L2 is issued when the work tile starts, so its latency
+//   hides behind the tile's products; held in registers across the last
+//   P.V instead, it spilled (ptxas caps a 288-thread block at 168).
+// - The mask is the reference's: keys masked to -1e30 by k_offset + c >
+//   q_offset + r, never to -inf, and never a select to 0: a row with m =
+//   -1e30 so far takes p = exp2(0) = 1 exactly for every masked key, as
+//   the reference does. Keys past Sk are -inf (p = 0). Key tiles wholly
+//   past a tile's last visible key are skipped only in mode 1 with
+//   q_offset >= k_offset, where key tile 0, walked first, is visible to
+//   every row.
 
-using bf16 = __nv_bfloat16;
+namespace hopper {
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+using sm90::kConsumerWarps;
+using sm90::kKeys;
+using sm90::kLog2e;
+using sm90::kRows;
+using sm90::QSmem;
+using sm90::quad_max;
+using sm90::quad_sum;
+
+constexpr int kStages = 4;          // K/V tiles in flight
+constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+// One CUDA block per work tile, or one per SM walking them (kernel_ab
+// ring-persistent): the diagonal hop's tiles differ in weight, and the
+// block scheduler balances them better than a fixed stride.
+constexpr bool kPersistent = false;
+
+struct Params {
+  const float* o_in;
+  const float* m_in;
+  const float* l_in;
+  float* o_out;
+  float* m_out;
+  float* l_out;
+  int batch, s_q, s_k, heads, kv_heads, n_rep, positions, tiles;
+  int mask_mode, q_offset, k_offset;
+  float scale;
+};
+
+__device__ __forceinline__ bool skips(const Params& p) {
+  return p.mask_mode == 1 && p.q_offset >= p.k_offset;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Rows [r0, r0 + ROWS) of a (b, head) slab into [ROWS][D + 8], zeros past
-// `rows`.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows_mma(bf16* dst, const bf16* src,
-                                              long long row_stride, int r0,
-                                              int rows) {
-  constexpr int kPerRow = D / 8, kLd = D + 8;
-  for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kMmaThreads) {
-    const int r = idx / kPerRow, c = (idx % kPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
+// Work tile w: the heaviest q tiles first where tiles are skipped, then
+// (b, KV head); key tiles [t_lo, t_hi) of kKeys.
+struct RingWork {
+  int b, kvh, q0, t_lo, t_hi;
+  __device__ RingWork(int w, const Params& p) {
+    const int groups = p.batch * p.kv_heads;
+    const int qt = skips(p) ? p.tiles - 1 - w / groups : w / groups;
+    b = (w % groups) / p.kv_heads;
+    kvh = w % p.kv_heads;
+    q0 = qt * p.positions;
+    const int q_last = min(p.s_q, q0 + p.positions) - 1;
+    const int k_hi =
+        skips(p) ? min(p.s_k, p.q_offset - p.k_offset + q_last + 1) : p.s_k;
+    t_lo = 0;
+    t_hi = (k_hi + kKeys - 1) / kKeys;
   }
-}
+};
 
-// ldmatrix addressing: lane l gives row l % 8 of 8 x 8 matrix l / 8.
-// A fragment of rows [row, row + 16), columns [col, col + 16).
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const bf16* tile,
-                                       int ld, int row, int col, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldsm_x4(f, tile + (row + r + (m % 2) * 8) * ld + col + (m / 2) * 8);
-}
-
-// B fragments of two n-tiles (n rows [n0, n0 + 16), k columns [k0, k0 +
-// 16)) from a tile stored [n][k].
-__device__ __forceinline__ void load_b_nk(uint32_t (&f)[4], const bf16* tile,
-                                          int ld, int n0, int k0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldsm_x4(f, tile + (n0 + (m / 2) * 8 + r) * ld + k0 + (m % 2) * 8);
-}
-
-// The same from a tile stored [k][n], transposed by ldmatrix.trans.
-__device__ __forceinline__ void load_b_kn(uint32_t (&f)[4], const bf16* tile,
-                                          int ld, int k0, int n0, int lane) {
-  const int m = lane / 8, r = lane % 8;
-  ldsm_x4_t(f, tile + (k0 + (m % 2) * 8 + r) * ld + n0 + (m / 2) * 8);
+// The reference's mask on one scaled score (position `pos` of the q
+// chunk, key `c` of the k chunk).
+__device__ __forceinline__ float ring_mask(float s, int pos, int c,
+                                           const Params& p) {
+  if (c >= p.s_k) return neg_inf();
+  if (p.mask_mode == 1 && p.k_offset + c > p.q_offset + pos) return kMaskValue;
+  return s;
 }
 
 template <int D>
-constexpr size_t chunk_mma_smem() {
-  return 3 * 64 * (D + 8) * sizeof(bf16);
-}
-
-// Thread (warp, g = lane / 4, t = lane % 4) owns rows r0 = q0 + 16 warp + g
-// and r1 = r0 + 8, columns 8 j + 2 t (+1) of each score n-tile and of the
-// D-wide P.V sum.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-ring_chunk_mma_kernel(const Args a) {
-  constexpr int BQ = 64, BK = 64, kLd = D + 8;
-  constexpr int KS = D / 16, NT = BK / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * kLd;
-  bf16* vs = ks + BK * kLd;
-
+__global__ void __launch_bounds__(kThreads, 1)
+ring_chunk_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const Params p) {
+  // The shared layout's staging tile (o) is left unused: the state goes
+  // out from registers in fp32.
+  using Smem = QSmem<D, kStages, 1>;
+  Smem& sm = sm90::smem_at_1024<Smem>();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int kvh = h / a.n_rep;
-  const int qt = skips_tiles(a) ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * BQ;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const int n_work = p.batch * p.kv_heads * p.tiles;
+  sm90::init_q_barriers(sm);
 
-  load_rows_mma<BQ, D>(qs, q, a.q_ss, q0, a.s_q);
-  __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a(qf[kk], qs, kLd, warp * 16, kk * 16, lane);
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const int k_hi = key_end(a, q0, BQ);
-
-  const float m_in0 = r0 < a.s_q ? a.m_in[state_row(a, b, h, r0)] : kMaskValue;
-  const float m_in1 = r1 < a.s_q ? a.m_in[state_row(a, b, h, r1)] : kMaskValue;
-  float m0 = m_in0, m1 = m_in1, l0 = 0.f, l1 = 0.f;
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    load_rows_mma<BK, D>(ks, k, a.k_ss, k0, a.s_k);
-    load_rows_mma<BK, D>(vs, v, a.v_ss, k0, a.s_k);
-    __syncthreads();
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kb[4];
-        load_b_nk(kb, ks, kLd, j * 8, kk * 16, lane);
-        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
-      }
+  if (warp == kConsumerWarps) {                 // the producer warp
+    if (lane == 0) {
+      sm90::produce_q_work<RingWork>(sm, &tq, &tq, &tk, &tv, p, n_work);
     }
-    float mx0 = neg_inf(), mx1 = neg_inf();
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = k0 + j * 8 + 2 * t;
-      s[j][0] = masked(s[j][0] * a.scale, r0, c, a);
-      s[j][1] = masked(s[j][1] * a.scale, r0, c + 1, a);
-      s[j][2] = masked(s[j][2] * a.scale, r1, c, a);
-      s[j][3] = masked(s[j][3] * a.scale, r1, c + 1, a);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(mx0)), n1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = expf(m0 - n0), alpha1 = expf(m1 - n1);
-    float sum0 = 0.f, sum1 = 0.f;
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float p0 = expf(s[j][0] - n0), p1 = expf(s[j][1] - n0);
-      const float p2 = expf(s[j][2] - n1), p3 = expf(s[j][3] - n1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * alpha0 + quad_sum(sum0);
-    l1 = l1 * alpha1 + quad_sum(sum1);
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha0;
-      o[j][1] *= alpha0;
-      o[j][2] *= alpha1;
-      o[j][3] *= alpha1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t vb[4];
-        load_b_kn(vb, vs, kLd, kk * 16, j * 8, lane);
-        mma_bf16(o[j], pf[kk], vb[0], vb[1]);
-        mma_bf16(o[j + 1], pf[kk], vb[2], vb[3]);
-      }
-    }
+    return;
   }
 
-  const float alpha0 = expf(m_in0 - m0), alpha1 = expf(m_in1 - m1);
+  // Consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile;
+  // this thread owns rows lr0 and lr0 + 8 of them, columns 8 j + 2 t4
+  // (+1) of the scores and of the D-wide P.V sum.
+  const int wg = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int lr0 = wg * 64 + (warp % 4) * 16 + g, lr1 = lr0 + 8;
+  const unsigned char* q_rows =
+      reinterpret_cast<const unsigned char*>(sm.q[0][0]) + wg * 64 * 128;
+  const int live_rows = p.positions * p.n_rep;
+  float o[D / 2], sacc[kKeys / 2];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (r0 < a.s_q) {
-      const long long row = o_offset(a, b, h, r0, D) + d;
-      const float2 x = *reinterpret_cast<const float2*>(a.o_in + row);
-      *reinterpret_cast<float2*>(a.o_out + row) = make_float2(
-          update_o(x.x, alpha0, Elt<bf16>::round(o[j][0])),
-          update_o(x.y, alpha0, Elt<bf16>::round(o[j][1])));
+  for (int i = 0; i < kKeys / 2; ++i) sacc[i] = 0.f;
+  uint32_t pf[kKeys / 16][4];
+  int it = 0;                                   // K/V tiles consumed
+
+  for (int w = blockIdx.x, n = 0; w < n_work; w += gridDim.x, ++n) {
+    const RingWork wk(w, p);
+    // Row lr0 / lr1: position pos[h] of the chunk, query head
+    // head_of(h); its state row and o row. Only pos and the incoming m
+    // stay live across the key walk.
+    const int rows[2] = {lr0, lr1};
+    const int pos[2] = {wk.q0 + lr0 / p.n_rep, wk.q0 + lr1 / p.n_rep};
+    auto live = [&](int h) { return rows[h] < live_rows && pos[h] < p.s_q; };
+    auto state_row = [&](int h) {
+      const int head = wk.kvh * p.n_rep + rows[h] % p.n_rep;
+      return (static_cast<long long>(wk.b) * p.heads + head) * p.s_q + pos[h];
+    };
+    auto o_row = [&](int h) {
+      const int head = wk.kvh * p.n_rep + rows[h] % p.n_rep;
+      return ((static_cast<long long>(wk.b) * p.s_q + pos[h]) * p.heads +
+              head) * D;
+    };
+    float m_in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_in[h] = live(h) ? p.m_in[state_row(h)] : kMaskValue;
+      if (live(h)) {                            // the incoming o, to L2
+#pragma unroll
+        for (int j = t4; j < D / 8; j += 4) {
+          asm volatile("prefetch.global.L2 [%0];\n"
+                       :: "l"(p.o_in + o_row(h) + 8 * j));
+        }
+      }
     }
-    if (r1 < a.s_q) {
-      const long long row = o_offset(a, b, h, r1, D) + d;
-      const float2 x = *reinterpret_cast<const float2*>(a.o_in + row);
-      *reinterpret_cast<float2*>(a.o_out + row) = make_float2(
-          update_o(x.x, alpha1, Elt<bf16>::round(o[j][2])),
-          update_o(x.y, alpha1, Elt<bf16>::round(o[j][3])));
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = m_in[0], m1 = m_in[1], l0 = 0.f, l1 = 0.f;
+
+    auto issue_scores = [&](int s) {
+      sm90::issue_ss<D>(sacc, q_rows, sizeof(sm.q[0][0]),
+                        reinterpret_cast<const unsigned char*>(sm.k[s][0]),
+                        sizeof(sm.k[0][0]));
+      sm90::wgmma_commit();
+    };
+    auto issue_pv = [&](int s) {
+      sm90::issue_rs<D>(o, pf,
+                        reinterpret_cast<const unsigned char*>(sm.v[s][0]),
+                        sizeof(sm.v[0][0]));
+      sm90::wgmma_commit();
+    };
+    // The online softmax of key tile t on sacc: scale, mask, new maxima,
+    // p = exp(s - m) left in sacc (fp32), l updated; returns the alphas.
+    // A tile no mask touches takes the short form (for a positive scale):
+    // the maxima of the raw scores times the scale and exp2 of one FFMA.
+    // On a masked tile exp2((s - m) log2 e) is exactly 1 where s = m =
+    // -1e30 and exactly 0 where s = -1e30 < m.
+    auto softmax = [&](int t, float& alpha0, float& alpha1) {
+      const int k0 = t * kKeys;
+      const bool edge =
+          k0 + kKeys > p.s_k ||
+          (p.mask_mode == 1 &&
+           p.k_offset + k0 + kKeys - 1 > p.q_offset + wk.q0) ||
+          !(p.scale > 0.f);
+      float mx0 = neg_inf(), mx1 = neg_inf(), n0, n1;
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sacc[4 * j + e] = ring_mask(sacc[4 * j + e] * p.scale,
+                                        pos[e / 2],
+                                        k0 + 8 * j + 2 * t4 + (e & 1), p);
+          }
+          mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
+        n0 = fmaxf(m0, quad_max(mx0));
+        n1 = fmaxf(m1, quad_max(mx1));
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          sacc[4 * j] = sm90::exp2_approx((sacc[4 * j] - n0) * kLog2e);
+          sacc[4 * j + 1] = sm90::exp2_approx((sacc[4 * j + 1] - n0) * kLog2e);
+          sacc[4 * j + 2] = sm90::exp2_approx((sacc[4 * j + 2] - n1) * kLog2e);
+          sacc[4 * j + 3] = sm90::exp2_approx((sacc[4 * j + 3] - n1) * kLog2e);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
+        n0 = fmaxf(m0, quad_max(mx0) * p.scale);
+        n1 = fmaxf(m1, quad_max(mx1) * p.scale);
+        const float c = p.scale * kLog2e, b0 = n0 * kLog2e, b1 = n1 * kLog2e;
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          sacc[4 * j] = sm90::exp2_approx(fmaf(sacc[4 * j], c, -b0));
+          sacc[4 * j + 1] = sm90::exp2_approx(fmaf(sacc[4 * j + 1], c, -b0));
+          sacc[4 * j + 2] = sm90::exp2_approx(fmaf(sacc[4 * j + 2], c, -b1));
+          sacc[4 * j + 3] = sm90::exp2_approx(fmaf(sacc[4 * j + 3], c, -b1));
+        }
+      }
+      alpha0 = sm90::exp2_approx((m0 - n0) * kLog2e);
+      alpha1 = sm90::exp2_approx((m1 - n1) * kLog2e);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        sum0 += sacc[4 * j] + sacc[4 * j + 1];
+        sum1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + quad_sum(sum0);
+      l1 = l1 * alpha1 + quad_sum(sum1);
+      m0 = n0;
+      m1 = n1;
+    };
+    auto rescale_and_pack = [&](float alpha0, float alpha1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha0;
+        o[4 * j + 1] *= alpha0;
+        o[4 * j + 2] *= alpha1;
+        o[4 * j + 3] *= alpha1;
+      }
+      sm90::pack_a(pf, sacc);
+    };
+
+    // The flash forward's pipeline; the last tile's P.V is peeled off.
+    const int n_tiles = wk.t_hi - wk.t_lo;
+    float alpha0, alpha1;
+    sm90::mbar_wait(&sm.q_full, n & 1);
+    sm90::mbar_wait(&sm.k_full[it % kStages], (it / kStages) & 1);
+    sm90::wgmma_fence();
+    issue_scores(it % kStages);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sacc);
+    if (n_tiles == 1) sm90::warp_arrive(&sm.q_empty);
+    softmax(wk.t_lo, alpha0, alpha1);
+    rescale_and_pack(alpha0, alpha1);
+    for (int i = 0; i + 1 < n_tiles; ++i, ++it) {
+      const int s = it % kStages, s1 = (it + 1) % kStages;
+      sm90::mbar_wait(&sm.k_full[s1], ((it + 1) / kStages) & 1);
+      sm90::mbar_wait(&sm.v_full[s], (it / kStages) & 1);
+      sm90::wgmma_fence();
+      issue_scores(s1);
+      issue_pv(s);
+      sm90::wgmma_wait<1>();                    // scores of tile i + 1
+      sm90::fence_regs(sacc);
+      if (i + 2 == n_tiles) sm90::warp_arrive(&sm.q_empty);
+      softmax(wk.t_lo + i + 1, alpha0, alpha1);
+      sm90::wgmma_wait<0>();                    // P.V of tile i
+      sm90::fence_regs(o);
+      sm90::warp_arrive(&sm.empty[s]);
+      rescale_and_pack(alpha0, alpha1);
     }
-  }
-  if (t == 0) {
-    if (r0 < a.s_q) {
-      const long long sr = state_row(a, b, h, r0);
-      a.l_out[sr] = __fadd_rn(__fmul_rn(a.l_in[sr], alpha0), l0);
-      a.m_out[sr] = m0;
+    {
+      const int s = it % kStages;
+      sm90::mbar_wait(&sm.v_full[s], (it / kStages) & 1);
+      sm90::wgmma_fence();
+      issue_pv(s);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::warp_arrive(&sm.empty[s]);
+      ++it;
     }
-    if (r1 < a.s_q) {
-      const long long sr = state_row(a, b, h, r1);
-      a.l_out[sr] = __fadd_rn(__fmul_rn(a.l_in[sr], alpha1), l1);
-      a.m_out[sr] = m1;
+
+    // The state out: o_in alpha + round(P.V), l_in alpha + l, m. The
+    // incoming o was sent to L2 when the tile started; its loads do not
+    // alias the stores (restrict), so they issue together.
+    const float m_new[2] = {m0, m1}, l_new[2] = {l0, l1};
+    const float* __restrict__ o_in = p.o_in;
+    float* __restrict__ o_out = p.o_out;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live(h)) continue;
+      const float alpha = expf(m_in[h] - m_new[h]);
+      const long long at = o_row(h) + 2 * t4;
+      float2 x[D / 8];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        x[j] = *reinterpret_cast<const float2*>(o_in + at + 8 * j);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(o_out + at + 8 * j) =
+            make_float2(
+                update_o(x[j].x, alpha, Elt<bf16>::round(o[4 * j + 2 * h])),
+                update_o(x[j].y, alpha,
+                         Elt<bf16>::round(o[4 * j + 2 * h + 1])));
+      }
+      if (t4 == 0) {
+        const long long sr = state_row(h);
+        p.l_out[sr] = __fadd_rn(__fmul_rn(p.l_in[sr], alpha), l_new[h]);
+        p.m_out[sr] = m_new[h];
+      }
     }
   }
 }
 
-// bf16 at head_dim 64 and 128 takes the tensor-core kernel.
+template <int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.n_rep > kRows) return cudaErrorInvalidValue;
+  Params p;
+  p.o_in = a.o_in;
+  p.m_in = a.m_in;
+  p.l_in = a.l_in;
+  p.o_out = a.o_out;
+  p.m_out = a.m_out;
+  p.l_out = a.l_out;
+  p.batch = a.batch;
+  p.s_q = a.s_q;
+  p.s_k = a.s_k;
+  p.heads = a.heads;
+  p.kv_heads = a.kv_heads;
+  p.n_rep = a.n_rep;
+  p.positions = kRows / a.n_rep;
+  p.tiles = (a.s_q + p.positions - 1) / p.positions;
+  p.mask_mode = a.mask_mode;
+  p.q_offset = a.q_offset;
+  p.k_offset = a.k_offset;
+  p.scale = a.scale;
+  // Q in grouped boxes (n_rep heads x positions), K and V one KV head x
+  // kKeys keys, each over its strided view.
+  CUtensorMap tq, tk, tv;
+  if (!sm90::encode_bshd(&tq, a.q, D, a.heads, a.s_q, a.batch, a.q_sh,
+                         a.q_ss, a.q_sb, a.n_rep, p.positions) ||
+      !sm90::encode_bshd(&tk, a.k, D, a.kv_heads, a.s_k, a.batch, a.k_sh,
+                         a.k_ss, a.k_sb, 1, kKeys) ||
+      !sm90::encode_bshd(&tv, a.v, D, a.kv_heads, a.s_k, a.batch, a.v_sh,
+                         a.v_ss, a.v_sb, 1, kKeys)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(QSmem<D, kStages, 1>) + 1024;   // + alignment
+  auto kernel = ring_chunk_wgmma_kernel<D>;
+  int grid;
+  cudaError_t err = sm90::prepare(kernel, smem,
+                                  a.batch * a.kv_heads * p.tiles,
+                                  kPersistent, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// bf16 at head_dim 64 and 128 takes the wgmma / TMA kernel.
 template <typename T, int D>
-constexpr bool kUseMma = std::is_same<T, __nv_bfloat16>::value && D <= 128;
+constexpr bool kUseWgmma = std::is_same<T, __nv_bfloat16>::value && D <= 128;
 
 template <typename T, int D>
 cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
-  void (*kernel)(Args);
-  size_t smem;
-  dim3 grid;
-  int threads;
-  if constexpr (kUseMma<T, D>) {
-    kernel = ring_chunk_mma_kernel<D>;
-    smem = chunk_mma_smem<D>();
-    grid = dim3(a.batch * a.heads, (a.s_q + 63) / 64);
-    threads = kMmaThreads;
+  if constexpr (kUseWgmma<T, D>) {
+    return hopper::launch<D>(a, stream);
   } else {
     constexpr int kTile = D > 128 ? 32 : 64;
-    kernel = ring_chunk_kernel<T, D, kTile, kTile>;
-    smem = chunk_smem<T, D, kTile, kTile>();
-    grid = dim3(a.batch * a.heads, (a.s_q + kTile - 1) / kTile);
-    threads = kThreads;
+    auto kernel = ring_chunk_kernel<T, D, kTile, kTile>;
+    const size_t smem = chunk_smem<T, D, kTile, kTile>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(a.batch * a.heads, (a.s_q + kTile - 1) / kTile), kThreads,
+             smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -5,12 +5,12 @@ Replaces the TPU kernels skypilot_tpu/ops/paged_attention.py
 fp32 per-token scale rows), entry `paged_decode_attention`. Both live in
 ops/csrc/paged_attention.cu (sm_90a, built at first use by ops/_build.py
 and called through ctypes); its source comment says what bounds it on
-the H100 and what its design does about that. bf16 pools take one of
-two redesigned kernels by `kernel_route` (tensor-core prefill at
-PREFILL_ROWS grouped rows or more, else the key-span-split decode
-route); fp32 and int8 pools take the first design. `workspace_floats`
-sizes the split-key partials the kernel writes, by the same rule as the
-library's `paged_attention_workspace_floats`.
+the H100 and what its design does about that. bf16 queries, over bf16
+or int8 pools, take one of two redesigned kernels by `kernel_route`
+(tensor-core prefill at PREFILL_ROWS grouped rows or more, else the
+key-span-split decode route); fp32 queries take the first design.
+`workspace_floats` sizes the split-key partials the kernel writes, by the
+same rule as the library's `paged_attention_workspace_floats`.
 
 `paged_decode_attention` is the wrapper the model calls. On a CUDA tensor
 it launches the kernel or raises: a build or launch failure is an error,
@@ -35,22 +35,24 @@ _NEG_INF = -1e30
 _HEAD_DIMS = limits.HEAD_DIMS
 _STEP_KEYS = limits.PAGED_STEP_KEYS   # keys the kernel stages per loop step
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's routes (ops/csrc/paged_attention.cu). bf16 pools take the
-# tensor-core prefill route at PREFILL_ROWS grouped rows or more (head_dim
-# <= 128), else the decode route, whose key axis splits by SPLIT_KEYS
-# keys; fp32 and int8 pools take the first design, whose key axis splits
-# by grid size (up to _MAX_SPLITS, aiming at _TARGET_CTAS CUDA blocks).
+# The kernel's routes (ops/csrc/paged_attention.cu). bf16 queries, over
+# bf16 or int8 pools, take the tensor-core prefill route at PREFILL_ROWS
+# grouped rows or more (head_dim <= 128), else the decode route, whose key
+# axis splits by SPLIT_KEYS keys (INT8_SPLIT_KEYS over int8 pools); fp32
+# queries take the first design, whose key axis splits by grid size (up
+# to _MAX_SPLITS, aiming at _TARGET_CTAS CUDA blocks).
 PREFILL_ROWS = 64
 SPLIT_KEYS = 256
+INT8_SPLIT_KEYS = 128
 _TARGET_CTAS = 528
 _MAX_SPLITS = 16
 
 
-def kernel_route(dtype: torch.dtype, kv_quant: bool, head_dim: int,
-                 total_rows: int) -> str:
+def kernel_route(dtype: torch.dtype, head_dim: int, total_rows: int) -> str:
     """'prefill', 'decode' or 'first': the route the kernel takes for
-    `total_rows` = T * n_rep grouped rows per (row, kv head)."""
-    if dtype != torch.bfloat16 or kv_quant:
+    `total_rows` = T * n_rep grouped rows per (row, kv head) of `dtype`
+    queries, over bf16 and int8 pools alike."""
+    if dtype != torch.bfloat16:
         return 'first'
     if head_dim <= 128 and total_rows >= PREFILL_ROWS:
         return 'prefill'
@@ -62,8 +64,14 @@ def rows_per_tile(total_rows: int) -> int:
     return 4 if total_rows <= 4 else 16
 
 
+def split_keys(kv_quant: bool) -> int:
+    """The decode route's key span over int8 (`kv_quant`) or bf16 pools."""
+    return INT8_SPLIT_KEYS if kv_quant else SPLIT_KEYS
+
+
 def num_splits(route: str, batch: int, kv_heads: int, total_rows: int,
-               blocks_per_seq: int, block_size: int) -> int:
+               blocks_per_seq: int, block_size: int,
+               kv_quant: bool = False) -> int:
     """The grid's split extent of the key axis (host-known: it reads no
     positions)."""
     if route == 'first':
@@ -72,7 +80,7 @@ def num_splits(route: str, batch: int, kv_heads: int, total_rows: int,
         return max(1, min(_MAX_SPLITS, -(-_TARGET_CTAS // ctas)))
     if route == 'prefill' or total_rows >= PREFILL_ROWS:
         return 1
-    return -(-blocks_per_seq * block_size // SPLIT_KEYS)
+    return -(-blocks_per_seq * block_size // split_keys(kv_quant))
 
 
 def workspace_floats(batch: int, cur_len: int, num_heads: int,
@@ -83,9 +91,9 @@ def workspace_floats(batch: int, cur_len: int, num_heads: int,
     split and grouped row, 0 when the key axis is whole. The C library's
     `paged_attention_workspace_floats` is the same rule."""
     total_rows = cur_len * (num_heads // kv_heads)
-    route = kernel_route(dtype, kv_quant, head_dim, total_rows)
+    route = kernel_route(dtype, head_dim, total_rows)
     splits = num_splits(route, batch, kv_heads, total_rows, blocks_per_seq,
-                        block_size)
+                        block_size, kv_quant)
     if splits == 1:
         return 0
     return batch * kv_heads * splits * total_rows * (head_dim + 2)
@@ -100,12 +108,12 @@ def tile_live_keys(tile_positions, blocks_per_seq: int,
 
 
 def split_ranges(tile_positions, blocks_per_seq: int, block_size: int,
-                 splits: int) -> list:
+                 splits: int, kv_quant: bool = False) -> list:
     """[lo, hi) key range of each split of the decode route that does
     work for a row tile, in merge order; splits past the tile's live keys
     exit at once and are not listed."""
     live = tile_live_keys(tile_positions, blocks_per_seq, block_size)
-    span = SPLIT_KEYS if splits > 1 else live
+    span = split_keys(kv_quant) if splits > 1 else live
     return [(lo, min(live, lo + span)) for lo in range(0, live, span)]
 
 

@@ -404,6 +404,48 @@ def test_int8_kernel_matches_plain_version(dtype, batch, cur_len, n_rep,
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+# bf16 queries over int8 pools take the bf16 routes (`kernel_route`):
+# grouped rows just under and at the prefill route's 64, head_dim 64, 128
+# and 256 (decode only), windows 0 and 100, block sizes 8-64, rows long
+# enough to split by INT8_SPLIT_KEYS; table tails at scratch block 0 hold
+# stale payload and scales. Reruns equal.
+_INT8_BOUNDARY_CASES = [  # (batch, cur_len, n_rep, head_dim, block_size, window)
+    (3, 63, 1, 128, 16, 0),     # 63 rows: decode route
+    (3, 64, 1, 128, 16, 0),     # 64 rows: prefill route
+    (2, 16, 4, 64, 8, 100),     # 64 rows, head_dim 64, window
+    (2, 15, 4, 64, 32, 0),      # 60 rows, head_dim 64
+    (2, 40, 2, 256, 64, 100),   # head_dim 256: decode route, window
+    (8, 1, 4, 128, 64, 0),      # decode, 64-token blocks
+    (2, 37, 4, 128, 32, 100),   # 148 rows, ragged tile, window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    'batch,cur_len,n_rep,head_dim,block_size,window', _INT8_BOUNDARY_CASES)
+def test_int8_routes_at_their_boundaries(batch, cur_len, n_rep, head_dim,
+                                         block_size, window):
+    _need_gpu()
+    q, k8, v8, tables, pos, scales = _int8_case(
+        torch.bfloat16, batch=batch, cur_len=cur_len, kv_heads=2,
+        n_rep=n_rep, head_dim=head_dim, block_size=block_size,
+        blocks_per_seq=2048 // block_size, seed=cur_len * 3 + head_dim)
+    scales['k_scale'][0] = scales['v_scale'][0] = 1e3    # stale scratch
+    k8[0], v8[0] = 127, -127
+    want = 'prefill' if head_dim <= 128 and cur_len * n_rep >= 64 else 'decode'
+    assert pa.kernel_route(torch.bfloat16, head_dim, cur_len * n_rep) == want
+    out = pa.paged_decode_attention(q, k8, v8, tables, pos, window=window,
+                                    **scales)
+    again = pa.paged_decode_attention(q, k8, v8, tables, pos, window=window,
+                                      **scales)
+    ref = pa.paged_decode_attention_plain(q, k8, v8, tables, pos,
+                                          window=window, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 def test_int8_kernel_refuses_what_it_does_not_take():
     _need_gpu()
@@ -560,6 +602,42 @@ def test_ring_chunk_kernel_matches_plain(dtype, s_q, s_k, head_dim, mode,
     if q_off + s_q <= k_off and not carried:
         # Fully masked rows: p = 1 for every key, l = Sk, as the reference.
         assert bool((got[2] == s_k).all())
+
+
+# The wgmma ring kernel's grouped tiles (128 / n_rep positions x n_rep
+# heads) at n_rep 1, 2, 4 and 8, head_dim 64 and 128, Sq != Sk, q, k and
+# v strided column slices of one fused (B, S, H + 2 KV, D) tensor; mask
+# modes and offsets as the ring gives them. Reruns equal.
+@pytest.mark.cuda
+@pytest.mark.parametrize('heads,kv_heads,head_dim,s_q,s_k,mode,q_off,k_off', [
+    (8, 8, 128, 200, 136, 1, 200, 200),   # n_rep 1, diagonal, skips
+    (16, 8, 64, 136, 200, 0, 400, 0),     # n_rep 2, full
+    (16, 4, 128, 150, 150, 1, 150, 0),    # n_rep 4, past chunk causal
+    (16, 2, 64, 96, 160, 1, 64, 128),     # n_rep 8, masked then seen
+    (8, 2, 128, 64, 100, 1, 0, 128),      # n_rep 4, every row masked
+])
+def test_ring_wgmma_grouped_tiles_from_fused_qkv(heads, kv_heads, head_dim,
+                                                 s_q, s_k, mode, q_off,
+                                                 k_off):
+    _need_gpu()
+    gen = torch.Generator(device='cuda').manual_seed(heads + s_q + head_dim)
+    qkv = torch.randn((2, max(s_q, s_k), heads + 2 * kv_heads, head_dim),
+                      generator=gen, device='cuda').bfloat16()
+    q, k, v = qkv.split([heads, kv_heads, kv_heads], dim=2)
+    q, k, v = q[:, :s_q], k[:, :s_k], v[:, :s_k]
+    scale = head_dim ** -0.5
+    for carried in (False, True):
+        state = _ring_state(q, k, v, carried, scale)
+        opts = dict(sm_scale=scale, mask_mode=mode, q_offset=q_off,
+                    k_offset=k_off)
+        got = ra.chunk_update(q, k, v, *state, **opts)
+        again = ra.chunk_update(q, k, v, *state, **opts)
+        ref = ra.chunk_update_plain(q, k, v, *state, **opts)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _ring_close(got, ref, torch.bfloat16)
+        if q_off + s_q <= k_off and not carried:
+            assert bool((got[2] == s_k).all())
 
 
 @pytest.mark.cuda

@@ -148,6 +148,112 @@ def test_tiled_walk_gives_the_whole_chunk_answer(case):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **_TOL)
 
 
+def _grouped_ring_walk(q, k, v, o, m, l, *, sm_scale, mask_mode, q_offset,
+                       k_offset):
+    """The bf16 ring kernel's walk in plain fp32 torch: work tiles of 128
+    grouped rows (128 / n_rep positions x the n_rep heads of one KV head,
+    row = position * n_rep + head), 64-key tiles from key tile 0, the
+    running max starting at the incoming m, key tiles wholly past the
+    tile's last visible key skipped only in mode 1 with q_offset >=
+    k_offset, keys past Sk at -inf and masked keys at -1e30 (never a
+    select to 0); P.V summed apart from o and added once at the end."""
+    batch, s_q, heads, dim = q.shape
+    s_k, kv_heads = k.shape[1], k.shape[2]
+    n_rep = heads // kv_heads
+    positions = 128 // n_rep
+    skips = mask_mode == 1 and q_offset >= k_offset
+    o_out, m_out, l_out = o.clone(), m.clone(), l.clone()
+    for b in range(batch):
+        for kvh in range(kv_heads):
+            for q0 in range(0, s_q, positions):
+                pos = torch.arange(q0, min(s_q, q0 + positions))
+                hs = kvh * n_rep + torch.arange(n_rep)
+                qg = q[b, pos][:, hs].reshape(-1, dim)       # (rows, D)
+                rpos = pos.repeat_interleave(n_rep)
+                rhead = hs.repeat(len(pos))
+                m_in = m[b, rhead, rpos]
+                k_hi = (min(s_k, q_offset - k_offset + int(pos[-1]) + 1)
+                        if skips else s_k)
+                run_m, run_l = m_in.clone(), torch.zeros_like(m_in)
+                acc = torch.zeros(len(rpos), dim)
+                for k0 in range(0, k_hi, 64):
+                    keys = torch.arange(k0, k0 + 64)
+                    kt = torch.zeros(64, dim)
+                    vt = torch.zeros(64, dim)
+                    present = keys < s_k
+                    kt[present] = k[b, keys[present], kvh]
+                    vt[present] = v[b, keys[present], kvh]
+                    s = (qg @ kt.T) * sm_scale
+                    if mask_mode == 1:
+                        s = torch.where(k_offset + keys[None, :] >
+                                        q_offset + rpos[:, None],
+                                        torch.tensor(-1e30), s)
+                    s = torch.where(present[None, :], s,
+                                    torch.tensor(float('-inf')))
+                    new_m = torch.maximum(run_m, s.max(dim=1).values)
+                    alpha = torch.exp(run_m - new_m)
+                    p = torch.exp(s - new_m[:, None])
+                    run_l = run_l * alpha + p.sum(dim=1)
+                    acc = acc * alpha[:, None] + p @ vt
+                    run_m = new_m
+                alpha = torch.exp(m_in - run_m)
+                o_out[b, rpos, rhead] = o[b, rpos, rhead] * alpha[:, None] + acc
+                l_out[b, rhead, rpos] = l[b, rhead, rpos] * alpha + run_l
+                m_out[b, rhead, rpos] = run_m
+    return o_out, m_out, l_out
+
+
+# The ring kernel's offset patterns (chip_smoke.py RING_CASES) at a chunk
+# of 160: three key tiles, the last ragged. (mask_mode, q_offset, k_offset,
+# carried state).
+_WALK_CASES = {
+    'full_hop': (0, 160, 0, False),
+    'diagonal_hop': (1, 160, 160, False),
+    'diagonal_hop_carried': (1, 480, 480, True),
+    'past_hop_carried': (0, 480, 160, True),
+    'q_after_k_causal': (1, 240, 160, True),
+    'fully_masked_rows': (1, 0, 160, False),
+    'masked_then_seen': (1, 80, 160, False),
+}
+
+
+@pytest.mark.parametrize('n_rep', [1, 4])
+@pytest.mark.parametrize('case', list(_WALK_CASES))
+def test_grouped_ring_walk_matches_plain_and_pallas(case, n_rep):
+    """The wgmma ring kernel's grouped-head walk against chunk_update_plain
+    and the reference's Pallas kernel in interpret mode (fp32: sums in
+    other orders only, 1e-5), over every offset pattern of the card's
+    checks, fully masked rows (l = Sk) and carried state included."""
+    mode, q_off, k_off, carried = _WALK_CASES[case]
+    chunk, heads = 160, 4
+    rng = np.random.RandomState(n_rep + len(case))
+    q, k, v = _qkv(batch=1, seq=chunk, heads=heads, kv_heads=heads // n_rep,
+                   seed=len(case))
+    if carried:
+        o = rng.randn(1, chunk, heads, 16).astype(np.float32)
+        m = rng.randn(1, heads, chunk).astype(np.float32)
+        l = (rng.rand(1, heads, chunk) + 0.5).astype(np.float32)
+    else:
+        o = np.zeros((1, chunk, heads, 16), np.float32)
+        m = np.full((1, heads, chunk), -1e30, np.float32)
+        l = np.zeros((1, heads, chunk), np.float32)
+    opts = dict(sm_scale=16 ** -0.5, mask_mode=mode, q_offset=q_off,
+                k_offset=k_off)
+    args = [torch.from_numpy(x) for x in (q, k, v, o, m, l)]
+    walked = _grouped_ring_walk(*args, **opts)
+    plain = ra.chunk_update_plain(*args, **opts)
+    pallas = _chunk_update_pallas(
+        *[jnp.asarray(x) for x in (q, _rep(k, n_rep), _rep(v, n_rep), o, m,
+                                   l)], interpret=True, **opts)
+    for name, w, p, r in zip('oml', walked, plain, pallas):
+        np.testing.assert_allclose(w.numpy(), p.numpy(), **_TOL,
+                                   err_msg=f'{name} vs plain')
+        np.testing.assert_allclose(w.numpy(), np.asarray(r), **_TOL,
+                                   err_msg=f'{name} vs Pallas')
+    if case == 'fully_masked_rows':
+        np.testing.assert_array_equal(walked[2].numpy(), np.float32(chunk))
+
+
 def test_chunk_update_on_cpu_launches_nothing_and_refuses_other_devices():
     q, k, v = (torch.from_numpy(x) for x in _qkv(seq=_CHUNK))
     o, m, l = (torch.from_numpy(x) for x in _state(
