@@ -33,11 +33,16 @@ and passed over):
             bf16 route cases over int8 pools (route logged); time it
             (profiler device time) beside its byte bound and the bf16
             route on the same K/V.
-  lora:     hold the fused multi-LoRA kernel against its plain version
-            at every llama3-8b projection shape (d->H*D, d->KV*D,
-            H*D->d, d->F, F->d), rank 16, decode B 8 T 1 with mixed
-            slots including 0 and prefill B 1 T 256, fp32 and bf16;
-            slot-0 rows exactly zero, reruns bit-identical; time it.
+  lora:     hold the fused multi-LoRA kernel, one call per llama3-8b
+            group (qkv, o, gate_up, down), rank 16, decode B 8 T 1 with
+            mixed slots including 0 and prefill B 1 T 256, fp32 and
+            bf16, against the plain per-target composition on a random
+            y: slot-0 rows unchanged, reruns and a row alone
+            bit-identical, two launches a call; time it beside its
+            bound, the plain composition, the parent design's
+            composition (--parent-lora CU) and the cuBLAS yardstick;
+            the prefill again on the CUDA-core route (fp32 rank 16,
+            bf16 rank 8), held and timed beside the parent's.
   flash:    hold the three flash kernels against their plain versions at
             the train path's shape (llama3-1b: B 8, S 1024, H 16, KV 8,
             D 128, causal), fp32 and bf16, plus window 256, non-causal,
@@ -108,8 +113,8 @@ and passed over):
             written as npz and loaded through POST /adapters/load, the 8
             requests spread over the base model and the 4 adapters.
             Checks every answer; int8 launches exactly 32 x (chunks +
-            ticks), fused LoRA 32 x 7 x (chunks + ticks), float paged 0;
-            each request's tokens equal to the same request served
+            ticks), fused LoRA 32 x 4 groups x (chunks + ticks), float
+            paged 0; each request's tokens equal to the same request served
             alone; an adapter changes some output; DELETE of a pinned
             adapter is 409. TTFT p50, decode tokens/s, peak memory, the
             pool's bytes beside bf16's, and a step breakdown.
@@ -169,6 +174,12 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# The port's torch.profiler ranges: their device-side spans are not
+# kernels.
+RANGES = ('optimizer', 'cross_entropy', 'ring_forward', 'ring_backward',
+          'lora')
+
+
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time per fn() call: the CUDA kernels a torch.profiler
     trace attributes to `iters` calls. For launches of a few microseconds,
@@ -184,7 +195,8 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+               if e.device_type == DeviceType.CUDA and
+               e.key not in RANGES) / iters / 1e3
 
 
 def smi_line() -> str:
@@ -514,115 +526,341 @@ def phase_kernels_int8(torch) -> dict:
 
 # ------------------------------------------------------------------ lora
 
-# Fused LoRA kernel vs its plain version, (atol, rtol). fp32: only the
+# Fused LoRA kernel vs the plain composition, (atol, rtol). fp32: only the
 # order of the fp32 sums differs (up to 14336 terms in the shrink). bf16:
-# both round z to bf16 between the products (an fp32 sum in another
-# order can flip that rounding by one bf16 step, 2^-8 relative) and round
-# the output to bf16.
+# both round z and w to bf16 between the products (an fp32 sum in another
+# order can flip that rounding by one bf16 step, 2^-8 relative), then
+# round w * scale and y + that to bf16.
 LORA_TOL = {'float32': (1e-4, 1e-4), 'bfloat16': (2e-2, 2e-2)}
 LORA_SOURCE = 'skypilot_tpu_torch/ops/csrc/fused_lora.cu'
-# llama3-8b projection shapes (IN, OUT) and how many of each a layer runs
-# with all seven targets: q; k and v; o; gate and up; down.
-LORA_SHAPES = {'d_to_hd': (4096, 4096, 1), 'd_to_kvd': (4096, 1024, 2),
-               'hd_to_d': (4096, 4096, 1), 'd_to_f': (4096, 14336, 2),
-               'f_to_d': (14336, 4096, 1)}
+LORA_RANK, LORA_SLOTS, LORA_SCALE = 16, 5, 2.0   # serve_tenant: alpha 32
+# llama3-8b's LoRA groups with all seven targets, one call each a layer:
+# name -> (IN, OUT of each target, side by side in one output).
+LORA_GROUPS = {'qkv': (4096, (4096, 1024, 1024)), 'o': (4096, (4096,)),
+               'gate_up': (4096, (14336, 14336)), 'down': (14336, (4096,))}
 LORA_CALLS = (('decode', 8, 1, [0, 1, 2, 3, 4, 1, 0, 2]),
               ('prefill', 1, 256, [3]))
+# Prefill chunks that take the CUDA-core route: (dtype, rank).
+LORA_CC_PREFILL = (('float32', 16), ('bfloat16', 8))
 
 
-def _lora_bound(x, d_out, rank, ids) -> tuple:
-    """(bytes time, operations time) in ms: x read and z written once,
-    and the A and B slices of each distinct slot the rows name; two
-    products of 2 r MACs per (row, IN) and (row, OUT) element pair."""
+def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time per fn() call: `iters` calls captured into one
+    CUDA graph, replayed `replays` times between CUDA events. The gaps
+    between a call's launches count; the host's launch overhead does
+    not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def _lora_bound(x, outs, rank, ids) -> tuple:
+    """(bytes time, operations time) in ms of one group call: x read once,
+    each target's slice of y read and written, the A and B slices of each
+    distinct non-zero slot the rows name (slot-0 rows are skipped), the
+    ids; two products of 2 r MACs per (row, IN, target) and (row, OUT)."""
     batch, seq, d_in = x.shape
     item = x.element_size()
-    nbytes = ((batch * seq * (d_in + d_out) +
-               len(set(ids)) * rank * (d_in + d_out)) * item + 4 * batch)
-    ops = 2 * batch * seq * rank * (d_in + d_out)
+    live = [i for i, slot in enumerate(ids) if slot != 0]
+    slots = len({ids[i] for i in live})
+    rows = len(live) * seq
+    nbytes = ((rows * (d_in + 2 * sum(outs)) +
+               slots * rank * (d_in * len(outs) + sum(outs))) * item +
+              4 * batch)
+    ops = 2 * rows * rank * (d_in * len(outs) + sum(outs))
     name = 'bfloat16' if item == 2 else 'float32'
     return (nbytes / HBM_BYTES_PER_S * 1e3,
             ops / PEAK_OPS_PER_S[name] * 1e3)
 
 
-def phase_lora(torch) -> dict:
-    """The fused LoRA kernel against its plain version at every llama3-8b
-    projection shape, decode (B 8, T 1, mixed slots with 0) and prefill
-    (B 1, T 256), rank 16, 5 slots (4 adapters + the identity), fp32 and
-    bf16: within tolerance, slot-0 rows exactly zero, two runs
-    bit-identical. Times (bf16) add up per layer the way a decode tick
-    and a prefill chunk call the kernel with all seven targets. A call
-    takes a few microseconds of device time, less than the host's launch
-    overhead, so `ms` and `plain_ms` are profiler device times and
-    `wall_ms` the CUDA-event time of a loop of calls (host-bound)."""
+def _parent_lora(torch, path: str):
+    """The parent design's per-target call z = fused(x, a, b, ids), built
+    with nvcc from `path` (its ops/csrc/fused_lora.cu: a shrink and an
+    expand launch, the 13-argument C entry)."""
+    import ctypes
+    from skypilot_tpu_torch.ops import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(_build.BUILD_DIR, 'libparent_fused_lora.so')
+    nvcc = _build._nvcc()  # pylint: disable=protected-access
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, '-o', lib_path, path],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(lib_path)
+    lib.fused_lora_forward.argtypes = ([ctypes.c_void_p] * 6 +
+                                       [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.fused_lora_workspace_floats.argtypes = [ctypes.c_int] * 4
+    lib.fused_lora_workspace_floats.restype = ctypes.c_longlong
+
+    def call(x, a, b, ids):
+        batch, seq, d_in = x.shape
+        rank, d_out = b.shape[1], b.shape[2]
+        out = torch.empty((batch, seq, d_out), dtype=x.dtype, device='cuda')
+        ws = torch.empty(lib.fused_lora_workspace_floats(batch, seq, d_in,
+                                                         rank),
+                         dtype=torch.float32, device='cuda')
+        err = lib.fused_lora_forward(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), ids.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), batch, seq, d_in, d_out, rank,
+            1 if x.dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f'parent LoRA kernel launch failed: CUDA error {err}')
+        return out
+    return call
+
+
+def _lora_stacks(torch, d_in, outs, dtype, seed, rank=LORA_RANK):
+    """Seeded (a, b) stacks of each target, slot 0 the zero identity."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    stacks = []
+    for d_out in outs:
+        a = torch.randn((LORA_SLOTS, d_in, rank), generator=gen,
+                        device='cuda') * d_in ** -0.5
+        b = torch.randn((LORA_SLOTS, rank, d_out), generator=gen,
+                        device='cuda') * 0.25
+        a[0], b[0] = 0.0, 0.0
+        stacks.append((a.to(dtype), b.to(dtype)))
+    return stacks, gen
+
+
+def _lora_launched(torch, fn, calls: int = 20) -> dict:
+    """{kernel name: (launches per call, device us per launch)} of the
+    CUDA kernels `calls` fn() calls launch (profiler; a trace may drop
+    its first kernel, so a count of calls - 1 reads as one a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (round(e.count / calls), e.self_device_time_total / e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in RANGES}
+
+
+def phase_lora(torch, parent_source=None) -> dict:
+    """The fused LoRA kernel, one call per llama3-8b group (qkv, o,
+    gate_up, down; rank 16, 5 slots, scale 2), decode (B 8, T 1, mixed
+    slots with 0) and prefill (B 1, T 256), fp32 and bf16, against the
+    plain composition (per target y[..., s] += plain(...) * scale) on a
+    seeded random y: within LORA_TOL; slot-0 rows unchanged; two runs
+    bit-identical; decode row 3 alone bit-identical to row 3 in the batch;
+    bf16 prefill on the tensor-core route; a group call launches two
+    kernels and nothing else; fused_multi_lora alone against its plain
+    twin. Times (bf16) add up per layer, each group once: the group call
+    (`ms`, CUDA-graph replay, the gaps between launches included; the
+    profiler's kernel time beside it; `wall_ms`, CUDA events around 100
+    eager calls, the host's launch rate where it is the slower side), the
+    plain composition, the parent's composition (per target its kernel,
+    `* scale` and `+=`, built from `parent_source` when given, in the
+    same call), and for the prefill the cuBLAS yardstick (per target two
+    torch.matmul and the scaled add; not one PyTorch call)."""
     from skypilot_tpu_torch.ops import fused_lora as fl
-    rank, slots = 16, 5
-    totals = {call: {'ms': 0.0, 'plain_ms': 0.0, 'wall_ms': 0.0,
-                     't_bytes': 0.0, 't_ops': 0.0} for call, *_ in LORA_CALLS}
-    per_shape = {}
+    parent = _parent_lora(torch, parent_source) if parent_source else None
+    keys = ('ms', 'device_ms', 'wall_ms', 'plain_ms', 'parent_ms',
+            'parent_device_ms', 'parent_wall_ms', 'yardstick_ms', 't_bytes',
+            't_ops')
+    totals = {call: dict.fromkeys(keys, 0.0) for call, *_ in LORA_CALLS}
     worst = 0.0
     for dtype_name in ('float32', 'bfloat16'):
         dtype = getattr(torch, dtype_name)
-        for shape, (d_in, d_out, per_layer) in LORA_SHAPES.items():
-            gen = torch.Generator(device='cuda').manual_seed(d_in + d_out)
-            a = torch.randn((slots, d_in, rank), generator=gen,
-                            device='cuda') * d_in ** -0.5
-            b = torch.randn((slots, rank, d_out), generator=gen,
-                            device='cuda') * 0.25
-            a[0], b[0] = 0.0, 0.0
-            a, b = a.to(dtype), b.to(dtype)
+        for name, (d_in, outs) in LORA_GROUPS.items():
+            stacks, gen = _lora_stacks(torch, d_in, outs, dtype,
+                                       d_in + sum(outs))
+            offsets = [sum(outs[:i]) for i in range(len(outs))]
+            width = sum(outs)
+            group = fl.LoRAGroup(stacks, offsets, width, LORA_SCALE)
+
+            def composition(x, y, aids, fused):
+                for (a, b), off in zip(stacks, offsets):
+                    y[..., off:off + b.shape[2]] += \
+                        fused(x, a, b, aids) * LORA_SCALE
+                return y
             for call, batch, seq, ids in LORA_CALLS:
                 x = torch.randn((batch, seq, d_in), generator=gen,
                                 device='cuda').to(dtype)
+                y0 = torch.randn((batch, seq, width), generator=gen,
+                                 device='cuda').to(dtype)
                 aids = torch.tensor(ids, dtype=torch.int32, device='cuda')
-                what = f'lora {shape} {call} {dtype_name}'
-                out = fl.fused_multi_lora(x, a, b, aids)
-                again = fl.fused_multi_lora(x, a, b, aids)
-                ref = fl.fused_multi_lora_plain(x, a, b, aids)
+                what = f'lora {name} {call} {dtype_name}'
+                out, again = group(x, y0.clone(), aids), group(
+                    x, y0.clone(), aids)
+                ref = composition(x, y0.clone(), aids,
+                                  fl.fused_multi_lora_plain)
                 torch.cuda.synchronize()
                 err = _check_close(torch, what, out, ref,
                                    LORA_TOL[dtype_name])
                 if not torch.equal(out, again):
                     fail(f'{what}: two runs differ')
                 zero = [i for i, slot in enumerate(ids) if slot == 0]
-                if zero and bool(out[zero].any()):
-                    fail(f'{what}: slot-0 rows are not exactly zero')
+                if zero and not torch.equal(out[zero], y0[zero]):
+                    fail(f'{what}: slot-0 rows changed y')
+                if batch > 3:
+                    alone = group(x[3:4].contiguous(), y0[3:4].clone(),
+                                  aids[3:4].contiguous())
+                    if not torch.equal(alone, out[3:4]):
+                        fail(f'{what}: row 3 alone differs from row 3 in '
+                             f'the batch')
+                route, splits = group.plan(seq)
+                want = ('tensor_cores' if dtype_name == 'bfloat16' and
+                        seq >= 16 else 'cuda_cores')
+                if route != want:
+                    fail(f'{what}: route {route}, want {want}')
+                a0, b0 = stacks[0]
+                z = fl.fused_multi_lora(x, a0, b0, aids)
+                z_err = _check_close(
+                    torch, f'{what} fused_multi_lora', z,
+                    fl.fused_multi_lora_plain(x, a0, b0, aids),
+                    LORA_TOL[dtype_name])
+                if zero and bool(z[zero].any()):
+                    fail(f'{what}: fused_multi_lora slot-0 rows not zero')
+                launched = _lora_launched(torch, lambda: group(x, out, aids))
+                if sorted(n for n, _ in launched.values()) != [1, 1] or \
+                        not all('shrink' in k or 'expand' in k
+                                for k in launched):
+                    fail(f'{what}: a group call launched {launched}')
+                log(f'{what} IN {d_in} OUT {outs} B={batch} T={seq}: '
+                    f'route {route}, {splits} IN splits; max_abs_err '
+                    f'{err:.3e} (fused_multi_lora alone {z_err:.3e}); a '
+                    f'call: ' + ', '.join(
+                        f'{k.split("_kernel")[0].split("::")[-1]} {us:.1f} us'
+                        for k, (_, us) in sorted(launched.items())))
                 if dtype_name != 'bfloat16':
                     continue
-                worst = max(worst, err)
-                args = (x, a, b, aids)
-                ms = device_ms(torch, lambda: fl.fused_multi_lora(*args))
-                plain_ms = device_ms(
-                    torch, lambda: fl.fused_multi_lora_plain(*args))
-                wall_ms = cuda_ms(torch, lambda: fl.fused_multi_lora(*args))
-                t_bytes, t_ops = _lora_bound(x, d_out, rank, ids)
-                per_shape[f'{shape}_{call}'] = {
-                    'ms': ms, 'plain_ms': plain_ms, 'wall_ms': wall_ms,
-                    'bound_ms': max(t_bytes, t_ops)}
-                total = totals[call]
-                for key, value in (('ms', ms), ('plain_ms', plain_ms),
-                                   ('wall_ms', wall_ms),
-                                   ('t_bytes', t_bytes), ('t_ops', t_ops)):
-                    total[key] += per_layer * value
-                log(f'{what} IN {d_in} OUT {d_out} B={batch} T={seq}: '
-                    f'max_abs_err={err:.3e}; kernel device_ms={ms:.4f} '
-                    f'(wall {wall_ms:.4f}) plain device_ms={plain_ms:.4f} '
-                    f'bound_ms={max(t_bytes, t_ops):.5f}')
-            del a, b
+                worst = max(worst, err, z_err)
+                y = y0.clone()
+                times = {
+                    'ms': graph_ms(torch, lambda: group(x, y, aids)),
+                    'device_ms': device_ms(torch, lambda: group(x, y, aids)),
+                    'wall_ms': cuda_ms(torch, lambda: group(x, y, aids),
+                                       iters=100),
+                    'plain_ms': device_ms(torch, lambda: composition(
+                        x, y, aids, fl.fused_multi_lora_plain))}
+                if parent is not None:
+                    times['parent_ms'] = graph_ms(
+                        torch, lambda: composition(x, y, aids, parent))
+                    times['parent_device_ms'] = device_ms(
+                        torch, lambda: composition(x, y, aids, parent))
+                    times['parent_wall_ms'] = cuda_ms(
+                        torch, lambda: composition(x, y, aids, parent),
+                        iters=100)
+                if call == 'prefill':
+                    slot = ids[0]
+
+                    def cublas():
+                        for (a, b), off in zip(stacks, offsets):
+                            y[..., off:off + b.shape[2]] += torch.matmul(
+                                torch.matmul(x, a[slot]), b[slot]) * \
+                                LORA_SCALE
+                    times['yardstick_ms'] = graph_ms(torch, cublas)
+                times['t_bytes'], times['t_ops'] = _lora_bound(
+                    x, outs, LORA_RANK, ids)
+                for key, value in times.items():
+                    totals[call][key] += value
+                log(f'{what}: ' + ', '.join(
+                    f'{k} {v:.4f}' for k, v in times.items()) +
+                    f' (bound {max(times["t_bytes"], times["t_ops"]):.4f})')
+            del stacks, group
         torch.cuda.empty_cache()
     records = {}
     for call, total in totals.items():
         t_bytes, t_ops = total.pop('t_bytes'), total.pop('t_ops')
+        if parent is None:
+            for key in ('parent_ms', 'parent_device_ms', 'parent_wall_ms'):
+                del total[key]
+        if call == 'decode':
+            del total['yardstick_ms']
         records[call] = {**total, 'bound_ms': max(t_bytes, t_ops),
                          'bound_by': 'bytes' if t_bytes >= t_ops
                          else 'operations', 'library_ms': None}
-        log(f'lora per layer, {call} (7 targeted projections): kernel '
-            f'{records[call]["ms"]:.4f} ms device ({total["wall_ms"]:.4f} '
-            f'ms wall), plain {total["plain_ms"]:.4f} ms device, bound '
-            f'{records[call]["bound_ms"]:.5f} ms '
-            f'({records[call]["bound_by"]}); no single PyTorch call '
-            f'computes the per-row gathered delta')
-    return {'max_abs_err': worst, **records['decode'],
-            'prefill': records['prefill'], 'per_call': per_shape}
+        log(f'lora per layer, {call} (4 group calls, 7 targets, scaled add '
+            f'included): ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                       records[call].items()
+                                       if isinstance(v, float)) +
+            f' ({records[call]["bound_by"]}); parent composition '
+            f'{"timed" if parent else "not given (--parent-lora)"}; no '
+            f'single PyTorch call computes the grouped per-row delta')
+    cc_prefill, cc_worst = _lora_cc_prefill(torch, parent)
+    return {'max_abs_err': max(worst, cc_worst), **records['decode'],
+            'prefill': records['prefill'], 'prefill_cuda_cores': cc_prefill}
+
+
+def _lora_cc_prefill(torch, parent) -> tuple:
+    """The prefill chunk (B 1, T 256, slot 3) on the CUDA-core route, fp32
+    at rank 16 and bf16 at rank 8, one call per llama3-8b group: against
+    the plain composition within LORA_TOL, and per layer the group calls'
+    CUDA-graph time beside the parent's composition (when built) and the
+    bound. Returns ({'<dtype> r<rank>': times}, worst error)."""
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    _, batch, seq, ids = LORA_CALLS[1]
+    out, worst = {}, 0.0
+    for dtype_name, rank in LORA_CC_PREFILL:
+        dtype = getattr(torch, dtype_name)
+        total = dict.fromkeys(('ms', 'parent_ms', 't_bytes', 't_ops'), 0.0)
+        for name, (d_in, outs) in LORA_GROUPS.items():
+            stacks, gen = _lora_stacks(torch, d_in, outs, dtype,
+                                       d_in + sum(outs) + rank, rank)
+            offsets = [sum(outs[:i]) for i in range(len(outs))]
+            group = fl.LoRAGroup(stacks, offsets, sum(outs), LORA_SCALE)
+
+            def composition(x, y, aids, fused):
+                for (a, b), off in zip(stacks, offsets):
+                    y[..., off:off + b.shape[2]] += \
+                        fused(x, a, b, aids) * LORA_SCALE
+                return y
+            x = torch.randn((batch, seq, d_in), generator=gen,
+                            device='cuda').to(dtype)
+            y = torch.randn((batch, seq, sum(outs)), generator=gen,
+                            device='cuda').to(dtype)
+            aids = torch.tensor(ids, dtype=torch.int32, device='cuda')
+            what = f'lora {name} prefill {dtype_name} rank {rank}'
+            route, splits = group.plan(seq)
+            if route != 'cuda_cores':
+                fail(f'{what}: route {route}, want cuda_cores')
+            got = group(x, y.clone(), aids)
+            err = _check_close(torch, what, got, composition(
+                x, y.clone(), aids, fl.fused_multi_lora_plain),
+                               LORA_TOL[dtype_name])
+            worst = max(worst, err)
+            times = {'ms': graph_ms(torch, lambda: group(x, y, aids))}
+            if parent is not None:
+                times['parent_ms'] = graph_ms(
+                    torch, lambda: composition(x, y, aids, parent))
+            times['t_bytes'], times['t_ops'] = _lora_bound(x, outs, rank, ids)
+            for key, value in times.items():
+                total[key] += value
+            log(f'{what}: {splits} IN splits, max_abs_err {err:.3e}; ' +
+                ', '.join(f'{k} {v:.4f}' for k, v in times.items()))
+            del stacks, group
+        torch.cuda.empty_cache()
+        t_bytes, t_ops = total.pop('t_bytes'), total.pop('t_ops')
+        if parent is None:
+            del total['parent_ms']
+        key = f'{dtype_name} r{rank}'
+        out[key] = {**total, 'bound_ms': max(t_bytes, t_ops)}
+        log(f'lora per layer, prefill on CUDA cores, {key}: ' +
+            ', '.join(f'{k} {v:.4f}' for k, v in out[key].items()))
+    return out, worst
 
 
 # ------------------------------------------------------------------- parity
@@ -733,8 +971,9 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
                     fn()
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA]
+            events = prof.key_averages()
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                       and e.key not in RANGES]
             device_ms = sum(e.self_device_time_total for e in kernels) / 5e3
             top = sorted(kernels, key=lambda e: -e.self_device_time_total)
             what = (f'{rows} rows at {context} tokens' if name == 'decode'
@@ -748,11 +987,25 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
             for e in top[:6]:
                 log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
                     f'x{e.count // 5:<4d} {e.key[:90]}')
+            lora = [e for e in events if e.key == 'lora' and
+                    e.device_type == DeviceType.CPU]
+            if lora:
+                launched = [e for e in kernels if any(
+                    k in e.key for k in ('cc_shrink', 'cc_expand',
+                                         'tc_shrink', 'tc_expand'))]
+                host_ms = sum(e.cpu_time_total for e in lora) / 5e3
+                kernel_ms = sum(e.self_device_time_total
+                                for e in launched) / 5e3
+                log(f'  lora range: host {host_ms:.3f} ms per step (under '
+                    f'the profiler) over {sum(e.count for e in lora) // 5} '
+                    f'group calls; its kernels {kernel_ms:.3f} ms '
+                    f'x{sum(e.count for e in launched) // 5}')
             # Where the host's time goes: the operators with the most
             # self CPU time per step (under the profiler, which adds to
             # each).
-            host = sorted((e for e in prof.key_averages()
-                           if e.device_type == DeviceType.CPU),
+            host = sorted((e for e in events
+                           if e.device_type == DeviceType.CPU and
+                           e.key not in RANGES),
                           key=lambda e: -e.self_cpu_time_total)
             log(f'  host: {sum(e.count for e in host) // 5} CPU operator '
                 f'calls per step; most self CPU time:')
@@ -1093,13 +1346,18 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
             mixed.append(ids)
             stats.append(res['stats'][0])
         layers = cfg.num_layers
+        first = engine.model.layers[0]
+        groups = sum(g is not None for g in (
+            first.attn.lora_qkv, first.attn.lora_o, first.mlp.lora_gate_up,
+            first.mlp.lora_down))
         expected = {'paged_decode_attention': 0,
                     'paged_decode_attention_int8': layers * (chunks + ticks),
-                    'fused_multi_lora': layers * 7 * (chunks + ticks)}
+                    'fused_multi_lora': layers * groups * (chunks + ticks)}
         log(f'serve_tenant: 8 requests (base x2, ad0 x2, ad1 x2, ad2, ad3) '
             f'ok in {wall:.2f}s; prefill chunks {chunks}, decode ticks '
             f'{ticks}; launches {launches}, expected {expected} ({layers} '
-            f'layers x (chunks + ticks), x 7 targets for LoRA)')
+            f'layers x (chunks + ticks), x {groups} LoRA groups of '
+            f'{cfg.lora_targets})')
         if launches != expected:
             fail(f'serve_tenant launches {launches} != {expected}')
         ttft = statistics.median(s['ttft_s'] for s in stats)
@@ -1623,9 +1881,8 @@ def train_breakdown(torch, cfg, smi: str, batch: dict,
         step(state, batch)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    ranges = ('optimizer', 'cross_entropy', 'ring_forward', 'ring_backward')
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and
-               e.key not in ranges]       # not the ranges' device spans
+               e.key not in RANGES]       # not the ranges' device spans
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     remat = cfg.remat_policy if cfg.remat else 'off'
     log(f'breakdown train step (llama3-1b, {label}, remat {remat}): host '
@@ -1646,7 +1903,7 @@ def train_breakdown(torch, cfg, smi: str, batch: dict,
             ('ring chunk update', group(lambda k: 'ring_chunk_' in k)),
             ('GEMMs', gemm)):
         log(f'  {ms:8.3f} ms x{count:<5d} {label}')
-    for name in ranges:
+    for name in RANGES:
         cpu = [e for e in events
                if e.key == name and e.device_type == DeviceType.CPU]
         if not cpu:
@@ -1664,7 +1921,7 @@ def train_breakdown(torch, cfg, smi: str, batch: dict,
     # Where the host's time goes: the operators with the most self CPU
     # time in the step (under the profiler, which adds to each).
     host = sorted((e for e in events if e.device_type == DeviceType.CPU
-                   and e.key not in ranges),
+                   and e.key not in RANGES),
                   key=lambda e: -e.self_cpu_time_total)
     log(f'  host: {sum(e.count for e in host)} CPU operator calls; most '
         f'self CPU time:')
@@ -2116,7 +2373,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument('--phases', default=','.join(PHASES),
                         help='comma-separated subset of ' + ','.join(PHASES))
-    phases = parser.parse_args(argv).phases.split(',')
+    parser.add_argument('--parent-lora', default=None, metavar='CU',
+                        help='an earlier ops/csrc/fused_lora.cu (one '
+                             'target a call: fused_lora_forward) to time '
+                             'beside the kernel in the lora phase')
+    args = parser.parse_args(argv)
+    phases = args.phases.split(',')
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         fail(f'unknown phases {unknown}; known: {PHASES}')
@@ -2147,7 +2409,7 @@ def main(argv=None) -> int:
     if 'kernels_int8' in phases:
         paged8 = phase_kernels_int8(torch)
     if 'lora' in phases:
-        lora = phase_lora(torch)
+        lora = phase_lora(torch, args.parent_lora)
     if 'flash' in phases:
         flash = phase_flash(torch)
     if 'ring_kernels' in phases:

@@ -40,11 +40,12 @@ Layout choices:
   projection of each layer holds a `LoRAStack`, (N + 1, in, r) A and
   (N + 1, r, out) B buffers (slot 0 the all-zero identity; not in the
   state dict, like the reference's separate 'adapters' collection). The
-  per-row slot vector `adapter_ids` picks each row's adapter; the delta
-  z * (alpha / r) comes from ops/fused_lora and is added in the compute
-  dtype to the matching column slice of the fused q/k/v or gate/up
-  output, before the split, rope and SiLU (the reference adds it to each
-  target's own projection: the same numbers).
+  per-row slot vector `adapter_ids` picks each row's adapter. The
+  targets of one fused output (q/k/v of qkv, gate/up of gate_up, o,
+  down) form one ops/fused_lora `LoRAGroup`, which adds each delta
+  z * (alpha / r) in the compute dtype to its column slice of that
+  output in place, before the split, rope and SiLU (the reference adds
+  it to each target's own projection: the same numbers).
 - `cfg.remat` is per-layer `torch.utils.checkpoint` (non-reentrant):
   remat_policy 'dots' saves the matmul outputs (the reference's
   dots_with_no_batch_dims_saveable) through a selective-checkpoint
@@ -67,7 +68,7 @@ from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
-from skypilot_tpu_torch.ops.fused_lora import fused_multi_lora
+from skypilot_tpu_torch.ops.fused_lora import LoRAGroup
 from skypilot_tpu_torch.ops.paged_attention import paged_decode_attention
 from skypilot_tpu_torch.parallel import sharding
 
@@ -236,22 +237,18 @@ class LoRAStack(nn.Module):
     """The resident adapters of one targeted projection: (slots, in, r)
     A and (slots, r, out) B buffers in the compute dtype, zero-filled
     (slot 0 stays the identity; the engine writes slots 1..N between
-    ticks). `forward` is the delta z * (alpha / r) in x's dtype."""
+    ticks, in place). Its delta z * (alpha / r) is added by the
+    `LoRAGroup` of its fused projection."""
 
     def __init__(self, cfg: ModelConfig, d_in: int, d_out: int,
                  device=None) -> None:
         super().__init__()
         slots, rank = cfg.serve_adapters + 1, cfg.lora_rank
-        self.scale = cfg.lora_alpha / rank
         kwargs = dict(device=device, dtype=torch_dtype(cfg))
         self.register_buffer('a', torch.zeros((slots, d_in, rank), **kwargs),
                              persistent=False)
         self.register_buffer('b', torch.zeros((slots, rank, d_out), **kwargs),
                              persistent=False)
-
-    def forward(self, x: torch.Tensor,
-                adapter_ids: torch.Tensor) -> torch.Tensor:
-        return fused_multi_lora(x, self.a, self.b, adapter_ids) * self.scale
 
 
 def _lora_stacks(cfg: ModelConfig, shapes, device) -> nn.ModuleDict:
@@ -265,17 +262,43 @@ def _lora_stacks(cfg: ModelConfig, shapes, device) -> nn.ModuleDict:
         for name, (d_in, d_out) in shapes.items() if name in targets})
 
 
-def _add_deltas(y: torch.Tensor, x: torch.Tensor, stacks: nn.ModuleDict,
-                names, widths, adapter_ids) -> torch.Tensor:
-    """y (B, T, sum(widths)) is a fused projection of x whose column
-    slices are the projections `names`: add each targeted one's delta to
-    its slice, in place, in y's dtype."""
-    start = 0
-    for name, width in zip(names, widths):
-        if name in stacks:
-            y[..., start:start + width] += stacks[name](x, adapter_ids)
-        start += width
-    return y
+class _LoRASite:
+    """The LoRAGroup of a fused projection whose output's column slices
+    are the projections `names` (of `widths`): one target per targeted
+    name. A call reads the LoRAStacks' buffers as they are then and
+    builds the group anew when one was replaced (`model.to(...)` makes
+    new buffers; the engine's slot writes keep them)."""
+
+    def __init__(self, cfg: ModelConfig, stacks: nn.ModuleDict, names,
+                 widths) -> None:
+        self.stacks, self.offsets, start = [], [], 0
+        for name, width in zip(names, widths):
+            if name in stacks:
+                self.stacks.append(stacks[name])
+                self.offsets.append(start)
+            start += width
+        self.width, self.scale = start, cfg.lora_alpha / cfg.lora_rank
+        self.group = self._build()
+
+    def _build(self) -> LoRAGroup:
+        return LoRAGroup([(s.a, s.b) for s in self.stacks], self.offsets,
+                         self.width, self.scale)
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor,
+                 adapter_ids: torch.Tensor) -> torch.Tensor:
+        if any(s.a is not a or s.b is not b
+               for s, (a, b) in zip(self.stacks, self.group.targets)):
+            self.group = self._build()
+        return self.group(x, y, adapter_ids)
+
+
+def _lora_site(cfg: ModelConfig, stacks: nn.ModuleDict, names,
+               widths) -> Optional[_LoRASite]:
+    """The `_LoRASite` of a fused projection, None when none of `names`
+    is targeted."""
+    if not any(name in stacks for name in names):
+        return None
+    return _LoRASite(cfg, stacks, names, widths)
 
 
 class PagedStep(NamedTuple):
@@ -331,6 +354,11 @@ class Attention(nn.Module):
             'q_proj': (cfg.d_model, q_out), 'k_proj': (cfg.d_model, kv_out),
             'v_proj': (cfg.d_model, kv_out),
             'o_proj': (q_out, cfg.d_model)}, device)
+        self.lora_qkv = _lora_site(cfg, self.lora, ('q_proj', 'k_proj',
+                                                    'v_proj'),
+                                   self.qkv_widths)
+        self.lora_o = _lora_site(cfg, self.lora, ('o_proj',),
+                                 (cfg.d_model,))
 
     def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
@@ -343,9 +371,8 @@ class Attention(nn.Module):
         heads, kv_heads, head_dim = (cfg.num_heads, cfg.num_kv_heads,
                                      cfg.head_dim)
         qkv = x @ self.qkv_proj.to(self.dtype)
-        if adapter_ids is not None:
-            _add_deltas(qkv, x, self.lora, ('q_proj', 'k_proj', 'v_proj'),
-                        self.qkv_widths, adapter_ids)
+        if adapter_ids is not None and self.lora_qkv is not None:
+            self.lora_qkv(x, qkv, adapter_ids)
         q, k, v = torch.split(qkv, list(self.qkv_widths), dim=-1)
         q = _rotate(q.reshape(batch, cur_len, heads, head_dim), step.cos,
                     step.sin)
@@ -364,9 +391,8 @@ class Attention(nn.Module):
                                   window=cfg.sliding_window)
         out = out.reshape(batch, cur_len, heads * head_dim)
         y = out @ self.o_proj.to(self.dtype)
-        if adapter_ids is not None:
-            _add_deltas(y, out, self.lora, ('o_proj',), (cfg.d_model,),
-                        adapter_ids)
+        if adapter_ids is not None and self.lora_o is not None:
+            self.lora_o(out, y, adapter_ids)
         return y
 
     def _paged_decode_attention(self, q, k, v, step: PagedStep, k_pool,
@@ -409,19 +435,22 @@ class SwiGLU(nn.Module):
             'gate_proj': (cfg.d_model, cfg.d_mlp),
             'up_proj': (cfg.d_model, cfg.d_mlp),
             'down_proj': (cfg.d_mlp, cfg.d_model)}, device)
+        self.lora_gate_up = _lora_site(cfg, self.lora,
+                                       ('gate_proj', 'up_proj'),
+                                       (self.d_mlp, self.d_mlp))
+        self.lora_down = _lora_site(cfg, self.lora, ('down_proj',),
+                                    (cfg.d_model,))
 
     def forward(self, x: torch.Tensor,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         gate_up = x @ self.gate_up_proj.to(self.dtype)
-        if adapter_ids is not None:
-            _add_deltas(gate_up, x, self.lora, ('gate_proj', 'up_proj'),
-                        (self.d_mlp, self.d_mlp), adapter_ids)
+        if adapter_ids is not None and self.lora_gate_up is not None:
+            self.lora_gate_up(x, gate_up, adapter_ids)
         gate, up = torch.split(gate_up, self.d_mlp, dim=-1)
         h = nn.functional.silu(gate) * up
         y = h @ self.down_proj.to(self.dtype)
-        if adapter_ids is not None:
-            _add_deltas(y, h, self.lora, ('down_proj',), (y.shape[-1],),
-                        adapter_ids)
+        if adapter_ids is not None and self.lora_down is not None:
+            self.lora_down(h, y, adapter_ids)
         return y
 
 

@@ -4,14 +4,15 @@ choice rests on a measurement taken within one call:
 
     python -m skypilot_tpu_torch.ops.kernel_ab flash-order paged-span
     python -m skypilot_tpu_torch.ops.kernel_ab flash-dkv-keys flash-dq-stages
+    python -m skypilot_tpu_torch.ops.kernel_ab lora-no-hold lora-split-512
 
 Each experiment names a source under ops/csrc, the substitutions that
 make the variant, and the call it times at the main path's shape
 (profiler device time, mean of 20 calls after 3 of warm-up; CUDA events
-beside it). The variant is built from a copy of csrc/ into a directory
-of its own (experiments with the same substitutions share it); the
-package's sources and builds are left as they are. Prints one JSON
-object per experiment.
+beside it; for kernel 7's calls also CUDA-graph replay). The variant is
+built from a copy of csrc/ into a directory of its own (experiments with
+the same substitutions share it); the package's sources and builds are
+left as they are. Prints one JSON object per experiment.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.ops import fused_lora as fl
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops import ring_attention as ra
 
@@ -173,6 +175,59 @@ def _ring_call():
                          k_offset=512, **opts))
 
 
+def _lora_call(shape: str):
+    """One llama3-8b layer's four LoRA group calls (qkv, o, gate_up,
+    down; rank 16, 5 slots, scale 2), bf16: 'decode' B 8 x T 1 over slots
+    0,1,2,3,4,1,0,2 (the serve_tenant tick), 'prefill' B 1 x T 256 on
+    slot 3."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    batch, seq, ids = {'decode': (8, 1, [0, 1, 2, 3, 4, 1, 0, 2]),
+                       'prefill': (1, 256, [3])}[shape]
+    aids = torch.tensor(ids, dtype=torch.int32, device='cuda')
+    calls = []
+    for d_in, outs in ((4096, (4096, 1024, 1024)), (4096, (4096,)),
+                       (4096, (14336, 14336)), (14336, (4096,))):
+        stacks = [(torch.randn((5, d_in, 16), generator=gen, device='cuda')
+                   .mul(d_in ** -0.5).bfloat16(),
+                   torch.randn((5, 16, d_out), generator=gen, device='cuda')
+                   .mul(0.25).bfloat16()) for d_out in outs]
+        group = fl.LoRAGroup(stacks, [sum(outs[:i]) for i in
+                                      range(len(outs))], sum(outs), 2.0)
+        x = torch.randn((batch, seq, d_in), generator=gen,
+                        device='cuda').bfloat16()
+        y = torch.zeros((batch, seq, sum(outs)), device='cuda',
+                        dtype=torch.bfloat16)
+        calls.append((group, x, y))
+
+    def call():       # y accumulates: the timed call is the groups alone
+        return tuple(group(x, y, aids) for group, x, y in calls)
+
+    def check():      # outputs to compare: each y from zero
+        return tuple(group(x, y.zero_(), aids).clone()
+                     for group, x, y in calls)
+    call.check = check
+    return call
+
+
+# Kernel 7's design choices: B's rows not held in registers across the
+# dependency wait; the tensor-core shrink's IN split at least 512 or 1024
+# instead of 256, its ring 3 stages instead of 6.
+_LORA_NO_HOLD = (('constexpr int kHeld = VEC * sizeof(T) == 16 && R <= 16 '
+                   '? R : 1;', 'constexpr int kHeld = 1;'),)
+_LORA_STAGES_3 = (('constexpr int kTcStages = 6;',
+                   'constexpr int kTcStages = 3;'),)
+
+
+def _lora_split(n: int):
+    return (('constexpr int kTcMinSplit = 256;',
+             f'constexpr int kTcMinSplit = {n};'),)
+
+
+# Sources whose calls are also timed by CUDA-graph replay (several
+# launches a call, a dependent launch among them).
+_GRAPH_TIMED = ('fused_lora',)
+
+
 # name: (source, ((text in the source, its replacement), ...), call, the
 # paged wrapper module's names the variant changes with it)
 EXPERIMENTS = {
@@ -291,6 +346,14 @@ EXPERIMENTS = {
         'ring_attention',
         (('constexpr bool kPersistent = false;',
           'constexpr bool kPersistent = true;'),), _ring_call, {}),
+    'lora-no-hold': (
+        'fused_lora', _LORA_NO_HOLD, lambda: _lora_call('decode'), {}),
+    'lora-split-512': (
+        'fused_lora', _lora_split(512), lambda: _lora_call('prefill'), {}),
+    'lora-split-1024': (
+        'fused_lora', _lora_split(1024), lambda: _lora_call('prefill'), {}),
+    'lora-stages-3': (
+        'fused_lora', _LORA_STAGES_3, lambda: _lora_call('prefill'), {}),
 }
 
 
@@ -346,7 +409,33 @@ def _ms(fn, iters: int = 20, warmup: int = 3) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+               if e.device_type == DeviceType.CUDA and
+               e.key != 'lora') / iters / 1e3     # not the range's span
+
+
+def _graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time per call of `iters` calls captured into one CUDA
+    graph and replayed between CUDA events: the gaps between a call's
+    launches count, the host's launch overhead does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def _ptxas(log: str) -> list:
@@ -356,7 +445,8 @@ def _ptxas(log: str) -> list:
     for line in log.splitlines():
         if 'Compiling entry function' in line:
             found = re.search(r'(?:flash_(?:fwd|dq|dkv)_wgmma|ring_chunk_wgmma'
-                              r'|paged_prefill)_kernelI\w+?E', line)
+                              r'|paged_prefill|tc_shrink|tc_expand|cc_shrink'
+                              r'|cc_expand)_kernelI\w+?E', line)
             name = found and found.group(0)
         elif name and ('spill' in line or 'registers' in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
@@ -389,22 +479,29 @@ def run(name: str, workdir: str) -> dict:
         with open(path, 'w') as f:
             f.write(text)
     call = make_call()
-    base_out = call()
+    outputs = getattr(call, 'check', call)
+    base_out = outputs()
     with variant():
-        variant_out = call()
+        variant_out = outputs()
     variant_ptxas = _ptxas(_build.build_logs.get(source, ''))
     times = {'base': [], 'variant': []}
     events = {'base': [], 'variant': []}
+    graphs = {'base': [], 'variant': []}
     for which in ('base', 'variant', 'variant', 'base'):
         with variant() if which == 'variant' else contextlib.nullcontext():
             times[which].append(_ms(call))
             events[which].append(_events_ms(call))
+            if source in _GRAPH_TIMED:
+                graphs[which].append(_graph_ms(call))
     return {'experiment': name, 'source': f'ops/csrc/{source}.cu',
             'variant': [new for _, new in substitutions],
             'base_ms': times['base'],
             'variant_ms': times['variant'],
             'base_events_ms': events['base'],
             'variant_events_ms': events['variant'],
+            **({'base_graph_ms': graphs['base'],
+                'variant_graph_ms': graphs['variant']}
+               if graphs['base'] else {}),
             'same_output': _same(base_out, variant_out),
             'variant_ptxas': variant_ptxas,
             'device': torch.cuda.get_device_name(0)}

@@ -533,6 +533,119 @@ def test_fused_lora_kernel_refuses_what_it_does_not_take():
         fl.fused_multi_lora(x, a.bfloat16(), b.bfloat16(), ids)
 
 
+# The grouped kernel (LoRAGroup): targets of one fused projection adding
+# their scaled deltas into y's column slices in place, against the plain
+# per-target composition y[..., s] += plain(...) * scale. Group shapes:
+# name -> (IN, OUT of each target); the last one's widths are not
+# multiples of 8 (the CUDA-core route with scalar accesses).
+_LORA_GROUPS = {'qkv': (256, (256, 64, 64)), 'o': (256, (256,)),
+                'gate_up': (256, (512, 512)), 'down': (512, (256,)),
+                'ragged': (300, (203, 97))}
+_LORA_SCALE = 2.0
+
+
+def _lora_group_case(name, batch, seq, rank, slots, dtype, seed, ids=None):
+    d_in, outs = _LORA_GROUPS[name]
+    rng = np.random.RandomState(seed)
+
+    def dev(arr, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to('cuda', dt)
+
+    stacks = []
+    for d_out in outs:
+        a = rng.randn(slots, d_in, rank) / np.sqrt(d_in)
+        b = rng.randn(slots, rank, d_out) * 0.25
+        a[0] = b[0] = 0.0
+        stacks.append((dev(a), dev(b)))
+    offsets = [sum(outs[:i]) for i in range(len(outs))]
+    group = fl.LoRAGroup(stacks, offsets, sum(outs), _LORA_SCALE)
+    x = dev(rng.randn(batch, seq, d_in))
+    y = dev(rng.randn(batch, seq, sum(outs)))
+    if ids is None:
+        ids = rng.randint(0, slots, batch)
+        ids[0] = 0
+    return group, stacks, offsets, x, y, dev(np.asarray(ids), torch.int32)
+
+
+def _lora_composition(stacks, offsets, x, y, ids):
+    y = y.clone()
+    for (a, b), off in zip(stacks, offsets):
+        y[..., off:off + b.shape[2]] += \
+            fl.fused_multi_lora_plain(x, a, b, ids) * _LORA_SCALE
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('rank', [8, 16, 32, 64])
+@pytest.mark.parametrize('batch,seq', [(8, 1), (3, 17), (1, 255), (2, 256)])
+@pytest.mark.parametrize('name', sorted(_LORA_GROUPS))
+def test_lora_group_kernel_matches_plain(name, batch, seq, rank, dtype):
+    _need_gpu()
+    group, stacks, offsets, x, y0, ids = _lora_group_case(
+        name, batch, seq, rank, 5, dtype, seed=rank + seq)
+    before = fl.fused_multi_lora.launches
+    out = group(x, y0.clone(), ids)
+    assert fl.fused_multi_lora.launches == before + 1
+    again = group(x, y0.clone(), ids)
+    ref = _lora_composition(stacks, offsets, x, y0, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    zero = ids == 0
+    assert torch.equal(out[zero], y0[zero])     # slot 0: y unchanged
+    tol = _LORA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for row in range(batch):                     # alone = in the batch
+        alone = group(x[row:row + 1].contiguous(), y0[row:row + 1].clone(),
+                      ids[row:row + 1].contiguous())
+        assert torch.equal(alone, out[row:row + 1])
+    tensor_cores = (dtype == torch.bfloat16 and seq >= 16 and rank >= 16
+                    and name != 'ragged')
+    assert group.plan(seq)[0] == ('tensor_cores' if tensor_cores
+                                  else 'cuda_cores')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('seq', [1, 17, 64])
+def test_lora_group_32_rows_over_9_slots(seq):
+    _need_gpu()
+    ids = np.arange(32) % 9
+    group, stacks, offsets, x, y0, ids = _lora_group_case(
+        'qkv', 32, seq, 16, 9, torch.bfloat16, seed=seq, ids=ids)
+    out = group(x, y0.clone(), ids)
+    ref = _lora_composition(stacks, offsets, x, y0, ids)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(out, group(x, y0.clone(), ids))
+    for row in range(32):
+        alone = group(x[row:row + 1].contiguous(), y0[row:row + 1].clone(),
+                      ids[row:row + 1].contiguous())
+        assert torch.equal(alone, out[row:row + 1])
+
+
+@pytest.mark.cuda
+def test_lora_group_refuses_what_it_does_not_take():
+    _need_gpu()
+    group, stacks, offsets, x, y, ids = _lora_group_case(
+        'qkv', 2, 3, 16, 3, torch.bfloat16, seed=0)
+    a, b = stacks[0]
+    with pytest.raises(ValueError, match='rank in'):
+        fl.LoRAGroup([(a[..., :4].contiguous(), b[:, :4].contiguous())],
+                     [0], 256, 1.0)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        fl.LoRAGroup([(a.half(), b.half())], [0], 256, 1.0)
+    with pytest.raises(TypeError, match='must be'):
+        group(x.float(), y, ids)
+    with pytest.raises(ValueError, match='contiguous'):
+        group(x, y.transpose(0, 1).contiguous().transpose(0, 1), ids)
+    with pytest.raises(ValueError, match='int32'):
+        group(x, y, ids.long())
+    with pytest.raises(ValueError, match='do not fit'):
+        group(x, y[..., :128].contiguous(), ids)
+
+
 # ------------------------------------------------- ring chunk-update kernel
 # Tolerances on (o, m, l): m and l 1e-5 absolute and relative (both sum
 # the unrounded p in fp32, in other orders); o compared as o / l, the
