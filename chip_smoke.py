@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: serving
-(llama3-8b over HTTP, paged attention kernel), multi-tenant serving
+(llama3-8b over HTTP, paged attention kernel, every decode dispatch and
+prefill chunk a CUDA-graph replay), multi-tenant serving
 (llama3-8b with int8 KV and resident LoRA adapters: the int8 route of the
 paged kernel and the fused multi-LoRA kernel), training (llama3-1b,
 flash-attention forward, dQ and dK/dV kernels) and sequence-parallel
@@ -103,21 +104,36 @@ and passed over):
   serve:    the port's HTTP server in-process on localhost with
             llama3-8b at full width and depth (seeded random bf16
             weights made on the card), 8 slots, paged blocks of 16,
-            prefill chunks of 256; 8 concurrent greedy /generate
-            requests of 20-700 prompt tokens and 32 new tokens. Checks
-            every answer and that the kernel launched exactly
-            32 x (prefill chunks + decode ticks) times; then a decode /
-            prefill step breakdown (torch.profiler).
+            prefill chunks of 256, async_depth 1; warmup() captures the
+            greedy prefill and decode graphs. 8 concurrent greedy
+            /generate requests of 20-700 prompt tokens and 32 new tokens,
+            served in turns at async_depth 0, 1, 1, 0 by the same engine:
+            every answer checked, greedy tokens equal across the runs,
+            the kernel launched exactly 32 x (prefill chunks + decode
+            steps) times in each run (every launch a graph replay's),
+            TTFT p50 and decode tokens/s per run. Then steady windows of
+            the running engine at depth 0 and 1 (decode: 8 rows at ~700
+            tokens; prefill: 8 x 2048-token prompts), and, on the drained
+            engine, the eager step beside one graph replay (equal
+            tokens): host wall, CUDA-kernel time (torch.profiler), idle
+            share and launch calls per step.
   serve_tenant: the same server and traffic with int8 KV and 4 random
             adapters (rank 16, alpha 32, targets q,k,v,o,gate,up,down)
             written as npz and loaded through POST /adapters/load, the 8
             requests spread over the base model and the 4 adapters.
             Checks every answer; int8 launches exactly 32 x (chunks +
-            ticks), fused LoRA 32 x 4 groups x (chunks + ticks), float
-            paged 0; each request's tokens equal to the same request served
-            alone; an adapter changes some output; DELETE of a pinned
-            adapter is 409. TTFT p50, decode tokens/s, peak memory, the
-            pool's bytes beside bf16's, and a step breakdown.
+            decode steps), fused LoRA 32 x 4 groups x (chunks + decode
+            steps), float paged 0; each request's tokens equal to the
+            same request served alone; an adapter changes some output;
+            DELETE of a pinned adapter is 409. TTFT p50, decode
+            tokens/s, peak memory, the pool's bytes beside bf16's, the
+            windows and the eager / graph breakdown.
+  graph_parity: llama3-8b at full size through the engine at
+            async_depth 1 and decode_chunk 4 (graphs captured first;
+            launch formulas exact), 8 greedy requests, against an eager
+            yardstick on the same engine (`_prefill_chunk_impl` chunk by
+            chunk, then `_decode_impl` over all 8 rows): greedy tokens
+            equal.
 Then: the {"kernels": [...]} line, the nvidia-smi line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -151,8 +167,12 @@ TOL = {'float32': (1e-5, 1e-5), 'bfloat16': (1e-2, 2e-2)}
 
 
 def fail(message: str) -> None:
+    """Report and exit at once: no engine, server or profiler teardown
+    (a failed phase may have left one stuck) stands between a failure
+    and the exit code."""
     print(f'chip_smoke: FAIL: {message}', file=sys.stderr, flush=True)
-    sys.exit(1)
+    sys.stdout.flush()
+    os._exit(1)
 
 
 def log(message: str) -> None:
@@ -643,19 +663,28 @@ def _lora_stacks(torch, d_in, outs, dtype, seed, rank=LORA_RANK):
 def _lora_launched(torch, fn, calls: int = 20) -> dict:
     """{kernel name: (launches per call, device us per launch)} of the
     CUDA kernels `calls` fn() calls launch (profiler; a trace may drop
-    its first kernel, so a count of calls - 1 reads as one a call)."""
+    its first kernel, so a count of calls - 1 reads as one a call). A
+    trace that holds no CUDA event at all (the profiler delivered
+    nothing; seen once in a run of ~40 such traces) is taken again, up to
+    three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (round(e.count / calls), e.self_device_time_total / e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in RANGES}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = {e.key: (round(e.count / calls),
+                            e.self_device_time_total / e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and
+                    e.key not in RANGES}
+        if launched:
+            break
+    return launched
 
 
 def phase_lora(torch, parent_source=None) -> dict:
@@ -919,48 +948,117 @@ def _post(url: str, body: dict) -> dict:
         return json.loads(resp.read())
 
 
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cudaLaunchKernelEx',
+                'cudaGraphLaunch')
+
+
+def _kernel_profile(prof) -> tuple:
+    """(CUDA-kernel ms, kernel events, all events) of a profile."""
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in RANGES]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3, kernels,
+            events)
+
+
+def _launch_calls(events, steps: int) -> str:
+    """Runtime launch calls per step (the host's side of a profile)."""
+    calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
+    return ', '.join(f'{k} {calls.get(k, 0) / steps:g}' for k in LAUNCH_CALLS
+                     if k in calls or k in ('cudaLaunchKernel',
+                                            'cudaGraphLaunch'))
+
+
+def _breakdown_line(label: str, what: str, wall_ms: float, kernel_ms: float,
+                    smi: str, unit: str = 'step') -> None:
+    log(f'breakdown {label} ({what}): host wall {wall_ms:.2f} ms/{unit}, '
+        f'CUDA kernels {kernel_ms:.2f} ms/{unit}, device idle share '
+        f'{max(0.0, 1 - kernel_ms / wall_ms):.3f} [{smi}]')
+
+
 def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
-    """Time the engine's two device steps at the served shapes, on the
-    drained engine: an all-slots decode step with every row at `context`
-    tokens, and one 256-token prefill chunk at position 512 (a multi-LoRA
-    engine: decode rows on slots 0-4 mixed, the chunk on slot 3). Host
-    wall per step (each ends in the engine's own device→host sync) beside
-    the device time a torch.profiler trace attributes to CUDA kernels;
-    the difference is the device's idle share of the step."""
+    """Time the engine's two device steps at the served shapes on the
+    drained engine, eagerly (`_decode_impl`, `_prefill_chunk_impl`, each
+    ending in `.cpu()`) and as one replay of the engine's graph (inputs
+    staged, the replay, its pinned copy and event): an all-slots decode
+    step with every row at `context` tokens, and one 256-token prefill
+    chunk at position 512 (a multi-LoRA engine: decode rows on slots 0-4
+    mixed, the chunk on slot 3). The replay's tokens must equal the eager
+    step's. Host wall per step (10 steps, no profiler) beside the device
+    time a torch.profiler trace attributes to CUDA kernels (5 steps); the
+    difference is the device's idle share. Also the runtime's launch calls
+    per step and, eagerly, the largest kernels and host operators."""
+    import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg = engine.cfg
     pool = engine._pool  # pylint: disable=protected-access
     rows = engine.num_slots
     width = engine._blocks_per_seq + 1  # pylint: disable=protected-access
-    need = context // cfg.paged_block_size + 1
+    # Blocks for the decode rows and for the chunk (positions 512-767 on
+    # row 0's table): a position past a table's blocks writes the
+    # scratch block, where the chunk's duplicate writes would race.
+    need = max(context, 767) // cfg.paged_block_size + 1
     blocks = [[pool.alloc() for _ in range(need)] for _ in range(rows)]
-    tables = torch.zeros((rows, width), dtype=torch.int32)
+    tables_np = np.zeros((rows, width), np.int32)
     for r, row in enumerate(blocks):
-        tables[r, :need] = torch.tensor(row, dtype=torch.int32)
-    tables = tables.cuda()
+        tables_np[r, :need] = row
+    tables = torch.from_numpy(tables_np).cuda()
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
-                           dtype=torch.int32).cuda()
+                           dtype=torch.int32)
+    chunk = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                          dtype=torch.int32)
+    aids_np = np.array([i % (engine.max_adapters + 1) for i in range(rows)],
+                       np.int32)
+    aids = chunk_aids = None
+    if engine.max_adapters:
+        aids = torch.from_numpy(aids_np).cuda()
+        chunk_aids = aids[3:4]
     positions = torch.full((rows, 1), context, dtype=torch.int32,
                            device='cuda')
     temps = torch.zeros(rows, device='cuda')
-    chunk = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
-                          dtype=torch.int32).cuda()
-    aids = chunk_aids = None
-    if engine.max_adapters:
-        aids = torch.tensor([i % (engine.max_adapters + 1)
-                             for i in range(rows)], dtype=torch.int32,
-                            device='cuda')
-        chunk_aids = aids[3:4]
+    dec, pf = engine._dec, engine._pf  # pylint: disable=protected-access
+    dec.tables.put(tables_np)
+    dec.temps.put(np.zeros(rows, np.float32))
+    if dec.aids is not None:
+        dec.aids.put(aids_np)
+    pf.ints.put(np.concatenate([tables_np[0], chunk[0].numpy(),
+                                [512, 255, aids_np[3]]]))
+    feed = [tokens[:, 0].numpy(), np.full(rows, context, np.int32)]
+    tokens, chunk = tokens.cuda(), chunk.cuda()
+
+    def graph_decode():
+        dec.feed.put(feed)      # the replay advanced the positions
+        return engine._run_decode(1, False).result()[:, 0]  # pylint: disable=protected-access
+
+    def graph_prefill():
+        engine._run_prefill(False)  # pylint: disable=protected-access
+        return engine._first_host.copy(pf.first).result()  # pylint: disable=protected-access
+
     steps = {
-        'decode': lambda: engine._decode_impl(  # pylint: disable=protected-access
+        ('decode', 'eager'): lambda: engine._decode_impl(  # pylint: disable=protected-access
             tokens, positions, temps, tables, False, aids).cpu(),
-        'prefill_chunk': lambda: engine._prefill_chunk_impl(  # pylint: disable=protected-access
-            chunk, tables[:1], 512, 256, chunk_aids).float().cpu(),
+        ('decode', 'graph'): graph_decode,
+        ('prefill_chunk', 'eager'): lambda: engine._prefill_chunk_impl(  # pylint: disable=protected-access
+            chunk, tables[:1], 512, 255, chunk_aids).float().cpu(),
+        ('prefill_chunk', 'graph'): graph_prefill,
     }
     with torch.inference_mode():
-        for name, fn in steps.items():
+        # Each pair from the same pool state (the chunk writes row 0's
+        # blocks at 512-767, which row 0's decode reads).
+        eager_tokens = steps['decode', 'eager']().numpy()
+        graph_tokens = graph_decode()
+        if not (graph_tokens == eager_tokens).all():
+            fail(f'the decode graph replay gave {graph_tokens.tolist()}, '
+                 f'the eager step {eager_tokens.tolist()}')
+        eager_first = int(torch.argmax(steps['prefill_chunk', 'eager']()))
+        graph_first = int(graph_prefill()[0])
+        if graph_first != eager_first:
+            fail(f'the prefill graph replay gave {graph_first}, the eager '
+                 f'chunk {eager_first}')
+        for (name, path), fn in steps.items():
             for _ in range(3):
                 fn()
             t0 = time.monotonic()
@@ -971,20 +1069,20 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
                     fn()
-            events = prof.key_averages()
-            kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                       and e.key not in RANGES]
-            device_ms = sum(e.self_device_time_total for e in kernels) / 5e3
-            top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+            kernel_ms, kernels, events = _kernel_profile(prof)
             what = (f'{rows} rows at {context} tokens' if name == 'decode'
                     else '1 row, 256 tokens at position 512')
             if engine.max_adapters or cfg.kv_cache_quant:
                 what += (f'; int8 KV, {engine.max_adapters} adapters on '
                          f'{cfg.lora_targets}')
-            log(f'breakdown {name} ({what}): host wall {wall_ms:.2f} '
-                f'ms/step, CUDA kernels {device_ms:.2f} ms/step, device '
-                f'idle share {max(0.0, 1 - device_ms / wall_ms):.3f} [{smi}]')
-            for e in top[:6]:
+            _breakdown_line(f'{name} {path}', what, wall_ms, kernel_ms / 5,
+                            smi)
+            log(f'  launch calls per step: {_launch_calls(events, 5)}; CUDA '
+                f'kernels x{sum(e.count for e in kernels) / 5:g}')
+            if path == 'graph':
+                continue
+            for e in sorted(kernels,
+                            key=lambda e: -e.self_device_time_total)[:6]:
                 log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
                     f'x{e.count // 5:<4d} {e.key[:90]}')
             lora = [e for e in events if e.key == 'lora' and
@@ -994,15 +1092,12 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
                     k in e.key for k in ('cc_shrink', 'cc_expand',
                                          'tc_shrink', 'tc_expand'))]
                 host_ms = sum(e.cpu_time_total for e in lora) / 5e3
-                kernel_ms = sum(e.self_device_time_total
-                                for e in launched) / 5e3
+                lora_ms = sum(e.self_device_time_total
+                              for e in launched) / 5e3
                 log(f'  lora range: host {host_ms:.3f} ms per step (under '
                     f'the profiler) over {sum(e.count for e in lora) // 5} '
-                    f'group calls; its kernels {kernel_ms:.3f} ms '
+                    f'group calls; its kernels {lora_ms:.3f} ms '
                     f'x{sum(e.count for e in launched) // 5}')
-            # Where the host's time goes: the operators with the most
-            # self CPU time per step (under the profiler, which adds to
-            # each).
             host = sorted((e for e in events
                            if e.device_type == DeviceType.CPU and
                            e.key not in RANGES),
@@ -1012,19 +1107,216 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
             for e in host[:6]:
                 log(f'  {e.self_cpu_time_total / 5e3:8.3f} ms '
                     f'x{e.count // 5:<4d} {e.key[:90]}')
+    engine._forget_inputs()  # pylint: disable=protected-access
     for row in blocks:
         pool.release(row)
 
 
-def phase_serve(torch, smi: str) -> tuple:
-    """llama3-8b at full width and depth over localhost HTTP; returns the
-    paged kernel's launches and the bf16 pool's bytes."""
+def engine_windows(torch, engine, smi: str, label: str,
+                   adapters=(None,)) -> None:
+    """Steady windows of the running engine (its graph replays) at
+    async_depth 0 and 1, on the same engine in turn. Decode: 8 requests of
+    700 prompt tokens and 128 new tokens; once all 8 decode, host wall per
+    decode step over 30 steps (no profiler), then CUDA-kernel time per
+    step over 40 (torch.profiler). Prefill: 8 requests of 2048 prompt
+    tokens (64 chunks of 256, 8 a tick) and max_new_tokens 1; host wall
+    per chunk up to the last first token, then kernel time per chunk over
+    a second such batch (its one closing decode dispatch included).
+    Requests cycle over `adapters`."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = engine.cfg
+    gen = torch.Generator().manual_seed(11)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def submit(length, max_new):
+        return [engine.submit(
+            torch.randint(0, cfg.vocab_size, (length,),
+                          generator=gen).tolist(),
+            max_new_tokens=max_new, adapter=adapters[i % len(adapters)])
+            for i in range(8)]
+
+    def steps():
+        return engine.tick_stats['decode_steps']
+
+    def wait_for(cond, deadline):
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f'{label}: the engine window did not progress')
+            time.sleep(0.002)
+
+    for depth in (0, 1):
+        engine.async_depth = depth
+        deadline = time.monotonic() + 300
+        futures = submit(700, 128)
+        wait_for(lambda: all(r is not None and not r.prefilling
+                             for r in engine._slots), deadline)  # pylint: disable=protected-access
+        start = steps()
+        wait_for(lambda: steps() >= start + 4, deadline)
+        s0, t0 = steps(), time.monotonic()
+        wait_for(lambda: steps() >= s0 + 30, deadline)
+        wall_ms = (time.monotonic() - t0) * 1e3 / (steps() - s0)
+        # The profiler starts and stops in the engine thread between
+        # ticks: no step runs while it starts (which takes longer than
+        # the requests' remaining steps), and no launch races it.
+        prof = profile(activities=activities)
+        s1 = engine._run_in_tick(lambda: (prof.start(), steps())[1])  # pylint: disable=protected-access
+        wait_for(lambda: steps() >= s1 + 40, deadline)
+        s2 = engine._run_in_tick(lambda: (prof.stop(), steps())[1])  # pylint: disable=protected-access
+        kernel_ms, _, events = _kernel_profile(prof)
+        for f in futures:
+            f.result(timeout=300)
+        _breakdown_line(f'{label} engine decode window, async_depth {depth}',
+                        '8 rows at 704-823 tokens', wall_ms,
+                        kernel_ms / (s2 - s1), smi)
+        log(f'  launch calls per step: {_launch_calls(events, s2 - s1)}')
+        chunks0 = engine.paged_stats['prefill_chunks']
+        outs = [f.result(timeout=300) for f in submit(2048, 1)]
+        chunks = engine.paged_stats['prefill_chunks'] - chunks0
+        wall_ms = max(st['ttft_s'] for _, st in outs) * 1e3 / chunks
+        with profile(activities=activities) as prof:
+            c1 = engine.paged_stats['prefill_chunks']
+            for f in submit(2048, 1):
+                f.result(timeout=300)
+            c2 = engine.paged_stats['prefill_chunks']
+        kernel_ms, _, events = _kernel_profile(prof)
+        _breakdown_line(f'{label} engine prefill window, async_depth {depth}',
+                        f'{chunks} chunks of 256 to position 2048, 8 a tick',
+                        wall_ms, kernel_ms / (c2 - c1), smi, unit='chunk')
+        log(f'  launch calls per chunk: {_launch_calls(events, c2 - c1)}')
+    engine.async_depth = 1
+
+
+def _serve_launches() -> dict:
+    from skypilot_tpu_torch.ops import fused_lora as fl
     from skypilot_tpu_torch.ops import paged_attention as pa
+    return {'paged_decode_attention': pa.paged_decode_attention.launches,
+            'paged_decode_attention_int8':
+            pa.paged_decode_attention.int8_launches,
+            'fused_multi_lora': fl.fused_multi_lora.launches}
+
+
+def _reset_serve_launches() -> None:
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.int8_launches = 0
+    fl.fused_multi_lora.launches = 0
+
+
+def _expected_launches(engine, chunks: int, steps: int) -> dict:
+    """The serving launch formulas: the paged kernel (its int8 route
+    under int8 KV) layers x (prefill chunks + decode steps), the fused
+    LoRA kernel that x the LoRA groups a layer."""
+    first = engine.model.layers[0]
+    groups = sum(g is not None for g in (
+        first.attn.lora_qkv, first.attn.lora_o, first.mlp.lora_gate_up,
+        first.mlp.lora_down))
+    n = engine.cfg.num_layers * (chunks + steps)
+    int8 = bool(engine.cfg.kv_cache_quant)
+    return {'paged_decode_attention': 0 if int8 else n,
+            'paged_decode_attention_int8': n if int8 else 0,
+            'fused_multi_lora': n * groups}
+
+
+def _serve_traffic(torch, engine, url: str, bodies, during=None) -> dict:
+    """The bodies as concurrent /generate requests, one thread each, with
+    the launch counters set to 0 just before and read just after: checks
+    every answer (32 tokens in the vocabulary) and the launch formulas
+    exactly (`_expected_launches` with Σk decode steps). `during()` runs
+    while the requests are in flight."""
+    results = [None] * len(bodies)
+    errors = []
+
+    def send(i):
+        try:
+            results[i] = _post(url + '/generate', bodies[i])
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'request {i}: {e!r}')
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunks0 = engine.paged_stats['prefill_chunks']
+    ticks0 = dict(engine.tick_stats)
+    _reset_serve_launches()
+    t_start = time.monotonic()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    if during is not None:
+        during()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t_start
+    launches = _serve_launches()
+    ticks = {k: v - ticks0[k] for k, v in engine.tick_stats.items()}
+    chunks = engine.paged_stats['prefill_chunks'] - chunks0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f'requests failed: {errors}')
+    vocab = engine.cfg.vocab_size
+    tokens, stats = [], []
+    for i, res in enumerate(results):
+        ids = res['token_ids'][0]
+        if len(ids) != 32 or not all(isinstance(t, int) and 0 <= t < vocab
+                                     for t in ids):
+            fail(f'request {i}: bad token ids {ids}')
+        tokens.append(ids)
+        stats.append(res['stats'][0])
+    expected = _expected_launches(engine, chunks, ticks['decode_steps'])
+    span = max(s['total_s'] for s in stats) - min(s['ttft_s']
+                                                  for s in stats)
+    return {'tokens': tokens, 'launches': launches, 'expected': expected,
+            'chunks': chunks, 'ticks': ticks, 'wall': wall,
+            'ttft_ms': statistics.median(s['ttft_s'] for s in stats) * 1e3,
+            'tokens_per_s': sum(s['new_tokens'] - 1 for s in stats) / span,
+            'peak_gib': torch.cuda.max_memory_allocated() / 2**30}
+
+
+def serve_in_turns(torch, engine, url: str, bodies, label: str, smi: str,
+                   during=None) -> dict:
+    """The same traffic through the same engine at async_depth 0, 1, 1, 0
+    (set while it is idle): greedy tokens equal in every run, launch
+    formulas exact in every run; TTFT p50 and decode tokens/s per run.
+    `during` runs in the first depth-1 run. Returns that run."""
+    runs = []
+    for depth in (0, 1, 1, 0):
+        engine.async_depth = depth
+        first = depth == 1 and not any(d == 1 for d, _ in runs)
+        run = _serve_traffic(torch, engine, url, bodies,
+                             during if first else None)
+        t = run['ticks']
+        log(f'{label}: async_depth {depth}: {len(bodies)} requests ok in '
+            f'{run["wall"]:.2f}s; prefill chunks {run["chunks"]}, decode '
+            f'steps {t["decode_steps"]} in {t["dispatches"]} dispatches '
+            f'({t["chained"]} chained, {t["flushes"]} flushes); launches '
+            f'{run["launches"]}, expected {run["expected"]} '
+            f'({engine.cfg.num_layers} layers x (chunks + decode steps)); '
+            f'TTFT p50 {run["ttft_ms"]:.1f} ms, decode '
+            f'{run["tokens_per_s"]:.1f} tokens/s over 8 slots, peak memory '
+            f'{run["peak_gib"]:.2f} GiB [{smi}]')
+        if run['launches'] != run['expected']:
+            fail(f'{label}: launches {run["launches"]} != '
+                 f'{run["expected"]}')
+        if runs and run['tokens'] != runs[0][1]['tokens']:
+            fail(f'{label}: greedy tokens at async_depth {depth} differ '
+                 f'from async_depth {runs[0][0]}')
+        runs.append((depth, run))
+    engine.async_depth = 1
+    if not any(run['ticks']['chained'] for d, run in runs if d == 1):
+        fail(f'{label}: no dispatch chained at async_depth 1')
+    return next(run for d, run in runs if d == 1)
+
+
+def phase_serve(torch, smi: str) -> tuple:
+    """llama3-8b at full width and depth over localhost HTTP at
+    async_depth 1; returns the paged kernel's launches and the bf16
+    pool's bytes."""
     from skypilot_tpu_torch.serve.server import (BackgroundServer,
                                                  InferenceServer)
     t0 = time.monotonic()
     server = InferenceServer('llama3-8b', num_slots=8, paged_block_size=16,
-                             prefill_chunk=256, rng_seed=0, device='cuda')
+                             prefill_chunk=256, rng_seed=0, async_depth=1,
+                             device='cuda')
     engine = server.engine
     cfg = engine.cfg
     n_params = sum(p.numel() for p in engine.model.parameters())
@@ -1034,7 +1326,10 @@ def phase_serve(torch, smi: str) -> tuple:
         f'{time.monotonic() - t0:.1f}s: {n_params} params '
         f'({cfg.num_layers} layers, d_model {cfg.d_model}), pool '
         f'{cfg.paged_num_blocks} blocks of {cfg.paged_block_size}')
+    t0 = time.monotonic()
     server.warmup()
+    log(f'serve: warm in {time.monotonic() - t0:.1f}s, graphs '
+        f'{engine._steps.keys}')  # pylint: disable=protected-access
     http = BackgroundServer(server)
     try:
         with urllib.request.urlopen(http.url + '/health', timeout=30) as r:
@@ -1042,60 +1337,12 @@ def phase_serve(torch, smi: str) -> tuple:
                 fail('/health is not ok')
         lengths = [20, 117, 214, 311, 408, 505, 602, 700]
         gen = torch.Generator().manual_seed(1)
-        prompts = [torch.randint(0, cfg.vocab_size, (n,),
-                                 generator=gen).tolist() for n in lengths]
-        results = [None] * len(prompts)
-        errors = []
-
-        def send(i):
-            try:
-                results[i] = _post(http.url + '/generate',
-                                   {'prompt_ids': [prompts[i]],
-                                    'max_new_tokens': 32,
-                                    'temperature': 0.0})
-            except Exception as e:  # pylint: disable=broad-except
-                errors.append(f'request {i}: {e!r}')
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        chunks0 = engine.paged_stats['prefill_chunks']
-        ticks0 = engine.tick_stats['dispatches']
-        pa.paged_decode_attention.launches = 0
-        t_start = time.monotonic()
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.monotonic() - t_start
-        launches = pa.paged_decode_attention.launches
-        chunks = engine.paged_stats['prefill_chunks'] - chunks0
-        ticks = engine.tick_stats['dispatches'] - ticks0
-        if errors or any(t.is_alive() for t in threads):
-            fail(f'requests failed: {errors}')
-        stats = []
-        for i, res in enumerate(results):
-            ids = res['token_ids'][0]
-            if len(ids) != 32 or not all(
-                    isinstance(t, int) and 0 <= t < cfg.vocab_size
-                    for t in ids):
-                fail(f'request {i}: bad token ids {ids}')
-            stats.append(res['stats'][0])
-        expected = cfg.num_layers * (chunks + ticks)
-        log(f'serve: 8 requests ok in {wall:.2f}s; prefill chunks {chunks}, '
-            f'decode ticks {ticks}, kernel launches {launches} '
-            f'(expected {cfg.num_layers} x {chunks + ticks} = {expected})')
-        if launches != expected:
-            fail(f'kernel launches {launches} != {expected}')
-        ttft = statistics.median(s['ttft_s'] for s in stats)
-        decode_tokens = sum(s['new_tokens'] - 1 for s in stats)
-        span = max(s['total_s'] for s in stats) - min(s['ttft_s']
-                                                      for s in stats)
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        log(f'serve: TTFT p50 {ttft * 1e3:.1f} ms, decode '
-            f'{decode_tokens / span:.1f} tokens/s over 8 slots, peak memory '
-            f'{peak_gib:.2f} GiB [{smi}]')
+        bodies = [{'prompt_ids': [torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=gen).tolist()],
+                   'max_new_tokens': 32, 'temperature': 0.0}
+                  for n in lengths]
+        run = serve_in_turns(torch, engine, http.url, bodies, 'serve', smi)
+        engine_windows(torch, engine, smi, 'serve')
     finally:
         http.close()
         server.draining = True
@@ -1105,7 +1352,8 @@ def phase_serve(torch, smi: str) -> tuple:
     if engine._pool.used != 1:  # pylint: disable=protected-access
         fail('pool did not return to scratch-only after drain')
     with torch.inference_mode():
-        tokens = torch.tensor([prompts[0][:16]], device='cuda')
+        tokens = torch.tensor([bodies[0]['prompt_ids'][0][:16]],
+                              device='cuda')
         positions = torch.arange(16, device='cuda', dtype=torch.int32)[None]
         tables = torch.zeros((1, engine._blocks_per_seq + 1),  # pylint: disable=protected-access
                              dtype=torch.int32, device='cuda')
@@ -1115,7 +1363,85 @@ def phase_serve(torch, smi: str) -> tuple:
             not bool(torch.isfinite(logits.float()).all()):
         fail(f'llama3-8b logits not finite or misshapen: {logits.shape}')
     step_breakdown(torch, engine, smi)
-    return launches, pool_bytes
+    return run['launches']['paged_decode_attention'], pool_bytes
+
+
+def phase_graph_parity(torch) -> None:
+    """llama3-8b at full size: 8 greedy requests (20-700 prompt tokens, 32
+    new) through the engine at async_depth 1 and decode_chunk 4 (every
+    dispatch and chunk a graph replay; launch formulas exact) against an
+    eager yardstick on the same engine and weights: each prompt prefilled
+    chunk by chunk with `_prefill_chunk_impl`, the first token its
+    argmax, then all 8 rows stepped together through `_decode_impl`.
+    Greedy tokens must be equal."""
+    import numpy as np
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    t0 = time.monotonic()
+    engine = ContinuousBatchingEngine(
+        'llama3-8b', num_slots=8, paged_block_size=16, prefill_chunk=256,
+        rng_seed=0, async_depth=1, decode_chunk=4, device='cuda')
+    keys = engine.capture_graphs()
+    cfg = engine.cfg
+    log(f'graph_parity: llama3-8b built and {keys} captured in '
+        f'{time.monotonic() - t0:.1f}s')
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (20, 117, 214, 311, 408, 505, 602, 700)]
+    chunks0 = engine.paged_stats['prefill_chunks']
+    ticks0 = dict(engine.tick_stats)
+    _reset_serve_launches()
+    futures = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    graphed = [f.result(timeout=600)[0] for f in futures]
+    launches = _serve_launches()
+    ticks = {k: v - ticks0[k] for k, v in engine.tick_stats.items()}
+    expected = _expected_launches(
+        engine, engine.paged_stats['prefill_chunks'] - chunks0,
+        ticks['decode_steps'])
+    if not engine.drain(timeout=120):
+        fail('graph_parity engine did not drain')
+    if launches != expected:
+        fail(f'graph_parity launches {launches} != {expected}')
+    pool, bs = engine._pool, cfg.paged_block_size  # pylint: disable=protected-access
+    width = engine._blocks_per_seq + 1  # pylint: disable=protected-access
+    tables = np.zeros((8, width), np.int32)
+    for r, p in enumerate(prompts):
+        need = -(-(len(p) + 32) // bs)
+        tables[r, :need] = [pool.alloc() for _ in range(need)]
+    tables = torch.from_numpy(tables).cuda()
+    eager = [[] for _ in prompts]
+    with torch.inference_mode():
+        for r, p in enumerate(prompts):
+            for start in range(0, len(p), 256):
+                n = min(256, len(p) - start)
+                chunk = torch.zeros((1, 256), dtype=torch.int32)
+                chunk[0, :n] = torch.tensor(p[start:start + n])
+                logits = engine._prefill_chunk_impl(  # pylint: disable=protected-access
+                    chunk.cuda(), tables[r:r + 1], start, n - 1)
+            eager[r].append(int(torch.argmax(logits)))
+        tokens = torch.tensor([[e[0]] for e in eager], dtype=torch.int32,
+                              device='cuda')
+        positions = torch.tensor([[len(p)] for p in prompts],
+                                 dtype=torch.int32, device='cuda')
+        temps = torch.zeros(8, device='cuda')
+        for _ in range(31):
+            tokens = engine._decode_impl(  # pylint: disable=protected-access
+                tokens, positions, temps, tables, False)[:, None]
+            positions = positions + 1
+            for r, t in enumerate(tokens[:, 0].tolist()):
+                eager[r].append(t)
+    differ = [r for r in range(8) if eager[r] != graphed[r]]
+    log(f'graph_parity: 8 requests, decode steps {ticks["decode_steps"]} in '
+        f'{ticks["dispatches"]} dispatches ({ticks["chained"]} chained); '
+        f'launches {launches} (expected {expected}); greedy tokens of the '
+        f'graphs at async_depth 1, decode_chunk 4 vs the eager yardstick: '
+        f'{"equal" if not differ else f"rows {differ} DIFFER"}')
+    if differ:
+        fail(f'graph_parity: rows {differ} differ: graphs '
+             f'{[graphed[r] for r in differ]} eager '
+             f'{[eager[r] for r in differ]}')
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ multi-tenant
@@ -1235,16 +1561,15 @@ def _request(url: str, method: str, body=None) -> tuple:
 
 def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
     """llama3-8b at full width and depth with int8 KV and 4 resident
-    adapters on all seven targets, over localhost HTTP."""
-    from skypilot_tpu_torch.ops import fused_lora as fl
-    from skypilot_tpu_torch.ops import paged_attention as pa
+    adapters on all seven targets, over localhost HTTP at async_depth
+    1."""
     from skypilot_tpu_torch.serve import tenancy
     from skypilot_tpu_torch.serve.server import (BackgroundServer,
                                                  InferenceServer)
     t0 = time.monotonic()
     server = InferenceServer('llama3-8b', num_slots=8, paged_block_size=16,
                              prefill_chunk=256, rng_seed=0, max_adapters=4,
-                             device='cuda', **TENANT_KW)
+                             async_depth=1, device='cuda', **TENANT_KW)
     engine = server.engine
     cfg = engine.cfg
     pools = (engine._k_pool, engine._v_pool, engine._k_scale,  # pylint: disable=protected-access
@@ -1256,7 +1581,10 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
         f'adapter slots built in {time.monotonic() - t0:.1f}s; pool '
         f'{pool_bytes} bytes (int8 payload + fp32 scales) vs '
         f'{bf16_pool_bytes} in bf16 ({pool_bytes / bf16_pool_bytes:.4f}x)')
+    t0 = time.monotonic()
     server.warmup()
+    log(f'serve_tenant: warm in {time.monotonic() - t0:.1f}s, graphs '
+        f'{engine._steps.keys}')  # pylint: disable=protected-access
     http = BackgroundServer(server)
     names = [f'ad{i}' for i in range(4)]
     try:
@@ -1288,95 +1616,36 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
                 out['adapter'] = adapter
             return out
 
-        results = [None] * len(prompts)
-        errors = []
+        deleted = []
 
-        def send(i):
-            try:
-                results[i] = _post(http.url + '/generate',
-                                   body_of(i, adapter_of[i]))
-            except Exception as e:  # pylint: disable=broad-except
-                errors.append(f'request {i}: {e!r}')
+        def delete_pinned():
+            # While ad3's request is in flight its adapter is pinned:
+            # DELETE must refuse with 409 (between ticks: no launch).
+            deadline = time.monotonic() + 60
+            while engine._adapter_pool.refcount('ad3') == 0:  # pylint: disable=protected-access
+                if time.monotonic() > deadline:
+                    fail('ad3 was never pinned')
+                time.sleep(0.005)
+            deleted.append(_request(http.url + '/adapters/ad3', 'DELETE'))
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        chunks0 = engine.paged_stats['prefill_chunks']
-        ticks0 = engine.tick_stats['dispatches']
-        pa.paged_decode_attention.launches = 0
-        pa.paged_decode_attention.int8_launches = 0
-        fl.fused_multi_lora.launches = 0
-        t_start = time.monotonic()
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        # While ad3's request is in flight its adapter is pinned: DELETE
-        # must refuse with 409 (between ticks: no kernel launch).
-        deadline = time.monotonic() + 60
-        while engine._adapter_pool.refcount('ad3') == 0:  # pylint: disable=protected-access
-            if time.monotonic() > deadline:
-                fail('ad3 was never pinned')
-            time.sleep(0.005)
-        status, body = _request(http.url + '/adapters/ad3', 'DELETE')
-        pinned_delete = status
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.monotonic() - t_start
-        launches = {'paged_decode_attention':
-                    pa.paged_decode_attention.launches,
-                    'paged_decode_attention_int8':
-                    pa.paged_decode_attention.int8_launches,
-                    'fused_multi_lora': fl.fused_multi_lora.launches}
-        chunks = engine.paged_stats['prefill_chunks'] - chunks0
-        ticks = engine.tick_stats['dispatches'] - ticks0
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        if errors or any(t.is_alive() for t in threads):
-            fail(f'requests failed: {errors}')
+        run = serve_in_turns(
+            torch, engine, http.url,
+            [body_of(i, a) for i, a in enumerate(adapter_of)],
+            'serve_tenant', smi, during=delete_pinned)
         log(f'serve_tenant: DELETE /adapters/ad3 while pinned -> '
-            f'{pinned_delete} {body}')
-        if pinned_delete != 409:
-            fail(f'DELETE of a pinned adapter gave {pinned_delete}, not 409')
-        stats, mixed = [], []
-        for i, res in enumerate(results):
-            ids = res['token_ids'][0]
-            if len(ids) != 32 or not all(
-                    isinstance(t, int) and 0 <= t < cfg.vocab_size
-                    for t in ids):
-                fail(f'request {i}: bad token ids {ids}')
-            mixed.append(ids)
-            stats.append(res['stats'][0])
-        layers = cfg.num_layers
-        first = engine.model.layers[0]
-        groups = sum(g is not None for g in (
-            first.attn.lora_qkv, first.attn.lora_o, first.mlp.lora_gate_up,
-            first.mlp.lora_down))
-        expected = {'paged_decode_attention': 0,
-                    'paged_decode_attention_int8': layers * (chunks + ticks),
-                    'fused_multi_lora': layers * groups * (chunks + ticks)}
-        log(f'serve_tenant: 8 requests (base x2, ad0 x2, ad1 x2, ad2, ad3) '
-            f'ok in {wall:.2f}s; prefill chunks {chunks}, decode ticks '
-            f'{ticks}; launches {launches}, expected {expected} ({layers} '
-            f'layers x (chunks + ticks), x {groups} LoRA groups of '
-            f'{cfg.lora_targets})')
-        if launches != expected:
-            fail(f'serve_tenant launches {launches} != {expected}')
-        ttft = statistics.median(s['ttft_s'] for s in stats)
-        decode_tokens = sum(s['new_tokens'] - 1 for s in stats)
-        span = max(s['total_s'] for s in stats) - min(s['ttft_s']
-                                                      for s in stats)
-        log(f'serve_tenant: TTFT p50 {ttft * 1e3:.1f} ms, decode '
-            f'{decode_tokens / span:.1f} tokens/s over 8 slots, peak '
-            f'memory {peak_gib:.2f} GiB; pool {pool_bytes / 2**30:.3f} GiB '
-            f'int8 vs {bf16_pool_bytes / 2**30:.3f} GiB bf16 [{smi}]')
+            f'{deleted[0]}; pool {pool_bytes / 2**30:.3f} GiB int8 vs '
+            f'{bf16_pool_bytes / 2**30:.3f} GiB bf16')
+        if deleted[0][0] != 409:
+            fail(f'DELETE of a pinned adapter gave {deleted[0]}, not 409')
         # Each request alone through the same engine: same tokens (every
         # decode step runs all 8 slots either way, inert rows on slot 0).
         differ = 0
         for i, adapter in enumerate(adapter_of):
             alone = _post(http.url + '/generate',
                           body_of(i, adapter))['token_ids'][0]
-            if alone != mixed[i]:
-                fail(f'request {i} ({adapter}): mixed batch {mixed[i]} != '
-                     f'served alone {alone}')
+            if alone != run['tokens'][i]:
+                fail(f'request {i} ({adapter}): mixed batch '
+                     f'{run["tokens"][i]} != served alone {alone}')
             if adapter is not None:
                 base = _post(http.url + '/generate',
                              body_of(i, None))['token_ids'][0]
@@ -1386,6 +1655,8 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
             f'on the same prompt')
         if not differ:
             fail('no adapter request differs from the base model')
+        engine_windows(torch, engine, smi, 'serve_tenant',
+                       adapters=(None, *names))
     finally:
         http.close()
         server.draining = True
@@ -1397,7 +1668,7 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
     if any(a['refs'] for a in engine.adapters_info()['adapters']):
         fail(f'adapter pins leaked: {engine.adapters_info()}')
     step_breakdown(torch, engine, smi)
-    return launches
+    return run['launches']
 
 
 # -------------------------------------------------------------------- flash
@@ -2365,7 +2636,7 @@ def phase_train_sp(torch, smi: str) -> int:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'serve', 'serve_tenant')
+          'train_sp', 'serve', 'serve_tenant', 'graph_parity')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -2466,6 +2737,10 @@ def main(argv=None) -> int:
                 'source': LORA_SOURCE,
                 'replaces': 'skypilot_tpu/ops/fused_lora.py:38',
                 'launches': launches['fused_multi_lora'], **lora})
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 'graph_parity' in phases:
+        phase_graph_parity(torch)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,13 +1,26 @@
 """Continuous-batching inference engine over the paged KV pool (PyTorch).
 
 Port of skypilot_tpu/models/inference.py for the serving main path: the
-SYNCHRONOUS, paged `ContinuousBatchingEngine` (the reference's
-async_depth=0, decode_chunk=1, speculative=0, prefix_cache=0, tp=1), plus
-the sampling helpers. A scheduler thread admits queued prompts into free
-slots between ticks; each tick advances every mid-prefill slot by one
-fixed-size chunk, then decodes all slots in one batched step. Every
-attention call runs through the paged kernel (ops/paged_attention), one
-launch per layer.
+paged `ContinuousBatchingEngine` (the reference's speculative=0,
+prefix_cache=0, tp=1) with its async decode pipeline (`async_depth`,
+`decode_chunk`, the device-resident feed), plus the sampling helpers. A
+scheduler thread admits queued prompts into free slots between ticks;
+each tick advances every mid-prefill slot by one fixed-size chunk, then
+decodes all slots in one batched dispatch of k in {1, decode_chunk}
+steps. Every attention call runs through the paged kernel
+(ops/paged_attention), one launch per layer.
+
+Each dispatch and each prefill chunk is a fixed-shape step over static
+device buffers (models/step_graph): on the card a replay of a captured
+CUDA graph, on the CPU the same step run eagerly. A decode step writes
+its sampled tokens back into its token input and advances its positions
+in place (the reference's in-graph feed), so a steady tick uploads
+nothing; host inputs go through pinned buffers with non-blocking copies,
+and sampled tokens come back through pinned buffers and events, never a
+blocking `.cpu()`. `async_depth=N` keeps a ring of up to N dispatches in
+flight ahead of the host (`_can_chain`, `_consume_oldest`,
+`_flush_ring`, the reference's names and semantics): EOS is seen up to N
+dispatches late and the overshoot is discarded by request identity.
 
 Multi-tenant serving, as in the reference: `kv_quant='int8'` keeps the
 pool in int8 with fp32 scale rows (the int8 route of the paged kernel),
@@ -19,9 +32,9 @@ per-slot adapter-index vector drives ops/fused_lora inside every
 targeted projection. SLO tiers and slot preemption are not ported.
 
 Where the reference jits pure functions over a donated cache, the port
-runs eagerly and updates its K/V pools in place. Sampling takes an
-explicit `torch.Generator`; its draws cannot match JAX's, so tests pin
-the filtered distributions and greedy tokens, not sampled ones.
+updates its K/V pools in place. Sampling takes an explicit
+`torch.Generator`; its draws cannot match JAX's, so tests pin the
+filtered distributions and greedy tokens, not sampled ones.
 
 The engine's device defaults to 'cuda' and construction RAISES when CUDA
 is absent: it never falls back to the CPU unless the caller passes
@@ -32,6 +45,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import itertools
 import logging
 import queue as queue_lib
 import threading
@@ -44,6 +58,7 @@ import torch
 from skypilot_tpu_torch import exceptions
 from skypilot_tpu_torch.models import kv_cache as kv_cache_lib
 from skypilot_tpu_torch.models.configs import ModelConfig, get_config
+from skypilot_tpu_torch.models import step_graph
 from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.ops import limits
@@ -55,6 +70,10 @@ logger = logging.getLogger(__name__)
 # path (the CUDA kernel on the card, its plain version on the CPU), so
 # the knob only keeps the reference's construction-time refusals.
 _DECODE_KERNELS = ('xla', 'pallas', 'pallas_interpret')
+
+# Request sequence numbers: the decode feed's signature names requests by
+# them (never by id(), which a later request may reuse).
+_REQ_SEQ = itertools.count()
 
 
 def resolve_device(device) -> torch.device:
@@ -160,12 +179,13 @@ class _Request:
     __slots__ = ('ids', 'max_new_tokens', 'temperature', 'eos_id',
                  'future', 'submit_time', 'first_token_time', 'tokens',
                  'next_pos', 'on_token', 'deadline', 'blocks',
-                 'prefilling', 'prefill_pos', 'adapter', 'adapter_slot',
-                 'adapter_pool')
+                 'prefilling', 'prefill_pos', 'seq', 'adapter',
+                 'adapter_slot', 'adapter_pool')
 
     def __init__(self, ids, max_new_tokens, temperature, eos_id, future,
                  on_token=None, deadline=None, adapter=None,
                  adapter_slot=0, adapter_pool=None):
+        self.seq = next(_REQ_SEQ)
         self.ids = list(ids)
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
@@ -195,6 +215,28 @@ class _Request:
         self.adapter_pool = adapter_pool
 
 
+class _Inflight:
+    """One dispatched-but-not-yet-consumed decode dispatch.
+
+    Lives in the engine's lookahead RING (oldest first, at most
+    async_depth entries after each tick consumes one); every entry was
+    chained off the previous one's feed, so all entries share one slot
+    snapshot and churn flushes the whole ring. `out` is the landing of
+    its (num_slots, k) sampled columns (pinned host copy started at
+    dispatch); `reqs` snapshots slot -> request identity at dispatch so
+    that emission up to async_depth ticks later discards columns whose
+    slot changed hands (EOS overshoot, deadline kills, admission
+    churn)."""
+
+    __slots__ = ('out', 'reqs', 'active', 'k')
+
+    def __init__(self, out, reqs, active, k):
+        self.out = out
+        self.reqs = reqs
+        self.active = active
+        self.k = k
+
+
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a paged KV pool.
 
@@ -204,6 +246,11 @@ class ContinuousBatchingEngine:
     finish. Prompts prefill in fixed `prefill_chunk`-token chunks
     interleaved with decode ticks; rows sit at different depths through
     per-row positions and block tables.
+
+    async_depth=N keeps up to N decode dispatches in flight ahead of the
+    host (0 = synchronous ticks; negative clamps to 0); decode_chunk=K
+    runs K decode steps a dispatch while no request waits for admission,
+    no slot is mid-prefill and every slot's window takes the whole chunk.
 
     kv_quant='int8' stores the pool as int8 with fp32 scale rows.
     max_adapters=N (with adapter_rank r, adapter_alpha and the
@@ -230,6 +277,8 @@ class ContinuousBatchingEngine:
                  adapter_rank: int = 0,
                  adapter_alpha: float = 16.0,
                  adapter_targets: str = '',
+                 async_depth: int = 0,
+                 decode_chunk: int = 1,
                  device='cuda') -> None:
         if kv_quant not in (None, '', 'int8'):
             raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
@@ -293,11 +342,42 @@ class ContinuousBatchingEngine:
         self._k_pool, self._v_pool = pools[:2]
         self._k_scale, self._v_scale = pools[2:] or (None, None)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-        # Decode-tick block-table cache: rebuilt only when the per-slot
-        # block ids change (admission, finish, block growth).
+        # -------- async decode pipeline --------
+        # A ring of up to async_depth dispatches in flight: each chains
+        # off the previous one's feed before the host has seen any of
+        # their tokens, and the host work of a tick (deadlines, queue,
+        # admission, emit) overlaps the device's. Churn flushes the ring.
+        self.async_depth = max(0, async_depth)
+        self.decode_chunk = max(1, decode_chunk)
+        self._ring: 'collections.deque[_Inflight]' = collections.deque()
+        # Static step buffers and their graphs. Each dispatch's columns
+        # land in a pinned buffer of their own: at most async_depth + 1
+        # are unread at a time.
+        width = self._blocks_per_seq + 1
+        self._steps = step_graph.StepGraphs(self.device, self._gen)
+        self._dec = step_graph.DecodeBuffers(
+            num_slots, width, bool(self.max_adapters), self.device,
+            ring=self.async_depth + 2)
+        self._pf = step_graph.PrefillBuffers(
+            self.prefill_chunk, width, bool(self.max_adapters), self.device)
+        self._first_host = step_graph.HostRing((1,), torch.int32,
+                                               self.device, num_slots)
+        # Value signatures of what the static inputs hold. The feed's,
+        # ((req.seq, next_pos) per active slot), predicts the host state
+        # after every pending emit lands: a steady tick matches it and
+        # uploads nothing. Tables, temperatures and adapter slots change
+        # only with occupancy or block growth.
+        self._feed_sig: Optional[tuple] = None
         self._table_sig: Optional[tuple] = None
-        self._table_cache: Optional[torch.Tensor] = None
-        self.tick_stats = {'dispatches': 0}
+        self._temps_sig: Optional[tuple] = None
+        self._aids_sig: Optional[tuple] = None
+        self._chunk_temp: Optional[float] = None
+        # Monotonic stamp of the last consumed dispatch; None after idle
+        # and admission ticks, so host gaps sample steady decode only.
+        self._last_ready: Optional[float] = None
+        self.tick_stats = {'dispatches': 0, 'decode_steps': 0, 'chained': 0,
+                           'flushes': 0, 'host_gap_s': 0.0,
+                           'gap_samples': 0}
         self._queue: 'queue_lib.Queue[_Request]' = queue_lib.Queue()
         self._slots: List[Optional[_Request]] = [None] * num_slots
         self._stop = threading.Event()
@@ -316,14 +396,9 @@ class ContinuousBatchingEngine:
             tenancy.AdapterPool(self.max_adapters) if self.max_adapters
             else None)
         self._lora_stacks = list(self.model.lora_stacks())
-        self._aids_sig: Optional[tuple] = None
-        self._aids_cache: Optional[torch.Tensor] = None
         self.tenancy_stats = {'adapter_sheds': 0}
 
     # ---------------- device steps ----------------
-
-    def _upload(self, values, dtype=torch.int32) -> torch.Tensor:
-        return torch.tensor(values, dtype=dtype, device=self.device)
 
     def _forward(self, tokens, positions, tables, aids,
                  logits_at=None) -> torch.Tensor:
@@ -333,21 +408,21 @@ class ContinuousBatchingEngine:
                           adapter_ids=aids)
 
     def _prefill_chunk_impl(self, tokens: torch.Tensor,
-                            tables: torch.Tensor, start: int,
-                            true_n: int,
+                            tables: torch.Tensor, start, logits_at,
                             aids: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
         """One chunked-prefill step: process the (1, prefill_chunk)
         right-padded chunk at positions [start, start + chunk) through
         the slot's block table (and, multi-LoRA, its (1,) adapter slot
-        `aids`); returns the logits at chunk token true_n - 1 (only
-        meaningful on the final chunk). Pad-token writes land in the
-        row's own blocks that later real writes overwrite, or clip into
-        the table's scratch column."""
+        `aids`); returns the logits of chunk token `logits_at` (only
+        meaningful on the final chunk). start and logits_at are ints, or
+        0-d int32 device tensors (the prefill graph's inputs). Pad-token
+        writes land in the row's own blocks that later real writes
+        overwrite, or clip into the table's scratch column."""
         positions = start + torch.arange(tokens.shape[1], dtype=torch.int32,
                                          device=self.device)[None, :]
         logits = self._forward(tokens, positions, tables, aids,
-                               logits_at=true_n - 1)
+                               logits_at=logits_at)
         return logits[0]
 
     def _decode_impl(self, tokens: torch.Tensor, positions: torch.Tensor,
@@ -369,12 +444,91 @@ class ContinuousBatchingEngine:
         sampled = _categorical(scaled, self._gen)
         return torch.where(temps <= 0, greedy, sampled)
 
-    def _sample(self, logits_row: torch.Tensor, temperature: float) -> int:
-        """Prefill-time first-token sampling (once per request)."""
-        if temperature <= 0:
-            return int(torch.argmax(logits_row))
-        return int(temperature_sample(logits_row, self._gen, temperature,
-                                      self.top_k, self.top_p))
+    def _decode_body(self, k: int, sampling: bool) -> None:
+        """The decode graph's body: k all-slots steps over the static
+        buffers. Step j's tokens go to output column j and back into the
+        token input, and the positions advance by one in place (the
+        reference's in-graph feed), so a chained dispatch reads the
+        previous one's output with no upload. Inert rows ride along with
+        advancing positions: their writes land in the scratch block and
+        their outputs are never read."""
+        d = self._dec
+        out = d.out[k]
+        aids = d.aids.dev if d.aids is not None else None
+        for j in range(k):
+            tokens = self._decode_impl(d.tokens, d.positions, d.temps.dev,
+                                       d.tables.dev, sampling, aids)
+            out[:, j].copy_(tokens)
+            d.tokens.copy_(tokens[:, None])
+            d.positions.add_(1)
+
+    def _first_token(self, logits: torch.Tensor, temp: torch.Tensor,
+                     sampling: bool) -> torch.Tensor:
+        """(1,) int32 first token from one row of prefill logits; temp:
+        (1,) float32, <= 0 means greedy."""
+        greedy = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        if not sampling:
+            return greedy
+        scaled = apply_logit_filters(
+            logits.float()[None] / torch.clamp(temp, min=1e-6)[:, None],
+            self.top_k, self.top_p)
+        return torch.where(temp <= 0, greedy, _categorical(scaled, self._gen))
+
+    def _prefill_body(self, sampling: bool) -> None:
+        """The prefill graph's body: one chunk from the static buffers;
+        the first token is sampled on the device."""
+        p = self._pf
+        logits = self._prefill_chunk_impl(p.tokens, p.table, p.start,
+                                          p.logits_at, p.aid)
+        p.first.copy_(self._first_token(logits, p.temp.dev, sampling))
+
+    def _run_decode(self, k: int, sampling: bool) -> step_graph.Landing:
+        """Run one k-step decode dispatch over what the static inputs hold
+        and start its columns' copy to the host."""
+        out = self._dec.columns(k)
+        self._steps.run(('decode', k, sampling),
+                        lambda: self._decode_body(k, sampling),
+                        keep=(self._dec.feed.dev,), random=sampling)
+        return self._dec.host[k].copy(out)
+
+    def _run_prefill(self, sampling: bool) -> None:
+        self._steps.run(('prefill', sampling),
+                        lambda: self._prefill_body(sampling), random=sampling)
+
+    def capture_graphs(self, timeout: float = 600.0) -> list:
+        """Run, in the engine thread and over inert inputs (all-scratch
+        tables, position 0), the steps every greedy request takes: the
+        prefill chunk and the decode dispatch of k = 1 and decode_chunk.
+        On the card this captures their graphs (sampling graphs are
+        captured at first use). Needs an idle engine; returns the keys
+        captured so far."""
+
+        def capture():
+            if self._busy() or self._ring:
+                raise RuntimeError('capture_graphs needs an idle engine')
+            self._forget_inputs()
+            d = self._dec
+            d.feed.put(np.zeros(d.feed.dev.shape, np.int32))
+            d.tables.put(np.zeros(d.tables.dev.shape, np.int32))
+            d.temps.put(np.zeros(self.num_slots, np.float32))
+            if d.aids is not None:
+                d.aids.put(np.zeros(self.num_slots, np.int32))
+            self._pf.ints.put(np.zeros(self._pf.ints.dev.shape, np.int32))
+            self._run_prefill(False)
+            for k in sorted({1, self.decode_chunk}):
+                self._run_decode(k, False).result()
+            # The runs advanced the feed: nothing the inputs hold is
+            # trusted afterwards.
+            self._forget_inputs()
+            return self._steps.keys
+
+        return self._run_in_tick(capture, timeout=timeout)
+
+    def _forget_inputs(self) -> None:
+        """Drop every value signature of the static inputs: the next
+        dispatch and chunk upload all of theirs."""
+        self._feed_sig = self._table_sig = None
+        self._temps_sig = self._aids_sig = self._chunk_temp = None
 
     # ---------------- paged-KV host bookkeeping ----------------
 
@@ -393,7 +547,7 @@ class ContinuousBatchingEngine:
             self._pool.release(req.blocks)
             req.blocks = []
 
-    def _table_array(self, reqs) -> torch.Tensor:
+    def _table_rows(self, reqs) -> np.ndarray:
         """(len(reqs), blocks_per_seq + 1) int32 block tables. Unmapped
         logical blocks — and the extra last column that absorbs
         clipped pad-token writes — point at the scratch block (0).
@@ -403,39 +557,44 @@ class ContinuousBatchingEngine:
         for row, req in enumerate(reqs):
             if req is not None and req.blocks:
                 table[row, :len(req.blocks)] = req.blocks
-        return torch.from_numpy(table).to(self.device)
+        return table
 
-    def _tables_for(self, slots, active_set) -> torch.Tensor:
-        """Per-slot decode tables, cached under the block-id
-        fingerprint (steady-state ticks reuse the device tensor)."""
+    def _stage_decode_inputs(self, slots, active_set) -> bool:
+        """Upload the decode tables, temperatures and adapter slots whose
+        value signature changed; returns whether any row samples."""
+        rows = range(self.num_slots)
         sig = tuple(tuple(slots[i].blocks) if i in active_set else None
-                    for i in range(self.num_slots))
+                    for i in rows)
         if sig != self._table_sig:
-            self._table_cache = self._table_array(
-                [slots[i] if i in active_set else None
-                 for i in range(self.num_slots)])
+            self._dec.tables.put(self._table_rows(
+                [slots[i] if i in active_set else None for i in rows]))
             self._table_sig = sig
-        return self._table_cache
+        temps = tuple(slots[i].temperature if i in active_set else 0.0
+                      for i in rows)
+        if temps != self._temps_sig:
+            self._dec.temps.put(temps)
+            self._temps_sig = temps
+        if self._dec.aids is not None:
+            # Inert rows read slot 0, the identity.
+            aids = tuple(slots[i].adapter_slot if i in active_set else 0
+                         for i in rows)
+            if aids != self._aids_sig:
+                self._dec.aids.put(aids)
+                self._aids_sig = aids
+        return any(t > 0 for t in temps)
 
-    def _aids_for(self, slots, active_set) -> Optional[torch.Tensor]:
-        """Per-slot adapter-slot vector for an all-slots decode step
-        (multi-LoRA engines only), cached under its value signature.
-        Inert rows read slot 0, the identity; their outputs are never
-        read."""
-        if not self.max_adapters:
-            return None
-        sig = tuple(slots[i].adapter_slot if i in active_set else 0
-                    for i in range(self.num_slots))
-        if sig != self._aids_sig:
-            self._aids_cache = self._upload(list(sig))
-            self._aids_sig = sig
-        return self._aids_cache
-
-    def _aids_single(self, req: _Request) -> Optional[torch.Tensor]:
-        """(1,) adapter-slot vector for a prefill chunk."""
-        if not self.max_adapters:
-            return None
-        return self._upload([req.adapter_slot])
+    def _stage_chunk(self, req: _Request, start: int, n: int,
+                     sampling: bool) -> None:
+        """Upload one prefill chunk's inputs (one copy), and its
+        temperature when it samples and the value changed."""
+        chunk = np.zeros(self.prefill_chunk, np.int32)
+        chunk[:n] = req.ids[start:start + n]
+        self._pf.ints.put(np.concatenate([
+            self._table_rows([req])[0], chunk,
+            np.array([start, n - 1, req.adapter_slot], np.int32)]))
+        if sampling and req.temperature != self._chunk_temp:
+            self._pf.temp.put([req.temperature])
+            self._chunk_temp = req.temperature
 
     # ---------------- scheduling ----------------
 
@@ -449,9 +608,11 @@ class ContinuousBatchingEngine:
         self._slots[slot] = req
 
     def _prefill_tick(self, slots, prefilling) -> None:
-        """Advance every mid-prefill slot by ONE fixed-size chunk. The
-        final chunk's logits seed the first sampled token (TTFT) and
-        flip the slot to decoding."""
+        """Advance every mid-prefill slot by ONE fixed-size chunk. A
+        final chunk samples the first token on the device (TTFT); the
+        tick lands them all at its end and flips those slots to
+        decoding."""
+        landings = []
         for slot in prefilling:
             req = slots[slot]
             total = len(req.ids)
@@ -468,51 +629,165 @@ class ContinuousBatchingEngine:
                     'KV block pool exhausted mid-prefill; request shed '
                     '(size paged_num_blocks to the load)'))
                 continue
-            chunk = req.ids[start:start + n] + \
-                [0] * (self.prefill_chunk - n)
-            logits = self._prefill_chunk_impl(self._upload([chunk]),
-                                              self._table_array([req]),
-                                              start, n,
-                                              self._aids_single(req))
+            final = start + n >= total
+            sampling = final and req.temperature > 0
+            self._stage_chunk(req, start, n, sampling)
+            self._run_prefill(sampling)
             req.prefill_pos = start + n
             self.paged_stats['prefill_chunks'] += 1
-            if req.prefill_pos >= total:
-                req.prefilling = False
-                first = self._sample(logits, req.temperature)
-                req.first_token_time = time_lib.monotonic()
-                req.tokens.append(first)
-                self._notify(req, first)
-                req.next_pos = total
+            if final:
+                landings.append((req, self._first_host.copy(self._pf.first)))
+        for req, landing in landings:
+            first = int(landing.result()[0])
+            req.prefilling = False
+            req.first_token_time = time_lib.monotonic()
+            req.tokens.append(first)
+            self._notify(req, first)
+            req.next_pos = len(req.ids)
 
-    def _decode_tick(self, slots, active) -> None:
-        """One all-slots decode step: inert rows (empty or prefilling
-        slots) ride along at position 0 with all-scratch tables; their
-        writes land in the scratch block and their outputs are never
-        read."""
+    def _dispatch(self, slots, active, k: int,
+                  chain: Optional[_Inflight] = None) -> None:
+        """Issue one k-step decode dispatch for `active` slots and append
+        it to the ring, its columns' host copy started.
+
+        Inputs stay on the device whenever possible: with `chain` (the
+        newest still-unconsumed dispatch) the feed its replay wrote is
+        the input; otherwise the feed is reused when its signature
+        matches the host state, else uploaded from host lists (slot
+        churn)."""
+        # `base` = columns dispatched but not yet emitted for every
+        # active slot (the whole ring's): positions start at
+        # next_pos + base.
+        base = sum(e.k for e in self._ring)
         active_set = set(active)
         try:
+            # Cover every position this dispatch writes, so the table
+            # stays fixed across its k steps and every chained one.
             for i in active:
-                self._ensure_blocks(slots[i], min(slots[i].next_pos + 1,
-                                                  self.cfg.max_seq_len))
+                self._ensure_blocks(slots[i], min(
+                    slots[i].next_pos + base + k, self.cfg.max_seq_len))
         except kv_cache_lib.PoolExhaustedError as e:
             # Only an undersized explicit pool gets here: surface it
             # through the tick-failure path (fails in-flight requests).
             raise exceptions.EngineOverloadedError(
                 f'KV block pool exhausted mid-decode: {e}') from e
-        tables = self._tables_for(slots, active_set)
-        temps_host = [slots[i].temperature if i in active_set else 0.0
-                      for i in range(self.num_slots)]
-        tokens = self._upload([[slots[i].tokens[-1] if i in active_set
-                                else 0] for i in range(self.num_slots)])
-        positions = self._upload([[slots[i].next_pos if i in active_set
-                                   else 0] for i in range(self.num_slots)])
-        out = self._decode_impl(tokens, positions,
-                                self._upload(temps_host, torch.float32),
-                                tables, any(t > 0 for t in temps_host),
-                                self._aids_for(slots, active_set))
-        out_cols = out.cpu().numpy()[:, None]
+        sampling = self._stage_decode_inputs(slots, active_set)
+        rows = range(self.num_slots)
+        if chain is not None:
+            gap = 0.0   # the device never ran dry: queued behind `chain`
+            self.tick_stats['chained'] += 1
+        else:
+            sig = tuple((slots[i].seq, slots[i].next_pos)
+                        if i in active_set else None for i in rows)
+            if sig != self._feed_sig:
+                self._dec.feed.put([
+                    [slots[i].tokens[-1] if i in active_set else 0
+                     for i in rows],
+                    [slots[i].next_pos if i in active_set else 0
+                     for i in rows]])
+            gap = (time_lib.monotonic() - self._last_ready
+                   if self._last_ready is not None else None)
+        out = self._run_decode(k, sampling)
+        self.tick_stats['decode_steps'] += k
         self.tick_stats['dispatches'] += 1
-        self._emit(slots, active, out_cols)
+        # The feed predicts host state after every pending emit lands.
+        self._feed_sig = tuple((slots[i].seq, slots[i].next_pos + base + k)
+                               if i in active_set else None for i in rows)
+        if gap is not None:
+            self.tick_stats['host_gap_s'] += gap
+            self.tick_stats['gap_samples'] += 1
+        self._ring.append(_Inflight(out, tuple(slots), list(active), k))
+
+    def _can_chain(self, slots, active, k: int) -> bool:
+        """True iff the newest ring entry's feed is a valid input for the
+        next dispatch: the slot population is exactly as dispatched for
+        EVERY pending entry and no active request predictably terminates
+        in the pending horizon (max tokens or window; EOS is
+        unpredictable and costs up to async_depth discarded dispatches).
+        `k` is the next dispatch's step count; the horizon is the sum of
+        the pending entries' step counts."""
+        ring = self._ring
+        pending = 0
+        for entry in ring:
+            if active != entry.active:
+                return False
+            pending += entry.k
+        msl = self.cfg.max_seq_len
+        for i in active:
+            req = slots[i]
+            for entry in ring:
+                if req is not entry.reqs[i]:
+                    return False    # finished/killed, maybe re-admitted
+            if len(req.tokens) + pending >= req.max_new_tokens:
+                return False    # finishes within the pending emits
+            if req.next_pos + pending + 1 >= msl:
+                return False    # window termination within the horizon
+            if req.next_pos + pending + k > msl:
+                return False    # lookahead would write past the window
+        return True
+
+    def _consume_oldest(self, slots) -> None:
+        """Land the OLDEST pending dispatch's columns (waiting on its
+        copy's event alone) and emit them. Columns whose slot changed
+        hands since dispatch are discarded by request IDENTITY, never
+        by position arithmetic."""
+        infl = self._ring.popleft()
+        out_cols = infl.out.result()
+        self._last_ready = time_lib.monotonic()
+        live = [i for i in infl.active if slots[i] is infl.reqs[i]]
+        if live:
+            self._emit(slots, live, out_cols)
+
+    def _flush_ring(self, slots) -> None:
+        """Drain the whole pipeline oldest-first: afterwards the ring is
+        empty and every surviving request's host state reflects every
+        dispatched token."""
+        while self._ring:
+            self._consume_oldest(slots)
+
+    def _decode_tick(self, slots, active, prefilling) -> None:
+        """The tick's decode: k ∈ {1, decode_chunk} steps for all slots;
+        chain off the ring when the pipeline is steady, else flush it
+        and dispatch off host state."""
+        ring = self._ring
+        k = 1
+        if self.decode_chunk > 1 and self._queue.empty() and \
+                not prefilling:
+            # Full chunks only, so k ∈ {1, decode_chunk}: a slot near
+            # its window finishes on single steps, and a mid-prefill
+            # slot's next chunk waits for no decode chunk.
+            if all(self.cfg.max_seq_len - slots[i].next_pos >=
+                   self.decode_chunk for i in active):
+                k = self.decode_chunk
+        if ring:
+            if self._can_chain(slots, active, k):
+                # Steady state: top the ring up to async_depth + 1
+                # dispatches BEFORE consuming the oldest, so the device
+                # has queued work while the host emits.
+                while (len(ring) <= self.async_depth and
+                       self._can_chain(slots, active, k)):
+                    self._dispatch(slots, active, k, chain=ring[-1])
+                self._consume_oldest(slots)
+                return
+            # Churn (admission, finish, EOS, window edge, predictable
+            # termination): drain the pipeline, then dispatch off host
+            # state.
+            self._flush_ring(slots)
+            self.tick_stats['flushes'] += 1
+            active = [i for i in active if slots[i] is not None]
+            if not active:
+                return
+            if k > 1 and not all(self.cfg.max_seq_len - slots[i].next_pos
+                                 >= k for i in active):
+                k = 1
+        self._dispatch(slots, active, k)
+        if not self.async_depth:
+            self._consume_oldest(slots)
+            return
+        # Pipeline fill: chain straight up to depth.
+        while (len(ring) < self.async_depth and
+               self._can_chain(slots, active, k)):
+            self._dispatch(slots, active, k, chain=ring[-1])
 
     def _tick(self) -> None:
         slots = self._slots
@@ -590,14 +865,23 @@ class ContinuousBatchingEngine:
             self._prefill_tick(slots, prefilling)
             prefilling = [i for i, r in enumerate(slots)
                           if r is not None and r.prefilling]
+            # Prefill work sits between the last result and this tick's
+            # dispatch: keep it out of the steady-state host gap.
+            self._last_ready = None
         active = [i for i, r in enumerate(slots)
                   if r is not None and not r.prefilling]
         if not active:
-            if not prefilling:
+            if self._ring:
+                # Overshoot of requests that all finished (or were
+                # killed): consume it so nothing dangles, discarding by
+                # identity.
+                self._flush_ring(slots)
+            elif not prefilling:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+            self._last_ready = None
             return
-        self._decode_tick(slots, active)
+        self._decode_tick(slots, active, prefilling)
 
     @staticmethod
     def _notify(req: _Request, token) -> None:
@@ -686,8 +970,11 @@ class ContinuousBatchingEngine:
                                 break
                         self._pool = kv_cache_lib.BlockPool(
                             self.cfg.paged_num_blocks, self.paged_block_size)
-                        self._table_sig = None
-                        self._aids_sig = None
+                        # The ring and the feed go with the tick: no
+                        # pending column is ever emitted.
+                        self._ring.clear()
+                        self._forget_inputs()
+                        self._last_ready = None
                         if self.max_adapters:
                             # The failed tick's residency bookkeeping is
                             # untrusted: fresh residency (the registry

@@ -593,7 +593,7 @@ class Transformer(nn.Module):
                 block_tables: Optional[torch.Tensor] = None,
                 k_pool: Optional[torch.Tensor] = None,
                 v_pool: Optional[torch.Tensor] = None,
-                logits_at: Optional[int] = None,
+                logits_at: Optional[int | torch.Tensor] = None,
                 k_scale: Optional[torch.Tensor] = None,
                 v_scale: Optional[torch.Tensor] = None,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -604,7 +604,8 @@ class Transformer(nn.Module):
         (B,) int32 adapter slots of a multi-LoRA model (None: no deltas).
         Training: positions default to 0..T-1 and the pools are not used.
         Returns (B, T, vocab) logits in cfg.dtype, or (B, vocab) for the
-        single position `logits_at`."""
+        single position `logits_at` (an int, or a 0-d int device
+        tensor)."""
         cfg = self.cfg
         x = nn.functional.embedding(tokens.long(), self.embed).to(self.dtype)
         if cfg.decode:
@@ -630,7 +631,10 @@ class Transformer(nn.Module):
                         context_fn=context_fn)
                 else:
                     x = layer(x, step)
-        if logits_at is not None:
+        if isinstance(logits_at, torch.Tensor):
+            # A 0-d device index (the prefill graph's): no host read.
+            x = x.index_select(1, logits_at.reshape(1))[:, 0]
+        elif logits_at is not None:
             x = x[:, logits_at]
         return self.final_norm(x) @ self.lm_head.to(self.dtype)
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -85,13 +85,18 @@ def _lib() -> ctypes.CDLL:
 
 
 # Per device: the scratch bytes of the fp32 partials. Calls share them in
-# stream order, so groups on one device run on one stream at a time.
+# stream order, so groups on one device run on one stream at a time. A
+# larger call replaces the scratch but never frees the old one: a CUDA
+# graph captured earlier replays into it (models/step_graph).
 _workspaces: Dict[torch.device, torch.Tensor] = {}
+_retired: List[torch.Tensor] = []
 
 
 def _workspace(device: torch.device, scratch: int) -> torch.Tensor:
     have = _workspaces.get(device)
     if have is None or have.numel() < scratch:
+        if have is not None:
+            _retired.append(have)
         have = torch.empty(scratch, dtype=torch.uint8, device=device)
         _workspaces[device] = have
     return have

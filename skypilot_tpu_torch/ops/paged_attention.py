@@ -263,6 +263,8 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
     lib = _lib()
     out = torch.empty_like(q)
     # Split-key partials (m, l, acc) when the key axis splits (decode).
+    # Under CUDA-graph capture this comes from the graph's pool: a
+    # temporary of each replay, like the call's output.
     workspace = torch.empty(
         workspace_floats(batch, cur_len, num_heads, kv_heads, head_dim,
                          block_tables.shape[1], block_size, q.dtype,
@@ -273,6 +275,10 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
         pools += [k_scale.data_ptr(), v_scale.data_ptr()]
     forward = (lib.paged_attention_forward_int8 if kv_quant
                else lib.paged_attention_forward)
+    # A one-row table's row stride is arbitrary (numpy's `[None]` gives
+    # 0); the kernel never steps it.
+    table_stride = (block_tables.stride(0) if batch > 1
+                    else block_tables.shape[1])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = forward(
@@ -280,7 +286,7 @@ def _launch(q, k_pool, v_pool, block_tables, positions, sm_scale,
             positions.data_ptr(), out.data_ptr(),
             workspace.data_ptr() if workspace.numel() else None,
             batch, cur_len, num_heads, kv_heads, head_dim, block_size,
-            block_tables.shape[1], block_tables.stride(0), float(sm_scale),
+            block_tables.shape[1], table_stride, float(sm_scale),
             int(window), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f'paged attention kernel launch failed: CUDA '

@@ -28,9 +28,12 @@ SLO tiers are not ported: a `priority` other than "standard" is a 400.
 
 Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         --paged-block-size 16 --prefill-chunk 256 --num-slots 8 \\
+        [--async-depth 1] [--decode-chunk 4] \\
         [--kv-quant int8] [--max-adapters 4 --adapter-rank 16 \\
          --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down]
-The engine runs on CUDA unless --device cpu is given.
+The engine runs on CUDA unless --device cpu is given. On CUDA every decode
+dispatch and prefill chunk is a CUDA-graph replay; `warmup()` captures
+the graphs greedy requests take.
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ def byte_decode(ids: List[int]) -> str:
 
 class InferenceServer:
     """The engine behind /generate. Build it with a model name (the
-    engine is constructed here) and call `warmup()` before serving."""
+    engine is constructed here) and call `warmup()` before serving: it
+    runs one request and captures the engine's step graphs."""
 
     def __init__(self, model: str, max_seq_len: Optional[int] = None,
                  num_slots: int = 4,
@@ -77,6 +81,8 @@ class InferenceServer:
                  adapter_rank: int = 0,
                  adapter_alpha: float = 16.0,
                  adapter_targets: str = '',
+                 async_depth: int = 0,
+                 decode_chunk: int = 1,
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
@@ -87,7 +93,8 @@ class InferenceServer:
             paged_block_size=paged_block_size, prefill_chunk=prefill_chunk,
             kv_quant=kv_quant, max_adapters=max_adapters,
             adapter_rank=adapter_rank, adapter_alpha=adapter_alpha,
-            adapter_targets=adapter_targets, device=device)
+            adapter_targets=adapter_targets, async_depth=async_depth,
+            decode_chunk=decode_chunk, device=device)
         self.ready = False
         self.draining = False
 
@@ -260,6 +267,7 @@ class InferenceServer:
     def warmup(self) -> None:
         t0 = time.monotonic()
         self.engine.generate([1, 2, 3], max_new_tokens=4, timeout=600.0)
+        self.engine.capture_graphs()
         self.ready = True
         logger.info('engine warm in %.1fs', time.monotonic() - t0)
 
@@ -329,6 +337,20 @@ def main(argv=None) -> int:
     parser.add_argument('--prefill-chunk', type=int, default=0,
                         help='prompt tokens prefilled per tick (default: '
                              'block size)')
+    parser.add_argument('--decode-chunk', type=int, default=1,
+                        help='decode steps per device dispatch when no '
+                             'request awaits admission (>1 cuts host '
+                             'round trips; admission latency bounded by '
+                             'one chunk)')
+    parser.add_argument('--async-depth', type=int, default=0,
+                        help='async decode pipeline: a ring of N '
+                             'in-flight decode dispatches, each '
+                             'chained off the previous one\'s device '
+                             'output, so host scheduling overlaps '
+                             'device compute (EOS detected up to N '
+                             'steps late, overshoot discarded — token '
+                             'streams stay bit-identical). 0 = '
+                             'synchronous ticks')
     parser.add_argument('--max-queue-depth', type=int, default=64,
                         help='queued-request cap; beyond it requests are '
                              'shed with 503 + Retry-After (0 = unbounded)')
@@ -362,6 +384,8 @@ def main(argv=None) -> int:
                              adapter_rank=args.adapter_rank,
                              adapter_alpha=args.adapter_alpha,
                              adapter_targets=args.adapter_targets,
+                             async_depth=args.async_depth,
+                             decode_chunk=args.decode_chunk,
                              device=args.device)
     server.warmup()
     try:

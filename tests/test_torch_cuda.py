@@ -14,6 +14,8 @@ Tolerances: fp32 1e-5 (the kernel and the plain version sum in other
 orders); bf16 2e-2 absolute and relative (both round p to bf16, at
 different points of the softmax, and round the output to bf16).
 """
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -810,3 +812,284 @@ def test_engine_and_trainer_refuse_kernel_shapes_at_construction():
     tiny = dataclasses.replace(get_config('test-tiny'), attention_impl='auto')
     with pytest.raises(ValueError, match='head_dim'):
         trainer.create_train_state(tiny, device='cuda')
+
+
+# ------------------------------------------ step graphs of the serving engine
+
+def _graph_engine(dtype, kv_quant=None, adapters=0, decode_chunk=4):
+    """A small model (head_dim 128) in the serving engine on the card,
+    idle, its pools filled with random K/V (and scale rows)."""
+    import dataclasses
+
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.convert import adapter_layout
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    cfg = dataclasses.replace(
+        get_config('llama3-8b'), name='graph-small', vocab_size=1024,
+        d_model=512, num_layers=2, num_heads=4, num_kv_heads=2, d_mlp=1024,
+        max_seq_len=512, dtype=dtype)
+    kw = {}
+    if adapters:
+        kw = dict(max_adapters=adapters, adapter_rank=16, adapter_alpha=32.0,
+                  adapter_targets='q,k,v,o,gate,up,down')
+    engine = ContinuousBatchingEngine(
+        cfg, num_slots=4, paged_block_size=16, prefill_chunk=64,
+        kv_quant=kv_quant, decode_chunk=decode_chunk, rng_seed=3,
+        device='cuda', **kw)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    for pool in (engine._k_pool, engine._v_pool):  # pylint: disable=protected-access
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
+                                     device='cuda', dtype=torch.int8))
+        else:
+            pool.normal_(generator=gen)
+    for scale in (engine._k_scale, engine._v_scale):  # pylint: disable=protected-access
+        if scale is not None:
+            scale.uniform_(0.001, 0.02, generator=gen)
+    rng = np.random.default_rng(9)
+    for i in range(adapters):
+
+        def walk(node):
+            return {k: (walk(v) if isinstance(v, dict) else
+                        (rng.standard_normal(v) * 0.05).astype(np.float32))
+                    for k, v in sorted(node.items())}
+        tree = walk(adapter_layout(engine.cfg))
+        engine.load_adapter(f'ad{i}', tree)
+    return engine
+
+
+def _stage_decode(engine, positions):
+    """Stage 4 rows at `positions` (None: an inert row) on blocks 1...,
+    and return the eager step's inputs."""
+    width = engine._blocks_per_seq + 1  # pylint: disable=protected-access
+    tables = np.zeros((4, width), np.int32)
+    nxt = 1
+    for row, pos in enumerate(positions):
+        if pos is not None:
+            need = (pos + 8) // 16 + 1
+            tables[row, :need] = np.arange(nxt, nxt + need)
+            nxt += need
+    tokens = np.array([[7 * r + 3] for r in range(4)], np.int32)
+    pos = np.array([[p or 0] for p in positions], np.int32)
+    aids = np.array([r % (engine.max_adapters + 1) for r in range(4)],
+                    np.int32)
+    dec = engine._dec  # pylint: disable=protected-access
+    dec.feed.put([tokens[:, 0], pos[:, 0]])
+    dec.tables.put(tables)
+    dec.temps.put(np.zeros(4, np.float32))
+    if dec.aids is not None:
+        dec.aids.put(aids)
+    dev = {'tokens': torch.from_numpy(tokens).cuda(),
+           'positions': torch.from_numpy(pos).cuda(),
+           'temps': torch.zeros(4, device='cuda'),
+           'tables': torch.from_numpy(tables).cuda(),
+           'aids': (torch.from_numpy(aids).cuda() if dec.aids is not None
+                    else None)}
+    return dev
+
+
+def _pools(engine):
+    return [t for t in (engine._k_pool, engine._v_pool, engine._k_scale,  # pylint: disable=protected-access
+                        engine._v_scale) if t is not None]  # pylint: disable=protected-access
+
+
+_GRAPH_CASES = {'bf16': ('bfloat16', None, 0), 'fp32': ('float32', None, 0),
+                'int8_lora': ('bfloat16', 'int8', 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [1, 4])
+@pytest.mark.parametrize('case', sorted(_GRAPH_CASES))
+def test_decode_graph_equals_eager_step(case, k):
+    """A replay of the engine's k-step decode graph gives the eager
+    `_decode_impl` steps' tokens bit for bit, and a graph of the forward
+    its logits; the pools end equal; the launch counters count
+    replays."""
+    _need_gpu()
+    dtype, kv_quant, adapters = _GRAPH_CASES[case]
+    engine = _graph_engine(dtype, kv_quant, adapters, decode_chunk=k)
+    try:
+        with torch.inference_mode():
+            saved = [t.clone() for t in _pools(engine)]
+            inputs = _stage_decode(engine, [5, 40, None, 130])
+            eager, logits = [], None
+            tokens, positions = inputs['tokens'], inputs['positions'].clone()
+            for j in range(k):
+                if j == 0:
+                    logits = engine._forward(  # pylint: disable=protected-access
+                        tokens, positions, inputs['tables'],
+                        inputs['aids'])[:, -1].clone()
+                nxt = engine._decode_impl(  # pylint: disable=protected-access
+                    tokens, positions, inputs['temps'], inputs['tables'],
+                    False, inputs['aids'])
+                eager.append(nxt)
+                tokens, positions = nxt[:, None], positions + 1
+            eager = torch.stack(eager, dim=1).cpu()
+            after_eager = [t.clone() for t in _pools(engine)]
+            for t, s in zip(_pools(engine), saved):
+                t.copy_(s)
+            engine._run_decode(k, False)  # pylint: disable=protected-access  (capture)
+            for t, s in zip(_pools(engine), saved):
+                t.copy_(s)
+            _stage_decode(engine, [5, 40, None, 130])
+            counts = (pa.paged_decode_attention.launches,
+                      pa.paged_decode_attention.int8_launches,
+                      fl.fused_multi_lora.launches)
+            got = engine._run_decode(k, False).result()  # pylint: disable=protected-access
+            layers = engine.cfg.num_layers
+            assert (pa.paged_decode_attention.launches - counts[0],
+                    pa.paged_decode_attention.int8_launches - counts[1],
+                    fl.fused_multi_lora.launches - counts[2]) == (
+                (0 if kv_quant else k * layers),
+                (k * layers if kv_quant else 0),
+                (k * layers * 4 if adapters else 0))
+            assert torch.equal(torch.from_numpy(got), eager)
+            for t, s in zip(_pools(engine), after_eager):
+                assert torch.equal(t, s)
+            # The feed advanced in place: positions + k, the last tokens.
+            dec = engine._dec  # pylint: disable=protected-access
+            assert torch.equal(dec.positions.cpu(),
+                               inputs['positions'].cpu() + k)
+            assert torch.equal(dec.tokens.cpu()[:, 0], eager[:, -1])
+            # The forward alone, captured and replayed.
+            static = torch.empty_like(logits)
+            for t, s in zip(_pools(engine), saved):
+                t.copy_(s)
+            _stage_decode(engine, [5, 40, None, 130])
+
+            def forward():
+                static.copy_(engine._forward(  # pylint: disable=protected-access
+                    dec.tokens, dec.positions, dec.tables.dev,
+                    dec.aids.dev if dec.aids is not None else None)[:, -1])
+
+            engine._steps.run(('test-forward',), forward)  # pylint: disable=protected-access
+            engine._steps.run(('test-forward',), forward)  # pylint: disable=protected-access
+            torch.cuda.synchronize()
+            assert torch.equal(static, logits)
+    finally:
+        engine.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(_GRAPH_CASES))
+def test_prefill_graph_equals_eager_chunk(case):
+    """The prefill graph's first token is the argmax of the eager
+    `_prefill_chunk_impl` logits, and a graph of the chunk gives those
+    logits bit for bit from its 0-d start and row-index inputs."""
+    _need_gpu()
+    dtype, kv_quant, adapters = _GRAPH_CASES[case]
+    engine = _graph_engine(dtype, kv_quant, adapters)
+    try:
+        with torch.inference_mode():
+            width = engine._blocks_per_seq + 1  # pylint: disable=protected-access
+            table = np.zeros(width, np.int32)
+            table[:10] = np.arange(3, 13)
+            chunk = (np.arange(64) * 13 % 1024).astype(np.int32)
+            start, n, aid = 64, 41, min(adapters, 2)
+            saved = [t.clone() for t in _pools(engine)]
+            aids = (torch.tensor([aid], dtype=torch.int32, device='cuda')
+                    if adapters else None)
+            eager = engine._prefill_chunk_impl(  # pylint: disable=protected-access
+                torch.from_numpy(chunk[None]).cuda(),
+                torch.from_numpy(table[None]).cuda(), start, n - 1,
+                aids).clone()
+            pf = engine._pf  # pylint: disable=protected-access
+            pf.ints.put(np.concatenate([table, chunk, [start, n - 1, aid]]))
+            for t, s in zip(_pools(engine), saved):
+                t.copy_(s)
+            engine._run_prefill(False)  # pylint: disable=protected-access
+            engine._run_prefill(False)  # pylint: disable=protected-access
+            torch.cuda.synchronize()
+            assert int(pf.first) == int(torch.argmax(eager))
+            static = torch.empty_like(eager)
+
+            def chunk_logits():
+                static.copy_(engine._prefill_chunk_impl(  # pylint: disable=protected-access
+                    pf.tokens, pf.table, pf.start, pf.logits_at, pf.aid))
+
+            engine._steps.run(('test-chunk',), chunk_logits)  # pylint: disable=protected-access
+            engine._steps.run(('test-chunk',), chunk_logits)  # pylint: disable=protected-access
+            torch.cuda.synchronize()
+            assert torch.equal(static, eager)
+    finally:
+        engine.stop()
+
+
+@pytest.mark.cuda
+def test_sampling_decode_graph_draws_anew_each_replay():
+    _need_gpu()
+    engine = _graph_engine('bfloat16', decode_chunk=1)
+    try:
+        with torch.inference_mode():
+            draws = []
+            for _ in range(3):
+                _stage_decode(engine, [5, 40, 60, 130])
+                engine._dec.temps.put(np.ones(4, np.float32))  # pylint: disable=protected-access
+                draws.append(engine._run_decode(1, True).result())  # pylint: disable=protected-access
+            assert all(((d >= 0) & (d < 1024)).all() for d in draws)
+            assert len({d.tobytes() for d in draws}) > 1
+    finally:
+        engine.stop()
+
+
+@pytest.mark.cuda
+def test_graph_captured_before_a_larger_lora_call_replays_right():
+    """A larger call replaces the LoRA scratch; a graph captured on the
+    smaller one still replays into live memory and stays right."""
+    _need_gpu()
+    from skypilot_tpu_torch.models import step_graph
+    fl._workspaces.pop(torch.device('cuda', torch.cuda.current_device()),  # pylint: disable=protected-access
+                       None)
+    group, stacks, offsets, x, y0, ids = _lora_group_case(
+        'gate_up', 8, 1, 16, 5, torch.bfloat16, seed=4)
+    y = y0.clone()
+
+    def body():
+        y.copy_(y0)
+        group(x, y, ids)
+
+    steps = step_graph.StepGraphs(torch.device('cuda'))
+    steps.run('lora', body)
+    captured = weakref.ref(fl._workspaces[x.device])  # pylint: disable=protected-access
+    group2, _, _, x2, y2, ids2 = _lora_group_case(
+        'gate_up', 2, 256, 16, 5, torch.bfloat16, seed=5)
+    group2(x2, y2, ids2)
+    assert fl._workspaces[x.device] is not captured()  # pylint: disable=protected-access
+    assert captured() is not None       # the graph's scratch stays alive
+    steps.run('lora', body)
+    torch.cuda.synchronize()
+    ref = _lora_composition(stacks, offsets, x, y0, ids)
+    tol = _LORA_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_capture_raises_on_cuda_rather_than_stepping_eagerly():
+    """A step that cannot be captured fails its tick's request on the
+    card; nothing runs it eagerly instead."""
+    _need_gpu()
+    from skypilot_tpu_torch.models import step_graph
+    steps = step_graph.StepGraphs(torch.device('cuda'))
+    with pytest.raises(RuntimeError):
+        steps.run('sync', lambda: torch.ones(1, device='cuda').item())
+    assert steps.keys == []
+    engine = _graph_engine('bfloat16', decode_chunk=1)
+    real = engine._decode_body  # pylint: disable=protected-access
+
+    def syncing(k, sampling):
+        real(k, sampling)
+        engine._dec.out[k].cpu()  # pylint: disable=protected-access
+
+    engine._decode_body = syncing  # pylint: disable=protected-access
+    try:
+        emitted = []
+        future = engine.submit([1, 2, 3], max_new_tokens=4,
+                               on_token=emitted.append)
+        with pytest.raises(RuntimeError):
+            future.result(timeout=120)
+        # The prefill's first token was emitted, and no decode column.
+        assert len([t for t in emitted if t is not None]) == 1
+        assert ('decode', 1, False) not in engine._steps.keys  # pylint: disable=protected-access
+        torch.ones(1, device='cuda').item()     # the device serves on
+    finally:
+        engine.stop()

@@ -59,7 +59,8 @@ print('ISOLATED', len(sys.argv) - 2)
 
 def test_port_imports_without_jax_or_the_jax_package():
     mods = _module_names()
-    for mod in ('skypilot_tpu_torch.ops.paged_attention',
+    for mod in ('skypilot_tpu_torch.models.step_graph',
+                'skypilot_tpu_torch.ops.paged_attention',
                 'skypilot_tpu_torch.ops.fused_lora',
                 'skypilot_tpu_torch.serve.tenancy',
                 'skypilot_tpu_torch.serve.tenancy.adapter_pool'):
