@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: serving
 (llama3-8b over HTTP, paged attention kernel, every decode dispatch and
-prefill chunk a CUDA-graph replay), multi-tenant serving
+prefill chunk a CUDA-graph replay; multi-turn chat through the prefix
+cache over /generate, its stream and /v1/completions), multi-tenant serving
 (llama3-8b with int8 KV and resident LoRA adapters: the int8 route of the
 paged kernel and the fused multi-LoRA kernel), training (llama3-1b,
 flash-attention forward, dQ and dK/dV kernels) and sequence-parallel
@@ -24,14 +25,20 @@ and passed over):
             boundaries (grouped rows under, at and over the prefill
             route's 64, block sizes 8-64, n_rep 1-8, head_dim 64-256,
             rows split by key span) and the workspace rule against the
-            library's; time kernel, plain version and the library
-            yardstick with CUDA events.
+            library's; the prefix cache's traffic (chunks starting at
+            hit boundaries 1, 15, 17, 63 and 1543; rows shifted within
+            their chunk bit-identical; 8 decode rows sharing their first
+            40 blocks, bit-identical to private copies; a copy-on-write
+            then the hit's chunk replayed from a CUDA graph, bit-identical
+            to the cold chunk); time kernel, plain version and the
+            library yardstick with CUDA events.
   kernels_int8: the same for int8 pools (quantized with the model's
             int8_quantize, fp32 scale rows; bf16 queries take the bf16
             routes, fp32 queries the first design), plus stale payload
             and scale rows in the scratch block and in every row's
             masked tail, which must leave live rows bit-identical; the
-            bf16 route cases over int8 pools (route logged); time it
+            bf16 route cases and the prefix cache's traffic over int8
+            pools (route logged); time it
             (profiler device time) beside its byte bound and the bf16
             route on the same K/V.
   lora:     hold the fused multi-LoRA kernel, one call per llama3-8b
@@ -117,6 +124,20 @@ and passed over):
             engine, the eager step beside one graph replay (equal
             tokens): host wall, CUDA-kernel time (torch.profiler), idle
             share and launch calls per step.
+  serve_prefix: the server with the prefix cache (llama3-8b at full
+            size, 8 slots, blocks of 16, chunks of 256, async_depth 1,
+            prefix_cache 16, 2049 pool blocks): multi-turn chat, 8
+            conversations of 300-1000 seeded tokens, each turn resending
+            the conversation (+ 32 reply + 48 new tokens), 3 turns and a
+            repeat, 8 concurrent requests a turn over /generate, its SSE
+            stream and /v1/completions. A cold pass (prefix_cache 0) then
+            a hot pass on the same engine and prompts, each request on
+            another route: tokens equal; hot prefix stats exact (24
+            hits, 8 misses, copies-on-write = hits ending mid-block);
+            launches 32 x (chunks + decode steps); /metrics deltas equal
+            the stats; the drained pool holds 1 + the index's blocks and
+            1 once the index is released. TTFT p50 and chunks per turn,
+            the HTTP share of TTFT, one copy-on-write's device time.
   serve_tenant: the same server and traffic with int8 KV and 4 random
             adapters (rank 16, alpha 32, targets q,k,v,o,gate,up,down)
             written as npz and loaded through POST /adapters/load, the 8
@@ -381,6 +402,159 @@ def _route_cases(torch, pa, kv_quant=False) -> None:
         'shapes')
 
 
+# The serve_prefix traffic on the paged kernel: hit boundaries where a
+# hit's prefill chunk starts (mid-block and mid-tile), and decode rows
+# whose tables share their first SHARED_BLOCKS blocks.
+PREFIX_STARTS = (1, 15, 17, 63, 1543)
+SHARED_BLOCKS = 40
+
+
+def _bf16_or_int8(torch, case, kv_quant):
+    """(q bf16, K pool, V pool, tables, positions, scale kwargs): the
+    case's float32 pools quantized to int8 with fp32 scale rows under
+    kv_quant, else cast to bf16."""
+    from skypilot_tpu_torch.models.transformer import int8_quantize
+    q, k_pool, v_pool, tables, positions, bps = case
+    if not kv_quant:
+        return (q.bfloat16(), k_pool.bfloat16(), v_pool.bfloat16(),
+                tables[:, :bps], positions, {})
+    (k8, ks), (v8, vs) = int8_quantize(k_pool), int8_quantize(v_pool)
+    return (q.bfloat16(), k8, v8, tables[:, :bps], positions,
+            dict(k_scale=ks[..., None].contiguous(),
+                 v_scale=vs[..., None].contiguous()))
+
+
+def _held(torch, pa, what, args, scales):
+    """The kernel on `args` against its plain version (TOL), a rerun
+    bit-identical; returns the kernel's output."""
+    out = pa.paged_decode_attention(*args, **scales)
+    again = pa.paged_decode_attention(*args, **scales)
+    ref = pa.paged_decode_attention_plain(*args, **scales)
+    torch.cuda.synchronize()
+    err = _check_close(torch, what, out, ref, TOL['bfloat16'])
+    if not torch.equal(out, again):
+        fail(f'{what}: two runs differ')
+    log(f'{what}: max_abs_err={err:.3e}; rerun bit-identical')
+    return out
+
+
+def _prefix_cases(torch, pa, kv_quant=False) -> None:
+    """The kernel on the prefix cache's traffic, bf16 queries at
+    llama3-8b's heads (32 / 8 KV, D 128, blocks of 16) over bf16 or int8
+    pools, each held against the plain version (TOL), reruns
+    bit-identical:
+      - a 256-token prefill chunk starting at each of PREFIX_STARTS (a
+        hit's first chunk starts where its prefix ends), and rows shifted
+        within their chunk bit-identical to the unshifted ones (the cold
+        prefill puts them elsewhere in its chunks);
+      - a decode batch of 8 rows whose tables share their first
+        SHARED_BLOCKS blocks, bit-identical to the same rows over
+        private copies of those blocks;
+      - a copy-on-write of a hit's partial boundary block (the engine's
+        indexed copy, scale rows too), then the hit's chunk replayed from
+        a CUDA graph captured before the copy over the shared table:
+        bit-identical to the cold chunk over private blocks."""
+    pool = 'int8' if kv_quant else 'bf16'
+    for i, start in enumerate(PREFIX_STARTS):
+        case = _pool_case(torch, torch.float32, 1, 256,
+                          [list(range(start, start + 256))], seed=40 + i,
+                          num_blocks=129, max_seq_len=2048)
+        q, k, v, tables, positions, scales = _bf16_or_int8(torch, case,
+                                                           kv_quant)
+        _held(torch, pa, f'kernel prefix chunk at {start} ({pool} pool)',
+              (q, k, v, tables, positions), scales)
+    # A hit's chunk starts where its prefix ends, the cold prefill's chunk
+    # elsewhere: a row's output must not depend on where in its chunk it
+    # sits. The 256 rows at 1000..1255, then the same rows shifted down
+    # the chunk (the chunk starting `shift` earlier).
+    case = _pool_case(torch, torch.float32, 1, 256,
+                      [list(range(1000, 1256))], seed=45, num_blocks=129,
+                      max_seq_len=2048)
+    q, k, v, tables, positions, scales = _bf16_or_int8(torch, case, kv_quant)
+    want = pa.paged_decode_attention(q, k, v, tables, positions, **scales)
+    for shift in (1, 7, 16, 37, 200):
+        moved = torch.zeros_like(q)
+        moved[0, shift:] = q[0, :256 - shift]
+        got = pa.paged_decode_attention(moved, k, v, tables,
+                                        positions - shift, **scales)
+        if not torch.equal(got[0, shift:], want[0, :256 - shift]):
+            diff = (got[0, shift:].float() - want[0, :256 - shift].float())
+            fail(f'kernel chunk rows shifted by {shift} ({pool} pool) differ '
+                 f'from the unshifted rows by {float(diff.abs().max()):.3e}')
+    log(f'kernel chunk rows at 1000-1255 shifted by 1, 7, 16, 37, 200 in '
+        f'their chunk ({pool} pool): bit-identical')
+    # Decode rows sharing a prefix: blocks 1..40 are shared; each row's
+    # private copies of them sit at 41 + 40 r...; tails after those.
+    bs, bps, rows = 16, 128, 8
+    positions = [[640 + 45 * r] for r in range(rows)]
+    tails = [p[0] // bs + 1 - SHARED_BLOCKS for p in positions]
+    num_blocks = 1 + SHARED_BLOCKS * (1 + rows) + sum(tails)
+    case = _pool_case(torch, torch.float32, rows, 1, positions, seed=50,
+                      num_blocks=num_blocks, max_seq_len=bps * bs,
+                      inert=False)
+    q, k, v, _, pos, scales = _bf16_or_int8(torch, case, kv_quant)
+    shared = torch.zeros((rows, bps), dtype=torch.int32)
+    private = torch.zeros((rows, bps), dtype=torch.int32)
+    nxt = 1 + SHARED_BLOCKS * (1 + rows)
+    for r in range(rows):
+        copies = torch.arange(SHARED_BLOCKS) + 1 + SHARED_BLOCKS * (1 + r)
+        for t in [k, v] + list(scales.values()):
+            t[copies.cuda()] = t[1:1 + SHARED_BLOCKS].clone()
+        tail = torch.arange(nxt, nxt + tails[r])
+        nxt += tails[r]
+        shared[r, :SHARED_BLOCKS] = torch.arange(1, 1 + SHARED_BLOCKS)
+        private[r, :SHARED_BLOCKS] = copies
+        shared[r, SHARED_BLOCKS:SHARED_BLOCKS + tails[r]] = tail
+        private[r, SHARED_BLOCKS:SHARED_BLOCKS + tails[r]] = tail
+    what = (f'kernel decode, {rows} rows sharing {SHARED_BLOCKS} blocks '
+            f'({pool} pool)')
+    out = _held(torch, pa, what, (q, k, v, shared.cuda(), pos), scales)
+    if not torch.equal(out, pa.paged_decode_attention(
+            q, k, v, private.cuda(), pos, **scales)):
+        fail(f'{what}: differs from the same rows over private blocks')
+    log(f'{what}: bit-identical to private copies')
+    # Copy-on-write then the hit's chunk. Cold: the prompt's 113 blocks
+    # (1..113). Hot: the cached entry's 96 full blocks shared (1..96),
+    # the boundary block copied from the entry's own partial block (200,
+    # which past the prefix holds the owner's later tokens) into 201,
+    # then the suffix's K/V written at positions >= plen as the model
+    # writes them, and the tail blocks 114..129.
+    plen, total = 1543, 1543 + 256
+    full, cut = plen // bs, plen % bs
+    case = _pool_case(torch, torch.float32, 1, 256,
+                      [list(range(plen, total))], seed=60, num_blocks=202,
+                      max_seq_len=2048)
+    q, k, v, _, pos, scales = _bf16_or_int8(torch, case, kv_quant)
+    pools = [k, v] + list(scales.values())
+    need = -(-total // bs)
+    cold = torch.zeros((1, bps), dtype=torch.int32)
+    cold[0, :need] = torch.arange(1, need + 1)
+    hot = cold.clone()
+    hot[0, full] = 201
+    hot[0, full + 1:need] = torch.arange(114, 114 + need - full - 1)
+    for t in pools:
+        t[200, :cut] = t[1 + full, :cut]      # the entry's prefix rows
+        t[114:114 + need - full - 1] = t[2 + full:need + 1]
+    cold, hot = cold.cuda(), hot.cuda()
+    want = _held(torch, pa, f'kernel cold chunk at {plen} ({pool} pool)',
+                 (q, k, v, cold, pos), scales)
+    static = torch.empty_like(want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static.copy_(pa.paged_decode_attention(q, k, v, hot, pos, **scales))
+    for t in pools:
+        t[201].copy_(t[200])                  # the copy-on-write
+        t[201, cut:] = t[1 + full, cut:]      # the hit's own K/V rows
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(static, want):
+        fail(f'copy-on-write then hit chunk at {plen} ({pool} pool): graph '
+             f'replay differs from the cold chunk by '
+             f'{float((static.float() - want.float()).abs().max()):.3e}')
+    log(f'kernel copy-on-write then hit chunk at {plen} ({pool} pool), graph '
+        f'replay: bit-identical to the cold chunk')
+
+
 def phase_kernels(torch) -> dict:
     from skypilot_tpu_torch.ops import paged_attention as pa
     num_blocks = NUM_BLOCKS
@@ -445,6 +619,7 @@ def phase_kernels(torch) -> dict:
             del case, q, k_pool, v_pool, args
             torch.cuda.empty_cache()
     _route_cases(torch, pa)
+    _prefix_cases(torch, pa)
     return {'max_abs_err': worst, **results['decode'],
             'prefill': results['prefill'],
             'prefill_4096': results['prefill_4096']}
@@ -539,6 +714,7 @@ def phase_kernels_int8(torch) -> dict:
             del q, k8, v8, ks, vs, args, scales, clean, dirty, ref
             torch.cuda.empty_cache()
     _route_cases(torch, pa, kv_quant=True)
+    _prefix_cases(torch, pa, kv_quant=True)
     return {'max_abs_err': worst, **results['decode'],
             'prefill': results['prefill'],
             'prefill_4096': results['prefill_4096']}
@@ -1442,6 +1618,295 @@ def phase_graph_parity(torch) -> None:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ prefix cache
+
+PREFIX_CACHE = 16
+PREFIX_BLOCKS = 2048 + 1         # 8 slots' prompts and the LRU's entries
+PREFIX_TURN1 = tuple(range(300, 1001, 100))   # 8 conversations
+PREFIX_REPLY, PREFIX_NEW, PREFIX_TURNS = 32, 48, 3
+PREFIX_ROUTES = ('generate', 'sse', 'completions')
+
+
+def _sse_events(url: str, body: dict) -> tuple:
+    """(events, seconds from sending the request to its first event) of
+    one streamed request; '[DONE]' stays a string."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    t0 = time.monotonic()
+    first, events = None, []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith('data: '):
+                continue
+            if first is None:
+                first = time.monotonic() - t0
+            data = line[len('data: '):]
+            events.append(data if data == '[DONE]' else json.loads(data))
+    return events, first
+
+
+def _scrape(url: str) -> dict:
+    """The port's parse of one /metrics scrape."""
+    from skypilot_tpu_torch.observability.exposition import (
+        parse_prometheus_text)
+    with urllib.request.urlopen(url + '/metrics', timeout=60) as resp:
+        return parse_prometheus_text(resp.read().decode())
+
+
+def _sample(families: dict, family: str, sample: str, **labels) -> float:
+    return families[family]['samples'].get(
+        (sample, tuple(sorted(labels.items()))), 0.0)
+
+
+def _prefix_turn(server, url: str, prompts, routes) -> list:
+    """One turn: prompt i on routes[i], all concurrently. Each answer is
+    held against the engine's own tokens for that request (the server's
+    submit is wrapped to keep each future): token ids equal on
+    /generate and its stream, text equal to their byte decoding on
+    /v1/completions. Returns per request (tokens, engine TTFT s, client
+    seconds to the first SSE event or None)."""
+    from skypilot_tpu_torch.serve.server import byte_decode
+    futures = {}
+    real = server._submit_one  # pylint: disable=protected-access
+
+    def submit(ids, *args, **kw):
+        future = futures[tuple(ids)] = real(ids, *args, **kw)
+        return future
+
+    server._submit_one = submit  # pylint: disable=protected-access
+    answers = [None] * len(prompts)
+    errors = []
+
+    def send(i):
+        ids, route = prompts[i], routes[i]
+        try:
+            if route == 'generate':
+                answers[i] = _post(url + '/generate', {
+                    'prompt_ids': [ids], 'max_new_tokens': PREFIX_REPLY})
+            elif route == 'sse':
+                answers[i] = _sse_events(url + '/generate', {
+                    'prompt_ids': [ids], 'max_new_tokens': PREFIX_REPLY,
+                    'stream': True})
+            else:
+                answers[i] = _post(url + '/v1/completions', {
+                    'prompt': ids, 'max_tokens': PREFIX_REPLY})
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'request {i} ({route}): {e!r}')
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    server._submit_one = real  # pylint: disable=protected-access
+    if errors or any(t.is_alive() for t in threads):
+        fail(f'serve_prefix requests failed: {errors}')
+    out = []
+    for i, (ids, route) in enumerate(zip(prompts, routes)):
+        tokens, stats = futures[tuple(ids)].result(timeout=60)
+        answer, client_first = answers[i], None
+        if route == 'generate':
+            ok = answer['token_ids'] == [tokens]
+        elif route == 'sse':
+            events, client_first = answer
+            ok = ([e.get('token_id') for e in events[:-1]] == tokens and
+                  events[-1].get('done') is True)
+        else:
+            ok = answer['choices'][0]['text'] == byte_decode(tokens)
+        if not ok or len(tokens) != PREFIX_REPLY:
+            fail(f'serve_prefix request {i} ({route}): answer {answer} vs '
+                 f'the engine\'s tokens {tokens}')
+        out.append((tokens, stats['ttft_s'], client_first))
+    return out
+
+
+def _prefix_pass(torch, server, url: str, turn1, new, label: str,
+                 offset: int, smi: str, turns=None) -> dict:
+    """The chat traffic through one engine: turns of 8 concurrent
+    requests, each turn t + 1 = turn t's prompt + its reply + new[t],
+    then an exact repeat of the last turn. `turns` None builds them from
+    this pass's replies; else replays them. Conversation c of turn t
+    takes route PREFIX_ROUTES[(c + t + offset) % 3]. Launch formula exact
+    over the pass."""
+    engine = server.engine
+    built = [list(p) for p in turn1] if turns is None else None
+    ran, tokens, per_turn = [], [], []
+    chunks0 = engine.paged_stats['prefill_chunks']
+    ticks0 = dict(engine.tick_stats)
+    _reset_serve_launches()
+    for t in range(PREFIX_TURNS + 1):
+        if turns is not None:
+            prompts = turns[t]
+        elif t < PREFIX_TURNS:
+            prompts = built
+        else:
+            prompts = ran[-1]
+        routes = [PREFIX_ROUTES[(c + t + offset) % 3]
+                  for c in range(len(prompts))]
+        c0 = engine.paged_stats['prefill_chunks']
+        t0 = time.monotonic()
+        got = _prefix_turn(server, url, prompts, routes)
+        wall = time.monotonic() - t0
+        ran.append([list(p) for p in prompts])
+        tokens.append([g[0] for g in got])
+        shares = [(c - e) / c for _, e, c in got if c is not None]
+        per_turn.append({
+            'chunks': engine.paged_stats['prefill_chunks'] - c0,
+            'ttft_ms': statistics.median(e for _, e, _ in got) * 1e3,
+            'http_share': statistics.median(shares),
+            'client_ms': statistics.median(c for _, _, c in got
+                                           if c is not None) * 1e3})
+        row = per_turn[-1]
+        log(f'serve_prefix {label} turn {t + 1}'
+            f'{" (repeat)" if t == PREFIX_TURNS else ""}: prompts '
+            f'{min(map(len, prompts))}-{max(map(len, prompts))} tokens, '
+            f'prefill chunks {row["chunks"]}, TTFT p50 {row["ttft_ms"]:.1f} '
+            f'ms (engine), first SSE event p50 {row["client_ms"]:.1f} ms '
+            f'(client), HTTP share of TTFT p50 {row["http_share"]:.4f}, '
+            f'wall {wall:.2f}s [{smi}]')
+        if built is not None and t < PREFIX_TURNS - 1:
+            built = [p + r + n for p, r, n in zip(prompts, tokens[-1],
+                                                  new[t])]
+    launches = _serve_launches()
+    ticks = {k: v - ticks0[k] for k, v in engine.tick_stats.items()}
+    chunks = engine.paged_stats['prefill_chunks'] - chunks0
+    expected = _expected_launches(engine, chunks, ticks['decode_steps'])
+    log(f'serve_prefix {label}: prefill chunks {chunks}, decode steps '
+        f'{ticks["decode_steps"]}; launches {launches}, expected {expected}')
+    if launches != expected or not launches['paged_decode_attention']:
+        fail(f'serve_prefix {label}: launches {launches} != {expected}')
+    return {'turns': ran, 'tokens': tokens, 'per_turn': per_turn}
+
+
+def phase_serve_prefix(torch, smi: str) -> None:
+    """llama3-8b at full width and depth over localhost HTTP with the
+    prefix cache (8 slots, blocks of 16, chunks of 256, async depth 1,
+    prefix_cache 16, PREFIX_BLOCKS pool blocks): multi-turn chat, a cold
+    pass with engine.prefix_cache = 0 then a hot pass with 16 on the
+    same engine and prompts. Checks tokens equal across passes and
+    routes, the hot pass's prefix stats exactly, the launch formulas,
+    the pool's balance and /metrics against the stats."""
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    t0 = time.monotonic()
+    server = InferenceServer('llama3-8b', num_slots=8, paged_block_size=16,
+                             prefill_chunk=256, rng_seed=0, async_depth=1,
+                             prefix_cache=PREFIX_CACHE,
+                             paged_num_blocks=PREFIX_BLOCKS, device='cuda')
+    engine = server.engine
+    engine.prefix_cache = 0       # warmup and the cold pass publish nothing
+    server.warmup()
+    log(f'serve_prefix: llama3-8b built and warm in '
+        f'{time.monotonic() - t0:.1f}s, pool {engine.cfg.paged_num_blocks} '
+        f'blocks of {engine.paged_block_size}')
+    vocab = engine.cfg.vocab_size
+    gen = torch.Generator().manual_seed(3)
+    turn1 = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+             for n in PREFIX_TURN1]
+    new = [[torch.randint(0, vocab, (PREFIX_NEW,), generator=gen).tolist()
+            for _ in turn1] for _ in range(PREFIX_TURNS - 1)]
+    http = BackgroundServer(server)
+    try:
+        cold = _prefix_pass(torch, server, http.url, turn1, new, 'cold', 0,
+                            smi)
+        before = _scrape(http.url)
+        prefix0 = dict(engine.prefix_stats)
+        paged0 = dict(engine.paged_stats)
+        engine.prefix_cache = PREFIX_CACHE
+        hot = _prefix_pass(torch, server, http.url, turn1, new, 'hot', 1,
+                           smi, turns=cold['turns'])
+        after = _scrape(http.url)
+    finally:
+        http.close()
+        server.draining = True
+    differ = [(t + 1, c) for t, (h, k) in enumerate(zip(hot['tokens'],
+                                                         cold['tokens']))
+              for c in range(len(h)) if h[c] != k[c]]
+    if differ:
+        fail(f'serve_prefix: hot tokens differ from cold ones at (turn, '
+             f'conversation) {differ}')
+    turns = cold['turns']
+    plens = ([len(p) for p in turns[0]] + [len(p) for p in turns[1]] +
+             [len(p) - 1 for p in turns[2]])
+    want = {'hits': 3 * len(turn1), 'misses': len(turn1),
+            'tokens_reused': sum(plens)}
+    got = {k: engine.prefix_stats[k] - prefix0[k] for k in want}
+    cow = engine.paged_stats['cow_copies'] - paged0['cow_copies']
+    want_cow = sum(1 for n in plens if n % engine.paged_block_size)
+    log(f'serve_prefix: hot pass prefix stats {got}, expected {want}; '
+        f'copy-on-write {cow}, expected {want_cow}; blocks reused '
+        f'{engine.paged_stats["blocks_reused"] - paged0["blocks_reused"]}; '
+        f'evictions {engine.paged_stats["prefix_evictions"]}; greedy tokens '
+        f'equal cold vs hot, each request on another route')
+    if got != want or cow != want_cow:
+        fail(f'serve_prefix: prefix stats {got} / copies {cow} != '
+             f'{want} / {want_cow}')
+    for t in (1, 2):
+        if hot['per_turn'][t]['chunks'] >= cold['per_turn'][t]['chunks']:
+            fail(f'serve_prefix: hot turn {t + 1} took '
+                 f'{hot["per_turn"][t]["chunks"]} chunks, cold '
+                 f'{cold["per_turn"][t]["chunks"]}')
+    fam = 'skytpu_engine_prefix_cache_total'
+    scraped = {
+        'hits': _sample(after, fam, fam, result='hit') -
+        _sample(before, fam, fam, result='hit'),
+        'misses': _sample(after, fam, fam, result='miss') -
+        _sample(before, fam, fam, result='miss'),
+        'ttft_count': _sample(after, 'skytpu_engine_ttft_seconds',
+                              'skytpu_engine_ttft_seconds_count') -
+        _sample(before, 'skytpu_engine_ttft_seconds',
+                'skytpu_engine_ttft_seconds_count'),
+        'cow': _sample(after, 'skytpu_engine_paged_cow_copies_total',
+                       'skytpu_engine_paged_cow_copies_total') -
+        _sample(before, 'skytpu_engine_paged_cow_copies_total',
+                'skytpu_engine_paged_cow_copies_total')}
+    served = sum(len(p) for p in turns)
+    log(f'serve_prefix: /metrics over the hot pass {scraped}; requests '
+        f'served {served}')
+    if scraped != {'hits': want['hits'], 'misses': want['misses'],
+                   'ttft_count': served, 'cow': cow}:
+        fail(f'serve_prefix: /metrics {scraped} disagrees with the stats')
+    for t, (c, h) in enumerate(zip(cold['per_turn'], hot['per_turn'])):
+        log(f'serve_prefix turn {t + 1}: TTFT p50 cold {c["ttft_ms"]:.1f} / '
+            f'hot {h["ttft_ms"]:.1f} ms, prefill chunks cold {c["chunks"]} '
+            f'/ hot {h["chunks"]} [{smi}]')
+    if not engine.drain(timeout=120):
+        fail('serve_prefix engine did not drain')
+    pool, index = engine._pool, engine._prefix_entries  # pylint: disable=protected-access
+    pool.check()
+    held = {b for _k, blocks in index.entries() for b in blocks}
+    log(f'serve_prefix: drained pool holds {pool.used} blocks, the index '
+        f'{len(index)} entries over {len(held)} distinct blocks')
+    if pool.used != 1 + len(held):
+        fail(f'serve_prefix: pool used {pool.used} != 1 + {len(held)}')
+    # The device time of one copy-on-write (all 32 layers' K and V).
+    src, dst = pool.alloc(), pool.alloc()
+    with torch.inference_mode():
+        cow_ms = cuda_ms(torch, lambda: engine._cow_copy(src, dst))  # pylint: disable=protected-access
+    nbytes = 2 * 2 * engine._k_pool[:, 0].numel() * \
+        engine._k_pool.element_size()  # pylint: disable=protected-access
+    log(f'serve_prefix: one copy-on-write {cow_ms:.4f} ms (CUDA events, '
+        f'mean of 20; {nbytes} bytes read and written, bound '
+        f'{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) [{smi}]')
+    pool.release([src, dst])
+    while len(index):
+        pool.release(index.pop_lru()[1])
+    pool.check()
+    if pool.used != 1:
+        fail(f'serve_prefix: pool holds {pool.used} blocks once the index '
+             f'is released')
+    log('serve_prefix: pool back to scratch-only once the index is released')
+    # The closed server's app still names the engine: drop both before
+    # collecting, so the next phase has the card's memory back.
+    del server, engine, http
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'serve_prefix: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still '
+        f'allocated after the phase')
 
 
 # ------------------------------------------------------------ multi-tenant
@@ -2636,7 +3101,8 @@ def phase_train_sp(torch, smi: str) -> int:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'serve', 'serve_tenant', 'graph_parity')
+          'train_sp', 'serve', 'serve_prefix', 'serve_tenant',
+          'graph_parity')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -2719,6 +3185,10 @@ def main(argv=None) -> int:
                 'source': PAGED_SOURCE,
                 'replaces': 'skypilot_tpu/ops/paged_attention.py:71',
                 'launches': launches, **paged})
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 'serve_prefix' in phases:
+        phase_serve_prefix(torch, smi)
         gc.collect()
         torch.cuda.empty_cache()
     if 'serve_tenant' in phases:

@@ -1,10 +1,10 @@
 """Continuous-batching inference engine over the paged KV pool (PyTorch).
 
 Port of skypilot_tpu/models/inference.py for the serving main path: the
-paged `ContinuousBatchingEngine` (the reference's speculative=0,
-prefix_cache=0, tp=1) with its async decode pipeline (`async_depth`,
-`decode_chunk`, the device-resident feed), plus the sampling helpers. A
-scheduler thread admits queued prompts into free slots between ticks;
+paged `ContinuousBatchingEngine` (the reference's speculative=0, tp=1)
+with its async decode pipeline (`async_depth`, `decode_chunk`, the
+device-resident feed) and its paged prefix cache, plus the sampling
+helpers. A scheduler thread admits queued prompts into free slots between ticks;
 each tick advances every mid-prefill slot by one fixed-size chunk, then
 decodes all slots in one batched dispatch of k in {1, decode_chunk}
 steps. Every attention call runs through the paged kernel
@@ -21,6 +21,18 @@ blocking `.cpu()`. `async_depth=N` keeps a ring of up to N dispatches in
 flight ahead of the host (`_can_chain`, `_consume_oldest`,
 `_flush_ring`, the reference's names and semantics): EOS is seen up to N
 dispatches late and the overshoot is discarded by request identity.
+
+Prefix cache, as in the reference: `prefix_cache=N` keeps the last N
+prompts' blocks in an LRU (kv_cache.PrefixIndex). Admission attaches the
+longest cached prefix's whole blocks by refcount, copies a partial
+boundary block on write (`_cow_copy`, an indexed copy on the engine's
+stream, ordered against every step in flight), and prefills only the
+suffix; each prompt's blocks publish when its final chunk lands. Adapter
+requests neither look up nor publish. Under pool pressure allocation
+evicts LRU entries, which only drops their references.
+
+Metrics: the reference's engine metrics for the paths ported here
+(observability/metrics; recording is off until an exporter enables it).
 
 Multi-tenant serving, as in the reference: `kv_quant='int8'` keeps the
 pool in int8 with fp32 scale rows (the int8 route of the paged kernel),
@@ -61,10 +73,85 @@ from skypilot_tpu_torch.models.configs import ModelConfig, get_config
 from skypilot_tpu_torch.models import step_graph
 from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.serve import tenancy
 
 logger = logging.getLogger(__name__)
+
+# Engine metrics, under the reference's names, for the paths ported here.
+# Label children are bound once here, so a hot path never builds a labels
+# dict; with no exporter attached every recording is one boolean check.
+_TTFT_HIST = obs.histogram(
+    'skytpu_engine_ttft_seconds',
+    'Time from submit to first emitted token')
+_TPOT_HIST = obs.histogram(
+    'skytpu_engine_tpot_seconds',
+    'Per-request mean inter-token latency (decode span / tokens-1)',
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0))
+_QUEUE_DEPTH = obs.gauge(
+    'skytpu_engine_queue_depth',
+    'Requests queued for admission (not yet in a decode slot)')
+_ACTIVE_SLOTS = obs.gauge(
+    'skytpu_engine_active_slots', 'Decode slots currently occupied')
+_TOKENS_TOTAL = obs.counter(
+    'skytpu_engine_tokens_generated_total', 'Decode tokens emitted')
+_REQUESTS_TOTAL = obs.counter(
+    'skytpu_engine_requests_finished_total',
+    'Requests that resolved their future', ('outcome',))
+_REQ_OK = _REQUESTS_TOTAL.labels(outcome='ok')
+_REQ_FAILED = _REQUESTS_TOTAL.labels(outcome='failed')
+_REJECTS = obs.counter(
+    'skytpu_engine_admission_rejects_total',
+    'Requests refused at admission', ('reason',))
+_REJECT_OVERLOADED = _REJECTS.labels(reason='overloaded')
+_REJECT_DRAINING = _REJECTS.labels(reason='draining')
+_PREFIX = obs.counter(
+    'skytpu_engine_prefix_cache_total',
+    'Prefix-cache lookups at admission', ('result',))
+_PREFIX_HIT = _PREFIX.labels(result='hit')
+_PREFIX_MISS = _PREFIX.labels(result='miss')
+_PREFIX_TOKENS = obs.counter(
+    'skytpu_engine_prefix_tokens_reused_total',
+    'Prompt tokens whose prefill was skipped via the prefix cache')
+_PAGED_CAPACITY = obs.gauge(
+    'skytpu_engine_paged_blocks_capacity',
+    'Paged KV pool size in blocks (incl. the scratch block)')
+_PAGED_USED = obs.gauge(
+    'skytpu_engine_paged_blocks_used',
+    'Paged KV pool blocks currently referenced')
+_PAGED_REUSED = obs.counter(
+    'skytpu_engine_paged_blocks_reused_total',
+    'Whole blocks attached read-only from cached prefixes at admission')
+_PAGED_COW = obs.counter(
+    'skytpu_engine_paged_cow_copies_total',
+    'Copy-on-write block copies (partial prefix block made private)')
+_CHUNKED_PREFILL = obs.counter(
+    'skytpu_engine_chunked_prefill_ticks_total',
+    'Prefill chunks processed (interleaved between decode ticks)')
+_PAGED_INT8_SAVED = obs.gauge(
+    'skytpu_engine_paged_int8_bytes_saved',
+    'HBM bytes the int8-quantized paged pool saves vs the same pool '
+    'at the float dtype (payload fp->1 byte minus the fp32 scale rows, '
+    'both K and V, all layers)')
+_DISPATCH_AHEAD_DEPTH = obs.histogram(
+    'skytpu_engine_dispatch_ahead_depth',
+    'In-flight decode dispatches (ring depth) observed as each '
+    'dispatch is issued — how deep the async lookahead actually runs',
+    buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0))
+_HOST_GAP_HIST = obs.histogram(
+    'skytpu_engine_tick_host_gap_seconds',
+    'Per decode dispatch: host time between consuming the previous '
+    'dispatch result and issuing the next dispatch — the window in '
+    'which the device has no queued decode work. Chained lookahead '
+    'dispatches (async_depth>0) record 0 by construction.',
+    buckets=(0.00001, 0.00003, 0.0001, 0.0003, 0.001, 0.003, 0.01,
+             0.03, 0.1, 0.3, 1.0))
+_DISPATCH_AHEAD = obs.gauge(
+    'skytpu_engine_dispatch_ahead',
+    'Decode dispatches in flight beyond the last consumed result '
+    '(the async lookahead depth currently in effect)')
 
 # The reference's decode_kernel values. The port has ONE paged-attention
 # path (the CUDA kernel on the card, its plain version on the CPU), so
@@ -252,6 +339,10 @@ class ContinuousBatchingEngine:
     runs K decode steps a dispatch while no request waits for admission,
     no slot is mid-prefill and every slot's window takes the whole chunk.
 
+    prefix_cache=N keeps the last N prompts' blocks for reuse: a prompt
+    that extends a cached one prefills only its suffix (`prefix_stats`;
+    `paged_stats` blocks_reused, cow_copies, prefix_evictions).
+
     kv_quant='int8' stores the pool as int8 with fp32 scale rows.
     max_adapters=N (with adapter_rank r, adapter_alpha and the
     adapter_targets tokens, e.g. 'q,v') holds up to N LoRA adapters
@@ -279,6 +370,7 @@ class ContinuousBatchingEngine:
                  adapter_targets: str = '',
                  async_depth: int = 0,
                  decode_chunk: int = 1,
+                 prefix_cache: int = 0,
                  device='cuda') -> None:
         if kv_quant not in (None, '', 'int8'):
             raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
@@ -304,6 +396,13 @@ class ContinuousBatchingEngine:
                                   kv_cache_quant=kv_quant or '')
         self.num_slots = num_slots
         self.top_k, self.top_p = top_k, top_p
+        # >0: keep the last N prompts' blocks in an LRU; a prompt sharing
+        # a cached prefix prefills only the suffix. An entry costs
+        # ceil(L / block_size) shared blocks. Read at every admission and
+        # every publish, so setting it to 0 on an idle engine turns the
+        # cache off without dropping its entries.
+        self.prefix_cache = max(0, prefix_cache)
+        self.prefix_stats = {'hits': 0, 'misses': 0, 'tokens_reused': 0}
         # -------- paged KV cache --------
         self.paged_block_size = max(0, paged_block_size)
         if not self.paged_block_size:
@@ -319,15 +418,19 @@ class ContinuousBatchingEngine:
             # Every paged step goes through the kernel on the card.
             limits.check_kernel_shapes(cfg.head_dim, self.paged_block_size)
         self._blocks_per_seq = cfg.max_seq_len // self.paged_block_size
-        # Default pool: every slot can reach max_seq_len, plus the
-        # scratch block.
-        nb = paged_num_blocks or num_slots * self._blocks_per_seq + 1
+        # Default pool: every slot can reach max_seq_len, plus full
+        # headroom for the prefix LRU, plus the scratch block.
+        nb = paged_num_blocks or (
+            (num_slots + self.prefix_cache) * self._blocks_per_seq + 1)
         self.cfg = dataclasses.replace(
             cfg, paged_block_size=self.paged_block_size,
             paged_num_blocks=nb)
         self._pool = kv_cache_lib.BlockPool(nb, self.paged_block_size)
         self.prefill_chunk = max(1, prefill_chunk or self.paged_block_size)
-        self.paged_stats = {'prefill_chunks': 0}
+        self.paged_stats = {'cow_copies': 0, 'blocks_reused': 0,
+                            'prefill_chunks': 0, 'prefix_evictions': 0}
+        self._prefix_entries = self._new_prefix_index()
+        _PAGED_CAPACITY.set(nb)
         self.decode_kernel = _resolve_decode_kernel(decode_kernel, self.cfg)
         self.cfg = dataclasses.replace(self.cfg,
                                        decode_kernel=self.decode_kernel)
@@ -341,6 +444,12 @@ class ContinuousBatchingEngine:
         pools = self.model.new_kv_pool(nb)
         self._k_pool, self._v_pool = pools[:2]
         self._k_scale, self._v_scale = pools[2:] or (None, None)
+        self.paged_int8_bytes_saved = 0
+        if kv_quant:
+            self.paged_int8_bytes_saved = kv_cache_lib.int8_pool_bytes_saved(
+                nb, self.paged_block_size, cfg.num_kv_heads, cfg.head_dim,
+                cfg.num_layers, getattr(torch, cfg.dtype).itemsize)
+            _PAGED_INT8_SAVED.set(self.paged_int8_bytes_saved)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         # -------- async decode pipeline --------
         # A ring of up to async_depth dispatches in flight: each chains
@@ -532,6 +641,37 @@ class ContinuousBatchingEngine:
 
     # ---------------- paged-KV host bookkeeping ----------------
 
+    # Prefixes shorter than this are re-prefilled rather than matched.
+    _MIN_PREFIX = 16
+
+    def _new_prefix_index(self) -> kv_cache_lib.PrefixIndex:
+        """Prefix LRU chunked at the block size, so a hit maps directly
+        onto whole shareable blocks."""
+        return kv_cache_lib.PrefixIndex(capacity=max(1, self.prefix_cache),
+                                        chunk=self.paged_block_size)
+
+    def _longest_cached_prefix(self, ids: list):
+        """(prefix_len, blocks) of the best cached entry that is a prefix
+        of `ids`, or (0, None). An exact-length hit reuses all but the
+        last token (the suffix must be non-empty to produce logits)."""
+        return self._prefix_entries.lookup(ids, len(ids) - 1)
+
+    def _alloc_block(self) -> int:
+        """Allocate one pool block, evicting prefix-LRU entries under
+        pressure. Eviction only DEREFS: a block shared with an active
+        slot stays alive until its refcount reaches 0, so evicting can
+        never corrupt an in-flight request."""
+        try:
+            return self._pool.alloc()
+        except kv_cache_lib.PoolExhaustedError:
+            while len(self._prefix_entries):
+                _key, blocks = self._prefix_entries.pop_lru()
+                self._pool.release(blocks)
+                self.paged_stats['prefix_evictions'] += 1
+                if self._pool.free:
+                    return self._pool.alloc()
+            raise
+
     def _ensure_blocks(self, req: _Request, upto_pos: int) -> None:
         """Grow the request's block table to cover positions
         [0, upto_pos) — lazy allocation, clamped to the logical
@@ -539,13 +679,52 @@ class ContinuousBatchingEngine:
         bs = self.paged_block_size
         need = min(-(-upto_pos // bs), self._blocks_per_seq)
         while len(req.blocks) < need:
-            req.blocks.append(self._pool.alloc())
+            req.blocks.append(self._alloc_block())
 
     def _release_blocks(self, req: _Request) -> None:
-        """Return a finished/failed request's blocks to the pool."""
+        """Return a finished/failed request's block references to the
+        pool (shared prefix blocks survive through the index's)."""
         if req.blocks:
             self._pool.release(req.blocks)
             req.blocks = []
+
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy-on-write: clone physical block `src` into `dst` in every
+        layer of every pool (K, V and, under int8 KV, their scale rows).
+        One indexed copy a pool on the engine's current stream, outside
+        any captured graph: graph replays run on the same stream, so the
+        copy is ordered after every step that wrote `src` and before
+        every step that reads `dst`."""
+        for pool in (self._k_pool, self._v_pool, self._k_scale,
+                     self._v_scale):
+            if pool is not None:
+                pool[:, dst].copy_(pool[:, src])
+
+    def _store_prefix_paged(self, req: _Request) -> None:
+        """Publish a freshly prefilled prompt's ceil(L / block_size)
+        blocks as a shared prefix (one reference each for the index).
+        Adapter requests never publish: their KV depends on the
+        adapter."""
+        if not self.prefix_cache or req.adapter_slot != 0:
+            return
+        num = -(-len(req.ids) // self.paged_block_size)
+        blocks = list(req.blocks[:num])
+        for block in blocks:
+            self._pool.incref(block)
+        for _key, old_blocks in self._prefix_entries.put(req.ids, blocks):
+            self._pool.release(old_blocks)
+
+    def paged_occupancy(self) -> dict:
+        """Pool accounting snapshot: blocks used (scratch included) and
+        their peak, prefix entries, and `paged_stats`."""
+        return {
+            'block_size': self.paged_block_size,
+            'blocks_capacity': self._pool.num_blocks,
+            'blocks_used': self._pool.used,
+            'peak_blocks_used': self._pool.peak_used,
+            'prefix_entries': len(self._prefix_entries),
+            **self.paged_stats,
+        }
 
     def _table_rows(self, reqs) -> np.ndarray:
         """(len(reqs), blocks_per_seq + 1) int32 block tables. Unmapped
@@ -599,11 +778,57 @@ class ContinuousBatchingEngine:
     # ---------------- scheduling ----------------
 
     def _admit(self, slot: int, req: _Request) -> None:
-        """Paged admission is cheap: the prompt prefills chunk by chunk
-        across subsequent ticks (_prefill_tick)."""
-        req.blocks = []
-        req.prefill_pos = 0
-        req.next_pos = 0
+        """Paged admission is cheap: attach a cached prefix's whole
+        blocks (incref), copy a partial boundary block on write, and mark
+        the request as prefilling from the prefix's end. The rest of the
+        prompt prefills chunk by chunk across subsequent ticks
+        (_prefill_tick). Raises PoolExhaustedError, with every reference
+        it took released, when the copy finds no block."""
+        use_prefix = self.prefix_cache and req.adapter_slot == 0
+        plen, entry = (self._longest_cached_prefix(req.ids)
+                       if use_prefix else (0, None))
+        if plen < self._MIN_PREFIX:
+            plen, entry = 0, None
+        bs = self.paged_block_size
+        blocks: list = []
+        if entry is not None:
+            full = plen // bs
+            for block in entry[:full]:
+                self._pool.incref(block)
+            blocks.extend(entry[:full])
+            # Visible on the request from here on, so that the admission
+            # failure path releases them if the copy fails mid-way.
+            req.blocks = blocks
+            cow = 0
+            if plen % bs:
+                # The boundary block is shared and partially filled:
+                # clone it so this request can append. Without a block
+                # for the clone, undo the increfs above before raising:
+                # the shed path never sees req.blocks.
+                try:
+                    dst = self._alloc_block()
+                except kv_cache_lib.PoolExhaustedError:
+                    self._pool.release(blocks)
+                    blocks.clear()
+                    raise
+                self._cow_copy(entry[full], dst)
+                blocks.append(dst)
+                cow = 1
+            self.paged_stats['blocks_reused'] += full
+            self.paged_stats['cow_copies'] += cow
+            _PAGED_REUSED.inc(full)
+            if cow:
+                _PAGED_COW.inc()
+            self.prefix_stats['hits'] += 1
+            self.prefix_stats['tokens_reused'] += plen
+            _PREFIX_HIT.inc()
+            _PREFIX_TOKENS.inc(plen)
+        elif use_prefix:
+            self.prefix_stats['misses'] += 1
+            _PREFIX_MISS.inc()
+        req.blocks = blocks
+        req.prefill_pos = plen
+        req.next_pos = plen
         req.prefilling = True
         self._slots[slot] = req
 
@@ -635,13 +860,20 @@ class ContinuousBatchingEngine:
             self._run_prefill(sampling)
             req.prefill_pos = start + n
             self.paged_stats['prefill_chunks'] += 1
+            _CHUNKED_PREFILL.inc()
             if final:
+                # The prompt's blocks are final (pad writes past it land
+                # beyond every later match): publish them now, as the
+                # reference does when its final chunk lands.
+                self._store_prefix_paged(req)
                 landings.append((req, self._first_host.copy(self._pf.first)))
         for req, landing in landings:
             first = int(landing.result()[0])
             req.prefilling = False
             req.first_token_time = time_lib.monotonic()
+            _TTFT_HIST.observe(req.first_token_time - req.submit_time)
             req.tokens.append(first)
+            _TOKENS_TOTAL.inc()
             self._notify(req, first)
             req.next_pos = len(req.ids)
 
@@ -694,9 +926,14 @@ class ContinuousBatchingEngine:
         self._feed_sig = tuple((slots[i].seq, slots[i].next_pos + base + k)
                                if i in active_set else None for i in rows)
         if gap is not None:
+            _HOST_GAP_HIST.observe(gap)
             self.tick_stats['host_gap_s'] += gap
             self.tick_stats['gap_samples'] += 1
         self._ring.append(_Inflight(out, tuple(slots), list(active), k))
+        if self.async_depth:
+            depth = len(self._ring)
+            _DISPATCH_AHEAD.set(depth)
+            _DISPATCH_AHEAD_DEPTH.observe(depth)
 
     def _can_chain(self, slots, active, k: int) -> bool:
         """True iff the newest ring entry's feed is a valid input for the
@@ -744,6 +981,7 @@ class ContinuousBatchingEngine:
         dispatched token."""
         while self._ring:
             self._consume_oldest(slots)
+        _DISPATCH_AHEAD.set(0)
 
     def _decode_tick(self, slots, active, prefilling) -> None:
         """The tick's decode: k ∈ {1, decode_chunk} steps for all slots;
@@ -768,6 +1006,7 @@ class ContinuousBatchingEngine:
                        self._can_chain(slots, active, k)):
                     self._dispatch(slots, active, k, chain=ring[-1])
                 self._consume_oldest(slots)
+                _DISPATCH_AHEAD.set(len(ring))
                 return
             # Churn (admission, finish, EOS, window edge, predictable
             # termination): drain the pipeline, then dispatch off host
@@ -856,7 +1095,21 @@ class ContinuousBatchingEngine:
                             f'request expired in the admission queue '
                             f'after {mono_now - req.submit_time:.1f}s'))
                     continue
-                self._admit(slot, req)
+                try:
+                    self._admit(slot, req)
+                except kv_cache_lib.PoolExhaustedError as e:
+                    # Shed THIS request; in-flight slots keep their
+                    # blocks and keep decoding.
+                    self._fail_request(req, exceptions.EngineOverloadedError(
+                        f'KV block pool exhausted at admission: {e}'))
+                    continue
+                except BaseException as e:
+                    # The request is in neither the queue nor a slot, so
+                    # no failure path would resolve it: release what it
+                    # took and fail it before the tick fails.
+                    self._release_blocks(req)
+                    self._fail_request(req, e)
+                    raise
         # Chunked prefill: every mid-prefill slot advances ONE chunk,
         # then the decode below still runs for the slots past prefill.
         prefilling = [i for i, r in enumerate(slots)
@@ -870,6 +1123,15 @@ class ContinuousBatchingEngine:
             self._last_ready = None
         active = [i for i, r in enumerate(slots)
                   if r is not None and not r.prefilling]
+        # Saturation signals, refreshed once a tick (gauge sets behind
+        # the enabled check). Capacity too: an exporter usually enables
+        # recording after construction.
+        _ACTIVE_SLOTS.set(len(active))
+        _QUEUE_DEPTH.set(queue.qsize())
+        _PAGED_CAPACITY.set(self._pool.num_blocks)
+        _PAGED_USED.set(self._pool.used)
+        if self.paged_int8_bytes_saved:
+            _PAGED_INT8_SAVED.set(self.paged_int8_bytes_saved)
         if not active:
             if self._ring:
                 # Overshoot of requests that all finished (or were
@@ -879,6 +1141,7 @@ class ContinuousBatchingEngine:
             elif not prefilling:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+            _DISPATCH_AHEAD.set(0)
             self._last_ready = None
             return
         self._decode_tick(slots, active, prefilling)
@@ -906,6 +1169,7 @@ class ContinuousBatchingEngine:
             pool.release(req.adapter)
 
     def _fail_request(self, req: _Request, exc: BaseException) -> None:
+        _REQ_FAILED.inc()
         self._release_adapter(req)
         if not req.future.done():
             req.future.set_exception(exc)
@@ -924,6 +1188,13 @@ class ContinuousBatchingEngine:
             'prompt_tokens': len(req.ids),
         }
         if not req.future.done():
+            # done() here means the caller cancelled: no reader, so not
+            # a delivered 'ok' either.
+            _REQ_OK.inc()
+            if len(req.tokens) > 1:
+                # Mean inter-token latency over the decode span.
+                _TPOT_HIST.observe((now - req.first_token_time) /
+                                   (len(req.tokens) - 1))
             req.future.set_result((list(req.tokens), stats))
         self._notify(req, None)  # stream end (after the future resolves)
 
@@ -932,10 +1203,12 @@ class ContinuousBatchingEngine:
         termination."""
         for slot in active:
             req = slots[slot]
+            emitted = 0
             for c in range(out_cols.shape[1]):
                 req.next_pos += 1
                 token = int(out_cols[slot, c])
                 req.tokens.append(token)
+                emitted += 1
                 self._notify(req, token)
                 done = (len(req.tokens) >= req.max_new_tokens or
                         (req.eos_id is not None and token == req.eos_id) or
@@ -943,6 +1216,7 @@ class ContinuousBatchingEngine:
                 if done:
                     self._finish(slots, slot)
                     break
+            _TOKENS_TOTAL.inc(emitted)
 
     def _loop(self) -> None:
         with torch.inference_mode():
@@ -970,6 +1244,8 @@ class ContinuousBatchingEngine:
                                 break
                         self._pool = kv_cache_lib.BlockPool(
                             self.cfg.paged_num_blocks, self.paged_block_size)
+                        # The index's blocks died with the pool.
+                        self._prefix_entries = self._new_prefix_index()
                         # The ring and the feed go with the tick: no
                         # pending column is ever emitted.
                         self._ring.clear()
@@ -1121,6 +1397,7 @@ class ContinuousBatchingEngine:
         an unknown adapter raises UnknownAdapterError, every adapter slot
         pinned AdapterPoolExhaustedError."""
         if self._draining:
+            _REJECT_DRAINING.inc()
             raise exceptions.EngineDrainingError(
                 'engine is draining for shutdown; not accepting new '
                 'requests')
@@ -1130,6 +1407,7 @@ class ContinuousBatchingEngine:
             free = sum(1 for r in self._slots if r is None)
             backlog = self._queue.qsize() - free
             if backlog >= self.max_queue_depth:
+                _REJECT_OVERLOADED.inc()
                 raise exceptions.EngineOverloadedError(
                     f'engine admission queue is full ({backlog} '
                     f'queued beyond free capacity, cap '
@@ -1158,11 +1436,13 @@ class ContinuousBatchingEngine:
         # either this request is visible to drain's wait, or refused.
         with self._thread_lock:
             if self._draining:
+                _REJECT_DRAINING.inc()
                 self._release_adapter(req)
                 raise exceptions.EngineDrainingError(
                     'engine is draining for shutdown; not accepting '
                     'new requests')
             self._queue.put(req)
+        _QUEUE_DEPTH.set(self._queue.qsize())
         self._ensure_thread()
         self._wake.set()
         return future

@@ -725,6 +725,8 @@ paged_prefill_kernel(Params p) {
                       !(p.sm_scale > 0.f);
     float mx0 = neg_inf(), mx1 = neg_inf(), n0, n1;
     if (edge) {
+      // Bit i of `kept` / `live`: score i is visible / a key of the table.
+      uint32_t kept = 0u, live = 0u;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -733,22 +735,39 @@ paged_prefill_kernel(Params p) {
           const int q_pos = e < 2 ? pos0 : pos1;
           bool keep = k_pos <= q_pos;
           if (p.window) keep = keep && (q_pos - k_pos < p.window);
-          sacc[4 * j + e] =
-              k_pos < live_keys
-                  ? (keep ? sacc[4 * j + e] * p.sm_scale : kMaskValue)
-                  : neg_inf();
+          const bool in_table = k_pos < live_keys;
+          live |= static_cast<uint32_t>(in_table) << (4 * j + e);
+          kept |= static_cast<uint32_t>(in_table && keep) << (4 * j + e);
+          const float v = in_table
+                              ? (keep ? sacc[4 * j + e] * p.sm_scale
+                                      : kMaskValue)
+                              : neg_inf();
+          if (e < 2) {
+            mx0 = fmaxf(mx0, v);
+          } else {
+            mx1 = fmaxf(mx1, v);
+          }
         }
-        mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
       }
       n0 = fmaxf(m0, quad_max(mx0));
       n1 = fmaxf(m1, quad_max(mx1));
+      // A visible score takes the short form's FFMA below, so its weight
+      // does not depend on whether a mask touches its tile, and a row's
+      // output not on the rows that share its tile: a prefill chunk that
+      // starts anywhere (a prefix hit's) gives each row the bits of a
+      // chunk that starts elsewhere (the cold prefill's).
+      const float c = p.sm_scale * kLog2e, b0 = n0 * kLog2e, b1 = n1 * kLog2e;
+      const float z0 = sm90::exp2_approx((kMaskValue - n0) * kLog2e);
+      const float z1 = sm90::exp2_approx((kMaskValue - n1) * kLog2e);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        sacc[4 * j] = sm90::exp2_approx((sacc[4 * j] - n0) * kLog2e);
-        sacc[4 * j + 1] = sm90::exp2_approx((sacc[4 * j + 1] - n0) * kLog2e);
-        sacc[4 * j + 2] = sm90::exp2_approx((sacc[4 * j + 2] - n1) * kLog2e);
-        sacc[4 * j + 3] = sm90::exp2_approx((sacc[4 * j + 3] - n1) * kLog2e);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sacc[i] = (kept >> i) & 1u
+                        ? sm90::exp2_approx(fmaf(sacc[i], c, e < 2 ? -b0 : -b1))
+                        : ((live >> i) & 1u ? (e < 2 ? z0 : z1) : 0.f);
+        }
       }
     } else {
 #pragma unroll

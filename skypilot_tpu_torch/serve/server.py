@@ -6,12 +6,21 @@ request and response JSON:
   GET  /health    → 200 {"status": "ok"} once the engine is warm (plus
                     "adapters": {"capacity", "resident"} with
                     --max-adapters)
+  GET  /metrics   → Prometheus text exposition (engine TTFT/TPOT
+                    histograms, queue depth, prefix-cache and pool
+                    counters, HTTP latency and status per route)
   POST /generate  → {"prompt_ids": [[...]] | "prompt": "text" | [...],
                      "max_new_tokens": N, "temperature": T,
                      "timeout_s": S (optional), "adapter": name
-                     (optional)}
+                     (optional), "stream": true (optional)}
                     ⇒ {"token_ids": [[...]], "text": [...],
-                       "stats": [...]}
+                       "stats": [...]}; with "stream": true (one
+                    prompt) server-sent events {"token_id", "text_delta"}
+                    per token, then {"done", "text_delta", "stats"}
+  POST /v1/completions      → OpenAI text completions (stream too)
+  POST /v1/chat/completions → OpenAI chat, generic role template (stream
+                              too)
+  GET  /v1/models           → the served model id
   POST /adapters/load     {"name": n, "path": p}: register the npz
                     adapter archive at p (tenancy.save_adapter_npz
                     format) and make it resident ⇒ {"ok", "name", "slot"}
@@ -23,11 +32,14 @@ Text goes through the built-in byte-level tokenizer (ids 0-255 = bytes).
 Every prompt of a request goes straight into the continuous-batching
 engine's queue, so concurrent requests share decode ticks, whatever
 adapter each names. Overload, drain and a full adapter pool shed with
-503 + Retry-After; an expired deadline is 504; an unknown adapter is 400.
-SLO tiers are not ported: a `priority` other than "standard" is a 400.
+503 + Retry-After (429 on the OpenAI routes); an expired deadline is
+504; an unknown adapter is 400. SLO tiers are not ported: a `priority`
+other than "standard" is a 400. A client that leaves a stream cancels
+its request, which frees its slot.
 
 Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         --paged-block-size 16 --prefill-chunk 256 --num-slots 8 \\
+        [--prefix-cache 16] [--top-k K] [--top-p P] \\
         [--async-depth 1] [--decode-chunk 4] \\
         [--kv-quant int8] [--max-adapters 4 --adapter-rank 16 \\
          --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down]
@@ -39,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import os
 import socket
@@ -50,9 +63,51 @@ from typing import List, Optional
 from aiohttp import web
 
 from skypilot_tpu_torch import exceptions
+from skypilot_tpu_torch.observability import exposition
+from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.serve import tenancy
 
 logger = logging.getLogger(__name__)
+
+# Server metrics, under the reference's names. Every route's handler is
+# wrapped to record its latency and status (/metrics too).
+_REQ_LATENCY = obs.histogram(
+    'skytpu_server_request_seconds',
+    'HTTP request latency by route', ('route',))
+_REQ_TOTAL = obs.counter(
+    'skytpu_server_requests_total',
+    'HTTP requests by route and status', ('route', 'status'))
+_SHED_TOTAL = obs.counter(
+    'skytpu_server_shed_total',
+    'Requests shed with 429/503 + Retry-After', ('reason',))
+_DRAINING_GAUGE = obs.gauge(
+    'skytpu_server_draining',
+    '1 while the server drains for shutdown, else 0')
+
+
+def _timed(route: str, handler):
+    """`handler`, timing each request and counting (route, status),
+    including exceptions aiohttp maps to HTTP errors. A wrapper rather
+    than the reference's aiohttp middleware: aiohttp caches each
+    handler's middleware chain for the life of the process, which would
+    keep every server built in one process, and its engine, alive."""
+    latency = _REQ_LATENCY.labels(route=route)
+
+    async def timed(request: web.Request) -> web.StreamResponse:
+        start = time.monotonic()
+        status = 500
+        try:
+            response = await handler(request)
+            status = response.status
+            return response
+        except web.HTTPException as e:
+            status = e.status
+            raise
+        finally:
+            latency.observe(time.monotonic() - start)
+            _REQ_TOTAL.labels(route=route, status=str(status)).inc()
+
+    return timed
 
 
 def byte_encode(text: str) -> List[int]:
@@ -65,15 +120,20 @@ def byte_decode(ids: List[int]) -> str:
 
 
 class InferenceServer:
-    """The engine behind /generate. Build it with a model name (the
-    engine is constructed here) and call `warmup()` before serving: it
-    runs one request and captures the engine's step graphs."""
+    """The engine behind /generate and the OpenAI routes. Build it with a
+    model name (the engine is constructed here) and call `warmup()`
+    before serving: it runs one request and captures the engine's step
+    graphs."""
 
     def __init__(self, model: str, max_seq_len: Optional[int] = None,
                  num_slots: int = 4,
                  max_queue_depth: int = 0,
                  paged_block_size: int = 16,
+                 paged_num_blocks: Optional[int] = None,
                  prefill_chunk: int = 0,
+                 prefix_cache: int = 0,
+                 top_k: int = 0,
+                 top_p: float = 0.0,
                  params=None,
                  rng_seed: int = 0,
                  kv_quant: Optional[str] = None,
@@ -88,13 +148,15 @@ class InferenceServer:
             ContinuousBatchingEngine)
         self.engine = ContinuousBatchingEngine(
             model, params=params, num_slots=num_slots,
-            max_seq_len=max_seq_len, rng_seed=rng_seed,
-            max_queue_depth=max_queue_depth,
-            paged_block_size=paged_block_size, prefill_chunk=prefill_chunk,
-            kv_quant=kv_quant, max_adapters=max_adapters,
-            adapter_rank=adapter_rank, adapter_alpha=adapter_alpha,
-            adapter_targets=adapter_targets, async_depth=async_depth,
-            decode_chunk=decode_chunk, device=device)
+            max_seq_len=max_seq_len, rng_seed=rng_seed, top_k=top_k,
+            top_p=top_p, max_queue_depth=max_queue_depth,
+            paged_block_size=paged_block_size,
+            paged_num_blocks=paged_num_blocks, prefill_chunk=prefill_chunk,
+            prefix_cache=prefix_cache, kv_quant=kv_quant,
+            max_adapters=max_adapters, adapter_rank=adapter_rank,
+            adapter_alpha=adapter_alpha, adapter_targets=adapter_targets,
+            async_depth=async_depth, decode_chunk=decode_chunk,
+            device=device)
         self.ready = False
         self.draining = False
 
@@ -114,8 +176,17 @@ class InferenceServer:
                                    'resident': info['resident']}
         return web.json_response(payload)
 
+    async def handle_metrics(self, request: web.Request) -> web.Response:
+        """Prometheus text exposition of the process-wide registry."""
+        del request
+        _DRAINING_GAUGE.set(1 if self.draining else 0)
+        return web.Response(text=exposition.generate_latest(),
+                            content_type='text/plain', charset='utf-8')
+
     @staticmethod
-    def _unavailable(message: str, retry_after: int = 1) -> web.Response:
+    def _unavailable(message: str, retry_after: int = 1,
+                     reason: str = 'overloaded') -> web.Response:
+        _SHED_TOTAL.labels(reason=reason).inc()
         return web.json_response({'error': message}, status=503,
                                  headers={'Retry-After': str(retry_after)})
 
@@ -133,19 +204,37 @@ class InferenceServer:
                              f"ported; every request is 'standard'")
         return adapter
 
+    @staticmethod
+    def _deadline_for(data: dict) -> Optional[float]:
+        """Absolute deadline from the request's timeout_s, or None."""
+        timeout = data.get('timeout_s')
+        if timeout is None:
+            return None
+        if float(timeout) <= 0:
+            raise ValueError('timeout_s must be > 0')
+        return time.time() + float(timeout)
+
     def _submit_one(self, ids: List[int], max_new: int, temperature: float,
-                    deadline: Optional[float], adapter: Optional[str]):
+                    deadline: Optional[float], adapter: Optional[str],
+                    on_token=None):
         max_seq = self.engine.cfg.max_seq_len
         if len(ids) + max_new > max_seq:
             ids = ids[-(max_seq - max_new):]
         return self.engine.submit(ids, max_new_tokens=max_new,
                                   temperature=temperature, deadline=deadline,
-                                  adapter=adapter)
+                                  adapter=adapter, on_token=on_token)
+
+    @staticmethod
+    def _cancel_all(futures) -> None:
+        """Release engine work for a batch the handler abandons (queued
+        entries drop at admission; a slotted one at the next tick)."""
+        for future in futures:
+            future.cancel()
 
     async def handle_generate(self, request: web.Request) -> web.Response:
         if self.draining:
             return self._unavailable('server is draining for shutdown',
-                                     retry_after=5)
+                                     retry_after=5, reason='draining')
         try:
             data = await request.json()
         except Exception:  # pylint: disable=broad-except
@@ -154,11 +243,6 @@ class InferenceServer:
         if not isinstance(data, dict):
             return web.json_response({'error': 'body must be a JSON object'},
                                      status=400)
-        if data.get('stream'):
-            return web.json_response(
-                {'error': 'stream=true: server-sent-event streaming is not '
-                          'ported; send stream=false (or leave it out) for '
-                          'one JSON body'}, status=400)
         if 'prompt_ids' in data:
             prompts = data['prompt_ids']
             if not isinstance(prompts, (list, tuple)):
@@ -176,30 +260,29 @@ class InferenceServer:
         else:
             return web.json_response(
                 {'error': 'need prompt or prompt_ids'}, status=400)
+        if data.get('stream'):
+            return await self._stream_generate(request, data, prompts)
         futures = []
         try:
             max_new = int(data.get('max_new_tokens', 32))
             temperature = float(data.get('temperature', 0.0))
-            timeout = data.get('timeout_s')
-            deadline = None
-            if timeout is not None:
-                if float(timeout) <= 0:
-                    raise ValueError('timeout_s must be > 0')
-                deadline = time.time() + float(timeout)
+            deadline = self._deadline_for(data)
             adapter = self._tenant_fields(data)
             for ids in prompts:
                 futures.append(self._submit_one(list(ids), max_new,
                                                 temperature, deadline,
                                                 adapter))
         except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
-            for future in futures:
-                future.cancel()
+            self._cancel_all(futures)
             return web.json_response({'error': str(e)}, status=400)
+        except exceptions.EngineDrainingError as e:
+            self._cancel_all(futures)
+            return self._unavailable(str(e), retry_after=5,
+                                     reason='draining')
         except exceptions.EngineOverloadedError as e:
             # Shed a partially submitted batch whole: the queued head
             # must not decode for no reader.
-            for future in futures:
-                future.cancel()
+            self._cancel_all(futures)
             return self._unavailable(str(e))
         try:
             gathered = await asyncio.gather(
@@ -215,13 +298,422 @@ class InferenceServer:
             'stats': [st for _, st in gathered],
         })
 
+    async def _stream_generate(self, request: web.Request, data: dict,
+                               prompts) -> web.StreamResponse:
+        """/generate with "stream": true: one SSE event per token
+        ({"token_id", "text_delta"}), then {"done", "text_delta",
+        "stats"}, or {"error"} when the engine failed the request.
+        Invalid input is a 400 BEFORE the stream opens."""
+        if len(prompts) != 1:
+            return web.json_response(
+                {'error': 'stream=true takes exactly one prompt'},
+                status=400)
+        try:
+            max_new = int(data.get('max_new_tokens', 32))
+            temperature = float(data.get('temperature', 0.0))
+            deadline = self._deadline_for(data)
+            adapter = self._tenant_fields(data)
+            tokens, future = self._token_stream(
+                list(prompts[0]), max_new, temperature, deadline, adapter)
+        except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
+            return web.json_response({'error': str(e)}, status=400)
+        except exceptions.EngineDrainingError as e:
+            return self._unavailable(str(e), retry_after=5,
+                                     reason='draining')
+        except exceptions.EngineOverloadedError as e:
+            return self._unavailable(str(e))
+        push, flush = self._delta_decoder()
+        try:
+            resp = await self._sse_prepare(request)
+            async for tok in tokens:
+                await self._sse_send(resp, {'token_id': tok,
+                                            'text_delta': push(tok)})
+            exc = future.exception()
+            if exc is not None:
+                await self._sse_send(resp, {'error': str(exc)})
+            else:
+                _, stats = future.result()
+                await self._sse_send(resp, {'done': True,
+                                            'text_delta': flush(),
+                                            'stats': stats})
+            await resp.write_eof()
+        finally:
+            # A client that left mid-stream fails the write (or cancels
+            # this handler): cancelling the engine future frees its slot
+            # at the next tick (a no-op once the future resolved).
+            future.cancel()
+        return resp
+
+    # -- streaming plumbing --
+
+    def _token_stream(self, ids: List[int], max_new: int,
+                      temperature: float, deadline: Optional[float] = None,
+                      adapter: Optional[str] = None):
+        """(async iterable of tokens, future): the engine thread's tokens
+        bridged onto this event loop; the iterable ends at the engine's
+        None sentinel, sent after the future resolves."""
+        loop = asyncio.get_running_loop()
+        queue: 'asyncio.Queue' = asyncio.Queue()
+
+        def on_token(tok):
+            loop.call_soon_threadsafe(queue.put_nowait, tok)
+
+        future = self._submit_one(ids, max_new, temperature, deadline,
+                                  adapter, on_token=on_token)
+
+        async def tokens():
+            while True:
+                tok = await queue.get()
+                if tok is None:
+                    return
+                yield tok
+
+        return tokens(), future
+
+    @staticmethod
+    def _delta_decoder():
+        """Incremental text: `push(tok)` returns the text new since the
+        last call, `flush()` at stream end whatever was held back. An
+        unfinished multi-byte sequence decodes as U+FFFD and would change
+        once its continuation bytes arrive, so a trailing U+FFFD is held
+        back. `sent` is what the client received: a push whose decode no
+        longer extends it withholds output, and flush emits the
+        corrected tail, so the client's text equals the full decode
+        whenever that extends what was sent."""
+        toks: List[int] = []
+        sent = {'text': ''}
+
+        def _stable(full: str) -> str:
+            return full[:-1] if full.endswith('\ufffd') else full
+
+        def push(tok: int) -> str:
+            toks.append(tok)
+            full = _stable(byte_decode(toks))
+            if not full.startswith(sent['text']):
+                return ''
+            delta = full[len(sent['text']):]
+            if delta:
+                sent['text'] = full
+            return delta
+
+        def flush() -> str:
+            full = byte_decode(toks)
+            if full.startswith(sent['text']):
+                return full[len(sent['text']):]
+            # Past the common prefix the client holds only U+FFFD
+            # placeholders: emit the corrected text (the placeholder
+            # cannot be retracted, the replacement must not be lost).
+            already = sent['text']
+            common = 0
+            for a, b in zip(already, full):
+                if a != b:
+                    break
+                common += 1
+            stale_tail = already[common:]
+            if stale_tail and set(stale_tail) <= {'\ufffd'}:
+                return full[common:]
+            logger.warning(
+                'streamed text diverged from the full decode (sent %r... '
+                'vs %r...)', sent['text'][:40], full[:40])
+            return ''
+
+        return push, flush
+
+    @staticmethod
+    async def _sse_prepare(request: web.Request) -> web.StreamResponse:
+        resp = web.StreamResponse(
+            headers={'Content-Type': 'text/event-stream',
+                     'Cache-Control': 'no-cache'})
+        await resp.prepare(request)
+        return resp
+
+    @staticmethod
+    async def _sse_send(resp: web.StreamResponse, payload) -> None:
+        data = payload if isinstance(payload, str) else json.dumps(payload)
+        await resp.write(f'data: {data}\n\n'.encode())
+
+    # -- OpenAI-compatible surface --
+    #
+    # Text and chat completions with `stream: true` SSE (chunk objects,
+    # then [DONE]), temperature, max_tokens, stop strings (truncated
+    # after the fact; stop with stream is refused) and usage. One choice
+    # a request (n > 1 is a 400). top_k / top_p are engine-level
+    # (--top-k / --top-p); a request's own top_p other than the client
+    # default 1 is a 400 rather than a sample from another distribution.
+
+    @staticmethod
+    def _truncate_at_stop(text: str, stop) -> tuple:
+        """The earliest occurrence of ANY stop sequence wins."""
+        if not stop:
+            return text, 'length'
+        hits = [idx for s in
+                ([stop] if isinstance(stop, str) else list(stop))
+                if (idx := text.find(s)) >= 0]
+        if hits:
+            return text[:min(hits)], 'stop'
+        return text, 'length'
+
+    @staticmethod
+    def _openai_error(message: str, status: int = 400,
+                      retry_after: Optional[int] = None,
+                      shed_reason: Optional[str] = None) -> web.Response:
+        err_type = ('invalid_request_error' if status == 400 else
+                    'server_error')
+        headers = ({'Retry-After': str(retry_after)}
+                   if retry_after is not None else None)
+        if shed_reason is not None:
+            _SHED_TOTAL.labels(reason=shed_reason).inc()
+        return web.json_response(
+            {'error': {'message': message, 'type': err_type}},
+            status=status, headers=headers)
+
+    def _validate_openai(self, data: dict) -> Optional[web.Response]:
+        if data.get('stream') and data.get('stop'):
+            return self._openai_error(
+                'stream=true with stop strings is not supported; '
+                'drop stop or stream=false')
+        if int(data.get('n') or 1) != 1:
+            return self._openai_error('only n=1 is supported')
+        req_top_p = data.get('top_p')
+        if req_top_p is not None and float(req_top_p) != 1.0:
+            return self._openai_error(
+                'per-request top_p is not supported (filters are '
+                'engine-level: serve with --top-p/--top-k); send '
+                'top_p=1 or omit it')
+        max_new = int(data.get('max_tokens') or 16)
+        if not 0 < max_new < self.engine.cfg.max_seq_len:
+            return self._openai_error(
+                f'max_tokens must be in (0, '
+                f'{self.engine.cfg.max_seq_len}) for this model')
+        return None
+
+    @staticmethod
+    def _prompts_to_lists(prompt):
+        """OpenAI's four prompt shapes: str, [str, ...], [int, ...] (ONE
+        tokenized prompt), [[int, ...], ...]."""
+        if isinstance(prompt, str):
+            return [prompt]
+        if isinstance(prompt, list):
+            if prompt and all(isinstance(t, int) for t in prompt):
+                return [prompt]
+            return prompt
+        raise ValueError('prompt must be a string, list of strings, or '
+                         'token array(s)')
+
+    async def _openai_body(self, request: web.Request):
+        """(data, None), or (None, the error response)."""
+        if self.draining:
+            return None, self._openai_error(
+                'server is draining for shutdown', status=503,
+                retry_after=5, shed_reason='draining')
+        try:
+            data = await request.json()
+        except Exception:  # pylint: disable=broad-except
+            return None, self._openai_error('body must be JSON')
+        if not isinstance(data, dict):
+            return None, self._openai_error('body must be a JSON object')
+        try:
+            return data, self._validate_openai(data)
+        except (TypeError, ValueError) as e:
+            return None, self._openai_error(str(e))
+
+    async def handle_v1_completions(self,
+                                    request: web.Request) -> web.Response:
+        data, err = await self._openai_body(request)
+        if err is not None:
+            return err
+        prompt = data.get('prompt')
+        if prompt is None:
+            return self._openai_error('prompt is required')
+        futures = []
+        try:
+            prompts = self._prompts_to_lists(prompt)
+            prompt_ids = [byte_encode(p) if isinstance(p, str) else
+                          [int(t) for t in p] for p in prompts]
+            max_new = int(data.get('max_tokens') or 16)
+            temperature = float(data.get('temperature') or 0.0)
+            deadline = self._deadline_for(data)
+            adapter = self._tenant_fields(data)
+            if data.get('stream'):
+                if len(prompt_ids) != 1:
+                    return self._openai_error(
+                        'stream=true takes exactly one prompt')
+                return await self._stream_openai(
+                    request, data, prompt_ids[0], max_new, temperature,
+                    deadline, adapter, chat=False)
+            for ids in prompt_ids:
+                futures.append(self._submit_one(ids, max_new, temperature,
+                                                deadline, adapter))
+        except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
+            self._cancel_all(futures)
+            return self._openai_error(str(e))
+        except exceptions.EngineDrainingError as e:
+            self._cancel_all(futures)
+            return self._openai_error(str(e), status=503, retry_after=5,
+                                      shed_reason='draining')
+        except exceptions.EngineOverloadedError as e:
+            # OpenAI clients back off on 429.
+            self._cancel_all(futures)
+            return self._openai_error(str(e), status=429, retry_after=1,
+                                      shed_reason='overloaded')
+        try:
+            gathered = await asyncio.gather(
+                *[asyncio.wrap_future(f) for f in futures])
+        except exceptions.RequestDeadlineExceededError as e:
+            return self._openai_error(str(e), status=504)
+        except exceptions.EngineOverloadedError as e:
+            return self._openai_error(str(e), status=429, retry_after=1,
+                                      shed_reason='overloaded')
+        choices = []
+        completion_tokens = 0
+        for i, (out, _st) in enumerate(gathered):
+            text, finish = self._truncate_at_stop(byte_decode(out),
+                                                  data.get('stop'))
+            completion_tokens += len(out)
+            choices.append({'index': i, 'text': text, 'logprobs': None,
+                            'finish_reason': finish})
+        prompt_tokens = sum(len(p) for p in prompt_ids)
+        return web.json_response({
+            'id': f'cmpl-{int(time.time() * 1e3):x}',
+            'object': 'text_completion',
+            'created': int(time.time()),
+            'model': data.get('model') or self.engine.cfg.name,
+            'choices': choices,
+            'usage': {'prompt_tokens': prompt_tokens,
+                      'completion_tokens': completion_tokens,
+                      'total_tokens': prompt_tokens + completion_tokens},
+        })
+
+    async def _stream_openai(self, request, data, ids, max_new, temperature,
+                             deadline, adapter,
+                             chat: bool) -> web.StreamResponse:
+        """OpenAI SSE chunks closed by `data: [DONE]`: text-completion
+        chunks, or (chat) a role chunk, then content deltas. A failure
+        mid-stream sends an error event and no [DONE]."""
+        created = int(time.time())
+        model = data.get('model') or self.engine.cfg.name
+        if chat:
+            obj_id = f'chatcmpl-{int(time.time() * 1e3):x}'
+
+            def chunk(delta, finish=None):
+                if isinstance(delta, str):
+                    delta = {'content': delta}
+                return {'id': obj_id, 'object': 'chat.completion.chunk',
+                        'created': created, 'model': model,
+                        'choices': [{'index': 0, 'delta': delta,
+                                     'finish_reason': finish}]}
+        else:
+            obj_id = f'cmpl-{int(time.time() * 1e3):x}'
+
+            def chunk(text, finish=None):
+                return {'id': obj_id, 'object': 'text_completion',
+                        'created': created, 'model': model,
+                        'choices': [{'index': 0, 'text': text,
+                                     'logprobs': None,
+                                     'finish_reason': finish}]}
+
+        tokens, future = self._token_stream(ids, max_new, temperature,
+                                            deadline, adapter)
+        push, flush = self._delta_decoder()
+        try:
+            # Inside the try: a client that leaves during prepare still
+            # cancels the submitted generation.
+            resp = await self._sse_prepare(request)
+            if chat:
+                await self._sse_send(resp, chunk({'role': 'assistant'}))
+            async for tok in tokens:
+                delta = push(tok)
+                if delta:
+                    await self._sse_send(resp, chunk(delta))
+            exc = future.exception()
+            if exc is not None:
+                await self._sse_send(resp, {'error': {
+                    'message': str(exc), 'type': 'server_error'}})
+                await resp.write_eof()
+                return resp
+            tail = flush()
+            if chat:
+                if tail:
+                    await self._sse_send(resp, chunk(tail))
+                await self._sse_send(resp, chunk({}, finish='length'))
+            else:
+                await self._sse_send(resp, chunk(tail, finish='length'))
+            await self._sse_send(resp, '[DONE]')
+            await resp.write_eof()
+        finally:
+            future.cancel()  # frees the decode slot if the client left
+        return resp
+
+    async def handle_v1_chat(self, request: web.Request) -> web.Response:
+        data, err = await self._openai_body(request)
+        if err is not None:
+            return err
+        messages = data.get('messages')
+        if not messages:
+            return self._openai_error('messages is required')
+        try:
+            # The generic role-tagged template (the byte tokenizer has no
+            # chat template of its own).
+            parts = [f'{m.get("role", "user")}: {m.get("content", "")}'
+                     for m in messages]
+            ids = byte_encode('\n'.join(parts) + '\nassistant:')
+            max_new = int(data.get('max_tokens') or 16)
+            temperature = float(data.get('temperature') or 0.0)
+            deadline = self._deadline_for(data)
+            adapter = self._tenant_fields(data)
+            if data.get('stream'):
+                return await self._stream_openai(
+                    request, data, ids, max_new, temperature, deadline,
+                    adapter, chat=True)
+            future = self._submit_one(ids, max_new, temperature, deadline,
+                                      adapter)
+        except (TypeError, ValueError, AttributeError,
+                exceptions.UnknownAdapterError) as e:
+            return self._openai_error(str(e))
+        except exceptions.EngineDrainingError as e:
+            return self._openai_error(str(e), status=503, retry_after=5,
+                                      shed_reason='draining')
+        except exceptions.EngineOverloadedError as e:
+            return self._openai_error(str(e), status=429, retry_after=1,
+                                      shed_reason='overloaded')
+        try:
+            out, _st = await asyncio.wrap_future(future)
+        except exceptions.RequestDeadlineExceededError as e:
+            return self._openai_error(str(e), status=504)
+        except exceptions.EngineOverloadedError as e:
+            return self._openai_error(str(e), status=429, retry_after=1,
+                                      shed_reason='overloaded')
+        text, finish = self._truncate_at_stop(byte_decode(out),
+                                              data.get('stop'))
+        prompt_tokens, completion_tokens = len(ids), len(out)
+        return web.json_response({
+            'id': f'chatcmpl-{int(time.time() * 1e3):x}',
+            'object': 'chat.completion',
+            'created': int(time.time()),
+            'model': data.get('model') or self.engine.cfg.name,
+            'choices': [{'index': 0,
+                         'message': {'role': 'assistant', 'content': text},
+                         'finish_reason': finish}],
+            'usage': {'prompt_tokens': prompt_tokens,
+                      'completion_tokens': completion_tokens,
+                      'total_tokens': prompt_tokens + completion_tokens},
+        })
+
+    async def handle_v1_models(self, request: web.Request) -> web.Response:
+        del request
+        return web.json_response({
+            'object': 'list',
+            'data': [{'id': self.engine.cfg.name, 'object': 'model',
+                      'owned_by': 'skypilot_tpu_torch'}],
+        })
+
     # -- multi-tenant adapter registry --
 
     async def handle_adapter_load(self,
                                   request: web.Request) -> web.Response:
         if self.draining:
             return self._unavailable('server is draining for shutdown',
-                                     retry_after=5)
+                                     retry_after=5, reason='draining')
         try:
             data = await request.json()
         except Exception:  # pylint: disable=broad-except
@@ -243,7 +735,8 @@ class InferenceServer:
             slot = await asyncio.get_running_loop().run_in_executor(
                 None, load)
         except exceptions.AdapterPoolExhaustedError as e:
-            return self._unavailable(str(e), retry_after=2)
+            return self._unavailable(str(e), retry_after=2,
+                                     reason='adapter-pool')
         except (exceptions.UnknownAdapterError, ValueError, OSError) as e:
             return web.json_response({'error': str(e)}, status=400)
         return web.json_response({'ok': True, 'name': name, 'slot': slot})
@@ -272,12 +765,21 @@ class InferenceServer:
         logger.info('engine warm in %.1fs', time.monotonic() - t0)
 
     def make_app(self) -> web.Application:
+        # Serving /metrics attaches an exporter: recording turns on here,
+        # never at import.
+        obs.enable()
         app = web.Application()
-        app.router.add_get('/health', self.handle_health)
-        app.router.add_post('/generate', self.handle_generate)
-        app.router.add_post('/adapters/load', self.handle_adapter_load)
-        app.router.add_delete('/adapters/{name}', self.handle_adapter_delete)
-        app.router.add_get('/adapters', self.handle_adapters)
+        for method, route, handler in (
+                ('GET', '/health', self.handle_health),
+                ('GET', '/metrics', self.handle_metrics),
+                ('POST', '/generate', self.handle_generate),
+                ('POST', '/adapters/load', self.handle_adapter_load),
+                ('DELETE', '/adapters/{name}', self.handle_adapter_delete),
+                ('GET', '/adapters', self.handle_adapters),
+                ('POST', '/v1/completions', self.handle_v1_completions),
+                ('POST', '/v1/chat/completions', self.handle_v1_chat),
+                ('GET', '/v1/models', self.handle_v1_models)):
+            app.router.add_route(method, route, _timed(route, handler))
         return app
 
 
@@ -337,6 +839,34 @@ def main(argv=None) -> int:
     parser.add_argument('--prefill-chunk', type=int, default=0,
                         help='prompt tokens prefilled per tick (default: '
                              'block size)')
+    parser.add_argument('--prefix-cache', type=int, default=0,
+                        help='keep the last N prompts\' blocks; a prompt '
+                             'sharing a cached prefix (chat history, a '
+                             'shared system prompt) prefills only the '
+                             'suffix. An entry holds ceil(L / block_size) '
+                             'shared blocks; the pool grows by N x '
+                             'max_seq_len / block_size blocks for them')
+
+    def _top_k_arg(v):
+        k = int(v)
+        if k < 0:
+            raise argparse.ArgumentTypeError('--top-k must be >= 0')
+        return k
+
+    def _top_p_arg(v):
+        f = float(v)
+        if not 0.0 <= f < 1.0:
+            raise argparse.ArgumentTypeError(
+                '--top-p must be in [0, 1) (0 = off; 1.0 would be a '
+                'no-op: omit the flag instead)')
+        return f
+
+    parser.add_argument('--top-k', type=_top_k_arg, default=0,
+                        help='sampling: keep only the K highest-logit '
+                             'tokens (0 = off; engine-level)')
+    parser.add_argument('--top-p', type=_top_p_arg, default=0.0,
+                        help='sampling: nucleus filter mass, in [0, 1) '
+                             '(0 = off; engine-level)')
     parser.add_argument('--decode-chunk', type=int, default=1,
                         help='decode steps per device dispatch when no '
                              'request awaits admission (>1 cuts host '
@@ -379,6 +909,8 @@ def main(argv=None) -> int:
                              max_queue_depth=args.max_queue_depth,
                              paged_block_size=args.paged_block_size,
                              prefill_chunk=args.prefill_chunk,
+                             prefix_cache=args.prefix_cache,
+                             top_k=args.top_k, top_p=args.top_p,
                              kv_quant=args.kv_quant,
                              max_adapters=args.max_adapters,
                              adapter_rank=args.adapter_rank,

@@ -1093,3 +1093,166 @@ def test_capture_raises_on_cuda_rather_than_stepping_eagerly():
         torch.ones(1, device='cuda').item()     # the device serves on
     finally:
         engine.stop()
+
+
+# ------------------------------------------------ the prefix cache's traffic
+#
+# A prefix hit's first prefill chunk starts where its prefix ends, mid-block
+# and mid-tile, and decode rows share the cached prefix's physical blocks.
+# bf16 queries over bf16 or int8 pools (kv_heads 2, n_rep 4, head_dim 128,
+# blocks of 16), each against the plain version, reruns bit-identical.
+
+_HIT_STARTS = (1, 15, 17, 63, 1543)
+
+
+def _pools_of(q, kp, vp, kv_quant):
+    """bf16 q and pools, or int8 pools with fp32 scale rows."""
+    if not kv_quant:
+        return q.bfloat16(), kp.bfloat16(), vp.bfloat16(), {}
+    (k8, ks), (v8, vs) = int8_quantize(kp), int8_quantize(vp)
+    return q.bfloat16(), k8, v8, dict(k_scale=ks[..., None].contiguous(),
+                                      v_scale=vs[..., None].contiguous())
+
+
+def _held_bf16(args, scales):
+    out = pa.paged_decode_attention(*args, **scales)
+    again = pa.paged_decode_attention(*args, **scales)
+    ref = pa.paged_decode_attention_plain(*args, **scales)
+    torch.cuda.synchronize()
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [False, True], ids=['bf16', 'int8'])
+@pytest.mark.parametrize('start', _HIT_STARTS)
+def test_prefill_chunk_at_hit_boundaries(start, kv_quant):
+    _need_gpu()
+    rng = np.random.RandomState(start)
+    cur_len, bs, bps = 64, 16, 104
+    q = torch.from_numpy(rng.randn(1, cur_len, 8, 128)).float().cuda()
+    kp = torch.from_numpy(rng.randn(bps + 1, bs, 2, 128)).float().cuda()
+    vp = torch.from_numpy(rng.randn(bps + 1, bs, 2, 128)).float().cuda()
+    kp[0] = vp[0] = 50.0
+    tables = torch.zeros((1, bps), dtype=torch.int32)
+    need = (start + cur_len - 1) // bs + 1
+    tables[0, :need] = torch.from_numpy(rng.permutation(bps)[:need] + 1)
+    pos = torch.arange(start, start + cur_len, dtype=torch.int32)[None]
+    q, kp, vp, scales = _pools_of(q, kp, vp, kv_quant)
+    _held_bf16((q, kp, vp, tables.cuda(), pos.cuda()), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [False, True], ids=['bf16', 'int8'])
+@pytest.mark.parametrize('shift', [1, 7, 16, 37])
+def test_chunk_rows_do_not_depend_on_their_place(shift, kv_quant):
+    """The same query rows at the same positions, `shift` rows further
+    down a chunk that starts `shift` earlier (a hit's chunk against the
+    cold prefill's), give bit-identical outputs."""
+    _need_gpu()
+    rng = np.random.RandomState(shift)
+    cur_len, bs, bps, start = 64, 16, 32, 300
+    q = torch.from_numpy(rng.randn(1, cur_len, 8, 128)).float().cuda()
+    kp = torch.from_numpy(rng.randn(bps + 1, bs, 2, 128)).float().cuda()
+    vp = torch.from_numpy(rng.randn(bps + 1, bs, 2, 128)).float().cuda()
+    q, kp, vp, scales = _pools_of(q, kp, vp, kv_quant)
+    tables = torch.arange(1, bps + 1, dtype=torch.int32).cuda()[None]
+    pos = torch.arange(start, start + cur_len, dtype=torch.int32).cuda()[None]
+    want = pa.paged_decode_attention(q, kp, vp, tables, pos, **scales)
+    moved = torch.zeros_like(q)
+    moved[0, shift:] = q[0, :cur_len - shift]
+    got = pa.paged_decode_attention(moved, kp, vp, tables, pos - shift,
+                                    **scales)
+    assert torch.equal(got[0, shift:], want[0, :cur_len - shift])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [False, True], ids=['bf16', 'int8'])
+def test_decode_rows_sharing_prefix_blocks(kv_quant):
+    """8 decode rows whose tables share their first 40 blocks: equal to
+    the plain version and, bit for bit, to the same rows over private
+    copies of those blocks."""
+    _need_gpu()
+    rng = np.random.RandomState(8)
+    rows, shared_n, bs, bps = 8, 40, 16, 64
+    positions = [640 + 45 * r for r in range(rows)]
+    tails = [p // bs + 1 - shared_n for p in positions]
+    num_blocks = 1 + shared_n * (1 + rows) + sum(tails)
+    q = torch.from_numpy(rng.randn(rows, 1, 8, 128)).float().cuda()
+    kp = torch.from_numpy(rng.randn(num_blocks, bs, 2, 128)).float().cuda()
+    vp = torch.from_numpy(rng.randn(num_blocks, bs, 2, 128)).float().cuda()
+    q, kp, vp, scales = _pools_of(q, kp, vp, kv_quant)
+    shared = torch.zeros((rows, bps), dtype=torch.int32)
+    private = torch.zeros((rows, bps), dtype=torch.int32)
+    nxt = 1 + shared_n * (1 + rows)
+    for r in range(rows):
+        copies = torch.arange(shared_n) + 1 + shared_n * (1 + r)
+        for t in [kp, vp] + list(scales.values()):
+            t[copies.cuda()] = t[1:1 + shared_n].clone()
+        shared[r, :shared_n] = torch.arange(1, 1 + shared_n)
+        private[r, :shared_n] = copies
+        shared[r, shared_n:shared_n + tails[r]] = torch.arange(
+            nxt, nxt + tails[r])
+        private[r, shared_n:shared_n + tails[r]] = torch.arange(
+            nxt, nxt + tails[r])
+        nxt += tails[r]
+    pos = torch.tensor(positions, dtype=torch.int32)[:, None].cuda()
+    out = _held_bf16((q, kp, vp, shared.cuda(), pos), scales)
+    assert torch.equal(out, pa.paged_decode_attention(
+        q, kp, vp, private.cuda(), pos, **scales))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [None, 'int8'], ids=['bf16', 'int8'])
+def test_cow_then_hit_chunk_equals_cold_chunk(kv_quant):
+    """The engine at async depth 1 on the card (every chunk a graph
+    replay): a prompt extending a cached one copies the boundary block on
+    write and prefills its suffix from position 70; its tokens equal the
+    cold prefill's, and the K/V rows it publishes equal the cold ones
+    (bf16 tolerance; scale rows too under int8)."""
+    _need_gpu()
+    import dataclasses
+
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    cfg = dataclasses.replace(
+        get_config('llama3-8b'), name='prefix-small', vocab_size=1024,
+        d_model=512, num_layers=2, num_heads=4, num_kv_heads=2, d_mlp=1024,
+        max_seq_len=512, dtype='bfloat16')
+    engine = ContinuousBatchingEngine(
+        cfg, num_slots=4, paged_block_size=16, prefill_chunk=64,
+        kv_quant=kv_quant, async_depth=1, prefix_cache=4, rng_seed=3,
+        device='cuda')
+    base = [(7 * i + 3) % 1024 for i in range(70)]
+    ext = base + [(11 * i + 5) % 1024 for i in range(50)]
+
+    def published(key):
+        blocks = engine._prefix_entries._lru[tuple(key)]  # pylint: disable=protected-access
+        return [t[:, blocks].flatten(1, 2)[:, :len(key)].clone()
+                for t in (engine._k_pool, engine._v_pool, engine._k_scale,  # pylint: disable=protected-access
+                          engine._v_scale) if t is not None]  # pylint: disable=protected-access
+
+    try:
+        cold, _ = engine.generate(ext, max_new_tokens=12)
+        cold_rows = published(ext)
+        index, pool = engine._prefix_entries, engine._pool  # pylint: disable=protected-access
+        while len(index):
+            pool.release(index.pop_lru()[1])
+        assert pool.used == 1
+        engine.generate(base, max_new_tokens=12)
+        hot, _ = engine.generate(ext, max_new_tokens=12)
+        assert hot == cold
+        assert engine.prefix_stats['hits'] == 1
+        assert engine.paged_stats['cow_copies'] == 1
+        assert ('prefill', False) in engine._steps.keys  # pylint: disable=protected-access
+        tol = _TOL[torch.bfloat16]
+        for got, want in zip(published(ext), cold_rows):
+            if got.dtype == torch.int8:
+                assert (got.int() - want.int()).abs().max() <= 1
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=tol, rtol=tol)
+    finally:
+        engine.stop()

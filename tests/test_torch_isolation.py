@@ -63,7 +63,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.ops.paged_attention',
                 'skypilot_tpu_torch.ops.fused_lora',
                 'skypilot_tpu_torch.serve.tenancy',
-                'skypilot_tpu_torch.serve.tenancy.adapter_pool'):
+                'skypilot_tpu_torch.serve.tenancy.adapter_pool',
+                'skypilot_tpu_torch.observability',
+                'skypilot_tpu_torch.observability.metrics',
+                'skypilot_tpu_torch.observability.exposition'):
         assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
