@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU: serving
 (llama3-8b over HTTP, paged attention kernel, every decode dispatch and
 prefill chunk a CUDA-graph replay; multi-turn chat through the prefix
-cache over /generate, its stream and /v1/completions), multi-tenant serving
+cache over /generate, its stream and /v1/completions; speculative verify
+ticks, SLO tiers and POST /preempt), multi-tenant serving
 (llama3-8b with int8 KV and resident LoRA adapters: the int8 route of the
 paged kernel and the fused multi-LoRA kernel), training (llama3-1b,
 flash-attention forward, dQ and dK/dV kernels) and sequence-parallel
@@ -20,7 +21,9 @@ and passed over):
   kernels:  hold the paged kernel against its plain PyTorch version on
             the card at the serve path's shapes (llama3-8b: H 32, KV 8,
             D 128, block 16, max_seq_len 8192; decode B 8 T 1, prefill
-            B 1 T 256 at 512 and at 4096), fp32 and bf16, window 0 and
+            B 1 T 256 at 512 and at 4096, the speculative verify B 8
+            T 5 and T 9, each bf16 verify row bit-identical to its
+            T = 1 call), fp32 and bf16, window 0 and
             > 0, reruns bit-identical; the bf16 routes at their
             boundaries (grouped rows under, at and over the prefill
             route's 64, block sizes 8-64, n_rep 1-8, head_dim 64-256,
@@ -42,8 +45,9 @@ and passed over):
             (profiler device time) beside its byte bound and the bf16
             route on the same K/V.
   lora:     hold the fused multi-LoRA kernel, one call per llama3-8b
-            group (qkv, o, gate_up, down), rank 16, decode B 8 T 1 with
-            mixed slots including 0 and prefill B 1 T 256, fp32 and
+            group (qkv, o, gate_up, down), rank 16, decode B 8 T 1 and
+            the verify B 8 T 5 with mixed slots including 0 and prefill
+            B 1 T 256, fp32 and
             bf16, against the plain per-target composition on a random
             y: slot-0 rows unchanged, reruns and a row alone
             bit-identical, two launches a call; time it beside its
@@ -149,6 +153,27 @@ and passed over):
             DELETE of a pinned adapter is 409. TTFT p50, decode
             tokens/s, peak memory, the pool's bytes beside bf16's, the
             windows and the eager / graph breakdown.
+  serve_sched: the server again (llama3-8b at full size, 8 slots, blocks
+            of 16, chunks of 256, async_depth 1), toggling
+            engine.speculative on the same engine. 8 greedy requests of
+            20-700 prompt tokens and 128 new tokens: plain, then
+            speculative K 4 and 8 with oracle drafts (the plain run's
+            own continuation); then prompts of a seeded 64-token segment
+            repeated 8 times, plain and K 4 with prompt-lookup drafts:
+            tokens a step, decode tokens/s, acceptance, TTFT p50, and per
+            request the first token index that differs from the plain
+            run with the logit margin there. Launch formulas exact with
+            verify ticks (one decode step each); the pool back at rest
+            after every pass. Timed beside them: decode_chunk 4 and
+            temperature 0.8. SLO tiers: 16 batch requests (500 prompt,
+            128 new), then 8 interactive (100-300 prompt, 32 new) once
+            every slot decodes, all 'standard', then tiered: interactive
+            TTFT p50/p95, slot preempts, all 24 end 200. POST /preempt
+            with 8 requests in flight: drained, /health and a new
+            /generate 503 while it drains, the 8 end 200. On the drained
+            engine: the decode tick and the verify ticks (K 4, 8) as one
+            graph replay each, 8 rows at 700 tokens: host wall, CUDA
+            kernel time, one cudaGraphLaunch a step.
   graph_parity: llama3-8b at full size through the engine at
             async_depth 1 and decode_chunk 4 (graphs captured first;
             launch formulas exact), 8 greedy requests, against an eager
@@ -224,20 +249,29 @@ RANGES = ('optimizer', 'cross_entropy', 'ring_forward', 'ring_backward',
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time per fn() call: the CUDA kernels a torch.profiler
     trace attributes to `iters` calls. For launches of a few microseconds,
-    where CUDA events around a loop time the host's launch overhead."""
+    where CUDA events around a loop time the host's launch overhead. A
+    trace now and then comes back without device events: it is taken
+    again (logged), and five empty traces fail the run, so a number
+    timed another way never stands in for a device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and
-               e.key not in RANGES) / iters / 1e3
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and
+                    e.key not in RANGES)
+        if total > 0:
+            return total / iters / 1e3
+        log(f'device_ms: profiler trace {attempt + 1} without device '
+            'time; tracing again')
+    fail('device_ms: five profiler traces without device time')
 
 
 def smi_line() -> str:
@@ -327,10 +361,15 @@ def _library_ms(torch, case):
 
 
 NUM_BLOCKS = 8 * 512 + 1              # the serve phases' pool
+# Row starts of a speculative verify's calls (T = K + 1 positions a row),
+# those of the decode call with the long row pulled back to fit.
+VERIFY_STARTS = (0, 7, 8183, 300, 4000, 650, 1023, 0)
 SERVE_CALLS = (   # (name, B, T, per-row positions) of the serve path
     ('decode', 8, 1, [[0], [7], [8190], [300], [4000], [650], [1023], [0]]),
     ('prefill', 1, 256, [list(range(512, 512 + 256))]),
-    ('prefill_4096', 1, 256, [list(range(4096, 4096 + 256))]))
+    ('prefill_4096', 1, 256, [list(range(4096, 4096 + 256))]),
+    ('verify_5', 8, 5, [list(range(s, s + 5)) for s in VERIFY_STARTS]),
+    ('verify_9', 8, 9, [list(range(s, s + 9)) for s in VERIFY_STARTS]))
 # The bf16 routes at their boundaries (ops/paged_attention.py
 # `kernel_route`): (B, T, n_rep, head_dim, block_size, window, bps) with
 # grouped rows just under, at and over PREFILL_ROWS, T not a multiple of
@@ -343,7 +382,8 @@ ROUTE_CASES = (
     (2, 16, 4, 128, 16, 0, 48), (2, 17, 4, 128, 32, 0, 24),
     (2, 37, 4, 128, 16, 96, 48), (2, 64, 1, 64, 8, 0, 48),
     (2, 33, 2, 64, 64, 0, 12), (2, 40, 2, 256, 32, 0, 24),
-    (2, 3, 4, 256, 16, 0, 48))
+    (2, 3, 4, 256, 16, 0, 48), (8, 5, 4, 128, 16, 0, 512),
+    (8, 9, 4, 128, 16, 0, 512))
 
 
 def _route_cases(torch, pa, kv_quant=False) -> None:
@@ -400,6 +440,21 @@ def _route_cases(torch, pa, kv_quant=False) -> None:
                      f'{got} vs ops/paged_attention.py {want}')
     log('kernel workspace rule: library = ops/paged_attention.py on 16 '
         'shapes')
+
+
+def _verify_rows_alone(torch, pa, what, args, scales, out) -> None:
+    """Each row of a verify call (bf16 queries, the decode route) must get,
+    bit for bit, the attention the same query gets alone at T = 1 over the
+    same pools."""
+    q, k_pool, v_pool, tables, positions = args
+    for t in range(q.shape[1]):
+        alone = pa.paged_decode_attention(
+            q[:, t:t + 1].contiguous(), k_pool, v_pool, tables,
+            positions[:, t:t + 1].contiguous(), **scales)
+        if not torch.equal(alone[:, 0], out[:, t]):
+            fail(f'{what}: verify row {t} differs from the same query '
+                 f'alone at T = 1')
+    log(f'{what}: every verify row bit-identical to its T = 1 call')
 
 
 # The serve_prefix traffic on the paged kernel: hit boundaries where a
@@ -597,6 +652,9 @@ def phase_kernels(torch) -> dict:
             if dtype_name != 'bfloat16':
                 continue
             args = (q, k_pool, v_pool, tables[:, :bps], positions)
+            if shape_name.startswith('verify'):
+                _verify_rows_alone(torch, pa, f'kernel {shape_name} bf16',
+                                   args, {}, pa.paged_decode_attention(*args))
             # Device time (profiler): a decode call's few tens of
             # microseconds are less than the host's launch overhead, which
             # CUDA events around a loop would time instead.
@@ -621,8 +679,7 @@ def phase_kernels(torch) -> dict:
     _route_cases(torch, pa)
     _prefix_cases(torch, pa)
     return {'max_abs_err': worst, **results['decode'],
-            'prefill': results['prefill'],
-            'prefill_4096': results['prefill_4096']}
+            **{name: results[name] for name, *_ in SERVE_CALLS[1:]}}
 
 
 def phase_kernels_int8(torch) -> dict:
@@ -684,6 +741,9 @@ def phase_kernels_int8(torch) -> dict:
                 f'(bit-identical output)')
             if dtype_name != 'bfloat16':
                 continue
+            if shape_name.startswith('verify'):
+                _verify_rows_alone(torch, pa, f'{what}', args, scales,
+                                   pa.paged_decode_attention(*args, **scales))
             # Device time (profiler), as kernel 1 is timed; beside it the
             # bf16 route on the same K/V dequantized into bf16 pools, the
             # yardstick of the same walk over twice the bytes.
@@ -716,8 +776,7 @@ def phase_kernels_int8(torch) -> dict:
     _route_cases(torch, pa, kv_quant=True)
     _prefix_cases(torch, pa, kv_quant=True)
     return {'max_abs_err': worst, **results['decode'],
-            'prefill': results['prefill'],
-            'prefill_4096': results['prefill_4096']}
+            **{name: results[name] for name, *_ in SERVE_CALLS[1:]}}
 
 
 # ------------------------------------------------------------------ lora
@@ -735,7 +794,8 @@ LORA_RANK, LORA_SLOTS, LORA_SCALE = 16, 5, 2.0   # serve_tenant: alpha 32
 LORA_GROUPS = {'qkv': (4096, (4096, 1024, 1024)), 'o': (4096, (4096,)),
                'gate_up': (4096, (14336, 14336)), 'down': (14336, (4096,))}
 LORA_CALLS = (('decode', 8, 1, [0, 1, 2, 3, 4, 1, 0, 2]),
-              ('prefill', 1, 256, [3]))
+              ('prefill', 1, 256, [3]),
+              ('verify', 8, 5, [0, 1, 2, 3, 4, 1, 0, 2]))  # K = 4
 # Prefill chunks that take the CUDA-core route: (dtype, rank).
 LORA_CC_PREFILL = (('float32', 16), ('bfloat16', 8))
 
@@ -993,7 +1053,7 @@ def phase_lora(torch, parent_source=None) -> dict:
         if parent is None:
             for key in ('parent_ms', 'parent_device_ms', 'parent_wall_ms'):
                 del total[key]
-        if call == 'decode':
+        if call != 'prefill':
             del total['yardstick_ms']
         records[call] = {**total, 'bound_ms': max(t_bytes, t_ops),
                          'bound_by': 'bytes' if t_bytes >= t_ops
@@ -1007,7 +1067,8 @@ def phase_lora(torch, parent_source=None) -> dict:
             f'single PyTorch call computes the grouped per-row delta')
     cc_prefill, cc_worst = _lora_cc_prefill(torch, parent)
     return {'max_abs_err': max(worst, cc_worst), **records['decode'],
-            'prefill': records['prefill'], 'prefill_cuda_cores': cc_prefill}
+            'prefill': records['prefill'], 'verify': records['verify'],
+            'prefill_cuda_cores': cc_prefill}
 
 
 def _lora_cc_prefill(torch, parent) -> tuple:
@@ -1086,13 +1147,29 @@ def phase_parity(torch) -> None:
     prompts = [[(7 * i + 3 * n) % 1024 for i in range(n)]
                for n in (5, 37, 100, 260)]
     outs = {}
-    for device in ('cpu', 'cuda'):
+    for device in ('cpu', 'cuda', 'spec'):
         engine = ContinuousBatchingEngine(
-            cfg, params={k: v.to(device) for k, v in state.items()},
+            cfg, params={k: v.to(device.replace('spec', 'cuda'))
+                         for k, v in state.items()},
             num_slots=3, paged_block_size=16, prefill_chunk=64,
-            device=device)
+            device=device.replace('spec', 'cuda'),
+            speculative=4 if device == 'spec' else 0)
+        if device == 'spec':
+            # Oracle drafts (the card's plain tokens): every tick verifies.
+            engine._draft_tokens = _oracle_drafts(prompts, outs['cuda'])  # pylint: disable=protected-access
         futures = [engine.submit(p, max_new_tokens=8) for p in prompts]
         outs[device] = [f.result(timeout=120)[0] for f in futures]
+        if device == 'spec':
+            if not engine.spec_stats['ticks']:
+                fail('parity: the speculative engine verified nothing')
+            engine.drain(timeout=60)
+            log(f'parity: fp32 speculative K 4 (oracle drafts) on the '
+                f'card: greedy {"equal" if outs["spec"] == outs["cuda"] else "DIFFER"}'
+                f' to the plain engine; {engine.spec_stats}')
+            if outs['spec'] != outs['cuda']:
+                fail(f'greedy tokens differ with speculative verify: '
+                     f'{outs["spec"]} vs {outs["cuda"]}')
+            continue
         if not engine.drain(timeout=60):
             fail('parity engine did not drain')
         engine._pool.check()  # pylint: disable=protected-access
@@ -1153,18 +1230,22 @@ def _breakdown_line(label: str, what: str, wall_ms: float, kernel_ms: float,
         f'{max(0.0, 1 - kernel_ms / wall_ms):.3f} [{smi}]')
 
 
-def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
-    """Time the engine's two device steps at the served shapes on the
-    drained engine, eagerly (`_decode_impl`, `_prefill_chunk_impl`, each
-    ending in `.cpu()`) and as one replay of the engine's graph (inputs
-    staged, the replay, its pinned copy and event): an all-slots decode
-    step with every row at `context` tokens, and one 256-token prefill
+def step_breakdown(torch, engine, smi: str, context: int = 700,
+                   verify_ks: tuple = ()) -> None:
+    """Time the engine's device steps at the served shapes on the drained
+    engine, eagerly (`_decode_impl`, `_prefill_chunk_impl`, `_verify_impl`,
+    each ending in `.cpu()`) and as one replay of the engine's graph
+    (inputs staged, the replay, its pinned copy and event): an all-slots
+    decode step with every row at `context` tokens, one 256-token prefill
     chunk at position 512 (a multi-LoRA engine: decode rows on slots 0-4
-    mixed, the chunk on slot 3). The replay's tokens must equal the eager
-    step's. Host wall per step (10 steps, no profiler) beside the device
-    time a torch.profiler trace attributes to CUDA kernels (5 steps); the
-    difference is the device's idle share. Also the runtime's launch calls
-    per step and, eagerly, the largest kernels and host operators."""
+    mixed, the chunk on slot 3), and for each K of `verify_ks` an
+    all-slots verify of K random drafts after the row's token at
+    `context`. Each replay's tokens must equal the eager step's, and each
+    replay must be one graph launch. Host wall per step (10 steps, no
+    profiler) beside the device time a torch.profiler trace attributes to
+    CUDA kernels (5 steps); the difference is the device's idle share.
+    Also the runtime's launch calls per step and, eagerly, the largest
+    kernels and host operators."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1175,7 +1256,8 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
     # Blocks for the decode rows and for the chunk (positions 512-767 on
     # row 0's table): a position past a table's blocks writes the
     # scratch block, where the chunk's duplicate writes would race.
-    need = max(context, 767) // cfg.paged_block_size + 1
+    need = max(context + max(verify_ks, default=0),
+               767) // cfg.paged_block_size + 1
     blocks = [[pool.alloc() for _ in range(need)] for _ in range(rows)]
     tables_np = np.zeros((rows, width), np.int32)
     for r, row in enumerate(blocks):
@@ -1223,7 +1305,8 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
     }
     with torch.inference_mode():
         # Each pair from the same pool state (the chunk writes row 0's
-        # blocks at 512-767, which row 0's decode reads).
+        # blocks at 512-767, which row 0's decode reads; a verify writes
+        # its span's K/V before it reads them).
         eager_tokens = steps['decode', 'eager']().numpy()
         graph_tokens = graph_decode()
         if not (graph_tokens == eager_tokens).all():
@@ -1234,6 +1317,32 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
         if graph_first != eager_first:
             fail(f'the prefill graph replay gave {graph_first}, the eager '
                  f'chunk {eager_first}')
+        # Made inside inference mode, as the engine thread makes them.
+        for k in verify_ks:
+            v = engine._verify_buffers(k)  # pylint: disable=protected-access
+            v.tables.put(tables_np)
+            v.temps.put(np.zeros(rows, np.float32))
+            if v.aids is not None:
+                v.aids.put(aids_np)
+            span = torch.cat([tokens.cpu(), torch.randint(
+                0, cfg.vocab_size, (rows, k), generator=gen,
+                dtype=torch.int32)], dim=1)
+            span_pos = torch.arange(context, context + k + 1,
+                                    dtype=torch.int32).repeat(rows, 1)
+            v.feed.put(torch.stack([span, span_pos]).numpy())
+            span, span_pos = span.cuda(), span_pos.cuda()
+            name = f'verify K {k}'
+            steps[name, 'eager'] = lambda span=span, span_pos=span_pos: (
+                torch.cat([r.view(rows, -1) for r in engine._verify_impl(  # pylint: disable=protected-access
+                    span, span_pos, temps, tables, False, aids)],
+                    dim=1).cpu())
+            steps[name, 'graph'] = (
+                lambda k=k: engine._run_verify(k, False).result())  # pylint: disable=protected-access
+            eager_out = steps[name, 'eager']().numpy()
+            graph_out = steps[name, 'graph']()
+            if not (graph_out == eager_out).all():
+                fail(f'the {name} graph replay gave {graph_out.tolist()}, '
+                     f'the eager verify {eager_out.tolist()}')
         for (name, path), fn in steps.items():
             for _ in range(3):
                 fn()
@@ -1241,13 +1350,17 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
             for _ in range(10):
                 fn()
             wall_ms = (time.monotonic() - t0) * 100.0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn()
-            kernel_ms, kernels, events = _kernel_profile(prof)
-            what = (f'{rows} rows at {context} tokens' if name == 'decode'
-                    else '1 row, 256 tokens at position 512')
+            for _ in range(3):     # a trace now and then comes back empty
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        fn()
+                kernel_ms, kernels, events = _kernel_profile(prof)
+                if kernels:
+                    break
+            what = ('1 row, 256 tokens at position 512'
+                    if name == 'prefill_chunk'
+                    else f'{rows} rows at {context} tokens')
             if engine.max_adapters or cfg.kv_cache_quant:
                 what += (f'; int8 KV, {engine.max_adapters} adapters on '
                          f'{cfg.lora_targets}')
@@ -1256,6 +1369,18 @@ def step_breakdown(torch, engine, smi: str, context: int = 700) -> None:
             log(f'  launch calls per step: {_launch_calls(events, 5)}; CUDA '
                 f'kernels x{sum(e.count for e in kernels) / 5:g}')
             if path == 'graph':
+                calls = {e.key: e.count for e in events
+                         if e.key in LAUNCH_CALLS}
+                if calls.get('cudaGraphLaunch') != 5 or any(
+                        calls.get(c, 0) for c in LAUNCH_CALLS
+                        if c != 'cudaGraphLaunch'):
+                    fail(f'{name} graph: a step is not one graph launch: '
+                         f'{calls}')
+                if name.startswith('verify'):
+                    for e in sorted(kernels, key=lambda e:
+                                    -e.self_device_time_total)[:8]:
+                        log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
+                            f'x{e.count // 5:<4d} {e.key[:90]}')
                 continue
             for e in sorted(kernels,
                             key=lambda e: -e.self_device_time_total)[:6]:
@@ -1394,12 +1519,13 @@ def _expected_launches(engine, chunks: int, steps: int) -> dict:
             'fused_multi_lora': n * groups}
 
 
-def _serve_traffic(torch, engine, url: str, bodies, during=None) -> dict:
+def _serve_traffic(torch, engine, url: str, bodies, during=None,
+                   new_tokens: int = 32) -> dict:
     """The bodies as concurrent /generate requests, one thread each, with
     the launch counters set to 0 just before and read just after: checks
-    every answer (32 tokens in the vocabulary) and the launch formulas
-    exactly (`_expected_launches` with Σk decode steps). `during()` runs
-    while the requests are in flight."""
+    every answer (`new_tokens` tokens in the vocabulary) and the launch
+    formulas exactly (`_expected_launches` with Σk decode steps, a verify
+    tick one). `during()` runs while the requests are in flight."""
     results = [None] * len(bodies)
     errors = []
 
@@ -1433,8 +1559,8 @@ def _serve_traffic(torch, engine, url: str, bodies, during=None) -> dict:
     tokens, stats = [], []
     for i, res in enumerate(results):
         ids = res['token_ids'][0]
-        if len(ids) != 32 or not all(isinstance(t, int) and 0 <= t < vocab
-                                     for t in ids):
+        if len(ids) != new_tokens or not all(
+                isinstance(t, int) and 0 <= t < vocab for t in ids):
             fail(f'request {i}: bad token ids {ids}')
         tokens.append(ids)
         stats.append(res['stats'][0])
@@ -1485,8 +1611,9 @@ def serve_in_turns(torch, engine, url: str, bodies, label: str, smi: str,
 
 def phase_serve(torch, smi: str) -> tuple:
     """llama3-8b at full width and depth over localhost HTTP at
-    async_depth 1; returns the paged kernel's launches and the bf16
-    pool's bytes."""
+    async_depth 1, then its step breakdown with the verify graphs of
+    SCHED_KS; returns the paged kernel's launches and the bf16 pool's
+    bytes."""
     from skypilot_tpu_torch.serve.server import (BackgroundServer,
                                                  InferenceServer)
     t0 = time.monotonic()
@@ -1538,8 +1665,373 @@ def phase_serve(torch, smi: str) -> tuple:
     if tuple(logits.shape) != (1, 16, cfg.vocab_size) or \
             not bool(torch.isfinite(logits.float()).all()):
         fail(f'llama3-8b logits not finite or misshapen: {logits.shape}')
-    step_breakdown(torch, engine, smi)
+    step_breakdown(torch, engine, smi, verify_ks=SCHED_KS)
     return run['launches']['paged_decode_attention'], pool_bytes
+
+
+# ------------------------------------------------------------------ serve_sched
+
+SCHED_NEW = 128            # new tokens a request in the spec and timed passes
+SCHED_KS = (4, 8)          # draft counts: (K+1) x n_rep 4 rows, decode route
+SCHED_BATCH = (16, 500, 128)       # batch backlog: requests, prompt, new
+SCHED_INTERACTIVE = (8, 32)        # interactive arrivals: requests, new
+
+
+def _sched_bodies(torch, cfg, lengths, seed, new_tokens, **extra):
+    gen = torch.Generator().manual_seed(seed)
+    return [{'prompt_ids': [torch.randint(0, cfg.vocab_size, (n,),
+                                          generator=gen).tolist()],
+             'max_new_tokens': new_tokens, 'temperature': 0.0, **extra}
+            for n in lengths]
+
+
+def _oracle_drafts(prompts, continuations):
+    """A `_draft_tokens` stand-in drafting each request's continuation in
+    the plain run (the reference's oracle test device): the verify step's
+    best case. A request is known by its prompt (the longest that starts
+    its context); once its stream leaves the plain run's, the drafts are
+    the plain run's all the same."""
+    runs = sorted(((p, p + c) for p, c in zip(prompts, continuations)),
+                  key=lambda pair: -len(pair[0]))
+
+    def draft(context, k):
+        seq = next(full for p, full in runs if context[:len(p)] == p)
+        follow = seq[len(context):len(context) + k]
+        return follow + [0] * (k - len(follow))
+
+    return draft
+
+
+def _rest(engine, label: str) -> None:
+    """Wait for the idle engine, then hold the pool to scratch-only."""
+    deadline = time.monotonic() + 60
+    while engine._busy() or engine._ring:  # pylint: disable=protected-access
+        if time.monotonic() > deadline:
+            fail(f'{label}: the engine did not go idle')
+        time.sleep(0.005)
+    engine._pool.check()  # pylint: disable=protected-access
+    if engine._pool.used != 1:  # pylint: disable=protected-access
+        fail(f'{label}: {engine._pool.used} pool blocks held at rest, '  # pylint: disable=protected-access
+             f'want 1 (scratch)')
+
+
+def _margins(torch, engine, prompts, plain, other) -> list:
+    """Per request: None when `other` equals the plain run's tokens, else
+    (first index that differs, logit of the plain token minus logit of
+    the other's there), the logits of an eager chunked prefill of the
+    prompt and the plain tokens before that index. Runs in the engine
+    thread between ticks, on blocks it takes from the pool and returns."""
+
+    def logits_after(seq):
+        pool, bs = engine._pool, engine.paged_block_size  # pylint: disable=protected-access
+        blocks = [pool.alloc() for _ in range(-(-len(seq) // bs))]
+        table = torch.zeros((1, engine._blocks_per_seq + 1),  # pylint: disable=protected-access
+                            dtype=torch.int32)
+        table[0, :len(blocks)] = torch.tensor(blocks)
+        table = table.to(engine.device)
+        chunk = engine.prefill_chunk
+        for start in range(0, len(seq), chunk):
+            piece = seq[start:start + chunk]
+            tokens = torch.zeros((1, chunk), dtype=torch.int32)
+            tokens[0, :len(piece)] = torch.tensor(piece)
+            logits = engine._prefill_chunk_impl(  # pylint: disable=protected-access
+                tokens.to(engine.device), table, start, len(piece) - 1)
+        logits = logits.float().cpu()
+        pool.release(blocks)
+        return logits
+
+    def run():
+        out = []
+        with torch.inference_mode():
+            for prompt, want, got in zip(prompts, plain, other):
+                i = next((j for j, (a, b) in enumerate(zip(want, got))
+                          if a != b), None)
+                if i is None:
+                    out.append(None)
+                    continue
+                logits = logits_after(prompt + want[:i])
+                out.append((i, float(logits[want[i]] - logits[got[i]])))
+        return out
+
+    return engine._run_in_tick(run, timeout=300)  # pylint: disable=protected-access
+
+
+def _agreement_line(margins) -> str:
+    same = sum(m is None for m in margins)
+    differ = ', '.join(f'index {i} (margin {d:.4f})'
+                       for i, d in (m for m in margins if m is not None))
+    return (f'{same} of {len(margins)} requests equal the plain run'
+            + (f'; first differences at {differ}' if differ else ''))
+
+
+def _spec_pass(torch, engine, url, bodies, label, smi, k, draft=None):
+    """One pass of `bodies` at speculative = k (0: plain), the verify
+    graph captured first on the idle engine; the launch formulas exact,
+    the pool back at rest. Returns the run and the pass's spec stats."""
+    engine.speculative = k
+    engine.capture_graphs()     # the verify's and decode_chunk's graphs
+    if draft is not None:
+        engine._draft_tokens = draft  # pylint: disable=protected-access
+    stats0 = dict(engine.spec_stats)
+    falls0 = dict(engine.spec_fallbacks)
+    try:
+        run = _serve_traffic(torch, engine, url, bodies,
+                             new_tokens=bodies[0]['max_new_tokens'])
+    finally:
+        if draft is not None:
+            del engine._draft_tokens  # pylint: disable=protected-access
+        engine.speculative = 0
+    _rest(engine, label)
+    spec = {key: v - stats0[key] for key, v in engine.spec_stats.items()}
+    falls = {key: v - falls0[key] for key, v in engine.spec_fallbacks.items()}
+    t = run['ticks']
+    emitted = sum(len(tokens) - 1 for tokens in run['tokens'])
+    run['tokens_per_step'] = emitted / max(1, t['decode_steps'])
+    run['spec'] = spec
+    log(f'{label}: speculative {k}: {len(bodies)} requests ok in '
+        f'{run["wall"]:.2f}s; prefill chunks {run["chunks"]}, decode steps '
+        f'{t["decode_steps"]} ({spec["ticks"]} verify ticks, '
+        f'{t["dispatches"]} plain dispatches, {t["flushes"]} flushes; '
+        f'fallbacks {falls}); {run["tokens_per_step"]:.3f} decode tokens a '
+        f'step over 8 slots; drafted {spec["drafted"]}, accepted '
+        f'{spec["accepted"]}; launches {run["launches"]}, expected '
+        f'{run["expected"]}; TTFT p50 {run["ttft_ms"]:.1f} ms, decode '
+        f'{run["tokens_per_s"]:.1f} tokens/s [{smi}]')
+    if run['launches'] != run['expected']:
+        fail(f'{label} speculative {k}: launches {run["launches"]} != '
+             f'{run["expected"]}')
+    if k and not spec['ticks']:
+        fail(f'{label} speculative {k}: no verify tick ran')
+    return run
+
+
+def _tier_pass(torch, engine, url, tiered: bool, smi: str) -> dict:
+    """The batch backlog, then, once every slot decodes, the interactive
+    arrivals; every request must end 200 with its token count."""
+    cfg = engine.cfg
+    n_batch, batch_len, batch_new = SCHED_BATCH
+    n_int, int_new = SCHED_INTERACTIVE
+    batch = _sched_bodies(torch, cfg, [batch_len] * n_batch, 41, batch_new,
+                          priority='batch' if tiered else 'standard')
+    inter = _sched_bodies(torch, cfg, [100 + 200 * i // (n_int - 1)
+                                       for i in range(n_int)], 42, int_new,
+                          priority='interactive' if tiered else 'standard')
+    bodies = batch + inter
+    results, errors = [None] * len(bodies), []
+
+    def send(i):
+        try:
+            results[i] = _post(url + '/generate', bodies[i])
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'request {i}: {e!r}')
+
+    preempts0 = engine.tenancy_stats['slot_preempts']
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads[:n_batch]:
+        t.start()
+    deadline = time.monotonic() + 120
+    while not all(r is not None and not r.prefilling
+                  for r in engine._slots):  # pylint: disable=protected-access
+        if time.monotonic() > deadline:
+            fail('serve_sched: the batch backlog never filled the slots')
+        time.sleep(0.002)
+    for t in threads[n_batch:]:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f'serve_sched tiers: requests failed: {errors}')
+    for i, res in enumerate(results):
+        want = bodies[i]['max_new_tokens']
+        if len(res['token_ids'][0]) != want:
+            fail(f'serve_sched tiers: request {i} gave '
+                 f'{len(res["token_ids"][0])} tokens, want {want}')
+    ttft = sorted(res['stats'][0]['ttft_s'] * 1e3
+                  for res in results[n_batch:])
+    batch_total = [res['stats'][0]['total_s'] for res in results[:n_batch]]
+    out = {'p50': statistics.median(ttft),
+           'p95': ttft[min(len(ttft) - 1, round(0.95 * (len(ttft) - 1)))],
+           'preempts': engine.tenancy_stats['slot_preempts'] - preempts0,
+           'wall': wall, 'batch_p50_s': statistics.median(batch_total)}
+    log(f'serve_sched tiers, {"tiered" if tiered else "all standard"}: '
+        f'{n_batch} batch ({batch_len} prompt, {batch_new} new) + {n_int} '
+        f'interactive ({int_new} new) requests all 200 in {wall:.2f}s; '
+        f'interactive TTFT p50 {out["p50"]:.1f} ms, p95 {out["p95"]:.1f} '
+        f'ms; batch total p50 {out["batch_p50_s"]:.2f}s; slot preempts '
+        f'{out["preempts"]} [{smi}]')
+    _rest(engine, 'serve_sched tiers')
+    return out
+
+
+def _preempt_under_load(torch, server, url, smi) -> None:
+    """POST /preempt with requests in flight: drained, /health 503 with
+    Retry-After and a new /generate 503 while it drains, every in-flight
+    request ends 200."""
+    engine = server.engine
+    bodies = _sched_bodies(torch, engine.cfg, [300] * 8, 43, SCHED_NEW)
+    results, errors = [None] * 8, []
+
+    def send(i):
+        try:
+            results[i] = _post(url + '/generate', bodies[i])
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'request {i}: {e!r}')
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    while not all(r is not None and not r.prefilling
+                  for r in engine._slots):  # pylint: disable=protected-access
+        if time.monotonic() > deadline:
+            fail('serve_sched: /preempt traffic never filled the slots')
+        time.sleep(0.002)
+    notice = {}
+
+    def preempt():
+        notice['answer'] = _request(url + '/preempt', 'POST',
+                                    {'deadline_s': 120})
+
+    t0 = time.monotonic()
+    notice_thread = threading.Thread(target=preempt)
+    notice_thread.start()
+    while not server.draining:
+        if time.monotonic() > deadline:
+            fail('serve_sched: /preempt never started draining')
+        time.sleep(0.001)
+    try:
+        urllib.request.urlopen(url + '/health', timeout=30)
+        fail('serve_sched: /health answered 200 while draining')
+    except urllib.error.HTTPError as e:
+        health = (e.code, e.headers.get('Retry-After'))
+    shed = _request(url + '/generate', 'POST', bodies[0])
+    notice_thread.join(timeout=300)
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads + [notice_thread]):
+        fail(f'serve_sched /preempt: in-flight requests failed: {errors}')
+    if notice.get('answer') != (200, {'drained': True, 'export': None,
+                                      'status': 'drained'}):
+        fail(f'serve_sched /preempt answered {notice.get("answer")}')
+    if health[0] != 503 or not health[1]:
+        fail(f'serve_sched: /health while draining gave {health}')
+    if shed[0] != 503:
+        fail(f'serve_sched: /generate while draining gave {shed}')
+    if any(len(r['token_ids'][0]) != SCHED_NEW for r in results):
+        fail('serve_sched /preempt: an in-flight request came back short')
+    log(f'serve_sched: POST /preempt with 8 requests in flight answered '
+        f'{notice["answer"][1]} in {time.monotonic() - t0:.2f}s; /health '
+        f'{health[0]} (Retry-After {health[1]}) and /generate {shed[0]} '
+        f'while draining; all 8 in-flight requests 200 with {SCHED_NEW} '
+        f'tokens [{smi}]')
+
+
+def phase_serve_sched(torch, smi: str) -> dict:
+    """llama3-8b at full size behind the HTTP server (8 slots, blocks of
+    16, chunks of 256, async_depth 1): speculative verify with oracle and
+    prompt-lookup drafts, decode_chunk 4 and sampling passes, the SLO
+    tiers untiered and tiered, and POST /preempt under load (the verify
+    tick beside the decode tick is timed on serve's engine, in
+    step_breakdown). Returns the launches of the K 4 oracle pass."""
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    t0 = time.monotonic()
+    server = InferenceServer('llama3-8b', num_slots=8, paged_block_size=16,
+                             prefill_chunk=256, rng_seed=0, async_depth=1,
+                             device='cuda')
+    engine = server.engine
+    cfg = engine.cfg
+    server.warmup()
+    log(f'serve_sched: llama3-8b built and warm in '
+        f'{time.monotonic() - t0:.1f}s')
+    http = BackgroundServer(server)
+    try:
+        url = http.url
+        # Speculative verify, oracle drafts: the plain run's own tokens.
+        lengths = [20, 117, 214, 311, 408, 505, 602, 700]
+        bodies = _sched_bodies(torch, cfg, lengths, 1, SCHED_NEW)
+        prompts = [b['prompt_ids'][0] for b in bodies]
+        plain = _spec_pass(torch, engine, url, bodies, 'serve_sched oracle',
+                           smi, 0)
+        verify_launches = None
+        for k in SCHED_KS:
+            run = _spec_pass(torch, engine, url, bodies,
+                             'serve_sched oracle', smi, k,
+                             _oracle_drafts(prompts, plain['tokens']))
+            verify_launches = verify_launches or run['launches']
+            margins = _margins(torch, engine, prompts, plain['tokens'],
+                               run['tokens'])
+            log(f'serve_sched oracle K {k}: {run["tokens_per_step"]:.3f} '
+                f'tokens a step vs {plain["tokens_per_step"]:.3f} plain; '
+                f'decode {run["tokens_per_s"]:.1f} vs '
+                f'{plain["tokens_per_s"]:.1f} tokens/s '
+                f'({run["tokens_per_s"] / plain["tokens_per_s"]:.3f}x); '
+                f'{_agreement_line(margins)} [{smi}]')
+        # Prompt-lookup drafts: one seeded 64-token segment repeated 8
+        # times a prompt (code edits, answers quoting their context).
+        gen = torch.Generator().manual_seed(7)
+        bodies = []
+        for _ in range(8):
+            segment = torch.randint(0, cfg.vocab_size, (64,),
+                                    generator=gen).tolist()
+            bodies.append({'prompt_ids': [segment * 8],
+                           'max_new_tokens': SCHED_NEW, 'temperature': 0.0})
+        prompts = [b['prompt_ids'][0] for b in bodies]
+        plain = _spec_pass(torch, engine, url, bodies, 'serve_sched lookup',
+                           smi, 0)
+        run = _spec_pass(torch, engine, url, bodies, 'serve_sched lookup',
+                         smi, SCHED_KS[0])
+        spec = run['spec']
+        margins = _margins(torch, engine, prompts, plain['tokens'],
+                           run['tokens'])
+        log(f'serve_sched lookup K {SCHED_KS[0]}: acceptance '
+            f'{spec["accepted"]}/{spec["drafted"]} = '
+            f'{spec["accepted"] / max(1, spec["drafted"]):.4f}; '
+            f'{run["tokens_per_step"]:.3f} tokens a step; decode '
+            f'{run["tokens_per_s"]:.1f} vs {plain["tokens_per_s"]:.1f} '
+            f'tokens/s ({run["tokens_per_s"] / plain["tokens_per_s"]:.3f}x); '
+            f'TTFT p50 {run["ttft_ms"]:.1f} vs {plain["ttft_ms"]:.1f} ms; '
+            f'{_agreement_line(margins)} [{smi}]')
+        # Timed beside them: decode_chunk 4, and sampling at 0.8.
+        bodies = _sched_bodies(torch, cfg, lengths, 1, SCHED_NEW)
+        engine.decode_chunk = 4
+        run = _spec_pass(torch, engine, url, bodies, 'serve_sched chunk 4',
+                         smi, 0)
+        engine.decode_chunk = 1
+        for body in bodies:
+            body['temperature'] = 0.8
+        _post(url + '/generate', {**bodies[0], 'max_new_tokens': 4})
+        _rest(engine, 'serve_sched sampling warm-up')
+        run = _spec_pass(torch, engine, url, bodies,
+                         'serve_sched temperature 0.8', smi, 0)
+        # SLO tiers: the same traffic untiered, then tiered.
+        untiered = _tier_pass(torch, engine, url, False, smi)
+        tiered = _tier_pass(torch, engine, url, True, smi)
+        if not tiered['preempts']:
+            fail('serve_sched: no batch slot was preempted in the tiered '
+                 'pass')
+        log(f'serve_sched tiers: interactive TTFT p50 {untiered["p50"]:.1f}'
+            f' -> {tiered["p50"]:.1f} ms, p95 {untiered["p95"]:.1f} -> '
+            f'{tiered["p95"]:.1f} ms; {tiered["preempts"]} slot preempts; '
+            f'batch total p50 {untiered["batch_p50_s"]:.2f} -> '
+            f'{tiered["batch_p50_s"]:.2f}s [{smi}]')
+        _preempt_under_load(torch, server, url, smi)
+    finally:
+        http.close()
+        server.draining = True
+    engine._pool.check()  # pylint: disable=protected-access
+    if engine._pool.used != 1:  # pylint: disable=protected-access
+        fail('serve_sched: pool did not return to scratch-only after drain')
+    engine.stop()
+    del server, engine, http
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'serve_sched: {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
+        f'still allocated after the phase')
+    return verify_launches
 
 
 def phase_graph_parity(torch) -> None:
@@ -2120,6 +2612,13 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
             f'on the same prompt')
         if not differ:
             fail('no adapter request differs from the base model')
+        # The verify shape through kernels 2 and 7 on this path: K 4 with
+        # oracle drafts (the mixed run's tokens), launch formulas exact.
+        bodies = [body_of(i, a) for i, a in enumerate(adapter_of)]
+        verify = _spec_pass(torch, engine, http.url, bodies, 'serve_tenant',
+                            smi, 4, _oracle_drafts(
+                                [b['prompt_ids'][0] for b in bodies],
+                                run['tokens']))
         engine_windows(torch, engine, smi, 'serve_tenant',
                        adapters=(None, *names))
     finally:
@@ -2133,7 +2632,7 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
     if any(a['refs'] for a in engine.adapters_info()['adapters']):
         fail(f'adapter pins leaked: {engine.adapters_info()}')
     step_breakdown(torch, engine, smi)
-    return run['launches']
+    return {**run['launches'], 'verify': verify['launches']}
 
 
 # -------------------------------------------------------------------- flash
@@ -3102,7 +3601,7 @@ def phase_train_sp(torch, smi: str) -> int:
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
           'train_sp', 'serve', 'serve_prefix', 'serve_tenant',
-          'graph_parity')
+          'serve_sched', 'graph_parity')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -3193,6 +3692,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 'serve_tenant' in phases:
         launches = phase_serve_tenant(torch, smi, bf16_pool_bytes)
+        # `verify_launches`: the launches of the path's verify pass
+        # (K 4), a subset of the kernel's work beside its `verify_5` row.
         if paged8 is not None:
             kernels.append({
                 'name': 'paged_prefill_kernel<int8_t> + '
@@ -3200,15 +3701,25 @@ def main(argv=None) -> int:
                 'source': PAGED_SOURCE,
                 'replaces': 'skypilot_tpu/ops/paged_attention.py:126',
                 'launches': launches['paged_decode_attention_int8'],
+                'verify_launches':
+                    launches['verify']['paged_decode_attention_int8'],
                 **paged8})
         if lora is not None:
             kernels.append({
                 'name': 'fused_multi_lora', 'route': 'cuda',
                 'source': LORA_SOURCE,
                 'replaces': 'skypilot_tpu/ops/fused_lora.py:38',
-                'launches': launches['fused_multi_lora'], **lora})
+                'launches': launches['fused_multi_lora'],
+                'verify_launches': launches['verify']['fused_multi_lora'],
+                **lora})
         gc.collect()
         torch.cuda.empty_cache()
+    if 'serve_sched' in phases:
+        launches = phase_serve_sched(torch, smi)
+        paged_entry = next((k for k in kernels
+                            if k['name'] == 'paged_decode_attention'), None)
+        if paged_entry is not None:
+            paged_entry['verify_launches'] = launches['paged_decode_attention']
     if 'graph_parity' in phases:
         phase_graph_parity(torch)
     print(json.dumps({'kernels': kernels}), flush=True)

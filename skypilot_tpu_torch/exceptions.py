@@ -42,3 +42,9 @@ class UnknownAdapterError(SkyTpuError):
 class AdapterInUseError(SkyTpuError):
     """DELETE /adapters/{name} while in-flight requests still pin the
     adapter; the server maps this to 409."""
+
+
+class TierDeadlineUnmeetableError(EngineOverloadedError):
+    """Deadline-aware admission: at the current queue depth the request
+    cannot plausibly meet its deadline, so it is shed AT SUBMIT with
+    429 + Retry-After instead of being admitted and killed mid-queue."""

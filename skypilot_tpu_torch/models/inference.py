@@ -1,10 +1,11 @@
 """Continuous-batching inference engine over the paged KV pool (PyTorch).
 
 Port of skypilot_tpu/models/inference.py for the serving main path: the
-paged `ContinuousBatchingEngine` (the reference's speculative=0, tp=1)
-with its async decode pipeline (`async_depth`, `decode_chunk`, the
-device-resident feed) and its paged prefix cache, plus the sampling
-helpers. A scheduler thread admits queued prompts into free slots between ticks;
+paged `ContinuousBatchingEngine` (the reference's tp=1) with its async
+decode pipeline (`async_depth`, `decode_chunk`, the device-resident
+feed), its prompt-lookup speculative decoding (`speculative`), its paged
+prefix cache and its SLO tiers with batch-slot preemption, plus the
+sampling helpers. A scheduler thread admits queued prompts into free slots between ticks;
 each tick advances every mid-prefill slot by one fixed-size chunk, then
 decodes all slots in one batched dispatch of k in {1, decode_chunk}
 steps. Every attention call runs through the paged kernel
@@ -41,7 +42,24 @@ stacks (serve/tenancy.AdapterPool owns slots, LRU and pins; the engine
 thread does the device writes between ticks, `_run_in_tick`). Requests
 for different adapters and the base model decode in ONE batched step: a
 per-slot adapter-index vector drives ops/fused_lora inside every
-targeted projection. SLO tiers and slot preemption are not ported.
+targeted projection.
+
+Speculative decoding, as in the reference: `speculative=K` drafts K
+tokens a greedy slot by n-gram lookup in its own context
+(`_draft_tokens`) and verifies them in ONE forward over (num_slots, K+1)
+tokens (`_verify_impl`, a graph of its own, ('verify', K, sampling)),
+emitting the accepted drafts plus one token: greedy output equals plain
+decode. A verify tick flushes the async ring first, reserves blocks for
+its K+1 writes and trims the rejected ones after emit (`_trim_blocks`).
+
+SLO tiers, as in the reference: the admission queue is a
+tenancy.TierQueue (interactive first, FIFO within a tier, a batch
+starvation floor); `submit(priority=...)` sheds at submit when the
+projected wait over the admission→first-token EWMA misses the deadline
+(TierDeadlineUnmeetableError); an interactive request that would wait
+takes a batch-tier slot, whose request re-queues at the head of its
+tier and continues from its generated tokens (`context = ids +
+tokens`) when readmitted.
 
 Where the reference jits pure functions over a donated cache, the port
 updates its K/V pools in place. Sampling takes an explicit
@@ -115,6 +133,16 @@ _PREFIX_MISS = _PREFIX.labels(result='miss')
 _PREFIX_TOKENS = obs.counter(
     'skytpu_engine_prefix_tokens_reused_total',
     'Prompt tokens whose prefill was skipped via the prefix cache')
+_SPEC_DRAFTED = obs.counter(
+    'skytpu_engine_spec_drafted_total',
+    'Speculative tokens drafted by prompt-lookup')
+_SPEC_ACCEPTED = obs.counter(
+    'skytpu_engine_spec_accepted_total',
+    'Speculative drafts accepted by verification')
+_SPEC_PAGED_ACCEPTED = obs.counter(
+    'skytpu_engine_spec_paged_accepted_total',
+    'Speculative drafts accepted by verification through paged '
+    'block-table gathers (the paged x speculative composition)')
 _PAGED_CAPACITY = obs.gauge(
     'skytpu_engine_paged_blocks_capacity',
     'Paged KV pool size in blocks (incl. the scratch block)')
@@ -152,6 +180,24 @@ _DISPATCH_AHEAD = obs.gauge(
     'skytpu_engine_dispatch_ahead',
     'Decode dispatches in flight beyond the last consumed result '
     '(the async lookahead depth currently in effect)')
+_TIER_QUEUE_DEPTH = obs.gauge(
+    'skytpu_engine_tier_queue_depth',
+    'Admission-queue depth by SLO tier', ('tier',))
+_TIER_TTFT_HIST = obs.histogram(
+    'skytpu_engine_tier_ttft_seconds',
+    'Submit → first token by SLO tier (the per-tier autoscaler '
+    'signal: target_ttft_seconds_per_tier)', ('tier',))
+_TIER_REQUESTS = obs.counter(
+    'skytpu_engine_tier_requests_total',
+    'Requests submitted by SLO tier', ('tier',))
+_TIER_DEADLINE_SHED = obs.counter(
+    'skytpu_engine_tier_deadline_shed_total',
+    'Requests shed at submit because their deadline was unmeetable '
+    'at the current queue depth (429 + Retry-After)', ('tier',))
+_SLOT_PREEMPTS = obs.counter(
+    'skytpu_engine_slot_preempts_total',
+    'batch-tier requests preempted out of a decode slot by an '
+    'interactive arrival and re-queued retryably')
 
 # The reference's decode_kernel values. The port has ONE paged-attention
 # path (the CUDA kernel on the card, its plain version on the CPU), so
@@ -267,13 +313,19 @@ class _Request:
                  'future', 'submit_time', 'first_token_time', 'tokens',
                  'next_pos', 'on_token', 'deadline', 'blocks',
                  'prefilling', 'prefill_pos', 'seq', 'adapter',
-                 'adapter_slot', 'adapter_pool')
+                 'adapter_slot', 'adapter_pool', 'tier', 'context',
+                 'admit_mono')
 
     def __init__(self, ids, max_new_tokens, temperature, eos_id, future,
                  on_token=None, deadline=None, adapter=None,
-                 adapter_slot=0, adapter_pool=None):
+                 adapter_slot=0, adapter_pool=None, tier='standard'):
         self.seq = next(_REQ_SEQ)
         self.ids = list(ids)
+        # What admission prefills: the prompt, or for a preempted
+        # request's continuation the prompt and its generated tokens.
+        self.context = self.ids
+        self.tier = tier
+        self.admit_mono: Optional[float] = None
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
         self.eos_id = eos_id
@@ -339,6 +391,11 @@ class ContinuousBatchingEngine:
     runs K decode steps a dispatch while no request waits for admission,
     no slot is mid-prefill and every slot's window takes the whole chunk.
 
+    speculative=K (>0) drafts K tokens a greedy slot by prompt lookup and
+    verifies them in one forward a tick (`spec_stats`; `paged_stats`
+    spec_trimmed_blocks); it takes precedence over decode_chunk. Greedy
+    output is unchanged.
+
     prefix_cache=N keeps the last N prompts' blocks for reuse: a prompt
     that extends a cached one prefills only its suffix (`prefix_stats`;
     `paged_stats` blocks_reused, cow_copies, prefix_evictions).
@@ -349,6 +406,10 @@ class ContinuousBatchingEngine:
     resident; `load_adapter` registers one, `submit(adapter=name)` serves
     a request through it, batched with other adapters' and base-model
     requests.
+
+    submit(priority=...) names the request's SLO tier ('interactive',
+    'standard', 'batch'): interactive admits first and may preempt a
+    batch slot (`tenancy_stats`; `tier_load()`).
     """
 
     def __init__(self, cfg: 'ModelConfig | str',
@@ -371,6 +432,7 @@ class ContinuousBatchingEngine:
                  async_depth: int = 0,
                  decode_chunk: int = 1,
                  prefix_cache: int = 0,
+                 speculative: int = 0,
                  device='cuda') -> None:
         if kv_quant not in (None, '', 'int8'):
             raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
@@ -428,7 +490,8 @@ class ContinuousBatchingEngine:
         self._pool = kv_cache_lib.BlockPool(nb, self.paged_block_size)
         self.prefill_chunk = max(1, prefill_chunk or self.paged_block_size)
         self.paged_stats = {'cow_copies': 0, 'blocks_reused': 0,
-                            'prefill_chunks': 0, 'prefix_evictions': 0}
+                            'prefill_chunks': 0, 'prefix_evictions': 0,
+                            'spec_trimmed_blocks': 0}
         self._prefix_entries = self._new_prefix_index()
         _PAGED_CAPACITY.set(nb)
         self.decode_kernel = _resolve_decode_kernel(decode_kernel, self.cfg)
@@ -458,6 +521,16 @@ class ContinuousBatchingEngine:
         # admission, emit) overlaps the device's. Churn flushes the ring.
         self.async_depth = max(0, async_depth)
         self.decode_chunk = max(1, decode_chunk)
+        # >0: prompt-lookup speculative decoding, K drafts a greedy slot
+        # verified in one forward a tick; takes precedence over
+        # decode_chunk. Read at every tick, so it can change on an idle
+        # engine. A tick that cannot verify falls back to the plain path
+        # for one of the reference's three reasons, each counted in
+        # spec_fallbacks: a slot within K of its window, a pool that
+        # cannot hold the K+1 writes, no greedy slot with a real draft.
+        self.speculative = max(0, speculative)
+        self.spec_stats = {'ticks': 0, 'drafted': 0, 'accepted': 0}
+        self.spec_fallbacks = {'window': 0, 'pool': 0, 'no_draft': 0}
         self._ring: 'collections.deque[_Inflight]' = collections.deque()
         # Static step buffers and their graphs. Each dispatch's columns
         # land in a pinned buffer of their own: at most async_depth + 1
@@ -471,15 +544,15 @@ class ContinuousBatchingEngine:
             self.prefill_chunk, width, bool(self.max_adapters), self.device)
         self._first_host = step_graph.HostRing((1,), torch.int32,
                                                self.device, num_slots)
+        # Verify buffers per draft count K, made at first use.
+        self._ver: Dict[int, step_graph.VerifyBuffers] = {}
         # Value signatures of what the static inputs hold. The feed's,
         # ((req.seq, next_pos) per active slot), predicts the host state
         # after every pending emit lands: a steady tick matches it and
         # uploads nothing. Tables, temperatures and adapter slots change
-        # only with occupancy or block growth.
+        # only with occupancy or block growth (their signatures live in
+        # each buffer set's `sigs`).
         self._feed_sig: Optional[tuple] = None
-        self._table_sig: Optional[tuple] = None
-        self._temps_sig: Optional[tuple] = None
-        self._aids_sig: Optional[tuple] = None
         self._chunk_temp: Optional[float] = None
         # Monotonic stamp of the last consumed dispatch; None after idle
         # and admission ticks, so host gaps sample steady decode only.
@@ -487,7 +560,9 @@ class ContinuousBatchingEngine:
         self.tick_stats = {'dispatches': 0, 'decode_steps': 0, 'chained': 0,
                            'flushes': 0, 'host_gap_s': 0.0,
                            'gap_samples': 0}
-        self._queue: 'queue_lib.Queue[_Request]' = queue_lib.Queue()
+        # Tier-ordered admission queue: FIFO while every request is
+        # 'standard'.
+        self._queue: tenancy.TierQueue = tenancy.TierQueue()
         self._slots: List[Optional[_Request]] = [None] * num_slots
         self._stop = threading.Event()
         self._wake = threading.Event()
@@ -505,7 +580,15 @@ class ContinuousBatchingEngine:
             tenancy.AdapterPool(self.max_adapters) if self.max_adapters
             else None)
         self._lora_stacks = list(self.model.lora_stacks())
-        self.tenancy_stats = {'adapter_sheds': 0}
+        self.tenancy_stats = {'slot_preempts': 0, 'deadline_sheds': 0,
+                              'adapter_sheds': 0}
+        # Admission→first-token service EWMA behind deadline-aware
+        # admission (None until a first token: nothing is shed on a
+        # guess).
+        self.ttft_estimate: Optional[float] = None
+        # True once any non-'standard' request was submitted (the
+        # server's /health tier_load shows from then on).
+        self.tiers_active = False
 
     # ---------------- device steps ----------------
 
@@ -591,6 +674,66 @@ class ContinuousBatchingEngine:
                                           p.logits_at, p.aid)
         p.first.copy_(self._first_token(logits, p.temp.dev, sampling))
 
+    def _verify_impl(self, tokens: torch.Tensor, positions: torch.Tensor,
+                     temps: torch.Tensor, tables: torch.Tensor,
+                     sampling: bool, aids: Optional[torch.Tensor] = None
+                     ) -> tuple:
+        """Speculative verification: ONE forward over (num_slots, K+1)
+        chunks [last_token, draft_1..draft_K] at per-row positions,
+        through the block tables (and, multi-LoRA, the (num_slots,)
+        adapter slots `aids`). Returns `out` (num_slots, K+1) int32, the
+        argmax at every position, and `accepted` (num_slots,) int32, the
+        leading drafts equal to the argmax before them, so emitting
+        out[:, :accepted + 1] reproduces token-by-token greedy decode.
+        With `sampling`, rows of temperature > 0 take a token sampled from
+        the first position's logits in column 0 and accept 0 drafts.
+        Positions written for rejected drafts lie at or after every later
+        query of the row (causally masked) until later ticks overwrite
+        them."""
+        logits = self._forward(tokens, positions, tables, aids).float()
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        match = tokens[:, 1:] == greedy[:, :-1]
+        accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(
+            dim=1).to(torch.int32)
+        if not sampling:
+            return greedy, accepted
+        greedy_row = temps <= 0
+        accepted = torch.where(greedy_row, accepted, 0)
+        scaled = apply_logit_filters(
+            logits[:, 0, :] / torch.clamp(temps, min=1e-6)[:, None],
+            self.top_k, self.top_p)
+        first = torch.where(greedy_row, greedy[:, 0],
+                            _categorical(scaled, self._gen))
+        out = torch.cat([first[:, None], greedy[:, 1:]], dim=1)
+        return out, accepted
+
+    def _verify_body(self, k: int, sampling: bool) -> None:
+        """The verify graph's body: `_verify_impl` over the static
+        buffers of K = k, its results into their one output."""
+        v = self._ver[k]
+        out, accepted = self._verify_impl(
+            v.tokens, v.positions, v.temps.dev, v.tables.dev, sampling,
+            v.aids.dev if v.aids is not None else None)
+        v.out.copy_(out)
+        v.accepted.copy_(accepted)
+
+    def _verify_buffers(self, k: int) -> step_graph.VerifyBuffers:
+        """K's verify buffers, made outside any capture at first use."""
+        if k not in self._ver:
+            self._ver[k] = step_graph.VerifyBuffers(
+                self.num_slots, k + 1, self._blocks_per_seq + 1,
+                bool(self.max_adapters), self.device, ring=2)
+        return self._ver[k]
+
+    def _run_verify(self, k: int, sampling: bool) -> step_graph.Landing:
+        """Run one verify over what K's static inputs hold and start its
+        result's copy to the host."""
+        v = self._verify_buffers(k)
+        self._steps.run(('verify', k, sampling),
+                        lambda: self._verify_body(k, sampling),
+                        random=sampling)
+        return v.host.copy(v.result)
+
     def _run_decode(self, k: int, sampling: bool) -> step_graph.Landing:
         """Run one k-step decode dispatch over what the static inputs hold
         and start its columns' copy to the host."""
@@ -607,10 +750,11 @@ class ContinuousBatchingEngine:
     def capture_graphs(self, timeout: float = 600.0) -> list:
         """Run, in the engine thread and over inert inputs (all-scratch
         tables, position 0), the steps every greedy request takes: the
-        prefill chunk and the decode dispatch of k = 1 and decode_chunk.
-        On the card this captures their graphs (sampling graphs are
-        captured at first use). Needs an idle engine; returns the keys
-        captured so far."""
+        prefill chunk, the decode dispatch of k = 1 and decode_chunk, and
+        with speculative = K the verify of K. On the card this captures
+        their graphs (sampling graphs, and a K set later, are captured at
+        first use). Needs an idle engine; returns the keys captured so
+        far."""
 
         def capture():
             if self._busy() or self._ring:
@@ -626,6 +770,12 @@ class ContinuousBatchingEngine:
             self._run_prefill(False)
             for k in sorted({1, self.decode_chunk}):
                 self._run_decode(k, False).result()
+            if self.speculative:
+                v = self._verify_buffers(self.speculative)
+                v.feed.put(np.zeros(v.feed.dev.shape, np.int32))
+                v.tables.put(np.zeros(v.tables.dev.shape, np.int32))
+                v.sigs.clear()
+                self._run_verify(self.speculative, False).result()
             # The runs advanced the feed: nothing the inputs hold is
             # trusted afterwards.
             self._forget_inputs()
@@ -636,8 +786,10 @@ class ContinuousBatchingEngine:
     def _forget_inputs(self) -> None:
         """Drop every value signature of the static inputs: the next
         dispatch and chunk upload all of theirs."""
-        self._feed_sig = self._table_sig = None
-        self._temps_sig = self._aids_sig = self._chunk_temp = None
+        self._feed_sig = self._chunk_temp = None
+        self._dec.sigs.clear()
+        for v in self._ver.values():
+            v.sigs.clear()
 
     # ---------------- paged-KV host bookkeeping ----------------
 
@@ -681,6 +833,18 @@ class ContinuousBatchingEngine:
         while len(req.blocks) < need:
             req.blocks.append(self._alloc_block())
 
+    def _trim_blocks(self, req: _Request) -> None:
+        """Roll the block table back after a speculative tick: the tail
+        blocks reserved for the K+1 verify span beyond the block of the
+        next write position return to the pool now. Trimmed blocks are
+        always private suffix blocks (a published prefix covers at most
+        ceil(len(context) / bs) <= ceil(next_pos / bs) blocks), so the
+        decref frees them."""
+        keep = -(-(req.next_pos + 1) // self.paged_block_size)
+        while len(req.blocks) > keep:
+            self._pool.decref(req.blocks.pop())
+            self.paged_stats['spec_trimmed_blocks'] += 1
+
     def _release_blocks(self, req: _Request) -> None:
         """Return a finished/failed request's block references to the
         pool (shared prefix blocks survive through the index's)."""
@@ -707,11 +871,12 @@ class ContinuousBatchingEngine:
         adapter."""
         if not self.prefix_cache or req.adapter_slot != 0:
             return
-        num = -(-len(req.ids) // self.paged_block_size)
+        num = -(-len(req.context) // self.paged_block_size)
         blocks = list(req.blocks[:num])
         for block in blocks:
             self._pool.incref(block)
-        for _key, old_blocks in self._prefix_entries.put(req.ids, blocks):
+        for _key, old_blocks in self._prefix_entries.put(req.context,
+                                                         blocks):
             self._pool.release(old_blocks)
 
     def paged_occupancy(self) -> dict:
@@ -738,28 +903,30 @@ class ContinuousBatchingEngine:
                 table[row, :len(req.blocks)] = req.blocks
         return table
 
-    def _stage_decode_inputs(self, slots, active_set) -> bool:
-        """Upload the decode tables, temperatures and adapter slots whose
-        value signature changed; returns whether any row samples."""
+    def _stage_rows(self, bufs, slots, active_set) -> bool:
+        """Upload the per-row tables, temperatures and adapter slots of a
+        decode or verify step (`bufs`: its DecodeBuffers or VerifyBuffers)
+        whose value signature changed; returns whether any row samples."""
         rows = range(self.num_slots)
+        sigs = bufs.sigs
         sig = tuple(tuple(slots[i].blocks) if i in active_set else None
                     for i in rows)
-        if sig != self._table_sig:
-            self._dec.tables.put(self._table_rows(
+        if sig != sigs.get('tables'):
+            bufs.tables.put(self._table_rows(
                 [slots[i] if i in active_set else None for i in rows]))
-            self._table_sig = sig
+            sigs['tables'] = sig
         temps = tuple(slots[i].temperature if i in active_set else 0.0
                       for i in rows)
-        if temps != self._temps_sig:
-            self._dec.temps.put(temps)
-            self._temps_sig = temps
-        if self._dec.aids is not None:
+        if temps != sigs.get('temps'):
+            bufs.temps.put(temps)
+            sigs['temps'] = temps
+        if bufs.aids is not None:
             # Inert rows read slot 0, the identity.
             aids = tuple(slots[i].adapter_slot if i in active_set else 0
                          for i in rows)
-            if aids != self._aids_sig:
-                self._dec.aids.put(aids)
-                self._aids_sig = aids
+            if aids != sigs.get('aids'):
+                bufs.aids.put(aids)
+                sigs['aids'] = aids
         return any(t > 0 for t in temps)
 
     def _stage_chunk(self, req: _Request, start: int, n: int,
@@ -767,7 +934,7 @@ class ContinuousBatchingEngine:
         """Upload one prefill chunk's inputs (one copy), and its
         temperature when it samples and the value changed."""
         chunk = np.zeros(self.prefill_chunk, np.int32)
-        chunk[:n] = req.ids[start:start + n]
+        chunk[:n] = req.context[start:start + n]
         self._pf.ints.put(np.concatenate([
             self._table_rows([req])[0], chunk,
             np.array([start, n - 1, req.adapter_slot], np.int32)]))
@@ -781,11 +948,13 @@ class ContinuousBatchingEngine:
         """Paged admission is cheap: attach a cached prefix's whole
         blocks (incref), copy a partial boundary block on write, and mark
         the request as prefilling from the prefix's end. The rest of the
-        prompt prefills chunk by chunk across subsequent ticks
-        (_prefill_tick). Raises PoolExhaustedError, with every reference
-        it took released, when the copy finds no block."""
+        context (the prompt, or a preempted request's prompt and tokens)
+        prefills chunk by chunk across subsequent ticks (_prefill_tick).
+        Raises PoolExhaustedError, with every reference it took released,
+        when the copy finds no block."""
+        req.admit_mono = time_lib.monotonic()
         use_prefix = self.prefix_cache and req.adapter_slot == 0
-        plen, entry = (self._longest_cached_prefix(req.ids)
+        plen, entry = (self._longest_cached_prefix(req.context)
                        if use_prefix else (0, None))
         if plen < self._MIN_PREFIX:
             plen, entry = 0, None
@@ -840,7 +1009,7 @@ class ContinuousBatchingEngine:
         landings = []
         for slot in prefilling:
             req = slots[slot]
-            total = len(req.ids)
+            total = len(req.context)
             start = req.prefill_pos
             n = min(self.prefill_chunk, total - start)
             try:
@@ -870,12 +1039,120 @@ class ContinuousBatchingEngine:
         for req, landing in landings:
             first = int(landing.result()[0])
             req.prefilling = False
-            req.first_token_time = time_lib.monotonic()
-            _TTFT_HIST.observe(req.first_token_time - req.submit_time)
+            self._note_first_token(req)
             req.tokens.append(first)
             _TOKENS_TOTAL.inc()
             self._notify(req, first)
-            req.next_pos = len(req.ids)
+            req.next_pos = len(req.context)
+
+    def _note_first_token(self, req: _Request) -> None:
+        """TTFT (global and per tier) and the admission→first-token
+        service EWMA behind deadline-aware admission. A preemption's
+        continuation records nothing: its TTFT was the original one."""
+        if req.first_token_time is not None:
+            return
+        now = time_lib.monotonic()
+        req.first_token_time = now
+        ttft = now - req.submit_time
+        _TTFT_HIST.observe(ttft)
+        _TIER_TTFT_HIST.labels(tier=req.tier).observe(ttft)
+        if req.admit_mono is not None:
+            service = now - req.admit_mono
+            self.ttft_estimate = (
+                service if self.ttft_estimate is None
+                else 0.2 * service + 0.8 * self.ttft_estimate)
+
+    # Backward-scan cap for prompt-lookup drafting: bounds the host cost
+    # a tick to O(window) whatever the context length.
+    _DRAFT_SCAN_WINDOW = 2048
+
+    @classmethod
+    def _draft_tokens(cls, context, k: int):
+        """Prompt-lookup drafting, the reference's: the most recent
+        occurrence of the context's trailing n-gram (n = 3, then 2, then
+        1) starting within the scan window, excluding the trailing n-gram
+        itself, and the k tokens that followed it, padded with 0s. None
+        when nothing matches. The scan runs vectorised over the window
+        (numpy); its result is the reference's right-to-left scan's."""
+        n_ctx = len(context)
+        lo = max(0, n_ctx - cls._DRAFT_SCAN_WINDOW)
+        window = np.asarray(context[lo:], dtype=np.int64)
+        size = len(window)
+        for n in (3, 2, 1):
+            starts = size - n     # candidate starts 0 .. size - n - 1
+            if starts < 1:
+                continue
+            hit = np.ones(starts, dtype=bool)
+            for j in range(n):
+                hit &= window[j:j + starts] == window[size - n + j]
+            found = np.flatnonzero(hit)
+            if found.size:
+                start = lo + int(found[-1]) + n
+                follow = [int(t) for t in context[start:start + k]]
+                return follow + [0] * (k - len(follow))
+        return None
+
+    def _spec_tick(self, slots, active):
+        """One speculative tick: draft K tokens per greedy slot, verify
+        them in one forward. Returns ((num_slots, K+1) emit columns,
+        (num_slots,) valid column counts), or None when the tick falls
+        back to the plain path: a slot within K of its window, a pool
+        that cannot hold the K+1 writes (the reservation rolls back), or
+        no greedy slot with a real draft (each counted in
+        spec_fallbacks)."""
+        k = self.speculative
+        msl = self.cfg.max_seq_len
+        if any(msl - slots[i].next_pos <= k for i in active):
+            self.spec_fallbacks['window'] += 1
+            return None
+        try:
+            # Blocks for every verify write position (next_pos ..
+            # next_pos + K) BEFORE the dispatch.
+            for i in active:
+                self._ensure_blocks(slots[i],
+                                    min(slots[i].next_pos + k + 1, msl))
+        except kv_cache_lib.PoolExhaustedError:
+            # Holding the reservation would deepen the exhaustion that
+            # forced the fallback.
+            for i in active:
+                self._trim_blocks(slots[i])
+            self.spec_fallbacks['pool'] += 1
+            return None
+        # Inert rows (empty or mid-prefill slots): token 0 at position 0
+        # through an all-scratch table.
+        feed = np.zeros((2, self.num_slots, k + 1), np.int32)
+        drafted = []
+        for i in active:
+            req = slots[i]
+            draft = (self._draft_tokens(req.ids + req.tokens, k)
+                     if req.temperature <= 0 else None)
+            if draft is None:
+                draft = [0] * k
+            else:
+                drafted.append(i)
+            feed[0, i] = [req.tokens[-1]] + draft
+            feed[1, i] = np.arange(req.next_pos, req.next_pos + k + 1)
+        if not drafted:
+            # A verify would emit one token a slot at (K+1)x the forward:
+            # the plain path takes this tick with its own reservation.
+            for i in active:
+                self._trim_blocks(slots[i])
+            self.spec_fallbacks['no_draft'] += 1
+            return None
+        v = self._verify_buffers(k)
+        v.feed.put(feed)
+        sampling = self._stage_rows(v, slots, set(active))
+        result = self._run_verify(k, sampling).result()
+        out_cols, accepted = result[:, :k + 1], result[:, k + 1]
+        # The acceptance rate counts only slots with a real draft.
+        n_accepted = int(accepted[drafted].sum())
+        self.spec_stats['ticks'] += 1
+        self.spec_stats['drafted'] += k * len(drafted)
+        self.spec_stats['accepted'] += n_accepted
+        _SPEC_DRAFTED.inc(k * len(drafted))
+        _SPEC_ACCEPTED.inc(n_accepted)
+        _SPEC_PAGED_ACCEPTED.inc(n_accepted)
+        return out_cols, accepted + 1
 
     def _dispatch(self, slots, active, k: int,
                   chain: Optional[_Inflight] = None) -> None:
@@ -903,7 +1180,7 @@ class ContinuousBatchingEngine:
             # through the tick-failure path (fails in-flight requests).
             raise exceptions.EngineOverloadedError(
                 f'KV block pool exhausted mid-decode: {e}') from e
-        sampling = self._stage_decode_inputs(slots, active_set)
+        sampling = self._stage_rows(self._dec, slots, active_set)
         rows = range(self.num_slots)
         if chain is not None:
             gap = 0.0   # the device never ran dry: queued behind `chain`
@@ -1077,6 +1354,41 @@ class ContinuousBatchingEngine:
                         req, exceptions.RequestDeadlineExceededError(
                             f'request expired in the admission queue '
                             f'after {mono_now - req.submit_time:.1f}s'))
+        # SLO preemption: an interactive arrival that would otherwise
+        # wait takes a batch-tier slot now, scanning from the last slot.
+        # The batch request re-queues at the head of its tier with its
+        # blocks released and its context folded to ids + tokens, and
+        # continues from its generated tokens when readmitted. The ring
+        # is flushed first, so its pending columns land in its tokens
+        # before the fold: the starvation floor may readmit it into the
+        # slot it just left in this very tick, where discarding by
+        # identity could not tell it from the new occupant. Its slot's
+        # next dispatch stages from host state.
+        if not queue.empty():
+            waiting = queue.tier_depths().get('interactive', 0)
+            need = waiting - sum(1 for r in slots if r is None)
+            if need > 0 and self._ring and any(
+                    r is not None and r.tier == 'batch' for r in slots):
+                self._flush_ring(slots)
+                self.tick_stats['flushes'] += 1
+                need = waiting - sum(1 for r in slots if r is None)
+            for slot in range(self.num_slots - 1, -1, -1):
+                if need <= 0:
+                    break
+                req = slots[slot]
+                if req is None or req.tier != 'batch':
+                    continue
+                slots[slot] = None
+                self._release_blocks(req)
+                req.prefilling = False
+                req.prefill_pos = 0
+                req.next_pos = 0
+                req.context = req.ids + req.tokens
+                self.tenancy_stats['slot_preempts'] += 1
+                _SLOT_PREEMPTS.inc()
+                queue.requeue_front(req)
+                self._feed_sig = None
+                need -= 1
         # Admit queued requests into free slots (between ticks — the
         # "continuous" in continuous batching).
         for slot in range(self.num_slots):
@@ -1128,6 +1440,11 @@ class ContinuousBatchingEngine:
         # recording after construction.
         _ACTIVE_SLOTS.set(len(active))
         _QUEUE_DEPTH.set(queue.qsize())
+        if obs.enabled():
+            # Per-tier admission-queue depth: a queue scan, so behind
+            # the exporter check.
+            for tier, depth in queue.tier_depths().items():
+                _TIER_QUEUE_DEPTH.labels(tier=tier).set(depth)
         _PAGED_CAPACITY.set(self._pool.num_blocks)
         _PAGED_USED.set(self._pool.used)
         if self.paged_int8_bytes_saved:
@@ -1144,6 +1461,32 @@ class ContinuousBatchingEngine:
             _DISPATCH_AHEAD.set(0)
             self._last_ready = None
             return
+        # Speculation pays only when a greedy slot can accept drafts.
+        if self.speculative > 0 and any(slots[i].temperature <= 0
+                                        for i in active):
+            if self._ring:
+                # A verify samples and emits in its own tick: every
+                # pending lookahead's tokens land first, or a request's
+                # stream would reorder.
+                self._flush_ring(slots)
+                self.tick_stats['flushes'] += 1
+                active = [i for i in active if slots[i] is not None]
+                if not active:
+                    return
+            spec = self._spec_tick(slots, active)
+            if spec is not None:
+                out_cols, valid = spec
+                self.tick_stats['decode_steps'] += 1
+                # The host now leads the decode feed, and the verify is
+                # no steady decode step for the host gap.
+                self._feed_sig = None
+                self._last_ready = None
+                self._emit(slots, active, out_cols, valid)
+                # Rejected drafts: hand the over-reserved tail back.
+                for i in active:
+                    if slots[i] is not None:
+                        self._trim_blocks(slots[i])
+                return
         self._decode_tick(slots, active, prefilling)
 
     @staticmethod
@@ -1198,13 +1541,16 @@ class ContinuousBatchingEngine:
             req.future.set_result((list(req.tokens), stats))
         self._notify(req, None)  # stream end (after the future resolves)
 
-    def _emit(self, slots, active, out_cols) -> None:
+    def _emit(self, slots, active, out_cols, valid=None) -> None:
         """Append per-slot output columns with EOS/max/window
-        termination."""
+        termination; `valid` (a verify's) caps each slot's column count
+        (every column when None)."""
         for slot in active:
             req = slots[slot]
             emitted = 0
-            for c in range(out_cols.shape[1]):
+            cols = (out_cols.shape[1] if valid is None
+                    else int(valid[slot]))
+            for c in range(cols):
                 req.next_pos += 1
                 token = int(out_cols[slot, c])
                 req.tokens.append(token)
@@ -1383,7 +1729,8 @@ class ContinuousBatchingEngine:
                eos_id: Optional[int] = None,
                on_token=None,
                deadline: Optional[float] = None,
-               adapter: Optional[str] = None
+               adapter: Optional[str] = None,
+               priority: str = 'standard'
                ) -> 'concurrent.futures.Future':
         """Enqueue one request; returns a Future resolving to
         (token_ids, stats). `deadline` (absolute time.time() seconds)
@@ -1391,11 +1738,17 @@ class ContinuousBatchingEngine:
         whether it is still queued or mid-decode. `adapter` names a
         registered LoRA adapter: the request decodes through its slot in
         the same steps as other adapters' and base-model requests, and
-        pins it (never evicted) until the request resolves. While
-        draining, or with max_queue_depth exceeded, raises
-        EngineDrainingError / EngineOverloadedError instead of queueing;
-        an unknown adapter raises UnknownAdapterError, every adapter slot
-        pinned AdapterPoolExhaustedError."""
+        pins it (never evicted) until the request resolves. `priority` is
+        the SLO tier ('interactive', 'standard', 'batch'; ValueError
+        otherwise): interactive admits first and may preempt batch slots;
+        with a `deadline` the request is shed at submit
+        (TierDeadlineUnmeetableError) when the queue ahead of it makes
+        the deadline unmeetable. While draining, or with max_queue_depth
+        exceeded, raises EngineDrainingError / EngineOverloadedError
+        instead of queueing; an unknown adapter raises
+        UnknownAdapterError, every adapter slot pinned
+        AdapterPoolExhaustedError."""
+        tier = tenancy.validate_tier(priority)
         if self._draining:
             _REJECT_DRAINING.inc()
             raise exceptions.EngineDrainingError(
@@ -1419,6 +1772,25 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f'{len(ids)}+{max_new_tokens} exceeds max_seq_len '
                 f'{self.cfg.max_seq_len}')
+        # Deadline-aware admission: waves of same-or-higher-tier backlog
+        # x the admission→first-token EWMA. Only a real backlog sheds:
+        # an unmeetable deadline on an idle engine admits and fails
+        # through the deadline path.
+        if deadline is not None and self.ttft_estimate:
+            ahead = self._queue.depth_at_or_above(tier)
+            backlog = ahead - sum(1 for r in self._slots if r is None)
+            projected = (tenancy.projected_wait(
+                backlog, self.num_slots, self.ttft_estimate)
+                if backlog > 0 else 0.0)
+            if backlog > 0 and time_lib.time() + projected > deadline:
+                _TIER_DEADLINE_SHED.labels(tier=tier).inc()
+                self.tenancy_stats['deadline_sheds'] += 1
+                raise exceptions.TierDeadlineUnmeetableError(
+                    f'{tier} deadline unmeetable at current queue '
+                    f'depth ({ahead} ahead, projected '
+                    f'{projected:.2f}s); retry later')
+        if tier != 'standard':
+            self.tiers_active = True
         adapter_slot, pinned_pool = 0, None
         if adapter is not None:
             try:
@@ -1427,11 +1799,12 @@ class ContinuousBatchingEngine:
                 self.tenancy_stats['adapter_sheds'] += 1
                 raise
             pinned_pool = self._adapter_pool
+        _TIER_REQUESTS.labels(tier=tier).inc()
         future: 'concurrent.futures.Future' = concurrent.futures.Future()
         req = _Request(ids, max_new_tokens, temperature, eos_id, future,
                        on_token=on_token, deadline=deadline,
                        adapter=adapter, adapter_slot=adapter_slot,
-                       adapter_pool=pinned_pool)
+                       adapter_pool=pinned_pool, tier=tier)
         # Re-check draining under the lock drain() flips it under:
         # either this request is visible to drain's wait, or refused.
         with self._thread_lock:
@@ -1451,10 +1824,26 @@ class ContinuousBatchingEngine:
                  temperature: float = 0.0,
                  eos_id: Optional[int] = None,
                  timeout: Optional[float] = 300.0,
-                 adapter: Optional[str] = None):
+                 adapter: Optional[str] = None,
+                 priority: str = 'standard'):
         """Blocking convenience wrapper around submit()."""
         return self.submit(prompt_ids, max_new_tokens, temperature,
-                           eos_id, adapter=adapter).result(timeout=timeout)
+                           eos_id, adapter=adapter,
+                           priority=priority).result(timeout=timeout)
+
+    def tier_load(self) -> Dict[str, int]:
+        """Per-SLO-tier load, queued and slotted."""
+        depths = self._queue.tier_depths()
+        for req in self._slots:
+            if req is not None:
+                depths[req.tier if req.tier in depths else 'standard'] += 1
+        return depths
+
+    def queue_load(self) -> int:
+        """Requests this engine holds: queued awaiting admission and
+        occupying decode slots."""
+        return (self._queue.qsize() +
+                sum(1 for r in self._slots if r is not None))
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Graceful shutdown: stop admitting (submit raises

@@ -2,11 +2,12 @@
 
 The reference jits its decode and prefill dispatches
 (skypilot_tpu/models/inference.py `_decode_step_impl` :1526,
-`_decode_multi_feed_impl` :1545, the paged prefill chunk): one compiled
-program a dispatch, its next input fed from the device. The port's
-counterpart on Hopper is a CUDA graph. Each step reads and writes static
-device buffers (`DecodeBuffers`, `PrefillBuffers`), so a step's ~2000
-kernel launches become one graph launch.
+`_decode_multi_feed_impl` :1545, the paged prefill chunk, the speculative
+`_verify_impl` :1608): one compiled program a dispatch, its next input
+fed from the device. The port's counterpart on Hopper is a CUDA graph.
+Each step reads and writes static device buffers (`DecodeBuffers`,
+`PrefillBuffers`, `VerifyBuffers`), so a step's ~2000 kernel launches
+become one graph launch.
 
 `StepGraphs.run(key, body)` runs `body()` once. On the CPU it calls it
 eagerly over the same static buffers: the tests drive the buffer and
@@ -141,6 +142,8 @@ class DecodeBuffers:
                      else None)
         self.out: Dict[int, torch.Tensor] = {}
         self.host: Dict[int, HostRing] = {}
+        # Value signatures of what temps, tables and aids hold.
+        self.sigs: Dict[str, tuple] = {}
 
     def columns(self, k: int) -> torch.Tensor:
         """The k-step output, made outside any capture at first use."""
@@ -172,6 +175,37 @@ class PrefillBuffers:
         self.aid = dev[width + chunk + 2:] if adapters else None
         self.temp = Staged((1,), torch.float32, device)
         self.first = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+class VerifyBuffers:
+    """Static buffers of the speculative verify step over (num_slots,
+    span) tokens, span = K + 1: one int32 input holds the tokens and the
+    positions ((num_slots, span) views of one (2, num_slots, span)
+    input), so one copy uploads both; temperatures (num_slots,), block
+    tables (num_slots, table_width) and the adapter slots (num_slots,) of
+    a multi-LoRA engine are inputs of their own, uploaded when their
+    values change. One (num_slots, span + 1) int32 output holds the
+    emitted columns `out` (num_slots, span) and the accepted draft count
+    `accepted` (num_slots,), landed in one copy through `ring` pinned
+    host buffers."""
+
+    def __init__(self, num_slots: int, span: int, table_width: int,
+                 adapters: bool, device: torch.device, ring: int) -> None:
+        self.span = span
+        self.feed = Staged((2, num_slots, span), torch.int32, device)
+        self.tokens = self.feed.dev[0]
+        self.positions = self.feed.dev[1]
+        self.temps = Staged((num_slots,), torch.float32, device)
+        self.tables = Staged((num_slots, table_width), torch.int32, device)
+        self.aids = (Staged((num_slots,), torch.int32, device) if adapters
+                     else None)
+        self.result = torch.zeros((num_slots, span + 1), dtype=torch.int32,
+                                  device=device)
+        self.out = self.result[:, :span]
+        self.accepted = self.result[:, span]
+        self.host = HostRing((num_slots, span + 1), torch.int32, device, ring)
+        # Value signatures of what temps, tables and aids hold.
+        self.sigs: Dict[str, tuple] = {}
 
 
 class StepGraphs:

@@ -5,14 +5,17 @@ request and response JSON:
 
   GET  /health    → 200 {"status": "ok"} once the engine is warm (plus
                     "adapters": {"capacity", "resident"} with
-                    --max-adapters)
+                    --max-adapters, and "tier_load" once a request named
+                    a tier other than "standard"); 503 + Retry-After
+                    while draining
   GET  /metrics   → Prometheus text exposition (engine TTFT/TPOT
                     histograms, queue depth, prefix-cache and pool
                     counters, HTTP latency and status per route)
   POST /generate  → {"prompt_ids": [[...]] | "prompt": "text" | [...],
                      "max_new_tokens": N, "temperature": T,
                      "timeout_s": S (optional), "adapter": name
-                     (optional), "stream": true (optional)}
+                     (optional), "priority": "interactive" | "standard"
+                     | "batch" (optional), "stream": true (optional)}
                     ⇒ {"token_ids": [[...]], "text": [...],
                        "stats": [...]}; with "stream": true (one
                     prompt) server-sent events {"token_id", "text_delta"}
@@ -27,20 +30,31 @@ request and response JSON:
   DELETE /adapters/{name} → unregister; 409 while in-flight requests pin
                     it, 404 when unknown
   GET  /adapters  → registry / residency / refcount snapshot
+  POST /preempt   {"deadline_s": S (optional)}: the preemption notice —
+                    stop admitting, drain in-flight work within S seconds
+                    (--preempt-drain-timeout by default) ⇒ {"status":
+                    "drained", "drained": bool, "export": null}; while
+                    already draining {"status": "already-draining"}
 
 Text goes through the built-in byte-level tokenizer (ids 0-255 = bytes).
 Every prompt of a request goes straight into the continuous-batching
 engine's queue, so concurrent requests share decode ticks, whatever
 adapter each names. Overload, drain and a full adapter pool shed with
-503 + Retry-After (429 on the OpenAI routes); an expired deadline is
-504; an unknown adapter is 400. SLO tiers are not ported: a `priority`
-other than "standard" is a 400. A client that leaves a stream cancels
-its request, which frees its slot.
+503 + Retry-After (429 on the OpenAI routes); a deadline the tier's
+queue makes unmeetable sheds at submit with 429 + Retry-After; an
+expired deadline is 504; an unknown adapter or tier is 400. A client
+that leaves a stream cancels its request, which frees its slot.
+
+SIGTERM drains as the reference does: /health turns 503 + Retry-After
+at once and new requests shed, the engine finishes in-flight work
+within --drain-timeout off the event loop, then the process exits 0. A
+second SIGTERM waits for the same drain's outcome and exits. POST
+/preempt runs the same run-once drain.
 
 Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         --paged-block-size 16 --prefill-chunk 256 --num-slots 8 \\
         [--prefix-cache 16] [--top-k K] [--top-p P] \\
-        [--async-depth 1] [--decode-chunk 4] \\
+        [--async-depth 1] [--decode-chunk 4] [--speculative 4] \\
         [--kv-quant int8] [--max-adapters 4 --adapter-rank 16 \\
          --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down]
 The engine runs on CUDA unless --device cpu is given. On CUDA every decode
@@ -54,6 +68,7 @@ import asyncio
 import json
 import logging
 import os
+import signal
 import socket
 import sys
 import threading
@@ -83,6 +98,10 @@ _SHED_TOTAL = obs.counter(
 _DRAINING_GAUGE = obs.gauge(
     'skytpu_server_draining',
     '1 while the server drains for shutdown, else 0')
+_PREEMPT_NOTICES = obs.counter(
+    'skytpu_server_preempt_notices_total',
+    'Preemption notices handled (POST /preempt or SIGTERM-with-'
+    'deadline)')
 
 
 def _timed(route: str, handler):
@@ -143,6 +162,8 @@ class InferenceServer:
                  adapter_targets: str = '',
                  async_depth: int = 0,
                  decode_chunk: int = 1,
+                 speculative: int = 0,
+                 preempt_drain_timeout: float = 10.0,
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
@@ -156,9 +177,14 @@ class InferenceServer:
             max_adapters=max_adapters, adapter_rank=adapter_rank,
             adapter_alpha=adapter_alpha, adapter_targets=adapter_targets,
             async_depth=async_depth, decode_chunk=decode_chunk,
-            device=device)
+            speculative=speculative, device=device)
         self.ready = False
         self.draining = False
+        self.preempt_drain_timeout = preempt_drain_timeout
+        # The preemption notice body runs once; later notices (a second
+        # SIGTERM, a /preempt racing one) get its cached outcome.
+        self._notice_lock = threading.Lock()
+        self._notice_result: Optional[dict] = None
 
     # -- handlers --
 
@@ -174,6 +200,8 @@ class InferenceServer:
             info = self.engine.adapters_info()
             payload['adapters'] = {'capacity': info['capacity'],
                                    'resident': info['resident']}
+        if self.engine.tiers_active:
+            payload['tier_load'] = self.engine.tier_load()
         return web.json_response(payload)
 
     async def handle_metrics(self, request: web.Request) -> web.Response:
@@ -185,24 +213,20 @@ class InferenceServer:
 
     @staticmethod
     def _unavailable(message: str, retry_after: int = 1,
-                     reason: str = 'overloaded') -> web.Response:
+                     reason: str = 'overloaded',
+                     status: int = 503) -> web.Response:
         _SHED_TOTAL.labels(reason=reason).inc()
-        return web.json_response({'error': message}, status=503,
+        return web.json_response({'error': message}, status=status,
                                  headers={'Retry-After': str(retry_after)})
 
     @staticmethod
-    def _tenant_fields(data: dict) -> Optional[str]:
-        """The request's adapter name (or None). Raises ValueError (→ 400)
-        on a malformed adapter and on a priority tier: SLO tiers are not
-        ported, every request is 'standard'."""
+    def _tenant_fields(data: dict) -> tuple:
+        """(adapter name or None, SLO tier). Raises ValueError (→ 400) on
+        a malformed adapter or an unknown tier."""
         adapter = data.get('adapter')
         if adapter is not None and not isinstance(adapter, str):
             raise ValueError('adapter must be a string name')
-        priority = data.get('priority') or 'standard'
-        if priority != 'standard':
-            raise ValueError(f'priority {priority!r}: SLO tiers are not '
-                             f"ported; every request is 'standard'")
-        return adapter
+        return adapter, tenancy.validate_tier(data.get('priority'))
 
     @staticmethod
     def _deadline_for(data: dict) -> Optional[float]:
@@ -215,14 +239,17 @@ class InferenceServer:
         return time.time() + float(timeout)
 
     def _submit_one(self, ids: List[int], max_new: int, temperature: float,
-                    deadline: Optional[float], adapter: Optional[str],
+                    deadline: Optional[float], tenant: tuple,
                     on_token=None):
+        """Submit one prompt; `tenant` is (adapter, tier)."""
         max_seq = self.engine.cfg.max_seq_len
         if len(ids) + max_new > max_seq:
             ids = ids[-(max_seq - max_new):]
+        adapter, priority = tenant
         return self.engine.submit(ids, max_new_tokens=max_new,
                                   temperature=temperature, deadline=deadline,
-                                  adapter=adapter, on_token=on_token)
+                                  adapter=adapter, on_token=on_token,
+                                  priority=priority)
 
     @staticmethod
     def _cancel_all(futures) -> None:
@@ -267,14 +294,17 @@ class InferenceServer:
             max_new = int(data.get('max_new_tokens', 32))
             temperature = float(data.get('temperature', 0.0))
             deadline = self._deadline_for(data)
-            adapter = self._tenant_fields(data)
+            tenant = self._tenant_fields(data)
             for ids in prompts:
                 futures.append(self._submit_one(list(ids), max_new,
                                                 temperature, deadline,
-                                                adapter))
+                                                tenant))
         except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
             self._cancel_all(futures)
             return web.json_response({'error': str(e)}, status=400)
+        except exceptions.TierDeadlineUnmeetableError as e:
+            self._cancel_all(futures)
+            return self._unavailable(str(e), status=429, reason='deadline')
         except exceptions.EngineDrainingError as e:
             self._cancel_all(futures)
             return self._unavailable(str(e), retry_after=5,
@@ -312,11 +342,13 @@ class InferenceServer:
             max_new = int(data.get('max_new_tokens', 32))
             temperature = float(data.get('temperature', 0.0))
             deadline = self._deadline_for(data)
-            adapter = self._tenant_fields(data)
+            tenant = self._tenant_fields(data)
             tokens, future = self._token_stream(
-                list(prompts[0]), max_new, temperature, deadline, adapter)
+                list(prompts[0]), max_new, temperature, deadline, tenant)
         except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
             return web.json_response({'error': str(e)}, status=400)
+        except exceptions.TierDeadlineUnmeetableError as e:
+            return self._unavailable(str(e), status=429, reason='deadline')
         except exceptions.EngineDrainingError as e:
             return self._unavailable(str(e), retry_after=5,
                                      reason='draining')
@@ -348,7 +380,7 @@ class InferenceServer:
 
     def _token_stream(self, ids: List[int], max_new: int,
                       temperature: float, deadline: Optional[float] = None,
-                      adapter: Optional[str] = None):
+                      tenant: tuple = (None, 'standard')):
         """(async iterable of tokens, future): the engine thread's tokens
         bridged onto this event loop; the iterable ends at the engine's
         None sentinel, sent after the future resolves."""
@@ -359,7 +391,7 @@ class InferenceServer:
             loop.call_soon_threadsafe(queue.put_nowait, tok)
 
         future = self._submit_one(ids, max_new, temperature, deadline,
-                                  adapter, on_token=on_token)
+                                  tenant, on_token=on_token)
 
         async def tokens():
             while True:
@@ -533,20 +565,24 @@ class InferenceServer:
             max_new = int(data.get('max_tokens') or 16)
             temperature = float(data.get('temperature') or 0.0)
             deadline = self._deadline_for(data)
-            adapter = self._tenant_fields(data)
+            tenant = self._tenant_fields(data)
             if data.get('stream'):
                 if len(prompt_ids) != 1:
                     return self._openai_error(
                         'stream=true takes exactly one prompt')
                 return await self._stream_openai(
                     request, data, prompt_ids[0], max_new, temperature,
-                    deadline, adapter, chat=False)
+                    deadline, tenant, chat=False)
             for ids in prompt_ids:
                 futures.append(self._submit_one(ids, max_new, temperature,
-                                                deadline, adapter))
+                                                deadline, tenant))
         except (TypeError, ValueError, exceptions.UnknownAdapterError) as e:
             self._cancel_all(futures)
             return self._openai_error(str(e))
+        except exceptions.TierDeadlineUnmeetableError as e:
+            self._cancel_all(futures)
+            return self._openai_error(str(e), status=429, retry_after=1,
+                                      shed_reason='deadline')
         except exceptions.EngineDrainingError as e:
             self._cancel_all(futures)
             return self._openai_error(str(e), status=503, retry_after=5,
@@ -585,7 +621,7 @@ class InferenceServer:
         })
 
     async def _stream_openai(self, request, data, ids, max_new, temperature,
-                             deadline, adapter,
+                             deadline, tenant,
                              chat: bool) -> web.StreamResponse:
         """OpenAI SSE chunks closed by `data: [DONE]`: text-completion
         chunks, or (chat) a role chunk, then content deltas. A failure
@@ -613,7 +649,7 @@ class InferenceServer:
                                      'finish_reason': finish}]}
 
         tokens, future = self._token_stream(ids, max_new, temperature,
-                                            deadline, adapter)
+                                            deadline, tenant)
         push, flush = self._delta_decoder()
         try:
             # Inside the try: a client that leaves during prepare still
@@ -660,16 +696,19 @@ class InferenceServer:
             max_new = int(data.get('max_tokens') or 16)
             temperature = float(data.get('temperature') or 0.0)
             deadline = self._deadline_for(data)
-            adapter = self._tenant_fields(data)
+            tenant = self._tenant_fields(data)
             if data.get('stream'):
                 return await self._stream_openai(
                     request, data, ids, max_new, temperature, deadline,
-                    adapter, chat=True)
+                    tenant, chat=True)
             future = self._submit_one(ids, max_new, temperature, deadline,
-                                      adapter)
+                                      tenant)
         except (TypeError, ValueError, AttributeError,
                 exceptions.UnknownAdapterError) as e:
             return self._openai_error(str(e))
+        except exceptions.TierDeadlineUnmeetableError as e:
+            return self._openai_error(str(e), status=429, retry_after=1,
+                                      shed_reason='deadline')
         except exceptions.EngineDrainingError as e:
             return self._openai_error(str(e), status=503, retry_after=5,
                                       shed_reason='draining')
@@ -757,6 +796,51 @@ class InferenceServer:
         del request
         return web.json_response(self.engine.adapters_info())
 
+    # -- preemption notice and drain --
+
+    def _drain_and_export(self, budget_s: float) -> dict:
+        """The run-once notice body (off the event loop): drain the
+        engine within `budget_s`. Later notices get the cached outcome;
+        one arriving mid-drain waits for it. Prefix export is not ported,
+        so `export` is always None (the reference's answer without a
+        prefix store)."""
+        with self._notice_lock:
+            if self._notice_result is None:
+                _PREEMPT_NOTICES.inc()
+                self._notice_result = {
+                    'drained': self.engine.drain(timeout=max(0.1, budget_s)),
+                    'export': None}
+            return dict(self._notice_result)
+
+    async def handle_preempt(self, request: web.Request) -> web.Response:
+        """POST /preempt, the preemption-notice hook: stop admitting
+        now, drain within the notice budget, answer with the outcome.
+        The process stays up; /health answers 503 from here on."""
+        try:
+            data = await request.json()
+        except Exception:  # pylint: disable=broad-except
+            data = {}
+        if not isinstance(data, dict):
+            return web.json_response(
+                {'error': 'body must be a JSON object'}, status=400)
+        raw = data.get('deadline_s')
+        try:
+            # None: the default; 0, negative or not a number: 400.
+            budget = (self.preempt_drain_timeout if raw is None
+                      else float(raw))
+            if budget <= 0:
+                raise ValueError('deadline_s must be > 0')
+        except (TypeError, ValueError) as e:
+            return web.json_response({'error': str(e)}, status=400)
+        if self.draining:
+            return web.json_response({'status': 'already-draining'})
+        self.draining = True
+        _DRAINING_GAUGE.set(1)
+        result = await asyncio.get_running_loop().run_in_executor(
+            None, self._drain_and_export, budget)
+        result['status'] = 'drained'
+        return web.json_response(result)
+
     def warmup(self) -> None:
         t0 = time.monotonic()
         self.engine.generate([1, 2, 3], max_new_tokens=4, timeout=600.0)
@@ -778,7 +862,8 @@ class InferenceServer:
                 ('GET', '/adapters', self.handle_adapters),
                 ('POST', '/v1/completions', self.handle_v1_completions),
                 ('POST', '/v1/chat/completions', self.handle_v1_chat),
-                ('GET', '/v1/models', self.handle_v1_models)):
+                ('GET', '/v1/models', self.handle_v1_models),
+                ('POST', '/preempt', self.handle_preempt)):
             app.router.add_route(method, route, _timed(route, handler))
         return app
 
@@ -872,6 +957,13 @@ def main(argv=None) -> int:
                              'request awaits admission (>1 cuts host '
                              'round trips; admission latency bounded by '
                              'one chunk)')
+    parser.add_argument('--speculative', type=int, default=0,
+                        help='prompt-lookup speculative decoding: draft '
+                             'K tokens per tick by n-gram lookup in the '
+                             'request context, verify in one forward — '
+                             'accepted drafts save decode dispatches; '
+                             'greedy output is unchanged (exact). '
+                             'Takes precedence over --decode-chunk.')
     parser.add_argument('--async-depth', type=int, default=0,
                         help='async decode pipeline: a ring of N '
                              'in-flight decode dispatches, each '
@@ -899,6 +991,14 @@ def main(argv=None) -> int:
     parser.add_argument('--adapter-targets', default='',
                         help="projections adapters touch, comma tokens of "
                              "q,k,v,o,gate,up,down (default 'q,v')")
+    parser.add_argument('--drain-timeout', type=float, default=30.0,
+                        help='graceful shutdown (SIGTERM): stop '
+                             'admitting, wait up to this long for '
+                             'in-flight requests, then exit')
+    parser.add_argument('--preempt-drain-timeout', type=float,
+                        default=10.0,
+                        help='drain budget of POST /preempt when the '
+                             'notice names no deadline_s')
     parser.add_argument('--device', default='cuda',
                         help="torch device; 'cuda' (default) raises when "
                              'no GPU is present')
@@ -918,13 +1018,60 @@ def main(argv=None) -> int:
                              adapter_targets=args.adapter_targets,
                              async_depth=args.async_depth,
                              decode_chunk=args.decode_chunk,
+                             speculative=args.speculative,
+                             preempt_drain_timeout=args.preempt_drain_timeout,
                              device=args.device)
     server.warmup()
-    try:
-        web.run_app(server.make_app(), host='0.0.0.0', port=args.port)
-    finally:
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+    exit_scheduled = threading.Event()
+
+    def graceful_exit():
+        raise web.GracefulExit()
+
+    def schedule_exit():
+        if not exit_scheduled.is_set():
+            exit_scheduled.set()
+            loop.call_soon_threadsafe(graceful_exit)
+
+    def drain_and_exit():
+        # SIGTERM is a preemption notice: the same drain as POST
+        # /preempt, then exit.
+        logger.info('SIGTERM: draining (finishing in-flight requests, '
+                    'budget %.0fs)...', args.drain_timeout)
+        result = server._drain_and_export(args.drain_timeout)  # pylint: disable=protected-access
+        logger.info('drain %s; shutting down.',
+                    'complete' if result['drained'] else 'timed out')
+        schedule_exit()
+
+    def await_notice_then_exit():
+        # Already draining: the run-once body returns a finished
+        # notice's outcome, waits for one mid-flight, or runs the drain
+        # here. Then always exit: the signal is never swallowed.
+        server._drain_and_export(args.drain_timeout)  # pylint: disable=protected-access
+        schedule_exit()
+
+    def on_sigterm(signum, frame):
+        del signum, frame
+        if server.draining:
+            threading.Thread(target=await_notice_then_exit, daemon=True,
+                             name='drain-exit').start()
+            return
         server.draining = True
-        server.engine.drain(timeout=30.0)
+        _DRAINING_GAUGE.set(1)
+        threading.Thread(target=drain_and_exit, daemon=True,
+                         name='drain').start()
+
+    signal.signal(signal.SIGTERM, on_sigterm)
+    try:
+        web.run_app(server.make_app(), host='0.0.0.0', port=args.port,
+                    handle_signals=False, loop=loop)
+    finally:
+        # Any other way out (Ctrl-C, an error) drains too; after a
+        # SIGTERM drain the run-once body returns its outcome at once.
+        server.draining = True
+        _DRAINING_GAUGE.set(1)
+        server._drain_and_export(args.drain_timeout)  # pylint: disable=protected-access
     return 0
 
 

@@ -1256,3 +1256,157 @@ def test_cow_then_hit_chunk_equals_cold_chunk(kv_quant):
                                            atol=tol, rtol=tol)
     finally:
         engine.stop()
+
+
+# ------------------------------------------ the speculative verify's shapes
+#
+# A verify tick runs kernels 1/2 at T = K+1 query rows a slot on the decode
+# route (llama3-8b: n_rep 4, so (K+1) * 4 grouped rows under 64) and kernel
+# 7 at x (8, K+1, IN). B 8, KV 8, D 128, blocks of 16, 8192 keys; rows
+# straddle the 256-key (128 over int8) split boundaries; the last row is
+# inert (position 0, an all-scratch table).
+
+_VERIFY_STARTS = (0, 250, 1020, 3000, 4093, 6000, 8180, None)
+
+
+def _verify_case(span, kv_quant, seed):
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    bs, bps, kv_heads = 16, 512, 8
+    num_blocks = 8 * bps + 1
+    q = torch.randn((8, span, kv_heads * 4, 128), generator=gen,
+                    device='cuda')
+    kp = torch.randn((num_blocks, bs, kv_heads, 128), generator=gen,
+                     device='cuda')
+    vp = torch.randn((num_blocks, bs, kv_heads, 128), generator=gen,
+                     device='cuda')
+    perm = (torch.randperm(num_blocks - 1, generator=gen, device='cuda')
+            + 1).cpu()
+    tables = torch.zeros((8, bps), dtype=torch.int32)
+    pos = torch.zeros((8, span), dtype=torch.int32)
+    for row, start in enumerate(_VERIFY_STARTS):
+        if start is None:
+            continue
+        start = min(start, bps * bs - span)
+        pos[row] = torch.arange(start, start + span)
+        need = (start + span - 1) // bs + 1
+        tables[row, :need] = perm[row * bps:row * bps + need]
+    q, kp, vp, scales = _pools_of(q, kp, vp, kv_quant)
+    return (q, kp, vp, tables.cuda(), pos.cuda()), scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [False, True], ids=['bf16', 'int8'])
+@pytest.mark.parametrize('span', [5, 9])
+def test_verify_span_kernel_matches_plain(span, kv_quant):
+    _need_gpu()
+    args, scales = _verify_case(span, kv_quant, seed=span)
+    assert pa.kernel_route(torch.bfloat16, 128, span * 4) == 'decode'
+    counter = 'int8_launches' if kv_quant else 'launches'
+    before = getattr(pa.paged_decode_attention, counter)
+    _held_bf16(args, scales)
+    assert getattr(pa.paged_decode_attention, counter) == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [False, True], ids=['bf16', 'int8'])
+@pytest.mark.parametrize('span', [5, 9])
+def test_verify_rows_equal_their_t1_calls(span, kv_quant):
+    """Each row of a verify span gets, bit for bit, the attention the same
+    query gets alone at T = 1 over the same pools: the decode-route
+    analogue of test_chunk_rows_do_not_depend_on_their_place."""
+    _need_gpu()
+    (q, kp, vp, tables, pos), scales = _verify_case(span, kv_quant,
+                                                    seed=10 + span)
+    out = pa.paged_decode_attention(q, kp, vp, tables, pos, **scales)
+    for t in range(span):
+        alone = pa.paged_decode_attention(
+            q[:, t:t + 1].contiguous(), kp, vp, tables,
+            pos[:, t:t + 1].contiguous(), **scales)
+        assert torch.equal(alone[:7, 0], out[:7, t]), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('span', [5, 9])
+@pytest.mark.parametrize('name', sorted(_LORA_GROUPS))
+def test_lora_group_at_the_verify_shape(name, span):
+    """Kernel 7 at x (8, K+1, IN) with adapter slots spread over 0-4:
+    against the plain composition, reruns and a row alone bit-identical,
+    on the route plan(K+1) names."""
+    _need_gpu()
+    group, stacks, offsets, x, y0, ids = _lora_group_case(
+        name, 8, span, 16, 5, torch.bfloat16, seed=span,
+        ids=[0, 1, 2, 3, 4, 1, 0, 2])
+    assert group.plan(span)[0] == 'cuda_cores'
+    out = group(x, y0.clone(), ids)
+    ref = _lora_composition(stacks, offsets, x, y0, ids)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(out, group(x, y0.clone(), ids))
+    for row in range(8):
+        alone = group(x[row:row + 1].contiguous(), y0[row:row + 1].clone(),
+                      ids[row:row + 1].contiguous())
+        assert torch.equal(alone, out[row:row + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sampling', [False, True], ids=['greedy', 'mixed'])
+@pytest.mark.parametrize('case', sorted(_GRAPH_CASES))
+def test_verify_graph_equals_eager_verify(case, sampling):
+    """A replay of the ('verify', K, sampling) graph gives the eager
+    `_verify_impl`'s columns and accepted counts (greedy rows; a sampling
+    row accepts 0) and leaves the pools as the eager step does; each
+    replay adds one launch a layer (x 4 LoRA groups)."""
+    _need_gpu()
+    dtype, kv_quant, adapters = _GRAPH_CASES[case]
+    engine = _graph_engine(dtype, kv_quant, adapters)
+    k = 4
+    try:
+        with torch.inference_mode():
+            saved = [t.clone() for t in _pools(engine)]
+            inputs = _stage_decode(engine, [5, 40, None, 130])
+            tokens = torch.cat([inputs['tokens'], torch.tensor(
+                [[3, 1, 4, 1], [5, 9, 2, 6], [0, 0, 0, 0], [5, 3, 5, 8]],
+                dtype=torch.int32, device='cuda')], dim=1)
+            positions = inputs['positions'] + torch.arange(
+                k + 1, dtype=torch.int32, device='cuda')
+            temps = torch.tensor([0.0, 0.9 if sampling else 0.0, 0.0, 0.0],
+                                 device='cuda')
+            eager_out, eager_acc = engine._verify_impl(  # pylint: disable=protected-access
+                tokens, positions, temps, inputs['tables'], False,
+                inputs['aids'])
+            after_eager = [t.clone() for t in _pools(engine)]
+            v = engine._verify_buffers(k)  # pylint: disable=protected-access
+            v.feed.put(np.stack([tokens.cpu().numpy(),
+                                 positions.cpu().numpy()]))
+            v.tables.put(inputs['tables'].cpu().numpy())
+            v.temps.put(temps.cpu().numpy())
+            if v.aids is not None:
+                v.aids.put(inputs['aids'].cpu().numpy())
+            for _ in range(2):       # the capture, then a replay
+                for t, s in zip(_pools(engine), saved):
+                    t.copy_(s)
+                counts = (pa.paged_decode_attention.launches,
+                          pa.paged_decode_attention.int8_launches,
+                          fl.fused_multi_lora.launches)
+                got = engine._run_verify(k, sampling).result()  # pylint: disable=protected-access
+            layers = engine.cfg.num_layers
+            assert (pa.paged_decode_attention.launches - counts[0],
+                    pa.paged_decode_attention.int8_launches - counts[1],
+                    fl.fused_multi_lora.launches - counts[2]) == (
+                (0 if kv_quant else layers), (layers if kv_quant else 0),
+                (layers * 4 if adapters else 0))
+            assert ('verify', k, sampling) in engine._steps.keys  # pylint: disable=protected-access
+            want = eager_out.cpu().numpy()
+            acc = eager_acc.cpu().numpy()
+            if sampling:
+                acc[1] = 0
+                assert (got[[0, 2, 3], :k + 1] == want[[0, 2, 3]]).all()
+                assert (got[1, 1:k + 1] == want[1, 1:]).all()
+            else:
+                assert (got[:, :k + 1] == want).all()
+            assert (got[:, k + 1] == acc).all()
+            for t, s in zip(_pools(engine), after_eager):
+                assert torch.equal(t, s)
+    finally:
+        engine.stop()

@@ -2,7 +2,10 @@
 chip_smoke.py, imports jax, flax or anything of the JAX package — not
 even its jax-free modules. Two pins: a subprocess that imports every port
 module (and chip_smoke.py's module body) with jax and skypilot_tpu
-blocked, and an AST scan of every import statement in those files.
+blocked, and an AST scan of every import statement in those files. The
+port's own copy of a jax-free reference module keeps the reference's
+code: serve/tenancy/scheduling.py is pinned equal to the reference's,
+its module docstring aside.
 """
 import ast
 import os
@@ -64,6 +67,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.ops.fused_lora',
                 'skypilot_tpu_torch.serve.tenancy',
                 'skypilot_tpu_torch.serve.tenancy.adapter_pool',
+                'skypilot_tpu_torch.serve.tenancy.scheduling',
                 'skypilot_tpu_torch.observability',
                 'skypilot_tpu_torch.observability.metrics',
                 'skypilot_tpu_torch.observability.exposition'):
@@ -95,3 +99,20 @@ def test_no_port_file_names_jax_in_an_import(path):
         root = name.split('.')[0]
         assert root not in ('jax', 'flax', 'skypilot_tpu'), (
             f'{os.path.relpath(path, _REPO)} imports {name}')
+
+
+def _code_without_docstring(path):
+    tree = ast.parse(open(path, encoding='utf-8').read(), filename=path)
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and isinstance(
+            getattr(body[0], 'value', None), ast.Constant):
+        body = body[1:]
+    return [ast.dump(node) for node in body]
+
+
+def test_scheduling_copy_equals_the_reference():
+    rel = os.path.join('serve', 'tenancy', 'scheduling.py')
+    port = _code_without_docstring(os.path.join(_PKG, rel))
+    reference = _code_without_docstring(
+        os.path.join(_REPO, 'skypilot_tpu', rel))
+    assert port == reference

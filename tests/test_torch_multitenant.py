@@ -467,7 +467,7 @@ def test_http_adapter_routes(tmp_path, adapter_trees, references):
         assert status == 200 and body['token_ids'] == [refs['ad0']]
         for bad in ({'prompt_ids': [PROMPT], 'adapter': 'nope'},
                     {'prompt_ids': [PROMPT], 'adapter': 3},
-                    {'prompt_ids': [PROMPT], 'priority': 'interactive'}):
+                    {'prompt_ids': [PROMPT], 'priority': 'gold'}):
             assert _call(url + '/generate', 'POST', bad)[0] == 400, bad
         assert _call(url + '/adapters/load', 'POST', {'name': 'x'})[0] == 400
         assert _call(url + '/adapters/load', 'POST',

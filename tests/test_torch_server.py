@@ -169,7 +169,7 @@ def test_sse_tokens_equal_reference_and_deltas_concatenate(live):
     {'prompt_ids': [[1, 2]], 'max_new_tokens': 'many', 'stream': True},
     {'prompt_ids': [[]], 'stream': True},
     {'prompt_ids': [[1, 2]], 'timeout_s': -1, 'stream': True},
-    {'prompt_ids': [[1, 2]], 'priority': 'interactive', 'stream': True}])
+    {'prompt_ids': [[1, 2]], 'priority': 'gold', 'stream': True}])
 def test_stream_refusals_come_before_the_stream(live, body):
     """The reference's 400s (more than one prompt, bad fields) are JSON
     answers: no stream opens."""
@@ -238,10 +238,19 @@ PORTED_METRICS = {
         'skytpu_engine_paged_int8_bytes_saved',
         'skytpu_engine_dispatch_ahead_depth',
         'skytpu_engine_tick_host_gap_seconds',
-        'skytpu_engine_dispatch_ahead'),
+        'skytpu_engine_dispatch_ahead',
+        'skytpu_engine_spec_drafted_total',
+        'skytpu_engine_spec_accepted_total',
+        'skytpu_engine_spec_paged_accepted_total',
+        'skytpu_engine_tier_queue_depth',
+        'skytpu_engine_tier_ttft_seconds',
+        'skytpu_engine_tier_requests_total',
+        'skytpu_engine_tier_deadline_shed_total',
+        'skytpu_engine_slot_preempts_total'),
     'skypilot_tpu.serve.server': (
         'skytpu_server_request_seconds', 'skytpu_server_requests_total',
-        'skytpu_server_shed_total', 'skytpu_server_draining'),
+        'skytpu_server_shed_total', 'skytpu_server_draining',
+        'skytpu_server_preempt_notices_total'),
 }
 
 
