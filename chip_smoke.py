@@ -13,6 +13,10 @@ the flash dQ and dK/dV kernels backward).
     python3 chip_smoke.py                    # every phase; needs one card
     python3 chip_smoke.py --phases flash     # a subset, comma-separated
 
+It also serves the reference's other dense families (families), a
+qwen2-7b HF checkpoint the port wrote (serve_hf) and llama3-8b with int8
+weights (serve_int8w).
+
 Phases, in this order (any failure exits non-zero; nothing is caught
 and passed over):
   device:   require CUDA; print the card's name and power limit.
@@ -180,6 +184,33 @@ and passed over):
             yardstick on the same engine (`_prefill_chunk_impl` chunk by
             chunk, then `_decode_impl` over all 8 rows): greedy tokens
             equal.
+  families: the reference's other dense families at full width and 2
+            layers (gpt2-1.5b at its full 48), bf16 in the paged engine
+            as CUDA-graph steps: gemma-7b, gemma2-9b (softcaps: the 'xla'
+            route), mistral-7b (a 4400-token prompt past its 4096-key
+            window), qwen2-7b (n_rep 7), falcon-7b (MQA, n_rep 71),
+            gpt2-1.5b and phi-2 (head_dim 80: the 'xla' route); 4 greedy
+            requests each, launch formulas exact. Kernel-route families:
+            a chunk's bf16 logits within FAMILY_LOGIT_TOL of the plain
+            route on the same weights, fp32 greedy tokens equal on the
+            two routes; 'xla' families: fp32 greedy tokens equal to the
+            CPU engine's.
+  serve_hf: qwen2-7b at full width and depth, seeded random bf16
+            weights, behind the HTTP server (serve's 8 prompts), exported
+            with the port's export_hf_checkpoint as sharded safetensors
+            to a temporary directory, then served again through
+            hf_model_path: greedy tokens equal, launches exact; load
+            time, TTFT p50, decode tokens/s; the directory deleted.
+  serve_int8w: first llama3-8b cut to 2 layers with int8 weights: a
+            chunk's bf16 logits within INT8W_LOGIT_TOL of the same int8
+            state in fp32. Then llama3-8b at full size with
+            quantize='int8' over HTTP, serve's bodies at async depth 0, 1, 1, 0: answers, tokens
+            equal across runs, launches exact, the pool at rest; weight
+            bytes beside bf16's; the graph decode step beside serve's
+            bf16 step of the same run.
+  The kernels and kernels_int8 phases also hold kernels 1 and 2 at the
+  families' shapes (FAMILY_SHAPES: n_rep 7 and 71, head_dim 64 and 256,
+  T 1 and 256, the 4096-key window at positions to 8190) and time them.
 Then: the {"kernels": [...]} line, the nvidia-smi line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -311,20 +342,25 @@ def _pool_case(torch, dtype, batch, cur_len, positions, seed, num_blocks,
     return (q, k_pool, v_pool, tables.cuda(), pos.cuda(), bps)
 
 
-def _bound(q, kv_heads, pos, bps, dtype_name, token_bytes) -> tuple:
+def _bound(q, kv_heads, pos, bps, dtype_name, token_bytes,
+           window=0) -> tuple:
     """(bound_ms, bound_by): bytes each input read once and the output
     written once, counting only the K/V tokens each row can see
     (`token_bytes` per token and kv head: K and V rows, plus their scale
     rows under int8), vs the operations those visible keys need, over the
-    card's peaks."""
+    card's peaks. Under a window a query sees its last `window` keys, and
+    a row reads the keys from its first query's window to its last
+    query."""
     batch, cur_len, heads, head_dim = q.shape
     item = q.element_size()
     visible_tokens = 0                    # distinct K/V tokens read
     key_query_pairs = 0                   # (query, visible key) pairs
     for b in range(batch):
         p = pos[b].tolist()
-        visible_tokens += max(p) + 1
-        key_query_pairs += sum(x + 1 for x in p)
+        first = max(0, min(p) - window + 1) if window else 0
+        visible_tokens += max(p) + 1 - first
+        key_query_pairs += sum(min(x + 1, window) if window else x + 1
+                               for x in p)
     nbytes = (2 * q.numel() * item                         # q in, out
               + visible_tokens * kv_heads * token_bytes    # K, V (scales)
               + pos.numel() * 4 + batch * bps * 4)         # pos, tables
@@ -335,10 +371,11 @@ def _bound(q, kv_heads, pos, bps, dtype_name, token_bytes) -> tuple:
             'operations')
 
 
-def _library_ms(torch, case):
+def _library_ms(torch, case, window=0):
     """One PyTorch call computing the same attention: SDPA with GQA over
-    the window gathered beforehand (the gather is not timed), profiler
-    device time of its kernels, as the paged kernel is timed."""
+    the window gathered beforehand (the gather is not timed), the causal
+    mask and any sliding window in its boolean mask, profiler device time
+    of its kernels, as the paged kernel is timed."""
     import torch.nn.functional as F
     q, k_pool, v_pool, tables, pos, bps = case
     batch, cur_len, heads, head_dim = q.shape
@@ -347,8 +384,11 @@ def _library_ms(torch, case):
             torch.arange(bs, device='cuda')).reshape(batch, bps * bs)
     k_win = k_pool.reshape(nb * bs, kv_heads, head_dim)[gidx].transpose(1, 2)
     v_win = v_pool.reshape(nb * bs, kv_heads, head_dim)[gidx].transpose(1, 2)
-    k_pos = torch.arange(bps * bs, device='cuda')
-    mask = (k_pos[None, None, :] <= pos[:, :, None])[:, None]
+    k_pos = torch.arange(bps * bs, device='cuda')[None, None, :]
+    mask = k_pos <= pos[:, :, None]
+    if window:
+        mask &= pos[:, :, None] - k_pos < window
+    mask = mask[:, None]
     qt = q.transpose(1, 2)
     try:
         F.scaled_dot_product_attention(qt, k_win, v_win, attn_mask=mask,
@@ -610,6 +650,118 @@ def _prefix_cases(torch, pa, kv_quant=False) -> None:
         f'replay: bit-identical to the cold chunk')
 
 
+def _decode_rows(max_seq_len: int) -> list:
+    """A decode tick's rows (the last inert) at positions up to the
+    model's window end."""
+    return [[0], [7], [max_seq_len - 2], [300], [max_seq_len // 2], [650],
+            [max_seq_len // 2 + 97], [0]]
+
+
+# The dense families' shapes on kernels 1 and 2: (label, B, T, KV heads,
+# n_rep, head_dim, window, max_seq_len, per-row positions). Grouped rows
+# that are not a power of two (qwen2-7b n_rep 7: 1792 rows a chunk;
+# falcon-7b MQA n_rep 71: a decode step's 71 rows take the prefill route
+# with a ragged second tile), head_dim 64 on the prefill route (gpt2-1.5b,
+# falcon-7b), head_dim 256 (gemma-7b, the decode route at prefill too) and
+# mistral-7b's 4096-key window at positions up to 8190.
+FAMILY_SHAPES = (
+    ('qwen2-7b decode', 8, 1, 4, 7, 128, 0, 8192, _decode_rows(8192)),
+    ('qwen2-7b prefill', 1, 256, 4, 7, 128, 0, 8192,
+     [list(range(512, 768))]),
+    ('falcon-7b decode', 8, 1, 1, 71, 64, 0, 2048, _decode_rows(2048)),
+    ('falcon-7b prefill', 1, 256, 1, 71, 64, 0, 2048,
+     [list(range(512, 768))]),
+    ('gpt2-1.5b decode', 8, 1, 25, 1, 64, 0, 1024, _decode_rows(1024)),
+    ('gpt2-1.5b prefill', 1, 256, 25, 1, 64, 0, 1024,
+     [list(range(512, 768))]),
+    ('gemma-7b decode', 8, 1, 16, 1, 256, 0, 8192, _decode_rows(8192)),
+    ('gemma-7b prefill', 1, 256, 16, 1, 256, 0, 8192,
+     [list(range(512, 768))]),
+    ('mistral-7b decode w4096', 8, 1, 8, 4, 128, 4096, 8192,
+     _decode_rows(8192)),
+    ('mistral-7b prefill w4096', 1, 256, 8, 4, 128, 4096, 8192,
+     [list(range(7935, 8191))]))
+
+
+def _family_shape_cases(torch, pa, kv_quant=False) -> dict:
+    """Kernel 1 (or, with kv_quant, kernel 2: the same K/V quantized to
+    int8 with fp32 scale rows) at FAMILY_SHAPES: fp32 and bf16 queries
+    against the plain version (TOL), reruns bit-identical; at the
+    prefill shapes with n_rep > 1, rows shifted within their chunk
+    bit-identical (a row's bits must not depend on its place); bf16
+    timed (profiler device time) beside the plain version, the bound and
+    (bf16 pools) SDPA. Returns label → timings."""
+    from skypilot_tpu_torch.models.transformer import int8_quantize
+    pool = 'int8' if kv_quant else 'bf16'
+    results = {}
+    for i, (label, batch, cur_len, kv_heads, n_rep, dim, window, max_seq,
+            pos) in enumerate(FAMILY_SHAPES):
+        bps = max_seq // 16
+        case = _pool_case(torch, torch.float32, batch, cur_len, pos,
+                          seed=70 + i, num_blocks=batch * bps + 1,
+                          kv_heads=kv_heads, n_rep=n_rep, head_dim=dim,
+                          max_seq_len=max_seq)
+        q32, k_pool, v_pool, tables, positions, _ = case
+        scales = {}
+        if kv_quant:
+            (k_pool, ks), (v_pool, vs) = (int8_quantize(k_pool),
+                                          int8_quantize(v_pool))
+            scales = dict(k_scale=ks[..., None].contiguous(),
+                          v_scale=vs[..., None].contiguous())
+        route = pa.kernel_route(torch.bfloat16, dim, cur_len * n_rep)
+        what = (f'kernel {label} ({pool} pool, H {kv_heads * n_rep} / KV '
+                f'{kv_heads}, D {dim}, window {window}, route {route})')
+        for dtype_name in ('float32', 'bfloat16'):
+            q = q32.to(getattr(torch, dtype_name))
+            pools = ((k_pool, v_pool) if kv_quant else
+                     (k_pool.to(q.dtype), v_pool.to(q.dtype)))
+            args = (q, *pools, tables[:, :bps], positions)
+            out = pa.paged_decode_attention(*args, window=window, **scales)
+            again = pa.paged_decode_attention(*args, window=window,
+                                              **scales)
+            ref = pa.paged_decode_attention_plain(*args, window=window,
+                                                  **scales)
+            torch.cuda.synchronize()
+            err = _check_close(torch, f'{what} {dtype_name}', out, ref,
+                               TOL[dtype_name])
+            if not torch.equal(out, again):
+                fail(f'{what} {dtype_name}: two runs differ')
+            log(f'{what} {dtype_name}: max_abs_err={err:.3e}; rerun '
+                f'bit-identical')
+        if cur_len > 1 and n_rep > 1:
+            for shift in (1, 7, 37):
+                moved = torch.zeros_like(q)
+                moved[0, shift:] = q[0, :cur_len - shift]
+                got = pa.paged_decode_attention(
+                    moved, *pools, tables[:, :bps], positions - shift,
+                    window=window, **scales)
+                if not torch.equal(got[0, shift:], out[0, :cur_len - shift]):
+                    fail(f'{what}: rows shifted by {shift} in their chunk '
+                         f'differ from the unshifted rows')
+            log(f'{what}: rows shifted by 1, 7, 37 in their chunk '
+                f'bit-identical')
+        fn = lambda: pa.paged_decode_attention(*args, window=window,
+                                               **scales)
+        ms = device_ms(torch, fn)
+        plain_ms = cuda_ms(torch, lambda: pa.paged_decode_attention_plain(
+            *args, window=window, **scales), iters=3, warmup=1)
+        token_bytes = 2 * dim + 8 if kv_quant else 2 * dim * 2
+        bound_ms, bound_by = _bound(q, kv_heads, positions, bps, 'bfloat16',
+                                    token_bytes, window)
+        library_ms = (None if kv_quant else
+                      _library_ms(torch, (q, *pools, tables, positions,
+                                          bps), window))
+        results[label] = {'ms': ms, 'plain_ms': plain_ms,
+                          'bound_ms': bound_ms, 'bound_by': bound_by,
+                          'library_ms': library_ms}
+        log(f'{what} bf16 B={batch} T={cur_len}: kernel_ms={ms:.4f} '
+            f'(device) plain_ms={plain_ms:.4f} library_ms={library_ms} '
+            f'bound_ms={bound_ms:.4f} ({bound_by})')
+        del case, q, q32, k_pool, v_pool, pools, args, out, again, ref, scales
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(torch) -> dict:
     from skypilot_tpu_torch.ops import paged_attention as pa
     num_blocks = NUM_BLOCKS
@@ -678,8 +830,10 @@ def phase_kernels(torch) -> dict:
             torch.cuda.empty_cache()
     _route_cases(torch, pa)
     _prefix_cases(torch, pa)
+    shapes = _family_shape_cases(torch, pa)
     return {'max_abs_err': worst, **results['decode'],
-            **{name: results[name] for name, *_ in SERVE_CALLS[1:]}}
+            **{name: results[name] for name, *_ in SERVE_CALLS[1:]},
+            'family_shapes': shapes}
 
 
 def phase_kernels_int8(torch) -> dict:
@@ -775,8 +929,10 @@ def phase_kernels_int8(torch) -> dict:
             torch.cuda.empty_cache()
     _route_cases(torch, pa, kv_quant=True)
     _prefix_cases(torch, pa, kv_quant=True)
+    shapes = _family_shape_cases(torch, pa, kv_quant=True)
     return {'max_abs_err': worst, **results['decode'],
-            **{name: results[name] for name, *_ in SERVE_CALLS[1:]}}
+            **{name: results[name] for name, *_ in SERVE_CALLS[1:]},
+            'family_shapes': shapes}
 
 
 # ------------------------------------------------------------------ lora
@@ -1231,7 +1387,7 @@ def _breakdown_line(label: str, what: str, wall_ms: float, kernel_ms: float,
 
 
 def step_breakdown(torch, engine, smi: str, context: int = 700,
-                   verify_ks: tuple = ()) -> None:
+                   verify_ks: tuple = ()) -> dict:
     """Time the engine's device steps at the served shapes on the drained
     engine, eagerly (`_decode_impl`, `_prefill_chunk_impl`, `_verify_impl`,
     each ending in `.cpu()`) and as one replay of the engine's graph
@@ -1245,7 +1401,8 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
     profiler) beside the device time a torch.profiler trace attributes to
     CUDA kernels (5 steps); the difference is the device's idle share.
     Also the runtime's launch calls per step and, eagerly, the largest
-    kernels and host operators."""
+    kernels and host operators. Returns {(step, path): (host wall ms,
+    CUDA kernel ms)}."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1303,6 +1460,7 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
             chunk, tables[:1], 512, 255, chunk_aids).float().cpu(),
         ('prefill_chunk', 'graph'): graph_prefill,
     }
+    timings = {}
     with torch.inference_mode():
         # Each pair from the same pool state (the chunk writes row 0's
         # blocks at 512-767, which row 0's decode reads; a verify writes
@@ -1366,6 +1524,7 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
                          f'{cfg.lora_targets}')
             _breakdown_line(f'{name} {path}', what, wall_ms, kernel_ms / 5,
                             smi)
+            timings[name, path] = (wall_ms, kernel_ms / 5)
             log(f'  launch calls per step: {_launch_calls(events, 5)}; CUDA '
                 f'kernels x{sum(e.count for e in kernels) / 5:g}')
             if path == 'graph':
@@ -1411,6 +1570,7 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
     engine._forget_inputs()  # pylint: disable=protected-access
     for row in blocks:
         pool.release(row)
+    return timings
 
 
 def engine_windows(torch, engine, smi: str, label: str,
@@ -1506,16 +1666,20 @@ def _reset_serve_launches() -> None:
 
 def _expected_launches(engine, chunks: int, steps: int) -> dict:
     """The serving launch formulas: the paged kernel (its int8 route
-    under int8 KV) layers x (prefill chunks + decode steps), the fused
-    LoRA kernel that x the LoRA groups a layer."""
+    under int8 KV) layers x (prefill chunks + decode steps), none on the
+    'xla' route, the fused LoRA kernel layers x (chunks + steps) x the
+    LoRA groups a layer."""
     first = engine.model.layers[0]
     groups = sum(g is not None for g in (
         first.attn.lora_qkv, first.attn.lora_o, first.mlp.lora_gate_up,
         first.mlp.lora_down))
     n = engine.cfg.num_layers * (chunks + steps)
     int8 = bool(engine.cfg.kv_cache_quant)
-    return {'paged_decode_attention': 0 if int8 else n,
-            'paged_decode_attention_int8': n if int8 else 0,
+    # decode_kernel='xla' (a softcap, or a head_dim the kernel does not
+    # take) attends through the plain route: no paged launch.
+    paged = 0 if engine.decode_kernel == 'xla' else n
+    return {'paged_decode_attention': 0 if int8 else paged,
+            'paged_decode_attention_int8': paged if int8 else 0,
             'fused_multi_lora': n * groups}
 
 
@@ -1612,8 +1776,8 @@ def serve_in_turns(torch, engine, url: str, bodies, label: str, smi: str,
 def phase_serve(torch, smi: str) -> tuple:
     """llama3-8b at full width and depth over localhost HTTP at
     async_depth 1, then its step breakdown with the verify graphs of
-    SCHED_KS; returns the paged kernel's launches and the bf16 pool's
-    bytes."""
+    SCHED_KS; returns the paged kernel's launches, the bf16 pool's bytes
+    and the breakdown's timings."""
     from skypilot_tpu_torch.serve.server import (BackgroundServer,
                                                  InferenceServer)
     t0 = time.monotonic()
@@ -1665,8 +1829,8 @@ def phase_serve(torch, smi: str) -> tuple:
     if tuple(logits.shape) != (1, 16, cfg.vocab_size) or \
             not bool(torch.isfinite(logits.float()).all()):
         fail(f'llama3-8b logits not finite or misshapen: {logits.shape}')
-    step_breakdown(torch, engine, smi, verify_ks=SCHED_KS)
-    return run['launches']['paged_decode_attention'], pool_bytes
+    timings = step_breakdown(torch, engine, smi, verify_ks=SCHED_KS)
+    return run['launches']['paged_decode_attention'], pool_bytes, timings
 
 
 # ------------------------------------------------------------------ serve_sched
@@ -3598,10 +3762,406 @@ def phase_train_sp(torch, smi: str) -> int:
     return ring_launches
 
 
+# ----------------------------------------------------------------- families
+
+# The reference's other dense families at full width, 2 layers (gpt2-1.5b
+# at its full depth of 48), in the paged engine: (model, decode_kernel,
+# prompt lengths). gemma2-9b's softcap and phi-2's head_dim 80 take the
+# 'xla' route (the plain gather-and-attend), as the reference serves
+# them; mistral-7b's 4400-token prompt reaches past its 4096-key window.
+FAMILY_MODELS = (
+    ('gemma-7b', 'pallas', (20, 300, 700, 1000)),
+    ('gemma2-9b', 'xla', (20, 300, 700, 1000)),
+    ('mistral-7b', 'pallas', (20, 300, 4400, 700)),
+    ('qwen2-7b', 'pallas', (20, 300, 700, 1000)),
+    ('falcon-7b', 'pallas', (20, 300, 700, 1000)),
+    ('gpt2-1.5b', 'pallas', (20, 300, 700, 900)),
+    ('phi-2', 'xla', (20, 300, 700, 1000)))
+FAMILY_NEW = 16
+# bf16 logits, kernel route against the plain route on the same card and
+# weights: max abs difference over max |logit|. Only attention differs;
+# its bf16 output rounds otherwise (p rounded before or after
+# normalising), one bf16 step (2^-8) relative, through 2 layers.
+FAMILY_LOGIT_TOL = 3e-2
+
+
+def _family_engine(torch, cfg, route, dtype, params=None, device='cuda'):
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(
+        dataclasses.replace(cfg, dtype=dtype), params=params, num_slots=4,
+        paged_block_size=16, prefill_chunk=256, rng_seed=0,
+        decode_kernel=route, device=device)
+
+
+def _family_tokens(engine, prompts, new_tokens):
+    futures = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    out = [f.result(timeout=600) for f in futures]
+    if not engine.drain(timeout=120):
+        fail(f'{engine.cfg.name}: engine did not drain')
+    engine._pool.check()  # pylint: disable=protected-access
+    if engine._pool.used != 1:  # pylint: disable=protected-access
+        fail(f'{engine.cfg.name}: pool not at rest after the drain')
+    return [tokens for tokens, _ in out], [stats for _, stats in out]
+
+
+def _chunk_logits(torch, model, tokens):
+    """Logits of one prefill chunk at positions 0.. on fresh pools."""
+    cfg = model.cfg
+    n = tokens.shape[1]
+    blocks = -(-n // cfg.paged_block_size)
+    pools = model.new_kv_pool(blocks + 1)
+    tables = torch.zeros((1, cfg.max_seq_len // cfg.paged_block_size + 1),
+                         dtype=torch.int32, device=tokens.device)
+    tables[0, :blocks] = torch.arange(1, blocks + 1, dtype=torch.int32)
+    positions = torch.arange(n, dtype=torch.int32,
+                             device=tokens.device)[None]
+    with torch.inference_mode():
+        return model(tokens, positions, tables, *pools[:2]).float()
+
+
+# A plain-MLP family through multi-LoRA serving (kernel 7): all seven
+# targets, but its gate,up group holds up alone (no gate module).
+FAMILY_LORA = 'falcon-7b'
+
+
+def _family_lora(torch, cfg, prompts, smi) -> int:
+    """FAMILY_LORA with 2 resident adapters (rank 16, alpha 32, all seven
+    targets) and bf16 weights: base and adapter requests in one batch,
+    launch formulas exact with 4 groups a layer, the adapters changing
+    some output. Returns kernel 7's launches."""
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(
+        cfg, num_slots=4, paged_block_size=16, prefill_chunk=256,
+        rng_seed=0, max_adapters=2, adapter_rank=16, adapter_alpha=32.0,
+        adapter_targets='q,k,v,o,gate,up,down', device='cuda')
+    for i in range(2):
+        engine.load_adapter(f'ad{i}', random_adapter(engine.cfg, 20 + i))
+    engine.capture_graphs()
+    first = engine.model.layers[0]
+    if first.mlp.lora_gate_up.width != cfg.d_mlp:
+        fail(f'families {cfg.name}: the gate,up LoRA group is not up alone')
+    chunks0 = engine.paged_stats['prefill_chunks']
+    steps0 = engine.tick_stats['decode_steps']
+    _reset_serve_launches()
+    futures = [engine.submit(p, max_new_tokens=FAMILY_NEW, adapter=a)
+               for p, a in zip([prompts[0]] * 3 + [prompts[1]],
+                               (None, 'ad0', 'ad1', 'ad0'))]
+    tokens = [f.result(timeout=600)[0] for f in futures]
+    launches = _serve_launches()
+    expected = _expected_launches(
+        engine, engine.paged_stats['prefill_chunks'] - chunks0,
+        engine.tick_stats['decode_steps'] - steps0)
+    if not engine.drain(timeout=120):
+        fail(f'families {cfg.name} adapters: engine did not drain')
+    engine.stop()
+    if launches != expected or not launches['fused_multi_lora']:
+        fail(f'families {cfg.name} adapters: launches {launches} != '
+             f'{expected}')
+    if len({tuple(t) for t in tokens[:3]}) == 1:
+        fail(f'families {cfg.name} adapters: no adapter changed the output')
+    log(f'families {cfg.name} with 2 adapters on all seven targets (4 '
+        f'groups a layer, gate,up = up alone): launches {launches} '
+        f'(formula exact); adapters change the output [{smi}]')
+    return launches['fused_multi_lora']
+
+
+def phase_families(torch, smi: str) -> dict:
+    """Each of FAMILY_MODELS, bf16 in the paged engine on the card
+    (CUDA-graph steps): 4 greedy requests, the launch formulas exact,
+    every token in the vocabulary, the pool at rest. On the kernel route:
+    the plain route on the same weights (a twin model sharing them)
+    gives a 256-token chunk's bf16 logits within FAMILY_LOGIT_TOL, and
+    fp32 engines on the two routes give equal greedy tokens. On the
+    'xla' route: fp32 greedy tokens equal to the same engine on the
+    CPU. FAMILY_LORA also serves adapters (`_family_lora`). Returns the
+    kernel launches per family, and kernel 7's under 'lora'."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.transformer import Transformer
+    launched = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, route, lengths in FAMILY_MODELS:
+        base = get_config(name)
+        cfg = dataclasses.replace(
+            base, num_layers=base.num_layers if name == 'gpt2-1.5b' else 2)
+        gen = torch.Generator().manual_seed(5)
+        vocab = cfg.unpadded_vocab_size or cfg.vocab_size
+        prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                   for n in lengths]
+        t0 = time.monotonic()
+        engine = _family_engine(torch, cfg, route, 'bfloat16')
+        engine.capture_graphs()
+        build_s = time.monotonic() - t0
+        chunks0 = engine.paged_stats['prefill_chunks']
+        steps0 = engine.tick_stats['decode_steps']
+        _reset_serve_launches()
+        t0 = time.monotonic()
+        tokens, stats = _family_tokens(engine, prompts, FAMILY_NEW)
+        wall = time.monotonic() - t0
+        launches = _serve_launches()
+        expected = _expected_launches(
+            engine, engine.paged_stats['prefill_chunks'] - chunks0,
+            engine.tick_stats['decode_steps'] - steps0)
+        if launches != expected:
+            fail(f'families {name}: launches {launches} != {expected}')
+        if any(len(t) != FAMILY_NEW or not all(0 <= x < vocab for x in t)
+               for t in tokens):
+            fail(f'families {name}: bad tokens {tokens}')
+        launched[name] = launches['paged_decode_attention']
+        ecfg = engine.cfg
+        log(f'families {name} ({ecfg.num_layers} layers, d_model '
+            f'{ecfg.d_model}, {ecfg.num_heads} / {ecfg.num_kv_heads} KV '
+            f'heads of {ecfg.head_dim}, route {route}): built and captured '
+            f'in {build_s:.1f}s; {len(prompts)} requests of {lengths} '
+            f'prompt tokens in {wall:.2f}s, TTFT p50 '
+            f'{statistics.median(s["ttft_s"] for s in stats) * 1e3:.1f} '
+            f'ms; launches {launches} (formula exact) [{smi}]')
+        state = engine.model.state_dict()
+        if route == 'pallas':
+            twin = Transformer(dataclasses.replace(ecfg, decode_kernel='xla'),
+                               device='cuda')
+            twin.load_state_dict(state, assign=True)
+            chunk = torch.tensor([prompts[2][:256]], device='cuda')
+            got = _chunk_logits(torch, engine.model, chunk)[..., :vocab]
+            want = _chunk_logits(torch, twin, chunk)[..., :vocab]
+            rel = float((got - want).abs().max() / want.abs().max())
+            log(f'families {name}: bf16 chunk logits, kernel route vs '
+                f'plain route on the same weights: max abs diff / max '
+                f'|logit| = {rel:.3e} (limit {FAMILY_LOGIT_TOL})')
+            if not rel <= FAMILY_LOGIT_TOL or not bool(
+                    torch.isfinite(got).all()):
+                fail(f'families {name}: bf16 logits differ by {rel:.3e}')
+            del twin, got, want
+        engine.stop()
+        del engine
+        state32 = {k: v.float() for k, v in state.items()}
+        del state
+        short = [p[:700] if len(p) < 4000 else p for p in prompts[:3]]
+        if route == 'pallas':
+            other = [('kernel', 'pallas', 'cuda'), ('plain', 'xla', 'cuda')]
+        else:
+            other = [('card', 'xla', 'cuda'), ('cpu', 'xla', 'cpu')]
+        outs = {}
+        for label, r, device in other:
+            e = _family_engine(torch, cfg, r, 'float32',
+                               {k: v.to(device) for k, v in state32.items()},
+                               device=device)
+            outs[label] = _family_tokens(e, short, 8)[0]
+            e.stop()
+            del e
+        a, b = outs.values()
+        log(f'families {name}: fp32 greedy tokens, {" vs ".join(outs)}: '
+            f'{"equal" if a == b else "DIFFER"}')
+        if a != b:
+            fail(f'families {name}: fp32 greedy tokens differ: {outs}')
+        del state32
+        if name == FAMILY_LORA:
+            launched['lora'] = _family_lora(torch, cfg, prompts, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
+# ----------------------------------------------------------------- serve_hf
+
+def _free_gib(path: str) -> float:
+    import shutil
+    return shutil.disk_usage(path).free / 2**30
+
+
+def phase_serve_hf(torch, smi: str) -> None:
+    """qwen2-7b at full width and depth with seeded random bf16 weights
+    behind the HTTP server: phase_serve's eight prompts; its weights
+    exported with the port's own export_hf_checkpoint as sharded
+    safetensors into a temporary directory; the server started again
+    with hf_model_path on that directory (the --hf-model-path flag's
+    path): greedy tokens equal to the in-memory engine's, launch
+    formulas exact; load time, TTFT p50 and decode tokens/s logged; the
+    directory deleted."""
+    import shutil
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    kw = dict(num_slots=8, paged_block_size=16, prefill_chunk=256,
+              rng_seed=0, async_depth=1, device='cuda')
+    out_dir = tempfile.mkdtemp(prefix='serve_hf_')
+    log(f'serve_hf: {out_dir} has {_free_gib(out_dir):.1f} GiB free')
+    lengths = [20, 117, 214, 311, 408, 505, 602, 700]
+    runs = []
+    try:
+        for source in ('memory', 'hf'):
+            server = InferenceServer(
+                'qwen2-7b', hf_model_path=out_dir if source == 'hf' else None,
+                **kw)
+            engine = server.engine
+            cfg = engine.cfg
+            t0 = time.monotonic()
+            server.warmup()
+            warm_s = time.monotonic() - t0
+            gen = torch.Generator().manual_seed(1)
+            bodies = [{'prompt_ids': [torch.randint(
+                0, cfg.vocab_size, (n,), generator=gen).tolist()],
+                       'max_new_tokens': 32, 'temperature': 0.0}
+                      for n in lengths]
+            http = BackgroundServer(server)
+            try:
+                run = _serve_traffic(torch, engine, http.url, bodies)
+            finally:
+                http.close()
+                server.draining = True
+            if run['launches'] != run['expected']:
+                fail(f'serve_hf ({source}): launches {run["launches"]} != '
+                     f'{run["expected"]}')
+            if not engine.drain(timeout=120):
+                fail('serve_hf: engine did not drain')
+            engine._pool.check()  # pylint: disable=protected-access
+            log(f'serve_hf ({source} weights): qwen2-7b ({cfg.num_layers} '
+                f'layers, d_model {cfg.d_model}, {cfg.num_heads} / '
+                f'{cfg.num_kv_heads} KV heads) built in '
+                f'{server.load_seconds:.2f}s, warm in {warm_s:.1f}s; TTFT '
+                f'p50 {run["ttft_ms"]:.1f} ms, decode '
+                f'{run["tokens_per_s"]:.1f} tokens/s over 8 slots; launches '
+                f'{run["launches"]} (formula exact) [{smi}]')
+            runs.append(run)
+            if source == 'memory':
+                t0 = time.monotonic()
+                files = convert.export_hf_checkpoint(
+                    engine.model.state_dict(), cfg, out_dir)
+                size = sum(os.path.getsize(os.path.join(out_dir, f))
+                           for f in files)
+                log(f'serve_hf: exported {len(files)} files '
+                    f'({size / 2**30:.2f} GiB) in '
+                    f'{time.monotonic() - t0:.1f}s: {files}; '
+                    f'{_free_gib(out_dir):.1f} GiB free after')
+            engine.stop()
+            del server, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if runs[1]['tokens'] != runs[0]['tokens']:
+        fail('serve_hf: greedy tokens from the exported checkpoint differ '
+             'from the in-memory engine\'s')
+    log('serve_hf: greedy tokens from the exported HF checkpoint equal '
+        'the in-memory engine\'s')
+
+
+# -------------------------------------------------------------- serve_int8w
+
+# bf16 logits of an int8-weight model (transformer.int8_matmul's card
+# branch: torch.mm over bf16 with an fp32 accumulator, then the scale)
+# against the same int8 state in fp32 (its `x @ q.float()` branch, the one
+# the CPU tests hold to the JAX package): max abs difference over max
+# |logit| of a 256-token chunk. Every bf16 rounding of the activations
+# differs, through 2 layers and the unembedding; a wrong scale broadcast
+# or reshape would be off by order 1.
+INT8W_LOGIT_TOL = 3e-2
+
+
+def _int8_branch_check(torch, smi: str) -> float:
+    """llama3-8b cut to 2 layers, quantize='int8' in the engine (bf16),
+    and an fp32 twin on the same int8 payloads and scales: one chunk's
+    logits within INT8W_LOGIT_TOL. Returns the measured ratio."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.models.transformer import Transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config('llama3-8b'), num_layers=2)
+    engine = ContinuousBatchingEngine(cfg, num_slots=1, paged_block_size=16,
+                                      prefill_chunk=256, rng_seed=0,
+                                      quantize='int8', device='cuda')
+    engine.stop()
+    model = engine.model
+    state = model.state_dict()
+    twin = Transformer(dataclasses.replace(model.cfg, dtype='float32'),
+                       device='cuda')
+    twin.load_state_dict(
+        {k: v if v.dtype == torch.int8 or k.endswith('_scale') else v.float()
+         for k, v in state.items()}, assign=True)
+    if (model.layers[0].attn.qkv_proj.dtype != torch.int8
+            or twin.layers[0].attn.qkv_proj.dtype != torch.int8):
+        fail('serve_int8w: the int8 branch check holds no int8 weights')
+    gen = torch.Generator().manual_seed(3)
+    chunk = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen).cuda()
+    got = _chunk_logits(torch, model, chunk)
+    want = _chunk_logits(torch, twin, chunk)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f'serve_int8w: llama3-8b (2 layers) int8 weights, bf16 chunk logits '
+        f'(torch.mm, fp32 accumulator) vs the same int8 state in fp32: max '
+        f'abs diff / max |logit| = {rel:.3e} (limit {INT8W_LOGIT_TOL}) '
+        f'[{smi}]')
+    if not rel <= INT8W_LOGIT_TOL or not bool(torch.isfinite(got).all()):
+        fail(f'serve_int8w: bf16 int8-weight logits differ from the fp32 '
+             f'branch by {rel:.3e}')
+    del engine, model, twin, state, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rel
+
+
+def phase_serve_int8w(torch, smi: str, bf16_timings) -> int:
+    """llama3-8b at full size with quantize='int8' (seeded random bf16
+    weights placed, then each projection quantized on the card) over
+    HTTP with serve's bodies at async depth 0, 1, 1, 0: answers checked,
+    tokens equal across the runs, launch formulas exact, the pool at rest
+    after the drain. Weight bytes beside bf16's; the graph-replayed
+    decode step beside serve's bf16 step from this run. First the bf16
+    branch of the int8 product against its fp32 branch
+    (`_int8_branch_check`). Returns the paged kernel's launches."""
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    _int8_branch_check(torch, smi)
+    server = InferenceServer('llama3-8b', num_slots=8, paged_block_size=16,
+                             prefill_chunk=256, rng_seed=0, async_depth=1,
+                             quantize='int8', device='cuda')
+    engine = server.engine
+    cfg = engine.cfg
+    if cfg.weight_quant != 'int8':
+        fail('serve_int8w: the engine does not serve int8 weights')
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engine.model.parameters())
+    bf16_bytes = cfg.num_params() * 2
+    log(f'serve_int8w: llama3-8b int8 weights built and quantized in '
+        f'{server.load_seconds:.1f}s: {weight_bytes / 1e9:.2f} GB of '
+        f'weights against {bf16_bytes / 1e9:.2f} GB in bf16')
+    server.warmup()
+    http = BackgroundServer(server)
+    try:
+        lengths = [20, 117, 214, 311, 408, 505, 602, 700]
+        gen = torch.Generator().manual_seed(1)
+        bodies = [{'prompt_ids': [torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=gen).tolist()],
+                   'max_new_tokens': 32, 'temperature': 0.0}
+                  for n in lengths]
+        run = serve_in_turns(torch, engine, http.url, bodies, 'serve_int8w',
+                             smi)
+    finally:
+        http.close()
+        server.draining = True
+    if not engine.drain(timeout=120):
+        fail('serve_int8w: engine did not drain')
+    engine._pool.check()  # pylint: disable=protected-access
+    if engine._pool.used != 1:  # pylint: disable=protected-access
+        fail('serve_int8w: pool not at rest after the drain')
+    timings = step_breakdown(torch, engine, smi)
+    wall, kernels = timings['decode', 'graph']
+    if bf16_timings is not None:
+        bwall, bkernels = bf16_timings['decode', 'graph']
+        log(f'serve_int8w: decode step, graph replay, 8 rows at 700: int8 '
+            f'weights {wall:.2f} ms wall / {kernels:.2f} ms kernels against '
+            f'bf16 (serve, this run) {bwall:.2f} / {bkernels:.2f} ms: '
+            f'{kernels / bkernels:.3f}x [{smi}]')
+    else:
+        log('serve_int8w: bf16 decode step not measured (serve did not '
+            'run)')
+    engine.stop()
+    return run['launches']['paged_decode_attention']
+
+
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
           'train_sp', 'serve', 'serve_prefix', 'serve_tenant',
-          'serve_sched', 'graph_parity')
+          'serve_sched', 'graph_parity', 'families', 'serve_hf',
+          'serve_int8w')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -3675,9 +4235,9 @@ def main(argv=None) -> int:
                 'launches': launches, **ring['full_hop']})
         gc.collect()
         torch.cuda.empty_cache()
-    bf16_pool_bytes = None
+    bf16_pool_bytes = serve_timings = None
     if 'serve' in phases:
-        launches, bf16_pool_bytes = phase_serve(torch, smi)
+        launches, bf16_pool_bytes, serve_timings = phase_serve(torch, smi)
         if paged is not None:
             kernels.append({
                 'name': 'paged_decode_attention', 'route': 'cuda',
@@ -3722,6 +4282,25 @@ def main(argv=None) -> int:
             paged_entry['verify_launches'] = launches['paged_decode_attention']
     if 'graph_parity' in phases:
         phase_graph_parity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if 'families' in phases:
+        launched = phase_families(torch, smi)
+        for name, key in (('paged_decode_attention', None),
+                          ('fused_multi_lora', 'lora')):
+            entry = next((k for k in kernels if k['name'] == name), None)
+            if entry is not None:
+                entry['family_launches'] = (
+                    launched.pop(key) if key else
+                    {k: v for k, v in launched.items() if k != 'lora'})
+    if 'serve_hf' in phases:
+        phase_serve_hf(torch, smi)
+    if 'serve_int8w' in phases:
+        launches = phase_serve_int8w(torch, smi, serve_timings)
+        paged_entry = next((k for k in kernels
+                            if k['name'] == 'paged_decode_attention'), None)
+        if paged_entry is not None:
+            paged_entry['int8w_launches'] = launches
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

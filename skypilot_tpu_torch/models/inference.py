@@ -77,6 +77,7 @@ import concurrent.futures
 import dataclasses
 import itertools
 import logging
+import os
 import queue as queue_lib
 import threading
 import time as time_lib
@@ -90,7 +91,8 @@ from skypilot_tpu_torch.models import kv_cache as kv_cache_lib
 from skypilot_tpu_torch.models.configs import ModelConfig, get_config
 from skypilot_tpu_torch.models import step_graph
 from skypilot_tpu_torch.models.convert import adapter_from_jax
-from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.models import quantize as quantize_lib
+from skypilot_tpu_torch.models.transformer import Transformer, check_supported
 from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.serve import tenancy
@@ -401,6 +403,9 @@ class ContinuousBatchingEngine:
     `paged_stats` blocks_reused, cow_copies, prefix_evictions).
 
     kv_quant='int8' stores the pool as int8 with fp32 scale rows.
+    quantize='int8' serves int8 projection weights (models/quantize.py);
+    the engine then takes the float tensors out of a passed `params`
+    dict as it quantizes them, so each is freed once converted.
     max_adapters=N (with adapter_rank r, adapter_alpha and the
     adapter_targets tokens, e.g. 'q,v') holds up to N LoRA adapters
     resident; `load_adapter` registers one, `submit(adapter=name)` serves
@@ -433,7 +438,11 @@ class ContinuousBatchingEngine:
                  decode_chunk: int = 1,
                  prefix_cache: int = 0,
                  speculative: int = 0,
+                 quantize: Optional[str] = None,
                  device='cuda') -> None:
+        if quantize not in (None, 'int8'):
+            raise ValueError(f'unknown quantize mode {quantize!r}; '
+                             f"supported: 'int8'")
         if kv_quant not in (None, '', 'int8'):
             raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
                              f"supported: 'int8'")
@@ -456,6 +465,10 @@ class ContinuousBatchingEngine:
             cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
         cfg = dataclasses.replace(cfg, decode=True, remat=False,
                                   kv_cache_quant=kv_quant or '')
+        if quantize:
+            # Refuse what int8 weights do not serve (MoE, adapters) before
+            # a float weight is made.
+            check_supported(quantize_lib.int8_config(cfg))
         self.num_slots = num_slots
         self.top_k, self.top_p = top_k, top_p
         # >0: keep the last N prompts' blocks in an LRU; a prompt sharing
@@ -476,7 +489,10 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f'max_seq_len {cfg.max_seq_len} not divisible '
                 f'by paged_block_size {self.paged_block_size}')
-        if self.device.type == 'cuda':
+        self.decode_kernel = _resolve_decode_kernel(
+            decode_kernel, dataclasses.replace(
+                cfg, paged_block_size=self.paged_block_size))
+        if self.device.type == 'cuda' and self.decode_kernel != 'xla':
             # Every paged step goes through the kernel on the card.
             limits.check_kernel_shapes(cfg.head_dim, self.paged_block_size)
         self._blocks_per_seq = cfg.max_seq_len // self.paged_block_size
@@ -494,15 +510,9 @@ class ContinuousBatchingEngine:
                             'spec_trimmed_blocks': 0}
         self._prefix_entries = self._new_prefix_index()
         _PAGED_CAPACITY.set(nb)
-        self.decode_kernel = _resolve_decode_kernel(decode_kernel, self.cfg)
         self.cfg = dataclasses.replace(self.cfg,
                                        decode_kernel=self.decode_kernel)
-        self.model = Transformer(self.cfg, device=self.device)
-        if params is None:
-            logger.info('Initializing random weights for %s', self.cfg.name)
-            self.model.init_random_(rng_seed)
-        else:
-            self.model.load_state_dict(params, strict=True, assign=True)
+        self.model = self._build_model(params, rng_seed, quantize)
         # (K, V) pools, plus (K scale, V scale) pools under int8 KV.
         pools = self.model.new_kv_pool(nb)
         self._k_pool, self._v_pool = pools[:2]
@@ -589,6 +599,41 @@ class ContinuousBatchingEngine:
         # True once any non-'standard' request was submitted (the
         # server's /health tier_load shows from then on).
         self.tiers_active = False
+
+    def _build_model(self, params, rng_seed: int,
+                     quantize: Optional[str]) -> Transformer:
+        """The served model: `params` (a float state dict, or an int8 one
+        for an int8 cfg) or seeded random float weights; with
+        quantize='int8' the float weights are placed first, then each
+        projection is quantized on the device (models/quantize.py) and
+        the model rebuilt on the int8 state, as the reference quantizes
+        after `_resolve_cfg_and_params` made its float tree."""
+        if not quantize:
+            model = Transformer(self.cfg, device=self.device)
+            if params is None:
+                logger.info('Initializing random weights for %s',
+                            self.cfg.name)
+                model.init_random_(rng_seed)
+            else:
+                model.load_state_dict(params, strict=True, assign=True)
+            return model
+        int8_cfg = quantize_lib.int8_config(self.cfg)
+        if params is None:
+            logger.info('Initializing random weights for %s', self.cfg.name)
+            float_model = Transformer(self.cfg, device=self.device)
+            params = float_model.init_random_(rng_seed).state_dict()
+            del float_model
+        else:
+            # Taken out of the caller's dict (the server's loaded
+            # weights), so quantize_state's pops free each float tensor.
+            params = {k: params.pop(k).to(self.device) for k in list(params)}
+        state = quantize_lib.quantize_state(params, int8_cfg)
+        self.cfg = int8_cfg
+        model = Transformer(int8_cfg, device=self.device)
+        model.load_state_dict(state, strict=True, assign=True)
+        logger.info('Quantized %s weights to int8 for serving',
+                    self.cfg.name)
+        return model
 
     # ---------------- device steps ----------------
 
@@ -1890,3 +1935,35 @@ class ContinuousBatchingEngine:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+
+
+def load_params_from_checkpoint(cfg: ModelConfig, checkpoint_dir: str,
+                                device='cpu') -> Dict[str, torch.Tensor]:
+    """The model weights of the latest step of a training checkpoint
+    directory the port's train/run.py wrote (train/checkpoints.py), on
+    `device` in the serving dtype cfg.dtype. Params only: the file is
+    memory-mapped and only the model's entries are read, so the Adam
+    moments never reach the device (the reference's params-only partial
+    restore). A LoRA run's `lora.json` sidecar is refused: LoRA training
+    is not ported (ROADMAP.md item 6)."""
+    from skypilot_tpu_torch.train import checkpoints
+    directory = os.path.expanduser(checkpoint_dir)
+    if os.path.exists(os.path.join(directory, 'lora.json')):
+        raise NotImplementedError(
+            f'{checkpoint_dir} is a LoRA checkpoint (lora.json): LoRA '
+            f'training and merging are not ported yet (ROADMAP.md item 6)')
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f'no checkpoint directory {checkpoint_dir}')
+    manager = checkpoints.CheckpointManager(directory)
+    step = manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(f'no checkpoint step in {checkpoint_dir}')
+    saved = torch.load(manager.state_path(step), map_location='cpu',
+                       mmap=True, weights_only=True)
+    dtype = getattr(torch, cfg.dtype)
+    params = {key: value.to(device=device, dtype=dtype, copy=True)
+              for key, value in saved['model'].items()}
+    logger.info('restored %s params from step %d of %s', cfg.name, step,
+                checkpoint_dir)
+    return params
+

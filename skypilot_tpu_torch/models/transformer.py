@@ -1,5 +1,5 @@
-"""Llama-3-style decoder in PyTorch (dense MLP): the serving path (paged
-KV) and the training path (full sequence).
+"""The reference's dense decoder families in PyTorch: the serving path
+(paged KV) and the training path (full sequence).
 
 Port of skypilot_tpu/models/transformer.py. Like the reference, the model
 branches on `cfg.decode`:
@@ -51,10 +51,30 @@ Layout choices:
   dots_with_no_batch_dims_saveable) through a selective-checkpoint
   policy, 'full' saves nothing. Values do not depend on the policy.
 
-Family knobs beyond Llama-3 (biases, softcaps, parallel block, MoE,
-int8 weights, LoRA training, learned positions, LayerNorm, tied
-embeddings, padded vocab) are refused at construction; ROADMAP.md queues
-them.
+The family knobs compose as in the reference, so one module tree serves
+Llama, Mistral, Qwen2, Gemma, Gemma-2, Falcon, Phi and GPT-2:
+- norms in three dialects (`norm_style` 'rms', 'rms_plus1': the stored
+  scale is a delta from 1, 'layernorm': mean-centred, with a bias when
+  `norm_bias`), statistics in fp32;
+- biases on the fused qkv, o, MLP and lm_head projections, added after
+  a LoRA group's delta (the reference adds its bias after the adapter's
+  delta too); `qkv_clip` clamps q, k and v before rope;
+- a GLU MLP (`gate_up_proj`) or a plain one (`up_proj` alone), SiLU or
+  the tanh-approximate GELU;
+- rope over all of head_dim or its first `rotary_dim(cfg)` dims, or no
+  rope and a learned position table (`pos_embed`, at each row's own
+  positions);
+- Gemma's embedding scale (sqrt(d_model) rounded to the compute dtype
+  before the product), tied unembedding (no lm_head: logits = x @
+  embed^T), the final logit softcap and the padded-vocab mask;
+- the parallel block (one attn_norm; x + attn(h) + mlp(h));
+- attention logit softcap, which only the gather-and-attend route
+  (`decode_kernel='xla'`, ops/paged_attention's plain version) serves:
+  the kernel refuses it, as the reference's does.
+int8 weights (`weight_quant='int8'`, a serving format made by
+models/quantize.py) keep each projection as int8 plus fp32 per-column
+scales (`<name>_scale`): the reference's QuantDenseGeneral product.
+MoE (`num_experts`) and LoRA training are refused at construction.
 """
 from __future__ import annotations
 
@@ -69,7 +89,8 @@ from torch.utils import checkpoint as checkpoint_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
 from skypilot_tpu_torch.ops.fused_lora import LoRAGroup
-from skypilot_tpu_torch.ops.paged_attention import paged_decode_attention
+from skypilot_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_plain)
 from skypilot_tpu_torch.parallel import sharding
 
 # lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
@@ -95,37 +116,46 @@ def _new_param(cfg: ModelConfig, shape, device) -> nn.Parameter:
 
 def _unsupported_knobs(cfg: ModelConfig) -> list:
     checks = {
-        'qkv_bias': cfg.qkv_bias, 'o_bias': cfg.o_bias,
-        'mlp_bias': cfg.mlp_bias, 'lm_head_bias': cfg.lm_head_bias,
-        'qkv_clip': cfg.qkv_clip,
-        'attn_logit_softcap': cfg.attn_logit_softcap,
-        'final_logit_softcap': cfg.final_logit_softcap,
-        'parallel_block': cfg.parallel_block,
         'num_experts': cfg.num_experts,
-        'weight_quant': cfg.weight_quant != 'none',
+        'weight_quant': cfg.weight_quant not in ('none', 'int8'),
         'kv_cache_quant': cfg.kv_cache_quant not in ('', 'int8'),
         # LoRA training (lora_rank without serve adapters) is not ported.
         'lora_rank': cfg.lora_rank and not cfg.serve_adapters,
-        'pos_embedding': cfg.pos_embedding != 'rope',
-        'norm_style': cfg.norm_style != 'rms',
-        'mlp_style': cfg.mlp_style != 'glu',
-        'mlp_activation': cfg.mlp_activation != 'silu',
-        'rotary_pct': cfg.rotary_pct != 1.0,
-        'tie_embeddings': cfg.tie_embeddings,
-        'scale_embed_by_dim': cfg.scale_embed_by_dim,
-        'unpadded_vocab_size': cfg.unpadded_vocab_size,
+        'pos_embedding': cfg.pos_embedding not in ('rope', 'learned'),
+        'norm_style': cfg.norm_style not in ('rms', 'rms_plus1',
+                                             'layernorm'),
+        'mlp_style': cfg.mlp_style not in ('glu', 'plain'),
+        'mlp_activation': cfg.mlp_activation not in ('silu', 'gelu'),
     }
     return sorted(name for name, on in checks.items() if on)
 
 
+# Projections that hold int8 weights under weight_quant='int8' (the
+# reference's quantize._QUANT_MODULES, fused as the port fuses them).
+QUANT_PROJECTIONS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'up_proj',
+                     'down_proj', 'lm_head')
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse, at construction, every family knob this port has not
-    ported (the Llama-3 dense decoder is all-defaults)."""
+    """Refuse, at construction, what the port does not serve: MoE, LoRA
+    training, unknown knob values, and (as the reference refuses it)
+    multi-LoRA serving over int8 weights."""
     bad = _unsupported_knobs(cfg)
     if bad:
         raise NotImplementedError(
-            f'{cfg.name}: the PyTorch port serves the Llama-3 dense path '
-            f'only; not ported yet: {", ".join(bad)}')
+            f'{cfg.name}: the PyTorch port serves the dense decoder '
+            f'families; not ported yet: {", ".join(bad)}')
+    if cfg.rotary_pct != 1.0 and not 0.0 < cfg.rotary_pct < 1.0:
+        raise ValueError(f'rotary_pct must be in (0, 1], got '
+                         f'{cfg.rotary_pct}')
+    if cfg.weight_quant == 'int8' and cfg.serve_adapters and any(
+            name in lora_target_names(cfg)
+            for name in projection_shapes(cfg)):
+        raise NotImplementedError(
+            'multi-LoRA serving composes with int8 KV, not int8 '
+            'WEIGHTS: the adapter delta applies to the float base '
+            'projection (serve unquantized, or merge+quantize a '
+            'single adapter)')
     if cfg.serve_adapters:
         if not cfg.decode:
             raise NotImplementedError(
@@ -156,6 +186,32 @@ def lora_target_names(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(names)
 
 
+def projection_shapes(cfg: ModelConfig) -> dict:
+    """Each projection the model has, by the reference's module name →
+    (in, out) widths (q/k/v and o flattened over heads; gate_proj only
+    under a GLU MLP)."""
+    q_out = cfg.num_heads * cfg.head_dim
+    kv_out = cfg.num_kv_heads * cfg.head_dim
+    shapes = {'q_proj': (cfg.d_model, q_out), 'k_proj': (cfg.d_model, kv_out),
+              'v_proj': (cfg.d_model, kv_out), 'o_proj': (q_out, cfg.d_model)}
+    if cfg.mlp_style == 'glu':
+        shapes['gate_proj'] = (cfg.d_model, cfg.d_mlp)
+    shapes['up_proj'] = (cfg.d_model, cfg.d_mlp)
+    shapes['down_proj'] = (cfg.d_mlp, cfg.d_model)
+    return shapes
+
+
+def rotary_dim(cfg: ModelConfig) -> int:
+    """Dims of each head that rope rotates: head_dim, the reference's
+    partial-rotary `max(2, int(head_dim * rotary_pct) // 2 * 2)`, or 0
+    with a learned position table."""
+    if cfg.pos_embedding != 'rope':
+        return 0
+    if cfg.rotary_pct == 1.0:
+        return cfg.head_dim
+    return max(2, int(cfg.head_dim * cfg.rotary_pct) // 2 * 2)
+
+
 def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token-per-kv-head absmax int8 quantization for KV writes, the
     reference's `_int8_quantize` op for op: amax floored at 1e-6, divided
@@ -168,19 +224,34 @@ def int8_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class RMSNorm(nn.Module):
-    """'rms' (Llama) pre-norm; statistics in fp32 regardless of dtype."""
+    """Pre-norm in the family's dialect: 'rms' (Llama), 'rms_plus1'
+    (Gemma: the stored weight is a delta from 1), 'layernorm' (GPT-2:
+    mean-centred, with a bias when cfg.norm_bias). Statistics in fp32
+    regardless of dtype."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
         self.eps = cfg.norm_eps
+        self.style = cfg.norm_style
         self.dtype = torch_dtype(cfg)
         self.weight = _new_param(cfg, cfg.d_model, device)
+        self.bias = (_new_param(cfg, cfg.d_model, device)
+                     if self.style == 'layernorm' and cfg.norm_bias
+                     else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
+        if self.style == 'layernorm':
+            x32 = x32 - x32.mean(dim=-1, keepdim=True)
         var = x32.square().mean(dim=-1, keepdim=True)
         normed = x32 * torch.rsqrt(var + self.eps)
-        return (normed * self.weight.float()).to(self.dtype)
+        w = self.weight.float()
+        if self.style == 'rms_plus1':
+            w = 1.0 + w
+        out = normed * w
+        if self.bias is not None:
+            out = out + self.bias.float()
+        return out.to(self.dtype)
 
 
 def _llama3_scale_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
@@ -219,18 +290,80 @@ def rope_cos_sin(positions: torch.Tensor, freqs: torch.Tensor
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
 
 
-def _rotate(x: torch.Tensor, cos: torch.Tensor,
-            sin: torch.Tensor) -> torch.Tensor:
+def _rotate(x: torch.Tensor, cos: Optional[torch.Tensor],
+            sin: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rope over the first 2 * cos.shape[-1] dims of each head (all of
+    them, or the partial-rotary share; the rest pass through); no cos:
+    no rope (learned positions)."""
+    if cos is None:
+        return x
+    rot = 2 * cos.shape[-1]
+    if rot < x.shape[-1]:
+        return torch.cat([_rotate(x[..., :rot], cos, sin), x[..., rot:]],
+                         dim=-1)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               scaling=None) -> torch.Tensor:
-    """Rotary position embedding. x: (B, S, H, D); positions: (B, S)."""
-    freqs = rope_freqs(x.shape[-1], theta, scaling, device=x.device)
+               scaling=None, rotary_dim: int = 0) -> torch.Tensor:
+    """Rotary position embedding. x: (B, S, H, D); positions: (B, S).
+    rotary_dim > 0 (partial rotary): only the first rotary_dim dims
+    rotate, with frequencies over rotary_dim."""
+    freqs = rope_freqs(rotary_dim or x.shape[-1], theta, scaling,
+                       device=x.device)
     return _rotate(x, *rope_cos_sin(positions, freqs))
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The reference's QuantDenseGeneral product: x times the int8
+    weight converted to the compute dtype, accumulated in fp32, times the
+    fp32 per-column scale, cast to the compute dtype. A plain
+    dequantise-then-matmul (the reference's XLA fuses the convert into
+    the product; here the converted weight is a temporary)."""
+    w = q.to(dtype)
+    if dtype == torch.float32:
+        y = x @ w
+    elif x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                     out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = x.float() @ w.float()
+    return (y * scale).to(dtype)
+
+
+def _new_projection(module: nn.Module, cfg: ModelConfig, name: str,
+                    shape: Tuple[int, int], bias: bool, device) -> None:
+    """Register projection `name`, an (in, out) matrix: float, or under
+    int8 weights int8 with an fp32 per-column `<name>_scale`; and its
+    `<name>_bias` when `bias` (None otherwise)."""
+    if cfg.weight_quant == 'int8' and name in QUANT_PROJECTIONS:
+        module.register_parameter(name, nn.Parameter(
+            torch.empty(shape, device=device, dtype=torch.int8),
+            requires_grad=False))
+        module.register_parameter(name + '_scale', nn.Parameter(
+            torch.empty(shape[1], device=device, dtype=torch.float32),
+            requires_grad=False))
+    else:
+        module.register_parameter(name, _new_param(cfg, shape, device))
+    module.register_parameter(
+        name + '_bias', _new_param(cfg, shape[1], device) if bias else None)
+
+
+def _project(module: nn.Module, name: str, x: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """x times projection `name` of `module`, without its bias."""
+    w = getattr(module, name)
+    if w.dtype == torch.int8:
+        return int8_matmul(x, w, getattr(module, name + '_scale'), dtype)
+    return x @ w.to(dtype)
+
+
+def _add_bias(module: nn.Module, name: str, y: torch.Tensor) -> torch.Tensor:
+    bias = getattr(module, name + '_bias')
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 class LoRAStack(nn.Module):
@@ -302,18 +435,19 @@ def _lora_site(cfg: ModelConfig, stacks: nn.ModuleDict, names,
 
 
 class PagedStep(NamedTuple):
-    """Per-forward inputs every layer shares: positions, the rope cos/sin,
-    the tables the kernel reads through, and the pool scatter index."""
+    """Per-forward inputs every layer shares: positions, the rope cos/sin
+    (None without rope), the tables the kernel reads through, and the
+    pool scatter index."""
     positions: torch.Tensor     # (B, T) int32
-    cos: torch.Tensor           # (B, T, 1, D / 2) fp32
-    sin: torch.Tensor
+    cos: Optional[torch.Tensor]  # (B, T, 1, rotary_dim / 2) fp32
+    sin: Optional[torch.Tensor]
     read_tables: torch.Tensor   # (B, max_seq_len // bs) int32
     write_idx: torch.Tensor     # (B * T,) int64 flat pool rows
 
 
 def paged_step(cfg: ModelConfig, positions: torch.Tensor,
                block_tables: torch.Tensor,
-               freqs: torch.Tensor) -> PagedStep:
+               freqs: Optional[torch.Tensor]) -> PagedStep:
     """Build the step once per forward (the reference recomputes it in
     every layer, where XLA deduplicates it; eager PyTorch would not).
 
@@ -333,7 +467,8 @@ def paged_step(cfg: ModelConfig, positions: torch.Tensor,
                             block_tables.shape[1] - 1).long()
     phys = torch.gather(block_tables, 1, log_block)
     write_idx = (phys * bs + positions % bs).reshape(-1).long()
-    cos, sin = rope_cos_sin(positions, freqs)
+    cos, sin = (rope_cos_sin(positions, freqs) if freqs is not None
+                else (None, None))
     return PagedStep(positions, cos, sin,
                      block_tables[:, :cfg.max_seq_len // bs], write_idx)
 
@@ -344,16 +479,17 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
-        q_out = cfg.num_heads * cfg.head_dim
-        kv_out = cfg.num_kv_heads * cfg.head_dim
+        shapes = projection_shapes(cfg)
+        q_out, kv_out = shapes['q_proj'][1], shapes['k_proj'][1]
         self.qkv_widths = (q_out, kv_out, kv_out)
-        self.qkv_proj = _new_param(cfg, (cfg.d_model, q_out + 2 * kv_out),
-                                   device)
-        self.o_proj = _new_param(cfg, (q_out, cfg.d_model), device)
+        _new_projection(self, cfg, 'qkv_proj',
+                        (cfg.d_model, q_out + 2 * kv_out), cfg.qkv_bias,
+                        device)
+        _new_projection(self, cfg, 'o_proj', (q_out, cfg.d_model),
+                        cfg.o_bias, device)
         self.lora = _lora_stacks(cfg, {
-            'q_proj': (cfg.d_model, q_out), 'k_proj': (cfg.d_model, kv_out),
-            'v_proj': (cfg.d_model, kv_out),
-            'o_proj': (q_out, cfg.d_model)}, device)
+            name: shapes[name]
+            for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')}, device)
         self.lora_qkv = _lora_site(cfg, self.lora, ('q_proj', 'k_proj',
                                                     'v_proj'),
                                    self.qkv_widths)
@@ -370,9 +506,12 @@ class Attention(nn.Module):
         batch, cur_len, _ = x.shape
         heads, kv_heads, head_dim = (cfg.num_heads, cfg.num_kv_heads,
                                      cfg.head_dim)
-        qkv = x @ self.qkv_proj.to(self.dtype)
+        qkv = _project(self, 'qkv_proj', x, self.dtype)
         if adapter_ids is not None and self.lora_qkv is not None:
             self.lora_qkv(x, qkv, adapter_ids)
+        qkv = _add_bias(self, 'qkv_proj', qkv)
+        if cfg.qkv_clip:
+            qkv = qkv.clamp(-cfg.qkv_clip, cfg.qkv_clip)
         q, k, v = torch.split(qkv, list(self.qkv_widths), dim=-1)
         q = _rotate(q.reshape(batch, cur_len, heads, head_dim), step.cos,
                     step.sin)
@@ -390,18 +529,21 @@ class Attention(nn.Module):
                                   logit_softcap=cfg.attn_logit_softcap,
                                   window=cfg.sliding_window)
         out = out.reshape(batch, cur_len, heads * head_dim)
-        y = out @ self.o_proj.to(self.dtype)
+        y = _project(self, 'o_proj', out, self.dtype)
         if adapter_ids is not None and self.lora_o is not None:
             self.lora_o(out, y, adapter_ids)
-        return y
+        return _add_bias(self, 'o_proj', y)
 
     def _paged_decode_attention(self, q, k, v, step: PagedStep, k_pool,
                                 v_pool, k_scale, v_scale) -> torch.Tensor:
         """Write the chunk's K/V into this layer's pool at the step's
         scatter index (quantized, with their scale rows, when the pools
-        are int8), then attend through the paged kernel. k_pool/v_pool
-        (and k_scale/v_scale): this layer's (num_blocks, bs, KV, D) (and
-        (num_blocks, bs, KV, 1)) slices, written in place."""
+        are int8), then attend through the paged kernel, or under
+        decode_kernel='xla' through its plain gather-and-attend version
+        (the reference's XLA route, the one that serves a logit
+        softcap). k_pool/v_pool (and k_scale/v_scale): this layer's
+        (num_blocks, bs, KV, D) (and (num_blocks, bs, KV, 1)) slices,
+        written in place."""
         cfg = self.cfg
         kv_heads, head_dim = k.shape[2], k.shape[3]
         if k_scale is not None:
@@ -415,53 +557,77 @@ class Attention(nn.Module):
             k.reshape(-1, kv_heads, head_dim)
         v_pool.view(-1, kv_heads, head_dim)[step.write_idx] = \
             v.reshape(-1, kv_heads, head_dim)
-        return paged_decode_attention(q, k_pool, v_pool, step.read_tables,
-                                      step.positions, k_scale=k_scale,
-                                      v_scale=v_scale,
-                                      window=cfg.sliding_window,
-                                      logit_softcap=cfg.attn_logit_softcap)
+        attend = (paged_decode_attention_plain if cfg.decode_kernel == 'xla'
+                  else paged_decode_attention)
+        # Without rope (learned positions) q is still a strided view of
+        # the projection's output; the kernel reads contiguous queries.
+        return attend(q.contiguous(), k_pool, v_pool, step.read_tables,
+                      step.positions,
+                      k_scale=k_scale, v_scale=v_scale,
+                      window=cfg.sliding_window,
+                      logit_softcap=cfg.attn_logit_softcap)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return nn.functional.gelu(x, approximate='tanh')
 
 
 class SwiGLU(nn.Module):
+    """Feed-forward in the family's dialect: GLU (gate * act, times up,
+    then down; one fused gate_up_proj) or 'plain' (up, act, down; GPT-2,
+    Falcon, Phi), act SiLU or the tanh-approximate GELU, optional biases
+    (after the LoRA delta)."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
         self.dtype = torch_dtype(cfg)
         self.d_mlp = cfg.d_mlp
-        self.gate_up_proj = _new_param(cfg, (cfg.d_model, 2 * cfg.d_mlp),
-                                       device)
-        self.down_proj = _new_param(cfg, (cfg.d_mlp, cfg.d_model), device)
+        self.glu = cfg.mlp_style == 'glu'
+        self.act = (nn.functional.silu if cfg.mlp_activation == 'silu'
+                    else _gelu_tanh)
+        self.up_name = 'gate_up_proj' if self.glu else 'up_proj'
+        ins = ('gate_proj', 'up_proj') if self.glu else ('up_proj',)
+        _new_projection(self, cfg, self.up_name,
+                        (cfg.d_model, len(ins) * cfg.d_mlp), cfg.mlp_bias,
+                        device)
+        _new_projection(self, cfg, 'down_proj', (cfg.d_mlp, cfg.d_model),
+                        cfg.mlp_bias, device)
+        shapes = projection_shapes(cfg)
         self.lora = _lora_stacks(cfg, {
-            'gate_proj': (cfg.d_model, cfg.d_mlp),
-            'up_proj': (cfg.d_model, cfg.d_mlp),
-            'down_proj': (cfg.d_mlp, cfg.d_model)}, device)
-        self.lora_gate_up = _lora_site(cfg, self.lora,
-                                       ('gate_proj', 'up_proj'),
-                                       (self.d_mlp, self.d_mlp))
+            name: shapes[name] for name in ins + ('down_proj',)}, device)
+        self.lora_gate_up = _lora_site(cfg, self.lora, ins,
+                                       (self.d_mlp,) * len(ins))
         self.lora_down = _lora_site(cfg, self.lora, ('down_proj',),
                                     (cfg.d_model,))
 
     def forward(self, x: torch.Tensor,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        gate_up = x @ self.gate_up_proj.to(self.dtype)
+        up = _project(self, self.up_name, x, self.dtype)
         if adapter_ids is not None and self.lora_gate_up is not None:
-            self.lora_gate_up(x, gate_up, adapter_ids)
-        gate, up = torch.split(gate_up, self.d_mlp, dim=-1)
-        h = nn.functional.silu(gate) * up
-        y = h @ self.down_proj.to(self.dtype)
+            self.lora_gate_up(x, up, adapter_ids)
+        up = _add_bias(self, self.up_name, up)
+        if self.glu:
+            gate, up = torch.split(up, self.d_mlp, dim=-1)
+            h = self.act(gate) * up
+        else:
+            h = self.act(up)
+        y = _project(self, 'down_proj', h, self.dtype)
         if adapter_ids is not None and self.lora_down is not None:
             self.lora_down(h, y, adapter_ids)
-        return y
+        return _add_bias(self, 'down_proj', y)
 
 
 class DecoderLayer(nn.Module):
-    """Sequential pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
+    """Pre-norm block: sequential, x + attn(norm(x)) then x + mlp(norm(x));
+    or parallel (Falcon, Phi: one attn_norm, no mlp_norm),
+    x + attn(h) + mlp(h) with h = attn_norm(x)."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
+        self.parallel = cfg.parallel_block
         self.attn_norm = RMSNorm(cfg, device)
         self.attn = Attention(cfg, device)
-        self.mlp_norm = RMSNorm(cfg, device)
+        self.mlp_norm = None if self.parallel else RMSNorm(cfg, device)
         self.mlp = SwiGLU(cfg, device)
 
     def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
@@ -470,16 +636,20 @@ class DecoderLayer(nn.Module):
                 k_scale: Optional[torch.Tensor] = None,
                 v_scale: Optional[torch.Tensor] = None,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.attn_norm(x), step, k_pool, v_pool, k_scale,
-                          v_scale, adapter_ids)
+        h = self.attn_norm(x)
+        x = x + self.attn(h, step, k_pool, v_pool, k_scale, v_scale,
+                          adapter_ids)
+        if self.parallel:
+            return x + self.mlp(h, adapter_ids)
         return x + self.mlp(self.mlp_norm(x), adapter_ids)
 
 
 class FullStep(NamedTuple):
     """Per-forward inputs every layer shares on the training path: the
-    rope cos/sin of positions 0..S-1 (or the caller's positions)."""
-    cos: torch.Tensor           # (B, S, 1, D / 2) fp32
-    sin: torch.Tensor
+    rope cos/sin of positions 0..S-1 (or the caller's positions); None
+    without rope."""
+    cos: Optional[torch.Tensor]  # (B, S, 1, rotary_dim / 2) fp32
+    sin: Optional[torch.Tensor]
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -506,7 +676,9 @@ def _remat_context(policy: str):
 
 
 class Transformer(nn.Module):
-    """Embedding, `num_layers` decoder layers, final norm, untied lm_head.
+    """Embedding (plus a learned position table with
+    pos_embedding='learned'), `num_layers` decoder layers, final norm,
+    lm_head (none when tied: the embedding unembeds).
 
     Parameters are created EMPTY on `device` (the card unless the caller
     asks for another; without CUDA the default raises) in
@@ -532,30 +704,59 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
         self.embed = _new_param(cfg, (cfg.vocab_size, cfg.d_model), device)
+        self.pos_embed = (_new_param(cfg, (cfg.max_seq_len, cfg.d_model),
+                                     device)
+                          if cfg.pos_embedding == 'learned' else None)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg, device)
-        self.lm_head = _new_param(cfg, (cfg.d_model, cfg.vocab_size), device)
+        if not cfg.tie_embeddings:
+            _new_projection(self, cfg, 'lm_head',
+                            (cfg.d_model, cfg.vocab_size), cfg.lm_head_bias,
+                            device)
+        rot = rotary_dim(cfg)
         self.register_buffer(
-            'rope_freqs', rope_freqs(cfg.head_dim, cfg.rope_theta,
-                                     cfg.rope_scaling, device=device),
+            'rope_freqs', rope_freqs(rot, cfg.rope_theta, cfg.rope_scaling,
+                                     device=device) if rot else None,
+            persistent=False)
+        # Gemma's sqrt(d_model), rounded to the compute dtype before the
+        # product as the reference rounds it (55.43 → 55.5 in bf16).
+        self.embed_scale = (float(torch.tensor(cfg.d_model ** 0.5,
+                                               dtype=self.dtype))
+                            if cfg.scale_embed_by_dim else None)
+        self.register_buffer(
+            'pad_vocab', torch.arange(cfg.vocab_size, device=device) >=
+            cfg.unpadded_vocab_size
+            if 0 < cfg.unpadded_vocab_size < cfg.vocab_size else None,
             persistent=False)
 
     @torch.no_grad()
     def init_random_(self, seed: int) -> 'Transformer':
         """Seeded random weights in place, from the reference's
-        distributions: the untied embedding N(0, 1); every projection
+        distributions: the embedding N(0, 1) untied, N(0, 1 / d_model)
+        tied; the learned position table N(0, 0.02^2); every projection
         Flax's lecun_normal, a normal cut at +-2 sigma with sigma =
         sqrt(1 / fan_in) / 0.8796 (fan_in = the input axes, the first
-        dimension of each (in, out) matrix); norm scales 1. Draws on the
-        parameters' own device (torch.Generator: other numbers than
-        jax.random from the same seed)."""
+        dimension of each (in, out) matrix); norm scales 1 (0 for
+        'rms_plus1', a delta from 1); biases 0. Draws on the parameters'
+        own device (torch.Generator: other numbers than jax.random from
+        the same seed). Float weights only: int8 weights are made from
+        float ones (models/quantize.py)."""
+        cfg = self.cfg
+        if cfg.weight_quant == 'int8':
+            raise ValueError('init_random_ draws float weights; quantize '
+                             'them with models/quantize.quantize_state')
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         for name, param in self.named_parameters():
             if name.endswith('norm.weight'):
-                param.fill_(1.0)
+                param.fill_(0.0 if cfg.norm_style == 'rms_plus1' else 1.0)
+            elif name.endswith('bias'):
+                param.zero_()
             elif name == 'embed':
-                param.normal_(0.0, 1.0, generator=gen)
+                param.normal_(0.0, cfg.d_model ** -0.5
+                              if cfg.tie_embeddings else 1.0, generator=gen)
+            elif name == 'pos_embed':
+                param.normal_(0.0, 0.02, generator=gen)
             else:
                 _truncated_normal_(param, param.shape[0] ** -0.5 /
                                    _TRUNC_STD, gen)
@@ -602,12 +803,23 @@ class Transformer(nn.Module):
         k_pool/v_pool, written in place (int8 under int8 KV, with the
         (L, NB, bs, KV, 1) scale pools k_scale/v_scale); adapter_ids
         (B,) int32 adapter slots of a multi-LoRA model (None: no deltas).
-        Training: positions default to 0..T-1 and the pools are not used.
+        Positions default to 0..T-1 (training); the pools are not used
+        in training.
         Returns (B, T, vocab) logits in cfg.dtype, or (B, vocab) for the
         single position `logits_at` (an int, or a 0-d int device
         tensor)."""
         cfg = self.cfg
         x = nn.functional.embedding(tokens.long(), self.embed).to(self.dtype)
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
+        if positions is None:
+            positions = _default_positions(tokens)
+        if self.pos_embed is not None:
+            # Pad and inert rows may sit past the table: clamp (their
+            # outputs are never read).
+            x = x + nn.functional.embedding(
+                positions.long().clamp(0, cfg.max_seq_len - 1),
+                self.pos_embed).to(self.dtype)
         if cfg.decode:
             if (k_scale is not None) != (cfg.kv_cache_quant == 'int8'):
                 raise ValueError('int8 KV takes k_scale/v_scale pools, and '
@@ -619,9 +831,9 @@ class Transformer(nn.Module):
                 x = layer(x, step, k_pool[i], v_pool[i], *scales,
                           adapter_ids)
         else:
-            if positions is None:
-                positions = _default_positions(tokens)
-            step = FullStep(*rope_cos_sin(positions, self.rope_freqs))
+            step = FullStep(*(rope_cos_sin(positions, self.rope_freqs)
+                              if self.rope_freqs is not None
+                              else (None, None)))
             remat = cfg.remat and torch.is_grad_enabled()
             context_fn = _remat_context(cfg.remat_policy) if remat else None
             for layer in self.layers:
@@ -636,7 +848,24 @@ class Transformer(nn.Module):
             x = x.index_select(1, logits_at.reshape(1))[:, 0]
         elif logits_at is not None:
             x = x[:, logits_at]
-        return self.final_norm(x) @ self.lm_head.to(self.dtype)
+        return self._head(self.final_norm(x))
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Unembed (tied: x @ embed^T), then the final logit softcap and
+        the padded-vocab mask (rows past unpadded_vocab_size at -1e30)."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            logits = x @ self.embed.to(self.dtype).t()
+        else:
+            logits = _add_bias(self, 'lm_head',
+                               _project(self, 'lm_head', x, self.dtype))
+        if cfg.final_logit_softcap:
+            cap = cfg.final_logit_softcap
+            logits = (cap * torch.tanh(logits.float() / cap)).to(
+                logits.dtype)
+        if self.pad_vocab is not None:
+            logits = logits.masked_fill(self.pad_vocab, -1e30)
+        return logits
 
 
 def _default_positions(tokens: torch.Tensor) -> torch.Tensor:

@@ -121,7 +121,8 @@ def attend_window(q: torch.Tensor, k_win: torch.Tensor,
                   v_win: torch.Tensor, positions: torch.Tensor,
                   sm_scale: float, window: int = 0,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor] = None,
+                  logit_softcap: float = 0.0) -> torch.Tensor:
     """Score/softmax/weighted-sum over one gathered KV window: the
     reference's `transformer._attend_window`, op for op, float and int8.
 
@@ -129,6 +130,7 @@ def attend_window(q: torch.Tensor, k_win: torch.Tensor,
     given); k_scale/v_scale: (B, S, KV) fp32 or None (together);
     positions: (B, T). Grouped-query attention against the unrepeated
     window; scores in fp32 (the reference's preferred_element_type),
+    capped to cap * tanh(s / cap) after sm_scale when `logit_softcap`,
     masked to -1e30 unless k_pos <= q_pos (and q_pos - k_pos < window).
     Float: probabilities cast to the value dtype before the weighted sum.
     int8: K converts int8 → q's dtype for the score product and its
@@ -147,14 +149,16 @@ def attend_window(q: torch.Tensor, k_win: torch.Tensor,
     if kv_quant:
         scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
     scores = scores * sm_scale
+    if logit_softcap:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
     q_pos = positions[:, :, None]                            # (b, q, 1)
     k_pos = torch.arange(seq_len, device=q.device)[None, None, :]
     mask = k_pos <= q_pos                                    # causal+fill
     if window:
         mask &= q_pos - k_pos < window
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(_NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
+    # A Python scalar, not a host tensor: the 'xla' route runs inside
+    # the engine's CUDA-graph captures, where a host copy is refused.
+    scores = torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     if kv_quant:
         probs = probs * v_scale.transpose(1, 2)[:, :, None, None, :]
@@ -173,11 +177,14 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  k_scale: Optional[torch.Tensor] = None,
                                  v_scale: Optional[torch.Tensor] = None,
                                  sm_scale: Optional[float] = None,
-                                 window: int = 0) -> torch.Tensor:
+                                 window: int = 0,
+                                 logit_softcap: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather every row's whole
     logical window (B, bps * bs, KV, D), and under int8 its scale rows
     (B, bps * bs, KV), through its table, then `attend_window`. Used on
-    the CPU and as the kernel's yardstick of correctness on the card."""
+    the CPU, as the kernel's yardstick of correctness on the card, and
+    as the reference's XLA route (`decode_kernel='xla'`), the only one
+    that serves a logit softcap."""
     batch = q.shape[0]
     num_blocks, block_size, kv_heads, head_dim = k_pool.shape
     blocks_per_seq = block_tables.shape[1]
@@ -194,7 +201,7 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
         k_scale = k_scale.reshape(num_blocks * block_size, kv_heads)[gidx]
         v_scale = v_scale.reshape(num_blocks * block_size, kv_heads)[gidx]
     return attend_window(q, k_win, v_win, positions, sm_scale, window,
-                         k_scale, v_scale)
+                         k_scale, v_scale, logit_softcap)
 
 
 def _lib() -> ctypes.CDLL:

@@ -52,6 +52,8 @@ second SIGTERM waits for the same drain's outcome and exits. POST
 /preempt runs the same run-once drain.
 
 Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
+        [--hf-model-path DIR | --checkpoint-dir DIR] [--quantize int8] \\
+        [--decode-kernel xla] \\
         --paged-block-size 16 --prefill-chunk 256 --num-slots 8 \\
         [--prefix-cache 16] [--top-k K] [--top-p P] \\
         [--async-depth 1] [--decode-chunk 4] [--speculative 4] \\
@@ -164,9 +166,20 @@ class InferenceServer:
                  decode_chunk: int = 1,
                  speculative: int = 0,
                  preempt_drain_timeout: float = 10.0,
+                 checkpoint_dir: Optional[str] = None,
+                 hf_model_path: Optional[str] = None,
+                 quantize: Optional[str] = None,
+                 decode_kernel: str = 'pallas',
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
+        t0 = time.monotonic()
+        if checkpoint_dir and hf_model_path:
+            raise ValueError('--checkpoint-dir and --hf-model-path are '
+                             'mutually exclusive')
+        if checkpoint_dir or hf_model_path:
+            params = self._load_weights(model, max_seq_len, checkpoint_dir,
+                                        hf_model_path, device)
         self.engine = ContinuousBatchingEngine(
             model, params=params, num_slots=num_slots,
             max_seq_len=max_seq_len, rng_seed=rng_seed, top_k=top_k,
@@ -177,7 +190,13 @@ class InferenceServer:
             max_adapters=max_adapters, adapter_rank=adapter_rank,
             adapter_alpha=adapter_alpha, adapter_targets=adapter_targets,
             async_depth=async_depth, decode_chunk=decode_chunk,
-            speculative=speculative, device=device)
+            speculative=speculative, quantize=quantize,
+            decode_kernel=decode_kernel, device=device)
+        # Weights loaded (or drawn, or quantized) and the engine built.
+        self.load_seconds = time.monotonic() - t0
+        logger.info('engine for %s ready in %.2fs (weights: %s)', model,
+                    self.load_seconds,
+                    checkpoint_dir or hf_model_path or 'random')
         self.ready = False
         self.draining = False
         self.preempt_drain_timeout = preempt_drain_timeout
@@ -185,6 +204,28 @@ class InferenceServer:
         # SIGTERM, a /preempt racing one) get its cached outcome.
         self._notice_lock = threading.Lock()
         self._notice_result: Optional[dict] = None
+
+    @staticmethod
+    def _load_weights(model: str, max_seq_len: Optional[int],
+                      checkpoint_dir: Optional[str],
+                      hf_model_path: Optional[str], device) -> dict:
+        """The float state dict of a port training checkpoint directory
+        or of a local HF checkpoint directory, on the engine's device in
+        the serving dtype. An HF conversion sees the max_seq_len override
+        (GPT-2's position table is sliced to it)."""
+        import dataclasses
+
+        from skypilot_tpu_torch.models import convert
+        from skypilot_tpu_torch.models.configs import get_config
+        from skypilot_tpu_torch.models.inference import (
+            load_params_from_checkpoint, resolve_device)
+        cfg = get_config(model)
+        if max_seq_len is not None:
+            cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
+        device = resolve_device(device)
+        if checkpoint_dir:
+            return load_params_from_checkpoint(cfg, checkpoint_dir, device)
+        return convert.load_hf_checkpoint(hf_model_path, cfg, device)
 
     # -- handlers --
 
@@ -911,7 +952,9 @@ class BackgroundServer:
         self._sock.close()
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The server's command line, flag for flag the reference's where the
+    port has the feature."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--model', default='llama3-8b')
     parser.add_argument('--port', type=int, default=8080)
@@ -919,6 +962,24 @@ def main(argv=None) -> int:
                         help='concurrent decode slots (continuous '
                              'batching width)')
     parser.add_argument('--max-seq-len', type=int, default=None)
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help="the port's training checkpoint directory "
+                             '(train.run --checkpoint-dir): serve its '
+                             'latest step\'s params')
+    parser.add_argument('--hf-model-path', default=None,
+                        help='a local HuggingFace checkpoint directory '
+                             '(safetensors or pytorch_model*.bin), '
+                             'converted at load')
+    parser.add_argument('--quantize', default=None, choices=['int8'],
+                        help='weight-only int8 serving: int8 projections '
+                             'with fp32 per-column scales')
+    parser.add_argument('--decode-kernel', default='pallas',
+                        choices=['xla', 'pallas', 'pallas_interpret'],
+                        help='paged attention: pallas (default) launches '
+                             'the paged kernel; xla gathers each row\'s '
+                             'window and attends in plain PyTorch, the '
+                             'route for softcapped models (gemma2-9b) and '
+                             'head dims the kernel does not take (phi-2)')
     parser.add_argument('--paged-block-size', type=int, default=16,
                         help='tokens per KV block of the paged pool')
     parser.add_argument('--prefill-chunk', type=int, default=0,
@@ -973,7 +1034,7 @@ def main(argv=None) -> int:
                              'steps late, overshoot discarded — token '
                              'streams stay bit-identical). 0 = '
                              'synchronous ticks')
-    parser.add_argument('--max-queue-depth', type=int, default=64,
+    parser.add_argument('--max-queue', type=int, default=64,
                         help='queued-request cap; beyond it requests are '
                              'shed with 503 + Retry-After (0 = unbounded)')
     parser.add_argument('--kv-quant', default=None, choices=['int8'],
@@ -1002,11 +1063,15 @@ def main(argv=None) -> int:
     parser.add_argument('--device', default='cuda',
                         help="torch device; 'cuda' (default) raises when "
                              'no GPU is present')
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     server = InferenceServer(args.model, max_seq_len=args.max_seq_len,
                              num_slots=args.num_slots,
-                             max_queue_depth=args.max_queue_depth,
+                             max_queue_depth=args.max_queue,
                              paged_block_size=args.paged_block_size,
                              prefill_chunk=args.prefill_chunk,
                              prefix_cache=args.prefix_cache,
@@ -1020,6 +1085,10 @@ def main(argv=None) -> int:
                              decode_chunk=args.decode_chunk,
                              speculative=args.speculative,
                              preempt_drain_timeout=args.preempt_drain_timeout,
+                             checkpoint_dir=args.checkpoint_dir,
+                             hf_model_path=args.hf_model_path,
+                             quantize=args.quantize,
+                             decode_kernel=args.decode_kernel,
                              device=args.device)
     server.warmup()
     loop = asyncio.new_event_loop()

@@ -38,6 +38,10 @@ class CheckpointManager:
                       if name.isdigit() and os.path.exists(
                           os.path.join(self.directory, name, _STATE_FILE)))
 
+    def state_path(self, step: int) -> str:
+        """The file a published step's state lives in."""
+        return os.path.join(self.directory, str(step), _STATE_FILE)
+
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None

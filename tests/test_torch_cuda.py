@@ -1410,3 +1410,33 @@ def test_verify_graph_equals_eager_verify(case, sampling):
                 assert torch.equal(t, s)
     finally:
         engine.stop()
+
+
+# ------------------------------------------------------ int8 weight product
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('lead,n_in,n_out', [
+    ((1, 8), 4096, 6144),         # llama3-8b decode tick, fused qkv
+    ((1, 256), 4096, 28672),      # a prefill chunk, fused gate,up
+    ((2, 7), 80, 96),             # two rows of an odd width
+])
+def test_int8_matmul_matches_dequantized_product(dtype, lead, n_in, n_out):
+    """transformer.int8_matmul on the card (bf16: torch.mm with an fp32
+    accumulator, reshaped back; fp32: x @ q) against (x.float() @
+    q.float()) * scale, the reference's QuantDenseGeneral in fp32, within
+    the file's tolerance of the compute dtype."""
+    _need_gpu()
+    from skypilot_tpu_torch.models.quantize import quantize_weight
+    from skypilot_tpu_torch.models.transformer import int8_matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(n_out)
+    x = torch.randn(*lead, n_in, device='cuda', generator=gen).to(dtype)
+    q, scale = quantize_weight(0.02 * torch.randn(
+        n_in, n_out, device='cuda', generator=gen))
+    got = int8_matmul(x, q, scale, dtype)
+    want = (x.float() @ q.float()) * scale
+    assert got.shape == (*lead, n_out) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, atol=_TOL[dtype],
+                               rtol=_TOL[dtype])

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of skypilot_tpu_torch, and not
 chip_smoke.py, imports jax, flax or anything of the JAX package — not
-even its jax-free modules. Two pins: a subprocess that imports every port
+even its jax-free modules — nor `transformers` or `safetensors`. Two pins: a subprocess that imports every port
 module (and chip_smoke.py's module body) with jax and skypilot_tpu
 blocked, and an AST scan of every import statement in those files. The
 port's own copy of a jax-free reference module keeps the reference's
@@ -70,7 +70,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.serve.tenancy.scheduling',
                 'skypilot_tpu_torch.observability',
                 'skypilot_tpu_torch.observability.metrics',
-                'skypilot_tpu_torch.observability.exposition'):
+                'skypilot_tpu_torch.observability.exposition',
+                'skypilot_tpu_torch.models.quantize',
+                'skypilot_tpu_torch.models.safetensors_file',
+                'skypilot_tpu_torch.models.export_tool'):
         assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
@@ -98,6 +101,17 @@ def test_no_port_file_names_jax_in_an_import(path):
     for name in _imported_names(path):
         root = name.split('.')[0]
         assert root not in ('jax', 'flax', 'skypilot_tpu'), (
+            f'{os.path.relpath(path, _REPO)} imports {name}')
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: os.path.relpath(p, _REPO))
+def test_no_port_file_imports_transformers_or_safetensors(path):
+    """The port reads and writes HF checkpoints itself
+    (models/safetensors_file.py): the machine with the card has neither
+    package."""
+    for name in _imported_names(path):
+        assert name.split('.')[0] not in ('transformers', 'safetensors'), (
             f'{os.path.relpath(path, _REPO)} imports {name}')
 
 
