@@ -10,7 +10,12 @@ leading layer axis, the default `scan_layers=True`) and unscanned
 q/k/v and gate/up concatenated along the output axis into the fused
 projections. `params_to_jax(state, cfg)` is the inverse, into the scanned
 layout. A gradient tree has the param tree's structure, so both
-directions carry gradients too. `adapter_from_jax(tree, cfg)` takes ONE
+directions carry gradients too, and both carry the `lora_a` / `lora_b`
+leaves of a LoRA training tree (cfg.lora_rank > 0 without serve
+adapters): the reference's (in..., r) and (r, out...) leaves of each
+targeted projection become the port's `<name>_lora_a` (in, r) and
+`<name>_lora_b` (r, out) beside the fused projection, and back.
+`adapter_from_jax(tree, cfg)` takes ONE
 LoRA adapter in the reference's models/lora layout (what
 serve/tenancy.adapter_tree_from_lora_params yields; scanned or unscanned)
 and returns the port's per-layer, per-target (A, B) matrices.
@@ -24,7 +29,9 @@ checkpoint with tensors the architecture does not consume;
 `load_hf_checkpoint(path, cfg, device, dtype)` reads a local directory
 with models/safetensors_file, one tensor at a time onto `device` in the
 serving dtype. `to_hf`, `hf_config_for` and `export_hf_checkpoint` are
-the inverse: HF names, config.json and safetensors shards. Nothing here
+the inverse: HF names, config.json and safetensors shards; a LoRA state is
+merged first (models/lora.merge_lora), and adapters under a config
+without LoRA are refused (the reference's export guard). Nothing here
 imports JAX, `transformers` or `safetensors`.
 """
 from __future__ import annotations
@@ -38,10 +45,11 @@ import os
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models import safetensors_file
+from skypilot_tpu_torch.models import lora, safetensors_file
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import (check_supported,
                                                    lora_target_names,
+                                                   lora_training,
                                                    projection_shapes,
                                                    torch_dtype)
 
@@ -94,7 +102,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     weight_quant='int8' each projection's `kernel_q` as int8 and its
     `kernel_scale` as fp32. Every family knob's parameters carry: norm
     biases, projection biases (concatenated like their kernels), the
-    learned position table; a tied model has no lm_head."""
+    learned position table; a tied model has no lm_head. A LoRA training
+    config takes each targeted projection's lora_a / lora_b (in `dtype`
+    too); adapters under any other config are refused."""
     check_supported(cfg)
     d, heads, head_dim = cfg.d_model, cfg.num_heads, cfg.head_dim
     d_mlp, vocab = cfg.d_mlp, cfg.vocab_size
@@ -115,13 +125,35 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
         return torch.from_numpy(np.array(arr, np.float32)).to(device=device)
 
     state: Dict[str, torch.Tensor] = {}
+    targets = lora_target_names(cfg) if lora_training(cfg) else ()
+    rank = cfg.lora_rank
+
+    def put_adapter(module: str, name: str, node, in_dim: int, size: int):
+        """Projection `name`'s lora_a / lora_b, when it is a target."""
+        if name not in targets:
+            if 'lora_a' in node or 'lora_b' in node:
+                raise ValueError(
+                    f'{name} holds lora_a/lora_b but the config does not '
+                    f'train it (lora_rank {cfg.lora_rank}, targets '
+                    f'{cfg.lora_targets!r}): pass the LoRA config, or '
+                    f'merge_lora first')
+            return
+        for leaf, shape in (('lora_a', (in_dim, rank)),
+                            ('lora_b', (rank, size))):
+            arr = np.asarray(node[leaf])
+            if arr.size != shape[0] * shape[1]:
+                raise ValueError(f'{name} {leaf}: expected {shape}, got '
+                                 f'{tuple(arr.shape)}')
+            state[f'{module}.{name}_{leaf}'] = to_torch(arr.reshape(shape))
 
     def put_projection(key: str, nodes, in_dim: int, outs, what: str):
         """Projection `key` from the reference nodes (kernels of shape
         in_shape + out_shape each, flattened to (in_dim, out) and
-        concatenated along the output axis)."""
+        concatenated along the output axis), and their adapters."""
         flat_w, flat_s, flat_b = [], [], []
         for node, out_shape, name in zip(nodes, outs, what):
+            put_adapter(key.rpartition('.')[0], name, node, in_dim,
+                        int(np.prod(out_shape)))
             size = int(np.prod(out_shape))
             kernel = node['kernel_q'] if int8 else node['kernel']
             kernel = np.asarray(kernel)
@@ -186,7 +218,8 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
     reference's scanned param tree, as nested dicts of numpy arrays
     (float32; int8 `kernel_q` under int8 weights): the fused projections
     split back into the reference's q/k/v and gate/up kernels, biases and
-    scales of the reference's shapes, layers stacked on a leading axis."""
+    scales of the reference's shapes, a LoRA state's adapters as each
+    projection's lora_a / lora_b, layers stacked on a leading axis."""
     check_supported(cfg)
     d, head_dim, d_mlp = cfg.d_model, cfg.head_dim, cfg.d_mlp
     int8 = cfg.weight_quant == 'int8'
@@ -195,8 +228,9 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
         t = state[name].detach().cpu()
         return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
 
-    def projection(key: str, in_shape, outs) -> list:
-        """The reference nodes of fused projection `key`."""
+    def projection(key: str, in_shape, outs, names) -> list:
+        """The reference nodes of fused projection `key`, whose parts
+        are the projections `names`."""
         w = arr(key)
         cuts = np.cumsum([int(np.prod(o)) for o in outs])[:-1]
         ws = np.split(w, cuts, axis=1)
@@ -205,12 +239,18 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
         bs = (np.split(arr(key + '_bias'), cuts) if key + '_bias' in state
               else [None] * len(outs))
         nodes = []
-        for w_part, s_part, b_part, out in zip(ws, ss, bs, outs):
+        module = key.rpartition('.')[0]
+        for w_part, s_part, b_part, out, name in zip(ws, ss, bs, outs,
+                                                     names):
             node = ({'kernel_q': w_part.reshape(in_shape + out),
                      'kernel_scale': s_part.reshape(out)} if int8
                     else {'kernel': w_part.reshape(in_shape + out)})
             if b_part is not None:
                 node['bias'] = b_part.reshape(out)
+            adapter = f'{module}.{name}_lora_'
+            if adapter + 'a' in state:
+                node['lora_a'] = arr(adapter + 'a').reshape(in_shape + (-1,))
+                node['lora_b'] = arr(adapter + 'b').reshape((-1,) + out)
             nodes.append(node)
         return nodes
 
@@ -225,14 +265,16 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
         prefix = f'layers.{i}.'
         parts = _attn_heads(cfg)
         qkv = projection(prefix + 'attn.qkv_proj', (d,),
-                         [(n, head_dim) for n in parts.values()])
+                         [(n, head_dim) for n in parts.values()],
+                         list(parts))
         (o,) = projection(prefix + 'attn.o_proj',
-                          (cfg.num_heads, head_dim), [(d,)])
+                          (cfg.num_heads, head_dim), [(d,)], ['o_proj'])
         ins = _mlp_ins(cfg)
         ups = projection(prefix + ('mlp.gate_up_proj' if len(ins) == 2
                                    else 'mlp.up_proj'), (d,),
-                         [(d_mlp,)] * len(ins))
-        (down,) = projection(prefix + 'mlp.down_proj', (d_mlp,), [(d,)])
+                         [(d_mlp,)] * len(ins), list(ins))
+        (down,) = projection(prefix + 'mlp.down_proj', (d_mlp,), [(d,)],
+                             ['down_proj'])
         layer = {'attn_norm': norm(prefix + 'attn_norm'),
                  'attn': {**dict(zip(parts, qkv)), 'o_proj': o},
                  'mlp': {**dict(zip(ins, ups)), 'down_proj': down}}
@@ -253,13 +295,9 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
     if cfg.pos_embedding == 'learned':
         tree['pos_embed'] = {'embedding': arr('pos_embed')}
     if not cfg.tie_embeddings:
-        (tree['lm_head'],) = projection('lm_head', (d,), [(cfg.vocab_size,)])
+        (tree['lm_head'],) = projection('lm_head', (d,), [(cfg.vocab_size,)],
+                                        ['lm_head'])
     return tree
-
-
-_LORA_MODULE = {'q_proj': 'attn', 'k_proj': 'attn', 'v_proj': 'attn',
-                'o_proj': 'attn', 'gate_proj': 'mlp', 'up_proj': 'mlp',
-                'down_proj': 'mlp'}
 
 
 def _adapter_shapes(cfg: ModelConfig) -> Dict[str, Tuple[tuple, tuple]]:
@@ -287,7 +325,7 @@ def adapter_layout(cfg: ModelConfig, scanned: bool = True) -> Dict[str, Any]:
         if name not in shapes:
             continue                      # gate on a plain MLP: no module
         a, b = shapes[name]
-        layer.setdefault(_LORA_MODULE[name], {})[name] = {
+        layer.setdefault(lora.projection_module(cfg, name), {})[name] = {
             'lora_a': lead + a, 'lora_b': lead + b}
     if scanned:
         return {'layers': {'layer': layer}}
@@ -556,10 +594,20 @@ def to_hf(state: Mapping[str, torch.Tensor],
     walked backwards, tensors in the state's dtype and device): fused
     projections split, Linear weights transposed to torch's (out, in),
     vocab padding rows stripped (cfg.unpadded_vocab_size), tied models
-    emitting the embedding under lm_head.weight too, as HF ties them."""
+    emitting the embedding under lm_head.weight too, as HF ties them.
+    A LoRA state is merged first (exporting the raw adapters would emit
+    the untuned base); adapters under a config without LoRA training are
+    refused rather than dropped."""
     if cfg.weight_quant == 'int8':
         raise ValueError('int8 weights are a serving format; export the '
                          'float weights')
+    if lora_training(cfg):
+        state = lora.merge_lora(state, cfg)
+    elif lora.has_lora(state):
+        raise ValueError(
+            'state holds lora_a/lora_b adapters but cfg.lora_rank == 0: '
+            'pass the LoRA config (or merge_lora first) — a silent '
+            'export here would drop the fine-tune')
     layout = _hf_layout(cfg)
     n = (cfg.unpadded_vocab_size
          if 0 < cfg.unpadded_vocab_size < cfg.vocab_size else cfg.vocab_size)

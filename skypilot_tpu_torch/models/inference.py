@@ -1938,32 +1938,62 @@ class ContinuousBatchingEngine:
 
 
 def load_params_from_checkpoint(cfg: ModelConfig, checkpoint_dir: str,
-                                device='cpu') -> Dict[str, torch.Tensor]:
+                                device='cpu', lora_meta: Optional[dict] = None
+                                ) -> Dict[str, torch.Tensor]:
     """The model weights of the latest step of a training checkpoint
     directory the port's train/run.py wrote (train/checkpoints.py), on
     `device` in the serving dtype cfg.dtype. Params only: the file is
     memory-mapped and only the model's entries are read, so the Adam
     moments never reach the device (the reference's params-only partial
-    restore). A LoRA run's `lora.json` sidecar is refused: LoRA training
-    is not ported (ROADMAP.md item 6)."""
+    restore).
+
+    A LoRA run (train.run --lora-rank writes a `lora.json` sidecar) is
+    restored with the adapter structure recorded there and merged
+    (models/lora.merge_lora) into plain base weights: `serve.server
+    --checkpoint-dir <lora run>` serves the fine-tune. `lora_meta`
+    ({lora_rank, lora_alpha, lora_targets}) stands in for a missing
+    sidecar (export_tool's --lora-rank). Refused, as the reference
+    refuses them: a checkpoint holding adapters without the sidecar
+    (serving it would drop the fine-tune), and one whose adapters are not
+    the sidecar's."""
+    from skypilot_tpu_torch.models import lora
     from skypilot_tpu_torch.train import checkpoints
     directory = os.path.expanduser(checkpoint_dir)
-    if os.path.exists(os.path.join(directory, 'lora.json')):
-        raise NotImplementedError(
-            f'{checkpoint_dir} is a LoRA checkpoint (lora.json): LoRA '
-            f'training and merging are not ported yet (ROADMAP.md item 6)')
     if not os.path.isdir(directory):
         raise FileNotFoundError(f'no checkpoint directory {checkpoint_dir}')
+    lora_meta = lora.read_sidecar(directory) or lora_meta
+    lora_cfg = (dataclasses.replace(cfg, **lora_meta) if lora_meta
+                else None)
     manager = checkpoints.CheckpointManager(directory)
     step = manager.latest_step()
     if step is None:
         raise FileNotFoundError(f'no checkpoint step in {checkpoint_dir}')
-    saved = torch.load(manager.state_path(step), map_location='cpu',
-                       mmap=True, weights_only=True)
+    saved = manager.model_state(step, map_location='cpu', mmap=True)
+    # Merged at the wider of the stored and the serving dtype (the
+    # reference restores into its param dtype and merges there), then
+    # cast once.
     dtype = getattr(torch, cfg.dtype)
-    params = {key: value.to(device=device, dtype=dtype, copy=True)
-              for key, value in saved['model'].items()}
+    params = {key: value.to(device=device, copy=True,
+                            dtype=torch.promote_types(value.dtype, dtype))
+              for key, value in saved.items()}
+    if lora_cfg is not None:
+        have = {key for key in params if lora.is_adapter_key(key)}
+        if have != lora.adapter_keys(lora_cfg):
+            raise ValueError(
+                f'{checkpoint_dir}: its LoRA adapters ({len(have)} '
+                f'tensors) are not those of its lora.json sidecar (rank '
+                f'{lora_cfg.lora_rank}, targets {lora_cfg.lora_targets!r})')
+        logger.info('LoRA checkpoint (rank %d, alpha %s, targets %s): '
+                    'merging adapters into base weights for serving',
+                    lora_cfg.lora_rank, lora_cfg.lora_alpha,
+                    lora_cfg.lora_targets)
+        params = lora.merge_lora(params, lora_cfg)
+    elif lora.has_lora(params):
+        raise ValueError(
+            f'{checkpoint_dir} holds LoRA adapters but has no lora.json '
+            f'sidecar: serving it with a plain config would drop the '
+            f'fine-tune. Restore the sidecar the training run wrote.')
+    params = {key: value.to(dtype) for key, value in params.items()}
     logger.info('restored %s params from step %d of %s', cfg.name, step,
                 checkpoint_dir)
     return params
-

@@ -46,6 +46,19 @@ Layout choices:
   z * (alpha / r) in the compute dtype to its column slice of that
   output in place, before the split, rope and SiLU (the reference adds
   it to each target's own projection: the same numbers).
+- LoRA training (cfg.lora_rank = r > 0 without serve adapters): each
+  targeted projection also holds `<name>_lora_a` (in, r), drawn from
+  N(0, 1/r), and `<name>_lora_b` (r, out), zeros, in the param dtype,
+  trainable; every other parameter is frozen (requires_grad False, so
+  autograd computes no base dW). The reference's LoRADenseGeneral
+  computes y = W·x + (alpha / r)·B(A(x)) in the compute dtype: z = x·A,
+  then z·B, then `* (alpha / r)`, then the add, and only then the bias.
+  Here the base product of a fused projection stays one GEMM and each
+  target's delta is added to its column slice (plain products under
+  autograd: the reference's are XLA dots, not a Pallas kernel, and
+  kernel 7 has no backward). The adapters are drawn after every base
+  parameter, so a LoRA model's base equals the plain model's from the
+  same seed.
 - `cfg.remat` is per-layer `torch.utils.checkpoint` (non-reentrant):
   remat_policy 'dots' saves the matmul outputs (the reference's
   dots_with_no_batch_dims_saveable) through a selective-checkpoint
@@ -74,7 +87,8 @@ Llama, Mistral, Qwen2, Gemma, Gemma-2, Falcon, Phi and GPT-2:
 int8 weights (`weight_quant='int8'`, a serving format made by
 models/quantize.py) keep each projection as int8 plus fp32 per-column
 scales (`<name>_scale`): the reference's QuantDenseGeneral product.
-MoE (`num_experts`) and LoRA training are refused at construction.
+MoE (`num_experts`), and LoRA training over int8 weights (as the
+reference refuses it), are refused at construction.
 """
 from __future__ import annotations
 
@@ -108,10 +122,17 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype if cfg.decode else cfg.param_dtype)
 
 
+def lora_training(cfg: ModelConfig) -> bool:
+    """Whether the model holds trainable LoRA adapters (lora_rank > 0
+    without serve adapters): then only they train."""
+    return cfg.lora_rank > 0 and not cfg.serve_adapters
+
+
 def _new_param(cfg: ModelConfig, shape, device) -> nn.Parameter:
+    """A base parameter: trainable only in training without LoRA."""
     return nn.Parameter(
         torch.empty(shape, device=device, dtype=param_dtype(cfg)),
-        requires_grad=not cfg.decode)
+        requires_grad=not cfg.decode and not lora_training(cfg))
 
 
 def _unsupported_knobs(cfg: ModelConfig) -> list:
@@ -119,8 +140,6 @@ def _unsupported_knobs(cfg: ModelConfig) -> list:
         'num_experts': cfg.num_experts,
         'weight_quant': cfg.weight_quant not in ('none', 'int8'),
         'kv_cache_quant': cfg.kv_cache_quant not in ('', 'int8'),
-        # LoRA training (lora_rank without serve adapters) is not ported.
-        'lora_rank': cfg.lora_rank and not cfg.serve_adapters,
         'pos_embedding': cfg.pos_embedding not in ('rope', 'learned'),
         'norm_style': cfg.norm_style not in ('rms', 'rms_plus1',
                                              'layernorm'),
@@ -137,9 +156,9 @@ QUANT_PROJECTIONS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'up_proj',
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse, at construction, what the port does not serve: MoE, LoRA
-    training, unknown knob values, and (as the reference refuses it)
-    multi-LoRA serving over int8 weights."""
+    """Refuse, at construction, what the port does not serve: MoE,
+    unknown knob values, and (as the reference refuses them) LoRA
+    training and multi-LoRA serving over int8 weights."""
     bad = _unsupported_knobs(cfg)
     if bad:
         raise NotImplementedError(
@@ -156,11 +175,19 @@ def check_supported(cfg: ModelConfig) -> None:
             'WEIGHTS: the adapter delta applies to the float base '
             'projection (serve unquantized, or merge+quantize a '
             'single adapter)')
+    if lora_training(cfg):
+        targeted = [name for name in projection_shapes(cfg)
+                    if name in lora_target_names(cfg)]
+        if cfg.weight_quant == 'int8' and targeted:
+            raise NotImplementedError(
+                'LoRA trains against float base weights; serve the '
+                'merged checkpoint with int8 instead '
+                '(models/lora.merge_lora then quantize)')
     if cfg.serve_adapters:
         if not cfg.decode:
             raise NotImplementedError(
-                'serve_adapters is a serving (decode) knob; LoRA training '
-                'is not ported yet')
+                'serve_adapters is a serving (decode) knob; train LoRA '
+                'adapters with lora_rank alone')
         if cfg.lora_rank <= 0:
             raise ValueError('serve_adapters > 0 requires lora_rank > 0')
         lora_target_names(cfg)
@@ -199,6 +226,18 @@ def projection_shapes(cfg: ModelConfig) -> dict:
     shapes['up_proj'] = (cfg.d_model, cfg.d_mlp)
     shapes['down_proj'] = (cfg.d_mlp, cfg.d_model)
     return shapes
+
+
+def fused_projections(cfg: ModelConfig) -> dict:
+    """Each projection parameter of a layer (its key within the layer) →
+    the reference's projections whose outputs are its column slices, in
+    order (widths from projection_shapes): q/k/v fuse into one GEMM, and
+    gate/up under a GLU MLP."""
+    mlp = ({'mlp.gate_up_proj': ('gate_proj', 'up_proj')}
+           if cfg.mlp_style == 'glu' else {'mlp.up_proj': ('up_proj',)})
+    return {'attn.qkv_proj': ('q_proj', 'k_proj', 'v_proj'),
+            'attn.o_proj': ('o_proj',), **mlp,
+            'mlp.down_proj': ('down_proj',)}
 
 
 def rotary_dim(cfg: ModelConfig) -> int:
@@ -361,6 +400,52 @@ def _project(module: nn.Module, name: str, x: torch.Tensor,
     return x @ w.to(dtype)
 
 
+def _new_adapters(module: nn.Module, cfg: ModelConfig, shapes,
+                  device) -> Tuple[str, ...]:
+    """Register the LoRA training adapters of the targeted projections
+    among `shapes` (name → (in, out)): `<name>_lora_a` (in, r) and
+    `<name>_lora_b` (r, out) in the param dtype, trainable in training.
+    Returns the targeted names (none without LoRA training)."""
+    if not lora_training(cfg):
+        return ()
+    targets = lora_target_names(cfg)
+    names = tuple(name for name in shapes if name in targets)
+    r = cfg.lora_rank
+    for name in names:
+        d_in, d_out = shapes[name]
+        for suffix, shape in (('_lora_a', (d_in, r)), ('_lora_b',
+                                                       (r, d_out))):
+            module.register_parameter(name + suffix, nn.Parameter(
+                torch.empty(shape, device=device, dtype=param_dtype(cfg)),
+                requires_grad=not cfg.decode))
+    return names
+
+
+def _with_adapters(module: nn.Module, y: torch.Tensor, x: torch.Tensor,
+                   names, widths, dtype: torch.dtype) -> torch.Tensor:
+    """y (a fused projection's output, whose column slices are the
+    projections `names` of `widths`) with each targeted slice plus its
+    LoRA delta ((x·A)·B) * (alpha / r), the reference's LoRADenseGeneral
+    order in the compute dtype. Out of place: the saved products stay
+    as autograd (and remat 'dots') saved them."""
+    adapters = module.adapters
+    if not any(name in adapters for name in names):
+        return y
+
+    def delta(name):
+        z = x @ getattr(module, name + '_lora_a').to(dtype)
+        z = z @ getattr(module, name + '_lora_b').to(dtype)
+        return z * module.lora_scale
+
+    if len(names) == 1:
+        return y + delta(names[0])
+    parts = list(torch.split(y, list(widths), dim=-1))
+    for i, name in enumerate(names):
+        if name in adapters:
+            parts[i] = parts[i] + delta(name)
+    return torch.cat(parts, dim=-1)
+
+
 def _add_bias(module: nn.Module, name: str, y: torch.Tensor) -> torch.Tensor:
     bias = getattr(module, name + '_bias')
     return y if bias is None else y + bias.to(y.dtype)
@@ -481,6 +566,7 @@ class Attention(nn.Module):
         self.dtype = torch_dtype(cfg)
         shapes = projection_shapes(cfg)
         q_out, kv_out = shapes['q_proj'][1], shapes['k_proj'][1]
+        self.qkv_names = fused_projections(cfg)['attn.qkv_proj']
         self.qkv_widths = (q_out, kv_out, kv_out)
         _new_projection(self, cfg, 'qkv_proj',
                         (cfg.d_model, q_out + 2 * kv_out), cfg.qkv_bias,
@@ -490,11 +576,14 @@ class Attention(nn.Module):
         self.lora = _lora_stacks(cfg, {
             name: shapes[name]
             for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')}, device)
-        self.lora_qkv = _lora_site(cfg, self.lora, ('q_proj', 'k_proj',
-                                                    'v_proj'),
+        self.lora_qkv = _lora_site(cfg, self.lora, self.qkv_names,
                                    self.qkv_widths)
         self.lora_o = _lora_site(cfg, self.lora, ('o_proj',),
                                  (cfg.d_model,))
+        self.adapters = _new_adapters(self, cfg, {
+            name: shapes[name]
+            for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')}, device)
+        self.lora_scale = cfg.lora_alpha / max(cfg.lora_rank, 1)
 
     def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
@@ -506,7 +595,9 @@ class Attention(nn.Module):
         batch, cur_len, _ = x.shape
         heads, kv_heads, head_dim = (cfg.num_heads, cfg.num_kv_heads,
                                      cfg.head_dim)
-        qkv = _project(self, 'qkv_proj', x, self.dtype)
+        qkv = _with_adapters(self, _project(self, 'qkv_proj', x, self.dtype),
+                             x, self.qkv_names, self.qkv_widths,
+                             self.dtype)
         if adapter_ids is not None and self.lora_qkv is not None:
             self.lora_qkv(x, qkv, adapter_ids)
         qkv = _add_bias(self, 'qkv_proj', qkv)
@@ -529,7 +620,8 @@ class Attention(nn.Module):
                                   logit_softcap=cfg.attn_logit_softcap,
                                   window=cfg.sliding_window)
         out = out.reshape(batch, cur_len, heads * head_dim)
-        y = _project(self, 'o_proj', out, self.dtype)
+        y = _with_adapters(self, _project(self, 'o_proj', out, self.dtype),
+                           out, ('o_proj',), (cfg.d_model,), self.dtype)
         if adapter_ids is not None and self.lora_o is not None:
             self.lora_o(out, y, adapter_ids)
         return _add_bias(self, 'o_proj', y)
@@ -586,7 +678,7 @@ class SwiGLU(nn.Module):
         self.act = (nn.functional.silu if cfg.mlp_activation == 'silu'
                     else _gelu_tanh)
         self.up_name = 'gate_up_proj' if self.glu else 'up_proj'
-        ins = ('gate_proj', 'up_proj') if self.glu else ('up_proj',)
+        ins = fused_projections(cfg)['mlp.' + self.up_name]
         _new_projection(self, cfg, self.up_name,
                         (cfg.d_model, len(ins) * cfg.d_mlp), cfg.mlp_bias,
                         device)
@@ -599,10 +691,17 @@ class SwiGLU(nn.Module):
                                        (self.d_mlp,) * len(ins))
         self.lora_down = _lora_site(cfg, self.lora, ('down_proj',),
                                     (cfg.d_model,))
+        self.up_names = ins
+        self.adapters = _new_adapters(self, cfg, {
+            name: shapes[name] for name in ins + ('down_proj',)}, device)
+        self.lora_scale = cfg.lora_alpha / max(cfg.lora_rank, 1)
+        self.d_model = cfg.d_model
 
     def forward(self, x: torch.Tensor,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        up = _project(self, self.up_name, x, self.dtype)
+        up = _with_adapters(self, _project(self, self.up_name, x, self.dtype),
+                            x, self.up_names, (self.d_mlp,) * len(
+                                self.up_names), self.dtype)
         if adapter_ids is not None and self.lora_gate_up is not None:
             self.lora_gate_up(x, up, adapter_ids)
         up = _add_bias(self, self.up_name, up)
@@ -611,7 +710,8 @@ class SwiGLU(nn.Module):
             h = self.act(gate) * up
         else:
             h = self.act(up)
-        y = _project(self, 'down_proj', h, self.dtype)
+        y = _with_adapters(self, _project(self, 'down_proj', h, self.dtype),
+                           h, ('down_proj',), (self.d_model,), self.dtype)
         if adapter_ids is not None and self.lora_down is not None:
             self.lora_down(h, y, adapter_ids)
         return _add_bias(self, 'down_proj', y)
@@ -738,7 +838,9 @@ class Transformer(nn.Module):
         Flax's lecun_normal, a normal cut at +-2 sigma with sigma =
         sqrt(1 / fan_in) / 0.8796 (fan_in = the input axes, the first
         dimension of each (in, out) matrix); norm scales 1 (0 for
-        'rms_plus1', a delta from 1); biases 0. Draws on the parameters'
+        'rms_plus1', a delta from 1); biases 0; then, after every base
+        parameter, the LoRA adapters: A from N(0, 1/r), B zeros (the
+        forward equals the base model's). Draws on the parameters'
         own device (torch.Generator: other numbers than jax.random from
         the same seed). Float weights only: int8 weights are made from
         float ones (models/quantize.py)."""
@@ -747,8 +849,11 @@ class Transformer(nn.Module):
             raise ValueError('init_random_ draws float weights; quantize '
                              'them with models/quantize.quantize_state')
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
+        adapters = []
         for name, param in self.named_parameters():
-            if name.endswith('norm.weight'):
+            if name.endswith(('_lora_a', '_lora_b')):
+                adapters.append((name, param))
+            elif name.endswith('norm.weight'):
                 param.fill_(0.0 if cfg.norm_style == 'rms_plus1' else 1.0)
             elif name.endswith('bias'):
                 param.zero_()
@@ -760,6 +865,11 @@ class Transformer(nn.Module):
             else:
                 _truncated_normal_(param, param.shape[0] ** -0.5 /
                                    _TRUNC_STD, gen)
+        for name, param in adapters:
+            if name.endswith('_lora_a'):
+                param.normal_(0.0, cfg.lora_rank ** -0.5, generator=gen)
+            else:
+                param.zero_()
         return self
 
     def new_kv_pool(self, num_blocks: int) -> Tuple[torch.Tensor, ...]:

@@ -13,6 +13,11 @@ multiplier is coprime with n; `start_batch` fast-forwards the stream so a
 resumed run sees the batches the interrupted run would have seen next.
 The reference's C++ prefetching loader (skypilot_tpu/native/) is host
 code and not ported; this is its numpy twin, with identical batches.
+
+`SftJsonlDataset` is the reference's supervised fine-tune stream,
+copied as it is (pure Python and numpy): pre-tokenized {"prompt",
+"completion"} JSONL rows, truncated to seq + 1 and right-padded, the
+mask 1 exactly on completion targets, the same dealing, walk and resume.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import glob
 import math
 import os
 import struct
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -127,3 +132,98 @@ class TokenDataset:
             'targets': tokens[:, 1:],
             'mask': np.ones((self.batch_size, self.seq_len), np.int32),
         }
+
+
+class SftJsonlDataset:
+    """Supervised fine-tune batches with prompt-masked loss.
+
+    Input: a JSONL file of pre-tokenized examples, one object per line:
+        {"prompt": [token ids...], "completion": [token ids...]}
+    Each batch row is prompt+completion (truncated to seq+1, right-padded
+    with `pad_id`); `mask` is 1 exactly on completion-token targets, so
+    the trainer's masked cross-entropy (trainer.py: loss uses
+    batch['mask']) never trains on prompt or padding — the torchtune-SFT
+    semantics of the reference's llm/llama-3_1-finetuning recipe, in-tree.
+
+    Host-sharding and ordering follow TokenDataset: examples dealt
+    round-robin to hosts, affine-walk shuffle per epoch, `start_batch`
+    fast-forwards for checkpoint resume.
+    """
+
+    def __init__(self,
+                 path: str,
+                 batch_size: int,
+                 seq_len: int,
+                 host_rank: int = 0,
+                 num_hosts: int = 1,
+                 seed: int = 0,
+                 start_batch: int = 0,
+                 pad_id: int = 0):
+        import json as json_lib
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.pad_id = pad_id
+        examples = []
+        with open(path, encoding='utf-8') as f:
+            for i, line in enumerate(f):
+                line = line.strip()
+                if not line:
+                    continue
+                if i % num_hosts != host_rank:
+                    continue
+                obj = json_lib.loads(line)
+                prompt = list(obj['prompt'])
+                completion = list(obj['completion'])
+                if not completion:
+                    raise ValueError(f'{path}:{i + 1}: empty completion')
+                examples.append((prompt, completion))
+        if len(examples) < batch_size:
+            raise ValueError('not enough data: fewer examples than '
+                             'batch size')
+        self._examples = examples
+        n = len(examples)
+        self._mul, self._add = _gcd_walk_params(seed, n)
+        self._cursor = start_batch
+
+    @property
+    def num_examples(self) -> int:
+        return len(self._examples)
+
+    def _row(self, ex) -> tuple:
+        prompt, completion = ex
+        window = self.seq_len + 1
+        tokens = (prompt + completion)[:window]
+        prompt_len = min(len(prompt), len(tokens))
+        n_tok = len(tokens)
+        row = np.full(window, self.pad_id, np.int32)
+        row[:n_tok] = tokens
+        # Target position p predicts token p+1: train exactly where that
+        # token is a completion token.
+        mask = np.zeros(self.seq_len, np.int32)
+        mask[max(prompt_len - 1, 0):n_tok - 1] = 1
+        return row, mask
+
+    def next_batch(self) -> dict:
+        n = len(self._examples)
+        batch_count = n // self.batch_size
+        b = self._cursor
+        self._cursor += 1
+        epoch, k0 = divmod(b, batch_count)
+        rows = np.empty((self.batch_size, self.seq_len + 1), np.int32)
+        masks = np.empty((self.batch_size, self.seq_len), np.int32)
+        for i in range(self.batch_size):
+            k = k0 * self.batch_size + i
+            j = (self._mul * k + self._add + epoch * 7919) % n
+            rows[i], masks[i] = self._row(self._examples[j])
+        return {
+            'inputs': rows[:, :-1],
+            'targets': rows[:, 1:],
+            'mask': masks,
+        }
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            yield self.next_batch()
+
+    def close(self) -> None:
+        pass

@@ -1,8 +1,8 @@
 """Training: state, optimizer and the train step, on one card or with
 the sequence split over an `sp` ring.
 
-Port of skypilot_tpu/train/trainer.py without the mesh's other axes,
-pipeline or LoRA. A step is: forward over the whole sequence (attention
+Port of skypilot_tpu/train/trainer.py without the mesh's other axes or
+the pipeline. A step is: forward over the whole sequence (attention
 through the flash kernels, or the ring under sequence parallelism) →
 masked cross-entropy → backward → optax's clip_by_global_norm → optax's
 adamw with the warmup-cosine schedule.
@@ -40,6 +40,17 @@ drives it; each point is checked here:
   param; optax's mu_dtype=None); the update runs in fp32.
 What differs is rounding only (e.g. sqrt(v) / sqrt(bc2) for
 sqrt(v / bc2)): within the CPU tests' 2e-5 of the JAX train step.
+
+LoRA (cfg.lora_rank > 0): the reference's make_optimizer(lora_only=True),
+a multi_transform of the chain over the lora_a/lora_b leaves against
+set_to_zero for the rest. Here the base parameters do not require grad
+(models/transformer), and `TrainState.params` is the trainable
+parameters only, so autograd computes no base gradient, AdamW holds
+moments for the adapters alone, the clip and the reported grad_norm see
+adapter gradients only (the reference zeroes the frozen gradients before
+its global_norm), weight decay applies to the adapters, the schedule
+counts as before, and a grad_accum accumulator holds adapter leaves only
+(the reference's `_is_trained`).
 """
 from __future__ import annotations
 
@@ -94,12 +105,16 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class TrainState:
     """The model plus the optimizer (AdamW state: moments in the param
-    dtype, update count). Params and moments update in place."""
+    dtype, update count) over the trainable parameters (`params`: every
+    parameter, or under LoRA the adapters). Params and moments update in
+    place."""
 
     def __init__(self, model: Transformer, tc: TrainConfig) -> None:
         self.model = model
         self.tc = tc
-        self.params = list(model.parameters())
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        if not self.params:
+            raise ValueError(f'{model.cfg.name}: no trainable parameters')
         self.optimizer = torch.optim.AdamW(
             self.params, lr=0.0, betas=(tc.b1, tc.b2), eps=1e-8,
             weight_decay=tc.weight_decay, fused=True)

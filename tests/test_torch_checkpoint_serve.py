@@ -8,8 +8,10 @@ with the greedy tokens of an in-process engine on the restored weights;
 in fp32 those weights give the JAX engine's tokens fed the converted
 tree; the restore reads params only (the Adam moments stay in the file);
 `export_tool` writes an HF directory the port's loader reads back bit for
-bit; and the reference's refusals: a LoRA checkpoint (lora.json) and
---checkpoint-dir together with --hf-model-path. The reference's
+bit; and the refusals: a lora.json sidecar over a checkpoint that holds
+no such adapters (LoRA checkpoints themselves are served merged,
+tests/test_torch_finetune_io.py) and --checkpoint-dir together with
+--hf-model-path. The reference's
 `--max-queue` flag parses (fault 5: the port named it --max-queue-depth).
 """
 import json
@@ -165,7 +167,7 @@ def test_lora_checkpoint_and_two_weight_sources_refused(checkpoint,
               encoding='utf-8') as f:
         json.dump({'lora_rank': 4, 'lora_alpha': 8.0,
                    'lora_targets': 'q,v'}, f)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md item 6'):
+    with pytest.raises(ValueError, match='not those of its lora.json'):
         load_params_from_checkpoint(get_config('test-tiny'), lora_dir)
     with pytest.raises(ValueError, match='mutually exclusive'):
         server_lib.InferenceServer('test-tiny', checkpoint_dir=checkpoint,

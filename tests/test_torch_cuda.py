@@ -1440,3 +1440,61 @@ def test_int8_matmul_matches_dequantized_product(dtype, lead, n_in, n_out):
     assert got.shape == (*lead, n_out) and got.dtype == dtype
     torch.testing.assert_close(got.float(), want, atol=_TOL[dtype],
                                rtol=_TOL[dtype])
+
+
+# ------------------------------------------------------- LoRA train step
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('targets', ['q,v', 'q,k,v,o,gate,up,down'])
+def test_lora_train_steps_on_the_card_equal_the_cpu_steps(targets):
+    """Two LoRA train steps (lr 0, then lr > 0, clipping active) of one
+    small fp32 model (head_dim 128: the flash kernels) from identical
+    seeded weights and a masked batch, on the card and on the CPU (the
+    plain versions). Tolerances, chip_smoke's train_parity ones: loss and
+    grad_norm 1e-4 relative (fp32 sums in other orders), adapters 5e-5
+    absolute after the update; every base tensor bit-unchanged on both."""
+    _need_gpu()
+    import dataclasses
+
+    from skypilot_tpu_torch.models import lora
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        get_config('llama3-1b'), name='lora-parity-small', vocab_size=1024,
+        d_model=512, num_layers=2, num_heads=4, num_kv_heads=2, d_mlp=1024,
+        max_seq_len=512, dtype='float32', param_dtype='float32',
+        lora_rank=8, lora_alpha=16.0, lora_targets=targets)
+    tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=10, grad_clip_norm=0.01)
+    gen = torch.Generator().manual_seed(4)
+    batches = [trainer.synthetic_batch(gen, 2, 200, cfg.vocab_size)
+               for _ in range(2)]
+    for b in batches:
+        b['mask'][:, :37] = 0                      # a prompt, SFT-style
+    results = {}
+    for device in ('cpu', 'cuda'):
+        state = trainer.create_train_state(cfg, tc, device='cpu', seed=5)
+        base = {k: v.clone() for k, v in state.model.state_dict().items()
+                if not lora.is_adapter_key(k)}
+        state.model.to(device)
+        state = trainer.TrainState(state.model, tc)
+        step = trainer.make_train_step()
+        metrics = [step(state, {k: v.to(device) for k, v in b.items()})
+                   for b in batches]
+        after = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        for key, value in base.items():
+            assert torch.equal(after[key], value), (device, key)
+        results[device] = ([(float(m['loss']), float(m['grad_norm']))
+                            for m in metrics], after)
+    (cpu_metrics, cpu_state), (gpu_metrics, gpu_state) = (results['cpu'],
+                                                          results['cuda'])
+    for (l_c, n_c), (l_g, n_g) in zip(cpu_metrics, gpu_metrics):
+        assert n_c > tc.grad_clip_norm
+        assert abs(l_c - l_g) <= 1e-4 * abs(l_c)
+        assert abs(n_c - n_g) <= 1e-4 * abs(n_c)
+    for key in lora.adapter_keys(cfg):
+        torch.testing.assert_close(gpu_state[key], cpu_state[key],
+                                   atol=5e-5, rtol=0)
+    assert max(float(cpu_state[k].abs().max()) for k in
+               lora.adapter_keys(cfg) if k.endswith('_lora_b')) > 0

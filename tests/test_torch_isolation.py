@@ -5,7 +5,8 @@ module (and chip_smoke.py's module body) with jax and skypilot_tpu
 blocked, and an AST scan of every import statement in those files. The
 port's own copy of a jax-free reference module keeps the reference's
 code: serve/tenancy/scheduling.py is pinned equal to the reference's,
-its module docstring aside.
+its module docstring aside, and so are callbacks/base.py and
+train/data.py's SftJsonlDataset (with the walk it draws from).
 """
 import ast
 import os
@@ -73,7 +74,11 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.observability.exposition',
                 'skypilot_tpu_torch.models.quantize',
                 'skypilot_tpu_torch.models.safetensors_file',
-                'skypilot_tpu_torch.models.export_tool'):
+                'skypilot_tpu_torch.models.export_tool',
+                'skypilot_tpu_torch.models.lora',
+                'skypilot_tpu_torch.callbacks',
+                'skypilot_tpu_torch.callbacks.base',
+                'skypilot_tpu_torch.train.tokenize_tool'):
         assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
@@ -130,3 +135,22 @@ def test_scheduling_copy_equals_the_reference():
     reference = _code_without_docstring(
         os.path.join(_REPO, 'skypilot_tpu', rel))
     assert port == reference
+
+
+def test_callbacks_copy_equals_the_reference():
+    rel = os.path.join('callbacks', 'base.py')
+    port = _code_without_docstring(os.path.join(_PKG, rel))
+    reference = _code_without_docstring(
+        os.path.join(_REPO, 'skypilot_tpu', rel))
+    assert port == reference
+
+
+@pytest.mark.parametrize('name', ['SftJsonlDataset', '_gcd_walk_params'])
+def test_sft_dataset_copy_equals_the_reference(name):
+    def definition(path):
+        tree = ast.parse(open(path, encoding='utf-8').read(), filename=path)
+        (node,) = [n for n in tree.body if getattr(n, 'name', None) == name]
+        return ast.dump(node)
+    rel = os.path.join('train', 'data.py')
+    assert definition(os.path.join(_PKG, rel)) == definition(
+        os.path.join(_REPO, 'skypilot_tpu', rel))

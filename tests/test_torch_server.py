@@ -251,17 +251,26 @@ PORTED_METRICS = {
         'skytpu_server_request_seconds', 'skytpu_server_requests_total',
         'skytpu_server_shed_total', 'skytpu_server_draining',
         'skytpu_server_preempt_notices_total'),
+    'skypilot_tpu.train.metrics': (
+        'skytpu_train_step_seconds', 'skytpu_train_tokens_per_sec',
+        'skytpu_train_mfu', 'skytpu_train_steps_timed_total',
+        'skytpu_train_opt_state_bytes',
+        'skytpu_train_opt_state_bytes_per_device'),
 }
 
 
 def test_metrics_parse_and_names_equal_the_reference(live):
     """/metrics parses with the port's strict parser; its families are
-    exactly the ported list, each defined in the reference under the same
-    name, kind, labels and buckets; the counts follow the traffic."""
+    exactly the ported list (each module and its port imported: the
+    registry is process-wide), each defined in the reference under the
+    same name, kind, labels and buckets; the counts follow the
+    traffic."""
     from skypilot_tpu.observability import metrics as jax_obs
     from skypilot_tpu_torch.observability import metrics as obs
     for module in PORTED_METRICS:
         importlib.import_module(module)
+        importlib.import_module(module.replace('skypilot_tpu.',
+                                               'skypilot_tpu_torch.', 1))
     _post(live['url'] + '/generate', {'prompt_ids': live['prompts'],
                                       'max_new_tokens': _MAX_NEW})
     with urllib.request.urlopen(live['url'] + '/metrics', timeout=30) as r:

@@ -53,8 +53,9 @@ def _batches(n, masked=False, seed=0):
     return out
 
 
-def _jax_run(batches, grad_accum=1):
-    jcfg = dataclasses.replace(jax_get_config('test-tiny'), **_KW)
+def _jax_run(batches, grad_accum=1, **over):
+    """`over`: config overrides on top of _KW (e.g. LoRA's)."""
+    jcfg = dataclasses.replace(jax_get_config('test-tiny'), **_KW, **over)
     mesh = build_mesh(MeshConfig(dp=1), jax.devices()[:1])
     state, shardings = jtrainer.create_sharded_state(
         jcfg, mesh, jax.random.PRNGKey(0), jtrainer.TrainConfig(**_TC))
@@ -71,13 +72,14 @@ def _jax_run(batches, grad_accum=1):
 
 
 def _port_state(params0, cfg):
+    """A TrainState of `cfg` holding the carried-across JAX params."""
     model = Transformer(cfg, device='cpu')
     model.load_state_dict(params_from_jax(params0, cfg, dtype='float32'))
     return trainer.TrainState(model, trainer.TrainConfig(**_TC))
 
 
-def _port_run(params0, batches, grad_accum=1):
-    cfg = get_config('test-tiny', **_KW)
+def _port_run(params0, batches, grad_accum=1, **over):
+    cfg = get_config('test-tiny', **_KW, **over)
     state = _port_state(params0, cfg)
     step = trainer.make_train_step(grad_accum=grad_accum)
     metrics = []
