@@ -229,9 +229,29 @@ and passed over):
             export (kernel 1): equal tokens; the tenant's agreement with
             the merged model reported with the logit margin where a token
             differs.
+  moe:      the reference's MoE models at published width, seeded random
+            bf16 weights made on the card (none written to disk), each
+            freed before the next: mixtral-8x7b (8 of 32 layers, 8
+            experts top 2) behind the HTTP server, serve's 8 prompts and
+            slots queued in order on a held engine at async depth 0, 1,
+            1, 0 (tokens equal across runs, launches exact), one
+            prompt-lookup speculative K 4 pass, the step breakdown
+            (attention, routing, dispatch, experts, combine) beside the
+            decode step's byte bound, the drop shares of a decode step
+            and a chunk; dbrx (2 of 40 layers, 16 experts top 4, n_rep
+            6) with 4 slots and the families' 4 prompts. On each, layer
+            0's MoE block on a 256-token chunk in bf16 against fp32 under
+            the bf16 routing (MOE_BLOCK_TOL), and the routing decisions
+            an fp32 twin makes otherwise. test-tiny-moe (head_dim 64)
+            fp32 through the engine on the card and the CPU: greedy
+            tokens equal, drops in decode. Then mixtral-8x7b (2 layers)
+            through train.run.main, B 4 x S 2048, 8 steps on one
+            repeated batch: loss falling, flash launches exact, step ms,
+            tokens/s, MFU (active experts), peak memory.
   The kernels and kernels_int8 phases also hold kernels 1 and 2 at the
-  families' shapes (FAMILY_SHAPES: n_rep 7 and 71, head_dim 64 and 256,
-  T 1 and 256, the 4096-key window at positions to 8190) and time them.
+  families' shapes (FAMILY_SHAPES: n_rep 6, 7 and 71, head_dim 64 and
+  256, T 1 and 256, the 4096-key window at positions to 8190) and time
+  them.
 Then: the {"kernels": [...]} line, the nvidia-smi line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -253,6 +273,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM HBM3
 PEAK_OPS_PER_S = {'bfloat16': 989e12,  # dense tensor-core bf16
@@ -295,7 +316,8 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 # The port's torch.profiler ranges: their device-side spans are not
 # kernels.
 RANGES = ('optimizer', 'cross_entropy', 'ring_forward', 'ring_backward',
-          'lora')
+          'lora', 'moe_route', 'moe_dispatch', 'moe_experts', 'moe_combine')
+MOE_RANGES = RANGES[-4:]
 
 
 def device_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -682,9 +704,10 @@ def _decode_rows(max_seq_len: int) -> list:
 # n_rep, head_dim, window, max_seq_len, per-row positions). Grouped rows
 # that are not a power of two (qwen2-7b n_rep 7: 1792 rows a chunk;
 # falcon-7b MQA n_rep 71: a decode step's 71 rows take the prefill route
-# with a ragged second tile), head_dim 64 on the prefill route (gpt2-1.5b,
-# falcon-7b), head_dim 256 (gemma-7b, the decode route at prefill too) and
-# mistral-7b's 4096-key window at positions up to 8190.
+# with a ragged second tile; dbrx n_rep 6: 1536 rows a chunk), head_dim 64
+# on the prefill route (gpt2-1.5b, falcon-7b), head_dim 256 (gemma-7b,
+# the decode route at prefill too) and mistral-7b's 4096-key window at
+# positions up to 8190.
 FAMILY_SHAPES = (
     ('qwen2-7b decode', 8, 1, 4, 7, 128, 0, 8192, _decode_rows(8192)),
     ('qwen2-7b prefill', 1, 256, 4, 7, 128, 0, 8192,
@@ -701,7 +724,9 @@ FAMILY_SHAPES = (
     ('mistral-7b decode w4096', 8, 1, 8, 4, 128, 4096, 8192,
      _decode_rows(8192)),
     ('mistral-7b prefill w4096', 1, 256, 8, 4, 128, 4096, 8192,
-     [list(range(7935, 8191))]))
+     [list(range(7935, 8191))]),
+    ('dbrx decode', 8, 1, 8, 6, 128, 0, 8192, _decode_rows(8192)),
+    ('dbrx prefill', 1, 256, 8, 6, 128, 0, 8192, [list(range(512, 768))]))
 
 
 def _family_shape_cases(torch, pa, kv_quant=False) -> dict:
@@ -1566,6 +1591,20 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
                             key=lambda e: -e.self_device_time_total)[:6]:
                 log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
                     f'x{e.count // 5:<4d} {e.key[:90]}')
+            if cfg.is_moe:
+                # Kernel time under each MoE range (its kernels'
+                # device time), beside the paged kernel's.
+                attention = sum(e.self_device_time_total for e in kernels
+                                if 'paged' in e.key) / 5e3
+                split = {r[4:]: sum(e.device_time_total for e in events
+                                    if e.key == r and
+                                    e.device_type == DeviceType.CPU) / 5e3
+                         for r in MOE_RANGES}
+                rest = kernel_ms / 5 - attention - sum(split.values())
+                log(f'  split, ms per step: attention (kernel 1) '
+                    f'{attention:.3f}, ' + ', '.join(
+                        f'{r} {ms:.3f}' for r, ms in split.items()) +
+                    f'; the rest (projections, norms, lm_head) {rest:.3f}')
             lora = [e for e in events if e.key == 'lora' and
                     e.device_type == DeviceType.CPU]
             if lora:
@@ -1691,9 +1730,10 @@ def _expected_launches(engine, chunks: int, steps: int) -> dict:
     'xla' route, the fused LoRA kernel layers x (chunks + steps) x the
     LoRA groups a layer."""
     first = engine.model.layers[0]
+    mlp = first.mlp
     groups = sum(g is not None for g in (
-        first.attn.lora_qkv, first.attn.lora_o, first.mlp.lora_gate_up,
-        first.mlp.lora_down))
+        first.attn.lora_qkv, first.attn.lora_o, mlp and mlp.lora_gate_up,
+        mlp and mlp.lora_down))
     n = engine.cfg.num_layers * (chunks + steps)
     int8 = bool(engine.cfg.kv_cache_quant)
     # decode_kernel='xla' (a softcap, or a head_dim the kernel does not
@@ -1705,12 +1745,17 @@ def _expected_launches(engine, chunks: int, steps: int) -> dict:
 
 
 def _serve_traffic(torch, engine, url: str, bodies, during=None,
-                   new_tokens: int = 32) -> dict:
+                   new_tokens: int = 32, ordered: bool = False) -> dict:
     """The bodies as concurrent /generate requests, one thread each, with
     the launch counters set to 0 just before and read just after: checks
     every answer (`new_tokens` tokens in the vocabulary) and the launch
     formulas exactly (`_expected_launches` with Σk decode steps, a verify
-    tick one). `during()` runs while the requests are in flight."""
+    tick one). `during()` runs while the requests are in flight.
+    `ordered`: the engine thread is held between ticks while the requests
+    queue one by one in the bodies' order, then released, so every run
+    admits them in one order into the same slots (a MoE dispatch's rows
+    share the experts' capacity: a row's tokens depend on its
+    neighbours)."""
     results = [None] * len(bodies)
     errors = []
 
@@ -1728,8 +1773,29 @@ def _serve_traffic(torch, engine, url: str, bodies, during=None,
     t_start = time.monotonic()
     threads = [threading.Thread(target=send, args=(i,))
                for i in range(len(bodies))]
-    for t in threads:
-        t.start()
+    if ordered:
+        held, release = threading.Event(), threading.Event()
+
+        def hold():
+            held.set()
+            release.wait(600)
+
+        holder = threading.Thread(
+            target=lambda: engine._run_in_tick(hold, timeout=700))  # pylint: disable=protected-access
+        holder.start()
+        held.wait(600)
+        for i, t in enumerate(threads):
+            t.start()
+            deadline = time.monotonic() + 60
+            while engine._queue.qsize() < i + 1:  # pylint: disable=protected-access
+                if time.monotonic() > deadline:
+                    fail(f'request {i} did not reach the queue')
+                time.sleep(0.001)
+        release.set()
+        holder.join()
+    else:
+        for t in threads:
+            t.start()
     if during is not None:
         during()
     for t in threads:
@@ -1760,17 +1826,18 @@ def _serve_traffic(torch, engine, url: str, bodies, during=None,
 
 
 def serve_in_turns(torch, engine, url: str, bodies, label: str, smi: str,
-                   during=None) -> dict:
+                   during=None, ordered: bool = False) -> dict:
     """The same traffic through the same engine at async_depth 0, 1, 1, 0
     (set while it is idle): greedy tokens equal in every run, launch
     formulas exact in every run; TTFT p50 and decode tokens/s per run.
-    `during` runs in the first depth-1 run. Returns that run."""
+    `during` runs in the first depth-1 run; `ordered` as
+    `_serve_traffic`'s. Returns that run."""
     runs = []
     for depth in (0, 1, 1, 0):
         engine.async_depth = depth
         first = depth == 1 and not any(d == 1 for d, _ in runs)
         run = _serve_traffic(torch, engine, url, bodies,
-                             during if first else None)
+                             during if first else None, ordered=ordered)
         t = run['ticks']
         log(f'{label}: async_depth {depth}: {len(bodies)} requests ok in '
             f'{run["wall"]:.2f}s; prefill chunks {run["chunks"]}, decode '
@@ -1779,7 +1846,7 @@ def serve_in_turns(torch, engine, url: str, bodies, label: str, smi: str,
             f'{run["launches"]}, expected {run["expected"]} '
             f'({engine.cfg.num_layers} layers x (chunks + decode steps)); '
             f'TTFT p50 {run["ttft_ms"]:.1f} ms, decode '
-            f'{run["tokens_per_s"]:.1f} tokens/s over 8 slots, peak memory '
+            f'{run["tokens_per_s"]:.1f} tokens/s over {engine.num_slots} slots, peak memory '
             f'{run["peak_gib"]:.2f} GiB [{smi}]')
         if run['launches'] != run['expected']:
             fail(f'{label}: launches {run["launches"]} != '
@@ -3382,7 +3449,7 @@ def _train_run(torch, cfg, batch, seq, steps, extra) -> tuple:
         base_gib = torch.cuda.memory_allocated() / 2**30
         _reset_launches()
         t0 = time.monotonic()
-        run.main(['--model', 'llama3-1b', '--batch', str(batch), '--seq',
+        run.main(['--model', cfg.name, '--batch', str(batch), '--seq',
                   str(seq), '--steps', str(steps), '--data-dir', tmp,
                   '--warmup-steps', '1', '--learning-rate', '1e-3',
                   '--log-every', '1', *extra], history=history)
@@ -4535,11 +4602,367 @@ def phase_finetune(torch, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- moe
+
+MOE_SERVE = dict(paged_block_size=16, prefill_chunk=256, rng_seed=0,
+                 device='cuda')
+# (model, layers kept of its depth, prompt lengths, slots): mixtral with
+# serve's 8 prompts and slots, dbrx with the families' 4 prompts.
+MOE_MODELS = (
+    ('mixtral-8x7b', 8, (20, 117, 214, 311, 408, 505, 602, 700), 8),
+    ('dbrx', 2, (20, 300, 700, 1000), 4))
+MOE_NEW = 32
+MOE_SPEC_K = 4
+MOE_TRAIN = dict(model='mixtral-8x7b', layers=2, batch=4, seq=2048, steps=8)
+# The MoE block's bf16 output against an fp32 evaluation of the same
+# block on the same input under the bf16 run's routing: max abs
+# difference over max |output|. Only rounding differs: the bf16 expert
+# buffers, gate/up products and SiLU product each round to 2^-8
+# relative before the down product sums 14336 (10752) of them, as
+# FAMILY_LOGIT_TOL's one bf16 step through a layer.
+MOE_BLOCK_TOL = 3e-2
+
+
+def _moe_model(name: str, layers: int) -> str:
+    """The registered name of `name` cut to `layers` layers (what the
+    server's and train.run's --model take)."""
+    from skypilot_tpu_torch.models import configs
+    cut = f'{name}-{layers}l'
+    configs._register(dataclasses.replace(  # pylint: disable=protected-access
+        configs.get_config(name), name=cut, num_layers=layers))
+    return cut
+
+
+def _moe_drops(block, x) -> tuple:
+    """(dropped, total) (token, choice) assignments of one call of MoE
+    `block` on x (B, T, d): the capacity rule applied to moe.route's
+    choices, outside the block."""
+    from skypilot_tpu_torch.models import moe
+    cfg = block.cfg
+    k, e = cfg.experts_per_token, cfg.num_experts
+    idx, _ = moe.route(x, block.router, k)
+    gs = moe.group_size(x.shape[0] * x.shape[1])
+    cap = moe.capacity(gs, k, e, cfg.moe_capacity_factor)
+    pos = moe.positions(idx.reshape(-1, gs, k), e)
+    return int((pos >= cap).sum()), pos.numel()
+
+
+class _DropProbe:
+    """Forward hooks on every layer's MoE block counting the dropped
+    (token, choice) assignments by input shape (B, T): every call, or
+    with `first` the first call of each shape in each layer (one eager
+    step of each shape, and no device sync after). Graph replays run no
+    hook: install it after the graphs are captured."""
+
+    def __init__(self, model, first: bool = False) -> None:
+        self.counts, self.first, self.seen = {}, first, set()
+        self.handles = [layer.moe.register_forward_hook(
+            lambda block, args, out, i=i: self._hook(i, block, args))
+            for i, layer in enumerate(model.layers)]
+
+    def _hook(self, layer, block, args) -> None:
+        shape = tuple(args[0].shape[:2])
+        if self.first:
+            if (layer, shape) in self.seen:
+                return
+            self.seen.add((layer, shape))
+        dropped, total = _moe_drops(block, args[0])
+        d, t = self.counts.get(shape, (0, 0))
+        self.counts[shape] = (d + dropped, t + total)
+
+    def share(self, shape) -> str:
+        d, t = self.counts.get(shape, (0, 0))
+        return f'{d}/{t} ({d / max(t, 1):.3f})'
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def _moe_hold_block(torch, model, prompt, smi: str) -> float:
+    """One 256-token chunk of `prompt` through the bf16 model: layer 0's
+    MoE block output held against an fp32 evaluation of the same block
+    (weights upcast, input the bf16 run's) under the bf16 run's routing
+    (indices; the keep mask follows from them); then the routing of an
+    fp32 twin of layer 0 on its own fp32 hidden state, the decisions
+    that differ counted. Returns the relative error."""
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.models.transformer import Transformer
+    cfg = model.cfg
+    device = model.embed.device
+    block = model.layers[0].moe
+    seen = {}
+    handle = block.register_forward_hook(
+        lambda b, args, out: seen.update(x=args[0], out=out))
+    chunk = torch.tensor([prompt[:256]], device=device)
+    _chunk_logits(torch, model, chunk)
+    handle.remove()
+    x, out = seen['x'], seen['out'].float()
+    k = cfg.experts_per_token
+    with torch.inference_mode():
+        idx, probs = moe.route(x, block.router, k)
+        want = moe.dispatch(x.float(), idx, probs, block.w_gate.float(),
+                            block.w_up.float(), block.w_down.float(),
+                            cfg.moe_capacity_factor, torch.float32)
+    rel = float((out - want).abs().max() / want.abs().max())
+    dropped, total = _moe_drops(block, x)
+    # fp32 on its own: a one-layer fp32 twin's hidden state at layer 0.
+    twin_cfg = dataclasses.replace(cfg, num_layers=1, dtype='float32')
+    twin = Transformer(twin_cfg, device=device)
+    state = model.state_dict()
+    twin.load_state_dict({k2: v.float() for k2, v in state.items()
+                          if not k2.startswith('layers.')
+                          or k2.startswith('layers.0.')}, assign=True)
+    del state
+    handle = twin.layers[0].moe.register_forward_hook(
+        lambda b, args, out: seen.update(x32=args[0]))
+    _chunk_logits(torch, twin, chunk)
+    handle.remove()
+    with torch.inference_mode():
+        idx32, _ = moe.route(seen['x32'], twin.layers[0].moe.router, k)
+    same = (torch.sort(idx, dim=-1).values ==
+            torch.sort(idx32, dim=-1).values)
+    flips = int((~same).any(dim=-1).sum())
+    del twin, seen
+    log(f'moe {cfg.name}: layer 0 MoE block on a 256-token chunk, bf16 vs '
+        f'fp32 under the bf16 routing: max abs diff / max |out| = '
+        f'{rel:.3e} (limit {MOE_BLOCK_TOL}); routing on its own in fp32 '
+        f'(a one-layer fp32 twin) picks other experts for {flips} of 256 '
+        f'tokens; the chunk drops {dropped}/{total} (token, choice) '
+        f'assignments (capacity {moe.capacity(256, k, cfg.num_experts, cfg.moe_capacity_factor)}) '
+        f'[{smi}]')
+    if not rel <= MOE_BLOCK_TOL or not bool(torch.isfinite(out).all()):
+        fail(f'moe {cfg.name}: bf16 block differs from fp32 by {rel:.3e}')
+    return rel
+
+
+def _moe_bound_ms(engine, rows: int, context: int) -> tuple:
+    """(bytes, ms) a decode step must move at least: every weight but the
+    embedding table (dispatch runs every expert's buffer, so every
+    expert is read) and the K/V of `rows` rows at `context` tokens, over
+    the card's memory rate."""
+    cfg = engine.cfg
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in engine.model.named_parameters()
+                  if name != 'embed')
+    kv = (rows * context * cfg.num_layers * 2 * cfg.num_kv_heads *
+          cfg.head_dim * engine._k_pool.element_size())  # pylint: disable=protected-access
+    total = weights + kv
+    return total, total / HBM_BYTES_PER_S * 1e3
+
+
+def _moe_serve(torch, name: str, layers: int, lengths, slots: int,
+               smi: str) -> int:
+    """`name` at published width cut to `layers` layers, random bf16
+    weights made on the card, behind the HTTP server: the bodies served
+    at async depth 0, 1, 1, 0 (requests queued in order on a held engine,
+    so every run has one schedule: tokens equal across runs), launch
+    formulas exact; mixtral also one prompt-lookup speculative pass, the
+    step breakdown with the MoE ranges and the drop shares. The block
+    held against fp32. Returns kernel 1's launches of the first run."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    server = InferenceServer(_moe_model(name, layers), num_slots=slots,
+                             **MOE_SERVE)
+    engine = server.engine
+    cfg = engine.cfg
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engine.model.parameters())
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for n, p in engine.model.named_parameters()
+                       if '.moe.w_' in n)
+    log(f'moe {name}: {cfg.num_layers} of {get_config(name).num_layers} layers '
+        f'(d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} '
+        f'heads of {cfg.head_dim}, {cfg.num_experts} experts top '
+        f'{cfg.experts_per_token}, d_mlp {cfg.d_mlp}, vocab '
+        f'{cfg.vocab_size}) built on the card in '
+        f'{time.monotonic() - t0:.1f}s: {n_params} params, '
+        f'{weight_bytes / 1e9:.2f} GB of bf16 weights ({expert_bytes / 1e9:.2f}'
+        f' GB experts); max memory allocated '
+        f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    t0 = time.monotonic()
+    server.warmup()
+    log(f'moe {name}: warm in {time.monotonic() - t0:.1f}s, graphs '
+        f'{engine._steps.keys}')  # pylint: disable=protected-access
+    gen = torch.Generator().manual_seed(1)
+    bodies = [{'prompt_ids': [torch.randint(0, cfg.vocab_size, (n,),
+                                            generator=gen).tolist()],
+               'max_new_tokens': MOE_NEW, 'temperature': 0.0}
+              for n in lengths]
+    http = BackgroundServer(server)
+    try:
+        run = serve_in_turns(torch, engine, http.url, bodies,
+                             f'moe {name}', smi, ordered=True)
+        if name == MOE_MODELS[0][0]:
+            _rest(engine, f'moe {name}')
+            segment = torch.randint(0, cfg.vocab_size, (64,),
+                                    generator=gen).tolist()
+            lookup = [{'prompt_ids': [segment[i:] + segment * 4],
+                       'max_new_tokens': MOE_NEW, 'temperature': 0.0}
+                      for i in range(slots)]
+            _spec_pass(torch, engine, http.url, lookup,
+                       f'moe {name} lookup', smi, MOE_SPEC_K)
+    finally:
+        http.close()
+        server.draining = True
+    if not engine.drain(timeout=120):
+        fail(f'moe {name}: engine did not drain')
+    _rest(engine, f'moe {name}')
+    _moe_hold_block(torch, engine.model, bodies[-1]['prompt_ids'][0], smi)
+    if name == MOE_MODELS[0][0]:
+        probe = _DropProbe(engine.model, first=True)
+        try:
+            timings = step_breakdown(torch, engine, smi)
+        finally:
+            probe.remove()
+        nbytes, bound = _moe_bound_ms(engine, slots, 700)
+        wall, kernels = timings['decode', 'graph']
+        log(f'moe {name}: decode step bound {bound:.3f} ms ({nbytes / 1e9:.2f}'
+            f' GB of weights and K/V at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); '
+            f'graph replay host wall {wall:.3f} ms, CUDA kernels '
+            f'{kernels:.3f} ms ({bound / kernels:.3f} of the bound); '
+            f'(token, choice) assignments dropped: decode step ({slots} rows) '
+            f'{probe.share((slots, 1))}, 256-token chunk '
+            f'{probe.share((1, 256))} over {cfg.num_layers} layers [{smi}]')
+    engine.stop()
+    alive = weakref.ref(engine)
+    del server, engine, http
+    gc.collect()
+    torch.cuda.empty_cache()
+    _freed(alive, f'moe {name}')
+    log(f'moe {name}: freed; {torch.cuda.memory_allocated() / 1e9:.2f} GB '
+        f'still allocated')
+    return run['launches']['paged_decode_attention']
+
+
+def _freed(ref, label: str) -> None:
+    """Fail, naming what holds it, when the object behind weakref `ref`
+    outlived its last name (a model must be freed before the next)."""
+    obj = ref()
+    if obj is None:
+        return
+    chain = []
+    for holder in gc.get_referrers(obj):
+        chain.append(f'{type(holder).__name__} {str(holder)[:120]!r}')
+        if isinstance(holder, dict):
+            chain += [f'  <- {type(h).__name__} {str(h)[:120]!r}'
+                      for h in gc.get_referrers(holder)[:4]]
+    del obj
+    fail(f'{label}: the engine outlived the phase, held by: '
+         + ' | '.join(chain[:12]))
+
+
+def _moe_parity(torch) -> None:
+    """test-tiny-moe (head_dim 64, the kernel's smallest) in fp32 with
+    TF32 off through the paged engine on the card and on the CPU, 4
+    slots and 6 requests queued before either engine starts: greedy
+    tokens equal, and the CPU run drops (token, choice) assignments in
+    its decode steps."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.models.transformer import Transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config('test-tiny-moe', head_dim_override=64,
+                     dtype='float32', param_dtype='float32',
+                     max_seq_len=256)
+    state = Transformer(cfg, device='cpu').init_random_(4).state_dict()
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 37, 100, 17, 64, 23)]
+    devices = ('cpu', 'cuda')
+    outs, probe = {}, None
+    for i, device in enumerate(devices):
+        engine = ContinuousBatchingEngine(
+            cfg, params={k: v.to(device) for k, v in state.items()},
+            num_slots=4, paged_block_size=16, prefill_chunk=32,
+            device=device)
+        if i == 0:
+            probe = _DropProbe(engine.model)
+        engine._ensure_thread = lambda: None  # pylint: disable=protected-access
+        futures = [engine.submit(p, max_new_tokens=12) for p in prompts]
+        del engine._ensure_thread  # pylint: disable=protected-access
+        engine._ensure_thread()  # pylint: disable=protected-access
+        outs[i] = [f.result(timeout=300)[0] for f in futures]
+        if not engine.drain(timeout=60):
+            fail(f'moe parity: the {device} engine did not drain')
+        engine.stop()
+    probe.remove()
+    log(f'moe parity: test-tiny-moe fp32 (head_dim 64), {devices[1]} vs '
+        f'{devices[0]} greedy tokens '
+        f'{"equal" if outs[0] == outs[1] else "DIFFER"}; '
+        f'decode steps on the CPU dropped {probe.share((4, 1))} (token, '
+        f'choice) assignments')
+    if outs[0] != outs[1]:
+        fail(f'moe parity: greedy tokens differ: {outs}')
+    if not probe.counts.get((4, 1), (0, 0))[0]:
+        fail('moe parity: no decode step dropped an assignment')
+
+
+def _moe_train(torch, smi: str) -> dict:
+    """MOE_TRAIN through train.run.main on one repeated batch: loss
+    falling, flash launches steps x layers x (1 + remat) forward, steps
+    x layers dQ and dK/dV; step ms, tokens/s, MFU (the reference's MoE
+    FLOPs: active experts only), peak memory beside the reckoned bf16
+    params, grads and two moments."""
+    from skypilot_tpu_torch.models.configs import get_config
+    t = MOE_TRAIN
+    name = _moe_model(t['model'], t['layers'])
+    cfg = get_config(name, param_dtype='bfloat16')
+    n = cfg.num_params()
+    log(f'moe train {name}: {n} params; bf16 params, grads and two bf16 '
+        f'moments reckoned at {n * 2 * 4 / 1e9:.2f} GB')
+    history, wall, peak_gib, base_gib, launches = _train_run(
+        torch, cfg, t['batch'], t['seq'], t['steps'], [])
+    losses = [h['loss'] for h in history]
+    log(f'moe train {name}: losses on one repeated batch {losses}')
+    if not losses[-1] < losses[0] - 0.1:
+        fail(f'moe train: loss did not fall on a repeated batch: {losses}')
+    recompute = 1 if cfg.remat else 0
+    expected = {'chunk_update': 0,
+                'flash_forward': t['steps'] * cfg.num_layers *
+                (1 + recompute),
+                'flash_dq': t['steps'] * cfg.num_layers,
+                'flash_dkv': t['steps'] * cfg.num_layers}
+    log(f'moe train: launches {launches}, expected {expected}')
+    if launches != expected:
+        fail(f'moe train: launches {launches} != {expected}')
+    step_s, tps, mfu = _step_metrics(cfg, history, t['batch'], t['seq'])
+    log(f'moe train {name}: B {t["batch"]} x S {t["seq"]}, remat '
+        f'{cfg.remat_policy}: {t["steps"]} steps in {wall:.1f}s (model '
+        f'build included); step {step_s * 1e3:.1f} ms (median of steps '
+        f'2..{t["steps"] - 1}), {tps:.0f} tokens/s, MFU {mfu:.4f} of 989 '
+        f'TFLOP/s (active experts only), peak memory {peak_gib:.2f} GiB '
+        f'above the {base_gib:.2f} GiB held before [{smi}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(torch, smi: str) -> dict:
+    """The MoE models: mixtral-8x7b (8 of 32 layers) and dbrx (2 of 40)
+    served at published width, the block held against fp32, card =
+    CPU on test-tiny-moe, mixtral (2 layers) trained. Returns kernel 1's
+    launches per served model and the training launches."""
+    t0 = time.monotonic()
+    out = {'serve': {}}
+    for name, layers, lengths, slots in MOE_MODELS:
+        out['serve'][name] = _moe_serve(torch, name, layers, lengths,
+                                        slots, smi)
+    _moe_parity(torch)
+    out['train'] = _moe_train(torch, smi)
+    log(f'moe: phase done in {time.monotonic() - t0:.1f}s [{smi}]')
+    return out
+
+
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
           'train_sp', 'serve', 'serve_prefix', 'serve_tenant',
           'serve_sched', 'graph_parity', 'families', 'serve_hf',
-          'serve_int8w', 'finetune')
+          'serve_int8w', 'finetune', 'moe')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -4696,6 +5119,18 @@ def main(argv=None) -> int:
                              if n == entry['name']), None)
                 if attr is not None:
                     entry['finetune_launches'] = launched['launches'][attr]
+    if 'moe' in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launched = phase_moe(torch, smi)
+        for entry in kernels:
+            if entry['name'] == 'paged_decode_attention':
+                entry['moe_launches'] = launched['serve']
+            else:
+                attr = next((a for n, a, _ in FLASH_KERNELS
+                             if n == entry['name']), None)
+                if attr is not None:
+                    entry['moe_launches'] = launched['train'][attr]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

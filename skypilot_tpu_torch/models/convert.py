@@ -8,24 +8,27 @@ leading layer axis, the default `scan_layers=True`) and unscanned
 (`layer_{i}/...`). DenseGeneral kernels arrive as (d, H, D) for q/k/v and
 (H, D, d) for o_proj; they flatten to the port's (in, out) matrices, with
 q/k/v and gate/up concatenated along the output axis into the fused
-projections. `params_to_jax(state, cfg)` is the inverse, into the scanned
-layout. A gradient tree has the param tree's structure, so both
-directions carry gradients too, and both carry the `lora_a` / `lora_b`
-leaves of a LoRA training tree (cfg.lora_rank > 0 without serve
-adapters): the reference's (in..., r) and (r, out...) leaves of each
-targeted projection become the port's `<name>_lora_a` (in, r) and
-`<name>_lora_b` (r, out) beside the fused projection, and back.
-`adapter_from_jax(tree, cfg)` takes ONE
-LoRA adapter in the reference's models/lora layout (what
+projections; a MoE layer's `moe/{router,w_gate,w_up,w_down}` carry as
+they are (`layers.{i}.moe.*`). `params_to_jax(state, cfg)` is the
+inverse, into the scanned layout. A gradient tree has the param tree's
+structure, so both directions carry gradients too, and both carry the
+`lora_a` / `lora_b` leaves of a LoRA training tree (cfg.lora_rank > 0
+without serve adapters): the reference's (in..., r) and (r, out...)
+leaves of each targeted projection become the port's `<name>_lora_a`
+(in, r) and `<name>_lora_b` (r, out) beside the fused projection, and
+back. `adapter_from_jax(tree, cfg)` takes ONE LoRA adapter in the
+reference's models/lora layout (what
 serve/tenancy.adapter_tree_from_lora_params yields; scanned or unscanned)
 and returns the port's per-layer, per-target (A, B) matrices.
 
 HF checkpoints (the reference's models/convert.py, producing the port's
 state dict directly): `from_hf(tensors, cfg, device, dtype)` maps an HF
-state dict of the dense families (Llama / Mistral / Qwen2 / Gemma, Phi,
-Falcon's multi_query layout, GPT-2's Conv1D layout) onto the port's
-names, zero-padding vocab rows up to cfg.vocab_size and refusing a
-checkpoint with tensors the architecture does not consume;
+state dict of the reference's families (Llama / Mistral / Qwen2 / Gemma,
+Phi, Falcon's multi_query layout, GPT-2's Conv1D layout, Mixtral's
+per-expert `block_sparse_moe` matrices, DBRX's fused Wqkv and its
+(E·ffn, d) `ffn.experts.mlp` blocks) onto the port's names, zero-padding
+vocab rows up to cfg.vocab_size and refusing a checkpoint with tensors
+the architecture does not consume;
 `load_hf_checkpoint(path, cfg, device, dtype)` reads a local directory
 with models/safetensors_file, one tensor at a time onto `device` in the
 serving dtype. `to_hf`, `hf_config_for` and `export_hf_checkpoint` are
@@ -84,6 +87,13 @@ def _attn_heads(cfg: ModelConfig) -> Dict[str, int]:
 def _mlp_ins(cfg: ModelConfig) -> Tuple[str, ...]:
     return ('gate_proj', 'up_proj') if cfg.mlp_style == 'glu' else (
         'up_proj',)
+
+
+def _moe_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """A MoE layer's parameters (the reference's names) → shapes."""
+    e, d, m = cfg.num_experts, cfg.d_model, cfg.d_mlp
+    return {'router': (d, e), 'w_gate': (e, d, m), 'w_up': (e, d, m),
+            'w_down': (e, m, d)}
 
 
 def _norm_from_jax(node, d: int, what: str, cfg: ModelConfig) -> dict:
@@ -187,7 +197,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
             'pos_embed'))
     for i in range(cfg.num_layers):
         layer = _layer_tree(tree, i)
-        attn, mlp = layer['attn'], layer['mlp']
+        attn = layer['attn']
         prefix = f'layers.{i}.'
         put_norm(prefix + 'attn_norm', layer['attn_norm'], 'attn_norm')
         parts = _attn_heads(cfg)
@@ -198,6 +208,12 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
                        heads * head_dim, [(d,)], ['o_proj'])
         if not cfg.parallel_block:
             put_norm(prefix + 'mlp_norm', layer['mlp_norm'], 'mlp_norm')
+        if cfg.is_moe:
+            for name, shape in _moe_shapes(cfg).items():
+                state[prefix + 'moe.' + name] = to_torch(_expect(
+                    layer['moe'][name], shape, 'moe ' + name))
+            continue
+        mlp = layer['mlp']
         ins = _mlp_ins(cfg)
         put_projection(prefix + ('mlp.gate_up_proj' if len(ins) == 2
                                  else 'mlp.up_proj'),
@@ -269,15 +285,19 @@ def params_to_jax(state: Mapping[str, torch.Tensor],
                          list(parts))
         (o,) = projection(prefix + 'attn.o_proj',
                           (cfg.num_heads, head_dim), [(d,)], ['o_proj'])
-        ins = _mlp_ins(cfg)
-        ups = projection(prefix + ('mlp.gate_up_proj' if len(ins) == 2
-                                   else 'mlp.up_proj'), (d,),
-                         [(d_mlp,)] * len(ins), list(ins))
-        (down,) = projection(prefix + 'mlp.down_proj', (d_mlp,), [(d,)],
-                             ['down_proj'])
         layer = {'attn_norm': norm(prefix + 'attn_norm'),
-                 'attn': {**dict(zip(parts, qkv)), 'o_proj': o},
-                 'mlp': {**dict(zip(ins, ups)), 'down_proj': down}}
+                 'attn': {**dict(zip(parts, qkv)), 'o_proj': o}}
+        if cfg.is_moe:
+            layer['moe'] = {name: arr(prefix + 'moe.' + name)
+                            for name in _moe_shapes(cfg)}
+        else:
+            ins = _mlp_ins(cfg)
+            ups = projection(prefix + ('mlp.gate_up_proj' if len(ins) == 2
+                                       else 'mlp.up_proj'), (d,),
+                             [(d_mlp,)] * len(ins), list(ins))
+            (down,) = projection(prefix + 'mlp.down_proj', (d_mlp,), [(d,)],
+                                 ['down_proj'])
+            layer['mlp'] = {**dict(zip(ins, ups)), 'down_proj': down}
         if not cfg.parallel_block:
             layer['mlp_norm'] = norm(prefix + 'mlp_norm')
         layers.append(layer)
@@ -426,25 +446,27 @@ def _pad_vocab(w: torch.Tensor, vocab: int) -> torch.Tensor:
 class _HFLayout(NamedTuple):
     """One family's HF layout, read forwards by from_hf and backwards by
     to_hf. `entries` are one layer's (port key, HF keys, transposed,
-    widths): several HF keys are the parts the port concatenates along
-    its last axis, `widths` wide; transposed marks torch Linear weights,
-    stored (out, in), the port's transpose."""
+    widths, experts): several HF keys are the parts the port concatenates
+    along its last axis, `widths` wide; transposed marks torch Linear
+    weights, stored (out, in), the port's transpose (of each expert's
+    matrix, for an expert stack). `experts` names how a MoE layer's
+    (E, a, b) stack is stored: 'list', one HF key per expert (Mixtral),
+    or 'block', one (E·rows, cols) HF tensor (DBRX); None for the rest."""
     embed: str                 # embedding key
     final: str                 # final norm module
     layer: str                 # layer prefix, '{}' the index
-    entries: Tuple[Tuple[str, Tuple[str, ...], bool, Optional[tuple]], ...]
+    entries: Tuple[Tuple[str, Tuple[str, ...], bool, Optional[tuple],
+                         Optional[str]], ...]
 
 
 def _hf_family(cfg: ModelConfig) -> str:
     """cfg's HF family, from the flags the forward pass branches on:
-    'phi' (a biased parallel block), 'falcon' (falcon-7b's multi_query
-    parallel block), 'gpt2' (learned positions, Conv1D) or 'llama'
-    (Llama, Mistral, Qwen2, Gemma). Refuses MoE and the layouts no family
-    maps."""
+    'dbrx' (MoE with LayerNorm), 'mixtral' (MoE), 'phi' (a biased
+    parallel block), 'falcon' (falcon-7b's multi_query parallel block),
+    'gpt2' (learned positions, Conv1D) or 'llama' (Llama, Mistral, Qwen2,
+    Gemma). Refuses the layouts no family maps."""
     if cfg.is_moe:
-        raise NotImplementedError(
-            f'{cfg.name}: MoE checkpoints are not ported (the port serves '
-            f'the dense decoder families)')
+        return 'dbrx' if cfg.norm_style == 'layernorm' else 'mixtral'
     if cfg.parallel_block and cfg.qkv_bias:
         if (cfg.mlp_style != 'plain' or cfg.mlp_activation != 'gelu'
                 or cfg.tie_embeddings):
@@ -469,7 +491,24 @@ def _hf_layout(cfg: ModelConfig) -> _HFLayout:
     """cfg's family's HF names, one table for both directions."""
     family = _hf_family(cfg)
     attn = tuple(f'self_attn.{n}_proj' for n in 'qkv')
-    if family == 'gpt2':
+    experts = []
+    if family == 'dbrx':
+        # Wqkv rows are [q (H D), k (KV D), v (KV D)], the port's fused
+        # order; each expert matrix is an (ffn, d) row block, applied as
+        # x·w1ᵀ (gate), x·v1ᵀ (up) and h·w2 (down).
+        top = ('transformer.wte.weight', 'transformer.norm_f',
+               'transformer.blocks.{}.')
+        norms = {'attn_norm': 'norm_attn_norm.norm_1',
+                 'mlp_norm': 'norm_attn_norm.norm_2'}
+        projs = {'attn.qkv_proj': ('norm_attn_norm.attn.Wqkv',),
+                 'attn.o_proj': ('norm_attn_norm.attn.out_proj',)}
+        mlp = 'ffn.experts.mlp.'
+        experts = [('moe.router', ('ffn.router.layer.weight',), True, None,
+                    None),
+                   ('moe.w_gate', (mlp + 'w1',), True, None, 'block'),
+                   ('moe.w_up', (mlp + 'v1',), True, None, 'block'),
+                   ('moe.w_down', (mlp + 'w2',), False, None, 'block')]
+    elif family == 'gpt2':
         # Conv1D weights are (in, out); c_attn packs q, k, v along out.
         top = ('transformer.wte.weight', 'transformer.ln_f',
                'transformer.h.{}.')
@@ -497,26 +536,39 @@ def _hf_layout(cfg: ModelConfig) -> _HFLayout:
         top = ('model.embed_tokens.weight', 'model.norm', 'model.layers.{}.')
         norms = {'attn_norm': 'input_layernorm',
                  'mlp_norm': 'post_attention_layernorm'}
-        projs = {'attn.qkv_proj': attn, 'attn.o_proj': ('self_attn.o_proj',),
-                 'mlp.gate_up_proj': ('mlp.gate_proj', 'mlp.up_proj'),
-                 'mlp.down_proj': ('mlp.down_proj',)}
+        projs = {'attn.qkv_proj': attn, 'attn.o_proj': ('self_attn.o_proj',)}
+        if family == 'mixtral':
+            moe = 'block_sparse_moe.'
+            experts = [('moe.router', (moe + 'gate.weight',), True, None,
+                        None)] + [
+                (f'moe.{port}', tuple(f'{moe}experts.{j}.{hf}.weight'
+                                      for j in range(cfg.num_experts)),
+                 True, None, 'list')
+                for port, hf in (('w_gate', 'w1'), ('w_up', 'w3'),
+                                 ('w_down', 'w2'))]
+        else:
+            projs.update({'mlp.gate_up_proj': ('mlp.gate_proj',
+                                               'mlp.up_proj'),
+                          'mlp.down_proj': ('mlp.down_proj',)})
     kv_w = cfg.num_kv_heads * cfg.head_dim
     widths = {'attn.qkv_proj': (cfg.num_heads * cfg.head_dim, kv_w, kv_w),
               'mlp.gate_up_proj': (cfg.d_mlp, cfg.d_mlp)}
     bias = {'attn.qkv_proj': cfg.qkv_bias, 'attn.o_proj': cfg.o_bias}
     entries = []
     for port, hf in norms.items():
-        entries.append((port + '.weight', (hf + '.weight',), False, None))
+        entries.append((port + '.weight', (hf + '.weight',), False, None,
+                        None))
         if cfg.norm_style == 'layernorm' and cfg.norm_bias:
-            entries.append((port + '.bias', (hf + '.bias',), False, None))
+            entries.append((port + '.bias', (hf + '.bias',), False, None,
+                            None))
     for port, parts in projs.items():
         split = widths.get(port) if len(parts) > 1 else None
         entries.append((port, tuple(k + '.weight' for k in parts),
-                        family != 'gpt2', split))
+                        family != 'gpt2', split, None))
         if bias.get(port, cfg.mlp_bias):
             entries.append((port + '_bias', tuple(k + '.bias' for k in parts),
-                            False, split))
-    return _HFLayout(*top, tuple(entries))
+                            False, split, None))
+    return _HFLayout(*top, tuple(entries + experts))
 
 
 def from_hf(tensors: Mapping[str, torch.Tensor], cfg: ModelConfig,
@@ -525,8 +577,8 @@ def from_hf(tensors: Mapping[str, torch.Tensor], cfg: ModelConfig,
     """An HF state dict (name → tensor, any dtype and device) → the
     port's state dict for Transformer(cfg), each tensor on `device` in
     `dtype` (a torch dtype name; default cfg.dtype), one at a time,
-    through cfg's `_hf_layout`. Refuses MoE (dbrx, mixtral) and leftover
-    tensors, as the reference does."""
+    through cfg's `_hf_layout`. Refuses leftover tensors, as the
+    reference does."""
     layout = _hf_layout(cfg)
     dtype = getattr(torch, dtype) if dtype else torch_dtype(cfg)
     sd = _Tracked(tensors)
@@ -535,8 +587,15 @@ def from_hf(tensors: Mapping[str, torch.Tensor], cfg: ModelConfig,
     def get(key: str) -> torch.Tensor:
         return sd[key].to(device=device, dtype=dtype)
 
-    def take(keys, transposed: bool) -> torch.Tensor:
+    def take(keys, transposed: bool, experts: Optional[str]) -> torch.Tensor:
+        if experts == 'block':
+            (key,) = keys
+            w = get(key)
+            w = w.reshape(cfg.num_experts, -1, w.shape[-1])
+            return (w.transpose(1, 2) if transposed else w).contiguous()
         parts = [get(k).t() if transposed else get(k) for k in keys]
+        if experts == 'list':
+            return torch.stack(parts)
         if len(parts) == 1 and not transposed:
             return parts[0]
         return torch.cat(parts, dim=-1).contiguous()
@@ -551,9 +610,9 @@ def from_hf(tensors: Mapping[str, torch.Tensor], cfg: ModelConfig,
         state['pos_embed'] = wpe[:cfg.max_seq_len].contiguous()
     for i in range(cfg.num_layers):
         prefix = layout.layer.format(i)
-        for port, keys, transposed, _ in layout.entries:
+        for port, keys, transposed, _, experts in layout.entries:
             state[f'layers.{i}.{port}'] = take(
-                [prefix + k for k in keys], transposed)
+                [prefix + k for k in keys], transposed, experts)
     state['final_norm.weight'] = get(layout.final + '.weight')
     if cfg.norm_style == 'layernorm' and cfg.norm_bias:
         state['final_norm.bias'] = get(layout.final + '.bias')
@@ -617,10 +676,15 @@ def to_hf(state: Mapping[str, torch.Tensor],
         sd['transformer.wpe.weight'] = state['pos_embed']
     for i in range(cfg.num_layers):
         prefix = layout.layer.format(i)
-        for port, keys, transposed, widths in layout.entries:
+        for port, keys, transposed, widths, experts in layout.entries:
             value = state[f'layers.{i}.{port}']
+            if experts == 'block':
+                value = (value.transpose(1, 2) if transposed else value)
+                sd[prefix + keys[0]] = value.reshape(
+                    -1, value.shape[-1]).contiguous()
+                continue
             parts = (torch.split(value, list(widths), dim=-1) if widths
-                     else (value,))
+                     else tuple(value) if experts == 'list' else (value,))
             for key, part in zip(keys, parts):
                 sd[prefix + key] = (part.t() if transposed
                                     else part).contiguous()
@@ -656,6 +720,19 @@ def hf_config_for(cfg: ModelConfig, torch_dtype_name: str = 'float32'
     def family(model_type: str, arch: str, **keys) -> Dict[str, Any]:
         return {'model_type': model_type, 'architectures': [arch],
                 'torch_dtype': torch_dtype_name, **keys}
+
+    if hf_family == 'dbrx':
+        return family(
+            'dbrx', 'DbrxForCausalLM', d_model=cfg.d_model,
+            n_heads=cfg.num_heads, n_layers=cfg.num_layers,
+            max_seq_len=cfg.max_seq_len, vocab_size=hf_vocab,
+            attn_config={'kv_n_heads': cfg.num_kv_heads,
+                         'rope_theta': cfg.rope_theta,
+                         'clip_qkv': cfg.qkv_clip or None},
+            ffn_config={'ffn_hidden_size': cfg.d_mlp,
+                        'moe_num_experts': cfg.num_experts,
+                        'moe_top_k': cfg.experts_per_token},
+            tie_word_embeddings=cfg.tie_embeddings)
 
     if hf_family == 'phi':
         return family(
@@ -699,6 +776,10 @@ def hf_config_for(cfg: ModelConfig, torch_dtype_name: str = 'float32'
             'rope_type': 'llama3', 'factor': factor,
             'low_freq_factor': low_f, 'high_freq_factor': high_f,
             'original_max_position_embeddings': int(old_len)}
+    if hf_family == 'mixtral':
+        return family('mixtral', 'MixtralForCausalLM',
+                      num_local_experts=cfg.num_experts,
+                      num_experts_per_tok=cfg.experts_per_token, **common)
     if cfg.norm_style == 'rms_plus1':
         return family('gemma', 'GemmaForCausalLM', head_dim=cfg.head_dim,
                       **common)

@@ -92,7 +92,7 @@ from skypilot_tpu_torch.models.configs import ModelConfig, get_config
 from skypilot_tpu_torch.models import step_graph
 from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models import quantize as quantize_lib
-from skypilot_tpu_torch.models.transformer import Transformer, check_supported
+from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.serve import tenancy
@@ -468,7 +468,7 @@ class ContinuousBatchingEngine:
         if quantize:
             # Refuse what int8 weights do not serve (MoE, adapters) before
             # a float weight is made.
-            check_supported(quantize_lib.int8_config(cfg))
+            quantize_lib.int8_config(cfg)
         self.num_slots = num_slots
         self.top_k, self.top_p = top_k, top_p
         # >0: keep the last N prompts' blocks in an LRU; a prompt sharing

@@ -21,7 +21,8 @@ from typing import Dict, MutableMapping, Tuple
 import torch
 
 from skypilot_tpu_torch.models.configs import ModelConfig
-from skypilot_tpu_torch.models.transformer import QUANT_PROJECTIONS
+from skypilot_tpu_torch.models.transformer import (QUANT_PROJECTIONS,
+                                                   check_supported)
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,12 +36,11 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def int8_config(cfg: ModelConfig) -> ModelConfig:
-    """`cfg` serving int8 weights; refuses MoE as the reference does."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            'int8 serving is dense-model only for now (MoE expert '
-            'kernels keep the dispatch einsum float)')
-    return dataclasses.replace(cfg, weight_quant='int8')
+    """`cfg` serving int8 weights; refuses MoE as the reference does
+    (transformer.check_supported)."""
+    int8 = dataclasses.replace(cfg, weight_quant='int8')
+    check_supported(int8)
+    return int8
 
 
 def is_projection(key: str) -> bool:

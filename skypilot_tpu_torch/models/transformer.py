@@ -84,11 +84,16 @@ Llama, Mistral, Qwen2, Gemma, Gemma-2, Falcon, Phi and GPT-2:
 - attention logit softcap, which only the gather-and-attend route
   (`decode_kernel='xla'`, ops/paged_attention's plain version) serves:
   the kernel refuses it, as the reference's does.
+A MoE config (`num_experts` > 0: Mixtral, DBRX) puts models/moe's
+MoEBlock (`moe.router`, `moe.w_gate`, `moe.w_up`, `moe.w_down`) where
+the dense layer has its MLP; its experts take no LoRA adapter, so only
+the attention projections of a MoE model carry them (an MLP target adds
+nothing, as in the reference).
 int8 weights (`weight_quant='int8'`, a serving format made by
 models/quantize.py) keep each projection as int8 plus fp32 per-column
 scales (`<name>_scale`): the reference's QuantDenseGeneral product.
-MoE (`num_experts`), and LoRA training over int8 weights (as the
-reference refuses it), are refused at construction.
+int8 weights over MoE, and LoRA training over int8 weights (as the
+reference refuses them), are refused at construction.
 """
 from __future__ import annotations
 
@@ -101,6 +106,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.models.moe import MoEBlock
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
 from skypilot_tpu_torch.ops.fused_lora import LoRAGroup
 from skypilot_tpu_torch.ops.paged_attention import (
@@ -137,7 +143,6 @@ def _new_param(cfg: ModelConfig, shape, device) -> nn.Parameter:
 
 def _unsupported_knobs(cfg: ModelConfig) -> list:
     checks = {
-        'num_experts': cfg.num_experts,
         'weight_quant': cfg.weight_quant not in ('none', 'int8'),
         'kv_cache_quant': cfg.kv_cache_quant not in ('', 'int8'),
         'pos_embedding': cfg.pos_embedding not in ('rope', 'learned'),
@@ -156,14 +161,18 @@ QUANT_PROJECTIONS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'up_proj',
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse, at construction, what the port does not serve: MoE,
-    unknown knob values, and (as the reference refuses them) LoRA
-    training and multi-LoRA serving over int8 weights."""
+    """Refuse, at construction, what the port does not serve: unknown
+    knob values, and (as the reference refuses them) int8 weights over
+    MoE, and LoRA training and multi-LoRA serving over int8 weights."""
     bad = _unsupported_knobs(cfg)
     if bad:
         raise NotImplementedError(
             f'{cfg.name}: the PyTorch port serves the dense decoder '
             f'families; not ported yet: {", ".join(bad)}')
+    if cfg.weight_quant == 'int8' and cfg.is_moe:
+        raise NotImplementedError(
+            'int8 serving is dense-model only for now (MoE expert '
+            'kernels keep the dispatch einsum float)')
     if cfg.rotary_pct != 1.0 and not 0.0 < cfg.rotary_pct < 1.0:
         raise ValueError(f'rotary_pct must be in (0, 1], got '
                          f'{cfg.rotary_pct}')
@@ -216,11 +225,14 @@ def lora_target_names(cfg: ModelConfig) -> Tuple[str, ...]:
 def projection_shapes(cfg: ModelConfig) -> dict:
     """Each projection the model has, by the reference's module name →
     (in, out) widths (q/k/v and o flattened over heads; gate_proj only
-    under a GLU MLP)."""
+    under a GLU MLP; no MLP projection under MoE, whose experts are no
+    projections)."""
     q_out = cfg.num_heads * cfg.head_dim
     kv_out = cfg.num_kv_heads * cfg.head_dim
     shapes = {'q_proj': (cfg.d_model, q_out), 'k_proj': (cfg.d_model, kv_out),
               'v_proj': (cfg.d_model, kv_out), 'o_proj': (q_out, cfg.d_model)}
+    if cfg.is_moe:
+        return shapes
     if cfg.mlp_style == 'glu':
         shapes['gate_proj'] = (cfg.d_model, cfg.d_mlp)
     shapes['up_proj'] = (cfg.d_model, cfg.d_mlp)
@@ -232,12 +244,14 @@ def fused_projections(cfg: ModelConfig) -> dict:
     """Each projection parameter of a layer (its key within the layer) →
     the reference's projections whose outputs are its column slices, in
     order (widths from projection_shapes): q/k/v fuse into one GEMM, and
-    gate/up under a GLU MLP."""
+    gate/up under a GLU MLP; attention only under MoE."""
+    attn = {'attn.qkv_proj': ('q_proj', 'k_proj', 'v_proj'),
+            'attn.o_proj': ('o_proj',)}
+    if cfg.is_moe:
+        return attn
     mlp = ({'mlp.gate_up_proj': ('gate_proj', 'up_proj')}
            if cfg.mlp_style == 'glu' else {'mlp.up_proj': ('up_proj',)})
-    return {'attn.qkv_proj': ('q_proj', 'k_proj', 'v_proj'),
-            'attn.o_proj': ('o_proj',), **mlp,
-            'mlp.down_proj': ('down_proj',)}
+    return {**attn, **mlp, 'mlp.down_proj': ('down_proj',)}
 
 
 def rotary_dim(cfg: ModelConfig) -> int:
@@ -718,17 +732,22 @@ class SwiGLU(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: sequential, x + attn(norm(x)) then x + mlp(norm(x));
-    or parallel (Falcon, Phi: one attn_norm, no mlp_norm),
-    x + attn(h) + mlp(h) with h = attn_norm(x)."""
+    """Pre-norm block: sequential, x + attn(norm(x)) then x + mlp(norm(x))
+    (x + moe(norm(x)) under MoE); or parallel (Falcon, Phi: one
+    attn_norm, no mlp_norm), x + attn(h) + mlp(h) with h = attn_norm(x)."""
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
         super().__init__()
         self.parallel = cfg.parallel_block
+        if self.parallel and cfg.is_moe:
+            raise NotImplementedError(
+                'parallel_block + MoE is not modeled (no family uses it); '
+                'use the sequential block for MoE')
         self.attn_norm = RMSNorm(cfg, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = None if self.parallel else RMSNorm(cfg, device)
-        self.mlp = SwiGLU(cfg, device)
+        self.mlp = None if cfg.is_moe else SwiGLU(cfg, device)
+        self.moe = MoEBlock(cfg, device) if cfg.is_moe else None
 
     def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
@@ -741,6 +760,8 @@ class DecoderLayer(nn.Module):
                           adapter_ids)
         if self.parallel:
             return x + self.mlp(h, adapter_ids)
+        if self.moe is not None:
+            return x + self.moe(self.mlp_norm(x))
         return x + self.mlp(self.mlp_norm(x), adapter_ids)
 
 
@@ -837,7 +858,8 @@ class Transformer(nn.Module):
         tied; the learned position table N(0, 0.02^2); every projection
         Flax's lecun_normal, a normal cut at +-2 sigma with sigma =
         sqrt(1 / fan_in) / 0.8796 (fan_in = the input axes, the first
-        dimension of each (in, out) matrix); norm scales 1 (0 for
+        dimension of each (in, out) matrix, E x in for a MoE block's
+        (E, in, out) expert stacks); norm scales 1 (0 for
         'rms_plus1', a delta from 1); biases 0; then, after every base
         parameter, the LoRA adapters: A from N(0, 1/r), B zeros (the
         forward equals the base model's). Draws on the parameters'
@@ -863,8 +885,11 @@ class Transformer(nn.Module):
             elif name == 'pos_embed':
                 param.normal_(0.0, 0.02, generator=gen)
             else:
-                _truncated_normal_(param, param.shape[0] ** -0.5 /
-                                   _TRUNC_STD, gen)
+                # fan_in: every axis but the last (an (E, in, out)
+                # expert stack counts E x in, as flax's lecun_normal
+                # does).
+                _truncated_normal_(param, math.prod(param.shape[:-1]) **
+                                   -0.5 / _TRUNC_STD, gen)
         for name, param in adapters:
             if name.endswith('_lora_a'):
                 param.normal_(0.0, cfg.lora_rank ** -0.5, generator=gen)
@@ -896,6 +921,8 @@ class Transformer(nn.Module):
         projection, in layer order."""
         for i, layer in enumerate(self.layers):
             for module in (layer.attn, layer.mlp):
+                if module is None:
+                    continue
                 for name, stack in module.lora.items():
                     yield i, name, stack
 
@@ -995,7 +1022,7 @@ def _truncated_normal_(param: torch.Tensor, std: float,
     chunks of at most `chunk` elements, so that a large matrix never
     needs a full fp32 copy."""
     lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
-    flat = param.view(param.shape[0], -1)
+    flat = param.view(-1, param.shape[-1])
     rows = max(1, chunk // flat.shape[1])
     for start in range(0, flat.shape[0], rows):
         block = flat[start:start + rows]

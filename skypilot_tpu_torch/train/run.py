@@ -33,8 +33,14 @@ steps on `--eval-batches` fixed batches.
 --nproc-per-node N` (WORLD_SIZE == N) each process takes one chunk: NCCL
 on the cards, gloo with --device cpu; rank 0 logs and checkpoints.
 
+MoE models (mixtral-8x7b, dbrx) train through the same step: autograd
+through models/moe's dispatch, MFU from ModelConfig.flops_per_token's
+active-expert count, as the reference's recipe does
+(`llm/mixtral/train.yaml`: `--model mixtral-8x7b`).
+
 Not ported yet (ROADMAP.md): --zero1, --elastic, --pp/--microbatches/
---pipeline-repeats, --tp, --dp, --ep, --probe-hlo, and LoRA under --sp.
+--pipeline-repeats, --tp, --dp, --ep, --probe-hlo, LoRA under --sp, and
+--sp with a MoE model.
 """
 from __future__ import annotations
 
@@ -122,6 +128,13 @@ def _check_args(args) -> None:
                          f'{args.sp}')
     if args.lora_rank < 0:
         raise SystemExit('--lora-rank must be >= 0')
+    if args.sp:
+        from skypilot_tpu_torch.models.configs import get_config
+        if get_config(args.model).is_moe:
+            raise SystemExit(
+                '--sp with a MoE model is not ported (ROADMAP.md, the rest '
+                'of training: the ring attention path has no MoE layer '
+                'yet): drop --sp')
     if args.lora_rank and args.sp:
         raise SystemExit('LoRA under --sp is not ported (ROADMAP.md, the '
                          'rest of training): drop --sp or --lora-rank')

@@ -1498,3 +1498,67 @@ def test_lora_train_steps_on_the_card_equal_the_cpu_steps(targets):
                                    atol=5e-5, rtol=0)
     assert max(float(cpu_state[k].abs().max()) for k in
                lora.adapter_keys(cfg) if k.endswith('_lora_b')) > 0
+
+
+@pytest.mark.cuda
+def test_moe_block_bf16_on_the_card_matches_fp32_under_its_routing():
+    """A mixtral-width MoE block (one layer's experts, 8 top 2) on a
+    256-token chunk: bf16 output within 3e-2 of max |out| of the fp32
+    block given the bf16 run's routing (chip_smoke's MOE_BLOCK_TOL: the
+    bf16 buffers and products round to 2^-8 before the down product's
+    sum); the dispatch also equal to dense where nothing drops."""
+    _need_gpu()
+    import dataclasses
+
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.models.configs import get_config
+    cfg = dataclasses.replace(get_config('mixtral-8x7b'), d_mlp=2048,
+                              dtype='bfloat16')
+    block = moe.MoEBlock(cfg, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
+        x = torch.randn(1, 256, cfg.d_model, device='cuda',
+                        generator=gen).to(torch.bfloat16)
+        out = block(x).float()
+        idx, probs = moe.route(x, block.router, cfg.experts_per_token)
+        w = [t.float() for t in (block.w_gate, block.w_up, block.w_down)]
+        want = moe.dispatch(x.float(), idx, probs, *w,
+                            cfg.moe_capacity_factor, torch.float32)
+        rel = float((out - want).abs().max() / want.abs().max())
+        assert rel <= 3e-2, rel
+        full = moe.dispatch(x.float(), idx, probs, *w, 8.0, torch.float32)
+        dense = moe.dense(x.float(), idx, probs, *w, torch.float32)
+        torch.testing.assert_close(full, dense, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_engine_tokens_on_the_card_equal_the_cpu_tokens():
+    """test-tiny-moe (head_dim 64) fp32 through the paged engine, 4 slots
+    and 6 requests queued before each engine starts: the card's greedy
+    tokens (kernel 1, CUDA graphs) equal the CPU's."""
+    _need_gpu()
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.models.transformer import Transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config('test-tiny-moe', head_dim_override=64, dtype='float32',
+                     param_dtype='float32', max_seq_len=256)
+    state = Transformer(cfg, device='cpu').init_random_(4).state_dict()
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (5, 37, 100, 17, 64, 23)]
+    outs = []
+    for device in ('cpu', 'cuda'):
+        engine = ContinuousBatchingEngine(
+            cfg, params={k: v.to(device) for k, v in state.items()},
+            num_slots=4, paged_block_size=16, prefill_chunk=32,
+            device=device)
+        engine._ensure_thread = lambda: None  # pylint: disable=protected-access
+        futures = [engine.submit(p, max_new_tokens=12) for p in prompts]
+        del engine._ensure_thread  # pylint: disable=protected-access
+        engine._ensure_thread()  # pylint: disable=protected-access
+        outs.append([f.result(timeout=300)[0] for f in futures])
+        assert engine.drain(timeout=60)
+    assert outs[0] == outs[1]

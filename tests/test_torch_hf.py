@@ -1,13 +1,14 @@
 """Local HF checkpoints in the port: its own safetensors reader and
 writer against the reference's `transformers` path.
 
-Tiny `transformers` models of each dense family (no download) are saved
+Tiny `transformers` models of each family (no download) are saved
 with `save_pretrained` as one `model.safetensors` and as sharded files
 with an index (and once as `pytorch_model.bin`). Pinned: the port's
 `load_hf_checkpoint` gives exactly `params_from_jax` of the reference's
 `load_hf_checkpoint` (which loads through `transformers`), with
-`transformers` and `safetensors` blocked in `sys.modules`; vocab padding;
-the leftover-tensor and MoE refusals; and `export_hf_checkpoint`
+`transformers` and `safetensors` blocked in `sys.modules` (Mixtral's
+per-expert and DBRX's fused expert layouts among them); vocab padding;
+the leftover-tensor refusal; and `export_hf_checkpoint`
 (config.json and safetensors written by the port) reloading in
 `transformers` with logits equal to the port's (within the reference's
 own HF tolerance, tests/test_convert.py's 3e-4), and back through the
@@ -109,8 +110,31 @@ def _gpt2():
                  mlp_bias=True, tie_embeddings=True, norm_eps=1e-5))
 
 
+def _mixtral():
+    # moe_impl='dense': HF routes without capacity (no drops), as the
+    # reference's own HF parity tests set it (tests/test_convert.py).
+    return (transformers.MixtralForCausalLM(transformers.MixtralConfig(
+        num_key_value_heads=2, rope_theta=10000.0, rms_norm_eps=1e-6,
+        num_local_experts=4, num_experts_per_tok=2, **_COMMON)),
+            _cfg(num_experts=4, experts_per_token=2, moe_impl='dense'))
+
+
+def _dbrx():
+    return (transformers.DbrxForCausalLM(transformers.DbrxConfig(
+        d_model=64, n_heads=4, n_layers=2, max_seq_len=64, vocab_size=256,
+        attn_config={'kv_n_heads': 2, 'rope_theta': 10000.0,
+                     'clip_qkv': 8.0},
+        ffn_config={'ffn_hidden_size': 128, 'moe_num_experts': 4,
+                    'moe_top_k': 2},
+        attn_implementation='eager')),
+            _cfg(num_experts=4, experts_per_token=2, moe_impl='dense',
+                 norm_style='layernorm', norm_bias=False, qkv_clip=8.0,
+                 norm_eps=1e-5))
+
+
 FAMILIES = {'llama': _llama, 'mistral': _mistral, 'qwen2': _qwen2,
-            'gemma': _gemma, 'phi': _phi, 'falcon': _falcon, 'gpt2': _gpt2}
+            'gemma': _gemma, 'phi': _phi, 'falcon': _falcon, 'gpt2': _gpt2,
+            'mixtral': _mixtral, 'dbrx': _dbrx}
 
 
 def _build(family, seed=0):
@@ -170,12 +194,16 @@ def test_leftover_tensor_and_moe_refused():
     with pytest.raises(ValueError, match='does not consume'):
         convert.from_hf(qwen.state_dict(), ModelConfig(**dict(
             kw, qkv_bias=False)))
-    with pytest.raises(NotImplementedError, match='MoE'):
-        convert.from_hf({}, ModelConfig(**_cfg(num_experts=4)))
     gpt2, kw = _build('gpt2')
     with pytest.raises(ValueError, match='positions'):
         convert.from_hf(gpt2.state_dict(), ModelConfig(**dict(
             kw, max_seq_len=128)))
+    # MoE layouts load (FAMILIES' mixtral and dbrx); a Mixtral checkpoint
+    # with more experts than the config leaves its last expert unread.
+    mixtral, kw = _build('mixtral')
+    with pytest.raises(ValueError, match='does not consume'):
+        convert.from_hf(mixtral.state_dict(), ModelConfig(**dict(
+            kw, num_experts=3)))
 
 
 def _port_logits(state, cfg, tokens):
@@ -185,8 +213,7 @@ def _port_logits(state, cfg, tokens):
         return model(torch.from_numpy(tokens)).numpy()
 
 
-@pytest.mark.parametrize('family', ['llama', 'mistral', 'qwen2', 'gemma',
-                                    'phi', 'falcon', 'gpt2'])
+@pytest.mark.parametrize('family', list(FAMILIES))
 def test_export_reloads_in_transformers(family, tmp_path):
     model, kw = _build(family, seed=1)
     cfg = ModelConfig(**kw)

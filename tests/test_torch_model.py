@@ -149,16 +149,6 @@ def test_rmsnorm_matches_reference():
                                np.asarray(ref), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize('name', ['mixtral-8x7b', 'dbrx'])
-def test_unported_families_refused_at_construction(name):
-    """MoE is the one family left unported (the dense families are held
-    against the reference in tests/test_torch_families.py)."""
-    cfg = dataclasses.replace(get_config(name), paged_block_size=16,
-                              num_layers=1)
-    with pytest.raises(NotImplementedError, match='not ported'):
-        Transformer(cfg, device='meta')
-
-
 def test_contiguous_layout_refused():
     """Serving (decode) needs the paged layout; the full-sequence
     training path (decode=False) needs no KV layout at all."""

@@ -53,9 +53,9 @@ def _batches(n, masked=False, seed=0):
     return out
 
 
-def _jax_run(batches, grad_accum=1, **over):
+def _jax_run(batches, grad_accum=1, model='test-tiny', **over):
     """`over`: config overrides on top of _KW (e.g. LoRA's)."""
-    jcfg = dataclasses.replace(jax_get_config('test-tiny'), **_KW, **over)
+    jcfg = dataclasses.replace(jax_get_config(model), **_KW, **over)
     mesh = build_mesh(MeshConfig(dp=1), jax.devices()[:1])
     state, shardings = jtrainer.create_sharded_state(
         jcfg, mesh, jax.random.PRNGKey(0), jtrainer.TrainConfig(**_TC))
@@ -78,8 +78,8 @@ def _port_state(params0, cfg):
     return trainer.TrainState(model, trainer.TrainConfig(**_TC))
 
 
-def _port_run(params0, batches, grad_accum=1, **over):
-    cfg = get_config('test-tiny', **_KW, **over)
+def _port_run(params0, batches, grad_accum=1, model='test-tiny', **over):
+    cfg = get_config(model, **_KW, **over)
     state = _port_state(params0, cfg)
     step = trainer.make_train_step(grad_accum=grad_accum)
     metrics = []
