@@ -15,8 +15,11 @@ the flash dQ and dK/dV kernels backward).
 
 It also serves the reference's other dense families (families), a
 qwen2-7b HF checkpoint the port wrote (serve_hf) and llama3-8b with int8
-weights (serve_int8w), and runs the LoRA fine-tune recipe on llama31-8b
-end to end: train, export, serve merged and as a tenant (finetune).
+weights (serve_int8w), runs the LoRA fine-tune recipe on llama31-8b
+end to end: train, export, serve merged and as a tenant (finetune),
+serves the MoE models (moe), and hands KV between servers: prefill and
+decode tiers, prefix export at a preemption notice and pre-warm
+(kv_handoff).
 
 Phases, in this order (any failure exits non-zero; nothing is caught
 and passed over):
@@ -248,6 +251,32 @@ and passed over):
             through train.run.main, B 4 x S 2048, 8 steps on one
             repeated batch: loss falling, flash launches exact, step ms,
             tokens/s, MFU (active experts), peak memory.
+  kv_handoff: KV portability on llama3-8b at full size, one set of
+            seeded bf16 weights shared by every server of the phase
+            (blocks of 16, chunks of 256). A prefill-tier and a
+            decode-tier server (1025 and 2049 pool blocks, async depth
+            0): serve's 8 prompts and a 4000-token prompt, one at a time,
+            POST /kv/prefill to the prefill tier (4-block chunks pushed
+            to the decode tier's /kv/ingest), then /generate on the
+            decode tier: greedy tokens equal to the decode tier's own
+            cold prefill, a pre-warm hit each; chunks, bytes, handoff
+            seconds (gather and push split), TTFT against monolithic.
+            Launches exact and equal to the traffic's formula: kernel 1
+            32 x (prefill tier: Σ chunks + 1 decode step a prompt;
+            decode tier: 1 suffix chunk + 31 decode steps a prompt).
+            Then the decode tier's tokens/s over 7 requests (128 new)
+            while a 4000-token prompt is handed off to it, against it
+            prefilling one itself. Then the preemption rescue:
+            serve_prefix's conversations (3 turns) on a server with a
+            prefix store under the temporary directory (9 entries), POST
+            /preempt exports; a fresh server pre-warms before /health is
+            ready ("prewarm" on it) and serves turn 3 again: 8 chunks, 8
+            pre-warm hits, the original's tokens; artifact bytes, export
+            and import seconds, time to ready; the store deleted. Then
+            int8 KV (kernel 2): one handoff stream (700 tokens) and one
+            artifact round trip (/preempt on the prefill tier, pre-warm
+            of the decode tier; 1500 tokens), tokens equal to cold,
+            launches exact.
   The kernels and kernels_int8 phases also hold kernels 1 and 2 at the
   families' shapes (FAMILY_SHAPES: n_rep 6, 7 and 71, head_dim 64 and
   256, T 1 and 256, the 4096-key window at positions to 8190) and time
@@ -265,6 +294,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1728,7 +1758,8 @@ def _expected_launches(engine, chunks: int, steps: int) -> dict:
     """The serving launch formulas: the paged kernel (its int8 route
     under int8 KV) layers x (prefill chunks + decode steps), none on the
     'xla' route, the fused LoRA kernel layers x (chunks + steps) x the
-    LoRA groups a layer."""
+    LoRA groups a layer. kv_handoff sums it over both tiers' engines
+    (`_kv_launches`)."""
     first = engine.model.layers[0]
     mlp = first.mlp
     groups = sum(g is not None for g in (
@@ -2158,7 +2189,8 @@ def _preempt_under_load(torch, server, url, smi) -> None:
         urllib.request.urlopen(url + '/health', timeout=30)
         fail('serve_sched: /health answered 200 while draining')
     except urllib.error.HTTPError as e:
-        health = (e.code, e.headers.get('Retry-After'))
+        health = (e.code, e.headers.get('Retry-After'),
+                  e.headers.get('X-SkyTPU-Draining'))
     shed = _request(url + '/generate', 'POST', bodies[0])
     notice_thread.join(timeout=300)
     for t in threads:
@@ -2168,7 +2200,7 @@ def _preempt_under_load(torch, server, url, smi) -> None:
     if notice.get('answer') != (200, {'drained': True, 'export': None,
                                       'status': 'drained'}):
         fail(f'serve_sched /preempt answered {notice.get("answer")}')
-    if health[0] != 503 or not health[1]:
+    if health[0] != 503 or not health[1] or health[2] != '1':
         fail(f'serve_sched: /health while draining gave {health}')
     if shed[0] != 503:
         fail(f'serve_sched: /generate while draining gave {shed}')
@@ -2176,7 +2208,8 @@ def _preempt_under_load(torch, server, url, smi) -> None:
         fail('serve_sched /preempt: an in-flight request came back short')
     log(f'serve_sched: POST /preempt with 8 requests in flight answered '
         f'{notice["answer"][1]} in {time.monotonic() - t0:.2f}s; /health '
-        f'{health[0]} (Retry-After {health[1]}) and /generate {shed[0]} '
+        f'{health[0]} (Retry-After {health[1]}, X-SkyTPU-Draining '
+        f'{health[2]}) and /generate {shed[0]} '
         f'while draining; all 8 in-flight requests 200 with {SCHED_NEW} '
         f'tokens [{smi}]')
 
@@ -2809,8 +2842,8 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
         if status != 200 or body['resident'] != 4:
             fail(f'GET /adapters: {status} {body}')
         status, body = _request(http.url + '/health', 'GET')
-        if body != {'status': 'ok', 'adapters': {'capacity': 4,
-                                                  'resident': 4}}:
+        if body != {'status': 'ok', 'tier': 'monolithic',
+                    'adapters': {'capacity': 4, 'resident': 4}}:
             fail(f'/health: {status} {body}')
         lengths = [20, 117, 214, 311, 408, 505, 602, 700]
         adapter_of = [None, 'ad0', 'ad1', 'ad2', 'ad3', None, 'ad0', 'ad1']
@@ -4958,11 +4991,434 @@ def phase_moe(torch, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ kv handoff
+
+KV_SERVE = dict(num_slots=8, paged_block_size=16, prefill_chunk=256,
+                rng_seed=0, prefix_cache=16, device='cuda')
+KV_PREFILL_BLOCKS = 1024 + 1     # the prefill tier: 2 GiB of bf16 pool
+KV_DECODE_BLOCKS = 2048 + 1      # the decode tier: 4 GiB
+KV_LONG = 4000                   # the long prompt's tokens
+KV_NEW = 32                      # new tokens a handed-off request
+KV_TPS_NEW = 128                 # new tokens a request of the decode passes
+# The rescue servers keep the last 9 prompts: turn 3's 8 and one of turn
+# 2's, which the fresh server's warmup prompt evicts after the pre-warm.
+# So the artifact is ~0.9 GiB and the phase writes ~2.7 GiB (artifact,
+# store copy, pre-warm copy) of the call's disk budget.
+KV_RESCUE_CACHE = 9
+KV_INT8_PROMPTS = (700, 1500)
+
+
+def _kv_server(params, warm: bool = True, **kw):
+    """An InferenceServer for llama3-8b over `params` (shared, never
+    copied), warmed and behind HTTP unless warm=False."""
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    for key, value in KV_SERVE.items():
+        kw.setdefault(key, value)
+    server = InferenceServer('llama3-8b', params=params, **kw)
+    if not warm:
+        return server
+    server.warmup()
+    return server, BackgroundServer(server)
+
+
+def _kv_stats(engines) -> list:
+    return [(e.paged_stats['prefill_chunks'], e.tick_stats['decode_steps'])
+            for e in engines]
+
+
+def _kv_launches(engines, before, label: str, derived=None) -> dict:
+    """The launch counters against the formulas summed over `engines`
+    (each layers x (its chunks + its decode steps) since `before`);
+    `derived` (the same per engine, from the traffic's shape) must agree
+    with the stats too."""
+    launches = _serve_launches()
+    deltas = [(c - c0, s - s0) for (c, s), (c0, s0)
+              in zip(_kv_stats(engines), before)]
+    expected = {}
+    for engine, (chunks, steps) in zip(engines, deltas):
+        for k, v in _expected_launches(engine, chunks, steps).items():
+            expected[k] = expected.get(k, 0) + v
+    log(f'kv_handoff {label}: (chunks, decode steps) per engine {deltas}'
+        f'{f", from the traffic {derived}" if derived else ""}; launches '
+        f'{launches}, expected {expected}')
+    if launches != expected or (derived is not None and deltas != derived):
+        fail(f'kv_handoff {label}: launches {launches} / deltas {deltas} '
+             f'!= {expected} / {derived}')
+    return launches
+
+
+def _kv_generate(url: str, ids, new: int = KV_NEW) -> tuple:
+    res = _post(url + '/generate', {'prompt_ids': [ids],
+                                    'max_new_tokens': new})
+    tokens = res['token_ids'][0]
+    if len(tokens) != new:
+        fail(f'kv_handoff: {len(tokens)} tokens of {new}')
+    return tokens, res['stats'][0]['ttft_s']
+
+
+def _kv_cold(server, url, prompts, new: int = KV_NEW) -> list:
+    """Monolithic cold prefills on `server`: its prefix cache off (no
+    lookup, no publish) for the duration."""
+    cache = server.engine.prefix_cache
+    server.engine.prefix_cache = 0
+    out = [_kv_generate(url, p, new) for p in prompts]
+    server.engine.prefix_cache = cache
+    return out
+
+
+def _kv_handoff(pre_url, dec_url, ids, stream_id: str) -> dict:
+    status, body = _request(pre_url + '/kv/prefill', 'POST', {
+        'prompt_ids': ids, 'target': dec_url, 'stream_id': stream_id})
+    if status != 200 or not body.get('ok'):
+        fail(f'kv_handoff: /kv/prefill answered {status}: {body}')
+    return body
+
+
+def _kv_decode_pass(dec, dec_url, bodies, during) -> float:
+    """The bodies as concurrent /generate requests on the decode tier;
+    once every one of them decodes, `during()` runs. Returns their decode
+    tokens/s (Σ(new - 1) from the first first-token to the last
+    finish)."""
+    results, errors = [None] * len(bodies), []
+
+    def send(i):
+        try:
+            results[i] = _post(dec_url + '/generate', bodies[i])
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'request {i}: {e!r}')
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 300
+    while sum(r is not None and not r.prefilling and len(r.tokens) > 1
+              for r in dec.engine._slots) < len(bodies):  # pylint: disable=protected-access
+        if time.monotonic() > deadline or errors:
+            fail(f'kv_handoff: the decode pass never decoded: {errors}')
+        time.sleep(0.001)
+    during()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f'kv_handoff decode pass: {errors}')
+    stats = [r['stats'][0] for r in results]
+    if any(len(r['token_ids'][0]) != KV_TPS_NEW for r in results):
+        fail('kv_handoff decode pass: a request came back short')
+    span = max(s['total_s'] for s in stats) - min(s['ttft_s']
+                                                  for s in stats)
+    return sum(s['new_tokens'] - 1 for s in stats) / span
+
+
+def _kv_close(*pairs) -> None:
+    for server, http in pairs:
+        http.close()
+        server.draining = True
+        if not server.engine.drain(timeout=120):
+            fail('kv_handoff: an engine did not drain')
+
+
+def _kv_part_handoff(torch, params, smi: str, prompts, gen) -> dict:
+    """Part 1: a prefill-tier and a decode-tier server on one set of
+    weights; serve's 8 prompts and a KV_LONG-token prompt handed off one
+    at a time, each then served by the decode tier, against the decode
+    tier's own cold prefill; then the decode tier's tokens/s while a long
+    prompt is handed off to it, against it prefilling one itself."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    pre, pre_http = _kv_server(params, tier='prefill', async_depth=0,
+                               paged_num_blocks=KV_PREFILL_BLOCKS)
+    dec, dec_http = _kv_server(params, tier='decode', async_depth=0,
+                               paged_num_blocks=KV_DECODE_BLOCKS)
+    cfg = dec.engine.cfg
+    block_bytes = dec.engine.kv_block_bytes()
+    log(f'kv_handoff: prefill and decode tiers up in '
+        f'{time.monotonic() - t0:.1f}s on one set of weights, pools '
+        f'{KV_PREFILL_BLOCKS} + {KV_DECODE_BLOCKS} blocks of {block_bytes} '
+        f'bytes')
+    engines = [pre.engine, dec.engine]
+    pre_url, dec_url = pre_http.url, dec_http.url
+    cold = _kv_cold(dec, dec_url, prompts)
+    before = _kv_stats(engines)
+    _reset_serve_launches()
+    rows = []
+    for i, ids in enumerate(prompts):
+        pushed = _kv_handoff(pre_url, dec_url, ids, f'smoke-{i}')
+        hits = dec.engine.prewarm_stats['hits']
+        tokens, ttft = _kv_generate(dec_url, ids)
+        if tokens != cold[i][0]:
+            fail(f'kv_handoff prompt {i} ({len(ids)} tokens): handed-off '
+                 f'tokens differ from the cold prefill\'s')
+        if dec.engine.prewarm_stats['hits'] != hits + 1:
+            fail(f'kv_handoff prompt {i}: not a hit on the ingested prefix')
+        blocks = -(-len(ids) // cfg.paged_block_size)
+        if pushed['blocks'] != blocks or \
+                pushed['bytes'] < blocks * block_bytes:
+            fail(f'kv_handoff prompt {i}: pushed {pushed}')
+        rows.append((len(ids), pushed, ttft, cold[i][1]))
+        log(f'kv_handoff prompt {i}: {len(ids)} tokens, {pushed["chunks"]} '
+            f'chunks, {pushed["bytes"]} bytes ({blocks} blocks of '
+            f'{block_bytes}), handoff {pushed["handoff_s"]:.3f}s (prefill '
+            f'TTFT {pushed["prefill_ttft_s"] * 1e3:.1f} ms, gather and frame '
+            f'{pushed["export_s"]:.3f}s, push and ingest '
+            f'{pushed["push_s"]:.3f}s), decode-tier '
+            f'TTFT {ttft * 1e3:.1f} ms vs monolithic '
+            f'{cold[i][1] * 1e3:.1f} ms; tokens equal [{smi}]')
+    chunk = KV_SERVE['prefill_chunk']
+    derived = [(sum(-(-len(p) // chunk) for p in prompts), len(prompts)),
+               (len(prompts), len(prompts) * (KV_NEW - 1))]
+    launches = _kv_launches(engines, before, 'handoffs', derived)
+    # Decode tokens/s of 7 requests while an 8th, long prompt arrives:
+    # handed off (one suffix chunk on the decode tier), or prefilled by
+    # the decode tier itself (KV_LONG / 256 chunks between its ticks).
+    dec.engine.async_depth = 1
+    vocab = cfg.vocab_size
+    bodies = [{'prompt_ids': [torch.randint(0, vocab, (n,),
+                                            generator=gen).tolist()],
+               'max_new_tokens': KV_TPS_NEW}
+              for n in (20, 117, 214, 311, 408, 505, 602)]
+    longs = [torch.randint(0, vocab, (KV_LONG,), generator=gen).tolist()
+             for _ in range(2)]
+    tps = {}
+    before = _kv_stats(engines)
+    _reset_serve_launches()
+    for mode, long_ids in zip(('handoff', 'self'), longs):
+        def during(mode=mode, long_ids=long_ids):
+            if mode == 'handoff':
+                _kv_handoff(pre_url, dec_url, long_ids, 'smoke-long')
+            _kv_generate(dec_url, long_ids)
+        tps[mode] = _kv_decode_pass(dec, dec_url, bodies, during)
+    _kv_launches(engines, before, 'decode passes')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    weights = sum(t.numel() * t.element_size()
+                  for t in params.values()) / 2**30
+    pools = (KV_PREFILL_BLOCKS + KV_DECODE_BLOCKS) * block_bytes / 2**30
+    log(f'kv_handoff: decode tier {tps["handoff"]:.1f} tokens/s over 7 '
+        f'requests while a {KV_LONG}-token prompt is handed off to it, '
+        f'{tps["self"]:.1f} while it prefills one itself '
+        f'({tps["handoff"] / tps["self"]:.3f}x); peak memory {peak:.2f} '
+        f'GiB, reckoned {weights:.2f} GiB of weights once + {pools:.2f} '
+        f'GiB of pools + a server build\'s transient copy of the weights '
+        f'+ activations [{smi}]')
+    _kv_close((pre, pre_http), (dec, dec_http))
+    for engine in engines:
+        engine._pool.check()  # pylint: disable=protected-access
+    return {'rows': rows, 'tps': tps, 'launches': launches, 'peak': peak}
+
+
+def _kv_turn(url, prompts) -> tuple:
+    """One chat turn: the prompts as concurrent /generate requests;
+    (tokens per prompt, TTFT p50 ms)."""
+    out, errors = [None] * len(prompts), []
+
+    def send(i):
+        try:
+            out[i] = _post(url + '/generate', {
+                'prompt_ids': [prompts[i]], 'max_new_tokens': PREFIX_REPLY})
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'request {i}: {e!r}')
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f'kv_handoff turn: {errors}')
+    return ([r['token_ids'][0] for r in out],
+            statistics.median(r['stats'][0]['ttft_s'] for r in out) * 1e3)
+
+
+def _kv_part_rescue(torch, params, smi: str, gen) -> dict:
+    """Part 2: serve_prefix's conversations (turns 1-3) on a server with
+    a prefix store, POST /preempt, then a fresh server on the store
+    pre-warms before it is ready and serves turn 3 again."""
+    store = tempfile.mkdtemp(prefix='skytpu-kv-store-')
+    try:
+        kw = dict(prefix_cache=KV_RESCUE_CACHE, paged_num_blocks=PREFIX_BLOCKS,
+                  async_depth=1, prefix_store=store)
+        old, old_http = _kv_server(params, **kw)
+        vocab = old.engine.cfg.vocab_size
+        prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                   for n in PREFIX_TURN1]
+        chunks, hot = [], None
+        for turn in range(PREFIX_TURNS):
+            c0 = old.engine.paged_stats['prefill_chunks']
+            hot, ttft = _kv_turn(old_http.url, prompts)
+            chunks.append(old.engine.paged_stats['prefill_chunks'] - c0)
+            log(f'kv_handoff rescue turn {turn + 1}: prompts '
+                f'{min(map(len, prompts))}-{max(map(len, prompts))} tokens, '
+                f'prefill chunks {chunks[-1]}, TTFT p50 {ttft:.1f} ms [{smi}]')
+            if turn < PREFIX_TURNS - 1:
+                prompts = [p + r + torch.randint(
+                    0, vocab, (PREFIX_NEW,), generator=gen).tolist()
+                           for p, r in zip(prompts, hot)]
+        t0 = time.monotonic()
+        status, notice = _request(old_http.url + '/preempt', 'POST',
+                                  {'deadline_s': 300})
+        export_s = time.monotonic() - t0
+        export = notice.get('export') or {}
+        if status != 200 or not notice.get('drained') or \
+                export.get('exported') != KV_RESCUE_CACHE:
+            fail(f'kv_handoff rescue: /preempt answered {status}: {notice}')
+        artifact = os.path.getsize(os.path.join(store, export['key']))
+        log(f'kv_handoff rescue: /preempt drained and exported '
+            f'{export["exported"]} prefixes, {export["blocks"]} blocks, '
+            f'{artifact} artifact bytes in {export_s:.2f}s [{smi}]')
+        old_http.close()
+        del old, old_http
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        from skypilot_tpu_torch.serve.server import BackgroundServer
+        new = _kv_server(params, warm=False, **kw)
+        t1 = time.monotonic()
+        prewarm = new.prewarm_from_store()
+        import_s = time.monotonic() - t1
+        new.warmup()
+        ready_s = time.monotonic() - t0
+        new_http = BackgroundServer(new)
+        status, health = _request(new_http.url + '/health', 'GET')
+        if status != 200 or health.get('prewarm') != prewarm or \
+                prewarm.get('status') != 'ok' or \
+                prewarm.get('imported') != KV_RESCUE_CACHE:
+            fail(f'kv_handoff rescue: pre-warm {prewarm}, /health {health}')
+        engine = new.engine
+        before = _kv_stats([engine])
+        _reset_serve_launches()
+        again, ttft = _kv_turn(new_http.url, prompts)
+        turn_chunks = engine.paged_stats['prefill_chunks'] - before[0][0]
+        _kv_launches([engine], before, 'rescue turn')
+        log(f'kv_handoff rescue: fresh server imported {prewarm["imported"]} '
+            f'prefixes ({prewarm["blocks"]} blocks) in {import_s:.2f}s, ready '
+            f'{ready_s:.1f}s after construction began; turn 3 resent: '
+            f'prefill chunks {turn_chunks} (the original: '
+            f'{" / ".join(map(str, chunks))} for turns 1-3), TTFT p50 '
+            f'{ttft:.1f} ms, pre-warm hits {engine.prewarm_stats["hits"]} '
+            f'[{smi}]')
+        if again != hot:
+            fail('kv_handoff rescue: the pre-warmed server\'s tokens differ '
+                 'from the original server\'s turn 3')
+        if turn_chunks != len(prompts) or \
+                engine.prewarm_stats['hits'] != len(prompts):
+            fail(f'kv_handoff rescue: {turn_chunks} chunks, '
+                 f'{engine.prewarm_stats["hits"]} pre-warm hits')
+        _kv_close((new, new_http))
+        return {'artifact': artifact, 'export_s': export_s,
+                'import_s': import_s, 'ready_s': ready_s,
+                'chunks': chunks + [turn_chunks]}
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _kv_part_int8(torch, params, smi: str, gen) -> dict:
+    """Part 3: int8 KV (kernel 2): one handoff stream and one artifact
+    round trip, each prompt's tokens against the decode tier's cold
+    prefill."""
+    store = tempfile.mkdtemp(prefix='skytpu-kv-store-')
+    try:
+        pre, pre_http = _kv_server(params, tier='prefill', async_depth=0,
+                                   kv_quant='int8', prefix_store=store,
+                                   paged_num_blocks=KV_PREFILL_BLOCKS)
+        dec, dec_http = _kv_server(params, tier='decode', async_depth=0,
+                                   kv_quant='int8', prefix_store=store,
+                                   paged_num_blocks=KV_DECODE_BLOCKS)
+        engines = [pre.engine, dec.engine]
+        vocab = dec.engine.cfg.vocab_size
+        streamed, stored = [torch.randint(0, vocab, (n,),
+                                          generator=gen).tolist()
+                            for n in KV_INT8_PROMPTS]
+        cold = _kv_cold(dec, dec_http.url, [streamed, stored])
+        before = _kv_stats(engines)
+        _reset_serve_launches()
+        pushed = _kv_handoff(pre_http.url, dec_http.url, streamed, 'int8-0')
+        tokens, ttft = _kv_generate(dec_http.url, streamed)
+        chunk = KV_SERVE['prefill_chunk']
+        launches = _kv_launches(
+            engines, before, 'int8 handoff',
+            [(-(-len(streamed) // chunk), 1), (1, KV_NEW - 1)])
+        if tokens != cold[0][0]:
+            fail('kv_handoff int8: handed-off tokens differ from cold')
+        # The artifact: the prefill tier serves `stored` itself, exports
+        # at a preemption notice; the decode tier pre-warms from it.
+        _kv_generate(pre_http.url, stored)
+        t0 = time.monotonic()
+        status, notice = _request(pre_http.url + '/preempt', 'POST',
+                                  {'deadline_s': 300})
+        export_s = time.monotonic() - t0
+        if status != 200 or not (notice.get('export') or {}).get('exported'):
+            fail(f'kv_handoff int8: /preempt answered {status}: {notice}')
+        artifact = os.path.getsize(os.path.join(store,
+                                                notice['export']['key']))
+        t0 = time.monotonic()
+        prewarm = dec.prewarm_from_store()
+        import_s = time.monotonic() - t0
+        hits = dec.engine.prewarm_stats['hits']
+        got, _ = _kv_generate(dec_http.url, stored)
+        if prewarm.get('status') != 'ok' or got != cold[1][0] or \
+                dec.engine.prewarm_stats['hits'] != hits + 1:
+            fail(f'kv_handoff int8: pre-warm {prewarm}; tokens equal '
+                 f'{got == cold[1][0]}')
+        log(f'kv_handoff int8: {len(streamed)} tokens streamed in '
+            f'{pushed["chunks"]} chunks, {pushed["bytes"]} bytes, '
+            f'{pushed["handoff_s"]:.3f}s, decode-tier TTFT {ttft * 1e3:.1f} '
+            f'ms vs monolithic {cold[0][1] * 1e3:.1f} ms; artifact '
+            f'{notice["export"]["exported"]} prefixes, {artifact} bytes, '
+            f'export {export_s:.2f}s, import {import_s:.2f}s; tokens equal '
+            f'[{smi}]')
+        _kv_close((pre, pre_http), (dec, dec_http))
+        return {'launches': launches}
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def phase_kv_handoff(torch, smi: str) -> dict:
+    """KV portability on llama3-8b at full width and depth (seeded random
+    bf16 weights made once on the card and shared by every server of the
+    phase): disaggregated prefill/decode tiers over the KV chunk stream,
+    the preemption rescue through a prefix store, and both under int8 KV.
+    Returns the phase's kernel 1 and kernel 2 launches."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.transformer import Transformer
+    t0 = time.monotonic()
+    # A serving config: the engine's weights, in the compute dtype.
+    model = Transformer(dataclasses.replace(
+        get_config('llama3-8b'), decode=True, remat=False,
+        paged_block_size=KV_SERVE['paged_block_size']), device='cuda')
+    model.init_random_(KV_SERVE['rng_seed'])
+    params = dict(model.state_dict())
+    del model
+    log(f'kv_handoff: llama3-8b weights made on the card in '
+        f'{time.monotonic() - t0:.1f}s')
+    gen = torch.Generator().manual_seed(11)
+    vocab = get_config('llama3-8b').vocab_size
+    prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+               for n in (20, 117, 214, 311, 408, 505, 602, 700, KV_LONG)]
+    handoff = _kv_part_handoff(torch, params, smi, prompts, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rescue = _kv_part_rescue(torch, params, smi, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = _kv_part_int8(torch, params, smi, gen)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'kv_handoff: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still '
+        f'allocated after the phase; rescue {rescue}')
+    return {'paged_decode_attention':
+            handoff['launches']['paged_decode_attention'],
+            'paged_decode_attention_int8':
+            int8['launches']['paged_decode_attention_int8']}
+
+
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
           'train_sp', 'serve', 'serve_prefix', 'serve_tenant',
           'serve_sched', 'graph_parity', 'families', 'serve_hf',
-          'serve_int8w', 'finetune', 'moe')
+          'serve_int8w', 'finetune', 'moe', 'kv_handoff')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -5131,6 +5587,17 @@ def main(argv=None) -> int:
                              if n == entry['name']), None)
                 if attr is not None:
                     entry['moe_launches'] = launched['train'][attr]
+    if 'kv_handoff' in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launched = phase_kv_handoff(torch, smi)
+        for entry in kernels:
+            if entry['name'] == 'paged_decode_attention':
+                entry['kv_handoff_launches'] = launched[
+                    'paged_decode_attention']
+            elif entry['name'].startswith('paged_prefill_kernel<int8_t>'):
+                entry['kv_handoff_launches'] = launched[
+                    'paged_decode_attention_int8']
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -48,3 +48,23 @@ class TierDeadlineUnmeetableError(EngineOverloadedError):
     """Deadline-aware admission: at the current queue depth the request
     cannot plausibly meet its deadline, so it is shed AT SUBMIT with
     429 + Retry-After instead of being admitted and killed mid-queue."""
+
+
+# ---------------- prefix store (data/storage) ----------------
+
+
+class StorageError(SkyTpuError):
+    """Storage layer failure."""
+
+
+class StorageSpecError(StorageError):
+    """Invalid storage spec (bad source, name, or mode)."""
+
+
+class StorageUploadError(StorageError):
+    pass
+
+
+class EngineWedgedError(SkyTpuError):
+    """The engine was reset under an operation (a failed tick replaced
+    its block pool) and the operation's work was lost."""

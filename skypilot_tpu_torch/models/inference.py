@@ -4,8 +4,9 @@ Port of skypilot_tpu/models/inference.py for the serving main path: the
 paged `ContinuousBatchingEngine` (the reference's tp=1) with its async
 decode pipeline (`async_depth`, `decode_chunk`, the device-resident
 feed), its prompt-lookup speculative decoding (`speculative`), its paged
-prefix cache and its SLO tiers with batch-slot preemption, plus the
-sampling helpers. A scheduler thread admits queued prompts into free slots between ticks;
+prefix cache, its SLO tiers with batch-slot preemption and its KV
+portability (prefix export and pre-warm, the disaggregated handoff),
+plus the sampling helpers. A scheduler thread admits queued prompts into free slots between ticks;
 each tick advances every mid-prefill slot by one fixed-size chunk, then
 decodes all slots in one batched dispatch of k in {1, decode_chunk}
 steps. Every attention call runs through the paged kernel
@@ -61,6 +62,17 @@ takes a batch-tier slot, whose request re-queues at the head of its
 tier and continues from its generated tokens (`context = ids +
 tokens`) when readmitted.
 
+KV portability, as in the reference: `export_prefixes` writes the prefix
+LRU's blocks into the reference's versioned artifact (a drained engine,
+at a preemption notice) and `import_prefixes` pre-warms a fresh engine
+from one; `prefill_prefix` and `export_prefix_chunks` (the prefill tier)
+and `ingest_chunk` / `abort_ingest` (the decode tier, with a TTL sweep
+every tick) hand one prompt's blocks over as the reference's KV chunk
+stream, so the handed-off request admits as a full-prefix hit. The bytes
+are the reference's (kv_cache), leaves in its order (K, V; K, K scale,
+V, V scale under int8 KV); imports and ingests write the pools in place.
+`prefix_digest` is the routing digest the server advertises.
+
 Where the reference jits pure functions over a donated cache, the port
 updates its K/V pools in place. Sampling takes an explicit
 `torch.Generator`; its draws cannot match JAX's, so tests pin the
@@ -96,6 +108,7 @@ from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.serve import tenancy
+from skypilot_tpu_torch.utils import fault_injection
 
 logger = logging.getLogger(__name__)
 
@@ -200,6 +213,44 @@ _SLOT_PREEMPTS = obs.counter(
     'skytpu_engine_slot_preempts_total',
     'batch-tier requests preempted out of a decode slot by an '
     'interactive arrival and re-queued retryably')
+_PREFIX_EXPORT_BLOCKS = obs.counter(
+    'skytpu_prefix_export_blocks_total',
+    'KV blocks serialized into prefix artifacts on preemption notice')
+_PREFIX_PREWARM_BLOCKS = obs.counter(
+    'skytpu_prefix_prewarm_blocks_total',
+    'KV blocks restored into the pool from a prefix artifact')
+_PREFIX_PREWARM_HIT = obs.counter(
+    'skytpu_prefix_prewarm_hit_total',
+    'Admission prefix-cache hits served from a PRE-WARMED (imported) '
+    'entry — the TTFT saved across a preemption')
+_HANDOFF_EXPORT_CHUNKS = obs.counter(
+    'skytpu_handoff_export_chunks_total',
+    'KV handoff chunks serialized by the prefill tier for '
+    'engine→engine streaming (docs/serving.md "Disaggregated '
+    'serving")')
+_HANDOFF_EXPORT_BYTES = obs.counter(
+    'skytpu_handoff_export_bytes_total',
+    'KV handoff payload bytes serialized by the prefill tier')
+_HANDOFF_INGEST_CHUNKS = obs.counter(
+    'skytpu_handoff_ingest_chunks_total',
+    'KV handoff chunks received on the decode side, by result: ok '
+    '(applied), duplicate (retried seq acknowledged idempotently), '
+    'rejected (corrupt / out-of-order / layout mismatch), shed '
+    '(decode-side pool pressure — 503 rather than corruption)',
+    ('result',))
+_INGEST_OK = _HANDOFF_INGEST_CHUNKS.labels(result='ok')
+_INGEST_DUP = _HANDOFF_INGEST_CHUNKS.labels(result='duplicate')
+_INGEST_REJECTED = _HANDOFF_INGEST_CHUNKS.labels(result='rejected')
+_INGEST_SHED = _HANDOFF_INGEST_CHUNKS.labels(result='shed')
+_HANDOFF_INGEST_STREAMS = obs.counter(
+    'skytpu_handoff_ingest_streams_total',
+    'KV handoff streams resolved on the decode side: completed '
+    '(published to the prefix index), aborted (sender abort or apply '
+    'failure — blocks rolled back to refcount 0), expired (TTL sweep '
+    'reclaimed a stream whose sender died mid-handoff)', ('outcome',))
+_HANDOFF_INGEST_BLOCKS = obs.counter(
+    'skytpu_handoff_ingest_blocks_total',
+    'KV pool blocks published from completed handoff streams')
 
 # The reference's decode_kernel values. The port has ONE paged-attention
 # path (the CUDA kernel on the card, its plain version on the CPU), so
@@ -306,6 +357,78 @@ def _resolve_decode_kernel(decode_kernel: str, cfg: ModelConfig) -> str:
             'ops/flash_attention policy); use decode_kernel=\'xla\' '
             'for softcapped models')
     return decode_kernel
+
+
+ENGINE_TIERS = ('monolithic', 'prefill', 'decode')
+
+# Pool leaf dtypes as the artifact and the chunk stream name them (numpy's
+# names; 'bfloat16' is what the reference writes for a bf16 leaf).
+_WIRE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
+                'float16': torch.float16, 'int8': torch.int8}
+
+
+class _HostBlocks:
+    """Gathered pool blocks on the host, block axis first, with what
+    kv_cache.export_prefixes reads of a numpy array (shape, a dtype whose
+    str() is the wire name, tobytes()), so bf16 needs no numpy bf16."""
+
+    __slots__ = ('shape', 'dtype', '_data')
+
+    def __init__(self, data: torch.Tensor) -> None:
+        self.shape = tuple(data.shape)
+        self.dtype = _wire_dtype(data.dtype)
+        self._data = data
+
+    def tobytes(self) -> bytes:
+        return self._data.reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _wire_dtype(dtype: torch.dtype) -> str:
+    return str(dtype).replace('torch.', '')
+
+
+def _blocks_from_bytes(payload, offset: int, num_blocks: int,
+                       meta: dict) -> torch.Tensor:
+    """(num_blocks, *meta['shape']) host tensor of one leaf's blocks read
+    from `payload` at `offset`. Raises ValueError when the payload is too
+    short (np.frombuffer's), KeyError on an unknown dtype."""
+    dtype = _WIRE_DTYPES[meta['dtype']]
+    count = num_blocks * int(np.prod(meta['shape'], dtype=np.int64))
+    raw = np.frombuffer(payload, dtype=np.uint8,
+                        count=count * dtype.itemsize, offset=offset)
+    return torch.from_numpy(raw.copy()).view(dtype).reshape(
+        (num_blocks,) + tuple(meta['shape']))
+
+
+class _IngestSession:
+    """One in-flight prefill→decode handoff stream being assembled on
+    the decode side.
+
+    Blocks are allocated from the pool as chunks land (so pool pressure
+    surfaces at once as a shed, before any data is staged), but the
+    payload is STAGED on the host: nothing touches the device pool until
+    the final chunk's apply runs in the engine thread. Rollback is
+    therefore exact: releasing `blocks` returns the stream to refcount 0
+    with the pool invariant (`check()`) intact, however many chunks had
+    landed. `pool` pins the BlockPool the blocks came from: a failed
+    tick swaps the engine's pool, and a stale session must release
+    against ITS pool, never against the successor's."""
+
+    __slots__ = ('stream_id', 'pool', 'blocks', 'next_seq',
+                 'staged_arr', 'chunks', 'bytes', 'touched')
+
+    def __init__(self, stream_id: str, pool, now: float,
+                 n_leaves: int) -> None:
+        self.stream_id = stream_id
+        self.pool = pool
+        # Block ids in stream order; per leaf, the staged host tensors of
+        # each chunk, in the same order.
+        self.blocks: list = []
+        self.next_seq = 0
+        self.staged_arr: list = [[] for _ in range(n_leaves)]
+        self.chunks = 0
+        self.bytes = 0
+        self.touched = now
 
 
 class _Request:
@@ -415,6 +538,12 @@ class ContinuousBatchingEngine:
     submit(priority=...) names the request's SLO tier ('interactive',
     'standard', 'batch'): interactive admits first and may preempt a
     batch slot (`tenancy_stats`; `tier_load()`).
+
+    tier ('monolithic', 'prefill', 'decode') is the engine's role in a
+    disaggregated fleet (the specialized tiers need the prefix cache);
+    ingest_ttl is how long a partial handoff stream may wait for its
+    next chunk (`ingest_stats`; `prewarm_stats` counts hits on imported
+    and ingested entries and the blocks exported and pre-warmed).
     """
 
     def __init__(self, cfg: 'ModelConfig | str',
@@ -439,7 +568,21 @@ class ContinuousBatchingEngine:
                  prefix_cache: int = 0,
                  speculative: int = 0,
                  quantize: Optional[str] = None,
+                 tier: str = 'monolithic',
+                 ingest_ttl: float = 60.0,
                  device='cuda') -> None:
+        # The tier is routing metadata (the engine surface is the same),
+        # but the prefill and decode tiers hand KV over block by block
+        # into the prefix index, so they need the prefix cache.
+        if tier not in ENGINE_TIERS:
+            raise ValueError(f'unknown engine tier {tier!r}; expected '
+                             f'one of {ENGINE_TIERS}')
+        if tier != 'monolithic' and not (paged_block_size and
+                                         prefix_cache):
+            raise ValueError(
+                f'tier={tier!r} requires paged_block_size and '
+                f'prefix_cache (KV streams are block-granular and land '
+                f'in the prefix index)')
         if quantize not in (None, 'int8'):
             raise ValueError(f'unknown quantize mode {quantize!r}; '
                              f"supported: 'int8'")
@@ -478,6 +621,13 @@ class ContinuousBatchingEngine:
         # cache off without dropping its entries.
         self.prefix_cache = max(0, prefix_cache)
         self.prefix_stats = {'hits': 0, 'misses': 0, 'tokens_reused': 0}
+        # KV portability: hits on entries this engine never prefilled
+        # (imported from an artifact or ingested from a handoff stream),
+        # and the blocks exported and pre-warmed. Hits on the keys in
+        # _prewarmed_keys count as prewarm hits.
+        self.prewarm_stats = {'hits': 0, 'export_blocks': 0,
+                              'prewarm_blocks': 0}
+        self._prewarmed_keys: set = set()
         # -------- paged KV cache --------
         self.paged_block_size = max(0, paged_block_size)
         if not self.paged_block_size:
@@ -509,6 +659,22 @@ class ContinuousBatchingEngine:
                             'prefill_chunks': 0, 'prefix_evictions': 0,
                             'spec_trimmed_blocks': 0}
         self._prefix_entries = self._new_prefix_index()
+        # Cached routing digest, keyed on (index object, index epoch).
+        self._digest_cache: Optional[tuple] = None
+        # -------- disaggregated serving --------
+        # 'prefill' computes KV and streams it out (prefill_prefix,
+        # export_prefix_chunks), 'decode' assembles incoming streams into
+        # its own pool (ingest_chunk) so handed-off requests admit as
+        # full-prefix hits, 'monolithic' does both phases locally.
+        self.tier = tier
+        self._ingest_ttl = max(1.0, ingest_ttl)
+        self._ingest_lock = threading.Lock()
+        self._ingest_sessions: Dict[str, _IngestSession] = {}
+        self.ingest_stats = {'streams_completed': 0,
+                             'streams_aborted': 0, 'streams_expired': 0,
+                             'chunks_ok': 0, 'chunks_duplicate': 0,
+                             'chunks_rejected': 0, 'chunks_shed': 0,
+                             'blocks_ingested': 0}
         _PAGED_CAPACITY.set(nb)
         self.cfg = dataclasses.replace(self.cfg,
                                        decode_kernel=self.decode_kernel)
@@ -862,8 +1028,9 @@ class ContinuousBatchingEngine:
             return self._pool.alloc()
         except kv_cache_lib.PoolExhaustedError:
             while len(self._prefix_entries):
-                _key, blocks = self._prefix_entries.pop_lru()
+                key, blocks = self._prefix_entries.pop_lru()
                 self._pool.release(blocks)
+                self._prewarmed_keys.discard(key)
                 self.paged_stats['prefix_evictions'] += 1
                 if self._pool.free:
                     return self._pool.alloc()
@@ -920,9 +1087,12 @@ class ContinuousBatchingEngine:
         blocks = list(req.blocks[:num])
         for block in blocks:
             self._pool.incref(block)
-        for _key, old_blocks in self._prefix_entries.put(req.context,
-                                                         blocks):
+        for key, old_blocks in self._prefix_entries.put(req.context,
+                                                        blocks):
             self._pool.release(old_blocks)
+            # A prefix re-published by a local prefill is no longer the
+            # import's doing.
+            self._prewarmed_keys.discard(key)
 
     def paged_occupancy(self) -> dict:
         """Pool accounting snapshot: blocks used (scratch included) and
@@ -1037,6 +1207,9 @@ class ContinuousBatchingEngine:
             self.prefix_stats['tokens_reused'] += plen
             _PREFIX_HIT.inc()
             _PREFIX_TOKENS.inc(plen)
+            if self._prefix_entries.last_key in self._prewarmed_keys:
+                self.prewarm_stats['hits'] += 1
+                _PREFIX_PREWARM_HIT.inc()
         elif use_prefix:
             self.prefix_stats['misses'] += 1
             _PREFIX_MISS.inc()
@@ -1357,6 +1530,12 @@ class ContinuousBatchingEngine:
         # is in flight.
         if self._engine_work:
             self._drain_engine_work()
+        # Orphaned ingest streams (the sender died mid-handoff and no
+        # abort came) are reclaimed here, every tick, not only when the
+        # next chunk arrives.
+        if self._ingest_sessions:
+            with self._ingest_lock:
+                self._expire_ingest_sessions_locked(time_lib.monotonic())
         now = time_lib.time()        # wall: deadlines are absolute epoch
         mono_now = time_lib.monotonic()
         # Per-request deadlines and cancellation: an expired (or
@@ -1635,8 +1814,10 @@ class ContinuousBatchingEngine:
                                 break
                         self._pool = kv_cache_lib.BlockPool(
                             self.cfg.paged_num_blocks, self.paged_block_size)
-                        # The index's blocks died with the pool.
+                        # The index's blocks died with the pool, and so
+                        # did the pre-warmed entries.
                         self._prefix_entries = self._new_prefix_index()
+                        self._prewarmed_keys = set()
                         # The ring and the feed go with the tick: no
                         # pending column is ever emitted.
                         self._ring.clear()
@@ -1890,6 +2071,34 @@ class ContinuousBatchingEngine:
         return (self._queue.qsize() +
                 sum(1 for r in self._slots if r is not None))
 
+    def prefix_digest(self) -> Optional[str]:
+        """Routing digest of the prefix cache, the header value the
+        server sends on every response (X-SkyTPU-Prefix-Digest):
+
+            v1:<chunk>:<epoch>:<h1>,<h2>,...
+
+        each h the kv_cache.prefix_route_hash of a chunk-aligned prefix
+        of a cached entry (newest first, bounded). None when prefix
+        caching is off. Cached per index epoch; read from HTTP threads
+        while the engine thread mutates the index, so a walk that races
+        a mutation serves the last cached (stale) digest, which the
+        routing layer tolerates by contract."""
+        if not self.prefix_cache:
+            return None
+        index = self._prefix_entries
+        epoch = index.epoch
+        cached = self._digest_cache
+        if cached is not None and cached[0] is index and \
+                cached[1] == epoch:
+            return cached[2]
+        try:
+            hashes = index.digest()
+        except RuntimeError:
+            return cached[2] if cached is not None else None
+        value = f'v1:{index.chunk}:{epoch}:' + ','.join(hashes)
+        self._digest_cache = (index, epoch, value)
+        return value
+
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Graceful shutdown: stop admitting (submit raises
         EngineDrainingError), let in-flight AND queued requests finish,
@@ -1935,6 +2144,450 @@ class ContinuousBatchingEngine:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+
+    # ---------------- KV portability ----------------
+    #
+    # The preemption rescue (export_prefixes on a drained engine at a
+    # notice, import_prefixes before a replacement goes ready) and the
+    # disaggregated handoff (prefill_prefix + export_prefix_chunks on the
+    # prefill tier, ingest_chunk on the decode tier). The formats are the
+    # reference's byte for byte (kv_cache), so either package reads what
+    # the other wrote. Every pool access runs in the engine thread
+    # between ticks (_exclusive): a gather reads after every step in
+    # flight on the engine's stream and lands with a synchronising copy,
+    # and a scatter writes the pool tensors IN PLACE, so the step graphs
+    # captured on their addresses stay valid.
+
+    @staticmethod
+    def _block_axis(leaf) -> int:
+        """Every pool leaf keeps its block axis at ndim - 4: (layers,
+        blocks, block_size, KV, D or 1)."""
+        return leaf.ndim - 4
+
+    def _pool_leaves(self) -> list:
+        """The pool tensors in the reference's leaf order (its cache
+        tree flattens sorted: cached_key, cached_key_scale, cached_value,
+        cached_value_scale)."""
+        if self._k_scale is None:
+            return [self._k_pool, self._v_pool]
+        return [self._k_pool, self._k_scale, self._v_pool, self._v_scale]
+
+    def _pool_leaf_meta(self, leaves) -> list:
+        out = []
+        for leaf in leaves:
+            axis = self._block_axis(leaf)
+            shape = list(leaf.shape[:axis]) + list(leaf.shape[axis + 1:])
+            out.append({'shape': shape, 'dtype': _wire_dtype(leaf.dtype)})
+        return out
+
+    def _expected_leaf_meta(self) -> list:
+        """Per-leaf {shape, dtype} of one pool block, as the artifact
+        and the chunk header carry it (the reference's
+        `_pool_leaf_meta` for the same config)."""
+        return self._pool_leaf_meta(self._pool_leaves())
+
+    def kv_block_bytes(self) -> int:
+        """Bytes of one pool block over every leaf: what a block costs in
+        an artifact or a chunk payload."""
+        return sum(leaf[:, 0].numel() * leaf.element_size()
+                   for leaf in self._pool_leaves())
+
+    def _exclusive(self, fn, timeout: float = 300.0):
+        """Run `fn()` with exclusive access to the pool and the prefix
+        index: in the engine thread between ticks while it runs, else
+        inline under the thread lock (a drained or not yet started
+        engine), which holds off any submit or thread start meanwhile."""
+        with self._thread_lock:
+            if self._thread is None or not self._thread.is_alive():
+                with torch.inference_mode():
+                    return fn()
+        return self._run_in_tick(fn, timeout=timeout)
+
+    def _gather(self, blocks) -> List[_HostBlocks]:
+        """Per pool leaf, the host copy of `blocks` (block axis first)."""
+        idx = torch.tensor(list(blocks), dtype=torch.long,
+                           device=self.device)
+        return [_HostBlocks(leaf.index_select(1, idx).movedim(1, 0)
+                            .contiguous().cpu())
+                for leaf in self._pool_leaves()]
+
+    def _scatter(self, blocks, arrays) -> None:
+        """Write per-leaf (len(blocks), ...) host tensors into `blocks`
+        of the pool, in place; a later write to a block id wins."""
+        idx = torch.tensor(list(blocks), dtype=torch.long,
+                           device=self.device)
+        for leaf, arr in zip(self._pool_leaves(), arrays):
+            leaf.index_copy_(1, idx, arr.movedim(0, 1).to(self.device))
+
+    def _require_prefix_pool(self, what: str) -> None:
+        if not (self.paged_block_size and self.prefix_cache):
+            raise ValueError(f'{what} requires paged_block_size and '
+                             f'prefix_cache')
+
+    def export_prefixes(self, path: str,
+                        budget_s: Optional[float] = None,
+                        clock=time_lib.monotonic) -> Dict[str, object]:
+        """Serialize the prefix LRU's blocks into a versioned artifact at
+        `path` (kv_cache.export_prefixes). `budget_s` bounds the gather:
+        the NEWEST prefixes export first and the artifact is published
+        partially when the budget runs out; a fault mid-export publishes
+        nothing (atomic rename). Returns the kv_cache stats dict."""
+        empty = {'exported': 0, 'blocks': 0, 'skipped': 0,
+                 'truncated': False, 'path': path}
+        if not (self.paged_block_size and self.prefix_cache):
+            return dict(empty, reason='prefix export requires '
+                        'paged_block_size and prefix_cache')
+        if not len(self._prefix_entries):
+            return dict(empty, reason='no cached prefixes')
+
+        def gather(blocks):
+            # Chaos seam: an armed 'storage.export' fault aborts the
+            # export mid-artifact; nothing is published.
+            fault_injection.point('storage.export')
+            return self._gather(blocks)
+
+        deadline = clock() + budget_s if budget_s else None
+        should_stop = ((lambda: clock() > deadline)
+                       if deadline is not None else None)
+        stats = self._exclusive(lambda: kv_cache_lib.export_prefixes(
+            self._prefix_entries, self._pool, gather, path,
+            should_stop=should_stop))
+        self.prewarm_stats['export_blocks'] += stats['blocks']
+        _PREFIX_EXPORT_BLOCKS.inc(stats['blocks'])
+        logger.info('exported %d prefixes (%d blocks%s) to %s',
+                    stats['exported'], stats['blocks'],
+                    ', truncated by deadline' if stats['truncated']
+                    else '', path)
+        return stats
+
+    def import_prefixes(self, path: str) -> Dict[str, object]:
+        """Pre-warm the prefix LRU from an artifact: allocate pool
+        blocks, write the serialized KV into them, rebuild the index
+        entries and mark the keys pre-warmed (hits on them count in
+        prewarm_stats and skytpu_prefix_prewarm_hit_total). A corrupt
+        prefix is skipped; a full pool stops the pre-warm partially; an
+        artifact from an incompatible pool (block_size, cache layout)
+        raises kv_cache.ArtifactError without mutating anything."""
+        self._require_prefix_pool('prefix import')
+        meta = self._expected_leaf_meta()
+
+        def scatter(blocks, blob):
+            arrays, off = [], 0
+            for m in meta:
+                arr = _blocks_from_bytes(blob, off, len(blocks), m)
+                arrays.append(arr)
+                off += arr.numel() * arr.element_size()
+            self._scatter(blocks, arrays)
+
+        stats = self._exclusive(lambda: kv_cache_lib.import_prefixes(
+            path, self._prefix_entries, self._pool, scatter,
+            expect_leaves=meta,
+            on_prefix=lambda: fault_injection.point('storage.import')))
+        self._prewarmed_keys.update(stats['keys'])
+        # The import itself can LRU-evict older entries (pre-warmed ones
+        # too) where this engine cannot see it: keep only live keys.
+        self._prewarmed_keys.intersection_update(
+            k for k, _ in self._prefix_entries.entries())
+        self.prewarm_stats['prewarm_blocks'] += stats['blocks']
+        _PREFIX_PREWARM_BLOCKS.inc(stats['blocks'])
+        logger.info(
+            'pre-warmed %d prefixes (%d blocks) from %s '
+            '(%d corrupt skipped, %d already present%s)',
+            stats['imported'], stats['blocks'], path,
+            stats['skipped_corrupt'], stats['skipped_existing'],
+            ', stopped on full pool' if stats['stopped_pool_full']
+            else '')
+        return stats
+
+    def prefill_prefix(self, ids, timeout: float = 300.0
+                       ) -> Dict[str, object]:
+        """Prefill-tier entry point: compute `ids`' KV into pool blocks
+        and publish them to the prefix index (the chunked prefill a
+        normal admission takes; the sampled tokens are discarded).
+        Returns {'prompt_tokens', 'ttft_s', 'cached'}: cached=False means
+        the index evicted the entry already (pressure), and a following
+        export fails retryably."""
+        ids = [int(t) for t in ids]
+        self._require_prefix_pool('prefill_prefix')
+        _out, stats = self.generate(ids, max_new_tokens=1,
+                                    temperature=0.0, timeout=timeout)
+        return {'prompt_tokens': len(ids), 'ttft_s': stats['ttft_s'],
+                'cached': tuple(ids) in self._prefix_entries}
+
+    def export_prefix_chunks(self, ids, stream_id: str,
+                             chunk_blocks: int = 4,
+                             trace_header: Optional[str] = None
+                             ) -> List[bytes]:
+        """Serialize the cached prefix for exactly `ids` into framed
+        handoff chunks (packed bytes, seq order). The gather reads only
+        the prefix's own blocks, in the engine thread. Raises ValueError
+        when the prefix is not cached (evicted or never prefilled):
+        retryable, the caller re-prefills or falls back monolithic.
+        `trace_header` rides every chunk header verbatim, outside the
+        CRC."""
+        self._require_prefix_pool('export_prefix_chunks')
+        key = tuple(int(t) for t in ids)
+        chunk_blocks = max(1, int(chunk_blocks))
+
+        def gather():
+            blocks = self._prefix_entries.get(key)
+            if not isinstance(blocks, list) or not blocks:
+                raise ValueError(
+                    'prefix not cached on this replica (evicted or '
+                    'never prefilled); retry or fall back monolithic')
+            out = []
+            for i in range(0, len(blocks), chunk_blocks):
+                grp = blocks[i:i + chunk_blocks]
+                out.append((len(grp), b''.join(
+                    a.tobytes() for a in self._gather(grp))))
+            return out, len(blocks)
+
+        payloads, total = self._exclusive(gather)
+        meta = self._expected_leaf_meta()
+        chunks: List[bytes] = []
+        start = 0
+        for seq, (nblk, payload) in enumerate(payloads):
+            final = seq == len(payloads) - 1
+            chunks.append(kv_cache_lib.pack_kv_chunk(
+                stream_id, seq, start, self.paged_block_size, meta,
+                payload, nblk, final=final,
+                key=list(key) if final else None,
+                total_blocks=total if final else None,
+                trace=trace_header))
+            start += nblk
+            _HANDOFF_EXPORT_CHUNKS.inc()
+            _HANDOFF_EXPORT_BYTES.inc(len(payload))
+        return chunks
+
+    def _release_session_blocks(self, session: _IngestSession) -> None:
+        try:
+            session.pool.release(session.blocks)
+        except ValueError:
+            # The pool was replaced since these blocks were allocated (a
+            # failed tick): the old pool is garbage, nothing to undo.
+            pass
+        session.blocks = []
+        session.staged_arr = [[] for _ in session.staged_arr]
+
+    def _rollback_session_locked(self, stream_id: str,
+                                 outcome: str) -> None:
+        """Drop a session and return its blocks to refcount 0. Caller
+        holds _ingest_lock."""
+        session = self._ingest_sessions.pop(stream_id, None)
+        if session is None:
+            return
+        self._release_session_blocks(session)
+        key = {'aborted': 'streams_aborted',
+               'expired': 'streams_expired'}.get(outcome,
+                                                 'streams_aborted')
+        self.ingest_stats[key] += 1
+        _HANDOFF_INGEST_STREAMS.labels(outcome=outcome).inc()
+
+    def _expire_ingest_sessions_locked(self, now: float) -> None:
+        stale = [sid for sid, s in self._ingest_sessions.items()
+                 if now - s.touched > self._ingest_ttl]
+        for sid in stale:
+            logger.warning('ingest stream %s expired after %.0fs '
+                           'without a final chunk; rolling back', sid,
+                           self._ingest_ttl)
+            self._rollback_session_locked(sid, 'expired')
+
+    def abort_ingest(self, stream_id: str) -> bool:
+        """Roll a partial handoff stream back to refcount 0 (the load
+        balancer aborts after a prefill replica died mid-stream; the TTL
+        sweep catches streams nobody aborts). Idempotent; True iff a
+        session existed."""
+        with self._ingest_lock:
+            present = stream_id in self._ingest_sessions
+            self._rollback_session_locked(stream_id, 'aborted')
+        return present
+
+    def _reject_chunk_locked(self) -> None:
+        self.ingest_stats['chunks_rejected'] += 1
+        _INGEST_REJECTED.inc()
+
+    def ingest_chunk(self, data: bytes) -> Dict[str, object]:
+        """Apply one framed handoff chunk to this (decode-tier) engine.
+
+        The reference's contract: a corrupt chunk raises
+        kv_cache.ChunkError and mutates NOTHING; an out-of-order chunk
+        raises kv_cache.ChunkSequenceError carrying the expected seq; a
+        retried already-applied seq (the final chunk of a published
+        stream too) is acknowledged without allocating again; pool
+        pressure and draining shed (EngineOverloadedError /
+        EngineDrainingError, the server's 503 + Retry-After) with the
+        partial stream rolled back to refcount 0. The final chunk's
+        pool write and index publish run in the engine thread."""
+        fault_injection.point('engine.ingest')
+        self._require_prefix_pool('KV ingest')
+        if self._draining:
+            with self._ingest_lock:
+                self.ingest_stats['chunks_shed'] += 1
+            _INGEST_SHED.inc()
+            raise exceptions.EngineDrainingError(
+                'engine is draining; not accepting KV ingest')
+        try:
+            header, payload = kv_cache_lib.unpack_kv_chunk(data)
+        except kv_cache_lib.ChunkError:
+            with self._ingest_lock:
+                self._reject_chunk_locked()
+            raise
+        meta = self._expected_leaf_meta()
+        if header['block_size'] != self.paged_block_size or \
+                kv_cache_lib.leaf_sig(header['leaves']) != \
+                kv_cache_lib.leaf_sig(meta):
+            with self._ingest_lock:
+                self._reject_chunk_locked()
+            raise kv_cache_lib.ChunkError(
+                'chunk layout does not match this engine (block_size / '
+                'model config / dtype / kv-quant mismatch)')
+        sid, seq = header['stream_id'], int(header['seq'])
+        final = bool(header.get('final'))
+        now = time_lib.monotonic()
+        key: Optional[tuple] = None
+        with self._ingest_lock:
+            self._expire_ingest_sessions_locked(now)
+            session = self._ingest_sessions.get(sid)
+            if session is not None and session.pool is not self._pool:
+                # A failed tick replaced the pool since this stream
+                # started: its blocks died with the old pool, and the
+                # sender's retry restarts from seq 0.
+                del self._ingest_sessions[sid]
+                session = None
+            if session is None:
+                if final and tuple(header['key']) in \
+                        self._prefix_entries:
+                    # Retried final chunk of a published stream.
+                    self.ingest_stats['chunks_duplicate'] += 1
+                    _INGEST_DUP.inc()
+                    return {'ok': True, 'duplicate': True, 'seq': seq}
+                if seq != 0:
+                    self._reject_chunk_locked()
+                    raise kv_cache_lib.ChunkSequenceError(0, seq)
+                # A NEW stream must leave room for one full-depth
+                # request beyond itself: shed rather than starve live
+                # decode slots.
+                floor = self._blocks_per_seq
+                if self._pool.free < int(header['num_blocks']) + floor:
+                    self.ingest_stats['chunks_shed'] += 1
+                    _INGEST_SHED.inc()
+                    raise exceptions.EngineOverloadedError(
+                        f'KV pool pressure: {self._pool.free} free '
+                        f'blocks cannot admit a new handoff stream '
+                        f'(need chunk + {floor} headroom)')
+                session = _IngestSession(sid, self._pool, now,
+                                         len(meta))
+                self._ingest_sessions[sid] = session
+            if seq < session.next_seq:
+                session.touched = now
+                self.ingest_stats['chunks_duplicate'] += 1
+                _INGEST_DUP.inc()
+                return {'ok': True, 'duplicate': True, 'seq': seq}
+            if seq > session.next_seq:
+                self._reject_chunk_locked()
+                raise kv_cache_lib.ChunkSequenceError(session.next_seq,
+                                                      seq)
+            if int(header['start_block']) != len(session.blocks):
+                # seq matches but the block offset does not: the stream
+                # is incoherent, abort it whole.
+                self._rollback_session_locked(sid, 'aborted')
+                self._reject_chunk_locked()
+                raise kv_cache_lib.ChunkError(
+                    f'chunk start_block {header["start_block"]} does '
+                    f'not match the {len(session.blocks)} blocks '
+                    f'assembled so far')
+            blocks: list = []
+            try:
+                for _ in range(int(header['num_blocks'])):
+                    blocks.append(self._pool.alloc())
+            except kv_cache_lib.PoolExhaustedError as e:
+                self._pool.release(blocks)
+                self._rollback_session_locked(sid, 'aborted')
+                self.ingest_stats['chunks_shed'] += 1
+                _INGEST_SHED.inc()
+                raise exceptions.EngineOverloadedError(
+                    f'KV pool exhausted mid-ingest: {e}') from e
+            off = 0
+            staged = []
+            try:
+                for m in meta:
+                    arr = _blocks_from_bytes(payload, off, len(blocks), m)
+                    staged.append(arr)
+                    off += arr.numel() * arr.element_size()
+            except ValueError as e:
+                # CRC passed but the payload length disagrees with the
+                # declared num_blocks: incoherent, abort the stream.
+                self._pool.release(blocks)
+                self._rollback_session_locked(sid, 'aborted')
+                self._reject_chunk_locked()
+                raise kv_cache_lib.ChunkError(
+                    f'chunk payload does not match the pool layout: '
+                    f'{e}') from e
+            for arrs, arr in zip(session.staged_arr, staged):
+                arrs.append(arr)
+            session.blocks.extend(blocks)
+            session.next_seq = seq + 1
+            session.chunks += 1
+            session.bytes += len(payload)
+            session.touched = now
+            if final:
+                if int(header['total_blocks']) != len(session.blocks):
+                    self._rollback_session_locked(sid, 'aborted')
+                    self._reject_chunk_locked()
+                    raise kv_cache_lib.ChunkError(
+                        f'stream assembled {len(session.blocks)} '
+                        f'blocks but the final chunk declares '
+                        f'{header["total_blocks"]}')
+                del self._ingest_sessions[sid]
+                key = tuple(int(t) for t in header['key'])
+            self.ingest_stats['chunks_ok'] += 1
+        _INGEST_OK.inc()
+        if not final:
+            return {'ok': True, 'seq': seq}
+
+        # Final chunk: one in-place write a leaf and the index publish,
+        # in the engine thread.
+        def apply():
+            if session.pool is not self._pool:
+                # The pool was replaced between assembly and apply:
+                # publishing would poison the successor pool.
+                raise exceptions.EngineWedgedError(
+                    'engine reset mid-ingest; stream lost')
+            self._scatter(session.blocks, [torch.cat(arrs)
+                                           for arrs in session.staged_arr])
+            displaced = self._prefix_entries.put(key,
+                                                 list(session.blocks))
+            for old_key, old_blocks in displaced:
+                self._pool.release(old_blocks)
+                self._prewarmed_keys.discard(old_key)
+            # Hits on an ingested entry count as pre-warm hits: TTFT
+            # served from KV this replica never computed.
+            self._prewarmed_keys.add(key)
+            return True
+
+        try:
+            self._exclusive(apply)
+        except BaseException as e:
+            with self._ingest_lock:
+                if not isinstance(e, (TimeoutError,
+                                      concurrent.futures.TimeoutError)):
+                    # The apply never published: back to refcount 0. A
+                    # timeout is different: the apply may still run and
+                    # publish these blocks, so they stay.
+                    self._release_session_blocks(session)
+                self.ingest_stats['streams_aborted'] += 1
+            _HANDOFF_INGEST_STREAMS.labels(outcome='aborted').inc()
+            raise
+        imported = len(session.blocks)
+        session.staged_arr = []
+        with self._ingest_lock:
+            self.ingest_stats['streams_completed'] += 1
+            self.ingest_stats['blocks_ingested'] += imported
+        _HANDOFF_INGEST_STREAMS.labels(outcome='completed').inc()
+        _HANDOFF_INGEST_BLOCKS.inc(imported)
+        return {'ok': True, 'seq': seq, 'final': True,
+                'imported_blocks': imported,
+                'key_tokens': len(key)}
 
 
 def load_params_from_checkpoint(cfg: ModelConfig, checkpoint_dir: str,

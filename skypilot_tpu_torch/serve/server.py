@@ -3,11 +3,13 @@
 A small port of skypilot_tpu/serve/server.py's serving surface, same
 request and response JSON:
 
-  GET  /health    → 200 {"status": "ok"} once the engine is warm (plus
-                    "adapters": {"capacity", "resident"} with
-                    --max-adapters, and "tier_load" once a request named
-                    a tier other than "standard"); 503 + Retry-After
-                    while draining
+  GET  /health    → 200 {"status": "ok", "tier": t} once the engine is
+                    warm (plus "adapters": {"capacity", "resident"} with
+                    --max-adapters, "tier_load" once a request named a
+                    tier other than "standard", and "prewarm": the
+                    outcome of the start's pre-warm with --prefix-store);
+                    503 + Retry-After + X-SkyTPU-Draining: 1 while
+                    draining
   GET  /metrics   → Prometheus text exposition (engine TTFT/TPOT
                     histograms, queue depth, prefix-cache and pool
                     counters, HTTP latency and status per route)
@@ -31,10 +33,31 @@ request and response JSON:
                     it, 404 when unknown
   GET  /adapters  → registry / residency / refcount snapshot
   POST /preempt   {"deadline_s": S (optional)}: the preemption notice —
-                    stop admitting, drain in-flight work within S seconds
-                    (--preempt-drain-timeout by default) ⇒ {"status":
-                    "drained", "drained": bool, "export": null}; while
-                    already draining {"status": "already-draining"}
+                    stop admitting, drain in-flight work within most of S
+                    seconds (--preempt-drain-timeout by default), then
+                    export the prefix cache to --prefix-store with the
+                    rest ⇒ {"status": "drained", "drained": bool,
+                    "export": the export's stats with the artifact's
+                    "key", or null without a store}; while already
+                    draining {"status": "already-draining"}
+  POST /kv/prefill {"prompt_ids": [...], "target": decode URL,
+                    "stream_id", "chunk_blocks" (optional)}: prefill-tier
+                    half of a handoff — prefill the prompt into pool
+                    blocks and push them to target's /kv/ingest as the
+                    reference's KV chunk stream ⇒ {"ok", "chunks",
+                    "bytes", "blocks", "handoff_s", ...}; 502 when the
+                    push fails (with "push_status", the decode side's
+                    answer), 409 when the prefix was evicted
+  POST /kv/ingest  one framed chunk (decode tier): 200 applied or
+                    duplicate, 409 {"expected": seq} out of order, 400
+                    corrupt or of another layout, 503 + Retry-After
+                    under pool pressure or while draining
+  POST /kv/abort   {"stream_id"}: roll a partial stream back to refcount 0
+
+Every response not yet on the wire carries the reference's fleet headers
+(X-SkyTPU-Queue-Depth, -Tier, -Tokenizer: byte, -Prefix-Digest, and with
+tiers or adapters -Tier-Load and -Adapters), which the reference's load
+balancer reads in band; a draining shed adds X-SkyTPU-Draining: 1.
 
 Text goes through the built-in byte-level tokenizer (ids 0-255 = bytes).
 Every prompt of a request goes straight into the continuous-batching
@@ -49,7 +72,12 @@ SIGTERM drains as the reference does: /health turns 503 + Retry-After
 at once and new requests shed, the engine finishes in-flight work
 within --drain-timeout off the event loop, then the process exits 0. A
 second SIGTERM waits for the same drain's outcome and exits. POST
-/preempt runs the same run-once drain.
+/preempt runs the same run-once drain and export. With --prefix-store
+(gs://bucket, local://bucket or a directory; $SKYTPU_PREFIX_STORE) the
+server pre-warms its prefix cache from the store's newest artifact
+before it turns ready. --tier prefill | decode (default monolithic,
+$SKYTPU_REPLICA_TIER) gates the /kv routes: prefill replicas serve
+/kv/prefill, decode replicas /kv/ingest.
 
 Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         [--hf-model-path DIR | --checkpoint-dir DIR] [--quantize int8] \\
@@ -58,7 +86,8 @@ Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         [--prefix-cache 16] [--top-k K] [--top-p P] \\
         [--async-depth 1] [--decode-chunk 4] [--speculative 4] \\
         [--kv-quant int8] [--max-adapters 4 --adapter-rank 16 \\
-         --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down]
+         --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down] \\
+        [--prefix-store DIR] [--tier prefill|decode]
 The engine runs on CUDA unless --device cpu is given. On CUDA every decode
 dispatch and prefill chunk is a CUDA-graph replay; `warmup()` captures
 the graphs greedy requests take.
@@ -73,16 +102,22 @@ import os
 import signal
 import socket
 import sys
+import tempfile
 import threading
 import time
-from typing import List, Optional
+import urllib.error
+import urllib.request
+from typing import Callable, Dict, List, Optional
 
 from aiohttp import web
 
 from skypilot_tpu_torch import exceptions
+from skypilot_tpu_torch.models import kv_cache as kv_cache_lib
 from skypilot_tpu_torch.observability import exposition
 from skypilot_tpu_torch.observability import metrics as obs
+from skypilot_tpu_torch.serve import constants as serve_constants
 from skypilot_tpu_torch.serve import tenancy
+from skypilot_tpu_torch.utils import fault_injection
 
 logger = logging.getLogger(__name__)
 
@@ -104,12 +139,28 @@ _PREEMPT_NOTICES = obs.counter(
     'skytpu_server_preempt_notices_total',
     'Preemption notices handled (POST /preempt or SIGTERM-with-'
     'deadline)')
+_PREEMPT_DRAIN_HIST = obs.histogram(
+    'skytpu_server_preempt_drain_seconds',
+    'Preemption notice → in-flight work drained: how much of the '
+    'notice budget the drain consumed (the remainder funds the '
+    'prefix export)',
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 20.0, 30.0, 60.0))
+
+# The trace context header: a /kv/prefill request's value rides each
+# handoff chunk's header and each push verbatim.
+_TRACE_HEADER = 'X-SkyTPU-Trace'
+# The most blocks a handoff chunk may carry. The app's body limit is sized
+# to it (aiohttp's default, 1 MiB, is under one llama3-8b block).
+MAX_CHUNK_BLOCKS = 64
 
 
-def _timed(route: str, handler):
+def _timed(route: str, handler,
+           fleet_headers: Callable[[], Dict[str, str]]):
     """`handler`, timing each request and counting (route, status),
-    including exceptions aiohttp maps to HTTP errors. A wrapper rather
-    than the reference's aiohttp middleware: aiohttp caches each
+    including exceptions aiohttp maps to HTTP errors, and adding
+    `fleet_headers()` to every response not already on the wire (an SSE
+    stream is prepared before its handler returns). A wrapper rather
+    than the reference's aiohttp middlewares: aiohttp caches each
     handler's middleware chain for the life of the process, which would
     keep every server built in one process, and its engine, alive."""
     latency = _REQ_LATENCY.labels(route=route)
@@ -120,6 +171,8 @@ def _timed(route: str, handler):
         try:
             response = await handler(request)
             status = response.status
+            if not response.prepared:
+                response.headers.update(fleet_headers())
             return response
         except web.HTTPException as e:
             status = e.status
@@ -129,6 +182,39 @@ def _timed(route: str, handler):
             _REQ_TOTAL.labels(route=route, status=str(status)).inc()
 
     return timed
+
+
+class _HandoffPushError(Exception):
+    """A chunk push to the decode replica failed past its retry budget.
+    `pushed` counts chunks the receiver acknowledged before the failure
+    (the partial stream the load balancer must abort); `status` is the
+    decode side's HTTP status, when it answered."""
+
+    def __init__(self, message: str, pushed: int,
+                 status: Optional[int] = None) -> None:
+        super().__init__(message)
+        self.pushed = pushed
+        self.status = status
+
+
+# Proxy settings from the environment never apply to replica-to-replica
+# pushes.
+_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def post_bytes(url: str, data: bytes, headers: Dict[str, str],
+               timeout: float) -> tuple:
+    """POST `data` to `url`: (status, body bytes) for any HTTP answer;
+    raises OSError (urllib.error.URLError, a timeout, a refused or reset
+    connection) when none came. The one transport seam of the handoff
+    push (tests replace it)."""
+    request = urllib.request.Request(url, data=data, headers=headers,
+                                     method='POST')
+    try:
+        with _OPENER.open(request, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
 
 
 def byte_encode(text: str) -> List[int]:
@@ -170,6 +256,8 @@ class InferenceServer:
                  hf_model_path: Optional[str] = None,
                  quantize: Optional[str] = None,
                  decode_kernel: str = 'pallas',
+                 prefix_store: Optional[str] = None,
+                 tier: str = 'monolithic',
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
@@ -191,7 +279,9 @@ class InferenceServer:
             adapter_alpha=adapter_alpha, adapter_targets=adapter_targets,
             async_depth=async_depth, decode_chunk=decode_chunk,
             speculative=speculative, quantize=quantize,
-            decode_kernel=decode_kernel, device=device)
+            decode_kernel=decode_kernel, tier=tier,
+            ingest_ttl=serve_constants.ingest_session_ttl_seconds(),
+            device=device)
         # Weights loaded (or drawn, or quantized) and the engine built.
         self.load_seconds = time.monotonic() - t0
         logger.info('engine for %s ready in %.2fs (weights: %s)', model,
@@ -200,6 +290,15 @@ class InferenceServer:
         self.ready = False
         self.draining = False
         self.preempt_drain_timeout = preempt_drain_timeout
+        # Disaggregated serving: 'prefill' replicas compute KV and push
+        # it (/kv/prefill), 'decode' replicas ingest it (/kv/ingest),
+        # 'monolithic' serves both routes.
+        self.tier = tier
+        # Preemption-native serving: the store URL hot prefixes export to
+        # on a notice and pre-warm from at start; the outcome of the
+        # last pre-warm (shown on /health).
+        self.prefix_store = prefix_store
+        self.last_prewarm: Optional[dict] = None
         # The preemption notice body runs once; later notices (a second
         # SIGTERM, a /preempt racing one) get its cached outcome.
         self._notice_lock = threading.Lock()
@@ -232,17 +331,20 @@ class InferenceServer:
     async def handle_health(self, request: web.Request) -> web.Response:
         del request
         if self.draining:
-            return web.json_response({'status': 'draining'}, status=503,
-                                     headers={'Retry-After': '5'})
+            return web.json_response(
+                {'status': 'draining'}, status=503,
+                headers={'Retry-After': '5', 'X-SkyTPU-Draining': '1'})
         if not self.ready:
             return web.json_response({'status': 'warming'}, status=503)
-        payload = {'status': 'ok'}
+        payload = {'status': 'ok', 'tier': self.tier}
         if self.engine.max_adapters:
             info = self.engine.adapters_info()
             payload['adapters'] = {'capacity': info['capacity'],
                                    'resident': info['resident']}
         if self.engine.tiers_active:
             payload['tier_load'] = self.engine.tier_load()
+        if self.last_prewarm is not None:
+            payload['prewarm'] = self.last_prewarm
         return web.json_response(payload)
 
     async def handle_metrics(self, request: web.Request) -> web.Response:
@@ -256,9 +358,16 @@ class InferenceServer:
     def _unavailable(message: str, retry_after: int = 1,
                      reason: str = 'overloaded',
                      status: int = 503) -> web.Response:
+        """Shed with Retry-After; a draining shed also carries
+        X-SkyTPU-Draining, so the load balancer replays the request
+        elsewhere at once instead of charging this healthy, departing
+        replica's circuit breaker."""
         _SHED_TOTAL.labels(reason=reason).inc()
+        headers = {'Retry-After': str(retry_after)}
+        if reason == 'draining':
+            headers['X-SkyTPU-Draining'] = '1'
         return web.json_response({'error': message}, status=status,
-                                 headers={'Retry-After': str(retry_after)})
+                                 headers=headers)
 
     @staticmethod
     def _tenant_fields(data: dict) -> tuple:
@@ -534,6 +643,9 @@ class InferenceServer:
                     'server_error')
         headers = ({'Retry-After': str(retry_after)}
                    if retry_after is not None else None)
+        if shed_reason == 'draining':
+            headers = dict(headers or {})
+            headers['X-SkyTPU-Draining'] = '1'
         if shed_reason is not None:
             _SHED_TOTAL.labels(reason=shed_reason).inc()
         return web.json_response(
@@ -839,19 +951,88 @@ class InferenceServer:
 
     # -- preemption notice and drain --
 
+    def _can_export_prefixes(self) -> bool:
+        return bool(self.prefix_store and self.engine.paged_block_size
+                    and self.engine.prefix_cache)
+
+    @staticmethod
+    def _artifact_prefix() -> str:
+        service = os.environ.get('SKYTPU_SERVICE_NAME', '')
+        return f'{service}/' if service else ''
+
+    def _artifact_key(self) -> str:
+        rid = os.environ.get('SKYTPU_REPLICA_ID', '0')
+        # Zero-padded nanosecond stamp: "newest" is lexicographically
+        # last under list_keys' ascending sort.
+        return (f'{self._artifact_prefix()}'
+                f'prefix-{time.time_ns():020d}-r{rid}.skypfx')
+
+    def _export_to_store(self, budget_s: Optional[float]) -> dict:
+        """Export hot prefixes to the prefix store; the export stats,
+        with 'key' when an artifact was published. Keeps the newest 5
+        artifacts (pre-warm walks at most the newest 3)."""
+        from skypilot_tpu_torch.data import storage as storage_lib
+        store = storage_lib.artifact_store_from_url(self.prefix_store)
+        with tempfile.TemporaryDirectory(prefix='skytpu-pfx-') as tmp:
+            path = os.path.join(tmp, 'artifact.skypfx')
+            stats = self.engine.export_prefixes(path, budget_s=budget_s)
+            if stats.get('exported'):
+                key = self._artifact_key()
+                store.put_file(path, key)
+                stats['key'] = key
+                # Best effort: a prune failure must not fail the export.
+                try:
+                    keys = store.list_keys(self._artifact_prefix())
+                    for old in keys[:-5]:
+                        store.delete_key(old)
+                    if len(keys) > 5:
+                        stats['pruned'] = len(keys) - 5
+                except Exception:  # pylint: disable=broad-except
+                    logger.warning('prefix-artifact prune failed',
+                                   exc_info=True)
+        return stats
+
     def _drain_and_export(self, budget_s: float) -> dict:
-        """The run-once notice body (off the event loop): drain the
-        engine within `budget_s`. Later notices get the cached outcome;
-        one arriving mid-drain waits for it. Prefix export is not ported,
-        so `export` is always None (the reference's answer without a
-        prefix store)."""
+        """The run-once notice body (off the event loop): drain within
+        most of `budget_s`, then export hot prefixes to the prefix store
+        with what remains. Later notices get the cached outcome; one
+        arriving mid-drain waits for it. Without a prefix store `export`
+        is None."""
         with self._notice_lock:
             if self._notice_result is None:
-                _PREEMPT_NOTICES.inc()
-                self._notice_result = {
-                    'drained': self.engine.drain(timeout=max(0.1, budget_s)),
-                    'export': None}
+                self._notice_result = self._drain_and_export_impl(budget_s)
             return dict(self._notice_result)
+
+    def _drain_and_export_impl(self, budget_s: float) -> dict:
+        _PREEMPT_NOTICES.inc()
+        t0 = time.monotonic()
+        deadline = t0 + budget_s
+        # A slice of the budget is kept for the export itself.
+        export_reserve = (min(2.0, budget_s * 0.3)
+                          if self._can_export_prefixes() else 0.0)
+        drained = self.engine.drain(
+            timeout=max(0.1, budget_s - export_reserve))
+        _PREEMPT_DRAIN_HIST.observe(time.monotonic() - t0)
+        result: dict = {'drained': drained, 'export': None}
+        if not self._can_export_prefixes():
+            return result
+        if not drained:
+            # A timed-out drain can leave a request mid-decode: an
+            # artifact raced by it could hold stale KV under a valid
+            # CRC. Losing the artifact only costs a cold start.
+            result['error'] = 'drain timed out; export skipped'
+            return result
+        try:
+            # Chaos seam: the kill landing between drain and export.
+            fault_injection.point('replica.preempt_kill')
+            result['export'] = self._export_to_store(
+                budget_s=max(0.1, deadline - time.monotonic()))
+        except fault_injection.InjectedFault as e:
+            result['error'] = f'killed mid-export: {e}'
+        except Exception as e:  # pylint: disable=broad-except
+            logger.warning('prefix export failed: %s', e)
+            result['error'] = str(e)
+        return result
 
     async def handle_preempt(self, request: web.Request) -> web.Response:
         """POST /preempt, the preemption-notice hook: stop admitting
@@ -882,6 +1063,288 @@ class InferenceServer:
         result['status'] = 'drained'
         return web.json_response(result)
 
+    def prewarm_from_store(self) -> Optional[dict]:
+        """Pre-warm the prefix index from the newest artifact in the
+        prefix store, walking back across up to 3 artifacts when one is
+        rejected whole. A failure never blocks serving: the replica just
+        comes up cold. Returns (and keeps in `last_prewarm`, shown on
+        /health) the outcome, or None without a prefix store."""
+        if not self._can_export_prefixes():
+            return None
+        from skypilot_tpu_torch.data import storage as storage_lib
+        try:
+            store = storage_lib.artifact_store_from_url(self.prefix_store)
+            keys = store.list_keys(self._artifact_prefix())
+        except Exception as e:  # pylint: disable=broad-except
+            self.last_prewarm = {'status': 'failed', 'error': str(e)}
+            return self.last_prewarm
+        if not keys:
+            self.last_prewarm = {'status': 'no-artifact'}
+            return self.last_prewarm
+        for key in list(reversed(keys))[:3]:
+            try:
+                with tempfile.TemporaryDirectory(
+                        prefix='skytpu-pfx-') as tmp:
+                    path = os.path.join(tmp, 'artifact.skypfx')
+                    store.get_file(key, path)
+                    stats = self.engine.import_prefixes(path)
+                self.last_prewarm = {
+                    'status': 'ok', 'key': key,
+                    'imported': stats['imported'],
+                    'blocks': stats['blocks'],
+                    'skipped_corrupt': stats['skipped_corrupt'],
+                    'partial': stats['stopped_pool_full'],
+                }
+                return self.last_prewarm
+            except kv_cache_lib.ArtifactError as e:
+                # The whole artifact is untrusted: try the next newest.
+                logger.warning('pre-warm artifact %s rejected: %s',
+                               key, e)
+                self.last_prewarm = {'status': 'rejected',
+                                     'key': key, 'error': str(e)}
+            except Exception as e:  # pylint: disable=broad-except
+                logger.warning('pre-warm from %s failed: %s', key, e)
+                self.last_prewarm = {'status': 'failed',
+                                     'key': key, 'error': str(e)}
+        return self.last_prewarm
+
+    # -- disaggregated prefill/decode handoff --
+    #
+    # The prefill tier computes a prompt's KV and pushes it, block by
+    # block, to the decode replica the load balancer picked:
+    #   POST /kv/prefill  (prefill tier; body {prompt_ids, target,
+    #                      stream_id, chunk_blocks}): prefill + push
+    #   POST /kv/ingest   (decode tier; body = one framed chunk): CRC-
+    #                      and sequence-checked assembly
+    #   POST /kv/abort    (decode tier; body {stream_id}): roll a partial
+    #                      stream back to refcount 0
+    # A shed ingest answers 503 + Retry-After, an out-of-order chunk 409
+    # with the expected seq (the pusher resumes there), a corrupt chunk
+    # 400 (a retry of the same seq is safe: ingest is idempotent per
+    # (stream, seq)).
+
+    def _push_stream(self, target: str, chunks,
+                     trace: Optional[str] = None) -> dict:
+        """Push framed chunks to `target`'s /kv/ingest in order. One
+        transport retry a CHUNK (the receiver dedups by seq) and up to
+        two 409-guided resumes a stream; anything else raises
+        _HandoffPushError."""
+        headers = {'Content-Type': 'application/octet-stream'}
+        if trace:
+            headers[_TRACE_HEADER] = trace
+        pushed = 0
+        bytes_total = 0
+        retries = 0        # across the stream (reported)
+        chunk_retries = 0  # transport retries of the CURRENT seq
+        resumes = 0        # 409-guided resumes (whole stream)
+        i = 0
+        while i < len(chunks):
+            # Chaos seam: an armed 'kv.stream' fault is the prefill
+            # replica dying mid-stream (or the wire tearing).
+            fault_injection.point('kv.stream')
+            try:
+                status, body = post_bytes(target + '/kv/ingest',
+                                          chunks[i], headers, 30.0)
+            except OSError as e:
+                if chunk_retries >= 1:
+                    raise _HandoffPushError(
+                        f'push to {target} failed: {e}', pushed) from e
+                chunk_retries += 1
+                retries += 1
+                continue           # retry the same seq: idempotent
+            if status == 200:
+                pushed += 1
+                bytes_total += len(chunks[i])
+                i += 1
+                chunk_retries = 0
+                continue
+            if status == 409 and resumes < 2:
+                # The out-of-order verdict names the seq the receiver
+                # expects: resume exactly there.
+                try:
+                    expected = int(json.loads(body).get('expected', -1))
+                except (ValueError, AttributeError):
+                    expected = -1
+                if 0 <= expected < len(chunks):
+                    resumes += 1
+                    retries += 1
+                    i = expected
+                    chunk_retries = 0
+                    continue
+            raise _HandoffPushError(
+                f'push to {target} answered {status}: '
+                f'{body[:200].decode("utf-8", "replace")}', pushed,
+                status=status)
+        return {'chunks': pushed, 'bytes': bytes_total,
+                'retries': retries}
+
+    def _prefill_and_push(self, ids, target: str, stream_id: str,
+                          chunk_blocks: int,
+                          trace: Optional[str] = None) -> dict:
+        t0 = time.monotonic()
+        pstats = self.engine.prefill_prefix(ids)
+        t1 = time.monotonic()
+        chunks = self.engine.export_prefix_chunks(
+            ids, stream_id, chunk_blocks=chunk_blocks, trace_header=trace)
+        t2 = time.monotonic()
+        push = self._push_stream(target, chunks, trace=trace)
+        t3 = time.monotonic()
+        # The reference's answer, plus where the handoff's time went:
+        # the gather and framing, then the push (the decode side's
+        # ingest included).
+        return {'ok': True, 'stream_id': stream_id,
+                'chunks': push['chunks'], 'bytes': push['bytes'],
+                'push_retries': push['retries'],
+                'blocks': -(-len(ids) // self.engine.paged_block_size),
+                'prefill_ttft_s': pstats['ttft_s'],
+                'export_s': t2 - t1, 'push_s': t3 - t2,
+                'handoff_s': t3 - t0}
+
+    async def handle_kv_prefill(self,
+                                request: web.Request) -> web.Response:
+        """POST /kv/prefill, the prefill-tier half of a handoff:
+        chunk-prefill the prompt into pool blocks, then stream them to
+        the decode replica named in `target`."""
+        if self.draining:
+            return self._unavailable('server is draining for shutdown',
+                                     retry_after=5, reason='draining')
+        if self.tier == 'decode':
+            return web.json_response(
+                {'error': 'this replica is decode-tier; /kv/prefill is '
+                          'a prefill-tier route'}, status=400)
+        try:
+            data = await request.json()
+        except Exception:  # pylint: disable=broad-except
+            return web.json_response({'error': 'body must be JSON'},
+                                     status=400)
+        if not isinstance(data, dict):
+            return web.json_response(
+                {'error': 'body must be a JSON object'}, status=400)
+        prompt_ids = data.get('prompt_ids')
+        target = data.get('target')
+        if not isinstance(prompt_ids, (list, tuple)) or not prompt_ids \
+                or not all(isinstance(t, int) for t in prompt_ids):
+            return web.json_response(
+                {'error': 'prompt_ids must be a non-empty token list'},
+                status=400)
+        if not isinstance(target, str) or not target.startswith('http'):
+            return web.json_response(
+                {'error': 'target must be the decode replica URL'},
+                status=400)
+        stream_id = str(data.get('stream_id') or
+                        f'h-{time.time_ns():x}')
+        try:
+            chunk_blocks = int(data.get('chunk_blocks') or
+                               serve_constants.handoff_chunk_blocks())
+            if not 1 <= chunk_blocks <= MAX_CHUNK_BLOCKS:
+                raise ValueError
+        except (TypeError, ValueError):
+            return web.json_response(
+                {'error': f'chunk_blocks must be an int in [1, '
+                          f'{MAX_CHUNK_BLOCKS}]'}, status=400)
+        try:
+            result = await asyncio.get_running_loop().run_in_executor(
+                None, self._prefill_and_push,
+                [int(t) for t in prompt_ids], target.rstrip('/'),
+                stream_id, chunk_blocks,
+                request.headers.get(_TRACE_HEADER))
+        except exceptions.EngineOverloadedError as e:
+            return self._unavailable(str(e))
+        except _HandoffPushError as e:
+            # Mid-stream push failure: the load balancer aborts the
+            # partial ingest and re-dispatches or falls back. 502 is
+            # upstream trouble, retryable; push_status relays the decode
+            # side's verdict (a shed 503 is not cured by another
+            # prefill replica).
+            return web.json_response(
+                {'error': str(e), 'stream_id': stream_id,
+                 'pushed_chunks': e.pushed,
+                 'push_status': e.status}, status=502)
+        except fault_injection.InjectedFault as e:
+            return web.json_response(
+                {'error': f'handoff stream fault: {e}',
+                 'stream_id': stream_id}, status=500)
+        except ValueError as e:
+            # The prefix was evicted between prefill and export, or the
+            # prompt cannot be served: a retryable conflict.
+            return web.json_response(
+                {'error': str(e), 'stream_id': stream_id}, status=409)
+        return web.json_response(result)
+
+    async def handle_kv_ingest(self,
+                               request: web.Request) -> web.Response:
+        """POST /kv/ingest: apply one framed handoff chunk to this
+        decode replica's pool (engine.ingest_chunk's idempotency and
+        rollback contract)."""
+        if self.tier == 'prefill':
+            return web.json_response(
+                {'error': 'this replica is prefill-tier; /kv/ingest is '
+                          'a decode-tier route'}, status=400)
+        data = await request.read()
+        if not data:
+            return web.json_response({'error': 'empty chunk'},
+                                     status=400)
+        try:
+            result = await asyncio.get_running_loop().run_in_executor(
+                None, self.engine.ingest_chunk, data)
+        except kv_cache_lib.ChunkSequenceError as e:
+            return web.json_response(
+                {'error': str(e), 'expected': e.expected}, status=409)
+        except kv_cache_lib.ChunkError as e:
+            return web.json_response({'error': str(e)}, status=400)
+        except exceptions.EngineDrainingError as e:
+            return self._unavailable(str(e), retry_after=5,
+                                     reason='draining')
+        except exceptions.EngineOverloadedError as e:
+            # The decode-side admission gate: shed, never corrupt.
+            return self._unavailable(str(e), retry_after=1,
+                                     reason='ingest-pressure')
+        except fault_injection.InjectedFault as e:
+            return web.json_response(
+                {'error': f'ingest fault: {e}'}, status=500)
+        return web.json_response(result)
+
+    async def handle_kv_abort(self,
+                              request: web.Request) -> web.Response:
+        """POST /kv/abort: roll a partial handoff stream back to
+        refcount 0 (idempotent)."""
+        try:
+            data = await request.json()
+            stream_id = str(data['stream_id'])
+        except Exception:  # pylint: disable=broad-except
+            return web.json_response(
+                {'error': 'body must be JSON with stream_id'},
+                status=400)
+        aborted = self.engine.abort_ingest(stream_id)
+        return web.json_response({'ok': True, 'aborted': aborted})
+
+    def _fleet_intel_headers(self) -> Dict[str, str]:
+        """Routing intel on every response the load balancer reads in
+        band: queue load, tier, tokenizer, the prefix-cache digest, the
+        per-tier backlog (once tiered traffic or an adapter pool exists:
+        it scans the queue) and the resident adapters (sent even when
+        empty, so an eviction clears the balancer's affinity). Best
+        effort: a failure here never fails a response."""
+        engine = self.engine
+        headers: Dict[str, str] = {}
+        try:
+            headers['X-SkyTPU-Queue-Depth'] = str(engine.queue_load())
+            headers['X-SkyTPU-Tier'] = self.tier
+            # The port serves the byte tokenizer only.
+            headers['X-SkyTPU-Tokenizer'] = 'byte'
+            digest = engine.prefix_digest()
+            if digest:
+                headers['X-SkyTPU-Prefix-Digest'] = digest
+            if engine.max_adapters or engine.tiers_active:
+                headers['X-SkyTPU-Tier-Load'] = \
+                    tenancy.render_tier_load_header(engine.tier_load())
+            if engine.max_adapters:
+                resident = engine._adapter_pool.resident_names()  # pylint: disable=protected-access
+                headers['X-SkyTPU-Adapters'] = ','.join(resident)
+        except Exception:  # pylint: disable=broad-except
+            logger.debug('fleet-intel headers unavailable', exc_info=True)
+        return headers
+
     def warmup(self) -> None:
         t0 = time.monotonic()
         self.engine.generate([1, 2, 3], max_new_tokens=4, timeout=600.0)
@@ -893,7 +1356,10 @@ class InferenceServer:
         # Serving /metrics attaches an exporter: recording turns on here,
         # never at import.
         obs.enable()
-        app = web.Application()
+        # Room for a /kv/ingest chunk of MAX_CHUNK_BLOCKS blocks and its
+        # header.
+        app = web.Application(client_max_size=max(
+            2**20, MAX_CHUNK_BLOCKS * self.engine.kv_block_bytes() + 2**20))
         for method, route, handler in (
                 ('GET', '/health', self.handle_health),
                 ('GET', '/metrics', self.handle_metrics),
@@ -904,8 +1370,12 @@ class InferenceServer:
                 ('POST', '/v1/completions', self.handle_v1_completions),
                 ('POST', '/v1/chat/completions', self.handle_v1_chat),
                 ('GET', '/v1/models', self.handle_v1_models),
-                ('POST', '/preempt', self.handle_preempt)):
-            app.router.add_route(method, route, _timed(route, handler))
+                ('POST', '/preempt', self.handle_preempt),
+                ('POST', '/kv/prefill', self.handle_kv_prefill),
+                ('POST', '/kv/ingest', self.handle_kv_ingest),
+                ('POST', '/kv/abort', self.handle_kv_abort)):
+            app.router.add_route(method, route, _timed(
+                route, handler, self._fleet_intel_headers))
         return app
 
 
@@ -1060,6 +1530,29 @@ def build_parser() -> argparse.ArgumentParser:
                         default=10.0,
                         help='drain budget of POST /preempt when the '
                              'notice names no deadline_s')
+    parser.add_argument('--prefix-store',
+                        default=os.environ.get('SKYTPU_PREFIX_STORE'),
+                        help='preemption-native serving: store URL for '
+                             'hot-prefix artifacts (gs://bucket, '
+                             'local://bucket, or a directory). On a '
+                             'preemption notice (POST /preempt or '
+                             'SIGTERM) cached prefixes export here; at '
+                             'startup the newest artifact pre-warms '
+                             'the prefix index BEFORE /health goes '
+                             'ready. Requires --prefix-cache. Default: '
+                             '$SKYTPU_PREFIX_STORE')
+    parser.add_argument('--tier',
+                        default=os.environ.get('SKYTPU_REPLICA_TIER',
+                                               'monolithic'),
+                        choices=['monolithic', 'prefill', 'decode'],
+                        help='disaggregated serving tier: prefill '
+                             'replicas compute KV and stream it block by '
+                             'block to decode replicas (/kv/prefill -> '
+                             '/kv/ingest); decode replicas serve '
+                             'handed-off requests from the ingested '
+                             'prefix. The specialized tiers require '
+                             '--prefix-cache. Default: '
+                             '$SKYTPU_REPLICA_TIER or monolithic')
     parser.add_argument('--device', default='cuda',
                         help="torch device; 'cuda' (default) raises when "
                              'no GPU is present')
@@ -1089,7 +1582,14 @@ def main(argv=None) -> int:
                              hf_model_path=args.hf_model_path,
                              quantize=args.quantize,
                              decode_kernel=args.decode_kernel,
+                             prefix_store=args.prefix_store,
+                             tier=args.tier,
                              device=args.device)
+    # Pre-warm BEFORE ready: a replacement replica restores the fleet's
+    # hot prefixes, so its first shared-prefix request is a cache hit.
+    prewarm = server.prewarm_from_store()
+    if prewarm is not None:
+        logger.info('prefix pre-warm: %s', prewarm)
     server.warmup()
     loop = asyncio.new_event_loop()
     asyncio.set_event_loop(loop)
@@ -1109,8 +1609,9 @@ def main(argv=None) -> int:
         logger.info('SIGTERM: draining (finishing in-flight requests, '
                     'budget %.0fs)...', args.drain_timeout)
         result = server._drain_and_export(args.drain_timeout)  # pylint: disable=protected-access
-        logger.info('drain %s; shutting down.',
-                    'complete' if result['drained'] else 'timed out')
+        logger.info('drain %s; export: %s; shutting down.',
+                    'complete' if result['drained'] else 'timed out',
+                    result.get('export') or result.get('error'))
         schedule_exit()
 
     def await_notice_then_exit():

@@ -1562,3 +1562,82 @@ def test_moe_engine_tokens_on_the_card_equal_the_cpu_tokens():
         outs.append([f.result(timeout=300)[0] for f in futures])
         assert engine.drain(timeout=60)
     assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [None, 'int8'], ids=['bf16', 'int8'])
+def test_handoff_import_keeps_the_captured_decode_graph(kv_quant):
+    """KV handoff on the card: a decode-tier engine captures its step
+    graphs first, then ingests a prefill-tier engine's chunk stream. The
+    ingest writes the pool tensors in place (their addresses, which the
+    graphs hold, are unchanged); a decode graph replay over the ingested
+    blocks equals the eager step bit for bit, and the handed-off prompt's
+    greedy tokens equal the prefill engine's cold ones."""
+    _need_gpu()
+    import dataclasses
+
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    cfg = dataclasses.replace(
+        get_config('llama3-8b'), name='handoff-small', vocab_size=1024,
+        d_model=512, num_layers=2, num_heads=4, num_kv_heads=2, d_mlp=1024,
+        max_seq_len=512, dtype='bfloat16')
+    kw = dict(num_slots=4, paged_block_size=16, prefill_chunk=64,
+              kv_quant=kv_quant, async_depth=1, prefix_cache=4, rng_seed=3,
+              device='cuda')
+    pre = ContinuousBatchingEngine(cfg, tier='prefill', **kw)
+    dec = ContinuousBatchingEngine(cfg, tier='decode', **kw)
+    prompt = [(7 * i + 3) % 1024 for i in range(150)]
+    try:
+        cold, _ = pre.generate(prompt, max_new_tokens=12)
+        chunks = pre.export_prefix_chunks(prompt, 'card-1', chunk_blocks=3)
+        dec.capture_graphs()
+        addresses = [t.data_ptr() for t in _pools(dec)]
+        for chunk in chunks:
+            result = dec.ingest_chunk(chunk)
+        assert result['final'] and result['imported_blocks'] == 10
+        assert [t.data_ptr() for t in _pools(dec)] == addresses
+        blocks = dec._prefix_entries.get(prompt)  # pylint: disable=protected-access
+        for ours, theirs in zip(_pools(dec), _pools(pre)):
+            want = theirs[:, pre._prefix_entries.get(prompt)]  # pylint: disable=protected-access
+            assert torch.equal(ours[:, blocks], want)
+
+        def step():
+            """One decode row at the prompt's end over the ingested
+            blocks, in the engine thread: (graph tokens, eager tokens)."""
+            saved = [t.clone() for t in _pools(dec)]
+            width = dec._blocks_per_seq + 1  # pylint: disable=protected-access
+            tables = np.zeros((4, width), np.int32)
+            tables[0, :len(blocks)] = blocks
+            tokens = np.zeros((4, 1), np.int32)
+            tokens[0, 0] = prompt[-1]
+            pos = np.zeros((4, 1), np.int32)
+            pos[0, 0] = len(prompt) - 1
+            d = dec._dec  # pylint: disable=protected-access
+            dec._forget_inputs()  # pylint: disable=protected-access
+            d.feed.put([tokens[:, 0], pos[:, 0]])
+            d.tables.put(tables)
+            d.temps.put(np.zeros(4, np.float32))
+            graph = dec._run_decode(1, False).result()  # pylint: disable=protected-access
+            for t, s in zip(_pools(dec), saved):
+                t.copy_(s)
+            eager = dec._decode_impl(  # pylint: disable=protected-access
+                torch.from_numpy(tokens).cuda(),
+                torch.from_numpy(pos).cuda(), torch.zeros(4, device='cuda'),
+                torch.from_numpy(tables).cuda(), False, None)
+            for t, s in zip(_pools(dec), saved):
+                t.copy_(s)
+            dec._forget_inputs()  # pylint: disable=protected-access
+            return graph[:, 0], eager.cpu().numpy()
+
+        graph, eager = dec._run_in_tick(step)  # pylint: disable=protected-access
+        assert np.array_equal(graph, eager)
+        assert ('decode', 1, False) in dec._steps.keys  # pylint: disable=protected-access
+        hot, _ = dec.generate(prompt, max_new_tokens=12)
+        assert hot == cold
+        assert dec.prewarm_stats['hits'] == 1
+        assert dec.prefix_stats['tokens_reused'] == len(prompt) - 1
+        dec._pool.check()  # pylint: disable=protected-access
+    finally:
+        pre.stop()
+        dec.stop()

@@ -6,7 +6,13 @@ blocked, and an AST scan of every import statement in those files. The
 port's own copy of a jax-free reference module keeps the reference's
 code: serve/tenancy/scheduling.py is pinned equal to the reference's,
 its module docstring aside, and so are callbacks/base.py and
-train/data.py's SftJsonlDataset (with the walk it draws from).
+train/data.py's SftJsonlDataset (with the walk it draws from). The KV
+portability copies are pinned definition by definition: kv_cache's
+artifact and chunk-stream functions and PrefixIndex's touch/get/digest,
+every function and class of utils/fault_injection.py (its points a
+subset of the reference's), the prefix store's classes and methods in
+data/storage.py, the URL helpers of data/data_utils.py and the handoff
+settings of serve/constants.py.
 """
 import ast
 import os
@@ -78,7 +84,11 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.models.lora',
                 'skypilot_tpu_torch.callbacks',
                 'skypilot_tpu_torch.callbacks.base',
-                'skypilot_tpu_torch.train.tokenize_tool'):
+                'skypilot_tpu_torch.train.tokenize_tool',
+                'skypilot_tpu_torch.utils.fault_injection',
+                'skypilot_tpu_torch.data.storage',
+                'skypilot_tpu_torch.data.data_utils',
+                'skypilot_tpu_torch.serve.constants'):
         assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
@@ -154,3 +164,107 @@ def test_sft_dataset_copy_equals_the_reference(name):
     rel = os.path.join('train', 'data.py')
     assert definition(os.path.join(_PKG, rel)) == definition(
         os.path.join(_REPO, 'skypilot_tpu', rel))
+
+
+def _top_level(path):
+    """{name: ast dump} of a module's top-level functions, classes and
+    single-name assignments."""
+    tree = ast.parse(open(path, encoding='utf-8').read(), filename=path)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = node
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = node
+    return out
+
+
+def _members(node):
+    """{name: ast dump} of a class's methods and attribute assignments."""
+    out = {}
+    for item in node.body:
+        if isinstance(item, ast.FunctionDef):
+            out[item.name] = ast.dump(item)
+        elif isinstance(item, (ast.Assign, ast.AnnAssign)):
+            target = (item.targets[0] if isinstance(item, ast.Assign)
+                      else item.target)
+            out[target.id] = ast.dump(item)
+    return out
+
+
+def _pair(rel, ref_rel=None):
+    return (_top_level(os.path.join(_PKG, rel)),
+            _top_level(os.path.join(_REPO, 'skypilot_tpu', ref_rel or rel)))
+
+
+_KV_COPIES = ('prefix_route_hash', 'PREFIX_ARTIFACT_MAGIC',
+              'PREFIX_ARTIFACT_VERSION', 'ArtifactError', 'KV_CHUNK_MAGIC',
+              'KV_CHUNK_VERSION', 'ChunkError', 'ChunkSequenceError',
+              'leaf_sig', '_chunk_crc', 'pack_kv_chunk', 'unpack_kv_chunk',
+              '_leaf_sig', '_prefix_crc', 'export_prefixes',
+              'read_artifact_header', 'import_prefixes')
+
+
+@pytest.mark.parametrize('name', _KV_COPIES)
+def test_kv_portability_copy_equals_the_reference(name):
+    port, ref = _pair(os.path.join('models', 'kv_cache.py'))
+    assert ast.dump(port[name]) == ast.dump(ref[name])
+
+
+@pytest.mark.parametrize('name', ['touch', 'get', 'put', 'pop_lru',
+                                  'digest'])
+def test_prefix_index_methods_equal_the_reference(name):
+    port, ref = _pair(os.path.join('models', 'kv_cache.py'))
+    assert _members(port['PrefixIndex'])[name] == \
+        _members(ref['PrefixIndex'])[name]
+
+
+def test_fault_injection_copy_equals_the_reference():
+    port, ref = _pair(os.path.join('utils', 'fault_injection.py'))
+    points = port.pop('KNOWN_POINTS')
+    ref_points = ref.pop('KNOWN_POINTS')
+    assert set(ast.literal_eval(points.value)) == {
+        'replica.preempt_kill', 'storage.export', 'storage.import',
+        'kv.stream', 'engine.ingest'}
+    assert set(ast.literal_eval(points.value)) <= set(
+        ast.literal_eval(ref_points.value))
+    assert {k: ast.dump(v) for k, v in port.items()} == \
+        {k: ast.dump(v) for k, v in ref.items()}
+
+
+@pytest.mark.parametrize('name', ['PlainDirStore', '_KeyPrefixStore',
+                                  'artifact_store_from_url'])
+def test_prefix_store_copy_equals_the_reference(name):
+    port, ref = _pair(os.path.join('data', 'storage.py'))
+    assert ast.dump(port[name]) == ast.dump(ref[name])
+
+
+@pytest.mark.parametrize('cls', ['AbstractStore', 'GcsStore',
+                                 'LocalStore'])
+def test_store_methods_equal_the_reference(cls):
+    """The port keeps the object calls of each store class, and each is
+    the reference's."""
+    port, ref = _pair(os.path.join('data', 'storage.py'))
+    ours, theirs = _members(port[cls]), _members(ref[cls])
+    assert ours
+    for name, dump in ours.items():
+        assert dump == theirs[name], name
+
+
+@pytest.mark.parametrize('name', ['GCS_PREFIX', 'LOCAL_PREFIX',
+                                  '_BUCKET_NAME_RE', 'split_gcs_path',
+                                  'split_local_bucket_path',
+                                  'validate_bucket_name',
+                                  'fake_bucket_dir'])
+def test_data_utils_copy_equals_the_reference(name):
+    port, ref = _pair(os.path.join('data', 'data_utils.py'))
+    assert ast.dump(port[name]) == ast.dump(ref[name])
+
+
+@pytest.mark.parametrize('name', ['_env_float', 'handoff_chunk_blocks',
+                                  'handoff_timeout_seconds',
+                                  'ingest_session_ttl_seconds'])
+def test_serve_constants_copy_equals_the_reference(name):
+    port, ref = _pair(os.path.join('serve', 'constants.py'))
+    assert ast.dump(port[name]) == ast.dump(ref[name])

@@ -456,8 +456,8 @@ def test_http_adapter_routes(tmp_path, adapter_trees, references):
                      {'name': 'ad0', 'path': str(tmp_path / 'ad0.npz')}) == \
             (200, {'ok': True, 'name': 'ad0', 'slot': 1})
         assert _call(url + '/health') == (
-            200, {'status': 'ok', 'adapters': {'capacity': 1,
-                                               'resident': 1}})
+            200, {'status': 'ok', 'tier': 'monolithic',
+                  'adapters': {'capacity': 1, 'resident': 1}})
         status, body = _call(url + '/adapters')
         assert status == 200 and body['adapters'] == [
             {'name': 'ad0', 'resident': True, 'slot': 1, 'refs': 0}]

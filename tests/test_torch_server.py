@@ -72,7 +72,7 @@ def live():
 def test_health(live):
     with urllib.request.urlopen(live['url'] + '/health', timeout=30) as r:
         assert r.status == 200
-        assert json.loads(r.read()) == {'status': 'ok'}
+        assert json.loads(r.read()) == {'status': 'ok', 'tier': 'monolithic'}
 
 
 def test_generate_equals_engine_and_reference(live):
@@ -246,11 +246,20 @@ PORTED_METRICS = {
         'skytpu_engine_tier_ttft_seconds',
         'skytpu_engine_tier_requests_total',
         'skytpu_engine_tier_deadline_shed_total',
-        'skytpu_engine_slot_preempts_total'),
+        'skytpu_engine_slot_preempts_total',
+        'skytpu_prefix_export_blocks_total',
+        'skytpu_prefix_prewarm_blocks_total',
+        'skytpu_prefix_prewarm_hit_total',
+        'skytpu_handoff_export_chunks_total',
+        'skytpu_handoff_export_bytes_total',
+        'skytpu_handoff_ingest_chunks_total',
+        'skytpu_handoff_ingest_streams_total',
+        'skytpu_handoff_ingest_blocks_total'),
     'skypilot_tpu.serve.server': (
         'skytpu_server_request_seconds', 'skytpu_server_requests_total',
         'skytpu_server_shed_total', 'skytpu_server_draining',
-        'skytpu_server_preempt_notices_total'),
+        'skytpu_server_preempt_notices_total',
+        'skytpu_server_preempt_drain_seconds'),
     'skypilot_tpu.train.metrics': (
         'skytpu_train_step_seconds', 'skytpu_train_tokens_per_sec',
         'skytpu_train_mfu', 'skytpu_train_steps_timed_total',
