@@ -136,6 +136,22 @@ and passed over):
             engine, the eager step beside one graph replay (equal
             tokens): host wall, CUDA-kernel time (torch.profiler), idle
             share and launch calls per step.
+  resilience: the serve weights behind the server again (8 slots, blocks
+            of 16, chunks of 256, step graphs captured, async depth 1,
+            --watchdog-timeout 2): serve's 8 prompts untraced, then traced
+            under one root X-SkyTPU-Trace (tokens equal, decode tokens/s
+            of both and their ratio, one request's span tree and the
+            TTFT exemplar from GET /traces); `engine.decode` wedged with
+            the 8 in flight: each 503 with Retry-After and "watchdog"
+            within 1.25 x the timeout + 1 s, a flight record of the 8
+            slots and the step log, the released thread exits having
+            emitted nothing, then the same server serves the 8 again in
+            generation 1: tokens equal, no graph recaptured, peak memory
+            within 64 MiB of the pass before, launches exact; fail:1 fails
+            the 8 with InjectedFault in generation 1 and the next pass's
+            tokens are equal; the same wedge on an int8-KV server with 2
+            resident adapters (kernels 2 and 7); --request-timeout 1 caps
+            timeout_s 600 and a long request answers 504.
   serve_prefix: the server with the prefix cache (llama3-8b at full
             size, 8 slots, blocks of 16, chunks of 256, async_depth 1,
             prefix_cache 16, 2049 pool blocks): multi-turn chat, 8
@@ -1426,9 +1442,10 @@ def phase_parity(torch) -> None:
 
 # -------------------------------------------------------------------- serve
 
-def _post(url: str, body: dict) -> dict:
+def _post(url: str, body: dict, headers=None) -> dict:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={'Content-Type': 'application/json'})
+                                 headers={'Content-Type': 'application/json',
+                                          **(headers or {})})
     with urllib.request.urlopen(req, timeout=600) as resp:
         return json.loads(resp.read())
 
@@ -1776,7 +1793,8 @@ def _expected_launches(engine, chunks: int, steps: int) -> dict:
 
 
 def _serve_traffic(torch, engine, url: str, bodies, during=None,
-                   new_tokens: int = 32, ordered: bool = False) -> dict:
+                   new_tokens: int = 32, ordered: bool = False,
+                   headers=None) -> dict:
     """The bodies as concurrent /generate requests, one thread each, with
     the launch counters set to 0 just before and read just after: checks
     every answer (`new_tokens` tokens in the vocabulary) and the launch
@@ -1786,13 +1804,13 @@ def _serve_traffic(torch, engine, url: str, bodies, during=None,
     queue one by one in the bodies' order, then released, so every run
     admits them in one order into the same slots (a MoE dispatch's rows
     share the experts' capacity: a row's tokens depend on its
-    neighbours)."""
+    neighbours). `headers` go with every request."""
     results = [None] * len(bodies)
     errors = []
 
     def send(i):
         try:
-            results[i] = _post(url + '/generate', bodies[i])
+            results[i] = _post(url + '/generate', bodies[i], headers)
         except Exception as e:  # pylint: disable=broad-except
             errors.append(f'request {i}: {e!r}')
 
@@ -1921,12 +1939,7 @@ def phase_serve(torch, smi: str) -> tuple:
         with urllib.request.urlopen(http.url + '/health', timeout=30) as r:
             if json.loads(r.read()).get('status') != 'ok':
                 fail('/health is not ok')
-        lengths = [20, 117, 214, 311, 408, 505, 602, 700]
-        gen = torch.Generator().manual_seed(1)
-        bodies = [{'prompt_ids': [torch.randint(0, cfg.vocab_size, (n,),
-                                                generator=gen).tolist()],
-                   'max_new_tokens': 32, 'temperature': 0.0}
-                  for n in lengths]
+        bodies = _serve_bodies(torch, cfg.vocab_size)
         run = serve_in_turns(torch, engine, http.url, bodies, 'serve', smi)
         engine_windows(torch, engine, smi, 'serve')
     finally:
@@ -1949,7 +1962,381 @@ def phase_serve(torch, smi: str) -> tuple:
             not bool(torch.isfinite(logits.float()).all()):
         fail(f'llama3-8b logits not finite or misshapen: {logits.shape}')
     timings = step_breakdown(torch, engine, smi, verify_ks=SCHED_KS)
-    return run['launches']['paged_decode_attention'], pool_bytes, timings
+    # The weights, for the resilience phase's servers.
+    params = dict(engine.model.state_dict())
+    return (run['launches']['paged_decode_attention'], pool_bytes, timings,
+            params)
+
+
+def _serve_bodies(torch, vocab: int) -> list:
+    """Serve's 8 greedy /generate bodies: seeded prompts of 20-700 tokens,
+    32 new tokens each."""
+    gen = torch.Generator().manual_seed(1)
+    return [{'prompt_ids': [torch.randint(0, vocab, (n,),
+                                          generator=gen).tolist()],
+             'max_new_tokens': 32, 'temperature': 0.0}
+            for n in (20, 117, 214, 311, 408, 505, 602, 700)]
+
+
+# ------------------------------------------------------------- resilience
+
+RESILIENCE_WATCHDOG = 2.0        # --watchdog-timeout of the phase's servers
+# A wedged request answers within the 1x allowance, one watchdog poll
+# (timeout / 4) and this much for the HTTP answer.
+RESILIENCE_SLACK_S = 1.0
+# Peak device memory of a pass after a recovery may exceed the same pass's
+# before it by at most this much (the recovery allocates nothing).
+RESILIENCE_PEAK_MARGIN = 64 * 2**20
+RESILIENCE_REQUEST_TIMEOUT = 1.0  # --request-timeout of step 5
+
+
+def _resilience_answers(engine, url: str, bodies, arm) -> tuple:
+    """The bodies as concurrent /generate requests; `arm()` runs once
+    every slot decodes. Returns ([(status, headers, body, seconds after
+    arm)], the arm's monotonic stamp)."""
+    from skypilot_tpu_torch.utils import fault_injection
+    answers = [None] * len(bodies)
+    armed = {}
+
+    def send(i):
+        req = urllib.request.Request(
+            url + '/generate', data=json.dumps(bodies[i]).encode(),
+            headers={'Content-Type': 'application/json'})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                status, headers, body = (resp.status, dict(resp.headers),
+                                         json.loads(resp.read()))
+        except urllib.error.HTTPError as e:
+            status, headers, body = (e.code, dict(e.headers),
+                                     json.loads(e.read() or b'{}'))
+        answers[i] = (status, headers, body,
+                      time.monotonic() - armed.get('t', time.monotonic()))
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    while not all(r is not None and not r.prefilling and r.tokens
+                  for r in engine._slots):  # pylint: disable=protected-access
+        if time.monotonic() > deadline:
+            fault_injection.disarm_all()
+            fail('resilience: the requests never all decoded')
+        time.sleep(0.001)
+    armed['t'] = time.monotonic()
+    arm()
+    for t in threads:
+        t.join(timeout=600)
+    return answers, armed['t']
+
+
+def _resilience_wedge(torch, engine, url: str, bodies, label: str,
+                      before: dict, smi: str) -> dict:
+    """Wedge `engine.decode` with the bodies in flight: every request 503
+    with Retry-After and 'watchdog' in time, a flight record of the
+    wedged slots and the step log; released, the abandoned thread exits
+    having emitted nothing; the same server serves the bodies again with
+    `before`'s tokens, no recapture, the launch formulas and the peak
+    memory of `before`. Returns the pass after the recovery."""
+    from skypilot_tpu_torch.observability import metrics as obs
+    from skypilot_tpu_torch.utils import fault_injection
+    gen0 = engine._generation  # pylint: disable=protected-access
+    captures = engine._steps.captures  # pylint: disable=protected-access
+    stale0 = engine.watchdog_stats['stale_exits']
+    flight = os.environ['SKYTPU_FLIGHT_DIR']
+    records0 = set(os.listdir(flight))
+    answers, t_arm = _resilience_answers(
+        engine, url, bodies,
+        lambda: fault_injection.arm('engine.decode', 'wedge'))
+    limit = RESILIENCE_WATCHDOG * 1.25 + RESILIENCE_SLACK_S
+    for i, (status, headers, body, after) in enumerate(answers):
+        if status != 503 or 'Retry-After' not in headers or \
+                'watchdog' not in body.get('error', '') or after > limit:
+            fault_injection.disarm_all()
+            fail(f'{label}: wedged request {i} answered {status} '
+                 f'{headers.get("Retry-After")} {body} after {after:.3f}s '
+                 f'(limit {limit}s)')
+    if engine._generation != gen0 + 1:  # pylint: disable=protected-access
+        fault_injection.disarm_all()
+        fail(f'{label}: generation {engine._generation} after one '  # pylint: disable=protected-access
+             f'recovery from {gen0}')
+    new = sorted(f for f in set(os.listdir(flight)) - records0
+                 if f.startswith('flight-wedge_recovery-'))
+    if len(new) != 1:
+        fault_injection.disarm_all()
+        fail(f'{label}: flight records {new}')
+    with open(os.path.join(flight, new[0]), encoding='utf-8') as f:
+        extra = json.load(f)['extra']
+    if extra['active_slots'] != list(range(engine.num_slots)) or \
+            not extra['step_log']:
+        fault_injection.disarm_all()
+        fail(f'{label}: flight record slots {extra["active_slots"]}, '
+             f'{len(extra["step_log"])} step log entries')
+    tokens = obs.REGISTRY.get('skytpu_engine_tokens_generated_total')
+    emitted, steps = tokens.value(), engine.tick_stats['decode_steps']
+    t_release = time.monotonic()
+    fault_injection.disarm_all()
+    while engine.watchdog_stats['stale_exits'] < stale0 + 1:
+        if time.monotonic() - t_release > 30:
+            fail(f'{label}: the abandoned engine thread did not exit')
+        time.sleep(0.001)
+    exited = time.monotonic() - t_release
+    stale_tokens = tokens.value() - emitted
+    stale_steps = engine.tick_stats['decode_steps'] - steps
+    if stale_tokens or stale_steps:
+        fail(f'{label}: the abandoned thread emitted {stale_tokens} '
+             f'tokens, dispatched {stale_steps} steps')
+    t0 = time.monotonic()
+    run = _serve_traffic(torch, engine, url, bodies)
+    run['recovery_s'] = max(a[3] for a in answers)
+    log(f'{label}: wedged at {engine.num_slots} slots in flight: all 503 '
+        f'(Retry-After {answers[0][1]["Retry-After"]}) in '
+        f'{min(a[3] for a in answers):.3f}-{run["recovery_s"]:.3f}s after '
+        f'the arm (limit {limit}s at --watchdog-timeout '
+        f'{RESILIENCE_WATCHDOG}); flight record {new[0]}: slots '
+        f'{extra["active_slots"]}, {len(extra["step_log"])} step log '
+        f'entries, why {extra["why"]!r}; released, the abandoned thread '
+        f'exited in {exited * 1e3:.1f} ms having emitted {stale_tokens:g} '
+        f'tokens and dispatched {stale_steps} steps; generation '
+        f'{engine._generation}; the next pass (first after the recovery) '  # pylint: disable=protected-access
+        f'{time.monotonic() - t0:.2f}s, TTFT p50 {run["ttft_ms"]:.1f} ms, '
+        f'decode {run["tokens_per_s"]:.1f} tokens/s, peak '
+        f'{run["peak_gib"]:.3f} GiB (before: {before["peak_gib"]:.3f}); '
+        f'launches {run["launches"]}, expected {run["expected"]}; graph '
+        f'captures {engine._steps.captures} (before {captures}) [{smi}]')  # pylint: disable=protected-access
+    if run['tokens'] != before['tokens']:
+        fail(f'{label}: tokens after the recovery differ from before')
+    if run['launches'] != run['expected']:
+        fail(f'{label}: launches {run["launches"]} != {run["expected"]}')
+    if engine._steps.captures != captures:  # pylint: disable=protected-access
+        fail(f'{label}: {engine._steps.captures - captures} graphs '  # pylint: disable=protected-access
+             f'recaptured after the recovery')
+    if (run['peak_gib'] - before['peak_gib']) * 2**30 > \
+            RESILIENCE_PEAK_MARGIN:
+        fail(f'{label}: peak memory {run["peak_gib"]:.3f} GiB after the '
+             f'recovery, {before["peak_gib"]:.3f} before (margin '
+             f'{RESILIENCE_PEAK_MARGIN} bytes)')
+    return run
+
+
+def _resilience_fail_tick(engine, bodies) -> list:
+    """The bodies queued on a held engine thread, then `engine.decode`
+    armed with fail:1: the names of the errors the requests failed with
+    (None for a success). Only the names leave: a failed future's
+    traceback holds the engine's frames."""
+    from skypilot_tpu_torch.utils import fault_injection
+    fault_injection.arm('engine.decode', 'fail:1')
+    try:
+        held, go = threading.Event(), threading.Event()
+        holder = threading.Thread(target=lambda: engine._run_in_tick(  # pylint: disable=protected-access
+            lambda: (held.set(), go.wait(60)), timeout=120))
+        holder.start()
+        held.wait(60)
+        futures = [engine.submit(b['prompt_ids'][0], max_new_tokens=32)
+                   for b in bodies]
+        go.set()
+        holder.join(120)
+        errors = []
+        for future in futures:
+            try:
+                future.result(timeout=120)
+                errors.append(None)
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(type(e).__name__)
+        return errors
+    finally:
+        fault_injection.disarm_all()
+
+
+def _one_tree(tracing, spans, root) -> list:
+    """The rendered tree of one request of the trace under `root`: its
+    server.request span and every span below it, each a child of the one
+    before it in the chain (checked)."""
+    requests = [s for s in spans if s['name'] == 'server.request' and
+                s['parent_id'] == root.span_id]
+    if not requests:
+        fail('resilience: no server.request span under the root')
+    picked = {requests[0]['span_id']}
+    grew = True
+    while grew:
+        below = {s['span_id'] for s in spans if s['parent_id'] in picked}
+        grew = not below <= picked
+        picked |= below
+    tree = [s for s in spans if s['span_id'] in picked]
+    children = {s['name'] for s in tree
+                if s['parent_id'] == requests[0]['span_id']}
+    if children != {'engine.queue_wait', 'engine.prefill',
+                    'engine.decode'} or \
+            len({s['trace_id'] for s in tree}) != 1:
+        fail(f'resilience: a request\'s spans {sorted(children)}')
+    return tracing.render_trace_tree(tree)
+
+
+def phase_resilience(torch, smi: str, params=None) -> dict:
+    """The serving engine's resilience and tracing on llama3-8b at full
+    width and depth, through the port's HTTP server (8 slots, blocks of
+    16, chunks of 256, step graphs captured, async depth 1,
+    --watchdog-timeout RESILIENCE_WATCHDOG): traced against untraced, a
+    wedge and its recovery, a failed tick, the same wedge on int8 KV with
+    two resident adapters, and --request-timeout. `params`: serve's
+    weights (made here when the serve phase did not run). Returns the
+    launches of the passes after the recoveries."""
+    from skypilot_tpu_torch.observability import tracing
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    from skypilot_tpu_torch.utils import fault_injection
+    if params is None:
+        from skypilot_tpu_torch.models.configs import get_config
+        from skypilot_tpu_torch.models.transformer import Transformer
+        model = Transformer(dataclasses.replace(
+            get_config('llama3-8b'), decode=True, remat=False,
+            paged_block_size=16), device='cuda')
+        model.init_random_(0)
+        params = dict(model.state_dict())
+        del model
+    flight = tempfile.mkdtemp(prefix='skytpu-flight-')
+    saved_flight = os.environ.get('SKYTPU_FLIGHT_DIR')
+    os.environ['SKYTPU_FLIGHT_DIR'] = flight
+    kw = dict(num_slots=8, paged_block_size=16, prefill_chunk=256,
+              rng_seed=0, async_depth=1,
+              watchdog_timeout=RESILIENCE_WATCHDOG, device='cuda')
+    servers = []
+    t_phase = time.monotonic()
+    try:
+        t0 = time.monotonic()
+        server = InferenceServer('llama3-8b', params=params, **kw)
+        engine = server.engine
+        server.warmup()
+        http = BackgroundServer(server)
+        servers.append((server, http))
+        log(f'resilience: llama3-8b server over the serve weights, warm in '
+            f'{time.monotonic() - t0:.1f}s, graphs {engine._steps.keys}')  # pylint: disable=protected-access
+        bodies = _serve_bodies(torch, engine.cfg.vocab_size)
+        # 1. Traced against untraced.
+        plain = _serve_traffic(torch, engine, http.url, bodies)
+        tracing.enable()
+        tracing.reset()
+        root = tracing.SpanContext(os.urandom(16).hex(), os.urandom(8).hex())
+        traced = _serve_traffic(
+            torch, engine, http.url, bodies,
+            headers={tracing.TRACE_HEADER: tracing.header_value(root)})
+        with urllib.request.urlopen(http.url + '/traces', timeout=60) as r:
+            data = json.loads(r.read())
+        tracing.disable()
+        for run in (plain, traced):
+            if run['launches'] != run['expected']:
+                fail(f'resilience: launches {run["launches"]} != '
+                     f'{run["expected"]}')
+        if traced['tokens'] != plain['tokens']:
+            fail('resilience: traced tokens differ from untraced')
+        spans = [s for s in data['spans'] if s['trace_id'] == root.trace_id]
+        tree = _one_tree(tracing, spans, root)
+        exemplar = data['exemplars'].get('skytpu_engine_ttft_seconds', {})
+        if data['schema'] != 'skytpu-traces/1' or \
+                exemplar.get('trace_id') != root.trace_id:
+            fail(f'resilience: /traces schema {data["schema"]}, TTFT '
+                 f'exemplar {exemplar}')
+        log(f'resilience: untraced decode {plain["tokens_per_s"]:.1f} '
+            f'tokens/s, TTFT p50 {plain["ttft_ms"]:.1f} ms; traced '
+            f'{traced["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
+            f'{traced["ttft_ms"]:.1f} ms; traced / untraced '
+            f'{traced["tokens_per_s"] / plain["tokens_per_s"]:.4f}; tokens '
+            f'equal; {len(spans)} spans in the trace [{smi}]')
+        for line in tree:
+            log(f'resilience: tree: {line}')
+        log(f'resilience: TTFT exemplar {exemplar}')
+        # 2. A wedge.
+        after = _resilience_wedge(torch, engine, http.url, bodies,
+                                  'resilience bf16', plain, smi)
+        launches = dict(after['launches'])
+        # 3. A failure: the tick fails its requests, the generation stays.
+        gen = engine._generation  # pylint: disable=protected-access
+        errors = _resilience_fail_tick(engine, bodies)
+        healed = _serve_traffic(torch, engine, http.url, bodies)
+        log(f'resilience: fail:1 failed the {len(errors)} in-flight '
+            f'requests with {sorted(set(map(str, errors)))}; generation '
+            f'{engine._generation} (was {gen}); the next pass\'s tokens '  # pylint: disable=protected-access
+            f'{"equal" if healed["tokens"] == plain["tokens"] else "DIFFER"}')
+        if errors != ['InjectedFault'] * len(bodies) or \
+                engine._generation != gen or \
+                healed['tokens'] != plain['tokens'] or \
+                healed['launches'] != healed['expected']:
+            fail(f'resilience: fail:1 errors {errors}, launches '
+                 f'{healed["launches"]} / {healed["expected"]}')
+        http.close()
+        servers.pop()
+        server.draining = True
+        if not engine.drain(timeout=120):
+            fail('resilience: the bf16 engine did not drain')
+        alive = weakref.ref(engine)
+        del server, engine, http
+        gc.collect()
+        torch.cuda.empty_cache()
+        _freed(alive, 'resilience bf16')
+        # 4. int8 KV (kernel 2) with two resident adapters (kernel 7).
+        t0 = time.monotonic()
+        server = InferenceServer('llama3-8b', params=params, max_adapters=2,
+                                 **TENANT_KW, **kw)
+        engine = server.engine
+        for i in range(2):
+            engine.load_adapter(f'a{i}', random_adapter(engine.cfg, 40 + i))
+        server.warmup()
+        http = BackgroundServer(server)
+        servers.append((server, http))
+        log(f'resilience: the int8-KV server with 2 adapters warm in '
+            f'{time.monotonic() - t0:.1f}s')
+        tenant_bodies = [dict(b, adapter=(None, 'a0', 'a1')[i % 3])
+                         for i, b in enumerate(bodies)]
+        for body in tenant_bodies:
+            if body['adapter'] is None:
+                del body['adapter']
+        plain8 = _serve_traffic(torch, engine, http.url, tenant_bodies)
+        if plain8['launches'] != plain8['expected']:
+            fail(f'resilience int8: launches {plain8["launches"]} != '
+                 f'{plain8["expected"]}')
+        after8 = _resilience_wedge(torch, engine, http.url, tenant_bodies,
+                                   'resilience int8', plain8, smi)
+        launches['paged_decode_attention_int8'] = after8['launches'][
+            'paged_decode_attention_int8']
+        launches['fused_multi_lora'] = after8['launches']['fused_multi_lora']
+        # 5. --request-timeout caps timeout_s; an expired deadline is 504.
+        server.request_timeout = RESILIENCE_REQUEST_TIMEOUT
+        t_now = time.time()
+        capped = server._deadline_for({'timeout_s': 600}) - t_now  # pylint: disable=protected-access
+        t0 = time.monotonic()
+        status, body = _request(http.url + '/generate', 'POST', {
+            'prompt_ids': bodies[-1]['prompt_ids'], 'max_new_tokens': 4000,
+            'timeout_s': 600})
+        waited = time.monotonic() - t0
+        server.request_timeout = 0.0
+        log(f'resilience: --request-timeout {RESILIENCE_REQUEST_TIMEOUT}: '
+            f'timeout_s 600 capped to {capped:.3f}s; a 4000-token request '
+            f'answered {status} after {waited:.3f}s: {body.get("error")}')
+        if not 0 < capped <= RESILIENCE_REQUEST_TIMEOUT + 0.05 or \
+                status != 504 or \
+                waited > RESILIENCE_REQUEST_TIMEOUT + 5.0:
+            fail(f'resilience: request timeout {capped}, {status} after '
+                 f'{waited}s')
+        http.close()
+        servers.pop()
+        server.draining = True
+        if not engine.drain(timeout=120):
+            fail('resilience: the int8 engine did not drain')
+        engine._pool.check()  # pylint: disable=protected-access
+        log(f'resilience: the phase took {time.monotonic() - t_phase:.1f}s '
+            f'[{smi}]')
+        return launches
+    finally:
+        fault_injection.disarm_all()
+        tracing.disable()
+        for server, http in servers:
+            http.close()
+            server.engine.stop()
+        if saved_flight is None:
+            os.environ.pop('SKYTPU_FLIGHT_DIR', None)
+        else:
+            os.environ['SKYTPU_FLIGHT_DIR'] = saved_flight
+        shutil.rmtree(flight, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ serve_sched
@@ -5416,7 +5803,7 @@ def phase_kv_handoff(torch, smi: str) -> dict:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'serve', 'serve_prefix', 'serve_tenant',
+          'train_sp', 'serve', 'resilience', 'serve_prefix', 'serve_tenant',
           'serve_sched', 'graph_parity', 'families', 'serve_hf',
           'serve_int8w', 'finetune', 'moe', 'kv_handoff')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
@@ -5495,9 +5882,10 @@ def main(argv=None) -> int:
                 'launches': launches, **ring['full_hop']})
         gc.collect()
         torch.cuda.empty_cache()
-    bf16_pool_bytes = serve_timings = None
+    bf16_pool_bytes = serve_timings = serve_params = resilience = None
     if 'serve' in phases:
-        launches, bf16_pool_bytes, serve_timings = phase_serve(torch, smi)
+        launches, bf16_pool_bytes, serve_timings, serve_params = phase_serve(
+            torch, smi)
         if paged is not None:
             kernels.append({
                 'name': 'paged_decode_attention', 'route': 'cuda',
@@ -5506,6 +5894,11 @@ def main(argv=None) -> int:
                 'launches': launches, **paged})
         gc.collect()
         torch.cuda.empty_cache()
+    if 'resilience' in phases:
+        resilience = phase_resilience(torch, smi, serve_params)
+    serve_params = None
+    gc.collect()
+    torch.cuda.empty_cache()
     if 'serve_prefix' in phases:
         phase_serve_prefix(torch, smi)
         gc.collect()
@@ -5598,6 +5991,17 @@ def main(argv=None) -> int:
             elif entry['name'].startswith('paged_prefill_kernel<int8_t>'):
                 entry['kv_handoff_launches'] = launched[
                     'paged_decode_attention_int8']
+    if resilience is not None:
+        # The launches of the resilience phase's passes after a recovery.
+        for entry in kernels:
+            if entry['name'] == 'paged_decode_attention':
+                entry['resilience_launches'] = resilience[
+                    'paged_decode_attention']
+            elif entry['name'].startswith('paged_prefill_kernel<int8_t>'):
+                entry['resilience_launches'] = resilience[
+                    'paged_decode_attention_int8']
+            elif entry['name'] == 'fused_multi_lora':
+                entry['resilience_launches'] = resilience['fused_multi_lora']
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

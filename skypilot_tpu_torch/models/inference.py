@@ -86,6 +86,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -106,6 +107,7 @@ from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.observability import metrics as obs
+from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.serve import tenancy
 from skypilot_tpu_torch.utils import fault_injection
@@ -158,6 +160,9 @@ _SPEC_PAGED_ACCEPTED = obs.counter(
     'skytpu_engine_spec_paged_accepted_total',
     'Speculative drafts accepted by verification through paged '
     'block-table gathers (the paged x speculative composition)')
+_WEDGE_RECOVERIES = obs.counter(
+    'skytpu_engine_wedge_recoveries_total',
+    'Watchdog recoveries (engine thread wedged or died)')
 _PAGED_CAPACITY = obs.gauge(
     'skytpu_engine_paged_blocks_capacity',
     'Paged KV pool size in blocks (incl. the scratch block)')
@@ -260,6 +265,63 @@ _DECODE_KERNELS = ('xla', 'pallas', 'pallas_interpret')
 # Request sequence numbers: the decode feed's signature names requests by
 # them (never by id(), which a later request may reuse).
 _REQ_SEQ = itertools.count()
+
+# step_log cap: enough history for any interleaving assertion while
+# bounding a serve replica that decodes for weeks.
+_STEP_LOG_CAP = 4096
+
+
+class _StepLog(collections.deque):
+    """Capped deque that still supports the list-style slicing the
+    interleaving tests (and debuggers) use: log[marker:]."""
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return list(self)[idx]
+        return super().__getitem__(idx)
+
+
+class _StaleEngineError(Exception):
+    """Raised inside a tick when the watchdog has abandoned this engine
+    thread (generation bumped): the thread must exit WITHOUT touching
+    the (already replaced) slots/queue/pool of its successor."""
+
+
+class _World:
+    """The host state one engine thread schedules over: its slots, its
+    admission queue, its block allocator and prefix index (with the keys
+    pre-warmed into it), its async ring, its pending engine-thread work
+    and its adapter residency. A wedge recovery and a failed tick each
+    put a fresh world in place; the engine thread reads the world it was
+    bound to (`_bound`), so a thread the watchdog abandoned mutates only
+    its own old world, never its successor's."""
+
+    __slots__ = ('slots', 'queue', 'pool', 'prefix_entries',
+                 'prewarmed_keys', 'ring', 'engine_work', 'adapter_pool')
+
+    def __init__(self, slots, queue, pool, prefix_entries, engine_work,
+                 adapter_pool) -> None:
+        self.slots = slots
+        self.queue = queue
+        self.pool = pool
+        self.prefix_entries = prefix_entries
+        self.prewarmed_keys: set = set()
+        self.ring: 'collections.deque[_Inflight]' = collections.deque()
+        self.engine_work = engine_work
+        self.adapter_pool = adapter_pool
+
+
+def _world_attr(name: str) -> property:
+    """An engine attribute that lives in the calling thread's world: the
+    engine thread's bound one, else the engine's current one."""
+
+    def get(self):
+        return getattr(self._bound(), name)
+
+    def put(self, value):
+        setattr(self._bound(), name, value)
+
+    return property(get, put)
 
 
 def resolve_device(device) -> torch.device:
@@ -439,7 +501,7 @@ class _Request:
                  'next_pos', 'on_token', 'deadline', 'blocks',
                  'prefilling', 'prefill_pos', 'seq', 'adapter',
                  'adapter_slot', 'adapter_pool', 'tier', 'context',
-                 'admit_mono')
+                 'admit_mono', 'trace', 'admit_time')
 
     def __init__(self, ids, max_new_tokens, temperature, eos_id, future,
                  on_token=None, deadline=None, adapter=None,
@@ -471,6 +533,12 @@ class _Request:
         self.blocks: list = []
         self.prefilling = False
         self.prefill_pos = 0
+        # Tracing: the submitting request's span context, captured by
+        # submit() when tracing is enabled. None otherwise: every engine
+        # tracing hook guards on this identity check, so the decode tick
+        # pays no tracing cost (no spans, no clocks) while tracing is off.
+        self.trace = None
+        self.admit_time: Optional[float] = None
         # Multi-LoRA: the adapter's name, its stack slot (0 = base
         # model) and the AdapterPool its pin was taken against (None
         # once released, so the pin drops exactly once).
@@ -544,7 +612,29 @@ class ContinuousBatchingEngine:
     ingest_ttl is how long a partial handoff stream may wait for its
     next chunk (`ingest_stats`; `prewarm_stats` counts hits on imported
     and ingested entries and the blocks exported and pre-warmed).
+
+    watchdog_timeout (seconds; None or 0 = off) starts a monitor thread
+    beside the engine thread: when a busy engine completes no tick for
+    that long (ten times as long while a tick may legitimately be slow:
+    the thread's first tick, an admitting tick, a graph capture), or the
+    engine thread dies, it fails every in-flight and queued request with
+    EngineWedgedError, bumps `_generation` and lets the next submit start
+    a fresh engine thread over a fresh world (`_recover_from_wedge`). The
+    captured step graphs and the KV pool tensors are kept: the abandoned
+    thread can no longer stage, replay, copy or emit, because every
+    device write checks the generation under `_device_lock`, which the
+    successor's device writes take too.
     """
+
+    # The host state of the engine's current world (see _World).
+    _slots = _world_attr('slots')
+    _queue = _world_attr('queue')
+    _pool = _world_attr('pool')
+    _prefix_entries = _world_attr('prefix_entries')
+    _prewarmed_keys = _world_attr('prewarmed_keys')
+    _ring = _world_attr('ring')
+    _engine_work = _world_attr('engine_work')
+    _adapter_pool = _world_attr('adapter_pool')
 
     def __init__(self, cfg: 'ModelConfig | str',
                  params: Optional[Dict[str, torch.Tensor]] = None,
@@ -570,7 +660,13 @@ class ContinuousBatchingEngine:
                  quantize: Optional[str] = None,
                  tier: str = 'monolithic',
                  ingest_ttl: float = 60.0,
+                 watchdog_timeout: Optional[float] = None,
                  device='cuda') -> None:
+        # Each engine thread binds the world it schedules over here; any
+        # other thread reads `_world`, the current one.
+        self._tls = threading.local()
+        self._world = _World(None, None, None, None, collections.deque(),
+                             None)
         # The tier is routing metadata (the engine surface is the same),
         # but the prefill and decode tiers hand KV over block by block
         # into the prefix index, so they need the prefix cache.
@@ -713,6 +809,7 @@ class ContinuousBatchingEngine:
         # are unread at a time.
         width = self._blocks_per_seq + 1
         self._steps = step_graph.StepGraphs(self.device, self._gen)
+        self._steps.on_capture = self._note_slow_tick
         self._dec = step_graph.DecodeBuffers(
             num_slots, width, bool(self.max_adapters), self.device,
             ring=self.async_depth + 2)
@@ -743,14 +840,45 @@ class ContinuousBatchingEngine:
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._thread_lock = threading.Lock()
+        self._thread_lock = threading.RLock()
+        # Every device write (staging a static input, a graph replay or
+        # an eager step, a block copy, an adapter write) runs under this
+        # lock after a generation check: an abandoned engine thread can
+        # never interleave a write with its successor's, and the one
+        # write it may have enqueued before the generation moved is
+        # ordered ahead of the successor's on the stream. The watchdog's
+        # recovery never takes it (a thread hung in a device call may
+        # hold it).
+        self._device_lock = threading.RLock()
         # Admission control: >0 caps queued-not-yet-admitted requests;
         # beyond it submit() raises EngineOverloadedError.
         self.max_queue_depth = max(0, max_queue_depth)
         self._draining = False
-        # Device-facing work from other threads (adapter writes) runs in
-        # the engine thread between ticks: see _run_in_tick.
-        self._engine_work: 'collections.deque' = collections.deque()
+        # -------- resilience --------
+        # Watchdog: with a timeout set, a monitor thread fails in-flight
+        # futures cleanly when the engine thread wedges (a hung device
+        # call) or dies, then lets a fresh engine thread take over.
+        self.watchdog_timeout = watchdog_timeout
+        self._watchdog: Optional[threading.Thread] = None
+        self._heartbeat = time_lib.monotonic()
+        # Bumped by watchdog recovery; an abandoned engine thread
+        # notices the mismatch and exits without touching shared state.
+        self._generation = 0
+        # False until the current engine thread completes its first
+        # tick; _admitting_tick marks a tick that admits, prefills or
+        # captures a step graph (first-use kernel builds included). The
+        # watchdog allows such ticks ten times the timeout.
+        self._warm_tick = False
+        self._admitting_tick = False
+        # Set by a recovery: the successor zeroes the adapter stacks
+        # before its first tick (the abandoned thread may have been
+        # mid-write).
+        self._zero_adapters = False
+        # Recoveries, and abandoned engine threads that have exited.
+        self.watchdog_stats = {'recoveries': 0, 'stale_exits': 0}
+        # (decode_step, frozenset(active slot ids)) history; chunked
+        # prefill work logs as ('prefill', frozenset({slot})). Capped.
+        self.step_log = _StepLog(maxlen=_STEP_LOG_CAP)
         # -------- adapter pool state (multi-LoRA serving) --------
         self._adapter_pool: Optional[tenancy.AdapterPool] = (
             tenancy.AdapterPool(self.max_adapters) if self.max_adapters
@@ -970,26 +1098,33 @@ class ContinuousBatchingEngine:
         def capture():
             if self._busy() or self._ring:
                 raise RuntimeError('capture_graphs needs an idle engine')
-            self._forget_inputs()
-            d = self._dec
-            d.feed.put(np.zeros(d.feed.dev.shape, np.int32))
-            d.tables.put(np.zeros(d.tables.dev.shape, np.int32))
-            d.temps.put(np.zeros(self.num_slots, np.float32))
-            if d.aids is not None:
-                d.aids.put(np.zeros(self.num_slots, np.int32))
-            self._pf.ints.put(np.zeros(self._pf.ints.dev.shape, np.int32))
-            self._run_prefill(False)
-            for k in sorted({1, self.decode_chunk}):
-                self._run_decode(k, False).result()
-            if self.speculative:
-                v = self._verify_buffers(self.speculative)
-                v.feed.put(np.zeros(v.feed.dev.shape, np.int32))
-                v.tables.put(np.zeros(v.tables.dev.shape, np.int32))
-                v.sigs.clear()
-                self._run_verify(self.speculative, False).result()
-            # The runs advanced the feed: nothing the inputs hold is
-            # trusted afterwards.
-            self._forget_inputs()
+            # A capture is a slow tick for the watchdog.
+            self._note_slow_tick()
+            with self._device():
+                self._forget_inputs()
+                d = self._dec
+                d.feed.put(np.zeros(d.feed.dev.shape, np.int32))
+                d.tables.put(np.zeros(d.tables.dev.shape, np.int32))
+                d.temps.put(np.zeros(self.num_slots, np.float32))
+                if d.aids is not None:
+                    d.aids.put(np.zeros(self.num_slots, np.int32))
+                self._pf.ints.put(np.zeros(self._pf.ints.dev.shape,
+                                           np.int32))
+                self._run_prefill(False)
+                landings = [self._run_decode(k, False)
+                            for k in sorted({1, self.decode_chunk})]
+                if self.speculative:
+                    v = self._verify_buffers(self.speculative)
+                    v.feed.put(np.zeros(v.feed.dev.shape, np.int32))
+                    v.tables.put(np.zeros(v.tables.dev.shape, np.int32))
+                    v.sigs.clear()
+                    landings.append(self._run_verify(self.speculative,
+                                                     False))
+                # The runs advanced the feed: nothing the inputs hold is
+                # trusted afterwards.
+                self._forget_inputs()
+            for landing in landings:
+                landing.result()
             return self._steps.keys
 
         return self._run_in_tick(capture, timeout=timeout)
@@ -1064,17 +1199,18 @@ class ContinuousBatchingEngine:
             self._pool.release(req.blocks)
             req.blocks = []
 
-    def _cow_copy(self, src: int, dst: int) -> None:
+    def _cow_copy(self, src: int, dst: int, gen: int = -1) -> None:
         """Copy-on-write: clone physical block `src` into `dst` in every
         layer of every pool (K, V and, under int8 KV, their scale rows).
         One indexed copy a pool on the engine's current stream, outside
         any captured graph: graph replays run on the same stream, so the
         copy is ordered after every step that wrote `src` and before
         every step that reads `dst`."""
-        for pool in (self._k_pool, self._v_pool, self._k_scale,
-                     self._v_scale):
-            if pool is not None:
-                pool[:, dst].copy_(pool[:, src])
+        with self._device(gen):
+            for pool in (self._k_pool, self._v_pool, self._k_scale,
+                         self._v_scale):
+                if pool is not None:
+                    pool[:, dst].copy_(pool[:, src])
 
     def _store_prefix_paged(self, req: _Request) -> None:
         """Publish a freshly prefilled prompt's ceil(L / block_size)
@@ -1159,15 +1295,23 @@ class ContinuousBatchingEngine:
 
     # ---------------- scheduling ----------------
 
-    def _admit(self, slot: int, req: _Request) -> None:
+    def _admit(self, slot: int, req: _Request, gen: int = -1) -> None:
         """Paged admission is cheap: attach a cached prefix's whole
         blocks (incref), copy a partial boundary block on write, and mark
         the request as prefilling from the prefix's end. The rest of the
         context (the prompt, or a preempted request's prompt and tokens)
         prefills chunk by chunk across subsequent ticks (_prefill_tick).
         Raises PoolExhaustedError, with every reference it took released,
-        when the copy finds no block."""
+        when the copy finds no block. `gen` >= 0: the engine thread's
+        generation, checked before the admission touches anything and
+        committed with the slot (a negative gen, a direct call, checks
+        nothing)."""
         req.admit_mono = time_lib.monotonic()
+        self._trace_admitted(req)
+        if gen >= 0:
+            # A watchdog-abandoned thread must not incref or allocate in
+            # its successor's world.
+            self._check_gen(gen)
         use_prefix = self.prefix_cache and req.adapter_slot == 0
         plen, entry = (self._longest_cached_prefix(req.context)
                        if use_prefix else (0, None))
@@ -1195,7 +1339,7 @@ class ContinuousBatchingEngine:
                     self._pool.release(blocks)
                     blocks.clear()
                     raise
-                self._cow_copy(entry[full], dst)
+                self._cow_copy(entry[full], dst, gen)
                 blocks.append(dst)
                 cow = 1
             self.paged_stats['blocks_reused'] += full
@@ -1217,13 +1361,23 @@ class ContinuousBatchingEngine:
         req.prefill_pos = plen
         req.next_pos = plen
         req.prefilling = True
-        self._slots[slot] = req
+        slots = self._slots
 
-    def _prefill_tick(self, slots, prefilling) -> None:
+        def commit():
+            slots[slot] = req
+
+        if gen >= 0:
+            self._commit_gen(gen, commit)
+        else:
+            commit()
+
+    def _prefill_tick(self, slots, prefilling, gen: int) -> None:
         """Advance every mid-prefill slot by ONE fixed-size chunk. A
         final chunk samples the first token on the device (TTFT); the
         tick lands them all at its end and flips those slots to
         decoding."""
+        self._check_gen(gen)  # a stale thread must not leak blocks
+                              # from its successor's pool
         landings = []
         for slot in prefilling:
             req = slots[slot]
@@ -1243,42 +1397,90 @@ class ContinuousBatchingEngine:
                 continue
             final = start + n >= total
             sampling = final and req.temperature > 0
-            self._stage_chunk(req, start, n, sampling)
-            self._run_prefill(sampling)
+            with self._device(gen):
+                self._stage_chunk(req, start, n, sampling)
+                self._run_prefill(sampling)
+                if final:
+                    landings.append((slot, req,
+                                     self._first_host.copy(self._pf.first)))
             req.prefill_pos = start + n
             self.paged_stats['prefill_chunks'] += 1
             _CHUNKED_PREFILL.inc()
+            self.step_log.append(('prefill', frozenset([slot])))
             if final:
                 # The prompt's blocks are final (pad writes past it land
                 # beyond every later match): publish them now, as the
                 # reference does when its final chunk lands.
                 self._store_prefix_paged(req)
-                landings.append((req, self._first_host.copy(self._pf.first)))
-        for req, landing in landings:
+        for slot, req, landing in landings:
             first = int(landing.result()[0])
+            # The wait may span a watchdog recovery: never emit into a
+            # successor's world.
+            self._check_gen(gen)
             req.prefilling = False
-            self._note_first_token(req)
+            self._note_first_token(req, slot)
             req.tokens.append(first)
             _TOKENS_TOTAL.inc()
             self._notify(req, first)
             req.next_pos = len(req.context)
 
-    def _note_first_token(self, req: _Request) -> None:
-        """TTFT (global and per tier) and the admission→first-token
-        service EWMA behind deadline-aware admission. A preemption's
+    def _note_first_token(self, req: _Request, slot: int) -> None:
+        """TTFT (global, with the request's trace id as its exemplar, and
+        per tier), the admission→first-token service EWMA behind
+        deadline-aware admission, and the prefill span. A preemption's
         continuation records nothing: its TTFT was the original one."""
         if req.first_token_time is not None:
             return
         now = time_lib.monotonic()
         req.first_token_time = now
         ttft = now - req.submit_time
-        _TTFT_HIST.observe(ttft)
+        _TTFT_HIST.observe(ttft,
+                           exemplar=req.trace.trace_id
+                           if req.trace is not None else None)
         _TIER_TTFT_HIST.labels(tier=req.tier).observe(ttft)
         if req.admit_mono is not None:
             service = now - req.admit_mono
             self.ttft_estimate = (
                 service if self.ttft_estimate is None
                 else 0.2 * service + 0.8 * self.ttft_estimate)
+        self._trace_first_token(req, slot)
+
+    # ---------------- tracing hooks ----------------
+    #
+    # Every hook guards on `req.trace is None` (an identity check), so an
+    # untraced request, and the whole engine while tracing is disabled,
+    # pays no span allocation and no clock reads on the tick path. Spans
+    # are recorded after the fact from monotonic stamps the request
+    # carries, one each per request: queue wait (submit -> admission),
+    # prefill (admission -> first token), decode (first token -> finish,
+    # with its slot), never one span a tick a slot.
+
+    def _trace_admitted(self, req: _Request) -> None:
+        if req.trace is None:
+            return
+        req.admit_time = tracing.now()
+        tracing.record_span('engine.queue_wait', req.submit_time,
+                            req.admit_time, parent=req.trace,
+                            attrs={'prompt_tokens': len(req.ids)})
+
+    def _trace_first_token(self, req: _Request, slot: int) -> None:
+        if req.trace is None:
+            return
+        tracing.record_span(
+            'engine.prefill', req.admit_time or req.submit_time,
+            req.first_token_time, parent=req.trace,
+            attrs={'slot': slot, 'prompt_tokens': len(req.ids),
+                   'ttft_s': round(
+                       req.first_token_time - req.submit_time, 6)})
+
+    def _trace_finished(self, req: _Request, slot: int,
+                        now: float) -> None:
+        if req.trace is None or req.first_token_time is None:
+            return
+        tracing.record_span('engine.decode', req.first_token_time, now,
+                            parent=req.trace,
+                            attrs={'slot': slot,
+                                   'new_tokens': len(req.tokens)})
 
     # Backward-scan cap for prompt-lookup drafting: bounds the host cost
     # a tick to O(window) whatever the context length.
@@ -1310,7 +1512,7 @@ class ContinuousBatchingEngine:
                 return follow + [0] * (k - len(follow))
         return None
 
-    def _spec_tick(self, slots, active):
+    def _spec_tick(self, slots, active, gen: int):
         """One speculative tick: draft K tokens per greedy slot, verify
         them in one forward. Returns ((num_slots, K+1) emit columns,
         (num_slots,) valid column counts), or None when the tick falls
@@ -1357,10 +1559,13 @@ class ContinuousBatchingEngine:
                 self._trim_blocks(slots[i])
             self.spec_fallbacks['no_draft'] += 1
             return None
-        v = self._verify_buffers(k)
-        v.feed.put(feed)
-        sampling = self._stage_rows(v, slots, set(active))
-        result = self._run_verify(k, sampling).result()
+        with self._device(gen):
+            v = self._verify_buffers(k)
+            v.feed.put(feed)
+            sampling = self._stage_rows(v, slots, set(active))
+            landing = self._run_verify(k, sampling)
+        result = landing.result()
+        self._check_gen(gen)
         out_cols, accepted = result[:, :k + 1], result[:, k + 1]
         # The acceptance rate counts only slots with a real draft.
         n_accepted = int(accepted[drafted].sum())
@@ -1372,7 +1577,7 @@ class ContinuousBatchingEngine:
         _SPEC_PAGED_ACCEPTED.inc(n_accepted)
         return out_cols, accepted + 1
 
-    def _dispatch(self, slots, active, k: int,
+    def _dispatch(self, slots, active, k: int, gen: int,
                   chain: Optional[_Inflight] = None) -> None:
         """Issue one k-step decode dispatch for `active` slots and append
         it to the ring, its columns' host copy started.
@@ -1398,28 +1603,33 @@ class ContinuousBatchingEngine:
             # through the tick-failure path (fails in-flight requests).
             raise exceptions.EngineOverloadedError(
                 f'KV block pool exhausted mid-decode: {e}') from e
-        sampling = self._stage_rows(self._dec, slots, active_set)
         rows = range(self.num_slots)
-        if chain is not None:
-            gap = 0.0   # the device never ran dry: queued behind `chain`
-            self.tick_stats['chained'] += 1
-        else:
-            sig = tuple((slots[i].seq, slots[i].next_pos)
-                        if i in active_set else None for i in rows)
-            if sig != self._feed_sig:
-                self._dec.feed.put([
-                    [slots[i].tokens[-1] if i in active_set else 0
-                     for i in rows],
-                    [slots[i].next_pos if i in active_set else 0
-                     for i in rows]])
-            gap = (time_lib.monotonic() - self._last_ready
-                   if self._last_ready is not None else None)
-        out = self._run_decode(k, sampling)
+        with self._device(gen):
+            sampling = self._stage_rows(self._dec, slots, active_set)
+            if chain is not None:
+                gap = 0.0   # the device never ran dry: queued behind it
+                self.tick_stats['chained'] += 1
+            else:
+                sig = tuple((slots[i].seq, slots[i].next_pos)
+                            if i in active_set else None for i in rows)
+                if sig != self._feed_sig:
+                    self._dec.feed.put([
+                        [slots[i].tokens[-1] if i in active_set else 0
+                         for i in rows],
+                        [slots[i].next_pos if i in active_set else 0
+                         for i in rows]])
+                gap = (time_lib.monotonic() - self._last_ready
+                       if self._last_ready is not None else None)
+            out = self._run_decode(k, sampling)
+            # The feed predicts host state after every pending emit
+            # lands.
+            self._feed_sig = tuple(
+                (slots[i].seq, slots[i].next_pos + base + k)
+                if i in active_set else None for i in rows)
         self.tick_stats['decode_steps'] += k
         self.tick_stats['dispatches'] += 1
-        # The feed predicts host state after every pending emit lands.
-        self._feed_sig = tuple((slots[i].seq, slots[i].next_pos + base + k)
-                               if i in active_set else None for i in rows)
+        self.step_log.append((self.tick_stats['decode_steps'],
+                              frozenset(active)))
         if gap is not None:
             _HOST_GAP_HIST.observe(gap)
             self.tick_stats['host_gap_s'] += gap
@@ -1458,7 +1668,7 @@ class ContinuousBatchingEngine:
                 return False    # lookahead would write past the window
         return True
 
-    def _consume_oldest(self, slots) -> None:
+    def _consume_oldest(self, slots, gen: int) -> None:
         """Land the OLDEST pending dispatch's columns (waiting on its
         copy's event alone) and emit them. Columns whose slot changed
         hands since dispatch are discarded by request IDENTITY, never
@@ -1466,19 +1676,22 @@ class ContinuousBatchingEngine:
         infl = self._ring.popleft()
         out_cols = infl.out.result()
         self._last_ready = time_lib.monotonic()
+        # The wait above may span a watchdog recovery: never emit into a
+        # successor's world.
+        self._check_gen(gen)
         live = [i for i in infl.active if slots[i] is infl.reqs[i]]
         if live:
-            self._emit(slots, live, out_cols)
+            self._emit(slots, live, out_cols, gen)
 
-    def _flush_ring(self, slots) -> None:
+    def _flush_ring(self, slots, gen: int) -> None:
         """Drain the whole pipeline oldest-first: afterwards the ring is
         empty and every surviving request's host state reflects every
         dispatched token."""
         while self._ring:
-            self._consume_oldest(slots)
+            self._consume_oldest(slots, gen)
         _DISPATCH_AHEAD.set(0)
 
-    def _decode_tick(self, slots, active, prefilling) -> None:
+    def _decode_tick(self, slots, active, prefilling, gen: int) -> None:
         """The tick's decode: k ∈ {1, decode_chunk} steps for all slots;
         chain off the ring when the pipeline is steady, else flush it
         and dispatch off host state."""
@@ -1499,14 +1712,14 @@ class ContinuousBatchingEngine:
                 # has queued work while the host emits.
                 while (len(ring) <= self.async_depth and
                        self._can_chain(slots, active, k)):
-                    self._dispatch(slots, active, k, chain=ring[-1])
-                self._consume_oldest(slots)
+                    self._dispatch(slots, active, k, gen, chain=ring[-1])
+                self._consume_oldest(slots, gen)
                 _DISPATCH_AHEAD.set(len(ring))
                 return
             # Churn (admission, finish, EOS, window edge, predictable
             # termination): drain the pipeline, then dispatch off host
             # state.
-            self._flush_ring(slots)
+            self._flush_ring(slots, gen)
             self.tick_stats['flushes'] += 1
             active = [i for i in active if slots[i] is not None]
             if not active:
@@ -1514,22 +1727,30 @@ class ContinuousBatchingEngine:
             if k > 1 and not all(self.cfg.max_seq_len - slots[i].next_pos
                                  >= k for i in active):
                 k = 1
-        self._dispatch(slots, active, k)
+        self._dispatch(slots, active, k, gen)
         if not self.async_depth:
-            self._consume_oldest(slots)
+            self._consume_oldest(slots, gen)
             return
         # Pipeline fill: chain straight up to depth.
         while (len(ring) < self.async_depth and
                self._can_chain(slots, active, k)):
-            self._dispatch(slots, active, k, chain=ring[-1])
+            self._dispatch(slots, active, k, gen, chain=ring[-1])
 
-    def _tick(self) -> None:
+    def _tick(self, gen: int) -> None:
+        self._check_gen(gen)
+        # The slot table and the queue of this thread's world: if the
+        # watchdog abandons the thread mid-tick it puts a fresh world in
+        # place, so a stale thread resuming here mutates only its own.
         slots = self._slots
         queue = self._queue
-        # Engine-thread work (adapter writes) runs FIRST, while no step
-        # is in flight.
+        if self._zero_adapters:
+            # First tick after a recovery: zero the adapter stacks.
+            self._reset_adapter_stacks(gen)
+            self._zero_adapters = False
+        # Engine-thread work (adapter writes, handoff gathers, ingest
+        # applies, graph captures) runs FIRST, while no step is in flight.
         if self._engine_work:
-            self._drain_engine_work()
+            self._drain_engine_work(gen)
         # Orphaned ingest streams (the sender died mid-handoff and no
         # abort came) are reclaimed here, every tick, not only when the
         # next chunk arrives.
@@ -1593,7 +1814,7 @@ class ContinuousBatchingEngine:
             need = waiting - sum(1 for r in slots if r is None)
             if need > 0 and self._ring and any(
                     r is not None and r.tier == 'batch' for r in slots):
-                self._flush_ring(slots)
+                self._flush_ring(slots, gen)
                 self.tick_stats['flushes'] += 1
                 need = waiting - sum(1 for r in slots if r is None)
             for slot in range(self.num_slots - 1, -1, -1):
@@ -1602,6 +1823,11 @@ class ContinuousBatchingEngine:
                 req = slots[slot]
                 if req is None or req.tier != 'batch':
                     continue
+                # Chaos seam: an armed fault here is the preemption path
+                # itself failing; the tick-failure path fails in-flight
+                # work cleanly.
+                fault_injection.point('engine.slot_preempt')
+                t_pre = tracing.now() if req.trace is not None else 0.0
                 slots[slot] = None
                 self._release_blocks(req)
                 req.prefilling = False
@@ -1610,6 +1836,12 @@ class ContinuousBatchingEngine:
                 req.context = req.ids + req.tokens
                 self.tenancy_stats['slot_preempts'] += 1
                 _SLOT_PREEMPTS.inc()
+                if req.trace is not None:
+                    tracing.record_span(
+                        'engine.slot_preempt', t_pre, tracing.now(),
+                        parent=req.trace,
+                        attrs={'slot': slot,
+                               'tokens_done': len(req.tokens)})
                 queue.requeue_front(req)
                 self._feed_sig = None
                 need -= 1
@@ -1631,8 +1863,11 @@ class ContinuousBatchingEngine:
                             f'request expired in the admission queue '
                             f'after {mono_now - req.submit_time:.1f}s'))
                     continue
+                # Admission may copy a block on write, and its prefill
+                # may capture a graph: the watchdog's slow allowance.
+                self._admitting_tick = True
                 try:
-                    self._admit(slot, req)
+                    self._admit(slot, req, gen)
                 except kv_cache_lib.PoolExhaustedError as e:
                     # Shed THIS request; in-flight slots keep their
                     # blocks and keep decoding.
@@ -1642,21 +1877,37 @@ class ContinuousBatchingEngine:
                 except BaseException as e:
                     # The request is in neither the queue nor a slot, so
                     # no failure path would resolve it: release what it
-                    # took and fail it before the tick fails.
-                    self._release_blocks(req)
-                    self._fail_request(req, e)
+                    # took (unless the thread was abandoned: the pool is
+                    # its successor's then) and fail it before the tick
+                    # fails.
+                    stale = isinstance(e, _StaleEngineError)
+                    if not stale:
+                        self._release_blocks(req)
+                    self._fail_request(
+                        req, exceptions.EngineWedgedError(
+                            'engine recovery interrupted admission; '
+                            'request aborted') if stale else e)
                     raise
         # Chunked prefill: every mid-prefill slot advances ONE chunk,
         # then the decode below still runs for the slots past prefill.
         prefilling = [i for i, r in enumerate(slots)
                       if r is not None and r.prefilling]
         if prefilling:
-            self._prefill_tick(slots, prefilling)
+            self._admitting_tick = True
+            self._prefill_tick(slots, prefilling, gen)
             prefilling = [i for i, r in enumerate(slots)
                           if r is not None and r.prefilling]
             # Prefill work sits between the last result and this tick's
             # dispatch: keep it out of the steady-state host gap.
             self._last_ready = None
+        # Admission and prefill are over: refresh the heartbeat BEFORE
+        # dropping the widened allowance, or a legitimately long
+        # admission would read as stalled the instant the flag clears.
+        # Generation-guarded: a stale thread must not freshen the
+        # heartbeat and mask a successor's wedge.
+        if self._generation == gen:
+            self._heartbeat = time_lib.monotonic()
+        self._admitting_tick = False
         active = [i for i, r in enumerate(slots)
                   if r is not None and not r.prefilling]
         # Saturation signals, refreshed once a tick (gauge sets behind
@@ -1678,13 +1929,17 @@ class ContinuousBatchingEngine:
                 # Overshoot of requests that all finished (or were
                 # killed): consume it so nothing dangles, discarding by
                 # identity.
-                self._flush_ring(slots)
+                self._flush_ring(slots, gen)
             elif not prefilling:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
             _DISPATCH_AHEAD.set(0)
             self._last_ready = None
             return
+        # Chaos harness: SKYTPU_FAULTS or a test can fail or wedge the
+        # decode step here; disarmed this is one boolean check.
+        fault_injection.point('engine.decode')
+        self._check_gen(gen)
         # Speculation pays only when a greedy slot can accept drafts.
         if self.speculative > 0 and any(slots[i].temperature <= 0
                                         for i in active):
@@ -1692,26 +1947,28 @@ class ContinuousBatchingEngine:
                 # A verify samples and emits in its own tick: every
                 # pending lookahead's tokens land first, or a request's
                 # stream would reorder.
-                self._flush_ring(slots)
+                self._flush_ring(slots, gen)
                 self.tick_stats['flushes'] += 1
                 active = [i for i in active if slots[i] is not None]
                 if not active:
                     return
-            spec = self._spec_tick(slots, active)
+            spec = self._spec_tick(slots, active, gen)
             if spec is not None:
                 out_cols, valid = spec
                 self.tick_stats['decode_steps'] += 1
+                self.step_log.append((self.tick_stats['decode_steps'],
+                                      frozenset(active)))
                 # The host now leads the decode feed, and the verify is
                 # no steady decode step for the host gap.
                 self._feed_sig = None
                 self._last_ready = None
-                self._emit(slots, active, out_cols, valid)
+                self._emit(slots, active, out_cols, gen, valid)
                 # Rejected drafts: hand the over-reserved tail back.
                 for i in active:
                     if slots[i] is not None:
                         self._trim_blocks(slots[i])
                 return
-        self._decode_tick(slots, active, prefilling)
+        self._decode_tick(slots, active, prefilling, gen)
 
     @staticmethod
     def _notify(req: _Request, token) -> None:
@@ -1754,6 +2011,9 @@ class ContinuousBatchingEngine:
             'new_tokens': len(req.tokens),
             'prompt_tokens': len(req.ids),
         }
+        # Decode span BEFORE the future resolves: a caller that snapshots
+        # the ring the moment generate() returns sees every span.
+        self._trace_finished(req, slot, now)
         if not req.future.done():
             # done() here means the caller cancelled: no reader, so not
             # a delivered 'ok' either.
@@ -1761,14 +2021,19 @@ class ContinuousBatchingEngine:
             if len(req.tokens) > 1:
                 # Mean inter-token latency over the decode span.
                 _TPOT_HIST.observe((now - req.first_token_time) /
-                                   (len(req.tokens) - 1))
+                                   (len(req.tokens) - 1),
+                                   exemplar=req.trace.trace_id
+                                   if req.trace is not None else None)
             req.future.set_result((list(req.tokens), stats))
         self._notify(req, None)  # stream end (after the future resolves)
 
-    def _emit(self, slots, active, out_cols, valid=None) -> None:
+    def _emit(self, slots, active, out_cols, gen: int,
+              valid=None) -> None:
         """Append per-slot output columns with EOS/max/window
         termination; `valid` (a verify's) caps each slot's column count
-        (every column when None)."""
+        (every column when None). A thread of an older generation emits
+        nothing."""
+        self._check_gen(gen)
         for slot in active:
             req = slots[slot]
             emitted = 0
@@ -1788,66 +2053,270 @@ class ContinuousBatchingEngine:
                     break
             _TOKENS_TOTAL.inc(emitted)
 
-    def _loop(self) -> None:
-        with torch.inference_mode():
-            while not self._stop.is_set():
+    def _loop(self, gen: int, world: _World) -> None:
+        self._tls.world = world
+        self._tls.gen = gen
+        try:
+            with torch.inference_mode():
+                while not self._stop.is_set():
+                    if self._generation != gen:
+                        return  # abandoned by the watchdog: a successor
+                                # owns the world now
+                    try:
+                        if self.device.type == 'cuda':
+                            torch.cuda.set_device(self.device)
+                        self._tick(gen)
+                    except _StaleEngineError:
+                        return
+                    except Exception as e:  # pylint: disable=broad-except
+                        if not self._tick_failed(gen, e):
+                            return
+                    if self._generation == gen:
+                        self._heartbeat = time_lib.monotonic()
+                        self._warm_tick = True
+        finally:
+            if self._generation != gen:
+                with self._thread_lock:
+                    self.watchdog_stats['stale_exits'] += 1
+
+    def _tick_failed(self, gen: int, e: Exception) -> bool:
+        """A failed tick: fail every in-flight and queued request rather
+        than hang their futures, then keep serving over a fresh world
+        (the failed tick's bookkeeping is untrusted; stale pool contents
+        are never visible) in the same generation. Returns False when
+        the thread was abandoned meanwhile and must exit."""
+        logger.exception('engine tick failed: %s', e)
+        if tracing.active():
+            # Flight-recorder trigger: dump BEFORE the reset below wipes
+            # the evidence (the step_log survives, slots/queue do not).
+            t_fail = tracing.now()
+            tracing.record_span(
+                'engine.tick_failure', t_fail, t_fail,
+                attrs={'error': f'{type(e).__name__}: {e}'})
+            tracing.flight_record(
+                'tick_failure',
+                extra=self._flight_extra(f'{type(e).__name__}: {e}'))
+        failed = []
+        with self._thread_lock:
+            if self._generation != gen:
+                return False
+            old = self._world
+            failed = [r for r in old.slots if r is not None]
+            while True:
                 try:
-                    if self.device.type == 'cuda':
-                        torch.cuda.set_device(self.device)
-                    self._tick()
-                except Exception as e:  # pylint: disable=broad-except
-                    # Fail every in-flight/queued request rather than
-                    # hang their futures, then keep serving over a fresh
-                    # block allocator (the failed tick's bookkeeping is
-                    # untrusted; stale pool contents are never visible).
-                    logger.exception('engine tick failed: %s', e)
-                    failed = []
-                    with self._thread_lock:
-                        for slot in range(self.num_slots):
-                            if self._slots[slot] is not None:
-                                failed.append(self._slots[slot])
-                                self._slots[slot] = None
-                        while True:
-                            try:
-                                failed.append(self._queue.get_nowait())
-                            except queue_lib.Empty:
-                                break
-                        self._pool = kv_cache_lib.BlockPool(
-                            self.cfg.paged_num_blocks, self.paged_block_size)
-                        # The index's blocks died with the pool, and so
-                        # did the pre-warmed entries.
-                        self._prefix_entries = self._new_prefix_index()
-                        self._prewarmed_keys = set()
-                        # The ring and the feed go with the tick: no
-                        # pending column is ever emitted.
-                        self._ring.clear()
-                        self._forget_inputs()
-                        self._last_ready = None
-                        if self.max_adapters:
-                            # The failed tick's residency bookkeeping is
-                            # untrusted: fresh residency (the registry
-                            # survives) over zeroed stacks.
-                            self._adapter_pool = self._adapter_pool.fresh()
-                            for _, _, stack in self._lora_stacks:
-                                stack.a[1:].zero_()
-                                stack.b[1:].zero_()
-                    for req in failed:
-                        self._fail_request(req, e)
+                    failed.append(old.queue.get_nowait())
+                except queue_lib.Empty:
+                    break
+            # Pending engine-thread work survives: it is not the tick's.
+            self._world = self._tls.world = self._fresh_world(
+                old.engine_work)
+            # The ring and the feed go with the tick: no pending column
+            # is ever emitted.
+            self._forget_inputs()
+            self._last_ready = None
+        _DISPATCH_AHEAD.set(0)
+        for req in failed:
+            self._fail_request(req, e)
+        if self.max_adapters:
+            try:
+                self._reset_adapter_stacks(gen)
+            except _StaleEngineError:
+                return False
+        return True
+
+    def _fresh_world(self, engine_work=None) -> _World:
+        """A world with nothing in it: empty slots and queue, a fresh
+        block allocator and prefix index (the pool tensors stay), and
+        fresh adapter residency (the registry of host weights survives;
+        requests re-load on demand)."""
+        return _World(
+            [None] * self.num_slots, tenancy.TierQueue(),
+            kv_cache_lib.BlockPool(self.cfg.paged_num_blocks,
+                                   self.paged_block_size),
+            self._new_prefix_index(),
+            engine_work if engine_work is not None else collections.deque(),
+            self._adapter_pool.fresh() if self._adapter_pool is not None
+            else None)
+
+    def _bound(self) -> _World:
+        """The calling thread's world: an engine thread's own, else the
+        engine's current one."""
+        return getattr(self._tls, 'world', None) or self._world
+
+    def _thread_gen(self) -> int:
+        """The calling engine thread's generation; any other thread acts
+        for the current one."""
+        gen = getattr(self._tls, 'gen', None)
+        return self._generation if gen is None else gen
+
+    @contextlib.contextmanager
+    def _device(self, gen: Optional[int] = None):
+        """Exclusive device-write section for generation `gen` (default:
+        the calling thread's): raises _StaleEngineError, enqueueing
+        nothing, once the generation has moved."""
+        with self._device_lock:
+            self._check_gen(self._thread_gen() if gen is None or gen < 0
+                            else gen)
+            yield
+
+    def _check_gen(self, gen: int) -> None:
+        if self._generation != gen:
+            raise _StaleEngineError()
+
+    def _commit_gen(self, gen: int, fn) -> None:
+        """Run a shared-state write atomically with the generation check:
+        _recover_from_wedge swaps the world under the same lock, so a
+        stale thread can never interleave a commit between the
+        successor's check and write; it raises _StaleEngineError and
+        exits instead."""
+        with self._thread_lock:
+            self._check_gen(gen)
+            fn()
+
+    def _reset_adapter_stacks(self, gen: int) -> None:
+        """Zero every adapter slot of the stacks (slot 0, the identity,
+        stays zero): fresh residency holds nothing."""
+        with self._device(gen):
+            for _, _, stack in self._lora_stacks:
+                stack.a[1:].zero_()
+                stack.b[1:].zero_()
+
+    def _note_slow_tick(self) -> None:
+        """A step graph is about to be captured: the tick gets the
+        watchdog's slow allowance."""
+        self._admitting_tick = True
 
     def _ensure_thread(self) -> None:
         with self._thread_lock:
             if self._thread is None or not self._thread.is_alive():
                 self._stop.clear()
-                self._thread = threading.Thread(target=self._loop,
-                                                daemon=True,
-                                                name='cbatch-engine')
+                self._heartbeat = time_lib.monotonic()
+                self._warm_tick = False
+                self._thread = threading.Thread(
+                    target=self._loop, args=(self._generation, self._world),
+                    daemon=True, name='cbatch-engine')
                 self._thread.start()
+            if self.watchdog_timeout and (
+                    self._watchdog is None or
+                    not self._watchdog.is_alive()):
+                self._watchdog = threading.Thread(
+                    target=self._watchdog_loop, daemon=True,
+                    name='cbatch-watchdog')
+                self._watchdog.start()
+
+    # ---------------- watchdog ----------------
+
+    def _busy(self) -> bool:
+        return any(r is not None for r in self._slots) or \
+            not self._queue.empty()
+
+    def _watchdog_loop(self) -> None:
+        """Detects a wedged (no completed tick while work is pending) or
+        dead engine thread and recovers: in-flight futures fail with a
+        clean EngineWedgedError and the next submit starts a fresh engine
+        thread over a fresh world."""
+        interval = max(0.01, min(self.watchdog_timeout / 4, 1.0))
+        while not self._stop.is_set():
+            self._stop.wait(interval)
+            if self._stop.is_set():
+                return
+            if not self._busy():
+                continue
+            thread = self._thread
+            if thread is None:
+                # Not started yet (a submit raced a recovery): the cure
+                # is the spawn submit() is about to do.
+                continue
+            dead = not thread.is_alive()
+            # 10x allowance while ticks can legitimately be slow: the
+            # thread's first tick, any admitting tick, and any tick that
+            # captures a step graph (its body runs twice, and a kernel's
+            # first use builds it).
+            slow_ok = (not self._warm_tick) or self._admitting_tick
+            allowed = self.watchdog_timeout * (10 if slow_ok else 1)
+            stalled = time_lib.monotonic() - self._heartbeat > allowed
+            if dead or stalled:
+                self._recover_from_wedge(
+                    'engine thread died' if dead else
+                    f'engine thread made no progress in {allowed}s')
+
+    def _recover_from_wedge(self, why: str) -> None:
+        """Abandon the engine thread: bump the generation, put a fresh
+        world in place, and fail the old world's requests and pending
+        engine work with EngineWedgedError. The step graphs, the static
+        buffers and the pool tensors stay (a fresh pool would double the
+        largest allocation and force a recapture); the successor zeroes
+        the adapter stacks before its first tick."""
+        # Flight-recorder trigger: the spans and step_log of the seconds
+        # BEFORE the wedge are the postmortem.
+        t_rec = tracing.now() if tracing.active() else 0.0
+        with self._thread_lock:
+            self._generation += 1
+            old = self._world
+            old_work = list(old.engine_work)
+            old.engine_work.clear()
+            self._world = self._fresh_world()
+            self._forget_inputs()
+            self._last_ready = None
+            self._zero_adapters = bool(self.max_adapters)
+            self._thread = None
+            self._heartbeat = time_lib.monotonic()
+            self.watchdog_stats['recoveries'] += 1
+        _DISPATCH_AHEAD.set(0)
+        logger.error('engine watchdog: %s; failing in-flight requests '
+                     'and resetting engine state (generation %d)', why,
+                     self._generation)
+        _WEDGE_RECOVERIES.inc()
+        if tracing.active():
+            tracing.record_span(
+                'engine.wedge_recovery', t_rec, tracing.now(),
+                attrs={'why': why, 'generation': self._generation})
+            extra = self._flight_extra(why)
+            # The postmortem wants the WEDGED world, not the fresh one.
+            extra['active_slots'] = [i for i, r in enumerate(old.slots)
+                                     if r is not None]
+            extra['queue_depth'] = old.queue.qsize()
+            tracing.flight_record('wedge_recovery', extra=extra)
+        err = exceptions.EngineWedgedError(
+            f'{why}; request aborted by the engine watchdog')
+        for _fn, future in old_work:
+            if not future.done():
+                future.set_exception(err)
+        for req in old.slots:
+            if req is not None:
+                self._fail_request(req, err)
+        while True:
+            try:
+                req = old.queue.get_nowait()
+            except queue_lib.Empty:
+                break
+            self._fail_request(req, err)
+
+    def _flight_extra(self, why: str) -> dict:
+        """Engine state for a flight record: the step_log tail and the
+        tick stats that show what the engine was doing in the seconds
+        before the trigger (frozensets rendered JSON-safe)."""
+        return {
+            'why': why,
+            'tier': self.tier,
+            'generation': self._generation,
+            'decode_steps': self.tick_stats['decode_steps'],
+            'tick_stats': dict(self.tick_stats),
+            'active_slots': [i for i, r in enumerate(self._slots)
+                             if r is not None],
+            'queue_depth': self._queue.qsize(),
+            'step_log': [[step, sorted(slots)]
+                         for step, slots in list(self.step_log)[-200:]],
+        }
 
     def _run_in_tick(self, fn, timeout: float = 120.0):
         """Run `fn()` in the engine thread between ticks and return its
         result (or raise its error). The adapter stacks are read by every
         step, so every write to them funnels through here and never
-        races a step in flight."""
+        races a step in flight. Enqueued under _thread_lock: a recovery
+        swaps the world under the same lock, so the item lands either in
+        the old world (and is failed by the recovery) or in the new one
+        (and is served by the successor)."""
         future: 'concurrent.futures.Future' = concurrent.futures.Future()
         with self._thread_lock:
             self._engine_work.append((fn, future))
@@ -1855,21 +2324,31 @@ class ContinuousBatchingEngine:
         self._wake.set()
         return future.result(timeout=timeout)
 
-    def _drain_engine_work(self) -> None:
-        """Run the queued engine-thread work items; a failing item
-        resolves its own future and never fails the tick."""
-        while self._engine_work:
-            fn, future = self._engine_work.popleft()
+    def _drain_engine_work(self, gen: int) -> None:
+        """Run the queued engine-thread work items. A failing item
+        resolves its own future and never fails the tick; a stale
+        generation's abort propagates (the thread must exit without
+        touching its successor's state)."""
+        work = self._engine_work
+        while work:
             try:
+                fn, future = work.popleft()
+            except IndexError:
+                return
+            try:
+                self._check_gen(gen)
                 result = fn()
+            except _StaleEngineError:
+                if not future.done():
+                    future.set_exception(exceptions.EngineWedgedError(
+                        'engine recovery interrupted the operation'))
+                raise
             except Exception as e:  # pylint: disable=broad-except
-                future.set_exception(e)
+                if not future.done():
+                    future.set_exception(e)
             else:
-                future.set_result(result)
-
-    def _busy(self) -> bool:
-        return any(r is not None for r in self._slots) or \
-            not self._queue.empty()
+                if not future.done():
+                    future.set_result(result)
 
     # ------------- multi-LoRA adapter pool (serve/tenancy) -------------
 
@@ -1883,10 +2362,11 @@ class ContinuousBatchingEngine:
     def _write_adapter(self, slot: int, host) -> None:
         """Copy one adapter's per-layer (A, B) matrices into stack slot
         `slot` of every targeted projection (engine thread only)."""
-        for layer, name, stack in self._lora_stacks:
-            a, b = host[layer][name]
-            stack.a[slot].copy_(torch.from_numpy(a))
-            stack.b[slot].copy_(torch.from_numpy(b))
+        with self._device():
+            for layer, name, stack in self._lora_stacks:
+                a, b = host[layer][name]
+                stack.a[slot].copy_(torch.from_numpy(a))
+                stack.b[slot].copy_(torch.from_numpy(b))
 
     def _ensure_resident(self, name: str, pin: bool) -> int:
         """Make `name` resident (the device write runs in the engine
@@ -1900,16 +2380,29 @@ class ContinuousBatchingEngine:
                 return slot
 
         def load():
-            slot, host, _evicted = pool.acquire_for_load(name, pin=pin)
-            if host is not None:
-                try:
+            t0 = tracing.now() if tracing.enabled() else 0.0
+            # Chaos seam: an armed fault here is a load dying between
+            # acquire and the device write.
+            fault_injection.point('tenant.adapter_load')
+            slot, host, evicted = pool.acquire_for_load(name, pin=pin)
+            try:
+                if evicted is not None:
+                    # The LRU victim left residency to free this slot.
+                    fault_injection.point('tenant.evict')
+                if host is not None:
                     self._write_adapter(slot, host)
-                except BaseException:
-                    # The residency map must never claim weights that
-                    # did not land, and a failed load must not leak its
-                    # pin.
+            except BaseException:
+                # The residency map must never claim weights that did
+                # not land, and a failed load must not leak its pin.
+                if host is not None:
                     pool.abort_load(name, pinned=pin)
-                    raise
+                raise
+            if tracing.enabled():
+                tracing.record_span(
+                    'engine.adapter_load', t0, tracing.now(),
+                    attrs={'adapter': name, 'slot': slot,
+                           'evicted': evicted or '',
+                           'written': host is not None})
             return slot
 
         return self._run_in_tick(load)
@@ -1934,7 +2427,13 @@ class ContinuousBatchingEngine:
         while in-flight requests pin it. The vacated slot is not zeroed:
         nothing reads it until a later load overwrites it."""
         pool = self._require_adapter_pool()
-        self._run_in_tick(lambda: pool.unregister(name))
+
+        def drop():
+            # The explicit-evict chaos seam.
+            fault_injection.point('tenant.evict')
+            pool.unregister(name)
+
+        self._run_in_tick(drop)
 
     def adapters_info(self) -> dict:
         """Registry/residency snapshot for GET /adapters and /health."""
@@ -2031,8 +2530,16 @@ class ContinuousBatchingEngine:
                        on_token=on_token, deadline=deadline,
                        adapter=adapter, adapter_slot=adapter_slot,
                        adapter_pool=pinned_pool, tier=tier)
-        # Re-check draining under the lock drain() flips it under:
-        # either this request is visible to drain's wait, or refused.
+        if tracing.enabled():
+            # One enabled check; the ambient context (the server's
+            # request span, or an activate()d handoff context) becomes
+            # the request's trace: every engine span parents to it.
+            req.trace = tracing.current()
+        # Enqueue under _thread_lock: a recovery swaps the queue under the
+        # same lock, so the put lands in the old queue before the swap
+        # (and is failed by the recovery) or in the successor's, never in
+        # an abandoned queue nobody reads. Re-checking draining under the
+        # same lock closes the drain/submit race the same way.
         with self._thread_lock:
             if self._draining:
                 _REJECT_DRAINING.inc()
@@ -2142,8 +2649,9 @@ class ContinuousBatchingEngine:
     def stop(self) -> None:
         self._stop.set()
         self._wake.set()
-        if self._thread is not None:
-            self._thread.join(timeout=5.0)
+        for thread in (self._thread, self._watchdog):
+            if thread is not None:
+                thread.join(timeout=5.0)
 
     # ---------------- KV portability ----------------
     #
@@ -2203,21 +2711,26 @@ class ContinuousBatchingEngine:
                     return fn()
         return self._run_in_tick(fn, timeout=timeout)
 
+    # A gather reads and a scatter writes the pool: each runs under the
+    # device lock after the calling thread's generation check.
+
     def _gather(self, blocks) -> List[_HostBlocks]:
         """Per pool leaf, the host copy of `blocks` (block axis first)."""
-        idx = torch.tensor(list(blocks), dtype=torch.long,
-                           device=self.device)
-        return [_HostBlocks(leaf.index_select(1, idx).movedim(1, 0)
-                            .contiguous().cpu())
-                for leaf in self._pool_leaves()]
+        with self._device():
+            idx = torch.tensor(list(blocks), dtype=torch.long,
+                               device=self.device)
+            return [_HostBlocks(leaf.index_select(1, idx).movedim(1, 0)
+                                .contiguous().cpu())
+                    for leaf in self._pool_leaves()]
 
     def _scatter(self, blocks, arrays) -> None:
         """Write per-leaf (len(blocks), ...) host tensors into `blocks`
         of the pool, in place; a later write to a block id wins."""
-        idx = torch.tensor(list(blocks), dtype=torch.long,
-                           device=self.device)
-        for leaf, arr in zip(self._pool_leaves(), arrays):
-            leaf.index_copy_(1, idx, arr.movedim(0, 1).to(self.device))
+        with self._device():
+            idx = torch.tensor(list(blocks), dtype=torch.long,
+                               device=self.device)
+            for leaf, arr in zip(self._pool_leaves(), arrays):
+                leaf.index_copy_(1, idx, arr.movedim(0, 1).to(self.device))
 
     def _require_prefix_pool(self, what: str) -> None:
         if not (self.paged_block_size and self.prefix_cache):
@@ -2249,9 +2762,14 @@ class ContinuousBatchingEngine:
         deadline = clock() + budget_s if budget_s else None
         should_stop = ((lambda: clock() > deadline)
                        if deadline is not None else None)
-        stats = self._exclusive(lambda: kv_cache_lib.export_prefixes(
-            self._prefix_entries, self._pool, gather, path,
-            should_stop=should_stop))
+        with tracing.span('engine.preempt_export',
+                          attrs={'budget_s': budget_s}) as sp:
+            stats = self._exclusive(lambda: kv_cache_lib.export_prefixes(
+                self._prefix_entries, self._pool, gather, path,
+                should_stop=should_stop))
+            sp.set_attr('exported', stats['exported'])
+            sp.set_attr('blocks', stats['blocks'])
+            sp.set_attr('truncated', stats['truncated'])
         self.prewarm_stats['export_blocks'] += stats['blocks']
         _PREFIX_EXPORT_BLOCKS.inc(stats['blocks'])
         logger.info('exported %d prefixes (%d blocks%s) to %s',
@@ -2443,6 +2961,12 @@ class ContinuousBatchingEngine:
                 'model config / dtype / kv-quant mismatch)')
         sid, seq = header['stream_id'], int(header['seq'])
         final = bool(header.get('final'))
+        # The chunk header carries the SENDER's trace context, so this
+        # replica's ingest spans join the trace of the prefill that made
+        # the blocks.
+        trace_ctx = (tracing.parse_header(header.get('trace'))
+                     if tracing.enabled() else None)
+        t_chunk = tracing.now() if trace_ctx is not None else 0.0
         now = time_lib.monotonic()
         key: Optional[tuple] = None
         with self._ingest_lock:
@@ -2542,12 +3066,20 @@ class ContinuousBatchingEngine:
                 key = tuple(int(t) for t in header['key'])
             self.ingest_stats['chunks_ok'] += 1
         _INGEST_OK.inc()
+        if trace_ctx is not None:
+            tracing.record_span(
+                'engine.ingest_chunk', t_chunk, tracing.now(),
+                parent=trace_ctx,
+                attrs={'stream': sid, 'seq': seq,
+                       'blocks': int(header['num_blocks'])})
         if not final:
             return {'ok': True, 'seq': seq}
 
         # Final chunk: one in-place write a leaf and the index publish,
-        # in the engine thread.
+        # in the engine thread (the calling thread's generation checked
+        # under the device lock by the scatter, and with the publish).
         def apply():
+            gen = self._thread_gen()
             if session.pool is not self._pool:
                 # The pool was replaced between assembly and apply:
                 # publishing would poison the successor pool.
@@ -2555,16 +3087,21 @@ class ContinuousBatchingEngine:
                     'engine reset mid-ingest; stream lost')
             self._scatter(session.blocks, [torch.cat(arrs)
                                            for arrs in session.staged_arr])
-            displaced = self._prefix_entries.put(key,
-                                                 list(session.blocks))
-            for old_key, old_blocks in displaced:
-                self._pool.release(old_blocks)
-                self._prewarmed_keys.discard(old_key)
-            # Hits on an ingested entry count as pre-warm hits: TTFT
-            # served from KV this replica never computed.
-            self._prewarmed_keys.add(key)
+
+            def publish():
+                displaced = self._prefix_entries.put(
+                    key, list(session.blocks))
+                for old_key, old_blocks in displaced:
+                    self._pool.release(old_blocks)
+                    self._prewarmed_keys.discard(old_key)
+                # Hits on an ingested entry count as pre-warm hits: TTFT
+                # served from KV this replica never computed.
+                self._prewarmed_keys.add(key)
+
+            self._commit_gen(gen, publish)
             return True
 
+        t_pub = tracing.now() if trace_ctx is not None else 0.0
         try:
             self._exclusive(apply)
         except BaseException as e:
@@ -2585,6 +3122,12 @@ class ContinuousBatchingEngine:
             self.ingest_stats['blocks_ingested'] += imported
         _HANDOFF_INGEST_STREAMS.labels(outcome='completed').inc()
         _HANDOFF_INGEST_BLOCKS.inc(imported)
+        if trace_ctx is not None:
+            tracing.record_span(
+                'engine.ingest_publish', t_pub, tracing.now(),
+                parent=trace_ctx,
+                attrs={'stream': sid, 'blocks': imported,
+                       'key_tokens': len(key)})
         return {'ok': True, 'seq': seq, 'final': True,
                 'imported_blocks': imported,
                 'key_tokens': len(key)}

@@ -19,6 +19,10 @@ Sharing is safe because a body's own allocations are temporaries of its
 replay, and replays run one at a time on one stream; every value that
 outlives a replay lives in a static buffer made outside any capture. A
 failed capture or replay raises: nothing falls back to eager stepping.
+Graphs live as long as the engine: a watchdog recovery keeps them, and
+the static buffers and the KV pool they were captured on (a replay is
+not safe from two threads at once; the engine serialises every replay
+under its device lock).
 
 Host↔device traffic goes through pinned buffers. `Staged` uploads host
 values into a static input with a non-blocking copy, from a ring of
@@ -218,6 +222,12 @@ class StepGraphs:
         self._gen = generator
         self._graphs: Dict[Hashable, tuple] = {}
         self._pool = None
+        # Graphs captured and replayed so far, and a hook called before
+        # each capture (the engine widens its watchdog allowance: a
+        # capture runs the body twice and may build kernels at first use).
+        self.captures = 0
+        self.replays = 0
+        self.on_capture: Optional[Callable[[], None]] = None
         self._stream = (torch.cuda.Stream(device) if device.type == 'cuda'
                         else None)
 
@@ -238,9 +248,13 @@ class StepGraphs:
             return
         entry = self._graphs.get(key)
         if entry is None:
+            if self.on_capture is not None:
+                self.on_capture()
             entry = self._graphs[key] = self._capture(body, keep, random)
+            self.captures += 1
         graph, deltas = entry
         graph.replay()
+        self.replays += 1
         _set_counts(c + d for c, d in zip(_counts(), deltas))
 
     def _capture(self, body, keep, random) -> tuple:

@@ -1,11 +1,13 @@
 """Prometheus text-format exposition and a small strict parser.
 
-Own copy of skypilot_tpu/observability/exposition.py without exemplars
-or the timeline bridge. ``generate_latest`` renders the registry in
+Own copy of skypilot_tpu/observability/exposition.py without the
+timeline bridge. ``generate_latest`` renders the registry in
 Prometheus text format 0.0.4 (`# HELP` / `# TYPE` headers, escaped label
 values, histogram `_bucket{le=...}` cumulative counts plus
 `_sum`/`_count`). ``parse_prometheus_text`` is its inverse: it validates
 every line and rejects duplicate (metric, label set) pairs.
+``collect_exemplars`` lists the histograms' retained exemplars (the text
+format stays exemplar-free).
 """
 from __future__ import annotations
 
@@ -203,3 +205,36 @@ def parse_prometheus_text(text: str) -> Dict[str, dict]:
                 f'duplicate sample for metric/label pair {key!r}')
         samples[key] = value
     return families
+
+
+# ---------------- exemplars ----------------
+
+
+def collect_exemplars(registry: '_metrics.Registry' = None
+                      ) -> Dict[str, dict]:
+    """Histogram exemplars as {family[|label=value...]: {'value',
+    'trace_id', 'age_s'}}: the metrics-to-traces link the /traces
+    endpoint surfaces. Prometheus text exposition is deliberately left
+    exemplar-free: the strict parser pins the 0.0.4 grammar, which has
+    no exemplar syntax."""
+    import time as _time
+    if registry is None:
+        registry = _metrics.REGISTRY
+    now = _time.monotonic()
+    out: Dict[str, dict] = {}
+    for metric in registry.collect():
+        if metric.kind != 'histogram':
+            continue
+        for labelvalues, child in metric.samples():
+            ex = child.exemplar
+            if ex is None:
+                continue
+            value, trace_id, stamp = ex
+            suffix = ''.join(f'|{n}={v}' for n, v in
+                             zip(metric.labelnames, labelvalues))
+            out[f'{metric.name}{suffix}'] = {
+                'value': value,
+                'trace_id': trace_id,
+                'age_s': round(max(0.0, now - stamp), 3),
+            }
+    return out

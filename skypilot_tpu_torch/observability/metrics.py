@@ -1,6 +1,6 @@
 """Process-wide metrics registry: Counter, Gauge, Histogram with labels.
 
-Own copy of skypilot_tpu/observability/metrics.py without exemplars:
+Own copy of skypilot_tpu/observability/metrics.py, exemplars included:
 
 - **Near-zero cost when no exporter is attached.** Recording methods
   (`inc`/`set`/`observe`) return after ONE module-level boolean check,
@@ -23,6 +23,7 @@ from __future__ import annotations
 import bisect
 import os
 import threading
+import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 # Fast-path flag: every recording method reads this single boolean
@@ -109,12 +110,25 @@ class _GaugeChild(_Child):
         self.inc(-amount)
 
 
+# Exemplar retention window (seconds): within a window the WORST
+# (largest) exemplar-carrying observation wins; an exemplar older than
+# the window is replaced by the next one regardless, so the linked
+# trace stays findable in the trace ring.
+EXEMPLAR_WINDOW_S = 60.0
+
+
 class _HistogramChild:
     """Per-bucket counts + sum + count. Buckets store NON-cumulative
     counts; exposition accumulates, so observe() touches exactly one
-    bucket slot."""
+    bucket slot.
 
-    __slots__ = ('_lock', '_buckets', '_counts', '_sum', '_count')
+    `exemplar` (optional): a trace_id linking this observation to a
+    span tree. The child keeps the worst (max-value) exemplar per
+    EXEMPLAR_WINDOW_S. The default `None` adds one is-None check inside
+    the already-taken lock: the disabled fast path is unchanged."""
+
+    __slots__ = ('_lock', '_buckets', '_counts', '_sum', '_count',
+                 '_exemplar')
 
     def __init__(self, buckets: Sequence[float]) -> None:
         self._lock = threading.Lock()
@@ -122,8 +136,10 @@ class _HistogramChild:
         self._counts = [0] * (len(buckets) + 1)  # +1 = +Inf overflow
         self._sum = 0.0
         self._count = 0
+        self._exemplar: Optional[Tuple[float, str, float]] = None
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float,
+                exemplar: Optional[str] = None) -> None:
         if not _enabled:
             return
         idx = bisect.bisect_left(self._buckets, value)
@@ -131,6 +147,18 @@ class _HistogramChild:
             self._counts[idx] += 1
             self._sum += value
             self._count += 1
+            if exemplar is not None:
+                prev = self._exemplar
+                now = time.monotonic()
+                if prev is None or value > prev[0] or \
+                        now - prev[2] > EXEMPLAR_WINDOW_S:
+                    self._exemplar = (value, exemplar, now)
+
+    @property
+    def exemplar(self) -> Optional[Tuple[float, str, float]]:
+        """(value, trace_id, monotonic stamp) of the retained worst
+        sample, or None: lock-free snapshot (one attribute read)."""
+        return self._exemplar
 
     @property
     def value(self) -> Tuple[List[int], float, int]:
@@ -254,6 +282,7 @@ class Histogram(_Metric):
     def _bind(self, child: _HistogramChild) -> None:
         self.observe = child.observe
         self.value = lambda: child.value
+        self.exemplar = lambda: child.exemplar
 
 
 class Registry:

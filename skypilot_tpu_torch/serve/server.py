@@ -12,7 +12,12 @@ request and response JSON:
                     draining
   GET  /metrics   → Prometheus text exposition (engine TTFT/TPOT
                     histograms, queue depth, prefix-cache and pool
-                    counters, HTTP latency and status per route)
+                    counters, watchdog recoveries, HTTP latency and
+                    status per route)
+  GET  /traces    → {"schema": "skytpu-traces/1", "enabled", "spans": the
+                    process's span ring (?window_s=N: spans started in
+                    the last N seconds; 400 on a non-number),
+                    "exemplars": the histograms' trace ids}
   POST /generate  → {"prompt_ids": [[...]] | "prompt": "text" | [...],
                      "max_new_tokens": N, "temperature": T,
                      "timeout_s": S (optional), "adapter": name
@@ -65,8 +70,19 @@ engine's queue, so concurrent requests share decode ticks, whatever
 adapter each names. Overload, drain and a full adapter pool shed with
 503 + Retry-After (429 on the OpenAI routes); a deadline the tier's
 queue makes unmeetable sheds at submit with 429 + Retry-After; an
-expired deadline is 504; an unknown adapter or tier is 400. A client
-that leaves a stream cancels its request, which frees its slot.
+expired deadline is 504 (--request-timeout caps every request's
+timeout_s); an unknown adapter or tier is 400. A client that leaves a
+stream cancels its request, which frees its slot. A wedged engine
+(--watchdog-timeout, default 120 s, 0 = off) fails its in-flight requests
+with 503 + Retry-After: 2, and the same server serves on.
+
+Tracing (SKYTPU_TRACING=1, off by default): each request runs in a
+'server.request' span continuing its X-SkyTPU-Trace header (a header-less
+POST mints a trace); the engine's queue-wait, prefill and decode spans,
+the handoff's push and ingest spans and the preemption notice's join it.
+A wedge recovery, a failed tick and a preemption notice write a flight
+record under SKYTPU_FLIGHT_DIR (default ~/.skytpu/flightrecords) when
+tracing is on or the directory is set.
 
 SIGTERM drains as the reference does: /health turns 503 + Retry-After
 at once and new requests shed, the engine finishes in-flight work
@@ -87,7 +103,9 @@ Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         [--async-depth 1] [--decode-chunk 4] [--speculative 4] \\
         [--kv-quant int8] [--max-adapters 4 --adapter-rank 16 \\
          --adapter-alpha 32 --adapter-targets q,k,v,o,gate,up,down] \\
-        [--prefix-store DIR] [--tier prefill|decode]
+        [--prefix-store DIR] [--tier prefill|decode] \\
+        [--paged-num-blocks N] [--request-timeout S] \\
+        [--watchdog-timeout S]
 The engine runs on CUDA unless --device cpu is given. On CUDA every decode
 dispatch and prefill chunk is a CUDA-graph replay; `warmup()` captures
 the graphs greedy requests take.
@@ -115,6 +133,7 @@ from skypilot_tpu_torch import exceptions
 from skypilot_tpu_torch.models import kv_cache as kv_cache_lib
 from skypilot_tpu_torch.observability import exposition
 from skypilot_tpu_torch.observability import metrics as obs
+from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.serve import constants as serve_constants
 from skypilot_tpu_torch.serve import tenancy
 from skypilot_tpu_torch.utils import fault_injection
@@ -146,30 +165,53 @@ _PREEMPT_DRAIN_HIST = obs.histogram(
     'prefix export)',
     buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 20.0, 30.0, 60.0))
 
-# The trace context header: a /kv/prefill request's value rides each
-# handoff chunk's header and each push verbatim.
-_TRACE_HEADER = 'X-SkyTPU-Trace'
 # The most blocks a handoff chunk may carry. The app's body limit is sized
 # to it (aiohttp's default, 1 MiB, is under one llama3-8b block).
 MAX_CHUNK_BLOCKS = 64
 
 
+def _request_span(request: web.Request):
+    """The request's 'server.request' span, continuing its X-SkyTPU-Trace
+    header (a load balancer's, or the prefill tier's on /kv/ingest);
+    header-less POSTs mint a fresh trace, header-less GETs (health
+    probes, scrapes) stay untraced. None when tracing is off: one
+    boolean check per request."""
+    if not tracing.enabled():
+        return None
+    ctx = tracing.parse_header(request.headers.get(tracing.TRACE_HEADER))
+    if ctx is None and request.method != 'POST':
+        return None
+    return tracing.span('server.request', parent=ctx,
+                        attrs={'route': request.path,
+                               'method': request.method})
+
+
 def _timed(route: str, handler,
            fleet_headers: Callable[[], Dict[str, str]]):
     """`handler`, timing each request and counting (route, status),
-    including exceptions aiohttp maps to HTTP errors, and adding
+    including exceptions aiohttp maps to HTTP errors, adding
     `fleet_headers()` to every response not already on the wire (an SSE
-    stream is prepared before its handler returns). A wrapper rather
-    than the reference's aiohttp middlewares: aiohttp caches each
+    stream is prepared before its handler returns), and, with tracing
+    on, running it inside its 'server.request' span (the ambient context
+    of the handler's task, so engine.submit() captures it). A wrapper
+    rather than the reference's aiohttp middlewares: aiohttp caches each
     handler's middleware chain for the life of the process, which would
     keep every server built in one process, and its engine, alive."""
     latency = _REQ_LATENCY.labels(route=route)
+
+    async def traced(request: web.Request, span) -> web.StreamResponse:
+        with span:
+            response = await handler(request)
+            span.set_attr('status', response.status)
+            return response
 
     async def timed(request: web.Request) -> web.StreamResponse:
         start = time.monotonic()
         status = 500
         try:
-            response = await handler(request)
+            span = _request_span(request)
+            response = await (handler(request) if span is None
+                              else traced(request, span))
             status = response.status
             if not response.prepared:
                 response.headers.update(fleet_headers())
@@ -258,6 +300,8 @@ class InferenceServer:
                  decode_kernel: str = 'pallas',
                  prefix_store: Optional[str] = None,
                  tier: str = 'monolithic',
+                 request_timeout: float = 0.0,
+                 watchdog_timeout: float = 0.0,
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
@@ -281,7 +325,7 @@ class InferenceServer:
             speculative=speculative, quantize=quantize,
             decode_kernel=decode_kernel, tier=tier,
             ingest_ttl=serve_constants.ingest_session_ttl_seconds(),
-            device=device)
+            watchdog_timeout=watchdog_timeout or None, device=device)
         # Weights loaded (or drawn, or quantized) and the engine built.
         self.load_seconds = time.monotonic() - t0
         logger.info('engine for %s ready in %.2fs (weights: %s)', model,
@@ -290,6 +334,9 @@ class InferenceServer:
         self.ready = False
         self.draining = False
         self.preempt_drain_timeout = preempt_drain_timeout
+        # Server-wide cap on a request's deadline (0 = none): a request's
+        # own timeout_s can only tighten it.
+        self.request_timeout = request_timeout
         # Disaggregated serving: 'prefill' replicas compute KV and push
         # it (/kv/prefill), 'decode' replicas ingest it (/kv/ingest),
         # 'monolithic' serves both routes.
@@ -378,15 +425,17 @@ class InferenceServer:
             raise ValueError('adapter must be a string name')
         return adapter, tenancy.validate_tier(data.get('priority'))
 
-    @staticmethod
-    def _deadline_for(data: dict) -> Optional[float]:
-        """Absolute deadline from the request's timeout_s, or None."""
+    def _deadline_for(self, data: dict) -> Optional[float]:
+        """Per-request deadline: the request's own timeout_s, capped by
+        the server-wide --request-timeout. None = no deadline."""
         timeout = data.get('timeout_s')
-        if timeout is None:
-            return None
-        if float(timeout) <= 0:
+        timeout = float(timeout) if timeout is not None else None
+        if timeout is not None and timeout <= 0:
             raise ValueError('timeout_s must be > 0')
-        return time.time() + float(timeout)
+        if self.request_timeout:
+            timeout = (min(timeout, self.request_timeout)
+                       if timeout is not None else self.request_timeout)
+        return time.time() + timeout if timeout is not None else None
 
     def _submit_one(self, ids: List[int], max_new: int, temperature: float,
                     deadline: Optional[float], tenant: tuple,
@@ -469,6 +518,9 @@ class InferenceServer:
                 *[asyncio.wrap_future(f) for f in futures])
         except exceptions.RequestDeadlineExceededError as e:
             return web.json_response({'error': str(e)}, status=504)
+        except exceptions.EngineWedgedError as e:
+            return self._unavailable(str(e), retry_after=2,
+                                     reason='wedged')
         except exceptions.EngineOverloadedError as e:
             return self._unavailable(str(e))
         results = [out for out, _ in gathered]
@@ -750,6 +802,9 @@ class InferenceServer:
                 *[asyncio.wrap_future(f) for f in futures])
         except exceptions.RequestDeadlineExceededError as e:
             return self._openai_error(str(e), status=504)
+        except exceptions.EngineWedgedError as e:
+            return self._openai_error(str(e), status=503, retry_after=2,
+                                      shed_reason='wedged')
         except exceptions.EngineOverloadedError as e:
             return self._openai_error(str(e), status=429, retry_after=1,
                                       shed_reason='overloaded')
@@ -872,6 +927,9 @@ class InferenceServer:
             out, _st = await asyncio.wrap_future(future)
         except exceptions.RequestDeadlineExceededError as e:
             return self._openai_error(str(e), status=504)
+        except exceptions.EngineWedgedError as e:
+            return self._openai_error(str(e), status=503, retry_after=2,
+                                      shed_reason='wedged')
         except exceptions.EngineOverloadedError as e:
             return self._openai_error(str(e), status=429, retry_after=1,
                                       shed_reason='overloaded')
@@ -1005,34 +1063,45 @@ class InferenceServer:
 
     def _drain_and_export_impl(self, budget_s: float) -> dict:
         _PREEMPT_NOTICES.inc()
+        # Flight-recorder trigger: dump BEFORE the drain, so the record
+        # shows what the engine was doing when the notice landed.
+        tracing.flight_record(
+            'preempt_notice',
+            extra={'budget_s': budget_s, 'tier': self.tier,
+                   'queue_load': self.engine.queue_load()})
         t0 = time.monotonic()
         deadline = t0 + budget_s
         # A slice of the budget is kept for the export itself.
         export_reserve = (min(2.0, budget_s * 0.3)
                           if self._can_export_prefixes() else 0.0)
-        drained = self.engine.drain(
-            timeout=max(0.1, budget_s - export_reserve))
-        _PREEMPT_DRAIN_HIST.observe(time.monotonic() - t0)
-        result: dict = {'drained': drained, 'export': None}
-        if not self._can_export_prefixes():
+        # The notice span covers the whole drain and export window (the
+        # engine.preempt_export child lands inside export_prefixes).
+        with tracing.span('server.preempt_notice',
+                          attrs={'budget_s': budget_s}) as sp:
+            drained = self.engine.drain(
+                timeout=max(0.1, budget_s - export_reserve))
+            sp.set_attr('drained', drained)
+            _PREEMPT_DRAIN_HIST.observe(time.monotonic() - t0)
+            result: dict = {'drained': drained, 'export': None}
+            if not self._can_export_prefixes():
+                return result
+            if not drained:
+                # A timed-out drain can leave a request mid-decode: an
+                # artifact raced by it could hold stale KV under a valid
+                # CRC. Losing the artifact only costs a cold start.
+                result['error'] = 'drain timed out; export skipped'
+                return result
+            try:
+                # Chaos seam: the kill landing between drain and export.
+                fault_injection.point('replica.preempt_kill')
+                result['export'] = self._export_to_store(
+                    budget_s=max(0.1, deadline - time.monotonic()))
+            except fault_injection.InjectedFault as e:
+                result['error'] = f'killed mid-export: {e}'
+            except Exception as e:  # pylint: disable=broad-except
+                logger.warning('prefix export failed: %s', e)
+                result['error'] = str(e)
             return result
-        if not drained:
-            # A timed-out drain can leave a request mid-decode: an
-            # artifact raced by it could hold stale KV under a valid
-            # CRC. Losing the artifact only costs a cold start.
-            result['error'] = 'drain timed out; export skipped'
-            return result
-        try:
-            # Chaos seam: the kill landing between drain and export.
-            fault_injection.point('replica.preempt_kill')
-            result['export'] = self._export_to_store(
-                budget_s=max(0.1, deadline - time.monotonic()))
-        except fault_injection.InjectedFault as e:
-            result['error'] = f'killed mid-export: {e}'
-        except Exception as e:  # pylint: disable=broad-except
-            logger.warning('prefix export failed: %s', e)
-            result['error'] = str(e)
-        return result
 
     async def handle_preempt(self, request: web.Request) -> web.Response:
         """POST /preempt, the preemption-notice hook: stop admitting
@@ -1124,14 +1193,19 @@ class InferenceServer:
     # (stream, seq)).
 
     def _push_stream(self, target: str, chunks,
-                     trace: Optional[str] = None) -> dict:
+                     trace: Optional['tracing.SpanContext'] = None
+                     ) -> dict:
         """Push framed chunks to `target`'s /kv/ingest in order. One
         transport retry a CHUNK (the receiver dedups by seq) and up to
         two 409-guided resumes a stream; anything else raises
-        _HandoffPushError."""
+        _HandoffPushError. `trace` (the kv_push span's context) rides
+        each POST as X-SkyTPU-Trace, so the decode replica's
+        server.request span joins the handoff's trace (the chunk headers
+        carry it too, for the engine's ingest spans)."""
         headers = {'Content-Type': 'application/octet-stream'}
-        if trace:
-            headers[_TRACE_HEADER] = trace
+        trace_header = tracing.header_value(trace)
+        if trace_header:
+            headers[tracing.TRACE_HEADER] = trace_header
         pushed = 0
         bytes_total = 0
         retries = 0        # across the stream (reported)
@@ -1180,15 +1254,26 @@ class InferenceServer:
 
     def _prefill_and_push(self, ids, target: str, stream_id: str,
                           chunk_blocks: int,
-                          trace: Optional[str] = None) -> dict:
+                          trace: Optional['tracing.SpanContext'] = None
+                          ) -> dict:
         t0 = time.monotonic()
-        pstats = self.engine.prefill_prefix(ids)
-        t1 = time.monotonic()
-        chunks = self.engine.export_prefix_chunks(
-            ids, stream_id, chunk_blocks=chunk_blocks, trace_header=trace)
-        t2 = time.monotonic()
-        push = self._push_stream(target, chunks, trace=trace)
-        t3 = time.monotonic()
+        # Runs on an executor thread: the handler's request span is
+        # adopted explicitly, so the prefill engine's queue-wait and
+        # prefill spans, and the push below, join the handoff's trace.
+        with tracing.activate(trace):
+            pstats = self.engine.prefill_prefix(ids)
+            t1 = time.monotonic()
+            with tracing.span('server.kv_push',
+                              attrs={'target': target,
+                                     'stream': stream_id}) as sp:
+                chunks = self.engine.export_prefix_chunks(
+                    ids, stream_id, chunk_blocks=chunk_blocks,
+                    trace_header=tracing.header_value(sp.ctx))
+                t2 = time.monotonic()
+                push = self._push_stream(target, chunks, trace=sp.ctx)
+                t3 = time.monotonic()
+                sp.set_attr('chunks', push['chunks'])
+                sp.set_attr('bytes', push['bytes'])
         # The reference's answer, plus where the handoff's time went:
         # the gather and framing, then the push (the decode side's
         # ingest included).
@@ -1246,8 +1331,7 @@ class InferenceServer:
             result = await asyncio.get_running_loop().run_in_executor(
                 None, self._prefill_and_push,
                 [int(t) for t in prompt_ids], target.rstrip('/'),
-                stream_id, chunk_blocks,
-                request.headers.get(_TRACE_HEADER))
+                stream_id, chunk_blocks, tracing.current())
         except exceptions.EngineOverloadedError as e:
             return self._unavailable(str(e))
         except _HandoffPushError as e:
@@ -1318,6 +1402,25 @@ class InferenceServer:
         aborted = self.engine.abort_ingest(stream_id)
         return web.json_response({'ok': True, 'aborted': aborted})
 
+    async def handle_traces(self, request: web.Request) -> web.Response:
+        """GET /traces: this process's span ring as JSON, plus the
+        histogram exemplars that link metrics to trace ids. `?window_s=N`
+        restricts it to recent spans."""
+        window: Optional[float] = None
+        raw = request.query.get('window_s')
+        if raw:
+            try:
+                window = float(raw)
+            except ValueError:
+                return web.json_response(
+                    {'error': 'window_s must be a number'}, status=400)
+        return web.json_response({
+            'schema': 'skytpu-traces/1',
+            'enabled': tracing.enabled(),
+            'spans': tracing.snapshot(window_s=window),
+            'exemplars': exposition.collect_exemplars(),
+        })
+
     def _fleet_intel_headers(self) -> Dict[str, str]:
         """Routing intel on every response the load balancer reads in
         band: queue load, tier, tokenizer, the prefix-cache digest, the
@@ -1363,6 +1466,7 @@ class InferenceServer:
         for method, route, handler in (
                 ('GET', '/health', self.handle_health),
                 ('GET', '/metrics', self.handle_metrics),
+                ('GET', '/traces', self.handle_traces),
                 ('POST', '/generate', self.handle_generate),
                 ('POST', '/adapters/load', self.handle_adapter_load),
                 ('DELETE', '/adapters/{name}', self.handle_adapter_delete),
@@ -1422,12 +1526,26 @@ class BackgroundServer:
         self._sock.close()
 
 
+def _tokenizer_arg(value: str) -> str:
+    if value != 'byte':
+        raise argparse.ArgumentTypeError(
+            f'--tokenizer {value!r} is not served by the port: an HF '
+            f"tokenizer needs the 'transformers' or 'tokenizers' package, "
+            f'which the port does not use; use --tokenizer byte')
+    return value
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The server's command line, flag for flag the reference's where the
     port has the feature."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--model', default='llama3-8b')
     parser.add_argument('--port', type=int, default=8080)
+    parser.add_argument('--tokenizer', type=_tokenizer_arg, default='byte',
+                        help="'byte' (the built-in byte-level tokenizer, "
+                             'ids 0-255). The reference\'s hf:<path> needs '
+                             'the transformers/tokenizers package, which '
+                             'the port does not use')
     parser.add_argument('--num-slots', type=int, default=4,
                         help='concurrent decode slots (continuous '
                              'batching width)')
@@ -1452,6 +1570,10 @@ def build_parser() -> argparse.ArgumentParser:
                              'head dims the kernel does not take (phi-2)')
     parser.add_argument('--paged-block-size', type=int, default=16,
                         help='tokens per KV block of the paged pool')
+    parser.add_argument('--paged-num-blocks', type=int, default=None,
+                        help='paged pool capacity in blocks (default: '
+                             '(num_slots + prefix_cache) x max_seq_len '
+                             '/ block_size + 1)')
     parser.add_argument('--prefill-chunk', type=int, default=0,
                         help='prompt tokens prefilled per tick (default: '
                              'block size)')
@@ -1507,6 +1629,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--max-queue', type=int, default=64,
                         help='queued-request cap; beyond it requests are '
                              'shed with 503 + Retry-After (0 = unbounded)')
+    parser.add_argument('--request-timeout', type=float, default=0.0,
+                        help='per-request deadline cap in seconds '
+                             '(0 = none); a request\'s own timeout_s '
+                             'can only tighten it')
+    parser.add_argument('--watchdog-timeout', type=float, default=120.0,
+                        help='engine watchdog: fail in-flight requests '
+                             'cleanly (503 + Retry-After) when the engine '
+                             'thread makes no progress for this long '
+                             '(0 = off); must exceed the worst-case '
+                             'decode tick')
     parser.add_argument('--kv-quant', default=None, choices=['int8'],
                         help='store the paged KV pool as int8 with fp32 '
                              'per-token scale rows')
@@ -1566,6 +1698,7 @@ def main(argv=None) -> int:
                              num_slots=args.num_slots,
                              max_queue_depth=args.max_queue,
                              paged_block_size=args.paged_block_size,
+                             paged_num_blocks=args.paged_num_blocks,
                              prefill_chunk=args.prefill_chunk,
                              prefix_cache=args.prefix_cache,
                              top_k=args.top_k, top_p=args.top_p,
@@ -1584,6 +1717,8 @@ def main(argv=None) -> int:
                              decode_kernel=args.decode_kernel,
                              prefix_store=args.prefix_store,
                              tier=args.tier,
+                             request_timeout=args.request_timeout,
+                             watchdog_timeout=args.watchdog_timeout,
                              device=args.device)
     # Pre-warm BEFORE ready: a replacement replica restores the fleet's
     # hot prefixes, so its first shared-prefix request is a cache hit.

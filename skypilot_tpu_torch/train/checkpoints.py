@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.train.trainer import TrainState
+from skypilot_tpu_torch.utils import fault_injection
 
 _STATE_FILE = 'state.pt'
 _FROZEN_FILE = 'frozen.pt'
@@ -75,7 +76,10 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, force: bool = False) -> bool:
         """Save `state` as `step` if the policy (or `force`) says so;
-        returns whether a checkpoint was published."""
+        returns whether a checkpoint was published. An armed 'train.save'
+        fault raises before anything is written (a dead checkpoint
+        mount: the run keeps its last committed step)."""
+        fault_injection.point('train.save')
         steps = self.all_steps()
         if steps and steps[-1] >= step:
             if force and step in steps:

@@ -2,8 +2,11 @@
 
 Own copy of skypilot_tpu/utils/fault_injection.py (stdlib only; every
 function and class is the reference's), with the injection points the
-port's KV portability paths fire, at the reference's places:
+port's device stack fires, at the reference's places:
 
+    engine.decode   models/inference.ContinuousBatchingEngine._tick —
+                    before the decode dispatch (a wedge here is what the
+                    engine watchdog recovers from)
     replica.preempt_kill
                     serve/server preemption notice — between drain and
                     prefix export; a failure simulates the replica dying
@@ -21,6 +24,24 @@ port's KV portability paths fire, at the reference's places:
     engine.ingest   models/inference ingest_chunk — as a decode replica
                     receives a handoff chunk; a failure simulates the
                     ingest path dying mid-stream
+    engine.slot_preempt
+                    models/inference — inside the tier preemption loop,
+                    before a batch slot yields to an interactive arrival
+    tenant.adapter_load
+                    models/inference._ensure_resident — before an
+                    adapter is made resident (host -> device copy)
+    tenant.evict    models/inference._ensure_resident / unload_adapter —
+                    before a resident adapter is evicted
+    train.save      train/checkpoints.CheckpointManager.save — before a
+                    checkpoint save starts; a failure simulates a dead
+                    checkpoint mount (the run keeps the last committed
+                    step)
+
+The reference's points the port does not fire stay out of KNOWN_POINTS:
+``train.step`` and ``train.notice`` (its elastic training loop) and the
+control plane's ``rpc.send``, ``replica.probe``,
+``replica.preempt_notice``, ``storage.chunk``, ``lb.digest`` and
+``lb.handoff`` (ELASTIC_POINTS and CONTROL_PLANE_POINTS name them).
 
 Disarmed (the default) a point is one module-level boolean check.
 Arming is programmatic (tests) or through the ``SKYTPU_FAULTS``
@@ -44,12 +65,24 @@ logger = logging.getLogger(__name__)
 # The documented injection points the port has (the reference's names,
 # at the reference's places).
 KNOWN_POINTS = (
+    'engine.decode',
     'replica.preempt_kill',
     'storage.export',
     'storage.import',
     'kv.stream',
     'engine.ingest',
+    'train.save',
+    'tenant.adapter_load',
+    'tenant.evict',
+    'engine.slot_preempt',
 )
+
+# The reference's points whose code the port does not have yet: its
+# elastic training loop's, and its control plane's.
+ELASTIC_POINTS = ('train.step', 'train.notice')
+CONTROL_PLANE_POINTS = ('rpc.send', 'replica.probe',
+                        'replica.preempt_notice', 'storage.chunk',
+                        'lb.digest', 'lb.handoff')
 
 
 class InjectedFault(Exception):

@@ -87,3 +87,119 @@ def test_block_pool_refusals():
         pool.decref(0)                  # scratch is pinned
     with pytest.raises(ValueError):
         torch_kv_cache.BlockPool(1, block_size=2)
+
+
+# ---------------------------------------------------------------------
+# Command-line parity: every option of the reference's entry points
+# parses on the port's, or stands in a named list of flags still to port
+# (each with its ROADMAP §1 item); the port's own options stand in a
+# second list, each with its reason.
+# ---------------------------------------------------------------------
+
+SERVER_TO_PORT = {
+    '--tp': 'ROADMAP §1 item 5: tensor-parallel serving',
+}
+TRAIN_TO_PORT = {
+    '--dp': 'ROADMAP §1 item 6: data parallelism and ZeRO-1',
+    '--tp': 'ROADMAP §1 item 6: --tp/--dp/--ep',
+    '--ep': 'ROADMAP §1 item 6: expert parallelism',
+    '--pp': 'ROADMAP §1 item 6: the pipeline',
+    '--microbatches': 'ROADMAP §1 item 6: the pipeline',
+    '--pipeline-repeats': 'ROADMAP §1 item 6: the pipeline',
+    '--zero1': 'ROADMAP §1 item 6: ZeRO-1',
+    '--elastic': 'ROADMAP §1 item 6: the elastic step',
+    '--probe-hlo': 'ROADMAP §1 item 6: the step collectives probe',
+}
+PORT_ONLY = {
+    'server': {'--device': 'the port runs on CUDA unless told cpu'},
+    'train': {'--device': 'the port runs on CUDA unless told cpu',
+              '--warmup-steps': 'the learning-rate warmup, which the '
+                                "reference's train.run leaves at "
+                                "TrainConfig's 100 steps (short CPU runs "
+                                'set it lower)'},
+}
+
+
+class _Captured(Exception):
+    """Carries the parser a reference main() built, instead of parsing."""
+
+
+def _reference_parser(main, monkeypatch):
+    import argparse
+
+    def capture(self, *args, **kwargs):
+        raise _Captured(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, 'parse_args', capture)
+    with pytest.raises(_Captured) as info:
+        main([])
+    monkeypatch.undo()
+    return info.value.args[0]
+
+
+def _options(parser) -> dict:
+    return {opt: action for action in parser._actions  # pylint: disable=protected-access
+            for opt in action.option_strings}
+
+
+def _sample_argv(opt, action) -> list:
+    """`opt` with a value of the reference action's kind."""
+    if action.nargs == 0:
+        return [opt]
+    if action.choices:
+        return [opt, str(list(action.choices)[0])]
+    if action.default is not None and not isinstance(action.default, bool):
+        return [opt, str(action.default)]
+    if action.type in (int, float):
+        return [opt, '1']
+    return [opt, 'x']
+
+
+def _parity(ref_parser, port_parser, to_port, port_only):
+    ref, port = _options(ref_parser), _options(port_parser)
+    assert set(ref) - set(port) == set(to_port)
+    assert set(port) - set(ref) == set(port_only)
+    for opt, action in ref.items():
+        if opt in to_port or opt in ('-h', '--help'):
+            continue
+        port_parser.parse_args(_sample_argv(opt, action))
+
+
+def test_server_flags_parse_or_are_named(monkeypatch):
+    from skypilot_tpu.serve import server as jax_server
+    from skypilot_tpu_torch.serve import server as torch_server
+    _parity(_reference_parser(jax_server.main, monkeypatch),
+            torch_server.build_parser(), SERVER_TO_PORT,
+            PORT_ONLY['server'])
+
+
+def test_train_flags_parse_or_are_named(monkeypatch):
+    from skypilot_tpu.train import run as jax_run
+    from skypilot_tpu_torch.train import run as torch_run
+    _parity(_reference_parser(jax_run.main, monkeypatch),
+            torch_run.build_parser(), TRAIN_TO_PORT, PORT_ONLY['train'])
+
+
+@pytest.mark.parametrize('argv,want', [
+    (['--tokenizer', 'byte', '--paged-num-blocks', '64',
+      '--request-timeout', '30', '--watchdog-timeout', '120'],
+     dict(tokenizer='byte', paged_num_blocks=64, request_timeout=30.0,
+          watchdog_timeout=120.0)),
+    ([], dict(tokenizer='byte', paged_num_blocks=None, request_timeout=0.0,
+              watchdog_timeout=120.0)),
+], ids=['set', 'defaults'])
+def test_server_resilience_flags(argv, want):
+    """Fault 7's flags and the watchdog's, with the reference's
+    defaults."""
+    from skypilot_tpu_torch.serve import server as torch_server
+    args = torch_server.build_parser().parse_args(argv)
+    assert {k: getattr(args, k) for k in want} == want
+
+
+def test_hf_tokenizer_is_refused_at_parse_naming_the_package(capsys):
+    from skypilot_tpu_torch.serve import server as torch_server
+    with pytest.raises(SystemExit) as info:
+        torch_server.build_parser().parse_args(['--tokenizer', 'hf:x'])
+    assert info.value.code == 2
+    err = capsys.readouterr().err
+    assert 'transformers' in err and 'tokenizers' in err

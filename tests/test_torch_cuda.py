@@ -1641,3 +1641,144 @@ def test_handoff_import_keeps_the_captured_decode_graph(kv_quant):
     finally:
         pre.stop()
         dec.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where', ['point', 'dispatch'])
+@pytest.mark.parametrize('kv_quant', [None, 'int8'], ids=['bf16', 'int8'])
+def test_wedge_released_after_a_recovery_leaves_the_successor_alone(
+        kv_quant, where):
+    """A watchdog recovery on the card keeps the step graphs captured at
+    async depth 1 (no recapture) and the pool tensors. The abandoned
+    thread, released while its successor serves, changes nothing: the
+    successor's tokens equal an untouched run's, the prompt blocks it
+    holds keep their bits, and its pass replays what the untouched pass
+    replays. `where` the thread wedged: 'point', at the `engine.decode`
+    fault point (released mid-pass, it exits at its generation check,
+    replaying nothing); 'dispatch', inside a decode dispatch after its
+    generation check, holding the device lock (the successor's first
+    write waits for it; released, its one replay lands on the stream
+    ahead of the successor's and is never read)."""
+    _need_gpu()
+    import dataclasses
+    import threading
+    import time
+
+    from skypilot_tpu_torch import exceptions
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.utils import fault_injection
+    cfg = dataclasses.replace(
+        get_config('llama3-8b'), name='wedge-small', vocab_size=1024,
+        d_model=512, num_layers=2, num_heads=4, num_kv_heads=2, d_mlp=1024,
+        max_seq_len=512, dtype='bfloat16')
+    engine = ContinuousBatchingEngine(
+        cfg, num_slots=4, paged_block_size=16, prefill_chunk=64,
+        kv_quant=kv_quant, async_depth=1, rng_seed=3, watchdog_timeout=1.0,
+        device='cuda')
+    prompts = [[(7 * i + 3 * r) % 1024 for i in range(40 + 30 * r)]
+               for r in range(4)]
+    released = threading.Event()
+
+    def serve(during=None):
+        """The prompts as one batch, queued while the engine thread is
+        held (both passes admit them in one tick and schedule them
+        alike); `during(reqs)` runs once every request decodes, or at
+        once with None when the engine cannot move. Returns (tokens,
+        replays of the pass)."""
+        replays = engine._steps.replays  # pylint: disable=protected-access
+        seen = threading.Event()
+        held_now, go = threading.Event(), threading.Event()
+        holder = threading.Thread(target=lambda: engine._run_in_tick(  # pylint: disable=protected-access
+            lambda: (held_now.set(), go.wait(60)), timeout=120))
+        holder.start()
+        assert held_now.wait(60)
+        futures = [engine.submit(p, max_new_tokens=120,
+                                 on_token=lambda _t: seen.set())
+                   for p in prompts]
+        go.set()
+        if during is not None and where == 'dispatch':
+            during(None)
+        elif during is not None:
+            assert seen.wait(60)
+            deadline = time.monotonic() + 60
+            while any(r is None or r.prefilling for r in engine._slots):  # pylint: disable=protected-access
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
+            during(list(engine._slots))  # pylint: disable=protected-access
+        holder.join(120)
+        tokens = [f.result(timeout=300)[0] for f in futures]
+        return tokens, engine._steps.replays - replays  # pylint: disable=protected-access
+
+    def prompt_blocks(ids):
+        return [t[:, full].clone() for full in ids for t in _pools(engine)]
+
+    stale_spec = None
+    real_run = engine._steps.run  # pylint: disable=protected-access
+    try:
+        engine.capture_graphs()
+        want, want_replays = serve()
+        captures = engine._steps.captures  # pylint: disable=protected-access
+        addresses = [t.data_ptr() for t in _pools(engine)]
+        if where == 'point':
+            fault_injection.arm('engine.decode', 'wedge')
+        else:
+            stale = engine._thread  # pylint: disable=protected-access
+
+            def gated(key, body, **kw):
+                if threading.current_thread() is stale and \
+                        key[0] == 'decode':
+                    assert released.wait(60)
+                real_run(key, body, **kw)
+
+            engine._steps.run = gated  # pylint: disable=protected-access
+        wedged = engine.submit(prompts[0], max_new_tokens=8)
+        with pytest.raises(exceptions.EngineWedgedError):
+            wedged.result(timeout=30)
+        assert engine._generation == 1  # pylint: disable=protected-access
+        if where == 'point':
+            # The abandoned thread waits on this wedge; the successor's
+            # firings pass through.
+            stale_spec = fault_injection._specs['engine.decode']  # pylint: disable=protected-access
+            fault_injection.arm('engine.decode', 'delay:0')
+        held = {}
+
+        def release(reqs):
+            if reqs is not None:
+                # The successor's full prompt blocks, which no later
+                # write touches while it holds them.
+                held['ids'] = [req.blocks[:len(req.ids) // 16]
+                               for req in reqs]
+                held['before'] = prompt_blocks(held['ids'])
+            else:
+                time.sleep(0.2)   # the successor waits on the lock
+            released.set()
+            if stale_spec is not None:
+                stale_spec.release.set()
+            deadline = time.monotonic() + 30
+            while engine.watchdog_stats['stale_exits'] < 1:
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
+            if reqs is not None:
+                held['after'] = prompt_blocks(held['ids'])
+
+        got, replays = serve(during=release)
+        assert got == want
+        # The abandoned thread's one dispatch, if it had one in hand.
+        assert replays == want_replays + (where == 'dispatch')
+        if where == 'point':
+            assert all(held['ids'])
+            assert all(torch.equal(a, b)
+                       for a, b in zip(held['before'], held['after']))
+            # Released at the finish and taken by nothing since.
+            assert all(torch.equal(a, b) for a, b in zip(
+                held['before'], prompt_blocks(held['ids'])))
+        assert engine._steps.captures == captures  # pylint: disable=protected-access
+        assert [t.data_ptr() for t in _pools(engine)] == addresses
+        engine._pool.check()  # pylint: disable=protected-access
+    finally:
+        released.set()
+        if stale_spec is not None:
+            stale_spec.release.set()
+        fault_injection.disarm_all()
+        engine.stop()

@@ -9,12 +9,19 @@ its module docstring aside, and so are callbacks/base.py and
 train/data.py's SftJsonlDataset (with the walk it draws from). The KV
 portability copies are pinned definition by definition: kv_cache's
 artifact and chunk-stream functions and PrefixIndex's touch/get/digest,
-every function and class of utils/fault_injection.py (its points a
-subset of the reference's), the prefix store's classes and methods in
-data/storage.py, the URL helpers of data/data_utils.py and the handoff
-settings of serve/constants.py.
+every function and class of utils/fault_injection.py (its points the
+reference's less the named elastic and control-plane lists), the prefix
+store's classes and methods in data/storage.py, the URL helpers of
+data/data_utils.py and the handoff settings of serve/constants.py. So
+are the observability copies, docstrings aside: every definition of
+observability/tracing.py (its spans the reference's less the load
+balancer's), the histograms' exemplars and `collect_exemplars`. Each
+declared point and span has a literal call site in the port, and every
+call site names a declared one (the reference's drift checks, run over
+the port's tree).
 """
 import ast
+import copy
 import os
 import subprocess
 import sys
@@ -78,6 +85,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.observability',
                 'skypilot_tpu_torch.observability.metrics',
                 'skypilot_tpu_torch.observability.exposition',
+                'skypilot_tpu_torch.observability.tracing',
                 'skypilot_tpu_torch.models.quantize',
                 'skypilot_tpu_torch.models.safetensors_file',
                 'skypilot_tpu_torch.models.export_tool',
@@ -222,15 +230,88 @@ def test_prefix_index_methods_equal_the_reference(name):
 
 def test_fault_injection_copy_equals_the_reference():
     port, ref = _pair(os.path.join('utils', 'fault_injection.py'))
-    points = port.pop('KNOWN_POINTS')
-    ref_points = ref.pop('KNOWN_POINTS')
-    assert set(ast.literal_eval(points.value)) == {
-        'replica.preempt_kill', 'storage.export', 'storage.import',
-        'kv.stream', 'engine.ingest'}
-    assert set(ast.literal_eval(points.value)) <= set(
-        ast.literal_eval(ref_points.value))
+    points = ast.literal_eval(port.pop('KNOWN_POINTS').value)
+    ref_points = ast.literal_eval(ref.pop('KNOWN_POINTS').value)
+    left_out = (ast.literal_eval(port.pop('ELASTIC_POINTS').value) +
+                ast.literal_eval(port.pop('CONTROL_PLANE_POINTS').value))
+    assert left_out == ('train.step', 'train.notice', 'rpc.send',
+                        'replica.probe', 'replica.preempt_notice',
+                        'storage.chunk', 'lb.digest', 'lb.handoff')
+    assert [p for p in ref_points if p not in left_out] == list(points)
+    assert set(left_out) <= set(ref_points)
     assert {k: ast.dump(v) for k, v in port.items()} == \
         {k: ast.dump(v) for k, v in ref.items()}
+
+
+def _without_docstrings(node):
+    """ast dump of a definition with every docstring dropped (the copies
+    reword some to speak of the port)."""
+    node = copy.deepcopy(node)
+    for sub in ast.walk(node):
+        body = getattr(sub, 'body', None)
+        if isinstance(sub, (ast.FunctionDef, ast.ClassDef, ast.Module)) \
+                and body and isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant) and \
+                isinstance(body[0].value.value, str):
+            sub.body = body[1:] or [ast.Pass()]
+    return ast.dump(node)
+
+
+def test_tracing_copy_equals_the_reference():
+    port, ref = _pair(os.path.join('observability', 'tracing.py'))
+    spans = ast.literal_eval(port.pop('KNOWN_SPANS').value)
+    ref_spans = ast.literal_eval(ref.pop('KNOWN_SPANS').value)
+    control_plane = ast.literal_eval(port.pop('CONTROL_PLANE_SPANS').value)
+    assert control_plane == ('lb.request', 'lb.route', 'lb.proxy',
+                             'lb.handoff', 'lb.handoff_attempt')
+    assert [n for n in ref_spans if n not in control_plane] == list(spans)
+    assert set(control_plane) <= set(ref_spans)
+    assert sorted(port) == sorted(ref)
+    for name in port:
+        assert _without_docstrings(port[name]) == \
+            _without_docstrings(ref[name]), name
+
+
+@pytest.mark.parametrize('name', ['EXEMPLAR_WINDOW_S', '_HistogramChild',
+                                  'Histogram'])
+def test_metrics_exemplars_equal_the_reference(name):
+    port, ref = _pair(os.path.join('observability', 'metrics.py'))
+    assert _without_docstrings(port[name]) == \
+        _without_docstrings(ref[name])
+
+
+def test_collect_exemplars_equals_the_reference():
+    port, ref = _pair(os.path.join('observability', 'exposition.py'))
+    assert _without_docstrings(port['collect_exemplars']) == \
+        _without_docstrings(ref['collect_exemplars'])
+
+
+def _port_tree():
+    from skypilot_tpu.analysis.core import ProjectTree
+    return ProjectTree(_PKG)
+
+
+def test_every_fault_point_has_a_literal_call_site():
+    """The reference's injection-drift rule over the port's tree: every
+    KNOWN_POINTS entry is fired by a literal fault_injection.point()
+    call, and every call names a declared point."""
+    from skypilot_tpu.analysis import drift
+    tree = _port_tree()
+    known, _path, _line = drift.known_points(tree)
+    sites = {name for name, _p, _l in drift.collect_points(tree)}
+    assert sites == set(known)
+
+
+def test_every_span_has_a_literal_call_site():
+    """The reference's trace-discipline rule over the port's tree: every
+    span(...)/start_span(...)/record_span(...) call names a KNOWN_SPANS
+    entry by a literal, and every entry has a call site."""
+    from skypilot_tpu.analysis import drift
+    tree = _port_tree()
+    known, _path, _line = drift.known_spans(tree)
+    sites = [name for name, _p, _l in drift.collect_span_sites(tree)]
+    assert None not in sites
+    assert set(sites) == set(known)
 
 
 @pytest.mark.parametrize('name', ['PlainDirStore', '_KeyPrefixStore',

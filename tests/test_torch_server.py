@@ -247,6 +247,7 @@ PORTED_METRICS = {
         'skytpu_engine_tier_requests_total',
         'skytpu_engine_tier_deadline_shed_total',
         'skytpu_engine_slot_preempts_total',
+        'skytpu_engine_wedge_recoveries_total',
         'skytpu_prefix_export_blocks_total',
         'skytpu_prefix_prewarm_blocks_total',
         'skytpu_prefix_prewarm_hit_total',
@@ -260,6 +261,10 @@ PORTED_METRICS = {
         'skytpu_server_shed_total', 'skytpu_server_draining',
         'skytpu_server_preempt_notices_total',
         'skytpu_server_preempt_drain_seconds'),
+    'skypilot_tpu.observability.tracing': (
+        'skytpu_trace_spans_recorded_total',
+        'skytpu_trace_spans_dropped_total',
+        'skytpu_trace_flight_records_total'),
     'skypilot_tpu.train.metrics': (
         'skytpu_train_step_seconds', 'skytpu_train_tokens_per_sec',
         'skytpu_train_mfu', 'skytpu_train_steps_timed_total',

@@ -348,6 +348,14 @@ def test_deadline_shed_maps_to_429(live):
     server, url = live
     engine = server.engine
     engine.ttft_estimate = 30.0
+    # The engine thread is held while the routes are called, so the four
+    # requests stay queued ahead of them however the threads are
+    # scheduled.
+    held, go = threading.Event(), threading.Event()
+    holder = threading.Thread(target=lambda: engine._run_in_tick(  # pylint: disable=protected-access
+        lambda: (held.set(), go.wait(60)), timeout=120))
+    holder.start()
+    assert held.wait(60)
     futures = [engine.submit([1, 2, 3 + i], max_new_tokens=16,
                              priority='interactive') for i in range(4)]
     try:
@@ -365,6 +373,8 @@ def test_deadline_shed_maps_to_429(live):
             assert headers['Retry-After'], route
         assert engine.tenancy_stats['deadline_sheds'] == 3
     finally:
+        go.set()
+        holder.join(60)
         for fut in futures:
             fut.cancel()
 
