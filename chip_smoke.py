@@ -152,6 +152,20 @@ and passed over):
             tokens are equal; the same wedge on an int8-KV server with 2
             resident adapters (kernels 2 and 7); --request-timeout 1 caps
             timeout_s 600 and a long request answers 504.
+  contiguous: the reference's default layout (--paged-block-size 0) on
+            llama3-8b at full width and depth over serve's weights: 8
+            slots, decode graphs captured, serve's 8 prompts at async
+            depth 0 then 1 (tokens equal, KV bytes 8,589,934,592, kernel
+            1 launched 0 times), the decode tick (graph and eager, equal
+            tokens) and a bucket-1024 admission timed, the first token
+            where serve's paged-kernel run differs; InferenceEngine
+            batch 8 x 256 at decode_chunk 1 and 8 (equal; TTFT, tokens/s)
+            and a batch-1 EOS cut; at 2 layers fp32 (TF32 off) contiguous
+            = paged 'xla' = paged kernel, float and int8 KV, a prefix hit
+            and an oracle-draft K 4 verify equal to cold and plain, and
+            InferenceEngine = the contiguous engine; at 4 layers bf16
+            behind HTTP with 2 adapters, kernel 7's launches exact over
+            a plain, a K 4 and two prefix passes.
   serve_prefix: the server with the prefix cache (llama3-8b at full
             size, 8 slots, blocks of 16, chunks of 256, async_depth 1,
             prefix_cache 16, 2049 pool blocks): multi-turn chat, 8
@@ -1479,6 +1493,47 @@ def _breakdown_line(label: str, what: str, wall_ms: float, kernel_ms: float,
         f'{max(0.0, 1 - kernel_ms / wall_ms):.3f} [{smi}]')
 
 
+def _timed_step(torch, fn, label: str, what: str, smi: str,
+                graph: bool) -> tuple:
+    """Host wall per call of `fn` (10 calls after 3, no profiler) beside
+    the CUDA-kernel time a torch.profiler trace gives it (5 calls), and
+    the runtime's launch calls; a graph step must be one cudaGraphLaunch
+    a call. Returns (wall ms, kernel ms, the trace's kernel events, all
+    its events), the counts in the events over 5 calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    t0 = time.monotonic()
+    for _ in range(10):
+        fn()
+    wall_ms = (time.monotonic() - t0) * 100.0
+    for _ in range(3):     # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+        kernel_ms, kernels, events = _kernel_profile(prof)
+        if kernels:
+            break
+    _breakdown_line(label, what, wall_ms, kernel_ms / 5, smi)
+    log(f'  launch calls per step: {_launch_calls(events, 5)}; CUDA '
+        f'kernels x{sum(e.count for e in kernels) / 5:g}')
+    if graph:
+        calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
+        if calls.get('cudaGraphLaunch') != 5 or any(
+                calls.get(c, 0) for c in LAUNCH_CALLS
+                if c != 'cudaGraphLaunch'):
+            fail(f'{label}: a step is not one graph launch: {calls}')
+    return wall_ms, kernel_ms / 5, kernels, events
+
+
+def _top_kernels(kernels, count: int) -> None:
+    """The `count` kernels of a 5-call trace with the most device time."""
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:count]:
+        log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
+            f'x{e.count // 5:<4d} {e.key[:90]}')
+
+
 def step_breakdown(torch, engine, smi: str, context: int = 700,
                    verify_ks: tuple = ()) -> dict:
     """Time the engine's device steps at the served shapes on the drained
@@ -1498,7 +1553,6 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
     CUDA kernel ms)}."""
     import numpy as np
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cfg = engine.cfg
     pool = engine._pool  # pylint: disable=protected-access
     rows = engine.num_slots
@@ -1595,49 +1649,20 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
                 fail(f'the {name} graph replay gave {graph_out.tolist()}, '
                      f'the eager verify {eager_out.tolist()}')
         for (name, path), fn in steps.items():
-            for _ in range(3):
-                fn()
-            t0 = time.monotonic()
-            for _ in range(10):
-                fn()
-            wall_ms = (time.monotonic() - t0) * 100.0
-            for _ in range(3):     # a trace now and then comes back empty
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(5):
-                        fn()
-                kernel_ms, kernels, events = _kernel_profile(prof)
-                if kernels:
-                    break
             what = ('1 row, 256 tokens at position 512'
                     if name == 'prefill_chunk'
                     else f'{rows} rows at {context} tokens')
             if engine.max_adapters or cfg.kv_cache_quant:
                 what += (f'; int8 KV, {engine.max_adapters} adapters on '
                          f'{cfg.lora_targets}')
-            _breakdown_line(f'{name} {path}', what, wall_ms, kernel_ms / 5,
-                            smi)
-            timings[name, path] = (wall_ms, kernel_ms / 5)
-            log(f'  launch calls per step: {_launch_calls(events, 5)}; CUDA '
-                f'kernels x{sum(e.count for e in kernels) / 5:g}')
+            wall_ms, kernel_ms, kernels, events = _timed_step(
+                torch, fn, f'{name} {path}', what, smi, path == 'graph')
+            timings[name, path] = (wall_ms, kernel_ms)
             if path == 'graph':
-                calls = {e.key: e.count for e in events
-                         if e.key in LAUNCH_CALLS}
-                if calls.get('cudaGraphLaunch') != 5 or any(
-                        calls.get(c, 0) for c in LAUNCH_CALLS
-                        if c != 'cudaGraphLaunch'):
-                    fail(f'{name} graph: a step is not one graph launch: '
-                         f'{calls}')
                 if name.startswith('verify'):
-                    for e in sorted(kernels, key=lambda e:
-                                    -e.self_device_time_total)[:8]:
-                        log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
-                            f'x{e.count // 5:<4d} {e.key[:90]}')
+                    _top_kernels(kernels, 8)
                 continue
-            for e in sorted(kernels,
-                            key=lambda e: -e.self_device_time_total)[:6]:
-                log(f'  {e.self_device_time_total / 5e3:8.3f} ms '
-                    f'x{e.count // 5:<4d} {e.key[:90]}')
+            _top_kernels(kernels, 6)
             if cfg.is_moe:
                 # Kernel time under each MoE range (its kernels'
                 # device time), beside the paged kernel's.
@@ -1647,7 +1672,7 @@ def step_breakdown(torch, engine, smi: str, context: int = 700,
                                     if e.key == r and
                                     e.device_type == DeviceType.CPU) / 5e3
                          for r in MOE_RANGES}
-                rest = kernel_ms / 5 - attention - sum(split.values())
+                rest = kernel_ms - attention - sum(split.values())
                 log(f'  split, ms per step: attention (kernel 1) '
                     f'{attention:.3f}, ' + ', '.join(
                         f'{r} {ms:.3f}' for r, ms in split.items()) +
@@ -1774,8 +1799,10 @@ def _reset_serve_launches() -> None:
 def _expected_launches(engine, chunks: int, steps: int) -> dict:
     """The serving launch formulas: the paged kernel (its int8 route
     under int8 KV) layers x (prefill chunks + decode steps), none on the
-    'xla' route, the fused LoRA kernel layers x (chunks + steps) x the
-    LoRA groups a layer. kv_handoff sums it over both tiers' engines
+    'xla' route (the contiguous layout's only one), the fused LoRA kernel
+    layers x (chunks + steps) x the LoRA groups a layer, where a
+    contiguous prefill is one call an admission (`chunks` counts
+    prefill calls). kv_handoff sums it over both tiers' engines
     (`_kv_launches`)."""
     first = engine.model.layers[0]
     mlp = first.mlp
@@ -1852,7 +1879,9 @@ def _serve_traffic(torch, engine, url: str, bodies, during=None,
     wall = time.monotonic() - t_start
     launches = _serve_launches()
     ticks = {k: v - ticks0[k] for k, v in engine.tick_stats.items()}
-    chunks = engine.paged_stats['prefill_chunks'] - chunks0
+    # Prefill calls: paged chunks, or one contiguous prefill an admission.
+    chunks = engine.paged_stats['prefill_chunks'] - chunks0 + ticks[
+        'prefills']
     if errors or any(t.is_alive() for t in threads):
         fail(f'requests failed: {errors}')
     vocab = engine.cfg.vocab_size
@@ -1962,10 +1991,12 @@ def phase_serve(torch, smi: str) -> tuple:
             not bool(torch.isfinite(logits.float()).all()):
         fail(f'llama3-8b logits not finite or misshapen: {logits.shape}')
     timings = step_breakdown(torch, engine, smi, verify_ks=SCHED_KS)
-    # The weights, for the resilience phase's servers.
+    # The weights, for the resilience and contiguous phases' servers, and
+    # the tokens of the first depth-1 run, which the contiguous phase's
+    # full-depth run reports its first difference from.
     params = dict(engine.model.state_dict())
     return (run['launches']['paged_decode_attention'], pool_bytes, timings,
-            params)
+            params, run['tokens'])
 
 
 def _serve_bodies(torch, vocab: int) -> list:
@@ -2340,6 +2371,623 @@ def phase_resilience(torch, smi: str, params=None) -> dict:
 
 
 # ------------------------------------------------------------------ serve_sched
+
+CONTIGUOUS_KV_BYTES = 8 * 8192 * 32 * 2 * 8 * 128 * 2   # 8 slots, bf16
+CONTIGUOUS_IE = dict(batch=8, prompt=256, new=64, eos_col=20)
+CONTIGUOUS_PARITY_LAYERS = 2     # the fp32 layout parity's depth
+CONTIGUOUS_CUT = 4               # the compositions' depth
+CONTIGUOUS_LONG = 8000           # a prompt in the last bucket, 8192
+CONTIGUOUS_ADAPTERS = dict(max_adapters=2, adapter_rank=16,
+                           adapter_alpha=32.0,
+                           adapter_targets='q,k,v,o,gate,up,down')
+
+
+def _contiguous_breakdown(torch, engine, smi: str) -> dict:
+    """On the drained contiguous engine: one steady decode tick (every
+    slot at 700 tokens) as its graph replay beside the eager step, whose
+    tokens it must equal; and one bucket-1024 admission as the engine
+    runs it, eagerly (a fresh batch-1 cache, the prefill of 1000 tokens,
+    the first token, the copy into slot 0)."""
+    import numpy as np
+    cfg = engine.cfg
+    rows = engine.num_slots
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen,
+                           dtype=torch.int32)
+    device = engine.device
+    chunk = torch.randint(0, cfg.vocab_size, (1, 1024),
+                          generator=gen).to(device)
+    dec = engine._dec  # pylint: disable=protected-access
+    dec.temps.put(np.zeros(rows, np.float32))
+    feed = [tokens[:, 0].numpy(), np.full(rows, 700, np.int32)]
+    tokens_dev = tokens.to(device)
+    positions = torch.full((rows, 1), 700, dtype=torch.int32, device=device)
+    temps = torch.zeros(rows, device=device)
+
+    def graph_decode():
+        dec.feed.put(feed)      # the replay advanced the positions
+        return engine._run_decode(1, False).result()[:, 0]  # pylint: disable=protected-access
+
+    def eager_decode():
+        return engine._decode_impl(tokens_dev, positions, temps, None,  # pylint: disable=protected-access
+                                   False).cpu().numpy()
+
+    def admission():
+        cache1 = list(engine.model.new_kv_cache(1))
+        logits = engine._prefill_contiguous(cache1, chunk, 0, 1000, None)  # pylint: disable=protected-access
+        first = int(torch.argmax(logits))
+        engine._insert(0, cache1)  # pylint: disable=protected-access
+        return first
+
+    timings = {}
+    with torch.inference_mode():
+        eager_tokens = eager_decode()
+        graph_tokens = graph_decode()
+        if not (graph_tokens == eager_tokens).all():
+            fail(f'contiguous: the decode graph replay gave '
+                 f'{graph_tokens.tolist()}, the eager step '
+                 f'{eager_tokens.tolist()}')
+        what = f'{rows} rows at 700 tokens, contiguous'
+        for key, fn, label, detail, graph in (
+                (('decode', 'graph'), graph_decode, 'contiguous decode graph',
+                 what, True),
+                (('decode', 'eager'), eager_decode, 'contiguous decode eager',
+                 what, False),
+                (('prefill', 'eager'), admission,
+                 'contiguous prefill bucket 1024 eager',
+                 '1 row, 1000 tokens in bucket 1024: fresh cache, prefill, '
+                 'insert', False)):
+            wall_ms, kernel_ms, kernels, _ = _timed_step(
+                torch, fn, label, detail, smi, graph)
+            _top_kernels(kernels, 6)
+            timings[key] = (wall_ms, kernel_ms)
+    engine._forget_inputs()  # pylint: disable=protected-access
+    return timings
+
+
+def _contiguous_long_admission(torch, engine, smi: str) -> None:
+    """Two requests of CONTIGUOUS_LONG prompt tokens (the last bucket,
+    max_seq_len) and 4 new tokens, one after the other, through the
+    running engine: each one admission, its TTFT (the bucket's eager
+    prefill, whose plain attention holds a (1, 32, 8192, 8192) fp32 score
+    tensor a layer) and the peak memory over both."""
+    cfg = engine.cfg
+    if engine._bucket(CONTIGUOUS_LONG) != cfg.max_seq_len:  # pylint: disable=protected-access
+        fail(f'contiguous: {CONTIGUOUS_LONG} tokens are not in the last '
+             f'bucket')
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (CONTIGUOUS_LONG,),
+                           generator=gen).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ttfts, streams = [], []
+    for _ in range(2):
+        prefills0 = engine.tick_stats['prefills']
+        tokens, stats = engine.submit(prompt, max_new_tokens=4).result(
+            timeout=600)
+        if len(tokens) != 4 or not all(0 <= t < cfg.vocab_size
+                                       for t in tokens) or \
+                engine.tick_stats['prefills'] - prefills0 != 1:
+            fail(f'contiguous: the {CONTIGUOUS_LONG}-token request gave '
+                 f'{tokens} in {engine.tick_stats["prefills"] - prefills0} '
+                 f'admissions')
+        ttfts.append(stats['ttft_s'] * 1e3)
+        streams.append(tokens)
+    if streams[0] != streams[1]:
+        fail(f'contiguous: the {CONTIGUOUS_LONG}-token prompt gave '
+             f'{streams[0]}, then {streams[1]}')
+    log(f'contiguous: a {CONTIGUOUS_LONG}-token prompt in bucket '
+        f'{cfg.max_seq_len}, 4 new tokens, twice: TTFT {ttfts[0]:.1f} ms '
+        f'then {ttfts[1]:.1f} ms, equal tokens; peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]')
+
+
+def _lora_close(torch, what, got, ref, y, tol) -> tuple:
+    """`_check_close` of a group's output y + delta against the plain
+    composition's, with the relative term taken of the larger of |ref|
+    and the plain delta |ref - y|: z and w round to bf16 (a sum in
+    another order can flip either by one step) relative to the delta,
+    and y can cancel a delta of 4-8 down to a sum under 0.3, where one
+    step of the delta (2^-5) is more than LORA_TOL's share of |ref|; over
+    the 10^7-10^8 elements of a long bucket that happens a few times in
+    both versions alike. Returns (max abs error, the elements that only
+    the delta's share covers)."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f'{what}: shape or dtype {tuple(got.shape)}/{got.dtype} vs '
+             f'{tuple(ref.shape)}/{ref.dtype}')
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f'{what}: non-finite values')
+    diff = (got.float() - ref.float()).abs()
+    atol, rtol = tol
+    by_ref = atol + rtol * ref.float().abs()
+    bound = torch.maximum(by_ref,
+                          atol + rtol * (ref.float() - y.float()).abs())
+    if bool((diff > bound).any()):
+        fail(f'{what} disagrees with its plain version: max abs err '
+             f'{float(diff.max()):.3e} (atol {atol}, rtol {rtol} of the '
+             f'larger of |ref| and |delta|)')
+    return float(diff.max()), int((diff > by_ref).sum())
+
+
+def _lora_emulated(torch, x, stacks, offsets, y, slot: int):
+    """The group's bf16 output with the design's roundings (z, w, y +
+    w * scale to bf16) over sums in fp64: the yardstick both the kernel
+    and the plain composition round away from. x: (1, T, IN)."""
+    out = y.clone()
+    for (a, b), off in zip(stacks, offsets):
+        z = (x[0].double() @ a[slot].double()).to(x.dtype)
+        w = (z.double() @ b[slot].double()).to(x.dtype)
+        cols = out[0, :, off:off + b.shape[2]]
+        cols.copy_((cols.float() + (w * LORA_SCALE).float()).to(x.dtype))
+    return out
+
+
+def _contiguous_lora_buckets(torch, max_seq_len: int) -> float:
+    """Kernel 7 at the contiguous layout's prefill shapes: one
+    right-padded bucket a call (B 1, T 16 doubling to max_seq_len), one
+    call per llama3-8b group, rank 16, fp32 and bf16, the bucket's row on
+    adapter 1 or 2: on the route the plan names, within LORA_TOL of the
+    plain composition on a seeded random y, its relative term of the
+    larger of |ref| and the delta (`_lora_close`). In bf16 both are also
+    set beside `_lora_emulated`: how many elements of each miss LORA_TOL
+    of |ref| there. Returns the worst error."""
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    buckets = [16 << i for i in range(max_seq_len.bit_length())
+               if 16 << i <= max_seq_len]
+    worst, by_delta = {}, {}
+    misses = {'kernel': 0, 'plain': 0}
+    atol, rtol = LORA_TOL['bfloat16']
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        worst[dtype_name], by_delta[dtype_name] = 0.0, []
+        for name, (d_in, outs) in LORA_GROUPS.items():
+            stacks, gen = _lora_stacks(torch, d_in, outs, dtype,
+                                       7 + d_in + sum(outs))
+            offsets = [sum(outs[:i]) for i in range(len(outs))]
+            group = fl.LoRAGroup(stacks, offsets, sum(outs), LORA_SCALE)
+            for i, seq in enumerate(buckets):
+                x = torch.randn((1, seq, d_in), generator=gen,
+                                device='cuda').to(dtype)
+                y = torch.randn((1, seq, sum(outs)), generator=gen,
+                                device='cuda').to(dtype)
+                aids = torch.tensor([1 + i % 2], dtype=torch.int32,
+                                    device='cuda')
+                what = f'contiguous lora {name} bucket {seq} {dtype_name}'
+                route, _ = group.plan(seq)
+                want = ('tensor_cores' if dtype_name == 'bfloat16'
+                        else 'cuda_cores')
+                if route != want:
+                    fail(f'{what}: route {route}, want {want}')
+                got = group(x, y.clone(), aids)
+                ref = y.clone()
+                for (a, b), off in zip(stacks, offsets):
+                    ref[..., off:off + b.shape[2]] += \
+                        fl.fused_multi_lora_plain(x, a, b, aids) * LORA_SCALE
+                err, cancelled = _lora_close(torch, what, got, ref, y,
+                                             LORA_TOL[dtype_name])
+                worst[dtype_name] = max(worst[dtype_name], err)
+                if cancelled:
+                    by_delta[dtype_name].append(f'{name} T {seq}: '
+                                                f'{cancelled}')
+                if dtype_name == 'bfloat16':
+                    exact = _lora_emulated(torch, x, stacks, offsets, y,
+                                           1 + i % 2).float()
+                    for key, out in (('kernel', got), ('plain', ref)):
+                        misses[key] += int(((out.float() - exact).abs() >
+                                            atol + rtol * exact.abs()).sum())
+                    del exact
+                del x, y, got, ref
+            del stacks, group
+        torch.cuda.empty_cache()
+    log(f'contiguous: kernel 7 at every prefill bucket {buckets} (B 1), '
+        f'4 llama3-8b groups, rank 16, 2 adapters: within LORA_TOL of the '
+        f'plain composition; max_abs_err fp32 {worst["float32"]:.3e}, bf16 '
+        f'{worst["bfloat16"]:.3e}; elements that only the delta\'s share '
+        f'covers: fp32 {by_delta["float32"] or "none"}, bf16 '
+        f'{by_delta["bfloat16"] or "none"}; bf16 elements beyond LORA_TOL '
+        f'of |ref| from the fp64-summed emulation: kernel '
+        f'{misses["kernel"]}, plain {misses["plain"]}')
+    return max(worst.values())
+
+
+def _contiguous_generate(engine, prompts, new: int) -> list:
+    futures = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    return [f.result(timeout=600)[0] for f in futures]
+
+
+def _contiguous_hit_and_verify(engine, prompts, cold) -> None:
+    """On a contiguous fp32 engine that served `prompts` (32 new tokens)
+    with prefix_cache 4: the last 4 resent hit with the cold tokens; then
+    with the prefix cache off, a speculative K 4 pass drafting the cold
+    continuations (`_oracle_drafts`: random prompts give prompt lookup
+    nothing to draft) gives them all."""
+    hits0 = engine.prefix_stats['hits']
+    hot = _contiguous_generate(engine, prompts[-4:], 32)
+    if engine.prefix_stats['hits'] - hits0 != 4 or hot != cold[-4:]:
+        fail(f'contiguous prefix (fp32): hits '
+             f'{engine.prefix_stats["hits"] - hits0} of 4, or tokens '
+             f'differ from the cold ones')
+    engine.prefix_cache = 0
+    engine.speculative = 4
+    engine.capture_graphs()
+    ticks0 = engine.spec_stats['ticks']
+    engine._draft_tokens = _oracle_drafts(prompts, cold)  # pylint: disable=protected-access
+    try:
+        spec = _contiguous_generate(engine, prompts, 32)
+    finally:
+        del engine._draft_tokens  # pylint: disable=protected-access
+    engine.speculative = 0
+    if spec != cold or engine.spec_stats['ticks'] == ticks0:
+        fail(f'contiguous speculative K 4 (fp32): tokens differ from plain '
+             f'or no verify tick ran ({engine.spec_stats})')
+    log(f'contiguous (fp32): 4 resent prompts hit the prefix cache with '
+        f'the cold tokens; speculative K 4 = plain over {len(prompts)} '
+        f'requests ({engine.spec_stats["ticks"] - ticks0} verify ticks, '
+        f'{engine.spec_stats})')
+
+
+def _contiguous_parity(torch, smi: str, bodies) -> dict:
+    """llama3-8b cut to CONTIGUOUS_PARITY_LAYERS layers at full width,
+    fp32 with TF32 off, float and int8 KV: the contiguous engine, the
+    paged engine on the 'xla' route and on the kernel route give equal
+    greedy tokens on serve's prompts (launch formulas exact). On the
+    float contiguous engine (prefix_cache 4) the last 4 prompts resent
+    hit the prefix cache with the cold tokens, and a speculative K 4
+    pass (prefix cache off) gives the plain tokens. Then InferenceEngine's
+    tokens equal the contiguous engine's on 8 prompts of one length.
+    Returns the kernels' launches."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.inference import (ContinuousBatchingEngine,
+                                                     InferenceEngine)
+    cfg = dataclasses.replace(get_config('llama3-8b'),
+                              num_layers=CONTIGUOUS_PARITY_LAYERS,
+                              dtype='float32')
+    prompts = [b['prompt_ids'][0] for b in bodies]
+    launched = {'paged_decode_attention': 0,
+                'paged_decode_attention_int8': 0}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = None
+    try:
+        for quant in (None, 'int8'):
+            outs = {}
+            for name, kw in (('contiguous', dict(prefix_cache=4)),
+                             ('paged-xla', dict(paged_block_size=16,
+                                                prefill_chunk=256,
+                                                decode_kernel='xla')),
+                             ('paged-kernel', dict(paged_block_size=16,
+                                                   prefill_chunk=256))):
+                engine = ContinuousBatchingEngine(
+                    cfg, params=params and dict(params), num_slots=8,
+                    kv_quant=quant, rng_seed=0, device='cuda', **kw)
+                if params is None:
+                    params = dict(engine.model.state_dict())
+                engine.capture_graphs()
+                chunks0 = engine.paged_stats['prefill_chunks']
+                ticks0 = dict(engine.tick_stats)
+                _reset_serve_launches()
+                outs[name] = _contiguous_generate(engine, prompts, 32)
+                launches = _serve_launches()
+                ticks = {k: v - ticks0[k]
+                         for k, v in engine.tick_stats.items()}
+                expected = _expected_launches(
+                    engine, engine.paged_stats['prefill_chunks'] - chunks0 +
+                    ticks['prefills'], ticks['decode_steps'])
+                if launches != expected:
+                    fail(f'contiguous parity {name} {quant}: launches '
+                         f'{launches} != {expected}')
+                for key in launched:
+                    launched[key] += launches[key]
+                if name == 'contiguous' and quant is None:
+                    _contiguous_hit_and_verify(engine, prompts,
+                                               outs[name])
+                if not engine.drain(timeout=120):
+                    fail(f'contiguous parity {name}: engine did not drain')
+                del engine
+            label = quant or 'float'
+            if not outs['contiguous'] == outs['paged-xla'] == \
+                    outs['paged-kernel']:
+                diff = [i for i, (a, b, c) in enumerate(zip(
+                    outs['contiguous'], outs['paged-xla'],
+                    outs['paged-kernel'])) if not a == b == c]
+                fail(f'contiguous parity ({label} KV, fp32): tokens differ '
+                     f'across the three engines in requests {diff}')
+            log(f'contiguous parity ({label} KV, fp32, '
+                f'{CONTIGUOUS_PARITY_LAYERS} layers): contiguous = '
+                f'paged-xla = paged-kernel over {len(prompts)} requests x 32 '
+                f'tokens [{smi}]')
+        gen = torch.Generator().manual_seed(4)
+        same = torch.randint(0, cfg.vocab_size, (8, CONTIGUOUS_IE['prompt']),
+                             generator=gen)
+        engine = ContinuousBatchingEngine(cfg, params=dict(params),
+                                          num_slots=8, rng_seed=0,
+                                          device='cuda')
+        want = _contiguous_generate(engine, same.tolist(), 32)
+        engine.drain(timeout=120)
+        del engine
+        ie = InferenceEngine(cfg, params=dict(params), batch_size=8,
+                             decode_chunk=8, device='cuda')
+        got, _ = ie.generate(same, max_new_tokens=32)
+        if got.tolist() != want:
+            fail('contiguous: InferenceEngine tokens differ from the '
+                 'contiguous engine\'s (fp32)')
+        log(f'contiguous: InferenceEngine (batch 8, decode_chunk 8) = the '
+            f'contiguous engine on 8 x {CONTIGUOUS_IE["prompt"]}-token '
+            f'prompts, 32 tokens, fp32 {CONTIGUOUS_PARITY_LAYERS} layers')
+        del ie
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launched
+
+
+def _contiguous_inference_engine(torch, params, smi: str) -> None:
+    """InferenceEngine at llama3-8b's full width and depth: batch 8,
+    prompts of 256 tokens, 64 new, decode_chunk 1 then 8 on one engine
+    (the graphs of each captured by a short first run): tokens equal,
+    TTFT and decode tokens/s each. Then a batch-1 engine: an EOS taken
+    from its own stream truncates chunk 1 and chunk 8 at the column of
+    its first occurrence past the prefill's token."""
+    from skypilot_tpu_torch.models.inference import InferenceEngine
+    spec = CONTIGUOUS_IE
+    gen = torch.Generator().manual_seed(3)
+    t0 = time.monotonic()
+    engine = InferenceEngine('llama3-8b', params=dict(params),
+                             batch_size=spec['batch'], device='cuda')
+    vocab = engine.cfg.vocab_size
+    prompts = torch.randint(0, vocab, (spec['batch'], spec['prompt']),
+                            generator=gen)
+    log(f'contiguous: InferenceEngine llama3-8b batch {spec["batch"]} built '
+        f'in {time.monotonic() - t0:.1f}s')
+    outs = {}
+    for chunk in (1, 8):
+        engine.decode_chunk = chunk
+        engine.generate(prompts, max_new_tokens=chunk + 2)   # captures
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, stats = engine.generate(prompts, max_new_tokens=spec['new'])
+        if tuple(out.shape) != (spec['batch'], spec['new']) or \
+                int(out.max()) >= vocab or int(out.min()) < 0:
+            fail(f'contiguous: InferenceEngine output {tuple(out.shape)}')
+        outs[chunk] = out
+        log(f'contiguous: InferenceEngine decode_chunk {chunk}: TTFT '
+            f'{stats["ttft_s"] * 1e3:.1f} ms ({spec["batch"]} x '
+            f'{spec["prompt"]} tokens), decode '
+            f'{stats["decode_tokens_per_s"] * spec["batch"]:.1f} tokens/s '
+            f'({stats["decode_tokens_per_s"]:.1f} a row), peak memory '
+            f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]')
+    if not torch.equal(outs[1], outs[8]):
+        fail('contiguous: InferenceEngine decode_chunk 1 and 8 differ')
+    del engine
+    one = InferenceEngine('llama3-8b', params=dict(params), batch_size=1,
+                          device='cuda')
+    # Its own stream: a batch of 1 may take other GEMM tiles than 8.
+    stream, _ = one.generate(prompts[:1], max_new_tokens=spec['new'])
+    eos = int(stream[0, spec['eos_col']])
+    cut = next(c for c in range(1, spec['new'])
+               if int(stream[0, c]) == eos) + 1
+    for chunk in (1, 8):
+        one.decode_chunk = chunk
+        got, _ = one.generate(prompts[:1], max_new_tokens=spec['new'],
+                              eos_id=eos)
+        if not torch.equal(got, stream[:, :cut]):
+            fail(f'contiguous: EOS {eos} at decode_chunk {chunk} kept '
+                 f'{got.shape[1]} columns, not the stream\'s first {cut}')
+    log(f'contiguous: EOS {eos} (column {cut - 1} of the stream) truncates '
+        f'decode_chunk 1 and 8 at {cut} columns')
+    del one
+
+
+def _contiguous_compositions(torch, params, smi: str) -> int:
+    """llama3-8b cut to CONTIGUOUS_CUT layers (serve's weights in fp32,
+    TF32 off) behind the HTTP server on the contiguous layout,
+    prefix_cache 4, async depth 1, two resident adapters on all seven
+    targets: serve's bodies spread over the base model and the adapters
+    (kernel 7: layers x (prefills + decode steps) x 4 groups, a verify
+    tick one step), then a speculative K 4 pass (oracle drafts) whose
+    tokens must equal the plain pass's, then the base bodies resent: a
+    prefix hit each, with the cold tokens (the first two passes run with
+    the prefix cache off). Returns kernel 7's launches."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    cfg = dataclasses.replace(get_config('llama3-8b'),
+                              num_layers=CONTIGUOUS_CUT, dtype='float32')
+    cut = {k: v.float() for k, v in params.items()
+           if not k.startswith('layers.') or
+           int(k.split('.')[1]) < CONTIGUOUS_CUT}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    server = InferenceServer(cfg, params=cut, num_slots=8,
+                             paged_block_size=0, prefix_cache=4,
+                             rng_seed=0, async_depth=1, device='cuda',
+                             **CONTIGUOUS_ADAPTERS)
+    del cut
+    engine = server.engine
+    for i, name in enumerate(('a1', 'a2')):
+        engine.load_adapter(name, random_adapter(engine.cfg, 20 + i))
+    server.warmup()
+    http = BackgroundServer(server)
+    launched = 0
+    try:
+        bodies = _serve_bodies(torch, cfg.vocab_size)
+        names = (None, 'a1', 'a2')
+        for i, body in enumerate(bodies):
+            if names[i % 3] is not None:
+                body['adapter'] = names[i % 3]
+        runs = {}
+        prompts = [b['prompt_ids'][0] for b in bodies]
+        engine.prefix_cache = 0
+        for label, spec in (('plain', 0), ('speculative K 4', 4)):
+            engine.speculative = spec
+            # The verify graph's capture runs its body once: outside the
+            # counted pass.
+            engine.capture_graphs()
+            if spec:
+                engine._draft_tokens = _oracle_drafts(  # pylint: disable=protected-access
+                    prompts, runs['plain']['tokens'])
+            try:
+                run = _serve_traffic(torch, engine, http.url, bodies)
+            finally:
+                if spec:
+                    del engine._draft_tokens  # pylint: disable=protected-access
+            runs[label] = run
+            launched += run['launches']['fused_multi_lora']
+            log(f'contiguous compositions ({CONTIGUOUS_CUT} layers, fp32, 2 '
+                f'adapters) {label}: prefills '
+                f'{run["chunks"]}, decode steps {run["ticks"]["decode_steps"]}'
+                f'; launches {run["launches"]}, expected {run["expected"]}; '
+                f'TTFT p50 {run["ttft_ms"]:.1f} ms [{smi}]')
+            if run['launches'] != run['expected'] or \
+                    not run['launches']['fused_multi_lora']:
+                fail(f'contiguous compositions {label}: launches '
+                     f'{run["launches"]} != {run["expected"]}')
+        engine.speculative = 0
+        if not engine.spec_stats['ticks']:
+            fail('contiguous: no verify tick ran')
+
+        def firsts(got, want):
+            return [next((c for c, (a, b) in enumerate(zip(x, y))
+                          if a != b), None) for x, y in zip(got, want)]
+
+        spec_firsts = firsts(runs['speculative K 4']['tokens'],
+                             runs['plain']['tokens'])
+        if any(c is not None for c in spec_firsts):
+            fail(f'contiguous compositions (fp32): speculative K 4 tokens '
+                 f'differ from plain decode\'s, first differing column per '
+                 f'request {spec_firsts}')
+        # Publish the base prompts, then resend them.
+        engine.prefix_cache = 4
+        base = [i for i in range(len(bodies)) if 'adapter' not in bodies[i]]
+        first = _serve_traffic(torch, engine, http.url,
+                               [bodies[i] for i in base])
+        launched += first['launches']['fused_multi_lora']
+        if first['launches'] != first['expected']:
+            fail(f'contiguous prefix publish pass: launches '
+                 f'{first["launches"]} != {first["expected"]}')
+        hits0 = engine.prefix_stats['hits']
+        again = _serve_traffic(torch, engine, http.url,
+                               [bodies[i] for i in base])
+        launched += again['launches']['fused_multi_lora']
+        if again['launches'] != again['expected']:
+            fail(f'contiguous prefix pass: launches {again["launches"]} != '
+                 f'{again["expected"]}')
+        if engine.prefix_stats['hits'] - hits0 != len(base):
+            fail(f'contiguous prefix pass: hits '
+                 f'{engine.prefix_stats["hits"] - hits0} of {len(base)}')
+        hit_firsts = firsts(again['tokens'], first['tokens'])
+        if any(c is not None for c in hit_firsts):
+            fail(f'contiguous compositions (fp32): a prefix hit\'s tokens '
+                 f'differ from the cold ones, first differing column per '
+                 f'request {hit_firsts}')
+        log(f'contiguous compositions (fp32): speculative K 4 = plain over '
+            f'{len(bodies)} requests, adapters included ({engine.spec_stats});'
+            f' {len(base)} resent base prompts, each a prefix hit with the '
+            f'cold tokens; TTFT p50 {again["ttft_ms"]:.1f} ms hot against '
+            f'{first["ttft_ms"]:.1f} ms cold [{smi}]')
+    finally:
+        http.close()
+        server.draining = True
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not engine.drain(timeout=120):
+        fail('contiguous compositions: engine did not drain')
+    return launched
+
+
+def phase_contiguous(torch, smi: str, params=None,
+                     serve_tokens=None) -> dict:
+    """The reference's default serving path, the contiguous layout, on
+    llama3-8b at full width and depth (serve's weights, made here when
+    the serve phase did not run): the HTTP server with
+    --paged-block-size 0 (8 slots, decode graphs captured) at async depth
+    0 then 1, the step breakdown, InferenceEngine, the fp32 layout parity
+    and the compositions. Returns the kernels' launches of the phase."""
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    if params is None:
+        from skypilot_tpu_torch.models.configs import get_config
+        from skypilot_tpu_torch.models.transformer import Transformer
+        model = Transformer(dataclasses.replace(
+            get_config('llama3-8b'), decode=True, remat=False),
+            device='cuda')
+        model.init_random_(0)
+        params = dict(model.state_dict())
+        del model
+    t_phase = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    server = InferenceServer('llama3-8b', params=dict(params), num_slots=8,
+                             paged_block_size=0, rng_seed=0, async_depth=0,
+                             device='cuda')
+    engine = server.engine
+    footprint = engine.memory_footprint()
+    if engine.decode_kernel != 'xla' or engine._dec.tables is not None or \
+            footprint['kv_bytes'] != CONTIGUOUS_KV_BYTES:  # pylint: disable=protected-access
+        fail(f'contiguous: engine on {engine.decode_kernel}, footprint '
+             f'{footprint}')
+    server.warmup()
+    log(f'contiguous: llama3-8b server (--paged-block-size 0) over the '
+        f'serve weights, warm in {time.monotonic() - t0:.1f}s, graphs '
+        f'{engine._steps.keys}; memory_footprint {footprint}')  # pylint: disable=protected-access
+    http = BackgroundServer(server)
+    runs = {}
+    try:
+        bodies = _serve_bodies(torch, engine.cfg.vocab_size)
+        for depth in (0, 1):
+            engine.async_depth = depth
+            run = _serve_traffic(torch, engine, http.url, bodies)
+            t = run['ticks']
+            log(f'contiguous: async_depth {depth}: {len(bodies)} requests '
+                f'ok in {run["wall"]:.2f}s; prefills {run["chunks"]}, decode '
+                f'steps {t["decode_steps"]} in {t["dispatches"]} dispatches '
+                f'({t["chained"]} chained, {t["flushes"]} flushes); '
+                f'launches {run["launches"]}, expected {run["expected"]}; '
+                f'TTFT p50 {run["ttft_ms"]:.1f} ms, decode '
+                f'{run["tokens_per_s"]:.1f} tokens/s over 8 slots, KV bytes '
+                f'{footprint["kv_bytes"]}, peak memory '
+                f'{run["peak_gib"]:.2f} GiB [{smi}]')
+            if run['launches'] != run['expected'] or \
+                    run['launches']['paged_decode_attention']:
+                fail(f'contiguous: launches {run["launches"]} != '
+                     f'{run["expected"]}')
+            runs[depth] = run
+        if runs[1]['tokens'] != runs[0]['tokens']:
+            fail('contiguous: greedy tokens at async_depth 1 differ from 0')
+        if not runs[1]['ticks']['chained']:
+            fail('contiguous: no dispatch chained at async_depth 1')
+        _contiguous_long_admission(torch, engine, smi)
+    finally:
+        http.close()
+        server.draining = True
+    if not engine.drain(timeout=120):
+        fail('contiguous: engine did not drain')
+    timings = _contiguous_breakdown(torch, engine, smi)
+    if serve_tokens is not None:
+        # Informational: bf16 at full depth, where cuBLAS may tile a
+        # bucket otherwise than a chunk.
+        firsts = [next((c for c, (a, b) in enumerate(zip(x, y)) if a != b),
+                       None) for x, y in zip(runs[0]['tokens'], serve_tokens)]
+        log(f'contiguous vs serve (paged kernel, bf16, 32 layers): first '
+            f'differing token per request {firsts} (None: equal)')
+    del server, engine, http
+    gc.collect()
+    torch.cuda.empty_cache()
+    _contiguous_inference_engine(torch, params, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = _contiguous_parity(torch, smi, bodies)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_err = _contiguous_lora_buckets(torch, 8192)
+    launched['fused_multi_lora'] = _contiguous_compositions(torch, params,
+                                                            smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'contiguous: phase {time.monotonic() - t_phase:.1f}s, peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+        f'{launched} [{smi}]')
+    return dict(launched, timings=timings, lora_max_abs_err=lora_err)
+
 
 SCHED_NEW = 128            # new tokens a request in the spec and timed passes
 SCHED_KS = (4, 8)          # draft counts: (K+1) x n_rep 4 rows, decode route
@@ -5803,9 +6451,9 @@ def phase_kv_handoff(torch, smi: str) -> dict:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'serve', 'resilience', 'serve_prefix', 'serve_tenant',
-          'serve_sched', 'graph_parity', 'families', 'serve_hf',
-          'serve_int8w', 'finetune', 'moe', 'kv_handoff')
+          'train_sp', 'serve', 'resilience', 'contiguous', 'serve_prefix',
+          'serve_tenant', 'serve_sched', 'graph_parity', 'families',
+          'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -5883,9 +6531,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     bf16_pool_bytes = serve_timings = serve_params = resilience = None
+    serve_tokens = contiguous = None
     if 'serve' in phases:
-        launches, bf16_pool_bytes, serve_timings, serve_params = phase_serve(
-            torch, smi)
+        (launches, bf16_pool_bytes, serve_timings, serve_params,
+         serve_tokens) = phase_serve(torch, smi)
         if paged is not None:
             kernels.append({
                 'name': 'paged_decode_attention', 'route': 'cuda',
@@ -5896,6 +6545,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 'resilience' in phases:
         resilience = phase_resilience(torch, smi, serve_params)
+    if 'contiguous' in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        contiguous = phase_contiguous(torch, smi, serve_params, serve_tokens)
     serve_params = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -5991,6 +6644,21 @@ def main(argv=None) -> int:
             elif entry['name'].startswith('paged_prefill_kernel<int8_t>'):
                 entry['kv_handoff_launches'] = launched[
                     'paged_decode_attention_int8']
+    if contiguous is not None:
+        # The contiguous phase's launches: kernels 1 and 2 in its paged
+        # comparison engines, kernel 7 on the contiguous layout.
+        for entry in kernels:
+            if entry['name'] == 'paged_decode_attention':
+                entry['contiguous_launches'] = contiguous[
+                    'paged_decode_attention']
+            elif entry['name'].startswith('paged_prefill_kernel<int8_t>'):
+                entry['contiguous_launches'] = contiguous[
+                    'paged_decode_attention_int8']
+            elif entry['name'] == 'fused_multi_lora':
+                entry['contiguous_launches'] = contiguous['fused_multi_lora']
+                # Kernel 7 at every contiguous prefill bucket.
+                entry['max_abs_err'] = max(entry['max_abs_err'],
+                                           contiguous['lora_max_abs_err'])
     if resilience is not None:
         # The launches of the resilience phase's passes after a recovery.
         for entry in kernels:

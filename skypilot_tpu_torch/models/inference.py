@@ -1,7 +1,9 @@
-"""Continuous-batching inference engine over the paged KV pool (PyTorch).
+"""Inference engines (PyTorch): continuous batching over the paged KV pool
+or the contiguous slot cache, and the single-request InferenceEngine.
 
 Port of skypilot_tpu/models/inference.py for the serving main path: the
-paged `ContinuousBatchingEngine` (the reference's tp=1) with its async
+`ContinuousBatchingEngine` (the reference's tp=1) on both KV layouts
+with its async
 decode pipeline (`async_depth`, `decode_chunk`, the device-resident
 feed), its prompt-lookup speculative decoding (`speculative`), its paged
 prefix cache, its SLO tiers with batch-slot preemption and its KV
@@ -11,6 +13,20 @@ each tick advances every mid-prefill slot by one fixed-size chunk, then
 decodes all slots in one batched dispatch of k in {1, decode_chunk}
 steps. Every attention call runs through the paged kernel
 (ops/paged_attention), one launch per layer.
+
+Contiguous layout (`paged_block_size=0`, the reference's default): each
+slot owns one max_seq_len row of a (num_layers, num_slots, max_seq_len,
+KV, D) cache. Admission prefills the whole context at once, right-padded
+to a bucket (16, doubling), through a batch-1 cache, then copies it into
+the slot's row in place (`_admit_contiguous`, `_insert`); the prefix
+cache keeps whole batch-1 caches. Attention runs on the plain route
+(`attend_window`), as the reference's XLA attention does: there is no
+kernel without block tables. The decode and verify steps are the same
+graphs over the slot cache.
+
+`InferenceEngine` is the reference's single-request engine: a fixed
+batch of prompts through a contiguous cache, K decode steps a dispatch;
+`get_engine` caches them per process.
 
 Each dispatch and each prefill chunk is a fixed-shape step over static
 device buffers (models/step_graph): on the card a replay of a captured
@@ -88,6 +104,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import itertools
 import logging
 import os
@@ -421,6 +438,60 @@ def _resolve_decode_kernel(decode_kernel: str, cfg: ModelConfig) -> str:
     return decode_kernel
 
 
+def _build_model(cfg: ModelConfig, params, rng_seed: int,
+                 quantize: Optional[str], device: torch.device) -> tuple:
+    """(cfg, the served model): `params` (a float state dict, or an int8
+    one for an int8 cfg) or seeded random float weights; with
+    quantize='int8' the float weights are placed first, then each
+    projection is quantized on the device (models/quantize.py) and the
+    model rebuilt on the int8 state under the int8 cfg returned, as the
+    reference quantizes after `_resolve_cfg_and_params` made its float
+    tree."""
+    if not quantize:
+        model = Transformer(cfg, device=device)
+        if params is None:
+            logger.info('Initializing random weights for %s', cfg.name)
+            model.init_random_(rng_seed)
+        else:
+            model.load_state_dict(params, strict=True, assign=True)
+        return cfg, model
+    int8_cfg = quantize_lib.int8_config(cfg)
+    if params is None:
+        logger.info('Initializing random weights for %s', cfg.name)
+        float_model = Transformer(cfg, device=device)
+        params = float_model.init_random_(rng_seed).state_dict()
+        del float_model
+    else:
+        # Taken out of the caller's dict (the server's loaded weights),
+        # so quantize_state's pops free each float tensor.
+        params = {k: params.pop(k).to(device) for k in list(params)}
+    state = quantize_lib.quantize_state(params, int8_cfg)
+    model = Transformer(int8_cfg, device=device)
+    model.load_state_dict(state, strict=True, assign=True)
+    logger.info('Quantized %s weights to int8 for serving', cfg.name)
+    return int8_cfg, model
+
+
+def _resolve_cfg(cfg: 'ModelConfig | str', max_seq_len: Optional[int],
+                 quantize: Optional[str],
+                 kv_quant: Optional[str]) -> ModelConfig:
+    """The shared bring-up of both engines' config: the knobs checked, a
+    name looked up, the serving (decode) config with the engine's
+    max_seq_len and KV quantization."""
+    if quantize not in (None, 'int8'):
+        raise ValueError(f'unknown quantize mode {quantize!r}; '
+                         f"supported: 'int8'")
+    if kv_quant not in (None, '', 'int8'):
+        raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
+                         f"supported: 'int8'")
+    if isinstance(cfg, str):
+        cfg = get_config(cfg)
+    if max_seq_len is not None:
+        cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
+    return dataclasses.replace(cfg, decode=True, remat=False,
+                               kv_cache_quant=kv_quant or '')
+
+
 ENGINE_TIERS = ('monolithic', 'prefill', 'decode')
 
 # Pool leaf dtypes as the artifact and the chunk stream name them (numpy's
@@ -570,7 +641,12 @@ class _Inflight:
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over a paged KV pool.
+    """Slot-based continuous batching over a paged KV pool
+    (paged_block_size > 0) or a contiguous per-slot cache (0, the
+    reference's default: no chunked prefill, no blocks, the prefix cache
+    holding batch-1 caches; attention on the plain route).
+    decode_kernel defaults to 'pallas' on the paged layout and 'xla' on
+    the contiguous one, which refuses 'pallas'.
 
     The decode batch is `num_slots` persistent slots over one shared
     block pool; a scheduler thread admits queued prompts into free slots
@@ -647,7 +723,7 @@ class ContinuousBatchingEngine:
                  paged_block_size: int = 0,
                  paged_num_blocks: Optional[int] = None,
                  prefill_chunk: int = 0,
-                 decode_kernel: str = 'pallas',
+                 decode_kernel: Optional[str] = None,
                  kv_quant: Optional[str] = None,
                  max_adapters: int = 0,
                  adapter_rank: int = 0,
@@ -679,14 +755,7 @@ class ContinuousBatchingEngine:
                 f'tier={tier!r} requires paged_block_size and '
                 f'prefix_cache (KV streams are block-granular and land '
                 f'in the prefix index)')
-        if quantize not in (None, 'int8'):
-            raise ValueError(f'unknown quantize mode {quantize!r}; '
-                             f"supported: 'int8'")
-        if kv_quant not in (None, '', 'int8'):
-            raise ValueError(f'unknown kv_quant mode {kv_quant!r}; '
-                             f"supported: 'int8'")
-        if isinstance(cfg, str):
-            cfg = get_config(cfg)
+        cfg = _resolve_cfg(cfg, max_seq_len, quantize, kv_quant)
         # -------- multi-LoRA serving --------
         self.max_adapters = max(0, max_adapters)
         if self.max_adapters:
@@ -700,10 +769,6 @@ class ContinuousBatchingEngine:
                 lora_alpha=adapter_alpha,
                 lora_targets=adapter_targets or cfg.lora_targets)
         self.device = resolve_device(device)
-        if max_seq_len is not None:
-            cfg = dataclasses.replace(cfg, max_seq_len=max_seq_len)
-        cfg = dataclasses.replace(cfg, decode=True, remat=False,
-                                  kv_cache_quant=kv_quant or '')
         if quantize:
             # Refuse what int8 weights do not serve (MoE, adapters) before
             # a float weight is made.
@@ -724,33 +789,44 @@ class ContinuousBatchingEngine:
         self.prewarm_stats = {'hits': 0, 'export_blocks': 0,
                               'prewarm_blocks': 0}
         self._prewarmed_keys: set = set()
-        # -------- paged KV cache --------
+        # -------- KV layout --------
+        # paged_block_size > 0: the shared block pool; 0: the reference's
+        # default, one contiguous max_seq_len row a slot.
         self.paged_block_size = max(0, paged_block_size)
-        if not self.paged_block_size:
-            raise NotImplementedError(
-                'the PyTorch engine serves the paged KV layout only: pass '
-                'paged_block_size > 0 (the contiguous layout is not '
-                'ported yet)')
-        if cfg.max_seq_len % self.paged_block_size:
-            raise ValueError(
-                f'max_seq_len {cfg.max_seq_len} not divisible '
-                f'by paged_block_size {self.paged_block_size}')
+        # By default 'pallas' (the paged kernel) on the paged layout and
+        # 'xla' on the contiguous one, its only route (the reference's
+        # default there).
         self.decode_kernel = _resolve_decode_kernel(
-            decode_kernel, dataclasses.replace(
-                cfg, paged_block_size=self.paged_block_size))
-        if self.device.type == 'cuda' and self.decode_kernel != 'xla':
-            # Every paged step goes through the kernel on the card.
-            limits.check_kernel_shapes(cfg.head_dim, self.paged_block_size)
-        self._blocks_per_seq = cfg.max_seq_len // self.paged_block_size
-        # Default pool: every slot can reach max_seq_len, plus full
-        # headroom for the prefix LRU, plus the scratch block.
-        nb = paged_num_blocks or (
-            (num_slots + self.prefix_cache) * self._blocks_per_seq + 1)
-        self.cfg = dataclasses.replace(
-            cfg, paged_block_size=self.paged_block_size,
-            paged_num_blocks=nb)
-        self._pool = kv_cache_lib.BlockPool(nb, self.paged_block_size)
-        self.prefill_chunk = max(1, prefill_chunk or self.paged_block_size)
+            decode_kernel or ('pallas' if self.paged_block_size else 'xla'),
+            dataclasses.replace(cfg, paged_block_size=self.paged_block_size))
+        if self.paged_block_size:
+            if cfg.max_seq_len % self.paged_block_size:
+                raise ValueError(
+                    f'max_seq_len {cfg.max_seq_len} not divisible '
+                    f'by paged_block_size {self.paged_block_size}')
+            if self.device.type == 'cuda' and self.decode_kernel != 'xla':
+                # Every paged step goes through the kernel on the card.
+                limits.check_kernel_shapes(cfg.head_dim,
+                                           self.paged_block_size)
+            self._blocks_per_seq = cfg.max_seq_len // self.paged_block_size
+            # Default pool: every slot can reach max_seq_len, plus full
+            # headroom for the prefix LRU, plus the scratch block.
+            nb = paged_num_blocks or (
+                (num_slots + self.prefix_cache) * self._blocks_per_seq + 1)
+            self.cfg = dataclasses.replace(
+                cfg, paged_block_size=self.paged_block_size,
+                paged_num_blocks=nb)
+            self._pool = kv_cache_lib.BlockPool(nb, self.paged_block_size)
+            self.prefill_chunk = max(1, prefill_chunk or
+                                     self.paged_block_size)
+        else:
+            nb = 0
+            self._blocks_per_seq = 0
+            self.cfg = dataclasses.replace(cfg, paged_block_size=0,
+                                           paged_num_blocks=0)
+            self._pool = None
+            # A contiguous admission prefills its whole context at once.
+            self.prefill_chunk = 0
         self.paged_stats = {'cow_copies': 0, 'blocks_reused': 0,
                             'prefill_chunks': 0, 'prefix_evictions': 0,
                             'spec_trimmed_blocks': 0}
@@ -771,16 +847,22 @@ class ContinuousBatchingEngine:
                              'chunks_ok': 0, 'chunks_duplicate': 0,
                              'chunks_rejected': 0, 'chunks_shed': 0,
                              'blocks_ingested': 0}
-        _PAGED_CAPACITY.set(nb)
+        if nb:
+            _PAGED_CAPACITY.set(nb)
         self.cfg = dataclasses.replace(self.cfg,
                                        decode_kernel=self.decode_kernel)
-        self.model = self._build_model(params, rng_seed, quantize)
-        # (K, V) pools, plus (K scale, V scale) pools under int8 KV.
-        pools = self.model.new_kv_pool(nb)
+        self.cfg, self.model = _build_model(self.cfg, params, rng_seed,
+                                            quantize, self.device)
+        # The KV store: (K, V) pools, or on the contiguous layout the
+        # (L, num_slots, S, KV, D) slot cache, plus their int8 scales
+        # under int8 KV. Written in place: the step graphs hold their
+        # addresses.
+        pools = (self.model.new_kv_pool(nb) if nb
+                 else self.model.new_kv_cache(num_slots))
         self._k_pool, self._v_pool = pools[:2]
         self._k_scale, self._v_scale = pools[2:] or (None, None)
         self.paged_int8_bytes_saved = 0
-        if kv_quant:
+        if kv_quant and nb:
             self.paged_int8_bytes_saved = kv_cache_lib.int8_pool_bytes_saved(
                 nb, self.paged_block_size, cfg.num_kv_heads, cfg.head_dim,
                 cfg.num_layers, getattr(torch, cfg.dtype).itemsize)
@@ -807,14 +889,18 @@ class ContinuousBatchingEngine:
         # Static step buffers and their graphs. Each dispatch's columns
         # land in a pinned buffer of their own: at most async_depth + 1
         # are unread at a time.
-        width = self._blocks_per_seq + 1
+        # Block-table width (0: the contiguous layout has no tables).
+        width = self._blocks_per_seq + 1 if nb else 0
         self._steps = step_graph.StepGraphs(self.device, self._gen)
         self._steps.on_capture = self._note_slow_tick
         self._dec = step_graph.DecodeBuffers(
             num_slots, width, bool(self.max_adapters), self.device,
             ring=self.async_depth + 2)
-        self._pf = step_graph.PrefillBuffers(
+        # Paged prefill chunks replay a graph over these; a contiguous
+        # prefill runs eagerly at its bucket's length.
+        self._pf = (step_graph.PrefillBuffers(
             self.prefill_chunk, width, bool(self.max_adapters), self.device)
+            if nb else None)
         self._first_host = step_graph.HostRing((1,), torch.int32,
                                                self.device, num_slots)
         # Verify buffers per draft count K, made at first use.
@@ -830,9 +916,11 @@ class ContinuousBatchingEngine:
         # Monotonic stamp of the last consumed dispatch; None after idle
         # and admission ticks, so host gaps sample steady decode only.
         self._last_ready: Optional[float] = None
+        # 'prefills' counts contiguous prefills (one an admission; paged
+        # chunks count in paged_stats['prefill_chunks']).
         self.tick_stats = {'dispatches': 0, 'decode_steps': 0, 'chained': 0,
                            'flushes': 0, 'host_gap_s': 0.0,
-                           'gap_samples': 0}
+                           'gap_samples': 0, 'prefills': 0}
         # Tier-ordered admission queue: FIFO while every request is
         # 'standard'.
         self._queue: tenancy.TierQueue = tenancy.TierQueue()
@@ -894,41 +982,6 @@ class ContinuousBatchingEngine:
         # server's /health tier_load shows from then on).
         self.tiers_active = False
 
-    def _build_model(self, params, rng_seed: int,
-                     quantize: Optional[str]) -> Transformer:
-        """The served model: `params` (a float state dict, or an int8 one
-        for an int8 cfg) or seeded random float weights; with
-        quantize='int8' the float weights are placed first, then each
-        projection is quantized on the device (models/quantize.py) and
-        the model rebuilt on the int8 state, as the reference quantizes
-        after `_resolve_cfg_and_params` made its float tree."""
-        if not quantize:
-            model = Transformer(self.cfg, device=self.device)
-            if params is None:
-                logger.info('Initializing random weights for %s',
-                            self.cfg.name)
-                model.init_random_(rng_seed)
-            else:
-                model.load_state_dict(params, strict=True, assign=True)
-            return model
-        int8_cfg = quantize_lib.int8_config(self.cfg)
-        if params is None:
-            logger.info('Initializing random weights for %s', self.cfg.name)
-            float_model = Transformer(self.cfg, device=self.device)
-            params = float_model.init_random_(rng_seed).state_dict()
-            del float_model
-        else:
-            # Taken out of the caller's dict (the server's loaded
-            # weights), so quantize_state's pops free each float tensor.
-            params = {k: params.pop(k).to(self.device) for k in list(params)}
-        state = quantize_lib.quantize_state(params, int8_cfg)
-        self.cfg = int8_cfg
-        model = Transformer(int8_cfg, device=self.device)
-        model.load_state_dict(state, strict=True, assign=True)
-        logger.info('Quantized %s weights to int8 for serving',
-                    self.cfg.name)
-        return model
-
     # ---------------- device steps ----------------
 
     def _forward(self, tokens, positions, tables, aids,
@@ -937,6 +990,59 @@ class ContinuousBatchingEngine:
                           self._v_pool, logits_at=logits_at,
                           k_scale=self._k_scale, v_scale=self._v_scale,
                           adapter_ids=aids)
+
+    @staticmethod
+    def _tables_dev(bufs) -> Optional[torch.Tensor]:
+        """A step's block tables on the device (None on the contiguous
+        layout)."""
+        return bufs.tables.dev if bufs.tables is not None else None
+
+    # ---------------- the contiguous layout ----------------
+    #
+    # The reference's bucketed batch-1 prefill: a prompt (or, on a prefix
+    # hit, its suffix) right-padded to its bucket runs through a batch-1
+    # cache, fresh and zeroed (or a copy of the cached prefix's), and the
+    # result is copied into the slot's row of the slot cache IN PLACE
+    # (`_insert`): the decode and verify graphs hold the slot cache's
+    # address. The prefill runs eagerly: its shape is the bucket's, and a
+    # graph per bucket would keep each bucket's temporaries (an fp32
+    # score tensor of bucket x max_seq_len a head) for the engine's life.
+
+    def _bucket(self, length: int) -> int:
+        """The reference's prefill bucket: 16, doubling, capped at
+        max_seq_len."""
+        bucket = 16
+        while bucket < length:
+            bucket *= 2
+        return min(bucket, self.cfg.max_seq_len)
+
+    def _prefill_contiguous(self, cache1, tokens, start: int,
+                            true_len: int, aids) -> torch.Tensor:
+        """The reference's `_prefill_impl` (start 0, cache1 fresh) and
+        `_prefill_continue_impl` (cache1 holding the prefix's KV for
+        positions [0, start)): the (1, bucket) right-padded tokens at
+        positions [start, start + bucket) through the batch-1 caches
+        `cache1` (written in place); returns the (vocab,) logits of
+        token true_len - 1 of the chunk."""
+        positions = start + torch.arange(tokens.shape[1], dtype=torch.int32,
+                                         device=self.device)[None, :]
+        scales = cache1[2:] or (None, None)
+        logits = self.model(tokens, positions, None, cache1[0], cache1[1],
+                            logits_at=true_len - 1, k_scale=scales[0],
+                            v_scale=scales[1], adapter_ids=aids)
+        return logits[0]
+
+    def _insert(self, slot: int, cache1) -> None:
+        """The reference's `_insert_impl`: copy a batch-1 cache into row
+        `slot` of the slot cache, every layer of every leaf, in place."""
+        for full, one in zip(self._kv_leaves(), cache1):
+            full[:, slot].copy_(one[:, 0])
+
+    def _kv_leaves(self) -> list:
+        """The KV store's tensors: K, V and, under int8 KV, their
+        scales."""
+        return [t for t in (self._k_pool, self._v_pool, self._k_scale,
+                            self._v_scale) if t is not None]
 
     def _prefill_chunk_impl(self, tokens: torch.Tensor,
                             tables: torch.Tensor, start, logits_at,
@@ -982,13 +1088,15 @@ class ContinuousBatchingEngine:
         reference's in-graph feed), so a chained dispatch reads the
         previous one's output with no upload. Inert rows ride along with
         advancing positions: their writes land in the scratch block and
-        their outputs are never read."""
+        their outputs are never read (contiguous: their writes land in
+        their own row, clamped to its window and overwritten whole by the
+        next `_insert`)."""
         d = self._dec
         out = d.out[k]
         aids = d.aids.dev if d.aids is not None else None
         for j in range(k):
             tokens = self._decode_impl(d.tokens, d.positions, d.temps.dev,
-                                       d.tables.dev, sampling, aids)
+                                       self._tables_dev(d), sampling, aids)
             out[:, j].copy_(tokens)
             d.tokens.copy_(tokens[:, None])
             d.positions.add_(1)
@@ -1051,8 +1159,8 @@ class ContinuousBatchingEngine:
         buffers of K = k, its results into their one output."""
         v = self._ver[k]
         out, accepted = self._verify_impl(
-            v.tokens, v.positions, v.temps.dev, v.tables.dev, sampling,
-            v.aids.dev if v.aids is not None else None)
+            v.tokens, v.positions, v.temps.dev, self._tables_dev(v),
+            sampling, v.aids.dev if v.aids is not None else None)
         v.out.copy_(out)
         v.accepted.copy_(accepted)
 
@@ -1060,7 +1168,8 @@ class ContinuousBatchingEngine:
         """K's verify buffers, made outside any capture at first use."""
         if k not in self._ver:
             self._ver[k] = step_graph.VerifyBuffers(
-                self.num_slots, k + 1, self._blocks_per_seq + 1,
+                self.num_slots, k + 1, self._blocks_per_seq + 1
+                if self.paged_block_size else 0,
                 bool(self.max_adapters), self.device, ring=2)
         return self._ver[k]
 
@@ -1089,11 +1198,13 @@ class ContinuousBatchingEngine:
     def capture_graphs(self, timeout: float = 600.0) -> list:
         """Run, in the engine thread and over inert inputs (all-scratch
         tables, position 0), the steps every greedy request takes: the
-        prefill chunk, the decode dispatch of k = 1 and decode_chunk, and
-        with speculative = K the verify of K. On the card this captures
-        their graphs (sampling graphs, and a K set later, are captured at
-        first use). Needs an idle engine; returns the keys captured so
-        far."""
+        prefill chunk (paged only: a contiguous prefill runs eagerly), the
+        decode dispatch of k = 1 and decode_chunk, and with speculative =
+        K the verify of K. On the card this captures their graphs
+        (sampling graphs, and a K set later, are captured at first use).
+        Inert contiguous rows write into their own rows of an idle
+        engine, which admissions overwrite whole. Needs an idle engine;
+        returns the keys captured so far."""
 
         def capture():
             if self._busy() or self._ring:
@@ -1104,19 +1215,23 @@ class ContinuousBatchingEngine:
                 self._forget_inputs()
                 d = self._dec
                 d.feed.put(np.zeros(d.feed.dev.shape, np.int32))
-                d.tables.put(np.zeros(d.tables.dev.shape, np.int32))
+                if d.tables is not None:
+                    d.tables.put(np.zeros(d.tables.dev.shape, np.int32))
                 d.temps.put(np.zeros(self.num_slots, np.float32))
                 if d.aids is not None:
                     d.aids.put(np.zeros(self.num_slots, np.int32))
-                self._pf.ints.put(np.zeros(self._pf.ints.dev.shape,
-                                           np.int32))
-                self._run_prefill(False)
+                if self._pf is not None:
+                    self._pf.ints.put(np.zeros(self._pf.ints.dev.shape,
+                                               np.int32))
+                    self._run_prefill(False)
                 landings = [self._run_decode(k, False)
                             for k in sorted({1, self.decode_chunk})]
                 if self.speculative:
                     v = self._verify_buffers(self.speculative)
                     v.feed.put(np.zeros(v.feed.dev.shape, np.int32))
-                    v.tables.put(np.zeros(v.tables.dev.shape, np.int32))
+                    if v.tables is not None:
+                        v.tables.put(np.zeros(v.tables.dev.shape,
+                                              np.int32))
                     v.sigs.clear()
                     landings.append(self._run_verify(self.speculative,
                                                      False))
@@ -1144,9 +1259,11 @@ class ContinuousBatchingEngine:
 
     def _new_prefix_index(self) -> kv_cache_lib.PrefixIndex:
         """Prefix LRU chunked at the block size, so a hit maps directly
-        onto whole shareable blocks."""
-        return kv_cache_lib.PrefixIndex(capacity=max(1, self.prefix_cache),
-                                        chunk=self.paged_block_size)
+        onto whole shareable blocks; at _MIN_PREFIX on the contiguous
+        layout, whose entries hold whole batch-1 caches."""
+        return kv_cache_lib.PrefixIndex(
+            capacity=max(1, self.prefix_cache),
+            chunk=self.paged_block_size or self._MIN_PREFIX)
 
     def _longest_cached_prefix(self, ids: list):
         """(prefix_len, blocks) of the best cached entry that is a prefix
@@ -1232,7 +1349,10 @@ class ContinuousBatchingEngine:
 
     def paged_occupancy(self) -> dict:
         """Pool accounting snapshot: blocks used (scratch included) and
-        their peak, prefix entries, and `paged_stats`."""
+        their peak, prefix entries, and `paged_stats`; {} on the
+        contiguous layout."""
+        if not self.paged_block_size:
+            return {}
         return {
             'block_size': self.paged_block_size,
             'blocks_capacity': self._pool.num_blocks,
@@ -1260,12 +1380,13 @@ class ContinuousBatchingEngine:
         whose value signature changed; returns whether any row samples."""
         rows = range(self.num_slots)
         sigs = bufs.sigs
-        sig = tuple(tuple(slots[i].blocks) if i in active_set else None
-                    for i in rows)
-        if sig != sigs.get('tables'):
-            bufs.tables.put(self._table_rows(
-                [slots[i] if i in active_set else None for i in rows]))
-            sigs['tables'] = sig
+        if bufs.tables is not None:
+            sig = tuple(tuple(slots[i].blocks) if i in active_set else None
+                        for i in rows)
+            if sig != sigs.get('tables'):
+                bufs.tables.put(self._table_rows(
+                    [slots[i] if i in active_set else None for i in rows]))
+                sigs['tables'] = sig
         temps = tuple(slots[i].temperature if i in active_set else 0.0
                       for i in rows)
         if temps != sigs.get('temps'):
@@ -1296,22 +1417,103 @@ class ContinuousBatchingEngine:
     # ---------------- scheduling ----------------
 
     def _admit(self, slot: int, req: _Request, gen: int = -1) -> None:
+        """Admit `req` into `slot` (`_admit_paged` or
+        `_admit_contiguous`). `gen` >= 0: the engine thread's generation,
+        checked before the admission touches anything and committed with
+        the slot (a negative gen, a direct call, checks nothing)."""
+        req.admit_mono = time_lib.monotonic()
+        self._trace_admitted(req)
+        if gen >= 0:
+            # A watchdog-abandoned thread must not incref, allocate or
+            # prefill in its successor's world.
+            self._check_gen(gen)
+        if self.paged_block_size:
+            self._admit_paged(slot, req, gen)
+        else:
+            self._admit_contiguous(slot, req, gen)
+
+    def _commit_slot(self, slot: int, req: _Request, gen: int) -> None:
+        slots = self._slots
+
+        def commit():
+            slots[slot] = req
+
+        if gen >= 0:
+            self._commit_gen(gen, commit)
+        else:
+            commit()
+
+    def _admit_contiguous(self, slot: int, req: _Request, gen: int) -> None:
+        """The reference's contiguous admission: prefill the context (the
+        prompt, or a preempted request's prompt and tokens) at once,
+        bucketed, from the longest cached prefix when one of at least
+        _MIN_PREFIX tokens leaves room for the suffix's bucket; publish
+        the batch-1 cache as the context's prefix entry; copy it into
+        the slot's row; sample and emit the first token. Adapter
+        requests neither look up nor publish: cached KV depends on the
+        adapter."""
+        context = req.context
+        true_len = len(context)
+        use_prefix = self.prefix_cache and req.adapter_slot == 0
+        plen, entry = (self._longest_cached_prefix(context)
+                       if use_prefix else (0, None))
+        hit = (plen >= self._MIN_PREFIX and plen + self._bucket(
+            true_len - plen) <= self.cfg.max_seq_len)
+        if not hit:
+            plen = 0
+        bucket = self._bucket(true_len - plen)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :true_len - plen] = context[plen:]
+        sampling = req.temperature > 0
+        with self._device(gen):
+            tokens = torch.from_numpy(padded).to(self.device)
+            aids = (torch.tensor([req.adapter_slot], dtype=torch.int32,
+                                 device=self.device)
+                    if self.max_adapters else None)
+            cache1 = ([t.clone() for t in entry] if hit
+                      else list(self.model.new_kv_cache(1)))
+            logits = self._prefill_contiguous(cache1, tokens, plen,
+                                              true_len - plen, aids)
+            temp = (torch.tensor([req.temperature], dtype=torch.float32,
+                                 device=self.device) if sampling else None)
+            landing = self._first_host.copy(
+                self._first_token(logits, temp, sampling))
+            self._insert(slot, cache1)
+        self.tick_stats['prefills'] += 1
+        if hit:
+            self.prefix_stats['hits'] += 1
+            self.prefix_stats['tokens_reused'] += plen
+            _PREFIX_HIT.inc()
+            _PREFIX_TOKENS.inc(plen)
+            if self._prefix_entries.last_key in self._prewarmed_keys:
+                self.prewarm_stats['hits'] += 1
+                _PREFIX_PREWARM_HIT.inc()
+        elif use_prefix:
+            self.prefix_stats['misses'] += 1
+            _PREFIX_MISS.inc()
+        if use_prefix:
+            # The full context's KV is the entry later prompts extend.
+            for key, _payload in self._prefix_entries.put(context, cache1):
+                self._prewarmed_keys.discard(key)
+        first = int(landing.result()[0])
+        if gen >= 0:
+            self._check_gen(gen)
+        req.prefilling = False
+        self._note_first_token(req, slot)
+        req.tokens.append(first)
+        _TOKENS_TOTAL.inc()
+        self._notify(req, first)
+        req.next_pos = true_len
+        self._commit_slot(slot, req, gen)
+
+    def _admit_paged(self, slot: int, req: _Request, gen: int) -> None:
         """Paged admission is cheap: attach a cached prefix's whole
         blocks (incref), copy a partial boundary block on write, and mark
         the request as prefilling from the prefix's end. The rest of the
         context (the prompt, or a preempted request's prompt and tokens)
         prefills chunk by chunk across subsequent ticks (_prefill_tick).
         Raises PoolExhaustedError, with every reference it took released,
-        when the copy finds no block. `gen` >= 0: the engine thread's
-        generation, checked before the admission touches anything and
-        committed with the slot (a negative gen, a direct call, checks
-        nothing)."""
-        req.admit_mono = time_lib.monotonic()
-        self._trace_admitted(req)
-        if gen >= 0:
-            # A watchdog-abandoned thread must not incref or allocate in
-            # its successor's world.
-            self._check_gen(gen)
+        when the copy finds no block."""
         use_prefix = self.prefix_cache and req.adapter_slot == 0
         plen, entry = (self._longest_cached_prefix(req.context)
                        if use_prefix else (0, None))
@@ -1361,15 +1563,7 @@ class ContinuousBatchingEngine:
         req.prefill_pos = plen
         req.next_pos = plen
         req.prefilling = True
-        slots = self._slots
-
-        def commit():
-            slots[slot] = req
-
-        if gen >= 0:
-            self._commit_gen(gen, commit)
-        else:
-            commit()
+        self._commit_slot(slot, req, gen)
 
     def _prefill_tick(self, slots, prefilling, gen: int) -> None:
         """Advance every mid-prefill slot by ONE fixed-size chunk. A
@@ -1525,10 +1719,13 @@ class ContinuousBatchingEngine:
         if any(msl - slots[i].next_pos <= k for i in active):
             self.spec_fallbacks['window'] += 1
             return None
+        # The contiguous layout reserves nothing: a row's window is its
+        # own.
+        paged = bool(self.paged_block_size)
         try:
             # Blocks for every verify write position (next_pos ..
             # next_pos + K) BEFORE the dispatch.
-            for i in active:
+            for i in active if paged else ():
                 self._ensure_blocks(slots[i],
                                     min(slots[i].next_pos + k + 1, msl))
         except kv_cache_lib.PoolExhaustedError:
@@ -1539,7 +1736,7 @@ class ContinuousBatchingEngine:
             self.spec_fallbacks['pool'] += 1
             return None
         # Inert rows (empty or mid-prefill slots): token 0 at position 0
-        # through an all-scratch table.
+        # through an all-scratch table (contiguous: into their own row).
         feed = np.zeros((2, self.num_slots, k + 1), np.int32)
         drafted = []
         for i in active:
@@ -1555,7 +1752,7 @@ class ContinuousBatchingEngine:
         if not drafted:
             # A verify would emit one token a slot at (K+1)x the forward:
             # the plain path takes this tick with its own reservation.
-            for i in active:
+            for i in active if paged else ():
                 self._trim_blocks(slots[i])
             self.spec_fallbacks['no_draft'] += 1
             return None
@@ -1574,7 +1771,8 @@ class ContinuousBatchingEngine:
         self.spec_stats['accepted'] += n_accepted
         _SPEC_DRAFTED.inc(k * len(drafted))
         _SPEC_ACCEPTED.inc(n_accepted)
-        _SPEC_PAGED_ACCEPTED.inc(n_accepted)
+        if paged:
+            _SPEC_PAGED_ACCEPTED.inc(n_accepted)
         return out_cols, accepted + 1
 
     def _dispatch(self, slots, active, k: int, gen: int,
@@ -1595,7 +1793,7 @@ class ContinuousBatchingEngine:
         try:
             # Cover every position this dispatch writes, so the table
             # stays fixed across its k steps and every chained one.
-            for i in active:
+            for i in active if self.paged_block_size else ():
                 self._ensure_blocks(slots[i], min(
                     slots[i].next_pos + base + k, self.cfg.max_seq_len))
         except kv_cache_lib.PoolExhaustedError as e:
@@ -1920,8 +2118,9 @@ class ContinuousBatchingEngine:
             # the exporter check.
             for tier, depth in queue.tier_depths().items():
                 _TIER_QUEUE_DEPTH.labels(tier=tier).set(depth)
-        _PAGED_CAPACITY.set(self._pool.num_blocks)
-        _PAGED_USED.set(self._pool.used)
+        if self._pool is not None:
+            _PAGED_CAPACITY.set(self._pool.num_blocks)
+            _PAGED_USED.set(self._pool.used)
         if self.paged_int8_bytes_saved:
             _PAGED_INT8_SAVED.set(self.paged_int8_bytes_saved)
         if not active:
@@ -1964,7 +2163,7 @@ class ContinuousBatchingEngine:
                 self._last_ready = None
                 self._emit(slots, active, out_cols, gen, valid)
                 # Rejected drafts: hand the over-reserved tail back.
-                for i in active:
+                for i in active if self.paged_block_size else ():
                     if slots[i] is not None:
                         self._trim_blocks(slots[i])
                 return
@@ -2126,13 +2325,15 @@ class ContinuousBatchingEngine:
 
     def _fresh_world(self, engine_work=None) -> _World:
         """A world with nothing in it: empty slots and queue, a fresh
-        block allocator and prefix index (the pool tensors stay), and
+        block allocator and prefix index (the pool tensors, or the slot
+        cache, stay: a successor's admission overwrites a row whole), and
         fresh adapter residency (the registry of host weights survives;
         requests re-load on demand)."""
         return _World(
             [None] * self.num_slots, tenancy.TierQueue(),
             kv_cache_lib.BlockPool(self.cfg.paged_num_blocks,
-                                   self.paged_block_size),
+                                   self.paged_block_size)
+            if self.paged_block_size else None,
             self._new_prefix_index(),
             engine_work if engine_work is not None else collections.deque(),
             self._adapter_pool.fresh() if self._adapter_pool is not None
@@ -2244,9 +2445,12 @@ class ContinuousBatchingEngine:
         """Abandon the engine thread: bump the generation, put a fresh
         world in place, and fail the old world's requests and pending
         engine work with EngineWedgedError. The step graphs, the static
-        buffers and the pool tensors stay (a fresh pool would double the
-        largest allocation and force a recapture); the successor zeroes
-        the adapter stacks before its first tick."""
+        buffers and the pool tensors (or the slot cache) stay (a fresh
+        pool would double the largest allocation and force a recapture);
+        the successor zeroes the adapter stacks before its first tick.
+        The reference drops its contiguous cache here; the port keeps it
+        because the graphs hold its address, and the successor's
+        admissions overwrite whole rows, so nothing stale is read."""
         # Flight-recorder trigger: the spans and step_log of the seconds
         # BEFORE the wedge are the postmortem.
         t_rec = tracing.now() if tracing.active() else 0.0
@@ -2564,6 +2768,29 @@ class ContinuousBatchingEngine:
                            eos_id, adapter=adapter,
                            priority=priority).result(timeout=timeout)
 
+    def measure_ttft(self, num_requests: int, prompt,
+                     max_new_tokens: int = 16, return_stats: bool = False):
+        """Submit `num_requests` concurrently; returns their TTFTs (s), or
+        their whole stats dicts with return_stats."""
+        futures = [self.submit(prompt, max_new_tokens=max_new_tokens)
+                   for _ in range(num_requests)]
+        stats = [f.result(timeout=600.0)[1] for f in futures]
+        if return_stats:
+            return stats
+        return [st['ttft_s'] for st in stats]
+
+    def memory_footprint(self) -> Dict[str, int]:
+        """Bytes of the weights and of the KV store (the paged pool, or
+        the contiguous slot cache), globally and per device (the same on
+        one card: the port serves at tp 1)."""
+        weight = sum(p.numel() * p.element_size()
+                     for p in self.model.parameters())
+        kv = sum(t.numel() * t.element_size() for t in self._kv_leaves())
+        return {'tp': 1, 'weight_bytes': weight,
+                'weight_bytes_per_device': weight, 'kv_bytes': kv,
+                'kv_bytes_per_device': kv, 'total_bytes': weight + kv,
+                'total_bytes_per_device': weight + kv}
+
     def tier_load(self) -> Dict[str, int]:
         """Per-SLO-tier load, queued and slotted."""
         depths = self._queue.tier_depths()
@@ -2696,7 +2923,10 @@ class ContinuousBatchingEngine:
 
     def kv_block_bytes(self) -> int:
         """Bytes of one pool block over every leaf: what a block costs in
-        an artifact or a chunk payload."""
+        an artifact or a chunk payload (0 on the contiguous layout, which
+        has no blocks)."""
+        if not self.paged_block_size:
+            return 0
         return sum(leaf[:, 0].numel() * leaf.element_size()
                    for leaf in self._pool_leaves())
 
@@ -3133,6 +3363,279 @@ class ContinuousBatchingEngine:
                 'key_tokens': len(key)}
 
 
+# Tensor-parallel serving is the next slice of the port.
+_TP_REFUSAL = ('tensor-parallel serving (tp > 1, a serving mesh) is not '
+               'ported yet (ROADMAP.md §1 item 5); serve on one device')
+
+
+class InferenceEngine:
+    """One loaded model and its prefill and decode steps: the reference's
+    single-request engine. The batch is a fixed `batch_size` of prompts
+    of one length; `generate` runs them through a contiguous KV cache.
+    For slot-based continuous batching use ContinuousBatchingEngine.
+
+    decode_chunk=K > 1 emits K tokens a dispatch (EOS honoured at chunk
+    granularity, the overshoot truncated on the host). The whole-prompt
+    prefill runs eagerly (its shape is the prompt's); each K-step
+    dispatch of one (K, greedy) is a fixed-shape step over the engine's
+    static cache and feed (models/step_graph): one CUDA graph on the
+    card. init_cache zeroes that cache in place, so the graphs stay
+    valid. A config that carries pool geometry (paged_block_size > 0)
+    is served as the reference serves it: the first forward raises,
+    because this engine has no block tables.
+
+    The device defaults to 'cuda' and construction raises without CUDA
+    unless the caller passes device='cpu'. Sampling draws from a
+    torch.Generator seeded with rng_seed."""
+
+    def __init__(self, cfg: 'ModelConfig | str',
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 batch_size: int = 1,
+                 max_seq_len: Optional[int] = None,
+                 rng_seed: int = 0,
+                 quantize: Optional[str] = None,
+                 decode_chunk: int = 1,
+                 kv_quant: Optional[str] = None,
+                 top_k: int = 0,
+                 top_p: float = 0.0,
+                 mesh=None,
+                 decode_kernel: str = 'xla',
+                 device='cuda') -> None:
+        if mesh is not None:
+            raise NotImplementedError(_TP_REFUSAL)
+        self.device = resolve_device(device)
+        cfg = _resolve_cfg(cfg, max_seq_len, quantize, kv_quant)
+        self.decode_kernel = _resolve_decode_kernel(decode_kernel, cfg)
+        cfg = dataclasses.replace(cfg, decode_kernel=self.decode_kernel)
+        self.cfg, self.model = _build_model(cfg, params, rng_seed, quantize,
+                                            self.device)
+        self.batch_size = batch_size
+        self.top_k, self.top_p = top_k, top_p
+        self.decode_chunk = max(1, decode_chunk)
+        self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        self._cache: Optional[tuple] = None
+        # The K-step dispatch's static inputs and outputs: the last
+        # emitted tokens (B,), written back in place by each step (the
+        # device feed), the dispatch's first position and temperature,
+        # and per K its (B, K) columns with pinned host buffers to land
+        # them in for the host's EOS scan.
+        self._steps = step_graph.StepGraphs(self.device, self._gen)
+        self._token = torch.zeros(batch_size, dtype=torch.int32,
+                                  device=self.device)
+        self._start = step_graph.Staged((1,), torch.int32, self.device)
+        self._temp = step_graph.Staged((1,), torch.float32, self.device)
+        self._out: Dict[int, torch.Tensor] = {}
+        self._host: Dict[int, step_graph.HostRing] = {}
+
+    # ---------------- cache ----------------
+
+    def init_cache(self) -> tuple:
+        """The KV cache of one batch, zeroed: contiguous (L, B, S, KV, D)
+        K and V (and int8 scales), made at the first call and zeroed in
+        place after. With pool geometry in the config, a zeroed pool."""
+        if self.cfg.paged_block_size:
+            return self.model.new_kv_pool(max(1, self.cfg.paged_num_blocks))
+        if self._cache is None:
+            self._cache = self.model.new_kv_cache(self.batch_size)
+        else:
+            for leaf in self._cache:
+                leaf.zero_()
+        return self._cache
+
+    # ---------------- steps ----------------
+
+    def _forward(self, cache, tokens, positions, logits_at=None):
+        scales = cache[2:] or (None, None)
+        return self.model(tokens, positions, None, cache[0], cache[1],
+                          logits_at=logits_at, k_scale=scales[0],
+                          v_scale=scales[1])
+
+    def _prefill_impl(self, cache, tokens: torch.Tensor,
+                      prompt_len: int) -> torch.Tensor:
+        """The whole (B, L) prompt at positions 0..L-1; returns the
+        (B, vocab) logits of token prompt_len - 1."""
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=self.device)[None, :].expand(
+                                     tokens.shape[0], -1)
+        return self._forward(cache, tokens, positions,
+                             logits_at=prompt_len - 1)
+
+    def _decode_impl(self, cache, token: torch.Tensor,
+                     index) -> torch.Tensor:
+        """One step: the (B, 1) tokens at position `index` (an int or a
+        (1,) int32 device tensor); returns (B, vocab) logits."""
+        positions = torch.as_tensor(index, dtype=torch.int32,
+                                    device=self.device).reshape(1, 1)
+        return self._forward(cache, token,
+                             positions.expand(token.shape[0], 1))[:, -1]
+
+    def _sample(self, logits: torch.Tensor, temperature,
+                greedy: bool) -> torch.Tensor:
+        """(B,) int32 tokens: argmax, or a draw at `temperature` (a float
+        or a (1,) device tensor) through the engine's top-k / top-p."""
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        temp = torch.as_tensor(temperature, dtype=torch.float32,
+                               device=logits.device)
+        scaled = logits.float() / torch.clamp(temp, min=1e-6)
+        return _categorical(
+            apply_logit_filters(scaled, self.top_k, self.top_p), self._gen)
+
+    def _chunk_body(self, k: int, greedy: bool) -> None:
+        """K decode-and-sample steps from the static feed: step j writes
+        position start + j, its tokens go to column j and back into the
+        feed."""
+        out = self._out[k]
+        for j in range(k):
+            logits = self._decode_impl(self._cache, self._token[:, None],
+                                       self._start.dev + j)
+            nxt = self._sample(logits, self._temp.dev, greedy)
+            out[:, j].copy_(nxt)
+            self._token.copy_(nxt)
+
+    def _run_chunk(self, k: int, greedy: bool) -> torch.Tensor:
+        """One K-step dispatch from what the static inputs hold; returns
+        its (B, K) device columns."""
+        if k not in self._out:
+            self._out[k] = torch.zeros((self.batch_size, k),
+                                       dtype=torch.int32, device=self.device)
+            self._host[k] = step_graph.HostRing(
+                (self.batch_size, k), torch.int32, self.device, 3)
+        self._steps.run(('chunk', k, greedy),
+                        lambda: self._chunk_body(k, greedy),
+                        keep=(self._token,), random=not greedy)
+        return self._out[k]
+
+    # ---------------- generation ----------------
+
+    @staticmethod
+    def _kept_at_eos(cols: np.ndarray, eos_id: int) -> tuple:
+        """Host EOS scan of one emitted chunk: (columns kept, done), cut
+        after the first all-EOS column."""
+        for c in range(cols.shape[1]):
+            if (cols[:, c] == eos_id).all():
+                return c + 1, True
+        return cols.shape[1], False
+
+    def generate(self, prompt, max_new_tokens: int = 32,
+                 temperature: float = 0.0,
+                 eos_id: Optional[int] = None) -> tuple:
+        """prompt: (B, prompt_len) int token ids. Returns ((B, <=
+        max_new_tokens) int32 generated ids on the host, stats)."""
+        prompt = torch.as_tensor(np.asarray(prompt))
+        assert prompt.ndim == 2 and prompt.shape[0] == self.batch_size, (
+            f'prompt must be ({self.batch_size}, L); got '
+            f'{tuple(prompt.shape)}')
+        prompt_len = int(prompt.shape[1])
+        assert prompt_len + max_new_tokens <= self.cfg.max_seq_len, (
+            f'{prompt_len}+{max_new_tokens} exceeds max_seq_len '
+            f'{self.cfg.max_seq_len}')
+        with torch.inference_mode():
+            return self._generate(prompt, prompt_len, max_new_tokens,
+                                  temperature, eos_id)
+
+    def _generate(self, prompt, prompt_len: int, max_new_tokens: int,
+                  temperature: float, eos_id: Optional[int]) -> tuple:
+        greedy = temperature <= 0
+        cache = self.init_cache()
+        t0 = time_lib.monotonic()
+        logits = self._prefill_impl(cache, prompt.to(self.device).long(),
+                                    prompt_len)
+        token = self._sample(logits, temperature, greedy)
+        # Every emitted column, on the device; read once at the end.
+        hist = torch.zeros((self.batch_size, max_new_tokens +
+                            self.decode_chunk), dtype=torch.int32,
+                           device=self.device)
+        hist[:, 0] = token
+        self._token.copy_(token)
+        if not greedy:
+            self._temp.put([temperature])
+        token.cpu()
+        ttft = time_lib.monotonic() - t0
+        # Both loops run ONE dispatch ahead of the host's EOS scan: the
+        # next dispatch reads the previous one's tokens from the device
+        # feed while the host scans the previous columns; the overshoot
+        # is dropped, so the output equals the synchronous scan's.
+        msl = self.cfg.max_seq_len
+        kept = 1
+        if self.decode_chunk > 1:
+            # The chunk keeps its size on the final partial chunk when
+            # the window allows; the overshoot is cut on the host.
+            step, done, pending = 1, False, None
+            while step < max_new_tokens and not done:
+                remaining = max_new_tokens - step
+                k = self.decode_chunk
+                if k > remaining and prompt_len + step - 1 + k > msl:
+                    k = remaining
+                self._start.put([prompt_len + step - 1])
+                out = self._run_chunk(k, greedy)
+                width = min(k, remaining)
+                hist[:, step:step + width].copy_(out[:, :width])
+                at, step = step, step + width
+                kept = step
+                if eos_id is None:
+                    continue
+                landing = self._host[k].copy(out)
+                if pending is not None:
+                    p_at, p_width, p_landing = pending
+                    cols, done = self._kept_at_eos(
+                        p_landing.result()[:, :p_width], eos_id)
+                    # done: the chunk just dispatched is overshoot.
+                    kept = p_at + cols
+                pending = (at, width, landing) if not done else None
+            if pending is not None:
+                p_at, p_width, p_landing = pending
+                cols, _ = self._kept_at_eos(
+                    p_landing.result()[:, :p_width], eos_id)
+                kept = p_at + cols
+        else:
+            previous = None
+            for step in range(1, max_new_tokens):
+                self._start.put([prompt_len + step - 1])
+                out = self._run_chunk(1, greedy)
+                hist[:, step:step + 1].copy_(out)
+                kept = step + 1
+                if eos_id is None:
+                    continue
+                landing = self._host[1].copy(out)
+                # Scan the PREVIOUS step's token while this one runs: if
+                # it was EOS, this step is overshoot (the prefill's token
+                # is never scanned, as in the reference).
+                if previous is not None and bool(
+                        (previous.result() == eos_id).all()):
+                    kept = step
+                    break
+                previous = landing
+        generated = hist[:, :kept].cpu()
+        total = time_lib.monotonic() - t0
+        stats = {
+            'ttft_s': ttft,
+            'total_s': total,
+            'new_tokens': kept,
+            'decode_tokens_per_s':
+                ((kept - 1) / (total - ttft)
+                 if kept > 1 and total > ttft else None),
+        }
+        return generated, stats
+
+
+def infer_serving_tp(cfg: ModelConfig, n_devices: int) -> int:
+    """Largest tp that divides the local device count AND every
+    tp-sharded model dimension — the auto choice get_engine makes, so
+    a model too big for one chip serves over all of them without a
+    flag."""
+    best = 1
+    for t in range(1, n_devices + 1):
+        if n_devices % t:
+            continue
+        try:
+            cfg.assert_tp_compatible(t)
+        except ValueError:
+            continue
+        best = t
+    return best
+
+
 def load_params_from_checkpoint(cfg: ModelConfig, checkpoint_dir: str,
                                 device='cpu', lora_meta: Optional[dict] = None
                                 ) -> Dict[str, torch.Tensor]:
@@ -3193,3 +3696,27 @@ def load_params_from_checkpoint(cfg: ModelConfig, checkpoint_dir: str,
     logger.info('restored %s params from step %d of %s', cfg.name, step,
                 checkpoint_dir)
     return params
+
+
+@functools.lru_cache(maxsize=2)
+def get_engine(model_name: str, batch_size: int = 1,
+               max_seq_len: Optional[int] = None,
+               checkpoint_dir: Optional[str] = None,
+               tp: Optional[int] = None,
+               device='cuda') -> InferenceEngine:
+    """Process-wide InferenceEngine cache (the reference's accessor).
+    tp=None takes infer_serving_tp over the local CUDA devices; the port
+    serves tp 1 and refuses more. checkpoint_dir: a training checkpoint
+    directory of the port (load_params_from_checkpoint)."""
+    cfg = get_config(model_name)
+    if tp is None:
+        tp = infer_serving_tp(cfg, torch.cuda.device_count())
+    if tp > 1:
+        raise NotImplementedError(_TP_REFUSAL + f' (tp={tp})')
+    params = None
+    if checkpoint_dir:
+        params = load_params_from_checkpoint(cfg, checkpoint_dir,
+                                             resolve_device(device))
+    return InferenceEngine(model_name, params=params,
+                           batch_size=batch_size, max_seq_len=max_seq_len,
+                           device=device)

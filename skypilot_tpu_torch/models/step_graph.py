@@ -126,13 +126,23 @@ class HostRing:
         return Landing(buf, event)
 
 
+def _tables(num_slots: int, table_width: int,
+            device: torch.device) -> Optional[Staged]:
+    """The block tables input of a paged step; None on the contiguous
+    layout (table_width 0)."""
+    if not table_width:
+        return None
+    return Staged((num_slots, table_width), torch.int32, device)
+
+
 class DecodeBuffers:
     """Static buffers of the all-slots decode step: the feed (tokens and
     positions, (num_slots, 1) int32 views of one (2, num_slots) input),
-    temperatures (num_slots,), block tables (num_slots, table_width), the
-    adapter slots (num_slots,) of a multi-LoRA engine, and per step count
-    k the (num_slots, k) int32 sampled columns with `ring` pinned host
-    buffers to land them in."""
+    temperatures (num_slots,), block tables (num_slots, table_width;
+    None on the contiguous layout, table_width 0), the adapter slots
+    (num_slots,) of a multi-LoRA engine, and per step count k the
+    (num_slots, k) int32 sampled columns with `ring` pinned host buffers
+    to land them in."""
 
     def __init__(self, num_slots: int, table_width: int, adapters: bool,
                  device: torch.device, ring: int) -> None:
@@ -141,7 +151,7 @@ class DecodeBuffers:
         self.tokens = self.feed.dev[0].view(num_slots, 1)
         self.positions = self.feed.dev[1].view(num_slots, 1)
         self.temps = Staged((num_slots,), torch.float32, device)
-        self.tables = Staged((num_slots, table_width), torch.int32, device)
+        self.tables = _tables(num_slots, table_width, device)
         self.aids = (Staged((num_slots,), torch.int32, device) if adapters
                      else None)
         self.out: Dict[int, torch.Tensor] = {}
@@ -188,7 +198,8 @@ class VerifyBuffers:
     input), so one copy uploads both; temperatures (num_slots,), block
     tables (num_slots, table_width) and the adapter slots (num_slots,) of
     a multi-LoRA engine are inputs of their own, uploaded when their
-    values change. One (num_slots, span + 1) int32 output holds the
+    values change (no tables on the contiguous layout, table_width 0).
+    One (num_slots, span + 1) int32 output holds the
     emitted columns `out` (num_slots, span) and the accepted draft count
     `accepted` (num_slots,), landed in one copy through `ring` pinned
     host buffers."""
@@ -200,7 +211,7 @@ class VerifyBuffers:
         self.tokens = self.feed.dev[0]
         self.positions = self.feed.dev[1]
         self.temps = Staged((num_slots,), torch.float32, device)
-        self.tables = Staged((num_slots, table_width), torch.int32, device)
+        self.tables = _tables(num_slots, table_width, device)
         self.aids = (Staged((num_slots,), torch.int32, device) if adapters
                      else None)
         self.result = torch.zeros((num_slots, span + 1), dtype=torch.int32,

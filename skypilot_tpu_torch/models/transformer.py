@@ -3,9 +3,13 @@
 
 Port of skypilot_tpu/models/transformer.py. Like the reference, the model
 branches on `cfg.decode`:
-- decode=True (the serving engine): every attention call — a prefill
+- decode=True (the serving engines): every attention call — a prefill
   chunk, a decode step — writes its K/V into the shared paged pool through
-  the block tables and attends through ops/paged_attention.
+  the block tables and attends through ops/paged_attention; or, without
+  pool geometry (`paged_block_size` 0, the reference's default layout),
+  writes it into its row of a contiguous (batch, max_seq_len) cache from
+  the row's first position and attends over the whole row through
+  ops/paged_attention.attend_window, the plain route's own math.
 - decode=False (training): `forward(tokens)` runs the whole sequence and
   attends through ops/flash_attention (`impl=cfg.attention_impl`). With
   attention_impl='ring' under parallel/sharding.use_sequence_parallel,
@@ -27,7 +31,9 @@ Layout choices:
 - The KV pool is one (num_layers, num_blocks, block_size, KV, D) tensor
   each for K and V — the reference's scanned layout — and is updated IN
   PLACE, where the JAX code returns a new pool: a pool is a persistent
-  buffer the engine owns, and copying 8 GB per step would be absurd.
+  buffer the engine owns, and copying 8 GB per step would be absurd. The
+  contiguous cache is one (num_layers, batch, max_seq_len, KV, D) tensor
+  each, updated in place the same way (`new_kv_cache`).
 - Norm statistics, rope angles and attention scores are fp32, as in the
   reference. The reference's `_attend_window` math (float and int8) is
   ops/paged_attention.attend_window, the kernel's plain version.
@@ -110,7 +116,7 @@ from skypilot_tpu_torch.models.moe import MoEBlock
 from skypilot_tpu_torch.ops.flash_attention import flash_attention
 from skypilot_tpu_torch.ops.fused_lora import LoRAGroup
 from skypilot_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_plain)
+    attend_window, paged_decode_attention, paged_decode_attention_plain)
 from skypilot_tpu_torch.parallel import sharding
 
 # lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
@@ -572,6 +578,41 @@ def paged_step(cfg: ModelConfig, positions: torch.Tensor,
                      block_tables[:, :cfg.max_seq_len // bs], write_idx)
 
 
+class ContiguousStep(NamedTuple):
+    """Per-forward inputs every layer shares on the contiguous layout:
+    positions, the rope cos/sin (None without rope), and the flat index
+    of each chunk token's row in a layer's (B * max_seq_len, KV, D)
+    cache view."""
+    positions: torch.Tensor     # (B, T) int32
+    cos: Optional[torch.Tensor]  # (B, T, 1, rotary_dim / 2) fp32
+    sin: Optional[torch.Tensor]
+    write_idx: torch.Tensor     # (B * T,) int64
+
+
+def contiguous_step(cfg: ModelConfig, positions: torch.Tensor,
+                    freqs: Optional[torch.Tensor]) -> ContiguousStep:
+    """Build the step once per forward. Each row writes its T tokens
+    contiguously from positions[:, 0], clamped to [0, S - T] as the
+    reference's `dynamic_update_slice` clamps its start: a chunk that
+    would run past the window lands at S - T. Inert rows ride decode
+    dispatches with positions that advance in the graph, and a verify
+    span may sit near the window; on the card an index past the cache
+    would be a device-side assert, so the clamp is what keeps them in
+    their own row."""
+    batch, cur_len = positions.shape
+    seq_len = cfg.max_seq_len
+    if cur_len > seq_len:
+        raise ValueError(f'prompt chunk {cur_len} exceeds max_seq_len '
+                         f'{seq_len}')
+    start = positions[:, :1].long().clamp(0, seq_len - cur_len)
+    offsets = torch.arange(cur_len, device=positions.device)[None, :]
+    rows = torch.arange(batch, device=positions.device)[:, None] * seq_len
+    write_idx = (rows + start + offsets).reshape(-1)
+    cos, sin = (rope_cos_sin(positions, freqs) if freqs is not None
+                else (None, None))
+    return ContiguousStep(positions, cos, sin, write_idx)
+
+
 class Attention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None) -> None:
@@ -599,7 +640,8 @@ class Attention(nn.Module):
             for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')}, device)
         self.lora_scale = cfg.lora_alpha / max(cfg.lora_rank, 1)
 
-    def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
+    def forward(self, x: torch.Tensor,
+                step: 'PagedStep | ContiguousStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
                 v_pool: Optional[torch.Tensor] = None,
                 k_scale: Optional[torch.Tensor] = None,
@@ -625,7 +667,10 @@ class Attention(nn.Module):
         # v stays a strided view of the projection output: the flash
         # kernels read it through its strides.
         v = v.reshape(batch, cur_len, kv_heads, head_dim)
-        if cfg.decode:
+        if isinstance(step, ContiguousStep):
+            out = self._contiguous_decode_attention(q, k, v, step, k_pool,
+                                                    v_pool, k_scale, v_scale)
+        elif cfg.decode:
             out = self._paged_decode_attention(q, k, v, step, k_pool, v_pool,
                                                k_scale, v_scale)
         else:
@@ -639,6 +684,35 @@ class Attention(nn.Module):
         if adapter_ids is not None and self.lora_o is not None:
             self.lora_o(out, y, adapter_ids)
         return _add_bias(self, 'o_proj', y)
+
+    def _contiguous_decode_attention(self, q, k, v, step: ContiguousStep,
+                                     k_cache, v_cache, k_scale,
+                                     v_scale) -> torch.Tensor:
+        """The reference's contiguous `_decode_attention`: write the
+        chunk's K/V into each row of this layer's cache from the row's
+        clamped start (quantized, with their scales, under int8 KV: the
+        same `int8_quantize` as the paged layout), then attend over the
+        whole row through `attend_window`, the function the paged plain
+        route calls after its gather, so contiguous equals paged on that
+        route by construction. k_cache/v_cache (and k_scale/v_scale):
+        this layer's (B, S, KV, D) (and (B, S, KV)) slices, written in
+        place."""
+        cfg = self.cfg
+        kv_heads, head_dim = k.shape[2], k.shape[3]
+        if k_scale is not None:
+            k, k_s = int8_quantize(k)
+            v, v_s = int8_quantize(v)
+            k_scale.view(-1, kv_heads)[step.write_idx] = \
+                k_s.reshape(-1, kv_heads)
+            v_scale.view(-1, kv_heads)[step.write_idx] = \
+                v_s.reshape(-1, kv_heads)
+        k_cache.view(-1, kv_heads, head_dim)[step.write_idx] = \
+            k.reshape(-1, kv_heads, head_dim)
+        v_cache.view(-1, kv_heads, head_dim)[step.write_idx] = \
+            v.reshape(-1, kv_heads, head_dim)
+        return attend_window(q, k_cache, v_cache, step.positions,
+                             head_dim ** -0.5, cfg.sliding_window,
+                             k_scale, v_scale, cfg.attn_logit_softcap)
 
     def _paged_decode_attention(self, q, k, v, step: PagedStep, k_pool,
                                 v_pool, k_scale, v_scale) -> torch.Tensor:
@@ -749,7 +823,8 @@ class DecoderLayer(nn.Module):
         self.mlp = None if cfg.is_moe else SwiGLU(cfg, device)
         self.moe = MoEBlock(cfg, device) if cfg.is_moe else None
 
-    def forward(self, x: torch.Tensor, step: 'PagedStep | FullStep',
+    def forward(self, x: torch.Tensor,
+                step: 'PagedStep | ContiguousStep | FullStep',
                 k_pool: Optional[torch.Tensor] = None,
                 v_pool: Optional[torch.Tensor] = None,
                 k_scale: Optional[torch.Tensor] = None,
@@ -817,11 +892,6 @@ class Transformer(nn.Module):
                 "CUDA is not available; the model is built on the GPU by "
                 "default — pass device='cpu' explicitly to build it on the "
                 "CPU")
-        if cfg.decode and not cfg.paged_block_size:
-            raise NotImplementedError(
-                'the PyTorch port serves the paged KV layout only '
-                '(paged_block_size > 0); the contiguous layout is not '
-                'ported yet')
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
         self.embed = _new_param(cfg, (cfg.vocab_size, cfg.d_model), device)
@@ -916,6 +986,25 @@ class Transformer(nn.Module):
                 torch.ones(scale_shape, device=device, dtype=torch.float32),
                 torch.ones(scale_shape, device=device, dtype=torch.float32))
 
+    def new_kv_cache(self, batch: int) -> Tuple[torch.Tensor, ...]:
+        """Zeroed contiguous (num_layers, batch, max_seq_len, KV, D) K
+        and V caches on the model's device in the model's dtype; under
+        int8 KV int8 caches followed by fp32 (num_layers, batch,
+        max_seq_len, KV) K and V scales, zero-filled as the reference's
+        engine fills its slot cache."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, cfg.max_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        device = self.embed.device
+        if cfg.kv_cache_quant != 'int8':
+            kwargs = dict(device=device, dtype=self.embed.dtype)
+            return torch.zeros(shape, **kwargs), torch.zeros(shape, **kwargs)
+        scale_kw = dict(device=device, dtype=torch.float32)
+        return (torch.zeros(shape, device=device, dtype=torch.int8),
+                torch.zeros(shape, device=device, dtype=torch.int8),
+                torch.zeros(shape[:-1], **scale_kw),
+                torch.zeros(shape[:-1], **scale_kw))
+
     def lora_stacks(self):
         """(layer index, projection name, LoRAStack) of every targeted
         projection, in layer order."""
@@ -938,7 +1027,10 @@ class Transformer(nn.Module):
         """tokens/positions: (B, T) int. Serving (cfg.decode):
         block_tables (B, bps + 1) int32 and the (L, NB, bs, KV, D) pools
         k_pool/v_pool, written in place (int8 under int8 KV, with the
-        (L, NB, bs, KV, 1) scale pools k_scale/v_scale); adapter_ids
+        (L, NB, bs, KV, 1) scale pools k_scale/v_scale); without pool
+        geometry (cfg.paged_block_size 0) no tables and the contiguous
+        (L, B, S, KV, D) caches of `new_kv_cache` in their place (scales
+        (L, B, S, KV)); adapter_ids
         (B,) int32 adapter slots of a multi-LoRA model (None: no deltas).
         Positions default to 0..T-1 (training); the pools are not used
         in training.
@@ -961,7 +1053,9 @@ class Transformer(nn.Module):
             if (k_scale is not None) != (cfg.kv_cache_quant == 'int8'):
                 raise ValueError('int8 KV takes k_scale/v_scale pools, and '
                                  'only int8 KV does')
-            step = paged_step(cfg, positions, block_tables, self.rope_freqs)
+            step = (paged_step(cfg, positions, block_tables,
+                               self.rope_freqs) if cfg.paged_block_size
+                    else contiguous_step(cfg, positions, self.rope_freqs))
             for i, layer in enumerate(self.layers):
                 scales = ((k_scale[i], v_scale[i]) if k_scale is not None
                           else (None, None))

@@ -1,9 +1,10 @@
 """Serve constants the port's server reads.
 
-Own copy of the KV handoff settings of skypilot_tpu/serve/constants.py:
-the same functions, environment variables and defaults (the chunk size
-of a handoff stream, the load balancer's deadline for one handoff, and
-how long a decode replica holds a partial stream).
+Own copy of the KV handoff and preemption settings of
+skypilot_tpu/serve/constants.py: the same functions, environment
+variables and defaults (the chunk size of a handoff stream, the load
+balancer's deadline for one handoff, how long a decode replica holds a
+partial stream, and a replica's preemption notice budget).
 """
 from __future__ import annotations
 
@@ -39,3 +40,10 @@ def ingest_session_ttl_seconds() -> float:
     stream before rolling it back to refcount-0 (the prefill replica
     died mid-stream and nobody will ever finish or abort it)."""
     return _env_float('SKYTPU_SERVE_INGEST_TTL', 60.0)
+
+
+def preempt_notice_budget_seconds() -> float:
+    """How long a replica gets between the preemption notice and the
+    kill: drain in-flight work, then export hot prefixes. GCP spot TPUs
+    give ~30s; tests shrink it."""
+    return _env_float('SKYTPU_SERVE_PREEMPT_NOTICE_BUDGET', 30.0)

@@ -108,7 +108,18 @@ Run:  python -m skypilot_tpu_torch.serve.server --model llama3-8b \\
         [--watchdog-timeout S]
 The engine runs on CUDA unless --device cpu is given. On CUDA every decode
 dispatch and prefill chunk is a CUDA-graph replay; `warmup()` captures
-the graphs greedy requests take.
+the graphs greedy requests take. --paged-block-size 0 serves the
+reference's contiguous layout (a max_seq_len row a slot, whole-prompt
+bucketed prefill, attention on the plain route; --prefix-store and the
+prefill and decode tiers need the paged layout, as in the reference).
+
+Defaults are the reference's, but for two (tests/test_torch_configs.py
+pins every other one): the port pages KV by default
+(--paged-block-size 16: the card path is the paged layout through the
+paged kernel, and the contiguous layout equals paged on the plain route
+bit for bit), and --decode-kernel resolves by layout ('pallas', the
+paged kernel, on the paged layout; 'xla', the reference's default, on
+the contiguous one).
 """
 from __future__ import annotations
 
@@ -297,7 +308,7 @@ class InferenceServer:
                  checkpoint_dir: Optional[str] = None,
                  hf_model_path: Optional[str] = None,
                  quantize: Optional[str] = None,
-                 decode_kernel: str = 'pallas',
+                 decode_kernel: Optional[str] = None,
                  prefix_store: Optional[str] = None,
                  tier: str = 'monolithic',
                  request_timeout: float = 0.0,
@@ -1539,7 +1550,7 @@ def build_parser() -> argparse.ArgumentParser:
     """The server's command line, flag for flag the reference's where the
     port has the feature."""
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument('--model', default='llama3-8b')
+    parser.add_argument('--model', default='llama3-1b')
     parser.add_argument('--port', type=int, default=8080)
     parser.add_argument('--tokenizer', type=_tokenizer_arg, default='byte',
                         help="'byte' (the built-in byte-level tokenizer, "
@@ -1561,15 +1572,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--quantize', default=None, choices=['int8'],
                         help='weight-only int8 serving: int8 projections '
                              'with fp32 per-column scales')
-    parser.add_argument('--decode-kernel', default='pallas',
+    parser.add_argument('--decode-kernel', default=None,
                         choices=['xla', 'pallas', 'pallas_interpret'],
-                        help='paged attention: pallas (default) launches '
-                             'the paged kernel; xla gathers each row\'s '
-                             'window and attends in plain PyTorch, the '
-                             'route for softcapped models (gemma2-9b) and '
-                             'head dims the kernel does not take (phi-2)')
+                        help='paged attention: pallas (the default on '
+                             'the paged layout) launches the paged '
+                             'kernel; xla (the default, and the only '
+                             'route, on the contiguous layout) attends '
+                             'in plain PyTorch, the route for softcapped '
+                             'models (gemma2-9b) and head dims the kernel '
+                             'does not take (phi-2)')
     parser.add_argument('--paged-block-size', type=int, default=16,
-                        help='tokens per KV block of the paged pool')
+                        help='tokens per KV block of the paged pool (0 = '
+                             'the contiguous per-slot cache, the '
+                             "reference's default)")
     parser.add_argument('--paged-num-blocks', type=int, default=None,
                         help='paged pool capacity in blocks (default: '
                              '(num_slots + prefix_cache) x max_seq_len '
@@ -1659,9 +1674,12 @@ def build_parser() -> argparse.ArgumentParser:
                              'admitting, wait up to this long for '
                              'in-flight requests, then exit')
     parser.add_argument('--preempt-drain-timeout', type=float,
-                        default=10.0,
+                        default=serve_constants
+                        .preempt_notice_budget_seconds(),
                         help='drain budget of POST /preempt when the '
-                             'notice names no deadline_s')
+                             'notice names no deadline_s (default '
+                             '$SKYTPU_SERVE_PREEMPT_NOTICE_BUDGET or 30, '
+                             'the replica manager\'s notice budget)')
     parser.add_argument('--prefix-store',
                         default=os.environ.get('SKYTPU_PREFIX_STORE'),
                         help='preemption-native serving: store URL for '

@@ -135,7 +135,7 @@ def test_knobs_default_and_clamp(reference):
     assert (engine.async_depth, engine.decode_chunk) == (0, 1)
     assert set(engine.tick_stats) == {'dispatches', 'decode_steps',
                                       'chained', 'flushes', 'host_gap_s',
-                                      'gap_samples'}
+                                      'gap_samples', 'prefills'}
 
 
 @pytest.mark.parametrize('depth,chunk', CONFIGS, ids=_IDS)

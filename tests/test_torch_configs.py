@@ -118,6 +118,18 @@ PORT_ONLY = {
                                 "TrainConfig's 100 steps (short CPU runs "
                                 'set it lower)'},
 }
+# The server options whose default is not the reference's, each with its
+# reason: {dest: (port default, reason)}.
+SERVER_DEVIATIONS = {
+    'paged_block_size': (
+        16, 'the card path is the paged layout through the paged '
+        'kernel; the contiguous layout equals paged on the plain route '
+        'bit for bit and is chosen with --paged-block-size 0'),
+    'decode_kernel': (
+        None, "resolved by layout: 'pallas' (the paged kernel) on the "
+        "paged layout, 'xla' (the reference's default) on the "
+        'contiguous one'),
+}
 
 
 class _Captured(Exception):
@@ -155,7 +167,11 @@ def _sample_argv(opt, action) -> list:
     return [opt, 'x']
 
 
-def _parity(ref_parser, port_parser, to_port, port_only):
+def _parity(ref_parser, port_parser, to_port, port_only, deviations):
+    """Every reference option parses on the port or is named in
+    `to_port`, every port-only option is named, and every shared option
+    takes the reference's default but those named in `deviations`
+    ({dest: (port default, reason)}), which take the named one."""
     ref, port = _options(ref_parser), _options(port_parser)
     assert set(ref) - set(port) == set(to_port)
     assert set(port) - set(ref) == set(port_only)
@@ -163,6 +179,16 @@ def _parity(ref_parser, port_parser, to_port, port_only):
         if opt in to_port or opt in ('-h', '--help'):
             continue
         port_parser.parse_args(_sample_argv(opt, action))
+    differ = {}
+    for opt, action in ref.items():
+        if opt in to_port or opt in ('-h', '--help'):
+            continue
+        mine = port[opt].default
+        if mine != action.default:
+            differ[action.dest] = mine
+    assert differ == {dest: default
+                      for dest, (default, _why) in deviations.items()}
+    assert all(why for _default, why in deviations.values())
 
 
 def test_server_flags_parse_or_are_named(monkeypatch):
@@ -170,14 +196,14 @@ def test_server_flags_parse_or_are_named(monkeypatch):
     from skypilot_tpu_torch.serve import server as torch_server
     _parity(_reference_parser(jax_server.main, monkeypatch),
             torch_server.build_parser(), SERVER_TO_PORT,
-            PORT_ONLY['server'])
+            PORT_ONLY['server'], SERVER_DEVIATIONS)
 
 
 def test_train_flags_parse_or_are_named(monkeypatch):
     from skypilot_tpu.train import run as jax_run
     from skypilot_tpu_torch.train import run as torch_run
     _parity(_reference_parser(jax_run.main, monkeypatch),
-            torch_run.build_parser(), TRAIN_TO_PORT, PORT_ONLY['train'])
+            torch_run.build_parser(), TRAIN_TO_PORT, PORT_ONLY['train'], {})
 
 
 @pytest.mark.parametrize('argv,want', [
@@ -203,3 +229,38 @@ def test_hf_tokenizer_is_refused_at_parse_naming_the_package(capsys):
     assert info.value.code == 2
     err = capsys.readouterr().err
     assert 'transformers' in err and 'tokenizers' in err
+
+
+@pytest.mark.parametrize('budget', [None, '45'], ids=['unset', 'set'])
+def test_preempt_notice_budget_is_the_references(budget, monkeypatch):
+    """Fault 8: --preempt-drain-timeout defaults to the notice budget the
+    replica manager reads ($SKYTPU_SERVE_PREEMPT_NOTICE_BUDGET, 30 s),
+    as the reference's does."""
+    from skypilot_tpu.serve import constants as jax_constants
+    from skypilot_tpu_torch.serve import constants as torch_constants
+    from skypilot_tpu_torch.serve import server as torch_server
+    if budget is None:
+        monkeypatch.delenv('SKYTPU_SERVE_PREEMPT_NOTICE_BUDGET',
+                           raising=False)
+    else:
+        monkeypatch.setenv('SKYTPU_SERVE_PREEMPT_NOTICE_BUDGET', budget)
+    want = 30.0 if budget is None else 45.0
+    assert torch_constants.preempt_notice_budget_seconds() == want
+    assert jax_constants.preempt_notice_budget_seconds() == want
+    args = torch_server.build_parser().parse_args([])
+    assert args.preempt_drain_timeout == want
+
+
+def test_server_serves_the_references_default_model():
+    """Fault 9: the same command line serves the same model."""
+    from skypilot_tpu_torch.serve import server as torch_server
+    assert torch_server.build_parser().parse_args([]).model == 'llama3-1b'
+
+
+@pytest.mark.parametrize('name', jax_configs.list_configs())
+def test_infer_serving_tp_equals_the_references(name):
+    from skypilot_tpu.models import inference as jax_inference
+    from skypilot_tpu_torch.models import inference as torch_inference
+    ref, port = jax_configs.get_config(name), torch_configs.get_config(name)
+    assert [torch_inference.infer_serving_tp(port, n) for n in range(1, 9)] \
+        == [jax_inference.infer_serving_tp(ref, n) for n in range(1, 9)]

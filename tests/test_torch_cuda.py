@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card: paged attention over float and int8 pools, the flash-attention
 forward and backward, the fused multi-LoRA delta and the ring-attention
-chunk update. Needs an NVIDIA
-GPU and nvcc: every test is marked `cuda` and skips inside the test when
-torch.cuda is unavailable. The file imports no JAX, so on a GPU machine
+chunk update; and the engine's steps on the card, the contiguous
+layout's clamped write, decode graph and paged parity among them. Needs
+an NVIDIA GPU and nvcc: every test is marked `cuda` and skips inside the
+test when torch.cuda is unavailable. The file imports no JAX, so on a GPU machine
 without JAX it runs as
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -1782,3 +1783,144 @@ def test_wedge_released_after_a_recovery_leaves_the_successor_alone(
             stale_spec.release.set()
         fault_injection.disarm_all()
         engine.stop()
+
+
+def _contiguous_cfg(dtype='float32', max_seq_len=512):
+    """The graph tests' small model (head_dim 128) without pool
+    geometry."""
+    import dataclasses
+
+    from skypilot_tpu_torch.models.configs import get_config
+    return dataclasses.replace(
+        get_config('llama3-8b'), name='contiguous-small', vocab_size=1024,
+        d_model=512, num_layers=2, num_heads=4, num_kv_heads=2, d_mlp=1024,
+        max_seq_len=max_seq_len, dtype=dtype, decode=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', ['', 'int8'], ids=['float', 'int8'])
+def test_contiguous_write_at_the_window_end_matches_the_cpu(kv_quant):
+    """A 4-token chunk starting at S - 2 and an inert decode row at S + 5
+    are clamped into their rows as dynamic_update_slice clamps them: no
+    device-side assert, and the cache and logits equal the CPU's: float
+    within 1e-4; int8 payloads within one step, the logits within 1e-2
+    (a K/V element the two devices round to neighbouring int8 steps on a
+    rounding boundary moves later logits by ~3e-3)."""
+    _need_gpu()
+    import dataclasses
+
+    from skypilot_tpu_torch.models.transformer import Transformer
+    cfg = dataclasses.replace(_contiguous_cfg(max_seq_len=64),
+                              kv_cache_quant=kv_quant)
+    cpu = Transformer(cfg, device='cpu').init_random_(0)
+    card = Transformer(cfg, device='cuda')
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    seq = cfg.max_seq_len
+    steps = [(np.tile(np.arange(16), (2, 1)), 16),
+             (np.stack([np.arange(seq - 2, seq + 2), np.arange(20, 24)]), 4),
+             (np.array([[seq + 5], [24]]), 1)]
+    rng = np.random.RandomState(0)
+    caches = {'cpu': cpu.new_kv_cache(2), 'cuda': card.new_kv_cache(2)}
+    with torch.inference_mode():
+        for positions, width in steps:
+            tokens = torch.from_numpy(rng.randint(1, 1024, (2, width)))
+            out = {}
+            for dev, model in (('cpu', cpu), ('cuda', card)):
+                c = caches[dev]
+                scales = c[2:] or (None, None)
+                out[dev] = model(tokens.to(dev),
+                                 torch.from_numpy(positions).int().to(dev),
+                                 None, c[0], c[1], k_scale=scales[0],
+                                 v_scale=scales[1]).cpu()
+            torch.cuda.synchronize()
+            tol = 1e-2 if kv_quant else 1e-4
+            torch.testing.assert_close(out['cuda'], out['cpu'], atol=tol,
+                                       rtol=tol)
+    for a, b in zip(caches['cuda'], caches['cpu']):
+        if a.dtype == torch.int8:
+            assert (a.cpu().int() - b.int()).abs().max() <= 1
+        else:
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [1, 4])
+def test_contiguous_decode_graph_equals_eager_step(k):
+    """A replay of the contiguous engine's k-step decode graph over the
+    slot cache gives the eager `_decode_impl` steps' tokens bit for bit
+    (one row inert, one near its window) and leaves the cache equal."""
+    _need_gpu()
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(
+        _contiguous_cfg(), num_slots=4, decode_chunk=k, rng_seed=3,
+        device='cuda')
+    try:
+        assert engine.paged_block_size == 0 and engine._dec.tables is None  # pylint: disable=protected-access
+        gen = torch.Generator(device='cuda').manual_seed(5)
+        for cache in _pools(engine):
+            cache.normal_(generator=gen)
+        with torch.inference_mode():
+            saved = [t.clone() for t in _pools(engine)]
+            tokens = torch.tensor([[3], [10], [0], [24]], dtype=torch.int32,
+                                  device='cuda')
+            positions = torch.tensor([[5], [40], [0], [509]],
+                                     dtype=torch.int32, device='cuda')
+            temps = torch.zeros(4, device='cuda')
+            eager = []
+            tok, pos = tokens, positions.clone()
+            for _ in range(k):
+                nxt = engine._decode_impl(tok, pos, temps, None, False)  # pylint: disable=protected-access
+                eager.append(nxt)
+                tok, pos = nxt[:, None], pos + 1
+            eager = torch.stack(eager, dim=1).cpu()
+            after = [t.clone() for t in _pools(engine)]
+            dec = engine._dec  # pylint: disable=protected-access
+            for _ in range(2):   # the capture, then a replay
+                for t, s in zip(_pools(engine), saved):
+                    t.copy_(s)
+                dec.feed.put([tokens[:, 0].cpu().numpy(),
+                              positions[:, 0].cpu().numpy()])
+                dec.temps.put(np.zeros(4, np.float32))
+                got = engine._run_decode(k, False).result()  # pylint: disable=protected-access
+            assert torch.equal(torch.from_numpy(got), eager)
+            for t, s in zip(_pools(engine), after):
+                assert torch.equal(t, s)
+            assert engine._steps.replays >= 2  # pylint: disable=protected-access
+    finally:
+        engine.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_quant', [None, 'int8'], ids=['float', 'int8'])
+def test_contiguous_equals_paged_xla_on_the_card(kv_quant):
+    """fp32 with TF32 off: the contiguous engine's greedy tokens equal
+    the paged engine's on the 'xla' route bit for bit, and the paged
+    kernel route's."""
+    _need_gpu()
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    cfg = _contiguous_cfg()
+    prompts = [list(range(2, 9)), list(range(2, 26)),
+               list(range(40, 140)), [7] * 17]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, outs = None, {}
+    try:
+        for name, kw in (('contiguous', {}),
+                         ('paged-xla', dict(paged_block_size=16,
+                                            decode_kernel='xla')),
+                         ('paged-kernel', dict(paged_block_size=16))):
+            engine = ContinuousBatchingEngine(
+                cfg, params=params and dict(params), num_slots=3,
+                kv_quant=kv_quant, rng_seed=3, device='cuda', **kw)
+            if params is None:
+                params = dict(engine.model.state_dict())
+            try:
+                futures = [engine.submit(p, max_new_tokens=12)
+                           for p in prompts]
+                outs[name] = [f.result(timeout=300)[0] for f in futures]
+            finally:
+                engine.stop()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert outs['contiguous'] == outs['paged-xla'] == outs['paged-kernel']

@@ -156,8 +156,9 @@ def test_decode_kernel_knob_refusals():
     capped = dataclasses.replace(cfg, attn_logit_softcap=50.0)
     with pytest.raises(NotImplementedError, match='softcap'):
         ContinuousBatchingEngine(capped, paged_block_size=8, device='cpu')
+    # The kernel walks block tables: the contiguous layout refuses it.
     with pytest.raises(NotImplementedError, match='paged'):
-        ContinuousBatchingEngine(cfg, device='cpu')
+        ContinuousBatchingEngine(cfg, device='cpu', decode_kernel='pallas')
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it():

@@ -12,7 +12,8 @@ artifact and chunk-stream functions and PrefixIndex's touch/get/digest,
 every function and class of utils/fault_injection.py (its points the
 reference's less the named elastic and control-plane lists), the prefix
 store's classes and methods in data/storage.py, the URL helpers of
-data/data_utils.py and the handoff settings of serve/constants.py. So
+data/data_utils.py, the handoff and preemption-notice settings of
+serve/constants.py and the engine's `infer_serving_tp`. So
 are the observability copies, docstrings aside: every definition of
 observability/tracing.py (its spans the reference's less the load
 balancer's), the histograms' exemplars and `collect_exemplars`. Each
@@ -345,7 +346,14 @@ def test_data_utils_copy_equals_the_reference(name):
 
 @pytest.mark.parametrize('name', ['_env_float', 'handoff_chunk_blocks',
                                   'handoff_timeout_seconds',
-                                  'ingest_session_ttl_seconds'])
+                                  'ingest_session_ttl_seconds',
+                                  'preempt_notice_budget_seconds'])
 def test_serve_constants_copy_equals_the_reference(name):
     port, ref = _pair(os.path.join('serve', 'constants.py'))
     assert ast.dump(port[name]) == ast.dump(ref[name])
+
+
+def test_infer_serving_tp_copy_equals_the_reference():
+    port, ref = _pair(os.path.join('models', 'inference.py'))
+    assert ast.dump(port['infer_serving_tp']) == \
+        ast.dump(ref['infer_serving_tp'])

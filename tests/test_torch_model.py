@@ -150,11 +150,17 @@ def test_rmsnorm_matches_reference():
 
 
 def test_contiguous_layout_refused():
-    """Serving (decode) needs the paged layout; the full-sequence
-    training path (decode=False) needs no KV layout at all."""
-    with pytest.raises(NotImplementedError, match='paged'):
-        Transformer(dataclasses.replace(get_config('test-tiny'), decode=True),
-                    device='meta')
+    """Serving (decode) without pool geometry builds the contiguous
+    layout, which refuses what the reference's refuses: a chunk longer
+    than max_seq_len. The full-sequence training path (decode=False)
+    needs no KV layout at all."""
+    cfg = dataclasses.replace(get_config('test-tiny'), decode=True,
+                              max_seq_len=8)
+    model = Transformer(cfg, device='cpu').init_random_(0)
+    k, v = model.new_kv_cache(1)
+    tokens = torch.zeros((1, 9), dtype=torch.int32)
+    with pytest.raises(ValueError, match='exceeds max_seq_len 8'):
+        model(tokens, torch.arange(9, dtype=torch.int32)[None], None, k, v)
     Transformer(get_config('test-tiny'), device='meta')
 
 
