@@ -307,6 +307,20 @@ and passed over):
             artifact round trip (/preempt on the prefill tier, pre-warm
             of the decode tier; 1500 tokens), tokens equal to cold,
             launches exact.
+  tp:       tensor-parallel serving at tp=2 on the one card: two ranks
+            on cuda:0 over gloo (NCCL's answer to two ranks on one card
+            is probed and printed). Kernels 1 and 2 at a rank's shard
+            shape (KV 4, n_rep 4, D 128) against their plain versions;
+            llama3-8b at 2 layers in fp32: tp=2 logits and each rank's
+            pool against tp=1 (TP_LOGIT_TOL, TP_KV_TOL), then through
+            ContinuousBatchingEngine (float and int8 KV) greedy tokens
+            equal to tp=1's, pools equal, launches layers x (chunks +
+            decode steps) on every rank; then llama3-8b at 32 layers in
+            bf16 through InferenceServer over HTTP on serve's traffic:
+            TTFT, tokens/s, per-rank peak memory, launch and collective
+            (2 x layers + 2 a decode step) formulas, bf16 agreement
+            with the serve phase's tokens (recorded); then the
+            all-reduce share of a decode step and a prefill chunk.
   The kernels and kernels_int8 phases also hold kernels 1 and 2 at the
   families' shapes (FAMILY_SHAPES: n_rep 6, 7 and 71, head_dim 64 and
   256, T 1 and 256, the 4096-key window at positions to 8190) and time
@@ -6449,11 +6463,486 @@ def phase_kv_handoff(torch, smi: str) -> dict:
             int8['launches']['paged_decode_attention_int8']}
 
 
+# ------------------------------------------------------------------ tp
+
+# Tensor-parallel serving on the one card: tp=2 as two processes that
+# share cuda:0 over a gloo group (NCCL takes one card a rank; the probe
+# below records its answer to two ranks on one card).
+TP = 2
+TP_DEVICES = ('cuda:0', 'cuda:0')
+# The fp32 parity model: llama3-8b at full width, 2 of its 32 layers.
+TP_PARITY_LAYERS = 2
+TP_PARITY = dict(num_slots=4, paged_block_size=16, prefill_chunk=256,
+                 rng_seed=0)
+TP_PARITY_PROMPTS = (600, 300)        # tokens, one request at a time
+TP_PARITY_NEW = 16
+# tp=2 against tp=1 on the same seeded weights, fp32, (atol, rtol): the
+# row-parallel products sum over two halves where tp=1 sums once; the CPU
+# test pins the same bound (tests/test_torch_tp.py LOGIT_TOL, KV_TOL).
+TP_LOGIT_TOL = (1e-4, 1e-4)
+TP_KV_TOL = (1e-4, 1e-4)
+TP_SERVE = dict(num_slots=8, paged_block_size=16, prefill_chunk=256,
+                rng_seed=0)
+# A rank's shard of llama3-8b's attention: KV 8 / 2 heads, n_rep 4.
+TP_SHARD = dict(kv_heads=8 // TP, n_rep=4, head_dim=128)
+TP_SHARD_CALLS = SERVE_CALLS[:2]      # decode B 8 T 1, prefill B 1 T 256
+
+
+def _tp_cfg(layers: int, dtype: str):
+    from skypilot_tpu_torch.models.configs import get_config
+    return dataclasses.replace(get_config('llama3-8b'), num_layers=layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def _tp_shard_kernels(torch) -> dict:
+    """Kernels 1 and 2 at a tp=2 rank's shard shape (TP_SHARD) on the
+    serve path's decode and prefill calls: fp32 and bf16 against their
+    plain versions (TOL), then the bf16 calls timed (device), with their
+    plain versions, bounds and (kernel 1) SDPA."""
+    from skypilot_tpu_torch.models.transformer import int8_quantize
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    out = {'paged': {'max_abs_err': 0.0}, 'paged8': {'max_abs_err': 0.0}}
+    kv = TP_SHARD['kv_heads']
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        for shape_name, batch, cur_len, pos in TP_SHARD_CALLS:
+            case = _pool_case(torch, torch.float32, batch, cur_len, pos,
+                              seed=3, num_blocks=NUM_BLOCKS, **TP_SHARD)
+            q, k_pool, v_pool, tables, positions, bps = case
+            q = q.to(dtype)
+            k8, ks = int8_quantize(k_pool)
+            v8, vs = int8_quantize(v_pool)
+            scales = dict(k_scale=ks[..., None].contiguous(),
+                          v_scale=vs[..., None].contiguous())
+            k_pool, v_pool = k_pool.to(dtype), v_pool.to(dtype)
+            args = (q, k_pool, v_pool, tables[:, :bps], positions)
+            args8 = (q, k8, v8, tables[:, :bps], positions)
+            for key, call, kw in (('paged', args, {}),
+                                  ('paged8', args8, scales)):
+                what = (f'tp shard {key} {shape_name} {dtype_name} '
+                        f'(KV {kv}, n_rep {TP_SHARD["n_rep"]}, D 128)')
+                got = pa.paged_decode_attention(*call, **kw)
+                ref = pa.paged_decode_attention_plain(*call, **kw)
+                torch.cuda.synchronize()
+                err = _check_close(torch, what, got, ref, TOL[dtype_name])
+                log(f'{what}: max_abs_err={err:.3e}')
+                if dtype_name != 'bfloat16':
+                    continue
+                out[key]['max_abs_err'] = max(out[key]['max_abs_err'], err)
+                fn = lambda: pa.paged_decode_attention(*call, **kw)  # noqa: E731
+                token_bytes = 2 * q.shape[-1] * (
+                    1 if key == 'paged8' else q.element_size()) + (
+                        8 if key == 'paged8' else 0)
+                bound_ms, bound_by = _bound(q, kv, positions, bps,
+                                            dtype_name, token_bytes)
+                # A trace that lost the split kernel's events reads under
+                # the bound (seen late in whole runs): trace again.
+                for _ in range(5):
+                    ms = device_ms(torch, fn)
+                    if ms >= bound_ms:
+                        break
+                    log(f'{what}: traced {ms:.4f} ms, under its bound '
+                        f'{bound_ms:.4f}: tracing again')
+                else:
+                    fail(f'{what}: five traces under the bound')
+                plain_ms = cuda_ms(torch, lambda: pa.paged_decode_attention_plain(
+                    *call, **kw), iters=5)
+                library_ms = (_library_ms(torch, (q, k_pool, v_pool, tables,
+                                                  positions, bps))
+                              if key == 'paged' else None)
+                out[key][shape_name] = {
+                    'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                    'bound_by': bound_by, 'library_ms': library_ms}
+                log(f'{what}: kernel_ms={ms:.4f} (device) plain_ms='
+                    f'{plain_ms:.4f} library_ms={library_ms} bound_ms='
+                    f'{bound_ms:.4f} ({bound_by})')
+            del case, q, k_pool, v_pool, k8, v8, ks, vs, args, args8, scales
+            torch.cuda.empty_cache()
+    return out
+
+
+_NCCL_PROBE = '''
+import datetime, sys, torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group('nccl', init_method=sys.argv[2], world_size=2,
+                        rank=int(sys.argv[1]),
+                        timeout=datetime.timedelta(seconds=40))
+x = torch.ones(4, device='cuda:0')
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print('ALLREDUCE', x.tolist(), flush=True)
+'''
+
+
+def _nccl_two_ranks_one_card() -> str:
+    """NCCL's answer to two ranks on cuda:0: two processes join an NCCL
+    group and all-reduce, killed after 90 s; returns the error line (or
+    the sum, or 'hung')."""
+    from skypilot_tpu_torch.parallel import distributed
+    address = f'tcp://127.0.0.1:{distributed.free_port()}'
+    procs = [subprocess.Popen([sys.executable, '-c', _NCCL_PROBE, str(r),
+                               address], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=90)[0])
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs.append(proc.communicate()[0] + '\nhung (killed at 90 s)')
+    text = '\n'.join(outs)
+    found = [line.strip() for line in text.splitlines()
+             if 'Duplicate GPU' in line or 'ALLREDUCE' in line or
+             'hung' in line or 'Error' in line]
+    answer = found[0] if found else text.strip().splitlines()[-1:]
+    log(f'tp: NCCL with two ranks on cuda:0 (rc {[p.returncode for p in procs]}): '
+        f'{answer}')
+    return str(answer)
+
+
+def tp_follower(group) -> None:
+    """The tp phase's follower: the fp32 model check on its shard, then
+    the engines' follower loop (serve_follower) for the phase's engines
+    and server."""
+    import torch
+
+    from skypilot_tpu_torch.models import inference
+    model_run = _tp_model_run(torch, group)
+    group.gather_host(model_run[2])
+    group.gather_host(model_run[3])
+    del model_run
+    torch.cuda.empty_cache()
+    inference.serve_follower(group)
+
+
+TP_MODEL_TOKENS = 256
+
+
+def _tp_model_run(torch, group):
+    """The fp32 parity model (rank's shard under `group`): one 256-token
+    prefill and one decode step through the paged kernel; (prefill
+    logits of the last token, decode logits, K pool, V pool)."""
+    from skypilot_tpu_torch.models.transformer import Transformer
+    cfg = dataclasses.replace(_tp_cfg(TP_PARITY_LAYERS, 'float32'),
+                              decode=True, paged_block_size=16,
+                              paged_num_blocks=18, max_seq_len=272)
+    model = Transformer(cfg, device='cuda:0', group=group).init_random_(0)
+    k_pool, v_pool = model.new_kv_pool(18)
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TP_MODEL_TOKENS + 1),
+                           generator=gen).cuda()
+    tables = torch.arange(18, dtype=torch.int32, device='cuda')[None]
+    tables[0, 17] = 0
+    with torch.inference_mode():
+        prefill = model(tokens[:, :TP_MODEL_TOKENS], torch.arange(
+            TP_MODEL_TOKENS, dtype=torch.int32, device='cuda')[None],
+                        tables, k_pool, v_pool, logits_at=TP_MODEL_TOKENS - 1)
+        decode = model(tokens[:, TP_MODEL_TOKENS:], torch.full(
+            (1, 1), TP_MODEL_TOKENS, dtype=torch.int32, device='cuda'),
+                       tables, k_pool, v_pool)[:, 0]
+    torch.cuda.synchronize()
+    return prefill.float().cpu(), decode.float().cpu(), k_pool.cpu(), \
+        v_pool.cpu()
+
+
+def _tp_parity_engines(torch, group) -> dict:
+    """llama3-8b (2 layers, fp32) through ContinuousBatchingEngine at tp=2
+    and tp=1 on the same seeded weights, float and int8 KV: the prompts
+    one at a time, greedy tokens equal; each rank's pool equal to tp=1's
+    KV-head slice (the gathered global blocks against tp=1's); kernel 1
+    (2 under int8 KV) launches on every rank."""
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    cfg = _tp_cfg(TP_PARITY_LAYERS, 'float32')
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in TP_PARITY_PROMPTS]
+    out = {}
+    for kv_quant in (None, 'int8'):
+        label = 'int8 KV' if kv_quant else 'float KV'
+        runs = {}
+        for tp in (1, TP):
+            engine = ContinuousBatchingEngine(
+                cfg, kv_quant=kv_quant, mesh=group if tp > 1 else None,
+                device='cuda:0', **TP_PARITY)
+            before = engine.tp_counts()
+            tokens = [engine.generate(p, max_new_tokens=TP_PARITY_NEW,
+                                      timeout=600)[0] for p in prompts]
+            after = engine.tp_counts()
+            used = sum(-(-(n + TP_PARITY_NEW) // 16) for n in
+                       TP_PARITY_PROMPTS)
+            blocks = list(range(1, used + 1))
+            gathered = engine._exclusive(lambda: engine._gather(blocks))  # pylint: disable=protected-access
+            runs[tp] = dict(
+                tokens=tokens,
+                pools=[h._data for h in gathered],  # pylint: disable=protected-access
+                launches=[{k: a[k] - b[k] for k in a if k.startswith('paged')}
+                          for a, b in zip(after, before)],
+                steps=engine.tick_stats['decode_steps'],
+                chunks=engine.paged_stats['prefill_chunks'])
+            engine.stop()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        one, two = runs[1], runs[TP]
+        if one['tokens'] != two['tokens']:
+            fail(f'tp parity ({label}): tp={TP} greedy tokens '
+                 f'{two["tokens"]} != tp=1 {one["tokens"]}')
+        worst = 0.0
+        for a, b in zip(one['pools'], two['pools']):
+            int8 = a.dtype == torch.int8
+            a, b = a.float(), b.float()
+            if int8:
+                # int8 payloads: a rounding boundary may move one step.
+                diff = (a - b).abs()
+                if float(diff.max()) > 1 or float((diff > 0).float().mean()) > 1e-3:
+                    fail(f'tp parity ({label}): int8 pool differs from '
+                         f'tp=1 beyond one step on 0.1% of entries')
+                continue
+            worst = max(worst, _check_close(
+                torch, f'tp parity ({label}): the ranks\' pool vs tp=1', b,
+                a, TP_KV_TOL))
+        key = ('paged_decode_attention_int8' if kv_quant else
+               'paged_decode_attention')
+        formula = TP_PARITY_LAYERS * (two['chunks'] + two['steps'])
+        per_rank = [r[key] for r in two['launches']]
+        if per_rank != [formula] * TP:
+            fail(f'tp parity ({label}): kernel launches per rank '
+                 f'{per_rank} != layers x (chunks + decode steps) = '
+                 f'{formula}')
+        log(f'tp parity ({label}): llama3-8b {TP_PARITY_LAYERS} layers '
+            f'fp32, tp={TP} tokens equal tp=1 ({len(prompts)} requests x '
+            f'{TP_PARITY_NEW}); pools vs tp=1 max_abs_err {worst:.3e} '
+            f'(TP_KV_TOL {TP_KV_TOL}); {key} launches per rank {per_rank} '
+            f'= {TP_PARITY_LAYERS} x ({two["chunks"]} chunks + '
+            f'{two["steps"]} decode steps)')
+        out[key] = per_rank
+    return out
+
+
+def _allreduce_share(torch, engine, smi: str) -> dict:
+    """On the drained tp engine: one all-slots decode step (8 rows at 700
+    tokens) and one 256-token prefill chunk, host wall per step and CUDA
+    kernel time (rank 0's trace), then again with rank 0's all-reduces
+    timed (a synchronize before and after each): their share of the
+    step's wall time. gloo stages every all-reduce through the host."""
+    import numpy as np
+    cfg = engine.cfg
+    pool = engine._pool  # pylint: disable=protected-access
+    rows, context = engine.num_slots, 700
+    need = 767 // cfg.paged_block_size + 1
+    blocks = [[pool.alloc() for _ in range(need)] for _ in range(rows)]
+    width = engine._blocks_per_seq + 1  # pylint: disable=protected-access
+    tables = np.zeros((rows, width), np.int32)
+    for r, row in enumerate(blocks):
+        tables[r, :need] = row
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (rows,), generator=gen,
+                           dtype=torch.int32).numpy()
+    chunk = torch.randint(0, cfg.vocab_size, (256,), generator=gen,
+                          dtype=torch.int32).numpy()
+    dec, pf = engine._dec, engine._pf  # pylint: disable=protected-access
+    group = engine.mesh
+    out = {}
+
+    def decode():
+        dec.feed.put([tokens, np.full(rows, context, np.int32)])
+        engine._run_decode(1, False).result()  # pylint: disable=protected-access
+
+    def prefill():
+        engine._run_prefill(False)  # pylint: disable=protected-access
+        engine._first_host.copy(pf.first).result()  # pylint: disable=protected-access
+
+    with torch.inference_mode():
+        dec.tables.put(tables)
+        dec.temps.put(np.zeros(rows, np.float32))
+        pf.ints.put(np.concatenate([tables[0], chunk, [512, 255, 0]]))
+        for label, fn in (('decode step', decode), ('prefill chunk', prefill)):
+            wall, kernel, _, _ = _timed_step(
+                torch, fn, f'tp{TP}', f'llama3-8b {label}, eager, rank 0',
+                smi, graph=False)
+            spent = [0.0, 0]
+            plain = group.all_reduce
+
+            def timed(x, plain=plain):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = plain(x)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+                spent[1] += 1
+                return result
+
+            group.all_reduce = timed
+            try:
+                fn()
+                spent[:] = [0.0, 0]
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                timed_wall = (time.perf_counter() - t0) / 5 * 1e3
+            finally:
+                del group.all_reduce
+            share = spent[0] / 5 * 1e3 / timed_wall
+            out[label] = {'wall_ms': wall, 'kernel_ms': kernel,
+                          'allreduce_ms': spent[0] / 5 * 1e3,
+                          'allreduces': spent[1] // 5,
+                          'timed_wall_ms': timed_wall, 'share': share}
+            log(f'tp{TP} {label}: host wall {wall:.2f} ms, CUDA kernels '
+                f'{kernel:.2f} ms (rank 0); with each all-reduce timed '
+                f'(synchronized): {spent[1] // 5} all-reduces '
+                f'{spent[0] / 5 * 1e3:.2f} ms of {timed_wall:.2f} ms, '
+                f'share {share:.3f} [{smi}]')
+    for row in blocks:
+        pool.release(row)
+    engine._forget_inputs()  # pylint: disable=protected-access
+    return out
+
+
+def phase_tp(torch, smi: str, shard: dict, serve_tokens=None) -> dict:
+    """Tensor-parallel serving at tp=2 on the one card (two ranks on
+    cuda:0 over gloo): kernels 1 and 2 at a rank's shard shape against
+    their plain versions; NCCL's answer to two ranks on one card; the
+    fp32 parity model (llama3-8b, 2 layers) logits and pools against
+    tp=1; the parity engines' tokens, pools and launches; then llama3-8b
+    at all 32 layers in bf16 through InferenceServer over HTTP on serve's
+    traffic (tokens/s, TTFT, per-rank peak memory, launch and collective
+    formulas, bf16 agreement with tp=1's tokens, recorded); then the
+    all-reduce share of a decode step and a prefill chunk. `shard`: the
+    kernels at the shard shape (`_tp_shard_kernels`, timed early in the
+    run)."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    t_phase = time.monotonic()
+    nccl = _nccl_two_ranks_one_card()
+    t0 = time.monotonic()
+    group = distributed.spawn_group(TP, 'chip_smoke:tp_follower',
+                                    list(TP_DEVICES), 'gloo', 600)
+    log(f'tp: group of {TP} ranks on {TP_DEVICES} over gloo in '
+        f'{time.monotonic() - t0:.1f}s (follower pids '
+        f'{[p.pid for p in group.processes]})')
+    try:
+        ref = _tp_model_run(torch, None)
+        got = _tp_model_run(torch, group)
+        k_parts = group.gather_host(got[2])
+        v_parts = group.gather_host(got[3])
+        for what, a, b in (('prefill logits', got[0], ref[0]),
+                           ('decode logits', got[1], ref[1])):
+            err = _check_close(torch, f'tp model {what} vs tp=1', a, b,
+                               TP_LOGIT_TOL)
+            log(f'tp model ({TP_PARITY_LAYERS} layers, fp32): {what} tp={TP} '
+                f'vs tp=1 max_abs_err {err:.3e} (TP_LOGIT_TOL '
+                f'{TP_LOGIT_TOL})')
+        if int(got[0].argmax()) != int(ref[0].argmax()):
+            fail('tp model: greedy first token differs from tp=1')
+        kv = ref[2].shape[3] // TP
+        for name, parts, full in (('K', k_parts, ref[2]),
+                                  ('V', v_parts, ref[3])):
+            for r, part in enumerate(parts):
+                err = _check_close(
+                    torch, f'tp model rank {r} {name} pool vs tp=1 slice',
+                    part, full[..., r * kv:(r + 1) * kv, :], TP_KV_TOL)
+                log(f'tp model: rank {r} {name} pool = tp=1 heads '
+                    f'{r * kv}..{(r + 1) * kv - 1}, max_abs_err {err:.3e}')
+        del ref, got, k_parts, v_parts
+        gc.collect()
+        torch.cuda.empty_cache()
+        parity = _tp_parity_engines(torch, group)
+
+        # llama3-8b, every layer, bf16, through the server over HTTP.
+        t0 = time.monotonic()
+        server = InferenceServer('llama3-8b', mesh=group, device='cuda:0',
+                                 **TP_SERVE)
+        engine = server.engine
+        server.warmup()
+        mem = engine.memory_footprint()
+        log(f'tp serve: llama3-8b tp={TP} built and warm in '
+            f'{time.monotonic() - t0:.1f}s; per device {mem["weight_bytes_per_device"] / 2**30:.2f} '
+            f'GiB weights + {mem["kv_bytes_per_device"] / 2**30:.2f} GiB pool '
+            f'(global {mem["total_bytes"] / 2**30:.2f} GiB)')
+        http = BackgroundServer(server)
+        try:
+            bodies = _serve_bodies(torch, engine.cfg.vocab_size)
+            runs = []
+            for depth in (0, 1):
+                engine.async_depth = depth
+                before = engine.tp_counts()
+                run = _serve_traffic(torch, engine, http.url, bodies)
+                after = engine.tp_counts()
+                # Rank 0's counters were set to 0 for the run
+                # (`_serve_traffic`); a follower's count is its delta.
+                per_rank = [run['launches']['paged_decode_attention']] + [
+                    a['paged_decode_attention'] - b['paged_decode_attention']
+                    for a, b in zip(after[1:], before[1:])]
+                expected = run['expected']['paged_decode_attention']
+                if run['launches'] != run['expected'] or \
+                        per_rank != [expected] * TP:
+                    fail(f'tp serve: launches rank 0 {run["launches"]}, per '
+                         f'rank {per_rank}, expected {expected} a rank')
+                step = engine._tp_step  # pylint: disable=protected-access
+                want = 2 * engine.cfg.num_layers + 2
+                if step[0] != want:
+                    fail(f'tp serve: {step[0]} collectives a decode step, '
+                         f'formula 2 x layers + 2 = {want}')
+                peaks = [a['max_memory_allocated'] / 2**30 for a in after]
+                t = run['ticks']
+                log(f'tp serve: async_depth {depth}: {len(bodies)} requests '
+                    f'in {run["wall"]:.2f}s; chunks {run["chunks"]}, decode '
+                    f'steps {t["decode_steps"]} ({t["chained"]} chained); '
+                    f'kernel 1 launches per rank {per_rank} = '
+                    f'{engine.cfg.num_layers} x ({run["chunks"]} + '
+                    f'{t["decode_steps"]}), {TP * expected} over the group; '
+                    f'{step[0]} all-reduces a decode step (2 x '
+                    f'{engine.cfg.num_layers} + 2), {step[1]} bytes; TTFT '
+                    f'p50 {run["ttft_ms"]:.1f} ms, decode '
+                    f'{run["tokens_per_s"]:.1f} tokens/s over '
+                    f'{engine.num_slots} slots; peak memory per rank '
+                    f'{[round(p, 2) for p in peaks]} GiB [{smi}]')
+                if runs and run['tokens'] != runs[0]['tokens']:
+                    fail('tp serve: greedy tokens at async_depth 1 differ '
+                         'from async_depth 0')
+                runs.append(dict(run, per_rank=per_rank, peaks=peaks))
+        finally:
+            http.close()
+            server.draining = True
+        if not engine.drain(timeout=120):
+            fail('tp serve: engine did not drain')
+        engine._pool.check()  # pylint: disable=protected-access
+        agree = None
+        if serve_tokens is not None:
+            same = [a == b for a, b in zip(runs[0]['tokens'], serve_tokens)]
+            first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                          None) for a, b in zip(runs[0]['tokens'],
+                                                serve_tokens)]
+            agree = {'equal': sum(same), 'of': len(same),
+                     'first_difference': first}
+            log(f'tp serve: bf16 greedy tokens equal to the tp=1 serve '
+                f'phase\'s in {sum(same)} of {len(same)} requests (first '
+                f'differing token per request {first}); recorded, not '
+                f'required: the row-parallel sums run in another order')
+        breakdown = _allreduce_share(torch, engine, smi)
+        del server, engine, http
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        group.close()
+    if [p.returncode for p in group.processes] != [0]:
+        fail(f'tp: follower exit codes {[p.returncode for p in group.processes]}')
+    log(f'tp: phase {time.monotonic() - t_phase:.1f}s; followers exited 0')
+    return {'shard': shard, 'nccl': nccl, 'parity': parity,
+            'serve': [{k: r[k] for k in ('ttft_ms', 'tokens_per_s',
+                                         'per_rank', 'peaks', 'chunks')}
+                      for r in runs],
+            'launches': runs[0]['per_rank'], 'agree': agree,
+            'breakdown': breakdown}
+
+
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
           'train_sp', 'serve', 'resilience', 'contiguous', 'serve_prefix',
           'serve_tenant', 'serve_sched', 'graph_parity', 'families',
-          'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff')
+          'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff', 'tp')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -6481,7 +6970,7 @@ def main(argv=None) -> int:
     log(f'device: {smi}; torch {torch.__version__}, CUDA '
         f'{torch.version.cuda}, {torch.cuda.get_device_name(0)}')
 
-    t0 = time.monotonic()
+    t0 = t_smoke = time.monotonic()
     _build.build_all()
     log(f'build: {_build.sources()} in {time.monotonic() - t0:.1f}s')
     for name, text in _build.build_logs.items():
@@ -6499,6 +6988,12 @@ def main(argv=None) -> int:
         paged = phase_kernels(torch)
     if 'kernels_int8' in phases:
         paged8 = phase_kernels_int8(torch)
+    tp_shard = None
+    if 'tp' in phases:
+        # Kernels 1 and 2 at a tp rank's shard shape, timed beside the
+        # kernel phases: late in a whole run a profiler trace of the
+        # decode route has come back without its split kernel's events.
+        tp_shard = _tp_shard_kernels(torch)
     if 'lora' in phases:
         lora = phase_lora(torch, args.parent_lora)
     if 'flash' in phases:
@@ -6644,6 +7139,35 @@ def main(argv=None) -> int:
             elif entry['name'].startswith('paged_prefill_kernel<int8_t>'):
                 entry['kv_handoff_launches'] = launched[
                     'paged_decode_attention_int8']
+    if 'tp' in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = phase_tp(torch, smi, tp_shard, serve_tokens)
+        # Kernels 1 and 2 on the tp path: each rank's launches, and the
+        # kernels at a rank's shard shape (their worst error joins the
+        # entry's).
+        for key, prefix, replaces, launches in (
+                ('paged', 'paged_decode_attention',
+                 'skypilot_tpu/ops/paged_attention.py:71',
+                 {'serve': tp['launches'],
+                  'parity': tp['parity']['paged_decode_attention']}),
+                ('paged8', 'paged_prefill_kernel<int8_t>',
+                 'skypilot_tpu/ops/paged_attention.py:126',
+                 {'parity': tp['parity']['paged_decode_attention_int8']})):
+            shard = tp['shard'][key]
+            entry = next((k for k in kernels
+                          if k['name'].startswith(prefix)), None)
+            if entry is None:
+                entry = {'name': prefix, 'route': 'cuda',
+                         'source': PAGED_SOURCE, 'replaces': replaces,
+                         'launches': next(iter(launches.values()))[0],
+                         'max_abs_err': 0.0, **shard['decode']}
+                kernels.append(entry)
+            entry['tp_launches'] = launches
+            entry['tp_shard'] = {'decode': shard['decode'],
+                                 'prefill': shard['prefill']}
+            entry['max_abs_err'] = max(entry['max_abs_err'],
+                                       shard['max_abs_err'])
     if contiguous is not None:
         # The contiguous phase's launches: kernels 1 and 2 in its paged
         # comparison engines, kernel 7 on the contiguous layout.
@@ -6670,6 +7194,8 @@ def main(argv=None) -> int:
                     'paged_decode_attention_int8']
             elif entry['name'] == 'fused_multi_lora':
                 entry['resilience_launches'] = resilience['fused_multi_lora']
+    log(f'smoke: phases {",".join(phases)} in '
+        f'{time.monotonic() - t_smoke:.1f}s (the build included)')
     print(json.dumps({'kernels': kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

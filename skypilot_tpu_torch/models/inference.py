@@ -122,10 +122,12 @@ from skypilot_tpu_torch.models.configs import ModelConfig, get_config
 from skypilot_tpu_torch.models import step_graph
 from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models import quantize as quantize_lib
-from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.models.transformer import (Transformer,
+                                                 check_supported)
 from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.ops import limits
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.serve import tenancy
 from skypilot_tpu_torch.utils import fault_injection
 
@@ -186,6 +188,33 @@ _PAGED_CAPACITY = obs.gauge(
 _PAGED_USED = obs.gauge(
     'skytpu_engine_paged_blocks_used',
     'Paged KV pool blocks currently referenced')
+# Tensor-parallel serving (a ServingGroup of tp > 1 ranks): the
+# reference's gauges and help text. The port counts the collectives with
+# the group's wrapper over one decode step (parallel/mesh.ServingGroup)
+# where the reference probes the compiled HLO.
+_TP_SIZE = obs.gauge(
+    'skytpu_engine_tp_size',
+    'Tensor-parallel degree of the serving mesh (1 = single-chip)')
+_TP_COLLECTIVES = obs.gauge(
+    'skytpu_engine_tp_collectives',
+    'Collective ops in the compiled all-slots decode step '
+    '(compiled-HLO probe, parallel/hlo_probe; 0 until probed)')
+_TP_ALLREDUCE_BYTES = obs.gauge(
+    'skytpu_engine_tp_allreduce_bytes',
+    'Bytes one compiled decode step moves through all-reduce (the '
+    'per-layer tensor-parallel activation reductions over ICI; '
+    'compiled-HLO probe, 0 until probed or single-chip)')
+_PAGED_USED_PER_DEV = obs.gauge(
+    'skytpu_engine_paged_blocks_used_per_device',
+    'Paged KV pool blocks referenced, per mesh device. Block tables '
+    'are replicated host-side so counts match across devices; the '
+    'BYTES each block costs per device differ with tp — see '
+    'skytpu_engine_paged_pool_bytes_per_device', ('device',))
+_POOL_BYTES_PER_DEV = obs.gauge(
+    'skytpu_engine_paged_pool_bytes_per_device',
+    'HBM bytes of the paged KV pool resident on each mesh device '
+    '(every device holds its kv-head shard of every block: '
+    'pool bytes / tp)', ('device',))
 _PAGED_REUSED = obs.counter(
     'skytpu_engine_paged_blocks_reused_total',
     'Whole blocks attached read-only from cached prefixes at admission')
@@ -439,20 +468,27 @@ def _resolve_decode_kernel(decode_kernel: str, cfg: ModelConfig) -> str:
 
 
 def _build_model(cfg: ModelConfig, params, rng_seed: int,
-                 quantize: Optional[str], device: torch.device) -> tuple:
+                 quantize: Optional[str], device: torch.device,
+                 group=None) -> tuple:
     """(cfg, the served model): `params` (a float state dict, or an int8
     one for an int8 cfg) or seeded random float weights; with
     quantize='int8' the float weights are placed first, then each
     projection is quantized on the device (models/quantize.py) and the
     model rebuilt on the int8 state under the int8 cfg returned, as the
     reference quantizes after `_resolve_cfg_and_params` made its float
-    tree."""
+    tree. Under a serving group of tp > 1 each rank builds its shard:
+    seeded weights drawn whole a parameter at a time, or its slice of the
+    full `params` (parallel/sharding.shard_params), on its device."""
     if not quantize:
-        model = Transformer(cfg, device=device)
+        model = Transformer(cfg, device=device, group=group)
         if params is None:
             logger.info('Initializing random weights for %s', cfg.name)
             model.init_random_(rng_seed)
         else:
+            if group is not None and group.tp > 1:
+                params = {
+                    k: v.to(device) for k, v in sharding.shard_params(
+                        params, cfg, group.tp, group.rank).items()}
             model.load_state_dict(params, strict=True, assign=True)
         return cfg, model
     int8_cfg = quantize_lib.int8_config(cfg)
@@ -640,7 +676,143 @@ class _Inflight:
         self.k = k
 
 
-class ContinuousBatchingEngine:
+class _Cache1(list):
+    """A contiguous prefix entry under tp: the batch-1 cache's tensors and
+    the handle under which each follower keeps its own shard of them."""
+    __slots__ = ('handle',)
+
+
+class _TensorParallel:
+    """The engines' side of a serving group (parallel/mesh.ServingGroup):
+    on rank 0 (the driver) every device operation is first sent to the
+    followers as an op, on a follower `follow()` runs the ops rank 0
+    sent. A message is a list of ops; static-input uploads queue in
+    `_tp_pending` and go with the next step's op. Off tp every hook is a
+    no-op."""
+
+    mesh = None
+    _tp = 1
+    _tp_driver = False
+
+    def _tp_init(self, mesh, kind: str, spec: dict, params,
+                 refuse: dict) -> None:
+        """Take the group; on tp > 1 refuse what tp does not serve (before
+        any follower builds) and, on rank 0 of a spawned group, have the
+        followers build the same engine (`kind`, `spec`) and receive the
+        full `params` (each rank keeps its shard)."""
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self._tp = self.mesh.tp if self.mesh is not None else 1
+        self._tp_driver = self._tp > 1 and self.mesh.rank == 0
+        self._tp_pending: list = []
+        # Contiguous prefix entries a follower holds, by handle.
+        self._tp_handles: Dict[int, list] = {}
+        self._tp_next_handle = 0
+        # A recovery's fresh world: the next message first resets the
+        # followers' host state.
+        self._tp_reset = False
+        # (collectives, all-reduce bytes) of one decode step.
+        self._tp_step = (0, 0)
+        if self._tp == 1:
+            return
+        bad = [name for name, value in refuse.items() if value]
+        if bad:
+            raise NotImplementedError(
+                f'tensor-parallel serving (tp={self._tp}) does not serve '
+                f'{", ".join(bad)} yet ({sharding.TP_NEXT})')
+        cfg = _resolve_cfg(spec['cfg'], spec.get('max_seq_len'), None, None)
+        check_supported(cfg, self._tp)
+        logger.info(
+            'tensor-parallel serving: tp=%d rank %d on %s over %s; steps '
+            'run eagerly (no CUDA graphs: gloo collectives cannot be '
+            'captured; NCCL capture waits for a multi-card machine, '
+            'ROADMAP.md §1 item 5b)', self._tp, self.mesh.rank,
+            self.mesh.device, self.mesh.backend)
+        _TP_SIZE.set(self._tp)
+        if not (self._tp_driver and self.mesh.spawned):
+            return
+        if self.mesh.following:
+            self.mesh.send([('stop',)])
+        meta = (None if params is None else
+                [(k, tuple(v.shape), v.dtype) for k, v in params.items()])
+        self.mesh.send([('build', kind, spec, meta)])
+        for key, shape, dtype in meta or ():
+            self.mesh.broadcast_tensor(params[key], shape, dtype)
+        self.mesh.following = True
+
+    def _tp_send(self, *op) -> None:
+        """Rank 0: send the queued uploads and `op` to the followers."""
+        if not self._tp_driver:
+            return
+        ops = [('reset',)] if self._tp_reset else []
+        self._tp_reset = False
+        ops += self._tp_pending
+        self._tp_pending = []
+        ops.append(op)
+        self.mesh.send(ops)
+
+    def _tp_note_put(self, where: tuple, values) -> None:
+        self._tp_pending.append(('put',) + where + (np.asarray(values),))
+
+    def _tp_mirror(self, bufs, prefix) -> None:
+        """Rank 0: queue every upload into `bufs`' static inputs."""
+        if not self._tp_driver or bufs is None:
+            return
+        for attr in ('feed', 'temps', 'tables', 'aids', 'ints', 'temp'):
+            staged = getattr(bufs, attr, None)
+            if isinstance(staged, step_graph.Staged):
+                staged.on_put = functools.partial(self._tp_note_put,
+                                                  (prefix, attr))
+
+    def tp_counts(self) -> List[Dict[str, int]]:
+        """Every rank's launch counters, collective counts and peak
+        device memory (torch.cuda.max_memory_allocated; 0 on the CPU), in
+        rank order (one element off tp)."""
+        from skypilot_tpu_torch.ops.fused_lora import fused_multi_lora
+        from skypilot_tpu_torch.ops.paged_attention import (
+            paged_decode_attention)
+        keys = ('paged_decode_attention', 'paged_decode_attention_int8',
+                'fused_multi_lora', 'collectives', 'allreduce_bytes',
+                'max_memory_allocated')
+        mesh = self.mesh
+        mine = torch.tensor(
+            [paged_decode_attention.launches,
+             paged_decode_attention.int8_launches,
+             fused_multi_lora.launches,
+             mesh.collectives if mesh is not None else 0,
+             mesh.allreduce_bytes if mesh is not None else 0,
+             torch.cuda.max_memory_allocated(self.device)
+             if self.device.type == 'cuda' else 0],
+            dtype=torch.int64)
+        if self._tp == 1:
+            return [dict(zip(keys, mine.tolist()))]
+        self._tp_send('counts')
+        parts = mesh.gather_host(mine)
+        if parts is None:
+            return []
+        return [dict(zip(keys, p.tolist())) for p in parts]
+
+    def follow(self) -> None:
+        """A follower: run rank 0's ops until it stops this engine."""
+        if self._tp == 1 or self._tp_driver:
+            raise RuntimeError('follow() runs on a follower rank of a '
+                               'serving group')
+        with torch.inference_mode():
+            if self.device.type == 'cuda':
+                torch.cuda.set_device(self.device)
+            while True:
+                for op in self.mesh.recv():
+                    if op[0] == 'stop':
+                        return
+                    self._tp_apply(op)
+
+    def _tp_apply(self, op) -> None:
+        if op[0] == 'counts':
+            self.tp_counts()
+            return
+        raise RuntimeError(f'unknown tensor-parallel op {op[0]!r}')
+
+
+class ContinuousBatchingEngine(_TensorParallel):
     """Slot-based continuous batching over a paged KV pool
     (paged_block_size > 0) or a contiguous per-slot cache (0, the
     reference's default: no chunked prefill, no blocks, the prefix cache
@@ -688,6 +860,19 @@ class ContinuousBatchingEngine:
     ingest_ttl is how long a partial handoff stream may wait for its
     next chunk (`ingest_stats`; `prewarm_stats` counts hits on imported
     and ingested entries and the blocks exported and pre-warmed).
+
+    mesh (a parallel.mesh.ServingGroup, `decode_group(tp)`) of tp > 1
+    serves the model tensor-parallel: this rank holds its shard (the
+    heads, KV heads, MLP hidden and vocab sliced by tp; its kv_heads/tp
+    of every pool block or slot-cache row). Rank 0 is the engine a
+    caller submits to; it sends each device step (every static-input
+    upload, every step, block copy, contiguous prefill, KV gather and
+    scatter) to the followers, whose engines run it on their shards in
+    `follow()`. Every rank samples the same all-reduced logits with the
+    same seeded generator, so every rank holds the same tokens. Steps run
+    eagerly under tp (`tick_stats['eager_steps']`): gloo collectives
+    cannot be captured in a CUDA graph. Adapters and int8 weights are
+    refused under tp (sharding.TP_NEXT).
 
     watchdog_timeout (seconds; None or 0 = off) starts a monitor thread
     beside the engine thread: when a busy engine completes no tick for
@@ -737,7 +922,17 @@ class ContinuousBatchingEngine:
                  tier: str = 'monolithic',
                  ingest_ttl: float = 60.0,
                  watchdog_timeout: Optional[float] = None,
+                 mesh=None,
                  device='cuda') -> None:
+        # What a follower of a spawned serving group rebuilds this engine
+        # from (every argument but the weights, the group and the device).
+        spec = {k: v for k, v in locals().items()
+                if k not in ('self', 'params', 'mesh', 'device')}
+        self._tp_init(mesh, 'ContinuousBatchingEngine', spec, params,
+                      refuse={'max_adapters': max_adapters,
+                              'quantize': quantize})
+        if self._tp > 1:
+            device = self.mesh.device
         # Each engine thread binds the world it schedules over here; any
         # other thread reads `_world`, the current one.
         self._tls = threading.local()
@@ -852,7 +1047,7 @@ class ContinuousBatchingEngine:
         self.cfg = dataclasses.replace(self.cfg,
                                        decode_kernel=self.decode_kernel)
         self.cfg, self.model = _build_model(self.cfg, params, rng_seed,
-                                            quantize, self.device)
+                                            quantize, self.device, self.mesh)
         # The KV store: (K, V) pools, or on the contiguous layout the
         # (L, num_slots, S, KV, D) slot cache, plus their int8 scales
         # under int8 KV. Written in place: the step graphs hold their
@@ -891,7 +1086,8 @@ class ContinuousBatchingEngine:
         # are unread at a time.
         # Block-table width (0: the contiguous layout has no tables).
         width = self._blocks_per_seq + 1 if nb else 0
-        self._steps = step_graph.StepGraphs(self.device, self._gen)
+        self._steps = step_graph.StepGraphs(self.device, self._gen,
+                                            eager=self._tp > 1)
         self._steps.on_capture = self._note_slow_tick
         self._dec = step_graph.DecodeBuffers(
             num_slots, width, bool(self.max_adapters), self.device,
@@ -901,6 +1097,8 @@ class ContinuousBatchingEngine:
         self._pf = (step_graph.PrefillBuffers(
             self.prefill_chunk, width, bool(self.max_adapters), self.device)
             if nb else None)
+        self._tp_mirror(self._dec, 'dec')
+        self._tp_mirror(self._pf, 'pf')
         self._first_host = step_graph.HostRing((1,), torch.int32,
                                                self.device, num_slots)
         # Verify buffers per draft count K, made at first use.
@@ -921,6 +1119,9 @@ class ContinuousBatchingEngine:
         self.tick_stats = {'dispatches': 0, 'decode_steps': 0, 'chained': 0,
                            'flushes': 0, 'host_gap_s': 0.0,
                            'gap_samples': 0, 'prefills': 0}
+        if self._tp > 1:
+            self.tick_stats['eager_steps'] = 1
+            self._tp_publish_static()
         # Tier-ordered admission queue: FIFO while every request is
         # 'standard'.
         self._queue: tenancy.TierQueue = tenancy.TierQueue()
@@ -1171,12 +1372,14 @@ class ContinuousBatchingEngine:
                 self.num_slots, k + 1, self._blocks_per_seq + 1
                 if self.paged_block_size else 0,
                 bool(self.max_adapters), self.device, ring=2)
+            self._tp_mirror(self._ver[k], ('ver', k))
         return self._ver[k]
 
     def _run_verify(self, k: int, sampling: bool) -> step_graph.Landing:
         """Run one verify over what K's static inputs hold and start its
         result's copy to the host."""
         v = self._verify_buffers(k)
+        self._tp_send('run', 'verify', k, sampling)
         self._steps.run(('verify', k, sampling),
                         lambda: self._verify_body(k, sampling),
                         random=sampling)
@@ -1186,12 +1389,20 @@ class ContinuousBatchingEngine:
         """Run one k-step decode dispatch over what the static inputs hold
         and start its columns' copy to the host."""
         out = self._dec.columns(k)
+        self._tp_send('run', 'decode', k, sampling)
+        mesh = self.mesh
+        before = (mesh.collectives, mesh.allreduce_bytes) if mesh else None
         self._steps.run(('decode', k, sampling),
                         lambda: self._decode_body(k, sampling),
                         keep=(self._dec.feed.dev,), random=sampling)
+        if before is not None:
+            # The group's wrapper counted every all-reduce of the dispatch.
+            self._tp_step = ((mesh.collectives - before[0]) // k,
+                             (mesh.allreduce_bytes - before[1]) // k)
         return self._dec.host[k].copy(out)
 
     def _run_prefill(self, sampling: bool) -> None:
+        self._tp_send('run', 'prefill', sampling)
         self._steps.run(('prefill', sampling),
                         lambda: self._prefill_body(sampling), random=sampling)
 
@@ -1324,6 +1535,7 @@ class ContinuousBatchingEngine:
         copy is ordered after every step that wrote `src` and before
         every step that reads `dst`."""
         with self._device(gen):
+            self._tp_send('cow', src, dst)
             for pool in (self._k_pool, self._v_pool, self._k_scale,
                          self._v_scale):
                 if pool is not None:
@@ -1466,19 +1678,21 @@ class ContinuousBatchingEngine:
         padded[0, :true_len - plen] = context[plen:]
         sampling = req.temperature > 0
         with self._device(gen):
-            tokens = torch.from_numpy(padded).to(self.device)
-            aids = (torch.tensor([req.adapter_slot], dtype=torch.int32,
-                                 device=self.device)
-                    if self.max_adapters else None)
-            cache1 = ([t.clone() for t in entry] if hit
-                      else list(self.model.new_kv_cache(1)))
-            logits = self._prefill_contiguous(cache1, tokens, plen,
-                                              true_len - plen, aids)
-            temp = (torch.tensor([req.temperature], dtype=torch.float32,
-                                 device=self.device) if sampling else None)
-            landing = self._first_host.copy(
-                self._first_token(logits, temp, sampling))
-            self._insert(slot, cache1)
+            handle = None
+            if self._tp_driver and use_prefix:
+                handle = self._tp_next_handle
+                self._tp_next_handle += 1
+            self._tp_send('contig', slot, padded, plen, true_len,
+                          req.temperature, req.adapter_slot,
+                          entry.handle if self._tp_driver and hit else None,
+                          handle)
+            cache1, first = self._contig_prefill(
+                slot, padded, plen, true_len, req.temperature,
+                req.adapter_slot, entry if hit else None)
+            landing = self._first_host.copy(first)
+        if handle is not None:
+            cache1 = _Cache1(cache1)
+            cache1.handle = handle
         self.tick_stats['prefills'] += 1
         if hit:
             self.prefix_stats['hits'] += 1
@@ -1493,8 +1707,11 @@ class ContinuousBatchingEngine:
             _PREFIX_MISS.inc()
         if use_prefix:
             # The full context's KV is the entry later prompts extend.
-            for key, _payload in self._prefix_entries.put(context, cache1):
+            for key, payload in self._prefix_entries.put(context, cache1):
                 self._prewarmed_keys.discard(key)
+                if isinstance(payload, _Cache1):
+                    with self._device_lock:
+                        self._tp_pending.append(('drop', payload.handle))
         first = int(landing.result()[0])
         if gen >= 0:
             self._check_gen(gen)
@@ -1505,6 +1722,29 @@ class ContinuousBatchingEngine:
         self._notify(req, first)
         req.next_pos = true_len
         self._commit_slot(slot, req, gen)
+
+    def _contig_prefill(self, slot: int, padded: np.ndarray, plen: int,
+                        true_len: int, temperature: float,
+                        adapter_slot: int, entry) -> tuple:
+        """The device half of a contiguous admission: the (1, bucket)
+        right-padded tokens through a fresh batch-1 cache (or a copy of
+        the prefix `entry`'s, which holds positions [0, plen)), the first
+        token sampled on the device, the cache copied into row `slot`.
+        Returns (the batch-1 cache, the (1,) first token)."""
+        sampling = temperature > 0
+        tokens = torch.from_numpy(padded).to(self.device)
+        aids = (torch.tensor([adapter_slot], dtype=torch.int32,
+                             device=self.device)
+                if self.max_adapters else None)
+        cache1 = ([t.clone() for t in entry] if entry is not None
+                  else list(self.model.new_kv_cache(1)))
+        logits = self._prefill_contiguous(cache1, tokens, plen,
+                                          true_len - plen, aids)
+        temp = (torch.tensor([temperature], dtype=torch.float32,
+                             device=self.device) if sampling else None)
+        first = self._first_token(logits, temp, sampling)
+        self._insert(slot, cache1)
+        return cache1, first
 
     def _admit_paged(self, slot: int, req: _Request, gen: int) -> None:
         """Paged admission is cheap: attach a cached prefix's whole
@@ -2123,6 +2363,8 @@ class ContinuousBatchingEngine:
             _PAGED_USED.set(self._pool.used)
         if self.paged_int8_bytes_saved:
             _PAGED_INT8_SAVED.set(self.paged_int8_bytes_saved)
+        if self._tp > 1:
+            self._tp_publish()
         if not active:
             if self._ring:
                 # Overshoot of requests that all finished (or were
@@ -2313,6 +2555,7 @@ class ContinuousBatchingEngine:
             # is ever emitted.
             self._forget_inputs()
             self._last_ready = None
+            self._tp_reset = True
         _DISPATCH_AHEAD.set(0)
         for req in failed:
             self._fail_request(req, e)
@@ -2462,6 +2705,9 @@ class ContinuousBatchingEngine:
             self._world = self._fresh_world()
             self._forget_inputs()
             self._last_ready = None
+            # The followers drop the old world's prefix entries with the
+            # successor's first op.
+            self._tp_reset = True
             self._zero_adapters = bool(self.max_adapters)
             self._thread = None
             self._heartbeat = time_lib.monotonic()
@@ -2781,15 +3027,8 @@ class ContinuousBatchingEngine:
 
     def memory_footprint(self) -> Dict[str, int]:
         """Bytes of the weights and of the KV store (the paged pool, or
-        the contiguous slot cache), globally and per device (the same on
-        one card: the port serves at tp 1)."""
-        weight = sum(p.numel() * p.element_size()
-                     for p in self.model.parameters())
-        kv = sum(t.numel() * t.element_size() for t in self._kv_leaves())
-        return {'tp': 1, 'weight_bytes': weight,
-                'weight_bytes_per_device': weight, 'kv_bytes': kv,
-                'kv_bytes_per_device': kv, 'total_bytes': weight + kv,
-                'total_bytes_per_device': weight + kv}
+        the contiguous slot cache), globally and per device."""
+        return _footprint(self.model, self._kv_leaves(), self._tp)
 
     def tier_load(self) -> Dict[str, int]:
         """Per-SLO-tier load, queued and slotted."""
@@ -2873,6 +3112,65 @@ class ContinuousBatchingEngine:
                 self._fail_request(req, err)
         return finished
 
+    def _tp_staged(self, prefix, attr: str) -> step_graph.Staged:
+        bufs = {'dec': self._dec, 'pf': self._pf}.get(prefix) \
+            if isinstance(prefix, str) else self._verify_buffers(prefix[1])
+        return getattr(bufs, attr)
+
+    def _tp_apply(self, op) -> None:
+        """A follower: run one of rank 0's ops on this rank's shard."""
+        kind = op[0]
+        if kind == 'put':
+            self._tp_staged(op[1], op[2]).put(op[3])
+        elif kind == 'run':
+            if op[1] == 'decode':
+                self._run_decode(op[2], op[3])
+            elif op[1] == 'verify':
+                self._run_verify(op[2], op[3])
+            else:
+                self._run_prefill(op[2])
+        elif kind == 'cow':
+            self._cow_copy(op[1], op[2])
+        elif kind == 'contig':
+            slot, padded, plen, true_len, temp, aid, src, handle = op[1:]
+            cache1, _ = self._contig_prefill(
+                slot, padded, plen, true_len, temp, aid,
+                self._tp_handles[src] if src is not None else None)
+            if handle is not None:
+                self._tp_handles[handle] = cache1
+        elif kind == 'drop':
+            self._tp_handles.pop(op[1], None)
+        elif kind == 'reset':
+            self._tp_handles.clear()
+        elif kind == 'gather':
+            self._gather(op[1])
+        elif kind == 'scatter':
+            self._scatter(op[1], op[2])
+        else:
+            super()._tp_apply(op)
+
+    def _tp_publish_static(self) -> None:
+        """The tp gauges that hold for the engine's life."""
+        _TP_SIZE.set(self._tp)
+        if self._pool is not None:
+            pool = sum(t.numel() * t.element_size()
+                       for t in self._pool_leaves())
+            for rank in range(self._tp):
+                _POOL_BYTES_PER_DEV.labels(device=str(rank)).set(pool)
+
+    def _tp_publish(self) -> None:
+        """Every tick (an exporter usually enables after construction):
+        the tp degree, one decode step's collectives and all-reduce bytes
+        (the group's count), the per-device pool view (block tables are
+        rank 0's, so every rank holds the same blocks)."""
+        self._tp_publish_static()
+        _TP_COLLECTIVES.set(self._tp_step[0])
+        _TP_ALLREDUCE_BYTES.set(self._tp_step[1])
+        if self._pool is not None:
+            for rank in range(self._tp):
+                _PAGED_USED_PER_DEV.labels(device=str(rank)).set(
+                    self._pool.used)
+
     def stop(self) -> None:
         self._stop.set()
         self._wake.set()
@@ -2918,17 +3216,21 @@ class ContinuousBatchingEngine:
     def _expected_leaf_meta(self) -> list:
         """Per-leaf {shape, dtype} of one pool block, as the artifact
         and the chunk header carry it (the reference's
-        `_pool_leaf_meta` for the same config)."""
-        return self._pool_leaf_meta(self._pool_leaves())
+        `_pool_leaf_meta` for the same config): the global block, every
+        KV head, under tp too."""
+        meta = self._pool_leaf_meta(self._pool_leaves())
+        for m in meta:
+            m['shape'][2] *= self._tp
+        return meta
 
     def kv_block_bytes(self) -> int:
         """Bytes of one pool block over every leaf: what a block costs in
         an artifact or a chunk payload (0 on the contiguous layout, which
-        has no blocks)."""
+        has no blocks); the global block's under tp."""
         if not self.paged_block_size:
             return 0
-        return sum(leaf[:, 0].numel() * leaf.element_size()
-                   for leaf in self._pool_leaves())
+        return self._tp * sum(leaf[:, 0].numel() * leaf.element_size()
+                              for leaf in self._pool_leaves())
 
     def _exclusive(self, fn, timeout: float = 300.0):
         """Run `fn()` with exclusive access to the pool and the prefix
@@ -2944,22 +3246,42 @@ class ContinuousBatchingEngine:
     # A gather reads and a scatter writes the pool: each runs under the
     # device lock after the calling thread's generation check.
 
-    def _gather(self, blocks) -> List[_HostBlocks]:
-        """Per pool leaf, the host copy of `blocks` (block axis first)."""
+    # Under tp each rank holds its KV-head slice of every block: a gather
+    # collects every rank's slice into the global block bytes on rank 0
+    # (over the group's gloo control group: gloo's gather takes no CUDA
+    # tensors), and a scatter hands each rank its slice of the global
+    # blocks, so artifacts and chunk streams are the same bytes at any tp.
+    _KV_AXIS = 3    # of a gathered leaf: (blocks, layers, bs, KV, D or 1)
+
+    def _gather(self, blocks) -> Optional[List[_HostBlocks]]:
+        """Per pool leaf, the host copy of `blocks` (block axis first);
+        under tp every rank's heads, on rank 0 (None on a follower)."""
         with self._device():
+            self._tp_send('gather', list(blocks))
             idx = torch.tensor(list(blocks), dtype=torch.long,
                                device=self.device)
-            return [_HostBlocks(leaf.index_select(1, idx).movedim(1, 0)
-                                .contiguous().cpu())
-                    for leaf in self._pool_leaves()]
+            host = [leaf.index_select(1, idx).movedim(1, 0).contiguous()
+                    .cpu() for leaf in self._pool_leaves()]
+            if self._tp > 1:
+                parts = [self.mesh.gather_host(t) for t in host]
+                if not self._tp_driver:
+                    return None
+                host = [torch.cat(p, dim=self._KV_AXIS) for p in parts]
+            return [_HostBlocks(t) for t in host]
 
     def _scatter(self, blocks, arrays) -> None:
         """Write per-leaf (len(blocks), ...) host tensors into `blocks`
-        of the pool, in place; a later write to a block id wins."""
+        of the pool, in place; a later write to a block id wins. Under tp
+        `arrays` are the global blocks and each rank writes its heads."""
         with self._device():
+            self._tp_send('scatter', list(blocks), list(arrays))
             idx = torch.tensor(list(blocks), dtype=torch.long,
                                device=self.device)
             for leaf, arr in zip(self._pool_leaves(), arrays):
+                if self._tp > 1:
+                    width = leaf.shape[3]
+                    arr = arr.narrow(self._KV_AXIS, self.mesh.rank * width,
+                                     width)
                 leaf.index_copy_(1, idx, arr.movedim(0, 1).to(self.device))
 
     def _require_prefix_pool(self, what: str) -> None:
@@ -3363,12 +3685,26 @@ class ContinuousBatchingEngine:
                 'key_tokens': len(key)}
 
 
-# Tensor-parallel serving is the next slice of the port.
-_TP_REFUSAL = ('tensor-parallel serving (tp > 1, a serving mesh) is not '
-               'ported yet (ROADMAP.md §1 item 5); serve on one device')
+def _footprint(model: Transformer, kv_leaves, tp: int) -> Dict[str, int]:
+    """Weight and KV bytes, globally and on each device: under tp a
+    sharded parameter (parallel/sharding.is_sharded) and every KV leaf
+    hold 1/tp of the global tensor on each rank, the rest is whole on
+    every rank."""
+    weight_dev = weight = 0
+    for name, p in model.named_parameters():
+        size = p.numel() * p.element_size()
+        weight_dev += size
+        weight += size * (tp if tp > 1 and sharding.is_sharded(name)
+                          else 1)
+    kv_dev = sum(t.numel() * t.element_size() for t in kv_leaves)
+    return {'tp': tp, 'weight_bytes': weight,
+            'weight_bytes_per_device': weight_dev, 'kv_bytes': kv_dev * tp,
+            'kv_bytes_per_device': kv_dev,
+            'total_bytes': weight + kv_dev * tp,
+            'total_bytes_per_device': weight_dev + kv_dev}
 
 
-class InferenceEngine:
+class InferenceEngine(_TensorParallel):
     """One loaded model and its prefill and decode steps: the reference's
     single-request engine. The batch is a fixed `batch_size` of prompts
     of one length; `generate` runs them through a contiguous KV cache.
@@ -3386,7 +3722,14 @@ class InferenceEngine:
 
     The device defaults to 'cuda' and construction raises without CUDA
     unless the caller passes device='cpu'. Sampling draws from a
-    torch.Generator seeded with rng_seed."""
+    torch.Generator seeded with rng_seed.
+
+    mesh (a parallel.mesh.ServingGroup of tp > 1) shards the model and
+    the cache as ContinuousBatchingEngine's does. `generate` is the
+    group's op: rank 0 sends its arguments and every rank runs the same
+    generation on its shard (a spawned group's followers in `follow()`;
+    under torchrun every rank calls `generate`, and the followers'
+    calls run rank 0's prompts)."""
 
     def __init__(self, cfg: 'ModelConfig | str',
                  params: Optional[Dict[str, torch.Tensor]] = None,
@@ -3401,14 +3744,18 @@ class InferenceEngine:
                  mesh=None,
                  decode_kernel: str = 'xla',
                  device='cuda') -> None:
-        if mesh is not None:
-            raise NotImplementedError(_TP_REFUSAL)
+        spec = {k: v for k, v in locals().items()
+                if k not in ('self', 'params', 'mesh', 'device')}
+        self._tp_init(mesh, 'InferenceEngine', spec, params,
+                      refuse={'quantize': quantize})
+        if self._tp > 1:
+            device = self.mesh.device
         self.device = resolve_device(device)
         cfg = _resolve_cfg(cfg, max_seq_len, quantize, kv_quant)
         self.decode_kernel = _resolve_decode_kernel(decode_kernel, cfg)
         cfg = dataclasses.replace(cfg, decode_kernel=self.decode_kernel)
         self.cfg, self.model = _build_model(cfg, params, rng_seed, quantize,
-                                            self.device)
+                                            self.device, self.mesh)
         self.batch_size = batch_size
         self.top_k, self.top_p = top_k, top_p
         self.decode_chunk = max(1, decode_chunk)
@@ -3419,7 +3766,8 @@ class InferenceEngine:
         # device feed), the dispatch's first position and temperature,
         # and per K its (B, K) columns with pinned host buffers to land
         # them in for the host's EOS scan.
-        self._steps = step_graph.StepGraphs(self.device, self._gen)
+        self._steps = step_graph.StepGraphs(self.device, self._gen,
+                                            eager=self._tp > 1)
         self._token = torch.zeros(batch_size, dtype=torch.int32,
                                   device=self.device)
         self._start = step_graph.Staged((1,), torch.int32, self.device)
@@ -3521,7 +3869,19 @@ class InferenceEngine:
                  temperature: float = 0.0,
                  eos_id: Optional[int] = None) -> tuple:
         """prompt: (B, prompt_len) int token ids. Returns ((B, <=
-        max_new_tokens) int32 generated ids on the host, stats)."""
+        max_new_tokens) int32 generated ids on the host, stats). Under tp
+        rank 0's arguments are every rank's."""
+        if self._tp > 1 and not self._tp_driver:
+            # A torchrun follower: rank 0's call is the one that runs.
+            op = self.mesh.recv()[-1]
+            return self._tp_generate(*op[1:])
+        prompt = np.asarray(prompt)
+        self._tp_send('generate', prompt, max_new_tokens, temperature,
+                      eos_id)
+        return self._tp_generate(prompt, max_new_tokens, temperature, eos_id)
+
+    def _tp_generate(self, prompt, max_new_tokens: int, temperature: float,
+                     eos_id: Optional[int]) -> tuple:
         prompt = torch.as_tensor(np.asarray(prompt))
         assert prompt.ndim == 2 and prompt.shape[0] == self.batch_size, (
             f'prompt must be ({self.batch_size}, L); got '
@@ -3533,6 +3893,12 @@ class InferenceEngine:
         with torch.inference_mode():
             return self._generate(prompt, prompt_len, max_new_tokens,
                                   temperature, eos_id)
+
+    def _tp_apply(self, op) -> None:
+        if op[0] == 'generate':
+            self._tp_generate(*op[1:])
+        else:
+            super()._tp_apply(op)
 
     def _generate(self, prompt, prompt_len: int, max_new_tokens: int,
                   temperature: float, eos_id: Optional[int]) -> tuple:
@@ -3617,6 +3983,37 @@ class InferenceEngine:
                  if kept > 1 and total > ttft else None),
         }
         return generated, stats
+
+
+_ENGINES = {'ContinuousBatchingEngine': ContinuousBatchingEngine,
+            'InferenceEngine': InferenceEngine}
+
+
+def serve_follower(group) -> None:
+    """A spawned follower of a serving group (parallel/mesh.decode_group):
+    build each engine rank 0 builds (its shard, from the same arguments
+    and, when rank 0 was given weights, from rank 0's full tensors), run
+    its ops until rank 0 stops it, and return when rank 0 closes the
+    group."""
+    import gc
+    while True:
+        for op in group.recv():
+            if op[0] == 'exit':
+                return
+            if op[0] != 'build':
+                continue
+            _, kind, spec, meta = op
+            params = None
+            if meta is not None:
+                params = {key: group.broadcast_tensor(None, shape, dtype)
+                          for key, shape, dtype in meta}
+            engine = _ENGINES[kind](**spec, params=params, mesh=group)
+            del params
+            engine.follow()
+            del engine
+            gc.collect()
+            if group.device.type == 'cuda':
+                torch.cuda.empty_cache()
 
 
 def infer_serving_tp(cfg: ModelConfig, n_devices: int) -> int:
@@ -3705,18 +4102,28 @@ def get_engine(model_name: str, batch_size: int = 1,
                tp: Optional[int] = None,
                device='cuda') -> InferenceEngine:
     """Process-wide InferenceEngine cache (the reference's accessor).
-    tp=None takes infer_serving_tp over the local CUDA devices; the port
-    serves tp 1 and refuses more. checkpoint_dir: a training checkpoint
-    directory of the port (load_params_from_checkpoint)."""
+    tp=None takes infer_serving_tp over the local CUDA devices (the
+    torchrun job's WORLD_SIZE under torchrun; one device on the CPU);
+    tp > 1 serves through a serving group (parallel/mesh.decode_group:
+    tp - 1 follower processes, or the torchrun job's ranks).
+    checkpoint_dir: a training checkpoint directory of the port
+    (load_params_from_checkpoint), read on the host; each rank keeps its
+    shard."""
+    from skypilot_tpu_torch.parallel import distributed, mesh as mesh_lib
     cfg = get_config(model_name)
+    kind = torch.device(device).type
     if tp is None:
-        tp = infer_serving_tp(cfg, torch.cuda.device_count())
+        world = distributed.topology_from_env().world_size
+        tp = world if world > 1 else infer_serving_tp(
+            cfg, torch.cuda.device_count() if kind == 'cuda' else 1)
     if tp > 1:
-        raise NotImplementedError(_TP_REFUSAL + f' (tp={tp})')
+        # Refused before any process starts.
+        cfg.assert_tp_compatible(tp)
     params = None
     if checkpoint_dir:
-        params = load_params_from_checkpoint(cfg, checkpoint_dir,
-                                             resolve_device(device))
+        params = load_params_from_checkpoint(
+            cfg, checkpoint_dir, 'cpu' if tp > 1 else resolve_device(device))
+    group = mesh_lib.decode_group(tp, device=device) if tp > 1 else None
     return InferenceEngine(model_name, params=params,
                            batch_size=batch_size, max_seq_len=max_seq_len,
-                           device=device)
+                           mesh=group, device=device)

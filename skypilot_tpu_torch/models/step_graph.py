@@ -11,7 +11,12 @@ become one graph launch.
 
 `StepGraphs.run(key, body)` runs `body()` once. On the CPU it calls it
 eagerly over the same static buffers: the tests drive the buffer and
-feed logic this way. On CUDA it replays the graph captured for `key` at
+feed logic this way. An engine serving tensor-parallel (tp > 1) makes
+its StepGraphs `eager` on the card too and says so at construction: its
+steps hold the group's all-reduces, and a gloo collective cannot be
+captured in a CUDA graph (capturing NCCL's waits for a machine with a
+card a rank, ROADMAP.md §1 item 5b). The launch counters then count each
+wrapper call as it happens. On CUDA it replays the graph captured for `key` at
 its first use: a warm-up call on a side stream, then a capture on that
 stream with capture_error_mode='thread_local' (CUDA calls of other
 threads cannot break it), into one memory pool that every graph shares.
@@ -69,6 +74,9 @@ class Staged:
     def __init__(self, shape, dtype: torch.dtype, device: torch.device,
                  ring: int = 4) -> None:
         self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        # Called with each put's values first (a tensor-parallel driver
+        # sends them to its followers).
+        self.on_put: Optional[Callable[[object], None]] = None
         self._cuda = device.type == 'cuda'
         count = ring if self._cuda else 1
         self._host = [torch.zeros(shape, dtype=dtype, pin_memory=self._cuda)
@@ -78,6 +86,8 @@ class Staged:
 
     def put(self, values) -> None:
         """dev <- values (array-like of dev's shape), stream-ordered."""
+        if self.on_put is not None:
+            self.on_put(values)
         i = self._next
         self._next = (i + 1) % len(self._host)
         if self._copied[i] is not None:
@@ -224,11 +234,12 @@ class VerifyBuffers:
 
 
 class StepGraphs:
-    """The engine's steps by key: eager on the CPU, one CUDA graph per
-    key on the card (see the module docstring)."""
+    """The engine's steps by key: eager on the CPU (and with `eager`), one
+    CUDA graph per key on the card (see the module docstring)."""
 
     def __init__(self, device: torch.device,
-                 generator: Optional[torch.Generator] = None) -> None:
+                 generator: Optional[torch.Generator] = None,
+                 eager: bool = False) -> None:
         self.device = device
         self._gen = generator
         self._graphs: Dict[Hashable, tuple] = {}
@@ -239,8 +250,8 @@ class StepGraphs:
         self.captures = 0
         self.replays = 0
         self.on_capture: Optional[Callable[[], None]] = None
-        self._stream = (torch.cuda.Stream(device) if device.type == 'cuda'
-                        else None)
+        self.eager = eager or device.type != 'cuda'
+        self._stream = None if self.eager else torch.cuda.Stream(device)
 
     @property
     def keys(self) -> list:

@@ -100,6 +100,20 @@ models/quantize.py) keep each projection as int8 plus fp32 per-column
 scales (`<name>_scale`): the reference's QuantDenseGeneral product.
 int8 weights over MoE, and LoRA training over int8 weights (as the
 reference refuses them), are refused at construction.
+
+Tensor-parallel serving (`group`, a parallel.mesh.ServingGroup of tp > 1
+ranks): each rank's model holds its shard by the reference's rules
+(parallel/sharding.py): heads/tp query heads and kv_heads/tp KV heads
+(the fused qkv_proj holds [q_r | k_r | v_r]), d_mlp/tp of the MLP (gate
+and up each sliced), vocab/tp embedding rows and lm_head columns; norms,
+the position table and the row-parallel biases are whole. o_proj and
+down_proj are row-parallel: a partial product, one all-reduce, then the
+bias. The embedding looks up the rank's vocab rows (zeros elsewhere) and
+sums them with one all-reduce; the unembedding's slices meet in one more
+(`ServingGroup.gather_vocab`), so every rank holds the same logits. A
+forward makes 2 x num_layers + 2 all-reduces. The KV pools and caches
+hold the rank's kv_heads/tp heads. MoE, adapters, LoRA, int8 weights and
+training are refused under tp (sharding.TP_NEXT).
 """
 from __future__ import annotations
 
@@ -166,10 +180,25 @@ QUANT_PROJECTIONS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'up_proj',
                      'down_proj', 'lm_head')
 
 
-def check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
     """Refuse, at construction, what the port does not serve: unknown
     knob values, and (as the reference refuses them) int8 weights over
-    MoE, and LoRA training and multi-LoRA serving over int8 weights."""
+    MoE, and LoRA training and multi-LoRA serving over int8 weights; under
+    tensor parallelism (tp > 1) a tp that does not divide the sharded
+    dimensions (the reference's message), training, MoE, adapters and
+    int8 weights."""
+    if tp > 1:
+        cfg.assert_tp_compatible(tp)
+        refused = [what for what, on in (
+            ('training (decode=False)', not cfg.decode),
+            ('MoE', cfg.is_moe),
+            ('multi-LoRA adapters', cfg.serve_adapters),
+            ('LoRA', cfg.lora_rank > 0),
+            ('int8 weights', cfg.weight_quant == 'int8')) if on]
+        if refused:
+            raise NotImplementedError(
+                f'tensor-parallel serving (tp={tp}) does not serve '
+                f'{", ".join(refused)} yet ({sharding.TP_NEXT})')
     bad = _unsupported_knobs(cfg)
     if bad:
         raise NotImplementedError(
@@ -613,14 +642,22 @@ def contiguous_step(cfg: ModelConfig, positions: torch.Tensor,
     return ContiguousStep(positions, cos, sin, write_idx)
 
 
+def _tp(group) -> int:
+    return group.tp if group is not None else 1
+
+
 class Attention(nn.Module):
 
-    def __init__(self, cfg: ModelConfig, device=None) -> None:
+    def __init__(self, cfg: ModelConfig, device=None, group=None) -> None:
         super().__init__()
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
+        tp = _tp(group)
+        self.group = group if tp > 1 else None
+        self.heads, self.kv_heads = cfg.num_heads // tp, cfg.num_kv_heads // tp
         shapes = projection_shapes(cfg)
-        q_out, kv_out = shapes['q_proj'][1], shapes['k_proj'][1]
+        q_out = self.heads * cfg.head_dim
+        kv_out = self.kv_heads * cfg.head_dim
         self.qkv_names = fused_projections(cfg)['attn.qkv_proj']
         self.qkv_widths = (q_out, kv_out, kv_out)
         _new_projection(self, cfg, 'qkv_proj',
@@ -649,8 +686,7 @@ class Attention(nn.Module):
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         batch, cur_len, _ = x.shape
-        heads, kv_heads, head_dim = (cfg.num_heads, cfg.num_kv_heads,
-                                     cfg.head_dim)
+        heads, kv_heads, head_dim = self.heads, self.kv_heads, cfg.head_dim
         qkv = _with_adapters(self, _project(self, 'qkv_proj', x, self.dtype),
                              x, self.qkv_names, self.qkv_widths,
                              self.dtype)
@@ -683,6 +719,8 @@ class Attention(nn.Module):
                            out, ('o_proj',), (cfg.d_model,), self.dtype)
         if adapter_ids is not None and self.lora_o is not None:
             self.lora_o(out, y, adapter_ids)
+        if self.group is not None:
+            y = self.group.all_reduce(y)
         return _add_bias(self, 'o_proj', y)
 
     def _contiguous_decode_attention(self, q, k, v, step: ContiguousStep,
@@ -758,19 +796,20 @@ class SwiGLU(nn.Module):
     Falcon, Phi), act SiLU or the tanh-approximate GELU, optional biases
     (after the LoRA delta)."""
 
-    def __init__(self, cfg: ModelConfig, device=None) -> None:
+    def __init__(self, cfg: ModelConfig, device=None, group=None) -> None:
         super().__init__()
         self.dtype = torch_dtype(cfg)
-        self.d_mlp = cfg.d_mlp
+        self.group = group if _tp(group) > 1 else None
+        self.d_mlp = cfg.d_mlp // _tp(group)
         self.glu = cfg.mlp_style == 'glu'
         self.act = (nn.functional.silu if cfg.mlp_activation == 'silu'
                     else _gelu_tanh)
         self.up_name = 'gate_up_proj' if self.glu else 'up_proj'
         ins = fused_projections(cfg)['mlp.' + self.up_name]
         _new_projection(self, cfg, self.up_name,
-                        (cfg.d_model, len(ins) * cfg.d_mlp), cfg.mlp_bias,
+                        (cfg.d_model, len(ins) * self.d_mlp), cfg.mlp_bias,
                         device)
-        _new_projection(self, cfg, 'down_proj', (cfg.d_mlp, cfg.d_model),
+        _new_projection(self, cfg, 'down_proj', (self.d_mlp, cfg.d_model),
                         cfg.mlp_bias, device)
         shapes = projection_shapes(cfg)
         self.lora = _lora_stacks(cfg, {
@@ -802,6 +841,8 @@ class SwiGLU(nn.Module):
                            h, ('down_proj',), (self.d_model,), self.dtype)
         if adapter_ids is not None and self.lora_down is not None:
             self.lora_down(h, y, adapter_ids)
+        if self.group is not None:
+            y = self.group.all_reduce(y)
         return _add_bias(self, 'down_proj', y)
 
 
@@ -810,7 +851,7 @@ class DecoderLayer(nn.Module):
     (x + moe(norm(x)) under MoE); or parallel (Falcon, Phi: one
     attn_norm, no mlp_norm), x + attn(h) + mlp(h) with h = attn_norm(x)."""
 
-    def __init__(self, cfg: ModelConfig, device=None) -> None:
+    def __init__(self, cfg: ModelConfig, device=None, group=None) -> None:
         super().__init__()
         self.parallel = cfg.parallel_block
         if self.parallel and cfg.is_moe:
@@ -818,9 +859,9 @@ class DecoderLayer(nn.Module):
                 'parallel_block + MoE is not modeled (no family uses it); '
                 'use the sequential block for MoE')
         self.attn_norm = RMSNorm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, group)
         self.mlp_norm = None if self.parallel else RMSNorm(cfg, device)
-        self.mlp = None if cfg.is_moe else SwiGLU(cfg, device)
+        self.mlp = None if cfg.is_moe else SwiGLU(cfg, device, group)
         self.moe = MoEBlock(cfg, device) if cfg.is_moe else None
 
     def forward(self, x: torch.Tensor,
@@ -878,14 +919,16 @@ class Transformer(nn.Module):
 
     Parameters are created EMPTY on `device` (the card unless the caller
     asks for another; without CUDA the default raises) in
-    `param_dtype(cfg)`; fill
+    `param_dtype(cfg)`, as rank `group.rank`'s shard under a serving
+    group of tp > 1 (the module docstring); fill
     them with `init_random_` (seeded, one tensor at a time — an 8B model
     is never built in fp32 on the host) or `load_state_dict` (e.g. from
     models/convert.params_from_jax)."""
 
-    def __init__(self, cfg: ModelConfig, device='cuda') -> None:
+    def __init__(self, cfg: ModelConfig, device='cuda', group=None) -> None:
         super().__init__()
-        check_supported(cfg)
+        tp = _tp(group)
+        check_supported(cfg, tp)
         if torch.device(device).type == 'cuda' and \
                 not torch.cuda.is_available():
             raise RuntimeError(
@@ -894,16 +937,20 @@ class Transformer(nn.Module):
                 "CPU")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
-        self.embed = _new_param(cfg, (cfg.vocab_size, cfg.d_model), device)
+        self.group = group if tp > 1 else None
+        self.kv_heads = cfg.num_kv_heads // tp
+        self.vocab = cfg.vocab_size // tp
+        self.embed = _new_param(cfg, (self.vocab, cfg.d_model), device)
         self.pos_embed = (_new_param(cfg, (cfg.max_seq_len, cfg.d_model),
                                      device)
                           if cfg.pos_embedding == 'learned' else None)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
+            DecoderLayer(cfg, device, self.group)
+            for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg, device)
         if not cfg.tie_embeddings:
             _new_projection(self, cfg, 'lm_head',
-                            (cfg.d_model, cfg.vocab_size), cfg.lm_head_bias,
+                            (cfg.d_model, self.vocab), cfg.lm_head_bias,
                             device)
         rot = rotary_dim(cfg)
         self.register_buffer(
@@ -935,37 +982,55 @@ class Transformer(nn.Module):
         forward equals the base model's). Draws on the parameters'
         own device (torch.Generator: other numbers than jax.random from
         the same seed). Float weights only: int8 weights are made from
-        float ones (models/quantize.py)."""
+        float ones (models/quantize.py). A rank of a serving group draws
+        each whole parameter in turn (the same numbers as one device) and
+        keeps its shard, so no rank ever holds the whole model."""
         cfg = self.cfg
         if cfg.weight_quant == 'int8':
             raise ValueError('init_random_ draws float weights; quantize '
                              'them with models/quantize.quantize_state')
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
+        if self.group is not None:
+            whole = dict(Transformer(cfg, device='meta').named_parameters())
+            for name, param in self.named_parameters():
+                value = torch.empty(whole[name].shape, dtype=param.dtype,
+                                    device=param.device)
+                self._init_param(name, value, gen)
+                param.copy_(sharding.shard_tensor(
+                    name, value, cfg, self.group.tp, self.group.rank))
+            return self
         adapters = []
         for name, param in self.named_parameters():
             if name.endswith(('_lora_a', '_lora_b')):
                 adapters.append((name, param))
-            elif name.endswith('norm.weight'):
-                param.fill_(0.0 if cfg.norm_style == 'rms_plus1' else 1.0)
-            elif name.endswith('bias'):
-                param.zero_()
-            elif name == 'embed':
-                param.normal_(0.0, cfg.d_model ** -0.5
-                              if cfg.tie_embeddings else 1.0, generator=gen)
-            elif name == 'pos_embed':
-                param.normal_(0.0, 0.02, generator=gen)
             else:
-                # fan_in: every axis but the last (an (E, in, out)
-                # expert stack counts E x in, as flax's lecun_normal
-                # does).
-                _truncated_normal_(param, math.prod(param.shape[:-1]) **
-                                   -0.5 / _TRUNC_STD, gen)
+                self._init_param(name, param, gen)
         for name, param in adapters:
             if name.endswith('_lora_a'):
                 param.normal_(0.0, cfg.lora_rank ** -0.5, generator=gen)
             else:
                 param.zero_()
         return self
+
+    def _init_param(self, name: str, param: torch.Tensor,
+                    gen: torch.Generator) -> None:
+        """Draw base parameter `name` in place (init_random_'s rule)."""
+        cfg = self.cfg
+        if name.endswith('norm.weight'):
+            param.fill_(0.0 if cfg.norm_style == 'rms_plus1' else 1.0)
+        elif name.endswith('bias'):
+            param.zero_()
+        elif name == 'embed':
+            param.normal_(0.0, cfg.d_model ** -0.5
+                          if cfg.tie_embeddings else 1.0, generator=gen)
+        elif name == 'pos_embed':
+            param.normal_(0.0, 0.02, generator=gen)
+        else:
+            # fan_in: every axis but the last (an (E, in, out)
+            # expert stack counts E x in, as flax's lecun_normal
+            # does).
+            _truncated_normal_(param, math.prod(param.shape[:-1]) **
+                               -0.5 / _TRUNC_STD, gen)
 
     def new_kv_pool(self, num_blocks: int) -> Tuple[torch.Tensor, ...]:
         """Zeroed (num_layers, num_blocks, block_size, KV, D) K and V
@@ -975,7 +1040,7 @@ class Transformer(nn.Module):
         initial scale rows)."""
         cfg = self.cfg
         shape = (cfg.num_layers, num_blocks, cfg.paged_block_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 self.kv_heads, cfg.head_dim)
         device = self.embed.device
         if cfg.kv_cache_quant != 'int8':
             kwargs = dict(device=device, dtype=self.embed.dtype)
@@ -993,7 +1058,7 @@ class Transformer(nn.Module):
         max_seq_len, KV) K and V scales, zero-filled as the reference's
         engine fills its slot cache."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.max_seq_len, cfg.num_kv_heads,
+        shape = (cfg.num_layers, batch, cfg.max_seq_len, self.kv_heads,
                  cfg.head_dim)
         device = self.embed.device
         if cfg.kv_cache_quant != 'int8':
@@ -1038,7 +1103,7 @@ class Transformer(nn.Module):
         single position `logits_at` (an int, or a 0-d int device
         tensor)."""
         cfg = self.cfg
-        x = nn.functional.embedding(tokens.long(), self.embed).to(self.dtype)
+        x = self._embed(tokens)
         if self.embed_scale is not None:
             x = x * self.embed_scale
         if positions is None:
@@ -1081,15 +1146,31 @@ class Transformer(nn.Module):
             x = x[:, logits_at]
         return self._head(self.final_norm(x))
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding in the compute dtype; under tp each rank
+        looks up the tokens in its vocab rows, zeros the others, and one
+        all-reduce sums the ranks' rows (x + 0 is exact)."""
+        if self.group is None:
+            return nn.functional.embedding(tokens.long(),
+                                           self.embed).to(self.dtype)
+        local = tokens.long() - self.group.rank * self.vocab
+        inside = (local >= 0) & (local < self.vocab)
+        x = nn.functional.embedding(local.clamp(0, self.vocab - 1),
+                                    self.embed).to(self.dtype)
+        return self.group.all_reduce(x.masked_fill(~inside[..., None], 0))
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Unembed (tied: x @ embed^T), then the final logit softcap and
-        the padded-vocab mask (rows past unpadded_vocab_size at -1e30)."""
+        the padded-vocab mask (rows past unpadded_vocab_size at -1e30);
+        under tp the ranks' vocab slices are gathered first."""
         cfg = self.cfg
         if cfg.tie_embeddings:
             logits = x @ self.embed.to(self.dtype).t()
         else:
             logits = _add_bias(self, 'lm_head',
                                _project(self, 'lm_head', x, self.dtype))
+        if self.group is not None:
+            logits = self.group.gather_vocab(logits, cfg.vocab_size)
         if cfg.final_logit_softcap:
             cap = cfg.final_logit_softcap
             logits = (cap * torch.tanh(logits.float() / cap)).to(

@@ -4,18 +4,39 @@ reference's skypilot_tpu/parallel/distributed.py (`topology_from_env`,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT) instead of the agent's.
 
 `initialize` joins the default torch.distributed group: NCCL for `cuda`
-(one card per process, LOCAL_RANK picks it), gloo for `cpu`. It does
-nothing with one process and is idempotent.
+(one card per process, LOCAL_RANK picks it), gloo for `cpu`, or the
+backend the caller names (gloo also runs on `cuda`). It does nothing with
+one process and is idempotent.
+
+`spawn_group` starts a tensor-parallel serving group from one process:
+the caller becomes rank 0 and `tp - 1` follower processes join it over a
+local rendezvous on a free port. Each follower imports nothing but the
+port, calls its `target` with its `parallel.mesh.ServingGroup`, and exits
+when the target returns, when rank 0 exits, or when rank 0's process goes
+away (a thread watches the parent's pid), so no follower outlives its
+driver.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import importlib
+import json
 import logging
 import os
-from typing import Dict, Optional
+import socket
+import subprocess
+import sys
+import threading
+import time
+from typing import Dict, Optional, Sequence
 
 logger = logging.getLogger(__name__)
+
+# Control messages wait on a gloo group of their own with this timeout: an
+# idle follower waits for its next step, which may come hours later. The
+# device collectives keep the group's own timeout.
+CONTROL_TIMEOUT = datetime.timedelta(days=7)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,12 +70,20 @@ def topology_from_env(env: Optional[Dict[str, str]] = None
     )
 
 
+def default_backend(device: str) -> str:
+    """NCCL for cards (one card a rank), gloo for the CPU."""
+    return 'nccl' if str(device).startswith('cuda') else 'gloo'
+
+
 def initialize(topology: Optional[ProcessTopology] = None,
                device: str = 'cuda',
-               timeout_seconds: int = 300) -> ProcessTopology:
+               timeout_seconds: int = 300,
+               backend: Optional[str] = None) -> ProcessTopology:
     """Join this process to the job's default process group (no-op for
-    one process, or when already joined). Returns the topology, so
-    callers can branch on rank (rank 0 logs and checkpoints)."""
+    one process, or when already joined). `backend` defaults by device
+    (`default_backend`); gloo may be named for `cuda` too. Returns the
+    topology, so callers can branch on rank (rank 0 logs and
+    checkpoints)."""
     import torch.distributed as dist
     if topology is None:
         topology = topology_from_env()
@@ -63,7 +92,7 @@ def initialize(topology: Optional[ProcessTopology] = None,
     if topology.master_addr is None or topology.master_port is None:
         raise RuntimeError('WORLD_SIZE > 1 needs MASTER_ADDR and MASTER_PORT '
                            '(torchrun sets them)')
-    backend = 'nccl' if device == 'cuda' else 'gloo'
+    backend = backend or default_backend(device)
     address = f'tcp://{topology.master_addr}:{topology.master_port}'
     logger.info('init_process_group(%s, %s, world_size=%d, rank=%d)',
                 backend, address, topology.world_size, topology.rank)
@@ -72,3 +101,102 @@ def initialize(topology: Optional[ProcessTopology] = None,
         rank=topology.rank,
         timeout=datetime.timedelta(seconds=timeout_seconds))
     return topology
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def join_group(tp: int, rank: int, address: str, backend: str, device,
+               timeout_seconds: int, spawned: bool = False):
+    """Join the default group as `rank` of `tp` and make the control
+    group beside it; returns this rank's ServingGroup."""
+    import torch
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch.parallel.mesh import ServingGroup
+    device = torch.device(device)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            backend, init_method=address, world_size=tp, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_seconds))
+    control = dist.new_group(backend='gloo', timeout=CONTROL_TIMEOUT)
+    return ServingGroup(tp=tp, rank=rank, device=device, backend=backend,
+                        group=dist.group.WORLD, control=control,
+                        spawned=spawned)
+
+
+_FOLLOWER_CODE = ('import sys\n'
+                  'from skypilot_tpu_torch.parallel import distributed\n'
+                  'sys.exit(distributed.follower_main(sys.argv[1]))\n')
+
+
+def spawn_group(tp: int, target: str, devices: Sequence,
+                backend: str, timeout_seconds: int = 300):
+    """Make this process rank 0 of a `tp`-process group and start the
+    `tp - 1` followers: each runs `target` ('module:function') with its
+    ServingGroup. `devices[r]` is rank r's device. Returns rank 0's
+    ServingGroup, which holds the follower processes (`close` stops
+    them)."""
+    address = f'tcp://127.0.0.1:{free_port()}'
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (root, env.get('PYTHONPATH')) if p)
+    procs = []
+    for rank in range(1, tp):
+        spec = json.dumps({'tp': tp, 'rank': rank, 'address': address,
+                           'backend': backend, 'device': str(devices[rank]),
+                           'target': target, 'parent': os.getpid(),
+                           'timeout': timeout_seconds})
+        procs.append(subprocess.Popen(
+            [sys.executable, '-c', _FOLLOWER_CODE, spec], env=env,
+            cwd=root))
+    try:
+        group = join_group(tp, 0, address, backend, devices[0],
+                           timeout_seconds, spawned=True)
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    group.processes = procs
+    logger.info('tensor-parallel group: tp=%d over %s (%s), followers %s',
+                tp, [str(d) for d in devices], backend,
+                [p.pid for p in procs])
+    return group
+
+
+def _watch_parent(parent: int) -> None:
+    """Exit at once when the process that spawned this one is gone."""
+    while True:
+        if os.getppid() != parent:
+            os._exit(3)
+        time.sleep(0.5)
+
+
+def follower_main(spec_json: str) -> int:
+    """A spawned follower: join the group, run the target, leave."""
+    spec = json.loads(spec_json)
+    logging.basicConfig(level=logging.INFO,
+                        format=f'[tp rank {spec["rank"]}] %(levelname)s '
+                               f'%(name)s: %(message)s')
+    threading.Thread(target=_watch_parent, args=(spec['parent'],),
+                     daemon=True, name='tp-parent-watch').start()
+    group = join_group(spec['tp'], spec['rank'], spec['address'],
+                       spec['backend'], spec['device'], spec['timeout'])
+    module, _, name = spec['target'].partition(':')
+    try:
+        getattr(importlib.import_module(module), name)(group)
+    except Exception:  # pylint: disable=broad-except
+        logger.exception('tensor-parallel follower failed')
+        return 1
+    finally:
+        group.destroy()
+    return 0

@@ -1,4 +1,7 @@
-"""The ambient sequence-parallel context: the port's stand-in for the
+"""Sharding rules of the port: the ambient sequence-parallel context and
+the tensor-parallel rules over the model's parameters.
+
+The ambient sequence-parallel context is the port's stand-in for the
 reference's `use_mesh` (skypilot_tpu/parallel/sharding.py) on the `sp`
 axis, where the batch's 'seq' dimension maps to 'sp' (`:22`).
 
@@ -19,8 +22,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 
 
@@ -73,3 +77,118 @@ def use_sequence_parallel(sp: Optional[int] = None, *,
 def current_sequence_parallel() -> Optional[SequenceParallel]:
     """The active context, or None."""
     return _ACTIVE
+
+
+# ---------------- tensor parallelism ----------------
+#
+# The reference's logical-axis rules (skypilot_tpu/parallel/sharding.py
+# :18-36) put the attention heads, the KV heads, the MLP hidden dimension
+# and the vocabulary on `tp`; every other axis (embed, the norms, the
+# learned position table) is replicated. The port names its parameters
+# itself, so the rules are a table over those names: each weight's axes,
+# by logical name, in its (in, out) (or (vocab, embed)) orientation. The
+# port fuses projections, so two axes are fused segments: `qkv` is
+# [heads | kv_heads | kv_heads] (models/transformer.py's qkv_proj) and
+# `gate_up` is [mlp | mlp] (SwiGLU's gate_up_proj). A rank's shard of a
+# fused axis is its slice of EACH segment, by heads, never one
+# contiguous column range. A `<name>_bias` or `<name>_scale` runs along
+# its weight's output axis: a column-parallel projection's follows its
+# columns, a row-parallel one's (o, down) is replicated and added once,
+# after the all-reduce.
+
+# What tensor-parallel serving refuses yet, and where ROADMAP.md has it.
+TP_NEXT = ('ROADMAP.md §1 item 5b: tensor-parallel serving with adapters, '
+           'MoE, int8 weights and --tier')
+
+TP_AXIS_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
+    ('heads', 'tp'),
+    ('kv_heads', 'tp'),
+    ('mlp', 'tp'),
+    ('vocab', 'tp'),
+    ('embed', None),
+)
+
+TP_PARAM_AXES: Dict[str, Tuple[str, str]] = {
+    'embed': ('vocab', 'embed'),
+    'lm_head': ('embed', 'vocab'),
+    'attn.qkv_proj': ('embed', 'qkv'),
+    'attn.o_proj': ('heads', 'embed'),
+    'mlp.gate_up_proj': ('embed', 'gate_up'),
+    'mlp.up_proj': ('embed', 'mlp'),
+    'mlp.down_proj': ('mlp', 'embed'),
+}
+
+
+def _segments(axis: str, cfg) -> Tuple[Tuple[str, int], ...]:
+    """The (logical axis, width) segments of one dimension, in order."""
+    d = cfg.head_dim
+    if axis == 'qkv':
+        return (('heads', cfg.num_heads * d), ('kv_heads',
+                                               cfg.num_kv_heads * d),
+                ('kv_heads', cfg.num_kv_heads * d))
+    if axis == 'gate_up':
+        return (('mlp', cfg.d_mlp), ('mlp', cfg.d_mlp))
+    width = {'heads': cfg.num_heads * d, 'mlp': cfg.d_mlp,
+             'vocab': cfg.vocab_size, 'embed': cfg.d_model}[axis]
+    return ((axis, width),)
+
+
+def _on_tp(axis: str) -> bool:
+    return dict(TP_AXIS_RULES).get(axis) == 'tp'
+
+
+def param_axes(name: str) -> Optional[Tuple[str, ...]]:
+    """The logical axes of parameter `name` of the port's Transformer
+    (a layer's `layers.{i}.` prefix ignored), None when it is replicated
+    whole. Raises for a MoE parameter: MoE under tp is not served."""
+    key = name.split('.', 2)[2] if name.startswith('layers.') else name
+    if key.startswith('moe.'):
+        raise NotImplementedError(
+            f'MoE under tensor-parallel serving is not ported yet '
+            f'({TP_NEXT})')
+    for suffix in ('_bias', '_scale'):
+        base = key[:-len(suffix)] if key.endswith(suffix) else None
+        if base in TP_PARAM_AXES:
+            return TP_PARAM_AXES[base][-1:]
+    return TP_PARAM_AXES.get(key)
+
+
+def shard_tensor(name: str, value: torch.Tensor, cfg, tp: int,
+                 rank: int) -> torch.Tensor:
+    """Rank `rank`'s shard of the full parameter `name` (a contiguous
+    tensor of its own; `value` itself when replicated)."""
+    axes = param_axes(name)
+    if tp == 1 or axes is None:
+        return value
+    dim = next((i for i, axis in enumerate(axes)
+                if any(_on_tp(a) for a, _ in _segments(axis, cfg))), None)
+    if dim is None:
+        return value
+    pieces, start = [], 0
+    for axis, width in _segments(axes[dim], cfg):
+        if not _on_tp(axis):
+            pieces.append(value.narrow(dim, start, width))
+        else:
+            part = width // tp
+            pieces.append(value.narrow(dim, start + rank * part, part))
+        start += width
+    if start != value.shape[dim]:
+        raise ValueError(f'{name}: dimension {dim} is {value.shape[dim]} '
+                         f'wide, its segments {start}')
+    if len(pieces) == 1:
+        return pieces[0].clone(memory_format=torch.contiguous_format)
+    return torch.cat(pieces, dim=dim)
+
+
+def is_sharded(name: str) -> bool:
+    """Whether parameter `name` is cut on tp (else replicated)."""
+    axes = param_axes(name)
+    return axes is not None and any(a in ('qkv', 'gate_up') or _on_tp(a)
+                                    for a in axes)
+
+
+def shard_params(params: Dict[str, torch.Tensor], cfg, tp: int,
+                 rank: int) -> Dict[str, torch.Tensor]:
+    """Slice a full parameter dict into rank `rank`'s shard."""
+    return {name: shard_tensor(name, value, cfg, tp, rank)
+            for name, value in params.items()}

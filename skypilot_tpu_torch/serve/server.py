@@ -313,6 +313,8 @@ class InferenceServer:
                  tier: str = 'monolithic',
                  request_timeout: float = 0.0,
                  watchdog_timeout: float = 0.0,
+                 tp: int = 1,
+                 mesh=None,
                  device='cuda') -> None:
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
@@ -320,23 +322,43 @@ class InferenceServer:
         if checkpoint_dir and hf_model_path:
             raise ValueError('--checkpoint-dir and --hf-model-path are '
                              'mutually exclusive')
-        if checkpoint_dir or hf_model_path:
-            params = self._load_weights(model, max_seq_len, checkpoint_dir,
-                                        hf_model_path, device)
-        self.engine = ContinuousBatchingEngine(
-            model, params=params, num_slots=num_slots,
-            max_seq_len=max_seq_len, rng_seed=rng_seed, top_k=top_k,
-            top_p=top_p, max_queue_depth=max_queue_depth,
-            paged_block_size=paged_block_size,
-            paged_num_blocks=paged_num_blocks, prefill_chunk=prefill_chunk,
-            prefix_cache=prefix_cache, kv_quant=kv_quant,
-            max_adapters=max_adapters, adapter_rank=adapter_rank,
-            adapter_alpha=adapter_alpha, adapter_targets=adapter_targets,
-            async_depth=async_depth, decode_chunk=decode_chunk,
-            speculative=speculative, quantize=quantize,
-            decode_kernel=decode_kernel, tier=tier,
-            ingest_ttl=serve_constants.ingest_session_ttl_seconds(),
-            watchdog_timeout=watchdog_timeout or None, device=device)
+        # Tensor-parallel serving: one endpoint over an engine whose
+        # weights and KV pool shard over `tp` ranks (parallel.mesh.
+        # decode_group: this process is rank 0, tp - 1 followers hold
+        # the other shards); `mesh` takes a group the caller made.
+        tp = mesh.tp if mesh is not None else tp
+        if tp > 1:
+            self._refuse_under_tp(model, tp, max_adapters, quantize, tier)
+        self._own_group = None
+        if tp > 1 and mesh is None:
+            from skypilot_tpu_torch.parallel.mesh import decode_group
+            mesh = self._own_group = decode_group(tp, device=device)
+        try:
+            if checkpoint_dir or hf_model_path:
+                # Under tp the weights load on the host; each rank keeps
+                # its shard on its device.
+                params = self._load_weights(
+                    model, max_seq_len, checkpoint_dir, hf_model_path,
+                    'cpu' if tp > 1 else device)
+            self.engine = ContinuousBatchingEngine(
+                model, params=params, num_slots=num_slots,
+                max_seq_len=max_seq_len, rng_seed=rng_seed, top_k=top_k,
+                top_p=top_p, max_queue_depth=max_queue_depth,
+                paged_block_size=paged_block_size,
+                paged_num_blocks=paged_num_blocks,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                kv_quant=kv_quant, max_adapters=max_adapters,
+                adapter_rank=adapter_rank, adapter_alpha=adapter_alpha,
+                adapter_targets=adapter_targets, async_depth=async_depth,
+                decode_chunk=decode_chunk, speculative=speculative,
+                quantize=quantize, decode_kernel=decode_kernel, tier=tier,
+                ingest_ttl=serve_constants.ingest_session_ttl_seconds(),
+                watchdog_timeout=watchdog_timeout or None, mesh=mesh,
+                device=device)
+        except BaseException:
+            # No follower outlives a server that failed to start.
+            self.close_group()
+            raise
         # Weights loaded (or drawn, or quantized) and the engine built.
         self.load_seconds = time.monotonic() - t0
         logger.info('engine for %s ready in %.2fs (weights: %s)', model,
@@ -361,6 +383,24 @@ class InferenceServer:
         # SIGTERM, a /preempt racing one) get its cached outcome.
         self._notice_lock = threading.Lock()
         self._notice_result: Optional[dict] = None
+
+    @staticmethod
+    def _refuse_under_tp(model: str, tp: int, max_adapters: int,
+                         quantize: Optional[str], tier: str) -> None:
+        """What --tp > 1 does not serve yet, refused before any follower
+        starts."""
+        from skypilot_tpu_torch.models.configs import get_config
+        from skypilot_tpu_torch.parallel import sharding
+        cfg = get_config(model)
+        cfg.assert_tp_compatible(tp)
+        refused = [flag for flag, on in (
+            ('--max-adapters', max_adapters > 0),
+            ('a MoE model', cfg.is_moe),
+            ('--quantize int8', bool(quantize)),
+            ('--tier', tier != 'monolithic')) if on]
+        if refused:
+            raise ValueError(f'--tp {tp} does not serve '
+                             f'{", ".join(refused)} yet ({sharding.TP_NEXT})')
 
     @staticmethod
     def _load_weights(model: str, max_seq_len: Optional[int],
@@ -1064,13 +1104,28 @@ class InferenceServer:
     def _drain_and_export(self, budget_s: float) -> dict:
         """The run-once notice body (off the event loop): drain within
         most of `budget_s`, then export hot prefixes to the prefix store
-        with what remains. Later notices get the cached outcome; one
-        arriving mid-drain waits for it. Without a prefix store `export`
-        is None."""
+        with what remains, then (under tp) stop the followers, last.
+        Later notices get the cached outcome; one arriving mid-drain
+        waits for it. Without a prefix store `export` is None."""
         with self._notice_lock:
             if self._notice_result is None:
-                self._notice_result = self._drain_and_export_impl(budget_s)
+                try:
+                    self._notice_result = self._drain_and_export_impl(
+                        budget_s)
+                finally:
+                    self.close_group()
             return dict(self._notice_result)
+
+    def close_group(self) -> None:
+        """Stop the tensor-parallel followers this server started (after
+        its engine has drained and exported: they hold the shards the
+        export gathers). A no-op at tp 1."""
+        if self._own_group is not None:
+            engine = getattr(self, 'engine', None)
+            if engine is not None:
+                engine.stop()
+            self._own_group.close()
+            self._own_group = None
 
     def _drain_and_export_impl(self, budget_s: float) -> dict:
         _PREEMPT_NOTICES.inc()
@@ -1463,6 +1518,13 @@ class InferenceServer:
         t0 = time.monotonic()
         self.engine.generate([1, 2, 3], max_new_tokens=4, timeout=600.0)
         self.engine.capture_graphs()
+        if self.engine.mesh is not None:
+            # The decode step's collectives, counted by the group's
+            # wrapper over the warmup's decode steps.
+            collectives, nbytes = self.engine._tp_step  # pylint: disable=protected-access
+            logger.info('tp=%d decode step: %d collectives, '
+                        '%d all-reduce bytes/tick', self.engine.mesh.tp,
+                        collectives, nbytes)
         self.ready = True
         logger.info('engine warm in %.1fs', time.monotonic() - t0)
 
@@ -1703,6 +1765,18 @@ def build_parser() -> argparse.ArgumentParser:
                              'prefix. The specialized tiers require '
                              '--prefix-cache. Default: '
                              '$SKYTPU_REPLICA_TIER or monolithic')
+    parser.add_argument('--tp', type=int, default=1,
+                        help='tensor-parallel serving: shard the '
+                             'weights, activations and KV cache/pool '
+                             'over the first N local devices (kv heads '
+                             '/ attention heads / MLP hidden / vocab '
+                             'split per parallel/sharding.py; XLA '
+                             'inserts the per-layer all-reduce over '
+                             'ICI). One endpoint, same API; greedy '
+                             'output is bit-identical to tp=1. N must '
+                             'divide the model\'s head/kv-head/mlp/'
+                             'vocab dims (see docs/performance.md '
+                             '"Sharded serving"). 1 = single-chip')
     parser.add_argument('--device', default='cuda',
                         help="torch device; 'cuda' (default) raises when "
                              'no GPU is present')
@@ -1737,6 +1811,7 @@ def main(argv=None) -> int:
                              tier=args.tier,
                              request_timeout=args.request_timeout,
                              watchdog_timeout=args.watchdog_timeout,
+                             tp=args.tp,
                              device=args.device)
     # Pre-warm BEFORE ready: a replacement replica restores the fleet's
     # hot prefixes, so its first shared-prefix request is a cache hit.

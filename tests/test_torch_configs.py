@@ -96,9 +96,7 @@ def test_block_pool_refusals():
 # second list, each with its reason.
 # ---------------------------------------------------------------------
 
-SERVER_TO_PORT = {
-    '--tp': 'ROADMAP §1 item 5: tensor-parallel serving',
-}
+SERVER_TO_PORT = {}
 TRAIN_TO_PORT = {
     '--dp': 'ROADMAP §1 item 6: data parallelism and ZeRO-1',
     '--tp': 'ROADMAP §1 item 6: --tp/--dp/--ep',

@@ -1924,3 +1924,81 @@ def test_contiguous_equals_paged_xla_on_the_card(kv_quant):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert outs['contiguous'] == outs['paged-xla'] == outs['paged-kernel']
+
+
+# ------------------------------------------------------- tensor parallel
+
+# A tp=2 rank's shard of llama3-8b's attention: KV 8 / 2 heads, n_rep 4,
+# D 128, over an 8192-key window (blocks of 16) at the serve path's
+# decode and prefill calls.
+_TP_SHARD_CASES = [(8, 1), (1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('int8', [False, True], ids=['float', 'int8'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('batch,cur_len', _TP_SHARD_CASES,
+                         ids=['decode', 'prefill'])
+def test_kernels_at_the_tp2_shard_shape(batch, cur_len, dtype, int8):
+    _need_gpu()
+    kw = dict(batch=batch, cur_len=cur_len, kv_heads=4, n_rep=4,
+              head_dim=128, block_size=16, blocks_per_seq=512,
+              seed=cur_len + 7)
+    if int8:
+        q, k_pool, v_pool, tables, pos, scales = _int8_case(dtype, **kw)
+    else:
+        (q, k_pool, v_pool, tables, pos), scales = _case(dtype=dtype,
+                                                         **kw), {}
+    counter = 'int8_launches' if int8 else 'launches'
+    before = getattr(pa.paged_decode_attention, counter)
+    out = pa.paged_decode_attention(q, k_pool, v_pool, tables, pos,
+                                    **scales)
+    assert getattr(pa.paged_decode_attention, counter) == before + 1
+    ref = pa.paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
+                                          **scales)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_tp2_engine_on_one_card_equals_tp1():
+    """Two ranks on cuda:0 over gloo (NCCL takes one card a rank): fp32
+    greedy tokens equal tp=1's on the same seeded weights, and every
+    rank launches kernel 1 layers x (chunks + decode steps) times."""
+    _need_gpu()
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.parallel.mesh import decode_group
+    cfg = _contiguous_cfg()
+    prompts = [list(range(2, 40)), [7] * 17]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = decode_group(2, devices=['cuda:0', 'cuda:0'], backend='gloo',
+                         device='cuda')
+    outs = {}
+    try:
+        for tp in (1, 2):
+            engine = ContinuousBatchingEngine(
+                cfg, num_slots=2, paged_block_size=16, rng_seed=3,
+                mesh=group if tp == 2 else None, device='cuda:0')
+            # A capture's warm-up call launches for real: capture first.
+            engine.capture_graphs()
+            before = engine.tp_counts()
+            outs[tp] = [engine.generate(p, max_new_tokens=12)[0]
+                        for p in prompts]
+            after = engine.tp_counts()
+            steps = engine.tick_stats['decode_steps']
+            chunks = engine.paged_stats['prefill_chunks']
+            launches = [a['paged_decode_attention'] -
+                        b['paged_decode_attention']
+                        for a, b in zip(after, before)]
+            assert launches == [cfg.num_layers * (chunks + steps)] * tp, (
+                tp, launches, chunks, steps)
+            engine.stop()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        group.close()
+    assert outs[1] == outs[2], outs
+    assert [p.returncode for p in group.processes] == [0]

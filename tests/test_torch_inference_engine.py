@@ -13,9 +13,11 @@ sampling is greedy and a sampled token stays in the filtered support,
 `stats` has the reference's four keys, the prompt's shape and length are
 asserted with the reference's messages, a config with pool geometry
 raises the reference's block-tables error at its first forward, and a
-mesh or tp > 1 is refused. get_engine is cached, refuses tp > 1, and
-serves a training checkpoint directory with the tokens of its params; a
-missing directory raises.
+serving group refuses int8 weights naming ROADMAP §1 item 5b (tp=2
+itself: tests/test_torch_tp.py). get_engine is cached, refuses a tp that
+does not divide the model before it starts a process, and serves a
+training checkpoint directory with the tokens of its params; a missing
+directory raises.
 """
 import dataclasses
 
@@ -206,9 +208,16 @@ def test_pool_geometry_raises_the_block_tables_error(reference):
         engine.generate(np.ones((1, 4), np.int64), max_new_tokens=2)
 
 
+class _Group:
+    """A serving group of two ranks that no process joined: the engine
+    refuses before it sends anything."""
+    tp, rank, spawned = 2, 0, True
+    device = torch.device('cpu')
+
+
 def test_refusals(reference):
-    with pytest.raises(NotImplementedError, match='§1 item 5'):
-        _engine(reference, mesh=object())
+    with pytest.raises(NotImplementedError, match='§1 item 5b'):
+        _engine(reference, mesh=_Group(), quantize='int8')
     with pytest.raises(NotImplementedError,
                        match="decode_kernel='pallas' requires the paged KV"):
         _engine(reference, decode_kernel='pallas')
@@ -256,7 +265,7 @@ def test_get_engine_is_cached_and_serves_a_checkpoint(checkpoint, tmp_path):
         with pytest.raises(FileNotFoundError):
             get_engine('test-tiny', checkpoint_dir=str(tmp_path / 'none'),
                        device='cpu')
-        with pytest.raises(NotImplementedError, match='§1 item 5'):
-            get_engine('test-tiny', tp=2, device='cpu')
+        with pytest.raises(ValueError, match='tp=3 does not divide'):
+            get_engine('test-tiny', tp=3, device='cpu')
     finally:
         get_engine.cache_clear()

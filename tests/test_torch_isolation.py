@@ -97,7 +97,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.utils.fault_injection',
                 'skypilot_tpu_torch.data.storage',
                 'skypilot_tpu_torch.data.data_utils',
-                'skypilot_tpu_torch.serve.constants'):
+                'skypilot_tpu_torch.serve.constants',
+                'skypilot_tpu_torch.parallel.mesh',
+                'skypilot_tpu_torch.parallel.distributed',
+                'skypilot_tpu_torch.parallel.sharding'):
         assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
@@ -107,6 +110,53 @@ def test_port_imports_without_jax_or_the_jax_package():
         check=False)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert f'ISOLATED {len(mods)}' in proc.stdout
+
+
+# Every process of a tensor-parallel group blocks jax, flax and the JAX
+# package at start (a sitecustomize on PYTHONPATH, which the followers
+# inherit): rank 0 serves a request at tp=2 through a follower, and a
+# follower that imported any of them would fail its import and the run.
+_SITE_BLOCKER = """
+import importlib.abc, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name in ('jax', 'flax', 'skypilot_tpu') or name.startswith(
+                ('jax.', 'flax.', 'skypilot_tpu.')):
+            raise ImportError(f'port imported {name}')
+        return None
+
+sys.modules['jax'] = None
+sys.modules['flax'] = None
+sys.meta_path.insert(0, _Block())
+"""
+_TP_GROUP = """
+import sys
+from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+from skypilot_tpu_torch.parallel.mesh import decode_group
+group = decode_group(2, device='cpu', timeout_seconds=60)
+engine = ContinuousBatchingEngine('test-tiny', max_seq_len=64, num_slots=2,
+                                  paged_block_size=8, device='cpu',
+                                  mesh=group)
+tokens, _ = engine.generate([1, 2, 3, 4], max_new_tokens=4)
+engine.stop()
+group.close()
+leaked = sorted(m for m in sys.modules if m == 'skypilot_tpu' or
+                m.startswith(('skypilot_tpu.', 'jax.', 'flax.')))
+assert not leaked, leaked
+print('FOLLOWERS', [p.returncode for p in group.processes], len(tokens))
+"""
+
+
+def test_tp_followers_import_no_jax_or_the_jax_package(tmp_path):
+    (tmp_path / 'sitecustomize.py').write_text(_SITE_BLOCKER)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(tmp_path), _REPO]))
+    proc = subprocess.run([sys.executable, '-c', _TP_GROUP],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=_REPO, check=False)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'FOLLOWERS [0] 4' in proc.stdout
 
 
 def _imported_names(path):

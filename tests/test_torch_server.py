@@ -232,6 +232,10 @@ PORTED_METRICS = {
         'skytpu_engine_prefix_tokens_reused_total',
         'skytpu_engine_paged_blocks_capacity',
         'skytpu_engine_paged_blocks_used',
+        'skytpu_engine_tp_size', 'skytpu_engine_tp_collectives',
+        'skytpu_engine_tp_allreduce_bytes',
+        'skytpu_engine_paged_blocks_used_per_device',
+        'skytpu_engine_paged_pool_bytes_per_device',
         'skytpu_engine_paged_blocks_reused_total',
         'skytpu_engine_paged_cow_copies_total',
         'skytpu_engine_chunked_prefill_ticks_total',
