@@ -6759,7 +6759,7 @@ def _allreduce_share(torch, engine, smi: str) -> dict:
         pf.ints.put(np.concatenate([tables[0], chunk, [512, 255, 0]]))
         for label, fn in (('decode step', decode), ('prefill chunk', prefill)):
             wall, kernel, _, _ = _timed_step(
-                torch, fn, f'tp{TP}', f'llama3-8b {label}, eager, rank 0',
+                torch, fn, f'tp{TP}', f'{cfg.name} {label}, eager, rank 0',
                 smi, graph=False)
             spent = [0.0, 0]
             plain = group.all_reduce
@@ -6938,11 +6938,622 @@ def phase_tp(torch, smi: str, shard: dict, serve_tokens=None) -> dict:
             'breakdown': breakdown}
 
 
+# ------------------------------------------------------------------ tp_compose
+
+# Tensor-parallel serving's compositions at tp=2 on the one card (two
+# ranks on cuda:0 over gloo, as the tp phase): kernel 7 at a rank's shard
+# shapes; tenants (int8 KV and adapters), int8 weights and MoE through the
+# server; a tier handoff from a tp=2 prefill tier to a tp=1 decode tier.
+# llama3-8b's LoRA groups at a tp=2 rank's shard (name -> (IN, OUT of
+# each target)): qkv's outputs are its heads/2 of each segment, o and
+# down read the rank's heads/2 x 128 and d_mlp/2 inputs.
+TP_LORA_GROUPS = {'qkv': (4096, (2048, 512, 512)), 'o': (2048, (4096,)),
+                  'gate_up': (4096, (7168, 7168)), 'down': (7168, (4096,))}
+TP_LORA_CALLS = LORA_CALLS[:2]        # decode B 8 T 1, prefill B 1 T 256
+TPC_NEW = 16                          # new tokens a request
+TPC_PARITY_LAYERS = 2                 # the fp32 parity models' depth
+TPC_PARITY_ADAPTERS = 2
+TPC_MOE = ('mixtral-8x7b', 8)         # the moe phase's cut, capacity 1.25
+TPC_HANDOFF = ('llama3-8b', 4)        # the handoff's fp32 cut
+TPC_HANDOFF_BLOCKS = (1024 + 1, 2048 + 1)   # prefill, decode tier pools
+TPC_WEIGHT_FRAC = 0.55                # a rank's bytes / tp=1's
+TPC_ROUTES_ENV = 'SKYTPU_SMOKE_ROUTES'
+
+
+def _tp_shard_lora(torch) -> dict:
+    """Kernel 7 at a tp=2 rank's shard shapes (TP_LORA_GROUPS; rank 16, 4
+    adapters and the identity, scale 2) on the serve path's decode (B 8 x
+    T 1, mixed slots) and prefill (B 1 x T 256) calls: fp32 and bf16
+    against the plain per-target composition (LORA_TOL), the route each
+    call takes checked (tensor cores for bf16 prefill, CUDA cores
+    otherwise); bf16 timed per layer (the 4 group calls): the group calls
+    (`ms`, graph replay), the plain composition (device), for the prefill
+    the cuBLAS yardstick (two matmuls and the scaled add a target), and
+    the bound (`_lora_bound`)."""
+    from skypilot_tpu_torch.ops import fused_lora as fl
+    totals = {call: dict(ms=0.0, plain_ms=0.0, yardstick_ms=0.0,
+                         t_bytes=0.0, t_ops=0.0)
+              for call, *_ in TP_LORA_CALLS}
+    worst = 0.0
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        for name, (d_in, outs) in TP_LORA_GROUPS.items():
+            stacks, gen = _lora_stacks(torch, d_in, outs, dtype,
+                                       d_in + sum(outs) + 1)
+            offsets = [sum(outs[:i]) for i in range(len(outs))]
+            group = fl.LoRAGroup(stacks, offsets, sum(outs), LORA_SCALE)
+
+            def composition(x, y, aids, stacks=stacks, offsets=offsets):
+                for (a, b), off in zip(stacks, offsets):
+                    y[..., off:off + b.shape[2]] += \
+                        fl.fused_multi_lora_plain(x, a, b, aids) * LORA_SCALE
+                return y
+            for call, batch, seq, ids in TP_LORA_CALLS:
+                x = torch.randn((batch, seq, d_in), generator=gen,
+                                device='cuda').to(dtype)
+                y0 = torch.randn((batch, seq, sum(outs)), generator=gen,
+                                 device='cuda').to(dtype)
+                aids = torch.tensor(ids, dtype=torch.int32, device='cuda')
+                what = (f'tp shard lora {name} {call} {dtype_name} (IN '
+                        f'{d_in}, OUT {outs})')
+                out = group(x, y0.clone(), aids)
+                ref = composition(x, y0.clone(), aids)
+                torch.cuda.synchronize()
+                err = _check_close(torch, what, out, ref,
+                                   LORA_TOL[dtype_name])
+                route, splits = group.plan(seq)
+                want = ('tensor_cores' if dtype_name == 'bfloat16' and
+                        seq >= 16 else 'cuda_cores')
+                if route != want:
+                    fail(f'{what}: route {route}, want {want}')
+                log(f'{what}: route {route}, {splits} IN splits, '
+                    f'max_abs_err {err:.3e}')
+                if dtype_name != 'bfloat16':
+                    continue
+                worst = max(worst, err)
+                y = y0.clone()
+                times = {
+                    'ms': graph_ms(torch, lambda: group(x, y, aids)),
+                    'plain_ms': device_ms(torch, lambda: composition(
+                        x, y, aids))}
+                if call == 'prefill':
+                    slot = ids[0]
+
+                    def cublas(stacks=stacks, offsets=offsets):
+                        for (a, b), off in zip(stacks, offsets):
+                            y[..., off:off + b.shape[2]] += torch.matmul(
+                                torch.matmul(x, a[slot]), b[slot]) * \
+                                LORA_SCALE
+                    times['yardstick_ms'] = graph_ms(torch, cublas)
+                times['t_bytes'], times['t_ops'] = _lora_bound(
+                    x, outs, LORA_RANK, ids)
+                for key, value in times.items():
+                    totals[call][key] += value
+                log(f'{what}: ' + ', '.join(
+                    f'{k} {v:.4f}' for k, v in times.items()))
+            del stacks, group
+        torch.cuda.empty_cache()
+    records = {'max_abs_err': worst}
+    for call, total in totals.items():
+        t_bytes, t_ops = total.pop('t_bytes'), total.pop('t_ops')
+        if call != 'prefill':
+            del total['yardstick_ms']
+        records[call] = {**total, 'bound_ms': max(t_bytes, t_ops),
+                         'bound_by': 'bytes' if t_bytes >= t_ops
+                         else 'operations', 'library_ms': None}
+        log(f'tp shard lora per layer, {call} (4 group calls at the tp=2 '
+            f'shard, 7 targets): ' + ', '.join(
+                f'{k} {v:.4f}' for k, v in records[call].items()
+                if isinstance(v, float)) + f' ({records[call]["bound_by"]})')
+    return records
+
+
+def _tpc_register() -> tuple:
+    """The registered names of the phase's cut configs (what the server
+    takes; a follower registers them too)."""
+    from skypilot_tpu_torch.models import configs
+    name, layers = TPC_HANDOFF
+    fp32 = f'{name}-{layers}l-fp32'
+    configs._register(dataclasses.replace(  # pylint: disable=protected-access
+        configs.get_config(name), name=fp32, num_layers=layers,
+        dtype='float32', param_dtype='float32'))
+    return _moe_model(*TPC_MOE), fp32
+
+
+_TPC_ROUTES = {'on': False, 'digests': []}
+
+
+def _tpc_route_probe(path=None) -> None:
+    """Wrap models/moe.dispatch: each call records a digest of its expert
+    indices and the capacity rule's keep mask (appended to `path` on a
+    follower, in memory on rank 0 while `_TPC_ROUTES['on']`)."""
+    import hashlib
+
+    from skypilot_tpu_torch.models import moe
+    plain = moe.dispatch
+
+    def probed(x, idx, probs, w_gate, w_up, w_down, capacity_factor, dtype,
+               reduce=None):
+        if path is not None or _TPC_ROUTES['on']:
+            e, k = w_gate.shape[0], idx.shape[-1]
+            g = x.shape[0] * x.shape[1]
+            gs = moe.group_size(g)
+            keep = moe.positions(idx.reshape(g // gs, gs, k), e) < \
+                moe.capacity(gs, k, e, capacity_factor)
+            digest = hashlib.sha256(idx.cpu().numpy().tobytes() +
+                                    keep.cpu().numpy().tobytes()).hexdigest()
+            if path is None:
+                _TPC_ROUTES['digests'].append(digest)
+            else:
+                with open(path, 'a', encoding='utf-8') as f:
+                    f.write(digest + '\n')
+        return plain(x, idx, probs, w_gate, w_up, w_down, capacity_factor,
+                     dtype, reduce)
+    moe.dispatch = probed
+
+
+def tp_compose_follower(group) -> None:
+    """The tp_compose phase's follower: the cut configs registered, the
+    routing probe installed, the model checks on its shard, then the
+    engines' follower loop."""
+    import torch
+
+    from skypilot_tpu_torch.models import inference
+    _tpc_register()
+    _tpc_route_probe(os.environ[TPC_ROUTES_ENV] + f'.{group.rank}')
+    _tpc_lora_model(torch, group)
+    _tpc_int8_shards(torch, group)
+    _tpc_moe_model(torch, group)
+    inference.serve_follower(group)
+
+
+def _tpc_parity_cfg(name: str, **kw):
+    from skypilot_tpu_torch.models.configs import get_config
+    return dataclasses.replace(
+        get_config(name), num_layers=TPC_PARITY_LAYERS, dtype='float32',
+        param_dtype='float32', decode=True, paged_block_size=16,
+        paged_num_blocks=35, max_seq_len=272, **kw)
+
+
+def _tpc_forward(torch, model, rows: int, aids=None) -> tuple:
+    """`rows` rows of a seeded 256-token prefill and one decode step
+    through the paged pool: (last prefill logits, decode logits) on the
+    host."""
+    k_pool, v_pool = model.new_kv_pool(35)
+    gen = torch.Generator().manual_seed(4)
+    vocab = model.cfg.vocab_size
+    tokens = torch.randint(0, vocab, (rows, TP_MODEL_TOKENS + 1),
+                           generator=gen).cuda()
+    tables = torch.zeros((rows, 18), dtype=torch.int32, device='cuda')
+    for r in range(rows):
+        tables[r, :17] = torch.arange(1 + 17 * r, 18 + 17 * r)
+    positions = torch.arange(TP_MODEL_TOKENS, dtype=torch.int32,
+                             device='cuda')[None].expand(rows, -1)
+    with torch.inference_mode():
+        prefill = model(tokens[:, :TP_MODEL_TOKENS], positions, tables,
+                        k_pool, v_pool, logits_at=TP_MODEL_TOKENS - 1,
+                        adapter_ids=aids)
+        decode = model(tokens[:, TP_MODEL_TOKENS:], torch.full(
+            (rows, 1), TP_MODEL_TOKENS, dtype=torch.int32, device='cuda'),
+                       tables, k_pool, v_pool, adapter_ids=aids)[:, 0]
+    torch.cuda.synchronize()
+    return prefill.float().cpu(), decode.float().cpu()
+
+
+def _tpc_lora_model(torch, group) -> tuple:
+    """llama3-8b (TPC_PARITY_LAYERS, fp32) with 2 adapters on all seven
+    targets, this rank's shard (`group`) or whole (None): 2 rows, one a
+    adapter each, through `_tpc_forward`."""
+    from skypilot_tpu_torch.models.convert import adapter_from_jax
+    from skypilot_tpu_torch.models.transformer import Transformer
+    from skypilot_tpu_torch.parallel import sharding
+    cfg = _tpc_parity_cfg(
+        'llama3-8b', serve_adapters=TPC_PARITY_ADAPTERS, lora_rank=LORA_RANK,
+        lora_alpha=TENANT_KW['adapter_alpha'],
+        lora_targets=TENANT_KW['adapter_targets'])
+    model = Transformer(cfg, device='cuda:0', group=group).init_random_(0)
+    tp, rank = (group.tp, group.rank) if group is not None else (1, 0)
+    for slot in range(1, TPC_PARITY_ADAPTERS + 1):
+        host = adapter_from_jax(random_adapter(cfg, 60 + slot), cfg)
+        for layer, proj, stack in model.lora_stacks():
+            a, b = sharding.shard_adapter(
+                proj, *(torch.from_numpy(m) for m in host[layer][proj]),
+                cfg, tp, rank)
+            stack.a[slot].copy_(a)
+            stack.b[slot].copy_(b)
+    out = _tpc_forward(torch, model, 2, torch.tensor(
+        [1, 2], dtype=torch.int32, device='cuda'))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpc_digest(torch, t):
+    """Two weighted sums (wrapping int64) of a tensor's raw bits: equal
+    digests of one shape say the bits are equal."""
+    bits = t.contiguous().view(torch.int8 if t.element_size() == 1
+                               else torch.int32).reshape(-1).long()
+    n = torch.arange(bits.numel(), device=bits.device)
+    return torch.stack([(bits * (n % 65521 + 1)).sum(),
+                        (bits * (n % 65519 * 3 + 7)).sum()]).cpu()
+
+
+def _tpc_int8_state(torch, model) -> dict:
+    return {k: v for k, v in model.state_dict().items()
+            if v.dtype == torch.int8 or k.endswith('_scale')}
+
+
+def _tpc_int8_shards(torch, group):
+    """llama3-8b at full size with int8 weights built as the engines
+    build it (inference._build_model: each float parameter drawn whole,
+    quantized, cut) on every rank: each rank's payload and scale digests
+    on rank 0, and the rank's weight bytes."""
+    from skypilot_tpu_torch.models import inference
+    from skypilot_tpu_torch.models.configs import get_config
+    cfg = dataclasses.replace(get_config('llama3-8b'), decode=True)
+    _, model = inference._build_model(  # pylint: disable=protected-access
+        cfg, None, 0, 'int8', torch.device('cuda:0'), group)
+    state = _tpc_int8_state(torch, model)
+    names = sorted(state)
+    mine = torch.stack([_tpc_digest(torch, state[k]) for k in names])
+    weight = torch.tensor([sum(p.numel() * p.element_size()
+                               for p in model.parameters())])
+    del model, state
+    torch.cuda.empty_cache()
+    return names, group.gather_host(mine), group.gather_host(weight)
+
+
+def _tpc_moe_model(torch, group) -> tuple:
+    from skypilot_tpu_torch.models.transformer import Transformer
+    cfg = _tpc_parity_cfg(TPC_MOE[0])
+    model = Transformer(cfg, device='cuda:0', group=group).init_random_(0)
+    out = _tpc_forward(torch, model, 1)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpc_hold_logits(torch, label: str, got, ref) -> float:
+    worst = 0.0
+    for what, a, b in (('prefill', got[0], ref[0]), ('decode', got[1],
+                                                     ref[1])):
+        worst = max(worst, _check_close(
+            torch, f'tp_compose {label}: {what} logits tp={TP} vs tp=1', a,
+            b, TP_LOGIT_TOL))
+        if not torch.equal(a.argmax(-1), b.argmax(-1)):
+            fail(f'tp_compose {label}: greedy {what} token differs')
+    log(f'tp_compose {label} ({TPC_PARITY_LAYERS} layers, fp32): logits '
+        f'tp={TP} vs tp=1 max_abs_err {worst:.3e} (TP_LOGIT_TOL '
+        f'{TP_LOGIT_TOL}), greedy tokens equal')
+    return worst
+
+
+def _tpc_models(torch, group, smi: str) -> dict:
+    """Rank 0's side of the follower's model checks, each beside its tp=1
+    reference: adapters and MoE fp32 logits; int8 shards bit for bit."""
+    from skypilot_tpu_torch.models import inference
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.parallel import sharding
+    out = {}
+    ref = _tpc_lora_model(torch, None)
+    out['lora_logits'] = _tpc_hold_logits(
+        torch, f'{TPC_PARITY_ADAPTERS} adapters', _tpc_lora_model(
+            torch, group), ref)
+    t0 = time.monotonic()
+    names, parts, weights = _tpc_int8_shards(torch, group)
+    cfg = dataclasses.replace(get_config('llama3-8b'), decode=True)
+    _, whole = inference._build_model(  # pylint: disable=protected-access
+        cfg, None, 0, 'int8', torch.device('cuda:0'))
+    state = _tpc_int8_state(torch, whole)
+    if sorted(state) != names:
+        fail('tp_compose int8: the shard and tp=1 state dicts differ')
+    for i, name in enumerate(names):
+        for rank in range(TP):
+            want = _tpc_digest(torch, sharding.shard_tensor(
+                name, state[name], cfg, TP, rank))
+            if not torch.equal(parts[rank][i], want):
+                fail(f'tp_compose int8: rank {rank} {name} differs from '
+                     f'tp=1\'s slice')
+    tp1_weight = sum(p.numel() * p.element_size()
+                     for p in whole.parameters())
+    del whole, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_rank = [int(w[0]) for w in weights]
+    frac = max(per_rank) / tp1_weight
+    if frac > TPC_WEIGHT_FRAC:
+        fail(f'tp_compose int8: a rank holds {frac:.4f} of tp=1\'s weight '
+             f'bytes (> {TPC_WEIGHT_FRAC})')
+    out['int8'] = {'tensors': len(names), 'weight_per_rank': per_rank,
+                   'weight_tp1': tp1_weight, 'frac': frac}
+    log(f'tp_compose int8 weights: llama3-8b built on every rank as the '
+        f'engines build it in {time.monotonic() - t0:.1f}s; {len(names)} '
+        f'payloads and scales on each rank equal tp=1\'s slices bit for '
+        f'bit (digests); weight bytes per rank {per_rank} vs tp=1 '
+        f'{tp1_weight} ({frac:.4f}) [{smi}]')
+    ref = _tpc_moe_model(torch, None)
+    _TPC_ROUTES['on'] = True
+    try:
+        got = _tpc_moe_model(torch, group)
+    finally:
+        _TPC_ROUTES['on'] = False
+    out['moe_logits'] = _tpc_hold_logits(torch, f'{TPC_MOE[0]} MoE', got,
+                                         ref)
+    return out
+
+
+def _tpc_counts_delta(before, after, key: str) -> list:
+    return [a[key] - b[key] for a, b in zip(after, before)]
+
+
+def _tpc_serve(torch, group, label: str, model: str, bodies, smi: str,
+               adapters=None, ordered: bool = False, **kw) -> dict:
+    """`model` at tp=2 through InferenceServer over HTTP: `bodies` once
+    (launch formulas held on every rank, tokens checked), with TTFT,
+    decode tokens/s, per-rank peak memory and the footprint; then the
+    drained engine's decode step and prefill chunk with their all-reduce
+    share (`_allreduce_share`)."""
+    from skypilot_tpu_torch.serve import tenancy
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    t0 = time.monotonic()
+    server = InferenceServer(model, mesh=group, device='cuda:0',
+                             num_slots=8, paged_block_size=16,
+                             prefill_chunk=256, rng_seed=0, async_depth=0,
+                             **kw)
+    engine = server.engine
+    server.warmup()
+    build_s = time.monotonic() - t0
+    http = BackgroundServer(server)
+    try:
+        if adapters:
+            with tempfile.TemporaryDirectory() as tmp:
+                for i, name in enumerate(adapters):
+                    path = os.path.join(tmp, f'{name}.npz')
+                    tenancy.save_adapter_npz(
+                        random_adapter(engine.cfg, 40 + i), path)
+                    status, body = _request(http.url + '/adapters/load',
+                                            'POST', {'name': name,
+                                                     'path': path})
+                    if status != 200:
+                        fail(f'{label}: /adapters/load {name}: {status} '
+                             f'{body}')
+        before = engine.tp_counts(reset_peak=True)
+        run = _serve_traffic(torch, engine, http.url, bodies,
+                             new_tokens=TPC_NEW, ordered=ordered)
+        after = engine.tp_counts()
+    finally:
+        http.close()
+        server.draining = True
+    if not engine.drain(timeout=120):
+        fail(f'{label}: engine did not drain')
+    engine._pool.check()  # pylint: disable=protected-access
+    breakdown = _allreduce_share(torch, engine, smi)
+    # Rank 0's counters were set to 0 for the run (`_serve_traffic`); a
+    # follower's count is its delta.
+    per_rank = {k: [run['launches'][k]] + _tpc_counts_delta(
+        before[1:], after[1:], k) for k in run['launches']}
+    for key, counts in per_rank.items():
+        if counts != [run['expected'][key]] * TP or \
+                run['launches'][key] != run['expected'][key]:
+            fail(f'{label}: {key} launches per rank {counts} (rank 0 reset '
+                 f'{run["launches"][key]}), formula {run["expected"][key]}')
+    step = engine._tp_step  # pylint: disable=protected-access
+    want = 2 * engine.cfg.num_layers + 2
+    if step[0] != want:
+        fail(f'{label}: {step[0]} all-reduces a decode step, formula 2 x '
+             f'layers + 2 = {want}')
+    mem = engine.memory_footprint()
+    # A rank's weights, pool and adapter stacks against the global (tp=1)
+    # bytes of the same engine.
+    frac = mem['total_bytes_per_device'] / mem['total_bytes']
+    if frac > TPC_WEIGHT_FRAC:
+        fail(f'{label}: a rank holds {frac:.4f} of the engine\'s bytes')
+    peaks = [a['max_memory_allocated'] / 2**30 for a in after]
+    t = run['ticks']
+    log(f'{label}: {model} tp={TP} built and warm in {build_s:.1f}s; '
+        f'{len(bodies)} requests x {TPC_NEW} in {run["wall"]:.2f}s; chunks '
+        f'{run["chunks"]}, decode steps {t["decode_steps"]}; launches per '
+        f'rank ' + ', '.join(f'{k} {v}' for k, v in per_rank.items() if
+                             any(v)) + f' = {engine.cfg.num_layers} x '
+        f'({run["chunks"]} + {t["decode_steps"]})'
+        f'{" x 4 groups" if any(per_rank["fused_multi_lora"]) else ""}; '
+        f'{step[0]} all-reduces a decode step (2 x {engine.cfg.num_layers} '
+        f'+ 2); TTFT p50 {run["ttft_ms"]:.1f} ms, decode '
+        f'{run["tokens_per_s"]:.1f} tokens/s over 8 slots; peak memory per '
+        f'rank {[round(p, 2) for p in peaks]} GiB; per device '
+        f'{mem["weight_bytes_per_device"]} weight bytes'
+        f'{", " + str(mem["adapter_bytes_per_device"]) + " adapter bytes (global " + str(mem["adapter_bytes"]) + ")" if "adapter_bytes" in mem else ""}'
+        f', {mem["kv_bytes_per_device"]} pool bytes; {frac:.4f} of tp=1\'s '
+        f'bytes a rank [{smi}]')
+    out = {'per_rank': per_rank, 'frac': frac, 'chunks': run['chunks'],
+           'decode_steps': t['decode_steps'], 'ttft_ms': run['ttft_ms'],
+           'tokens_per_s': run['tokens_per_s'], 'peaks': peaks,
+           'memory': mem, 'tokens': run['tokens'], 'allreduces': step[0],
+           'breakdown': breakdown}
+    del server, engine, http
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpc_tenant_tokens(torch, group) -> None:
+    """llama3-8b (2 layers, fp32) with int8 KV and 2 adapters through
+    ContinuousBatchingEngine at tp=2 and tp=1 on the same seeded weights
+    and adapters, one request at a time (one with an adapter): greedy
+    tokens equal."""
+    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    cfg = _tp_cfg(TPC_PARITY_LAYERS, 'float32')
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in TP_PARITY_PROMPTS]
+    runs = {}
+    for tp in (1, TP):
+        engine = ContinuousBatchingEngine(
+            cfg, mesh=group if tp > 1 else None, device='cuda:0',
+            max_adapters=TPC_PARITY_ADAPTERS, **TENANT_KW, **TP_PARITY)
+        for i in range(TPC_PARITY_ADAPTERS):
+            engine.load_adapter(f'ad{i}', random_adapter(engine.cfg, 70 + i))
+        runs[tp] = [engine.generate(p, max_new_tokens=TPC_NEW,
+                                    adapter=a, timeout=600)[0]
+                    for p, a in zip(prompts, ('ad1', None))]
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs[1] != runs[TP]:
+        fail(f'tp_compose tenants: tp={TP} tokens {runs[TP]} != tp=1 '
+             f'{runs[1]}')
+    log(f'tp_compose tenants ({TPC_PARITY_LAYERS} layers, fp32, int8 KV, '
+        f'{TPC_PARITY_ADAPTERS} adapters): tp={TP} greedy tokens equal '
+        f'tp=1 ({len(prompts)} requests x {TPC_NEW}, one through ad1)')
+
+
+def _tpc_bodies(torch, vocab: int, adapters=None) -> list:
+    """Serve's 8 prompts with TPC_NEW new tokens; `adapters[i]` on body i
+    where given."""
+    bodies = _serve_bodies(torch, vocab)
+    for i, body in enumerate(bodies):
+        body['max_new_tokens'] = TPC_NEW
+        if adapters and adapters[i]:
+            body['adapter'] = adapters[i]
+    return bodies
+
+
+def _tpc_handoff(torch, group, name: str, smi: str) -> dict:
+    """A prefill tier at tp=2 hands serve's 8 prompts and a KV_LONG-token
+    prompt off to a decode tier at tp=1 (the fp32 cut `name`, one seed):
+    the decode tier's tokens equal its own monolithic cold prefill's; the
+    handoff seconds."""
+    t0 = time.monotonic()
+    kw = dict(device='cuda:0', num_slots=8, paged_block_size=16,
+              prefill_chunk=256, rng_seed=0, prefix_cache=16,
+              async_depth=0)
+    from skypilot_tpu_torch.serve.server import (BackgroundServer,
+                                                 InferenceServer)
+    pre = InferenceServer(name, mesh=group, tier='prefill',
+                          paged_num_blocks=TPC_HANDOFF_BLOCKS[0], **kw)
+    dec = InferenceServer(name, tier='decode',
+                          paged_num_blocks=TPC_HANDOFF_BLOCKS[1], **kw)
+    pre.warmup()
+    dec.warmup()
+    pre_http, dec_http = BackgroundServer(pre), BackgroundServer(dec)
+    log(f'tp_compose handoff: {name} prefill tier at tp={TP} and decode '
+        f'tier at tp=1 up in {time.monotonic() - t0:.1f}s')
+    gen = torch.Generator().manual_seed(11)
+    vocab = dec.engine.cfg.vocab_size
+    prompts = [b['prompt_ids'][0] for b in _serve_bodies(torch, vocab)]
+    prompts.append(torch.randint(0, vocab, (KV_LONG,),
+                                 generator=gen).tolist())
+    rows = []
+    try:
+        cold = _kv_cold(dec, dec_http.url, prompts, TPC_NEW)
+        for i, ids in enumerate(prompts):
+            pushed = _kv_handoff(pre_http.url, dec_http.url, ids,
+                                 f'tpc-{i}')
+            hits = dec.engine.prewarm_stats['hits']
+            tokens, ttft = _kv_generate(dec_http.url, ids, TPC_NEW)
+            if tokens != cold[i][0]:
+                fail(f'tp_compose handoff prompt {i} ({len(ids)} tokens): '
+                     f'tokens differ from the tp=1 monolithic prefill\'s')
+            if dec.engine.prewarm_stats['hits'] != hits + 1:
+                fail(f'tp_compose handoff prompt {i}: not a prefix hit')
+            rows.append({'tokens': len(ids), 'handoff_s':
+                         pushed['handoff_s'], 'bytes': pushed['bytes'],
+                         'ttft_ms': ttft * 1e3,
+                         'cold_ttft_ms': cold[i][1] * 1e3})
+            log(f'tp_compose handoff prompt {i}: {len(ids)} tokens, '
+                f'{pushed["chunks"]} chunks, {pushed["bytes"]} bytes, '
+                f'handoff {pushed["handoff_s"]:.3f}s (tp={TP} prefill TTFT '
+                f'{pushed["prefill_ttft_s"] * 1e3:.1f} ms, gather and frame '
+                f'{pushed["export_s"]:.3f}s, push and ingest '
+                f'{pushed["push_s"]:.3f}s); decode-tier TTFT '
+                f'{ttft * 1e3:.1f} ms vs tp=1 monolithic '
+                f'{cold[i][1] * 1e3:.1f} ms; tokens equal [{smi}]')
+    finally:
+        for server, http in ((pre, pre_http), (dec, dec_http)):
+            http.close()
+            server.draining = True
+            if not server.engine.drain(timeout=120):
+                fail('tp_compose handoff: an engine did not drain')
+    del pre, dec, pre_http, dec_http
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'rows': rows}
+
+
+def phase_tp_compose(torch, smi: str, shard: dict) -> dict:
+    """Tensor-parallel serving's compositions at tp=2 on the one card
+    (two ranks on cuda:0 over gloo): the model checks (adapters and MoE
+    fp32 logits against tp=1, int8 shards bit for bit and weight bytes);
+    tenants (int8 KV, 4 adapters on all seven targets, half the requests
+    through one) on llama3-8b, int8 weights on llama3-8b and MoE on
+    mixtral's cut, each through InferenceServer over HTTP on serve's 8
+    prompts (launch formulas of kernels 1, 2 and 7 on every rank, the
+    all-reduces of a decode step, TTFT, tokens/s, per-rank peak); MoE
+    routing equal on both ranks; a tier handoff from tp=2 to tp=1.
+    `shard`: kernel 7 at the shard shapes (`_tp_shard_lora`)."""
+    from skypilot_tpu_torch.parallel import distributed
+    t_phase = time.monotonic()
+    moe_name, handoff_name = _tpc_register()
+    routes_dir = tempfile.mkdtemp(prefix='skytpu-smoke-routes-')
+    os.environ[TPC_ROUTES_ENV] = os.path.join(routes_dir, 'routes')
+    _tpc_route_probe()
+    group = distributed.spawn_group(TP, 'chip_smoke:tp_compose_follower',
+                                    list(TP_DEVICES), 'gloo', 600)
+    out = {'shard': shard}
+    try:
+        out['models'] = _tpc_models(torch, group, smi)
+        _tpc_tenant_tokens(torch, group)
+        adapters = [None, 'ad0', None, 'ad1', None, 'ad2', None, 'ad3']
+        out['tenants'] = _tpc_serve(
+            torch, group, 'tp_compose tenants', 'llama3-8b',
+            _tpc_bodies(torch, 128256, adapters), smi,
+            adapters=['ad0', 'ad1', 'ad2', 'ad3'], max_adapters=4,
+            **TENANT_KW)
+        out['int8w'] = _tpc_serve(
+            torch, group, 'tp_compose int8 weights', 'llama3-8b',
+            _tpc_bodies(torch, 128256), smi, quantize='int8')
+        frac = (out['int8w']['memory']['weight_bytes_per_device'] /
+                out['models']['int8']['weight_tp1'])
+        if frac > TPC_WEIGHT_FRAC:
+            fail(f'tp_compose int8 weights: {frac:.4f} of tp=1\'s weight '
+                 f'bytes a rank')
+        _TPC_ROUTES['on'] = True
+        try:
+            out['moe'] = _tpc_serve(
+                torch, group, 'tp_compose moe', moe_name,
+                _tpc_bodies(torch, 32000), smi, ordered=True)
+        finally:
+            _TPC_ROUTES['on'] = False
+        out['handoff'] = _tpc_handoff(torch, group, handoff_name, smi)
+    finally:
+        group.close()
+    if [p.returncode for p in group.processes] != [0]:
+        fail(f'tp_compose: follower exit codes '
+             f'{[p.returncode for p in group.processes]}')
+    with open(os.environ[TPC_ROUTES_ENV] + '.1', encoding='utf-8') as f:
+        theirs = f.read().split()
+    shutil.rmtree(routes_dir, ignore_errors=True)
+    mine = _TPC_ROUTES['digests']
+    if mine != theirs or len(mine) < 2 * TPC_MOE[1]:
+        fail(f'tp_compose moe: routing differs between the ranks ({len(mine)}'
+             f' / {len(theirs)} dispatches recorded)')
+    out['routing_dispatches'] = len(mine)
+    log(f'tp_compose moe: every rank chose the same experts and dropped '
+        f'the same (token, choice) pairs in all {len(mine)} dispatches '
+        f'(model check, prefill chunks, decode steps)')
+    log(f'tp_compose: phase {time.monotonic() - t_phase:.1f}s; followers '
+        f'exited 0')
+    return out
+
+
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
           'train_sp', 'serve', 'resilience', 'contiguous', 'serve_prefix',
           'serve_tenant', 'serve_sched', 'graph_parity', 'families',
-          'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff', 'tp')
+          'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff', 'tp',
+          'tp_compose')
 PAGED_SOURCE = 'skypilot_tpu_torch/ops/csrc/paged_attention.cu'
 
 
@@ -6988,12 +7599,15 @@ def main(argv=None) -> int:
         paged = phase_kernels(torch)
     if 'kernels_int8' in phases:
         paged8 = phase_kernels_int8(torch)
-    tp_shard = None
+    tp_shard = tp_lora = None
     if 'tp' in phases:
         # Kernels 1 and 2 at a tp rank's shard shape, timed beside the
         # kernel phases: late in a whole run a profiler trace of the
         # decode route has come back without its split kernel's events.
         tp_shard = _tp_shard_kernels(torch)
+    if 'tp_compose' in phases:
+        # Kernel 7 at a tp rank's shard shapes, beside them.
+        tp_lora = _tp_shard_lora(torch)
     if 'lora' in phases:
         lora = phase_lora(torch, args.parent_lora)
     if 'flash' in phases:
@@ -7168,6 +7782,46 @@ def main(argv=None) -> int:
                                  'prefill': shard['prefill']}
             entry['max_abs_err'] = max(entry['max_abs_err'],
                                        shard['max_abs_err'])
+    if 'tp_compose' in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tpc = phase_tp_compose(torch, smi, tp_lora)
+        # Kernels 1, 2 and 7 on the composed tp paths: each rank's
+        # launches; kernel 7 at a rank's shard shapes (its worst error
+        # joins the entry's).
+        for prefix, replaces, source, launches in (
+                ('paged_decode_attention',
+                 'skypilot_tpu/ops/paged_attention.py:71', PAGED_SOURCE,
+                 {'int8w': tpc['int8w']['per_rank']['paged_decode_attention'],
+                  'moe': tpc['moe']['per_rank']['paged_decode_attention']}),
+                ('paged_prefill_kernel<int8_t>',
+                 'skypilot_tpu/ops/paged_attention.py:126', PAGED_SOURCE,
+                 {'tenants': tpc['tenants']['per_rank'][
+                     'paged_decode_attention_int8']}),
+                ('fused_multi_lora', 'skypilot_tpu/ops/fused_lora.py:38',
+                 LORA_SOURCE,
+                 {'tenants': tpc['tenants']['per_rank'][
+                     'fused_multi_lora']})):
+            entry = next((k for k in kernels
+                          if k['name'].startswith(prefix)), None)
+            if entry is None:
+                base = (tp_lora['decode'] if prefix == 'fused_multi_lora'
+                        else tp_shard['paged' if prefix.startswith('paged_d')
+                                      else 'paged8']['decode']
+                        if tp_shard else None)
+                if base is None:
+                    continue
+                entry = {'name': prefix, 'route': 'cuda', 'source': source,
+                         'replaces': replaces,
+                         'launches': next(iter(launches.values()))[0],
+                         'max_abs_err': 0.0, **base}
+                kernels.append(entry)
+            entry['tp_compose_launches'] = launches
+            if prefix == 'fused_multi_lora':
+                entry['tp_shard'] = {'decode': tp_lora['decode'],
+                                     'prefill': tp_lora['prefill']}
+                entry['max_abs_err'] = max(entry['max_abs_err'],
+                                           tp_lora['max_abs_err'])
     if contiguous is not None:
         # The contiguous phase's launches: kernels 1 and 2 in its paged
         # comparison engines, kernel 7 on the contiguous layout.

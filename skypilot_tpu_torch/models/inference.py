@@ -123,7 +123,8 @@ from skypilot_tpu_torch.models import step_graph
 from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.transformer import (Transformer,
-                                                 check_supported)
+                                                 check_supported,
+                                                 random_params)
 from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.ops import limits
@@ -471,38 +472,41 @@ def _build_model(cfg: ModelConfig, params, rng_seed: int,
                  quantize: Optional[str], device: torch.device,
                  group=None) -> tuple:
     """(cfg, the served model): `params` (a float state dict, or an int8
-    one for an int8 cfg) or seeded random float weights; with
-    quantize='int8' the float weights are placed first, then each
-    projection is quantized on the device (models/quantize.py) and the
-    model rebuilt on the int8 state under the int8 cfg returned, as the
-    reference quantizes after `_resolve_cfg_and_params` made its float
-    tree. Under a serving group of tp > 1 each rank builds its shard:
-    seeded weights drawn whole a parameter at a time, or its slice of the
-    full `params` (parallel/sharding.shard_params), on its device."""
+    one for an int8 cfg; or (name, tensor) pairs, taken one at a time, as
+    a follower receives them) or seeded random float weights. With
+    quantize='int8' each float parameter is drawn or taken in turn,
+    quantized on the device (models/quantize.py) and kept, under the
+    int8 cfg returned, as the reference quantizes after
+    `_resolve_cfg_and_params` made its float tree. Under a serving group
+    of tp > 1 each rank builds its shard: seeded weights drawn whole a
+    parameter at a time, or its slice of the full `params`
+    (parallel/sharding), on its device; an int8 projection is quantized
+    whole and then cut (quantize.quantize_shards). No rank holds the
+    whole float model at once."""
+    tp, rank = (group.tp, group.rank) if group is not None else (1, 0)
     if not quantize:
         model = Transformer(cfg, device=device, group=group)
         if params is None:
             logger.info('Initializing random weights for %s', cfg.name)
             model.init_random_(rng_seed)
         else:
-            if group is not None and group.tp > 1:
-                params = {
-                    k: v.to(device) for k, v in sharding.shard_params(
-                        params, cfg, group.tp, group.rank).items()}
+            if tp > 1:
+                params = {k: v.to(device) for k, v in sharding.shard_params(
+                    params, cfg, tp, rank).items()}
             model.load_state_dict(params, strict=True, assign=True)
         return cfg, model
     int8_cfg = quantize_lib.int8_config(cfg)
+    model = Transformer(int8_cfg, device=device, group=group)
     if params is None:
         logger.info('Initializing random weights for %s', cfg.name)
-        float_model = Transformer(cfg, device=device)
-        params = float_model.init_random_(rng_seed).state_dict()
-        del float_model
-    else:
+        items = random_params(cfg, rng_seed, device)
+    elif isinstance(params, dict):
         # Taken out of the caller's dict (the server's loaded weights),
-        # so quantize_state's pops free each float tensor.
-        params = {k: params.pop(k).to(device) for k in list(params)}
-    state = quantize_lib.quantize_state(params, int8_cfg)
-    model = Transformer(int8_cfg, device=device)
+        # so each float tensor is freed once quantized.
+        items = ((k, params.pop(k)) for k in list(params))
+    else:
+        items = params
+    state = quantize_lib.quantize_shards(items, int8_cfg, tp, rank, device)
     model.load_state_dict(state, strict=True, assign=True)
     logger.info('Quantized %s weights to int8 for serving', cfg.name)
     return int8_cfg, model
@@ -694,12 +698,11 @@ class _TensorParallel:
     _tp = 1
     _tp_driver = False
 
-    def _tp_init(self, mesh, kind: str, spec: dict, params,
-                 refuse: dict) -> None:
+    def _tp_init(self, mesh, kind: str, spec: dict, params) -> None:
         """Take the group; on tp > 1 refuse what tp does not serve (before
         any follower builds) and, on rank 0 of a spawned group, have the
         followers build the same engine (`kind`, `spec`) and receive the
-        full `params` (each rank keeps its shard)."""
+        full `params` one tensor at a time (each rank keeps its shard)."""
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         self._tp = self.mesh.tp if self.mesh is not None else 1
         self._tp_driver = self._tp > 1 and self.mesh.rank == 0
@@ -712,13 +715,11 @@ class _TensorParallel:
         self._tp_reset = False
         # (collectives, all-reduce bytes) of one decode step.
         self._tp_step = (0, 0)
+        # Adapter trees the followers hold, by name (rank 0: the tree
+        # object sent; a follower: the host arrays).
+        self._tp_adapters: Dict[str, object] = {}
         if self._tp == 1:
             return
-        bad = [name for name, value in refuse.items() if value]
-        if bad:
-            raise NotImplementedError(
-                f'tensor-parallel serving (tp={self._tp}) does not serve '
-                f'{", ".join(bad)} yet ({sharding.TP_NEXT})')
         cfg = _resolve_cfg(spec['cfg'], spec.get('max_seq_len'), None, None)
         check_supported(cfg, self._tp)
         logger.info(
@@ -763,10 +764,12 @@ class _TensorParallel:
                 staged.on_put = functools.partial(self._tp_note_put,
                                                   (prefix, attr))
 
-    def tp_counts(self) -> List[Dict[str, int]]:
+    def tp_counts(self, reset_peak: bool = False) -> List[Dict[str, int]]:
         """Every rank's launch counters, collective counts and peak
         device memory (torch.cuda.max_memory_allocated; 0 on the CPU), in
-        rank order (one element off tp)."""
+        rank order (one element off tp); `reset_peak` then resets each
+        rank's peak, so the next call reads the peak of what ran
+        between."""
         from skypilot_tpu_torch.ops.fused_lora import fused_multi_lora
         from skypilot_tpu_torch.ops.paged_attention import (
             paged_decode_attention)
@@ -783,9 +786,11 @@ class _TensorParallel:
              torch.cuda.max_memory_allocated(self.device)
              if self.device.type == 'cuda' else 0],
             dtype=torch.int64)
+        if reset_peak and self.device.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats(self.device)
         if self._tp == 1:
             return [dict(zip(keys, mine.tolist()))]
-        self._tp_send('counts')
+        self._tp_send('counts', reset_peak)
         parts = mesh.gather_host(mine)
         if parts is None:
             return []
@@ -807,7 +812,7 @@ class _TensorParallel:
 
     def _tp_apply(self, op) -> None:
         if op[0] == 'counts':
-            self.tp_counts()
+            self.tp_counts(*op[1:])
             return
         raise RuntimeError(f'unknown tensor-parallel op {op[0]!r}')
 
@@ -871,8 +876,12 @@ class ContinuousBatchingEngine(_TensorParallel):
     `follow()`. Every rank samples the same all-reduced logits with the
     same seeded generator, so every rank holds the same tokens. Steps run
     eagerly under tp (`tick_stats['eager_steps']`): gloo collectives
-    cannot be captured in a CUDA graph. Adapters and int8 weights are
-    refused under tp (sharding.TP_NEXT).
+    cannot be captured in a CUDA graph. Adapters, int8 weights, MoE
+    models and the prefill and decode tiers serve under tp: each rank
+    holds its slice of every resident adapter (rank 0 sends an adapter's
+    tree to the followers with its first slot write, and each later
+    write names it), int8 projections are quantized whole and then cut,
+    and KV streams move the global block bytes.
 
     watchdog_timeout (seconds; None or 0 = off) starts a monitor thread
     beside the engine thread: when a busy engine completes no tick for
@@ -928,9 +937,7 @@ class ContinuousBatchingEngine(_TensorParallel):
         # from (every argument but the weights, the group and the device).
         spec = {k: v for k, v in locals().items()
                 if k not in ('self', 'params', 'mesh', 'device')}
-        self._tp_init(mesh, 'ContinuousBatchingEngine', spec, params,
-                      refuse={'max_adapters': max_adapters,
-                              'quantize': quantize})
+        self._tp_init(mesh, 'ContinuousBatchingEngine', spec, params)
         if self._tp > 1:
             device = self.mesh.device
         # Each engine thread binds the world it schedules over here; any
@@ -2621,6 +2628,8 @@ class ContinuousBatchingEngine(_TensorParallel):
         """Zero every adapter slot of the stacks (slot 0, the identity,
         stays zero): fresh residency holds nothing."""
         with self._device(gen):
+            if self._tp_driver:
+                self._tp_pending.append(('adapter_zero',))
             for _, _, stack in self._lora_stacks:
                 stack.a[1:].zero_()
                 stack.b[1:].zero_()
@@ -2809,14 +2818,28 @@ class ContinuousBatchingEngine(_TensorParallel):
                 '--max-adapters N)')
         return self._adapter_pool
 
+    def _tp_send_adapter(self, slot: int, name: str, host) -> None:
+        """Rank 0 under tp: have the followers write adapter `name` into
+        `slot`, sending its tree only the first time they see it."""
+        if not self._tp_driver:
+            return
+        with self._device():
+            sent = self._tp_adapters.get(name) is host
+            self._tp_send('adapter', slot, name, None if sent else host)
+            self._tp_adapters[name] = host
+
     def _write_adapter(self, slot: int, host) -> None:
         """Copy one adapter's per-layer (A, B) matrices into stack slot
-        `slot` of every targeted projection (engine thread only)."""
+        `slot` of every targeted projection (engine thread only); under tp
+        this rank's slices of them (sharding.shard_adapter)."""
         with self._device():
-            for layer, name, stack in self._lora_stacks:
-                a, b = host[layer][name]
-                stack.a[slot].copy_(torch.from_numpy(a))
-                stack.b[slot].copy_(torch.from_numpy(b))
+            tp, rank = self._tp, self.mesh.rank if self.mesh else 0
+            for layer, proj, stack in self._lora_stacks:
+                a, b = sharding.shard_adapter(
+                    proj, *(torch.from_numpy(m) for m in host[layer][proj]),
+                    self.cfg, tp, rank)
+                stack.a[slot].copy_(a)
+                stack.b[slot].copy_(b)
 
     def _ensure_resident(self, name: str, pin: bool) -> int:
         """Make `name` resident (the device write runs in the engine
@@ -2840,6 +2863,7 @@ class ContinuousBatchingEngine(_TensorParallel):
                     # The LRU victim left residency to free this slot.
                     fault_injection.point('tenant.evict')
                 if host is not None:
+                    self._tp_send_adapter(slot, name, host)
                     self._write_adapter(slot, host)
             except BaseException:
                 # The residency map must never claim weights that did
@@ -2882,6 +2906,9 @@ class ContinuousBatchingEngine(_TensorParallel):
             # The explicit-evict chaos seam.
             fault_injection.point('tenant.evict')
             pool.unregister(name)
+            if self._tp_adapters.pop(name, None) is not None:
+                # The followers forget the tree with the next op.
+                self._tp_pending.append(('adapter_drop', name))
 
         self._run_in_tick(drop)
 
@@ -3027,7 +3054,8 @@ class ContinuousBatchingEngine(_TensorParallel):
 
     def memory_footprint(self) -> Dict[str, int]:
         """Bytes of the weights and of the KV store (the paged pool, or
-        the contiguous slot cache), globally and per device."""
+        the contiguous slot cache), and of the adapter stacks with
+        max_adapters, globally and per device."""
         return _footprint(self.model, self._kv_leaves(), self._tp)
 
     def tier_load(self) -> Dict[str, int]:
@@ -3142,6 +3170,15 @@ class ContinuousBatchingEngine(_TensorParallel):
             self._tp_handles.pop(op[1], None)
         elif kind == 'reset':
             self._tp_handles.clear()
+        elif kind == 'adapter':
+            slot, name, host = op[1:]
+            if host is not None:
+                self._tp_adapters[name] = host
+            self._write_adapter(slot, self._tp_adapters[name])
+        elif kind == 'adapter_drop':
+            self._tp_adapters.pop(op[1], None)
+        elif kind == 'adapter_zero':
+            self._reset_adapter_stacks(self._generation)
         elif kind == 'gather':
             self._gather(op[1])
         elif kind == 'scatter':
@@ -3686,10 +3723,11 @@ class ContinuousBatchingEngine(_TensorParallel):
 
 
 def _footprint(model: Transformer, kv_leaves, tp: int) -> Dict[str, int]:
-    """Weight and KV bytes, globally and on each device: under tp a
-    sharded parameter (parallel/sharding.is_sharded) and every KV leaf
-    hold 1/tp of the global tensor on each rank, the rest is whole on
-    every rank."""
+    """Weight and KV bytes (and, with adapter stacks, their bytes),
+    globally and on each device: under tp a sharded parameter
+    (parallel/sharding.is_sharded), an adapter matrix on a sharded axis
+    (sharding.adapter_is_sharded) and every KV leaf hold 1/tp of the
+    global tensor on each rank, the rest is whole on every rank."""
     weight_dev = weight = 0
     for name, p in model.named_parameters():
         size = p.numel() * p.element_size()
@@ -3697,11 +3735,26 @@ def _footprint(model: Transformer, kv_leaves, tp: int) -> Dict[str, int]:
         weight += size * (tp if tp > 1 and sharding.is_sharded(name)
                           else 1)
     kv_dev = sum(t.numel() * t.element_size() for t in kv_leaves)
-    return {'tp': tp, 'weight_bytes': weight,
-            'weight_bytes_per_device': weight_dev, 'kv_bytes': kv_dev * tp,
-            'kv_bytes_per_device': kv_dev,
-            'total_bytes': weight + kv_dev * tp,
-            'total_bytes_per_device': weight_dev + kv_dev}
+    out = {'tp': tp, 'weight_bytes': weight,
+           'weight_bytes_per_device': weight_dev, 'kv_bytes': kv_dev * tp,
+           'kv_bytes_per_device': kv_dev,
+           'total_bytes': weight + kv_dev * tp,
+           'total_bytes_per_device': weight_dev + kv_dev}
+    stacks = list(model.lora_stacks())
+    if stacks:
+        adapter_dev = adapter = 0
+        for _, proj, stack in stacks:
+            for t, cut in zip((stack.a, stack.b),
+                              sharding.adapter_is_sharded(proj)):
+                size = t.numel() * t.element_size()
+                adapter_dev += size
+                adapter += size * (tp if cut else 1)
+        out.update(adapter_bytes=adapter,
+                   adapter_bytes_per_device=adapter_dev,
+                   total_bytes=out['total_bytes'] + adapter,
+                   total_bytes_per_device=(out['total_bytes_per_device'] +
+                                           adapter_dev))
+    return out
 
 
 class InferenceEngine(_TensorParallel):
@@ -3746,8 +3799,7 @@ class InferenceEngine(_TensorParallel):
                  device='cuda') -> None:
         spec = {k: v for k, v in locals().items()
                 if k not in ('self', 'params', 'mesh', 'device')}
-        self._tp_init(mesh, 'InferenceEngine', spec, params,
-                      refuse={'quantize': quantize})
+        self._tp_init(mesh, 'InferenceEngine', spec, params)
         if self._tp > 1:
             device = self.mesh.device
         self.device = resolve_device(device)
@@ -4003,10 +4055,11 @@ def serve_follower(group) -> None:
             if op[0] != 'build':
                 continue
             _, kind, spec, meta = op
-            params = None
-            if meta is not None:
-                params = {key: group.broadcast_tensor(None, shape, dtype)
-                          for key, shape, dtype in meta}
+            # Rank 0's tensors arrive one at a time while the engine
+            # builds, each dropped once this rank took its shard.
+            params = None if meta is None else (
+                (key, group.broadcast_tensor(None, shape, dtype))
+                for key, shape, dtype in meta)
             engine = _ENGINES[kind](**spec, params=params, mesh=group)
             del params
             engine.follow()

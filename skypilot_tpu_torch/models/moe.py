@@ -34,6 +34,16 @@ Numerics follow the reference: tokens enter the expert buffers in the
 compute dtype, the products run in the compute dtype, and the expert
 outputs are weighed by `probs * keep` in fp32 and summed there before
 the cast back.
+
+Under tensor-parallel serving (`group` of tp > 1, the reference's
+`mlp -> tp` with `expert` unmapped) each rank holds every expert's
+d_mlp/tp hidden slice (w_gate / w_up (E, d, M/tp), w_down (E, M/tp, d))
+and the whole router. The block's input is replicated (it follows an
+all-reduce), so `route` and the capacity rule make the same decisions
+on every rank and `dispatch` builds the same buffers; each rank's expert
+products are then partial sums over its hidden slice, and the fp32
+combine, linear in them, is all-reduced once before the cast, never per
+expert.
 """
 from __future__ import annotations
 
@@ -110,25 +120,30 @@ def _experts(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def dense(x: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
           w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-          dtype: torch.dtype) -> torch.Tensor:
+          dtype: torch.dtype, reduce=None) -> torch.Tensor:
     """The reference's `_dense`: every expert on every token, combined in
-    fp32 by the (..., E) map of each token's k weights."""
+    fp32 by the (..., E) map of each token's k weights; `reduce` (a tp
+    group's all-reduce) sums the fp32 combine over the ranks."""
     e, d = w_gate.shape[0], x.shape[-1]
     combine = ((idx[..., None] == torch.arange(e, device=x.device)).float()
                * probs[..., None]).sum(dim=-2)               # (..., E)
     xs = x.reshape(1, -1, d).to(dtype).expand(e, -1, -1)
     out = _experts(xs, w_gate.to(dtype), w_up.to(dtype), w_down.to(dtype))
     out = (out.float() * combine.reshape(-1, e).t()[..., None]).sum(dim=0)
+    if reduce is not None:
+        out = reduce(out)
     return out.reshape(x.shape).to(dtype)
 
 
 def dispatch(x: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
              w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-             capacity_factor: float, dtype: torch.dtype) -> torch.Tensor:
+             capacity_factor: float, dtype: torch.dtype,
+             reduce=None) -> torch.Tensor:
     """The reference's `_dispatch`: x (B, T, d), idx/probs (B, T, k) from
     `route` → (B, T, d) in `dtype`, each token's kept choices' expert
     outputs weighed by their probabilities (which choices are kept
-    follows from idx alone: `positions` < `capacity`)."""
+    follows from idx alone: `positions` < `capacity`); `reduce` (a tp
+    group's all-reduce) sums the fp32 combine over the ranks."""
     e = w_gate.shape[0]
     b, s, d = x.shape
     k = idx.shape[-1]
@@ -168,20 +183,25 @@ def dispatch(x: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
         total = picked[:, 0]
         for j in range(1, k):
             total = total + picked[:, j]
-        return total.reshape(b, s, d).to(dtype)
+    if reduce is not None:
+        total = reduce(total.contiguous())
+    return total.reshape(b, s, d).to(dtype)
 
 
 class MoEBlock(nn.Module):
     """The reference's MoEBlock: `router` (d, E), `w_gate` / `w_up`
     (E, d, M) and `w_down` (E, M, d), made as the dense projections are
     (models/transformer._new_param: frozen under LoRA training, which
-    puts no adapter on the experts, as in the reference)."""
+    puts no adapter on the experts, as in the reference); M is d_mlp/tp
+    on a rank of a serving `group` of tp > 1 (the module docstring)."""
 
-    def __init__(self, cfg: ModelConfig, device=None) -> None:
+    def __init__(self, cfg: ModelConfig, device=None, group=None) -> None:
         super().__init__()
         from skypilot_tpu_torch.models.transformer import (
             _new_param as new_param)
-        e, d, m = cfg.num_experts, cfg.d_model, cfg.d_mlp
+        tp = group.tp if group is not None else 1
+        self.group = group if tp > 1 else None
+        e, d, m = cfg.num_experts, cfg.d_model, cfg.d_mlp // tp
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         self.router = new_param(cfg, (d, e), device)
@@ -193,12 +213,13 @@ class MoEBlock(nn.Module):
         cfg = self.cfg
         idx, probs = route(x, self.router, cfg.experts_per_token)
         weights = (self.w_gate, self.w_up, self.w_down)
+        reduce = self.group.all_reduce if self.group is not None else None
         if cfg.moe_impl == 'dense':
-            return dense(x, idx, probs, *weights, self.dtype)
+            return dense(x, idx, probs, *weights, self.dtype, reduce)
         if cfg.moe_impl != 'dispatch':
             # A typo must not switch semantics (dispatch drops
             # over-capacity tokens; dense is exact).
             raise ValueError(f'Unknown moe_impl {cfg.moe_impl!r}; expected '
                              f"'dispatch' or 'dense'.")
         return dispatch(x, idx, probs, *weights, cfg.moe_capacity_factor,
-                        self.dtype)
+                        self.dtype, reduce)

@@ -105,18 +105,32 @@ Tensor-parallel serving (`group`, a parallel.mesh.ServingGroup of tp > 1
 ranks): each rank's model holds its shard by the reference's rules
 (parallel/sharding.py): heads/tp query heads and kv_heads/tp KV heads
 (the fused qkv_proj holds [q_r | k_r | v_r]), d_mlp/tp of the MLP (gate
-and up each sliced), vocab/tp embedding rows and lm_head columns; norms,
-the position table and the row-parallel biases are whole. o_proj and
-down_proj are row-parallel: a partial product, one all-reduce, then the
-bias. The embedding looks up the rank's vocab rows (zeros elsewhere) and
-sums them with one all-reduce; the unembedding's slices meet in one more
-(`ServingGroup.gather_vocab`), so every rank holds the same logits. A
-forward makes 2 x num_layers + 2 all-reduces. The KV pools and caches
-hold the rank's kv_heads/tp heads. MoE, adapters, LoRA, int8 weights and
-training are refused under tp (sharding.TP_NEXT).
+and up each sliced), of each MoE expert's hidden dimension (every
+expert on every rank, the router whole), vocab/tp embedding rows and
+lm_head columns; norms, the position table and the row-parallel biases
+are whole. o_proj and down_proj are row-parallel: a partial product,
+one all-reduce, then the bias. The embedding looks up the rank's vocab
+rows (zeros elsewhere) and sums them with one all-reduce; the
+unembedding's slices meet in one more (`ServingGroup.gather_vocab`), so
+every rank holds the same logits. A MoE layer routes the (replicated)
+input with the whole router, so every rank picks the same experts and
+drops the same choices, runs its hidden slice of every expert, and
+all-reduces the fp32 combine once (it is linear in the expert outputs),
+then casts. A forward makes 2 x num_layers + 2 all-reduces. int8
+weights are each rank's slice of the whole matrix's quantization (a
+row-parallel column's scale is its whole input axis's absmax); a
+row-parallel int8 product applies its per-column scale and the cast
+before the all-reduce (the scale commutes with the sum, and the partial
+then moves in the compute dtype, as a float projection's does). Adapter
+stacks hold the rank's slices (sharding.shard_adapter): column-parallel
+groups add into the rank's output columns, and o / down add
+(x_r·A_r)·B into the partial product before its all-reduce. The KV
+pools and caches hold the rank's kv_heads/tp heads. Training (and LoRA
+training) is refused under tp (sharding.TP_TRAINING_NEXT).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -185,20 +199,16 @@ def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
     knob values, and (as the reference refuses them) int8 weights over
     MoE, and LoRA training and multi-LoRA serving over int8 weights; under
     tensor parallelism (tp > 1) a tp that does not divide the sharded
-    dimensions (the reference's message), training, MoE, adapters and
-    int8 weights."""
+    dimensions (the reference's message), and training."""
     if tp > 1:
         cfg.assert_tp_compatible(tp)
         refused = [what for what, on in (
             ('training (decode=False)', not cfg.decode),
-            ('MoE', cfg.is_moe),
-            ('multi-LoRA adapters', cfg.serve_adapters),
-            ('LoRA', cfg.lora_rank > 0),
-            ('int8 weights', cfg.weight_quant == 'int8')) if on]
+            ('LoRA training', lora_training(cfg))) if on]
         if refused:
             raise NotImplementedError(
                 f'tensor-parallel serving (tp={tp}) does not serve '
-                f'{", ".join(refused)} yet ({sharding.TP_NEXT})')
+                f'{", ".join(refused)} yet ({sharding.TP_TRAINING_NEXT})')
     bad = _unsupported_knobs(cfg)
     if bad:
         raise NotImplementedError(
@@ -257,21 +267,22 @@ def lora_target_names(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(names)
 
 
-def projection_shapes(cfg: ModelConfig) -> dict:
+def projection_shapes(cfg: ModelConfig, tp: int = 1) -> dict:
     """Each projection the model has, by the reference's module name →
     (in, out) widths (q/k/v and o flattened over heads; gate_proj only
     under a GLU MLP; no MLP projection under MoE, whose experts are no
-    projections)."""
-    q_out = cfg.num_heads * cfg.head_dim
-    kv_out = cfg.num_kv_heads * cfg.head_dim
+    projections); a tp rank's shard widths when tp > 1."""
+    q_out = cfg.num_heads * cfg.head_dim // tp
+    kv_out = cfg.num_kv_heads * cfg.head_dim // tp
     shapes = {'q_proj': (cfg.d_model, q_out), 'k_proj': (cfg.d_model, kv_out),
               'v_proj': (cfg.d_model, kv_out), 'o_proj': (q_out, cfg.d_model)}
     if cfg.is_moe:
         return shapes
+    d_mlp = cfg.d_mlp // tp
     if cfg.mlp_style == 'glu':
-        shapes['gate_proj'] = (cfg.d_model, cfg.d_mlp)
-    shapes['up_proj'] = (cfg.d_model, cfg.d_mlp)
-    shapes['down_proj'] = (cfg.d_mlp, cfg.d_model)
+        shapes['gate_proj'] = (cfg.d_model, d_mlp)
+    shapes['up_proj'] = (cfg.d_model, d_mlp)
+    shapes['down_proj'] = (d_mlp, cfg.d_model)
     return shapes
 
 
@@ -655,7 +666,7 @@ class Attention(nn.Module):
         tp = _tp(group)
         self.group = group if tp > 1 else None
         self.heads, self.kv_heads = cfg.num_heads // tp, cfg.num_kv_heads // tp
-        shapes = projection_shapes(cfg)
+        shapes = projection_shapes(cfg, tp)
         q_out = self.heads * cfg.head_dim
         kv_out = self.kv_heads * cfg.head_dim
         self.qkv_names = fused_projections(cfg)['attn.qkv_proj']
@@ -811,7 +822,7 @@ class SwiGLU(nn.Module):
                         device)
         _new_projection(self, cfg, 'down_proj', (self.d_mlp, cfg.d_model),
                         cfg.mlp_bias, device)
-        shapes = projection_shapes(cfg)
+        shapes = projection_shapes(cfg, _tp(group))
         self.lora = _lora_stacks(cfg, {
             name: shapes[name] for name in ins + ('down_proj',)}, device)
         self.lora_gate_up = _lora_site(cfg, self.lora, ins,
@@ -862,7 +873,7 @@ class DecoderLayer(nn.Module):
         self.attn = Attention(cfg, device, group)
         self.mlp_norm = None if self.parallel else RMSNorm(cfg, device)
         self.mlp = None if cfg.is_moe else SwiGLU(cfg, device, group)
-        self.moe = MoEBlock(cfg, device) if cfg.is_moe else None
+        self.moe = MoEBlock(cfg, device, group) if cfg.is_moe else None
 
     def forward(self, x: torch.Tensor,
                 step: 'PagedStep | ContiguousStep | FullStep',
@@ -989,48 +1000,25 @@ class Transformer(nn.Module):
         if cfg.weight_quant == 'int8':
             raise ValueError('init_random_ draws float weights; quantize '
                              'them with models/quantize.quantize_state')
-        gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         if self.group is not None:
-            whole = dict(Transformer(cfg, device='meta').named_parameters())
-            for name, param in self.named_parameters():
-                value = torch.empty(whole[name].shape, dtype=param.dtype,
-                                    device=param.device)
-                self._init_param(name, value, gen)
-                param.copy_(sharding.shard_tensor(
+            params = dict(self.named_parameters())
+            for name, value in random_params(cfg, seed, self.embed.device):
+                params[name].copy_(sharding.shard_tensor(
                     name, value, cfg, self.group.tp, self.group.rank))
             return self
+        gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         adapters = []
         for name, param in self.named_parameters():
             if name.endswith(('_lora_a', '_lora_b')):
                 adapters.append((name, param))
             else:
-                self._init_param(name, param, gen)
+                _init_param(cfg, name, param, gen)
         for name, param in adapters:
             if name.endswith('_lora_a'):
                 param.normal_(0.0, cfg.lora_rank ** -0.5, generator=gen)
             else:
                 param.zero_()
         return self
-
-    def _init_param(self, name: str, param: torch.Tensor,
-                    gen: torch.Generator) -> None:
-        """Draw base parameter `name` in place (init_random_'s rule)."""
-        cfg = self.cfg
-        if name.endswith('norm.weight'):
-            param.fill_(0.0 if cfg.norm_style == 'rms_plus1' else 1.0)
-        elif name.endswith('bias'):
-            param.zero_()
-        elif name == 'embed':
-            param.normal_(0.0, cfg.d_model ** -0.5
-                          if cfg.tie_embeddings else 1.0, generator=gen)
-        elif name == 'pos_embed':
-            param.normal_(0.0, 0.02, generator=gen)
-        else:
-            # fan_in: every axis but the last (an (E, in, out)
-            # expert stack counts E x in, as flax's lecun_normal
-            # does).
-            _truncated_normal_(param, math.prod(param.shape[:-1]) **
-                               -0.5 / _TRUNC_STD, gen)
 
     def new_kv_pool(self, num_blocks: int) -> Tuple[torch.Tensor, ...]:
         """Zeroed (num_layers, num_blocks, block_size, KV, D) K and V
@@ -1178,6 +1166,43 @@ class Transformer(nn.Module):
         if self.pad_vocab is not None:
             logits = logits.masked_fill(self.pad_vocab, -1e30)
         return logits
+
+
+def _init_param(cfg: ModelConfig, name: str, param: torch.Tensor,
+                gen: torch.Generator) -> None:
+    """Draw base parameter `name` in place (init_random_'s rule)."""
+    if name.endswith('norm.weight'):
+        param.fill_(0.0 if cfg.norm_style == 'rms_plus1' else 1.0)
+    elif name.endswith('bias'):
+        param.zero_()
+    elif name == 'embed':
+        param.normal_(0.0, cfg.d_model ** -0.5
+                      if cfg.tie_embeddings else 1.0, generator=gen)
+    elif name == 'pos_embed':
+        param.normal_(0.0, 0.02, generator=gen)
+    else:
+        # fan_in: every axis but the last (an (E, in, out) expert stack
+        # counts E x in, as flax's lecun_normal does).
+        _truncated_normal_(param, math.prod(param.shape[:-1]) ** -0.5 /
+                           _TRUNC_STD, gen)
+
+
+def random_params(cfg: ModelConfig, seed: int, device):
+    """The float base parameters `init_random_` draws for one device from
+    `seed`, whole and one at a time, in the model's parameter order:
+    (name, tensor) pairs on `device`, each made when the next is asked
+    for, so a caller that keeps only a shard (or a quantized copy) never
+    holds the whole model. The base only: LoRA training's adapters are
+    drawn after it (init_random_), and no caller here trains."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    # The shapes of the float base (adapter stacks are no parameters).
+    whole = Transformer(dataclasses.replace(
+        cfg, weight_quant='none', serve_adapters=0, lora_rank=0),
+        device='meta')
+    for name, meta in whole.named_parameters():
+        value = torch.empty(meta.shape, dtype=meta.dtype, device=device)
+        _init_param(cfg, name, value, gen)
+        yield name, value
 
 
 def _default_positions(tokens: torch.Tensor) -> torch.Tensor:

@@ -84,21 +84,30 @@ def current_sequence_parallel() -> Optional[SequenceParallel]:
 # The reference's logical-axis rules (skypilot_tpu/parallel/sharding.py
 # :18-36) put the attention heads, the KV heads, the MLP hidden dimension
 # and the vocabulary on `tp`; every other axis (embed, the norms, the
-# learned position table) is replicated. The port names its parameters
-# itself, so the rules are a table over those names: each weight's axes,
-# by logical name, in its (in, out) (or (vocab, embed)) orientation. The
+# learned position table, a MoE block's experts and its router) is
+# replicated. The port names its parameters itself, so the rules are a
+# table over those names: each weight's axes, by logical name, in its
+# (in, out) (or (vocab, embed), or (expert, in, out)) orientation. The
 # port fuses projections, so two axes are fused segments: `qkv` is
 # [heads | kv_heads | kv_heads] (models/transformer.py's qkv_proj) and
 # `gate_up` is [mlp | mlp] (SwiGLU's gate_up_proj). A rank's shard of a
 # fused axis is its slice of EACH segment, by heads, never one
-# contiguous column range. A `<name>_bias` or `<name>_scale` runs along
-# its weight's output axis: a column-parallel projection's follows its
-# columns, a row-parallel one's (o, down) is replicated and added once,
-# after the all-reduce.
+# contiguous column range. A `<name>_bias` or `<name>_scale` (int8
+# weights' per-column scales) runs along its weight's output axis: a
+# column-parallel projection's follows its columns, a row-parallel one's
+# (o, down) is replicated and applied once, after the all-reduce.
+#
+# A multi-LoRA adapter stack of projection p (models/transformer
+# LoRAStack: A (slots, in, r), B (slots, r, out)) follows p's weight: on
+# a column-parallel projection (q, k, v, gate, up) A is replicated and B
+# is cut with p's output segment, on a row-parallel one (o, down) A is
+# cut with p's input rows and B is replicated, so the row-parallel delta
+# (x_r·A_r)·B lands in the partial sum before the all-reduce.
 
-# What tensor-parallel serving refuses yet, and where ROADMAP.md has it.
-TP_NEXT = ('ROADMAP.md §1 item 5b: tensor-parallel serving with adapters, '
-           'MoE, int8 weights and --tier')
+# What tensor-parallel serving refuses (training), and where ROADMAP.md
+# has it.
+TP_TRAINING_NEXT = ('ROADMAP.md §1 item 6: the rest of training '
+                    '(ZeRO-1, elastic, pipeline)')
 
 TP_AXIS_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
     ('heads', 'tp'),
@@ -106,9 +115,12 @@ TP_AXIS_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
     ('mlp', 'tp'),
     ('vocab', 'tp'),
     ('embed', None),
+    ('expert', None),
+    ('slot', None),
+    ('rank', None),
 )
 
-TP_PARAM_AXES: Dict[str, Tuple[str, str]] = {
+TP_PARAM_AXES: Dict[str, Tuple[str, ...]] = {
     'embed': ('vocab', 'embed'),
     'lm_head': ('embed', 'vocab'),
     'attn.qkv_proj': ('embed', 'qkv'),
@@ -116,6 +128,24 @@ TP_PARAM_AXES: Dict[str, Tuple[str, str]] = {
     'mlp.gate_up_proj': ('embed', 'gate_up'),
     'mlp.up_proj': ('embed', 'mlp'),
     'mlp.down_proj': ('mlp', 'embed'),
+    # The reference's MoEBlock (skypilot_tpu/models/moe.py:44-60):
+    # ('expert', 'embed', 'mlp') / ('expert', 'mlp', 'embed'), `expert`
+    # unmapped under decode_mesh; the router is replicated.
+    'moe.w_gate': ('expert', 'embed', 'mlp'),
+    'moe.w_up': ('expert', 'embed', 'mlp'),
+    'moe.w_down': ('expert', 'mlp', 'embed'),
+}
+
+# (in, out) axes of each projection an adapter targets, by the
+# reference's module name (models/transformer.projection_shapes).
+TP_PROJECTION_AXES: Dict[str, Tuple[str, str]] = {
+    'q_proj': ('embed', 'heads'),
+    'k_proj': ('embed', 'kv_heads'),
+    'v_proj': ('embed', 'kv_heads'),
+    'o_proj': ('heads', 'embed'),
+    'gate_proj': ('embed', 'mlp'),
+    'up_proj': ('embed', 'mlp'),
+    'down_proj': ('mlp', 'embed'),
 }
 
 
@@ -128,8 +158,8 @@ def _segments(axis: str, cfg) -> Tuple[Tuple[str, int], ...]:
                 ('kv_heads', cfg.num_kv_heads * d))
     if axis == 'gate_up':
         return (('mlp', cfg.d_mlp), ('mlp', cfg.d_mlp))
-    width = {'heads': cfg.num_heads * d, 'mlp': cfg.d_mlp,
-             'vocab': cfg.vocab_size, 'embed': cfg.d_model}[axis]
+    width = {'heads': cfg.num_heads * d, 'kv_heads': cfg.num_kv_heads * d,
+             'mlp': cfg.d_mlp, 'vocab': cfg.vocab_size}[axis]
     return ((axis, width),)
 
 
@@ -137,15 +167,17 @@ def _on_tp(axis: str) -> bool:
     return dict(TP_AXIS_RULES).get(axis) == 'tp'
 
 
+def _cut(axis: str) -> bool:
+    """Whether a dimension of logical axis `axis` (or fused segments)
+    is cut on tp."""
+    return axis in ('qkv', 'gate_up') or _on_tp(axis)
+
+
 def param_axes(name: str) -> Optional[Tuple[str, ...]]:
     """The logical axes of parameter `name` of the port's Transformer
     (a layer's `layers.{i}.` prefix ignored), None when it is replicated
-    whole. Raises for a MoE parameter: MoE under tp is not served."""
+    whole (norms, position table, a MoE router)."""
     key = name.split('.', 2)[2] if name.startswith('layers.') else name
-    if key.startswith('moe.'):
-        raise NotImplementedError(
-            f'MoE under tensor-parallel serving is not ported yet '
-            f'({TP_NEXT})')
     for suffix in ('_bias', '_scale'):
         base = key[:-len(suffix)] if key.endswith(suffix) else None
         if base in TP_PARAM_AXES:
@@ -153,15 +185,19 @@ def param_axes(name: str) -> Optional[Tuple[str, ...]]:
     return TP_PARAM_AXES.get(key)
 
 
-def shard_tensor(name: str, value: torch.Tensor, cfg, tp: int,
-                 rank: int) -> torch.Tensor:
-    """Rank `rank`'s shard of the full parameter `name` (a contiguous
-    tensor of its own; `value` itself when replicated)."""
-    axes = param_axes(name)
-    if tp == 1 or axes is None:
-        return value
-    dim = next((i for i, axis in enumerate(axes)
-                if any(_on_tp(a) for a, _ in _segments(axis, cfg))), None)
+def adapter_axes(proj: str) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The logical axes of projection `proj`'s adapter stacks: A
+    (slot, in, rank) and B (slot, rank, out)."""
+    d_in, d_out = TP_PROJECTION_AXES[proj]
+    return ('slot', d_in, 'rank'), ('slot', 'rank', d_out)
+
+
+def _shard(name: str, value: torch.Tensor, axes, cfg, tp: int,
+           rank: int) -> torch.Tensor:
+    """Rank `rank`'s shard of `value` along its first dimension whose
+    axes reach tp (a contiguous tensor of its own; `value` itself when no
+    dimension does)."""
+    dim = next((i for i, axis in enumerate(axes) if _cut(axis)), None)
     if dim is None:
         return value
     pieces, start = [], 0
@@ -180,15 +216,42 @@ def shard_tensor(name: str, value: torch.Tensor, cfg, tp: int,
     return torch.cat(pieces, dim=dim)
 
 
+def shard_tensor(name: str, value: torch.Tensor, cfg, tp: int,
+                 rank: int) -> torch.Tensor:
+    """Rank `rank`'s shard of the full parameter `name` (a contiguous
+    tensor of its own; `value` itself when replicated)."""
+    axes = param_axes(name)
+    if tp == 1 or axes is None:
+        return value
+    return _shard(name, value, axes, cfg, tp, rank)
+
+
+def shard_adapter(proj: str, a: torch.Tensor, b: torch.Tensor, cfg,
+                  tp: int, rank: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank `rank`'s shards of projection `proj`'s adapter matrices:
+    (in, r) A and (r, out) B, or their (slots, ...) stacks."""
+    if tp == 1:
+        return a, b
+    axes = adapter_axes(proj)
+    return tuple(_shard(f'{proj} adapter', t, ax[-t.dim():], cfg, tp, rank)
+                 for t, ax in ((a, axes[0]), (b, axes[1])))
+
+
+def adapter_is_sharded(proj: str) -> Tuple[bool, bool]:
+    """Whether projection `proj`'s adapter A and B are cut on tp."""
+    return tuple(any(_cut(a) for a in ax) for ax in adapter_axes(proj))
+
+
 def is_sharded(name: str) -> bool:
     """Whether parameter `name` is cut on tp (else replicated)."""
     axes = param_axes(name)
-    return axes is not None and any(a in ('qkv', 'gate_up') or _on_tp(a)
-                                    for a in axes)
+    return axes is not None and any(_cut(a) for a in axes)
 
 
-def shard_params(params: Dict[str, torch.Tensor], cfg, tp: int,
+def shard_params(params, cfg, tp: int,
                  rank: int) -> Dict[str, torch.Tensor]:
-    """Slice a full parameter dict into rank `rank`'s shard."""
+    """Slice full parameters (a dict, or (name, tensor) pairs, taken one
+    at a time) into rank `rank`'s shard."""
+    items = params.items() if isinstance(params, dict) else params
     return {name: shard_tensor(name, value, cfg, tp, rank)
-            for name, value in params.items()}
+            for name, value in items}

@@ -316,6 +316,7 @@ class InferenceServer:
                  tp: int = 1,
                  mesh=None,
                  device='cuda') -> None:
+        from skypilot_tpu_torch.models.configs import get_config
         from skypilot_tpu_torch.models.inference import (
             ContinuousBatchingEngine)
         t0 = time.monotonic()
@@ -328,7 +329,8 @@ class InferenceServer:
         # the other shards); `mesh` takes a group the caller made.
         tp = mesh.tp if mesh is not None else tp
         if tp > 1:
-            self._refuse_under_tp(model, tp, max_adapters, quantize, tier)
+            # Refused before any follower starts.
+            get_config(model).assert_tp_compatible(tp)
         self._own_group = None
         if tp > 1 and mesh is None:
             from skypilot_tpu_torch.parallel.mesh import decode_group
@@ -383,24 +385,6 @@ class InferenceServer:
         # SIGTERM, a /preempt racing one) get its cached outcome.
         self._notice_lock = threading.Lock()
         self._notice_result: Optional[dict] = None
-
-    @staticmethod
-    def _refuse_under_tp(model: str, tp: int, max_adapters: int,
-                         quantize: Optional[str], tier: str) -> None:
-        """What --tp > 1 does not serve yet, refused before any follower
-        starts."""
-        from skypilot_tpu_torch.models.configs import get_config
-        from skypilot_tpu_torch.parallel import sharding
-        cfg = get_config(model)
-        cfg.assert_tp_compatible(tp)
-        refused = [flag for flag, on in (
-            ('--max-adapters', max_adapters > 0),
-            ('a MoE model', cfg.is_moe),
-            ('--quantize int8', bool(quantize)),
-            ('--tier', tier != 'monolithic')) if on]
-        if refused:
-            raise ValueError(f'--tp {tp} does not serve '
-                             f'{", ".join(refused)} yet ({sharding.TP_NEXT})')
 
     @staticmethod
     def _load_weights(model: str, max_seq_len: Optional[int],

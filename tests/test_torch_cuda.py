@@ -547,8 +547,9 @@ _LORA_GROUPS = {'qkv': (256, (256, 64, 64)), 'o': (256, (256,)),
 _LORA_SCALE = 2.0
 
 
-def _lora_group_case(name, batch, seq, rank, slots, dtype, seed, ids=None):
-    d_in, outs = _LORA_GROUPS[name]
+def _lora_group_case(name, batch, seq, rank, slots, dtype, seed, ids=None,
+                     groups=None):
+    d_in, outs = (groups or _LORA_GROUPS)[name]
     rng = np.random.RandomState(seed)
 
     def dev(arr, dt=dtype):
@@ -605,6 +606,39 @@ def test_lora_group_kernel_matches_plain(name, batch, seq, rank, dtype):
         assert torch.equal(alone, out[row:row + 1])
     tensor_cores = (dtype == torch.bfloat16 and seq >= 16 and rank >= 16
                     and name != 'ragged')
+    assert group.plan(seq)[0] == ('tensor_cores' if tensor_cores
+                                  else 'cuda_cores')
+
+
+# llama3-8b's groups at a tp=2 rank's shard: qkv's outputs its heads/2 of
+# each segment, o and down reading the rank's heads/2 x 128 and d_mlp/2.
+_LORA_TP2_GROUPS = {'qkv': (4096, (2048, 512, 512)), 'o': (2048, (4096,)),
+                    'gate_up': (4096, (7168, 7168)), 'down': (7168, (4096,))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('batch,seq', [(8, 1), (1, 256)],
+                         ids=['decode', 'prefill'])
+@pytest.mark.parametrize('name', sorted(_LORA_TP2_GROUPS))
+def test_lora_group_kernel_at_the_tp2_shard_shapes(name, batch, seq, dtype):
+    """Kernel 7 on both routes (T 1: CUDA cores; bf16 T 256: tensor cores)
+    at a tp=2 rank's widths, against the plain composition."""
+    _need_gpu()
+    group, stacks, offsets, x, y0, ids = _lora_group_case(
+        name, batch, seq, 16, 5, dtype, seed=seq + 3,
+        ids=[0, 1, 2, 3, 4, 1, 0, 2][:batch] if batch > 1 else [3],
+        groups=_LORA_TP2_GROUPS)
+    before = fl.fused_multi_lora.launches
+    out = group(x, y0.clone(), ids)
+    assert fl.fused_multi_lora.launches == before + 1
+    ref = _lora_composition(stacks, offsets, x, y0, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out, group(x, y0.clone(), ids))
+    tol = _LORA_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    tensor_cores = dtype == torch.bfloat16 and seq >= 16
     assert group.plan(seq)[0] == ('tensor_cores' if tensor_cores
                                   else 'cuda_cores')
 

@@ -209,14 +209,15 @@ def test_pool_geometry_raises_the_block_tables_error(reference):
 
 
 class _Group:
-    """A serving group of two ranks that no process joined: the engine
-    refuses before it sends anything."""
-    tp, rank, spawned = 2, 0, True
+    """A serving group of three ranks that no process joined: tp=3 does
+    not divide test-tiny, so the engine refuses before it sends
+    anything."""
+    tp, rank, spawned = 3, 0, True
     device = torch.device('cpu')
 
 
 def test_refusals(reference):
-    with pytest.raises(NotImplementedError, match='§1 item 5b'):
+    with pytest.raises(ValueError, match='tp=3 does not divide'):
         _engine(reference, mesh=_Group(), quantize='int8')
     with pytest.raises(NotImplementedError,
                        match="decode_kernel='pallas' requires the paged KV"):

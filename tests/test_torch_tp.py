@@ -30,7 +30,7 @@ LOGIT_TOL = 1e-5
 KV_TOL = 1e-5
 CELLS = ('contig', 'paged', 'int8', 'paged-int8', 'spec', 'async3',
          'chunkedprefill', 'pallas-paged')
-_NEXT_ITEM = 'ROADMAP.md §1 item 5b'
+_NEXT_ITEM = 'ROADMAP.md §1 item 6'
 
 
 @pytest.fixture(scope='module')
@@ -146,13 +146,8 @@ def test_get_engine_serves_tp2(driver):
 
 @pytest.mark.deadline(60)
 @pytest.mark.parametrize('case,needle', [
-    ('engine_adapters', _NEXT_ITEM),
-    ('engine_int8_weights', _NEXT_ITEM),
-    ('engine_moe', _NEXT_ITEM),
-    ('server_adapters', _NEXT_ITEM),
-    ('server_moe', _NEXT_ITEM),
-    ('server_int8', _NEXT_ITEM),
-    ('server_tier', _NEXT_ITEM),
+    ('training', _NEXT_ITEM),
+    ('lora_training', _NEXT_ITEM),
     ('tp_not_dividing', 'tp=3 does not divide'),
     ('more_cards_than_present', 'decode_mesh: tp=2 needs 1..0 local'),
     ('one_card_twice_on_nccl', "only backend='gloo'"),

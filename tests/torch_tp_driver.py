@@ -221,30 +221,15 @@ def _compositions(group, params):
 
 
 def _refusals(group, params):
-    from skypilot_tpu_torch.models.inference import ContinuousBatchingEngine
+    from skypilot_tpu_torch.models.transformer import Transformer
     from skypilot_tpu_torch.parallel.mesh import decode_group
-    from skypilot_tpu_torch.serve.server import InferenceServer
     out = {}
     cases = {
-        'engine_adapters': lambda: _port_engine(
-            params, group, paged_block_size=8, max_adapters=2,
-            adapter_rank=4, adapter_targets='q,v'),
-        'engine_int8_weights': lambda: _port_engine(
-            params, group, paged_block_size=8, quantize='int8'),
-        'engine_moe': lambda: ContinuousBatchingEngine(
-            'test-tiny-moe', num_slots=2, device='cpu', mesh=group,
-            paged_block_size=8),
-        'server_adapters': lambda: InferenceServer(
-            'test-tiny', tp=2, max_adapters=2, adapter_rank=4,
-            device='cpu'),
-        'server_moe': lambda: InferenceServer('test-tiny-moe', tp=2,
-                                              device='cpu'),
-        'server_int8': lambda: InferenceServer('test-tiny', tp=2,
-                                               quantize='int8',
-                                               device='cpu'),
-        'server_tier': lambda: InferenceServer(
-            'test-tiny', tp=2, tier='prefill', prefix_cache=4,
-            device='cpu'),
+        'training': lambda: Transformer(
+            _cfg(decode=False), device='cpu', group=group),
+        'lora_training': lambda: Transformer(
+            _cfg(decode=True, lora_rank=4, lora_targets='q,v'),
+            device='cpu', group=group),
         'tp_not_dividing': lambda: _port_engine(
             params, _FakeGroup(3), paged_block_size=8),
         'more_cards_than_present': lambda: decode_group(2, device='cuda'),
