@@ -120,6 +120,23 @@ and passed over):
             10 dQ and dK/dV, no flash forward; step ms, tokens/s, MFU,
             peak memory; the flash path's run at the same shape; a
             breakdown of each step.
+  train_dp: data-parallel training, four processes on cuda:0 over
+            gloo (parallel/mesh.train_group; NCCL takes one card a
+            rank), each run on the first dp of them (TrainGroup.split):
+            train.run.main --dp 2 with llama3-1b at full width and
+            depth, B 8 x S 1024, 4 steps on one repeated batch, plain
+            and --zero1 on one group: loss and grad_norm bit-equal,
+            falling; per-rank optimizer bytes <= (1/2 + 0.05) x plain's;
+            the first step's collectives (ZeRO-1: a partition scatter
+            and an all-gather; plain: neither); kernels 3-5's launches on
+            every rank; step ms, tokens/s, MFU, the gloo share of a
+            step, per-rank peak memory. Then the elastic loop
+            (train/elastic.ElasticTrainLoop, ZeRO-1) at full width cut
+            to 2 layers, canonical extent 4: dp 4 -> notice -> dp 2 ->
+            notice -> dp 4 over 6 steps, its loss series bit-identical
+            to an unpreempted dp=4 run, the lineage down then up, the
+            notice saves committed within the budget, launches on every
+            rank x canonical/dp groups.
   serve:    the port's HTTP server in-process on localhost with
             llama3-8b at full width and depth (seeded random bf16
             weights made on the card), 8 slots, paged blocks of 16,
@@ -368,8 +385,13 @@ def fail(message: str) -> None:
     os._exit(1)
 
 
+_T0 = time.monotonic()
+
+
 def log(message: str) -> None:
-    print(message, flush=True)
+    """One line of the smoke's log, after the seconds since the process
+    started (where the 1200 s budget goes, phase by phase)."""
+    print(f'[{time.monotonic() - _T0:7.1f}s] {message}', flush=True)
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1723,13 +1745,14 @@ def engine_windows(torch, engine, smi: str, label: str,
                    adapters=(None,)) -> None:
     """Steady windows of the running engine (its graph replays) at
     async_depth 0 and 1, on the same engine in turn. Decode: 8 requests of
-    700 prompt tokens and 128 new tokens; once all 8 decode, host wall per
+    700 prompt tokens and 96 new tokens; once all 8 decode, host wall per
     decode step over 30 steps (no profiler), then CUDA-kernel time per
-    step over 40 (torch.profiler). Prefill: 8 requests of 2048 prompt
-    tokens (64 chunks of 256, 8 a tick) and max_new_tokens 1; host wall
+    step over 16 (torch.profiler). Prefill: 8 requests of 1024 prompt
+    tokens (32 chunks of 256, 8 a tick) and max_new_tokens 1; host wall
     per chunk up to the last first token, then kernel time per chunk over
-    a second such batch (its one closing decode dispatch included).
-    Requests cycle over `adapters`."""
+    another such batch (its one closing decode dispatch included). The
+    windows are this short because the whole smoke has 1200 s. Requests
+    cycle over `adapters`."""
     from torch.profiler import ProfilerActivity, profile
     cfg = engine.cfg
     gen = torch.Generator().manual_seed(11)
@@ -1754,7 +1777,7 @@ def engine_windows(torch, engine, smi: str, label: str,
     for depth in (0, 1):
         engine.async_depth = depth
         deadline = time.monotonic() + 300
-        futures = submit(700, 128)
+        futures = submit(700, 96)
         wait_for(lambda: all(r is not None and not r.prefilling
                              for r in engine._slots), deadline)  # pylint: disable=protected-access
         start = steps()
@@ -1767,27 +1790,27 @@ def engine_windows(torch, engine, smi: str, label: str,
         # the requests' remaining steps), and no launch races it.
         prof = profile(activities=activities)
         s1 = engine._run_in_tick(lambda: (prof.start(), steps())[1])  # pylint: disable=protected-access
-        wait_for(lambda: steps() >= s1 + 40, deadline)
+        wait_for(lambda: steps() >= s1 + 16, deadline)
         s2 = engine._run_in_tick(lambda: (prof.stop(), steps())[1])  # pylint: disable=protected-access
         kernel_ms, _, events = _kernel_profile(prof)
         for f in futures:
             f.result(timeout=300)
         _breakdown_line(f'{label} engine decode window, async_depth {depth}',
-                        '8 rows at 704-823 tokens', wall_ms,
+                        '8 rows at 704-760 tokens', wall_ms,
                         kernel_ms / (s2 - s1), smi)
         log(f'  launch calls per step: {_launch_calls(events, s2 - s1)}')
         chunks0 = engine.paged_stats['prefill_chunks']
-        outs = [f.result(timeout=300) for f in submit(2048, 1)]
+        outs = [f.result(timeout=300) for f in submit(1024, 1)]
         chunks = engine.paged_stats['prefill_chunks'] - chunks0
         wall_ms = max(st['ttft_s'] for _, st in outs) * 1e3 / chunks
         with profile(activities=activities) as prof:
             c1 = engine.paged_stats['prefill_chunks']
-            for f in submit(2048, 1):
+            for f in submit(1024, 1):
                 f.result(timeout=300)
             c2 = engine.paged_stats['prefill_chunks']
         kernel_ms, _, events = _kernel_profile(prof)
         _breakdown_line(f'{label} engine prefill window, async_depth {depth}',
-                        f'{chunks} chunks of 256 to position 2048, 8 a tick',
+                        f'{chunks} chunks of 256 to position 1024, 8 a tick',
                         wall_ms, kernel_ms / (c2 - c1), smi, unit='chunk')
         log(f'  launch calls per chunk: {_launch_calls(events, c2 - c1)}')
     engine.async_depth = 1
@@ -4946,6 +4969,281 @@ def phase_train_sp(torch, smi: str) -> int:
     return ring_launches
 
 
+# ------------------------------------------------------------- train_dp
+
+TRAIN_DP = dict(model='llama3-1b', dp=2, batch=8, seq=1024, steps=4)
+TRAIN_DP_FRAC = 1 / 2 + 0.05               # ZeRO-1 bytes a rank / plain's
+# The elastic storm: llama3-1b at full width cut to 2 layers, canonical
+# extent 4, 6 steps of B 8 x S 1024 (B 2 a canonical group); incarnations
+# (extent, step after which rank 0 alone gets the notice).
+ELASTIC = dict(layers=2, canonical=4, steps=6)
+ELASTIC_STORM = ((4, 0), (2, 3), (4, None))
+TRAIN_DP_RANKS = 4                          # the phase's processes, cuda:0
+
+
+def _rank_report(torch, history=None) -> dict:
+    """This rank's launches (since its last reset), peak memory and, from
+    its run's history, the optimizer bytes and the first step's
+    collectives."""
+    out = {'launches': _launch_counts(),
+           'peak_gib': torch.cuda.max_memory_allocated() / 2**30}
+    if history:
+        out['opt_bytes'] = [history[0]['opt_state_bytes'],
+                            history[0]['opt_state_bytes_per_device']]
+        out['collectives'] = history[0].get('step_collectives')
+    return out
+
+
+def _elastic_cfg():
+    from skypilot_tpu_torch.models.configs import get_config
+    return get_config(TRAIN_DP['model'], param_dtype='bfloat16',
+                      num_layers=ELASTIC['layers'])
+
+
+def _elastic_batches(torch, cfg) -> list:
+    from skypilot_tpu_torch.train import trainer
+    gen = torch.Generator().manual_seed(7)
+    return [{k: v.cuda() for k, v in trainer.synthetic_batch(
+        gen, TRAIN_DP['batch'], TRAIN_DP['seq'], cfg.vocab_size).items()}
+        for _ in range(ELASTIC['steps'])]
+
+
+def _train_dp_rank(world, plan: dict) -> dict:
+    """One rank's part of train_dp, run by every rank of `world` (rank 0
+    is the smoke): train.run.main --dp 2 plain and ZeRO-1 on the first two
+    ranks; then the elastic storm, each incarnation on the first dp ranks
+    (`TrainGroup.split`), after an unpreempted dp=4 run (the elastic step
+    on a fresh ZeRO-1 state, no checkpoint). Rank 0 gets every rank's
+    reports (`gather_object`); the others get None."""
+    import torch
+
+    from skypilot_tpu_torch.train import elastic, run, trainer
+    out = {'runs': {}, 'elastic': []}
+    pair = world.split(TRAIN_DP['dp'])
+    for name, argv in plan['runs'].items():
+        if pair is not None:
+            torch.cuda.synchronize()
+            base_gib = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            seconds = dict(pair.seconds)
+            history = []
+            t0 = time.monotonic()
+            run.main(argv, history=history, group=pair)
+            wall = time.monotonic() - t0
+            report = _rank_report(torch, history)
+            report['peak_gib'] -= base_gib
+            reports = pair.gather_object(report)
+            out['runs'][name] = dict(
+                history=history, reports=reports, wall=wall,
+                gloo_s=sum(pair.seconds[k] - seconds[k] for k in seconds),
+                gloo_calls=dict(pair.calls), gloo_bytes=dict(pair.bytes))
+            torch.cuda.empty_cache()
+        world.barrier()
+    cfg = _elastic_cfg()
+    tc = trainer.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=ELASTIC['steps'])
+    data = _elastic_batches(torch, cfg)
+    runs = [('baseline', ELASTIC['canonical'], None)] + [
+        ('incarnation', dp, at) for dp, at in ELASTIC_STORM]
+    for kind, dp, notice_at in runs:
+        group = world.split(dp)
+        if group is not None:
+            _reset_launches()
+            t0 = time.monotonic()
+            if kind == 'baseline':
+                state = trainer.create_train_state(
+                    cfg, tc, device=group.device, seed=0, group=group,
+                    zero1=True)
+                step = trainer.make_elastic_train_step(ELASTIC['canonical'])
+                result = []
+                for batch in data:
+                    m = step(state, batch)
+                    result.append((float(m['loss']), float(m['grad_norm'])))
+                del state
+            else:
+                notice = elastic.PreemptionNotice()
+
+                def batch_for(i, notice=notice, at=notice_at, group=group):
+                    if i == at and group.rank == 0:
+                        notice.deliver()
+                    return data[i]
+                loop = elastic.ElasticTrainLoop(
+                    cfg, tc, plan['dir'], canonical_dp=ELASTIC['canonical'],
+                    save_every=100)
+                result = loop.run(dp, batch_for, ELASTIC['steps'],
+                                  notice=notice, group=group)
+            torch.cuda.synchronize()
+            out['elastic'].append((kind, dp, result,
+                                   time.monotonic() - t0,
+                                   group.gather_object(_launch_counts())))
+            torch.cuda.empty_cache()
+        world.barrier()
+    return out
+
+
+def train_dp_follower(world, plan) -> None:
+    _train_dp_rank(world, plan)
+
+
+def _train_dp_check(cfg, runs: dict, smi: str) -> dict:
+    """The plain and ZeRO-1 runs' promises; returns each run's per-rank
+    launches."""
+    from skypilot_tpu_torch.train import metrics as metrics_lib
+    batch, seq = TRAIN_DP['batch'], TRAIN_DP['seq']
+    steps, layers = TRAIN_DP['steps'], cfg.num_layers
+    series = {name: [(h['loss'], h['grad_norm']) for h in r['history']]
+              for name, r in runs.items()}
+    log(f'train_dp: llama3-1b --dp 2 (loss, grad_norm) plain '
+        f'{series["plain"]}, zero1 {series["zero1"]}')
+    if series['plain'] != series['zero1']:
+        fail('train_dp: loss and grad_norm differ between --zero1 and '
+             'plain')
+    losses = [loss for loss, _ in series['plain']]
+    if not losses[-1] < losses[0] - 0.1:
+        fail(f'train_dp: loss did not fall on a repeated batch: {losses}')
+    recompute = 1 if cfg.remat else 0
+    expected = {'chunk_update': 0,
+                'flash_forward': steps * layers * (1 + recompute),
+                'flash_dq': steps * layers, 'flash_dkv': steps * layers}
+    launches = {}
+    for name, r in runs.items():
+        ranks = [rep['launches'] for rep in r['reports']]
+        launches[name] = ranks
+        if any(got != expected for got in ranks):
+            fail(f'train_dp {name}: launches a rank {ranks} != {expected}')
+        probes = [rep['collectives'] for rep in r['reports']]
+        gathered = all(p['all_gather'] > 0 and
+                       p['reduce_scatter_effective'] > 0 for p in probes)
+        neither = all(p['all_gather'] == 0 and
+                      p['reduce_scatter_effective'] == 0 for p in probes)
+        if (name == 'zero1' and not gathered) or (name == 'plain' and
+                                                  not neither):
+            fail(f'train_dp {name}: first step collectives {probes}')
+        step_s = statistics.median(h['step_s'] for h in r['history'][2:])
+        log(f'train_dp {name}: launches a rank {ranks} (expected {expected}: '
+            f'steps {steps} x layers {layers} x (1 + remat {recompute}) '
+            f'forward, steps x layers dQ and dK/dV); first step '
+            f'collectives {probes[0]}; optimizer bytes (global, a rank) '
+            f'{[rep["opt_bytes"] for rep in r["reports"]]}')
+        log(f'train_dp {name}: {steps} steps in {r["wall"]:.1f}s; step '
+            f'{step_s * 1e3:.1f} ms (median of steps 2..{steps - 1}), '
+            f'{metrics_lib.tokens_per_sec(batch, seq, step_s):.0f} '
+            f'tokens/s, MFU '
+            f'{metrics_lib.mfu(cfg, batch, seq, step_s, 1, PEAK_OPS_PER_S["bfloat16"] / 1e12):.4f}'
+            f' of 989 TFLOP/s (one card), gloo collectives '
+            f'{r["gloo_s"] / sum(h["step_s"] for h in r["history"]):.3f} of '
+            f'the steps ({r["gloo_calls"]} calls, {r["gloo_bytes"]} bytes '
+            f'so far on rank 0); peak GiB a rank '
+            f'{[round(rep["peak_gib"], 2) for rep in r["reports"]]} [{smi}]')
+    plain = runs['plain']['reports'][0]['opt_bytes'][0]
+    for rep in runs['zero1']['reports']:
+        if not rep['opt_bytes'][1] <= TRAIN_DP_FRAC * plain:
+            fail(f'train_dp: ZeRO-1 optimizer bytes a rank '
+                 f'{rep["opt_bytes"][1]} > {TRAIN_DP_FRAC:.2f} x plain '
+                 f'{plain}')
+    log(f'train_dp: ZeRO-1 optimizer bytes a rank / plain: '
+        f'{[rep["opt_bytes"][1] / plain for rep in runs["zero1"]["reports"]]}'
+        f' (bound {TRAIN_DP_FRAC:.2f})')
+    return launches
+
+
+def _elastic_check(runs: list, ckpt: str, smi: str) -> list:
+    """The storm's promises; returns every run's per-rank launches."""
+    from skypilot_tpu_torch.train import elastic
+    cfg = _elastic_cfg()
+    canonical, steps = ELASTIC['canonical'], ELASTIC['steps']
+    recompute = 1 if cfg.remat else 0
+    launches, storm = [], {}
+    for kind, dp, result, seconds, ranks in runs:
+        done = len(result) if kind == 'baseline' else len(result.series)
+        rounds = canonical // dp
+        want = {'chunk_update': 0,
+                'flash_forward': done * cfg.num_layers * (1 + recompute) *
+                rounds,
+                'flash_dq': done * cfg.num_layers * rounds,
+                'flash_dkv': done * cfg.num_layers * rounds}
+        if any(got != want for got in ranks):
+            fail(f'train_dp elastic {kind} at dp {dp}: launches a rank '
+                 f'{ranks} != {want}')
+        launches.append({'dp': dp, 'run': kind, 'ranks': ranks})
+        if kind == 'baseline':
+            baseline = result
+            log(f'train_dp elastic: unpreempted dp {dp}, {done} steps in '
+                f'{seconds:.1f}s ({seconds / done:.2f} s a step) [{smi}]')
+            continue
+        start = result.next_step - done
+        storm.update((start + j, v) for j, v in enumerate(result.series))
+        log(f'train_dp elastic incarnation: dp {dp}, steps {start}..'
+            f'{result.next_step - 1} in {seconds:.1f}s, preempted '
+            f'{result.preempted}, committed {result.checkpoint_committed}, '
+            f'resume {result.resume_latency_s:.2f}s; launches a rank '
+            f'{ranks[0]} (x {rounds} groups) [{smi}]')
+        if not result.checkpoint_committed:
+            fail(f'train_dp elastic: dp {dp} did not commit its save within '
+                 f'the notice budget')
+    meta = elastic.ElasticMeta.load(ckpt)
+    lineage = [(e['from_dp'], e['to_dp']) for e in meta.lineage]
+    log(f'train_dp elastic: baseline {baseline}; storm '
+        f'{[storm.get(s) for s in range(steps)]}; lineage {lineage}')
+    if sorted(storm) != list(range(steps)) or any(
+            storm[s] != baseline[s] for s in range(steps)):
+        fail("train_dp elastic: the storm's loss series is not the "
+             "unpreempted run's bit for bit")
+    if lineage != [(4, 2), (2, 4)] or meta.canonical_dp != canonical:
+        fail(f'train_dp elastic: lineage {lineage}, canonical '
+             f'{meta.canonical_dp}')
+    return launches
+
+
+def phase_train_dp(torch, smi: str) -> dict:
+    """Data-parallel training on the one card: TRAIN_DP_RANKS processes on
+    cuda:0 over gloo (NCCL takes one card a rank); plain and ZeRO-1
+    through train.run.main --dp 2, then the elastic storm. Returns kernels
+    3-5's launches on every rank of every run."""
+    import numpy as np
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.parallel.mesh import train_group
+    from skypilot_tpu_torch.train import data
+    t_phase = time.monotonic()
+    cfg = get_config(TRAIN_DP['model'], param_dtype='bfloat16')
+    batch, seq = TRAIN_DP['batch'], TRAIN_DP['seq']
+    root = tempfile.mkdtemp()
+    data.write_token_shard(os.path.join(root, 'one_batch.bin'),
+                           np.random.RandomState(0).randint(
+                               0, cfg.vocab_size, batch * seq + 1))
+    argv = ['--model', cfg.name, '--batch', str(batch), '--seq', str(seq),
+            '--steps', str(TRAIN_DP['steps']), '--data-dir', root,
+            '--warmup-steps', '1', '--learning-rate', '1e-3', '--log-every',
+            '1', '--dp', str(TRAIN_DP['dp']), '--probe-hlo']
+    plan = {'runs': {'plain': argv, 'zero1': argv + ['--zero1']},
+            'dir': os.path.join(root, 'elastic')}
+    try:
+        t0 = time.monotonic()
+        world = train_group(TRAIN_DP_RANKS,
+                            devices=['cuda:0'] * TRAIN_DP_RANKS,
+                            backend='gloo', target='chip_smoke:'
+                            'train_dp_follower', args=[plan],
+                            timeout_seconds=600)
+        log(f'train_dp: {TRAIN_DP_RANKS} ranks on cuda:0 over gloo in '
+            f'{time.monotonic() - t0:.1f}s')
+        try:
+            out = _train_dp_rank(world, plan)
+        except BaseException:
+            world.kill()
+            raise
+        world.close()
+        launches = _train_dp_check(cfg, out['runs'], smi)
+        launches['elastic'] = _elastic_check(out['elastic'], plan['dir'],
+                                             smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f'train_dp: phase in {time.monotonic() - t_phase:.1f}s [{smi}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------------------- families
 
 # The reference's other dense families at full width, 2 layers (gpt2-1.5b
@@ -6720,12 +7018,16 @@ def _tp_parity_engines(torch, group) -> dict:
     return out
 
 
+SHARE_CALLS = 5      # steps timed with their all-reduces synchronized
+
+
 def _allreduce_share(torch, engine, smi: str) -> dict:
     """On the drained tp engine: one all-slots decode step (8 rows at 700
-    tokens) and one 256-token prefill chunk, host wall per step and CUDA
-    kernel time (rank 0's trace), then again with rank 0's all-reduces
-    timed (a synchronize before and after each): their share of the
-    step's wall time. gloo stages every all-reduce through the host."""
+    tokens) and one 256-token prefill chunk, host wall per step (10 calls)
+    and CUDA kernel time (rank 0's trace), then again with rank 0's
+    all-reduces timed (a synchronize before and after each, SHARE_CALLS
+    calls): their share of the step's wall time. gloo stages every all-reduce
+    through the host."""
     import numpy as np
     cfg = engine.cfg
     pool = engine._pool  # pylint: disable=protected-access
@@ -6778,20 +7080,21 @@ def _allreduce_share(torch, engine, smi: str) -> dict:
                 fn()
                 spent[:] = [0.0, 0]
                 t0 = time.perf_counter()
-                for _ in range(5):
+                for _ in range(SHARE_CALLS):
                     fn()
-                timed_wall = (time.perf_counter() - t0) / 5 * 1e3
+                timed_wall = (time.perf_counter() - t0) / SHARE_CALLS * 1e3
             finally:
                 del group.all_reduce
-            share = spent[0] / 5 * 1e3 / timed_wall
+            per_call = spent[0] / SHARE_CALLS * 1e3
+            share = per_call / timed_wall
             out[label] = {'wall_ms': wall, 'kernel_ms': kernel,
-                          'allreduce_ms': spent[0] / 5 * 1e3,
-                          'allreduces': spent[1] // 5,
+                          'allreduce_ms': per_call,
+                          'allreduces': spent[1] // SHARE_CALLS,
                           'timed_wall_ms': timed_wall, 'share': share}
             log(f'tp{TP} {label}: host wall {wall:.2f} ms, CUDA kernels '
                 f'{kernel:.2f} ms (rank 0); with each all-reduce timed '
-                f'(synchronized): {spent[1] // 5} all-reduces '
-                f'{spent[0] / 5 * 1e3:.2f} ms of {timed_wall:.2f} ms, '
+                f'(synchronized): {spent[1] // SHARE_CALLS} all-reduces '
+                f'{per_call:.2f} ms of {timed_wall:.2f} ms, '
                 f'share {share:.3f} [{smi}]')
     for row in blocks:
         pool.release(row)
@@ -7550,7 +7853,7 @@ def phase_tp_compose(torch, smi: str, shard: dict) -> dict:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'serve', 'resilience', 'contiguous', 'serve_prefix',
+          'train_sp', 'train_dp', 'serve', 'resilience', 'contiguous', 'serve_prefix',
           'serve_tenant', 'serve_sched', 'graph_parity', 'families',
           'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff', 'tp',
           'tp_compose')
@@ -7639,6 +7942,18 @@ def main(argv=None) -> int:
                 'launches': launches, **ring['full_hop']})
         gc.collect()
         torch.cuda.empty_cache()
+    if 'train_dp' in phases:
+        launched = phase_train_dp(torch, smi)
+        for entry in kernels:
+            attr = next((a for n, a, _ in FLASH_KERNELS
+                         if n == entry['name']), None)
+            if attr is not None:
+                entry['train_dp_launches'] = {
+                    'plain': [r[attr] for r in launched['plain']],
+                    'zero1': [r[attr] for r in launched['zero1']],
+                    'elastic': [{'dp': e['dp'], 'run': e['run'],
+                                 'ranks': [r[attr] for r in e['ranks']]}
+                                for e in launched['elastic']]}
     bf16_pool_bytes = serve_timings = serve_params = resilience = None
     serve_tokens = contiguous = None
     if 'serve' in phases:

@@ -8,13 +8,14 @@ LOCAL_RANK, MASTER_ADDR, MASTER_PORT) instead of the agent's.
 backend the caller names (gloo also runs on `cuda`). It does nothing with
 one process and is idempotent.
 
-`spawn_group` starts a tensor-parallel serving group from one process:
-the caller becomes rank 0 and `tp - 1` follower processes join it over a
-local rendezvous on a free port. Each follower imports nothing but the
-port, calls its `target` with its `parallel.mesh.ServingGroup`, and exits
-when the target returns, when rank 0 exits, or when rank 0's process goes
-away (a thread watches the parent's pid), so no follower outlives its
-driver.
+`spawn_group` starts a tensor-parallel serving group or a data-parallel
+training group from one process: the caller becomes rank 0 and the other
+ranks' processes join it over a local rendezvous on a free port. Each
+imports nothing but the port, calls its `target` with its group
+(`parallel.mesh.ServingGroup` or `TrainGroup`) and the spawn's `args`, and
+exits when the target returns, when rank 0 exits, or when rank 0's
+process goes away (a thread watches the parent's pid), so no follower
+outlives its driver.
 """
 from __future__ import annotations
 
@@ -111,13 +112,15 @@ def free_port() -> int:
 
 
 def join_group(tp: int, rank: int, address: str, backend: str, device,
-               timeout_seconds: int, spawned: bool = False):
+               timeout_seconds: int, spawned: bool = False, cls=None):
     """Join the default group as `rank` of `tp` and make the control
-    group beside it; returns this rank's ServingGroup."""
+    group beside it; returns this rank's `cls` (a parallel.mesh.Group,
+    ServingGroup by default)."""
     import torch
     import torch.distributed as dist
 
-    from skypilot_tpu_torch.parallel.mesh import ServingGroup
+    from skypilot_tpu_torch.parallel import mesh
+    cls = cls or mesh.ServingGroup
     device = torch.device(device)
     if device.type == 'cuda':
         torch.cuda.set_device(device)
@@ -126,9 +129,8 @@ def join_group(tp: int, rank: int, address: str, backend: str, device,
             backend, init_method=address, world_size=tp, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_seconds))
     control = dist.new_group(backend='gloo', timeout=CONTROL_TIMEOUT)
-    return ServingGroup(tp=tp, rank=rank, device=device, backend=backend,
-                        group=dist.group.WORLD, control=control,
-                        spawned=spawned)
+    return cls(tp, rank, device, backend=backend, group=dist.group.WORLD,
+               control=control, spawned=spawned)
 
 
 _FOLLOWER_CODE = ('import sys\n'
@@ -137,12 +139,17 @@ _FOLLOWER_CODE = ('import sys\n'
 
 
 def spawn_group(tp: int, target: str, devices: Sequence,
-                backend: str, timeout_seconds: int = 300):
+                backend: str, timeout_seconds: int = 300,
+                args: Sequence = (), cls=None):
     """Make this process rank 0 of a `tp`-process group and start the
     `tp - 1` followers: each runs `target` ('module:function') with its
-    ServingGroup. `devices[r]` is rank r's device. Returns rank 0's
-    ServingGroup, which holds the follower processes (`close` stops
+    group (`join_group`'s `cls`) and `args` (JSON values), in this
+    process's working directory, so that a relative path in `args` names
+    the same file on every rank. `devices[r]` is rank r's device. Returns
+    rank 0's group, which holds the follower processes (`close` stops
     them)."""
+    from skypilot_tpu_torch.parallel import mesh
+    cls = cls or mesh.ServingGroup
     address = f'tcp://127.0.0.1:{free_port()}'
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -154,20 +161,21 @@ def spawn_group(tp: int, target: str, devices: Sequence,
         spec = json.dumps({'tp': tp, 'rank': rank, 'address': address,
                            'backend': backend, 'device': str(devices[rank]),
                            'target': target, 'parent': os.getpid(),
-                           'timeout': timeout_seconds})
+                           'timeout': timeout_seconds,
+                           'group': cls.__name__, 'args': list(args)})
         procs.append(subprocess.Popen(
             [sys.executable, '-c', _FOLLOWER_CODE, spec], env=env,
-            cwd=root))
+            cwd=os.getcwd()))
     try:
         group = join_group(tp, 0, address, backend, devices[0],
-                           timeout_seconds, spawned=True)
+                           timeout_seconds, spawned=True, cls=cls)
     except BaseException:
         for proc in procs:
             proc.kill()
             proc.wait()
         raise
     group.processes = procs
-    logger.info('tensor-parallel group: tp=%d over %s (%s), followers %s',
+    logger.info('%s group: %d ranks over %s (%s), followers %s', cls.axis,
                 tp, [str(d) for d in devices], backend,
                 [p.pid for p in procs])
     return group
@@ -183,19 +191,24 @@ def _watch_parent(parent: int) -> None:
 
 def follower_main(spec_json: str) -> int:
     """A spawned follower: join the group, run the target, leave."""
+    from skypilot_tpu_torch.parallel import mesh
     spec = json.loads(spec_json)
+    cls = getattr(mesh, spec['group'])
+    axis = cls.axis
     logging.basicConfig(level=logging.INFO,
-                        format=f'[tp rank {spec["rank"]}] %(levelname)s '
+                        format=f'[{axis} rank {spec["rank"]}] %(levelname)s '
                                f'%(name)s: %(message)s')
     threading.Thread(target=_watch_parent, args=(spec['parent'],),
                      daemon=True, name='tp-parent-watch').start()
     group = join_group(spec['tp'], spec['rank'], spec['address'],
-                       spec['backend'], spec['device'], spec['timeout'])
+                       spec['backend'], spec['device'], spec['timeout'],
+                       cls=cls)
     module, _, name = spec['target'].partition(':')
     try:
-        getattr(importlib.import_module(module), name)(group)
+        getattr(importlib.import_module(module), name)(group,
+                                                       *spec['args'])
     except Exception:  # pylint: disable=broad-except
-        logger.exception('tensor-parallel follower failed')
+        logger.exception('%s rank %d failed', axis, spec['rank'])
         return 1
     finally:
         group.destroy()

@@ -1,5 +1,6 @@
-"""Sharding rules of the port: the ambient sequence-parallel context and
-the tensor-parallel rules over the model's parameters.
+"""Sharding rules of the port: the ambient sequence-parallel context, the
+tensor-parallel rules over the model's parameters and ZeRO-1's split of
+the optimizer state over `dp`.
 
 The ambient sequence-parallel context is the port's stand-in for the
 reference's `use_mesh` (skypilot_tpu/parallel/sharding.py) on the `sp`
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -255,3 +256,25 @@ def shard_params(params, cfg, tp: int,
     items = params.items() if isinstance(params, dict) else params
     return {name: shard_tensor(name, value, cfg, tp, rank)
             for name, value in items}
+
+
+# ---------------- ZeRO-1 ----------------
+
+
+def zero_update_dim(shape: Sequence[int], dp: int) -> Optional[int]:
+    """The dimension along which a rank holds 1/dp of a leaf's optimizer
+    state under ZeRO-1: the counterpart of the reference's
+    `zero_update_shardings` (skypilot_tpu/parallel/sharding.py:156-213)
+    on a pure-dp mesh, where no other axis shards the leaf: the first
+    dimension that dp divides. None (the leaf's state stays whole on
+    every rank) for a scalar, a leaf no dimension fits, or dp = 1."""
+    if dp <= 1:
+        return None
+    return next((i for i, size in enumerate(shape) if size % dp == 0), None)
+
+
+def zero_shard(value: torch.Tensor, dim: int, dp: int,
+               rank: int) -> torch.Tensor:
+    """Rank `rank`'s 1/dp slice of `value` along `dim` (a view)."""
+    part = value.shape[dim] // dp
+    return value.narrow(dim, rank * part, part)

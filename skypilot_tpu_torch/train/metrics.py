@@ -10,14 +10,14 @@ weights' gradient products, which a LoRA step does not compute.
 
 The gauges carry the reference's names (skytpu_train_step_seconds,
 _tokens_per_sec, _mfu, _steps_timed_total, _opt_state_bytes,
-_opt_state_bytes_per_device). The reference's publish_step_collectives
-(--probe-hlo) waits with the multi-device flags.
+_opt_state_bytes_per_device, _step_collectives{op}). The gauges are
+re-settable: an exporter enabled late reads the last published values.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.observability import metrics as obs
@@ -39,6 +39,10 @@ _OPT_BYTES_PER_DEVICE = obs.gauge(
     'skytpu_train_opt_state_bytes_per_device',
     'Optimizer-state bytes resident on ONE mesh device; ~1/dp of the '
     'global bytes under ZeRO-1 weight-update sharding (--zero1)')
+_STEP_COLLECTIVES = obs.gauge(
+    'skytpu_train_step_collectives',
+    'Collective ops in the compiled train step, by op '
+    '(compiled-HLO probe, parallel/hlo_probe.py)', labelnames=('op',))
 
 
 @dataclasses.dataclass
@@ -87,13 +91,20 @@ def mfu(cfg: ModelConfig, batch_size: int, seq_len: int, step_time_s: float,
 def opt_state_bytes(state) -> Tuple[int, int]:
     """(global bytes, bytes per device) of a TrainState's optimizer
     state: every tensor AdamW keeps (the moments, in the param dtype, and
-    each parameter's step counter). One card holds all of it, so the two
-    are equal."""
-    total = sum(value.numel() * value.element_size()
-                for per_param in state.optimizer.state.values()
-                for value in per_param.values()
-                if hasattr(value, 'element_size'))
-    return total, total
+    each parameter's step counter). Per device is what this rank holds;
+    global counts a ZeRO-1 slice's moments dp times (its step counter
+    once), so it is what one unsharded state holds and per device reads
+    ~1/dp of it."""
+    total = per_device = 0
+    for u, dim in zip(state.updated, state.zero_dims):
+        for value in state.optimizer.state.get(u, {}).values():
+            if not hasattr(value, 'element_size'):
+                continue
+            size = value.numel() * value.element_size()
+            per_device += size
+            total += size * (state.dp if dim is not None and value.dim()
+                             else 1)
+    return total, per_device
 
 
 def publish_opt_state_bytes(state) -> Tuple[int, int]:
@@ -103,6 +114,16 @@ def publish_opt_state_bytes(state) -> Tuple[int, int]:
     _OPT_BYTES.set(total)
     _OPT_BYTES_PER_DEVICE.set(per_device)
     return total, per_device
+
+
+def publish_step_collectives(stats: Dict[str, int]) -> None:
+    """Land a trainer.step_collectives() dict in the
+    skytpu_train_step_collectives{op} gauge family (how gradients land
+    and how params come back)."""
+    for op in ('all_reduce', 'all_gather', 'reduce_scatter',
+               'partition_scatter', 'reduce_scatter_effective'):
+        if op in stats:
+            _STEP_COLLECTIVES.labels(op=op).set(stats[op])
 
 
 def publish_throughput(cfg: ModelConfig, batch_size: int, seq_len: int,

@@ -38,9 +38,31 @@ through models/moe's dispatch, MFU from ModelConfig.flops_per_token's
 active-expert count, as the reference's recipe does
 (`llm/mixtral/train.yaml`: `--model mixtral-8x7b`).
 
-Not ported yet (ROADMAP.md): --zero1, --elastic, --pp/--microbatches/
---pipeline-repeats, --tp, --dp, --ep, --probe-hlo, LoRA under --sp, and
---sp with a MoE model.
+`--dp N` trains data-parallel over N ranks, one process each
+(parallel/mesh.train_group): every rank builds the same global batch and
+takes its rows, and the gradient shares are summed once per optimizer
+step. Under `torchrun --nproc-per-node N` (WORLD_SIZE == N) each process
+joins as its RANK: NCCL on the cards (one card a rank), gloo with
+--device cpu. Without torchrun this process becomes rank 0 and starts the
+other N - 1 ranks itself, each running this same command on cuda:1 …
+cuda:N-1 (or the CPU). `--zero1` shards the AdamW moments over the ranks
+(train/trainer.TrainState); `--probe-hlo` counts the first step's
+collectives into skytpu_train_step_collectives{op}. `--elastic` (with
+--dp and --checkpoint-dir) is preemption-native training
+(train/elastic.py): SIGTERM saves within
+$SKYTPU_TRAIN_PREEMPT_NOTICE_BUDGET and exits 75; relaunch the same
+command with `--dp` at the surviving extent (elastic.surviving_extent of
+the first launch's extent) and the run resumes with a bit-identical loss
+curve:
+
+    python -m skypilot_tpu_torch.train.run --dp 4 --zero1 --elastic \
+        --checkpoint-dir ckpt      # SIGTERM: exit 75
+    python -m skypilot_tpu_torch.train.run --dp 2 --zero1 --elastic \
+        --checkpoint-dir ckpt      # resumes at dp 2
+
+Not ported yet (ROADMAP.md): --pp/--microbatches/--pipeline-repeats,
+--tp, --ep, fsdp (the reference's default remainder axis), --dp with
+--sp, LoRA under --sp, and --sp with a MoE model.
 """
 from __future__ import annotations
 
@@ -88,6 +110,40 @@ def build_parser() -> argparse.ArgumentParser:
                         help='accumulate grads over N sequential '
                         'microbatches per optimizer step: the effective '
                         'batch is --batch, activation memory --batch/N')
+    parser.add_argument('--zero1', action='store_true',
+                        help='ZeRO-1 cross-replica weight-update '
+                             'sharding (arxiv 2004.13336): the Adam '
+                             'moments shard over the dp axis (born '
+                             'sharded, ~1/dp per device), each rank '
+                             'updates its shards and updated params '
+                             'all-gather back — same math, bit-identical '
+                             'losses, the optimizer state of a '
+                             'dp-replicated run divided by dp. '
+                             'Checkpoints stay restorable across dp '
+                             'extents')
+    parser.add_argument('--elastic', action='store_true',
+                        help='preemption-native elastic training: on a '
+                             'preemption notice (SIGTERM) the run '
+                             'checkpoints within '
+                             '$SKYTPU_TRAIN_PREEMPT_NOTICE_BUDGET and '
+                             'exits 75 so the managed-jobs ELASTIC '
+                             'strategy relaunches it at the surviving '
+                             'dp extent; steps use the extent-'
+                             'invariant elastic step, so the loss '
+                             'curve is bit-identical across dp resizes. '
+                             'Requires --dp and --checkpoint-dir; the '
+                             'FIRST launch\'s --dp fixes the canonical '
+                             'extent; relaunches pass the surviving '
+                             'extent')
+    parser.add_argument('--probe-hlo', action='store_true',
+                        help='publish the collective-op counts of the '
+                             'first train step '
+                             '(skytpu_train_step_collectives): how '
+                             'gradients land (reduce-scatter vs '
+                             'all-reduce) and params return '
+                             '(all-gather). The port counts the '
+                             'collectives the step makes (no HLO, no '
+                             'extra compile)')
     parser.add_argument('--lora-rank', type=int, default=0,
                         help='LoRA fine-tune: adapter rank (0 = full '
                         'fine-tune). Only the adapters train; serving '
@@ -108,6 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help='sequence-parallel ring size (attention_impl '
                         'ring): one process runs every ring position, '
                         'or torchrun starts one process per position')
+    parser.add_argument('--dp', type=int, default=None,
+                        help='data-parallel ranks, one process each: '
+                        'torchrun starts them, or this process starts '
+                        'the other ranks itself')
     parser.add_argument('--log-every', type=int, default=10)
     parser.add_argument('--profile-dir', default=None,
                         help='write a torch.profiler trace of steps 2-4 '
@@ -138,6 +198,37 @@ def _check_args(args) -> None:
     if args.lora_rank and args.sp:
         raise SystemExit('LoRA under --sp is not ported (ROADMAP.md, the '
                          'rest of training): drop --sp or --lora-rank')
+    dp = 1 if args.dp is None else args.dp
+    if dp < 1:
+        raise SystemExit(f'--dp must be >= 1, got {args.dp}')
+    if dp > 1 and args.sp:
+        from skypilot_tpu_torch.train.trainer import DP_SP_NEXT
+        raise SystemExit(f'--dp with --sp is not ported ({DP_SP_NEXT}): '
+                         f'drop one of them')
+    if args.elastic:
+        if not args.checkpoint_dir:
+            raise SystemExit('--elastic requires --checkpoint-dir: the '
+                             'notice handler has nowhere to commit the '
+                             'final checkpoint without one')
+        if args.dp is None:
+            raise SystemExit('--elastic requires an explicit --dp (the '
+                             'live extent; the first launch fixes the '
+                             'canonical extent)')
+        if args.grad_accum > 1 or args.lora_rank or (args.sp or 1) > 1:
+            raise SystemExit('--elastic composes with dp/ZeRO-1 only '
+                             'for now: drop --pp/--microbatches/'
+                             '--grad-accum/--lora-rank/--tp/--sp/--ep')
+    if args.zero1 and dp <= 1:
+        raise SystemExit(
+            f'--zero1 shards the optimizer state over the dp axis, but '
+            f'the mesh is MeshConfig(1 device) (dp=1): pass --dp N (e.g. '
+            f'--dp 2 for pure data parallelism) or drop --zero1.')
+    per_step_batch = args.batch // args.grad_accum
+    if per_step_batch % dp:
+        raise SystemExit(
+            f'per-accumulation batch {per_step_batch} '
+            f'(--batch {args.batch} / --grad-accum {args.grad_accum}) '
+            f'must be divisible by dp = {dp}')
     if args.data_dir and args.sft_data:
         raise SystemExit('--data-dir and --sft-data are mutually '
                          'exclusive')
@@ -162,13 +253,26 @@ def _lora_sidecar(checkpoint_dir: str, cfg, coordinator: bool) -> None:
             f'use a fresh --checkpoint-dir.')
 
 
+FOLLOW_TARGET = 'skypilot_tpu_torch.train.run:follow'
+
+
+def follow(group, argv: List[str]) -> None:
+    """A rank that `main` started (parallel/mesh.train_group): the same
+    run as rank 0's, on this rank's rows."""
+    main(argv, group=group)
+
+
 def main(argv=None, history: Optional[List[dict]] = None,
-         result: Optional[dict] = None) -> int:
+         result: Optional[dict] = None, group=None) -> int:
     """Train; `history`, when given, receives one dict per step (step,
     loss, grad_norm, step_s; val_loss after a validation pass; the
-    optimizer state's bytes at the first step) and `result` the final
-    TrainState under 'state', so an in-process caller can check the
-    run."""
+    optimizer state's bytes, global and this rank's, at the first step;
+    the step's collectives under --probe-hlo) and `result` the final
+    TrainState under 'state', so an in-process caller can check the run.
+    `group`: this process's parallel/mesh.TrainGroup when the caller
+    made it (every rank then calls main with the same argv); else --dp
+    makes one."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s: %(message)s')
@@ -176,43 +280,116 @@ def main(argv=None, history: Optional[List[dict]] = None,
 
     import torch
 
-    from skypilot_tpu_torch import callbacks
-    from skypilot_tpu_torch.models.configs import get_config
     from skypilot_tpu_torch.parallel import distributed
-    from skypilot_tpu_torch.parallel.mesh import infer_mesh_config
-    from skypilot_tpu_torch.train import metrics as metrics_lib
-    from skypilot_tpu_torch.train.trainer import (TrainConfig,
-                                                  create_train_state,
-                                                  make_eval_step,
-                                                  make_train_step,
-                                                  synthetic_batch)
+    from skypilot_tpu_torch.parallel.mesh import (MeshConfig,
+                                                  infer_mesh_config,
+                                                  train_group)
 
     if args.device == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('CUDA is not available: the trainer runs on the '
                            'card (pass --device cpu to train on the CPU)')
     topology = distributed.topology_from_env()
-    group, joined = None, False
-    if topology.multiprocess:
+    made = None                     # 'spawned' / 'joined' by this call
+    sp_group = None
+    if group is not None:
+        if group.dp != (args.dp or 1):
+            raise SystemExit(f'a group of {group.dp} ranks runs --dp '
+                             f'{group.dp}, not --dp {args.dp}')
+        mesh = MeshConfig(dp=group.dp)
+    elif topology.multiprocess:
         try:
-            mesh = infer_mesh_config(topology.world_size, sp=args.sp)
+            mesh = infer_mesh_config(topology.world_size, dp=args.dp,
+                                     sp=args.sp)
         except ValueError as e:
             raise SystemExit(f'{topology.world_size} processes need --sp '
+                             f'{topology.world_size} or --dp '
                              f'{topology.world_size}: {e}') from e
         import torch.distributed as dist
-        joined = not dist.is_initialized()
-        distributed.initialize(topology, device=args.device)
-        group = dist.group.WORLD
+        made = 'joined' if not dist.is_initialized() else None
+        if mesh.dp > 1:
+            group = train_group(mesh.dp, device=args.device)
+        else:
+            distributed.initialize(topology, device=args.device)
+            sp_group = dist.group.WORLD
+    elif (args.dp or 1) > 1:
+        mesh = MeshConfig(dp=args.dp)
+        group = train_group(args.dp, device=args.device,
+                            target=FOLLOW_TARGET, args=[argv])
+        made = 'spawned'
     else:
         mesh = infer_mesh_config(args.sp or 1, sp=args.sp)
-    device = torch.device(args.device)
-    if device.type == 'cuda' and topology.multiprocess:
-        device = torch.device('cuda', topology.local_rank)
-        torch.cuda.set_device(device)
-    coordinator = topology.is_coordinator
-    if args.export_hf and topology.multiprocess:
+    try:
+        _train(args, mesh, topology, group, sp_group, history, result)
+    except SystemExit:
+        if made == 'spawned':           # the other ranks stop as this one
+            group.close()
+        raise
+    except BaseException:
+        if made == 'spawned':
+            group.kill()
+        raise
+    if made == 'spawned':
+        group.close()
+    elif made == 'joined':
+        if group is not None:
+            group.destroy()
+        else:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return 0
+
+
+def _train(args, mesh, topology, group, sp_group,
+           history: Optional[List[dict]], result: Optional[dict]) -> None:
+    """main's run on this rank: `group` the data-parallel TrainGroup (or
+    None), `sp_group` the sequence ring's process group under torchrun
+    (or None)."""
+    import torch
+
+    from skypilot_tpu_torch import callbacks
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import metrics as metrics_lib
+    from skypilot_tpu_torch.train.trainer import (TrainConfig,
+                                                  create_train_state,
+                                                  make_elastic_train_step,
+                                                  make_eval_step,
+                                                  make_train_step,
+                                                  step_collectives,
+                                                  synthetic_batch)
+
+    if group is not None:
+        device, coordinator = group.device, group.rank == 0
+        if device.type == 'cuda':
+            torch.cuda.set_device(device)
+    else:
+        device = torch.device(args.device)
+        if device.type == 'cuda' and topology.multiprocess:
+            device = torch.device('cuda', topology.local_rank)
+            torch.cuda.set_device(device)
+        coordinator = topology.is_coordinator
+    ranks = group.dp if group is not None else topology.world_size
+    collective = ranks > 1 and group is not None   # dp saves are collective
+    if args.export_hf and ranks > 1:
         raise SystemExit('--export-hf is single-process only; export the '
                          'checkpoint afterwards with '
                          'python -m skypilot_tpu_torch.models.export_tool')
+
+    elastic = canonical_dp = notice = None
+    if args.elastic:
+        from skypilot_tpu_torch.train import elastic
+        meta = elastic.ElasticMeta.load(args.checkpoint_dir)
+        canonical_dp = meta.canonical_dp if meta else mesh.dp
+        if canonical_dp % mesh.dp:
+            raise SystemExit(
+                f'--elastic: live dp={mesh.dp} must divide the '
+                f'run\'s canonical extent {canonical_dp} (from '
+                f'{elastic.ElasticMeta.path(args.checkpoint_dir)})')
+        if args.batch % canonical_dp:
+            raise SystemExit(f'--elastic: --batch {args.batch} must be '
+                             f'divisible by the canonical extent '
+                             f'{canonical_dp}')
+        notice = elastic.PreemptionNotice()
+        notice.install_sigterm()
 
     overrides = {'attention_impl': 'ring'} if args.sp else {}
     if args.lora_rank:
@@ -223,13 +400,13 @@ def main(argv=None, history: Optional[List[dict]] = None,
     train_config = TrainConfig(learning_rate=args.learning_rate,
                                warmup_steps=args.warmup_steps,
                                total_steps=args.steps)
-    state = create_train_state(cfg, train_config, device=device,
-                               seed=0)
+    state = create_train_state(cfg, train_config, device=device, seed=0,
+                               group=group, zero1=args.zero1)
     if coordinator:
-        logger.info('%s: %d params, %d trained (%s) on %s, %s', cfg.name,
+        logger.info('%s: %d params, %d trained (%s) on %s, %s%s', cfg.name,
                     sum(p.numel() for p in state.model.parameters()),
                     sum(p.numel() for p in state.params), cfg.param_dtype,
-                    device, mesh)
+                    device, mesh, ', zero1' if state.zero1 else '')
     manager = None
     start_step = 0
     if args.checkpoint_dir:
@@ -238,7 +415,15 @@ def main(argv=None, history: Optional[List[dict]] = None,
             _lora_sidecar(args.checkpoint_dir, cfg, coordinator)
         manager = CheckpointManager(args.checkpoint_dir,
                                     save_interval_steps=args.checkpoint_every)
-        state, start_step = manager.maybe_restore(state)
+        if elastic is not None:
+            # A corrupt newest step falls back older; the resize is
+            # recorded in the sidecar's lineage.
+            state, start_step = manager.restore_latest_valid(state)
+            elastic.revalidate_extent(args.checkpoint_dir, canonical_dp,
+                                      mesh.dp, start_step,
+                                      coordinator=coordinator)
+        else:
+            state, start_step = manager.maybe_restore(state)
         if start_step:
             logger.info('resumed from step %d', start_step)
     if args.init_from_hf and start_step == 0:
@@ -257,8 +442,10 @@ def main(argv=None, history: Optional[List[dict]] = None,
         logger.info('initialized params from HF checkpoint %s in %.1fs',
                     args.init_from_hf, time.perf_counter() - t0)
 
-    if group is not None:
-        step_fn = make_train_step(grad_accum=args.grad_accum, group=group)
+    if elastic is not None:
+        step_fn = make_elastic_train_step(canonical_dp)
+    elif sp_group is not None:
+        step_fn = make_train_step(grad_accum=args.grad_accum, group=sp_group)
     else:
         step_fn = make_train_step(grad_accum=args.grad_accum, sp=args.sp)
 
@@ -266,6 +453,7 @@ def main(argv=None, history: Optional[List[dict]] = None,
         return {k: torch.from_numpy(v).to(device, torch.int64)
                 for k, v in batch.items()}
 
+    # Every rank reads the same global batch (the step takes its rows).
     if args.sft_data:
         from skypilot_tpu_torch.train.data import SftJsonlDataset
         dataset = SftJsonlDataset(args.sft_data, args.batch, args.seq,
@@ -329,6 +517,21 @@ def main(argv=None, history: Optional[List[dict]] = None,
     timer = metrics_lib.StepTimer()
     loss = float('nan')
     for step in range(start_step, args.steps):
+        if notice is not None and (group.any(notice.pending())
+                                   if group is not None
+                                   else notice.pending()):
+            elastic.record_preemption()
+            # Only what remains of the budget: the kill clock started at
+            # the notice, possibly mid-step.
+            committed = manager.save_within_deadline(
+                step, state, notice.remaining_budget(
+                    elastic.notice_budget_seconds()))
+            logger.warning(
+                'preempted at step %d: checkpoint %s, exiting 75 for an '
+                'elastic relaunch', step, 'committed' if committed else
+                'did NOT commit within the notice budget — the previous '
+                'checkpoint is the resume point')
+            raise SystemExit(75)
         if args.profile_dir and step == profile_start:
             from torch.profiler import ProfilerActivity, profile
             activities = [ProfilerActivity.CPU]
@@ -336,12 +539,27 @@ def main(argv=None, history: Optional[List[dict]] = None,
                 activities.append(ProfilerActivity.CUDA)
             profiler = profile(activities=activities)
             profiler.start()
+        record = {'step': step}
         with callbacks.step():
             timer.start()
-            metrics = step_fn(state, batch_for(step))
+            if args.probe_hlo and step == start_step:
+                # The probe counts the loop's first step: no batch is
+                # skipped or trained twice.
+                metrics, probe = step_collectives(step_fn, state,
+                                                  batch_for(step))
+                metrics_lib.publish_step_collectives(probe)
+                record['step_collectives'] = probe
+                if coordinator:
+                    logger.info(
+                        'step collectives: all_reduce=%d all_gather=%d '
+                        'reduce_scatter=%d (+%d partition-scatter)',
+                        probe['all_reduce'], probe['all_gather'],
+                        probe['reduce_scatter'], probe['partition_scatter'])
+            else:
+                metrics = step_fn(state, batch_for(step))
             if device.type == 'cuda':
                 torch.cuda.synchronize(device)
-            step_s = timer.stop()
+            record['step_s'] = timer.stop()
         if profiler is not None and step + 1 >= profile_stop:
             profiler.stop()
             os.makedirs(args.profile_dir, exist_ok=True)
@@ -349,15 +567,16 @@ def main(argv=None, history: Optional[List[dict]] = None,
             profiler.export_chrome_trace(trace)
             profiler = None
             logger.info('profile trace written to %s', trace)
-        record = {'step': step, 'step_s': step_s}
         if step == start_step:        # AdamW makes its state at step 1
-            record['opt_state_bytes'], _ = \
+            (record['opt_state_bytes'],
+             record['opt_state_bytes_per_device']) = \
                 metrics_lib.publish_opt_state_bytes(state)
-            logger.info('optimizer state: %d bytes',
-                        record['opt_state_bytes'])
-        if manager is not None and coordinator:
+            logger.info('optimizer state: %d bytes, %d on this rank',
+                        record['opt_state_bytes'],
+                        record['opt_state_bytes_per_device'])
+        if manager is not None and (coordinator or collective):
             t0 = time.perf_counter()
-            if manager.save(step + 1, state):
+            if manager.save(step + 1, state) and coordinator:
                 logger.info('checkpoint %d saved in %.1fs', step + 1,
                             time.perf_counter() - t0)
         logged = coordinator and (step % args.log_every == 0 or
@@ -367,11 +586,11 @@ def main(argv=None, history: Optional[List[dict]] = None,
             record.update(loss=loss, grad_norm=float(metrics['grad_norm']))
         if logged:
             tps, mfu = metrics_lib.publish_throughput(
-                cfg, args.batch, args.seq, step_s, topology.world_size,
+                cfg, args.batch, args.seq, record['step_s'], ranks,
                 H100_BF16_TFLOPS)
             logger.info('step %d/%d loss=%.4f grad_norm=%.3f step_ms=%.1f '
                         'tokens/s=%.0f mfu=%s', step, args.steps, loss,
-                        record['grad_norm'], step_s * 1e3, tps,
+                        record['grad_norm'], record['step_s'] * 1e3, tps,
                         f'{mfu:.3f}' if device.type == 'cuda' else 'n/a')
         if eval_fn is not None and coordinator and (
                 (step + 1) % args.eval_every == 0 or
@@ -379,7 +598,7 @@ def main(argv=None, history: Optional[List[dict]] = None,
             record['val_loss'] = run_eval(step + 1)
         if history is not None:
             history.append(record)
-    if manager is not None and coordinator:
+    if manager is not None and (coordinator or collective):
         if manager.latest_step() != args.steps:
             manager.save(args.steps, state, force=True)
     if args.export_hf:
@@ -389,9 +608,6 @@ def main(argv=None, history: Optional[List[dict]] = None,
         logger.info('done: %d steps, final loss %.4f', args.steps, loss)
     if result is not None:
         result['state'] = state
-    if joined:
-        dist.destroy_process_group()
-    return 0
 
 
 if __name__ == '__main__':

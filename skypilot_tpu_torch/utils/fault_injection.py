@@ -32,16 +32,22 @@ port's device stack fires, at the reference's places:
                     adapter is made resident (host -> device copy)
     tenant.evict    models/inference._ensure_resident / unload_adapter —
                     before a resident adapter is evicted
-    train.save      train/checkpoints.CheckpointManager.save — before a
-                    checkpoint save starts; a failure simulates a dead
-                    checkpoint mount (the run keeps the last committed
-                    step)
+    train.step      train/elastic.ElasticTrainLoop.run — before each
+                    elastic train step; a failure simulates the slice
+                    dying mid-step with no notice (only the in-flight
+                    step re-runs)
+    train.save      train/checkpoints.CheckpointManager.save and
+                    save_within_deadline — before a checkpoint save
+                    starts; a failure simulates a dead checkpoint mount
+                    (the run keeps the last committed step)
+    train.notice    train/elastic.PreemptionNotice.deliver — a failure
+                    simulates a preemption notice lost in delivery (the
+                    kill lands with no final checkpoint)
 
 The reference's points the port does not fire stay out of KNOWN_POINTS:
-``train.step`` and ``train.notice`` (its elastic training loop) and the
-control plane's ``rpc.send``, ``replica.probe``,
+the control plane's ``rpc.send``, ``replica.probe``,
 ``replica.preempt_notice``, ``storage.chunk``, ``lb.digest`` and
-``lb.handoff`` (ELASTIC_POINTS and CONTROL_PLANE_POINTS name them).
+``lb.handoff`` (CONTROL_PLANE_POINTS names them).
 
 Disarmed (the default) a point is one module-level boolean check.
 Arming is programmatic (tests) or through the ``SKYTPU_FAULTS``
@@ -71,15 +77,16 @@ KNOWN_POINTS = (
     'storage.import',
     'kv.stream',
     'engine.ingest',
+    'train.step',
     'train.save',
+    'train.notice',
     'tenant.adapter_load',
     'tenant.evict',
     'engine.slot_preempt',
 )
 
-# The reference's points whose code the port does not have yet: its
-# elastic training loop's, and its control plane's.
-ELASTIC_POINTS = ('train.step', 'train.notice')
+# The reference's points whose code the port does not have: its control
+# plane's.
 CONTROL_PLANE_POINTS = ('rpc.send', 'replica.probe',
                         'replica.preempt_notice', 'storage.chunk',
                         'lb.digest', 'lb.handoff')

@@ -98,15 +98,11 @@ def test_block_pool_refusals():
 
 SERVER_TO_PORT = {}
 TRAIN_TO_PORT = {
-    '--dp': 'ROADMAP §1 item 6: data parallelism and ZeRO-1',
-    '--tp': 'ROADMAP §1 item 6: --tp/--dp/--ep',
+    '--tp': 'ROADMAP §1 item 6: --tp/--ep',
     '--ep': 'ROADMAP §1 item 6: expert parallelism',
     '--pp': 'ROADMAP §1 item 6: the pipeline',
     '--microbatches': 'ROADMAP §1 item 6: the pipeline',
     '--pipeline-repeats': 'ROADMAP §1 item 6: the pipeline',
-    '--zero1': 'ROADMAP §1 item 6: ZeRO-1',
-    '--elastic': 'ROADMAP §1 item 6: the elastic step',
-    '--probe-hlo': 'ROADMAP §1 item 6: the step collectives probe',
 }
 PORT_ONLY = {
     'server': {'--device': 'the port runs on CUDA unless told cpu'},

@@ -10,7 +10,7 @@ train/data.py's SftJsonlDataset (with the walk it draws from). The KV
 portability copies are pinned definition by definition: kv_cache's
 artifact and chunk-stream functions and PrefixIndex's touch/get/digest,
 every function and class of utils/fault_injection.py (its points the
-reference's less the named elastic and control-plane lists), the prefix
+reference's less the named control-plane list), the prefix
 store's classes and methods in data/storage.py, the URL helpers of
 data/data_utils.py, the handoff and preemption-notice settings of
 serve/constants.py and the engine's `infer_serving_tp`. So
@@ -100,7 +100,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.serve.constants',
                 'skypilot_tpu_torch.parallel.mesh',
                 'skypilot_tpu_torch.parallel.distributed',
-                'skypilot_tpu_torch.parallel.sharding'):
+                'skypilot_tpu_torch.parallel.sharding',
+                'skypilot_tpu_torch.train.elastic',
+                'skypilot_tpu_torch.train.checkpoints',
+                'skypilot_tpu_torch.train.metrics'):
         assert mod in mods
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run(
@@ -283,11 +286,10 @@ def test_fault_injection_copy_equals_the_reference():
     port, ref = _pair(os.path.join('utils', 'fault_injection.py'))
     points = ast.literal_eval(port.pop('KNOWN_POINTS').value)
     ref_points = ast.literal_eval(ref.pop('KNOWN_POINTS').value)
-    left_out = (ast.literal_eval(port.pop('ELASTIC_POINTS').value) +
-                ast.literal_eval(port.pop('CONTROL_PLANE_POINTS').value))
-    assert left_out == ('train.step', 'train.notice', 'rpc.send',
-                        'replica.probe', 'replica.preempt_notice',
-                        'storage.chunk', 'lb.digest', 'lb.handoff')
+    left_out = ast.literal_eval(port.pop('CONTROL_PLANE_POINTS').value)
+    assert left_out == ('rpc.send', 'replica.probe',
+                        'replica.preempt_notice', 'storage.chunk',
+                        'lb.digest', 'lb.handoff')
     assert [p for p in ref_points if p not in left_out] == list(points)
     assert set(left_out) <= set(ref_points)
     assert {k: ast.dump(v) for k, v in port.items()} == \
@@ -407,3 +409,30 @@ def test_infer_serving_tp_copy_equals_the_reference():
     port, ref = _pair(os.path.join('models', 'inference.py'))
     assert ast.dump(port['infer_serving_tp']) == \
         ast.dump(ref['infer_serving_tp'])
+
+
+@pytest.mark.parametrize('name', ['_PREEMPTIONS', '_RESIZES',
+                                  'record_preemption',
+                                  'notice_budget_seconds',
+                                  'PreemptionNotice', 'surviving_extent',
+                                  'ElasticMeta', 'IncarnationResult'])
+def test_elastic_copy_equals_the_reference(name):
+    """train/elastic.py keeps the reference's jax-free definitions, docstrings
+    aside (revalidate_extent and ElasticTrainLoop are the port's own: ranks
+    are processes)."""
+    port, ref = _pair(os.path.join('train', 'elastic.py'))
+    assert _without_docstrings(port[name]) == _without_docstrings(ref[name])
+
+
+@pytest.mark.parametrize('name', ['_SAVE_SECONDS', '_RESTORE_FALLBACKS'])
+def test_checkpoint_metrics_equal_the_reference(name):
+    port, ref = _pair(os.path.join('train', 'checkpoints.py'))
+    assert ast.dump(port[name]) == ast.dump(ref[name])
+
+
+def test_step_collectives_gauge_equals_the_reference():
+    port, ref = _pair(os.path.join('train', 'metrics.py'))
+    assert ast.dump(port['_STEP_COLLECTIVES']) == \
+        ast.dump(ref['_STEP_COLLECTIVES'])
+    assert _without_docstrings(port['publish_step_collectives'].body[-1]) \
+        == _without_docstrings(ref['publish_step_collectives'].body[-1])

@@ -273,7 +273,14 @@ PORTED_METRICS = {
         'skytpu_train_step_seconds', 'skytpu_train_tokens_per_sec',
         'skytpu_train_mfu', 'skytpu_train_steps_timed_total',
         'skytpu_train_opt_state_bytes',
-        'skytpu_train_opt_state_bytes_per_device'),
+        'skytpu_train_opt_state_bytes_per_device',
+        'skytpu_train_step_collectives'),
+    'skypilot_tpu.train.checkpoints': (
+        'skytpu_train_checkpoint_save_seconds',
+        'skytpu_train_checkpoint_restore_fallbacks_total'),
+    'skypilot_tpu.train.elastic': (
+        'skytpu_train_preemptions_total',
+        'skytpu_train_elastic_resizes_total'),
 }
 
 
