@@ -137,6 +137,19 @@ and passed over):
             to an unpreempted dp=4 run, the lineage down then up, the
             notice saves committed within the budget, launches on every
             rank x canonical/dp groups.
+  train_fsdp: fsdp training (parallel/fsdp.py), two processes on cuda:0
+            over gloo: train.run.main on the caller's group at fsdp 2
+            (no axis flag), llama3-1b at full width and depth, bf16,
+            B 8 x S 1024, 4 steps on train_dp's repeated batch: step 0's
+            loss bit-equal to train_dp's plain --dp 2 run (or to a --dp
+            2 run here when train_dp is not in the run), the later
+            (loss, grad_norm) within TRAIN_FSDP_TOL of it, falling; a
+            rank's resident weight and moment bytes <= (1/2 + 0.02) x
+            the whole model's; the first step's all-gathers,
+            reduce-scatters and all-reduces by the formula; kernels 3-5's
+            launches on both ranks; step ms, the gloo share, per-rank
+            peak memory. Then LoRA (q,v, rank 16) at fsdp 2, 3 steps,
+            its loss falling.
   serve:    the port's HTTP server in-process on localhost with
             llama3-8b at full width and depth (seeded random bf16
             weights made on the card), 8 slots, paged blocks of 16,
@@ -3915,7 +3928,9 @@ def phase_serve_tenant(torch, smi: str, bf16_pool_bytes) -> dict:
             fail(f'GET /adapters: {status} {body}')
         status, body = _request(http.url + '/health', 'GET')
         if body != {'status': 'ok', 'tier': 'monolithic',
-                    'adapters': {'capacity': 4, 'resident': 4}}:
+                    'adapters': {'capacity': 4, 'resident': 4},
+                    'tier_load': {'interactive': 0, 'standard': 0,
+                                  'batch': 0}}:
             fail(f'/health: {status} {body}')
         lengths = [20, 117, 214, 311, 408, 505, 602, 700]
         adapter_of = [None, 'ad0', 'ad1', 'ad2', 'ad3', None, 'ad0', 'ad1']
@@ -5084,6 +5099,8 @@ def _train_dp_rank(world, plan: dict) -> dict:
 
 def train_dp_follower(world, plan) -> None:
     _train_dp_rank(world, plan)
+    if plan.get('fsdp'):
+        _train_fsdp_rank(world, plan['fsdp'])
 
 
 def _train_dp_check(cfg, runs: dict, smi: str) -> dict:
@@ -5196,28 +5213,37 @@ def _elastic_check(runs: list, ckpt: str, smi: str) -> list:
     return launches
 
 
-def phase_train_dp(torch, smi: str) -> dict:
-    """Data-parallel training on the one card: TRAIN_DP_RANKS processes on
-    cuda:0 over gloo (NCCL takes one card a rank); plain and ZeRO-1
-    through train.run.main --dp 2, then the elastic storm. Returns kernels
-    3-5's launches on every rank of every run."""
+def _train_dp_argv(root: str, cfg) -> list:
+    """train_dp's plain argv without --dp: the repeated batch written
+    under `root`, 4 steps, the step-collectives probe."""
     import numpy as np
-    from skypilot_tpu_torch.models.configs import get_config
-    from skypilot_tpu_torch.parallel.mesh import train_group
     from skypilot_tpu_torch.train import data
-    t_phase = time.monotonic()
-    cfg = get_config(TRAIN_DP['model'], param_dtype='bfloat16')
     batch, seq = TRAIN_DP['batch'], TRAIN_DP['seq']
-    root = tempfile.mkdtemp()
     data.write_token_shard(os.path.join(root, 'one_batch.bin'),
                            np.random.RandomState(0).randint(
                                0, cfg.vocab_size, batch * seq + 1))
-    argv = ['--model', cfg.name, '--batch', str(batch), '--seq', str(seq),
+    return ['--model', cfg.name, '--batch', str(batch), '--seq', str(seq),
             '--steps', str(TRAIN_DP['steps']), '--data-dir', root,
             '--warmup-steps', '1', '--learning-rate', '1e-3', '--log-every',
-            '1', '--dp', str(TRAIN_DP['dp']), '--probe-hlo']
+            '1', '--probe-hlo']
+
+
+def phase_train_dp(torch, smi: str, fsdp: bool = False) -> tuple:
+    """Data-parallel training on the one card: TRAIN_DP_RANKS processes on
+    cuda:0 over gloo (NCCL takes one card a rank); plain and ZeRO-1
+    through train.run.main --dp 2, then the elastic storm; with `fsdp`
+    then train_fsdp's runs on the same processes. Returns kernels 3-5's
+    launches on every rank of every run, the plain run's (loss,
+    grad_norm) series, and train_fsdp's runs (or None)."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.parallel.mesh import train_group
+    t_phase = time.monotonic()
+    cfg = get_config(TRAIN_DP['model'], param_dtype='bfloat16')
+    root = tempfile.mkdtemp()
+    argv = _train_dp_argv(root, cfg) + ['--dp', str(TRAIN_DP['dp'])]
     plan = {'runs': {'plain': argv, 'zero1': argv + ['--zero1']},
-            'dir': os.path.join(root, 'elastic')}
+            'dir': os.path.join(root, 'elastic'),
+            'fsdp': _fsdp_plan(root, cfg) if fsdp else None}
     try:
         t0 = time.monotonic()
         world = train_group(TRAIN_DP_RANKS,
@@ -5229,6 +5255,8 @@ def phase_train_dp(torch, smi: str) -> dict:
             f'{time.monotonic() - t0:.1f}s')
         try:
             out = _train_dp_rank(world, plan)
+            fsdp_out = (_train_fsdp_rank(world, plan['fsdp']) if fsdp
+                        else None)
         except BaseException:
             world.kill()
             raise
@@ -5239,6 +5267,204 @@ def phase_train_dp(torch, smi: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f'train_dp: phase in {time.monotonic() - t_phase:.1f}s [{smi}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = [(h['loss'], h['grad_norm'])
+             for h in out['runs']['plain']['history']]
+    return launches, plain, fsdp_out
+
+
+# ----------------------------------------------------------------- fsdp
+
+TRAIN_FSDP = dict(fsdp=2, lora_rank=16, lora_steps=2)
+# (loss, grad_norm) of the fsdp run against the --dp 2 run, relative:
+# the CPU tests' tolerance. The forward runs on exact copies of the same
+# weights over the same rows, and the gradients are summed over the two
+# ranks in fp32 either way; only grad_norm's sum of squares is
+# associated otherwise (over slices, then over ranks), which moves the
+# clip scale, and so the later updates, in their last bits.
+TRAIN_FSDP_TOL = 2e-5
+TRAIN_FSDP_FRAC = 1 / 2 + 0.02      # resident bytes a rank / the whole's
+
+
+def _train_fsdp_rank(world, plan: dict) -> dict:
+    """One rank's part of train_fsdp, run by both ranks of `world` (rank
+    0 is the smoke): each run of `plan` through train.run.main on the
+    caller's group at its (dp, fsdp) extents. Rank 0 gets every rank's
+    reports; the others get None."""
+    import torch
+
+    from skypilot_tpu_torch.train import run
+    out = {}
+    for name, (dp, fsdp, argv) in plan['runs'].items():
+        group = world.split(dp, fsdp)
+        if group is not None:
+            torch.cuda.synchronize()
+            base_gib = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            history, result = [], {}
+            t0 = time.monotonic()
+            run.main(argv, history=history, result=result, group=group)
+            wall = time.monotonic() - t0
+            report = _rank_report(torch, history)
+            report['peak_gib'] -= base_gib
+            model = result.pop('state').model
+            report['param_bytes'] = sum(p.numel() * p.element_size()
+                                        for p in model.parameters())
+            report['whole_param_bytes'] = (sum(
+                torch.Size(leaf.shape).numel() * leaf.param.element_size()
+                for leaf in model.fsdp.leaves.values())
+                if model.fsdp is not None else report['param_bytes'])
+            del model, result
+            out[name] = dict(
+                history=history, reports=group.gather_object(report),
+                wall=wall, gloo_s=sum(group.seconds.values()),
+                gloo_calls=dict(group.calls), gloo_bytes=dict(group.bytes))
+            torch.cuda.empty_cache()
+        world.barrier()
+    return out
+
+
+def train_fsdp_follower(world, plan) -> None:
+    _train_fsdp_rank(world, plan)
+
+
+def _train_fsdp_check(cfg, runs: dict, dp_plain: list, smi: str) -> dict:
+    """The fsdp and LoRA runs' promises; returns each run's per-rank
+    launches."""
+    from skypilot_tpu_torch.train import metrics as metrics_lib
+    layers, fsdp = cfg.num_layers, TRAIN_FSDP['fsdp']
+    batch, seq = TRAIN_DP['batch'], TRAIN_DP['seq']
+    recompute = 1 if cfg.remat else 0
+    series = [(h['loss'], h['grad_norm']) for h in runs['fsdp']['history']]
+    log(f'train_fsdp: llama3-1b fsdp {fsdp} (loss, grad_norm) {series}; '
+        f'--dp 2 {dp_plain}')
+    if series[0][0] != dp_plain[0][0]:
+        fail(f'train_fsdp: step 0 loss {series[0][0]!r} is not the --dp 2 '
+             f"run's {dp_plain[0][0]!r} bit for bit")
+    worst = max(abs(a - b) / abs(b) for got, ref in zip(series, dp_plain)
+                for a, b in zip(got, ref))
+    log(f'train_fsdp: worst relative (loss, grad_norm) difference from the '
+        f'--dp 2 run {worst:.3g} (tolerance {TRAIN_FSDP_TOL})')
+    if worst > TRAIN_FSDP_TOL:
+        fail(f'train_fsdp: (loss, grad_norm) {series} not within '
+             f'{TRAIN_FSDP_TOL} of the --dp 2 run {dp_plain}')
+    losses = [loss for loss, _ in series]
+    if not losses[-1] < losses[0] - 0.1:
+        fail(f'train_fsdp: loss did not fall on a repeated batch: {losses}')
+    lora = [h['loss'] for h in runs['lora']['history']]
+    log(f'train_fsdp: LoRA q,v rank {TRAIN_FSDP["lora_rank"]} at fsdp '
+        f'{fsdp}: losses {lora}')
+    if not lora[-1] < lora[0]:
+        fail(f'train_fsdp: the LoRA loss did not fall: {lora}')
+    launches = {}
+    for name, steps, lora_run in (('fsdp', TRAIN_DP['steps'], False),
+                                  ('lora', TRAIN_FSDP['lora_steps'], True)):
+        r = runs[name]
+        want = {'chunk_update': 0,
+                'flash_forward': steps * layers * (1 + recompute),
+                'flash_dq': steps * layers, 'flash_dkv': steps * layers}
+        ranks = [rep['launches'] for rep in r['reports']]
+        launches[name] = ranks
+        if any(got != want for got in ranks):
+            fail(f'train_fsdp {name}: launches a rank {ranks} != {want}')
+        units = layers + (0 if lora_run else 2)
+        probe = {'all_reduce': 1, 'all_gather': 2 * layers + 2,
+                 'reduce_scatter': units, 'partition_scatter': 0,
+                 'reduce_scatter_effective': units}
+        probes = [rep['collectives'] for rep in r['reports']]
+        if any(p != probe for p in probes):
+            fail(f'train_fsdp {name}: first step collectives {probes} != '
+                 f'{probe}')
+        for rep in r['reports']:
+            param, whole = rep['param_bytes'], rep['whole_param_bytes']
+            opt_global, opt_rank = rep['opt_bytes']
+            if not lora_run and not (
+                    param <= TRAIN_FSDP_FRAC * whole and
+                    opt_rank <= TRAIN_FSDP_FRAC * opt_global):
+                fail(f'train_fsdp: a rank holds {param} of {whole} weight '
+                     f'bytes and {opt_rank} of {opt_global} moment bytes '
+                     f'(bound {TRAIN_FSDP_FRAC:.2f})')
+        step_s = statistics.median(h['step_s'] for h in r['history'][1:])
+        log(f'train_fsdp {name}: launches a rank {ranks} (expected {want}: '
+            f'steps {steps} x layers {layers} x (1 + remat {recompute}) '
+            f'forward, steps x layers dQ and dK/dV); first step '
+            f'collectives {probes[0]} (all_gather 2L + 2, reduce_scatter '
+            f'{"L" if lora_run else "L + 2"}, all_reduce 1); weight bytes '
+            f'a rank / whole {[rep["param_bytes"] for rep in r["reports"]]}'
+            f' / {r["reports"][0]["whole_param_bytes"]}, optimizer bytes '
+            f'(global, a rank) {[rep["opt_bytes"] for rep in r["reports"]]}')
+        log(f'train_fsdp {name}: {steps} steps in {r["wall"]:.1f}s; step '
+            f'{step_s * 1e3:.1f} ms (median of steps 1..{steps - 1}), '
+            f'{metrics_lib.tokens_per_sec(batch, seq, step_s):.0f} '
+            f'tokens/s; gloo collectives {r["gloo_s"]:.1f}s = '
+            f'{r["gloo_s"] / sum(h["step_s"] for h in r["history"]):.3f} of '
+            f'the steps ({r["gloo_calls"]} calls, {r["gloo_bytes"]} bytes '
+            f'on rank 0); peak GiB a rank '
+            f'{[round(rep["peak_gib"], 2) for rep in r["reports"]]} '
+            f'(train_dp --dp 2: 17.56 plain, 16.63 ZeRO-1, PERF.md §5) '
+            f'[{smi}]')
+    return launches
+
+
+def _fsdp_plan(root: str, cfg, dp: bool = False) -> dict:
+    """train_fsdp's runs over train_dp's repeated batch under `root`
+    (written there already): (dp, fsdp, argv) by name, the fsdp run with
+    train_dp's plain argv and no axis flag, then LoRA (the first update
+    at the peak lr: no warmup); with `dp` a --dp 2 run first, the
+    reference when train_dp does not run."""
+    fsdp = TRAIN_FSDP['fsdp']
+    argv = _train_dp_argv(root, cfg)
+    lora = ['--model', cfg.name, '--batch', str(TRAIN_DP['batch']),
+            '--seq', str(TRAIN_DP['seq']), '--steps',
+            str(TRAIN_FSDP['lora_steps']), '--data-dir', root,
+            '--warmup-steps', '0', '--learning-rate', '1e-2', '--log-every',
+            '1', '--probe-hlo', '--lora-rank', str(TRAIN_FSDP['lora_rank']),
+            '--lora-targets', 'q,v']
+    runs = {'dp': (fsdp, 1, argv + ['--dp', str(fsdp)])} if dp else {}
+    runs.update(fsdp=(1, fsdp, argv), lora=(1, fsdp, lora))
+    return {'runs': runs}
+
+
+def phase_train_fsdp(torch, smi: str, dp_plain=None, out=None) -> dict:
+    """fsdp training on the one card: `out`, the runs train_dp's
+    processes made (phase_train_dp with fsdp), or else 2 processes on
+    cuda:0 over gloo (NCCL takes one card a rank) that first run --dp 2
+    for the reference: train.run.main on the caller's group at fsdp 2,
+    then LoRA at fsdp 2. Returns kernels 3-5's launches on every rank of
+    the fsdp and LoRA runs."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.parallel.mesh import train_group
+    t_phase = time.monotonic()
+    cfg = get_config(TRAIN_DP['model'], param_dtype='bfloat16')
+    if out is not None:
+        launches = _train_fsdp_check(cfg, out, dp_plain, smi)
+        log(f'train_fsdp: checked train_dp\'s processes\' runs [{smi}]')
+        return launches
+    fsdp = TRAIN_FSDP['fsdp']
+    root = tempfile.mkdtemp()
+    plan = _fsdp_plan(root, cfg, dp=True)
+    try:
+        t0 = time.monotonic()
+        world = train_group(fsdp, devices=['cuda:0'] * fsdp, backend='gloo',
+                            target='chip_smoke:train_fsdp_follower',
+                            args=[plan], timeout_seconds=600)
+        log(f'train_fsdp: {fsdp} ranks on cuda:0 over gloo in '
+            f'{time.monotonic() - t0:.1f}s')
+        try:
+            out = _train_fsdp_rank(world, plan)
+        except BaseException:
+            world.kill()
+            raise
+        world.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if dp_plain is None:
+        dp_plain = [(h['loss'], h['grad_norm'])
+                    for h in out['dp']['history']]
+    launches = _train_fsdp_check(cfg, out, dp_plain, smi)
+    log(f'train_fsdp: phase in {time.monotonic() - t_phase:.1f}s [{smi}]')
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -7853,7 +8079,8 @@ def phase_tp_compose(torch, smi: str, shard: dict) -> dict:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'train_dp', 'serve', 'resilience', 'contiguous', 'serve_prefix',
+          'train_sp', 'train_dp', 'train_fsdp', 'serve', 'resilience',
+          'contiguous', 'serve_prefix',
           'serve_tenant', 'serve_sched', 'graph_parity', 'families',
           'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff', 'tp',
           'tp_compose')
@@ -7942,8 +8169,10 @@ def main(argv=None) -> int:
                 'launches': launches, **ring['full_hop']})
         gc.collect()
         torch.cuda.empty_cache()
+    dp_plain = fsdp_runs = None
     if 'train_dp' in phases:
-        launched = phase_train_dp(torch, smi)
+        launched, dp_plain, fsdp_runs = phase_train_dp(
+            torch, smi, fsdp='train_fsdp' in phases)
         for entry in kernels:
             attr = next((a for n, a, _ in FLASH_KERNELS
                          if n == entry['name']), None)
@@ -7954,6 +8183,15 @@ def main(argv=None) -> int:
                     'elastic': [{'dp': e['dp'], 'run': e['run'],
                                  'ranks': [r[attr] for r in e['ranks']]}
                                 for e in launched['elastic']]}
+    if 'train_fsdp' in phases:
+        launched = phase_train_fsdp(torch, smi, dp_plain, fsdp_runs)
+        for entry in kernels:
+            attr = next((a for n, a, _ in FLASH_KERNELS
+                         if n == entry['name']), None)
+            if attr is not None:
+                entry['train_fsdp_launches'] = {
+                    name: [r[attr] for r in ranks]
+                    for name, ranks in launched.items()}
     bf16_pool_bytes = serve_timings = serve_params = resilience = None
     serve_tokens = contiguous = None
     if 'serve' in phases:

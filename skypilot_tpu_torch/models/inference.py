@@ -124,10 +124,11 @@ from skypilot_tpu_torch.models.convert import adapter_from_jax
 from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.transformer import (Transformer,
                                                  check_supported,
-                                                 random_params)
+                                                 random_params, torch_dtype)
 from skypilot_tpu_torch.observability import metrics as obs
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.ops import limits
+from skypilot_tpu_torch.ops import paged_attention as paged_attention_lib
 from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.serve import tenancy
 from skypilot_tpu_torch.utils import fault_injection
@@ -247,6 +248,27 @@ _DISPATCH_AHEAD = obs.gauge(
     'skytpu_engine_dispatch_ahead',
     'Decode dispatches in flight beyond the last consumed result '
     '(the async lookahead depth currently in effect)')
+# Multi-tenant serving (the reference's docs/serving.md "Multi-tenant
+# serving").
+_ADAPTER_SLOTS = obs.gauge(
+    'skytpu_engine_adapter_slots',
+    'Device-side adapter pool capacity (loadable slots; slot 0 = the '
+    'base-model identity is extra)')
+_ADAPTER_RESIDENT = obs.gauge(
+    'skytpu_engine_adapter_resident',
+    'Adapters currently resident in the device-side pool')
+_ADAPTER_LOADS = obs.counter(
+    'skytpu_engine_adapter_loads_total',
+    'Adapter loads into a device slot (first load + re-load after '
+    'eviction)')
+_ADAPTER_EVICTIONS = obs.counter(
+    'skytpu_engine_adapter_evictions_total',
+    'LRU evictions of refcount-0 resident adapters under slot '
+    'pressure')
+_ADAPTER_SHED = obs.counter(
+    'skytpu_engine_adapter_shed_total',
+    'Requests/loads shed because every adapter slot was pinned '
+    '(AdapterPoolExhaustedError; retryable)')
 _TIER_QUEUE_DEPTH = obs.gauge(
     'skytpu_engine_tier_queue_depth',
     'Admission-queue depth by SLO tier', ('tier',))
@@ -265,6 +287,27 @@ _SLOT_PREEMPTS = obs.counter(
     'skytpu_engine_slot_preempts_total',
     'batch-tier requests preempted out of a decode slot by an '
     'interactive arrival and re-queued retryably')
+# The reference's help names its own routes. The port's paged route on
+# the card is the hand-written CUDA kernel (its plain version on the
+# CPU): it stands where 'pallas' stands (1); the plain gather-and-attend
+# route stands where 'xla' stands (0). 'pallas_interpret' keeps its code
+# 2 (the port accepts the name and runs the kernel's route).
+_DECODE_KERNEL = obs.gauge(
+    'skytpu_engine_decode_kernel',
+    'Decode attention implementation in effect: 0 = xla '
+    '(scatter/gather through the block pool), 1 = pallas (fused '
+    'block-table-walk kernel, ops/paged_attention), 2 = '
+    'pallas_interpret (the same kernel under the Pallas interpreter '
+    'on CPU)')
+_DECODE_FUSED_BYTES = obs.gauge(
+    'skytpu_engine_decode_fused_bytes',
+    'HBM bytes ONE fused decode step streams through the pallas '
+    'kernel: live pool blocks x (K+V payload + int8 scale rows) x '
+    'layers, each read exactly once per step '
+    '(ops/paged_attention.fused_hbm_bytes_per_step; 0 on the XLA '
+    'path, where the gathered-window intermediate adds a further '
+    'write+read on top of this floor)')
+_DECODE_KERNEL_CODE = {'xla': 0, 'pallas': 1, 'pallas_interpret': 2}
 _PREFIX_EXPORT_BLOCKS = obs.counter(
     'skytpu_prefix_export_blocks_total',
     'KV blocks serialized into prefix artifacts on preemption notice')
@@ -1001,6 +1044,7 @@ class ContinuousBatchingEngine(_TensorParallel):
         self.decode_kernel = _resolve_decode_kernel(
             decode_kernel or ('pallas' if self.paged_block_size else 'xla'),
             dataclasses.replace(cfg, paged_block_size=self.paged_block_size))
+        _DECODE_KERNEL.set(_DECODE_KERNEL_CODE[self.decode_kernel])
         if self.paged_block_size:
             if cfg.max_seq_len % self.paged_block_size:
                 raise ValueError(
@@ -1180,6 +1224,8 @@ class ContinuousBatchingEngine(_TensorParallel):
             tenancy.AdapterPool(self.max_adapters) if self.max_adapters
             else None)
         self._lora_stacks = list(self.model.lora_stacks())
+        if self._adapter_pool is not None:
+            _ADAPTER_SLOTS.set(self.max_adapters)
         self.tenancy_stats = {'slot_preempts': 0, 'deadline_sheds': 0,
                               'adapter_sheds': 0}
         # Admission→first-token service EWMA behind deadline-aware
@@ -1565,6 +1611,20 @@ class ContinuousBatchingEngine(_TensorParallel):
             # A prefix re-published by a local prefill is no longer the
             # import's doing.
             self._prewarmed_keys.discard(key)
+
+    def fused_bytes_per_step(self) -> int:
+        """Bytes one decode step streams through the paged kernel at the
+        pool's current occupancy (0 on the plain route and the contiguous
+        layout): the skytpu_engine_decode_fused_bytes gauge, set every
+        tick, by the reference's formula (ops/paged_attention
+        fused_hbm_bytes_per_step)."""
+        if self.decode_kernel == 'xla' or self._pool is None:
+            return 0
+        kv_quant = self.cfg.kv_cache_quant == 'int8'
+        return paged_attention_lib.fused_hbm_bytes_per_step(
+            self._pool.used, self.paged_block_size, self.cfg.num_kv_heads,
+            self.cfg.head_dim, self.cfg.num_layers,
+            1 if kv_quant else torch_dtype(self.cfg).itemsize, kv_quant)
 
     def paged_occupancy(self) -> dict:
         """Pool accounting snapshot: blocks used (scratch included) and
@@ -2368,6 +2428,10 @@ class ContinuousBatchingEngine(_TensorParallel):
         if self._pool is not None:
             _PAGED_CAPACITY.set(self._pool.num_blocks)
             _PAGED_USED.set(self._pool.used)
+        # Re-set every tick: an exporter usually enables after warmup.
+        _DECODE_KERNEL.set(_DECODE_KERNEL_CODE[self.decode_kernel])
+        if self.decode_kernel != 'xla' and self._pool is not None:
+            _DECODE_FUSED_BYTES.set(self.fused_bytes_per_step())
         if self.paged_int8_bytes_saved:
             _PAGED_INT8_SAVED.set(self.paged_int8_bytes_saved)
         if self._tp > 1:
@@ -2862,15 +2926,18 @@ class ContinuousBatchingEngine(_TensorParallel):
                 if evicted is not None:
                     # The LRU victim left residency to free this slot.
                     fault_injection.point('tenant.evict')
+                    _ADAPTER_EVICTIONS.inc()
                 if host is not None:
                     self._tp_send_adapter(slot, name, host)
                     self._write_adapter(slot, host)
+                    _ADAPTER_LOADS.inc()
             except BaseException:
                 # The residency map must never claim weights that did
                 # not land, and a failed load must not leak its pin.
                 if host is not None:
                     pool.abort_load(name, pinned=pin)
                 raise
+            _ADAPTER_RESIDENT.set(len(pool.resident_names()))
             if tracing.enabled():
                 tracing.record_span(
                     'engine.adapter_load', t0, tracing.now(),
@@ -2893,6 +2960,7 @@ class ContinuousBatchingEngine(_TensorParallel):
         try:
             return self._ensure_resident(name, pin=False)
         except exceptions.AdapterPoolExhaustedError:
+            _ADAPTER_SHED.inc()
             self.tenancy_stats['adapter_sheds'] += 1
             raise
 
@@ -2906,6 +2974,7 @@ class ContinuousBatchingEngine(_TensorParallel):
             # The explicit-evict chaos seam.
             fault_injection.point('tenant.evict')
             pool.unregister(name)
+            _ADAPTER_RESIDENT.set(len(pool.resident_names()))
             if self._tp_adapters.pop(name, None) is not None:
                 # The followers forget the tree with the next op.
                 self._tp_pending.append(('adapter_drop', name))
@@ -2998,6 +3067,7 @@ class ContinuousBatchingEngine(_TensorParallel):
             try:
                 adapter_slot = self._ensure_resident(adapter, pin=True)
             except exceptions.AdapterPoolExhaustedError:
+                _ADAPTER_SHED.inc()
                 self.tenancy_stats['adapter_sheds'] += 1
                 raise
             pinned_pool = self._adapter_pool
@@ -3805,6 +3875,7 @@ class InferenceEngine(_TensorParallel):
         self.device = resolve_device(device)
         cfg = _resolve_cfg(cfg, max_seq_len, quantize, kv_quant)
         self.decode_kernel = _resolve_decode_kernel(decode_kernel, cfg)
+        _DECODE_KERNEL.set(_DECODE_KERNEL_CODE[self.decode_kernel])
         cfg = dataclasses.replace(cfg, decode_kernel=self.decode_kernel)
         self.cfg, self.model = _build_model(cfg, params, rng_seed, quantize,
                                             self.device, self.mesh)

@@ -127,6 +127,13 @@ groups add into the rank's output columns, and o / down add
 (x_r·A_r)·B into the partial product before its all-reduce. The KV
 pools and caches hold the rank's kv_heads/tp heads. Training (and LoRA
 training) is refused under tp (sharding.TP_TRAINING_NEXT).
+
+fsdp training (`fsdp`, the fsdp group of a parallel.mesh.TrainGroup):
+the parameters are built on `meta` and each replaced by this rank's
+slice on its `embed` dimension (parallel/sharding.fsdp_dim); the
+training forward runs the embedding, each layer and the head with their
+whole weights gathered just before them (parallel/fsdp.py), a layer
+under remat inside its checkpoint, so its recompute gathers again.
 """
 from __future__ import annotations
 
@@ -146,6 +153,7 @@ from skypilot_tpu_torch.ops.fused_lora import LoRAGroup
 from skypilot_tpu_torch.ops.paged_attention import (
     attend_window, paged_decode_attention, paged_decode_attention_plain)
 from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.parallel.fsdp import FullyShard
 
 # lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
 _TRUNC_STD = 0.87962566103423978
@@ -931,15 +939,20 @@ class Transformer(nn.Module):
     Parameters are created EMPTY on `device` (the card unless the caller
     asks for another; without CUDA the default raises) in
     `param_dtype(cfg)`, as rank `group.rank`'s shard under a serving
-    group of tp > 1 (the module docstring); fill
+    group of tp > 1, or as this rank's slices under `fsdp` (the module
+    docstring); fill
     them with `init_random_` (seeded, one tensor at a time — an 8B model
     is never built in fp32 on the host) or `load_state_dict` (e.g. from
     models/convert.params_from_jax)."""
 
-    def __init__(self, cfg: ModelConfig, device='cuda', group=None) -> None:
+    def __init__(self, cfg: ModelConfig, device='cuda', group=None,
+                 fsdp=None) -> None:
         super().__init__()
         tp = _tp(group)
         check_supported(cfg, tp)
+        if fsdp is not None and (cfg.decode or tp > 1):
+            raise ValueError('fsdp shards a training model of one tensor-'
+                             'parallel rank')
         if torch.device(device).type == 'cuda' and \
                 not torch.cuda.is_available():
             raise RuntimeError(
@@ -951,18 +964,21 @@ class Transformer(nn.Module):
         self.group = group if tp > 1 else None
         self.kv_heads = cfg.num_kv_heads // tp
         self.vocab = cfg.vocab_size // tp
-        self.embed = _new_param(cfg, (self.vocab, cfg.d_model), device)
+        # Under fsdp the whole parameters are only shapes; each rank's
+        # slices are made below.
+        pdev = 'meta' if fsdp is not None else device
+        self.embed = _new_param(cfg, (self.vocab, cfg.d_model), pdev)
         self.pos_embed = (_new_param(cfg, (cfg.max_seq_len, cfg.d_model),
-                                     device)
+                                     pdev)
                           if cfg.pos_embedding == 'learned' else None)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, self.group)
+            DecoderLayer(cfg, pdev, self.group)
             for _ in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg, device)
+        self.final_norm = RMSNorm(cfg, pdev)
         if not cfg.tie_embeddings:
             _new_projection(self, cfg, 'lm_head',
                             (cfg.d_model, self.vocab), cfg.lm_head_bias,
-                            device)
+                            pdev)
         rot = rotary_dim(cfg)
         self.register_buffer(
             'rope_freqs', rope_freqs(rot, cfg.rope_theta, cfg.rope_scaling,
@@ -978,6 +994,8 @@ class Transformer(nn.Module):
             cfg.unpadded_vocab_size
             if 0 < cfg.unpadded_vocab_size < cfg.vocab_size else None,
             persistent=False)
+        self.fsdp = (FullyShard(self, fsdp, device) if fsdp is not None
+                     else None)
 
     @torch.no_grad()
     def init_random_(self, seed: int) -> 'Transformer':
@@ -995,11 +1013,17 @@ class Transformer(nn.Module):
         the same seed). Float weights only: int8 weights are made from
         float ones (models/quantize.py). A rank of a serving group draws
         each whole parameter in turn (the same numbers as one device) and
-        keeps its shard, so no rank ever holds the whole model."""
+        keeps its shard, so no rank ever holds the whole model; a rank of
+        an fsdp group does the same with its slices (the LoRA adapters
+        too)."""
         cfg = self.cfg
         if cfg.weight_quant == 'int8':
             raise ValueError('init_random_ draws float weights; quantize '
                              'them with models/quantize.quantize_state')
+        if self.fsdp is not None:
+            self.fsdp.load_full(random_params(cfg, seed, self.embed.device,
+                                              adapters=True))
+            return self
         if self.group is not None:
             params = dict(self.named_parameters())
             for name, value in random_params(cfg, seed, self.embed.device):
@@ -1091,17 +1115,11 @@ class Transformer(nn.Module):
         single position `logits_at` (an int, or a 0-d int device
         tensor)."""
         cfg = self.cfg
-        x = self._embed(tokens)
-        if self.embed_scale is not None:
-            x = x * self.embed_scale
         if positions is None:
             positions = _default_positions(tokens)
-        if self.pos_embed is not None:
-            # Pad and inert rows may sit past the table: clamp (their
-            # outputs are never read).
-            x = x + nn.functional.embedding(
-                positions.long().clamp(0, cfg.max_seq_len - 1),
-                self.pos_embed).to(self.dtype)
+        if self.fsdp is not None:
+            return self._forward_fsdp(tokens, positions)
+        x = self._embed_in(tokens, positions)
         if cfg.decode:
             if (k_scale is not None) != (cfg.kv_cache_quant == 'int8'):
                 raise ValueError('int8 KV takes k_scale/v_scale pools, and '
@@ -1133,6 +1151,45 @@ class Transformer(nn.Module):
         elif logits_at is not None:
             x = x[:, logits_at]
         return self._head(self.final_norm(x))
+
+    def _forward_fsdp(self, tokens: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """The training forward of an fsdp rank (parallel/fsdp.py): the
+        embedding, each layer and the head, each with its unit's whole
+        weights gathered just before it runs; a layer under remat
+        gathers them again in its recompute."""
+        cfg, fsdp = self.cfg, self.fsdp
+        with fsdp.running('embed', save_handles=False):
+            x = self._embed_in(tokens, positions)
+        step = FullStep(*(rope_cos_sin(positions, self.rope_freqs)
+                          if self.rope_freqs is not None else (None, None)))
+        remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = _remat_context(cfg.remat_policy) if remat else None
+        for i, layer in enumerate(self.layers):
+            run = fsdp.layer(i, layer, save_handles=not remat)
+            if remat:
+                x = checkpoint_lib.checkpoint(run, x, step,
+                                              use_reentrant=False,
+                                              context_fn=context_fn)
+            else:
+                x = run(x, step)
+        with fsdp.running('head', save_handles=False):
+            return self._head(self.final_norm(x))
+
+    def _embed_in(self, tokens: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+        """The decoder's input: the token embedding (Gemma's scale) plus
+        the learned position table at each row's positions."""
+        x = self._embed(tokens)
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
+        if self.pos_embed is not None:
+            # Pad and inert rows may sit past the table: clamp (their
+            # outputs are never read).
+            x = x + nn.functional.embedding(
+                positions.long().clamp(0, self.cfg.max_seq_len - 1),
+                self.pos_embed).to(self.dtype)
+        return x
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The token embedding in the compute dtype; under tp each rank
@@ -1187,13 +1244,15 @@ def _init_param(cfg: ModelConfig, name: str, param: torch.Tensor,
                            _TRUNC_STD, gen)
 
 
-def random_params(cfg: ModelConfig, seed: int, device):
+def random_params(cfg: ModelConfig, seed: int, device,
+                  adapters: bool = False):
     """The float base parameters `init_random_` draws for one device from
     `seed`, whole and one at a time, in the model's parameter order:
     (name, tensor) pairs on `device`, each made when the next is asked
     for, so a caller that keeps only a shard (or a quantized copy) never
-    holds the whole model. The base only: LoRA training's adapters are
-    drawn after it (init_random_), and no caller here trains."""
+    holds the whole model. Then, with `adapters`, LoRA training's
+    adapters, drawn after the base from the same generator as
+    init_random_ draws them."""
     gen = torch.Generator(device=device).manual_seed(seed)
     # The shapes of the float base (adapter stacks are no parameters).
     whole = Transformer(dataclasses.replace(
@@ -1203,6 +1262,16 @@ def random_params(cfg: ModelConfig, seed: int, device):
         value = torch.empty(meta.shape, dtype=meta.dtype, device=device)
         _init_param(cfg, name, value, gen)
         yield name, value
+    if not (adapters and lora_training(cfg)):
+        return
+    for name, meta in Transformer(cfg, device='meta').named_parameters():
+        if name.endswith(('_lora_a', '_lora_b')):
+            value = torch.empty(meta.shape, dtype=meta.dtype, device=device)
+            if name.endswith('_lora_a'):
+                value.normal_(0.0, cfg.lora_rank ** -0.5, generator=gen)
+            else:
+                value.zero_()
+            yield name, value
 
 
 def _default_positions(tokens: torch.Tensor) -> torch.Tensor:

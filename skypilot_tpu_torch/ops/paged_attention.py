@@ -99,6 +99,20 @@ def workspace_floats(batch: int, cur_len: int, num_heads: int,
     return batch * kv_heads * splits * total_rows * (head_dim + 2)
 
 
+def fused_hbm_bytes_per_step(live_blocks: int, block_size: int,
+                             kv_heads: int, head_dim: int,
+                             num_layers: int, payload_itemsize: int,
+                             kv_quant: bool) -> int:
+    """Bytes ONE decode step streams through the kernel: every live
+    block's K and V payload read once per layer, plus the fp32 scale rows
+    under int8 (the reference's formula, skypilot_tpu/ops/
+    paged_attention.py `fused_hbm_bytes_per_step`)."""
+    per_block = 2 * block_size * kv_heads * head_dim * payload_itemsize
+    if kv_quant:
+        per_block += 2 * block_size * kv_heads * 4   # fp32 scale rows
+    return live_blocks * per_block * num_layers
+
+
 def tile_live_keys(tile_positions, blocks_per_seq: int,
                    block_size: int) -> int:
     """Keys a row tile walks: whole blocks up to its largest position

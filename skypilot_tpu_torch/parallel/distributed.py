@@ -140,14 +140,15 @@ _FOLLOWER_CODE = ('import sys\n'
 
 def spawn_group(tp: int, target: str, devices: Sequence,
                 backend: str, timeout_seconds: int = 300,
-                args: Sequence = (), cls=None):
+                args: Sequence = (), cls=None, fsdp: int = 1):
     """Make this process rank 0 of a `tp`-process group and start the
     `tp - 1` followers: each runs `target` ('module:function') with its
     group (`join_group`'s `cls`) and `args` (JSON values), in this
     process's working directory, so that a relative path in `args` names
-    the same file on every rank. `devices[r]` is rank r's device. Returns
-    rank 0's group, which holds the follower processes (`close` stops
-    them)."""
+    the same file on every rank. `devices[r]` is rank r's device. A
+    training group with `fsdp` > 1 takes its extents on every rank first
+    (mesh.TrainGroup.split). Returns rank 0's group, which holds the
+    follower processes (`close` stops them)."""
     from skypilot_tpu_torch.parallel import mesh
     cls = cls or mesh.ServingGroup
     address = f'tcp://127.0.0.1:{free_port()}'
@@ -161,7 +162,7 @@ def spawn_group(tp: int, target: str, devices: Sequence,
         spec = json.dumps({'tp': tp, 'rank': rank, 'address': address,
                            'backend': backend, 'device': str(devices[rank]),
                            'target': target, 'parent': os.getpid(),
-                           'timeout': timeout_seconds,
+                           'timeout': timeout_seconds, 'fsdp': fsdp,
                            'group': cls.__name__, 'args': list(args)})
         procs.append(subprocess.Popen(
             [sys.executable, '-c', _FOLLOWER_CODE, spec], env=env,
@@ -175,6 +176,8 @@ def spawn_group(tp: int, target: str, devices: Sequence,
             proc.wait()
         raise
     group.processes = procs
+    if fsdp > 1:
+        group = group.split(tp // fsdp, fsdp)
     logger.info('%s group: %d ranks over %s (%s), followers %s', cls.axis,
                 tp, [str(d) for d in devices], backend,
                 [p.pid for p in procs])
@@ -203,6 +206,8 @@ def follower_main(spec_json: str) -> int:
     group = join_group(spec['tp'], spec['rank'], spec['address'],
                        spec['backend'], spec['device'], spec['timeout'],
                        cls=cls)
+    if spec.get('fsdp', 1) > 1:
+        group = group.split(spec['tp'] // spec['fsdp'], spec['fsdp'])
     module, _, name = spec['target'].partition(':')
     try:
         getattr(importlib.import_module(module), name)(group,

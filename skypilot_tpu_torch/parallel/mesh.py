@@ -1,18 +1,24 @@
-"""Meshes of the port: the dp and sp part of the reference's mesh
+"""Meshes of the port: the dp, fsdp and sp part of the reference's mesh
 inference (skypilot_tpu/parallel/mesh.py `infer_mesh_config`), the
-training group that stands for its `train_mesh` (`:121`) and the serving
-group that stands for its `decode_mesh` (`:104`).
+training group that stands for its `train_mesh` (`:121`) and its
+dp x fsdp training mesh, and the serving group that stands for its
+`decode_mesh` (`:104`).
 
-Training has two parallel axes, `dp` (rows of the batch) and `sp` (the
-sequence ring); no remainder may go elsewhere: the reference sends it to
-`fsdp`, which the port does not have (FSDP_NEXT).
+Training has three parallel axes, in the reference's order: `dp` (rows
+of the batch, outer), `fsdp` (rows of the batch too, and every weight's
+`embed` dimension: parallel/sharding.py) and `sp` (the sequence ring).
+As in the reference, every device no other axis claims goes to fsdp.
 
 Both kinds of run are a `Group` of processes, one rank each, over
-torch.distributed, whose `all_reduce` and `all_gather` count calls, bytes
-and seconds per kind. A data-parallel run is a `TrainGroup` of `dp`
-ranks. Training ranks are symmetric: every rank runs the same step loop
-on its own rows of the same global batch (the port's step-collectives
-probe reads the counts).
+torch.distributed, whose `all_reduce`, `all_gather` and `reduce_scatter`
+count calls, bytes and seconds per kind. A training run is a
+`TrainGroup` of dp x fsdp ranks, dp outer and fsdp inner as the
+reference's grid reshape lays out its devices: rank d·fsdp + f is at dp
+index d and fsdp index f; its `column` is the fsdp group of its dp index
+(the ranks that share its weights' slices) and its `row` the dp group of
+its fsdp index. Training ranks are symmetric: every rank runs the same
+step loop on its own rows of the same global batch (the port's
+step-collectives probe reads the counts).
 
 Serving shards on `tp`. Where the reference builds a pure-tp mesh over
 the first `tp` local devices and lets XLA insert the collectives, the
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import subprocess
 import time
 from typing import Any, ClassVar, Dict, List, Optional, Sequence
@@ -36,40 +43,48 @@ import torch
 logger = logging.getLogger(__name__)
 
 
-# Where ROADMAP.md has the reference's default remainder axis.
-FSDP_NEXT = ('ROADMAP.md §1 item 6: fsdp, the reference\'s default '
-             'remainder axis')
+# The reference's axis order (skypilot_tpu/parallel/mesh.py AXES) over
+# the axes the port trains on.
+AXES = ('dp', 'fsdp', 'sp')
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Axis sizes: the batch axis `dp` (outer) and the sequence axis."""
+    """Axis sizes, outer to inner: the batch axis `dp`, the
+    weight-sharding batch axis `fsdp` and the sequence axis `sp`."""
     dp: int = 1
+    fsdp: int = 1
     sp: int = 1
 
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.fsdp * self.sp
+
     def __str__(self) -> str:
-        used = [f'{a}={s}' for a, s in (('dp', self.dp), ('sp', self.sp))
-                if s > 1]
+        used = [f'{a}={getattr(self, a)}' for a in AXES
+                if getattr(self, a) > 1]
         return 'MeshConfig(' + (', '.join(used) or '1 device') + ')'
 
 
 def infer_mesh_config(n_devices: int, *, dp: Optional[int] = None,
-                      sp: Optional[int] = None) -> MeshConfig:
-    """The mesh over `n_devices` with the given dp and sp. The reference
-    sends the remainder to fsdp; the port has no fsdp axis, so the
-    remainder must be 1. Raises with the reference's messages."""
-    fixed = {'sp': sp, **({'dp': dp} if dp is not None else {})}
-    known = (dp or 1) * (sp or 1)
-    if known < 1 or (dp or 1) < 1:
-        raise ValueError(f'axis sizes must be positive, got {fixed}')
-    if n_devices % known:
-        raise ValueError(f'axes {fixed} do not divide {n_devices}')
-    if known != n_devices:
+                      sp: Optional[int] = None,
+                      fsdp: Optional[int] = None) -> MeshConfig:
+    """Fill the axes to use all `n_devices`: the reference's function
+    (skypilot_tpu/parallel/mesh.py:78-102) over the port's axes. Fixed
+    axes are honored and the remainder goes to fsdp; its sizes and
+    messages are the reference's (tp, pp and ep are always unset)."""
+    fixed = {'tp': None, 'pp': None, 'sp': sp, 'ep': None, 'dp': dp}
+    known = math.prod(v for v in fixed.values() if v)
+    if fsdp is None:
+        if n_devices % known:
+            raise ValueError(f'axes {fixed} do not divide {n_devices}')
+        fsdp = n_devices // known
+    total = known * fsdp
+    if total != n_devices:
         raise ValueError(
-            f'axis product {known} != device count {n_devices} ({fixed}, '
-            f'fsdp={n_devices // known}); the port has no fsdp axis '
-            f'({FSDP_NEXT})')
-    return MeshConfig(dp=dp or 1, sp=sp or 1)
+            f'axis product {total} != device count {n_devices} '
+            f'({fixed}, fsdp={fsdp})')
+    return MeshConfig(dp=dp or 1, fsdp=fsdp, sp=sp or 1)
 
 
 # What a spawned follower runs: the engines' follower loop.
@@ -101,7 +116,9 @@ class Group:
     distributed.spawn_group started, `processes` are the other ranks.
 
     `calls`, `bytes` and `seconds` count every device collective made
-    through `all_reduce` and `all_gather` by kind (STEP_COLLECTIVES); the
+    through `all_reduce`, `all_gather` and `reduce_scatter` by kind
+    (STEP_COLLECTIVES; a training group's row and column count into
+    their group's); the
     host agreement (`any`), barriers and gathers on `control` are not
     counted. A group of one has no process group and makes no collective.
 
@@ -173,6 +190,31 @@ class Group:
                   lambda: dist.all_gather(list(out.unbind(0)), raw,
                                           group=self.group))
         return out.view(x.dtype).reshape((self.size,) + tuple(x.shape))
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """(n,): this rank's row of `x` ((size, n)) summed over the group.
+        Over gloo a card's rows go through the host on purpose (gloo
+        reduces host tensors): one copy out, the reduction, one copy of
+        the rank's row back; any other backend reduces in place."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        out = x.new_empty(x.shape[1:])
+        host = self.backend == 'gloo' and x.device.type == 'cuda'
+
+        # torch 2.13 renamed the collective (the old name warns there).
+        scatter = getattr(dist, 'reduce_scatter_single', None) or \
+            dist.reduce_scatter_tensor
+
+        def run():
+            if host:
+                mine = torch.empty(out.shape, dtype=x.dtype)
+                scatter(mine, x.cpu().reshape(-1), group=self.group)
+                out.copy_(mine)
+            else:
+                scatter(out, x.reshape(-1), group=self.group)
+
+        self._run('reduce_scatter', x.numel() * x.element_size(), run)
+        return out
 
     def counts(self) -> Dict[str, float]:
         """A copy of the collective calls so far, by kind."""
@@ -246,39 +288,83 @@ class Group:
 
 @dataclasses.dataclass
 class TrainGroup(Group):
-    """One rank of a data-parallel training group of `dp` ranks. Training
-    ranks are symmetric: every rank runs the same step loop on its own
-    rows of the same global batch, and every collective of a step goes
-    through the group's counted `all_reduce` and `all_gather` (the port's
-    step-collectives probe reads the counts)."""
+    """One rank of a training group of dp x fsdp ranks (module
+    docstring): dp outer, fsdp inner. Training ranks are symmetric: every
+    rank runs the same step loop on its own rows of the same global
+    batch, and every collective of a step goes through the counted
+    collectives of the group, its `row` (the dp group of this rank's fsdp
+    index) or its `column` (the fsdp group of its dp index), which count
+    into the group's `calls`, `bytes` and `seconds` (the port's
+    step-collectives probe reads the counts). With fsdp 1 it is a
+    data-parallel group of `dp` ranks (no row or column: the group's own
+    collectives run the step)."""
+    fsdp: int = 1
+    row: Optional[Group] = None
+    column: Optional[Group] = None
 
     @property
     def dp(self) -> int:
-        return self.size
+        return self.size // self.fsdp
 
-    def split(self, dp: int) -> Optional['TrainGroup']:
-        """The group's first `dp` ranks as a group of their own (this
-        group when dp is its extent; None on the ranks left out). Every
-        rank calls it at the same point. It is how one set of processes
-        runs incarnations at smaller extents (elastic.ElasticTrainLoop),
-        as the reference's elastic loop builds a mesh over the first dp
-        devices of one process."""
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.fsdp
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.rank % self.fsdp
+
+    def split(self, dp: int, fsdp: int = 1) -> Optional['TrainGroup']:
+        """The group's first dp x fsdp ranks as a group of their own with
+        those extents (this group when they are its own; None on the
+        ranks left out), its rows and columns made. Every rank calls it
+        at the same point. It is how one set of processes runs
+        incarnations at smaller extents (elastic.ElasticTrainLoop), as
+        the reference's elastic loop builds a mesh over the first dp
+        devices of one process, and how a world takes its fsdp extent."""
         self._usable()
-        if dp == self.dp:
+        size = dp * fsdp
+        if (dp, fsdp) == (self.dp, self.fsdp):
             return self
-        if not 1 <= dp <= self.dp:
-            raise ValueError(f'train_mesh: dp={dp} needs 1..{self.dp} ranks')
-        if dp == 1:
+        if dp < 1 or fsdp < 1 or size > self.size:
+            raise ValueError(f'train_mesh: dp={dp}'
+                             f'{f" x fsdp={fsdp}" if fsdp > 1 else ""} '
+                             f'needs 1..{self.size} ranks')
+        if size == 1:
             return (TrainGroup(1, 0, self.device) if self.rank == 0
                     else None)
         import torch.distributed as dist
-        ranks = list(range(dp))
-        group = dist.new_group(ranks, backend=self.backend)
-        control = dist.new_group(ranks, backend='gloo')
-        if self.rank >= dp:
-            return None
-        return TrainGroup(dp, self.rank, self.device, backend=self.backend,
-                          group=group, control=control, inner=True)
+        if size == self.size:
+            # The same ranks: this group's process groups and processes.
+            group, control = self.group, self.control
+            kept = dict(inner=self.inner, spawned=self.spawned,
+                        processes=self.processes)
+        else:
+            ranks = list(range(size))
+            group = dist.new_group(ranks, backend=self.backend)
+            control = dist.new_group(ranks, backend='gloo')
+            kept = dict(inner=True)
+        sub = (TrainGroup(size, self.rank, self.device, backend=self.backend,
+                          group=group, control=control, fsdp=fsdp, **kept)
+               if self.rank < size else None)
+        # Every process makes every row's and column's process group
+        # (dist.new_group is collective over the whole job).
+        rows = [list(range(f, size, fsdp)) for f in range(fsdp)]
+        columns = [list(range(d * fsdp, (d + 1) * fsdp)) for d in range(dp)]
+        made = {}
+        for axis, sets in (('row', rows), ('column', columns)):
+            for ranks in sets:
+                pg = (group if len(ranks) == size else
+                      dist.new_group(ranks, backend=self.backend)
+                      if len(ranks) > 1 else None)
+                if sub is not None and self.rank in ranks:
+                    made[axis] = Group(
+                        len(ranks), ranks.index(self.rank), self.device,
+                        backend=self.backend, group=pg, calls=sub.calls,
+                        bytes=sub.bytes, seconds=sub.seconds, inner=True)
+        if sub is not None:
+            sub.row, sub.column = made['row'], made['column']
+        return sub
 
 
 @dataclasses.dataclass
@@ -382,21 +468,22 @@ def _rank_devices(what: str, axis: str, size: int,
                   devices: Optional[Sequence], backend: Optional[str],
                   device) -> tuple:
     """(each rank's device, backend) for a group of `size` ranks started
-    from this process, with the reference's refusals."""
+    from this process, with the reference's refusals (`axis` names the
+    extents)."""
     from skypilot_tpu_torch.parallel import distributed
     kind = torch.device(device).type
     if devices is None:
         if kind == 'cuda':
             count = torch.cuda.device_count()
             if size > count:
-                raise ValueError(f'{what}: {axis}={size} needs 1..{count} '
+                raise ValueError(f'{what}: {axis} needs 1..{count} '
                                  f'local devices')
             devices = [torch.device('cuda', i) for i in range(size)]
         else:
             devices = [torch.device(device)] * size
     devices = [torch.device(d) for d in devices]
     if len(devices) != size:
-        raise ValueError(f'{what}: {axis}={size} but {len(devices)} devices '
+        raise ValueError(f'{what}: {axis} but {len(devices)} devices '
                          f'named')
     backend = backend or distributed.default_backend(kind)
     cards = [d for d in devices if d.type == 'cuda']
@@ -410,11 +497,12 @@ def _rank_devices(what: str, axis: str, size: int,
 
 def _join_job(what: str, axis: str, size: int, backend: Optional[str],
               device, timeout_seconds: int, cls: type):
-    """Under torchrun: join the job's group as this process's RANK."""
+    """Under torchrun: join the job's group as this process's RANK
+    (`axis` names the extents for the refusal)."""
     from skypilot_tpu_torch.parallel import distributed
     topology = distributed.topology_from_env()
     if topology.world_size != size:
-        raise ValueError(f'{what}: {axis}={size} but the job has '
+        raise ValueError(f'{what}: {axis} but the job has '
                          f'WORLD_SIZE={topology.world_size}')
     device_type = torch.device(device).type
     dev = (torch.device('cuda', topology.local_rank)
@@ -445,10 +533,10 @@ def decode_group(tp: int, devices: Optional[Sequence] = None,
     if tp < 1:
         raise ValueError(f'decode_mesh: tp={tp} needs 1..N local devices')
     if distributed.topology_from_env().multiprocess:
-        return _join_job('decode_mesh', 'tp', tp, backend, device,
+        return _join_job('decode_mesh', f'tp={tp}', tp, backend, device,
                          timeout_seconds, ServingGroup)
-    devices, backend = _rank_devices('decode_mesh', 'tp', tp, devices,
-                                     backend, device)
+    devices, backend = _rank_devices('decode_mesh', f'tp={tp}', tp,
+                                     devices, backend, device)
     if tp == 1:
         return ServingGroup(1, 0, devices[0])
     return distributed.spawn_group(tp, SERVE_TARGET, devices, backend,
@@ -457,33 +545,42 @@ def decode_group(tp: int, devices: Optional[Sequence] = None,
 
 def train_group(dp: int, devices: Optional[Sequence] = None,
                 backend: Optional[str] = None, device='cuda', *,
-                target: Optional[str] = None, args: Sequence = (),
-                timeout_seconds: int = 300) -> TrainGroup:
-    """The data-parallel training group over `dp` ranks: the counterpart
-    of the reference's `train_mesh(dp, devices)`. dp=1 is a group of one
-    (no process group, no collective). Otherwise:
+                fsdp: int = 1, target: Optional[str] = None,
+                args: Sequence = (), timeout_seconds: int = 300
+                ) -> TrainGroup:
+    """The training group over dp x fsdp ranks: the counterpart of the
+    reference's `train_mesh(dp, devices)` (fsdp 1) and of its training
+    mesh from `infer_mesh_config`. One rank is a group of one (no
+    process group, no collective). Otherwise:
     - under torchrun (WORLD_SIZE set) this process joins as its RANK, on
-      cuda:LOCAL_RANK (or the CPU), and the job's topology must be `dp`;
-    - else this process becomes rank 0 and starts `dp - 1` other ranks
+      cuda:LOCAL_RANK (or the CPU), and the job's topology must be
+      dp x fsdp;
+    - else this process becomes rank 0 and starts the other ranks
       (distributed.spawn_group), each of which calls `target`
       ('module:function') with its TrainGroup and `args` (JSON values):
       the same step loop this process runs next. `close()` on rank 0
       waits for them.
-    `devices` and `backend` as `decode_group`'s: one card named more than
-    once runs over gloo only."""
+    Every rank then takes its extents (`TrainGroup.split`). `devices`
+    and `backend` as `decode_group`'s: one card named more than once runs
+    over gloo only."""
     from skypilot_tpu_torch.parallel import distributed
-    if dp < 1:
-        raise ValueError(f'train_mesh: dp={dp} needs 1..N local devices')
+    if dp < 1 or fsdp < 1:
+        raise ValueError(f'train_mesh: dp={dp}'
+                         f'{f" x fsdp={fsdp}" if fsdp != 1 else ""} '
+                         f'needs 1..N local devices')
+    size = dp * fsdp
+    axis = f'dp={dp}' + (f' x fsdp={fsdp}' if fsdp > 1 else '')
     if distributed.topology_from_env().multiprocess:
-        return _join_job('train_mesh', 'dp', dp, backend, device,
-                         timeout_seconds, TrainGroup)
-    devices, backend = _rank_devices('train_mesh', 'dp', dp, devices,
+        world = _join_job('train_mesh', axis, size, backend, device,
+                          timeout_seconds, TrainGroup)
+        return world.split(dp, fsdp)
+    devices, backend = _rank_devices('train_mesh', axis, size, devices,
                                      backend, device)
-    if dp == 1:
+    if size == 1:
         return TrainGroup(1, 0, devices[0])
     if target is None:
         raise ValueError('train_mesh: a group started from one process '
                          'needs the target its other ranks run')
-    return distributed.spawn_group(dp, target, devices, backend,
+    return distributed.spawn_group(size, target, devices, backend,
                                    timeout_seconds, args=list(args),
-                                   cls=TrainGroup)
+                                   cls=TrainGroup, fsdp=fsdp)

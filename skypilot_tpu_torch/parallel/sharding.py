@@ -1,6 +1,7 @@
 """Sharding rules of the port: the ambient sequence-parallel context, the
-tensor-parallel rules over the model's parameters and ZeRO-1's split of
-the optimizer state over `dp`.
+tensor-parallel rules over the model's parameters, the fsdp rules (which
+dimension of each parameter fsdp cuts) and ZeRO-1's split of the
+optimizer state over `dp`.
 
 The ambient sequence-parallel context is the port's stand-in for the
 reference's `use_mesh` (skypilot_tpu/parallel/sharding.py) on the `sp`
@@ -107,8 +108,8 @@ def current_sequence_parallel() -> Optional[SequenceParallel]:
 
 # What tensor-parallel serving refuses (training), and where ROADMAP.md
 # has it.
-TP_TRAINING_NEXT = ('ROADMAP.md §1 item 6: the rest of training '
-                    '(ZeRO-1, elastic, pipeline)')
+TP_TRAINING_NEXT = 'ROADMAP.md §1 item 6c: --tp training'
+
 
 TP_AXIS_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
     ('heads', 'tp'),
@@ -258,16 +259,116 @@ def shard_params(params, cfg, tp: int,
             for name, value in items}
 
 
+# ---------------- fsdp ----------------
+#
+# The reference's rule ('embed', 'fsdp') (skypilot_tpu/parallel/
+# sharding.py:26) shards every weight on its logical `embed` dimension;
+# every other logical axis stays whole under fsdp. The port names its
+# parameters itself, so the rule is a table over those names: the
+# dimension of each leaf (a layer's `layers.{i}.` prefix dropped) that
+# carries `embed`, None where no dimension does (the leaf is whole on
+# every rank), following the reference's declarations:
+# - q/k/v ('embed', 'heads'|'kv_heads', 'qkv_dim') (transformer.py
+#   :528-534): the fused qkv_proj's input rows, which are contiguous (no
+#   segment rule: its fused axis is its output); its bias (heads, ...)
+#   is whole;
+# - o_proj ('heads', 'qkv_dim', 'embed') (:573): its columns, and its
+#   bias ('embed',);
+# - gate/up ('embed', 'mlp') and down ('mlp', 'embed') (:871-881): the
+#   fused gate_up_proj's input rows and down_proj's columns; the up
+#   biases (mlp) whole, the down bias ('embed',);
+# - embed ('vocab', 'embed') (:958-961) and the learned position table
+#   (None, 'embed') (:975-977): their columns;
+# - lm_head ('embed', 'vocab') (:1023): its rows; its bias (vocab) whole;
+# - every norm's scale and bias ('embed',) (:371, :385-386);
+# - the MoE router ('embed', 'expert') and the experts ('expert',
+#   'embed', 'mlp') / ('expert', 'mlp', 'embed') (moe.py:44-60);
+# - a LoRA adapter (transformer.py:138-147): A carries its projection's
+#   input axes, B its output axes, so A is cut where the projection's
+#   input is embed (q, k, v, gate, up) and B where its output is (o,
+#   down).
+FSDP_EMBED_DIM: Dict[str, Optional[int]] = {
+    'embed': 1,
+    'pos_embed': 1,
+    'lm_head': 0,
+    'lm_head_bias': None,
+    'final_norm.weight': 0,
+    'final_norm.bias': 0,
+    'attn_norm.weight': 0,
+    'attn_norm.bias': 0,
+    'mlp_norm.weight': 0,
+    'mlp_norm.bias': 0,
+    'attn.qkv_proj': 0,
+    'attn.qkv_proj_bias': None,
+    'attn.o_proj': 1,
+    'attn.o_proj_bias': 0,
+    'mlp.gate_up_proj': 0,
+    'mlp.gate_up_proj_bias': None,
+    'mlp.up_proj': 0,
+    'mlp.up_proj_bias': None,
+    'mlp.down_proj': 1,
+    'mlp.down_proj_bias': 0,
+    'moe.router': 0,
+    'moe.w_gate': 1,
+    'moe.w_up': 1,
+    'moe.w_down': 2,
+}
+
+
+def fsdp_dim(name: str) -> Optional[int]:
+    """The dimension of parameter `name` of the port's Transformer that
+    fsdp cuts (the one carrying the reference's `embed` axis), or None
+    when the leaf stays whole. Unknown names raise KeyError: a new
+    parameter needs its rule."""
+    key = name.split('.', 2)[2] if name.startswith('layers.') else name
+    for end, side in (('_lora_a', 0), ('_lora_b', 1)):
+        if key.endswith(end):
+            proj = key[:-len(end)].rsplit('.', 1)[-1]
+            return side if TP_PROJECTION_AXES[proj][side] == 'embed' \
+                else None
+    return FSDP_EMBED_DIM[key]
+
+
+def fsdp_shard(name: str, value: torch.Tensor, fsdp: int,
+               rank: int) -> torch.Tensor:
+    """Rank `rank`'s 1/fsdp slice of the full parameter `name` along
+    `fsdp_dim` (a view; `value` itself when the leaf stays whole). A
+    dimension fsdp does not divide is refused, as the reference's layout
+    check refuses it, not replicated."""
+    dim = fsdp_dim(name)
+    if dim is None or fsdp == 1:
+        return value
+    size = value.shape[dim]
+    if size % fsdp:
+        raise ValueError(
+            f'{name} {tuple(value.shape)}: the global size of its '
+            f'dimension {dim} (embed) should be divisible by fsdp={fsdp}, '
+            f'but it is equal to {size}')
+    part = size // fsdp
+    return value.narrow(dim, rank * part, part)
+
+
+def fsdp_shape(name: str, shape: Sequence[int], fsdp: int) -> tuple:
+    """The shape of one rank's slice of parameter `name` (full `shape`),
+    with fsdp_shard's refusal."""
+    return tuple(fsdp_shard(name, torch.empty(shape, device='meta'), fsdp,
+                            0).shape)
+
+
 # ---------------- ZeRO-1 ----------------
 
 
 def zero_update_dim(shape: Sequence[int], dp: int) -> Optional[int]:
     """The dimension along which a rank holds 1/dp of a leaf's optimizer
     state under ZeRO-1: the counterpart of the reference's
-    `zero_update_shardings` (skypilot_tpu/parallel/sharding.py:156-213)
-    on a pure-dp mesh, where no other axis shards the leaf: the first
-    dimension that dp divides. None (the leaf's state stays whole on
-    every rank) for a scalar, a leaf no dimension fits, or dp = 1."""
+    `zero_update_shardings` (skypilot_tpu/parallel/sharding.py:156-213):
+    the first dimension that dp divides. None (the leaf's state stays
+    whole on every rank) for a scalar, a leaf no dimension fits, or dp =
+    1. Under fsdp `shape` is the rank's fsdp slice: the reference adds dp
+    to the first dimension whose size stays divisible by the extent of
+    the axes already on it times dp, which on the slice is the first
+    that dp divides, and its part d of the fsdp-cut dimension is then
+    part d of this rank's slice."""
     if dp <= 1:
         return None
     return next((i for i, size in enumerate(shape) if size % dp == 0), None)

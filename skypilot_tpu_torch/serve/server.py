@@ -423,7 +423,9 @@ class InferenceServer:
             info = self.engine.adapters_info()
             payload['adapters'] = {'capacity': info['capacity'],
                                    'resident': info['resident']}
-        if self.engine.tiers_active:
+        if hasattr(self.engine, 'tier_load'):
+            # On every ready probe, as the reference sends it: the
+            # replica manager reads it into its replica info.
             payload['tier_load'] = self.engine.tier_load()
         if self.last_prewarm is not None:
             payload['prewarm'] = self.last_prewarm

@@ -32,6 +32,18 @@ ZeRO-1 save at dp=4 restores onto dp=4, dp=2 or an unsharded state (each
 rank reads the slice files through mmap and keeps its own slice of one
 leaf at a time), and an unsharded save onto a ZeRO-1 state. A truncated
 or missing file raises before anything of the state changes.
+
+A state of an fsdp group (dp x fsdp ranks) saves its slices: the ranks of
+dp index 0 (one per fsdp index f) write `shard-<f>-of-<fsdp>.pt` (the
+trained slices and, without ZeRO-1, their moments) and
+`frozen-<f>-of-<fsdp>.pt` (the frozen slices, hard-linked as frozen.pt
+is); under ZeRO-1 every rank r writes its moment slices to
+`moments-<r>-of-<dp x fsdp>.pt`; state.pt holds the count, the step and
+the layout (extents, each leaf's fsdp dimension and ZeRO-1 dimension).
+Any save restores onto any template: a plain, ZeRO-1 or fsdp save onto
+a state of one rank, of a dp group (ZeRO-1 or not) or of an fsdp group
+at any extents. The saved slices are assembled into whole leaves one
+leaf at a time from the files' mmap, and each rank keeps its own cut.
 `restore_latest_valid` walks back past such a step (counted in
 skytpu_train_checkpoint_restore_fallbacks_total), and
 `save_within_deadline` is the preemption notice's bounded save
@@ -75,6 +87,100 @@ def moments_file(rank: int, dp: int) -> str:
     return f'moments-{rank}-of-{dp}.pt'
 
 
+def shard_file(index: int, fsdp: int, frozen: bool = False) -> str:
+    """The name of fsdp index `index`'s slices (trained, or frozen) in a
+    step directory."""
+    return f'{"frozen" if frozen else "shard"}-{index}-of-{fsdp}.pt'
+
+
+class _Saved:
+    """A published step's whole leaves, read one at a time: `param(name)`
+    and `moments(name)` (the leaf's AdamW state, None before the first
+    update), from any layout the manager writes. Every file is opened
+    (mmap) at construction, so a torn step raises here."""
+
+    def __init__(self, directory: str, saved: dict, names) -> None:
+        self.count = int(saved['count'])
+        load = dict(mmap=True, weights_only=True, map_location='cpu')
+        self.layout = saved.get('fsdp')
+        if self.layout is not None:
+            fsdp = int(self.layout['fsdp'])
+            self.shards = [torch.load(os.path.join(directory,
+                                                   shard_file(f, fsdp)),
+                                      **load) for f in range(fsdp)]
+            frozen = [os.path.join(directory, shard_file(f, fsdp, True))
+                      for f in range(fsdp)]
+            self.frozen = ([torch.load(path, **load) for path in frozen]
+                           if os.path.exists(frozen[0]) else None)
+            ranks = fsdp * int(self.layout['dp'])
+            self.slices = ([torch.load(os.path.join(
+                directory, moments_file(r, ranks)), **load)
+                for r in range(ranks)] if self.layout['zero1'] else None)
+            return
+        self.model = dict(saved['model'])
+        frozen = os.path.join(directory, _FROZEN_FILE)
+        if os.path.exists(frozen):
+            self.model.update(torch.load(frozen, **load))
+        self.zero1 = saved.get('zero1')
+        if self.zero1 is not None:
+            dp = int(self.zero1['dp'])
+            self.slices = [torch.load(os.path.join(directory,
+                                                   moments_file(r, dp)),
+                                      **load) for r in range(dp)]
+        else:
+            # An unsharded optimizer's state is indexed by the position of
+            # its parameter among the trained ones.
+            self.opt = {names[i]: value for i, value in
+                        saved['optimizer']['state'].items()}
+
+    def names(self):
+        """Every saved parameter's name."""
+        if self.layout is not None:
+            return list(self.layout['dims'])
+        return list(self.model)
+
+    def param(self, name: str) -> torch.Tensor:
+        if self.layout is None:
+            return self.model[name]
+        files = (self.shards if name in self.shards[0]['params']
+                 else self.frozen)
+        key = 'params' if files is self.shards else None
+        parts = [f[key][name] if key else f[name] for f in files]
+        dim = self.layout['dims'][name]
+        return parts[0] if dim is None else torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def _join(parts, dim):
+        """One leaf's moments from its slices along `dim` (scalars, and
+        every moment of a leaf no dimension cut, from the first)."""
+        return {key: value if dim is None or value.dim() == 0 else
+                torch.cat([p[key] for p in parts], dim=dim)
+                for key, value in parts[0].items()}
+
+    def moments(self, name: str) -> Optional[dict]:
+        if self.layout is None:
+            if self.zero1 is None:
+                return self.opt.get(name)
+            if name not in self.slices[0]:
+                return None                  # no moments yet (count 0)
+            return self._join([p[name] for p in self.slices],
+                              self.zero1['dims'][name])
+        fsdp, dp = int(self.layout['fsdp']), int(self.layout['dp'])
+        if self.slices is None:
+            if name not in self.shards[0]['moments']:
+                return None
+            per_index = [s['moments'][name] for s in self.shards]
+        else:
+            if name not in self.slices[0]:
+                return None
+            zero = self.layout['zero_dims'][name]
+            # Rank d·fsdp + f holds part d of fsdp index f's slice.
+            per_index = [self._join([self.slices[d * fsdp + f][name]
+                                     for d in range(dp)], zero)
+                         for f in range(fsdp)]
+        return self._join(per_index, self.layout['dims'][name])
+
+
 class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3,
@@ -100,10 +206,17 @@ class CheckpointManager:
 
     def model_state(self, step: int, **load_kwargs) -> dict:
         """A published step's full model state dict (trained and frozen
-        parameters); `load_kwargs` go to torch.load (e.g. mmap=True,
-        map_location)."""
+        parameters; an fsdp save's slices assembled into whole tensors);
+        `load_kwargs` go to torch.load (e.g. mmap=True, map_location)."""
         kwargs = {'weights_only': True, **load_kwargs}
-        model = dict(torch.load(self.state_path(step), **kwargs)['model'])
+        saved = torch.load(self.state_path(step), **kwargs)
+        if 'fsdp' in saved:
+            source = _Saved(os.path.join(self.directory, str(step)), saved,
+                            ())
+            device = kwargs.get('map_location')
+            return {name: source.param(name).to(device) if device else
+                    source.param(name) for name in source.names()}
+        model = dict(saved['model'])
         frozen = os.path.join(self.directory, str(step), _FROZEN_FILE)
         if os.path.exists(frozen):
             model.update(torch.load(frozen, **kwargs))
@@ -132,7 +245,7 @@ class CheckpointManager:
                 return False
         if not (force or not steps or step % self.save_interval_steps == 0):
             return False
-        group = state.group if state.dp > 1 else None
+        group = state.ranks
         lead = group is None or group.rank == 0
         final = os.path.join(self.directory, str(step))
         # One name for every rank of a group; a process of its own else.
@@ -143,10 +256,12 @@ class CheckpointManager:
             os.makedirs(tmp)
         if group:
             group.barrier()
-        if state.zero1:
+        if state.fsdp is not None:
+            self._save_fsdp(tmp, step, state)
+        elif state.zero1:
             torch.save(state.moments(),
                        os.path.join(tmp, moments_file(group.rank, state.dp)))
-        if lead:
+        if lead and state.fsdp is None:
             full = state.state_dict()
             if state.zero1:
                 del full['optimizer']
@@ -171,7 +286,38 @@ class CheckpointManager:
             group.barrier()
         return True
 
-    def _save_frozen(self, tensors: dict, path: str, step: int) -> None:
+    def _save_fsdp(self, tmp: str, step: int, state: TrainState) -> None:
+        """An fsdp state's files (module docstring): the slices from the
+        ranks of dp index 0, ZeRO-1's moment slices from every rank, the
+        layout in state.pt from rank 0."""
+        group, fs = state.group, state.fsdp
+        if group.dp_rank == 0:
+            trained = dict(zip(state.names, state.params))
+            torch.save({'params': {n: p.detach() for n, p in
+                                   trained.items()},
+                        'moments': {} if state.zero1 else state.moments()},
+                       os.path.join(tmp, shard_file(group.fsdp_rank,
+                                                    group.fsdp)))
+            frozen = _frozen(state)
+            if frozen:
+                self._save_frozen(frozen, os.path.join(
+                    tmp, shard_file(group.fsdp_rank, group.fsdp, True)),
+                    step, shard_file(group.fsdp_rank, group.fsdp, True))
+        if state.zero1:
+            torch.save(state.moments(), os.path.join(
+                tmp, moments_file(group.rank, group.size)))
+        if group.rank == 0:
+            torch.save({'count': state.count, 'step': step, 'model': {},
+                        'fsdp': {'fsdp': group.fsdp, 'dp': group.dp,
+                                 'zero1': state.zero1,
+                                 'dims': {n: leaf.dim for n, leaf in
+                                          fs.leaves.items()},
+                                 'zero_dims': dict(zip(state.names,
+                                                       state.zero_dims))}},
+                       os.path.join(tmp, _STATE_FILE))
+
+    def _save_frozen(self, tensors: dict, path: str, step: int,
+                     name: str = _FROZEN_FILE) -> None:
         """frozen.pt at `path`: a hard link to the previous step's when it
         holds these tensors' bits, else written."""
         sums = _checksums(tensors)
@@ -179,7 +325,7 @@ class CheckpointManager:
                 and sums == self._frozen_sums):
             try:
                 os.link(os.path.join(self.directory, str(self._frozen_step),
-                                     _FROZEN_FILE), path)
+                                     name), path)
                 self._frozen_step = step
                 return
             except OSError:           # no hard links here: write it
@@ -210,7 +356,7 @@ class CheckpointManager:
                                       name='checkpoint-notice-save')
             worker.start()
             worker.join(timeout=max(0.0, deadline_s))
-            if worker.is_alive() and state.dp > 1:
+            if worker.is_alive() and state.ranks is not None:
                 state.group.broken = (f'the save of step {step} outlived '
                                       f'its {deadline_s:.1f}s deadline')
         latest = self.latest_step()
@@ -235,56 +381,40 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: int) -> TrainState:
         """Restore `step` into `state` in place, in the template's layout
-        (module docstring). Every file is read before the state
-        changes, so a torn step raises and leaves `state` as it was."""
-        device = state.params[0].device
-        saved = torch.load(self.state_path(step), map_location=device,
-                           weights_only=True)
-        frozen = os.path.join(self.directory, str(step), _FROZEN_FILE)
-        if os.path.exists(frozen):
-            saved['model'].update(torch.load(frozen, map_location=device,
-                                             weights_only=True))
-        moments = None
-        if 'zero1' in saved:
-            moments = self._read_slices(step, saved.pop('zero1'), state)
-        elif state.zero1:
-            opt = saved.pop('optimizer')['state']
-            moments = [(state.names[i], state.own_moments(state.names[i],
-                                                          opt[i]))
-                       for i in sorted(opt)]
+        (module docstring): any save onto a template of any layout, each
+        whole leaf in turn cut to this rank's layout. Every file is read
+        and every cut made before the state changes, so a torn step
+        raises and leaves `state` as it was."""
+        saved = torch.load(self.state_path(step), map_location='cpu',
+                           mmap=True, weights_only=True)
+        source = _Saved(os.path.join(self.directory, str(step)), saved,
+                        state.names)
+        fs = state.fsdp
+        params, moments = {}, []
+        for name, param in state.model.named_parameters():
+            whole = source.param(name)
+            params[name] = (fs.slice_of(name, whole) if fs is not None
+                            else whole).to(param.device).clone()
+        for name in state.names:
+            whole = source.moments(name)
+            if whole is None:
+                continue                    # no moments yet (count 0)
+            if fs is not None:
+                whole = {key: value if value.dim() == 0 else
+                         fs.slice_of(name, value)
+                         for key, value in whole.items()}
+            moments.append((name, {key: value.clone() for key, value in
+                                   state.own_moments(name, whole).items()}))
         with torch.no_grad():
-            if moments is None:
-                state.load_state_dict(saved)
-            else:
-                state.model.load_state_dict(saved['model'])
-                state.count = int(saved['count'])
-                state.load_moments(moments)
+            for name, param in state.model.named_parameters():
+                param.copy_(params[name])
+            state.count = source.count
+            state.optimizer.state.clear()
+            state.load_moments(moments)
         frozen = _frozen(state)
         if frozen:
             self._frozen_step, self._frozen_sums = step, _checksums(frozen)
         return state
-
-    def _read_slices(self, step: int, meta: dict,
-                     state: TrainState) -> list:
-        """Whole moments of a ZeRO-1 save cut to `state`'s layout, leaf
-        by leaf: (name, moments) pairs, each of this rank's slice when
-        `state` is ZeRO-1 (whole leaves are assembled one at a time from
-        the saved slices, mmap'd)."""
-        directory = os.path.join(self.directory, str(step))
-        saved_dp = int(meta['dp'])
-        parts = [torch.load(os.path.join(directory,
-                                         moments_file(r, saved_dp)),
-                            mmap=True, weights_only=True)
-                 for r in range(saved_dp)]
-        out = []
-        for name, dim in meta['dims'].items():
-            if name not in parts[0]:
-                continue                    # no moments yet (count 0)
-            whole = {key: value.clone() if dim is None or value.dim() == 0
-                     else torch.cat([p[name][key] for p in parts], dim=dim)
-                     for key, value in parts[0][name].items()}
-            out.append((name, state.own_moments(name, whole)))
-        return out
 
     def restore_latest_valid(self, state: TrainState
                              ) -> Tuple[TrainState, int]:
@@ -292,7 +422,7 @@ class CheckpointManager:
         walking back past corrupt or torn newer ones (each skip counted);
         (state untouched, 0) when none loads. Every rank of a group
         agrees on each step before moving on."""
-        group = state.group if state.dp > 1 else None
+        group = state.ranks
         steps = self.all_steps()
         for step in reversed(steps):
             error = None

@@ -94,16 +94,16 @@ def opt_state_bytes(state) -> Tuple[int, int]:
     each parameter's step counter). Per device is what this rank holds;
     global counts a ZeRO-1 slice's moments dp times (its step counter
     once), so it is what one unsharded state holds and per device reads
-    ~1/dp of it."""
+    ~1/dp of it. Under fsdp a cut leaf's moments count fsdp times too
+    (and dp times more under ZeRO-1)."""
     total = per_device = 0
-    for u, dim in zip(state.updated, state.zero_dims):
+    for u, copies in zip(state.updated, state.moment_copies):
         for value in state.optimizer.state.get(u, {}).values():
             if not hasattr(value, 'element_size'):
                 continue
             size = value.numel() * value.element_size()
             per_device += size
-            total += size * (state.dp if dim is not None and value.dim()
-                             else 1)
+            total += size * (copies if value.dim() else 1)
     return total, per_device
 
 

@@ -60,9 +60,25 @@ curve:
     python -m skypilot_tpu_torch.train.run --dp 2 --zero1 --elastic \
         --checkpoint-dir ckpt      # resumes at dp 2
 
+fsdp, the reference's default remainder axis: the mesh spans every
+card (`torch.cuda.device_count()`; under torchrun WORLD_SIZE processes)
+and every one no axis flag claims goes to fsdp, ZeRO-3 style (weights,
+gradients and AdamW moments sharded on their `embed` dimension;
+parallel/fsdp.py). So with no axis flag a job of N processes trains on
+fsdp N, `--dp d` on dp d x fsdp N/d, and a one-card machine runs one
+process as before. Without torchrun this process starts the other ranks
+itself, as --dp does. On the CPU the ranks are processes on one device:
+there the mesh spans --dp of them (one without it). LoRA trains under
+fsdp (the frozen base sharded, the adapters trained), `--init-from-hf`
+places each rank's slices and `--export-hf` writes the merged model from
+rank 0, gathering one leaf at a time:
+
+    torchrun --nproc-per-node 8 -m skypilot_tpu_torch.train.run \
+        --model llama3-1b          # fsdp 8 (on 8 cards)
+
 Not ported yet (ROADMAP.md): --pp/--microbatches/--pipeline-repeats,
---tp, --ep, fsdp (the reference's default remainder axis), --dp with
---sp, LoRA under --sp, and --sp with a MoE model.
+--tp, --ep, --dp with --sp and --sp beside fsdp, LoRA under --sp, and
+--sp with a MoE model.
 """
 from __future__ import annotations
 
@@ -218,22 +234,30 @@ def _check_args(args) -> None:
             raise SystemExit('--elastic composes with dp/ZeRO-1 only '
                              'for now: drop --pp/--microbatches/'
                              '--grad-accum/--lora-rank/--tp/--sp/--ep')
-    if args.zero1 and dp <= 1:
-        raise SystemExit(
-            f'--zero1 shards the optimizer state over the dp axis, but '
-            f'the mesh is MeshConfig(1 device) (dp=1): pass --dp N (e.g. '
-            f'--dp 2 for pure data parallelism) or drop --zero1.')
-    per_step_batch = args.batch // args.grad_accum
-    if per_step_batch % dp:
-        raise SystemExit(
-            f'per-accumulation batch {per_step_batch} '
-            f'(--batch {args.batch} / --grad-accum {args.grad_accum}) '
-            f'must be divisible by dp = {dp}')
     if args.data_dir and args.sft_data:
         raise SystemExit('--data-dir and --sft-data are mutually '
                          'exclusive')
     if args.eval_every < 1:
         raise SystemExit('--eval-every must be >= 1')
+
+
+def _check_mesh(args, mesh) -> None:
+    """The refusals that need the mesh, with the reference's messages
+    (skypilot_tpu/train/run.py:193-204, :313-321)."""
+    if args.zero1 and mesh.dp <= 1:
+        raise SystemExit(
+            f'--zero1 shards the optimizer state over the dp axis, but '
+            f'the mesh is {mesh} (dp=1): pass --dp N (e.g. --dp '
+            f'{mesh.num_devices} for pure data parallelism) or drop '
+            f'--zero1. Note fsdp already shards weights AND moments '
+            f'ZeRO-3 style; --zero1 is the dp-axis lever.')
+    per_step_batch = args.batch // args.grad_accum
+    extent = mesh.dp * mesh.fsdp
+    if per_step_batch % extent:
+        raise SystemExit(
+            f'per-accumulation batch {per_step_batch} '
+            f'(--batch {args.batch} / --grad-accum {args.grad_accum}) '
+            f'must be divisible by dp*fsdp = {extent}')
 
 
 def _lora_sidecar(checkpoint_dir: str, cfg, coordinator: bool) -> None:
@@ -270,7 +294,8 @@ def main(argv=None, history: Optional[List[dict]] = None,
     the step's collectives under --probe-hlo) and `result` the final
     TrainState under 'state', so an in-process caller can check the run.
     `group`: this process's parallel/mesh.TrainGroup when the caller
-    made it (every rank then calls main with the same argv); else --dp
+    made it (every rank then calls main with the same argv; the group
+    brings its dp and fsdp extents); else the mesh (module docstring)
     makes one."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
@@ -292,32 +317,40 @@ def main(argv=None, history: Optional[List[dict]] = None,
     made = None                     # 'spawned' / 'joined' by this call
     sp_group = None
     if group is not None:
-        if group.dp != (args.dp or 1):
-            raise SystemExit(f'a group of {group.dp} ranks runs --dp '
+        if group.dp != (args.dp or group.dp):
+            raise SystemExit(f'a group of {group.dp} dp ranks runs --dp '
                              f'{group.dp}, not --dp {args.dp}')
-        mesh = MeshConfig(dp=group.dp)
+        mesh = MeshConfig(dp=group.dp, fsdp=group.fsdp)
+        _check_mesh(args, mesh)
     elif topology.multiprocess:
-        try:
-            mesh = infer_mesh_config(topology.world_size, dp=args.dp,
-                                     sp=args.sp)
-        except ValueError as e:
-            raise SystemExit(f'{topology.world_size} processes need --sp '
-                             f'{topology.world_size} or --dp '
-                             f'{topology.world_size}: {e}') from e
+        mesh = _job_mesh(args, topology.world_size)
         import torch.distributed as dist
         made = 'joined' if not dist.is_initialized() else None
-        if mesh.dp > 1:
-            group = train_group(mesh.dp, device=args.device)
+        if mesh.sp == 1:
+            group = train_group(mesh.dp, fsdp=mesh.fsdp, device=args.device)
         else:
             distributed.initialize(topology, device=args.device)
             sp_group = dist.group.WORLD
-    elif (args.dp or 1) > 1:
-        mesh = MeshConfig(dp=args.dp)
-        group = train_group(args.dp, device=args.device,
-                            target=FOLLOW_TARGET, args=[argv])
-        made = 'spawned'
+    elif args.sp:
+        mesh = MeshConfig(sp=args.sp)       # one process, every position
+        _check_mesh(args, mesh)
     else:
-        mesh = infer_mesh_config(args.sp or 1, sp=args.sp)
+        if args.elastic:
+            # The reference's elastic mesh is pure dp over the first dp
+            # devices (skypilot_tpu/train/run.py:146-183).
+            mesh = MeshConfig(dp=args.dp)
+        else:
+            count = (torch.cuda.device_count() if args.device == 'cuda'
+                     else args.dp or 1)
+            try:
+                mesh = infer_mesh_config(count, dp=args.dp)
+            except ValueError as e:
+                raise SystemExit(f'{count} local devices: {e}') from e
+        _check_mesh(args, mesh)
+        if mesh.num_devices > 1:
+            group = train_group(mesh.dp, fsdp=mesh.fsdp, device=args.device,
+                                target=FOLLOW_TARGET, args=[argv])
+            made = 'spawned'
     try:
         _train(args, mesh, topology, group, sp_group, history, result)
     except SystemExit:
@@ -337,6 +370,30 @@ def main(argv=None, history: Optional[List[dict]] = None,
             import torch.distributed as dist
             dist.destroy_process_group()
     return 0
+
+
+def _job_mesh(args, world: int):
+    """The mesh of a torchrun job of `world` processes: --sp alone takes
+    every process for its ring; else the reference's inference, the
+    remainder on fsdp (--elastic keeps a pure-dp mesh)."""
+    from skypilot_tpu_torch.parallel.mesh import infer_mesh_config
+    if args.sp and args.sp == world:
+        mesh = infer_mesh_config(world, sp=args.sp, fsdp=1)
+        _check_mesh(args, mesh)
+        return mesh
+    try:
+        mesh = infer_mesh_config(world, dp=args.dp, sp=args.sp)
+    except ValueError as e:
+        raise SystemExit(f'{world} processes: {e}') from e
+    if mesh.sp > 1:
+        from skypilot_tpu_torch.train.trainer import DP_SP_NEXT
+        raise SystemExit(f'--sp {mesh.sp} beside fsdp={mesh.fsdp} is not '
+                         f'ported ({DP_SP_NEXT}): run --sp {world}')
+    if args.elastic and mesh.fsdp > 1:
+        raise SystemExit(f'--elastic runs a pure-dp mesh: {world} '
+                         f'processes need --dp {world}')
+    _check_mesh(args, mesh)
+    return mesh
 
 
 def _train(args, mesh, topology, group, sp_group,
@@ -367,12 +424,9 @@ def _train(args, mesh, topology, group, sp_group,
             device = torch.device('cuda', topology.local_rank)
             torch.cuda.set_device(device)
         coordinator = topology.is_coordinator
-    ranks = group.dp if group is not None else topology.world_size
+    ranks = group.size if group is not None else topology.world_size
     collective = ranks > 1 and group is not None   # dp saves are collective
-    if args.export_hf and ranks > 1:
-        raise SystemExit('--export-hf is single-process only; export the '
-                         'checkpoint afterwards with '
-                         'python -m skypilot_tpu_torch.models.export_tool')
+    fsdp = group is not None and group.fsdp > 1
 
     elastic = canonical_dp = notice = None
     if args.elastic:
@@ -431,13 +485,21 @@ def _train(args, mesh, topology, group, sp_group,
         # skipped then.
         from skypilot_tpu_torch.models import convert, lora
         t0 = time.perf_counter()
-        hf = convert.load_hf_checkpoint(args.init_from_hf, cfg, device,
-                                        dtype=cfg.param_dtype)
-        if cfg.lora_rank:
-            # HF supplies the frozen base; the seeded init keeps the
-            # adapters the HF checkpoint cannot have.
-            hf = lora.overlay_base_params(state.model.state_dict(), hf)
-        state.model.load_state_dict(hf)
+        if fsdp:
+            # Each rank reads the checkpoint to the host (the files'
+            # pages through mmap) and keeps its slices on the card; the
+            # seeded adapters stay.
+            hf = convert.load_hf_checkpoint(args.init_from_hf, cfg, 'cpu',
+                                            dtype=cfg.param_dtype)
+            state.model.fsdp.load_full(hf.items())
+        else:
+            hf = convert.load_hf_checkpoint(args.init_from_hf, cfg, device,
+                                            dtype=cfg.param_dtype)
+            if cfg.lora_rank:
+                # HF supplies the frozen base; the seeded init keeps the
+                # adapters the HF checkpoint cannot have.
+                hf = lora.overlay_base_params(state.model.state_dict(), hf)
+            state.model.load_state_dict(hf)
         del hf
         logger.info('initialized params from HF checkpoint %s in %.1fs',
                     args.init_from_hf, time.perf_counter() - t0)
@@ -592,9 +654,11 @@ def _train(args, mesh, topology, group, sp_group,
                         'tokens/s=%.0f mfu=%s', step, args.steps, loss,
                         record['grad_norm'], record['step_s'] * 1e3, tps,
                         f'{mfu:.3f}' if device.type == 'cuda' else 'n/a')
-        if eval_fn is not None and coordinator and (
+        if eval_fn is not None and (coordinator or fsdp) and (
                 (step + 1) % args.eval_every == 0 or
                 step == args.steps - 1):
+            # Under fsdp every rank runs the pass (its gathers are
+            # collective).
             record['val_loss'] = run_eval(step + 1)
         if history is not None:
             history.append(record)
@@ -603,7 +667,20 @@ def _train(args, mesh, topology, group, sp_group,
             manager.save(args.steps, state, force=True)
     if args.export_hf:
         from skypilot_tpu_torch.models.convert import export_hf_checkpoint
-        export_hf_checkpoint(state.model.state_dict(), cfg, args.export_hf)
+        if fsdp:
+            # Every rank joins each leaf's gather; rank 0 keeps the whole
+            # leaves on the host and writes them.
+            whole = {}
+            for name in state.model.fsdp.leaves:
+                value = state.model.fsdp.full(name)
+                if coordinator:
+                    whole[name] = value.cpu()
+                del value
+            if coordinator:
+                export_hf_checkpoint(whole, cfg, args.export_hf)
+        elif coordinator:
+            export_hf_checkpoint(state.model.state_dict(), cfg,
+                                 args.export_hf)
     if coordinator:
         logger.info('done: %d steps, final loss %.4f', args.steps, loss)
     if result is not None:

@@ -1,10 +1,11 @@
 """Training: state, optimizer and the train steps, on one card, with the
 batch split over a data-parallel group (`dp`, with or without ZeRO-1, and
-the extent-invariant elastic step) or with the sequence split over an
-`sp` ring.
+the extent-invariant elastic step), over a dp x fsdp group (weights,
+gradients and moments sharded ZeRO-3 style, with or without ZeRO-1 on
+the dp axis) or with the sequence split over an `sp` ring.
 
-Port of skypilot_tpu/train/trainer.py without the mesh's fsdp, tp, ep
-and pp axes or the pipeline. A step is: forward over the whole sequence
+Port of skypilot_tpu/train/trainer.py without the mesh's tp, ep and pp
+axes or the pipeline. A step is: forward over the whole sequence
 (attention through the flash kernels, or the ring under sequence
 parallelism) → masked cross-entropy → backward → optax's
 clip_by_global_norm → optax's adamw with the warmup-cosine schedule.
@@ -17,6 +18,18 @@ masked mean (each rank's Σ loss·mask over the global Σ mask, which every
 rank reads off the batch), the rank's gradients are its share of it, and
 the shares are summed in fp32 once per optimizer step. ZeRO-1 and the
 elastic step: TrainState and make_elastic_train_step.
+
+fsdp (a TrainState of a group with fsdp > 1; parallel/fsdp.py): each
+rank holds its slices of the params and of the AdamW moments. The rows
+are split over the dp x fsdp ranks as over dp ranks ((dp, fsdp)
+row-major: rank d·fsdp + f takes the (d·fsdp + f)-th part), so the
+forward and the loss share are those of `--dp` at the same extent. Each
+unit's backward reduce-scatters its gradients over the fsdp group (fp32,
+each microbatch, accumulated in fp32 on the slices); once per optimizer
+step the dp group sums the slices (dp > 1) and the whole group the loss
+and the slices' squares, whose square root is grad_norm; then the
+clip and AdamW on each rank's slices (ZeRO-1 cuts them further over its
+dp group).
 
 Sequence parallelism (`make_train_step(sp=N)` or `(group=g)`) comes in
 the two forms of ops/ring_attention.py. In one process the model sees
@@ -154,10 +167,25 @@ class TrainState:
         self.params = [p for _, p in trained]
         self.group = group
         self.dp = group.dp if group is not None else 1
+        # fsdp: the model's FullyShard; the dp collectives then run on the
+        # group's row (its dp group), else on the group itself.
+        self.fsdp = model.fsdp
+        if self.fsdp is not None and group is None:
+            raise ValueError('an fsdp model trains in its TrainGroup')
+        self.dp_group = group.row if self.fsdp is not None else group
+        # The group whose ranks save, restore and agree together.
+        self.ranks = group if group is not None and group.size > 1 \
+            else None
         self.zero1 = zero1 and self.dp > 1
         self.zero_dims = [
             sharding.zero_update_dim(p.shape, self.dp) if self.zero1
             else None for p in self.params]
+        # How many ranks' moments make one leaf's whole moments.
+        self.moment_copies = [
+            (self.fsdp.fsdp if self.fsdp is not None and
+             self.fsdp.leaves[n].dim is not None else 1) *
+            (self.dp if d is not None else 1)
+            for n, d in zip(self.names, self.zero_dims)]
         # What AdamW updates: each leaf, or under ZeRO-1 this rank's slice.
         self.updated = [p if d is None else self._own_slice(p, d)
                         for p, d in zip(self.params, self.zero_dims)]
@@ -168,7 +196,7 @@ class TrainState:
 
     def _slice(self, value: torch.Tensor, dim: int,
                rank: Optional[int] = None) -> torch.Tensor:
-        return sharding.zero_shard(value, dim, self.dp, self.group.rank
+        return sharding.zero_shard(value, dim, self.dp, self.dp_group.rank
                                    if rank is None else rank)
 
     def _own_slice(self, p: torch.Tensor, dim: int) -> torch.Tensor:
@@ -183,11 +211,15 @@ class TrainState:
             p.untyped_storage().data_ptr()
 
     @torch.no_grad()
-    def apply_gradients(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def apply_gradients(self, grads: List[torch.Tensor],
+                        norm: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
         """clip_by_global_norm then adamw, in place. Returns the global
-        norm of the UNCLIPPED grads (the reference's metric)."""
+        norm of the UNCLIPPED grads (the reference's metric); `norm`
+        when the caller computed it (fsdp: over every rank's slices)."""
         tc = self.tc
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         # optax: where(norm < max_norm, g, g / norm * max_norm), decided
         # on the device (no host sync).
         scale = torch.where(norm < tc.grad_clip_norm, torch.ones_like(norm),
@@ -223,14 +255,14 @@ class TrainState:
             return
         flat = torch.cat([u.reshape(-1).view(torch.uint8)
                           for _, u, _ in sliced])
-        gathered = self.group.all_gather(flat)
+        gathered = self.dp_group.all_gather(flat)
         del flat
         start = 0
         for p, u, d in sliced:
             size = u.numel() * u.element_size()
             view = self._is_view(u, p)
             for rank in range(self.dp):
-                if view and rank == self.group.rank:
+                if view and rank == self.dp_group.rank:
                     continue
                 dst = self._slice(p, d, rank)
                 src = gathered[rank, start:start + size]
@@ -273,12 +305,6 @@ class TrainState:
                 'optimizer': self.optimizer.state_dict(),
                 'count': self.count}
 
-    @torch.no_grad()
-    def load_state_dict(self, state: Dict) -> None:
-        self.model.load_state_dict(state['model'])
-        self.optimizer.load_state_dict(state['optimizer'])
-        self.count = int(state['count'])
-
 
 def create_train_state(cfg: ModelConfig, train_config: Optional[TrainConfig]
                        = None, device='cuda', seed: int = 0, group=None,
@@ -297,7 +323,8 @@ def create_train_state(cfg: ModelConfig, train_config: Optional[TrainConfig]
                 impl == 'auto' and cfg.attn_logit_softcap):
         # Attention goes through the flash (and ring) kernels on the card.
         limits.check_kernel_shapes(cfg.head_dim)
-    model = Transformer(cfg, device=device).init_random_(seed)
+    fsdp = group.column if group is not None and group.fsdp > 1 else None
+    model = Transformer(cfg, device=device, fsdp=fsdp).init_random_(seed)
     return TrainState(model, train_config or TrainConfig(), group, zero1)
 
 
@@ -357,13 +384,13 @@ def _rank_loss(model: Transformer, batch: Dict[str, torch.Tensor],
 def _row_loss(state: TrainState, batch: Dict[str, torch.Tensor]
               ) -> torch.Tensor:
     """This rank's share of the global masked-mean loss under data
-    parallelism: its rows' Σ loss·mask over the global batch's Σ mask
-    (every rank holds the global batch, so the denominator needs no
-    collective)."""
-    rows = batch['inputs'].shape[0]
-    if rows % state.dp:
+    parallelism (and fsdp, whose ranks split the rows too): its rows'
+    Σ loss·mask over the global batch's Σ mask (every rank holds the
+    global batch, so the denominator needs no collective)."""
+    rows, ranks = batch['inputs'].shape[0], state.group.size
+    if rows % ranks:
         raise ValueError(f'batch {rows} is not divisible by dp={state.dp}')
-    part = rows // state.dp
+    part = rows // ranks
     mine = slice(state.group.rank * part, (state.group.rank + 1) * part)
     mask = batch.get('mask')
     count = (mask.float().sum() if mask is not None else torch.tensor(
@@ -448,9 +475,12 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
         return loss / grad_accum, [a / grad_accum for a in acc]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if state.dp > 1 and (sp is not None or per_rank):
+        if (state.dp > 1 or state.fsdp is not None) and (
+                sp is not None or per_rank):
             raise ValueError(f'dp={state.dp} under sp is not ported '
                              f'({DP_SP_NEXT})')
+        if state.fsdp is not None:
+            return _fsdp_step(state, batch, grad_accum)
         scope = (sharding.use_sequence_parallel(sp, group=group)
                  if sp is not None or per_rank
                  else contextlib.nullcontext())
@@ -472,8 +502,81 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
     return step
 
 
-# Where ROADMAP.md has data parallelism over a sequence ring.
-DP_SP_NEXT = 'ROADMAP.md §1 item 6: --dp with --sp'
+def _fsdp_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               grad_accum: int) -> Dict[str, torch.Tensor]:
+    """One optimizer step of an fsdp state (module docstring): per
+    microbatch the forward and backward of the rank's rows, whose units
+    reduce-scatter their gradients into the slices (fp32); then one
+    all-reduce of the slices over the dp group (dp > 1), one over the
+    whole group (the loss, the slices' sum of squares and the whole
+    leaves' gradients), the clip and AdamW."""
+    fs, group = state.fsdp, state.group
+    rows = batch['inputs'].shape[0]
+    if rows % grad_accum:
+        raise ValueError(f'batch {rows} not divisible by '
+                         f'grad_accum={grad_accum}')
+    micro = rows // grad_accum
+    if micro % group.size:
+        raise ValueError(
+            f'per-accumulation batch {micro} (batch {rows} / grad_accum '
+            f'{grad_accum}) must be divisible by dp*fsdp = {group.size}')
+    fs.zero_grads()
+    loss = None
+    for i in range(grad_accum):
+        mb = ({k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+              if grad_accum > 1 else batch)
+        loss_i = _row_loss(state, mb)
+        torch.autograd.backward(loss_i)
+        loss = loss_i.detach() if loss is None else loss + loss_i.detach()
+        del loss_i
+    if grad_accum > 1:
+        loss = loss / grad_accum
+    loss = loss.float().reshape(1)
+    cut = [n for n in state.names if fs.leaves[n].dim is not None]
+    whole = [n for n in state.names if fs.leaves[n].dim is None]
+    acc = {n: fs.grads[n] for n in state.names}
+    fs.zero_grads()
+
+    def summed(parts, reduce):
+        """Sum the flattened `parts` in one collective; views back."""
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        reduce(flat)
+        out, start = [], 0
+        for p in parts:
+            out.append(flat[start:start + p.numel()].view(p.shape))
+            start += p.numel()
+        return out
+
+    if state.dp > 1 and cut:
+        kind = 'partition_scatter' if state.zero1 else 'all_reduce'
+        acc.update(zip(cut, summed(
+            [acc[n] for n in cut],
+            lambda x: state.dp_group.all_reduce(x, kind))))
+    dtypes = dict(zip(state.names, (p.dtype for p in state.params)))
+    final = {n: (acc[n] / grad_accum if grad_accum > 1 else acc[n]).to(
+        dtypes[n]) for n in cut}
+    # The slices' squares once per fsdp index (the dp group's ranks hold
+    # the same slices now: the others add zeros), the loss shares and the
+    # whole leaves' local gradients summed over every rank in one
+    # all-reduce: the loss is then summed as --dp sums it at this extent.
+    squares = (torch.stack([final[n].float().square().sum() for n in cut])
+               .sum().reshape(1) if cut and group.dp_rank == 0
+               else torch.zeros_like(loss))
+    loss, squares, *rest = summed([loss, squares] + [acc[n] for n in whole],
+                                  group.all_reduce)
+    for n, g in zip(whole, rest):
+        final[n] = (g / grad_accum if grad_accum > 1 else g).to(dtypes[n])
+    total = squares[0] + sum((final[n].float().square().sum()
+                              for n in whole), torch.zeros_like(squares[0]))
+    grads = [final[n] for n in state.names]
+    with torch.profiler.record_function('optimizer'):
+        grad_norm = state.apply_gradients(grads, norm=torch.sqrt(total))
+    return {'loss': loss[0], 'grad_norm': grad_norm, 'step': state.count}
+
+
+# Where ROADMAP.md has data parallelism over a sequence ring (and the
+# sequence ring beside fsdp).
+DP_SP_NEXT = 'ROADMAP.md §1 item 6b: --dp with --sp, and --sp beside fsdp'
 
 # The elastic step's combine moves this many values a collective.
 COMBINE_CHUNK = 1 << 26
@@ -530,6 +633,9 @@ def make_elastic_train_step(canonical_dp: int
         raise ValueError(f'canonical_dp must be >= 1, got {canonical_dp}')
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if state.fsdp is not None:
+            raise ValueError('the elastic step runs a pure-dp mesh, as the '
+                             "reference's does; this state is fsdp")
         dp = state.dp
         if canonical_dp % dp:
             raise ValueError(

@@ -2,9 +2,9 @@
 the dp train step against the JAX package's single-device train step, and
 `train.run --dp` in its two launch forms.
 
-- parallel/mesh.py: `infer_mesh_config` with dp (a remainder the
-  reference would send to fsdp is refused, naming fsdp), `train_group`'s
-  refusals and its group of one.
+- parallel/mesh.py: `infer_mesh_config` with dp (the remainder goes to
+  fsdp, as in the reference), `train_group`'s refusals and its group of
+  one.
 - The dp step: tests/torch_dp_driver.py trains test-tiny (fp32, attention
   through the plain pair, clipping active) from the JAX init's weights on
   masked batches of B 8 × S 32, 3 steps at dp 2 and dp 4, grad_accum 1 and
@@ -45,11 +45,11 @@ def test_infer_mesh_config_with_dp():
     assert mesh.infer_mesh_config(4, dp=2, sp=2) == mesh.MeshConfig(dp=2,
                                                                      sp=2)
     assert str(mesh.MeshConfig(dp=2)) == 'MeshConfig(dp=2)'
-    with pytest.raises(ValueError, match=r'fsdp=2\); the port has no fsdp '
-                       r'axis \(ROADMAP.md §1 item 6: fsdp'):
-        mesh.infer_mesh_config(4, dp=2)
-    with pytest.raises(ValueError, match="axes {'sp': None, 'dp': 3} do "
-                       "not divide 4"):
+    # The remainder resolves to fsdp, as the reference's does.
+    assert mesh.infer_mesh_config(4, dp=2) == mesh.MeshConfig(dp=2, fsdp=2)
+    assert str(mesh.infer_mesh_config(4, dp=2)) == 'MeshConfig(dp=2, fsdp=2)'
+    with pytest.raises(ValueError, match="axes {'tp': None, 'pp': None, "
+                       "'sp': None, 'ep': None, 'dp': 3} do not divide 4"):
         mesh.infer_mesh_config(4, dp=3)
 
 
@@ -245,7 +245,7 @@ _BASE = ['--model', 'test-tiny', '--seq', '32', '--steps', '1', '--device',
      r'--dp with --sp is not ported \(ROADMAP.md §1 item 6'),
     (['--batch', '6', '--grad-accum', '2', '--dp', '2'],
      r'per-accumulation batch 3 \(--batch 6 / --grad-accum 2\) must be '
-     r'divisible by dp = 2'),
+     r'divisible by dp\*fsdp = 2'),
     (['--batch', '4', '--dp', '0'], '--dp must be >= 1'),
 ], ids=['zero1-dp1', 'elastic-no-dir', 'elastic-no-dp', 'elastic-accum',
         'elastic-lora', 'dp-sp', 'batch', 'dp0'])
@@ -255,7 +255,24 @@ def test_run_refusals(extra, message):
 
 
 def test_torchrun_without_an_axis_is_refused_naming_fsdp(monkeypatch):
+    # The reference sends every process no axis claims to fsdp: a job of
+    # 2 processes with no axis flag is fsdp 2 (test_torch_fsdp.py trains
+    # it), --dp 1 leaves fsdp 2, --dp 2 is pure dp and --sp 2 the ring;
+    # the batch must divide dp*fsdp, and --sp beside fsdp is refused.
     monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(SystemExit, match=r'2 processes need --sp 2 or --dp '
-                       r'2: .*no fsdp axis'):
-        run.main(_BASE + ['--batch', '4'])
+    parser = run.build_parser()
+    for extra, want in ((['--batch', '4'], mesh.MeshConfig(fsdp=2)),
+                        (['--batch', '4', '--dp', '1'],
+                         mesh.MeshConfig(fsdp=2)),
+                        (['--batch', '4', '--dp', '2'],
+                         mesh.MeshConfig(dp=2)),
+                        (['--batch', '4', '--sp', '2'],
+                         mesh.MeshConfig(sp=2))):
+        assert run._job_mesh(parser.parse_args(_BASE + extra), 2) == want  # pylint: disable=protected-access
+    with pytest.raises(SystemExit,
+                       match=r'must be divisible by dp\*fsdp = 2'):
+        run.main(_BASE + ['--batch', '3'])
+    with pytest.raises(SystemExit, match=r'--sp 2 beside fsdp=2 is not '
+                       r'ported \(ROADMAP.md §1 item 6b'):
+        run._job_mesh(parser.parse_args(_BASE + ['--batch', '4', '--sp',  # pylint: disable=protected-access
+                                                 '2']), 4)

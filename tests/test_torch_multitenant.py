@@ -457,7 +457,9 @@ def test_http_adapter_routes(tmp_path, adapter_trees, references):
             (200, {'ok': True, 'name': 'ad0', 'slot': 1})
         assert _call(url + '/health') == (
             200, {'status': 'ok', 'tier': 'monolithic',
-                  'adapters': {'capacity': 1, 'resident': 1}})
+                  'adapters': {'capacity': 1, 'resident': 1},
+                  'tier_load': {'interactive': 0, 'standard': 0,
+                                'batch': 0}})
         status, body = _call(url + '/adapters')
         assert status == 200 and body['adapters'] == [
             {'name': 'ad0', 'resident': True, 'slot': 1, 'refs': 0}]
@@ -491,3 +493,90 @@ def test_http_adapter_routes(tmp_path, adapter_trees, references):
     finally:
         http.close()
         server.engine.drain(timeout=60)
+
+
+def _engine_samples(url):
+    from skypilot_tpu_torch.observability.exposition import (
+        parse_prometheus_text)
+    with urllib.request.urlopen(url + '/metrics', timeout=60) as resp:
+        families = parse_prometheus_text(resp.read().decode())
+    return {name: families[name]['samples'][(name, ())] for name in (
+        'skytpu_engine_adapter_slots', 'skytpu_engine_adapter_resident',
+        'skytpu_engine_adapter_loads_total',
+        'skytpu_engine_adapter_evictions_total',
+        'skytpu_engine_adapter_shed_total', 'skytpu_engine_decode_kernel',
+        'skytpu_engine_decode_fused_bytes')}
+
+
+def test_adapter_metrics_move_one_a_load_eviction_and_shed(tmp_path,
+                                                          adapter_trees,
+                                                          references):
+    """The reference's multi-tenant families on a one-slot server's
+    /metrics: a load, an eviction and a shed each move their counter by
+    exactly one (the registry is process-wide: deltas), the pool gauges
+    follow, and the decode-kernel gauges read the paged kernel's route."""
+    base_params, _ = references
+    cfg = _tcfg()
+    server = InferenceServer(cfg, num_slots=2, paged_block_size=8,
+                             params=params_from_jax(base_params, cfg),
+                             max_adapters=1, device='cpu', **LORA_KW)
+    server.warmup()
+    http = BackgroundServer(server)
+    url = http.url
+    keys = ('skytpu_engine_adapter_loads_total',
+            'skytpu_engine_adapter_evictions_total',
+            'skytpu_engine_adapter_shed_total')
+
+    def moved(before, after):
+        return tuple(after[k] - before[k] for k in keys)
+
+    try:
+        for name in ('ad0', 'ad1'):
+            jax_tenancy.save_adapter_npz(adapter_trees[name],
+                                         str(tmp_path / f'{name}.npz'))
+        start = _engine_samples(url)
+        assert _call(url + '/adapters/load', 'POST',
+                     {'name': 'ad0', 'path': str(tmp_path / 'ad0.npz')}
+                     )[0] == 200
+        loaded = _engine_samples(url)
+        assert moved(start, loaded) == (1, 0, 0)
+        assert loaded['skytpu_engine_adapter_slots'] == 1
+        assert loaded['skytpu_engine_adapter_resident'] == 1
+        assert _call(url + '/adapters/load', 'POST',
+                     {'name': 'ad1', 'path': str(tmp_path / 'ad1.npz')}
+                     )[0] == 200                       # evicts ad0
+        evicted = _engine_samples(url)
+        assert moved(loaded, evicted) == (1, 1, 0)
+        assert evicted['skytpu_engine_adapter_resident'] == 1
+        engine = server.engine
+        started = threading.Event()
+        future = engine.submit(PROMPT, max_new_tokens=40, adapter='ad1',
+                               on_token=lambda _t: started.set())
+        assert started.wait(timeout=60)
+        assert _call(url + '/generate', 'POST',
+                     {'prompt_ids': [PROMPT], 'adapter': 'ad0'})[0] == 503
+        shed = _engine_samples(url)
+        assert moved(evicted, shed) == (0, 0, 1)
+        future.result(timeout=120)
+        # The paged kernel's route (1, the reference's 'pallas'), and the
+        # fused bytes of the last tick's pool by the reference's formula.
+        end = _engine_samples(url)
+        assert end['skytpu_engine_decode_kernel'] == 1
+        assert end['skytpu_engine_decode_fused_bytes'] > 0
+        assert engine.fused_bytes_per_step() == engine._pool.used * (  # pylint: disable=protected-access
+            2 * 8 * cfg.num_kv_heads * cfg.head_dim * 4) * cfg.num_layers
+    finally:
+        http.close()
+        server.engine.drain(timeout=60)
+
+
+def test_fused_bytes_formula_is_the_references():
+    from skypilot_tpu.ops.paged_attention import (
+        fused_hbm_bytes_per_step as reference)
+    from skypilot_tpu_torch.ops.paged_attention import (
+        fused_hbm_bytes_per_step)
+    for args in [(blocks, bs, kv, d, layers, size, quant)
+                 for blocks in (0, 1, 37) for bs in (8, 16)
+                 for kv in (1, 8) for d in (64, 128) for layers in (2, 32)
+                 for size, quant in ((2, False), (4, False), (1, True))]:
+        assert fused_hbm_bytes_per_step(*args) == reference(*args), args

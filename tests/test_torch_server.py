@@ -72,7 +72,9 @@ def live():
 def test_health(live):
     with urllib.request.urlopen(live['url'] + '/health', timeout=30) as r:
         assert r.status == 200
-        assert json.loads(r.read()) == {'status': 'ok', 'tier': 'monolithic'}
+        assert json.loads(r.read()) == {
+            'status': 'ok', 'tier': 'monolithic',
+            'tier_load': {'interactive': 0, 'standard': 0, 'batch': 0}}
 
 
 def test_generate_equals_engine_and_reference(live):
@@ -252,6 +254,11 @@ PORTED_METRICS = {
         'skytpu_engine_tier_deadline_shed_total',
         'skytpu_engine_slot_preempts_total',
         'skytpu_engine_wedge_recoveries_total',
+        'skytpu_engine_adapter_slots', 'skytpu_engine_adapter_resident',
+        'skytpu_engine_adapter_loads_total',
+        'skytpu_engine_adapter_evictions_total',
+        'skytpu_engine_adapter_shed_total',
+        'skytpu_engine_decode_kernel', 'skytpu_engine_decode_fused_bytes',
         'skytpu_prefix_export_blocks_total',
         'skytpu_prefix_prewarm_blocks_total',
         'skytpu_prefix_prewarm_hit_total',

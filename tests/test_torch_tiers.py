@@ -382,7 +382,10 @@ def test_deadline_shed_maps_to_429(live):
 def test_health_tier_load_and_tier_metrics(live):
     server, url = live
     status, _, body = _call(url + '/health')
-    assert (status, body) == (200, {'status': 'ok', 'tier': 'monolithic'})
+    assert (status, body) == (200, {'status': 'ok', 'tier': 'monolithic',
+                                    'tier_load': {'interactive': 0,
+                                                  'standard': 0,
+                                                  'batch': 0}})
     status, _, body = _call(url + '/generate', 'POST', {
         'prompt_ids': [[1, 2, 3]], 'max_new_tokens': 4,
         'priority': 'interactive'})

@@ -251,19 +251,29 @@ def test_run_refuses_bad_sp(monkeypatch):
     with pytest.raises(SystemExit, match='divisible by --sp 4'):
         run.main(base + ['--seq', '30', '--sp', '4'])
     monkeypatch.setenv('WORLD_SIZE', '3')
-    with pytest.raises(SystemExit, match='3 processes need --sp 3'):
+    # The reference's mesh over 3 processes: --sp 2 does not divide it;
+    # with no axis flag the 3 go to fsdp, whose batch extent 3 the batch
+    # of 2 does not divide.
+    with pytest.raises(SystemExit, match=r"3 processes: axes \{'tp': None, "
+                       r"'pp': None, 'sp': 2, 'ep': None, 'dp': None\} do "
+                       r"not divide 3"):
         run.main(base + ['--seq', '32', '--sp', '2'])
-    with pytest.raises(SystemExit, match='3 processes need --sp 3'):
+    with pytest.raises(SystemExit, match=r'must be divisible by '
+                       r'dp\*fsdp = 3'):
         run.main(base + ['--seq', '32'])
 
 
 def test_mesh_and_topology():
     assert mesh.infer_mesh_config(4, sp=4) == mesh.MeshConfig(sp=4)
     assert mesh.infer_mesh_config(1) == mesh.MeshConfig()
-    with pytest.raises(ValueError, match="axes {'sp': 3} do not divide 4"):
+    with pytest.raises(ValueError, match="axes {'tp': None, 'pp': None, "
+                       "'sp': 3, 'ep': None, 'dp': None} do not divide 4"):
         mesh.infer_mesh_config(4, sp=3)
+    # The remainder goes to fsdp, as in the reference; an explicit fsdp
+    # that leaves devices over is refused with its message.
+    assert mesh.infer_mesh_config(4, sp=2) == mesh.MeshConfig(fsdp=2, sp=2)
     with pytest.raises(ValueError, match='axis product 2 != device count 4'):
-        mesh.infer_mesh_config(4, sp=2)
+        mesh.infer_mesh_config(4, sp=2, fsdp=1)
     topo = distributed.topology_from_env(
         {'RANK': '1', 'WORLD_SIZE': '2', 'LOCAL_RANK': '1',
          'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': '29500'})
