@@ -77,14 +77,16 @@ and passed over):
             delta preparation) beside SDPA's backward, and the pair at
             the ring's two hop shapes.
   ring_kernels: hold the ring chunk-update kernel against its plain
-            version at the slice's shape (B 4, Sq = Sk = 512, H 16, KV 8,
-            D 128; k and v strided KV-head views), fp32 and bf16: mask
+            version at the hop shapes of train_sp (B 4, Sq = Sk = 512, H
+            16, KV 8, D 128), train_sp_compose (B 2, 1024 x 1024) and
+            moe's --sp 2 run (B 4, 1024 x 1024, H 32, KV 8; k and v
+            strided KV-head views everywhere), fp32 and bf16: mask
             modes 0 and 1, equal and unequal offsets, fresh and carried
             state, rows that see no key (l must be Sk: p = 1 at m =
             -1e30) and rows whose first tiles are masked; reruns
             bit-identical; time the full and the diagonal hop (profiler
-            device time) beside the plain version, the bound and kernel
-            3's forward at the same shape.
+            device time) at train_sp's shape beside the plain version,
+            the bound and kernel 3's forward at the same shape.
   parity:   a small fp32 model (head_dim 128) through the serving engine
             on the card (kernel) and on the CPU (plain version): greedy
             tokens equal, prefill logits within tolerance.
@@ -95,16 +97,17 @@ and passed over):
   train_parity: one small fp32 model (head_dim 128), two train steps on
             the card (kernels) and on the CPU (plain versions): loss,
             grad_norm and updated params within tolerance.
-  ring_parity: the one-process ring (sp 4) against the flash path at
-            llama3-1b heads (B 4, S 2048, bf16), forward and dQ/dK/dV,
-            elementwise and norm-relative per sequence chunk, with its
-            launches (10 chunk updates, 10 dQ and dK/dV, no flash
-            forward); the flash dQ and dK/dV kernels at each of the 10
-            hop shapes (512 x 512, causal and full, the ring's lse and
-            delta) against their plain twins; the least a dropped hop
-            would move the chunk check, which must exceed its limit;
-            then two train steps of the train_parity model with sp 2 on
-            the card and on the CPU.
+  ring_parity: the one-process ring against the flash path (S 2048,
+            bf16) at sp 4 with llama3-1b heads (B 4), at sp 2 with B 2
+            (train_sp_compose's rank shapes) and at sp 2 with mixtral's
+            heads (B 4, H 32, KV 8), forward and dQ/dK/dV, elementwise
+            and norm-relative per sequence chunk, with its launches
+            (sp (sp + 1) / 2 chunk updates, dQ and dK/dV, no flash
+            forward); the flash dQ and dK/dV kernels at each hop shape
+            (causal and full, the ring's lse and delta) against their
+            plain twins; the least a dropped hop would move the chunk
+            check, which must exceed its limit; then two train steps of
+            the train_parity model with sp 2 on the card and on the CPU.
   train:    the port's entry point train.run.main in-process: llama3-1b
             at full width and depth (16 layers, seeded random bf16
             params, remat 'dots'), batch 8 x 1024, on ONE repeated batch
@@ -123,10 +126,11 @@ and passed over):
   train_dp: data-parallel training, four processes on cuda:0 over
             gloo (parallel/mesh.train_group; NCCL takes one card a
             rank), each run on the first dp of them (TrainGroup.split):
-            train.run.main --dp 2 with llama3-1b at full width and
-            depth, B 8 x S 1024, 4 steps on one repeated batch, plain
-            and --zero1 on one group: loss and grad_norm bit-equal,
-            falling; per-rank optimizer bytes <= (1/2 + 0.05) x plain's;
+            train.run.main --dp 2 with llama3-1b at full width cut to
+            8 of 16 layers, B 8 x S 1024, 4 steps on one repeated
+            batch, plain and --zero1 on one group: loss and grad_norm
+            bit-equal, falling; per-rank optimizer bytes <= (1/2 +
+            0.05) x plain's;
             the first step's collectives (ZeRO-1: a partition scatter
             and an all-gather; plain: neither); kernels 3-5's launches on
             every rank; step ms, tokens/s, MFU, the gloo share of a
@@ -139,7 +143,7 @@ and passed over):
             rank x canonical/dp groups.
   train_fsdp: fsdp training (parallel/fsdp.py), two processes on cuda:0
             over gloo: train.run.main on the caller's group at fsdp 2
-            (no axis flag), llama3-1b at full width and depth, bf16,
+            (no axis flag), train_dp's llama3-1b cut, bf16,
             B 8 x S 1024, 4 steps on train_dp's repeated batch: step 0's
             loss bit-equal to train_dp's plain --dp 2 run (or to a --dp
             2 run here when train_dp is not in the run), the later
@@ -150,6 +154,23 @@ and passed over):
             launches on both ranks; step ms, the gloo share, per-rank
             peak memory. Then LoRA (q,v, rank 16) at fsdp 2, 3 steps,
             its loss falling.
+  train_sp_compose: the sequence ring composed with the other axes,
+            four processes on cuda:0 over gloo (train_dp's, when it
+            runs): llama3-1b at full width cut to 4 of 16 layers, B 4 x
+            S 2048, one repeated batch, through train.run.main on the
+            caller's group: (a) --dp 2 --sp 2 and (b) --sp 2 beside
+            fsdp 2, 3 steps each, (c) LoRA q,v rank 16 at dp 2 x sp 2, 2
+            steps: every step's loss and grad_norm within STEP_GAP_TOL
+            of the one-process --sp 2 run of the same argv on the same
+            batch (1e-4 on the same weights, 5e-3 after an update; the
+            gaps logged), and that run's within it of the flash path's;
+            the loss falling, (b)'s weight bytes a rank <= (1/2 + 0.02) x
+            the whole's. On every rank of every run: the
+            first step's collectives (collective_permute 2 (2 + remat) a
+            layer) and the launch formula of ring rank s (s + 1 hops: a
+            chunk update a hop and layer, again under remat, one dQ and
+            one dK/dV; no flash forward); step ms, the gloo share, peak
+            memory a rank.
   serve:    the port's HTTP server in-process on localhost with
             llama3-8b at full width and depth (seeded random bf16
             weights made on the card), 8 slots, paged blocks of 16,
@@ -310,7 +331,11 @@ and passed over):
             tokens equal, drops in decode. Then mixtral-8x7b (2 layers)
             through train.run.main, B 4 x S 2048, 8 steps on one
             repeated batch: loss falling, flash launches exact, step ms,
-            tokens/s, MFU (active experts), peak memory.
+            tokens/s, MFU (active experts), peak memory; then 4 steps of
+            it with --sp 2 in one process: each step's loss and
+            grad_norm within STEP_GAP_TOL of the flash run's while the
+            weights have taken at most one update, falling, ring
+            launches exact.
   kv_handoff: KV portability on llama3-8b at full size, one set of
             seeded bf16 weights shared by every server of the phase
             (blocks of 16, chunks of 256). A prefill-tier and a
@@ -4645,15 +4670,27 @@ RING_REPLACES = 'skypilot_tpu/ops/ring_attention.py:71'
 # bf16 the kernel rounds p against its running max, the plain version
 # against the chunk's max, and both round P.V to bf16 once.
 RING_TOL = {'float32': (1e-5, 1e-5), 'bfloat16': (2e-2, 2e-2)}
-RING_SHAPE = dict(batch=4, chunk=512, heads=16, kv_heads=8, head_dim=128)
-RING_CASES = (   # (label, mask_mode, q_offset, k_offset, carried state)
-    ('full_hop', 0, 512, 0, False),
-    ('diagonal_hop', 1, 512, 512, False),
-    ('diagonal_hop_carried', 1, 1536, 1536, True),
-    ('past_hop_carried', 0, 1536, 512, True),
-    ('q_after_k_causal', 1, 768, 512, True),
-    ('fully_masked_rows', 1, 0, 512, False),
-    ('masked_then_seen', 1, 256, 512, False),
+# The hop shapes the main paths give kernel 6: train_sp's (sp 4 of B 4 x
+# S 2048 at llama3-1b's heads; the timed one), train_sp_compose's per
+# rank (B 2 of dp 2 or fsdp 2, sp 2 of S 2048) and moe's --sp 2 run
+# (mixtral's 32 heads over 8 KV heads, n_rep 4, sp 2 of S 2048).
+RING_SHAPES = (
+    ('train_sp', dict(batch=4, chunk=512, heads=16, kv_heads=8,
+                      head_dim=128)),
+    ('sp_compose', dict(batch=2, chunk=1024, heads=16, kv_heads=8,
+                        head_dim=128)),
+    ('moe_sp', dict(batch=4, chunk=1024, heads=32, kv_heads=8,
+                    head_dim=128)),
+)
+# (label, mask_mode, q_offset, k_offset in chunks, carried state)
+RING_CASES = (
+    ('full_hop', 0, 1, 0, False),
+    ('diagonal_hop', 1, 1, 1, False),
+    ('diagonal_hop_carried', 1, 3, 3, True),
+    ('past_hop_carried', 0, 3, 1, True),
+    ('q_after_k_causal', 1, 1.5, 1, True),
+    ('fully_masked_rows', 1, 0, 1, False),
+    ('masked_then_seen', 1, 0.5, 1, False),
 )
 
 
@@ -4705,68 +4742,83 @@ def _ring_bound(torch, q, k, mode, q_offset, k_offset) -> tuple:
 
 
 def phase_ring_kernels(torch) -> dict:
-    """Kernel 6 against chunk_update_plain at the slice's shape (B 4, Sq =
-    Sk = 512, H 16, KV 8, D 128), fp32 and bf16, over RING_CASES; reruns
-    bit-identical; the full and diagonal hops timed (profiler device time,
-    CUDA events beside it) beside the plain version, the bound and the
-    yardstick: kernel 3's forward at the same 512 x 512 shape (full: not
-    causal; diagonal: causal), the same mainloop without the state."""
+    """Kernel 6 against chunk_update_plain at every RING_SHAPES shape, fp32
+    and bf16, over RING_CASES; reruns bit-identical; at train_sp's shape
+    (B 4, Sq = Sk = 512, H 16, KV 8, D 128) the full and diagonal hops
+    timed (profiler device time, CUDA events beside it) beside the plain
+    version, the bound and the yardstick: kernel 3's forward at the same
+    512 x 512 shape (full: not causal; diagonal: causal), the same
+    mainloop without the state."""
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import ring_attention as ra
     torch.backends.cuda.matmul.allow_tf32 = False
-    sh = RING_SHAPE
     records = {}
-    for dtype_name in ('float32', 'bfloat16'):
-        dtype = getattr(torch, dtype_name)
-        tol = RING_TOL[dtype_name]
-        case = _flash_case(torch, sh['batch'], sh['chunk'], sh['heads'],
-                           sh['kv_heads'], sh['head_dim'], dtype, seed=6)
-        q, k, v, _ = case                  # k, v: strided KV-head views
-        scale = sh['head_dim'] ** -0.5
-        for label, mode, q_off, k_off, carried in RING_CASES:
-            state = _ring_state(torch, q, k, v, carried, scale)
-            opts = dict(sm_scale=scale, mask_mode=mode, q_offset=q_off,
-                        k_offset=k_off)
-            got = ra.chunk_update(q, k, v, *state, **opts)
-            again = ra.chunk_update(q, k, v, *state, **opts)
-            ref = ra.chunk_update_plain(q, k, v, *state, **opts)
-            torch.cuda.synchronize()
-            what = f'ring {label} {dtype_name}'
-            err = _ring_check(torch, what, got, ref, tol)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail(f'{what}: two runs differ')
-            if label == 'fully_masked_rows' and \
-                    not bool((got[2] == sh['chunk']).all()):
-                fail(f'{what}: l != Sk on rows that see no key (p = 1 each '
-                     f'at m = -1e30, as the reference)')
-            log(f'{what}: max_abs_err o/l {err:.3e} (tolerance {tol}); '
-                f'reruns bit-identical')
-            if dtype_name != 'bfloat16' or label not in ('full_hop',
-                                                          'diagonal_hop'):
-                continue
-            fn = lambda: ra.chunk_update(q, k, v, *state, **opts)
-            events, ms = cuda_ms(torch, fn), device_ms(torch, fn)
-            plain_ms = cuda_ms(torch, lambda: ra.chunk_update_plain(
-                q, k, v, *state, **opts), iters=3, warmup=1)
-            bound_ms, bound_by = _ring_bound(torch, q, k, mode, q_off, k_off)
-            flash_ms = device_ms(torch, lambda: fa.flash_forward(
-                q, k, v, causal=mode == 1, sm_scale=scale))
-            state_ms = (2 * q.numel() * 4 + 4 * q.numel() // q.shape[-1] * 4
-                        ) / HBM_BYTES_PER_S * 1e3
-            records[label] = {'max_abs_err': err, 'ms': ms,
-                              'plain_ms': plain_ms, 'bound_ms': bound_ms,
-                              'bound_by': bound_by, 'library_ms': None}
-            log(f'ring {label} bf16 B={sh["batch"]} Sq=Sk={sh["chunk"]} '
-                f'H={sh["heads"]} KV={sh["kv_heads"]} D={sh["head_dim"]}: '
-                f'kernel_ms={ms:.4f} (device; CUDA events {events:.4f}) '
-                f'plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} '
-                f'({bound_by}); kernel 3 forward at this shape '
-                f'{flash_ms:.4f} (device), + the state\'s bytes at 3.35 TB/s '
-                f'{state_ms:.4f}: ratio {ms / (flash_ms + state_ms):.3f}; '
-                f'library: none (no single PyTorch call updates an '
-                f'online-softmax state)')
-        del case, q, k, v
-        torch.cuda.empty_cache()
+    for shape_name, sh in RING_SHAPES:
+        for dtype_name in ('float32', 'bfloat16'):
+            records.update(_ring_kernel_shape(
+                torch, fa, ra, shape_name, sh, dtype_name,
+                timed=(shape_name == 'train_sp' and
+                       dtype_name == 'bfloat16')))
+    return records
+
+
+def _ring_kernel_shape(torch, fa, ra, shape_name, sh, dtype_name,
+                       timed) -> dict:
+    """RING_CASES at one shape and dtype; `timed`: the full and diagonal
+    hops' records."""
+    dtype = getattr(torch, dtype_name)
+    tol = RING_TOL[dtype_name]
+    chunk = sh['chunk']
+    case = _flash_case(torch, sh['batch'], chunk, sh['heads'],
+                       sh['kv_heads'], sh['head_dim'], dtype, seed=6)
+    q, k, v, _ = case                      # k, v: strided KV-head views
+    scale = sh['head_dim'] ** -0.5
+    records = {}
+    for label, mode, q_chunks, k_chunks, carried in RING_CASES:
+        q_off, k_off = int(q_chunks * chunk), int(k_chunks * chunk)
+        state = _ring_state(torch, q, k, v, carried, scale)
+        opts = dict(sm_scale=scale, mask_mode=mode, q_offset=q_off,
+                    k_offset=k_off)
+        got = ra.chunk_update(q, k, v, *state, **opts)
+        again = ra.chunk_update(q, k, v, *state, **opts)
+        ref = ra.chunk_update_plain(q, k, v, *state, **opts)
+        torch.cuda.synchronize()
+        what = (f'ring {label} {dtype_name} at {shape_name} (B {sh["batch"]}'
+                f', {chunk} x {chunk}, H {sh["heads"]}, KV '
+                f'{sh["kv_heads"]})')
+        err = _ring_check(torch, what, got, ref, tol)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f'{what}: two runs differ')
+        if label == 'fully_masked_rows' and not bool((got[2] == chunk).all()):
+            fail(f'{what}: l != Sk on rows that see no key (p = 1 each '
+                 f'at m = -1e30, as the reference)')
+        log(f'{what}: max_abs_err o/l {err:.3e} (tolerance {tol}); '
+            f'reruns bit-identical')
+        if not timed or label not in ('full_hop', 'diagonal_hop'):
+            continue
+        fn = lambda: ra.chunk_update(q, k, v, *state, **opts)
+        events, ms = cuda_ms(torch, fn), device_ms(torch, fn)
+        plain_ms = cuda_ms(torch, lambda: ra.chunk_update_plain(
+            q, k, v, *state, **opts), iters=3, warmup=1)
+        bound_ms, bound_by = _ring_bound(torch, q, k, mode, q_off, k_off)
+        flash_ms = device_ms(torch, lambda: fa.flash_forward(
+            q, k, v, causal=mode == 1, sm_scale=scale))
+        state_ms = (2 * q.numel() * 4 + 4 * q.numel() // q.shape[-1] * 4
+                    ) / HBM_BYTES_PER_S * 1e3
+        records[label] = {'max_abs_err': err, 'ms': ms,
+                          'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                          'bound_by': bound_by, 'library_ms': None}
+        log(f'ring {label} bf16 B={sh["batch"]} Sq=Sk={chunk} '
+            f'H={sh["heads"]} KV={sh["kv_heads"]} D={sh["head_dim"]}: '
+            f'kernel_ms={ms:.4f} (device; CUDA events {events:.4f}) '
+            f'plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} '
+            f'({bound_by}); kernel 3 forward at this shape '
+            f'{flash_ms:.4f} (device), + the state\'s bytes at 3.35 TB/s '
+            f'{state_ms:.4f}: ratio {ms / (flash_ms + state_ms):.3f}; '
+            f'library: none (no single PyTorch call updates an '
+            f'online-softmax state)')
+    del case, q, k, v
+    torch.cuda.empty_cache()
     return records
 
 
@@ -4840,23 +4892,40 @@ def _ring_hop_grads(torch, q, k, v, g, ring_grads, flash_grads, sp) -> tuple:
     return worst, dropped
 
 
+# The ring paths held against the flash path: (name, batch, heads,
+# kv_heads, sp) at S 2048, D 128, bf16: train_sp's one-process ring, a
+# rank pair of train_sp_compose's per-rank ring (B 2 a rank, sp 2; the
+# one-process form gives its hops the same shapes and bits), and moe's
+# --sp 2 run at mixtral's heads.
+RING_PATHS = (('train_sp', 4, 16, 8, 4), ('sp_compose', 2, 16, 8, 2),
+              ('moe_sp', 4, 32, 8, 2))
+
+
 def phase_ring_parity(torch) -> None:
-    """(1) The one-process ring (sp 4) against the flash path at llama3-1b
-    heads (B 4, S 2048, H 16, KV 8, D 128, bf16), forward and dQ/dK/dV:
-    elementwise, forward 2e-2 (both round the output to bf16) and
-    gradients 5e-2 (the ring rounds each hop's share to bf16 before its
-    fp32 sum, up to 4 shares a chunk); and per sequence chunk
-    norm-relative within RING_PATH_LIMIT, which every dropped hop must
-    exceed. (2) The backward's flash dQ and dK/dV kernels at every hop's
-    shape against their plain twins. (3) train_parity's two steps with
-    sp 2."""
-    from skypilot_tpu_torch.ops import flash_attention as fa
-    from skypilot_tpu_torch.ops import ring_attention as ra
+    """At each RING_PATHS shape: (1) the one-process ring against the
+    flash path, forward and dQ/dK/dV: elementwise, forward 2e-2 (both
+    round the output to bf16) and gradients 5e-2 (the ring rounds each
+    hop's share to bf16 before its fp32 sum, up to 4 shares a chunk); and
+    per sequence chunk norm-relative within RING_PATH_LIMIT, which every
+    dropped hop must exceed. (2) The backward's flash dQ and dK/dV
+    kernels at every hop's shape against their plain twins. Then (3)
+    train_parity's two steps with sp 2."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sp = 4
-    q, k, v, g = _flash_case(torch, 4, 2048, 16, 8, 128, torch.bfloat16,
-                             seed=8)
+    for seed, path in enumerate(RING_PATHS, start=8):
+        _ring_path_parity(torch, *path, seed=seed)
+    phase_train_parity(torch, sp=2)
+
+
+def _ring_path_parity(torch, name, batch, heads, kv_heads, sp,
+                      seed) -> None:
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    seq = 2048
+    q, k, v, g = _flash_case(torch, batch, seq, heads, kv_heads, 128,
+                             torch.bfloat16, seed=seed)
+    where = (f'ring parity {name} (sp {sp}, B {batch}, S {seq}, H {heads}, '
+             f'KV {kv_heads}, bf16)')
     _reset_launches()
     ring = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = ra.ring_attention_sharded(*ring, sp=sp)
@@ -4867,48 +4936,46 @@ def phase_ring_parity(torch) -> None:
     expected = {'chunk_update': hops, 'flash_forward': 0, 'flash_dq': hops,
                 'flash_dkv': hops}
     if launched != expected:
-        fail(f'ring parity: launches {launched} != {expected}')
+        fail(f'{where}: launches {launched} != {expected}')
     flash = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     ref = fa.flash_attention(*flash, impl='pallas')
     ref.backward(g)
     torch.cuda.synchronize()
-    errs = {'out': _check_close(torch, 'ring vs flash O', out.detach(),
+    errs = {'out': _check_close(torch, f'{where} O', out.detach(),
                                 ref.detach(), (2e-2, 2e-2))}
-    for name, a, b in zip(('dq', 'dk', 'dv'), ring, flash):
-        errs[name] = _check_close(torch, f'ring vs flash {name}', a.grad,
-                                  b.grad, (5e-2, 5e-2))
-    chunk = q.shape[1] // sp
+    for grad, a, b in zip(('dq', 'dk', 'dv'), ring, flash):
+        errs[grad] = _check_close(torch, f'{where} {grad}', a.grad, b.grad,
+                                  (5e-2, 5e-2))
+    chunk = seq // sp
     rels = {}
-    for name, a, b in (('out', out.detach(), ref.detach()),
+    for what, a, b in (('out', out.detach(), ref.detach()),
                        *zip(('dq', 'dk', 'dv'), (t.grad for t in ring),
                             (t.grad for t in flash))):
-        rels[name] = max(_rel(torch, a[:, c * chunk:(c + 1) * chunk],
+        rels[what] = max(_rel(torch, a[:, c * chunk:(c + 1) * chunk],
                               b[:, c * chunk:(c + 1) * chunk])
                          for c in range(sp))
-        if not rels[name] <= RING_PATH_LIMIT:
-            fail(f'ring vs flash {name}: norm-relative error of a chunk '
-                 f'{rels[name]:.3e} > {RING_PATH_LIMIT}')
-    log(f'ring parity: sp {sp} ring vs flash path (B 4, S 2048, bf16) '
-        f'max_abs_err ' + ', '.join(f'{n} {e:.3e}' for n, e in errs.items())
+        if not rels[what] <= RING_PATH_LIMIT:
+            fail(f'{where} {what}: norm-relative error of a chunk '
+                 f'{rels[what]:.3e} > {RING_PATH_LIMIT}')
+    log(f'{where} vs the flash path: max_abs_err '
+        + ', '.join(f'{n} {e:.3e}' for n, e in errs.items())
         + '; largest norm-relative error of a chunk ' + ', '.join(
             f'{n} {e:.3e}' for n, e in rels.items()) +
         f' (limit {RING_PATH_LIMIT}); launches {launched}')
     hop_err, (dropped, hop) = _ring_hop_grads(
         torch, q, k, v, g, [t.grad for t in ring], [t.grad for t in flash],
         sp)
-    log(f'ring parity: flash dQ, dK/dV at the {_visited_hops(sp)} hop '
-        f'shapes (B 4, 512 x 512, ring lse/delta) vs plain: largest '
+    log(f'{where}: flash dQ, dK/dV at the {hops} hop shapes (B {batch}, '
+        f'{chunk} x {chunk}, ring lse/delta) vs plain: largest '
         f'norm-relative error {hop_err:.3e} (limit {RING_HOP_LIMIT}; '
         f'elementwise {FLASH_TOL["bfloat16"]["grad"]}); a dropped hop would '
         f'read at least {dropped:.3e} (hop q chunk {hop[0]}, kv chunk '
         f'{hop[1]}) against the chunk limit {RING_PATH_LIMIT}')
     if not dropped > RING_PATH_LIMIT:
-        fail(f'ring parity: dropping hop {hop} reads {dropped:.3e}, within '
+        fail(f'{where}: dropping hop {hop} reads {dropped:.3e}, within '
              f'the chunk limit {RING_PATH_LIMIT}: the check cannot see it')
     del q, k, v, g, ring, flash, out, ref
     torch.cuda.empty_cache()
-
-    phase_train_parity(torch, sp=2)
 
 
 def phase_train_sp(torch, smi: str) -> int:
@@ -4986,7 +5053,11 @@ def phase_train_sp(torch, smi: str) -> int:
 
 # ------------------------------------------------------------- train_dp
 
-TRAIN_DP = dict(model='llama3-1b', dp=2, batch=8, seq=1024, steps=4)
+# llama3-1b at full width cut to 8 of its 16 layers (since the ring's
+# compositions joined the smoke, to keep it inside its time budget: a
+# step is mostly gloo moving the gradients and weights, which halve).
+TRAIN_DP = dict(model='llama3-1b', layers=8, dp=2, batch=8, seq=1024,
+                steps=4)
 TRAIN_DP_FRAC = 1 / 2 + 0.05               # ZeRO-1 bytes a rank / plain's
 # The elastic storm: llama3-1b at full width cut to 2 layers, canonical
 # extent 4, 6 steps of B 8 x S 1024 (B 2 a canonical group); incarnations
@@ -5007,6 +5078,17 @@ def _rank_report(torch, history=None) -> dict:
                             history[0]['opt_state_bytes_per_device']]
         out['collectives'] = history[0].get('step_collectives')
     return out
+
+
+def _register_cut(model: str, layers: int) -> str:
+    """The registered name of `model` cut to `layers` layers, what
+    train.run's and the server's --model take (every rank of a group
+    registers it: a rank resolves --model in its own process)."""
+    from skypilot_tpu_torch.models import configs
+    name = f'{model}-{layers}l'
+    configs._register(dataclasses.replace(  # pylint: disable=protected-access
+        configs.get_config(model), name=name, num_layers=layers))
+    return name
 
 
 def _elastic_cfg():
@@ -5033,6 +5115,7 @@ def _train_dp_rank(world, plan: dict) -> dict:
     import torch
 
     from skypilot_tpu_torch.train import elastic, run, trainer
+    _register_cut(TRAIN_DP['model'], TRAIN_DP['layers'])
     out = {'runs': {}, 'elastic': []}
     pair = world.split(TRAIN_DP['dp'])
     for name, argv in plan['runs'].items():
@@ -5101,6 +5184,8 @@ def train_dp_follower(world, plan) -> None:
     _train_dp_rank(world, plan)
     if plan.get('fsdp'):
         _train_fsdp_rank(world, plan['fsdp'])
+    if plan.get('sp_compose'):
+        _sp_compose_rank(world, plan['sp_compose'])
 
 
 def _train_dp_check(cfg, runs: dict, smi: str) -> dict:
@@ -5111,7 +5196,7 @@ def _train_dp_check(cfg, runs: dict, smi: str) -> dict:
     steps, layers = TRAIN_DP['steps'], cfg.num_layers
     series = {name: [(h['loss'], h['grad_norm']) for h in r['history']]
               for name, r in runs.items()}
-    log(f'train_dp: llama3-1b --dp 2 (loss, grad_norm) plain '
+    log(f'train_dp: {cfg.name} --dp 2 (loss, grad_norm) plain '
         f'{series["plain"]}, zero1 {series["zero1"]}')
     if series['plain'] != series['zero1']:
         fail('train_dp: loss and grad_norm differ between --zero1 and '
@@ -5228,22 +5313,26 @@ def _train_dp_argv(root: str, cfg) -> list:
             '1', '--probe-hlo']
 
 
-def phase_train_dp(torch, smi: str, fsdp: bool = False) -> tuple:
+def phase_train_dp(torch, smi: str, fsdp: bool = False,
+                   sp_compose: bool = False) -> tuple:
     """Data-parallel training on the one card: TRAIN_DP_RANKS processes on
     cuda:0 over gloo (NCCL takes one card a rank); plain and ZeRO-1
     through train.run.main --dp 2, then the elastic storm; with `fsdp`
-    then train_fsdp's runs on the same processes. Returns kernels 3-5's
-    launches on every rank of every run, the plain run's (loss,
-    grad_norm) series, and train_fsdp's runs (or None)."""
+    then train_fsdp's runs on the same processes, with `sp_compose`
+    then train_sp_compose's. Returns kernels 3-5's launches on every rank
+    of every run, the plain run's (loss, grad_norm) series, train_fsdp's
+    runs (or None) and train_sp_compose's (or None)."""
     from skypilot_tpu_torch.models.configs import get_config
     from skypilot_tpu_torch.parallel.mesh import train_group
     t_phase = time.monotonic()
-    cfg = get_config(TRAIN_DP['model'], param_dtype='bfloat16')
+    cfg = get_config(_register_cut(TRAIN_DP['model'], TRAIN_DP['layers']),
+                     param_dtype='bfloat16')
     root = tempfile.mkdtemp()
     argv = _train_dp_argv(root, cfg) + ['--dp', str(TRAIN_DP['dp'])]
     plan = {'runs': {'plain': argv, 'zero1': argv + ['--zero1']},
             'dir': os.path.join(root, 'elastic'),
-            'fsdp': _fsdp_plan(root, cfg) if fsdp else None}
+            'fsdp': _fsdp_plan(root, cfg) if fsdp else None,
+            'sp_compose': _sp_compose_plan(root) if sp_compose else None}
     try:
         t0 = time.monotonic()
         world = train_group(TRAIN_DP_RANKS,
@@ -5257,6 +5346,8 @@ def phase_train_dp(torch, smi: str, fsdp: bool = False) -> tuple:
             out = _train_dp_rank(world, plan)
             fsdp_out = (_train_fsdp_rank(world, plan['fsdp']) if fsdp
                         else None)
+            sp_out = (_sp_compose_rank(world, plan['sp_compose'])
+                      if sp_compose else None)
         except BaseException:
             world.kill()
             raise
@@ -5271,7 +5362,7 @@ def phase_train_dp(torch, smi: str, fsdp: bool = False) -> tuple:
     torch.cuda.empty_cache()
     plain = [(h['loss'], h['grad_norm'])
              for h in out['runs']['plain']['history']]
-    return launches, plain, fsdp_out
+    return launches, plain, fsdp_out, sp_out
 
 
 # ----------------------------------------------------------------- fsdp
@@ -5288,16 +5379,17 @@ TRAIN_FSDP_FRAC = 1 / 2 + 0.02      # resident bytes a rank / the whole's
 
 
 def _train_fsdp_rank(world, plan: dict) -> dict:
-    """One rank's part of train_fsdp, run by both ranks of `world` (rank
-    0 is the smoke): each run of `plan` through train.run.main on the
-    caller's group at its (dp, fsdp) extents. Rank 0 gets every rank's
-    reports; the others get None."""
+    """One rank's part of train_fsdp (and of train_sp_compose), run by
+    every rank of `world` (rank 0 is the smoke): each run of `plan`
+    through train.run.main on the caller's group at its (dp, fsdp, sp)
+    extents. Rank 0 gets every rank's reports; the others get None."""
     import torch
 
     from skypilot_tpu_torch.train import run
+    _register_cut(TRAIN_DP['model'], TRAIN_DP['layers'])
     out = {}
-    for name, (dp, fsdp, argv) in plan['runs'].items():
-        group = world.split(dp, fsdp)
+    for name, (dp, fsdp, sp, argv) in plan['runs'].items():
+        group = world.split(dp, fsdp, sp)
         if group is not None:
             torch.cuda.synchronize()
             base_gib = torch.cuda.memory_allocated() / 2**30
@@ -5309,6 +5401,7 @@ def _train_fsdp_rank(world, plan: dict) -> dict:
             wall = time.monotonic() - t0
             report = _rank_report(torch, history)
             report['peak_gib'] -= base_gib
+            report['sp_rank'] = group.sp_rank
             model = result.pop('state').model
             report['param_bytes'] = sum(p.numel() * p.element_size()
                                         for p in model.parameters())
@@ -5338,7 +5431,7 @@ def _train_fsdp_check(cfg, runs: dict, dp_plain: list, smi: str) -> dict:
     batch, seq = TRAIN_DP['batch'], TRAIN_DP['seq']
     recompute = 1 if cfg.remat else 0
     series = [(h['loss'], h['grad_norm']) for h in runs['fsdp']['history']]
-    log(f'train_fsdp: llama3-1b fsdp {fsdp} (loss, grad_norm) {series}; '
+    log(f'train_fsdp: {cfg.name} fsdp {fsdp} (loss, grad_norm) {series}; '
         f'--dp 2 {dp_plain}')
     if series[0][0] != dp_plain[0][0]:
         fail(f'train_fsdp: step 0 loss {series[0][0]!r} is not the --dp 2 '
@@ -5372,7 +5465,7 @@ def _train_fsdp_check(cfg, runs: dict, dp_plain: list, smi: str) -> dict:
         units = layers + (0 if lora_run else 2)
         probe = {'all_reduce': 1, 'all_gather': 2 * layers + 2,
                  'reduce_scatter': units, 'partition_scatter': 0,
-                 'reduce_scatter_effective': units}
+                 'collective_permute': 0, 'reduce_scatter_effective': units}
         probes = [rep['collectives'] for rep in r['reports']]
         if any(p != probe for p in probes):
             fail(f'train_fsdp {name}: first step collectives {probes} != '
@@ -5403,7 +5496,6 @@ def _train_fsdp_check(cfg, runs: dict, dp_plain: list, smi: str) -> dict:
             f'the steps ({r["gloo_calls"]} calls, {r["gloo_bytes"]} bytes '
             f'on rank 0); peak GiB a rank '
             f'{[round(rep["peak_gib"], 2) for rep in r["reports"]]} '
-            f'(train_dp --dp 2: 17.56 plain, 16.63 ZeRO-1, PERF.md §5) '
             f'[{smi}]')
     return launches
 
@@ -5422,8 +5514,8 @@ def _fsdp_plan(root: str, cfg, dp: bool = False) -> dict:
             '--warmup-steps', '0', '--learning-rate', '1e-2', '--log-every',
             '1', '--probe-hlo', '--lora-rank', str(TRAIN_FSDP['lora_rank']),
             '--lora-targets', 'q,v']
-    runs = {'dp': (fsdp, 1, argv + ['--dp', str(fsdp)])} if dp else {}
-    runs.update(fsdp=(1, fsdp, argv), lora=(1, fsdp, lora))
+    runs = {'dp': (fsdp, 1, 1, argv + ['--dp', str(fsdp)])} if dp else {}
+    runs.update(fsdp=(1, fsdp, 1, argv), lora=(1, fsdp, 1, lora))
     return {'runs': runs}
 
 
@@ -5437,7 +5529,8 @@ def phase_train_fsdp(torch, smi: str, dp_plain=None, out=None) -> dict:
     from skypilot_tpu_torch.models.configs import get_config
     from skypilot_tpu_torch.parallel.mesh import train_group
     t_phase = time.monotonic()
-    cfg = get_config(TRAIN_DP['model'], param_dtype='bfloat16')
+    cfg = get_config(_register_cut(TRAIN_DP['model'], TRAIN_DP['layers']),
+                     param_dtype='bfloat16')
     if out is not None:
         launches = _train_fsdp_check(cfg, out, dp_plain, smi)
         log(f'train_fsdp: checked train_dp\'s processes\' runs [{smi}]')
@@ -5465,6 +5558,235 @@ def phase_train_fsdp(torch, smi: str, dp_plain=None, out=None) -> dict:
                     for h in out['dp']['history']]
     launches = _train_fsdp_check(cfg, out, dp_plain, smi)
     log(f'train_fsdp: phase in {time.monotonic() - t_phase:.1f}s [{smi}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------- train_sp_compose
+
+# llama3-1b at full width cut to 4 of its 16 layers, B 4 x S 2048
+# (train_sp's shape), on four ranks of cuda:0 over gloo: (a) dp 2 x sp 2,
+# (b) sp 2 beside fsdp 2, (c) LoRA q,v rank 16 at dp 2 x sp 2.
+SP_COMPOSE = dict(model='llama3-1b', layers=4, batch=4, seq=2048, steps=3,
+                  lora_rank=16, lora_steps=2)
+# Every step's loss and grad_norm of (a), (b) and (c) are held against
+# the one-process --sp 2 run of the same cut, argv and batch, and that
+# run's against the flash path's (no --sp), within STEP_GAP_TOL.
+SP_COMPOSE_FRAC = 1 / 2 + 0.02   # (b)'s resident weight bytes / the whole
+
+
+def _sp_compose_plan(root: str) -> dict:
+    """train_sp_compose's runs over one repeated B 4 x S 2048 batch
+    written under `root`: (dp, fsdp, sp, argv) by name, and the
+    one-process references' argv by name: the --sp 2 run of each argv and
+    the flash path's of the plain one."""
+    import numpy as np
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import data
+    t = SP_COMPOSE
+    name = _register_cut(SP_COMPOSE['model'], SP_COMPOSE['layers'])
+    shard = os.path.join(root, 'sp_compose')
+    os.makedirs(shard, exist_ok=True)
+    data.write_token_shard(os.path.join(shard, 'one_batch.bin'),
+                           np.random.RandomState(1).randint(
+                               0, get_config(name).vocab_size,
+                               t['batch'] * t['seq'] + 1))
+    base = ['--model', name, '--batch', str(t['batch']), '--seq',
+            str(t['seq']), '--data-dir', shard, '--warmup-steps', '0',
+            '--log-every', '1']
+    plain = base + ['--steps', str(t['steps']), '--learning-rate', '1e-3']
+    lora = base + ['--steps', str(t['lora_steps']), '--learning-rate', '1e-2',
+                   '--lora-rank', str(t['lora_rank']), '--lora-targets',
+                   'q,v']
+    probe = ['--probe-hlo', '--sp', '2']
+    return {'runs': {'dp2xsp2': (2, 1, 2, plain + probe + ['--dp', '2']),
+                     'sp2xfsdp2': (1, 2, 2, plain + probe),
+                     'lora': (2, 1, 2, lora + probe + ['--dp', '2'])},
+            'references': {'sp2': plain + ['--sp', '2'],
+                           'lora_sp2': lora + ['--sp', '2'],
+                           'flash': plain}}
+
+
+def _sp_compose_rank(world, plan: dict) -> dict:
+    """One rank's part of train_sp_compose, run by every rank of the
+    4-process `world`: rank 0 first runs the one-process references (the
+    others wait), then every run of `plan` on its group
+    (`_train_fsdp_rank`). Rank 0 gets the runs and the references'
+    histories; the others get None."""
+    import torch
+
+    from skypilot_tpu_torch.train import run
+    _register_cut(SP_COMPOSE['model'], SP_COMPOSE['layers'])
+    references = None
+    if world.rank == 0:
+        references = {}
+        for name, argv in plan['references'].items():
+            references[name] = []
+            t0 = time.monotonic()
+            run.main(argv, history=references[name])
+            log(f'train_sp_compose: one-process {name} reference in '
+                f'{time.monotonic() - t0:.1f}s')
+            torch.cuda.empty_cache()
+    world.barrier()
+    out = _train_fsdp_rank(world, plan)
+    return {'runs': out, 'references': references}
+
+
+def sp_compose_follower(world, plan) -> None:
+    _sp_compose_rank(world, plan)
+
+
+def _sp_compose_check(out: dict, smi: str) -> dict:
+    """The runs' promises; returns each run's per-rank launches."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import metrics as metrics_lib
+    t = SP_COMPOSE
+    cfg = get_config(_register_cut(SP_COMPOSE['model'],
+                                   SP_COMPOSE['layers']))
+    layers, batch, seq = cfg.num_layers, t['batch'], t['seq']
+    recompute = 1 if cfg.remat else 0
+    refs = out['references']
+    for name, hist in refs.items():
+        log(f'train_sp_compose: {cfg.name} one-process {name} (loss, '
+            f'grad_norm) {_series(hist)}')
+    # No warmup: step 1 is the first on updated weights.
+    missed = _step_gaps('train_sp_compose sp2 vs flash', refs['sp2'],
+                        refs['flash'], updated=1)
+    runs, launches = out['runs'], {}
+    for name, r in runs.items():
+        losses = [h['loss'] for h in r['history']]
+        log(f'train_sp_compose {name}: (loss, grad_norm) '
+            f'{_series(r["history"])}')
+        if not losses[-1] < losses[0]:
+            fail(f'train_sp_compose {name}: the loss did not fall: {losses}')
+        ref = refs['lora_sp2' if name == 'lora' else 'sp2']
+        missed += _step_gaps(f'train_sp_compose {name} vs one-process --sp 2',
+                             r['history'], ref, updated=1)
+        steps = len(losses)
+        ranks = []
+        for rep in r['reports']:
+            hops = rep['sp_rank'] + 1          # a causal ring's rank s
+            want = {'chunk_update': steps * layers * hops * (1 + recompute),
+                    'flash_forward': 0, 'flash_dq': steps * layers * hops,
+                    'flash_dkv': steps * layers * hops}
+            if rep['launches'] != want:
+                fail(f'train_sp_compose {name}: ring rank {rep["sp_rank"]} '
+                     f'launched {rep["launches"]} != {want}')
+            ranks.append(rep['launches'])
+            probe = rep['collectives']
+            fsdp = name == 'sp2xfsdp2'
+            permutes = layers * 2 * (2 + recompute)
+            if probe['collective_permute'] != permutes or (
+                    fsdp and (probe['all_gather'] != 2 * layers + 2 or
+                              probe['reduce_scatter'] != layers + 2 or
+                              probe['all_reduce'] != 2)) or (
+                    not fsdp and (probe['all_reduce'] != 1 or
+                                  probe['all_gather'] or
+                                  probe['reduce_scatter'])):
+                fail(f'train_sp_compose {name}: first step collectives '
+                     f'{probe}')
+        launches[name] = ranks
+        if name == 'sp2xfsdp2':
+            for rep in r['reports']:
+                if not rep['param_bytes'] <= (SP_COMPOSE_FRAC *
+                                              rep['whole_param_bytes']):
+                    fail(f'train_sp_compose: a rank holds '
+                         f'{rep["param_bytes"]} of '
+                         f'{rep["whole_param_bytes"]} weight bytes (bound '
+                         f'{SP_COMPOSE_FRAC:.2f})')
+        step_s = statistics.median(h['step_s'] for h in r['history'][1:])
+        log(f'train_sp_compose {name}: launches a rank {ranks} (rank s of '
+            f'the ring: steps {steps} x layers {layers} x (s + 1) hops x '
+            f'(1 + remat {recompute}) chunk updates, steps x layers x (s + '
+            f'1) dQ and dK/dV, no flash forward); first step collectives '
+            f'{r["reports"][0]["collectives"]}; weight bytes a rank / whole '
+            f'{[rep["param_bytes"] for rep in r["reports"]]} / '
+            f'{r["reports"][0]["whole_param_bytes"]}')
+        log(f'train_sp_compose {name}: {steps} steps in {r["wall"]:.1f}s; '
+            f'step {step_s * 1e3:.1f} ms (median of steps 1..{steps - 1}), '
+            f'{metrics_lib.tokens_per_sec(batch, seq, step_s):.0f} tokens/s '
+            f'on the card; gloo collectives {r["gloo_s"]:.1f}s = '
+            f'{r["gloo_s"] / sum(h["step_s"] for h in r["history"]):.3f} of '
+            f'the steps ({r["gloo_calls"]} calls, {r["gloo_bytes"]} bytes '
+            f'on rank 0); peak GiB a rank '
+            f'{[round(rep["peak_gib"], 2) for rep in r["reports"]]} [{smi}]')
+    if missed:
+        fail('train_sp_compose: ' + '; '.join(missed))
+    return launches
+
+
+# Relative gaps of a run's loss and grad_norm from a reference run's on
+# the same argv, weights and batch. While both runs hold the same weights
+# (before the first update), 1e-4: the same products summed in other
+# shapes and orders (a rank's own chunk of its own rows, gradients summed
+# over ranks; the ring's hops against flash's one pass): readings up to
+# 1.9e-5 (H100 80GB HBM3, 700.00 W), where a dropped hop moves a chunk's
+# gradients by 0.5 or more (ring_parity). After an update, 5e-3: Adam
+# divides by the root of the second moment, so a rounding-sized
+# difference in a small gradient component becomes a step-sized weight
+# difference: readings up to 3.1e-4 for (a) and (b), 1.5e-3 for (c) (lr
+# 1e-2), 9.0e-4 the --sp 2 run against flash, 2.5e-3 mixtral's. (CPU, in
+# fp32, the composed steps hold 2e-5 of the JAX step:
+# tests/test_torch_sp_compose.py.)
+STEP_GAP_TOL = {'same_weights': 1e-4, 'updated': 5e-3}
+
+
+def _series(history) -> list:
+    return [(h['loss'], h['grad_norm']) for h in history]
+
+
+def _step_gaps(what: str, got: list, ref: list, updated: int,
+               held=None) -> list:
+    """Log the relative gap of every step's loss and grad_norm in `got`
+    from `ref`'s (histories of one argv's runs, whose step `updated` is
+    the first on updated weights); returns a message for each gap over
+    STEP_GAP_TOL among the first `held` steps (all by default)."""
+    steps = min(len(got), len(ref))
+    held = steps if held is None else held
+    gaps = [(i, key, abs(got[i][key] - ref[i][key]) / abs(ref[i][key]),
+             STEP_GAP_TOL['updated' if i >= updated else 'same_weights'])
+            for i in range(steps) for key in ('loss', 'grad_norm')]
+    log(f'{what}: relative gaps ' + ', '.join(
+        f'step {i} {key} {gap:.3g}' for i, key, gap, _ in gaps) +
+        f' (tolerance {STEP_GAP_TOL["same_weights"]} before step {updated},'
+        f' {STEP_GAP_TOL["updated"]} from it, on steps 0..{held - 1})')
+    return [f'{what}: step {i} {key} {got[i][key]!r} not within {tol} of '
+            f'{ref[i][key]!r}' for i, key, gap, tol in gaps
+            if i < held and not gap <= tol]
+
+
+def phase_train_sp_compose(torch, smi: str, out=None) -> dict:
+    """The sequence ring composed with dp, fsdp and LoRA on the one card:
+    `out`, the runs train_dp's processes made (phase_train_dp with
+    sp_compose), or else 4 processes of its own on cuda:0 over gloo.
+    Returns the ring and flash kernels' launches on every rank of every
+    run."""
+    from skypilot_tpu_torch.parallel.mesh import train_group
+    t_phase = time.monotonic()
+    if out is None:
+        root = tempfile.mkdtemp()
+        plan = _sp_compose_plan(root)
+        try:
+            t0 = time.monotonic()
+            world = train_group(TRAIN_DP_RANKS,
+                                devices=['cuda:0'] * TRAIN_DP_RANKS,
+                                backend='gloo',
+                                target='chip_smoke:sp_compose_follower',
+                                args=[plan], timeout_seconds=600)
+            log(f'train_sp_compose: {TRAIN_DP_RANKS} ranks on cuda:0 over '
+                f'gloo in {time.monotonic() - t0:.1f}s')
+            try:
+                out = _sp_compose_rank(world, plan)
+            except BaseException:
+                world.kill()
+                raise
+            world.close()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    launches = _sp_compose_check(out, smi)
+    log(f'train_sp_compose: phase in {time.monotonic() - t_phase:.1f}s '
+        f'[{smi}]')
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -5888,17 +6210,6 @@ FINETUNE_SERVE = dict(max_seq_len=8192, num_slots=8, paged_block_size=16,
 FINETUNE_DISK_GIB = 27.0
 
 
-def _finetune_model() -> str:
-    """The registered name of FINETUNE's model at its cut depth, what
-    train.run's and the server's --model take."""
-    from skypilot_tpu_torch.models import configs
-    f = FINETUNE
-    name = f'{f["model"]}-{f["layers"]}l'
-    configs._register(dataclasses.replace(  # pylint: disable=protected-access
-        configs.get_config(f['model']), name=name, num_layers=f['layers']))
-    return name
-
-
 def _finetune_launches(cfg, steps: int, eval_forwards: int) -> dict:
     """The fine-tune's flash launch formulas (kin of _expected_launches
     and phase_train's): every layer's forward once a step and again when
@@ -5946,7 +6257,9 @@ def _finetune_serve(torch, label: str, bodies, smi: str, adapter=None,
     engine. Returns (the run, compare's result)."""
     from skypilot_tpu_torch.serve.server import (BackgroundServer,
                                                  InferenceServer)
-    server = InferenceServer(_finetune_model(), **FINETUNE_SERVE, **kw)
+    server = InferenceServer(
+        _register_cut(FINETUNE['model'], FINETUNE['layers']),
+        **FINETUNE_SERVE, **kw)
     engine = server.engine
     t0 = time.monotonic()
     server.warmup()
@@ -6001,7 +6314,7 @@ def phase_finetune(torch, smi: str) -> dict:
     from skypilot_tpu_torch.serve import tenancy
     from skypilot_tpu_torch.train import checkpoints, run, trainer
     f = FINETUNE
-    model = _finetune_model()
+    model = _register_cut(FINETUNE['model'], FINETUNE['layers'])
     cfg = get_config(model, param_dtype='bfloat16')
     lora_cfg = dataclasses.replace(cfg, lora_rank=f['rank'],
                                    lora_alpha=f['alpha'],
@@ -6220,6 +6533,14 @@ MOE_MODELS = (
 MOE_NEW = 32
 MOE_SPEC_K = 4
 MOE_TRAIN = dict(model='mixtral-8x7b', layers=2, batch=4, seq=2048, steps=8)
+# The same training with --sp 2 (one process, the ring's two positions):
+# its steps. Each step's loss and grad_norm are held against the flash
+# run's within STEP_GAP_TOL while the weights have taken at most one
+# update (steps 0-2: step 0's learning rate is 0); after that only
+# logged: top-k routing and capacity turn weight differences of a
+# rounding's size into whole tokens sent elsewhere (step 3 read 0.31 in
+# the loss on an H100 80GB HBM3 at 700.00 W).
+MOE_TRAIN_SP = dict(sp=2, steps=4)
 # The MoE block's bf16 output against an fp32 evaluation of the same
 # block on the same input under the bf16 run's routing: max abs
 # difference over max |output|. Only rounding differs: the bf16 expert
@@ -6227,16 +6548,6 @@ MOE_TRAIN = dict(model='mixtral-8x7b', layers=2, batch=4, seq=2048, steps=8)
 # relative before the down product sums 14336 (10752) of them, as
 # FAMILY_LOGIT_TOL's one bf16 step through a layer.
 MOE_BLOCK_TOL = 3e-2
-
-
-def _moe_model(name: str, layers: int) -> str:
-    """The registered name of `name` cut to `layers` layers (what the
-    server's and train.run's --model take)."""
-    from skypilot_tpu_torch.models import configs
-    cut = f'{name}-{layers}l'
-    configs._register(dataclasses.replace(  # pylint: disable=protected-access
-        configs.get_config(name), name=cut, num_layers=layers))
-    return cut
 
 
 def _moe_drops(block, x) -> tuple:
@@ -6371,7 +6682,7 @@ def _moe_serve(torch, name: str, layers: int, lengths, slots: int,
                                                  InferenceServer)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    server = InferenceServer(_moe_model(name, layers), num_slots=slots,
+    server = InferenceServer(_register_cut(name, layers), num_slots=slots,
                              **MOE_SERVE)
     engine = server.engine
     cfg = engine.cfg
@@ -6516,7 +6827,7 @@ def _moe_train(torch, smi: str) -> dict:
     params, grads and two moments."""
     from skypilot_tpu_torch.models.configs import get_config
     t = MOE_TRAIN
-    name = _moe_model(t['model'], t['layers'])
+    name = _register_cut(t['model'], t['layers'])
     cfg = get_config(name, param_dtype='bfloat16')
     n = cfg.num_params()
     log(f'moe train {name}: {n} params; bf16 params, grads and two bf16 '
@@ -6543,6 +6854,49 @@ def _moe_train(torch, smi: str) -> dict:
         f'2..{t["steps"] - 1}), {tps:.0f} tokens/s, MFU {mfu:.4f} of 989 '
         f'TFLOP/s (active experts only), peak memory {peak_gib:.2f} GiB '
         f'above the {base_gib:.2f} GiB held before [{smi}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches['sp'] = _moe_train_sp(torch, cfg, history, step_s, smi)
+    return launches
+
+
+def _moe_train_sp(torch, cfg, flash: list, flash_step_s: float,
+                  smi: str) -> dict:
+    """MOE_TRAIN with --sp 2 in one process (the ring beside the MoE
+    layers): each step's loss and grad_norm against the flash run's
+    (`flash`, its history) within STEP_GAP_TOL while the weights have
+    taken at most one update, falling;
+    ring launches steps x layers x 3 hops x (1 + remat) chunk updates,
+    steps x layers x 3 dQ and dK/dV, no flash forward; step ms beside the
+    flash run's."""
+    t, sp = MOE_TRAIN, MOE_TRAIN_SP['sp']
+    steps = MOE_TRAIN_SP['steps']
+    history, wall, peak_gib, _, launches = _train_run(
+        torch, cfg, t['batch'], t['seq'], steps, ['--sp', str(sp)])
+    losses = [h['loss'] for h in history]
+    log(f'moe train {cfg.name} --sp {sp}: (loss, grad_norm) '
+        f'{_series(history)}; the flash run\'s {_series(flash)}')
+    missed = _step_gaps(f'moe train {cfg.name} --sp {sp} vs flash', history,
+                        flash, updated=2, held=3)
+    if missed:
+        fail('; '.join(missed))
+    if not losses[-1] < losses[0]:
+        fail(f'moe train --sp {sp}: the loss did not fall: {losses}')
+    recompute = 1 if cfg.remat else 0
+    hops = _visited_hops(sp)
+    expected = {'chunk_update': steps * cfg.num_layers * hops *
+                (1 + recompute),
+                'flash_forward': 0,
+                'flash_dq': steps * cfg.num_layers * hops,
+                'flash_dkv': steps * cfg.num_layers * hops}
+    if launches != expected:
+        fail(f'moe train --sp {sp}: launches {launches} != {expected}')
+    step_s = statistics.median(h['step_s'] for h in history[1:])
+    log(f'moe train {cfg.name} --sp {sp}: launches {launches} (expected '
+        f'{expected}); {steps} steps in {wall:.1f}s; step {step_s * 1e3:.1f} '
+        f'ms (median of steps 1..{steps - 1}) against the flash run\'s '
+        f'{flash_step_s * 1e3:.1f} ms; peak memory {peak_gib:.2f} GiB '
+        f'[{smi}]')
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -7586,7 +7940,7 @@ def _tpc_register() -> tuple:
     configs._register(dataclasses.replace(  # pylint: disable=protected-access
         configs.get_config(name), name=fp32, num_layers=layers,
         dtype='float32', param_dtype='float32'))
-    return _moe_model(*TPC_MOE), fp32
+    return _register_cut(*TPC_MOE), fp32
 
 
 _TPC_ROUTES = {'on': False, 'digests': []}
@@ -8079,7 +8433,8 @@ def phase_tp_compose(torch, smi: str, shard: dict) -> dict:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'train_dp', 'train_fsdp', 'serve', 'resilience',
+          'train_sp', 'train_dp', 'train_fsdp', 'train_sp_compose', 'serve',
+          'resilience',
           'contiguous', 'serve_prefix',
           'serve_tenant', 'serve_sched', 'graph_parity', 'families',
           'serve_hf', 'serve_int8w', 'finetune', 'moe', 'kv_handoff', 'tp',
@@ -8169,10 +8524,11 @@ def main(argv=None) -> int:
                 'launches': launches, **ring['full_hop']})
         gc.collect()
         torch.cuda.empty_cache()
-    dp_plain = fsdp_runs = None
+    dp_plain = fsdp_runs = sp_runs = None
     if 'train_dp' in phases:
-        launched, dp_plain, fsdp_runs = phase_train_dp(
-            torch, smi, fsdp='train_fsdp' in phases)
+        launched, dp_plain, fsdp_runs, sp_runs = phase_train_dp(
+            torch, smi, fsdp='train_fsdp' in phases,
+            sp_compose='train_sp_compose' in phases)
         for entry in kernels:
             attr = next((a for n, a, _ in FLASH_KERNELS
                          if n == entry['name']), None)
@@ -8190,6 +8546,19 @@ def main(argv=None) -> int:
                          if n == entry['name']), None)
             if attr is not None:
                 entry['train_fsdp_launches'] = {
+                    name: [r[attr] for r in ranks]
+                    for name, ranks in launched.items()}
+    if 'train_sp_compose' in phases:
+        launched = phase_train_sp_compose(torch, smi, sp_runs)
+        # Kernels 6 (the ring's chunk update), 4 and 5 on every rank of
+        # every run; kernel 3 launches 0 times there.
+        for entry in kernels:
+            attr = ('chunk_update' if entry['name'] ==
+                    'ring_chunk_wgmma_kernel' else
+                    next((a for n, a, _ in FLASH_KERNELS
+                          if n == entry['name']), None))
+            if attr is not None:
+                entry['train_sp_compose_launches'] = {
                     name: [r[attr] for r in ranks]
                     for name, ranks in launched.items()}
     bf16_pool_bytes = serve_timings = serve_params = resilience = None
@@ -8287,14 +8656,18 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         launched = phase_moe(torch, smi)
+        sp_train = launched['train']['sp']
         for entry in kernels:
             if entry['name'] == 'paged_decode_attention':
                 entry['moe_launches'] = launched['serve']
+            elif entry['name'] == 'ring_chunk_wgmma_kernel':
+                entry['moe_sp_launches'] = sp_train['chunk_update']
             else:
                 attr = next((a for n, a, _ in FLASH_KERNELS
                              if n == entry['name']), None)
                 if attr is not None:
                     entry['moe_launches'] = launched['train'][attr]
+                    entry['moe_sp_launches'] = sp_train[attr]
     if 'kv_handoff' in phases:
         gc.collect()
         torch.cuda.empty_cache()

@@ -35,6 +35,21 @@ compute dtype, the products run in the compute dtype, and the expert
 outputs are weighed by `probs * keep` in fp32 and summed there before
 the cast back.
 
+Under training over a parallel/mesh.TrainGroup a rank's call holds only
+a block of the step's routing batch: its rows under dp and fsdp, its
+columns under the per-rank sequence ring. The reference forms its
+groups, and each group's capacity, over the whole batch in global
+row-major token order (GSPMD keeps `_dispatch`'s semantics when the
+batch is sharded), so the trainer names the block (`RoutingBatch`,
+entered with `use_routing_batch` around the forward and backward) and
+`dispatch` forms those groups: the top-k indices of every rank's block
+are all-gathered (int32, B·S·k values a MoE layer and forward; no
+activation moves), the reference's `positions` run over the whole
+batch, and this rank keeps its tokens' places. A token's output is the
+sum of its kept choices' expert outputs, so the rank then runs only the
+groups its tokens fall in, with the same slots and capacity as the
+whole batch's.
+
 Under tensor-parallel serving (`group` of tp > 1, the reference's
 `mlp -> tp` with `expert` unmapped) each rank holds every expert's
 d_mlp/tp hidden slice (w_gate / w_up (E, d, M/tp), w_down (E, M/tp, d))
@@ -48,7 +63,8 @@ expert.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -109,6 +125,69 @@ def positions(idx: torch.Tensor, e: int) -> torch.Tensor:
     return pos.reshape(n, k, gs).transpose(1, 2)
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutingBatch:
+    """This rank's block of the step's routing batch: the batch is
+    (`rows`, `cols`) tokens, this rank holds the block at (`row0`,
+    `col0`), and `group` (a parallel/mesh.Group, `all_gather`) joins the
+    ranks that hold the rest, rank r's block at `blocks[r]` (every block
+    has this rank's shape)."""
+    rows: int
+    cols: int
+    row0: int
+    col0: int
+    group: Any
+    blocks: Tuple[Tuple[int, int], ...]
+
+
+_ROUTING: Optional[RoutingBatch] = None
+
+
+@contextlib.contextmanager
+def use_routing_batch(batch: Optional[RoutingBatch]):
+    """Route the block's MoE layers over `batch` (None: over each call's
+    own tokens) for the body; process-wide, as a remat recompute runs on
+    autograd's device thread."""
+    global _ROUTING
+    outer, _ROUTING = _ROUTING, batch
+    try:
+        yield
+    finally:
+        _ROUTING = outer
+
+
+def current_routing_batch() -> Optional[RoutingBatch]:
+    return _ROUTING
+
+
+def _global_places(idx: torch.Tensor, e: int, rb: RoutingBatch
+                   ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """(group of each local token (g,), place of each (token, choice) in
+    its expert's buffer (g, k), the groups this rank runs, the group
+    size) over the routing batch `rb`: the reference's groups of the
+    whole batch in row-major token order, each local token's group
+    renumbered among the groups its rank's tokens fall in."""
+    b, s, k = idx.shape
+    every = rb.group.all_gather(idx.to(torch.int32))         # (W, b, s, k)
+    full = every.new_empty((rb.rows, rb.cols, k))
+    for (r0, c0), block in zip(rb.blocks, every.unbind(0)):
+        full[r0:r0 + b, c0:c0 + s] = block
+    g = rb.rows * rb.cols
+    gs = group_size(g)
+    pos = positions(full.reshape(g // gs, gs, k).long(), e)
+    pos = pos.reshape(rb.rows, rb.cols, k)[rb.row0:rb.row0 + b,
+                                             rb.col0:rb.col0 + s]
+    # Each local token's global index, and its group's (from the shapes
+    # alone: no device value is read).
+    tokens = ((torch.arange(b)[:, None] + rb.row0) * rb.cols +
+              torch.arange(s)[None, :] + rb.col0).reshape(-1)
+    groups = tokens // gs
+    touched = torch.unique(groups)
+    local = torch.searchsorted(touched, groups)
+    return (local.to(idx.device), pos.reshape(b * s, k), int(touched.numel()),
+            gs)
+
+
 def _experts(xs: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor) -> torch.Tensor:
     """(E, R, d) rows of each expert → (E, R, d): SiLU(x·gate) * (x·up),
@@ -143,25 +222,33 @@ def dispatch(x: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
     `route` → (B, T, d) in `dtype`, each token's kept choices' expert
     outputs weighed by their probabilities (which choices are kept
     follows from idx alone: `positions` < `capacity`); `reduce` (a tp
-    group's all-reduce) sums the fp32 combine over the ranks."""
+    group's all-reduce) sums the fp32 combine over the ranks. The groups
+    are formed over the routing batch of `use_routing_batch`, which this
+    call holds a block of (the module docstring), else over the call's
+    own tokens."""
+    routing = current_routing_batch()
+    if routing is not None and routing.group.size == 1:
+        routing = None
     e = w_gate.shape[0]
     b, s, d = x.shape
     k = idx.shape[-1]
     g = b * s
-    gs = group_size(g)
-    n = g // gs
-    cap = capacity(gs, k, e, capacity_factor)
     dev = x.device
     with _range('moe_dispatch'):
-        idx = idx.reshape(n, gs, k)
-        pos = positions(idx, e)
-        keep = pos < cap                                      # (N, gs, k)
+        if routing is None:
+            gs = group_size(g)
+            n = g // gs
+            group = torch.arange(n, device=dev).repeat_interleave(gs)
+            pos = positions(idx.reshape(n, gs, k), e).reshape(g, k)
+        else:
+            group, pos, n, gs = _global_places(idx, e, routing)
+        cap = capacity(gs, k, e, capacity_factor)
+        idx = idx.reshape(g, k)
+        keep = pos < cap                                      # (g, k)
         # Slot of each kept (token, choice) in the (E, N, C) buffers,
         # flat; each dropped one gets a slot of its own past them.
-        group = torch.arange(n, device=dev)[:, None, None]
-        slot = (idx * n + group) * cap + pos
-        spare = e * n * cap + torch.arange(g * k, device=dev).reshape(
-            n, gs, k)
+        slot = (idx * n + group[:, None]) * cap + pos
+        spare = e * n * cap + torch.arange(g * k, device=dev).reshape(g, k)
         slot = torch.where(keep, slot, spare).reshape(-1)
         token = torch.arange(g, device=dev)[:, None].expand(g, k).reshape(-1)
         # Which token fills each slot; g (a zero row) where none does.
@@ -177,8 +264,8 @@ def dispatch(x: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
     # k choices summed in order.
     with _range('moe_combine'):
         out = out.reshape(e * n * cap, d)
-        back = torch.where(keep, slot.reshape(n, gs, k), 0).reshape(-1)
-        weights = (probs.reshape(n, gs, k).float() * keep).reshape(g, k, 1)
+        back = torch.where(keep, slot.reshape(g, k), 0).reshape(-1)
+        weights = (probs.reshape(g, k).float() * keep).reshape(g, k, 1)
         picked = out.index_select(0, back).float().reshape(g, k, d) * weights
         total = picked[:, 0]
         for j in range(1, k):

@@ -11,11 +11,13 @@ counts kernel launches.
 
 The ring comes in the reference's two forms, which make the same chunk
 updates in the same order and so give the same bits:
-- `ring_attention(q, k, v, group=...)`: per rank, over a
-  `torch.distributed` group (the reference's `ring_attention` under
-  `shard_map`). Each process holds its (B, S/sp, H|KV, D) chunk; K/V
-  rotate one hop per step with `batch_isend_irecv` (NCCL across cards,
-  gloo on the CPU).
+- `ring_attention(q, k, v, group=...)`: per rank, over a training
+  group's `ring` (parallel/mesh.TrainGroup) or a `torch.distributed`
+  group (the reference's `ring_attention` under `shard_map`). Each
+  process holds its (B, S/sp, H|KV, D) chunk; K/V rotate one hop per
+  step through the group's counted `permute` ('collective_permute', the
+  reference's ring hop: one `batch_isend_irecv`, NCCL across cards, gloo
+  on the CPU, or gloo through the host for ranks that share a card).
 - `ring_attention_sharded(q, k, v, sp=...)`: one process, global
   (B, S, H|KV, D) tensors (the reference's `ring_attention_sharded` on a
   mesh whose sp devices share one host). It runs every rank's hops in
@@ -50,7 +52,6 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from skypilot_tpu_torch.ops import _build, limits
 from skypilot_tpu_torch.ops import flash_attention as fa
@@ -219,23 +220,14 @@ def _finish(o, m, l, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _rotate(group, *tensors):
     """Send each tensor to rank r + 1 of the ring and receive its
-    counterpart from rank r - 1 (one `batch_isend_irecv`)."""
-    sp, rank = dist.get_world_size(group), dist.get_rank(group)
-    dst = dist.get_global_rank(group, (rank + 1) % sp)
-    src = dist.get_global_rank(group, (rank - 1) % sp)
-    sends = [t.contiguous() for t in tensors]
-    recvs = [torch.empty_like(t) for t in sends]
-    ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends] +
-           [dist.P2POp(dist.irecv, t, src, group) for t in recvs])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recvs
+    counterpart from rank r - 1: the ring group's counted `permute`."""
+    return group.permute(tensors)
 
 
 def _rank_forward(q, k, v, group, causal, sm_scale):
     """One rank's ring: its Q chunk against every K/V chunk as it comes
     by, rotating unconditionally every hop so all ranks stay in step."""
-    sp, rank = dist.get_world_size(group), dist.get_rank(group)
+    sp, rank = group.size, group.rank
     chunk = q.shape[1]
     o, m, l = _fresh_state(q)
     k_cur, v_cur = k, v
@@ -286,7 +278,7 @@ def _pair_grads(q, k, v, do, lse, delta, mode, sm_scale):
 
 
 def _rank_backward(q, k, v, do, lse, delta, group, causal, sm_scale):
-    sp, rank = dist.get_world_size(group), dist.get_rank(group)
+    sp, rank = group.size, group.rank
     delta = delta.transpose(1, 2).contiguous()           # (B, H, chunk)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
@@ -379,20 +371,17 @@ def _check_heads(q, k, v) -> None:
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    group=None, causal: bool = True,
                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Exact attention of this rank's sequence chunk over a ring of
-    `group` (default: the whole world), sp = the group's size and the
-    chunk's index = this process's rank in it. q: (B, S/sp, H, D); k/v:
-    (B, S/sp, KV, D). Returns (B, S/sp, H, D) in q.dtype."""
+    """Exact attention of this rank's sequence chunk over the ring
+    `group` (a training group's `ring`, parallel/mesh.TrainGroup), sp =
+    the group's size and the chunk's index = this process's rank in it.
+    q: (B, S/sp, H, D); k/v: (B, S/sp, KV, D). Returns (B, S/sp, H, D) in
+    q.dtype."""
     _check_heads(q, k, v)
-    if not dist.is_initialized():
-        raise RuntimeError('the per-rank ring needs torch.distributed '
-                           '(init_process_group, or parallel.distributed.'
-                           'initialize)')
-    group = group if group is not None else dist.group.WORLD
+    from skypilot_tpu_torch.parallel import sharding
+    sharding.check_ring(group)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    return _Ring.apply(q, k, v, causal, float(sm_scale),
-                       dist.get_world_size(group), group)
+    return _Ring.apply(q, k, v, causal, float(sm_scale), group.size, group)
 
 
 def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor,

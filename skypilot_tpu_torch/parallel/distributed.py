@@ -8,12 +8,12 @@ LOCAL_RANK, MASTER_ADDR, MASTER_PORT) instead of the agent's.
 backend the caller names (gloo also runs on `cuda`). It does nothing with
 one process and is idempotent.
 
-`spawn_group` starts a tensor-parallel serving group or a data-parallel
-training group from one process: the caller becomes rank 0 and the other
-ranks' processes join it over a local rendezvous on a free port. Each
-imports nothing but the port, calls its `target` with its group
-(`parallel.mesh.ServingGroup` or `TrainGroup`) and the spawn's `args`, and
-exits when the target returns, when rank 0 exits, or when rank 0's
+`spawn_group` starts a tensor-parallel serving group or a training group
+(dp x fsdp x sp) from one process: the caller becomes rank 0 and the
+other ranks' processes join it over a local rendezvous on a free port.
+Each imports nothing but the port, calls its `target` with its group
+(`parallel.mesh.ServingGroup` or `TrainGroup`) and the spawn's `args`,
+and exits when the target returns, when rank 0 exits, or when rank 0's
 process goes away (a thread watches the parent's pid), so no follower
 outlives its driver.
 """
@@ -140,15 +140,16 @@ _FOLLOWER_CODE = ('import sys\n'
 
 def spawn_group(tp: int, target: str, devices: Sequence,
                 backend: str, timeout_seconds: int = 300,
-                args: Sequence = (), cls=None, fsdp: int = 1):
+                args: Sequence = (), cls=None, fsdp: int = 1,
+                sp: int = 1):
     """Make this process rank 0 of a `tp`-process group and start the
     `tp - 1` followers: each runs `target` ('module:function') with its
     group (`join_group`'s `cls`) and `args` (JSON values), in this
     process's working directory, so that a relative path in `args` names
     the same file on every rank. `devices[r]` is rank r's device. A
-    training group with `fsdp` > 1 takes its extents on every rank first
-    (mesh.TrainGroup.split). Returns rank 0's group, which holds the
-    follower processes (`close` stops them)."""
+    training group with `fsdp` or `sp` > 1 takes its extents on every
+    rank first (mesh.TrainGroup.split). Returns rank 0's group, which
+    holds the follower processes (`close` stops them)."""
     from skypilot_tpu_torch.parallel import mesh
     cls = cls or mesh.ServingGroup
     address = f'tcp://127.0.0.1:{free_port()}'
@@ -163,6 +164,7 @@ def spawn_group(tp: int, target: str, devices: Sequence,
                            'backend': backend, 'device': str(devices[rank]),
                            'target': target, 'parent': os.getpid(),
                            'timeout': timeout_seconds, 'fsdp': fsdp,
+                           'sp': sp,
                            'group': cls.__name__, 'args': list(args)})
         procs.append(subprocess.Popen(
             [sys.executable, '-c', _FOLLOWER_CODE, spec], env=env,
@@ -176,8 +178,8 @@ def spawn_group(tp: int, target: str, devices: Sequence,
             proc.wait()
         raise
     group.processes = procs
-    if fsdp > 1:
-        group = group.split(tp // fsdp, fsdp)
+    if fsdp * sp > 1:
+        group = group.split(tp // (fsdp * sp), fsdp, sp)
     logger.info('%s group: %d ranks over %s (%s), followers %s', cls.axis,
                 tp, [str(d) for d in devices], backend,
                 [p.pid for p in procs])
@@ -206,8 +208,9 @@ def follower_main(spec_json: str) -> int:
     group = join_group(spec['tp'], spec['rank'], spec['address'],
                        spec['backend'], spec['device'], spec['timeout'],
                        cls=cls)
-    if spec.get('fsdp', 1) > 1:
-        group = group.split(spec['tp'] // spec['fsdp'], spec['fsdp'])
+    fsdp, sp = spec.get('fsdp', 1), spec.get('sp', 1)
+    if fsdp * sp > 1:
+        group = group.split(spec['tp'] // (fsdp * sp), fsdp, sp)
     module, _, name = spec['target'].partition(':')
     try:
         getattr(importlib.import_module(module), name)(group,

@@ -1,24 +1,31 @@
 """Meshes of the port: the dp, fsdp and sp part of the reference's mesh
 inference (skypilot_tpu/parallel/mesh.py `infer_mesh_config`), the
 training group that stands for its `train_mesh` (`:121`) and its
-dp x fsdp training mesh, and the serving group that stands for its
+dp x fsdp x sp training mesh, and the serving group that stands for its
 `decode_mesh` (`:104`).
 
 Training has three parallel axes, in the reference's order: `dp` (rows
 of the batch, outer), `fsdp` (rows of the batch too, and every weight's
-`embed` dimension: parallel/sharding.py) and `sp` (the sequence ring).
-As in the reference, every device no other axis claims goes to fsdp.
+`embed` dimension: parallel/sharding.py) and `sp` (the sequence ring,
+inner). As in the reference, every device no other axis claims goes to
+fsdp.
 
 Both kinds of run are a `Group` of processes, one rank each, over
-torch.distributed, whose `all_reduce`, `all_gather` and `reduce_scatter`
-count calls, bytes and seconds per kind. A training run is a
-`TrainGroup` of dp x fsdp ranks, dp outer and fsdp inner as the
-reference's grid reshape lays out its devices: rank d·fsdp + f is at dp
-index d and fsdp index f; its `column` is the fsdp group of its dp index
-(the ranks that share its weights' slices) and its `row` the dp group of
-its fsdp index. Training ranks are symmetric: every rank runs the same
-step loop on its own rows of the same global batch (the port's
-step-collectives probe reads the counts).
+torch.distributed, whose `all_reduce`, `all_gather`, `reduce_scatter`
+and `permute` count calls, bytes and seconds per kind. A training run is
+a `TrainGroup` of dp x fsdp x sp ranks, laid out as the reference's grid
+reshape lays out its devices (dp outer, sp inner): rank (d·fsdp + f)·sp
++ s is at dp index d, fsdp index f and sp index s. Its subgroups, each
+counting into the group's counts:
+- `ring`: the sp ranks that share (d, f), one sequence ring;
+- `row`: the dp ranks that share (f, s);
+- `column`: the fsdp ranks that share (d, s), which hold one weight's
+  slices between them;
+- `peers`: the dp x sp ranks that share f, which hold the same slices.
+Training ranks are symmetric: every rank runs the same step loop on its
+own block of the same global batch (rows over dp x fsdp, columns over
+sp; the port's step-collectives probe reads the counts), so every rank
+issues the collectives of overlapping subgroups in the same order.
 
 Serving shards on `tp`. Where the reference builds a pure-tp mesh over
 the first `tp` local devices and lets XLA insert the collectives, the
@@ -98,9 +105,10 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 # The collectives of a training step, as the reference's probe names them
-# (skypilot_tpu/train/trainer.py compiled_step_collectives).
+# (skypilot_tpu/train/trainer.py compiled_step_collectives;
+# 'collective_permute' is a ring hop, skypilot_tpu/parallel/hlo_probe.py).
 STEP_COLLECTIVES = ('all_reduce', 'all_gather', 'reduce_scatter',
-                    'partition_scatter')
+                    'partition_scatter', 'collective_permute')
 
 
 def _zeros() -> Dict[str, float]:
@@ -116,8 +124,8 @@ class Group:
     distributed.spawn_group started, `processes` are the other ranks.
 
     `calls`, `bytes` and `seconds` count every device collective made
-    through `all_reduce`, `all_gather` and `reduce_scatter` by kind
-    (STEP_COLLECTIVES; a training group's row and column count into
+    through `all_reduce`, `all_gather`, `reduce_scatter` and `permute` by
+    kind (STEP_COLLECTIVES; a training group's subgroups count into
     their group's); the
     host agreement (`any`), barriers and gathers on `control` are not
     counted. A group of one has no process group and makes no collective.
@@ -216,6 +224,35 @@ class Group:
         self._run('reduce_scatter', x.numel() * x.element_size(), run)
         return out
 
+    def permute(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Send each tensor to rank r + 1 of the group and receive its
+        counterpart from rank r - 1 (one `batch_isend_irecv`), counted as
+        one 'collective_permute' (the reference's ring hop). Over gloo a
+        card's tensors go through the host (gloo moves host tensors)."""
+        import torch.distributed as dist
+        host = self.backend == 'gloo' and any(t.device.type == 'cuda'
+                                              for t in tensors)
+        sends = [t.contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        dst = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
+        src = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+
+        def run():
+            out = [torch.empty(t.shape, dtype=t.dtype) for t in sends] \
+                if host else recvs
+            ops = ([dist.P2POp(dist.isend, t.cpu() if host else t, dst,
+                               self.group) for t in sends] +
+                   [dist.P2POp(dist.irecv, t, src, self.group) for t in out])
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            if host:
+                for mine, got in zip(recvs, out):
+                    mine.copy_(got)
+
+        self._run('collective_permute',
+                  sum(t.numel() * t.element_size() for t in sends), run)
+        return recvs
+
     def counts(self) -> Dict[str, float]:
         """A copy of the collective calls so far, by kind."""
         return dict(self.calls)
@@ -288,48 +325,59 @@ class Group:
 
 @dataclasses.dataclass
 class TrainGroup(Group):
-    """One rank of a training group of dp x fsdp ranks (module
-    docstring): dp outer, fsdp inner. Training ranks are symmetric: every
-    rank runs the same step loop on its own rows of the same global
+    """One rank of a training group of dp x fsdp x sp ranks (module
+    docstring): dp outer, sp inner. Training ranks are symmetric: every
+    rank runs the same step loop on its own block of the same global
     batch, and every collective of a step goes through the counted
-    collectives of the group, its `row` (the dp group of this rank's fsdp
-    index) or its `column` (the fsdp group of its dp index), which count
-    into the group's `calls`, `bytes` and `seconds` (the port's
-    step-collectives probe reads the counts). With fsdp 1 it is a
-    data-parallel group of `dp` ranks (no row or column: the group's own
-    collectives run the step)."""
+    collectives of the group or of its subgroups (`ring`, `row`,
+    `column`, `peers`: the module docstring), which count into the
+    group's `calls`, `bytes` and `seconds` (the port's step-collectives
+    probe reads the counts). With fsdp 1 and sp 1 it is a data-parallel
+    group of `dp` ranks (no subgroups: the group's own collectives run
+    the step)."""
     fsdp: int = 1
+    sp: int = 1
+    ring: Optional[Group] = None
     row: Optional[Group] = None
     column: Optional[Group] = None
+    peers: Optional[Group] = None
 
     @property
     def dp(self) -> int:
-        return self.size // self.fsdp
+        return self.size // (self.fsdp * self.sp)
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.fsdp
+        return self.rank // (self.fsdp * self.sp)
 
     @property
     def fsdp_rank(self) -> int:
-        return self.rank % self.fsdp
+        return self.rank // self.sp % self.fsdp
 
-    def split(self, dp: int, fsdp: int = 1) -> Optional['TrainGroup']:
-        """The group's first dp x fsdp ranks as a group of their own with
-        those extents (this group when they are its own; None on the
-        ranks left out), its rows and columns made. Every rank calls it
-        at the same point. It is how one set of processes runs
-        incarnations at smaller extents (elastic.ElasticTrainLoop), as
-        the reference's elastic loop builds a mesh over the first dp
-        devices of one process, and how a world takes its fsdp extent."""
+    @property
+    def sp_rank(self) -> int:
+        return self.rank % self.sp
+
+    def split(self, dp: int, fsdp: int = 1,
+              sp: int = 1) -> Optional['TrainGroup']:
+        """The group's first dp x fsdp x sp ranks as a group of their own
+        with those extents (this group when they are its own; None on the
+        ranks left out), its subgroups made. Every rank calls it at the
+        same point. It is how one set of processes runs incarnations at
+        smaller extents (elastic.ElasticTrainLoop), as the reference's
+        elastic loop builds a mesh over the first dp devices of one
+        process, and how a world takes its fsdp and sp extents."""
         self._usable()
-        size = dp * fsdp
-        if (dp, fsdp) == (self.dp, self.fsdp):
+        size = dp * fsdp * sp
+        if (dp, fsdp, sp) == (self.dp, self.fsdp, self.sp) and (
+                self.row is not None or fsdp * sp == 1):
             return self
-        if dp < 1 or fsdp < 1 or size > self.size:
-            raise ValueError(f'train_mesh: dp={dp}'
-                             f'{f" x fsdp={fsdp}" if fsdp > 1 else ""} '
-                             f'needs 1..{self.size} ranks')
+        if dp < 1 or fsdp < 1 or sp < 1 or size > self.size:
+            extents = ''.join(f' x {a}={v}' for a, v in (('fsdp', fsdp),
+                                                         ('sp', sp))
+                              if v != 1)
+            raise ValueError(f'train_mesh: dp={dp}{extents} needs '
+                             f'1..{self.size} ranks')
         if size == 1:
             return (TrainGroup(1, 0, self.device) if self.rank == 0
                     else None)
@@ -345,25 +393,42 @@ class TrainGroup(Group):
             control = dist.new_group(ranks, backend='gloo')
             kept = dict(inner=True)
         sub = (TrainGroup(size, self.rank, self.device, backend=self.backend,
-                          group=group, control=control, fsdp=fsdp, **kept)
+                          group=group, control=control, fsdp=fsdp, sp=sp,
+                          **kept)
                if self.rank < size else None)
-        # Every process makes every row's and column's process group
+        if fsdp * sp == 1:
+            return sub
+        # Every process makes every subgroup's process group
         # (dist.new_group is collective over the whole job).
-        rows = [list(range(f, size, fsdp)) for f in range(fsdp)]
-        columns = [list(range(d * fsdp, (d + 1) * fsdp)) for d in range(dp)]
-        made = {}
-        for axis, sets in (('row', rows), ('column', columns)):
-            for ranks in sets:
-                pg = (group if len(ranks) == size else
-                      dist.new_group(ranks, backend=self.backend)
-                      if len(ranks) > 1 else None)
+        def rank_of(d, f, s):
+            return (d * fsdp + f) * sp + s
+
+        grid = [(d, f, s) for d in range(dp) for f in range(fsdp)
+                for s in range(sp)]
+        sets = {
+            'ring': [[rank_of(d, f, s) for s in range(sp)]
+                     for d in range(dp) for f in range(fsdp)],
+            'row': [[rank_of(d, f, s) for d in range(dp)]
+                    for f in range(fsdp) for s in range(sp)],
+            'column': [[rank_of(d, f, s) for f in range(fsdp)]
+                       for d in range(dp) for s in range(sp)],
+            'peers': [[rank_of(d, f, s) for d, g, s in grid if g == f]
+                      for f in range(fsdp)]}
+        made, pgs = {}, {tuple(range(size)): group}
+        for axis, groups in sets.items():
+            for ranks in groups:
+                if len(ranks) > 1 and tuple(ranks) not in pgs:
+                    pgs[tuple(ranks)] = dist.new_group(ranks,
+                                                       backend=self.backend)
+                pg = pgs.get(tuple(ranks))
                 if sub is not None and self.rank in ranks:
                     made[axis] = Group(
                         len(ranks), ranks.index(self.rank), self.device,
                         backend=self.backend, group=pg, calls=sub.calls,
                         bytes=sub.bytes, seconds=sub.seconds, inner=True)
         if sub is not None:
-            sub.row, sub.column = made['row'], made['column']
+            sub.ring, sub.row, sub.column, sub.peers = (
+                made['ring'], made['row'], made['column'], made['peers'])
         return sub
 
 
@@ -545,16 +610,16 @@ def decode_group(tp: int, devices: Optional[Sequence] = None,
 
 def train_group(dp: int, devices: Optional[Sequence] = None,
                 backend: Optional[str] = None, device='cuda', *,
-                fsdp: int = 1, target: Optional[str] = None,
+                fsdp: int = 1, sp: int = 1, target: Optional[str] = None,
                 args: Sequence = (), timeout_seconds: int = 300
                 ) -> TrainGroup:
-    """The training group over dp x fsdp ranks: the counterpart of the
-    reference's `train_mesh(dp, devices)` (fsdp 1) and of its training
-    mesh from `infer_mesh_config`. One rank is a group of one (no
-    process group, no collective). Otherwise:
+    """The training group over dp x fsdp x sp ranks: the counterpart of
+    the reference's `train_mesh(dp, devices)` (fsdp 1, sp 1) and of its
+    training mesh from `infer_mesh_config`. One rank is a group of one
+    (no process group, no collective). Otherwise:
     - under torchrun (WORLD_SIZE set) this process joins as its RANK, on
       cuda:LOCAL_RANK (or the CPU), and the job's topology must be
-      dp x fsdp;
+      dp x fsdp x sp;
     - else this process becomes rank 0 and starts the other ranks
       (distributed.spawn_group), each of which calls `target`
       ('module:function') with its TrainGroup and `args` (JSON values):
@@ -564,16 +629,16 @@ def train_group(dp: int, devices: Optional[Sequence] = None,
     and `backend` as `decode_group`'s: one card named more than once runs
     over gloo only."""
     from skypilot_tpu_torch.parallel import distributed
-    if dp < 1 or fsdp < 1:
-        raise ValueError(f'train_mesh: dp={dp}'
-                         f'{f" x fsdp={fsdp}" if fsdp != 1 else ""} '
-                         f'needs 1..N local devices')
-    size = dp * fsdp
-    axis = f'dp={dp}' + (f' x fsdp={fsdp}' if fsdp > 1 else '')
+    axis = f'dp={dp}' + ''.join(f' x {a}={v}' for a, v in (('fsdp', fsdp),
+                                                           ('sp', sp))
+                                if v != 1)
+    if dp < 1 or fsdp < 1 or sp < 1:
+        raise ValueError(f'train_mesh: {axis} needs 1..N local devices')
+    size = dp * fsdp * sp
     if distributed.topology_from_env().multiprocess:
         world = _join_job('train_mesh', axis, size, backend, device,
                           timeout_seconds, TrainGroup)
-        return world.split(dp, fsdp)
+        return world.split(dp, fsdp, sp)
     devices, backend = _rank_devices('train_mesh', axis, size, devices,
                                      backend, device)
     if size == 1:
@@ -583,4 +648,4 @@ def train_group(dp: int, devices: Optional[Sequence] = None,
                          'needs the target its other ranks run')
     return distributed.spawn_group(size, target, devices, backend,
                                    timeout_seconds, args=list(args),
-                                   cls=TrainGroup, fsdp=fsdp)
+                                   cls=TrainGroup, fsdp=fsdp, sp=sp)

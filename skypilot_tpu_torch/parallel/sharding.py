@@ -13,8 +13,10 @@ as the reference does without an `sp` mesh. Two forms:
 - `use_sequence_parallel(sp=N)`: one process holds the whole sequence and
   runs the N ring positions in turn (ops/ring_attention
   `ring_attention_sharded`);
-- `use_sequence_parallel(group=g)`: each process of the torch.distributed
-  group `g` holds one chunk (ops/ring_attention `ring_attention`).
+- `use_sequence_parallel(group=g)`: each process of the group `g` holds
+  one chunk (ops/ring_attention `ring_attention`); `g` is a training
+  group's `ring` (parallel/mesh.TrainGroup with sp > 1: its hops count
+  into the group's).
 
 The context is process-wide, not per thread: autograd runs a CUDA
 backward on its own device thread, and that is where checkpointed (remat)
@@ -27,7 +29,6 @@ import dataclasses
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,24 +40,35 @@ class SequenceParallel:
     @property
     def rank(self) -> int:
         """This process's ring position (0 in the one-process form)."""
-        return dist.get_rank(self.group) if self.group is not None else 0
+        return self.group.rank if self.group is not None else 0
 
 
 def sequence_parallel(sp: Optional[int] = None, *,
                       group=None) -> SequenceParallel:
     """A validated context: exactly one of `sp` (one process) or `group`
-    (one rank per process; sp is the group's size)."""
+    (one rank per process, a training group's `ring`; sp is its size)."""
     if (sp is None) == (group is None):
         raise ValueError('give exactly one of sp (one process) or group '
                          '(one rank per process)')
     if group is not None:
-        if not dist.is_initialized():
-            raise RuntimeError('a sequence-parallel group needs '
-                               'torch.distributed to be initialized')
-        return SequenceParallel(dist.get_world_size(group), group)
+        check_ring(group)
+        return SequenceParallel(group.size, group)
     if sp < 1:
         raise ValueError(f'sp must be >= 1, got {sp}')
     return SequenceParallel(sp)
+
+
+def check_ring(group) -> None:
+    """Refuse anything but a group of the port (parallel/mesh.Group, a
+    training group's `ring`) as the per-rank ring: its hops are counted
+    collectives of that group."""
+    from skypilot_tpu_torch.parallel.mesh import Group
+    if not isinstance(group, Group):
+        raise RuntimeError(
+            'the per-rank ring runs over a torch.distributed training '
+            "group's ring: parallel.mesh.train_group(dp, sp=N).ring (or "
+            'TrainGroup.split(dp, fsdp, sp).ring), not '
+            f'{type(group).__name__}')
 
 
 _ACTIVE: Optional[SequenceParallel] = None

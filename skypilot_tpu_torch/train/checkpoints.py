@@ -33,6 +33,10 @@ rank reads the slice files through mmap and keeps its own slice of one
 leaf at a time), and an unsharded save onto a ZeRO-1 state. A truncated
 or missing file raises before anything of the state changes.
 
+Under an sp ring the ranks of one (dp, fsdp) index hold replicas: only
+the first of each ring writes, as if the group had no sp axis, and a
+save restores onto any sp extent as onto any other.
+
 A state of an fsdp group (dp x fsdp ranks) saves its slices: the ranks of
 dp index 0 (one per fsdp index f) write `shard-<f>-of-<fsdp>.pt` (the
 trained slices and, without ZeRO-1, their moments) and
@@ -258,9 +262,10 @@ class CheckpointManager:
             group.barrier()
         if state.fsdp is not None:
             self._save_fsdp(tmp, step, state)
-        elif state.zero1:
-            torch.save(state.moments(),
-                       os.path.join(tmp, moments_file(group.rank, state.dp)))
+        elif state.zero1 and state.group.sp_rank == 0:
+            # The sp ranks of a dp index hold the same slices: one writes.
+            torch.save(state.moments(), os.path.join(
+                tmp, moments_file(state.dp_group.rank, state.dp)))
         if lead and state.fsdp is None:
             full = state.state_dict()
             if state.zero1:
@@ -291,6 +296,11 @@ class CheckpointManager:
         ranks of dp index 0, ZeRO-1's moment slices from every rank, the
         layout in state.pt from rank 0."""
         group, fs = state.group, state.fsdp
+        # The sp ranks of a (dp, fsdp) index hold the same slices: the
+        # first writes them.
+        if group.sp_rank:
+            return
+        rank, ranks = group.rank // group.sp, group.size // group.sp
         if group.dp_rank == 0:
             trained = dict(zip(state.names, state.params))
             torch.save({'params': {n: p.detach() for n, p in
@@ -305,7 +315,7 @@ class CheckpointManager:
                     step, shard_file(group.fsdp_rank, group.fsdp, True))
         if state.zero1:
             torch.save(state.moments(), os.path.join(
-                tmp, moments_file(group.rank, group.size)))
+                tmp, moments_file(rank, ranks)))
         if group.rank == 0:
             torch.save({'count': state.count, 'step': step, 'model': {},
                         'fsdp': {'fsdp': group.fsdp, 'dp': group.dp,

@@ -119,7 +119,11 @@ def publish_opt_state_bytes(state) -> Tuple[int, int]:
 def publish_step_collectives(stats: Dict[str, int]) -> None:
     """Land a trainer.step_collectives() dict in the
     skytpu_train_step_collectives{op} gauge family (how gradients land
-    and how params come back)."""
+    and how params come back, and the sequence ring's hops as
+    'collective_permute', the reference's HLO name for a ring hop)."""
+    if 'collective_permute' in stats:
+        _STEP_COLLECTIVES.labels(op='collective_permute').set(
+            stats['collective_permute'])
     for op in ('all_reduce', 'all_gather', 'reduce_scatter',
                'partition_scatter', 'reduce_scatter_effective'):
         if op in stats:

@@ -28,10 +28,25 @@ steps on `--eval-batches` fixed batches.
 
 `--sp N` trains with the sequence split over a ring of N (attention_impl
 'ring', as the reference's `attention_impl: ring` recipe pairs with
---sp). In one process it runs the N ring positions in turn on one device
-(the reference's --sp on a one-host mesh). Under `torchrun
---nproc-per-node N` (WORLD_SIZE == N) each process takes one chunk: NCCL
-on the cards, gloo with --device cpu; rank 0 logs and checkpoints.
+--sp). It comes in two forms:
+- one process runs the N ring positions in turn on one device (the
+  reference's --sp on a one-host mesh): `--sp` without `--dp` (or with
+  `--dp 1`) and without torchrun, on the CPU or on a machine with no
+  more cards than the ring needs;
+- one process a ring position, each taking its chunk of the sequence
+  (the ring's hops counted as 'collective_permute'): under torchrun,
+  where the job of WORLD_SIZE processes is dp x fsdp x sp with the
+  remainder on fsdp, as the reference's mesh is (so `--sp 2` on 4
+  processes is sp 2 beside fsdp 2, the long-context recipe's layout,
+  llm/longcontext/train.yaml); or, without torchrun, with `--dp` above
+  1 or more cards than the ring needs, where this process starts the
+  other ranks as --dp does (on the CPU the ranks are --dp x --sp
+  processes).
+NCCL on the cards, gloo with --device cpu; rank 0 logs and checkpoints.
+MoE models and LoRA train under either form:
+
+    torchrun --nproc-per-node 4 -m skypilot_tpu_torch.train.run \
+        --model llama3-1b --sp 2     # sp 2 x fsdp 2 (on 4 cards)
 
 MoE models (mixtral-8x7b, dbrx) train through the same step: autograd
 through models/moe's dispatch, MFU from ModelConfig.flops_per_token's
@@ -77,8 +92,7 @@ rank 0, gathering one leaf at a time:
         --model llama3-1b          # fsdp 8 (on 8 cards)
 
 Not ported yet (ROADMAP.md): --pp/--microbatches/--pipeline-repeats,
---tp, --ep, --dp with --sp and --sp beside fsdp, LoRA under --sp, and
---sp with a MoE model.
+--tp and --ep.
 """
 from __future__ import annotations
 
@@ -204,23 +218,9 @@ def _check_args(args) -> None:
                          f'{args.sp}')
     if args.lora_rank < 0:
         raise SystemExit('--lora-rank must be >= 0')
-    if args.sp:
-        from skypilot_tpu_torch.models.configs import get_config
-        if get_config(args.model).is_moe:
-            raise SystemExit(
-                '--sp with a MoE model is not ported (ROADMAP.md, the rest '
-                'of training: the ring attention path has no MoE layer '
-                'yet): drop --sp')
-    if args.lora_rank and args.sp:
-        raise SystemExit('LoRA under --sp is not ported (ROADMAP.md, the '
-                         'rest of training): drop --sp or --lora-rank')
     dp = 1 if args.dp is None else args.dp
     if dp < 1:
         raise SystemExit(f'--dp must be >= 1, got {args.dp}')
-    if dp > 1 and args.sp:
-        from skypilot_tpu_torch.train.trainer import DP_SP_NEXT
-        raise SystemExit(f'--dp with --sp is not ported ({DP_SP_NEXT}): '
-                         f'drop one of them')
     if args.elastic:
         if not args.checkpoint_dir:
             raise SystemExit('--elastic requires --checkpoint-dir: the '
@@ -315,44 +315,47 @@ def main(argv=None, history: Optional[List[dict]] = None,
                            'card (pass --device cpu to train on the CPU)')
     topology = distributed.topology_from_env()
     made = None                     # 'spawned' / 'joined' by this call
-    sp_group = None
     if group is not None:
-        if group.dp != (args.dp or group.dp):
-            raise SystemExit(f'a group of {group.dp} dp ranks runs --dp '
-                             f'{group.dp}, not --dp {args.dp}')
-        mesh = MeshConfig(dp=group.dp, fsdp=group.fsdp)
+        if group.dp != (args.dp or group.dp) or group.sp != (args.sp or 1):
+            raise SystemExit(f'a group of dp {group.dp} x sp {group.sp} '
+                             f'ranks runs --dp {group.dp} --sp {group.sp}, '
+                             f'not --dp {args.dp} --sp {args.sp}')
+        mesh = MeshConfig(dp=group.dp, fsdp=group.fsdp, sp=group.sp)
         _check_mesh(args, mesh)
     elif topology.multiprocess:
         mesh = _job_mesh(args, topology.world_size)
         import torch.distributed as dist
         made = 'joined' if not dist.is_initialized() else None
-        if mesh.sp == 1:
-            group = train_group(mesh.dp, fsdp=mesh.fsdp, device=args.device)
-        else:
-            distributed.initialize(topology, device=args.device)
-            sp_group = dist.group.WORLD
-    elif args.sp:
-        mesh = MeshConfig(sp=args.sp)       # one process, every position
-        _check_mesh(args, mesh)
-    else:
-        if args.elastic:
-            # The reference's elastic mesh is pure dp over the first dp
-            # devices (skypilot_tpu/train/run.py:146-183).
-            mesh = MeshConfig(dp=args.dp)
-        else:
-            count = (torch.cuda.device_count() if args.device == 'cuda'
-                     else args.dp or 1)
-            try:
-                mesh = infer_mesh_config(count, dp=args.dp)
-            except ValueError as e:
-                raise SystemExit(f'{count} local devices: {e}') from e
+        group = train_group(mesh.dp, fsdp=mesh.fsdp, sp=mesh.sp,
+                            device=args.device)
+    elif args.elastic:
+        # The reference's elastic mesh is pure dp over the first dp
+        # devices (skypilot_tpu/train/run.py:146-183).
+        mesh = MeshConfig(dp=args.dp)
         _check_mesh(args, mesh)
         if mesh.num_devices > 1:
-            group = train_group(mesh.dp, fsdp=mesh.fsdp, device=args.device,
+            group = train_group(mesh.dp, device=args.device,
                                 target=FOLLOW_TARGET, args=[argv])
             made = 'spawned'
+    else:
+        count = (torch.cuda.device_count() if args.device == 'cuda'
+                 else (args.dp or 1) * (args.sp or 1))
+        # One process runs every ring position, or the ranks are spawned.
+        one_process = (bool(args.sp) and (args.dp or 1) == 1 and
+                       count <= args.sp)
+        try:
+            mesh = (MeshConfig(sp=args.sp) if one_process else
+                    infer_mesh_config(count, dp=args.dp, sp=args.sp))
+        except ValueError as e:
+            raise SystemExit(f'{count} local devices: {e}') from e
+        _check_mesh(args, mesh)
+        if not one_process and mesh.num_devices > 1:
+            group = train_group(mesh.dp, fsdp=mesh.fsdp, sp=mesh.sp,
+                                device=args.device, target=FOLLOW_TARGET,
+                                args=[argv])
+            made = 'spawned'
     try:
-        _train(args, mesh, topology, group, sp_group, history, result)
+        _train(args, mesh, group, history, result)
     except SystemExit:
         if made == 'spawned':           # the other ranks stop as this one
             group.close()
@@ -364,31 +367,18 @@ def main(argv=None, history: Optional[List[dict]] = None,
     if made == 'spawned':
         group.close()
     elif made == 'joined':
-        if group is not None:
-            group.destroy()
-        else:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+        group.destroy()
     return 0
 
 
 def _job_mesh(args, world: int):
-    """The mesh of a torchrun job of `world` processes: --sp alone takes
-    every process for its ring; else the reference's inference, the
-    remainder on fsdp (--elastic keeps a pure-dp mesh)."""
+    """The mesh of a torchrun job of `world` processes: the reference's
+    inference, the remainder on fsdp (--elastic keeps a pure-dp mesh)."""
     from skypilot_tpu_torch.parallel.mesh import infer_mesh_config
-    if args.sp and args.sp == world:
-        mesh = infer_mesh_config(world, sp=args.sp, fsdp=1)
-        _check_mesh(args, mesh)
-        return mesh
     try:
         mesh = infer_mesh_config(world, dp=args.dp, sp=args.sp)
     except ValueError as e:
         raise SystemExit(f'{world} processes: {e}') from e
-    if mesh.sp > 1:
-        from skypilot_tpu_torch.train.trainer import DP_SP_NEXT
-        raise SystemExit(f'--sp {mesh.sp} beside fsdp={mesh.fsdp} is not '
-                         f'ported ({DP_SP_NEXT}): run --sp {world}')
     if args.elastic and mesh.fsdp > 1:
         raise SystemExit(f'--elastic runs a pure-dp mesh: {world} '
                          f'processes need --dp {world}')
@@ -396,11 +386,10 @@ def _job_mesh(args, world: int):
     return mesh
 
 
-def _train(args, mesh, topology, group, sp_group,
-           history: Optional[List[dict]], result: Optional[dict]) -> None:
-    """main's run on this rank: `group` the data-parallel TrainGroup (or
-    None), `sp_group` the sequence ring's process group under torchrun
-    (or None)."""
+def _train(args, mesh, group, history: Optional[List[dict]],
+           result: Optional[dict]) -> None:
+    """main's run on this rank: `group` the TrainGroup (or None: one
+    process; with `--sp` the one-process ring)."""
     import torch
 
     from skypilot_tpu_torch import callbacks
@@ -420,12 +409,9 @@ def _train(args, mesh, topology, group, sp_group,
             torch.cuda.set_device(device)
     else:
         device = torch.device(args.device)
-        if device.type == 'cuda' and topology.multiprocess:
-            device = torch.device('cuda', topology.local_rank)
-            torch.cuda.set_device(device)
-        coordinator = topology.is_coordinator
-    ranks = group.size if group is not None else topology.world_size
-    collective = ranks > 1 and group is not None   # dp saves are collective
+        coordinator = True
+    ranks = group.size if group is not None else 1
+    collective = ranks > 1                  # a group's saves are collective
     fsdp = group is not None and group.fsdp > 1
 
     elastic = canonical_dp = notice = None
@@ -445,7 +431,8 @@ def _train(args, mesh, topology, group, sp_group,
         notice = elastic.PreemptionNotice()
         notice.install_sigterm()
 
-    overrides = {'attention_impl': 'ring'} if args.sp else {}
+    overrides = {'attention_impl': 'ring'} if mesh.sp > 1 or args.sp \
+        else {}
     if args.lora_rank:
         overrides.update(lora_rank=args.lora_rank,
                          lora_alpha=args.lora_alpha,
@@ -504,12 +491,14 @@ def _train(args, mesh, topology, group, sp_group,
         logger.info('initialized params from HF checkpoint %s in %.1fs',
                     args.init_from_hf, time.perf_counter() - t0)
 
+    # The one-process ring, unless this run's group runs it per rank.
+    one_process_sp = args.sp if args.sp and (
+        group is None or group.sp == 1) else None
     if elastic is not None:
         step_fn = make_elastic_train_step(canonical_dp)
-    elif sp_group is not None:
-        step_fn = make_train_step(grad_accum=args.grad_accum, group=sp_group)
     else:
-        step_fn = make_train_step(grad_accum=args.grad_accum, sp=args.sp)
+        step_fn = make_train_step(grad_accum=args.grad_accum,
+                                  sp=one_process_sp)
 
     def to_device(batch):
         return {k: torch.from_numpy(v).to(device, torch.int64)
@@ -550,7 +539,8 @@ def _train(args, mesh, topology, group, sp_group,
     eval_fn, eval_batches = None, []
     if args.val_dir:
         from skypilot_tpu_torch.train.data import TokenDataset
-        eval_fn = make_eval_step()
+        # A pass scores whole batches: a ring model's in one process.
+        eval_fn = make_eval_step(sp=args.sp)
         val_dataset = TokenDataset(args.val_dir, args.batch, args.seq,
                                    seed=args.data_seed + 1)
         eval_batches = [to_device(val_dataset.next_batch())
@@ -614,9 +604,11 @@ def _train(args, mesh, topology, group, sp_group,
                 if coordinator:
                     logger.info(
                         'step collectives: all_reduce=%d all_gather=%d '
-                        'reduce_scatter=%d (+%d partition-scatter)',
+                        'reduce_scatter=%d (+%d partition-scatter) '
+                        'collective_permute=%d',
                         probe['all_reduce'], probe['all_gather'],
-                        probe['reduce_scatter'], probe['partition_scatter'])
+                        probe['reduce_scatter'], probe['partition_scatter'],
+                        probe['collective_permute'])
             else:
                 metrics = step_fn(state, batch_for(step))
             if device.type == 'cuda':

@@ -2,7 +2,8 @@
 batch split over a data-parallel group (`dp`, with or without ZeRO-1, and
 the extent-invariant elastic step), over a dp x fsdp group (weights,
 gradients and moments sharded ZeRO-3 style, with or without ZeRO-1 on
-the dp axis) or with the sequence split over an `sp` ring.
+the dp axis), with the sequence split over an `sp` ring, or over all
+three at once.
 
 Port of skypilot_tpu/train/trainer.py without the mesh's tp, ep and pp
 axes or the pipeline. A step is: forward over the whole sequence
@@ -12,36 +13,40 @@ clip_by_global_norm → optax's adamw with the warmup-cosine schedule.
 
 Data parallelism (a TrainState of a parallel/mesh.TrainGroup): ranks are
 symmetric processes. Every rank holds the same global batch and takes
-rows [r B/dp, (r + 1) B/dp) of it (of each microbatch under grad_accum),
-so the data order is the same at any extent; the loss is the global
-masked mean (each rank's Σ loss·mask over the global Σ mask, which every
-rank reads off the batch), the rank's gradients are its share of it, and
-the shares are summed in fp32 once per optimizer step. ZeRO-1 and the
-elastic step: TrainState and make_elastic_train_step.
+its block of it (of each microbatch under grad_accum): rows [r B/R,
+(r + 1) B/R) for its row index r of R = dp x fsdp ((dp, fsdp)
+row-major), and under an sp ring columns [s S/sp, (s + 1) S/sp) for its
+ring position s. So the data order is the same at any extent; the loss
+is the global masked mean (each rank's Σ loss·mask over the global
+Σ mask, which every rank reads off the batch), the rank's gradients are
+its share of it, and the shares are summed in fp32 once per optimizer
+step: one all-reduce over the whole group. ZeRO-1 and the elastic step:
+TrainState and make_elastic_train_step. A MoE model routes over the
+whole (per accumulation) batch in either case (models/moe.RoutingBatch:
+the reference's groups, which GSPMD keeps when the batch is sharded).
 
 fsdp (a TrainState of a group with fsdp > 1; parallel/fsdp.py): each
-rank holds its slices of the params and of the AdamW moments. The rows
-are split over the dp x fsdp ranks as over dp ranks ((dp, fsdp)
-row-major: rank d·fsdp + f takes the (d·fsdp + f)-th part), so the
-forward and the loss share are those of `--dp` at the same extent. Each
-unit's backward reduce-scatters its gradients over the fsdp group (fp32,
-each microbatch, accumulated in fp32 on the slices); once per optimizer
-step the dp group sums the slices (dp > 1) and the whole group the loss
-and the slices' squares, whose square root is grad_norm; then the
-clip and AdamW on each rank's slices (ZeRO-1 cuts them further over its
-dp group).
+rank holds its slices of the params and of the AdamW moments. The
+blocks are those of `--dp` at the same extent, so the forward and the
+loss share are too. Each unit's backward reduce-scatters its gradients
+over its column (the fsdp group that shares its dp and sp indices;
+fp32, each microbatch, accumulated in fp32 on the slices); once per
+optimizer step the peers that hold the same slices (dp x sp of them)
+sum them, and the whole group the loss and the slices' squares (counted
+once per fsdp index), whose square root is grad_norm; then the clip and
+AdamW on each rank's slices (ZeRO-1 cuts them further over its dp
+group).
 
-Sequence parallelism (`make_train_step(sp=N)` or `(group=g)`) comes in
-the two forms of ops/ring_attention.py. In one process the model sees
-the whole sequence and only attention is split (the reference's sp mesh
-on one host): the step is the plain step inside the sp context. Per rank
-(one process per ring position of the group) each process takes columns
-[r S/sp, (r + 1) S/sp) of inputs, targets and mask; the loss is the
-global masked mean (Σ loss·mask and Σ mask all-reduced over the group);
-each rank's gradients are its share of that mean, and they are summed
-over the group in fp32 before the update, so clipping sees the global
-norm and every rank applies the same update (the reference's
-replicated-over-sp parameters under jit).
+Sequence parallelism comes in the two forms of ops/ring_attention.py.
+In one process (`make_train_step(sp=N)`) the model sees the whole
+sequence and only attention is split (the reference's sp mesh on one
+host): the step is the plain step inside the sp context. Per rank (a
+group with sp > 1: one process per ring position of each (dp, fsdp)
+index) the model reads the rank's columns with its positions, attends
+over the group's `ring`, and the step is the group's step above: the
+loss share, the one fp32 sum (fsdp: the column, the peers, the whole
+group), so clipping sees the global norm and every rank applies the
+same update (the reference's replicated-over-sp parameters under jit).
 
 The optimizer must compute what the reference's optax chain computes.
 torch.optim.AdamW (fused) does the adamw part once it is driven as optax
@@ -84,8 +89,8 @@ import math
 from typing import Callable, Dict, List, Optional
 
 import torch
-import torch.distributed as dist
 
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.ops import limits
@@ -167,12 +172,14 @@ class TrainState:
         self.params = [p for _, p in trained]
         self.group = group
         self.dp = group.dp if group is not None else 1
-        # fsdp: the model's FullyShard; the dp collectives then run on the
-        # group's row (its dp group), else on the group itself.
+        # fsdp: the model's FullyShard. ZeRO-1's dp collectives run on the
+        # group's row (its dp group) when it has subgroups, else on the
+        # group itself.
         self.fsdp = model.fsdp
         if self.fsdp is not None and group is None:
             raise ValueError('an fsdp model trains in its TrainGroup')
-        self.dp_group = group.row if self.fsdp is not None else group
+        self.dp_group = (group.row if group is not None and
+                         group.row is not None else group)
         # The group whose ranks save, restore and agree together.
         self.ranks = group if group is not None and group.size > 1 \
             else None
@@ -361,44 +368,53 @@ def _loss(model: Transformer, batch: Dict[str, torch.Tensor]
                                   batch.get('mask'))
 
 
-def _rank_loss(model: Transformer, batch: Dict[str, torch.Tensor],
-               ctx: sharding.SequenceParallel) -> torch.Tensor:
-    """This rank's share of the global masked-mean loss: its columns'
-    Σ loss·mask over the group's Σ mask (the denominator all-reduced and
-    held constant, as the mask is)."""
-    seq = batch['inputs'].shape[1]
-    if seq % ctx.sp:
-        raise ValueError(f'sequence {seq} is not divisible by sp={ctx.sp}')
-    chunk = seq // ctx.sp
-    cols = slice(ctx.rank * chunk, (ctx.rank + 1) * chunk)
-    logits = model(batch['inputs'][:, cols])
-    with torch.profiler.record_function('cross_entropy'):
-        mask = batch.get('mask')
-        losses, mask = _token_losses(logits, batch['targets'][:, cols],
-                                     None if mask is None else mask[:, cols])
-        count = mask.sum().detach()
-        dist.all_reduce(count, group=ctx.group)
-        return torch.sum(losses * mask) / torch.clamp(count, min=1.0)
+def _origins(group, batch: Dict[str, torch.Tensor]) -> tuple:
+    """((rows, columns) of a block, each rank's block origin in rank
+    order) of `batch` under `group` (module docstring): rows over dp x
+    fsdp, columns over the sp ring."""
+    rows, seq = batch['inputs'].shape
+    extent = group.dp * group.fsdp
+    if rows % extent:
+        raise ValueError(f'batch {rows} is not divisible by dp*fsdp = '
+                         f'{extent}')
+    if seq % group.sp:
+        raise ValueError(f'sequence {seq} is not divisible by '
+                         f'sp={group.sp}')
+    part, chunk = rows // extent, seq // group.sp
+    return (part, chunk), [((r // group.sp) * part, (r % group.sp) * chunk)
+                           for r in range(group.size)]
 
 
-def _row_loss(state: TrainState, batch: Dict[str, torch.Tensor]
-              ) -> torch.Tensor:
-    """This rank's share of the global masked-mean loss under data
-    parallelism (and fsdp, whose ranks split the rows too): its rows'
-    Σ loss·mask over the global batch's Σ mask (every rank holds the
-    global batch, so the denominator needs no collective)."""
-    rows, ranks = batch['inputs'].shape[0], state.group.size
-    if rows % ranks:
-        raise ValueError(f'batch {rows} is not divisible by dp={state.dp}')
-    part = rows // ranks
-    mine = slice(state.group.rank * part, (state.group.rank + 1) * part)
+def _routing(state: TrainState, batch: Dict[str, torch.Tensor]):
+    """The MoE routing batch of a group's step: the whole (per
+    accumulation) batch, this rank holding its block
+    (models/moe.RoutingBatch); nothing to route otherwise."""
+    group = state.group
+    if not state.model.cfg.is_moe or group is None or group.size == 1:
+        return contextlib.nullcontext()
+    _, origins = _origins(group, batch)
+    return moe.use_routing_batch(moe.RoutingBatch(
+        *batch['inputs'].shape, *origins[group.rank], group, tuple(origins)))
+
+
+def _share_loss(state: TrainState, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """This rank's share of the global masked-mean loss under its group:
+    its block's Σ loss·mask over the global batch's Σ mask (every rank
+    holds the global batch, so the denominator needs no collective). A
+    per-rank ring's model reads the rank's columns (its positions start
+    at its chunk)."""
+    (part, chunk), origins = _origins(state.group, batch)
+    row0, col0 = origins[state.group.rank]
+    rows, cols = slice(row0, row0 + part), slice(col0, col0 + chunk)
     mask = batch.get('mask')
     count = (mask.float().sum() if mask is not None else torch.tensor(
         float(batch['targets'].numel()), device=batch['inputs'].device))
-    logits = state.model(batch['inputs'][mine])
+    logits = state.model(batch['inputs'][rows, cols])
     with torch.profiler.record_function('cross_entropy'):
-        losses, maskf = _token_losses(logits, batch['targets'][mine],
-                                      None if mask is None else mask[mine])
+        losses, maskf = _token_losses(
+            logits, batch['targets'][rows, cols],
+            None if mask is None else mask[rows, cols])
         return torch.sum(losses * maskf) / torch.clamp(count, min=1.0)
 
 
@@ -417,8 +433,22 @@ def _sum_over_ranks(loss: torch.Tensor, grads: List[torch.Tensor],
     return flat[0], out
 
 
-def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
-                    group=None
+def _ring_scope(state: TrainState, sp: Optional[int]):
+    """The sequence-parallel context of a step: the one-process ring of
+    `sp` positions, or the per-rank ring of the state's group."""
+    group = state.group
+    ring = group.ring if group is not None and group.sp > 1 else None
+    if ring is not None and sp is not None:
+        raise ValueError(f'this state runs its ring per rank (sp='
+                         f'{group.sp}); make the step without sp')
+    if sp is not None:
+        return sharding.use_sequence_parallel(sp)
+    if ring is not None:
+        return sharding.use_sequence_parallel(group=ring)
+    return contextlib.nullcontext()
+
+
+def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """The train step: loss → grads → clip → adamw, updating `state` in
@@ -431,27 +461,25 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
     per-microbatch means weighted equally).
 
     `sp` N runs the step inside use_sequence_parallel(sp=N) (one process,
-    the model's attention_impl 'ring'); `group` g (a torch.distributed
-    group) runs it per rank of g (module docstring).
+    the model's attention_impl 'ring').
 
-    A state of a data-parallel group (TrainState's `group`, dp > 1) runs
-    the step on the rank's rows of each microbatch and sums the shares
-    once per optimizer step: one all-reduce, which ZeRO-1 counts as its
-    partition scatter (TrainState). Either way the caller passes the
+    A state of a group (TrainState's `group` of more than one rank) runs
+    the step on the rank's block of each microbatch (its rows, and under
+    an sp ring its columns, the ring per rank over the group's `ring`)
+    and sums the shares once per optimizer step: one all-reduce over the
+    whole group, which ZeRO-1 counts as its partition scatter
+    (TrainState); fsdp: `_fsdp_step`. Either way the caller passes the
     global batch."""
-    if sp is not None or group is not None:
-        sharding.sequence_parallel(sp, group=group)       # validate now
-    per_rank = group is not None
+    if sp is not None:
+        sharding.sequence_parallel(sp)                    # validate now
 
     def loss_and_grads(state: TrainState, batch):
-        if per_rank:
-            loss = _rank_loss(state.model, batch,
-                              sharding.current_sequence_parallel())
-        elif state.dp > 1:
-            loss = _row_loss(state, batch)
-        else:
-            loss = _loss(state.model, batch)
-        return loss, torch.autograd.grad(loss, state.params)
+        with _routing(state, batch):
+            if state.group is not None and state.group.size > 1:
+                loss = _share_loss(state, batch)
+            else:
+                loss = _loss(state.model, batch)
+            return loss, torch.autograd.grad(loss, state.params)
 
     def grads_of(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
@@ -475,24 +503,15 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
         return loss / grad_accum, [a / grad_accum for a in acc]
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if (state.dp > 1 or state.fsdp is not None) and (
-                sp is not None or per_rank):
-            raise ValueError(f'dp={state.dp} under sp is not ported '
-                             f'({DP_SP_NEXT})')
-        if state.fsdp is not None:
-            return _fsdp_step(state, batch, grad_accum)
-        scope = (sharding.use_sequence_parallel(sp, group=group)
-                 if sp is not None or per_rank
-                 else contextlib.nullcontext())
-        with scope:
+        group = state.group
+        with _ring_scope(state, sp):
+            if state.fsdp is not None:
+                return _fsdp_step(state, batch, grad_accum)
             loss, grads = grads_of(state, batch)
-            if per_rank:
-                loss, grads = _sum_over_ranks(
-                    loss, grads, lambda x: dist.all_reduce(x, group=group))
-            elif state.dp > 1:
+            if group is not None and group.size > 1:
                 kind = 'partition_scatter' if state.zero1 else 'all_reduce'
                 loss, grads = _sum_over_ranks(
-                    loss, grads, lambda x: state.group.all_reduce(x, kind))
+                    loss, grads, lambda x: group.all_reduce(x, kind))
         grads = [g.to(p.dtype) for g, p in zip(grads, state.params)]
         with torch.profiler.record_function('optimizer'):
             grad_norm = state.apply_gradients(grads)
@@ -505,28 +524,30 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None,
 def _fsdp_step(state: TrainState, batch: Dict[str, torch.Tensor],
                grad_accum: int) -> Dict[str, torch.Tensor]:
     """One optimizer step of an fsdp state (module docstring): per
-    microbatch the forward and backward of the rank's rows, whose units
-    reduce-scatter their gradients into the slices (fp32); then one
-    all-reduce of the slices over the dp group (dp > 1), one over the
-    whole group (the loss, the slices' sum of squares and the whole
-    leaves' gradients), the clip and AdamW."""
+    microbatch the forward and backward of the rank's block, whose units
+    reduce-scatter their gradients over the column into the slices
+    (fp32); then one all-reduce of the slices over the peers that hold
+    them (dp x sp > 1), one over the whole group (the loss, the slices'
+    sum of squares and the whole leaves' gradients), the clip and
+    AdamW."""
     fs, group = state.fsdp, state.group
     rows = batch['inputs'].shape[0]
     if rows % grad_accum:
         raise ValueError(f'batch {rows} not divisible by '
                          f'grad_accum={grad_accum}')
-    micro = rows // grad_accum
-    if micro % group.size:
+    micro, extent = rows // grad_accum, group.dp * group.fsdp
+    if micro % extent:
         raise ValueError(
             f'per-accumulation batch {micro} (batch {rows} / grad_accum '
-            f'{grad_accum}) must be divisible by dp*fsdp = {group.size}')
+            f'{grad_accum}) must be divisible by dp*fsdp = {extent}')
     fs.zero_grads()
     loss = None
     for i in range(grad_accum):
         mb = ({k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
               if grad_accum > 1 else batch)
-        loss_i = _row_loss(state, mb)
-        torch.autograd.backward(loss_i)
+        with _routing(state, mb):
+            loss_i = _share_loss(state, mb)
+            torch.autograd.backward(loss_i)
         loss = loss_i.detach() if loss is None else loss + loss_i.detach()
         del loss_i
     if grad_accum > 1:
@@ -547,20 +568,21 @@ def _fsdp_step(state: TrainState, batch: Dict[str, torch.Tensor],
             start += p.numel()
         return out
 
-    if state.dp > 1 and cut:
+    if group.peers.size > 1 and cut:
         kind = 'partition_scatter' if state.zero1 else 'all_reduce'
         acc.update(zip(cut, summed(
             [acc[n] for n in cut],
-            lambda x: state.dp_group.all_reduce(x, kind))))
+            lambda x: group.peers.all_reduce(x, kind))))
     dtypes = dict(zip(state.names, (p.dtype for p in state.params)))
     final = {n: (acc[n] / grad_accum if grad_accum > 1 else acc[n]).to(
         dtypes[n]) for n in cut}
-    # The slices' squares once per fsdp index (the dp group's ranks hold
-    # the same slices now: the others add zeros), the loss shares and the
-    # whole leaves' local gradients summed over every rank in one
-    # all-reduce: the loss is then summed as --dp sums it at this extent.
+    # The slices' squares once per fsdp index (its peers hold the same
+    # slices now: the others add zeros), the loss shares and the whole
+    # leaves' local gradients summed over every rank in one all-reduce:
+    # the loss is then summed as --dp sums it at this extent.
+    first = group.dp_rank == 0 and group.sp_rank == 0
     squares = (torch.stack([final[n].float().square().sum() for n in cut])
-               .sum().reshape(1) if cut and group.dp_rank == 0
+               .sum().reshape(1) if cut and first
                else torch.zeros_like(loss))
     loss, squares, *rest = summed([loss, squares] + [acc[n] for n in whole],
                                   group.all_reduce)
@@ -573,10 +595,6 @@ def _fsdp_step(state: TrainState, batch: Dict[str, torch.Tensor],
         grad_norm = state.apply_gradients(grads, norm=torch.sqrt(total))
     return {'loss': loss[0], 'grad_norm': grad_norm, 'step': state.count}
 
-
-# Where ROADMAP.md has data parallelism over a sequence ring (and the
-# sequence ring beside fsdp).
-DP_SP_NEXT = 'ROADMAP.md §1 item 6b: --dp with --sp, and --sp beside fsdp'
 
 # The elastic step's combine moves this many values a collective.
 COMBINE_CHUNK = 1 << 26
@@ -633,9 +651,10 @@ def make_elastic_train_step(canonical_dp: int
         raise ValueError(f'canonical_dp must be >= 1, got {canonical_dp}')
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if state.fsdp is not None:
+        if state.fsdp is not None or (state.group is not None and
+                                      state.group.sp > 1):
             raise ValueError('the elastic step runs a pure-dp mesh, as the '
-                             "reference's does; this state is fsdp")
+                             "reference's does; this state is fsdp or sp")
         dp = state.dp
         if canonical_dp % dp:
             raise ValueError(
@@ -692,12 +711,13 @@ def step_collectives(step_fn, state: TrainState,
     """(metrics, collective counts) of one train step: the counterpart of
     the reference's compiled_step_collectives (skypilot_tpu/train/
     trainer.py:497-521) under its keys: all_reduce, all_gather,
-    reduce_scatter, partition_scatter and reduce_scatter_effective
-    (native + partition). The port has no HLO to parse, so it counts the
-    collectives this step made through the state's group; callers probe
-    the loop's first step, so no batch is skipped or trained twice. The
-    host agreement between steps (TrainGroup.any) is not a step
-    collective and is not counted."""
+    reduce_scatter, partition_scatter, collective_permute (a ring hop;
+    0 off the ring) and reduce_scatter_effective (native + partition).
+    The port has no HLO to parse, so it counts the collectives this step
+    made through the state's group; callers probe the loop's first step,
+    so no batch is skipped or trained twice. The host agreement between
+    steps (TrainGroup.any) is not a step collective and is not
+    counted."""
     from skypilot_tpu_torch.parallel.mesh import STEP_COLLECTIVES
     counts = (state.group.counts if state.group is not None
               else lambda: dict.fromkeys(STEP_COLLECTIVES, 0))
@@ -710,13 +730,19 @@ def step_collectives(step_fn, state: TrainState,
     return metrics, stats
 
 
-def make_eval_step() -> Callable[[TrainState, Dict[str, torch.Tensor]],
+def make_eval_step(sp: Optional[int] = None
+                   ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                  torch.Tensor]:
-    """Forward-only loss (no grads, no state mutation)."""
+    """Forward-only loss (no grads, no state mutation) of the whole
+    batch; `sp` N runs a ring model's attention in one process
+    (use_sequence_parallel(sp=N)), as a per-rank run's ranks score a
+    whole batch each."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        return _loss(state.model, batch)
+        with (sharding.use_sequence_parallel(sp) if sp
+              else contextlib.nullcontext()):
+            return _loss(state.model, batch)
 
     return step
 

@@ -187,7 +187,8 @@ def test_spawned_and_torchrun_ranks_train_the_same(tmp_path):
     first = strip[0]
     assert first['step_collectives'] == {
         'all_reduce': 0, 'all_gather': 1, 'reduce_scatter': 0,
-        'partition_scatter': 1, 'reduce_scatter_effective': 1}
+        'partition_scatter': 1, 'collective_permute': 0,
+        'reduce_scatter_effective': 1}
     assert first['opt_state_bytes_per_device'] <= \
         (1 / 2 + 0.05) * first['opt_state_bytes']
     (spawned_state, files), (ranks_state, ranks_files) = (
@@ -241,8 +242,8 @@ _BASE = ['--model', 'test-tiny', '--seq', '32', '--steps', '1', '--device',
       '--grad-accum', '2'], '--elastic composes with dp/ZeRO-1 only'),
     (['--batch', '4', '--elastic', '--dp', '2', '--checkpoint-dir', 'x',
       '--lora-rank', '4'], '--elastic composes with dp/ZeRO-1 only'),
-    (['--batch', '4', '--dp', '2', '--sp', '2'],
-     r'--dp with --sp is not ported \(ROADMAP.md §1 item 6'),
+    (['--batch', '4', '--dp', '2', '--sp', '2', '--elastic',
+      '--checkpoint-dir', 'x'], '--elastic composes with dp/ZeRO-1 only'),
     (['--batch', '6', '--grad-accum', '2', '--dp', '2'],
      r'per-accumulation batch 3 \(--batch 6 / --grad-accum 2\) must be '
      r'divisible by dp\*fsdp = 2'),
@@ -258,7 +259,8 @@ def test_torchrun_without_an_axis_is_refused_naming_fsdp(monkeypatch):
     # The reference sends every process no axis claims to fsdp: a job of
     # 2 processes with no axis flag is fsdp 2 (test_torch_fsdp.py trains
     # it), --dp 1 leaves fsdp 2, --dp 2 is pure dp and --sp 2 the ring;
-    # the batch must divide dp*fsdp, and --sp beside fsdp is refused.
+    # the batch must divide dp*fsdp, and --sp 2 of 4 processes is the
+    # ring beside fsdp 2 (test_torch_sp_compose.py trains it).
     monkeypatch.setenv('WORLD_SIZE', '2')
     parser = run.build_parser()
     for extra, want in ((['--batch', '4'], mesh.MeshConfig(fsdp=2)),
@@ -272,7 +274,6 @@ def test_torchrun_without_an_axis_is_refused_naming_fsdp(monkeypatch):
     with pytest.raises(SystemExit,
                        match=r'must be divisible by dp\*fsdp = 2'):
         run.main(_BASE + ['--batch', '3'])
-    with pytest.raises(SystemExit, match=r'--sp 2 beside fsdp=2 is not '
-                       r'ported \(ROADMAP.md §1 item 6b'):
-        run._job_mesh(parser.parse_args(_BASE + ['--batch', '4', '--sp',  # pylint: disable=protected-access
-                                                 '2']), 4)
+    assert run._job_mesh(parser.parse_args(_BASE + ['--batch', '4', '--sp',  # pylint: disable=protected-access
+                                                    '2']), 4) == \
+        mesh.MeshConfig(fsdp=2, sp=2)

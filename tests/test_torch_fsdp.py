@@ -268,6 +268,7 @@ def test_collectives_follow_the_formula(fsdp_row, case, accum, dp, lora,
             'reduce_scatter': accum * (layers + (0 if lora else 2)),
             'all_reduce': 1 + (dp > 1 and not zero1),
             'partition_scatter': 1 if zero1 else 0,
+            'collective_permute': 0,
             'reduce_scatter_effective':
                 accum * (layers + (0 if lora else 2)) + (1 if zero1 else 0)}
 
@@ -352,7 +353,7 @@ def test_torchrun_without_an_axis_trains_on_fsdp(tmp_path):
     assert runs[0][0]['step_collectives'] == {
         'all_reduce': 1, 'all_gather': 2 * layers + 2,
         'reduce_scatter': layers, 'partition_scatter': 0,
-        'reduce_scatter_effective': layers}
+        'collective_permute': 0, 'reduce_scatter_effective': layers}
     assert sorted(os.listdir(tmp_path / 'ckpt' / '2')) == [
         'frozen-0-of-2.pt', 'frozen-1-of-2.pt', 'shard-0-of-2.pt',
         'shard-1-of-2.pt', 'state.pt']

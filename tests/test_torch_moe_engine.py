@@ -296,7 +296,8 @@ def test_server_serves_moe_over_http(engine_params):
 def test_train_run_trains_moe_and_refuses_sp(tmp_path):
     """train.run on test-tiny-moe with a checkpoint and an HF export: the
     checkpoint served, exported by export_tool and the run's own export
-    all hold the trained weights; --sp is refused at parse time."""
+    all hold the trained weights; --sp trains it too (the ring beside
+    the MoE layers, as in the reference)."""
     import torch
 
     from skypilot_tpu_torch.models import convert, export_tool
@@ -325,6 +326,8 @@ def test_train_run_trains_moe_and_refuses_sp(tmp_path):
         assert set(state) == set(trained)
         for key, value in trained.items():
             assert torch.equal(state[key], value), key
-    with pytest.raises(SystemExit, match='--sp with a MoE model'):
-        run.main(['--model', 'test-tiny-moe', '--seq', '16', '--sp', '2',
-                  '--device', 'cpu'])
+    history = []
+    assert run.main(['--model', 'test-tiny-moe', '--batch', '2', '--seq',
+                     '16', '--sp', '2', '--steps', '1', '--device', 'cpu'],
+                    history=history) == 0
+    assert len(history) == 1 and np.isfinite(history[0]['loss'])

@@ -11,9 +11,11 @@ package's (skypilot_tpu/ops/ring_attention.py).
   fake CPU devices (impl='pallas_interpret') and against dense attention;
   its gradients against jax.grad of the reference ring (impl='xla', as
   tests/test_ring_attention.py pins it), GQA included.
-- The per-rank form on 2- and 4-process gloo groups equal bit for bit to
-  the one-process form, forward and gradients: both make the same chunk
-  updates and the same flash dQ/dK/dV calls in the same order.
+- The per-rank form on the ring of 2- and 4-process gloo training groups
+  (parallel/mesh.TrainGroup with sp = the world; its hops counted as
+  `collective_permute`) equal bit for bit to the one-process form,
+  forward and gradients: both make the same chunk updates and the same
+  flash dQ/dK/dV calls in the same order.
 - The refusals.
 
 The reference ring takes K/V repeated to H heads; the port's takes them
@@ -377,16 +379,17 @@ def test_refusals():
 # -------------------------------------------------------- per-rank (gloo)
 
 _WORKER = r'''
-import datetime, sys
+import sys
 import numpy as np
 import torch
 import torch.distributed as dist
 from skypilot_tpu_torch.ops import ring_attention as ra
+from skypilot_tpu_torch.parallel import distributed, mesh
 
 tmp, rank, world = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-dist.init_process_group('gloo', init_method=f'file://{tmp}/rendezvous',
-                        rank=rank, world_size=world,
-                        timeout=datetime.timedelta(seconds=30))
+group = distributed.join_group(world, rank, f'file://{tmp}/rendezvous',
+                               'gloo', 'cpu', 30, cls=mesh.TrainGroup)
+ring = group.split(1, 1, world).ring
 data = np.load(f'{tmp}/inputs.npz')
 chunk = data['q'].shape[1] // world
 cols = slice(rank * chunk, (rank + 1) * chunk)
@@ -394,11 +397,12 @@ out = {}
 for causal in (True, False):
     leaves = [torch.from_numpy(np.ascontiguousarray(data[n][:, cols]))
               .requires_grad_() for n in ('q', 'k', 'v')]
-    y = ra.ring_attention(*leaves, causal=causal)
+    y = ra.ring_attention(*leaves, group=ring, causal=causal)
     y.backward(torch.from_numpy(np.ascontiguousarray(data['g'][:, cols])))
     for name, t in zip(('out', 'dq', 'dk', 'dv'),
                        [y] + [x.grad for x in leaves]):
         out[f'{name}_{causal}'] = t.detach().numpy()
+assert ring.calls['collective_permute'] > 0, dict(ring.calls)
 np.savez(f'{tmp}/rank{rank}.npz', **out)
 dist.destroy_process_group()
 '''

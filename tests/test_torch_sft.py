@@ -91,8 +91,12 @@ def test_run_refuses_sft_data_with_data_dir_and_lora_under_sp(tmp_path):
     base = ['--model', 'test-tiny', '--device', 'cpu', '--steps', '1']
     with pytest.raises(SystemExit, match='mutually exclusive'):
         run.main(base + ['--sft-data', 'x.jsonl', '--data-dir', 'd'])
-    with pytest.raises(SystemExit, match='LoRA under --sp is not ported'):
-        run.main(base + ['--lora-rank', '4', '--sp', '2'])
+    # LoRA under --sp trains, as in the reference (ring and adapters
+    # compose; tests/test_torch_sp_compose.py holds the steps).
+    history = []
+    assert run.main(base + ['--lora-rank', '4', '--sp', '2', '--batch', '2',
+                            '--seq', '32'], history=history) == 0
+    assert len(history) == 1 and np.isfinite(history[0]['loss'])
 
 
 def test_run_trains_lora_on_sft_batches(tmp_path):

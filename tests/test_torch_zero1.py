@@ -120,9 +120,11 @@ def test_step_collectives(row, accum):
     does neither; accumulation does not multiply them."""
     plain, zero = row[f'probe/{accum}/0'], row[f'probe/{accum}/1']
     assert plain == {'all_reduce': 1, 'all_gather': 0, 'reduce_scatter': 0,
-                     'partition_scatter': 0, 'reduce_scatter_effective': 0}
+                     'partition_scatter': 0, 'collective_permute': 0,
+                     'reduce_scatter_effective': 0}
     assert zero == {'all_reduce': 0, 'all_gather': 1, 'reduce_scatter': 0,
-                    'partition_scatter': 1, 'reduce_scatter_effective': 1}
+                    'partition_scatter': 1, 'collective_permute': 0,
+                    'reduce_scatter_effective': 1}
 
 
 def test_lora_moments_are_the_adapters_only(row):
