@@ -66,7 +66,9 @@ and passed over):
   flash:    hold the three flash kernels against their plain versions at
             the train path's shape (llama3-1b: B 8, S 1024, H 16, KV 8,
             D 128, causal), fp32 and bf16, plus window 256, non-causal,
-            S 1000 (ragged) and head_dim 64: O, lse, dq, dk, dv; two
+            S 1000 (ragged), head_dim 64, the fine-tune's shape and a tp
+            2 rank's heads on train_tp's paths (B 4 x S 1024, H 8 over KV
+            4; B 2 x S 2048, H 16 over KV 4): O, lse, dq, dk, dv; two
             forward and two backward runs must be bit-identical; the bf16
             forward's grouped tiles at n_rep 1, 2, 4 and 8 and head_dim
             256 from one fused qkv tensor, and the bf16 backward pair's
@@ -171,6 +173,22 @@ and passed over):
             chunk update a hop and layer, again under remat, one dQ and
             one dK/dV; no flash forward); step ms, the gloo share, peak
             memory a rank.
+  train_tp: tensor-parallel training, four processes on cuda:0 over
+            gloo (train_dp's, when it runs): llama3-1b at full width (8
+            of 16 heads, 4 of 8 KV heads, 3072 of 6144 MLP columns and
+            16384 of 32768 vocabulary rows a rank) cut to 4 of 16 layers,
+            B 4 x S 1024, one repeated batch, 3 steps through
+            train.run.main on the caller's group: (a) --tp 2, (b) --tp 2
+            on four ranks (fsdp 2 x tp 2), (c) --dp 2 --tp 2 --zero1
+            --grad-accum 2; (d) LoRA q,v rank 16 under --tp 2 on
+            llama31-8b (16 / 4 heads, 64128 vocabulary rows a rank) cut
+            to 2 of 32 layers, B 2 x S 2048, 2 steps. Each beside the
+            one-process tp 1 run of the same argv: every step's loss and
+            grad_norm within STEP_GAP_TOL; a rank's weight bytes <= (1/2
+            + 0.05) x tp 1's; on every rank the flash launches (steps x
+            layers x (1 + remat) x grad_accum forward, steps x layers x
+            grad_accum dQ and dK/dV) and the step's all-reduces over the
+            tensor group (TP_TENSOR_FORMULA); step ms and the gloo share.
   serve:    the port's HTTP server in-process on localhost with
             llama3-8b at full width and depth (seeded random bf16
             weights made on the card), 8 slots, paged blocks of 16,
@@ -4176,6 +4194,10 @@ def phase_flash(torch) -> dict:
         ('head_dim64', 8, 1024, 16, 8, 64, True, 0),
         # The fine-tune's shape (llama31-8b: n_rep 4, B 4 x S 2048).
         ('finetune', 4, 2048, 32, 8, 128, True, 0),
+        # A tp 2 rank's heads on train_tp's paths: llama3-1b (8 over 4)
+        # and the fine-tune recipe's llama31-8b (16 over 4).
+        ('tp2_1b', 4, 1024, 8, 4, 128, True, 0),
+        ('tp2_8b', 2, 2048, 16, 4, 128, True, 0),
     ]
     records = {}
     for dtype_name in ('float32', 'bfloat16'):
@@ -4219,7 +4241,8 @@ def phase_flash(torch) -> dict:
             log(f'{what}: max_abs_err ' + ', '.join(
                 f'{n} {e:.3e}' for n, e in errs.items()) +
                 f'; forward and backward bit-identical (tolerances {tol})')
-            if label not in ('path', 'finetune') or dtype_name != 'bfloat16':
+            if label not in ('path', 'finetune', 'tp2_1b', 'tp2_8b') or \
+                    dtype_name != 'bfloat16':
                 continue
             bounds = _flash_bounds(torch, case, causal, window)
             sdpa_fwd, sdpa_bwd = _sdpa_ms(torch, case)
@@ -4252,7 +4275,7 @@ def phase_flash(torch) -> dict:
                           'plain_ms': plain_ms, 'bound_ms': bound_ms,
                           'bound_by': bound_by, 'library_ms': library}
                 # The train path's shape is the kernel's entry; the
-                # fine-tune's is a sub-record of it.
+                # fine-tune's and the tp ranks' are sub-records of it.
                 if label == 'path':
                     records[key] = record
                 else:
@@ -5186,6 +5209,8 @@ def train_dp_follower(world, plan) -> None:
         _train_fsdp_rank(world, plan['fsdp'])
     if plan.get('sp_compose'):
         _sp_compose_rank(world, plan['sp_compose'])
+    if plan.get('tp'):
+        _train_tp_rank(world, plan['tp'])
 
 
 def _train_dp_check(cfg, runs: dict, smi: str) -> dict:
@@ -5314,14 +5339,15 @@ def _train_dp_argv(root: str, cfg) -> list:
 
 
 def phase_train_dp(torch, smi: str, fsdp: bool = False,
-                   sp_compose: bool = False) -> tuple:
+                   sp_compose: bool = False, tp: bool = False) -> tuple:
     """Data-parallel training on the one card: TRAIN_DP_RANKS processes on
     cuda:0 over gloo (NCCL takes one card a rank); plain and ZeRO-1
     through train.run.main --dp 2, then the elastic storm; with `fsdp`
     then train_fsdp's runs on the same processes, with `sp_compose`
-    then train_sp_compose's. Returns kernels 3-5's launches on every rank
-    of every run, the plain run's (loss, grad_norm) series, train_fsdp's
-    runs (or None) and train_sp_compose's (or None)."""
+    then train_sp_compose's, with `tp` then train_tp's. Returns kernels
+    3-5's launches on every rank of every run, the plain run's (loss,
+    grad_norm) series, and train_fsdp's, train_sp_compose's and
+    train_tp's runs (each None when not asked for)."""
     from skypilot_tpu_torch.models.configs import get_config
     from skypilot_tpu_torch.parallel.mesh import train_group
     t_phase = time.monotonic()
@@ -5332,7 +5358,8 @@ def phase_train_dp(torch, smi: str, fsdp: bool = False,
     plan = {'runs': {'plain': argv, 'zero1': argv + ['--zero1']},
             'dir': os.path.join(root, 'elastic'),
             'fsdp': _fsdp_plan(root, cfg) if fsdp else None,
-            'sp_compose': _sp_compose_plan(root) if sp_compose else None}
+            'sp_compose': _sp_compose_plan(root) if sp_compose else None,
+            'tp': _tp_plan(root) if tp else None}
     try:
         t0 = time.monotonic()
         world = train_group(TRAIN_DP_RANKS,
@@ -5348,6 +5375,7 @@ def phase_train_dp(torch, smi: str, fsdp: bool = False,
                         else None)
             sp_out = (_sp_compose_rank(world, plan['sp_compose'])
                       if sp_compose else None)
+            tp_out = _train_tp_rank(world, plan['tp']) if tp else None
         except BaseException:
             world.kill()
             raise
@@ -5362,7 +5390,7 @@ def phase_train_dp(torch, smi: str, fsdp: bool = False,
     torch.cuda.empty_cache()
     plain = [(h['loss'], h['grad_norm'])
              for h in out['runs']['plain']['history']]
-    return launches, plain, fsdp_out, sp_out
+    return launches, plain, fsdp_out, sp_out, tp_out
 
 
 # ----------------------------------------------------------------- fsdp
@@ -5378,30 +5406,41 @@ TRAIN_FSDP_TOL = 2e-5
 TRAIN_FSDP_FRAC = 1 / 2 + 0.02      # resident bytes a rank / the whole's
 
 
-def _train_fsdp_rank(world, plan: dict) -> dict:
-    """One rank's part of train_fsdp (and of train_sp_compose), run by
-    every rank of `world` (rank 0 is the smoke): each run of `plan`
-    through train.run.main on the caller's group at its (dp, fsdp, sp)
-    extents. Rank 0 gets every rank's reports; the others get None."""
+def _train_fsdp_rank(world, plan: dict, profile=()) -> dict:
+    """One rank's part of train_fsdp (and of train_sp_compose and
+    train_tp), run by every rank of `world` (rank 0 is the smoke): each
+    run of `plan` through train.run.main on the caller's group at its
+    (dp, fsdp, sp[, tp]) extents; rank 0 of a run named in `profile`
+    traces its steps 2.. with train.run's --profile-dir and reports their
+    kernel time (`kernel_ms`, one list a step). Rank 0 gets every rank's
+    reports; the others get None."""
     import torch
 
     from skypilot_tpu_torch.train import run
     _register_cut(TRAIN_DP['model'], TRAIN_DP['layers'])
     out = {}
-    for name, (dp, fsdp, sp, argv) in plan['runs'].items():
-        group = world.split(dp, fsdp, sp)
+    for name, (*extents, argv) in plan['runs'].items():
+        group = world.split(*extents)
         if group is not None:
             torch.cuda.synchronize()
             base_gib = torch.cuda.memory_allocated() / 2**30
             torch.cuda.reset_peak_memory_stats()
             _reset_launches()
             history, result = [], {}
+            traced = name in profile and group.rank == 0
+            trace_dir = tempfile.mkdtemp() if traced else None
             t0 = time.monotonic()
-            run.main(argv, history=history, result=result, group=group)
+            run.main(argv + (['--profile-dir', trace_dir] if traced else []),
+                     history=history, result=result, group=group)
             wall = time.monotonic() - t0
             report = _rank_report(torch, history)
+            if traced:
+                report['kernel_ms'] = _trace_kernel_ms(os.path.join(
+                    trace_dir, 'trace.json'))
+                shutil.rmtree(trace_dir, ignore_errors=True)
             report['peak_gib'] -= base_gib
             report['sp_rank'] = group.sp_rank
+            report['tp_rank'] = group.tp_rank
             model = result.pop('state').model
             report['param_bytes'] = sum(p.numel() * p.element_size()
                                         for p in model.parameters())
@@ -5417,6 +5456,15 @@ def _train_fsdp_rank(world, plan: dict) -> dict:
             torch.cuda.empty_cache()
         world.barrier()
     return out
+
+
+def _trace_kernel_ms(path: str) -> float:
+    """The CUDA kernels' summed duration (ms) in a Chrome trace that
+    torch.profiler wrote."""
+    with open(path, encoding='utf-8') as f:
+        events = json.load(f)['traceEvents']
+    return sum(e.get('dur', 0) for e in events
+               if e.get('cat') == 'kernel') / 1e3
 
 
 def train_fsdp_follower(world, plan) -> None:
@@ -5787,6 +5835,206 @@ def phase_train_sp_compose(torch, smi: str, out=None) -> dict:
     launches = _sp_compose_check(out, smi)
     log(f'train_sp_compose: phase in {time.monotonic() - t_phase:.1f}s '
         f'[{smi}]')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- train_tp
+
+# Tensor-parallel training on train_dp's four ranks of cuda:0 over gloo:
+# llama3-1b at full width cut to 4 of its 16 layers, B 4 x S 1024, 3
+# steps: (a) --tp 2, (b) --tp 2 on four ranks (fsdp 2 x tp 2), (c) --dp 2
+# --tp 2 --zero1 --grad-accum 2; (d) LoRA q,v rank 16 under --tp 2 on
+# llama31-8b cut to 2 of its 32 layers, B 2 x S 2048, 2 steps (the
+# fine-tune recipe's shard shapes). Every step's loss and grad_norm is
+# held against the one-process tp 1 run of the same argv within
+# STEP_GAP_TOL.
+TRAIN_TP = dict(model='llama3-1b', layers=4, batch=4, seq=1024, steps=3)
+TRAIN_TP_LORA = dict(model='llama31-8b', layers=2, batch=2, seq=2048,
+                     steps=2, rank=16)
+TRAIN_TP_FRAC = 1 / 2 + 0.05      # weight bytes a tp 2 rank / tp 1's
+# Each run's tp 1 reference.
+TRAIN_TP_REFS = {'tp2': 'tp1', 'fsdp2xtp2': 'tp1', 'dp2xtp2': 'tp1_accum2',
+                 'lora': 'lora_tp1'}
+
+
+def _tp_tensor_formula(layers: int, accum: int, remat: int,
+                       lora: bool) -> int:
+    """All-reduces over a tp group in one step (tests/test_torch_tp_train
+    .py derives them): a dense stack A (4L + 5 + L remat), LoRA on q,v
+    A (4L + 4 + L remat) + 1."""
+    per = 4 * layers + (4 if lora else 5) + layers * remat
+    return accum * per + (1 if lora else 0)
+
+
+def _tp_plan(root: str) -> dict:
+    """train_tp's runs, each over one repeated batch written under
+    `root`: (dp, fsdp, sp, tp, argv) by name, and the one-process tp 1
+    references' argv by name."""
+    import numpy as np
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.train import data
+    argvs = {}
+    for kind, spec in (('dense', TRAIN_TP), ('lora', TRAIN_TP_LORA)):
+        model = _register_cut(spec['model'], spec['layers'])
+        shard = os.path.join(root, f'tp_{kind}')
+        os.makedirs(shard, exist_ok=True)
+        data.write_token_shard(os.path.join(shard, 'one_batch.bin'),
+                               np.random.RandomState(2).randint(
+                                   0, get_config(model).vocab_size,
+                                   spec['batch'] * spec['seq'] + 1))
+        argvs[kind] = ['--model', model, '--batch', str(spec['batch']),
+                       '--seq', str(spec['seq']), '--steps',
+                       str(spec['steps']), '--data-dir', shard,
+                       '--warmup-steps', '0', '--log-every', '1']
+    dense = argvs['dense'] + ['--learning-rate', '1e-3']
+    accum = dense + ['--grad-accum', '2']
+    lora = argvs['lora'] + ['--learning-rate', '1e-2', '--lora-rank',
+                            str(TRAIN_TP_LORA['rank']), '--lora-targets',
+                            'q,v']
+    tp = ['--probe-hlo', '--tp', '2']
+    return {'runs': {'tp2': (1, 1, 1, 2, dense + tp),
+                     'fsdp2xtp2': (1, 2, 1, 2, dense + tp),
+                     'dp2xtp2': (2, 1, 1, 2, accum + tp + ['--dp', '2',
+                                                           '--zero1']),
+                     'lora': (1, 1, 1, 2, lora + tp)},
+            'references': {'tp1': dense, 'tp1_accum2': accum,
+                           'lora_tp1': lora}}
+
+
+def _train_tp_rank(world, plan: dict) -> dict:
+    """One rank's part of train_tp, run by every rank of the 4-process
+    `world`: rank 0 first runs the one-process tp 1 references (the
+    others wait), then every run of `plan` on its group, (a) traced on
+    rank 0. Rank 0 gets the runs and the references' histories; the
+    others get None."""
+    import torch
+
+    from skypilot_tpu_torch.train import run
+    for spec in (TRAIN_TP, TRAIN_TP_LORA):
+        _register_cut(spec['model'], spec['layers'])
+    references = None
+    if world.rank == 0:
+        references = {}
+        for name, argv in plan['references'].items():
+            references[name] = []
+            t0 = time.monotonic()
+            run.main(argv, history=references[name])
+            log(f'train_tp: one-process {name} reference in '
+                f'{time.monotonic() - t0:.1f}s')
+            torch.cuda.empty_cache()
+    world.barrier()
+    out = _train_fsdp_rank(world, plan, profile=('tp2',))
+    return {'runs': out, 'references': references}
+
+
+def train_tp_follower(world, plan) -> None:
+    _train_tp_rank(world, plan)
+
+
+def _train_tp_check(out: dict, smi: str) -> dict:
+    """The runs' promises; returns each run's per-rank launches."""
+    from skypilot_tpu_torch.models.configs import get_config
+    from skypilot_tpu_torch.models.transformer import Transformer
+    from skypilot_tpu_torch.train import metrics as metrics_lib
+    refs = out['references']
+    for name, hist in refs.items():
+        log(f'train_tp: one-process {name} (loss, grad_norm) '
+            f'{_series(hist)}')
+    missed, launches = [], {}
+    for name, r in out['runs'].items():
+        lora = name == 'lora'
+        spec = TRAIN_TP_LORA if lora else TRAIN_TP
+        over = (dict(lora_rank=spec['rank'], lora_alpha=16.0,
+                     lora_targets='q,v') if lora else {})
+        cfg = get_config(_register_cut(spec['model'], spec['layers']),
+                         param_dtype='bfloat16', **over)
+        accum = 2 if name == 'dp2xtp2' else 1
+        layers, remat = cfg.num_layers, 1 if cfg.remat else 0
+        losses = [h['loss'] for h in r['history']]
+        log(f'train_tp {name}: {cfg.name} (loss, grad_norm) '
+            f'{_series(r["history"])}')
+        if not losses[-1] < losses[0]:
+            fail(f'train_tp {name}: the loss did not fall: {losses}')
+        missed += _step_gaps(f'train_tp {name} vs tp 1', r['history'],
+                             refs[TRAIN_TP_REFS[name]], updated=1)
+        steps = len(losses)
+        want = {'chunk_update': 0,
+                'flash_forward': steps * layers * (1 + remat) * accum,
+                'flash_dq': steps * layers * accum,
+                'flash_dkv': steps * layers * accum}
+        ranks = [rep['launches'] for rep in r['reports']]
+        launches[name] = ranks
+        if any(got != want for got in ranks):
+            fail(f'train_tp {name}: launches a rank {ranks} != {want}')
+        tensor = _tp_tensor_formula(layers, accum, remat, lora)
+        probes = [rep['collectives'] for rep in r['reports']]
+        if any(p['tensor_all_reduce'] != tensor for p in probes) or any(
+                p != probes[0] for p in probes):
+            fail(f'train_tp {name}: first step collectives {probes}; '
+                 f'{tensor} all-reduces over the tensor group expected')
+        whole = sum(p.numel() * p.element_size() for p in
+                    Transformer(cfg, device='meta').parameters())
+        held = [rep['param_bytes'] for rep in r['reports']]
+        if any(b > TRAIN_TP_FRAC * whole for b in held):
+            fail(f'train_tp {name}: weight bytes a rank {held} over '
+                 f'{TRAIN_TP_FRAC:.2f} x tp 1\'s {whole}')
+        batch, seq = spec['batch'], spec['seq']
+        step_s = statistics.median(h['step_s'] for h in r['history'][1:])
+        log(f'train_tp {name}: launches a rank {ranks} (expected {want}: '
+            f'steps {steps} x layers {layers} x (1 + remat {remat}) x '
+            f'grad_accum {accum} forward, steps x layers x grad_accum dQ '
+            f'and dK/dV); first step collectives {probes[0]} (over tp '
+            f'{tensor} = A (4L + {4 if lora else 5} + L remat)'
+            f'{" + 1" if lora else ""}); weight bytes a rank / tp 1 '
+            f'{held} / {whole}')
+        kernel = r['reports'][0].get('kernel_ms')
+        log(f'train_tp {name}: {steps} steps in {r["wall"]:.1f}s; step '
+            f'{step_s * 1e3:.1f} ms (median of steps 1..{steps - 1}; step '
+            f'1 {r["history"][1]["step_s"] * 1e3:.1f} ms), '
+            f'{metrics_lib.tokens_per_sec(batch, seq, step_s):.0f} tokens/s '
+            f'on the card; gloo collectives {r["gloo_s"]:.1f}s = '
+            f'{r["gloo_s"] / sum(h["step_s"] for h in r["history"]):.3f} of '
+            f'the steps ({r["gloo_calls"]} calls, {r["gloo_bytes"]} bytes '
+            f'on rank 0)' + (f'; kernel time of the traced step 2 on rank '
+                             f'0 {kernel:.1f} ms' if kernel else '') +
+            f'; peak GiB a rank '
+            f'{[round(rep["peak_gib"], 2) for rep in r["reports"]]} [{smi}]')
+    if missed:
+        fail('train_tp: ' + '; '.join(missed))
+    return launches
+
+
+def phase_train_tp(torch, smi: str, out=None) -> dict:
+    """Tensor-parallel training on the one card: `out`, the runs
+    train_dp's processes made (phase_train_dp with tp), or else 4
+    processes of its own on cuda:0 over gloo. Returns the flash kernels'
+    launches on every rank of every run."""
+    from skypilot_tpu_torch.parallel.mesh import train_group
+    t_phase = time.monotonic()
+    if out is None:
+        root = tempfile.mkdtemp()
+        plan = _tp_plan(root)
+        try:
+            t0 = time.monotonic()
+            world = train_group(TRAIN_DP_RANKS,
+                                devices=['cuda:0'] * TRAIN_DP_RANKS,
+                                backend='gloo',
+                                target='chip_smoke:train_tp_follower',
+                                args=[plan], timeout_seconds=600)
+            log(f'train_tp: {TRAIN_DP_RANKS} ranks on cuda:0 over gloo in '
+                f'{time.monotonic() - t0:.1f}s')
+            try:
+                out = _train_tp_rank(world, plan)
+            except BaseException:
+                world.kill()
+                raise
+            world.close()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    launches = _train_tp_check(out, smi)
+    log(f'train_tp: phase in {time.monotonic() - t_phase:.1f}s [{smi}]')
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -8433,7 +8681,8 @@ def phase_tp_compose(torch, smi: str, shard: dict) -> dict:
 
 PHASES = ('kernels', 'kernels_int8', 'lora', 'flash', 'ring_kernels',
           'parity', 'tenant_parity', 'train_parity', 'ring_parity', 'train',
-          'train_sp', 'train_dp', 'train_fsdp', 'train_sp_compose', 'serve',
+          'train_sp', 'train_dp', 'train_fsdp', 'train_sp_compose',
+          'train_tp', 'serve',
           'resilience',
           'contiguous', 'serve_prefix',
           'serve_tenant', 'serve_sched', 'graph_parity', 'families',
@@ -8524,11 +8773,12 @@ def main(argv=None) -> int:
                 'launches': launches, **ring['full_hop']})
         gc.collect()
         torch.cuda.empty_cache()
-    dp_plain = fsdp_runs = sp_runs = None
+    dp_plain = fsdp_runs = sp_runs = tp_runs = None
     if 'train_dp' in phases:
-        launched, dp_plain, fsdp_runs, sp_runs = phase_train_dp(
+        launched, dp_plain, fsdp_runs, sp_runs, tp_runs = phase_train_dp(
             torch, smi, fsdp='train_fsdp' in phases,
-            sp_compose='train_sp_compose' in phases)
+            sp_compose='train_sp_compose' in phases,
+            tp='train_tp' in phases)
         for entry in kernels:
             attr = next((a for n, a, _ in FLASH_KERNELS
                          if n == entry['name']), None)
@@ -8559,6 +8809,16 @@ def main(argv=None) -> int:
                           if n == entry['name']), None))
             if attr is not None:
                 entry['train_sp_compose_launches'] = {
+                    name: [r[attr] for r in ranks]
+                    for name, ranks in launched.items()}
+    if 'train_tp' in phases:
+        launched = phase_train_tp(torch, smi, tp_runs)
+        # Kernels 3-5 on every rank of every tp run, at a rank's heads.
+        for entry in kernels:
+            attr = next((a for n, a, _ in FLASH_KERNELS
+                         if n == entry['name']), None)
+            if attr is not None:
+                entry['train_tp_launches'] = {
                     name: [r[attr] for r in ranks]
                     for name, ranks in launched.items()}
     bf16_pool_bytes = serve_timings = serve_params = resilience = None

@@ -125,12 +125,25 @@ then moves in the compute dtype, as a float projection's does). Adapter
 stacks hold the rank's slices (sharding.shard_adapter): column-parallel
 groups add into the rank's output columns, and o / down add
 (x_r·A_r)·B into the partial product before its all-reduce. The KV
-pools and caches hold the rank's kv_heads/tp heads. Training (and LoRA
-training) is refused under tp (sharding.TP_TRAINING_NEXT).
+pools and caches hold the rank's kv_heads/tp heads.
+
+Tensor-parallel training (`group`, the `tensor` group of a
+parallel.mesh.TrainGroup with tp > 1): each rank holds the same shards
+as a serving rank, LoRA training adapters cut by the same rule (A whole
+and B cut on q/k/v/gate/up, the reverse on o/down). The residual stream
+is replicated; the fused qkv, gate/up (or up) and lm_head products read
+it through parallel/tensor.copy_to_tp (Megatron's f: its backward sums
+the input's gradient over the ranks), and o_proj, down_proj and the
+embedding end in reduce_from_tp (g: the all-reduce serving makes, with
+an identity backward). The training forward returns this rank's vocab
+slice of the logits (softcap and padded-vocab mask applied), which the
+trainer's vocab-parallel cross-entropy reads. A serving group does not
+train, and MoE does not train under tp (sharding.TP_NEXT).
 
 fsdp training (`fsdp`, the fsdp group of a parallel.mesh.TrainGroup):
-the parameters are built on `meta` and each replaced by this rank's
-slice on its `embed` dimension (parallel/sharding.fsdp_dim); the
+the parameters (a tp rank's shards under tp) are built on `meta` and
+each replaced by this rank's slice on its `embed` dimension
+(parallel/sharding.fsdp_dim); the
 training forward runs the embedding, each layer and the head with their
 whole weights gathered just before them (parallel/fsdp.py), a layer
 under remat inside its checkpoint, so its recompute gathers again.
@@ -154,6 +167,8 @@ from skypilot_tpu_torch.ops.paged_attention import (
     attend_window, paged_decode_attention, paged_decode_attention_plain)
 from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.parallel.fsdp import FullyShard
+from skypilot_tpu_torch.parallel.mesh import ServingGroup
+from skypilot_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 
 # lecun_normal's truncation: N(0, 1) cut at +-2 has std 0.8796...
 _TRUNC_STD = 0.87962566103423978
@@ -202,21 +217,34 @@ QUANT_PROJECTIONS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'up_proj',
                      'down_proj', 'lm_head')
 
 
-def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
+def check_supported(cfg: ModelConfig, tp: int = 1,
+                    training_group: bool = False) -> None:
     """Refuse, at construction, what the port does not serve: unknown
     knob values, and (as the reference refuses them) int8 weights over
     MoE, and LoRA training and multi-LoRA serving over int8 weights; under
     tensor parallelism (tp > 1) a tp that does not divide the sharded
-    dimensions (the reference's message), and training."""
+    dimensions (the reference's message), training on a serving group,
+    serving on a training group (`training_group`: the `tensor` group of
+    a parallel.mesh.TrainGroup), and MoE training (sharding.TP_NEXT)."""
     if tp > 1:
         cfg.assert_tp_compatible(tp)
-        refused = [what for what, on in (
+        training = [what for what, on in (
             ('training (decode=False)', not cfg.decode),
             ('LoRA training', lora_training(cfg))) if on]
-        if refused:
+        if training and not training_group:
             raise NotImplementedError(
-                f'tensor-parallel serving (tp={tp}) does not serve '
-                f'{", ".join(refused)} yet ({sharding.TP_TRAINING_NEXT})')
+                f'tensor-parallel serving (tp={tp}) does not train '
+                f'({", ".join(training)}): a training model takes its '
+                f"TrainGroup's tensor group, parallel.mesh.train_group("
+                f'tp=) (ROADMAP.md §1 item 6c)')
+        if training_group and cfg.decode:
+            raise ValueError(
+                f'a TrainGroup\'s tensor group trains; serve under tp={tp} '
+                f'on a ServingGroup (parallel.mesh.decode_group)')
+        if training_group and cfg.is_moe:
+            raise NotImplementedError(
+                f'{cfg.name}: MoE does not train under tp={tp} yet '
+                f'({sharding.TP_NEXT})')
     bad = _unsupported_knobs(cfg)
     if bad:
         raise NotImplementedError(
@@ -662,7 +690,24 @@ def contiguous_step(cfg: ModelConfig, positions: torch.Tensor,
 
 
 def _tp(group) -> int:
-    return group.tp if group is not None else 1
+    return group.size if group is not None else 1
+
+
+def _entering(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`x` entering a column-parallel product: under tp training through
+    parallel/tensor.copy_to_tp (f), else as it is."""
+    return copy_to_tp(x, module.group) if module.tp_train else x
+
+
+def _leaving(module: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial `y` summed over the tp group: serving's
+    all-reduce (in place), or under training reduce_from_tp (g); `y`
+    itself without tp."""
+    if module.group is None:
+        return y
+    if module.tp_train:
+        return reduce_from_tp(y, module.group)
+    return module.group.all_reduce(y)
 
 
 class Attention(nn.Module):
@@ -673,6 +718,7 @@ class Attention(nn.Module):
         self.dtype = torch_dtype(cfg)
         tp = _tp(group)
         self.group = group if tp > 1 else None
+        self.tp_train = self.group is not None and not cfg.decode
         self.heads, self.kv_heads = cfg.num_heads // tp, cfg.num_kv_heads // tp
         shapes = projection_shapes(cfg, tp)
         q_out = self.heads * cfg.head_dim
@@ -706,6 +752,7 @@ class Attention(nn.Module):
         cfg = self.cfg
         batch, cur_len, _ = x.shape
         heads, kv_heads, head_dim = self.heads, self.kv_heads, cfg.head_dim
+        x = _entering(self, x)
         qkv = _with_adapters(self, _project(self, 'qkv_proj', x, self.dtype),
                              x, self.qkv_names, self.qkv_widths,
                              self.dtype)
@@ -738,9 +785,7 @@ class Attention(nn.Module):
                            out, ('o_proj',), (cfg.d_model,), self.dtype)
         if adapter_ids is not None and self.lora_o is not None:
             self.lora_o(out, y, adapter_ids)
-        if self.group is not None:
-            y = self.group.all_reduce(y)
-        return _add_bias(self, 'o_proj', y)
+        return _add_bias(self, 'o_proj', _leaving(self, y))
 
     def _contiguous_decode_attention(self, q, k, v, step: ContiguousStep,
                                      k_cache, v_cache, k_scale,
@@ -819,6 +864,7 @@ class SwiGLU(nn.Module):
         super().__init__()
         self.dtype = torch_dtype(cfg)
         self.group = group if _tp(group) > 1 else None
+        self.tp_train = self.group is not None and not cfg.decode
         self.d_mlp = cfg.d_mlp // _tp(group)
         self.glu = cfg.mlp_style == 'glu'
         self.act = (nn.functional.silu if cfg.mlp_activation == 'silu'
@@ -845,6 +891,7 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = _entering(self, x)
         up = _with_adapters(self, _project(self, self.up_name, x, self.dtype),
                             x, self.up_names, (self.d_mlp,) * len(
                                 self.up_names), self.dtype)
@@ -860,9 +907,7 @@ class SwiGLU(nn.Module):
                            h, ('down_proj',), (self.d_model,), self.dtype)
         if adapter_ids is not None and self.lora_down is not None:
             self.lora_down(h, y, adapter_ids)
-        if self.group is not None:
-            y = self.group.all_reduce(y)
-        return _add_bias(self, 'down_proj', y)
+        return _add_bias(self, 'down_proj', _leaving(self, y))
 
 
 class DecoderLayer(nn.Module):
@@ -938,21 +983,22 @@ class Transformer(nn.Module):
 
     Parameters are created EMPTY on `device` (the card unless the caller
     asks for another; without CUDA the default raises) in
-    `param_dtype(cfg)`, as rank `group.rank`'s shard under a serving
-    group of tp > 1, or as this rank's slices under `fsdp` (the module
-    docstring); fill
-    them with `init_random_` (seeded, one tensor at a time — an 8B model
-    is never built in fp32 on the host) or `load_state_dict` (e.g. from
+    `param_dtype(cfg)`, as rank `group.rank`'s shard under a group of
+    tp > 1 (a serving group, or a training group's `tensor`), and as
+    this rank's slices (of that shard) under `fsdp` (the module
+    docstring); fill them with `init_random_` (seeded, one tensor at a
+    time — an 8B model is never built in fp32 on the host),
+    `load_whole` or `load_state_dict` (e.g. from
     models/convert.params_from_jax)."""
 
     def __init__(self, cfg: ModelConfig, device='cuda', group=None,
                  fsdp=None) -> None:
         super().__init__()
         tp = _tp(group)
-        check_supported(cfg, tp)
-        if fsdp is not None and (cfg.decode or tp > 1):
-            raise ValueError('fsdp shards a training model of one tensor-'
-                             'parallel rank')
+        check_supported(cfg, tp, training_group=tp > 1 and not isinstance(
+            group, ServingGroup))
+        if fsdp is not None and cfg.decode:
+            raise ValueError('fsdp shards a training model')
         if torch.device(device).type == 'cuda' and \
                 not torch.cuda.is_available():
             raise RuntimeError(
@@ -962,6 +1008,7 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.dtype = torch_dtype(cfg)
         self.group = group if tp > 1 else None
+        self.tp_train = self.group is not None and not cfg.decode
         self.kv_heads = cfg.num_kv_heads // tp
         self.vocab = cfg.vocab_size // tp
         # Under fsdp the whole parameters are only shapes; each rank's
@@ -1011,24 +1058,18 @@ class Transformer(nn.Module):
         forward equals the base model's). Draws on the parameters'
         own device (torch.Generator: other numbers than jax.random from
         the same seed). Float weights only: int8 weights are made from
-        float ones (models/quantize.py). A rank of a serving group draws
-        each whole parameter in turn (the same numbers as one device) and
-        keeps its shard, so no rank ever holds the whole model; a rank of
-        an fsdp group does the same with its slices (the LoRA adapters
-        too)."""
+        float ones (models/quantize.py). A rank of a tensor-parallel group
+        draws each whole parameter in turn (the same numbers as one
+        device) and keeps its shard, so no rank ever holds the whole
+        model; a rank of an fsdp group does the same with its slices (the
+        LoRA adapters too)."""
         cfg = self.cfg
         if cfg.weight_quant == 'int8':
             raise ValueError('init_random_ draws float weights; quantize '
                              'them with models/quantize.quantize_state')
-        if self.fsdp is not None:
-            self.fsdp.load_full(random_params(cfg, seed, self.embed.device,
-                                              adapters=True))
-            return self
-        if self.group is not None:
-            params = dict(self.named_parameters())
-            for name, value in random_params(cfg, seed, self.embed.device):
-                params[name].copy_(sharding.shard_tensor(
-                    name, value, cfg, self.group.tp, self.group.rank))
+        if self.fsdp is not None or self.group is not None:
+            self.load_whole(random_params(cfg, seed, self.embed.device,
+                                          adapters=True))
             return self
         gen = torch.Generator(device=self.embed.device).manual_seed(seed)
         adapters = []
@@ -1043,6 +1084,39 @@ class Transformer(nn.Module):
             else:
                 param.zero_()
         return self
+
+    @torch.no_grad()
+    def load_whole(self, items) -> None:
+        """Copy whole parameters ((name, tensor) pairs, taken one at a
+        time, on any device) into this rank's part of each: its tp shard
+        (parallel/sharding.shard_tensor), and under fsdp that shard's
+        slice."""
+        params = None if self.fsdp is not None else dict(
+            self.named_parameters())
+        for name, value in items:
+            if self.group is not None:
+                value = sharding.shard_tensor(name, value, self.cfg,
+                                              self.group.size,
+                                              self.group.rank)
+            if params is None:
+                self.fsdp.load_full([(name, value)])
+            else:
+                params[name].copy_(value)
+
+    @torch.no_grad()
+    def whole_params(self):
+        """(name, whole tensor) of every parameter in turn, on every rank
+        of the model's groups (each calls it at the same point): an fsdp
+        slice gathered over the fsdp group, a tp shard over the tp group
+        (one all-gather each, sharding.unshard)."""
+        for name, param in self.named_parameters():
+            value = (self.fsdp.full(name) if self.fsdp is not None
+                     else param.detach())
+            if self.group is not None and sharding.is_sharded(name):
+                value = sharding.unshard(
+                    list(self.group.all_gather(value).unbind(0)),
+                    sharding.tp_layout(name, self.cfg))
+            yield name, value
 
     def new_kv_pool(self, num_blocks: int) -> Tuple[torch.Tensor, ...]:
         """Zeroed (num_layers, num_blocks, block_size, KV, D) K and V
@@ -1113,7 +1187,7 @@ class Transformer(nn.Module):
         in training.
         Returns (B, T, vocab) logits in cfg.dtype, or (B, vocab) for the
         single position `logits_at` (an int, or a 0-d int device
-        tensor)."""
+        tensor); a tp training rank's are its (B, T, vocab / tp) slice."""
         cfg = self.cfg
         if positions is None:
             positions = _default_positions(tokens)
@@ -1202,26 +1276,33 @@ class Transformer(nn.Module):
         inside = (local >= 0) & (local < self.vocab)
         x = nn.functional.embedding(local.clamp(0, self.vocab - 1),
                                     self.embed).to(self.dtype)
-        return self.group.all_reduce(x.masked_fill(~inside[..., None], 0))
+        return _leaving(self, x.masked_fill(~inside[..., None], 0))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Unembed (tied: x @ embed^T), then the final logit softcap and
         the padded-vocab mask (rows past unpadded_vocab_size at -1e30);
-        under tp the ranks' vocab slices are gathered first."""
+        under tp serving the ranks' vocab slices are gathered first, under
+        tp training the rank keeps its slice (the mask's part of it)."""
         cfg = self.cfg
+        x = _entering(self, x)
         if cfg.tie_embeddings:
             logits = x @ self.embed.to(self.dtype).t()
         else:
             logits = _add_bias(self, 'lm_head',
                                _project(self, 'lm_head', x, self.dtype))
-        if self.group is not None:
+        pad = self.pad_vocab
+        if self.tp_train:
+            if pad is not None:
+                pad = pad[self.group.rank * self.vocab:
+                          (self.group.rank + 1) * self.vocab]
+        elif self.group is not None:
             logits = self.group.gather_vocab(logits, cfg.vocab_size)
         if cfg.final_logit_softcap:
             cap = cfg.final_logit_softcap
             logits = (cap * torch.tanh(logits.float() / cap)).to(
                 logits.dtype)
-        if self.pad_vocab is not None:
-            logits = logits.masked_fill(self.pad_vocab, -1e30)
+        if pad is not None:
+            logits = logits.masked_fill(pad, -1e30)
         return logits
 
 

@@ -9,7 +9,7 @@ backend the caller names (gloo also runs on `cuda`). It does nothing with
 one process and is idempotent.
 
 `spawn_group` starts a tensor-parallel serving group or a training group
-(dp x fsdp x sp) from one process: the caller becomes rank 0 and the
+(dp x fsdp x sp x tp) from one process: the caller becomes rank 0 and the
 other ranks' processes join it over a local rendezvous on a free port.
 Each imports nothing but the port, calls its `target` with its group
 (`parallel.mesh.ServingGroup` or `TrainGroup`) and the spawn's `args`,
@@ -140,15 +140,15 @@ _FOLLOWER_CODE = ('import sys\n'
 
 def spawn_group(tp: int, target: str, devices: Sequence,
                 backend: str, timeout_seconds: int = 300,
-                args: Sequence = (), cls=None, fsdp: int = 1,
-                sp: int = 1):
+                args: Sequence = (), cls=None,
+                split: Optional[Sequence[int]] = None):
     """Make this process rank 0 of a `tp`-process group and start the
     `tp - 1` followers: each runs `target` ('module:function') with its
     group (`join_group`'s `cls`) and `args` (JSON values), in this
     process's working directory, so that a relative path in `args` names
     the same file on every rank. `devices[r]` is rank r's device. A
-    training group with `fsdp` or `sp` > 1 takes its extents on every
-    rank first (mesh.TrainGroup.split). Returns rank 0's group, which
+    training group given `split` ((dp, fsdp, sp, tp)) takes those extents
+    on every rank first (mesh.TrainGroup.split). Returns rank 0's group, which
     holds the follower processes (`close` stops them)."""
     from skypilot_tpu_torch.parallel import mesh
     cls = cls or mesh.ServingGroup
@@ -163,8 +163,8 @@ def spawn_group(tp: int, target: str, devices: Sequence,
         spec = json.dumps({'tp': tp, 'rank': rank, 'address': address,
                            'backend': backend, 'device': str(devices[rank]),
                            'target': target, 'parent': os.getpid(),
-                           'timeout': timeout_seconds, 'fsdp': fsdp,
-                           'sp': sp,
+                           'timeout': timeout_seconds,
+                           'split': list(split) if split else None,
                            'group': cls.__name__, 'args': list(args)})
         procs.append(subprocess.Popen(
             [sys.executable, '-c', _FOLLOWER_CODE, spec], env=env,
@@ -178,8 +178,8 @@ def spawn_group(tp: int, target: str, devices: Sequence,
             proc.wait()
         raise
     group.processes = procs
-    if fsdp * sp > 1:
-        group = group.split(tp // (fsdp * sp), fsdp, sp)
+    if split:
+        group = group.split(*split)
     logger.info('%s group: %d ranks over %s (%s), followers %s', cls.axis,
                 tp, [str(d) for d in devices], backend,
                 [p.pid for p in procs])
@@ -208,9 +208,8 @@ def follower_main(spec_json: str) -> int:
     group = join_group(spec['tp'], spec['rank'], spec['address'],
                        spec['backend'], spec['device'], spec['timeout'],
                        cls=cls)
-    fsdp, sp = spec.get('fsdp', 1), spec.get('sp', 1)
-    if fsdp * sp > 1:
-        group = group.split(spec['tp'] // (fsdp * sp), fsdp, sp)
+    if spec.get('split'):
+        group = group.split(*spec['split'])
     module, _, name = spec['target'].partition(':')
     try:
         getattr(importlib.import_module(module), name)(group,

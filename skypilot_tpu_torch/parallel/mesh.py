@@ -1,31 +1,38 @@
-"""Meshes of the port: the dp, fsdp and sp part of the reference's mesh
-inference (skypilot_tpu/parallel/mesh.py `infer_mesh_config`), the
+"""Meshes of the port: the dp, fsdp, sp and tp part of the reference's
+mesh inference (skypilot_tpu/parallel/mesh.py `infer_mesh_config`), the
 training group that stands for its `train_mesh` (`:121`) and its
-dp x fsdp x sp training mesh, and the serving group that stands for its
-`decode_mesh` (`:104`).
+dp x fsdp x sp x tp training mesh, and the serving group that stands for
+its `decode_mesh` (`:104`).
 
-Training has three parallel axes, in the reference's order: `dp` (rows
-of the batch, outer), `fsdp` (rows of the batch too, and every weight's
-`embed` dimension: parallel/sharding.py) and `sp` (the sequence ring,
-inner). As in the reference, every device no other axis claims goes to
-fsdp.
+Training has four parallel axes, in the reference's order: `dp` (rows of
+the batch, outer), `fsdp` (rows of the batch too, and every weight's
+`embed` dimension: parallel/sharding.py), `sp` (the sequence ring) and
+`tp` (the heads, the MLP hidden dimension and the vocabulary, inner). As
+in the reference, every device no other axis claims goes to fsdp.
 
 Both kinds of run are a `Group` of processes, one rank each, over
 torch.distributed, whose `all_reduce`, `all_gather`, `reduce_scatter`
 and `permute` count calls, bytes and seconds per kind. A training run is
-a `TrainGroup` of dp x fsdp x sp ranks, laid out as the reference's grid
-reshape lays out its devices (dp outer, sp inner): rank (d·fsdp + f)·sp
-+ s is at dp index d, fsdp index f and sp index s. Its subgroups, each
-counting into the group's counts:
-- `ring`: the sp ranks that share (d, f), one sequence ring;
-- `row`: the dp ranks that share (f, s);
-- `column`: the fsdp ranks that share (d, s), which hold one weight's
-  slices between them;
-- `peers`: the dp x sp ranks that share f, which hold the same slices.
+a `TrainGroup` of dp x fsdp x sp x tp ranks, laid out as the reference's
+grid reshape lays out its devices (dp outer, tp inner): rank
+((d·fsdp + f)·sp + s)·tp + t is at dp index d, fsdp index f, sp index s
+and tp index t. Its subgroups, each counting into the group's counts:
+- `ring`: the sp ranks that share (d, f, t), one sequence ring;
+- `row`: the dp ranks that share (f, s, t);
+- `column`: the fsdp ranks that share (d, s, t), which hold one tp
+  shard's slices between them;
+- `peers`: the dp x sp ranks that share (f, t), which hold the same
+  slices;
+- `tensor` (tp > 1): the tp ranks that share (d, f, s), whose shards
+  make one model and meet in the model's own collectives
+  (parallel/tensor.py);
+- `data` (tp > 1): the dp x fsdp x sp ranks that share t, over which a
+  step sums its loss and gradients.
 Training ranks are symmetric: every rank runs the same step loop on its
 own block of the same global batch (rows over dp x fsdp, columns over
-sp; the port's step-collectives probe reads the counts), so every rank
-issues the collectives of overlapping subgroups in the same order.
+sp, the same block on every tp rank; the port's step-collectives probe
+reads the counts), so every rank issues the collectives of overlapping
+subgroups in the same order.
 
 Serving shards on `tp`. Where the reference builds a pure-tp mesh over
 the first `tp` local devices and lets XLA insert the collectives, the
@@ -52,20 +59,22 @@ logger = logging.getLogger(__name__)
 
 # The reference's axis order (skypilot_tpu/parallel/mesh.py AXES) over
 # the axes the port trains on.
-AXES = ('dp', 'fsdp', 'sp')
+AXES = ('dp', 'fsdp', 'sp', 'tp')
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Axis sizes, outer to inner: the batch axis `dp`, the
-    weight-sharding batch axis `fsdp` and the sequence axis `sp`."""
+    weight-sharding batch axis `fsdp`, the sequence axis `sp` and the
+    tensor axis `tp`."""
     dp: int = 1
     fsdp: int = 1
     sp: int = 1
+    tp: int = 1
 
     @property
     def num_devices(self) -> int:
-        return self.dp * self.fsdp * self.sp
+        return self.dp * self.fsdp * self.sp * self.tp
 
     def __str__(self) -> str:
         used = [f'{a}={getattr(self, a)}' for a in AXES
@@ -74,13 +83,13 @@ class MeshConfig:
 
 
 def infer_mesh_config(n_devices: int, *, dp: Optional[int] = None,
-                      sp: Optional[int] = None,
+                      sp: Optional[int] = None, tp: Optional[int] = None,
                       fsdp: Optional[int] = None) -> MeshConfig:
     """Fill the axes to use all `n_devices`: the reference's function
     (skypilot_tpu/parallel/mesh.py:78-102) over the port's axes. Fixed
     axes are honored and the remainder goes to fsdp; its sizes and
-    messages are the reference's (tp, pp and ep are always unset)."""
-    fixed = {'tp': None, 'pp': None, 'sp': sp, 'ep': None, 'dp': dp}
+    messages are the reference's (pp and ep are always unset)."""
+    fixed = {'tp': tp, 'pp': None, 'sp': sp, 'ep': None, 'dp': dp}
     known = math.prod(v for v in fixed.values() if v)
     if fsdp is None:
         if n_devices % known:
@@ -91,7 +100,7 @@ def infer_mesh_config(n_devices: int, *, dp: Optional[int] = None,
         raise ValueError(
             f'axis product {total} != device count {n_devices} '
             f'({fixed}, fsdp={fsdp})')
-    return MeshConfig(dp=dp or 1, fsdp=fsdp, sp=sp or 1)
+    return MeshConfig(dp=dp or 1, fsdp=fsdp, sp=sp or 1, tp=tp or 1)
 
 
 # What a spawned follower runs: the engines' follower loop.
@@ -126,7 +135,8 @@ class Group:
     `calls`, `bytes` and `seconds` count every device collective made
     through `all_reduce`, `all_gather`, `reduce_scatter` and `permute` by
     kind (STEP_COLLECTIVES; a training group's subgroups count into
-    their group's); the
+    their group's), and `own` the calls made on this group object alone
+    (a subgroup's share of its group's calls); the
     host agreement (`any`), barriers and gathers on `control` are not
     counted. A group of one has no process group and makes no collective.
 
@@ -145,6 +155,7 @@ class Group:
     calls: Dict[str, float] = dataclasses.field(default_factory=_zeros)
     bytes: Dict[str, float] = dataclasses.field(default_factory=_zeros)
     seconds: Dict[str, float] = dataclasses.field(default_factory=_zeros)
+    own: Dict[str, float] = dataclasses.field(default_factory=_zeros)
     # A group `split` made inside a larger one: its process groups live
     # and die with the larger group's.
     inner: bool = False
@@ -175,17 +186,19 @@ class Group:
         if sync:
             torch.cuda.synchronize(self.device)
         self.calls[kind] += 1
+        self.own[kind] += 1
         self.bytes[kind] += nbytes
         self.seconds[kind] += time.perf_counter() - t0
 
-    def all_reduce(self, x: torch.Tensor,
-                   kind: str = 'all_reduce') -> torch.Tensor:
-        """Sum `x` over the group in place and return it, counted under
-        `kind` (ZeRO-1 counts its gradient sum as 'partition_scatter':
-        trainer.TrainState)."""
+    def all_reduce(self, x: torch.Tensor, kind: str = 'all_reduce',
+                   op: str = 'sum') -> torch.Tensor:
+        """Reduce `x` over the group in place ('sum', or 'max') and
+        return it, counted under `kind` (ZeRO-1 counts its gradient sum as
+        'partition_scatter': trainer.TrainState)."""
         import torch.distributed as dist
+        reduce_op = {'sum': dist.ReduceOp.SUM, 'max': dist.ReduceOp.MAX}[op]
         self._run(kind, x.numel() * x.element_size(),
-                  lambda: dist.all_reduce(x, group=self.group))
+                  lambda: dist.all_reduce(x, op=reduce_op, group=self.group))
         return x
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -325,56 +338,71 @@ class Group:
 
 @dataclasses.dataclass
 class TrainGroup(Group):
-    """One rank of a training group of dp x fsdp x sp ranks (module
-    docstring): dp outer, sp inner. Training ranks are symmetric: every
+    """One rank of a training group of dp x fsdp x sp x tp ranks (module
+    docstring): dp outer, tp inner. Training ranks are symmetric: every
     rank runs the same step loop on its own block of the same global
     batch, and every collective of a step goes through the counted
     collectives of the group or of its subgroups (`ring`, `row`,
-    `column`, `peers`: the module docstring), which count into the
-    group's `calls`, `bytes` and `seconds` (the port's step-collectives
-    probe reads the counts). With fsdp 1 and sp 1 it is a data-parallel
-    group of `dp` ranks (no subgroups: the group's own collectives run
-    the step)."""
+    `column`, `peers`, `tensor`, `data`: the module docstring), which
+    count into the group's `calls`, `bytes` and `seconds` (the port's
+    step-collectives probe reads the counts). With fsdp, sp and tp 1 it
+    is a data-parallel group of `dp` ranks (no subgroups: the group's
+    own collectives run the step)."""
     fsdp: int = 1
     sp: int = 1
+    tp: int = 1
     ring: Optional[Group] = None
     row: Optional[Group] = None
     column: Optional[Group] = None
     peers: Optional[Group] = None
+    tensor: Optional[Group] = None
+    data: Optional[Group] = None
 
     @property
     def dp(self) -> int:
-        return self.size // (self.fsdp * self.sp)
+        return self.size // (self.fsdp * self.sp * self.tp)
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // (self.fsdp * self.sp)
+        return self.rank // (self.fsdp * self.sp * self.tp)
 
     @property
     def fsdp_rank(self) -> int:
-        return self.rank // self.sp % self.fsdp
+        return self.rank // (self.sp * self.tp) % self.fsdp
 
     @property
     def sp_rank(self) -> int:
-        return self.rank % self.sp
+        return self.rank // self.tp % self.sp
 
-    def split(self, dp: int, fsdp: int = 1,
-              sp: int = 1) -> Optional['TrainGroup']:
-        """The group's first dp x fsdp x sp ranks as a group of their own
-        with those extents (this group when they are its own; None on the
-        ranks left out), its subgroups made. Every rank calls it at the
-        same point. It is how one set of processes runs incarnations at
-        smaller extents (elastic.ElasticTrainLoop), as the reference's
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def replicas(self) -> 'Group':
+        """The ranks that hold the same tp shard (`data`; the group
+        itself at tp 1): a step sums its loss and gradients over them."""
+        return self.data if self.data is not None else self
+
+    def split(self, dp: int, fsdp: int = 1, sp: int = 1,
+              tp: int = 1) -> Optional['TrainGroup']:
+        """The group's first dp x fsdp x sp x tp ranks as a group of their
+        own with those extents (this group when they are its own; None on
+        the ranks left out), its subgroups made. Every rank calls it at
+        the same point. It is how one set of processes runs incarnations
+        at smaller extents (elastic.ElasticTrainLoop), as the reference's
         elastic loop builds a mesh over the first dp devices of one
-        process, and how a world takes its fsdp and sp extents."""
+        process, and how a world takes its fsdp, sp and tp extents."""
         self._usable()
-        size = dp * fsdp * sp
-        if (dp, fsdp, sp) == (self.dp, self.fsdp, self.sp) and (
-                self.row is not None or fsdp * sp == 1):
+        size = dp * fsdp * sp * tp
+        inner = fsdp * sp * tp
+        if (dp, fsdp, sp, tp) == (self.dp, self.fsdp, self.sp, self.tp) and (
+                self.row is not None or inner == 1):
             return self
-        if dp < 1 or fsdp < 1 or sp < 1 or size > self.size:
+        if min(dp, fsdp, sp, tp) < 1 or size > self.size:
             extents = ''.join(f' x {a}={v}' for a, v in (('fsdp', fsdp),
-                                                         ('sp', sp))
+                                                         ('sp', sp),
+                                                         ('tp', tp))
                               if v != 1)
             raise ValueError(f'train_mesh: dp={dp}{extents} needs '
                              f'1..{self.size} ranks')
@@ -394,28 +422,33 @@ class TrainGroup(Group):
             kept = dict(inner=True)
         sub = (TrainGroup(size, self.rank, self.device, backend=self.backend,
                           group=group, control=control, fsdp=fsdp, sp=sp,
-                          **kept)
+                          tp=tp, **kept)
                if self.rank < size else None)
-        if fsdp * sp == 1:
+        if inner == 1:
             return sub
         # Every process makes every subgroup's process group
         # (dist.new_group is collective over the whole job).
-        def rank_of(d, f, s):
-            return (d * fsdp + f) * sp + s
+        def rank_of(d, f, s, t):
+            return ((d * fsdp + f) * sp + s) * tp + t
 
-        grid = [(d, f, s) for d in range(dp) for f in range(fsdp)
-                for s in range(sp)]
-        sets = {
-            'ring': [[rank_of(d, f, s) for s in range(sp)]
-                     for d in range(dp) for f in range(fsdp)],
-            'row': [[rank_of(d, f, s) for d in range(dp)]
-                    for f in range(fsdp) for s in range(sp)],
-            'column': [[rank_of(d, f, s) for f in range(fsdp)]
-                       for d in range(dp) for s in range(sp)],
-            'peers': [[rank_of(d, f, s) for d, g, s in grid if g == f]
-                      for f in range(fsdp)]}
+        grid = [(d, f, s, t) for d in range(dp) for f in range(fsdp)
+                for s in range(sp) for t in range(tp)]
+
+        def sets(keep):
+            """The rank sets whose members share the indices `keep`
+            names (positions in (d, f, s, t)), in grid order."""
+            out = {}
+            for point in grid:
+                out.setdefault(tuple(point[i] for i in keep),
+                               []).append(rank_of(*point))
+            return list(out.values())
+
+        axes = {'ring': sets((0, 1, 3)), 'row': sets((1, 2, 3)),
+                'column': sets((0, 2, 3)), 'peers': sets((1, 3))}
+        if tp > 1:
+            axes.update(tensor=sets((0, 1, 2)), data=sets((3,)))
         made, pgs = {}, {tuple(range(size)): group}
-        for axis, groups in sets.items():
+        for axis, groups in axes.items():
             for ranks in groups:
                 if len(ranks) > 1 and tuple(ranks) not in pgs:
                     pgs[tuple(ranks)] = dist.new_group(ranks,
@@ -427,8 +460,8 @@ class TrainGroup(Group):
                         backend=self.backend, group=pg, calls=sub.calls,
                         bytes=sub.bytes, seconds=sub.seconds, inner=True)
         if sub is not None:
-            sub.ring, sub.row, sub.column, sub.peers = (
-                made['ring'], made['row'], made['column'], made['peers'])
+            for axis, value in made.items():
+                setattr(sub, axis, value)
         return sub
 
 
@@ -610,16 +643,16 @@ def decode_group(tp: int, devices: Optional[Sequence] = None,
 
 def train_group(dp: int, devices: Optional[Sequence] = None,
                 backend: Optional[str] = None, device='cuda', *,
-                fsdp: int = 1, sp: int = 1, target: Optional[str] = None,
-                args: Sequence = (), timeout_seconds: int = 300
-                ) -> TrainGroup:
-    """The training group over dp x fsdp x sp ranks: the counterpart of
-    the reference's `train_mesh(dp, devices)` (fsdp 1, sp 1) and of its
-    training mesh from `infer_mesh_config`. One rank is a group of one
-    (no process group, no collective). Otherwise:
+                fsdp: int = 1, sp: int = 1, tp: int = 1,
+                target: Optional[str] = None, args: Sequence = (),
+                timeout_seconds: int = 300) -> TrainGroup:
+    """The training group over dp x fsdp x sp x tp ranks: the
+    counterpart of the reference's `train_mesh(dp, devices)` (fsdp, sp
+    and tp 1) and of its training mesh from `infer_mesh_config`. One rank
+    is a group of one (no process group, no collective). Otherwise:
     - under torchrun (WORLD_SIZE set) this process joins as its RANK, on
       cuda:LOCAL_RANK (or the CPU), and the job's topology must be
-      dp x fsdp x sp;
+      dp x fsdp x sp x tp;
     - else this process becomes rank 0 and starts the other ranks
       (distributed.spawn_group), each of which calls `target`
       ('module:function') with its TrainGroup and `args` (JSON values):
@@ -630,15 +663,16 @@ def train_group(dp: int, devices: Optional[Sequence] = None,
     over gloo only."""
     from skypilot_tpu_torch.parallel import distributed
     axis = f'dp={dp}' + ''.join(f' x {a}={v}' for a, v in (('fsdp', fsdp),
-                                                           ('sp', sp))
+                                                           ('sp', sp),
+                                                           ('tp', tp))
                                 if v != 1)
-    if dp < 1 or fsdp < 1 or sp < 1:
+    if min(dp, fsdp, sp, tp) < 1:
         raise ValueError(f'train_mesh: {axis} needs 1..N local devices')
-    size = dp * fsdp * sp
+    size = dp * fsdp * sp * tp
     if distributed.topology_from_env().multiprocess:
         world = _join_job('train_mesh', axis, size, backend, device,
                           timeout_seconds, TrainGroup)
-        return world.split(dp, fsdp, sp)
+        return world.split(dp, fsdp, sp, tp)
     devices, backend = _rank_devices('train_mesh', axis, size, devices,
                                      backend, device)
     if size == 1:
@@ -648,4 +682,4 @@ def train_group(dp: int, devices: Optional[Sequence] = None,
                          'needs the target its other ranks run')
     return distributed.spawn_group(size, target, devices, backend,
                                    timeout_seconds, args=list(args),
-                                   cls=TrainGroup, fsdp=fsdp, sp=sp)
+                                   cls=TrainGroup, split=(dp, fsdp, sp, tp))

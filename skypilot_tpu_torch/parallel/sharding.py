@@ -116,11 +116,22 @@ def current_sequence_parallel() -> Optional[SequenceParallel]:
 # a column-parallel projection (q, k, v, gate, up) A is replicated and B
 # is cut with p's output segment, on a row-parallel one (o, down) A is
 # cut with p's input rows and B is replicated, so the row-parallel delta
-# (x_r·A_r)·B lands in the partial sum before the all-reduce.
+# (x_r·A_r)·B lands in the partial sum before the all-reduce. A LoRA
+# training adapter (`<p>_lora_a` (in, r), `<p>_lora_b` (r, out)) follows
+# the same rule.
+#
+# Training reads the same rules (`tp_whole`): a leaf no dimension of
+# which reaches tp is whole on every rank. Every rank's forward computes
+# it, and the gradient of the replicated residual stream reaches it whole
+# (parallel/tensor.py's copy_to_tp sums it), except for an adapter's
+# whole factor: a column-parallel A or a row-parallel B meets only the
+# rank's columns (or rows) of the product, so its local gradient is the
+# rank's part of the sum (`tp_partial_grad`).
 
-# What tensor-parallel serving refuses (training), and where ROADMAP.md
+# What tensor-parallel training does not run yet, and where ROADMAP.md
 # has it.
-TP_TRAINING_NEXT = 'ROADMAP.md §1 item 6c: --tp training'
+TP_NEXT = ('ROADMAP.md §1 item 6c-ii: --tp beside --sp, and MoE under --tp '
+           'training')
 
 
 TP_AXIS_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
@@ -192,6 +203,10 @@ def param_axes(name: str) -> Optional[Tuple[str, ...]]:
     (a layer's `layers.{i}.` prefix ignored), None when it is replicated
     whole (norms, position table, a MoE router)."""
     key = name.split('.', 2)[2] if name.startswith('layers.') else name
+    for end, side in (('_lora_a', 0), ('_lora_b', 1)):
+        if key.endswith(end):
+            proj = key[:-len(end)].rsplit('.', 1)[-1]
+            return adapter_axes(proj)[side][1:]
     for suffix in ('_bias', '_scale'):
         base = key[:-len(suffix)] if key.endswith(suffix) else None
         if base in TP_PARAM_AXES:
@@ -240,6 +255,35 @@ def shard_tensor(name: str, value: torch.Tensor, cfg, tp: int,
     return _shard(name, value, axes, cfg, tp, rank)
 
 
+def tp_layout(name: str, cfg) -> Optional[tuple]:
+    """How parameter `name` is cut on tp: (its cut dimension, ((whole
+    width, whether tp cuts it) of each segment of that dimension)), None
+    when it is whole on every rank. `unshard` reads it."""
+    axes = param_axes(name)
+    dim = (next((i for i, axis in enumerate(axes) if _cut(axis)), None)
+           if axes is not None else None)
+    if dim is None:
+        return None
+    return dim, tuple((width, _on_tp(axis))
+                      for axis, width in _segments(axes[dim], cfg))
+
+
+def unshard(parts: Sequence[torch.Tensor], layout) -> torch.Tensor:
+    """The whole tensor from every tp rank's shard (`parts` in rank
+    order), cut as `layout` (tp_layout) says: shard_tensor's inverse."""
+    dim, segments = layout
+    tp, pieces, start = len(parts), [], 0
+    for width, on_tp in segments:
+        if on_tp:
+            part = width // tp
+            pieces += [p.narrow(dim, start, part) for p in parts]
+            start += part
+        else:
+            pieces.append(parts[0].narrow(dim, start, width))
+            start += width
+    return torch.cat(pieces, dim=dim)
+
+
 def shard_adapter(proj: str, a: torch.Tensor, b: torch.Tensor, cfg,
                   tp: int, rank: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank `rank`'s shards of projection `proj`'s adapter matrices:
@@ -260,6 +304,20 @@ def is_sharded(name: str) -> bool:
     """Whether parameter `name` is cut on tp (else replicated)."""
     axes = param_axes(name)
     return axes is not None and any(_cut(a) for a in axes)
+
+
+def tp_whole(name: str) -> bool:
+    """Whether training parameter `name` is whole on every tp rank:
+    norms, the position table, row-parallel biases, a column-parallel
+    adapter's A and a row-parallel adapter's B."""
+    return not is_sharded(name)
+
+
+def tp_partial_grad(name: str) -> bool:
+    """Whether a tp rank's local gradient of training parameter `name`
+    is only its part of the whole gradient (the tp ranks' parts sum to
+    it): the whole factor of a LoRA adapter."""
+    return name.endswith(('_lora_a', '_lora_b')) and tp_whole(name)
 
 
 def shard_params(params, cfg, tp: int,

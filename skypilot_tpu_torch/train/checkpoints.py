@@ -48,6 +48,14 @@ Any save restores onto any template: a plain, ZeRO-1 or fsdp save onto
 a state of one rank, of a dp group (ZeRO-1 or not) or of an fsdp group
 at any extents. The saved slices are assembled into whole leaves one
 leaf at a time from the files' mmap, and each rank keeps its own cut.
+A state of a tensor-parallel group (tp > 1) writes each tp index's
+files into `tp-<t>-of-<tp>/` of the step directory, in the layout above
+as if its group had no tp (one writer per (dp, fsdp) index of tp index
+t), and state.pt beside them holds the count, the step and how each cut
+leaf is cut (sharding.tp_layout). Reading such a step assembles each
+whole leaf from its tp shards (sharding.unshard), so it too restores
+onto any template, and any save onto a tp template (each rank keeps its
+shard, then its fsdp slice of that).
 `restore_latest_valid` walks back past such a step (counted in
 skytpu_train_checkpoint_restore_fallbacks_total), and
 `save_within_deadline` is the preemption notice's bounded save
@@ -65,6 +73,7 @@ from typing import Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.observability import metrics as _obs
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.train.trainer import TrainState
 from skypilot_tpu_torch.utils import fault_injection
 
@@ -91,6 +100,11 @@ def moments_file(rank: int, dp: int) -> str:
     return f'moments-{rank}-of-{dp}.pt'
 
 
+def tp_dir(index: int, tp: int) -> str:
+    """The directory of tp index `index`'s files in a step directory."""
+    return f'tp-{index}-of-{tp}'
+
+
 def shard_file(index: int, fsdp: int, frozen: bool = False) -> str:
     """The name of fsdp index `index`'s slices (trained, or frozen) in a
     step directory."""
@@ -106,6 +120,15 @@ class _Saved:
     def __init__(self, directory: str, saved: dict, names) -> None:
         self.count = int(saved['count'])
         load = dict(mmap=True, weights_only=True, map_location='cpu')
+        # A tp save: one save of this layout a tp index, assembled.
+        self.tp = saved.get('tp')
+        if self.tp is not None:
+            tp = int(self.tp['tp'])
+            self.parts = [_Saved(sub, torch.load(os.path.join(
+                sub, _STATE_FILE), **load), names) for sub in (
+                    os.path.join(directory, tp_dir(t, tp))
+                    for t in range(tp))]
+            return
         self.layout = saved.get('fsdp')
         if self.layout is not None:
             fsdp = int(self.layout['fsdp'])
@@ -133,17 +156,27 @@ class _Saved:
                                       **load) for r in range(dp)]
         else:
             # An unsharded optimizer's state is indexed by the position of
-            # its parameter among the trained ones.
+            # its parameter among the trained ones (`names`; none: the
+            # params alone are read).
             self.opt = {names[i]: value for i, value in
-                        saved['optimizer']['state'].items()}
+                        saved['optimizer']['state'].items()} if names else {}
 
     def names(self):
         """Every saved parameter's name."""
+        if self.tp is not None:
+            return self.parts[0].names()
         if self.layout is not None:
             return list(self.layout['dims'])
         return list(self.model)
 
+    def _unshard(self, name: str, parts):
+        layout = self.tp['layouts'].get(name)
+        return parts[0] if layout is None else sharding.unshard(parts,
+                                                                layout)
+
     def param(self, name: str) -> torch.Tensor:
+        if self.tp is not None:
+            return self._unshard(name, [p.param(name) for p in self.parts])
         if self.layout is None:
             return self.model[name]
         files = (self.shards if name in self.shards[0]['params']
@@ -162,6 +195,13 @@ class _Saved:
                 for key, value in parts[0].items()}
 
     def moments(self, name: str) -> Optional[dict]:
+        if self.tp is not None:
+            parts = [p.moments(name) for p in self.parts]
+            if parts[0] is None:
+                return None
+            return {key: value if value.dim() == 0 else self._unshard(
+                name, [p[key] for p in parts])
+                for key, value in parts[0].items()}
         if self.layout is None:
             if self.zero1 is None:
                 return self.opt.get(name)
@@ -214,7 +254,7 @@ class CheckpointManager:
         `load_kwargs` go to torch.load (e.g. mmap=True, map_location)."""
         kwargs = {'weights_only': True, **load_kwargs}
         saved = torch.load(self.state_path(step), **kwargs)
-        if 'fsdp' in saved:
+        if 'fsdp' in saved or 'tp' in saved:
             source = _Saved(os.path.join(self.directory, str(step)), saved,
                             ())
             device = kwargs.get('map_location')
@@ -249,24 +289,38 @@ class CheckpointManager:
                 return False
         if not (force or not steps or step % self.save_interval_steps == 0):
             return False
-        group = state.ranks
+        group, tp = state.ranks, state.tp
         lead = group is None or group.rank == 0
+        # The first rank of this tp index writes its state.pt.
+        lead_t = group is None or group.rank // tp == 0
         final = os.path.join(self.directory, str(step))
         # One name for every rank of a group; a process of its own else.
         tmp = os.path.join(self.directory, f'.tmp-{step}' if group else
                            f'.tmp-{step}-{os.getpid()}')
+        sub = '' if tp == 1 else tp_dir(group.tp_rank, tp)
+        where = os.path.join(tmp, sub)
         if lead:
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
+            for t in range(tp if tp > 1 else 0):
+                os.makedirs(os.path.join(tmp, tp_dir(t, tp)))
         if group:
             group.barrier()
         if state.fsdp is not None:
-            self._save_fsdp(tmp, step, state)
+            self._save_fsdp(where, step, state, sub)
         elif state.zero1 and state.group.sp_rank == 0:
             # The sp ranks of a dp index hold the same slices: one writes.
             torch.save(state.moments(), os.path.join(
-                tmp, moments_file(state.dp_group.rank, state.dp)))
-        if lead and state.fsdp is None:
+                where, moments_file(state.dp_group.rank, state.dp)))
+        if lead and tp > 1:
+            cfg = state.model.cfg
+            torch.save({'count': state.count, 'step': step, 'model': {},
+                        'tp': {'tp': tp, 'layouts': {
+                            name: sharding.tp_layout(name, cfg)
+                            for name, _ in state.model.named_parameters()
+                            if sharding.is_sharded(name)}}},
+                       os.path.join(tmp, _STATE_FILE))
+        if lead_t and state.fsdp is None:
             full = state.state_dict()
             if state.zero1:
                 del full['optimizer']
@@ -275,11 +329,11 @@ class CheckpointManager:
                                                   state.zero_dims))}
             frozen = _frozen(state)
             if frozen:
-                self._save_frozen(frozen, os.path.join(tmp, _FROZEN_FILE),
-                                  step)
+                self._save_frozen(frozen, os.path.join(where, _FROZEN_FILE),
+                                  step, os.path.join(sub, _FROZEN_FILE))
             full['model'] = {k: v for k, v in full['model'].items()
                              if k not in frozen}
-            torch.save({**full, 'step': step}, os.path.join(tmp,
+            torch.save({**full, 'step': step}, os.path.join(where,
                                                             _STATE_FILE))
         if group:
             group.barrier()
@@ -291,16 +345,19 @@ class CheckpointManager:
             group.barrier()
         return True
 
-    def _save_fsdp(self, tmp: str, step: int, state: TrainState) -> None:
-        """An fsdp state's files (module docstring): the slices from the
-        ranks of dp index 0, ZeRO-1's moment slices from every rank, the
-        layout in state.pt from rank 0."""
+    def _save_fsdp(self, tmp: str, step: int, state: TrainState,
+                   sub: str = '') -> None:
+        """An fsdp state's files (module docstring) into `tmp` (`sub` of
+        the step directory): the slices from the ranks of dp index 0,
+        ZeRO-1's moment slices from every rank, the layout in state.pt
+        from the first rank (of this tp index)."""
         group, fs = state.group, state.fsdp
         # The sp ranks of a (dp, fsdp) index hold the same slices: the
         # first writes them.
         if group.sp_rank:
             return
-        rank, ranks = group.rank // group.sp, group.size // group.sp
+        per = group.sp * group.tp
+        rank, ranks = group.rank // per, group.size // per
         if group.dp_rank == 0:
             trained = dict(zip(state.names, state.params))
             torch.save({'params': {n: p.detach() for n, p in
@@ -312,11 +369,12 @@ class CheckpointManager:
             if frozen:
                 self._save_frozen(frozen, os.path.join(
                     tmp, shard_file(group.fsdp_rank, group.fsdp, True)),
-                    step, shard_file(group.fsdp_rank, group.fsdp, True))
+                    step, os.path.join(sub, shard_file(
+                        group.fsdp_rank, group.fsdp, True)))
         if state.zero1:
             torch.save(state.moments(), os.path.join(
                 tmp, moments_file(rank, ranks)))
-        if group.rank == 0:
+        if rank == 0:
             torch.save({'count': state.count, 'step': step, 'model': {},
                         'fsdp': {'fsdp': group.fsdp, 'dp': group.dp,
                                  'zero1': state.zero1,
@@ -399,20 +457,26 @@ class CheckpointManager:
                            mmap=True, weights_only=True)
         source = _Saved(os.path.join(self.directory, str(step)), saved,
                         state.names)
-        fs = state.fsdp
+        fs, cfg = state.fsdp, state.model.cfg
+
+        def cut(name, whole):
+            """A whole leaf (or moment) cut to this rank's part."""
+            if state.tp > 1:
+                whole = sharding.shard_tensor(name, whole, cfg, state.tp,
+                                              state.group.tp_rank)
+            return fs.slice_of(name, whole) if fs is not None else whole
+
         params, moments = {}, []
         for name, param in state.model.named_parameters():
-            whole = source.param(name)
-            params[name] = (fs.slice_of(name, whole) if fs is not None
-                            else whole).to(param.device).clone()
+            params[name] = cut(name, source.param(name)).to(
+                param.device).clone()
         for name in state.names:
             whole = source.moments(name)
             if whole is None:
                 continue                    # no moments yet (count 0)
-            if fs is not None:
+            if fs is not None or state.tp > 1:
                 whole = {key: value if value.dim() == 0 else
-                         fs.slice_of(name, value)
-                         for key, value in whole.items()}
+                         cut(name, value) for key, value in whole.items()}
             moments.append((name, {key: value.clone() for key, value in
                                    state.own_moments(name, whole).items()}))
         with torch.no_grad():

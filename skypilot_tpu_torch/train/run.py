@@ -91,8 +91,25 @@ rank 0, gathering one leaf at a time:
     torchrun --nproc-per-node 8 -m skypilot_tpu_torch.train.run \
         --model llama3-1b          # fsdp 8 (on 8 cards)
 
-Not ported yet (ROADMAP.md): --pp/--microbatches/--pipeline-repeats,
---tp and --ep.
+`--tp N` trains tensor-parallel over N ranks, one process each: each
+rank holds 1/N of the heads, the MLP hidden dimension and the
+vocabulary (parallel/sharding.py's rules, serving's), the ranks' partial
+products meet in the model's all-reduces and the loss is the
+vocab-parallel cross-entropy (parallel/tensor.py), so the step is one
+device's. As in the reference's mesh, the remainder goes to fsdp: `--tp
+2` on 4 ranks is fsdp 2 x tp 2 (the fine-tune recipe's fsdp x tp,
+llm/llama-3_1-finetuning/sft.yaml), and `--dp d --tp t` is dp d x tp t
+(with --zero1 and --grad-accum). Ranks start as --dp's do (torchrun, or
+this process spawns them; on the CPU the mesh spans --dp x --sp x --tp
+processes). LoRA, --init-from-hf, --export-hf and checkpoints work under
+every such layout. `--tp` beside `--sp`, and MoE under --tp, do not
+train yet (parallel/sharding.TP_NEXT):
+
+    torchrun --nproc-per-node 4 -m skypilot_tpu_torch.train.run \
+        --model llama3-1b --tp 2       # fsdp 2 x tp 2 (on 4 cards)
+
+Not ported yet (ROADMAP.md): --pp/--microbatches/--pipeline-repeats and
+--ep.
 """
 from __future__ import annotations
 
@@ -198,6 +215,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help='data-parallel ranks, one process each: '
                         'torchrun starts them, or this process starts '
                         'the other ranks itself')
+    parser.add_argument('--tp', type=int, default=None,
+                        help='tensor-parallel ranks, one process each '
+                        '(heads, MLP hidden dimension and vocabulary '
+                        'sharded); the remainder of the ranks goes to '
+                        'fsdp')
     parser.add_argument('--log-every', type=int, default=10)
     parser.add_argument('--profile-dir', default=None,
                         help='write a torch.profiler trace of steps 2-4 '
@@ -221,6 +243,9 @@ def _check_args(args) -> None:
     dp = 1 if args.dp is None else args.dp
     if dp < 1:
         raise SystemExit(f'--dp must be >= 1, got {args.dp}')
+    tp = 1 if args.tp is None else args.tp
+    if tp < 1:
+        raise SystemExit(f'--tp must be >= 1, got {args.tp}')
     if args.elastic:
         if not args.checkpoint_dir:
             raise SystemExit('--elastic requires --checkpoint-dir: the '
@@ -230,10 +255,25 @@ def _check_args(args) -> None:
             raise SystemExit('--elastic requires an explicit --dp (the '
                              'live extent; the first launch fixes the '
                              'canonical extent)')
-        if args.grad_accum > 1 or args.lora_rank or (args.sp or 1) > 1:
+        if args.grad_accum > 1 or args.lora_rank or (args.sp or 1) > 1 \
+                or tp > 1:
             raise SystemExit('--elastic composes with dp/ZeRO-1 only '
                              'for now: drop --pp/--microbatches/'
                              '--grad-accum/--lora-rank/--tp/--sp/--ep')
+    if tp > 1:
+        from skypilot_tpu_torch.models.configs import get_config
+        from skypilot_tpu_torch.parallel.sharding import TP_NEXT
+        if (args.sp or 1) > 1:
+            raise SystemExit(f'--tp {tp} beside --sp {args.sp} does not '
+                             f'train yet ({TP_NEXT})')
+        cfg = get_config(args.model)
+        if cfg.is_moe:
+            raise SystemExit(f'{cfg.name}: MoE does not train under --tp '
+                             f'yet ({TP_NEXT})')
+        try:
+            cfg.assert_tp_compatible(tp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
     if args.data_dir and args.sft_data:
         raise SystemExit('--data-dir and --sft-data are mutually '
                          'exclusive')
@@ -316,18 +356,22 @@ def main(argv=None, history: Optional[List[dict]] = None,
     topology = distributed.topology_from_env()
     made = None                     # 'spawned' / 'joined' by this call
     if group is not None:
-        if group.dp != (args.dp or group.dp) or group.sp != (args.sp or 1):
-            raise SystemExit(f'a group of dp {group.dp} x sp {group.sp} '
-                             f'ranks runs --dp {group.dp} --sp {group.sp}, '
-                             f'not --dp {args.dp} --sp {args.sp}')
-        mesh = MeshConfig(dp=group.dp, fsdp=group.fsdp, sp=group.sp)
+        if group.dp != (args.dp or group.dp) or group.sp != (
+                args.sp or 1) or group.tp != (args.tp or 1):
+            raise SystemExit(
+                f'a group of dp {group.dp} x sp {group.sp} x tp {group.tp} '
+                f'ranks runs --dp {group.dp} --sp {group.sp} --tp '
+                f'{group.tp}, not --dp {args.dp} --sp {args.sp} --tp '
+                f'{args.tp}')
+        mesh = MeshConfig(dp=group.dp, fsdp=group.fsdp, sp=group.sp,
+                          tp=group.tp)
         _check_mesh(args, mesh)
     elif topology.multiprocess:
         mesh = _job_mesh(args, topology.world_size)
         import torch.distributed as dist
         made = 'joined' if not dist.is_initialized() else None
         group = train_group(mesh.dp, fsdp=mesh.fsdp, sp=mesh.sp,
-                            device=args.device)
+                            tp=mesh.tp, device=args.device)
     elif args.elastic:
         # The reference's elastic mesh is pure dp over the first dp
         # devices (skypilot_tpu/train/run.py:146-183).
@@ -339,20 +383,21 @@ def main(argv=None, history: Optional[List[dict]] = None,
             made = 'spawned'
     else:
         count = (torch.cuda.device_count() if args.device == 'cuda'
-                 else (args.dp or 1) * (args.sp or 1))
+                 else (args.dp or 1) * (args.sp or 1) * (args.tp or 1))
         # One process runs every ring position, or the ranks are spawned.
         one_process = (bool(args.sp) and (args.dp or 1) == 1 and
                        count <= args.sp)
         try:
             mesh = (MeshConfig(sp=args.sp) if one_process else
-                    infer_mesh_config(count, dp=args.dp, sp=args.sp))
+                    infer_mesh_config(count, dp=args.dp, sp=args.sp,
+                                      tp=args.tp))
         except ValueError as e:
             raise SystemExit(f'{count} local devices: {e}') from e
         _check_mesh(args, mesh)
         if not one_process and mesh.num_devices > 1:
             group = train_group(mesh.dp, fsdp=mesh.fsdp, sp=mesh.sp,
-                                device=args.device, target=FOLLOW_TARGET,
-                                args=[argv])
+                                tp=mesh.tp, device=args.device,
+                                target=FOLLOW_TARGET, args=[argv])
             made = 'spawned'
     try:
         _train(args, mesh, group, history, result)
@@ -376,7 +421,7 @@ def _job_mesh(args, world: int):
     inference, the remainder on fsdp (--elastic keeps a pure-dp mesh)."""
     from skypilot_tpu_torch.parallel.mesh import infer_mesh_config
     try:
-        mesh = infer_mesh_config(world, dp=args.dp, sp=args.sp)
+        mesh = infer_mesh_config(world, dp=args.dp, sp=args.sp, tp=args.tp)
     except ValueError as e:
         raise SystemExit(f'{world} processes: {e}') from e
     if args.elastic and mesh.fsdp > 1:
@@ -412,7 +457,8 @@ def _train(args, mesh, group, history: Optional[List[dict]],
         coordinator = True
     ranks = group.size if group is not None else 1
     collective = ranks > 1                  # a group's saves are collective
-    fsdp = group is not None and group.fsdp > 1
+    # Every rank of an fsdp or tp run joins the model's collectives.
+    sharded = group is not None and group.fsdp * group.tp > 1
 
     elastic = canonical_dp = notice = None
     if args.elastic:
@@ -472,13 +518,13 @@ def _train(args, mesh, group, history: Optional[List[dict]],
         # skipped then.
         from skypilot_tpu_torch.models import convert, lora
         t0 = time.perf_counter()
-        if fsdp:
+        if sharded:
             # Each rank reads the checkpoint to the host (the files'
-            # pages through mmap) and keeps its slices on the card; the
-            # seeded adapters stay.
+            # pages through mmap) and keeps its part (tp shard, fsdp
+            # slice) on the card; the seeded adapters stay.
             hf = convert.load_hf_checkpoint(args.init_from_hf, cfg, 'cpu',
                                             dtype=cfg.param_dtype)
-            state.model.fsdp.load_full(hf.items())
+            state.model.load_whole(hf.items())
         else:
             hf = convert.load_hf_checkpoint(args.init_from_hf, cfg, device,
                                             dtype=cfg.param_dtype)
@@ -603,11 +649,13 @@ def _train(args, mesh, group, history: Optional[List[dict]],
                 record['step_collectives'] = probe
                 if coordinator:
                     logger.info(
-                        'step collectives: all_reduce=%d all_gather=%d '
-                        'reduce_scatter=%d (+%d partition-scatter) '
-                        'collective_permute=%d',
-                        probe['all_reduce'], probe['all_gather'],
-                        probe['reduce_scatter'], probe['partition_scatter'],
+                        'step collectives: all_reduce=%d (%d over tp) '
+                        'all_gather=%d reduce_scatter=%d (+%d '
+                        'partition-scatter) collective_permute=%d',
+                        probe['all_reduce'],
+                        probe.get('tensor_all_reduce', 0),
+                        probe['all_gather'], probe['reduce_scatter'],
+                        probe['partition_scatter'],
                         probe['collective_permute'])
             else:
                 metrics = step_fn(state, batch_for(step))
@@ -646,11 +694,11 @@ def _train(args, mesh, group, history: Optional[List[dict]],
                         'tokens/s=%.0f mfu=%s', step, args.steps, loss,
                         record['grad_norm'], record['step_s'] * 1e3, tps,
                         f'{mfu:.3f}' if device.type == 'cuda' else 'n/a')
-        if eval_fn is not None and (coordinator or fsdp) and (
+        if eval_fn is not None and (coordinator or sharded) and (
                 (step + 1) % args.eval_every == 0 or
                 step == args.steps - 1):
-            # Under fsdp every rank runs the pass (its gathers are
-            # collective).
+            # Under fsdp and tp every rank runs the pass (its gathers and
+            # all-reduces are collective).
             record['val_loss'] = run_eval(step + 1)
         if history is not None:
             history.append(record)
@@ -659,12 +707,11 @@ def _train(args, mesh, group, history: Optional[List[dict]],
             manager.save(args.steps, state, force=True)
     if args.export_hf:
         from skypilot_tpu_torch.models.convert import export_hf_checkpoint
-        if fsdp:
-            # Every rank joins each leaf's gather; rank 0 keeps the whole
+        if sharded:
+            # Every rank joins each leaf's gathers; rank 0 keeps the whole
             # leaves on the host and writes them.
             whole = {}
-            for name in state.model.fsdp.leaves:
-                value = state.model.fsdp.full(name)
+            for name, value in state.model.whole_params():
                 if coordinator:
                     whole[name] = value.cpu()
                 del value

@@ -5,8 +5,8 @@ gradients and moments sharded ZeRO-3 style, with or without ZeRO-1 on
 the dp axis), with the sequence split over an `sp` ring, or over all
 three at once.
 
-Port of skypilot_tpu/train/trainer.py without the mesh's tp, ep and pp
-axes or the pipeline. A step is: forward over the whole sequence
+Port of skypilot_tpu/train/trainer.py without the mesh's ep and pp axes
+or the pipeline. A step is: forward over the whole sequence
 (attention through the flash kernels, or the ring under sequence
 parallelism) → masked cross-entropy → backward → optax's
 clip_by_global_norm → optax's adamw with the warmup-cosine schedule.
@@ -36,6 +36,22 @@ sum them, and the whole group the loss and the slices' squares (counted
 once per fsdp index), whose square root is grad_norm; then the clip and
 AdamW on each rank's slices (ZeRO-1 cuts them further over its dp
 group).
+
+Tensor parallelism (a group with tp > 1: parallel/tensor.py, the model
+docstring): the tp ranks of one (dp, fsdp) index hold the shards of one
+model and take the same block of the batch; the model's forward and
+backward meet in its own all-reduces over the group's `tensor`, and the
+loss is the vocab-parallel cross-entropy of each rank's vocab slice, so
+every tp rank holds the same loss and the gradients of its own shards.
+The step then sums the loss and the gradients over the ranks that hold
+the same shard (the group's `data`: dp x fsdp x sp of them), never over
+tp; sums the local gradients of the adapters' whole factors
+(sharding.tp_partial_grad) over `tensor`; and reads grad_norm from one
+all-reduce over the whole group of each rank's sum of squares, a leaf's
+counted on one rank of those that hold the same part of it (its tp shard
+on every tp rank, a leaf whole on tp on tp rank 0). So the clip and
+AdamW give every rank the update of one device, and the leaves whole on
+tp stay equal on every tp rank.
 
 Sequence parallelism comes in the two forms of ops/ring_attention.py.
 In one process (`make_train_step(sp=N)`) the model sees the whole
@@ -95,6 +111,7 @@ from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.ops import limits
 from skypilot_tpu_torch.parallel import sharding
+from skypilot_tpu_torch.parallel.tensor import vocab_parallel_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +189,7 @@ class TrainState:
         self.params = [p for _, p in trained]
         self.group = group
         self.dp = group.dp if group is not None else 1
+        self.tp = group.tp if group is not None else 1
         # fsdp: the model's FullyShard. ZeRO-1's dp collectives run on the
         # group's row (its dp group) when it has subgroups, else on the
         # group itself.
@@ -191,7 +209,8 @@ class TrainState:
         self.moment_copies = [
             (self.fsdp.fsdp if self.fsdp is not None and
              self.fsdp.leaves[n].dim is not None else 1) *
-            (self.dp if d is not None else 1)
+            (self.dp if d is not None else 1) *
+            (self.tp if self.tp > 1 and sharding.is_sharded(n) else 1)
             for n, d in zip(self.names, self.zero_dims)]
         # What AdamW updates: each leaf, or under ZeRO-1 this rank's slice.
         self.updated = [p if d is None else self._own_slice(p, d)
@@ -318,9 +337,10 @@ def create_train_state(cfg: ModelConfig, train_config: Optional[TrainConfig]
                        zero1: bool = False) -> TrainState:
     """A TrainState with seeded random weights (models/transformer
     init_random_, the reference's distributions; every rank of a group
-    draws the same) on `device`, `group` and `zero1` as TrainState's. On
-    CUDA a model whose attention the kernels cannot take is refused here
-    (ops/limits.py), before any step."""
+    draws the same, each keeping its part) on `device`, `group` and
+    `zero1` as TrainState's. On CUDA a model whose attention the kernels
+    cannot take is refused here (ops/limits.py), before any step, and so
+    is a group whose tp runs beside an sp ring (sharding.TP_NEXT)."""
     if cfg.decode:
         raise ValueError('training runs the full-sequence path; '
                          'cfg.decode must be False')
@@ -331,7 +351,13 @@ def create_train_state(cfg: ModelConfig, train_config: Optional[TrainConfig]
         # Attention goes through the flash (and ring) kernels on the card.
         limits.check_kernel_shapes(cfg.head_dim)
     fsdp = group.column if group is not None and group.fsdp > 1 else None
-    model = Transformer(cfg, device=device, fsdp=fsdp).init_random_(seed)
+    tensor = group.tensor if group is not None and group.tp > 1 else None
+    if tensor is not None and group.sp > 1:
+        raise NotImplementedError(
+            f'tp={group.tp} beside sp={group.sp} does not train yet '
+            f'({sharding.TP_NEXT})')
+    model = Transformer(cfg, device=device, group=tensor,
+                        fsdp=fsdp).init_random_(seed)
     return TrainState(model, train_config or TrainConfig(), group, zero1)
 
 
@@ -347,15 +373,33 @@ def _token_losses(logits: torch.Tensor, targets: torch.Tensor,
                     else mask.float())
 
 
+def _masked_mean(losses: torch.Tensor, maskf: torch.Tensor,
+                 masked: bool) -> torch.Tensor:
+    if masked:
+        return torch.sum(losses * maskf) / torch.clamp(torch.sum(maskf),
+                                                        min=1.0)
+    return torch.mean(losses)
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token loss (`_token_losses`), masked mean
     sum(loss * mask) / max(sum(mask), 1)."""
-    losses, maskf = _token_losses(logits, targets, mask)
-    if mask is not None:
-        return torch.sum(losses * maskf) / torch.clamp(torch.sum(maskf),
-                                                        min=1.0)
-    return torch.mean(losses)
+    return _masked_mean(*_token_losses(logits, targets, mask),
+                        mask is not None)
+
+
+def _model_losses(model: Transformer, logits: torch.Tensor,
+                  targets: torch.Tensor, mask: Optional[torch.Tensor]
+                  ) -> tuple:
+    """`_token_losses` of the model's logits: a tp training rank's are its
+    vocab slice, which the vocab-parallel cross-entropy reads
+    (parallel/tensor.py)."""
+    if not model.tp_train:
+        return _token_losses(logits, targets, mask)
+    losses = vocab_parallel_cross_entropy(logits, targets, model.group)
+    return losses, (torch.ones_like(losses) if mask is None
+                    else mask.float())
 
 
 def _loss(model: Transformer, batch: Dict[str, torch.Tensor]
@@ -364,14 +408,15 @@ def _loss(model: Transformer, batch: Dict[str, torch.Tensor]
     # Named ranges (here and around the optimizer) let a torch.profiler
     # trace attribute device time to them; free when not profiling.
     with torch.profiler.record_function('cross_entropy'):
-        return cross_entropy_loss(logits, batch['targets'],
-                                  batch.get('mask'))
+        mask = batch.get('mask')
+        return _masked_mean(*_model_losses(model, logits, batch['targets'],
+                                           mask), mask is not None)
 
 
 def _origins(group, batch: Dict[str, torch.Tensor]) -> tuple:
     """((rows, columns) of a block, each rank's block origin in rank
     order) of `batch` under `group` (module docstring): rows over dp x
-    fsdp, columns over the sp ring."""
+    fsdp, columns over the sp ring, the same block on every tp rank."""
     rows, seq = batch['inputs'].shape
     extent = group.dp * group.fsdp
     if rows % extent:
@@ -381,7 +426,8 @@ def _origins(group, batch: Dict[str, torch.Tensor]) -> tuple:
         raise ValueError(f'sequence {seq} is not divisible by '
                          f'sp={group.sp}')
     part, chunk = rows // extent, seq // group.sp
-    return (part, chunk), [((r // group.sp) * part, (r % group.sp) * chunk)
+    return (part, chunk), [((r // group.tp // group.sp) * part,
+                            (r // group.tp % group.sp) * chunk)
                            for r in range(group.size)]
 
 
@@ -412,8 +458,8 @@ def _share_loss(state: TrainState, batch: Dict[str, torch.Tensor]
         float(batch['targets'].numel()), device=batch['inputs'].device))
     logits = state.model(batch['inputs'][rows, cols])
     with torch.profiler.record_function('cross_entropy'):
-        losses, maskf = _token_losses(
-            logits, batch['targets'][rows, cols],
+        losses, maskf = _model_losses(
+            state.model, logits, batch['targets'][rows, cols],
             None if mask is None else mask[rows, cols])
         return torch.sum(losses * maskf) / torch.clamp(count, min=1.0)
 
@@ -431,6 +477,44 @@ def _sum_over_ranks(loss: torch.Tensor, grads: List[torch.Tensor],
         out.append(flat[start:start + g.numel()].view(g.shape))
         start += g.numel()
     return flat[0], out
+
+
+def _tp_partial_sum(state: TrainState, grads: Dict[str, torch.Tensor]
+                    ) -> None:
+    """Under tp: replace each adapter whole factor's local gradient in
+    `grads` (by name) with its fp32 sum over the group's `tensor` (one
+    all-reduce; sharding.tp_partial_grad)."""
+    names = [n for n in state.names if sharding.tp_partial_grad(n)]
+    if state.tp == 1 or not names:
+        return
+    flat = torch.cat([grads[n].float().reshape(-1) for n in names])
+    state.group.tensor.all_reduce(flat)
+    start = 0
+    for n in names:
+        grads[n] = flat[start:start + grads[n].numel()].view(grads[n].shape)
+        start += grads[n].numel()
+
+
+def _tp_norm(state: TrainState, grads: Dict[str, torch.Tensor]
+             ) -> Optional[torch.Tensor]:
+    """grad_norm of a tp group's summed gradients (by name): each rank's
+    sum of squares of the leaves it counts, one fp32 all-reduce over the
+    whole group, the root. A rank counts a leaf when it is the first of
+    the ranks that hold the same part of it: dp and sp index 0, fsdp
+    index 0 unless fsdp cuts the leaf, tp index 0 unless tp does. None
+    without tp (apply_gradients takes the norm itself)."""
+    if state.tp == 1:
+        return None
+    group, fs = state.group, state.fsdp
+    first = group.dp_rank == 0 and group.sp_rank == 0
+    parts = [grads[n].float().square().sum() for n in state.names
+             if first and (group.fsdp_rank == 0 or (
+                 fs is not None and fs.leaves[n].dim is not None)) and (
+                     group.tp_rank == 0 or sharding.is_sharded(n))]
+    dev = next(iter(grads.values())).device
+    local = (torch.stack(parts).sum().reshape(1) if parts else
+             torch.zeros(1, dtype=torch.float32, device=dev))
+    return torch.sqrt(group.all_reduce(local)[0])
 
 
 def _ring_scope(state: TrainState, sp: Optional[int]):
@@ -467,8 +551,10 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None
     the step on the rank's block of each microbatch (its rows, and under
     an sp ring its columns, the ring per rank over the group's `ring`)
     and sums the shares once per optimizer step: one all-reduce over the
-    whole group, which ZeRO-1 counts as its partition scatter
-    (TrainState); fsdp: `_fsdp_step`. Either way the caller passes the
+    ranks that hold the same shards (the whole group without tp), which
+    ZeRO-1 counts as its partition scatter (TrainState); under tp then
+    the adapters' whole factors over `tensor` and the norm (module
+    docstring); fsdp: `_fsdp_step`. Either way the caller passes the
     global batch."""
     if sp is not None:
         sharding.sequence_parallel(sp)                    # validate now
@@ -508,13 +594,18 @@ def make_train_step(grad_accum: int = 1, *, sp: Optional[int] = None
             if state.fsdp is not None:
                 return _fsdp_step(state, batch, grad_accum)
             loss, grads = grads_of(state, batch)
-            if group is not None and group.size > 1:
+            data = group.replicas if group is not None else None
+            if data is not None and data.size > 1:
                 kind = 'partition_scatter' if state.zero1 else 'all_reduce'
                 loss, grads = _sum_over_ranks(
-                    loss, grads, lambda x: group.all_reduce(x, kind))
-        grads = [g.to(p.dtype) for g, p in zip(grads, state.params)]
+                    loss, grads, lambda x: data.all_reduce(x, kind))
+        named = dict(zip(state.names, grads))
+        _tp_partial_sum(state, named)
+        grads = [named[n].to(p.dtype) for n, p in zip(state.names,
+                                                      state.params)]
+        norm = _tp_norm(state, dict(zip(state.names, grads)))
         with torch.profiler.record_function('optimizer'):
-            grad_norm = state.apply_gradients(grads)
+            grad_norm = state.apply_gradients(grads, norm)
         return {'loss': loss.detach(), 'grad_norm': grad_norm,
                 'step': state.count}
 
@@ -529,7 +620,9 @@ def _fsdp_step(state: TrainState, batch: Dict[str, torch.Tensor],
     (fp32); then one all-reduce of the slices over the peers that hold
     them (dp x sp > 1), one over the whole group (the loss, the slices'
     sum of squares and the whole leaves' gradients), the clip and
-    AdamW."""
+    AdamW. Under tp the loss and the whole leaves are summed over the
+    group's `data` instead, the adapters' whole factors over `tensor`,
+    and the norm is `_tp_norm`'s."""
     fs, group = state.fsdp, state.group
     rows = batch['inputs'].shape[0]
     if rows % grad_accum:
@@ -573,9 +666,21 @@ def _fsdp_step(state: TrainState, batch: Dict[str, torch.Tensor],
         acc.update(zip(cut, summed(
             [acc[n] for n in cut],
             lambda x: group.peers.all_reduce(x, kind))))
+    _tp_partial_sum(state, acc)
     dtypes = dict(zip(state.names, (p.dtype for p in state.params)))
     final = {n: (acc[n] / grad_accum if grad_accum > 1 else acc[n]).to(
         dtypes[n]) for n in cut}
+    if state.tp > 1:
+        loss, *rest = summed([loss] + [acc[n] for n in whole],
+                             group.replicas.all_reduce)
+        for n, g in zip(whole, rest):
+            final[n] = (g / grad_accum if grad_accum > 1 else g).to(dtypes[n])
+        grads = [final[n] for n in state.names]
+        with torch.profiler.record_function('optimizer'):
+            grad_norm = state.apply_gradients(grads, norm=_tp_norm(
+                state, final))
+        return {'loss': loss[0], 'grad_norm': grad_norm,
+                'step': state.count}
     # The slices' squares once per fsdp index (its peers hold the same
     # slices now: the others add zeros), the loss shares and the whole
     # leaves' local gradients summed over every rank in one all-reduce:
@@ -646,15 +751,17 @@ def make_elastic_train_step(canonical_dp: int
 
     The loss is sum-of-group-sums / sum-of-group-masks: the same mean as
     make_train_step's, not its bits. A live dp that does not divide
-    canonical_dp is refused with the reference's message."""
+    canonical_dp is refused with the reference's message, and a state of
+    fsdp, sp or tp (the reference's elastic mesh is pure dp)."""
     if canonical_dp < 1:
         raise ValueError(f'canonical_dp must be >= 1, got {canonical_dp}')
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if state.fsdp is not None or (state.group is not None and
-                                      state.group.sp > 1):
+                                      state.group.sp * state.group.tp > 1):
             raise ValueError('the elastic step runs a pure-dp mesh, as the '
-                             "reference's does; this state is fsdp or sp")
+                             "reference's does; this state is fsdp, sp or "
+                             'tp')
         dp = state.dp
         if canonical_dp % dp:
             raise ValueError(
@@ -717,16 +824,22 @@ def step_collectives(step_fn, state: TrainState,
     made through the state's group; callers probe the loop's first step,
     so no batch is skipped or trained twice. The host agreement between
     steps (TrainGroup.any) is not a step collective and is not
-    counted."""
+    counted. Under tp, `tensor_all_reduce` is the share of all_reduce
+    made over the group's `tensor`."""
     from skypilot_tpu_torch.parallel.mesh import STEP_COLLECTIVES
     counts = (state.group.counts if state.group is not None
               else lambda: dict.fromkeys(STEP_COLLECTIVES, 0))
+    tensor = state.group.tensor if state.group is not None else None
     before = counts()
+    tensor_before = tensor.own['all_reduce'] if tensor is not None else 0
     metrics = step_fn(state, batch)
     after = counts()
     stats = {k: int(after[k] - before[k]) for k in STEP_COLLECTIVES}
     stats['reduce_scatter_effective'] = (stats['reduce_scatter'] +
                                          stats['partition_scatter'])
+    if tensor is not None:
+        stats['tensor_all_reduce'] = int(tensor.own['all_reduce'] -
+                                         tensor_before)
     return metrics, stats
 
 

@@ -98,7 +98,6 @@ def test_block_pool_refusals():
 
 SERVER_TO_PORT = {}
 TRAIN_TO_PORT = {
-    '--tp': 'ROADMAP §1 item 6: --tp/--ep',
     '--ep': 'ROADMAP §1 item 6: expert parallelism',
     '--pp': 'ROADMAP §1 item 6: the pipeline',
     '--microbatches': 'ROADMAP §1 item 6: the pipeline',

@@ -101,6 +101,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                 'skypilot_tpu_torch.parallel.mesh',
                 'skypilot_tpu_torch.parallel.distributed',
                 'skypilot_tpu_torch.parallel.sharding',
+                'skypilot_tpu_torch.parallel.tensor',
                 'skypilot_tpu_torch.train.elastic',
                 'skypilot_tpu_torch.train.checkpoints',
                 'skypilot_tpu_torch.train.metrics'):

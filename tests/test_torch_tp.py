@@ -154,6 +154,10 @@ def test_get_engine_serves_tp2(driver):
 ])
 def test_each_refusal_names_its_item(driver, case, needle):
     assert needle in (driver['refusals'][case] or ''), driver['refusals']
+    if case in ('training', 'lora_training'):
+        # A serving group does not train: a training model takes its
+        # TrainGroup's tensor group.
+        assert 'train_group(tp=)' in driver['refusals'][case]
     # A refusal sends nothing: the group serves the next engine.
     assert driver['after_refusals']
 
